@@ -1,0 +1,16 @@
+"""PyTorch / CUDA port of ``studiosr_tpu`` for NVIDIA Hopper.
+
+Mirrors the JAX package's layout and names (``models/swinir.py``,
+``serving/swinir_fast.py``, ...). Activations are NHWC at every public
+function. The Pallas TPU kernels of the serving path are hand-written CUDA
+C++ kernels under ``csrc/``, built with ``nvcc`` on first use
+(``ops/cuda/_build.py``); each has a plain PyTorch version beside it that
+runs only on CPU tensors.
+
+This package imports neither JAX nor anything of ``studiosr_tpu``.
+"""
+
+from studiosr_tpu_torch._device import resolve_device
+from studiosr_tpu_torch.models.swinir import SwinIR
+
+__all__ = ["SwinIR", "resolve_device"]

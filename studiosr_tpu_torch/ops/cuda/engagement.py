@@ -1,0 +1,51 @@
+"""Launch accounting for the port's CUDA kernels.
+
+Port of ``studiosr_tpu/ops/pallas/engagement.py`` without its soft
+fallback: on a CUDA tensor a kernel wrapper launches its kernel or raises,
+so there is no fallback to count. What remains:
+
+* ``launched(name)`` — each wrapper adds one where it launches its kernel
+  (CPU tensors take the plain version and count nothing);
+* ``structural_tail_decline(scale)`` — the by-design decline of a
+  configuration that has no kernel at all (scale 8's log2-ladder tail),
+  recorded and warned about so it is never silent;
+* ``counters()`` / ``declines()`` / ``reset()``.
+"""
+
+from __future__ import annotations
+
+import collections
+import warnings
+
+__all__ = ["launched", "structural_tail_decline", "counters", "declines", "reset"]
+
+_launches: collections.Counter = collections.Counter()
+_declines: dict = {}
+
+
+def launched(name: str) -> None:
+    _launches[name] += 1
+
+
+def structural_tail_decline(scale: int) -> None:
+    """Record that the fused upsample tail has no kernel for ``scale``."""
+    reason = f"scale {scale}: no fused tail (plain log2-ladder path)"
+    entry = _declines.setdefault("fused_upsample_tail", {"count": 0, "reason": reason})
+    entry["count"] += 1
+    entry["reason"] = reason
+    warnings.warn(f"fused_upsample_tail declined by design: {reason}", stacklevel=2)
+
+
+def counters() -> dict:
+    """{kernel name: launches since the last reset}."""
+    return dict(_launches)
+
+
+def declines() -> dict:
+    """{name: {"count": n, "reason": last reason}} of structural declines."""
+    return {k: dict(v) for k, v in _declines.items()}
+
+
+def reset() -> None:
+    _launches.clear()
+    _declines.clear()

@@ -1,0 +1,149 @@
+"""Serving-path SwinIR forward built on the CUDA kernels.
+
+Port of ``studiosr_tpu/serving/swinir_fast.py``: the exact SwinIR eval
+computation (``models/swinir.py``), with every Swin block through B1
+(``ops/cuda/swin_block.py``), the RSTB convs and ``conv_after_body`` through
+B2 (``ops/cuda/conv3x3.py``, the skip map folded in through ``extra``) and
+the x4 tail through B3 (``ops/cuda/upsampler.py``). ``conv_first`` and
+``conv_before_upsample`` stay plain convolutions, as the JAX package leaves
+them to XLA. B1 returns its output aligned, so the JAX path's rolled-space
+bookkeeping and its per-group realigning roll have no counterpart here.
+
+On CPU tensors every kernel wrapper takes its plain version; on CUDA
+tensors it launches its kernel or raises.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from studiosr_tpu_torch.models.blocks import DEFAULT_RGB_MEAN
+from studiosr_tpu_torch.ops.cuda import engagement
+from studiosr_tpu_torch.ops.cuda.conv3x3 import fused_conv3x3, prepare_conv3x3_weights
+from studiosr_tpu_torch.ops.cuda.swin_block import fused_swin_block
+from studiosr_tpu_torch.ops.cuda.upsampler import fused_upsample_x4
+from studiosr_tpu_torch.ops.pixel_shuffle import pixel_shuffle
+from studiosr_tpu_torch.ops.windows import gather_rel_bias, pad_to_multiple_flip, relative_position_index
+
+__all__ = ["swinir_fast_forward", "prepare_serving"]
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().float().contiguous()
+
+
+def _dense(linear: nn.Linear, dtype) -> torch.Tensor:
+    """nn.Linear (out, in) weight -> (in, out) kernel operand."""
+    return linear.weight.detach().t().to(dtype).contiguous()
+
+
+def _conv_operands(conv: nn.Conv2d, dtype):
+    return prepare_conv3x3_weights(conv.weight, dtype), _f32(conv.bias)
+
+
+def _check_supported(config: Dict[str, Any]) -> None:
+    """Raise for fused configurations whose kernel is still queued."""
+    if config.get("upsampler", "pixelshuffle") == "pixelshuffle" and int(config["scale"]) in (2, 3):
+        raise NotImplementedError(
+            f"fused SwinIR x{config['scale']} needs the x2/x3 tail kernel B4 "
+            "(ops/pallas/upsampler.py::fused_upsample_s), not ported yet"
+        )
+
+
+def prepare_serving(module: nn.Module, config: Dict[str, Any], dtype) -> Dict[str, Any]:
+    """Lay every kernel's weights out once, at load time.
+
+    Dense weights go to (in, out) and conv weights to HWIO in ``dtype``; the
+    rel-pos bias is gathered to (heads, N, N); LayerNorm weights and biases
+    become f32. Consumed by :func:`swinir_fast_forward`."""
+    _check_supported(config)
+    ws = int(config["window_size"])
+    rpi = relative_position_index(ws)
+    prep: Dict[str, Any] = {"blocks": [], "convs": []}
+    for li, layer in enumerate(module.layers):
+        heads = int(config["num_heads"][li])
+        group = []
+        for blk in layer.residual_group.blocks:
+            a = blk.attn
+            group.append(
+                dict(
+                    ln1_w=_f32(blk.norm1.weight), ln1_b=_f32(blk.norm1.bias),
+                    wqkv=_dense(a.qkv, dtype), bqkv=_f32(a.qkv.bias),
+                    wproj=_dense(a.proj, dtype), bproj=_f32(a.proj.bias),
+                    bias=gather_rel_bias(_f32(a.relative_position_bias_table), rpi, heads).contiguous(),
+                    ln2_w=_f32(blk.norm2.weight), ln2_b=_f32(blk.norm2.bias),
+                    w1=_dense(blk.mlp.fc1, dtype), b1=_f32(blk.mlp.fc1.bias),
+                    w2=_dense(blk.mlp.fc2, dtype), b2=_f32(blk.mlp.fc2.bias),
+                )
+            )
+        prep["blocks"].append(group)
+        prep["convs"].append(_conv_operands(layer.conv, dtype))
+    prep["after_body"] = _conv_operands(module.conv_after_body, dtype)
+    if config.get("upsampler", "pixelshuffle") == "pixelshuffle":
+        if int(config["scale"]) == 4:
+            up = module.upsample
+            prep["tail"] = (
+                *_conv_operands(up._modules["0"], dtype),
+                *_conv_operands(up._modules["2"], dtype),
+                *_conv_operands(module.conv_last, dtype),
+            )
+    else:
+        prep["up_direct"] = _conv_operands(module.upsample._modules["0"], dtype)
+    return prep
+
+
+def _layernorm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
+    """LayerNorm with f32 statistics, returned in ``x.dtype``."""
+    return F.layer_norm(x.float(), (x.shape[-1],), ln.weight.float(), ln.bias.float(), 1e-5).to(x.dtype)
+
+
+def swinir_fast_forward(
+    module: nn.Module, x: torch.Tensor, config: Dict[str, Any], prep: Optional[Dict[str, Any]] = None
+) -> torch.Tensor:
+    """Eval-mode SwinIR forward (flip-concat padding) of an NHWC batch.
+
+    ``prep``: the weights of :func:`prepare_serving` for ``x.dtype``; built
+    here when omitted."""
+    _check_supported(config)
+    if prep is None:
+        prep = prepare_serving(module, config, x.dtype)
+    scale = int(config["scale"])
+    ws = int(config["window_size"])
+    img_range = float(config.get("img_range", 1.0))
+    upsampler = config.get("upsampler", "pixelshuffle")
+
+    _, h0, w0, _ = x.shape
+    x = pad_to_multiple_flip(x, ws)
+    mean = torch.tensor(DEFAULT_RGB_MEAN, dtype=x.dtype, device=x.device)
+    x = x / img_range - mean
+
+    x = module.conv_first(x).contiguous()
+    shallow = x
+    feats = _layernorm(x, module.patch_embed.norm)
+    for li, layer in enumerate(module.layers):
+        heads = int(config["num_heads"][li])
+        res = feats
+        for bi, operands in enumerate(prep["blocks"][li]):
+            res = fused_swin_block(res, **operands, heads=heads, window_size=ws, shift=0 if bi % 2 == 0 else ws // 2)
+        feats = fused_conv3x3(res, *prep["convs"][li], extra=feats)
+    feats = _layernorm(feats, module.norm)
+    x = fused_conv3x3(feats, *prep["after_body"], extra=shallow)
+
+    if upsampler == "pixelshuffle":
+        x = F.leaky_relu(module.conv_before_upsample[0](x), 0.01).contiguous()
+        if scale == 4:
+            x = fused_upsample_x4(x, *prep["tail"])
+        else:
+            # No fused tail outside x2/x3/x4: record the by-design decline
+            # and run the plain log2 ladder.
+            engagement.structural_tail_decline(scale)
+            x = module.conv_last(module.upsample(x))
+    else:
+        x = pixel_shuffle(fused_conv3x3(x, *prep["up_direct"]), scale)
+
+    x = (x + mean) * img_range
+    return x[:, : h0 * scale, : w0 * scale, :]

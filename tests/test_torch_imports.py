@@ -1,0 +1,63 @@
+"""Import guard of the port: no JAX, and no build at import time.
+
+Scans source with ``ast`` rather than ``sys.modules``, since the test
+process imports JAX for the parity tests.
+"""
+
+import ast
+import importlib
+import os
+import shutil
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "studiosr_tpu_torch"
+FORBIDDEN = ("jax", "flax", "optax", "studiosr_tpu")
+SOURCES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+WRAPPERS = [
+    "studiosr_tpu_torch.ops.cuda.conv3x3",
+    "studiosr_tpu_torch.ops.cuda.swin_block",
+    "studiosr_tpu_torch.ops.cuda.upsampler",
+]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_package_imports(path):
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_guard_sees_the_whole_package():
+    names = {p.name for p in SOURCES}
+    assert {"swinir.py", "swinir_fast.py", "swin_block.py", "conv3x3.py", "upsampler.py", "chip_smoke.py"} <= names
+
+
+@pytest.mark.parametrize("module", WRAPPERS)
+def test_kernel_wrappers_import_without_building(module):
+    from studiosr_tpu_torch.ops.cuda import _build
+
+    importlib.import_module(module)
+    assert _build._libs == {}
+
+
+def test_build_without_nvcc_raises():
+    from studiosr_tpu_torch.ops.cuda import _build
+
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    if shutil.which("nvcc") or (Path(cuda_home) / "bin" / "nvcc").exists():
+        pytest.skip("nvcc is installed here")
+    if all(_build._library_path(n).exists() for n in _build.SOURCES):
+        pytest.skip("libraries already built")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build()
