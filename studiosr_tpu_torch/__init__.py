@@ -2,15 +2,16 @@
 
 Mirrors the JAX package's layout and names (``models/swinir.py``,
 ``serving/swinir_fast.py``, ...). Activations are NHWC at every public
-function. The Pallas TPU kernels of the serving path are hand-written CUDA
-C++ kernels under ``csrc/``, built with ``nvcc`` on first use
-(``ops/cuda/_build.py``); each has a plain PyTorch version beside it that
-runs only on CPU tensors.
+function. The Pallas TPU kernels of the serving and training paths are
+hand-written CUDA C++ kernels under ``csrc/``, built with ``nvcc`` on first
+use (``ops/cuda/_build.py``); each has a plain PyTorch version beside it
+that runs only on CPU tensors.
 
 This package imports neither JAX nor anything of ``studiosr_tpu``.
 """
 
 from studiosr_tpu_torch._device import resolve_device
+from studiosr_tpu_torch.engine import Trainer
 from studiosr_tpu_torch.models.swinir import SwinIR
 
-__all__ = ["SwinIR", "resolve_device"]
+__all__ = ["SwinIR", "Trainer", "resolve_device"]

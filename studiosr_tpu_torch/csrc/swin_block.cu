@@ -47,28 +47,7 @@
 // (64 x 96 x 192, 64 x 64 x 32, 64 x 32 x 64)
 // (scripts/torch_ablate_swin_block.py splits the time). Reading and
 // writing the map exactly once is what it keeps from the TPU design.
-#include <mma.h>
-
-#include <type_traits>
-
-#include "common.cuh"
-
-constexpr int SB_THREADS = 256;
-constexpr int SB_WS = 8;
-constexpr int SB_TOK = SB_WS * SB_WS;  // tokens per window; the GEMM rows
-constexpr int SB_KC = 32;              // rows of B staged per step; K pads to a multiple
-// Row strides of shared-memory operands are padded by SB_SKEW elements so
-// that the 16 rows of a wmma fragment fall on different banks (an unpadded
-// stride of 64 or 192 bf16 elements is a multiple of 128 bytes, and every
-// row of a fragment would hit the same 8 banks).
-constexpr int SB_SKEW = 8;
-constexpr int SB_BL = 64 + SB_SKEW;      // stride of the staged B chunk
-constexpr int SB_TL = 64 + SB_SKEW / 2;  // stride of the f32 scores
-
-__host__ __device__ inline int pad16(int v) { return (v + 15) & ~15; }
-__host__ __device__ inline int pad32(int v) { return (v + 31) & ~31; }
-__host__ __device__ inline int pad64(int v) { return (v + 63) & ~63; }
-__host__ __device__ inline size_t align32(size_t v) { return (v + 31) & ~(size_t)31; }
+#include "swin_common.cuh"
 
 // Shared-memory layout of one window: byte offsets and row strides (in
 // elements). K dimensions are padded with zero columns (lnb and attn to
@@ -160,251 +139,6 @@ __global__ void swin_pack_kernel(const T* __restrict__ wqkv, const T* __restrict
   }
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
-
-// Issue the copy of the 32 x 64 chunk of B at (k0, n0) (row stride ldb,
-// 16-byte aligned rows) into dst (row stride SB_BL), as one cp.async group.
-template <typename T>
-__device__ __forceinline__ void stage_chunk(T* dst, const T* B, int ldb, int k0, int n0) {
-  constexpr int PIECES = 64 * (int)sizeof(T) / 16;  // 16-byte pieces per chunk row
-  constexpr int PER = 16 / (int)sizeof(T);
-  for (int i = threadIdx.x; i < SB_KC * PIECES; i += SB_THREADS) {
-    const int r = i / PIECES, c = (i % PIECES) * PER;
-    cp_async16(dst + r * SB_BL + c, B + (size_t)(k0 + r) * ldb + n0 + c);
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// f32 micro-kernel: the thread's 4 x 4 outputs (rows ty + 16i, columns
-// tx + 16j) over k in [0, kend): acc += A[r][k0 + k] * B(k, n).
-template <typename T, typename BF>
-__device__ __forceinline__ void fma_steps(float (&acc)[4][4], const T* A, int lda, int k0, int kend, BF b_at) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  for (int kk = 0; kk < kend; ++kk) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = to_f32(A[(ty + 16 * i) * lda + k0 + kk]);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = to_f32(b_at(kk, tx + 16 * j));
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-template <typename EP>
-__device__ __forceinline__ void fma_epilogue(const float (&acc)[4][4], int n0, int N, EP epi) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < N) epi(ty + 16 * i, n, acc[i][j]);
-    }
-}
-
-using AccFrag = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>;
-static_assert(AccFrag::num_elements == 8, "FragMap packs 8 accumulator elements");
-
-// Where each of the 8 accumulator elements a thread holds sits in its
-// 16 x 16 fragment: one byte per element, row in the high and column in
-// the low nibble, four bytes a word. wmma leaves the layout unspecified, so
-// read_frag_map reads it once per thread from a fragment loaded from an
-// index table.
-struct FragMap {
-  uint32_t w[2];
-};
-
-// `table`: 256 floats of shared memory, free until the call returns.
-// Called by every thread of the block.
-__device__ FragMap read_frag_map(float* table) {
-  for (int i = threadIdx.x; i < 256; i += SB_THREADS) table[i] = (float)i;
-  __syncthreads();
-  AccFrag f;
-  nvcuda::wmma::load_matrix_sync(f, table, 16, nvcuda::wmma::mem_row_major);
-  FragMap m{{0u, 0u}};
-#pragma unroll
-  for (int i = 0; i < 8; ++i) m.w[i >> 2] |= (uint32_t)f.x[i] << (8 * (i & 3));
-  __syncthreads();
-  return m;
-}
-
-// Warp w's share of a 64 x 64 output tile on the tensor cores: rows
-// 16 (w % 4) and the two column fragments 2 (w / 4), 2 (w / 4) + 1.
-// After the K loop each thread hands its accumulator elements straight to
-// the element-wise epilogue, for n0 + column < N.
-template <typename EP>
-__device__ __forceinline__ void tc_epilogue(const AccFrag (&acc)[2], const FragMap& map, int n0, int N, EP epi) {
-  const int warp = threadIdx.x >> 5, mf = warp & 3, nf = (warp >> 2) * 2;
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int code = (map.w[i >> 2] >> (8 * (i & 3))) & 0xff;
-      const int n = n0 + (nf + j) * 16 + (code & 15);
-      if (n < N) epi(mf * 16 + (code >> 4), n, acc[j].x[i]);
-    }
-}
-
-// acc(r, n) = sum_k A[r * lda + k] * B[k * ldb + n] over the 64 token rows
-// and n < N, handed to epi(r, n, acc). B is packed: KP rows (a multiple of
-// SB_KC) by pad64(N) columns, zero outside the product. The (n-tile,
-// K-chunk) rounds run as one sequence through the two buffers of bst, one
-// barrier each. f32 runs on the FMA pipes. bf16 runs on the tensor cores
-// and needs A's rows 32-byte aligned, lda a multiple of 16 and A's columns
-// past the true K zero up to KP. Ends with a barrier.
-template <typename T, typename EP>
-__device__ void gemm64(const T* A, int lda, int KP, int N, const T* B, int ldb, T* bst, const FragMap& map, EP epi) {
-  using namespace nvcuda;
-  constexpr bool tc = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int BUF = SB_KC * SB_BL;
-  const int warp = threadIdx.x >> 5, mf = warp & 3, nf = (warp >> 2) * 2;
-  const int nk = KP / SB_KC, rounds = (N + 63) / 64 * nk;
-  float acc[4][4] = {};
-  AccFrag frag[2];
-  if constexpr (tc) {
-    wmma::fill_fragment(frag[0], 0.f);
-    wmma::fill_fragment(frag[1], 0.f);
-  }
-  stage_chunk(bst, B, ldb, 0, 0);
-  for (int t = 0; t < rounds; ++t) {
-    const int kc = t % nk, n0 = t / nk * 64, k0 = kc * SB_KC;
-    cp_async_wait_all();
-    __syncthreads();  // chunk t is in; every thread is done with chunk t - 1's buffer
-    if (t + 1 < rounds) stage_chunk(bst + ((t + 1) & 1) * BUF, B, ldb, (t + 1) % nk * SB_KC, (t + 1) / nk * 64);
-    const T* b = bst + (t & 1) * BUF;
-    if constexpr (tc) {
-#pragma unroll
-      for (int ks = 0; ks < SB_KC / 16; ++ks) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af;
-        wmma::load_matrix_sync(af, A + mf * 16 * lda + k0 + ks * 16, lda);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf;
-          wmma::load_matrix_sync(bf, b + ks * 16 * SB_BL + (nf + j) * 16, SB_BL);
-          wmma::mma_sync(frag[j], af, bf, frag[j]);
-        }
-      }
-    } else {
-      fma_steps(acc, A, lda, k0, SB_KC, [&](int kk, int n) { return b[kk * SB_BL + n]; });
-    }
-    if (kc == nk - 1) {  // the n-tile is complete
-      if constexpr (tc) {
-        tc_epilogue(frag, map, n0, N, epi);
-        wmma::fill_fragment(frag[0], 0.f);
-        wmma::fill_fragment(frag[1], 0.f);
-      } else {
-        fma_epilogue(acc, n0, N, epi);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// The same product with B already in shared memory, read in place:
-// B(k, n) = B[k * ldb + n] (Layout row_major) or B[n * ldb + k]
-// (col_major). N <= 64, K a multiple of 16, ldb a multiple of 16.
-template <typename Layout, typename T, typename EP>
-__device__ void gemm64_smem(const T* A, int lda, const T* B, int ldb, int K, int N, const FragMap& map, EP epi) {
-  using namespace nvcuda;
-  constexpr bool row = std::is_same<Layout, nvcuda::wmma::row_major>::value;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    const int warp = threadIdx.x >> 5, mf = warp & 3, nf = (warp >> 2) * 2;
-    AccFrag frag[2];
-    wmma::fill_fragment(frag[0], 0.f);
-    wmma::fill_fragment(frag[1], 0.f);
-    if (nf * 16 < N) {
-      for (int ks = 0; ks < K / 16; ++ks) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af;
-        wmma::load_matrix_sync(af, A + mf * 16 * lda + ks * 16, lda);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, Layout> bf;
-          const int c = (nf + j) * 16;
-          wmma::load_matrix_sync(bf, row ? B + ks * 16 * ldb + c : B + c * ldb + ks * 16, ldb);
-          wmma::mma_sync(frag[j], af, bf, frag[j]);
-        }
-      }
-    }
-    tc_epilogue(frag, map, 0, N, epi);
-  } else {
-    float acc[4][4] = {};
-    fma_steps(acc, A, lda, 0, K, [&](int k, int n) { return row ? B[k * ldb + n] : B[n * ldb + k]; });
-    fma_epilogue(acc, 0, N, epi);
-  }
-  __syncthreads();
-}
-
-// LayerNorm (eps 1e-5) of the 64 rows of xs (stride C) into out (stride
-// ldo); one warp per row.
-template <typename T>
-__device__ void layernorm_rows(const T* xs, int C, const float* g, const float* b, T* out, int ldo) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < SB_TOK; r += SB_THREADS / 32) {
-    const T* row = xs + r * C;
-    float s = 0.f;
-    for (int c = lane; c < C; c += 32) s += to_f32(row[c]);
-    const float mean = warp_sum(s) / C;
-    float v = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float dv = to_f32(row[c]) - mean;
-      v += dv * dv;
-    }
-    const float rstd = rsqrtf(warp_sum(v) / C + 1e-5f);
-    for (int c = lane; c < C; c += 32) out[r * ldo + c] = from_f32<T>((to_f32(row[c]) - mean) * rstd * g[c] + b[c]);
-  }
-}
-
-// Row stride, in elements of T, of the probabilities written over the
-// scores (row r of both starts at the same byte).
-template <typename T>
-__host__ __device__ constexpr int probs_ld() {
-  return SB_TL * (int)(sizeof(float) / sizeof(T));
-}
-
-// Row softmax of the 64 x 64 f32 scores in sc, in place: row r becomes
-// exp(s - max) rounded to T (the operand of the AV product, stride
-// probs_ld<T>()), and inv[r] <- 1 / (f32 row sum). One warp per row, so a
-// row is read whole before any lane of its warp writes it.
-template <typename T>
-__device__ void softmax_rows(float* sc, float* inv) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  T* probs = reinterpret_cast<T*>(sc);
-  constexpr int LDP = probs_ld<T>();
-  for (int r = warp; r < SB_TOK; r += SB_THREADS / 32) {
-    const float a = sc[r * SB_TL + lane], b = sc[r * SB_TL + lane + 32];
-    const float m = warp_max(fmaxf(a, b));
-    const float ea = expf(a - m), eb = expf(b - m);
-    const float s = warp_sum(ea + eb);
-    __syncwarp();
-    probs[r * LDP + lane] = from_f32<T>(ea);
-    probs[r * LDP + lane + 32] = from_f32<T>(eb);
-    if (lane == 0) inv[r] = 1.f / s;
-  }
-}
-
-// Region of coordinate i of the rolled map along an axis of length n:
-// [0, n - ws) -> 0, [n - ws, n - shift) -> 1, [n - shift, n) -> 2.
-__device__ __forceinline__ int region_id(int i, int n, int shift) {
-  return i < n - SB_WS ? 0 : (i < n - shift ? 1 : 2);
-}
-
-template <typename T>
-__device__ __forceinline__ void zero_columns(T* buf, int ld, int from, int to) {
-  const int width = to - from;
-  for (int i = threadIdx.x; i < SB_TOK * width; i += SB_THREADS) buf[(i / width) * ld + from + i % width] = from_f32<T>(0.f);
-}
-
 template <typename T>
 __global__ void __launch_bounds__(SB_THREADS, 2) swin_block_kernel(
     const T* __restrict__ x, T* __restrict__ out, int H, int W, int C, int heads, int hidden, int shift,
@@ -470,7 +204,7 @@ __global__ void __launch_bounds__(SB_THREADS, 2) swin_block_kernel(
                 qkvh[r * LQ + n] = from_f32<T>(v);
               });
     // scores = q k^T + bias (+ mask)
-    gemm64_smem<nvcuda::wmma::col_major>(
+    gemm64_smem<nvcuda::wmma::row_major, nvcuda::wmma::col_major>(
         qkvh, LQ, qkvh + DP, LQ, DP, SB_TOK, map, [&](int r, int n, float acc) {
           float v = acc + relbias[(h * SB_TOK + r) * SB_TOK + n];
           if (rid[r] != rid[n]) v += -100.f;
@@ -478,7 +212,7 @@ __global__ void __launch_bounds__(SB_THREADS, 2) swin_block_kernel(
         });
     softmax_rows<T>(sc, inv);
     __syncthreads();
-    gemm64_smem<nvcuda::wmma::row_major>(
+    gemm64_smem<nvcuda::wmma::row_major, nvcuda::wmma::row_major>(
         probs, probs_ld<T>(), qkvh + 2 * DP, LQ, SB_TOK, DP, map, [&](int r, int n, float acc) {
           if (n < d) attn[r * LC + h * d + n] = from_f32<T>(acc * inv[r]);
         });

@@ -3,8 +3,11 @@
 Port of ``studiosr_tpu/models/base.py``: ``inference`` takes an RGB uint8
 HWC array and returns the upscaled RGB uint8 HWC array; ``forward_uint8``
 does normalize -> forward -> x255, round, clip, uint8 on the device;
-``half()`` switches to bfloat16 serving; :class:`FusedServingModel` adds
-``enable_fused`` and the cached load-time ``serving_prep``.
+``half()`` switches to bfloat16 serving (it converts the module in place,
+so a Trainer never calls it on the f32 weights it trains);
+``get_model_config`` gives the reconstruction config (the Trainer's
+``params.json``); :class:`FusedServingModel` adds ``enable_fused`` and the
+cached load-time ``serving_prep``.
 
 A model wraps an ``nn.Module`` that lives on ``self.device``. Forwards run
 under ``torch.inference_mode``. Self-ensemble, on-device evaluation, tiled
@@ -34,6 +37,9 @@ class Model:
     @property
     def img_range(self) -> float:
         return float(self.config.get("img_range", 1.0))
+
+    def get_model_config(self) -> Dict[str, Any]:
+        return dict(self.config)
 
     def count_parameters(self) -> int:
         return sum(p.numel() for p in self.module.parameters())

@@ -22,7 +22,19 @@ import torch.nn.functional as F
 
 from studiosr_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 
-__all__ = ["DEFAULT_RGB_MEAN", "Normalizer", "Conv", "conv", "gelu", "LayerNorm", "Mlp", "Upsampler"]
+__all__ = [
+    "DEFAULT_RGB_MEAN",
+    "Normalizer",
+    "Conv",
+    "conv",
+    "gelu",
+    "LayerNorm",
+    "Mlp",
+    "Upsampler",
+    "drop_path_scales",
+    "drop_path",
+    "DropPath",
+]
 
 # DIV2K RGB mean, the normalization constant of the reference models.
 DEFAULT_RGB_MEAN = (0.4488, 0.4371, 0.4040)
@@ -80,6 +92,38 @@ class Mlp(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(gelu(self.fc1(x)))
+
+
+def drop_path_scales(
+    batch: int, rate: float, generator: Optional[torch.Generator] = None, device=None, n: int = 1
+) -> torch.Tensor:
+    """(batch, n) f32 stochastic-depth scales: Bernoulli(1 - rate) keep bits
+    divided by 1 - rate, drawn on the CPU from ``generator`` (the global
+    generator when None) and moved to ``device``."""
+    keep = 1.0 - rate
+    bits = torch.rand((batch, n), generator=generator) < keep
+    return (bits.float() / keep).to(device)
+
+
+def drop_path(
+    x: torch.Tensor, rate: float, training: bool, generator: Optional[torch.Generator] = None
+) -> torch.Tensor:
+    """Stochastic depth on the leading (batch) axis (timm DropPath analog)."""
+    if not training or rate == 0.0:
+        return x
+    scales = drop_path_scales(x.shape[0], rate, generator, x.device)
+    return x * scales.reshape((-1,) + (1,) * (x.dim() - 1)).to(x.dtype)
+
+
+class DropPath(nn.Module):
+    """Module wrapper for :func:`drop_path`; active in training mode."""
+
+    def __init__(self, rate: float = 0.0) -> None:
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return drop_path(x, self.rate, self.training, generator)
 
 
 class Upsampler(nn.Module):

@@ -1,4 +1,4 @@
-"""SwinIR — shifted-window transformer SR (NHWC, PyTorch, eval mode).
+"""SwinIR — shifted-window transformer SR (NHWC, PyTorch).
 
 Port of ``studiosr_tpu/models/swinir.py``: conv_first -> RSTB groups (each a
 stack of Swin blocks + conv + residual) -> conv_after_body -> upsampler;
@@ -9,21 +9,32 @@ Module names equal the flax paths (``layers.0.residual_group.blocks.1.attn``
 ...), so ``zoo/translate.py`` fills this module from a JAX params tree or an
 exported torch state_dict by name. The shift mask and relative-position
 index are numpy tables (``ops/windows.py``), recomputed rather than loaded.
-Fused training and drop-path are not part of this port yet.
+
+Training mode (``module.train()``) applies stochastic depth to both
+residual halves of every Swin block, with rates
+``np.linspace(0, drop_path_rate, sum(depths))``; each block draws its (B, 2)
+keep scales from the ``generator`` handed to ``forward``. ``fused_train``
+routes every Swin block through the custom-autograd fused halves
+(``ops/attn_vjp.py`` over B5/B8, ``ops/mlp_vjp.py`` over B6/B7) with the
+same parameters and the same scales; it requires ``drop_rate == 0``.
+Dropout (``drop_rate > 0``) is not ported: training mode raises for it.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from studiosr_tpu_torch._device import resolve_device
 from studiosr_tpu_torch.models.base import FusedServingModel
-from studiosr_tpu_torch.models.blocks import LayerNorm, Mlp, Normalizer, Upsampler, conv
+from studiosr_tpu_torch.models.blocks import LayerNorm, Mlp, Normalizer, Upsampler, conv, drop_path_scales
 from studiosr_tpu_torch.ops.attention import attention_core
+from studiosr_tpu_torch.ops.attn_vjp import attention_map_vjp
+from studiosr_tpu_torch.ops.mlp_vjp import mlp_block_dp_vjp
 from studiosr_tpu_torch.ops.windows import (
     calculate_mask,
     gather_rel_bias,
@@ -60,20 +71,39 @@ class WindowAttention(nn.Module):
 
 
 class SwinTransformerBlock(nn.Module):
-    """LN -> (shifted) window attention -> LN -> MLP, both residual. (B, H, W, C)."""
+    """LN -> (shifted) window attention -> LN -> MLP, both residual. (B, H, W, C).
 
-    def __init__(self, dim: int, num_heads: int, window_size: int, shift_size: int = 0, mlp_ratio: float = 4.0):
+    In training mode with ``drop_path > 0`` each residual delta is scaled per
+    sample by keep bits / keep (columns 0 and 1 of one (B, 2) draw), on the
+    plain and the fused path alike."""
+
+    def __init__(
+        self,
+        dim: int,
+        num_heads: int,
+        window_size: int,
+        shift_size: int = 0,
+        mlp_ratio: float = 4.0,
+        drop_path: float = 0.0,
+    ):
         super().__init__()
         self.window_size = window_size
         self.shift_size = shift_size
+        self.drop_path = drop_path
+        self.fused_train = False
         self.norm1 = LayerNorm(dim)
         self.attn = WindowAttention(dim, window_size, num_heads)
         self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _, h, w, c = x.shape
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        b, h, w, c = x.shape
         ws, ss = self.window_size, self.shift_size
+        scales = None
+        if self.training and self.drop_path > 0.0:
+            scales = drop_path_scales(b, self.drop_path, generator, x.device, n=2)
+        if self.fused_train:
+            return self._fused(x, scales)
         shortcut = x
         x = self.norm1(x)
         mask = None
@@ -85,8 +115,28 @@ class SwinTransformerBlock(nn.Module):
         x = window_reverse(windows.reshape(-1, ws, ws, c), ws, h, w)
         if ss > 0:
             x = torch.roll(x, (ss, ss), dims=(1, 2))
+        if scales is not None:
+            x = x * scales[:, 0].reshape(-1, 1, 1, 1).to(x.dtype)
         x = shortcut + x
-        return x + self.mlp(self.norm2(x))
+        y = self.mlp(self.norm2(x))
+        if scales is not None:
+            y = y * scales[:, 1].reshape(-1, 1, 1, 1).to(y.dtype)
+        return x + y
+
+    def _fused(self, x: torch.Tensor, scales: Optional[torch.Tensor]) -> torch.Tensor:
+        b, h, w, c = x.shape
+        a = self.attn
+        bias = gather_rel_bias(a.relative_position_bias_table, relative_position_index(self.window_size), a.num_heads)
+        x = attention_map_vjp(
+            x, self.norm1.weight, self.norm1.bias, a.qkv.weight.t(), a.qkv.bias, a.proj.weight.t(), a.proj.bias,
+            bias, None if scales is None else scales[:, 0].contiguous(), self.shift_size, a.num_heads,
+            self.window_size,
+        )
+        y = mlp_block_dp_vjp(
+            x.reshape(b * h * w, c), self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight.t(), self.mlp.fc1.bias,
+            self.mlp.fc2.weight.t(), self.mlp.fc2.bias, None if scales is None else scales[:, 1].contiguous(), h * w,
+        )
+        return y.reshape(b, h, w, c)
 
 
 class _ResidualGroup(nn.Module):
@@ -98,20 +148,31 @@ class _ResidualGroup(nn.Module):
 class RSTB(nn.Module):
     """Residual Swin Transformer Block group."""
 
-    def __init__(self, dim: int, depth: int, num_heads: int, window_size: int, mlp_ratio: float = 4.0) -> None:
+    def __init__(
+        self,
+        dim: int,
+        depth: int,
+        num_heads: int,
+        window_size: int,
+        mlp_ratio: float = 4.0,
+        drop_path: Sequence[float] = (),
+    ) -> None:
         super().__init__()
         self.residual_group = _ResidualGroup(
             [
-                SwinTransformerBlock(dim, num_heads, window_size, 0 if i % 2 == 0 else window_size // 2, mlp_ratio)
+                SwinTransformerBlock(
+                    dim, num_heads, window_size, 0 if i % 2 == 0 else window_size // 2, mlp_ratio,
+                    drop_path[i] if drop_path else 0.0,
+                )
                 for i in range(depth)
             ]
         )
         self.conv = conv(dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         res = x
         for blk in self.residual_group.blocks:
-            res = blk(res)
+            res = blk(res, generator)
         return self.conv(res) + x
 
 
@@ -133,16 +194,22 @@ class SwinIRModule(nn.Module):
         window_size: int = 8,
         mlp_ratio: float = 2.0,
         upsampler: str = "pixelshuffle",
+        drop_rate: float = 0.0,
+        drop_path_rate: float = 0.0,
+        fused_train: bool = False,
     ) -> None:
         super().__init__()
         self.scale = scale
         self.window_size = window_size
         self.upsampler = upsampler
+        self.drop_rate = drop_rate
         self.normalizer = Normalizer(img_range)
         self.conv_first = conv(n_colors, embed_dim)
         self.patch_embed = _PatchEmbed(embed_dim)
+        dpr = np.linspace(0, drop_path_rate, sum(depths)).tolist()
         self.layers = nn.ModuleList(
-            RSTB(embed_dim, depth, num_heads[i], window_size, mlp_ratio) for i, depth in enumerate(depths)
+            RSTB(embed_dim, depth, num_heads[i], window_size, mlp_ratio, dpr[sum(depths[:i]) : sum(depths[: i + 1])])
+            for i, depth in enumerate(depths)
         )
         self.norm = LayerNorm(embed_dim)
         self.conv_after_body = conv(embed_dim, embed_dim)
@@ -154,8 +221,26 @@ class SwinIRModule(nn.Module):
             self.upsample = Upsampler(scale, embed_dim, num_out_ch=n_colors)
         else:
             raise ValueError(f"unknown upsampler: {upsampler}")
+        self.fused_train = fused_train
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    @property
+    def fused_train(self) -> bool:
+        """Route the Swin blocks through the fused custom-autograd halves."""
+        return self._fused_train
+
+    @fused_train.setter
+    def fused_train(self, enabled: bool) -> None:
+        if enabled and self.drop_rate:
+            raise NotImplementedError("fused_train requires drop==0")
+        self._fused_train = bool(enabled)
+        for layer in self.layers:
+            for blk in layer.residual_group.blocks:
+                blk.fused_train = self._fused_train
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """NHWC forward; ``generator`` feeds the drop-path draws in training mode."""
+        if self.training and self.drop_rate:
+            raise NotImplementedError("dropout (drop_rate > 0) is not ported; SwinIR's recipes train with 0")
         h, w = x.shape[1:3]
         pad = pad_to_multiple_reflect if self.training else pad_to_multiple_flip
         x = self.normalizer.normalize(pad(x, self.window_size))
@@ -164,7 +249,7 @@ class SwinIRModule(nn.Module):
         shallow = x
         feats = self.patch_embed.norm(x)
         for layer in self.layers:
-            feats = layer(feats)
+            feats = layer(feats, generator)
         feats = self.norm(feats)
         x = self.conv_after_body(feats) + shallow
 
@@ -217,11 +302,10 @@ class SwinIR(FusedServingModel):
         upsampler: str = "pixelshuffle",
         seed: int = 0,
         device=None,
+        fused_train: bool = False,
     ) -> "SwinIR":
-        """Seeded SwinIR on ``device`` (default ``cuda``; raises without it).
-
-        ``drop_rate`` / ``drop_path_rate`` are kept in the config for parity
-        with the JAX package's ``params.json``; eval mode applies neither."""
+        """Seeded SwinIR on ``device`` (default ``cuda``; raises without it),
+        in eval mode. ``drop_path_rate`` applies in training mode only."""
         dev = resolve_device(device)
         config = dict(
             scale=scale,
@@ -237,7 +321,8 @@ class SwinIR(FusedServingModel):
             upsampler=upsampler,
         )
         module = SwinIRModule(
-            scale, n_colors, img_range, embed_dim, tuple(depths), tuple(num_heads), window_size, mlp_ratio, upsampler
+            scale, n_colors, img_range, embed_dim, tuple(depths), tuple(num_heads), window_size, mlp_ratio, upsampler,
+            drop_rate, drop_path_rate, fused_train,
         )
         _init_weights(module, torch.Generator().manual_seed(seed))
         return cls(module.to(dev).eval(), config, dev)

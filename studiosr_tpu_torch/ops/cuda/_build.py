@@ -21,14 +21,14 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Any, Dict, Iterable, Optional, Sequence
 
 __all__ = ["SOURCES", "build", "load", "build_log"]
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
-SOURCES = ("conv3x3", "swin_block", "upsampler")
+SOURCES = ("conv3x3", "swin_block", "upsampler", "window_attention", "mlp_block", "mlp_bwd", "attn_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -82,9 +82,10 @@ def build(names: Iterable[str] = SOURCES) -> float:
     return time.perf_counter() - start
 
 
-def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
+def load(name: str, signatures: Dict[str, Sequence], restypes: Optional[Dict[str, Any]] = None) -> ctypes.CDLL:
     """The library of ``csrc/<name>.cu``, built if needed, with each entry of
-    ``signatures`` ({function: argtypes}) typed to return ``c_int``."""
+    ``signatures`` ({function: argtypes}) typed to return ``c_int``, or the
+    type ``restypes`` gives it (``None`` for ``void``)."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -92,7 +93,7 @@ def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_library_path(name)))
             for fn, argtypes in signatures.items():
                 getattr(lib, fn).argtypes = list(argtypes)
-                getattr(lib, fn).restype = ctypes.c_int
+                getattr(lib, fn).restype = (restypes or {}).get(fn, ctypes.c_int)
             _libs[name] = lib
         return lib
 

@@ -17,9 +17,13 @@ import torch
 
 from studiosr_tpu_torch import SwinIR, resolve_device
 from studiosr_tpu_torch.ops.cuda import engagement
+from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd, attention_bwd_plain
 from studiosr_tpu_torch.ops.cuda.conv3x3 import conv3x3_plain, fused_conv3x3
+from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mlp_block_plain
+from studiosr_tpu_torch.ops.cuda.mlp_bwd import mlp_bwd, mlp_bwd_plain
 from studiosr_tpu_torch.ops.cuda.swin_block import fused_swin_block, swin_block_plain
 from studiosr_tpu_torch.ops.cuda.upsampler import fused_upsample_x4, upsample_x4_plain
+from studiosr_tpu_torch.ops.cuda.window_attention import fused_window_attention_block, window_attention_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -111,6 +115,94 @@ def test_upsample_x4_kernel_matches_plain(dev, dtype, shape):
     assert tuple(got.shape) == (shape[0], 4 * shape[1], 4 * shape[2], 3)
     want = upsample_x4_plain(x.float(), *[t.float() for t in ops])
     _assert_close(got, want, dtype)
+
+
+# Training kernels: ragged maps (several window rows, not square), batch 2,
+# one drop-path scale 0, the full width and narrow ones. The last map has
+# 544 windows, more than the 256 blocks of B8's per-window pass: each block
+# then takes two or three windows and sums their bias-gradient partials.
+TRAIN_CASES = [
+    (32, 2, (2, 16, 24), 0), (32, 2, (2, 24, 16), 4), (180, 6, (2, 16, 24), 4), (16, 2, (2, 8, 16), 4),
+    (32, 2, (2, 128, 136), 4),
+]
+
+
+def _train_operands(gen, c, heads, dev, dtype):
+    """Attention operands with weights in ``dtype`` and the rest f32 (the
+    wrappers take either), plus drop-path scales (0, 1.25)."""
+    ops = _block_operands(gen, c, heads, 2 * c)[:7]
+    ops = [t.to(dev, dtype if i in (2, 4) else torch.float32) for i, t in enumerate(ops)]
+    return ops, torch.tensor([0.0, 1.25], device=dev)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c,heads,shape,shift", TRAIN_CASES)
+def test_window_attention_kernel_matches_plain(dev, dtype, c, heads, shape, shift):
+    gen = torch.Generator().manual_seed(c + shift + 1)
+    ops, dp = _train_operands(gen, c, heads, dev, dtype)
+    x = _randn(gen, *shape, c).to(dev, dtype)
+    kw = dict(heads=heads, window_size=8, shift=shift, drop_path=dp)
+    got = fused_window_attention_block(x, *ops, **kw)
+    want = window_attention_plain(x.float(), *[t.float() for t in ops], **kw)
+    _assert_close(got, want, dtype)
+    assert torch.equal(got[0], x[0])  # a dropped sample passes through exactly
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c,rows_per_sample", [(32, 384), (180, 192), (16, 100)])
+def test_mlp_block_kernel_matches_plain(dev, dtype, c, rows_per_sample):
+    gen = torch.Generator().manual_seed(c + 2)
+    ops = _block_operands(gen, c, 2, 2 * c)[7:]
+    ops = [t.to(dev, dtype if i in (2, 4) else torch.float32) for i, t in enumerate(ops)]
+    x = _randn(gen, 2 * rows_per_sample, c).to(dev, dtype)
+    dp = torch.tensor([1.25, 0.0], device=dev)
+    got = fused_mlp_block(x, *ops, drop_path=dp, rows_per_sample=rows_per_sample)
+    want = mlp_block_plain(x.float(), *[t.float() for t in ops], drop_path=dp, rows_per_sample=rows_per_sample)
+    _assert_close(got, want, dtype)
+    assert torch.equal(got[rows_per_sample:], x[rows_per_sample:])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c,heads,shape,shift", TRAIN_CASES)
+def test_attention_bwd_kernel_matches_plain(dev, dtype, c, heads, shape, shift):
+    gen = torch.Generator().manual_seed(c + shift + 3)
+    ops, dp = _train_operands(gen, c, heads, dev, dtype)
+    x = _randn(gen, *shape, c).to(dev, dtype)
+    g = _randn(gen, *shape, c).to(dev, dtype)
+    kw = dict(heads=heads, window_size=8, shift=shift, drop_path=dp)
+    got = attention_bwd(x, g, *ops, **kw)
+    want = attention_bwd_plain(x.float(), g.float(), *[t.float() for t in ops], **kw)
+    for a, e in zip(got, want):
+        _assert_close(a, e, dtype)
+    assert torch.equal(got[0][0], g[0])  # a dropped sample: dx = g
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c,rows,rows_per_sample", [(32, 768, 384), (180, 384, 192), (16, 200, 100), (24, 300, 0)])
+def test_mlp_bwd_kernel_matches_plain(dev, dtype, c, rows, rows_per_sample):
+    gen = torch.Generator().manual_seed(c + 4)
+    ops = _block_operands(gen, c, 2, 2 * c)[7:12]
+    ops = [t.to(dev, dtype if i in (2, 4) else torch.float32) for i, t in enumerate(ops)]
+    x = _randn(gen, rows, c).to(dev, dtype)
+    g = _randn(gen, rows, c).to(dev, dtype)
+    dp = torch.tensor([1.25, 0.0], device=dev) if rows_per_sample else None
+    kw = dict(drop_path=dp, rows_per_sample=rows_per_sample)
+    got = mlp_bwd(x, g, *ops, **kw)
+    want = mlp_bwd_plain(x.float(), g.float(), *[t.float() for t in ops], **kw)
+    for a, e in zip(got, want):
+        _assert_close(a, e, dtype)
+    if dp is not None:
+        assert torch.equal(got[0][rows_per_sample:], g[rows_per_sample:])
+
+
+def test_training_kernels_are_deterministic(dev):
+    gen = torch.Generator().manual_seed(5)
+    ops, dp = _train_operands(gen, 180, 6, dev, torch.bfloat16)
+    x = _randn(gen, 2, 16, 24, 180).to(dev, torch.bfloat16)
+    g = _randn(gen, 2, 16, 24, 180).to(dev, torch.bfloat16)
+    kw = dict(heads=6, window_size=8, shift=4, drop_path=dp)
+    for a, b in zip(attention_bwd(x, g, *ops, **kw), attention_bwd(x, g, *ops, **kw)):
+        assert torch.equal(a, b)
 
 
 def test_wrappers_raise_on_operands_the_kernels_do_not_take(dev):

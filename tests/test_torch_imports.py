@@ -20,6 +20,13 @@ WRAPPERS = [
     "studiosr_tpu_torch.ops.cuda.conv3x3",
     "studiosr_tpu_torch.ops.cuda.swin_block",
     "studiosr_tpu_torch.ops.cuda.upsampler",
+    "studiosr_tpu_torch.ops.cuda.window_attention",
+    "studiosr_tpu_torch.ops.cuda.mlp_block",
+    "studiosr_tpu_torch.ops.cuda.mlp_bwd",
+    "studiosr_tpu_torch.ops.cuda.attn_bwd",
+    "studiosr_tpu_torch.ops.attn_vjp",
+    "studiosr_tpu_torch.ops.mlp_vjp",
+    "studiosr_tpu_torch.engine.trainer",
 ]
 
 
@@ -40,7 +47,11 @@ def test_no_jax_or_reference_package_imports(path):
 
 def test_guard_sees_the_whole_package():
     names = {p.name for p in SOURCES}
-    assert {"swinir.py", "swinir_fast.py", "swin_block.py", "conv3x3.py", "upsampler.py", "chip_smoke.py"} <= names
+    assert {
+        "swinir.py", "swinir_fast.py", "swin_block.py", "conv3x3.py", "upsampler.py", "chip_smoke.py",
+        "window_attention.py", "mlp_block.py", "mlp_bwd.py", "attn_bwd.py", "attn_vjp.py", "mlp_vjp.py",
+        "trainer.py", "train_step.py", "dataset.py", "handler.py", "transforms.py", "losses.py", "helpers.py",
+    } <= names
 
 
 @pytest.mark.parametrize("module", WRAPPERS)
