@@ -3,16 +3,20 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths at the full width of SwinIR classical x4
-(embed 180, depths [6]x6, 6 heads, window 8) and holds every kernel of them
+Drives the port's three paths at full width and holds every kernel of them
 against its plain PyTorch version:
 
-* serving: bf16, batch 1, 256x256 LR input, through ``swinir_fast_forward``
-  (kernels B1-B3);
-* training: ``Trainer.run`` at the JAX package's recipe, batch 32 of 64x64
-  LR / 256x256 HR crops, bf16 compute over f32 master weights, Adam,
+* SwinIR classical x4 serving (embed 180, depths [6]x6, 6 heads, window 8):
+  bf16, batch 1, 256x256 LR input, through ``swinir_fast_forward`` (kernels
+  B1-B3);
+* SwinIR training: ``Trainer.run`` at the JAX package's recipe, batch 32 of
+  64x64 LR / 256x256 HR crops, bf16 compute over f32 master weights, Adam,
   drop_path_rate 0.1, ``fused_train`` on (kernels B5-B8, 36 launches each
-  per step).
+  per step);
+* HAT x4 serving at XPixelGroup/HAT ``options/test/HAT_SRx4.yml`` (embed
+  180, depths [6]x6, 6 heads, window 16, overlap 0.5): bf16, batch 1,
+  256x256 LR input, through ``hat_fast_forward`` (kernels B11, B5 at window
+  16, B6 with the CAB join, B10, and B2, B3).
 
 Phases, in order; any failure exits non-zero before the final line:
 
@@ -40,7 +44,17 @@ Phases, in order; any failure exits non-zero before the final line:
    step, finite losses, moved weights; ``latest`` saved at step 8 and
    resumed by a new Trainer, whose step 9 must match the first run's;
 9. training timing: step ms and images/s over 5 steps after 2 warm-up
-   steps, and each training kernel's ms, plain ms and bound at batch 32.
+   steps, and each training kernel's ms, plain ms and bound at batch 32;
+10. HAT serving kernels vs plain at the path's shapes (256x256 map, C
+    180), f32 and bf16: B11, B5 at window 16 (shift 0 and 8), B6 with
+    ``extra`` / ``extra_scale``, B10 (its border windows' keys reach
+    outside the image);
+11. HAT serving end to end: the fused forward against the plain port
+    forward in f32 and bf16, then three seeded 256x256 uint8 requests
+    through ``inference`` (bf16, fused) with launch counts checked per
+    forward;
+12. HAT serving timing: the forward (ms, LR MP/s), each HAT kernel's ms,
+    plain ms and bound, and B2 and B3 at HAT's shapes.
 
 Prints the card line, a ``{"kernels": [...]}`` JSON line, and last
 ``{"ok": true, "device": {...}}``. Random weights come from a seeded
@@ -62,18 +76,20 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 import studiosr_tpu_torch
-from studiosr_tpu_torch import SwinIR, Trainer, resolve_device
+from studiosr_tpu_torch import HAT, SwinIR, Trainer, resolve_device
 from studiosr_tpu_torch.data import PairedImageDataset
 from studiosr_tpu_torch.ops.cuda import _build, engagement
 from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd, attention_bwd_plain
-from studiosr_tpu_torch.ops.cuda.conv3x3 import conv3x3_plain, fused_conv3x3
+from studiosr_tpu_torch.ops.cuda.conv3x3 import cab_body_plain, conv3x3_plain, fused_cab_body, fused_conv3x3
 from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mlp_block_plain
 from studiosr_tpu_torch.ops.cuda.mlp_bwd import mlp_bwd, mlp_bwd_plain
+from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block, ocab_plain
 from studiosr_tpu_torch.ops.cuda.swin_block import fused_swin_block, swin_block_plain
 from studiosr_tpu_torch.ops.cuda.upsampler import fused_upsample_x4, upsample_x4_plain
 from studiosr_tpu_torch.ops.cuda.window_attention import fused_window_attention_block, window_attention_plain
 from studiosr_tpu_torch.ops.windows import gather_rel_bias, relative_position_index
 from studiosr_tpu_torch.parallel import build_optimizer, make_train_step, prepare_state
+from studiosr_tpu_torch.serving.hat_fast import prepare_hat_serving
 from studiosr_tpu_torch.serving.swinir_fast import prepare_serving
 from studiosr_tpu_torch.utils import l1_loss
 
@@ -125,6 +141,20 @@ PER_STEP = {"fused_window_attention_block": 36, "fused_mlp_block": 36, "mlp_bwd"
 GRAD_RUNS = (("plain", torch.float64), ("plain", torch.float32), ("fused", torch.float32),
              ("plain", torch.bfloat16), ("fused", torch.bfloat16))
 GRAD_F32_REL_L2, GRAD_BF16_REL_L2 = 1e-5, 5e-2
+
+# HAT x4 serving: XPixelGroup/HAT options/test/HAT_SRx4.yml (the JAX
+# package's defaults, models/hat.py:388-403), depth not cut.
+HAT_MAIN = dict(scale=4, embed_dim=180, depths=[6] * 6, num_heads=[6] * 6, window_size=16, mlp_ratio=2.0,
+                compress_ratio=3, squeeze_factor=30, conv_scale=0.01, overlap_ratio=0.5)
+KERNELS.update({
+    "fused_cab_body": ("studiosr_tpu_torch/csrc/cab_body.cu", "studiosr_tpu/ops/pallas/conv3x3.py:393"),
+    "fused_window_attention_block_ws16": (
+        "studiosr_tpu_torch/csrc/window_attention16.cu", "studiosr_tpu/ops/pallas/swin_block.py:549"),
+    "fused_mlp_block_extra": ("studiosr_tpu_torch/csrc/mlp_block.cu", "studiosr_tpu/ops/pallas/swin_block.py:904"),
+    "fused_ocab_block": ("studiosr_tpu_torch/csrc/ocab.cu", "studiosr_tpu/ops/pallas/ocab.py:173"),
+})
+HAT_PER_FORWARD = {"fused_cab_body": 36, "fused_window_attention_block_ws16": 36, "fused_mlp_block_extra": 36,
+                   "fused_ocab_block": 6, "fused_conv3x3": 7, "fused_upsample_x4": 1}
 
 
 def log(msg: str) -> None:
@@ -709,6 +739,180 @@ def phase_train_timing(model: SwinIR, dev: torch.device, errors: dict, launches:
     return rows
 
 
+# -- HAT serving phases -----------------------------------------------------------
+
+
+def hat_kernel_cases(model: HAT, dev: torch.device, dtype: torch.dtype):
+    """(name, label, kernel fn, plain fn, operands) of B11, B5 at window 16,
+    B6 with the CAB join and B10 at HAT serving's shapes (a 256x256 map, C
+    180), with group 0's weights laid out for ``dtype``."""
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 5)
+    c, heads, ws = HAT_MAIN["embed_dim"], HAT_MAIN["num_heads"][0], HAT_MAIN["window_size"]
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev, dtype)
+
+    prep = prepare_hat_serving(model.module, model.config, dtype)
+    x = randn(1, LR, LR, c)
+    extra = randn(LR * LR, c)
+    escale = torch.rand(c, generator=gen).to(dev)  # the gate times conv_scale is smaller; 1 makes the join count
+    blocks = prep["blocks"][0]
+    cases = [("fused_cab_body", "cab", fused_cab_body, cab_body_plain, (x, *blocks[0]["cab"].values()))]
+    for shift in (0, ws // 2):
+        kw = dict(heads=heads, window_size=ws, shift=shift)
+        cases.append(("fused_window_attention_block_ws16", f"shift {shift}",
+                      lambda *o, kw=kw: fused_window_attention_block(*o, **kw),
+                      lambda *o, kw=kw: window_attention_plain(*o, **kw),
+                      (x, *blocks[1 if shift else 0]["attn"].values())))
+    cases.append(("fused_mlp_block_extra", "extra",
+                  lambda *o: fused_mlp_block(*o[:7], extra=o[7], extra_scale=o[8]),
+                  lambda *o: mlp_block_plain(*o[:7], extra=o[7], extra_scale=o[8]),
+                  (x.reshape(-1, c), *blocks[0]["mlp"].values(), extra, escale)))
+    kw = dict(heads=heads, window_size=ws, overlap_ratio=HAT_MAIN["overlap_ratio"])
+    cases.append(("fused_ocab_block", "border windows", lambda *o: fused_ocab_block(*o, **kw),
+                  lambda *o: ocab_plain(*o, **kw), (x, *prep["ocab"][0].values())))
+    return cases
+
+
+def phase_hat_kernels(model: HAT, dev: torch.device) -> dict:
+    """The HAT kernels against their plain versions, f32 then bf16, every
+    output held to the serving kernels' rule. Returns the bf16 max abs
+    error of each kernel's first output."""
+    errors: dict = {}
+    failed = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, label, kernel, plain, ops in hat_kernel_cases(model, dev, dtype):
+            got = _flat(kernel(*ops))
+            torch.cuda.synchronize()
+            want = _flat(plain(*[t.float() for t in ops]))
+            torch.cuda.synchronize()
+            for i, (k, p) in enumerate(zip(got, want)):
+                part = f"{name} [{label}] output {i}"
+                if not torch.isfinite(k.float()).all():
+                    failed.append(f"{part}: non-finite")
+                    continue
+                err = float((k.float() - p).abs().max())
+                if dtype == torch.float32:
+                    limit = F32_RTOL * float(p.abs().max()) + F32_ATOL
+                    ok = err <= limit
+                    log(f"check {part} f32: max_abs_err {err:.3e} limit {limit:.3e}")
+                else:
+                    rel = rel_l2(k, p)
+                    ok = rel <= BF16_REL_L2
+                    if i == 0:
+                        errors[name] = max(errors.get(name, 0.0), err)
+                    log(f"check {part} bf16: rel_l2 {rel:.3e} limit {BF16_REL_L2:.0e} max_abs_err {err:.3e}")
+                if not ok:
+                    failed.append(f"{part} {dtype}")
+            del got, want
+    if failed:
+        raise AssertionError("HAT kernels disagree with their plain versions: " + "; ".join(failed))
+    return errors
+
+
+def phase_hat_end_to_end(model: HAT, dev: torch.device) -> dict:
+    """Fused vs plain HAT forward (f32, then bf16 against f32 plain), then
+    the served requests with their launch counts."""
+    images = requests()
+    x = torch.from_numpy(images[0]).to(dev).float()[None] / 255.0
+    plain = model.enable_fused(False)(x)
+    fused = model.enable_fused(True)(x)
+    torch.cuda.synchronize()
+    rel32 = rel_l2(fused, plain)
+    log(f"hat e2e f32 fused vs plain: rel_l2 {rel32:.3e} limit {E2E_F32_REL_L2:.0e}")
+    model.half()
+    fused16 = model(x)
+    torch.cuda.synchronize()
+    rel16 = rel_l2(fused16, plain)
+    log(f"hat e2e bf16 fused vs f32 plain: rel_l2 {rel16:.3e} limit {E2E_BF16_REL_L2:.0e}")
+    failed = []
+    if not rel32 <= E2E_F32_REL_L2:
+        failed.append("f32 fused HAT forward disagrees with the plain forward")
+    if not rel16 <= E2E_BF16_REL_L2:
+        failed.append("bf16 fused HAT forward disagrees with the plain forward")
+    if not bool(torch.isfinite(fused16).all()) or fused16.shape != (1, 4 * LR, 4 * LR, 3):
+        failed.append(f"bad bf16 HAT forward {tuple(fused16.shape)}")
+
+    model.serving_prep()  # load-time weight layout, outside the counted run
+    engagement.reset()
+    t0 = time.perf_counter()
+    outs = [model.inference(im) for im in images]
+    seconds = time.perf_counter() - t0
+    launches = engagement.counters()
+    log(f"hat served {len(outs)} requests in {seconds:.3f} s (host clock); launches {launches}")
+    for out in outs:
+        if out.shape != (4 * LR, 4 * LR, 3) or out.dtype != np.uint8:
+            failed.append(f"bad HAT output {out.shape} {out.dtype}")
+    for name in set(launches) | set(HAT_PER_FORWARD):
+        if launches.get(name, 0) != HAT_PER_FORWARD.get(name, 0) * REQUESTS:
+            failed.append(f"{name}: {launches.get(name, 0)} launches, expected {HAT_PER_FORWARD.get(name, 0)} "
+                          f"per forward")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return launches
+
+
+def hat_bounds(name: str, ops) -> tuple:
+    """(flops, bytes) of one launch from its operands: each input read once,
+    each output written once."""
+    x = ops[0]
+    c = x.shape[-1]
+    tokens = x.numel() // c
+    if name == "fused_cab_body":
+        w1 = ops[3]
+        flops = 2 * 2 * tokens * 9 * c * w1.shape[-1]
+        moved = 2 * nbytes(x) + nbytes(*ops[1:]) + 4 * x.shape[0] * c  # + the f32 sums
+    elif name == "fused_window_attention_block_ws16":
+        n = ops[7].shape[-1]
+        flops = 2 * tokens * c * 4 * c + 4 * tokens * n * c
+        moved = 2 * nbytes(x) + nbytes(*ops[1:])
+    elif name == "fused_mlp_block_extra":
+        flops = 4 * tokens * c * ops[3].shape[-1]
+        moved = 2 * nbytes(x) + nbytes(*ops[1:])
+    else:
+        nk, hidden = ops[7].shape[-1], ops[10].shape[-1]
+        flops = 2 * tokens * c * 4 * c + 4 * tokens * nk * c + 4 * tokens * c * hidden
+        moved = 2 * nbytes(x) + nbytes(*ops[1:])
+    return flops, moved
+
+
+def phase_hat_timing(model: HAT, dev: torch.device, errors: dict, launches: dict) -> list:
+    x = torch.from_numpy(requests()[0]).to(dev).float()[None] / 255.0
+    fwd = time_ms(lambda: model(x), iters=5)
+    log(f"hat forward bf16 batch 1 {LR}x{LR}: {fwd:.3f} ms, {LR * LR / 1e6 / (fwd / 1e3):.3f} LR MP/s")
+    rows, kernel_total = [], 0.0
+    for name, label, kernel, plain, ops in hat_kernel_cases(model, dev, torch.bfloat16):
+        if label == "shift 0":
+            continue  # timed at shift 8; the shift costs nothing extra
+        ms = time_ms(lambda: kernel(*ops), iters=10)
+        plain_ms = time_ms(lambda: plain(*ops), iters=3, warmup=1)
+        flops, moved = hat_bounds(name, ops)
+        bms, by = bound_ms(flops, moved)
+        per = HAT_PER_FORWARD[name]
+        kernel_total += per * ms
+        source, replaces = KERNELS[name]
+        rows.append(dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches.get(name, 0),
+                         max_abs_err=errors[name], ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         library_ms=None))
+        log(f"time {name} [{label}] bf16: {ms:.3f} ms ({100 * per * ms / fwd:.1f} % of a forward at {per} a "
+            f"forward), plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), {flops / 1e9:.2f} GFLOP, "
+            f"{moved / 1e6:.1f} MB")
+    # B2 and B3 at HAT's shapes (their rows in the JSON line are SwinIR's)
+    prep = model.serving_prep()
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 6)
+    feats = torch.randn(1, LR, LR, HAT_MAIN["embed_dim"], generator=gen).to(dev, torch.bfloat16)
+    x64 = torch.randn(1, LR, LR, 64, generator=gen).to(dev, torch.bfloat16)
+    for name, fn, per in (("fused_conv3x3", lambda: fused_conv3x3(feats, *prep["convs"][0], extra=feats), 7),
+                          ("fused_upsample_x4", lambda: fused_upsample_x4(x64, *prep["tail"]), 1)):
+        ms = time_ms(fn, iters=10)
+        kernel_total += per * ms
+        log(f"time {name} at HAT's shapes bf16: {ms:.3f} ms ({100 * per * ms / fwd:.1f} % of a forward at {per} "
+            f"a forward)")
+    log(f"hat forward: kernels {kernel_total:.1f} ms, the rest (conv_first, gate, LayerNorms, "
+        f"conv_before_upsample, gaps) {fwd - kernel_total:.1f} ms")
+    return rows
+
+
 def main() -> int:
     dev = phase_device()
     phase_build()
@@ -722,6 +926,13 @@ def main() -> int:
     phase_train_grads(dev)
     trained, train_launches, steps = phase_train(dev)
     rows += phase_train_timing(trained, dev, train_errors, train_launches, steps)
+    del trained
+    hat = HAT.build(**HAT_MAIN, seed=SEED, device=dev)
+    log(f"model: HAT x4 embed {HAT_MAIN['embed_dim']} depths {HAT_MAIN['depths']} window {HAT_MAIN['window_size']}, "
+        f"{hat.count_parameters()} parameters")
+    hat_errors = phase_hat_kernels(hat, dev)
+    hat_launches = phase_hat_end_to_end(hat, dev)
+    rows += phase_hat_timing(hat, dev, hat_errors, hat_launches)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

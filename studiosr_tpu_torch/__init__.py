@@ -12,6 +12,7 @@ This package imports neither JAX nor anything of ``studiosr_tpu``.
 
 from studiosr_tpu_torch._device import resolve_device
 from studiosr_tpu_torch.engine import Trainer
+from studiosr_tpu_torch.models.hat import HAT
 from studiosr_tpu_torch.models.swinir import SwinIR
 
-__all__ = ["SwinIR", "Trainer", "resolve_device"]
+__all__ = ["HAT", "SwinIR", "Trainer", "resolve_device"]

@@ -1,12 +1,17 @@
 // 3x3 SAME convolution on NHWC maps, as an implicit GEMM.
 //
-// Shared by B2 (conv3x3.cu) and B3 (upsampler.cu, which stores through a
-// pixel shuffle). A thread block owns a TH x TW pixel tile and BN output
+// Shared by B2 (conv3x3.cu), B3 (upsampler.cu, which stores through a
+// pixel shuffle) and B11 (cab_body.cu). A thread block owns a TH x TW pixel tile and BN output
 // channels. It walks Cin in chunks of KC: the chunk's (TH+2) x (TW+2) input
 // patch (zero outside the image: the SAME padding) and its 9 x KC x BN
 // weights are staged in shared memory, and the products accumulate in f32.
 // The epilogue adds the bias, applies the activation, adds the residual and
-// the skip map, and stores once. f32 maps run on the FMA pipes
+// the skip map, and stores once. B11's instantiation (CAB) adds the exact
+// GELU and, with `psum` set, has each block write the sums over its tile's
+// pixels of every output channel's f32 value (before rounding to T),
+// psum[(b * tiles + tile) * Cout + co], summed in a fixed order (no
+// atomics), for the caller to reduce deterministically; B2's and B3's
+// instantiations compile without either. f32 maps run on the FMA pipes
 // (conv3x3_kernel, each thread owning TM pixels x TN channels); bf16 maps
 // run on the tensor cores through wmma fragments (conv3x3_wmma_kernel).
 //
@@ -24,19 +29,20 @@
 
 #include "common.cuh"
 
-// Activation codes shared with ops/cuda/conv3x3.py (_ACT_CODES).
-enum { ACT_NONE = 0, ACT_RELU = 1, ACT_LRELU = 2 };
+// Activation codes shared with ops/cuda/conv3x3.py (_ACT_CODES); ACT_GELU
+// (exact, erf) is B11's and has no Python code.
+enum { ACT_NONE = 0, ACT_RELU = 1, ACT_LRELU = 2, ACT_GELU = 3 };
 
 constexpr int CONV_THREADS = 256;
 constexpr int CONV_KC = 16;
 
 // shuffle != 0: store through pixel_shuffle(2) with torch channel order
 // (co = k*4 + a*2 + b goes to pixel (2y + a, 2x + b), channel k).
-template <typename T, int BN, int TN, int TH, int TW>
+template <typename T, int BN, int TN, int TH, int TW, bool CAB>
 __global__ void __launch_bounds__(CONV_THREADS) conv3x3_kernel(
     const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ bias,
     const T* __restrict__ extra, T* __restrict__ out, int H, int W, int Cin, int Cout,
-    int act, float slope, int residual, int shuffle) {
+    int act, float slope, int residual, int shuffle, float* __restrict__ psum) {
   constexpr int COLS = BN / TN;             // threads along output channels
   constexpr int ROWS = CONV_THREADS / COLS; // threads along pixels
   constexpr int TM = TH * TW / ROWS;        // pixels per thread
@@ -103,17 +109,30 @@ __global__ void __launch_bounds__(CONV_THREADS) conv3x3_kernel(
   for (int m = 0; m < TM; ++m) {
     const int p = rg + ROWS * m;
     const int gy = y0 + p / TW, gx = x0 + p % TW;
-    if (gy >= H || gx >= W) continue;
+    if constexpr (CAB) {
+      if (gy >= H || gx >= W) {
+#pragma unroll
+        for (int n = 0; n < TN; ++n) acc[m][n] = 0.f;  // out of the map: adds nothing to psum
+        continue;
+      }
+    } else if (gy >= H || gx >= W) {
+      continue;
+    }
     const size_t pix = ((size_t)b * H + gy) * W + gx;
 #pragma unroll
     for (int n = 0; n < TN; ++n) {
       const int co = co0 + cg + COLS * n;
-      if (co >= Cout) continue;
+      if (co >= Cout) {
+        if constexpr (CAB) acc[m][n] = 0.f;
+        continue;
+      }
       float v = acc[m][n] + bias[co];
       if (act == ACT_RELU) v = fmaxf(v, 0.f);
       else if (act == ACT_LRELU) v = v >= 0.f ? v : slope * v;
+      else if (CAB && act == ACT_GELU) v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
       if (residual) v += to_f32(x[pix * Cin + co]);
       if (extra) v += to_f32(extra[pix * Cout + co]);
+      if constexpr (CAB) acc[m][n] = v;
       size_t o;
       if (shuffle) {
         const int k = co >> 2, sa = (co >> 1) & 1, sb = co & 1;
@@ -122,6 +141,26 @@ __global__ void __launch_bounds__(CONV_THREADS) conv3x3_kernel(
         o = pix * Cout + co;
       }
       out[o] = from_f32<T>(v);
+    }
+  }
+  if constexpr (CAB) {
+    if (psum) {  // block-uniform
+      static_assert(ROWS * BN <= 9 * KC * BN, "the channel partials fit in wsm");
+      __syncthreads();  // every thread is done with wsm
+      float* red = wsm;  // [rg][n]
+#pragma unroll
+      for (int n = 0; n < TN; ++n) {
+        float s = 0.f;
+#pragma unroll
+        for (int m = 0; m < TM; ++m) s += acc[m][n];
+        red[rg * BN + cg + COLS * n] = s;
+      }
+      __syncthreads();
+      for (int n = tid; n < BN; n += CONV_THREADS) {
+        float s = 0.f;
+        for (int r = 0; r < ROWS; ++r) s += red[r * BN + n];
+        if (co0 + n < Cout) psum[((size_t)b * gridDim.x + blockIdx.x) * Cout + co0 + n] = s;
+      }
     }
   }
 }
@@ -133,11 +172,11 @@ __global__ void __launch_bounds__(CONV_THREADS) conv3x3_kernel(
 // leading dimension KC, so the A fragments load straight from the patch.
 // After the K loop the patch and weights are dead and the same shared
 // memory holds the f32 accumulator tile for the shared epilogue.
-template <int BN, int TH>
+template <int BN, int TH, bool CAB>
 __global__ void __launch_bounds__(CONV_THREADS) conv3x3_wmma_kernel(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w, const float* __restrict__ bias,
     const __nv_bfloat16* __restrict__ extra, __nv_bfloat16* __restrict__ out, int H, int W, int Cin, int Cout,
-    int act, float slope, int residual, int shuffle) {
+    int act, float slope, int residual, int shuffle, float* __restrict__ psum) {
   using namespace nvcuda;
   constexpr int TW = 16, KC = CONV_KC, PH = TH + 2, PW = TW + 2;
   constexpr int NF = BN / 16, MPW = TH / (CONV_THREADS / 32);
@@ -205,13 +244,18 @@ __global__ void __launch_bounds__(CONV_THREADS) conv3x3_wmma_kernel(
   for (int e = tid; e < TH * TW * BN; e += CONV_THREADS) {
     const int p = e / BN, co = co0 + e % BN;
     const int gy = y0 + p / TW, gx = x0 + p % TW;
-    if (gy >= H || gx >= W || co >= Cout) continue;
+    if (gy >= H || gx >= W || co >= Cout) {
+      if constexpr (CAB) tile[e] = 0.f;  // out of the map: adds nothing to psum
+      continue;
+    }
     const size_t pix = ((size_t)b * H + gy) * W + gx;
     float v = tile[e] + bias[co];
     if (act == ACT_RELU) v = fmaxf(v, 0.f);
     else if (act == ACT_LRELU) v = v >= 0.f ? v : slope * v;
+    else if (CAB && act == ACT_GELU) v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
     if (residual) v += to_f32(x[pix * Cin + co]);
     if (extra) v += to_f32(extra[pix * Cout + co]);
+    if constexpr (CAB) tile[e] = v;
     size_t o;
     if (shuffle) {
       const int k = co >> 2, sa = (co >> 1) & 1, sb = co & 1;
@@ -221,35 +265,54 @@ __global__ void __launch_bounds__(CONV_THREADS) conv3x3_wmma_kernel(
     }
     out[o] = __float2bfloat16(v);
   }
+  if constexpr (CAB) {
+    if (psum) {  // block-uniform; each thread sums the channels it owns, pixels in order
+      __syncthreads();
+      for (int n = tid; n < BN; n += CONV_THREADS) {
+        float s = 0.f;
+        for (int p = 0; p < TH * TW; ++p) s += tile[p * BN + n];
+        if (co0 + n < Cout) psum[((size_t)b * gridDim.x + blockIdx.x) * Cout + co0 + n] = s;
+      }
+    }
+  }
+}
+
+// Pixel tiles a launch cuts an image into (gridDim.x): wide outputs take
+// 8 x 16 pixel tiles, narrow ones (Cout <= 16) 16 x 16.
+__host__ inline int conv3x3_pixel_tiles(int H, int W, int Cout) {
+  const int th = Cout > 16 ? 8 : 16;
+  return ((H + th - 1) / th) * ((W + 15) / 16);
 }
 
 // Launch on `stream`; returns cudaGetLastError(). f32 maps take the FMA
 // kernel, bf16 maps the tensor-core one. Wide outputs take 8 x 16 pixel
 // tiles x 64 channels; narrow ones (conv_last, Cout <= 16) take 16 x 16
-// pixel tiles x 16 channels so fewer lanes idle.
-template <typename T>
+// pixel tiles x 16 channels so fewer lanes idle. CAB (B11) admits ACT_GELU
+// and `psum`, B x conv3x3_pixel_tiles(H, W, Cout) x Cout f32 channel
+// partials (or null).
+template <typename T, bool CAB = false>
 cudaError_t launch_conv3x3(const T* x, const T* w, const float* bias, const T* extra, T* out, int B, int H,
                            int W, int Cin, int Cout, int act, float slope, int residual, int shuffle,
-                           cudaStream_t stream) {
+                           cudaStream_t stream, float* psum = nullptr) {
   constexpr bool tc = std::is_same<T, __nv_bfloat16>::value;
   if (Cout > 16) {
     constexpr int BN = 64, TH = 8, TW = 16;
     dim3 grid(((H + TH - 1) / TH) * ((W + TW - 1) / TW), (Cout + BN - 1) / BN, B);
     if constexpr (tc)
-      conv3x3_wmma_kernel<BN, TH><<<grid, CONV_THREADS, 0, stream>>>(x, w, bias, extra, out, H, W, Cin, Cout, act,
-                                                                     slope, residual, shuffle);
+      conv3x3_wmma_kernel<BN, TH, CAB><<<grid, CONV_THREADS, 0, stream>>>(x, w, bias, extra, out, H, W, Cin, Cout, act,
+                                                                     slope, residual, shuffle, psum);
     else
-      conv3x3_kernel<T, BN, 4, TH, TW><<<grid, CONV_THREADS, 0, stream>>>(x, w, bias, extra, out, H, W, Cin, Cout,
-                                                                          act, slope, residual, shuffle);
+      conv3x3_kernel<T, BN, 4, TH, TW, CAB><<<grid, CONV_THREADS, 0, stream>>>(x, w, bias, extra, out, H, W, Cin, Cout,
+                                                                          act, slope, residual, shuffle, psum);
   } else {
     constexpr int BN = 16, TH = 16, TW = 16;
     dim3 grid(((H + TH - 1) / TH) * ((W + TW - 1) / TW), (Cout + BN - 1) / BN, B);
     if constexpr (tc)
-      conv3x3_wmma_kernel<BN, TH><<<grid, CONV_THREADS, 0, stream>>>(x, w, bias, extra, out, H, W, Cin, Cout, act,
-                                                                     slope, residual, shuffle);
+      conv3x3_wmma_kernel<BN, TH, CAB><<<grid, CONV_THREADS, 0, stream>>>(x, w, bias, extra, out, H, W, Cin, Cout, act,
+                                                                     slope, residual, shuffle, psum);
     else
-      conv3x3_kernel<T, BN, 1, TH, TW><<<grid, CONV_THREADS, 0, stream>>>(x, w, bias, extra, out, H, W, Cin, Cout,
-                                                                          act, slope, residual, shuffle);
+      conv3x3_kernel<T, BN, 1, TH, TW, CAB><<<grid, CONV_THREADS, 0, stream>>>(x, w, bias, extra, out, H, W, Cin, Cout,
+                                                                          act, slope, residual, shuffle, psum);
   }
   return cudaGetLastError();
 }

@@ -6,6 +6,10 @@ and f32 accumulation, in one pass over the map. ``activation`` is None,
 ``"relu"`` or ``"lrelu{slope}"`` (slope 0.01 when omitted). Any Cout.
 
 Weights are HWIO (3, 3, Cin, Cout) in the map's dtype; the bias is f32.
+
+Also B11, ``fused_cab_body`` (CUDA kernels ``csrc/cab_body.cu``): HAT's CAB
+trunk y2 = conv2(gelu(conv1(LN x))) with the per-image f32 channel sums of
+y2 that feed the squeeze-excite gate.
 """
 
 from __future__ import annotations
@@ -18,10 +22,15 @@ import torch.nn.functional as F
 from studiosr_tpu_torch.ops.cuda import _build
 from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, F as CF, check, finish, stream
 
-__all__ = ["fused_conv3x3", "conv3x3_plain", "prepare_conv3x3_weights", "parse_activation"]
+__all__ = [
+    "fused_conv3x3", "conv3x3_plain", "prepare_conv3x3_weights", "parse_activation", "fused_cab_body",
+    "cab_body_plain",
+]
 
 _ARGS = (P, P, P, P, P, I, I, I, I, I, I, CF, I, P)
 _SIGNATURES = {"conv3x3_f32": _ARGS, "conv3x3_bf16": _ARGS}
+_CAB_ARGS = (P,) * 12 + (I,) * 5 + (P,)
+_CAB_SIGNATURES = {"cab_body_f32": _CAB_ARGS, "cab_body_bf16": _CAB_ARGS, "cab_body_partials": (I, I, I)}
 _ACT_CODES = {None: 0, "relu": 1, "lrelu": 2}  # shared with csrc/conv3x3.cuh
 
 
@@ -78,3 +87,44 @@ def fused_conv3x3(x, w, b, activation: Optional[str] = None, residual: bool = Fa
     status = fn(px, pw, pb, pe, out.data_ptr(), bsz, h, wd, cin, cout, _ACT_CODES[kind], slope, int(residual), stream(dev))
     finish("fused_conv3x3", status)
     return out
+
+
+def cab_body_plain(x, ln_w, ln_b, w1, b1, w2, b2):
+    """Plain PyTorch version of B11, computed in f32: returns (y2 in
+    ``x.dtype``, f32 (B, C) sums of y2 over H and W). The convs zero-pad
+    the LayerNorm output and h1, as HAT's CAB does."""
+    ln = F.layer_norm(x.float(), (x.shape[-1],), ln_w.float(), ln_b.float(), 1e-5)
+    h1 = F.gelu(conv3x3_plain(ln, w1, b1))
+    y2 = conv3x3_plain(h1, w2, b2)
+    return y2.to(x.dtype), y2.sum(dim=(1, 2))
+
+
+def fused_cab_body(x, ln_w, ln_b, w1, b1, w2, b2):
+    """B11: (B, H, W, C) block input -> (y2 (B, H, W, C), channel sums (B, C)
+    f32). ``w1`` (3, 3, C, Cm) and ``w2`` (3, 3, Cm, C) HWIO in the map's
+    dtype; LayerNorm weights and conv biases f32. CPU tensors take the plain
+    version; CUDA tensors launch the kernels or raise."""
+    if x.device.type == "cpu":
+        return cab_body_plain(x, ln_w, ln_b, w1, b1, w2, b2)
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"fused_cab_body: unsupported dtype {x.dtype}")
+    bsz, h, wd, c = x.shape
+    cm = w1.shape[-1]
+    dev, dt, f32 = x.device, x.dtype, torch.float32
+    ptrs = [
+        check(x, "x", (bsz, h, wd, c), dt, dev),
+        check(ln_w, "ln_w", (c,), f32, dev), check(ln_b, "ln_b", (c,), f32, dev),
+        check(w1, "w1", (3, 3, c, cm), dt, dev), check(b1, "b1", (cm,), f32, dev),
+        check(w2, "w2", (3, 3, cm, c), dt, dev), check(b2, "b2", (c,), f32, dev),
+    ]
+    lib = _build.load("cab_body", _CAB_SIGNATURES)
+    ln = torch.empty_like(x)
+    h1 = torch.empty((bsz, h, wd, cm), dtype=dt, device=dev)
+    partials = torch.empty((bsz, lib.cab_body_partials(h, wd, c), c), dtype=f32, device=dev)
+    out = torch.empty_like(x)
+    sums = torch.empty((bsz, c), dtype=f32, device=dev)
+    fn = lib.cab_body_bf16 if dt == torch.bfloat16 else lib.cab_body_f32
+    status = fn(*ptrs, ln.data_ptr(), h1.data_ptr(), partials.data_ptr(), out.data_ptr(), sums.data_ptr(),
+                bsz, h, wd, c, cm, stream(dev))
+    finish("fused_cab_body", status)
+    return out, sums

@@ -19,6 +19,7 @@ __all__ = [
     "calculate_mask",
     "shift_region_ids",
     "relative_position_index",
+    "relative_position_index_oca",
     "gather_rel_bias",
     "pad_to_multiple_reflect",
     "pad_to_multiple_flip",
@@ -90,6 +91,23 @@ def relative_position_index(window_size: int) -> np.ndarray:
     relative[:, :, 0] += window_size - 1
     relative[:, :, 1] += window_size - 1
     relative[:, :, 0] *= 2 * window_size - 1
+    return relative.sum(-1).astype(np.int32)
+
+
+@lru_cache(maxsize=64)
+def relative_position_index_oca(window_size: int, overlap_ratio: float) -> np.ndarray:
+    """(ws*ws, wse*wse) gather indices into the (ws + wse - 1)^2 table of
+    overlapping cross-attention: queries on the ws grid, keys and values on
+    the extended wse = ws + int(overlap_ratio * ws) grid around it."""
+    ws_ori = window_size
+    ws_ext = window_size + int(overlap_ratio * window_size)
+    coords_ori = np.stack(np.meshgrid(np.arange(ws_ori), np.arange(ws_ori), indexing="ij")).reshape(2, -1)
+    coords_ext = np.stack(np.meshgrid(np.arange(ws_ext), np.arange(ws_ext), indexing="ij")).reshape(2, -1)
+    relative = coords_ext[:, None, :] - coords_ori[:, :, None]
+    relative = relative.transpose(1, 2, 0)
+    relative[:, :, 0] += ws_ori - ws_ext + 1
+    relative[:, :, 1] += ws_ori - ws_ext + 1
+    relative[:, :, 0] *= ws_ori + ws_ext - 1
     return relative.sum(-1).astype(np.int32)
 
 

@@ -1,0 +1,165 @@
+"""Serving-path HAT forward built on the CUDA kernels.
+
+Port of ``studiosr_tpu/serving/hat_fast.py``: the exact HAT eval computation
+(``models/hat.py``). Per HAB:
+
+* B11 (``ops/cuda/conv3x3.py::fused_cab_body``) runs the CAB trunk on the
+  block input, y2 = conv2(gelu(conv1(LN1 x))), with the per-image channel
+  sums of y2; the squeeze-excite gate g = sigmoid(conv(relu(conv(mean))))
+  runs in plain ops, mean = sums / (H W) of the padded map;
+* B5 at window 16 (``ops/cuda/window_attention.py``) computes
+  y = x + attn(LN1 x), the shift folded in and the output aligned, so the
+  JAX path's rolls have no counterpart;
+* B6 (``ops/cuda/mlp_block.py``) finishes the block. At batch 1 it folds in
+  the CAB join x' = y + y2 * (g * conv_scale) through ``extra`` /
+  ``extra_scale``; at batch > 1 the join runs in plain ops first.
+
+Each group ends with B10 (``ops/cuda/ocab.py``) and its conv through B2,
+the skip folded in; ``conv_after_body`` runs through B2 as well and the x4
+tail through B3. ``conv_first``, ``conv_before_upsample`` and the LayerNorms
+outside the blocks stay plain, as the JAX package leaves them to XLA.
+
+On CPU tensors every kernel wrapper takes its plain version; on CUDA
+tensors it launches its kernel or raises.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from studiosr_tpu_torch.models.blocks import DEFAULT_RGB_MEAN
+from studiosr_tpu_torch.ops.cuda import engagement
+from studiosr_tpu_torch.ops.cuda.conv3x3 import fused_cab_body, fused_conv3x3
+from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block
+from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block
+from studiosr_tpu_torch.ops.cuda.upsampler import fused_upsample_x4
+from studiosr_tpu_torch.ops.cuda.window_attention import fused_window_attention_block
+from studiosr_tpu_torch.ops.windows import (
+    gather_rel_bias,
+    pad_to_multiple_reflect,
+    relative_position_index,
+    relative_position_index_oca,
+)
+from studiosr_tpu_torch.serving.swinir_fast import _conv_operands, _dense, _f32, _layernorm
+
+__all__ = ["hat_fast_forward", "prepare_hat_serving"]
+
+
+def _check_supported(config: Dict[str, Any]) -> None:
+    """Raise for fused configurations whose kernel is still queued."""
+    if int(config["scale"]) in (2, 3):
+        raise NotImplementedError(
+            f"fused HAT x{config['scale']} needs the x2/x3 tail kernel B4 "
+            "(ops/pallas/upsampler.py::fused_upsample_s), not ported yet"
+        )
+
+
+def _ln(norm: nn.LayerNorm, prefix: str = "ln") -> Dict[str, torch.Tensor]:
+    return {f"{prefix}_w": _f32(norm.weight), f"{prefix}_b": _f32(norm.bias)}
+
+
+def prepare_hat_serving(module: nn.Module, config: Dict[str, Any], dtype) -> Dict[str, Any]:
+    """Lay every kernel's weights out once, at load time: dense weights to
+    (in, out) and conv weights to HWIO in ``dtype``, the rel-pos biases
+    gathered to (heads, 256, 256) and (heads, 256, 576), LayerNorm weights
+    and biases f32. Consumed by :func:`hat_fast_forward`."""
+    _check_supported(config)
+    ws = int(config["window_size"])
+    overlap = float(config.get("overlap_ratio", 0.5))
+    rpi, rpi_oca = relative_position_index(ws), relative_position_index_oca(ws, overlap)
+    prep: Dict[str, Any] = {"blocks": [], "convs": [], "ocab": []}
+    for li, layer in enumerate(module.layers):
+        heads = int(config["num_heads"][li])
+        group = []
+        for blk in layer.residual_group.blocks:
+            a, cab = blk.attn, blk.conv_block.cab._modules
+            w1, b1 = _conv_operands(cab["0"], dtype)
+            w2, b2 = _conv_operands(cab["2"], dtype)
+            group.append(dict(
+                cab=dict(**_ln(blk.norm1), w1=w1, b1=b1, w2=w2, b2=b2),
+                attn=dict(**_ln(blk.norm1), wqkv=_dense(a.qkv, dtype), bqkv=_f32(a.qkv.bias),
+                          wproj=_dense(a.proj, dtype), bproj=_f32(a.proj.bias),
+                          bias=gather_rel_bias(_f32(a.relative_position_bias_table), rpi, heads).contiguous()),
+                mlp=dict(**_ln(blk.norm2), w1=_dense(blk.mlp.fc1, dtype), b1=_f32(blk.mlp.fc1.bias),
+                         w2=_dense(blk.mlp.fc2, dtype), b2=_f32(blk.mlp.fc2.bias)),
+            ))
+        prep["blocks"].append(group)
+        oa = layer.residual_group.overlap_attn
+        prep["ocab"].append(dict(
+            **_ln(oa.norm1, "ln1"), wqkv=_dense(oa.qkv, dtype), bqkv=_f32(oa.qkv.bias), wproj=_dense(oa.proj, dtype),
+            bproj=_f32(oa.proj.bias),
+            bias=gather_rel_bias(_f32(oa.relative_position_bias_table), rpi_oca, heads).contiguous(),
+            **_ln(oa.norm2, "ln2"), w1=_dense(oa.mlp.fc1, dtype), b1=_f32(oa.mlp.fc1.bias),
+            w2=_dense(oa.mlp.fc2, dtype), b2=_f32(oa.mlp.fc2.bias),
+        ))
+        prep["convs"].append(_conv_operands(layer.conv, dtype))
+    prep["after_body"] = _conv_operands(module.conv_after_body, dtype)
+    if int(config["scale"]) == 4:
+        up = module.upsample
+        prep["tail"] = (
+            *_conv_operands(up._modules["0"], dtype),
+            *_conv_operands(up._modules["2"], dtype),
+            *_conv_operands(module.conv_last, dtype),
+        )
+    return prep
+
+
+def hat_fast_forward(
+    module: nn.Module, x: torch.Tensor, config: Dict[str, Any], prep: Optional[Dict[str, Any]] = None
+) -> torch.Tensor:
+    """Eval-mode HAT forward (reflect padding) of an NHWC batch.
+
+    ``prep``: the weights of :func:`prepare_hat_serving` for ``x.dtype``;
+    built here when omitted."""
+    _check_supported(config)
+    if prep is None:
+        prep = prepare_hat_serving(module, config, x.dtype)
+    scale = int(config["scale"])
+    ws = int(config["window_size"])
+    img_range = float(config.get("img_range", 1.0))
+    conv_scale = float(config.get("conv_scale", 0.01))
+    overlap = float(config.get("overlap_ratio", 0.5))
+
+    n, h0, w0, _ = x.shape
+    x = pad_to_multiple_reflect(x, ws)
+    hgt, wdt = x.shape[1:3]
+    mean = torch.tensor(DEFAULT_RGB_MEAN, dtype=x.dtype, device=x.device)
+    x = x / img_range - mean
+
+    x = module.conv_first(x).contiguous()
+    shallow = x
+    c = x.shape[-1]
+    feats = _layernorm(x, module.patch_embed.norm)
+    for li, layer in enumerate(module.layers):
+        heads = int(config["num_heads"][li])
+        res = feats
+        for bi, ops in enumerate(prep["blocks"][li]):
+            ca = layer.residual_group.blocks[bi].conv_block.cab._modules["3"]
+            y2, sums = fused_cab_body(res, **ops["cab"])
+            g = ca.gate((sums / (hgt * wdt)).to(res.dtype).reshape(n, 1, 1, c))
+            y = fused_window_attention_block(res, **ops["attn"], heads=heads, window_size=ws,
+                                             shift=0 if bi % 2 == 0 else ws // 2)
+            if n == 1:
+                escale = g.reshape(c) * torch.tensor(conv_scale, dtype=g.dtype, device=g.device)
+                flat = fused_mlp_block(y.reshape(-1, c), **ops["mlp"], extra=y2.reshape(-1, c), extra_scale=escale)
+            else:
+                flat = fused_mlp_block((y + y2 * g * conv_scale).reshape(-1, c), **ops["mlp"])
+            res = flat.reshape(n, hgt, wdt, c)
+        res = fused_ocab_block(res, **prep["ocab"][li], heads=heads, window_size=ws, overlap_ratio=overlap)
+        feats = fused_conv3x3(res, *prep["convs"][li], extra=feats)
+    feats = _layernorm(feats, module.norm)
+    x = fused_conv3x3(feats, *prep["after_body"], extra=shallow)
+    x = F.leaky_relu(module.conv_before_upsample[0](x), 0.01).contiguous()
+    if scale == 4:
+        x = fused_upsample_x4(x, *prep["tail"])
+    else:
+        # No fused tail outside x2/x3/x4: record the by-design decline and
+        # run the plain log2 ladder.
+        engagement.structural_tail_decline(scale)
+        x = module.conv_last(module.upsample(x))
+    x = (x + mean) * img_range
+    return x[:, : h0 * scale, : w0 * scale, :]

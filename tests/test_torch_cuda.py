@@ -15,12 +15,13 @@ import numpy as np
 import pytest
 import torch
 
-from studiosr_tpu_torch import SwinIR, resolve_device
+from studiosr_tpu_torch import HAT, SwinIR, resolve_device
 from studiosr_tpu_torch.ops.cuda import engagement
 from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd, attention_bwd_plain
-from studiosr_tpu_torch.ops.cuda.conv3x3 import conv3x3_plain, fused_conv3x3
+from studiosr_tpu_torch.ops.cuda.conv3x3 import cab_body_plain, conv3x3_plain, fused_cab_body, fused_conv3x3
 from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mlp_block_plain
 from studiosr_tpu_torch.ops.cuda.mlp_bwd import mlp_bwd, mlp_bwd_plain
+from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block, ocab_plain, overlap_window
 from studiosr_tpu_torch.ops.cuda.swin_block import fused_swin_block, swin_block_plain
 from studiosr_tpu_torch.ops.cuda.upsampler import fused_upsample_x4, upsample_x4_plain
 from studiosr_tpu_torch.ops.cuda.window_attention import fused_window_attention_block, window_attention_plain
@@ -229,5 +230,106 @@ def test_small_swinir_fused_matches_plain_on_the_card(dev):
     fused = model.enable_fused(True).inference_batch(images)
     assert engagement.counters() == {"fused_swin_block": 4, "fused_conv3x3": 3, "fused_upsample_x4": 1}
     for got, want in zip(fused, plain):
+        diff = np.abs(got.astype(int) - want.astype(int))
+        assert got.shape == (80, 112, 3) and diff.max() <= 1 and (diff > 0).mean() < 0.01
+
+
+# HAT serving kernels (B11, B5 at window 16, B6 with extra, B10): maps that
+# are not tile multiples, batch 2, C 32 with 2 heads and the full width,
+# and maps of exactly one window, where every OCAB key window reaches
+# outside the image.
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c,cm,shape", [(32, 10, (2, 13, 21)), (180, 60, (1, 24, 40)), (16, 5, (1, 16, 16))])
+def test_cab_body_kernel_matches_plain(dev, dtype, c, cm, shape):
+    gen = torch.Generator().manual_seed(c + cm)
+    x = _randn(gen, *shape, c).to(dev, dtype)
+    ops = [1 + _randn(gen, c, scale=0.1), _randn(gen, c, scale=0.1), _randn(gen, 3, 3, c, cm, scale=(9 * c) ** -0.5),
+           _randn(gen, cm, scale=0.1), _randn(gen, 3, 3, cm, c, scale=(9 * cm) ** -0.5), _randn(gen, c, scale=0.1)]
+    ops = [t.to(dev, dtype if t.dim() == 4 else torch.float32) for t in ops]
+    got = fused_cab_body(x, *ops)
+    want = cab_body_plain(x.float(), *[t.float() for t in ops])
+    for a, e in zip(got, want):
+        _assert_close(a, e, dtype)
+    again = fused_cab_body(x, *ops)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])  # no atomics: bitwise repeatable
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize(
+    "c,heads,shape,shift",
+    [(32, 2, (2, 32, 48), 8), (32, 2, (1, 16, 16), 0), (180, 6, (1, 32, 32), 8), (16, 2, (2, 16, 32), 8)],
+)
+def test_window_attention16_kernel_matches_plain(dev, dtype, c, heads, shape, shift):
+    gen = torch.Generator().manual_seed(c + shift + 16)
+    ops = _block_operands(gen, c, heads, 2 * c, ws=16)[:7]
+    ops = [t.to(dev, dtype if i in (2, 4) else torch.float32) for i, t in enumerate(ops)]
+    x = _randn(gen, *shape, c).to(dev, dtype)
+    dp = torch.tensor([1.25, 0.0][: shape[0]], device=dev)
+    kw = dict(heads=heads, window_size=16, shift=shift, drop_path=dp)
+    engagement.reset()
+    got = fused_window_attention_block(x, *ops, **kw)
+    assert engagement.counters() == {"fused_window_attention_block_ws16": 1}
+    want = window_attention_plain(x.float(), *[t.float() for t in ops], **kw)
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c,rows", [(32, 300), (180, 256), (16, 100)])
+def test_mlp_block_extra_kernel_matches_plain(dev, dtype, c, rows):
+    gen = torch.Generator().manual_seed(c + rows)
+    ops = _block_operands(gen, c, 2, 2 * c)[7:]
+    ops = [t.to(dev, dtype if i in (2, 4) else torch.float32) for i, t in enumerate(ops)]
+    x = _randn(gen, rows, c).to(dev, dtype)
+    extra = _randn(gen, rows, c).to(dev, dtype)
+    escale = _randn(gen, c, scale=0.5).to(dev)
+    engagement.reset()
+    got = fused_mlp_block(x, *ops, extra=extra, extra_scale=escale)
+    assert engagement.counters() == {"fused_mlp_block_extra": 1}
+    want = mlp_block_plain(x.float(), *[t.float() for t in ops], extra=extra.float(), extra_scale=escale)
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize(
+    "c,heads,shape,ws,overlap",
+    [
+        (32, 2, (2, 32, 48), 16, 0.5), (32, 2, (1, 16, 16), 16, 0.5), (180, 6, (1, 32, 32), 16, 0.5),
+        (24, 3, (2, 16, 24), 8, 1.0), (24, 3, (1, 8, 8), 8, 0.5),
+    ],
+)
+def test_ocab_kernel_matches_plain(dev, dtype, c, heads, shape, ws, overlap):
+    """The last case has 12 x 12 key windows: 144 keys, not a multiple of
+    the kernel's 64-key chunks."""
+    gen = torch.Generator().manual_seed(c + ws)
+    owin, _ = overlap_window(ws, overlap)
+    blk = _block_operands(gen, c, heads, 2 * c, ws=ws)
+    ops = blk[:6] + [_randn(gen, heads, ws * ws, owin * owin, scale=0.5)] + blk[7:]
+    ops = [t.to(dev, dtype if i in (2, 4, 9, 11) else torch.float32) for i, t in enumerate(ops)]
+    x = _randn(gen, *shape, c).to(dev, dtype)
+    kw = dict(heads=heads, window_size=ws, overlap_ratio=overlap)
+    engagement.reset()
+    got = fused_ocab_block(x, *ops, **kw)
+    assert engagement.counters() == {"fused_ocab_block": 1}
+    want = ocab_plain(x.float(), *[t.float() for t in ops], **kw)
+    _assert_close(got, want, dtype)
+
+
+def test_small_hat_fused_matches_plain_on_the_card(dev):
+    """Batch 1 folds the CAB join into B6; batch 2 joins in plain ops."""
+    model = HAT.build(scale=4, embed_dim=30, depths=[2, 2], num_heads=[2, 2], window_size=16, device=dev)
+    images = [np.random.default_rng(i).integers(0, 256, (20, 28, 3), dtype=np.uint8) for i in range(2)]
+    plain = model.enable_fused(False).inference_batch(images)
+    engagement.reset()
+    fused = model.enable_fused(True).inference_batch(images)
+    assert engagement.counters() == {
+        "fused_cab_body": 4, "fused_window_attention_block_ws16": 4, "fused_mlp_block": 4, "fused_ocab_block": 2,
+        "fused_conv3x3": 3, "fused_upsample_x4": 1,
+    }
+    engagement.reset()
+    single = model.inference(images[0])
+    assert engagement.counters()["fused_mlp_block_extra"] == 4
+    for got, want in zip(fused + [single], plain + plain[:1]):
         diff = np.abs(got.astype(int) - want.astype(int))
         assert got.shape == (80, 112, 3) and diff.max() <= 1 and (diff > 0).mean() < 0.01

@@ -24,6 +24,9 @@ WRAPPERS = [
     "studiosr_tpu_torch.ops.cuda.mlp_block",
     "studiosr_tpu_torch.ops.cuda.mlp_bwd",
     "studiosr_tpu_torch.ops.cuda.attn_bwd",
+    "studiosr_tpu_torch.ops.cuda.ocab",
+    "studiosr_tpu_torch.serving.hat_fast",
+    "studiosr_tpu_torch.models.hat",
     "studiosr_tpu_torch.ops.attn_vjp",
     "studiosr_tpu_torch.ops.mlp_vjp",
     "studiosr_tpu_torch.engine.trainer",
@@ -51,6 +54,7 @@ def test_guard_sees_the_whole_package():
         "swinir.py", "swinir_fast.py", "swin_block.py", "conv3x3.py", "upsampler.py", "chip_smoke.py",
         "window_attention.py", "mlp_block.py", "mlp_bwd.py", "attn_bwd.py", "attn_vjp.py", "mlp_vjp.py",
         "trainer.py", "train_step.py", "dataset.py", "handler.py", "transforms.py", "losses.py", "helpers.py",
+        "hat.py", "hat_fast.py", "ocab.py",
     } <= names
 
 

@@ -100,10 +100,21 @@ def test_mlp_block_plain_matches_pallas(dp):
 
 
 def test_mlp_block_extra_operands_wait_for_hat():
-    x = torch.zeros(64, 8)
-    ops = [torch.zeros(8), torch.zeros(8), torch.zeros(8, 16), torch.zeros(16), torch.zeros(16, 8), torch.zeros(8)]
+    """HAT's CAB join (``extra`` with ``extra_scale``) serves, but not with
+    drop-path, which waits for HAT training; the two operands come
+    together. The join itself is held against the Pallas kernel in
+    tests/test_torch_hat.py."""
+    rng = np.random.default_rng(21)
+    x = _t(rng.standard_normal((64, 8)).astype(np.float32))
+    extra = _t(rng.standard_normal((64, 8)).astype(np.float32))
+    escale = _t(rng.standard_normal(8).astype(np.float32))
+    ops = [_t(v) for v in _mlp_operands(rng, 8, 16).values()]
     with pytest.raises(NotImplementedError, match="extra"):
-        fused_mlp_block(x, *ops, extra=x)
+        fused_mlp_block(x, *ops, extra=extra, extra_scale=escale, drop_path=torch.ones(1), rows_per_sample=64)
+    with pytest.raises(ValueError, match="extra"):
+        fused_mlp_block(x, *ops, extra=extra)
+    got = fused_mlp_block(x, *ops, extra=extra, extra_scale=escale)
+    torch.testing.assert_close(got, mlp_block_plain(x + extra * escale, *ops), atol=ATOL, rtol=RTOL)
 
 
 @pytest.mark.parametrize("shift,dp", [(0, None), (4, (0.0, 1.25))])
