@@ -16,7 +16,15 @@ against its plain PyTorch version:
 * HAT x4 serving at XPixelGroup/HAT ``options/test/HAT_SRx4.yml`` (embed
   180, depths [6]x6, 6 heads, window 16, overlap 0.5): bf16, batch 1,
   256x256 LR input, through ``hat_fast_forward`` (kernels B11, B5 at window
-  16, B6 with the CAB join, B10, and B2, B3).
+  16, B6 with the CAB join, B10, and B2, B3);
+* x2 / x3 serving of both, the x2 / x3 tail through B4: SwinIR at
+  JingyunLiang/SwinIR ``001_classicalSR_DF2K_s64w8_SwinIR-M_x2`` / ``_x3``
+  and HAT at ``options/test/HAT_SRx2.yml`` / ``HAT_SRx3.yml``, bf16, batch 1,
+  256x256 LR input;
+* the user's entry points: the seven trained checkpoints of
+  ``tests/fixtures/quality`` read by ``load_model`` (no JAX, no flax) with
+  the fixture PNGs read by the port's codec, the ``Evaluator2`` on the host
+  and on the card, and the CLI (``python3 -m studiosr_tpu_torch``).
 
 Phases, in order; any failure exits non-zero before the final line:
 
@@ -54,7 +62,22 @@ Phases, in order; any failure exits non-zero before the final line:
     through ``inference`` (bf16, fused) with launch counts checked per
     forward;
 12. HAT serving timing: the forward (ms, LR MP/s), each HAT kernel's ms,
-    plain ms and bound, and B2 and B3 at HAT's shapes.
+    plain ms and bound, and B2 and B3 at HAT's shapes;
+13. B4 vs plain at s = 2 and 3, f32 and bf16, at SwinIR's (1, 264, 264,
+    64), HAT's (1, 256, 256, 64) and a ragged (2, 37, 53, 64);
+14. x2 / x3 at full width, SwinIR then HAT at each scale: fused vs plain
+    forward (f32, bf16), three requests with launch counts per forward,
+    the forward's time (ms, LR MP/s) and B4's ms, plain ms and bound;
+15. the seven trained checkpoints (SwinIR x2 / x3 / x4 / x8, HAT x2 / x3 /
+    x4 at window 8) on the card: plain f32 beats bicubic by 0.3 dB, fused
+    f32 is within 0.05 dB of plain, fused bf16 beats bicubic by 0.2 dB and
+    is within 0.5 dB of plain, on each of the three fixture images;
+16. the Evaluator (HR / LR_bicubic layout built under
+    ``build/chip_smoke_eval/`` from the fixture PNGs) on the host and on the
+    card for SwinIR x2 and HAT x3, fused bf16: within 1e-4 dB and 1e-5 SSIM;
+    the CLI as a subprocess on the x4 checkpoint with ``--half``, whole and
+    ``--tile 32 --tile-overlap 8``, against the in-process route, and
+    tiled in process at tile 16, overlap 4.
 
 Prints the card line, a ``{"kernels": [...]}`` JSON line, and last
 ``{"ok": true, "device": {...}}``. Random weights come from a seeded
@@ -76,7 +99,7 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 import studiosr_tpu_torch
-from studiosr_tpu_torch import HAT, SwinIR, Trainer, resolve_device
+from studiosr_tpu_torch import HAT, Evaluator2, SwinIR, Trainer, load_model, resolve_device
 from studiosr_tpu_torch.data import PairedImageDataset
 from studiosr_tpu_torch.ops.cuda import _build, engagement
 from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd, attention_bwd_plain
@@ -85,13 +108,13 @@ from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mlp_block_pla
 from studiosr_tpu_torch.ops.cuda.mlp_bwd import mlp_bwd, mlp_bwd_plain
 from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block, ocab_plain
 from studiosr_tpu_torch.ops.cuda.swin_block import fused_swin_block, swin_block_plain
-from studiosr_tpu_torch.ops.cuda.upsampler import fused_upsample_x4, upsample_x4_plain
+from studiosr_tpu_torch.ops.cuda.upsampler import fused_upsample_s, fused_upsample_x4, upsample_s_plain, upsample_x4_plain
 from studiosr_tpu_torch.ops.cuda.window_attention import fused_window_attention_block, window_attention_plain
 from studiosr_tpu_torch.ops.windows import gather_rel_bias, relative_position_index
 from studiosr_tpu_torch.parallel import build_optimizer, make_train_step, prepare_state
 from studiosr_tpu_torch.serving.hat_fast import prepare_hat_serving
 from studiosr_tpu_torch.serving.swinir_fast import prepare_serving
-from studiosr_tpu_torch.utils import l1_loss
+from studiosr_tpu_torch.utils import compute_psnr, imread, imwrite, l1_loss
 
 MAIN = dict(scale=4, embed_dim=180, depths=[6] * 6, num_heads=[6] * 6, window_size=8, mlp_ratio=2.0)
 LR = 256
@@ -155,6 +178,27 @@ KERNELS.update({
 })
 HAT_PER_FORWARD = {"fused_cab_body": 36, "fused_window_attention_block_ws16": 36, "fused_mlp_block_extra": 36,
                    "fused_ocab_block": 6, "fused_conv3x3": 7, "fused_upsample_x4": 1}
+
+# x2 / x3: SwinIR classical x2 / x3 (the x4 widths) and HAT_SRx2 / HAT_SRx3
+# (the HAT_SRx4 widths), depth not cut; the tail through B4.
+SCALES_S = (2, 3)
+B4_SHAPES = ((1, LR + MAIN["window_size"], LR + MAIN["window_size"], 64), (1, LR, LR, 64), (2, 37, 53, 64))
+KERNELS["fused_upsample_s"] = ("studiosr_tpu_torch/csrc/upsampler.cu", "studiosr_tpu/ops/pallas/upsampler.py:487")
+S_PER_FORWARD = {
+    "swinir": {"fused_swin_block": 36, "fused_conv3x3": 7, "fused_upsample_s": 1},
+    "hat": {"fused_cab_body": 36, "fused_window_attention_block_ws16": 36, "fused_mlp_block_extra": 36,
+            "fused_ocab_block": 6, "fused_conv3x3": 7, "fused_upsample_s": 1},
+}
+# The trained checkpoints (tests/fixtures/quality) and their floors
+# (tests/models/test_quality_fixture.py): (directory, model, scale).
+ROOT = Path(__file__).resolve().parent
+FIXTURES = ROOT / "tests" / "fixtures" / "quality"
+TRAINED = (("swinir_ckpt", "swinir", 4), ("swinir_x2_ckpt", "swinir", 2), ("swinir_x3_ckpt", "swinir", 3),
+           ("swinir_x8_ckpt", "swinir", 8), ("hat_ckpt", "hat", 4), ("hat_x2_ckpt", "hat", 2),
+           ("hat_x3_ckpt", "hat", 3))
+FLOOR_PLAIN, FLOOR_FUSED, FLOOR_BF16, FLOOR_BF16_VS_PLAIN = 0.3, 0.05, 0.2, 0.5
+EVAL_DIR, CLI_DIR = ROOT / "build" / "chip_smoke_eval", ROOT / "build" / "chip_smoke_cli"
+EVAL_PSNR, EVAL_SSIM, CLI_PSNR, TILED_PSNR = 1e-4, 1e-5, 0.01, 0.5
 
 
 def log(msg: str) -> None:
@@ -912,6 +956,258 @@ def phase_hat_timing(model: HAT, dev: torch.device, errors: dict, launches: dict
         f"conv_before_upsample, gaps) {fwd - kernel_total:.1f} ms")
     return rows
 
+# -- x2 / x3 serving phases (B4) ------------------------------------------------
+
+
+def b4_cases(dev: torch.device, dtype: torch.dtype, s: int):
+    """(label, operands) of B4 at SwinIR's, HAT's and a ragged shape, with
+    seeded weights laid out for ``dtype``."""
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 7 + s)
+    cases = []
+    for shape in B4_SHAPES:
+        cin = shape[-1]
+        ops = (torch.randn(*shape, generator=gen).to(dev, dtype),
+               (torch.randn(3, 3, cin, s * s * cin, generator=gen) * (9 * cin) ** -0.5).to(dev, dtype),
+               (torch.randn(s * s * cin, generator=gen) * 0.1).to(dev),
+               (torch.randn(3, 3, cin, 3, generator=gen) * (9 * cin) ** -0.5).to(dev, dtype),
+               (torch.randn(3, generator=gen) * 0.1).to(dev))
+        cases.append(("x".join(map(str, shape)), ops))
+    return cases
+
+
+def phase_b4_kernels(dev: torch.device) -> dict:
+    """B4 against its plain version at s = 2, 3, f32 then bf16. Returns the
+    bf16 max abs error at SwinIR's shape for each s."""
+    errors, failed = {}, []
+    for s in SCALES_S:
+        for dtype in (torch.float32, torch.bfloat16):
+            for label, ops in b4_cases(dev, dtype, s):
+                got = fused_upsample_s(*ops, s)
+                torch.cuda.synchronize()
+                want = upsample_s_plain(*[t.float() for t in ops], s)
+                torch.cuda.synchronize()
+                part = f"fused_upsample_s x{s} [{label}]"
+                if not torch.isfinite(got.float()).all() or got.shape != want.shape:
+                    failed.append(f"{part}: non-finite or {tuple(got.shape)}")
+                    continue
+                err = float((got.float() - want).abs().max())
+                if dtype == torch.float32:
+                    limit = F32_RTOL * float(want.abs().max()) + F32_ATOL
+                    ok = err <= limit
+                    log(f"check {part} f32: max_abs_err {err:.3e} limit {limit:.3e}")
+                else:
+                    rel = rel_l2(got, want)
+                    ok = rel <= BF16_REL_L2
+                    if label == B4_LABEL:
+                        errors[s] = err
+                    log(f"check {part} bf16: rel_l2 {rel:.3e} limit {BF16_REL_L2:.0e} max_abs_err {err:.3e}")
+                if not ok:
+                    failed.append(f"{part} {dtype}")
+                del got, want
+    if failed:
+        raise AssertionError("B4 disagrees with its plain version: " + "; ".join(failed))
+    return errors
+
+
+B4_LABEL = "x".join(map(str, B4_SHAPES[0]))
+
+
+def b4_bounds(ops, s: int) -> tuple:
+    """(flops, bytes) of one B4 launch: each input read once, the output
+    written once."""
+    x, w0, _, w2, _ = ops
+    pix, cin, n_colors = x.numel() // x.shape[-1], x.shape[-1], w2.shape[-1]
+    flops = 2 * pix * 9 * cin * w0.shape[-1] + 2 * s * s * pix * 9 * cin * n_colors
+    return flops, nbytes(*ops) + s * s * pix * n_colors * x.element_size()
+
+
+def s_model(name: str, s: int, dev: torch.device):
+    if name == "swinir":
+        return SwinIR.build(**{**MAIN, "scale": s}, seed=SEED, device=dev)
+    return HAT.build(**{**HAT_MAIN, "scale": s}, seed=SEED, device=dev)
+
+
+def phase_scale_serving(name: str, s: int, dev: torch.device) -> tuple:
+    """Full-width ``name`` at x``s``: fused vs plain (f32, then bf16 against
+    f32 plain), three requests with launch counts, the forward's time, and
+    B4's time at this model's tail shape. Returns (launches, forward ms,
+    {B4 ms, plain ms, bound ms, bound by, flops, bytes})."""
+    model = s_model(name, s, dev)
+    images = requests()
+    x = torch.from_numpy(images[0]).to(dev).float()[None] / 255.0
+    plain = model.enable_fused(False)(x)
+    fused = model.enable_fused(True)(x)
+    torch.cuda.synchronize()
+    rel32 = rel_l2(fused, plain)
+    model.half()
+    fused16 = model(x)
+    torch.cuda.synchronize()
+    rel16 = rel_l2(fused16, plain)
+    log(f"{name} x{s} e2e fused vs plain: f32 rel_l2 {rel32:.3e} limit {E2E_F32_REL_L2:.0e}; bf16 vs f32 plain "
+        f"rel_l2 {rel16:.3e} limit {E2E_BF16_REL_L2:.0e}")
+    failed = []
+    if not rel32 <= E2E_F32_REL_L2:
+        failed.append(f"{name} x{s}: f32 fused forward disagrees with the plain forward")
+    if not rel16 <= E2E_BF16_REL_L2:
+        failed.append(f"{name} x{s}: bf16 fused forward disagrees with the plain forward")
+    if not bool(torch.isfinite(fused16).all()) or fused16.shape != (1, s * LR, s * LR, 3):
+        failed.append(f"{name} x{s}: bad bf16 forward {tuple(fused16.shape)}")
+    del plain, fused, fused16
+
+    prep = model.serving_prep()  # load-time weight layout, outside the counted run
+    engagement.reset()
+    outs = [model.inference(im) for im in images]
+    launches = engagement.counters()
+    log(f"{name} x{s} served {len(outs)} requests; launches {launches}")
+    for out in outs:
+        if out.shape != (s * LR, s * LR, 3) or out.dtype != np.uint8:
+            failed.append(f"{name} x{s}: bad output {out.shape} {out.dtype}")
+    expected = S_PER_FORWARD[name]
+    for k in set(launches) | set(expected):
+        if launches.get(k, 0) != expected.get(k, 0) * REQUESTS:
+            failed.append(f"{name} x{s} {k}: {launches.get(k, 0)} launches, expected {expected.get(k, 0)} a forward")
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+    fwd = time_ms(lambda: model(x), iters=5)
+    log(f"{name} x{s} forward bf16 batch 1 {LR}x{LR}: {fwd:.3f} ms, {LR * LR / 1e6 / (fwd / 1e3):.3f} LR MP/s")
+    hp = LR + (MAIN["window_size"] if name == "swinir" else 0)
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 8)
+    ops = (torch.randn(1, hp, hp, 64, generator=gen).to(dev, torch.bfloat16), *prep["tail"])
+    ms = time_ms(lambda: fused_upsample_s(*ops, s), iters=10)
+    plain_ms = time_ms(lambda: upsample_s_plain(*ops, s), iters=10)
+    flops, moved = b4_bounds(ops, s)
+    bms, by = bound_ms(flops, moved)
+    log(f"time fused_upsample_s x{s} at {name}'s {hp}x{hp}x64 bf16: {ms:.3f} ms ({100 * ms / fwd:.1f} % of the "
+        f"forward), plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), {flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB")
+    del model
+    return launches, fwd, dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+
+
+def phase_x2_x3(dev: torch.device, b4_errors: dict) -> list:
+    """Phase 14 over SwinIR and HAT at x2 and x3; B4's JSON rows (SwinIR's
+    tail shape, the main path's) with the launches of all four runs."""
+    rows = []
+    for s in SCALES_S:
+        launches, timed = 0, {}
+        for name in ("swinir", "hat"):
+            counts, _, timed[name] = phase_scale_serving(name, s, dev)
+            launches += counts.get("fused_upsample_s", 0)
+            torch.cuda.empty_cache()
+        t = timed["swinir"]
+        source, replaces = KERNELS["fused_upsample_s"]
+        rows.append(dict(name=f"fused_upsample_s_x{s}", route="cuda", source=source, replaces=replaces,
+                         launches=launches, max_abs_err=b4_errors[s], ms=t["ms"], plain_ms=t["plain_ms"],
+                         bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None))
+    return rows
+
+
+# -- the user's entry points: trained checkpoints, Evaluator, CLI -----------------
+
+
+def fixture_pairs(scale: int):
+    """The three fixture images: (LR at ``scale``, HR mod-cropped to it),
+    read with the port's PNG codec."""
+    pairs = []
+    for i in range(3):
+        hr = imread(str(FIXTURES / f"img{i}_hr.png"))
+        hr = hr[: hr.shape[0] // scale * scale, : hr.shape[1] // scale * scale]
+        pairs.append((imread(str(FIXTURES / f"img{i}_lrx{scale}.png")), hr))
+    return pairs
+
+
+def bicubic(lr: np.ndarray, h: int, w: int, dev: torch.device) -> np.ndarray:
+    x = torch.from_numpy(lr).to(dev).float().permute(2, 0, 1)[None] / 255.0
+    up = F.interpolate(x, size=(h, w), mode="bicubic", align_corners=False)
+    return torch.clamp(torch.round(up * 255.0), 0, 255).to(torch.uint8)[0].permute(1, 2, 0).cpu().numpy()
+
+
+def phase_trained(dev: torch.device) -> list:
+    """The seven trained checkpoints on the card, each image against the
+    floors. Returns (checkpoint, image, bicubic, plain, fused f32, fused
+    bf16) PSNRs."""
+    table, failed = [], []
+    for subdir, name, scale in TRAINED:
+        ckpt = str(FIXTURES / subdir)
+        for i, (lr, hr) in enumerate(fixture_pairs(scale)):
+            model = load_model(ckpt, name, device=dev)
+            bi = compute_psnr(bicubic(lr, *hr.shape[:2], dev), hr)
+            plain = compute_psnr(model.inference(lr), hr)
+            fused = compute_psnr(model.enable_fused(True).inference(lr), hr)
+            bf16 = compute_psnr(model.half().inference(lr), hr)
+            table.append((subdir, i, bi, plain, fused, bf16))
+            log(f"trained {subdir} img{i}: bicubic {bi:.4f} plain f32 {plain:.4f} fused f32 {fused:.4f} "
+                f"fused bf16 {bf16:.4f} dB")
+            if not plain > bi + FLOOR_PLAIN:
+                failed.append(f"{subdir} img{i}: plain {plain:.3f} vs bicubic {bi:.3f}")
+            if not abs(fused - plain) < FLOOR_FUSED:
+                failed.append(f"{subdir} img{i}: fused {fused:.3f} vs plain {plain:.3f}")
+            if not (bf16 > bi + FLOOR_BF16 and abs(bf16 - plain) < FLOOR_BF16_VS_PLAIN):
+                failed.append(f"{subdir} img{i}: bf16 {bf16:.3f} vs bicubic {bi:.3f}, plain {plain:.3f}")
+    if failed:
+        raise AssertionError("trained checkpoints below their floors: " + "; ".join(failed))
+    return table
+
+
+def phase_evaluator(dev: torch.device) -> None:
+    """Evaluator2 on the host and on the card, SwinIR x2 and HAT x3, fused bf16."""
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    failed = []
+    for subdir, name, scale in (("swinir_x2_ckpt", "swinir", 2), ("hat_x3_ckpt", "hat", 3)):
+        root = EVAL_DIR / f"fixture_x{scale}"
+        (root / "HR").mkdir(parents=True)
+        (root / "LR_bicubic" / f"X{scale}").mkdir(parents=True)
+        for i in range(3):  # HR not mod-cropped: at x3 the SR is 126 x 126 against a 128 x 128 GT
+            imwrite(str(root / "HR" / f"img{i}.png"), imread(str(FIXTURES / f"img{i}_hr.png")))
+            imwrite(str(root / "LR_bicubic" / f"X{scale}" / f"img{i}.png"),
+                    imread(str(FIXTURES / f"img{i}_lrx{scale}.png")))
+        model = load_model(str(FIXTURES / subdir), name, device=dev).half().enable_fused(True)
+        ev = Evaluator2(root.name, scale, root=str(EVAL_DIR))
+        host = ev.run(model)
+        engagement.reset()
+        card = ev.run(model, on_device=True)
+        launches = engagement.counters()
+        log(f"evaluator {subdir} fused bf16: host PSNR {host[0]:.6f} SSIM {host[1]:.6f}; on the card PSNR "
+            f"{card[0]:.6f} SSIM {card[1]:.6f} (differences {card[0] - host[0]:.2e} dB, {card[1] - host[1]:.2e}); "
+            f"launches {launches}")
+        if not (abs(card[0] - host[0]) < EVAL_PSNR and abs(card[1] - host[1]) < EVAL_SSIM):
+            failed.append(f"{subdir}: on-card scores differ from the host protocol's")
+        if launches.get("fused_upsample_s", 0) != 3:
+            failed.append(f"{subdir}: the on-card route did not serve through B4 ({launches})")
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
+def phase_cli(dev: torch.device) -> None:
+    """``python3 -m studiosr_tpu_torch`` on the x4 checkpoint with ``--half``,
+    whole and tiled, against the in-process fused bf16 route."""
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    image, ckpt = FIXTURES / "img0_lrx4.png", FIXTURES / "swinir_ckpt"
+    hr = imread(str(FIXTURES / "img0_hr.png"))
+    model = load_model(str(ckpt), "swinir", device=dev).half().enable_fused(True)
+    lr = imread(str(image))
+    want = compute_psnr(model.inference(lr), hr)
+    psnrs = {}
+    for label, extra in (("whole", []), ("tiled", ["--tile", "32", "--tile-overlap", "8"])):
+        out = CLI_DIR / label
+        cmd = [sys.executable, "-m", "studiosr_tpu_torch", "--image", str(image.relative_to(ROOT)), "--scale", "4",
+               "--model", "swinir", "--ckpt", str(ckpt.relative_to(ROOT)), "--output", str(out), "--half", *extra]
+        t0 = time.perf_counter()
+        subprocess.run(cmd, cwd=ROOT, check=True, timeout=600, capture_output=True, text=True)
+        psnrs[label] = compute_psnr(imread(str(out / "img0_lrx4.swinir_x4.png")), hr)
+        log(f"cli {label} ({time.perf_counter() - t0:.1f} s, host clock): PSNR {psnrs[label]:.4f} dB")
+    tiled16 = compute_psnr(model.inference_tiled(lr, tile=16, tile_overlap=4, tile_batch=4), hr)
+    log(f"cli: in-process fused bf16 {want:.4f} dB; tiled in process at tile 16, overlap 4: {tiled16:.4f} dB")
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    failed = []
+    if not abs(psnrs["whole"] - want) < CLI_PSNR:
+        failed.append(f"the CLI's {psnrs['whole']:.4f} dB differs from the in-process {want:.4f} dB")
+    if not (psnrs["tiled"] > psnrs["whole"] - TILED_PSNR and tiled16 > want - TILED_PSNR):
+        failed.append(f"tiled {psnrs['tiled']:.4f} / {tiled16:.4f} dB vs whole {psnrs['whole']:.4f} dB")
+    if failed:
+        raise AssertionError("; ".join(failed))
+
 
 def main() -> int:
     dev = phase_device()
@@ -933,6 +1229,13 @@ def main() -> int:
     hat_errors = phase_hat_kernels(hat, dev)
     hat_launches = phase_hat_end_to_end(hat, dev)
     rows += phase_hat_timing(hat, dev, hat_errors, hat_launches)
+    del hat
+    torch.cuda.empty_cache()
+    b4_errors = phase_b4_kernels(dev)
+    rows += phase_x2_x3(dev, b4_errors)
+    phase_trained(dev)
+    phase_evaluator(dev)
+    phase_cli(dev)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

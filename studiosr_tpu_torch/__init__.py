@@ -5,14 +5,16 @@ Mirrors the JAX package's layout and names (``models/swinir.py``,
 function. The Pallas TPU kernels of the serving and training paths are
 hand-written CUDA C++ kernels under ``csrc/``, built with ``nvcc`` on first
 use (``ops/cuda/_build.py``); each has a plain PyTorch version beside it
-that runs only on CPU tensors.
+that runs only on CPU tensors. ``python3 -m studiosr_tpu_torch`` is the CLI
+upscaler.
 
 This package imports neither JAX nor anything of ``studiosr_tpu``.
 """
 
 from studiosr_tpu_torch._device import resolve_device
-from studiosr_tpu_torch.engine import Trainer
+from studiosr_tpu_torch.engine import Evaluator, Evaluator2, Trainer, benchmark
 from studiosr_tpu_torch.models.hat import HAT
 from studiosr_tpu_torch.models.swinir import SwinIR
+from studiosr_tpu_torch.zoo.registry import load_model
 
-__all__ = ["HAT", "SwinIR", "Trainer", "resolve_device"]
+__all__ = ["Evaluator", "Evaluator2", "HAT", "SwinIR", "Trainer", "benchmark", "load_model", "resolve_device"]

@@ -1,6 +1,6 @@
 // 3x3 SAME convolution on NHWC maps, as an implicit GEMM.
 //
-// Shared by B2 (conv3x3.cu), B3 (upsampler.cu, which stores through a
+// Shared by B2 (conv3x3.cu), B3 and B4 (upsampler.cu, which store through a
 // pixel shuffle) and B11 (cab_body.cu). A thread block owns a TH x TW pixel tile and BN output
 // channels. It walks Cin in chunks of KC: the chunk's (TH+2) x (TW+2) input
 // patch (zero outside the image: the SAME padding) and its 9 x KC x BN
@@ -36,8 +36,22 @@ enum { ACT_NONE = 0, ACT_RELU = 1, ACT_LRELU = 2, ACT_GELU = 3 };
 constexpr int CONV_THREADS = 256;
 constexpr int CONV_KC = 16;
 
-// shuffle != 0: store through pixel_shuffle(2) with torch channel order
-// (co = k*4 + a*2 + b goes to pixel (2y + a, 2x + b), channel k).
+// Where output (b, gy, gx, co) of an H x W x Cout map is stored. shuffle = 0
+// stores in place; shuffle = s (2 or 3) stores through pixel_shuffle(s) with
+// torch channel order: co = k s^2 + a s + b goes to pixel (s gy + a, s gx + b),
+// channel k, of an sH x sW x Cout/s^2 map. s = 2 keeps its shift arithmetic.
+__device__ __forceinline__ size_t conv_out_index(int b, int gy, int gx, int co, int H, int W, int Cout,
+                                                 int shuffle) {
+  if (!shuffle) return (((size_t)b * H + gy) * W + gx) * Cout + co;
+  if (shuffle == 2) {
+    const int k = co >> 2, sa = (co >> 1) & 1, sb = co & 1;
+    return (((size_t)b * 2 * H + 2 * gy + sa) * (2 * W) + 2 * gx + sb) * (Cout >> 2) + k;
+  }
+  const int s = shuffle, s2 = s * s;
+  const int k = co / s2, r = co - k * s2, sa = r / s, sb = r - sa * s;
+  return (((size_t)b * s * H + s * gy + sa) * (s * W) + s * gx + sb) * (Cout / s2) + k;
+}
+
 template <typename T, int BN, int TN, int TH, int TW, bool CAB>
 __global__ void __launch_bounds__(CONV_THREADS) conv3x3_kernel(
     const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ bias,
@@ -133,14 +147,7 @@ __global__ void __launch_bounds__(CONV_THREADS) conv3x3_kernel(
       if (residual) v += to_f32(x[pix * Cin + co]);
       if (extra) v += to_f32(extra[pix * Cout + co]);
       if constexpr (CAB) acc[m][n] = v;
-      size_t o;
-      if (shuffle) {
-        const int k = co >> 2, sa = (co >> 1) & 1, sb = co & 1;
-        o = (((size_t)b * 2 * H + 2 * gy + sa) * (2 * W) + 2 * gx + sb) * (Cout >> 2) + k;
-      } else {
-        o = pix * Cout + co;
-      }
-      out[o] = from_f32<T>(v);
+      out[shuffle ? conv_out_index(b, gy, gx, co, H, W, Cout, shuffle) : pix * Cout + co] = from_f32<T>(v);
     }
   }
   if constexpr (CAB) {
@@ -256,14 +263,7 @@ __global__ void __launch_bounds__(CONV_THREADS) conv3x3_wmma_kernel(
     if (residual) v += to_f32(x[pix * Cin + co]);
     if (extra) v += to_f32(extra[pix * Cout + co]);
     if constexpr (CAB) tile[e] = v;
-    size_t o;
-    if (shuffle) {
-      const int k = co >> 2, sa = (co >> 1) & 1, sb = co & 1;
-      o = (((size_t)b * 2 * H + 2 * gy + sa) * (2 * W) + 2 * gx + sb) * (Cout >> 2) + k;
-    } else {
-      o = pix * Cout + co;
-    }
-    out[o] = __float2bfloat16(v);
+    out[shuffle ? conv_out_index(b, gy, gx, co, H, W, Cout, shuffle) : pix * Cout + co] = __float2bfloat16(v);
   }
   if constexpr (CAB) {
     if (psum) {  // block-uniform; each thread sums the channels it owns, pixels in order
@@ -287,9 +287,9 @@ __host__ inline int conv3x3_pixel_tiles(int H, int W, int Cout) {
 // Launch on `stream`; returns cudaGetLastError(). f32 maps take the FMA
 // kernel, bf16 maps the tensor-core one. Wide outputs take 8 x 16 pixel
 // tiles x 64 channels; narrow ones (conv_last, Cout <= 16) take 16 x 16
-// pixel tiles x 16 channels so fewer lanes idle. CAB (B11) admits ACT_GELU
-// and `psum`, B x conv3x3_pixel_tiles(H, W, Cout) x Cout f32 channel
-// partials (or null).
+// pixel tiles x 16 channels so fewer lanes idle. `shuffle` (0, 2 or 3) is
+// conv_out_index's. CAB (B11) admits ACT_GELU and `psum`, B x
+// conv3x3_pixel_tiles(H, W, Cout) x Cout f32 channel partials (or null).
 template <typename T, bool CAB = false>
 cudaError_t launch_conv3x3(const T* x, const T* w, const float* bias, const T* extra, T* out, int B, int H,
                            int W, int Cin, int Cout, int act, float slope, int residual, int shuffle,

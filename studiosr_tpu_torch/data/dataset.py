@@ -6,7 +6,8 @@ augmentation (scale-coupled crop + flips + rot90, ``transforms.py``) and the
 optional float32 conversion, yielding numpy HWC arrays. ``get(idx, rng)``
 draws from an explicit ``random.Random``, as the loader seeds it per sample.
 
-Images are read with cv2, imported on first read. Subclasses that hold
+Images are read with ``utils/helpers.py::imread`` (PNG by the port's own
+codec, other formats by cv2, imported on first read). Subclasses that hold
 their pairs elsewhere (in memory) override :meth:`get_image_pair`. The
 JAX package's DIV2K / Flickr2K / DF2K download and sub-image preparation
 and its native C++ crop+augment path are not part of this port yet; the

@@ -1,17 +1,22 @@
-"""The public model contract: numpy uint8 in, numpy uint8 out (subset).
+"""The public model contract: numpy uint8 in, numpy uint8 out.
 
 Port of ``studiosr_tpu/models/base.py``: ``inference`` takes an RGB uint8
 HWC array and returns the upscaled RGB uint8 HWC array; ``forward_uint8``
 does normalize -> forward -> x255, round, clip, uint8 on the device;
-``half()`` switches to bfloat16 serving (it converts the module in place,
-so a Trainer never calls it on the f32 weights it trains);
+``inference_with_self_ensemble`` averages the 8 rot90 / flip variants;
+``inference_tiled`` serves overlapping tiles (``parallel/tiled.py``);
+``evaluate_uint8`` / ``evaluate_uint8_batch`` run the forward and the
+PSNR / SSIM chain on the device and bring back two floats an image, never
+the HR image; ``half()`` switches to bfloat16 serving (it converts the
+module in place, so a Trainer never calls it on the f32 weights it trains);
 ``get_model_config`` gives the reconstruction config (the Trainer's
 ``params.json``); :class:`FusedServingModel` adds ``enable_fused`` and the
 cached load-time ``serving_prep``.
 
 A model wraps an ``nn.Module`` that lives on ``self.device``. Forwards run
-under ``torch.inference_mode``. Self-ensemble, on-device evaluation, tiled
-serving and export are not part of this port yet.
+under ``torch.inference_mode``. Not ported: ``from_pretrained`` (the zoo's
+weights are not in the repository, ROADMAP A8), the mesh-sharded routes
+(A17) and export.
 """
 
 from __future__ import annotations
@@ -22,7 +27,29 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-__all__ = ["Model", "FusedServingModel"]
+from studiosr_tpu_torch.utils.metrics import compute_psnr_torch, compute_ssim_torch
+
+__all__ = ["Model", "FusedServingModel", "diverge_images", "converge_images"]
+
+
+def diverge_images(image: np.ndarray) -> List[np.ndarray]:
+    """The 8 rot90 x fliplr variants of an HWC image."""
+    out = []
+    for i in range(4):
+        rotated = np.rot90(image, k=i, axes=(0, 1))
+        flipped = np.fliplr(rotated)
+        out.extend([rotated, flipped])
+    return out
+
+
+def converge_images(images: List[np.ndarray]) -> np.ndarray:
+    """Invert :func:`diverge_images` on each output and average."""
+    undone = []
+    for i, image in enumerate(images):
+        image = np.fliplr(image) if i & 1 else image
+        image = np.rot90(image, k=i // 2, axes=(1, 0))
+        undone.append(image)
+    return np.mean(np.stack(undone), axis=0)
 
 
 class Model:
@@ -35,8 +62,23 @@ class Model:
         self._compute_dtype: Optional[torch.dtype] = None
 
     @property
+    def scale(self) -> int:
+        return int(self.config.get("scale", 4))
+
+    @property
+    def n_colors(self) -> int:
+        return int(self.config.get("n_colors", 3))
+
+    @property
     def img_range(self) -> float:
         return float(self.config.get("img_range", 1.0))
+
+    @classmethod
+    def from_pretrained(cls, scale: int = 4) -> "Model":
+        raise NotImplementedError(
+            f"{cls.__name__}.from_pretrained: the published zoo weights are not in the repository (ROADMAP A8); "
+            "load a trained checkpoint directory with zoo.load_model instead"
+        )
 
     def get_model_config(self) -> Dict[str, Any]:
         return dict(self.config)
@@ -77,6 +119,65 @@ class Model:
         """:meth:`inference` over same-shaped images in one forward."""
         batch = torch.from_numpy(np.stack([np.asarray(im) for im in images]))
         return list(self.forward_uint8(batch).cpu().numpy())
+
+    def inference_with_self_ensemble(self, image: np.ndarray) -> np.ndarray:
+        """8-way test-time ensemble: the f32 outputs of the rot90 / flip
+        variants, undone and averaged on the host, then rounded."""
+        scale = 255.0 if self.img_range == 1.0 else 1.0
+        outputs = []
+        for variant in diverge_images(image.astype(np.float32) / scale):
+            x = torch.from_numpy(np.ascontiguousarray(variant))[None]
+            outputs.append(self(x)[0].cpu().numpy())
+        merged = converge_images(outputs) * scale
+        return np.clip(np.round(merged), 0, 255).astype(np.uint8)
+
+    def inference_tiled(
+        self, image: np.ndarray, tile: int = 128, tile_overlap: int = 16, tile_batch: int = 8, mesh=None,
+        device_loop: Optional[bool] = None,
+    ) -> np.ndarray:
+        """Overlapping-tile inference (``parallel/tiled.py``), for large or
+        variably sized inputs."""
+        from studiosr_tpu_torch.parallel.tiled import tiled_inference
+
+        return tiled_inference(self, image, tile=tile, tile_overlap=tile_overlap, tile_batch=tile_batch, mesh=mesh,
+                               device_loop=device_loop)
+
+    # -- on-device evaluation ------------------------------------------------
+
+    @staticmethod
+    def _metric_stack(sr: torch.Tensor, gt: torch.Tensor, crop_border: int, y_only: bool) -> torch.Tensor:
+        """[PSNR, SSIM] of one uint8 SR / GT pair, on their device: the one
+        metric chain both evaluation routes run."""
+        return torch.stack([
+            compute_psnr_torch(sr, gt, y_only=y_only, crop_border=crop_border),
+            compute_ssim_torch(sr, gt, y_only=y_only, crop_border=crop_border),
+        ])
+
+    def evaluate_uint8(self, lq, gt, crop_border: int = 0, y_only: bool = True):
+        """(PSNR, SSIM) of the model's output for uint8 ``lq`` against uint8
+        ``gt``: the forward, the round / clip to uint8, the Y conversion and
+        both metrics run on ``self.device``; two floats come back, the HR
+        image never does. Matches the host numpy protocol to 1e-4 dB."""
+        lq = torch.from_numpy(np.ascontiguousarray(lq))[None]
+        with torch.inference_mode():
+            sr = self.forward_uint8(lq)[0]
+            gt = torch.from_numpy(np.ascontiguousarray(gt)).to(self.device)
+            psnr, ssim = self._metric_stack(sr, gt, crop_border, y_only).tolist()
+        return float(psnr), float(ssim)
+
+    def evaluate_uint8_batch(self, lqs, gts, crop_border: int = 0, y_only: bool = True, mesh=None):
+        """Per-image (PSNRs, SSIMs) numpy arrays of a same-shape uint8 batch,
+        one forward on ``self.device``; a (B, 2) f32 array comes back."""
+        if mesh is not None:
+            raise NotImplementedError("evaluate_uint8_batch(mesh=...): multi-device evaluation is not ported "
+                                      "(ROADMAP A17)")
+        lqs = torch.from_numpy(np.ascontiguousarray(np.asarray(lqs)))
+        with torch.inference_mode():
+            srs = self.forward_uint8(lqs)
+            gts = torch.from_numpy(np.ascontiguousarray(np.asarray(gts))).to(self.device)
+            out = torch.stack([self._metric_stack(sr, gt, crop_border, y_only) for sr, gt in zip(srs, gts)])
+            out = out.cpu().numpy()
+        return out[:, 0], out[:, 1]
 
     # -- dtype policy --------------------------------------------------------
 

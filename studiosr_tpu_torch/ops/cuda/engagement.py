@@ -5,7 +5,12 @@ fallback: on a CUDA tensor a kernel wrapper launches its kernel or raises,
 so there is no fallback to count. What remains:
 
 * ``launched(name)`` — each wrapper adds one where it launches its kernel
-  (CPU tensors take the plain version and count nothing);
+  (CPU tensors take the plain version and count nothing), under the
+  kernel's name: ``fused_swin_block``, ``fused_conv3x3``,
+  ``fused_upsample_x4``, ``fused_upsample_s`` (B4, x2 / x3),
+  ``fused_window_attention_block`` (``_ws16`` at window 16),
+  ``fused_mlp_block`` (``_extra`` with the CAB join), ``mlp_bwd``,
+  ``attention_bwd``, ``fused_cab_body``, ``fused_ocab_block``;
 * ``structural_tail_decline(scale)`` — the by-design decline of a
   configuration that has no kernel at all (scale 8's log2-ladder tail),
   recorded and warned about so it is never silent;

@@ -15,8 +15,9 @@ Port of ``studiosr_tpu/serving/hat_fast.py``: the exact HAT eval computation
   ``extra_scale``; at batch > 1 the join runs in plain ops first.
 
 Each group ends with B10 (``ops/cuda/ocab.py``) and its conv through B2,
-the skip folded in; ``conv_after_body`` runs through B2 as well and the x4
-tail through B3. ``conv_first``, ``conv_before_upsample`` and the LayerNorms
+the skip folded in; ``conv_after_body`` runs through B2 as well and the tail
+through B3 at x4 or B4 at x2 / x3 (x8 records its structural decline).
+``conv_first``, ``conv_before_upsample`` and the LayerNorms
 outside the blocks stay plain, as the JAX package leaves them to XLA.
 
 On CPU tensors every kernel wrapper takes its plain version; on CUDA
@@ -32,11 +33,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from studiosr_tpu_torch.models.blocks import DEFAULT_RGB_MEAN
-from studiosr_tpu_torch.ops.cuda import engagement
 from studiosr_tpu_torch.ops.cuda.conv3x3 import fused_cab_body, fused_conv3x3
 from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block
 from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block
-from studiosr_tpu_torch.ops.cuda.upsampler import fused_upsample_x4
 from studiosr_tpu_torch.ops.cuda.window_attention import fused_window_attention_block
 from studiosr_tpu_torch.ops.windows import (
     gather_rel_bias,
@@ -44,18 +43,9 @@ from studiosr_tpu_torch.ops.windows import (
     relative_position_index,
     relative_position_index_oca,
 )
-from studiosr_tpu_torch.serving.swinir_fast import _conv_operands, _dense, _f32, _layernorm
+from studiosr_tpu_torch.serving.swinir_fast import _conv_operands, _dense, _f32, _layernorm, fused_tail, tail_operands
 
 __all__ = ["hat_fast_forward", "prepare_hat_serving"]
-
-
-def _check_supported(config: Dict[str, Any]) -> None:
-    """Raise for fused configurations whose kernel is still queued."""
-    if int(config["scale"]) in (2, 3):
-        raise NotImplementedError(
-            f"fused HAT x{config['scale']} needs the x2/x3 tail kernel B4 "
-            "(ops/pallas/upsampler.py::fused_upsample_s), not ported yet"
-        )
 
 
 def _ln(norm: nn.LayerNorm, prefix: str = "ln") -> Dict[str, torch.Tensor]:
@@ -67,7 +57,6 @@ def prepare_hat_serving(module: nn.Module, config: Dict[str, Any], dtype) -> Dic
     (in, out) and conv weights to HWIO in ``dtype``, the rel-pos biases
     gathered to (heads, 256, 256) and (heads, 256, 576), LayerNorm weights
     and biases f32. Consumed by :func:`hat_fast_forward`."""
-    _check_supported(config)
     ws = int(config["window_size"])
     overlap = float(config.get("overlap_ratio", 0.5))
     rpi, rpi_oca = relative_position_index(ws), relative_position_index_oca(ws, overlap)
@@ -98,13 +87,7 @@ def prepare_hat_serving(module: nn.Module, config: Dict[str, Any], dtype) -> Dic
         ))
         prep["convs"].append(_conv_operands(layer.conv, dtype))
     prep["after_body"] = _conv_operands(module.conv_after_body, dtype)
-    if int(config["scale"]) == 4:
-        up = module.upsample
-        prep["tail"] = (
-            *_conv_operands(up._modules["0"], dtype),
-            *_conv_operands(up._modules["2"], dtype),
-            *_conv_operands(module.conv_last, dtype),
-        )
+    prep["tail"] = tail_operands(module, int(config["scale"]), dtype)
     return prep
 
 
@@ -115,7 +98,6 @@ def hat_fast_forward(
 
     ``prep``: the weights of :func:`prepare_hat_serving` for ``x.dtype``;
     built here when omitted."""
-    _check_supported(config)
     if prep is None:
         prep = prepare_hat_serving(module, config, x.dtype)
     scale = int(config["scale"])
@@ -154,12 +136,6 @@ def hat_fast_forward(
     feats = _layernorm(feats, module.norm)
     x = fused_conv3x3(feats, *prep["after_body"], extra=shallow)
     x = F.leaky_relu(module.conv_before_upsample[0](x), 0.01).contiguous()
-    if scale == 4:
-        x = fused_upsample_x4(x, *prep["tail"])
-    else:
-        # No fused tail outside x2/x3/x4: record the by-design decline and
-        # run the plain log2 ladder.
-        engagement.structural_tail_decline(scale)
-        x = module.conv_last(module.upsample(x))
+    x = fused_tail(module, x, scale, prep["tail"])
     x = (x + mean) * img_range
     return x[:, : h0 * scale, : w0 * scale, :]

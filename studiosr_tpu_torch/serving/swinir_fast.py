@@ -4,7 +4,8 @@ Port of ``studiosr_tpu/serving/swinir_fast.py``: the exact SwinIR eval
 computation (``models/swinir.py``), with every Swin block through B1
 (``ops/cuda/swin_block.py``), the RSTB convs and ``conv_after_body`` through
 B2 (``ops/cuda/conv3x3.py``, the skip map folded in through ``extra``) and
-the x4 tail through B3 (``ops/cuda/upsampler.py``). ``conv_first`` and
+the tail through B3 at x4 or B4 at x2 / x3 (``ops/cuda/upsampler.py``); x8
+has no fused tail and records its structural decline. ``conv_first`` and
 ``conv_before_upsample`` stay plain convolutions, as the JAX package leaves
 them to XLA. B1 returns its output aligned, so the JAX path's rolled-space
 bookkeeping and its per-group realigning roll have no counterpart here.
@@ -25,11 +26,11 @@ from studiosr_tpu_torch.models.blocks import DEFAULT_RGB_MEAN
 from studiosr_tpu_torch.ops.cuda import engagement
 from studiosr_tpu_torch.ops.cuda.conv3x3 import fused_conv3x3, prepare_conv3x3_weights
 from studiosr_tpu_torch.ops.cuda.swin_block import fused_swin_block
-from studiosr_tpu_torch.ops.cuda.upsampler import fused_upsample_x4
+from studiosr_tpu_torch.ops.cuda.upsampler import SCALES_S, fused_upsample_s, fused_upsample_x4
 from studiosr_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 from studiosr_tpu_torch.ops.windows import gather_rel_bias, pad_to_multiple_flip, relative_position_index
 
-__all__ = ["swinir_fast_forward", "prepare_serving"]
+__all__ = ["swinir_fast_forward", "prepare_serving", "tail_operands", "fused_tail"]
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -45,22 +46,12 @@ def _conv_operands(conv: nn.Conv2d, dtype):
     return prepare_conv3x3_weights(conv.weight, dtype), _f32(conv.bias)
 
 
-def _check_supported(config: Dict[str, Any]) -> None:
-    """Raise for fused configurations whose kernel is still queued."""
-    if config.get("upsampler", "pixelshuffle") == "pixelshuffle" and int(config["scale"]) in (2, 3):
-        raise NotImplementedError(
-            f"fused SwinIR x{config['scale']} needs the x2/x3 tail kernel B4 "
-            "(ops/pallas/upsampler.py::fused_upsample_s), not ported yet"
-        )
-
-
 def prepare_serving(module: nn.Module, config: Dict[str, Any], dtype) -> Dict[str, Any]:
     """Lay every kernel's weights out once, at load time.
 
     Dense weights go to (in, out) and conv weights to HWIO in ``dtype``; the
     rel-pos bias is gathered to (heads, N, N); LayerNorm weights and biases
     become f32. Consumed by :func:`swinir_fast_forward`."""
-    _check_supported(config)
     ws = int(config["window_size"])
     rpi = relative_position_index(ws)
     prep: Dict[str, Any] = {"blocks": [], "convs": []}
@@ -84,16 +75,33 @@ def prepare_serving(module: nn.Module, config: Dict[str, Any], dtype) -> Dict[st
         prep["convs"].append(_conv_operands(layer.conv, dtype))
     prep["after_body"] = _conv_operands(module.conv_after_body, dtype)
     if config.get("upsampler", "pixelshuffle") == "pixelshuffle":
-        if int(config["scale"]) == 4:
-            up = module.upsample
-            prep["tail"] = (
-                *_conv_operands(up._modules["0"], dtype),
-                *_conv_operands(up._modules["2"], dtype),
-                *_conv_operands(module.conv_last, dtype),
-            )
+        prep["tail"] = tail_operands(module, int(config["scale"]), dtype)
     else:
         prep["up_direct"] = _conv_operands(module.upsample._modules["0"], dtype)
     return prep
+
+
+def tail_operands(module: nn.Module, scale: int, dtype):
+    """The fused tail's weights: B3's (``upsample.0``, ``upsample.2``,
+    ``conv_last``) at x4, B4's (``upsample.0``, ``conv_last``) at x2 / x3,
+    None where no kernel serves the scale."""
+    convs = {4: ("0", "2"), **{s: ("0",) for s in SCALES_S}}.get(scale)
+    if convs is None:
+        return None
+    ops = [t for name in convs for t in _conv_operands(module.upsample._modules[name], dtype)]
+    return (*ops, *_conv_operands(module.conv_last, dtype))
+
+
+def fused_tail(module: nn.Module, x: torch.Tensor, scale: int, tail) -> torch.Tensor:
+    """The pixelshuffle tail after conv_before_upsample + LeakyReLU: B3 at
+    x4, B4 at x2 / x3; any other scale records the by-design decline and runs
+    the plain log2 ladder."""
+    if scale == 4:
+        return fused_upsample_x4(x, *tail)
+    if scale in SCALES_S:
+        return fused_upsample_s(x, *tail, scale)
+    engagement.structural_tail_decline(scale)
+    return module.conv_last(module.upsample(x))
 
 
 def _layernorm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
@@ -108,7 +116,6 @@ def swinir_fast_forward(
 
     ``prep``: the weights of :func:`prepare_serving` for ``x.dtype``; built
     here when omitted."""
-    _check_supported(config)
     if prep is None:
         prep = prepare_serving(module, config, x.dtype)
     scale = int(config["scale"])
@@ -135,13 +142,7 @@ def swinir_fast_forward(
 
     if upsampler == "pixelshuffle":
         x = F.leaky_relu(module.conv_before_upsample[0](x), 0.01).contiguous()
-        if scale == 4:
-            x = fused_upsample_x4(x, *prep["tail"])
-        else:
-            # No fused tail outside x2/x3/x4: record the by-design decline
-            # and run the plain log2 ladder.
-            engagement.structural_tail_decline(scale)
-            x = module.conv_last(module.upsample(x))
+        x = fused_tail(module, x, scale, prep["tail"])
     else:
         x = pixel_shuffle(fused_conv3x3(x, *prep["up_direct"]), scale)
 

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-__all__ = ["load_jax_params", "jax_params_to_state_dict"]
+__all__ = ["load_jax_params", "jax_params_to_state_dict", "drop_recomputed"]
 
 _DROPPED_SUFFIXES = (
     "relative_position_index",
@@ -66,6 +66,12 @@ def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, np.ndarray]
     return state
 
 
+def drop_recomputed(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """``state`` without the buffers the port recomputes and the frozen
+    MeanShift convs."""
+    return {k: v for k, v in state.items() if not (k.endswith(_DROPPED_SUFFIXES) or k.startswith(_DROPPED_PREFIXES))}
+
+
 def load_jax_params(module: nn.Module, params: Mapping[str, Any]) -> nn.Module:
     """Fill ``module`` in place from a JAX params tree or an exported
     torch-convention state_dict (flat mapping of arrays). Returns ``module``."""
@@ -73,9 +79,7 @@ def load_jax_params(module: nn.Module, params: Mapping[str, Any]) -> nn.Module:
         state = jax_params_to_state_dict(params)
     else:
         state = dict(params)
-    state = {
-        k: v for k, v in state.items() if not (k.endswith(_DROPPED_SUFFIXES) or k.startswith(_DROPPED_PREFIXES))
-    }
+    state = drop_recomputed(state)
     target = module.state_dict()
     missing = sorted(set(target) - set(state))
     unknown = sorted(set(state) - set(target))

@@ -23,7 +23,7 @@ from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mlp_block_pla
 from studiosr_tpu_torch.ops.cuda.mlp_bwd import mlp_bwd, mlp_bwd_plain
 from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block, ocab_plain, overlap_window
 from studiosr_tpu_torch.ops.cuda.swin_block import fused_swin_block, swin_block_plain
-from studiosr_tpu_torch.ops.cuda.upsampler import fused_upsample_x4, upsample_x4_plain
+from studiosr_tpu_torch.ops.cuda.upsampler import fused_upsample_s, fused_upsample_x4, upsample_s_plain, upsample_x4_plain
 from studiosr_tpu_torch.ops.cuda.window_attention import fused_window_attention_block, window_attention_plain
 
 pytestmark = pytest.mark.cuda
@@ -116,6 +116,42 @@ def test_upsample_x4_kernel_matches_plain(dev, dtype, shape):
     assert tuple(got.shape) == (shape[0], 4 * shape[1], 4 * shape[2], 3)
     want = upsample_x4_plain(x.float(), *[t.float() for t in ops])
     _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize(
+    "s,shape", [(2, (1, 12, 10, 16)), (3, (1, 12, 10, 16)), (2, (2, 37, 53, 64)), (3, (2, 37, 53, 64)), (3, (1, 8, 8, 64))]
+)
+def test_upsample_s_kernel_matches_plain(dev, dtype, s, shape):
+    """B4: ragged maps (not tile multiples), batch 2, a narrow Cin."""
+    gen = torch.Generator().manual_seed(s * shape[-1] + shape[1])
+    cin = shape[-1]
+    x = _randn(gen, *shape).to(dev, dtype)
+    ops = [
+        _randn(gen, 3, 3, cin, s * s * cin, scale=(9 * cin) ** -0.5), _randn(gen, s * s * cin, scale=0.1),
+        _randn(gen, 3, 3, cin, 3, scale=(9 * cin) ** -0.5), _randn(gen, 3, scale=0.1),
+    ]
+    ops = [t.to(dev, dtype if t.dim() == 4 else torch.float32) for t in ops]
+    engagement.reset()
+    got = fused_upsample_s(x, *ops, s)
+    assert engagement.counters() == {"fused_upsample_s": 1}
+    assert tuple(got.shape) == (shape[0], s * shape[1], s * shape[2], 3)
+    want = upsample_s_plain(x.float(), *[t.float() for t in ops], s)
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("scale", [2, 3])
+def test_small_swinir_x2_x3_fused_matches_plain_on_the_card(dev, scale):
+    model = SwinIR.build(scale=scale, embed_dim=16, depths=[2, 2], num_heads=[2, 2], window_size=8, mlp_ratio=2.0,
+                         device=dev)
+    images = [np.random.default_rng(i).integers(0, 256, (20, 28, 3), dtype=np.uint8) for i in range(2)]
+    plain = model.enable_fused(False).inference_batch(images)
+    engagement.reset()
+    fused = model.enable_fused(True).inference_batch(images)
+    assert engagement.counters() == {"fused_swin_block": 4, "fused_conv3x3": 3, "fused_upsample_s": 1}
+    for got, want in zip(fused, plain):
+        diff = np.abs(got.astype(int) - want.astype(int))
+        assert got.shape == (20 * scale, 28 * scale, 3) and diff.max() <= 1 and (diff > 0).mean() < 0.01
 
 
 # Training kernels: ragged maps (several window rows, not square), batch 2,
@@ -333,3 +369,22 @@ def test_small_hat_fused_matches_plain_on_the_card(dev):
     for got, want in zip(fused + [single], plain + plain[:1]):
         diff = np.abs(got.astype(int) - want.astype(int))
         assert got.shape == (80, 112, 3) and diff.max() <= 1 and (diff > 0).mean() < 0.01
+
+
+@pytest.mark.parametrize("scale", [2, 3])
+def test_small_hat_window8_fused_matches_plain_on_the_card(dev, scale):
+    """HAT at the trained fixtures' geometry: window 8 (B5's ws-8 kernel
+    with HAT's operands), embed 32, 2 heads (head dim 16), overlap 0.5
+    (12 x 12 OCAB key windows: 144 keys), CAB 32 -> 10 -> 32; the x2 / x3
+    tail through B4."""
+    model = HAT.build(scale=scale, embed_dim=32, depths=[2, 2], num_heads=[2, 2], window_size=8, device=dev)
+    image = np.random.default_rng(scale).integers(0, 256, (20, 28, 3), dtype=np.uint8)
+    plain = model.enable_fused(False).inference(image)
+    engagement.reset()
+    fused = model.enable_fused(True).inference(image)
+    assert engagement.counters() == {
+        "fused_cab_body": 4, "fused_window_attention_block": 4, "fused_mlp_block_extra": 4, "fused_ocab_block": 2,
+        "fused_conv3x3": 3, "fused_upsample_s": 1,
+    }
+    diff = np.abs(fused.astype(int) - plain.astype(int))
+    assert fused.shape == (20 * scale, 28 * scale, 3) and diff.max() <= 1 and (diff > 0).mean() < 0.01

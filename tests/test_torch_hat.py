@@ -109,12 +109,18 @@ def test_bridge_keys_match_the_export_form(pair):
 
 
 def test_fused_train_and_queued_scales_raise():
+    """fused_train still needs B9, B12, B13 and raises; x2 / x3, which
+    raised until their tail kernel B4 was ported, now serve fused and agree
+    with the plain forward."""
     with pytest.raises(NotImplementedError, match="B9.*B12.*B13"):
         HAT.build(**SMALL, device="cpu", fused_train=True)
+    x = torch.from_numpy(_input((1, 16, 16, 3), seed=4))
     for scale in (2, 3):
-        model = HAT.build(**{**SMALL, "scale": scale}, device="cpu").enable_fused(True)
-        with pytest.raises(NotImplementedError, match="B4"):
-            model(torch.zeros(1, 16, 16, 3))
+        model = HAT.build(**{**SMALL, "scale": scale}, device="cpu")
+        want = model(x)
+        got = model.enable_fused(True)(x)
+        assert got.shape == (1, 16 * scale, 16 * scale, 3)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=RTOL)
 
 
 def test_fused_scale8_records_structural_decline():

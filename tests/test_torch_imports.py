@@ -1,4 +1,5 @@
-"""Import guard of the port: no JAX, and no build at import time.
+"""Import guard of the port: no JAX, flax or msgpack, no cv2 at import time,
+and no build at import time.
 
 Scans source with ``ast`` rather than ``sys.modules``, since the test
 process imports JAX for the parity tests.
@@ -14,7 +15,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "studiosr_tpu_torch"
-FORBIDDEN = ("jax", "flax", "optax", "studiosr_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "msgpack", "studiosr_tpu")
 SOURCES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 WRAPPERS = [
     "studiosr_tpu_torch.ops.cuda.conv3x3",
@@ -30,6 +31,13 @@ WRAPPERS = [
     "studiosr_tpu_torch.ops.attn_vjp",
     "studiosr_tpu_torch.ops.mlp_vjp",
     "studiosr_tpu_torch.engine.trainer",
+    "studiosr_tpu_torch.engine.evaluator",
+    "studiosr_tpu_torch.zoo.registry",
+    "studiosr_tpu_torch.zoo.checkpoint",
+    "studiosr_tpu_torch.utils.metrics",
+    "studiosr_tpu_torch.utils.png",
+    "studiosr_tpu_torch.parallel.tiled",
+    "studiosr_tpu_torch.__main__",
 ]
 
 
@@ -54,8 +62,20 @@ def test_guard_sees_the_whole_package():
         "swinir.py", "swinir_fast.py", "swin_block.py", "conv3x3.py", "upsampler.py", "chip_smoke.py",
         "window_attention.py", "mlp_block.py", "mlp_bwd.py", "attn_bwd.py", "attn_vjp.py", "mlp_vjp.py",
         "trainer.py", "train_step.py", "dataset.py", "handler.py", "transforms.py", "losses.py", "helpers.py",
-        "hat.py", "hat_fast.py", "ocab.py",
+        "hat.py", "hat_fast.py", "ocab.py", "metrics.py", "png.py", "checkpoint.py", "registry.py", "tiled.py",
+        "evaluator.py", "__main__.py",
     } <= names
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_cv2_only_inside_the_functions_that_need_it(path):
+    """cv2 (absent on the card's machine) is imported where a non-PNG file
+    is read or written, never when a module is imported."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+    names = [a.name for n in top if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in top if isinstance(n, ast.ImportFrom) and n.module]
+    assert "cv2" not in {m.split(".")[0] for m in names}
 
 
 @pytest.mark.parametrize("module", WRAPPERS)

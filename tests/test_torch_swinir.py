@@ -145,11 +145,19 @@ def test_default_device_raises_without_cuda():
 
 
 def test_fused_configuration_without_kernel_raises():
-    """Fused x3 needs the queued B4 tail kernel: it raises, on any device,
-    instead of quietly serving the plain tail."""
+    """The serving modes with no port raise, on any device, naming their
+    ROADMAP item, instead of quietly serving another way: mesh-sharded
+    evaluation and tiling (A17) and the one-program tile loop. Fused x3,
+    which raised until its tail kernel B4 was ported, now serves."""
     model = SwinIR.build(scale=3, **SMALL, device="cpu").enable_fused(True)
-    with pytest.raises(NotImplementedError, match="B4"):
-        model(torch.zeros(1, 16, 16, 3))
+    assert model(torch.zeros(1, 16, 16, 3)).shape == (1, 48, 48, 3)
+    image = np.zeros((16, 16, 3), np.uint8)
+    with pytest.raises(NotImplementedError, match="A17"):
+        model.evaluate_uint8_batch(image[None], np.zeros((1, 48, 48, 3), np.uint8), mesh=object())
+    with pytest.raises(NotImplementedError, match="A17"):
+        model.inference_tiled(image, tile=8, mesh=object())
+    with pytest.raises(NotImplementedError, match="device_loop"):
+        model.inference_tiled(image, tile=8, device_loop=True)
 
 
 def test_fused_scale8_records_structural_decline():
