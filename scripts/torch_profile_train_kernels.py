@@ -1,25 +1,30 @@
 #!/usr/bin/env python3
-"""Device time of each CUDA kernel inside the port's training kernels B5-B8,
-and of a whole training step.
+"""Device time of each CUDA kernel inside the port's training kernels, and
+of a whole training step.
 
-    python3 scripts/torch_profile_train_kernels.py
+    python3 scripts/torch_profile_train_kernels.py [--model swinir|hat]
 
-1. One launch of each wrapper (B5, B6, B7, B8) runs at the training step's
-   shapes (SwinIR x4 width: C 180, 6 heads, batch 32 of 64x64 maps, bf16,
-   one drop-path scale 0) under ``torch.profiler``; the script prints, per
-   wrapper, the device time of every kernel it enqueued (the weight pack,
-   the per-window or per-tile pass, the weight-gradient GEMMs, the
-   reductions), averaged over 5 calls after 2 warm-up calls.
-2. Three steps of ``make_train_step`` (SwinIR x4 full width, the batch-32
-   recipe, bf16, fused_train) after 2 warm-up steps: host ms a step, the
-   device's busy ms a step (the kernels' device times summed; one stream)
-   and so its idle share, and the kernels that take the most device time.
+1. One launch of each wrapper runs at the training step's shapes (C 180, 6
+   heads, batch 32 of 64x64 maps, bf16, one drop-path scale 0) under
+   ``torch.profiler``: for SwinIR x4 B5, B6, B7, B8 (window 8); for HAT_SRx4
+   B5 and B9 at window 16, B6, B7, and B12, B13 on the OCAB's (512 windows,
+   6 heads, 256 queries, 576 keys, d 30) transposed views. The script
+   prints, per wrapper, the device time of every kernel it enqueued (the
+   weight pack, the projection, attention and LN passes, the
+   weight-gradient GEMMs, the reductions), averaged over 5 calls after 2
+   warm-up calls.
+2. Three steps of ``make_train_step`` (the model at full width, the
+   batch-32 recipe, bf16, fused_train) after 2 warm-up steps: host ms a
+   step, the device's busy ms a step (the kernels' device times summed; one
+   stream) and so its idle share, the device kernels a step, and the
+   kernels that take the most device time.
 
 Prints the card's name and power limit first. Needs a CUDA card.
 """
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 import sys
 import time
@@ -30,10 +35,11 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from studiosr_tpu_torch import SwinIR, resolve_device  # noqa: E402
+from studiosr_tpu_torch import HAT, SwinIR, resolve_device  # noqa: E402
 from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd  # noqa: E402
 from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block  # noqa: E402
 from studiosr_tpu_torch.ops.cuda.mlp_bwd import mlp_bwd  # noqa: E402
+from studiosr_tpu_torch.ops.cuda.oca_core import oca_core_bwd, oca_core_fwd  # noqa: E402
 from studiosr_tpu_torch.ops.cuda.window_attention import fused_window_attention_block  # noqa: E402
 from studiosr_tpu_torch.parallel import build_optimizer, make_train_step, prepare_state  # noqa: E402
 from studiosr_tpu_torch.utils import l1_loss  # noqa: E402
@@ -45,9 +51,14 @@ def _device_kernels(prof):
     return [e for e in prof.key_averages() if e.device_type.name == "CUDA" and e.device_time_total > 0]
 
 
-def profile_step(dev: torch.device) -> None:
-    model = SwinIR.build(scale=4, embed_dim=C, depths=[6] * 6, num_heads=[HEADS] * 6, window_size=8, mlp_ratio=2.0,
-                         drop_path_rate=0.1, device=dev)
+def profile_step(dev: torch.device, name: str) -> None:
+    if name == "swinir":
+        model = SwinIR.build(scale=4, embed_dim=C, depths=[6] * 6, num_heads=[HEADS] * 6, window_size=8,
+                             mlp_ratio=2.0, drop_path_rate=0.1, device=dev)
+    else:
+        model = HAT.build(scale=4, embed_dim=C, depths=[6] * 6, num_heads=[HEADS] * 6, window_size=16, mlp_ratio=2.0,
+                          compress_ratio=3, squeeze_factor=30, conv_scale=0.01, overlap_ratio=0.5,
+                          drop_path_rate=0.1, device=dev)
     module = model.module
     module.fused_train = True
     tx = build_optimizer()
@@ -69,13 +80,16 @@ def profile_step(dev: torch.device) -> None:
     kernels = _device_kernels(prof)
     busy = sum(e.device_time_total for e in kernels) / STEPS / 1e3
     launches = sum(e.count for e in kernels) / STEPS
-    print(f"train step (profiled): host {wall:.1f} ms a step, device busy {busy:.1f} ms "
+    print(f"{name} train step (profiled): host {wall:.1f} ms a step, device busy {busy:.1f} ms "
           f"({100 * (1 - busy / wall):.1f} % idle), {launches:.0f} device kernels a step")
     for e in sorted(kernels, key=lambda e: -e.device_time_total)[:15]:
         print(f"  {e.device_time_total / STEPS / 1e3:8.3f} ms  x{e.count // STEPS:<5} {e.key[:100]}")
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--model", choices=("swinir", "hat"), default="swinir")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     dev = resolve_device("cuda")
@@ -89,23 +103,34 @@ def main() -> int:
         return (torch.randn(*shape, generator=gen) * scale).to(dev, dtype)
 
     x, g = randn(B, S, S, C), randn(B, S, S, C, scale=1e-3)
+    ws = 8 if args.model == "swinir" else 16
     attn = (1 + randn(C, scale=0.1, dtype=f32), randn(C, scale=0.1, dtype=f32), randn(C, 3 * C, scale=C**-0.5),
             randn(3 * C, scale=0.1, dtype=f32), randn(C, C, scale=C**-0.5), randn(C, scale=0.1, dtype=f32),
-            randn(HEADS, 64, 64, scale=0.5, dtype=f32))
+            randn(HEADS, ws * ws, ws * ws, scale=0.5, dtype=f32))
     mlp = (1 + randn(C, scale=0.1, dtype=f32), randn(C, scale=0.1, dtype=f32), randn(C, 2 * C, scale=C**-0.5),
            randn(2 * C, scale=0.1, dtype=f32), randn(2 * C, C, scale=(2 * C) ** -0.5))
     b2 = randn(C, scale=0.1, dtype=f32)
     dp = torch.full((B,), 1 / 0.9, device=dev)
     dp[0] = 0.0
     rows = (x.reshape(-1, C), g.reshape(-1, C))
-    akw = dict(heads=HEADS, window_size=8, shift=4, drop_path=dp)
+    akw = dict(heads=HEADS, window_size=ws, shift=ws // 2, drop_path=dp)
     mkw = dict(drop_path=dp, rows_per_sample=S * S)
     cases = {
-        "B5 fused_window_attention_block": lambda: fused_window_attention_block(x, *attn, **akw),
+        f"B5 fused_window_attention_block (window {ws})": lambda: fused_window_attention_block(x, *attn, **akw),
         "B6 fused_mlp_block": lambda: fused_mlp_block(rows[0], *mlp, b2, **mkw),
         "B7 mlp_bwd": lambda: mlp_bwd(*rows, *mlp, **mkw),
-        "B8 attention_bwd": lambda: attention_bwd(x, g, *attn, **akw),
+        f"{'B8' if ws == 8 else 'B9'} attention_bwd (window {ws})": lambda: attention_bwd(x, g, *attn, **akw),
     }
+    if args.model == "hat":
+        bw, d = B * (S // ws) ** 2, C // HEADS
+
+        def view(n):  # the OCAB's (bw, heads, n, d) views of (bw, n, heads, d) storage
+            return randn(bw, n, HEADS, d).transpose(1, 2)
+
+        q, k, v, go = view(256), view(576), view(576), view(256)
+        bias = randn(HEADS, 256, 576, scale=0.5, dtype=f32)
+        cases["B12 oca_core_fwd"] = lambda: oca_core_fwd(q, k, v, bias)
+        cases["B13 oca_core_bwd"] = lambda: oca_core_bwd(q, k, v, bias, go)
     for name, fn in cases.items():
         for _ in range(2):
             fn()
@@ -119,7 +144,7 @@ def main() -> int:
         print(f"{name}: {total:.3f} ms device time a call")
         for e in sorted(rows_, key=lambda e: -e.device_time_total):
             print(f"  {e.device_time_total / CALLS / 1e3:8.3f} ms  x{e.count // CALLS:<3} {e.key[:110]}")
-    profile_step(dev)
+    profile_step(dev, args.model)
     return 0
 
 

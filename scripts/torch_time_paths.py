@@ -1,0 +1,91 @@
+#!/usr/bin/env python3
+"""Time the port's end-to-end paths on one NVIDIA GPU.
+
+    PYTHONPATH=<checkout> python3 scripts/torch_time_paths.py
+
+Times, as ``chip_smoke.py`` does (CUDA events, 2 warm-up calls, seeded
+random weights at full width): the SwinIR x4 and HAT x4 forward (bf16, batch
+1, a 256 x 256 uint8 image, fused serving) over 5 forwards, and the SwinIR
+x4 and HAT x4 train step (``make_train_step``, bf16 over f32 masters, batch
+32 of 64 x 64 crops, fused_train) over 5 steps, and prints one JSON line:
+{"package": path, "card": nvidia-smi's name and power limit, "ms": {path:
+ms}}. A checkout whose HAT has no fused training path reads null there. The
+package is whichever ``studiosr_tpu_torch`` is first on the path, so running
+it with ``PYTHONPATH`` set to two checkouts in turn (A, B, B, A) compares
+them on one card.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+
+import numpy as np
+import torch
+
+import studiosr_tpu_torch
+from studiosr_tpu_torch import HAT, SwinIR, resolve_device
+from studiosr_tpu_torch.parallel import build_optimizer, make_train_step, prepare_state
+from studiosr_tpu_torch.utils import l1_loss
+
+WIDTHS = dict(scale=4, embed_dim=180, depths=[6] * 6, num_heads=[6] * 6, mlp_ratio=2.0, drop_path_rate=0.1)
+HAT_WIDTHS = dict(window_size=16, compress_ratio=3, squeeze_factor=30, conv_scale=0.01, overlap_ratio=0.5)
+
+
+def time_ms(fn, iters: int = 5, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def build(name: str, dev: torch.device, **kw):
+    if name == "swinir":
+        return SwinIR.build(**WIDTHS, window_size=8, seed=0, device=dev, **kw)
+    return HAT.build(**WIDTHS, **HAT_WIDTHS, seed=0, device=dev, **kw)
+
+
+def forward_ms(name: str, dev: torch.device) -> float:
+    model = build(name, dev).half().enable_fused(True)
+    image = np.random.default_rng(0).integers(0, 256, (256, 256, 3), dtype=np.uint8)
+    x = torch.from_numpy(image).to(dev).float()[None] / 255.0
+    with torch.inference_mode():
+        return time_ms(lambda: model(x))
+
+
+def step_ms(name: str, dev: torch.device):
+    try:
+        module = build(name, dev, fused_train=True).module
+    except NotImplementedError:
+        return None
+    tx = build_optimizer()
+    state = prepare_state(module, tx)
+    step = make_train_step(module, tx, l1_loss, bfloat16=True)
+    rng = np.random.default_rng(4)
+    lq = torch.from_numpy(rng.integers(0, 256, (32, 64, 64, 3), dtype=np.uint8)).to(dev)
+    gt = torch.from_numpy(rng.integers(0, 256, (32, 256, 256, 3), dtype=np.uint8)).to(dev)
+    gen = torch.Generator().manual_seed(0)
+    return time_ms(lambda: step(state, lq, gt, gen))
+
+
+def main() -> None:
+    dev = resolve_device("cuda")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    ms = {}
+    for name in ("swinir", "hat"):
+        ms[f"{name} forward"] = forward_ms(name, dev)
+        torch.cuda.empty_cache()
+        ms[f"{name} train step"] = step_ms(name, dev)
+        torch.cuda.empty_cache()
+    print(json.dumps({"package": str(studiosr_tpu_torch.__file__), "card": card, "ms": ms}))
+
+
+if __name__ == "__main__":
+    main()

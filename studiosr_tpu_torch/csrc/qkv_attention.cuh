@@ -1,12 +1,14 @@
 // Window attention in two passes through device memory, shared by B5 at
-// window 16 (window_attention16.cu) and B10 (ocab.cu).
+// window 16 (window_attention16.cu) and B10 (ocab.cu); B9 (attn_bwd16.cu)
+// shares pass 1.
 //
 // Pass 1, ln_qkv_kernel: LayerNorm and the q|k|v projection of 64 pixel
 // rows a block (gemm64_ktile below: each 64-column tile of the packed
 // weights staged whole, one barrier a tile), written to a scratch in a
 // per-pixel, per-head layout, qkv[pixel][head][q|k|v][DP] (DP = d padded to
 // 16, zero past d; q already carries 1/sqrt(d)), rounded to T as the TPU
-// kernels round q, k and v.
+// kernels round q, k and v. B9 (attn_bwd16.cu) runs this pass too and
+// keeps the LayerNorm rows (ln_out).
 //
 // Pass 2: one block of 256 threads per (window, 64 consecutive queries of
 // it). It streams the window's keys and values in chunks of 64 through two
@@ -152,7 +154,8 @@ __host__ __device__ inline LnQkvSmem ln_qkv_smem_layout(int C) {
 template <typename T>
 __global__ void __launch_bounds__(SB_THREADS, 2) ln_qkv_kernel(
     const T* __restrict__ x, T* __restrict__ qkv, long long rows, int C, int heads, const float* __restrict__ ln_w,
-    const float* __restrict__ ln_b, const float* __restrict__ bqkv, const T* __restrict__ packed) {
+    const float* __restrict__ ln_b, const float* __restrict__ bqkv, const T* __restrict__ packed,
+    T* __restrict__ ln_out, int ld_ln) {
   extern __shared__ __align__(128) unsigned char smem[];
   const LnQkvSmem L = ln_qkv_smem_layout<T>(C);
   const QkvPack P = qkv_pack_layout(C, heads);
@@ -168,6 +171,11 @@ __global__ void __launch_bounds__(SB_THREADS, 2) ln_qkv_kernel(
   const FragMap map = frag_map_for<T>((float*)bst);  // bst is free until the first staged chunk
   __syncthreads();
   layernorm_rows<T>(xs, C, ln_w, ln_b, lnb, L.ld_c);
+  if (ln_out) {  // B9 keeps the LayerNorm rows for d Wqkv
+    __syncthreads();
+    for (int i = threadIdx.x; i < nrows * C; i += SB_THREADS)
+      ln_out[(r0 + i / C) * ld_ln + i % C] = lnb[(i / C) * L.ld_c + i % C];
+  }
   gemm64_ktile<T>(lnb, L.ld_c, P.kc, P.N, packed, P.nq, bst, map, [&](int r, int n, float acc) {
     if (r >= nrows) return;
     const int hp = n / P.DP, j = n - hp * P.DP, h = hp / 3, part = hp - 3 * h;
@@ -679,7 +687,7 @@ static cudaError_t qkv_attention(const T* x, T* out, T* qkv, int B, int H, int W
   err = allow_smem(ln_qkv_kernel<T>, L1.total);
   if (err != cudaSuccess) return err;
   ln_qkv_kernel<T><<<(unsigned)((rows + SB_TOK - 1) / SB_TOK), SB_THREADS, L1.total, stream>>>(
-      x, qkv, rows, C, heads, ln_w, ln_b, bqkv, packed);
+      x, qkv, rows, C, heads, ln_w, ln_b, bqkv, packed, nullptr, 0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const unsigned blocks = (unsigned)B * (H / ws) * (W / ws) * (ws * ws / QA_CHUNK);

@@ -16,8 +16,13 @@ The OCAB's overlapping key/value windows come from the zero-padded
 values are zero, so their logits are the bias alone; they are not masked.
 
 Training mode applies stochastic depth to both residual halves of every
-HAB, as SwinIR's port does. Fused training is not ported: it needs the
-ws-16 attention backward (B9) and the OCA core kernels (B12, B13).
+HAB, as SwinIR's port does. ``fused_train`` (``studiosr_tpu/models/hat.py``
+HAB / OCAB ``fused_train``) routes each HAB's attention half through
+``attention_map_vjp`` (B5 forward, B8 / B9 backward) and its MLP half
+through ``mlp_block_dp_vjp`` (B6, B7), and each OCAB's attention core
+through ``oca_attention`` (B12, B13); the CAB branch, the OCAB's LayerNorms,
+projections, unfold and MLP stay plain autograd, as in JAX. The parameters
+are the same either way.
 """
 
 from __future__ import annotations
@@ -34,19 +39,21 @@ from studiosr_tpu_torch.models.base import FusedServingModel
 from studiosr_tpu_torch.models.blocks import LayerNorm, Mlp, Normalizer, Upsampler, conv, drop_path_scales, gelu
 from studiosr_tpu_torch.models.swinir import WindowAttention, _init_weights
 from studiosr_tpu_torch.ops.attention import attention_core
+from studiosr_tpu_torch.ops.attn_vjp import attention_map_vjp
 from studiosr_tpu_torch.ops.cuda.ocab import overlap_window
+from studiosr_tpu_torch.ops.mlp_vjp import mlp_block_dp_vjp
+from studiosr_tpu_torch.ops.oca_vjp import oca_attention
 from studiosr_tpu_torch.ops.windows import (
     calculate_mask,
     gather_rel_bias,
     pad_to_multiple_reflect,
+    relative_position_index,
     relative_position_index_oca,
     window_partition,
     window_reverse,
 )
 
 __all__ = ["HAT", "HATModule", "HAB", "OCAB", "RHAG", "CAB", "ChannelAttentionHAT"]
-
-FUSED_TRAIN_KERNELS = "B9 (attn_bwd.py::v5_attention_bwd), B12 and B13 (oca_core.py)"
 
 
 class _Named(nn.Module):
@@ -103,6 +110,7 @@ class HAB(nn.Module):
         self.shift_size = shift_size
         self.conv_scale = conv_scale
         self.drop_path = drop_path
+        self.fused_train = False
         self.norm1 = LayerNorm(dim)
         self.conv_block = CAB(dim, compress_ratio, squeeze_factor)
         self.attn = WindowAttention(dim, window_size, num_heads)
@@ -115,6 +123,8 @@ class HAB(nn.Module):
         scales = None
         if self.training and self.drop_path > 0.0:
             scales = drop_path_scales(b, self.drop_path, generator, x.device, n=2)
+        if self.fused_train:
+            return self._fused(x, scales)
         shortcut = x
         x = self.norm1(x)
         conv_x = self.conv_block(x)
@@ -134,6 +144,26 @@ class HAB(nn.Module):
             y = y * scales[:, 1].reshape(-1, 1, 1, 1).to(y.dtype)
         return x + y
 
+    def _fused(self, x: torch.Tensor, scales: Optional[torch.Tensor]) -> torch.Tensor:
+        """The JAX fused HAB: LN1 in f32 (cast to the map's dtype) feeds the
+        CAB; B5 / B8-B9 compute x + d_0 proj(WA(LN1 x)) from x itself, so
+        norm1's gradients arrive from both branches and autograd sums them."""
+        b, h, w, c = x.shape
+        a, n1, n2, m = self.attn, self.norm1, self.norm2, self.mlp
+        ln = F.layer_norm(x.float(), (c,), n1.weight.float(), n1.bias.float(), 1e-5).to(x.dtype)
+        conv_x = self.conv_block(ln)
+        bias = gather_rel_bias(a.relative_position_bias_table, relative_position_index(self.window_size), a.num_heads)
+        x = attention_map_vjp(
+            x, n1.weight, n1.bias, a.qkv.weight.t(), a.qkv.bias, a.proj.weight.t(), a.proj.bias, bias,
+            None if scales is None else scales[:, 0].contiguous(), self.shift_size, a.num_heads, self.window_size,
+        )
+        x = x + conv_x * self.conv_scale
+        y = mlp_block_dp_vjp(
+            x.reshape(b * h * w, c), n2.weight, n2.bias, m.fc1.weight.t(), m.fc1.bias, m.fc2.weight.t(), m.fc2.bias,
+            None if scales is None else scales[:, 1].contiguous(), h * w,
+        )
+        return y.reshape(b, h, w, c)
+
 
 class OCAB(nn.Module):
     """Overlapping cross-attention block: queries from each ws x ws window,
@@ -144,6 +174,7 @@ class OCAB(nn.Module):
         self.num_heads = num_heads
         self.window_size = window_size
         self.overlap_ratio = overlap_ratio
+        self.fused_train = False
         owin, _ = overlap_window(window_size, overlap_ratio)
         self.norm1 = LayerNorm(dim)
         self.qkv = nn.Linear(dim, 3 * dim)
@@ -172,7 +203,8 @@ class OCAB(nn.Module):
         qh = q_windows.reshape(bw, nq, heads, d).transpose(1, 2) * (d**-0.5)
         kh = kv_windows[..., :c].reshape(bw, nk, heads, d).transpose(1, 2)
         vh = kv_windows[..., c:].reshape(bw, nk, heads, d).transpose(1, 2)
-        out = attention_core(qh, kh, vh, bias=bias).transpose(1, 2).reshape(bw, nq, c)
+        core = oca_attention(qh, kh, vh, bias) if self.fused_train else attention_core(qh, kh, vh, bias=bias)
+        out = core.transpose(1, 2).reshape(bw, nq, c)
         x = self.proj(window_reverse(out.reshape(-1, ws, ws, c), ws, h, w)) + shortcut
         return x + self.mlp(self.norm2(x))
 
@@ -230,6 +262,7 @@ class HATModule(nn.Module):
         squeeze_factor: int = 30,
         conv_scale: float = 0.01,
         overlap_ratio: float = 0.5,
+        fused_train: bool = False,
     ) -> None:
         super().__init__()
         self.scale = scale
@@ -249,6 +282,21 @@ class HATModule(nn.Module):
         self.conv_before_upsample = nn.ModuleList([conv(embed_dim, 64)])
         self.upsample = Upsampler(scale, 64)
         self.conv_last = conv(64, n_colors)
+        self.fused_train = fused_train
+
+    @property
+    def fused_train(self) -> bool:
+        """Route every HAB and OCAB through the fused custom-autograd paths."""
+        return self._fused_train
+
+    @fused_train.setter
+    def fused_train(self, enabled: bool) -> None:
+        if enabled and self.drop_rate:
+            raise NotImplementedError("fused_train requires drop==0")
+        self._fused_train = bool(enabled)
+        for layer in self.layers:
+            for blk in (*layer.residual_group.blocks, layer.residual_group.overlap_attn):
+                blk.fused_train = self._fused_train
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """NHWC forward; ``generator`` feeds the drop-path draws in training mode."""
@@ -298,8 +346,6 @@ class HAT(FusedServingModel):
     ) -> "HAT":
         """Seeded HAT on ``device`` (default ``cuda``; raises without it), in
         eval mode. ``drop_path_rate`` applies in training mode only."""
-        if fused_train:
-            raise NotImplementedError(f"HAT fused_train needs the kernels {FUSED_TRAIN_KERNELS}, not ported yet")
         dev = resolve_device(device)
         config = dict(
             scale=scale,
@@ -319,7 +365,7 @@ class HAT(FusedServingModel):
         )
         module = HATModule(
             scale, n_colors, img_range, embed_dim, tuple(depths), tuple(num_heads), window_size, mlp_ratio, drop_rate,
-            drop_path_rate, compress_ratio, squeeze_factor, conv_scale, overlap_ratio,
+            drop_path_rate, compress_ratio, squeeze_factor, conv_scale, overlap_ratio, fused_train,
         )
         gen = torch.Generator().manual_seed(seed)
         _init_weights(module, gen)

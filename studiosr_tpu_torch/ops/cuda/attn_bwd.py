@@ -1,6 +1,8 @@
-"""B8: the backward of B5 with the forward recomputed (CUDA kernel ``csrc/attn_bwd.cu``).
+"""B8 and B9: the backward of B5 with the forward recomputed (CUDA kernels
+``csrc/attn_bwd.cu`` at window 8, ``csrc/attn_bwd16.cu`` at window 16).
 
-Replaces ``studiosr_tpu/ops/pallas/attn_bwd.py::pairs_attention_bwd``. For
+Replaces ``studiosr_tpu/ops/pallas/attn_bwd.py::pairs_attention_bwd`` (B8)
+and ``::v5_attention_bwd`` (B9, HAT's window 16). For
 y = x + d_b * proj(WA(LN x)) on (B, H, W, C) maps, with ``shift`` and
 ``drop_path`` as in ``ops/cuda/window_attention.py`` (the output aligned
 with the input), and the cotangent ``g`` of y, it returns
@@ -11,8 +13,9 @@ with dx in ``x.dtype`` and the parameter gradients in f32 (the caller casts
 each to its parameter's dtype); d bias is (heads, N, N), the gradient of the
 gathered rel-pos bias (autograd of ``gather_rel_bias`` scatters it into the
 (2 ws - 1)^2 table). ``wqkv`` is unscaled, so its q columns need no
-re-scaling. The kernel sums its partials in a fixed order, so the result is
-the same from run to run.
+re-scaling. The kernels sum their partials in a fixed order, so the result
+is the same from run to run. Window-16 launches count as
+``attention_bwd_ws16``.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import torch
 
 from studiosr_tpu_torch.ops.cuda import _build
 from studiosr_tpu_torch.ops.cuda._launch import P, I, check, finish, operand, stream
-from studiosr_tpu_torch.ops.cuda.window_attention import check_window_map
+from studiosr_tpu_torch.ops.cuda.window_attention import KERNEL_WINDOW, KERNEL_WINDOW16, check_window_map
 from studiosr_tpu_torch.ops.windows import calculate_mask, window_partition, window_reverse
 
 __all__ = ["attention_bwd", "attention_bwd_plain", "window_bwd_math"]
@@ -36,6 +39,13 @@ _SIGNATURES = {
     "attn_bwd_scratch": (I, I, I, I, I, ctypes.POINTER(_LL), ctypes.POINTER(_LL)),
 }
 _RESTYPES = {"attn_bwd_scratch": None}
+_ARGS16 = (P, P, P, I, I, I, I, I, I, I) + (P,) * 7 + (P,) * 6 + (P, _LL, P, _LL, P)
+_SIGNATURES16 = {
+    "attn_bwd16_f32": _ARGS16,
+    "attn_bwd16_bf16": _ARGS16,
+    "attn_bwd16_scratch": (I, I, I, I, I, I, ctypes.POINTER(_LL), ctypes.POINTER(_LL)),
+}
+_RESTYPES16 = {"attn_bwd16_scratch": None}
 
 
 def _split_heads(t, heads: int):
@@ -121,7 +131,7 @@ def attention_bwd(
     kw = dict(heads=heads, window_size=window_size, shift=shift, drop_path=drop_path)
     if x.device.type == "cpu":
         return attention_bwd_plain(x, g, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, **kw)
-    check_window_map("attention_bwd", x, heads, window_size, shift)
+    check_window_map("attention_bwd", x, heads, window_size, shift, (KERNEL_WINDOW, KERNEL_WINDOW16))
     bsz, h, w, c = x.shape
     n = window_size * window_size
     dev, dt, f32 = x.device, x.dtype, torch.float32
@@ -133,9 +143,14 @@ def attention_bwd(
     ]
     px = check(x, "x", (bsz, h, w, c), dt, dev)
     pg = check(g, "g", (bsz, h, w, c), dt, dev)
-    lib = _build.load("attn_bwd", _SIGNATURES, _RESTYPES)
+    ws16 = window_size == KERNEL_WINDOW16
     t_elems, f_elems = _LL(), _LL()
-    lib.attn_bwd_scratch(bsz, h, w, c, heads, ctypes.byref(t_elems), ctypes.byref(f_elems))
+    if ws16:
+        lib = _build.load("attn_bwd16", _SIGNATURES16, _RESTYPES16)
+        lib.attn_bwd16_scratch(bsz, h, w, c, heads, window_size, ctypes.byref(t_elems), ctypes.byref(f_elems))
+    else:
+        lib = _build.load("attn_bwd", _SIGNATURES, _RESTYPES)
+        lib.attn_bwd_scratch(bsz, h, w, c, heads, ctypes.byref(t_elems), ctypes.byref(f_elems))
     tscratch = torch.empty(t_elems.value, dtype=dt, device=dev)
     fscratch = torch.empty(f_elems.value, dtype=f32, device=dev)
     dx = torch.empty_like(x)
@@ -143,12 +158,16 @@ def attention_bwd(
     dwqkv, dbqkv = torch.empty(c, 3 * c, dtype=f32, device=dev), torch.empty(3 * c, dtype=f32, device=dev)
     dwproj, dbproj = torch.empty(c, c, dtype=f32, device=dev), torch.empty(c, dtype=f32, device=dev)
     dbias = torch.empty(heads, n, n, dtype=f32, device=dev)
-    fn = lib.attn_bwd_bf16 if dt == torch.bfloat16 else lib.attn_bwd_f32
+    bf16 = dt == torch.bfloat16
+    if ws16:
+        fn, geometry = lib.attn_bwd16_bf16 if bf16 else lib.attn_bwd16_f32, (heads, window_size, shift)
+    else:
+        fn, geometry = lib.attn_bwd_bf16 if bf16 else lib.attn_bwd_f32, (heads, shift)
     ptrs = [None if t is None else t.data_ptr() for t in ops]
     status = fn(
-        px, pg, dx.data_ptr(), bsz, h, w, c, heads, shift, *ptrs, ds_db.data_ptr(), dwqkv.data_ptr(),
+        px, pg, dx.data_ptr(), bsz, h, w, c, *geometry, *ptrs, ds_db.data_ptr(), dwqkv.data_ptr(),
         dbqkv.data_ptr(), dwproj.data_ptr(), dbproj.data_ptr(), dbias.data_ptr(), tscratch.data_ptr(),
         t_elems.value, fscratch.data_ptr(), f_elems.value, stream(dev),
     )
-    finish("attention_bwd", status)
+    finish("attention_bwd_ws16" if ws16 else "attention_bwd", status)
     return dx, ds_db[:c], ds_db[c:], dwqkv, dbqkv, dwproj, dbproj, dbias

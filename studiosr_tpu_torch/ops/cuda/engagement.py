@@ -10,7 +10,8 @@ so there is no fallback to count. What remains:
   ``fused_upsample_x4``, ``fused_upsample_s`` (B4, x2 / x3),
   ``fused_window_attention_block`` (``_ws16`` at window 16),
   ``fused_mlp_block`` (``_extra`` with the CAB join), ``mlp_bwd``,
-  ``attention_bwd``, ``fused_cab_body``, ``fused_ocab_block``;
+  ``attention_bwd`` (``_ws16`` at window 16), ``fused_cab_body``,
+  ``fused_ocab_block``, ``oca_core_fwd``, ``oca_core_bwd``;
 * ``structural_tail_decline(scale)`` — the by-design decline of a
   configuration that has no kernel at all (scale 8's log2-ladder tail),
   recorded and warned about so it is never silent;

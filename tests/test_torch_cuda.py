@@ -388,3 +388,114 @@ def test_small_hat_window8_fused_matches_plain_on_the_card(dev, scale):
     }
     diff = np.abs(fused.astype(int) - plain.astype(int))
     assert fused.shape == (20 * scale, 28 * scale, 3) and diff.max() <= 1 and (diff > 0).mean() < 0.01
+
+
+# HAT training kernels: B9 (the window-16 attention backward) on maps of 2
+# windows by 3, batch 3 with a 0 drop-path scale, head dims 30, 16 and 24;
+# B12 / B13 at the path's geometry (256 queries, 576 keys, d 30), the
+# trained fixtures' (64, 144, d 16) and a ragged one (100, 200, d 24), on
+# the transposed views the OCAB hands them, with logits large enough that
+# the row max matters; an odd head dim (bf16 rows the mma kernels do not
+# stage) and one past 32 take the shared-memory kernels in bf16 too.
+B9_CASES = [(180, 6, (3, 32, 48), 8), (32, 2, (3, 32, 48), 0), (48, 2, (2, 16, 32), 8), (96, 2, (2, 16, 32), 8)]
+OCA_CASES = [(3, 6, 256, 576, 30), (3, 2, 64, 144, 16), (2, 3, 100, 200, 24), (2, 2, 64, 144, 15)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c,heads,shape,shift", B9_CASES)
+def test_attention_bwd_ws16_kernel_matches_plain(dev, dtype, c, heads, shape, shift):
+    gen = torch.Generator().manual_seed(c + shift + 9)
+    ops = _block_operands(gen, c, heads, 2 * c, ws=16)[:7]
+    ops = [t.to(dev, dtype if i in (2, 4) else torch.float32) for i, t in enumerate(ops)]
+    x = _randn(gen, *shape, c).to(dev, dtype)
+    g = _randn(gen, *shape, c).to(dev, dtype)
+    dp = torch.tensor([0.0, 1.25, 1 / 0.9][: shape[0]], device=dev)
+    kw = dict(heads=heads, window_size=16, shift=shift, drop_path=dp)
+    engagement.reset()
+    got = attention_bwd(x, g, *ops, **kw)
+    assert engagement.counters() == {"attention_bwd_ws16": 1}
+    want = attention_bwd_plain(x.float(), g.float(), *[t.float() for t in ops], **kw)
+    for a, e in zip(got, want):
+        _assert_close(a, e, dtype)
+    assert torch.equal(got[0][0], g[0])  # a dropped sample: dx = g
+    again = attention_bwd(x, g, *ops, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: bitwise repeatable
+
+
+def _oca_case(gen, bw, heads, nq, nk, d, dev, dtype):
+    """q, k, v as transposed views of (bw, tokens, heads, d) tensors, as the
+    OCAB makes them; scores of a few units, so the row max matters."""
+    def view(n, scale):
+        return _randn(gen, bw, n, heads, d, scale=scale).to(dev, dtype).transpose(1, 2)
+
+    q, k, v, g = view(nq, 2 * d**-0.5), view(nk, 1.0), view(nk, 1.0), view(nq, 1.0)
+    bias = _randn(gen, heads, nq, nk, scale=2.0).to(dev)
+    return q, k, v, bias, g
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bw,heads,nq,nk,d", OCA_CASES)
+def test_oca_core_kernels_match_plain(dev, dtype, bw, heads, nq, nk, d):
+    from studiosr_tpu_torch.ops.cuda.oca_core import oca_core_bwd, oca_core_bwd_plain, oca_core_fwd, oca_core_plain
+
+    gen = torch.Generator().manual_seed(nq + d)
+    q, k, v, bias, g = _oca_case(gen, bw, heads, nq, nk, d, dev, dtype)
+    engagement.reset()
+    out = oca_core_fwd(q, k, v, bias)
+    grads = oca_core_bwd(q, k, v, bias, g)
+    assert engagement.counters() == {"oca_core_fwd": 1, "oca_core_bwd": 1}
+    _assert_close(out, oca_core_plain(q.float(), k.float(), v.float(), bias), dtype)
+    want = oca_core_bwd_plain(q.float(), k.float(), v.float(), bias, g.float())
+    for a, e in zip(grads, want):
+        assert a.shape == e.shape
+        _assert_close(a, e, dtype)
+    again = oca_core_bwd(q.contiguous(), k.contiguous(), v.contiguous(), bias, g.contiguous())
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))  # strides do not change a bit; no atomics
+
+
+def test_hat_training_kernels_raise_on_shapes_they_do_not_take(dev):
+    from studiosr_tpu_torch.ops.oca_vjp import oca_attention
+
+    gen = torch.Generator().manual_seed(0)
+    ops = [t.to(dev) for t in _block_operands(gen, 160, 2, 320, ws=16)[:7]]
+    x = torch.zeros(1, 16, 16, 160, device=dev)
+    with pytest.raises(NotImplementedError, match="head dim"):
+        attention_bwd(x, x, *ops, heads=2, window_size=16)
+    with pytest.raises(ValueError, match="do not fit"):
+        attention_bwd(torch.zeros(1, 24, 16, 160, device=dev), torch.zeros(1, 24, 16, 160, device=dev), *ops,
+                      heads=2, window_size=16)
+    q = torch.zeros(1, 2, 512, 16, device=dev)
+    with pytest.raises(NotImplementedError, match="nq"):
+        oca_attention(q, q, q, torch.zeros(2, 512, 512, device=dev))
+    q = torch.zeros(1, 2, 64, 80, device=dev)
+    with pytest.raises(NotImplementedError, match="d <= 64"):
+        oca_attention(q, q, q, torch.zeros(2, 64, 64, device=dev))
+    with pytest.raises(TypeError, match="dtype"):
+        oca_attention(q.half(), q.half(), q.half(), torch.zeros(2, 64, 64, device=dev))
+
+
+def test_small_hat_fused_train_matches_plain_on_the_card(dev):
+    """Loss and gradients of the fused-train HAT (window 16, f32) against
+    plain autograd on the card, with the launch counts of one step."""
+    model = HAT.build(scale=4, embed_dim=32, depths=[2, 2], num_heads=[2, 2], window_size=16, drop_path_rate=0.5,
+                      device=dev)
+    module = model.module.train()
+    x = torch.rand(3, 32, 48, 3, generator=torch.Generator().manual_seed(1)).to(dev)
+    gt = torch.rand(3, 128, 192, 3, generator=torch.Generator().manual_seed(2)).to(dev)
+    results = []
+    for fused in (False, True):
+        module.fused_train = fused
+        module.zero_grad()
+        engagement.reset()
+        out = module(x, generator=torch.Generator().manual_seed(3))
+        loss = torch.mean(torch.abs(out - gt))
+        loss.backward()
+        torch.cuda.synchronize()
+        results.append((loss.item(), {k: p.grad.clone() for k, p in module.named_parameters()},
+                        engagement.counters()))
+    assert results[0][2] == {}
+    assert results[1][2] == {"fused_window_attention_block_ws16": 4, "attention_bwd_ws16": 4, "fused_mlp_block": 4,
+                             "mlp_bwd": 4, "oca_core_fwd": 2, "oca_core_bwd": 2}
+    np.testing.assert_allclose(results[1][0], results[0][0], rtol=1e-5)
+    for k, g in results[0][1].items():
+        assert float((results[1][1][k] - g).abs().max()) <= 1e-4 * float(g.abs().max()) + 1e-6, k

@@ -108,13 +108,15 @@ def test_bridge_keys_match_the_export_form(pair):
     assert "layers.0.residual_group.overlap_attn.relative_position_bias_table" in state
 
 
-def test_fused_train_and_queued_scales_raise():
-    """fused_train still needs B9, B12, B13 and raises; x2 / x3, which
-    raised until their tail kernel B4 was ported, now serve fused and agree
-    with the plain forward."""
-    with pytest.raises(NotImplementedError, match="B9.*B12.*B13"):
-        HAT.build(**SMALL, device="cpu", fused_train=True)
+def test_fused_train_builds_and_x2_x3_serve():
+    """fused_train, which raised until B9, B12 and B13 were ported, now
+    builds (its gradients are held in tests/test_torch_hat_train.py); x2 /
+    x3, which raised until their tail kernel B4 was ported, serve fused and
+    agree with the plain forward."""
+    model = HAT.build(**SMALL, device="cpu", fused_train=True)
+    assert model.module.fused_train
     x = torch.from_numpy(_input((1, 16, 16, 3), seed=4))
+    np.testing.assert_allclose(model(x).numpy(), HAT.build(**SMALL, device="cpu")(x).numpy(), atol=ATOL, rtol=RTOL)
     for scale in (2, 3):
         model = HAT.build(**{**SMALL, "scale": scale}, device="cpu")
         want = model(x)

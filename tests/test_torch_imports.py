@@ -26,6 +26,8 @@ WRAPPERS = [
     "studiosr_tpu_torch.ops.cuda.mlp_bwd",
     "studiosr_tpu_torch.ops.cuda.attn_bwd",
     "studiosr_tpu_torch.ops.cuda.ocab",
+    "studiosr_tpu_torch.ops.cuda.oca_core",
+    "studiosr_tpu_torch.ops.oca_vjp",
     "studiosr_tpu_torch.serving.hat_fast",
     "studiosr_tpu_torch.models.hat",
     "studiosr_tpu_torch.ops.attn_vjp",
@@ -63,7 +65,7 @@ def test_guard_sees_the_whole_package():
         "window_attention.py", "mlp_block.py", "mlp_bwd.py", "attn_bwd.py", "attn_vjp.py", "mlp_vjp.py",
         "trainer.py", "train_step.py", "dataset.py", "handler.py", "transforms.py", "losses.py", "helpers.py",
         "hat.py", "hat_fast.py", "ocab.py", "metrics.py", "png.py", "checkpoint.py", "registry.py", "tiled.py",
-        "evaluator.py", "__main__.py",
+        "evaluator.py", "__main__.py", "oca_core.py", "oca_vjp.py",
     } <= names
 
 
