@@ -25,7 +25,16 @@ against its plain PyTorch version:
   JingyunLiang/SwinIR ``001_classicalSR_DF2K_s64w8_SwinIR-M_x2`` / ``_x3``
   and HAT at ``options/test/HAT_SRx2.yml`` / ``HAT_SRx3.yml``, bf16, batch 1,
   256x256 LR input;
-* the user's entry points: the seven trained checkpoints of
+* SwinFIR x4 at the JAX package's ``build`` defaults (the reference
+  ``swinfir.py:83-98`` geometry, SwinIR classical's widths): serving bf16,
+  batch 1, 256x256 LR input (B1, B14 for the SFBs' spatial branches, B3),
+  and training at its own recipe (batch 32 of 64x64 crops, f32, Adam 2e-4,
+  L1; B5-B8 for the Swin blocks, the SFBs in plain autograd);
+* MaxSR x4 at the JAX package's ``build`` defaults (adaptive, dim 128, 4
+  heads of 32, depth [4]x4) and in its static mode at the same widths:
+  serving bf16, batch 1, 256x256 LR input, the 32 attention cores of a
+  forward through B15;
+* the user's entry points: the nine trained checkpoints of
   ``tests/fixtures/quality`` read by ``load_model`` (no JAX, no flax) with
   the fixture PNGs read by the port's codec, the ``Evaluator2`` on the host
   and on the card, and the CLI (``python3 -m studiosr_tpu_torch``).
@@ -90,11 +99,34 @@ Phases, in order; any failure exits non-zero before the final line:
 18. x2 / x3 at full width, SwinIR then HAT at each scale: fused vs plain
     forward (f32, bf16), three requests with launch counts per forward,
     the forward's time (ms, LR MP/s) and B4's ms, plain ms and bound;
-19. the seven trained checkpoints (SwinIR x2 / x3 / x4 / x8, HAT x2 / x3 /
-    x4 at window 8) on the card: plain f32 beats bicubic by 0.3 dB, fused
-    f32 is within 0.05 dB of plain, fused bf16 beats bicubic by 0.2 dB and
-    is within 0.5 dB of plain, on each of the three fixture images;
-20. the Evaluator (HR / LR_bicubic layout built under
+19. B14 vs plain, f32 and bf16, at SwinFIR's (1, 264, 264, 180) with
+    LeakyReLU 0.2 and res_scale 1 (the path) and ReLU and 0.1, and at a
+    ragged odd height (1, 37, 53, 48) with both activations and both scales;
+20. SwinFIR x4 serving at full width: fused vs plain forward (f32, bf16),
+    uint8 fused vs plain in f32 within 1 LSB, three requests with launch
+    counts (B1 36, B14 7, B3 1 a forward, B2 none), the forward's time and
+    B14's ms, plain ms, bound and library (cuDNN) ms;
+21. SwinFIR training: the fused-train module's loss and gradients in f32
+    against an f64 witness and against plain autograd in f32 (batch 4, the
+    SFBs' LeakyReLU kinks pinned too); ``Trainer.run`` for 3 steps at the
+    recipe (batch 32, f32) with launch counts (B5-B8 36 a step) and a
+    falling loss; step ms, images/s and peak memory over 7 steps of one
+    batch (the last 5 timed);
+22. B15 vs plain, f32 and bf16: MaxSR adaptive (256 windows of 256 tokens,
+    4 heads, d 32, no bias), static (1024 windows of 64 tokens, a table
+    bias), a mask over the windows of 2 images, N = M = 1024, N 36 at d 16,
+    d 12; N 1089 raises; ms, plain ms, bound and SDPA ms at the two MaxSR
+    shapes;
+23. MaxSR x4 serving at full width, adaptive and static: fused vs plain
+    forward (f32, bf16), three requests with 32 B15 launches a forward and
+    nothing else, the forward's time;
+24. the nine trained checkpoints (SwinIR x2 / x3 / x4 / x8, HAT x2 / x3 /
+    x4 at window 8, SwinFIR x4, MaxSR x4 adaptive) on the card: plain f32
+    beats bicubic by 0.3 dB, fused f32 is within 0.05 dB of plain, fused
+    bf16 beats bicubic by 0.2 dB and is within 0.5 dB of plain, on each of
+    the three fixture images; MaxSR's BatchNorm running statistics came back
+    (not the initial 0 / 1);
+25. the Evaluator (HR / LR_bicubic layout built under
     ``build/chip_smoke_eval/`` from the fixture PNGs) on the host and on the
     card for SwinIR x2 and HAT x3, fused bf16: within 1e-4 dB and 1e-5 SSIM;
     the CLI as a subprocess on the x4 checkpoint with ``--half``, whole and
@@ -122,11 +154,14 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 import studiosr_tpu_torch
-from studiosr_tpu_torch import HAT, Evaluator2, SwinIR, Trainer, load_model, resolve_device
+from studiosr_tpu_torch import HAT, Evaluator2, MaxSR, SwinFIR, SwinIR, Trainer, load_model, resolve_device
 from studiosr_tpu_torch.data import PairedImageDataset
 from studiosr_tpu_torch.ops.cuda import _build, engagement
 from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd, attention_bwd_plain
-from studiosr_tpu_torch.ops.cuda.conv3x3 import cab_body_plain, conv3x3_plain, fused_cab_body, fused_conv3x3
+from studiosr_tpu_torch.ops.attention import attention_plain
+from studiosr_tpu_torch.ops.cuda.conv3x3 import (
+    cab_body_plain, conv3x3_plain, fused_cab_body, fused_conv3x3, fused_resblock, resblock_plain,
+)
 from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mlp_block_plain
 from studiosr_tpu_torch.ops.cuda.mlp_bwd import mlp_bwd, mlp_bwd_plain
 from studiosr_tpu_torch.ops.cuda.oca_core import oca_core_bwd, oca_core_bwd_plain, oca_core_fwd, oca_core_plain
@@ -134,6 +169,7 @@ from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block, ocab_plain, overl
 from studiosr_tpu_torch.ops.cuda.swin_block import fused_swin_block, swin_block_plain
 from studiosr_tpu_torch.ops.cuda.upsampler import fused_upsample_s, fused_upsample_x4, upsample_s_plain, upsample_x4_plain
 from studiosr_tpu_torch.ops.cuda.window_attention import fused_window_attention_block, window_attention_plain
+from studiosr_tpu_torch.ops.cuda.window_attn import window_attention
 from studiosr_tpu_torch.ops.windows import gather_rel_bias, relative_position_index
 from studiosr_tpu_torch.parallel import build_optimizer, make_train_step, prepare_state
 from studiosr_tpu_torch.serving.hat_fast import prepare_hat_serving
@@ -243,10 +279,40 @@ ROOT = Path(__file__).resolve().parent
 FIXTURES = ROOT / "tests" / "fixtures" / "quality"
 TRAINED = (("swinir_ckpt", "swinir", 4), ("swinir_x2_ckpt", "swinir", 2), ("swinir_x3_ckpt", "swinir", 3),
            ("swinir_x8_ckpt", "swinir", 8), ("hat_ckpt", "hat", 4), ("hat_x2_ckpt", "hat", 2),
-           ("hat_x3_ckpt", "hat", 3))
+           ("hat_x3_ckpt", "hat", 3), ("swinfir_ckpt", "swinfir", 4), ("maxsr_ckpt", "maxsr", 4))
 FLOOR_PLAIN, FLOOR_FUSED, FLOOR_BF16, FLOOR_BF16_VS_PLAIN = 0.3, 0.05, 0.2, 0.5
 EVAL_DIR, CLI_DIR = ROOT / "build" / "chip_smoke_eval", ROOT / "build" / "chip_smoke_cli"
 EVAL_PSNR, EVAL_SSIM, CLI_PSNR, TILED_PSNR = 1e-4, 1e-5, 0.01, 0.5
+
+# SwinFIR x4: the JAX package's build defaults (reference swinfir.py:83-98,
+# SwinIR classical's widths), depth not cut; serving in bf16 (B1, B14, B3),
+# training at its own recipe (models/swinfir.py _TRAINING_CONFIG: batch 32,
+# f32, Adam 2e-4 (0.9, 0.99), L1; B5-B8, the SFBs in plain autograd).
+KERNELS["fused_resblock"] = ("studiosr_tpu_torch/csrc/resblock.cu", "studiosr_tpu/ops/pallas/conv3x3.py:266")
+SWINFIR_PER_FORWARD = {"fused_swin_block": 36, "fused_resblock": 7, "fused_upsample_x4": 1}
+RESBLOCK_SHAPES = ((1, LR + MAIN["window_size"], LR + MAIN["window_size"], MAIN["embed_dim"]), (1, 37, 53, 48))
+RESBLOCK_VARIANTS = (("lrelu0.2", 1.0), ("relu", 0.1), ("relu", 1.0), ("lrelu0.2", 0.1))
+SWINFIR_TRAIN_STEPS = 3
+SWINFIR_TRAIN_DIR = ROOT / "build" / "chip_smoke_swinfir_train"
+SWINFIR_GRAD_RUNS = (("plain", torch.float64), ("plain", torch.float32), ("fused", torch.float32))
+# the pre-activations of the SFBs' LeakyReLU(0.2)s: kinks pinned to the witness's side
+SFB_KINKS = ("S.body.0", "conv_before_fft.0", "fu.conv_layer")
+
+# MaxSR x4: the JAX package's build defaults (adaptive, dim 128, dim_head 32,
+# depth [4]x4), depth not cut, and the static mode (window 8, trained bias
+# table) at the same widths; bf16, batch 1, 256x256 LR input, B15 for the 32
+# attention cores of a forward (2 a block, 16 blocks).
+MAXSR_MAIN = dict(scale=4, adaptive=True, dim=128, dim_head=32, depth=[4] * 4, window_size=8, dropout=0.1)
+KERNELS["window_attention_pallas"] = ("studiosr_tpu_torch/csrc/window_attn.cu",
+                                      "studiosr_tpu/ops/pallas/window_attn.py:115")
+MAXSR_PER_FORWARD = {"window_attention_pallas": 32}
+# (label, windows, heads, tokens, head dim, bias, mask windows): the first two
+# are the two MaxSR modes' shapes at a 256x256 LR input.
+WINDOW_ATTN_CASES = (
+    ("adaptive", 256, 4, 256, 32, False, 0), ("static", 1024, 4, 64, 32, True, 0),
+    ("mask over 2 images", 128, 4, 64, 32, True, 64), ("N 1024", 4, 4, 1024, 32, True, 0),
+    ("N 36 d 16", 64, 2, 36, 16, True, 0), ("d 12", 64, 4, 64, 12, False, 0),
+)
 
 
 def log(msg: str) -> None:
@@ -280,6 +346,27 @@ def bound_ms(flops: float, nbytes: float):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def kernel_check(part: str, got: torch.Tensor, want: torch.Tensor, dtype: torch.dtype, failed: list) -> float:
+    """Hold a kernel's output to the serving kernels' rule (f32: max abs
+    error within 1e-4 max|p| + 1e-5; bf16: relative L2 within 1e-2), log
+    it, and return the max abs error."""
+    if not torch.isfinite(got.float()).all() or got.shape != want.shape:
+        failed.append(f"{part}: non-finite or {tuple(got.shape)}")
+        return float("inf")
+    err = float((got.float() - want).abs().max())
+    if dtype == torch.float32:
+        limit = F32_RTOL * float(want.abs().max()) + F32_ATOL
+        ok = err <= limit
+        log(f"check {part} f32: max_abs_err {err:.3e} limit {limit:.3e}")
+    else:
+        rel = rel_l2(got, want)
+        ok = rel <= BF16_REL_L2
+        log(f"check {part} bf16: rel_l2 {rel:.3e} limit {BF16_REL_L2:.0e} max_abs_err {err:.3e}")
+    if not ok:
+        failed.append(f"{part} {dtype}")
+    return err
 
 
 # -- phases --------------------------------------------------------------------
@@ -351,27 +438,18 @@ def kernel_cases(model: SwinIR, dev: torch.device, dtype: torch.dtype):
 def phase_kernels(model: SwinIR, dev: torch.device) -> dict:
     """Every kernel against its plain version, f32 then bf16. Returns the
     bf16 max abs error per kernel (the main path's dtype)."""
-    errors: dict = {}
+    errors, failed = {}, []
     for dtype in (torch.float32, torch.bfloat16):
         for name, label, kernel, plain, ops in kernel_cases(model, dev, dtype):
             got = kernel(*ops)
             torch.cuda.synchronize()
             want = plain(*[None if t is None else t.float() for t in ops])
             torch.cuda.synchronize()
-            if not torch.isfinite(got.float()).all():
-                raise AssertionError(f"{name} [{label}] {dtype}: non-finite output")
-            err = float((got.float() - want).abs().max())
-            if dtype == torch.float32:
-                limit = F32_RTOL * float(want.abs().max()) + F32_ATOL
-                ok = err <= limit
-                log(f"check {name} [{label}] f32: max_abs_err {err:.3e} limit {limit:.3e}")
-            else:
-                rel = rel_l2(got, want)
-                ok = rel <= BF16_REL_L2
+            err = kernel_check(f"{name} [{label}]", got, want, dtype, failed)
+            if dtype == torch.bfloat16:
                 errors[name] = max(errors.get(name, 0.0), err)
-                log(f"check {name} [{label}] bf16: rel_l2 {rel:.3e} limit {BF16_REL_L2:.0e} max_abs_err {err:.3e}")
-            if not ok:
-                raise AssertionError(f"{name} [{label}] {dtype} disagrees with its plain version")
+    if failed:
+        raise AssertionError("serving kernels disagree with their plain versions: " + "; ".join(failed))
     return errors
 
 
@@ -540,23 +618,9 @@ def phase_train_kernels(model, dev: torch.device, cases=None) -> dict:
                 want = _flat(plain(*[t.float() for t in ops]))
                 torch.cuda.synchronize()
                 for i, (k, p) in enumerate(zip(got, want)):
-                    part = f"{name} [{label}] batch {batch} output {i}"
-                    if not torch.isfinite(k.float()).all():
-                        failed.append(f"{part}: non-finite")
-                        continue
-                    err = float((k.float() - p).abs().max())
-                    if dtype == torch.float32:
-                        limit = F32_RTOL * float(p.abs().max()) + F32_ATOL
-                        ok = err <= limit
-                        log(f"check {part} f32: max_abs_err {err:.3e} limit {limit:.3e}")
-                    else:
-                        rel = rel_l2(k, p)
-                        ok = rel <= BF16_REL_L2
-                        if i == 0 and batch == TRAIN_BATCH:
-                            errors[name] = max(errors.get(name, 0.0), err)
-                        log(f"check {part} bf16: rel_l2 {rel:.3e} limit {BF16_REL_L2:.0e} max_abs_err {err:.3e}")
-                    if not ok:
-                        failed.append(f"{part} {dtype}")
+                    err = kernel_check(f"{name} [{label}] batch {batch} output {i}", k, p, dtype, failed)
+                    if dtype == torch.bfloat16 and i == 0 and batch == TRAIN_BATCH:
+                        errors[name] = max(errors.get(name, 0.0), err)
                 if name in PASS_THROUGH and not torch.equal(got[0][0], ops[PASS_THROUGH[name]][0]):
                     failed.append(f"{name} [{label}] batch {batch} {dtype}: a dropped sample is not passed through")
                 del got, want
@@ -573,7 +637,7 @@ def _unit_batch(dev: torch.device, batch: int, seed: int):
     return torch.from_numpy(lq).to(dev), torch.from_numpy(gt).to(dev)
 
 
-def train_grads(model, dev: torch.device, seed: int) -> dict:
+def train_grads(model, dev: torch.device, seed: int, grad_runs=GRAD_RUNS) -> dict:
     """Loss and every parameter's gradient of the port's ``model`` (SwinIR or
     HAT, f32 weights from ``seed``) at batch 4, one run for each (path,
     dtype) of ``GRAD_RUNS``, with the same weights, uint8 batch and
@@ -592,6 +656,8 @@ def train_grads(model, dev: torch.device, seed: int) -> dict:
     the witness's value there (with the run's own gradient through it).
     Both counts are returned.
 
+    ``grad_runs`` lists the (path, dtype) runs, the f64 witness first.
+
     Returns {(path, dtype): (loss, {name: grad}, launches, (L1 signs,
     ReLU sides) unlike the witness's)}."""
     module = model.module.train()
@@ -609,10 +675,11 @@ def train_grads(model, dev: torch.device, seed: int) -> dict:
         flips[0] += int(other.sum())
         return y + (torch.where(other, w.to(y.dtype), y) - y).detach()
 
-    kinks = [m for n, m in module.named_modules() if n == "conv_before_upsample.0" or n.endswith("attention.1")]
+    kinks = [m for n, m in module.named_modules()
+             if n == "conv_before_upsample.0" or n.endswith("attention.1") or n.endswith(SFB_KINKS)]
     handles = [m.register_forward_hook(pin) for m in kinks]
     try:
-        for path, dtype in GRAD_RUNS:
+        for path, dtype in grad_runs:
             module.fused_train = path == "fused"
             acc = torch.float64 if dtype == torch.float64 else torch.float32
             leaves = {k: p.detach().to(dtype).requires_grad_() for k, p in named}
@@ -905,23 +972,9 @@ def phase_hat_kernels(model: HAT, dev: torch.device) -> dict:
             want = _flat(plain(*[t.float() for t in ops]))
             torch.cuda.synchronize()
             for i, (k, p) in enumerate(zip(got, want)):
-                part = f"{name} [{label}] output {i}"
-                if not torch.isfinite(k.float()).all():
-                    failed.append(f"{part}: non-finite")
-                    continue
-                err = float((k.float() - p).abs().max())
-                if dtype == torch.float32:
-                    limit = F32_RTOL * float(p.abs().max()) + F32_ATOL
-                    ok = err <= limit
-                    log(f"check {part} f32: max_abs_err {err:.3e} limit {limit:.3e}")
-                else:
-                    rel = rel_l2(k, p)
-                    ok = rel <= BF16_REL_L2
-                    if i == 0:
-                        errors[name] = max(errors.get(name, 0.0), err)
-                    log(f"check {part} bf16: rel_l2 {rel:.3e} limit {BF16_REL_L2:.0e} max_abs_err {err:.3e}")
-                if not ok:
-                    failed.append(f"{part} {dtype}")
+                err = kernel_check(f"{name} [{label}] output {i}", k, p, dtype, failed)
+                if dtype == torch.bfloat16 and i == 0:
+                    errors[name] = max(errors.get(name, 0.0), err)
             del got, want
     if failed:
         raise AssertionError("HAT kernels disagree with their plain versions: " + "; ".join(failed))
@@ -1242,23 +1295,9 @@ def phase_b4_kernels(dev: torch.device) -> dict:
                 torch.cuda.synchronize()
                 want = upsample_s_plain(*[t.float() for t in ops], s)
                 torch.cuda.synchronize()
-                part = f"fused_upsample_s x{s} [{label}]"
-                if not torch.isfinite(got.float()).all() or got.shape != want.shape:
-                    failed.append(f"{part}: non-finite or {tuple(got.shape)}")
-                    continue
-                err = float((got.float() - want).abs().max())
-                if dtype == torch.float32:
-                    limit = F32_RTOL * float(want.abs().max()) + F32_ATOL
-                    ok = err <= limit
-                    log(f"check {part} f32: max_abs_err {err:.3e} limit {limit:.3e}")
-                else:
-                    rel = rel_l2(got, want)
-                    ok = rel <= BF16_REL_L2
-                    if label == B4_LABEL:
-                        errors[s] = err
-                    log(f"check {part} bf16: rel_l2 {rel:.3e} limit {BF16_REL_L2:.0e} max_abs_err {err:.3e}")
-                if not ok:
-                    failed.append(f"{part} {dtype}")
+                err = kernel_check(f"fused_upsample_s x{s} [{label}]", got, want, dtype, failed)
+                if dtype == torch.bfloat16 and label == B4_LABEL:
+                    errors[s] = err
                 del got, want
     if failed:
         raise AssertionError("B4 disagrees with its plain version: " + "; ".join(failed))
@@ -1358,6 +1397,373 @@ def phase_x2_x3(dev: torch.device, b4_errors: dict) -> list:
     return rows
 
 
+# -- SwinFIR (B14) ------------------------------------------------------------------
+
+
+def resblock_ops(dev: torch.device, dtype: torch.dtype, shape, seed: int):
+    """(x, w1, b1, w2, b2) of B14: HWIO weights in ``dtype``, f32 biases
+    (b1 large enough that act(b1) in the padding matters)."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    c = shape[-1]
+    return (torch.randn(*shape, generator=gen).to(dev, dtype),
+            (torch.randn(3, 3, c, c, generator=gen) * (9 * c) ** -0.5).to(dev, dtype),
+            (torch.randn(c, generator=gen) * 0.5).to(dev),
+            (torch.randn(3, 3, c, c, generator=gen) * (9 * c) ** -0.5).to(dev, dtype),
+            (torch.randn(c, generator=gen) * 0.1).to(dev))
+
+
+def phase_resblock_kernels(dev: torch.device) -> float:
+    """B14 against its plain version, f32 then bf16, at SwinFIR's map (the
+    path's LeakyReLU 0.2 / res_scale 1, and ReLU / 0.1) and at a ragged odd
+    height (every activation and scale). Returns the bf16 max abs error at
+    the path's variant."""
+    failed, error = [], None
+    for dtype in (torch.float32, torch.bfloat16):
+        for si, shape in enumerate(RESBLOCK_SHAPES):
+            for activation, res_scale in RESBLOCK_VARIANTS[: 2 if si == 0 else 4]:
+                ops = resblock_ops(dev, dtype, shape, SEED + 20 + si)
+                got = fused_resblock(*ops, res_scale=res_scale, activation=activation)
+                torch.cuda.synchronize()
+                want = resblock_plain(*[t.float() for t in ops], res_scale=res_scale, activation=activation)
+                part = f"fused_resblock [{'x'.join(map(str, shape))} {activation} res_scale {res_scale}]"
+                err = kernel_check(part, got, want, dtype, failed)
+                if dtype == torch.bfloat16 and si == 0 and res_scale == 1.0:
+                    error = err
+                del got, want
+    if failed:
+        raise AssertionError("B14 disagrees with its plain version: " + "; ".join(failed))
+    return error
+
+
+def phase_swinfir_serving(dev: torch.device, error: float) -> tuple:
+    """SwinFIR x4 at full width: fused vs plain (f32, bf16 against f32
+    plain), uint8 fused vs plain in f32, three bf16 requests with their
+    launch counts, the forward's time and B14's time at the path's shapes.
+    Returns (B14's JSON row, forward ms)."""
+    model = SwinFIR.build(**MAIN, seed=SEED, device=dev)
+    log(f"\nmodel: SwinFIR x4 embed {MAIN['embed_dim']} depths {MAIN['depths']}, {model.count_parameters()} parameters")
+    images = requests()
+    x = torch.from_numpy(images[0]).to(dev).float()[None] / 255.0
+    plain = model.enable_fused(False)(x)
+    plain8 = model.inference(images[0])
+    fused = model.enable_fused(True)(x)
+    fused8 = model.inference(images[0])
+    torch.cuda.synchronize()
+    rel32 = rel_l2(fused, plain)
+    diff = np.abs(fused8.astype(int) - plain8.astype(int))
+    model.half()
+    fused16 = model(x)
+    torch.cuda.synchronize()
+    rel16 = rel_l2(fused16, plain)
+    log(f"swinfir e2e fused vs plain: f32 rel_l2 {rel32:.3e} limit {E2E_F32_REL_L2:.0e}; uint8 f32 max diff "
+        f"{diff.max()} LSB on {100 * (diff > 0).mean():.4f} % of values; bf16 vs f32 plain rel_l2 {rel16:.3e} limit "
+        f"{E2E_BF16_REL_L2:.0e}")
+    failed = []
+    if not rel32 <= E2E_F32_REL_L2:
+        failed.append("f32 fused SwinFIR forward disagrees with the plain forward")
+    if not (diff.max() <= 1 and (diff > 0).mean() < 0.01):
+        failed.append("uint8 fused SwinFIR output differs from the plain one by more than 1 LSB")
+    if not rel16 <= E2E_BF16_REL_L2:
+        failed.append("bf16 fused SwinFIR forward disagrees with the plain forward")
+    if not bool(torch.isfinite(fused16).all()) or fused16.shape != (1, 4 * LR, 4 * LR, 3):
+        failed.append(f"bad bf16 SwinFIR forward {tuple(fused16.shape)}")
+    del plain, fused, fused16
+
+    prep = model.serving_prep()  # load-time weight layout, outside the counted run
+    engagement.reset()
+    outs = [model.inference(im) for im in images]
+    launches = engagement.counters()
+    log(f"swinfir served {len(outs)} requests; launches {launches}")
+    for out in outs:
+        if out.shape != (4 * LR, 4 * LR, 3) or out.dtype != np.uint8:
+            failed.append(f"bad SwinFIR output {out.shape} {out.dtype}")
+    for name in set(launches) | set(SWINFIR_PER_FORWARD):
+        if launches.get(name, 0) != SWINFIR_PER_FORWARD.get(name, 0) * REQUESTS:
+            failed.append(f"swinfir {name}: {launches.get(name, 0)} launches, expected "
+                          f"{SWINFIR_PER_FORWARD.get(name, 0)} a forward")
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+    fwd = time_ms(lambda: model(x), iters=5)
+    log(f"swinfir forward bf16 batch 1 {LR}x{LR}: {fwd:.3f} ms, {LR * LR / 1e6 / (fwd / 1e3):.3f} LR MP/s")
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 21)
+    p = prep["convs"][0]
+    ops = (torch.randn(*RESBLOCK_SHAPES[0], generator=gen).to(dev, torch.bfloat16), p["s0"], p["b0"], p["s2"], p["b2"])
+    xb, w1, b1, w2, b2 = ops
+    ms = time_ms(lambda: fused_resblock(*ops, activation="lrelu0.2"), iters=10)
+    plain_ms = time_ms(lambda: resblock_plain(*ops, activation="lrelu0.2"), iters=10)
+    w1o, w2o = w1.permute(3, 2, 0, 1).contiguous(), w2.permute(3, 2, 0, 1).contiguous()
+    b1l, b2l = b1.to(xb.dtype), b2.to(xb.dtype)
+
+    def library():
+        xc = xb.permute(0, 3, 1, 2)
+        h1 = F.leaky_relu(F.conv2d(xc, w1o, b1l, padding=1), 0.2)
+        return xb + F.conv2d(h1, w2o, b2l, padding=1).permute(0, 2, 3, 1)
+
+    library_ms = time_ms(library, iters=10)
+    tokens, c = xb.numel() // xb.shape[-1], xb.shape[-1]
+    flops = 2 * 2 * tokens * 9 * c * c
+    moved = 2 * nbytes(xb) + nbytes(w1, b1, w2, b2)
+    bms, by = bound_ms(flops, moved)
+    per = SWINFIR_PER_FORWARD["fused_resblock"]
+    shape = "x".join(map(str, xb.shape))
+    log(f"time fused_resblock [lrelu0.2] bf16 at {shape}: {ms:.3f} ms ({100 * per * ms / fwd:.1f} "
+        f"% of a forward at {per} a forward), plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), library (cuDNN "
+        f"F.conv2d x2 + leaky_relu + add) {library_ms:.4f} ms, {flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB")
+    source, replaces = KERNELS["fused_resblock"]
+    row = dict(name="fused_resblock", route="cuda", source=source, replaces=replaces,
+               launches=launches.get("fused_resblock", 0), max_abs_err=error, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+               bound_by=by, library_ms=library_ms)
+    del model
+    torch.cuda.empty_cache()
+    return row, fwd
+
+
+def phase_swinfir_grads(dev: torch.device) -> None:
+    """The fused-train SwinFIR's loss and every gradient in f32 at batch 4
+    against an f64 witness and against plain autograd in f32, the SFBs'
+    LeakyReLU kinks pinned to the witness's side, with B5-B8's launch
+    counts on the fused run."""
+    model = SwinFIR.build(**TRAIN_MODEL, seed=SEED, device=dev)
+    runs = train_grads(model, dev, SEED, SWINFIR_GRAD_RUNS)
+    del model
+    report = grad_report(runs, SEED, "swinfir ")
+    failed = []
+    for (path, dtype), (_, grads, launches, _) in runs.items():
+        expected = PER_STEP if path == "fused" else {}
+        if any(launches.get(k, 0) != expected.get(k, 0) for k in set(launches) | set(expected)):
+            failed.append(f"swinfir {path} {dtype}: launches {launches}, expected {expected}")
+        if not all(torch.isfinite(g).all() for g in grads.values()):
+            failed.append(f"swinfir {path} {dtype}: non-finite gradients")
+    for key, label in ((("fused", torch.float32), "the f64 witness"), (("fused-vs-plain", torch.float32),
+                                                                        "plain autograd in f32")):
+        r = report[key]
+        worst = max(r["params"].values())
+        log(f"swinfir grads held: fused f32 vs {label}: loss rel {r['loss']:.3e}, all gradients {r['all']:.3e}, "
+            f"worst parameter {worst:.3e} <= {GRAD_F32_REL_L2:.0e}")
+        if max(r["loss"], r["all"], worst) > GRAD_F32_REL_L2:
+            failed.append(f"swinfir f32 fused gradients disagree with {label}")
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
+def phase_swinfir_train(dev: torch.device) -> None:
+    """``Trainer.run`` on SwinFIR for 3 steps at its recipe (batch 32, f32,
+    fused_train by default on the card), then 7 steps of one batch timed
+    (the last 5): launch counts, finite losses that fall over the trainer's
+    steps, moved weights, step ms, images/s, peak memory."""
+    shutil.rmtree(SWINFIR_TRAIN_DIR, ignore_errors=True)
+    model = SwinFIR.build(**TRAIN_MODEL, seed=SEED, device=dev)
+    recipe = model.get_training_config()
+    losses: list = []
+
+    def criterion(pred, target):
+        loss = l1_loss(pred, target)
+        losses.append(loss.detach())
+        return loss
+
+    trainer = Trainer(model, MemoryPairs(SEED), **{**recipe, "max_iters": SWINFIR_TRAIN_STEPS}, num_workers=4,
+                      eval_interval=SWINFIR_TRAIN_STEPS + 1, ckpt_path=str(SWINFIR_TRAIN_DIR), seed=SEED,
+                      log_interval=100, loss_function=criterion)
+    before = {k: p.detach().clone() for k, p in model.module.named_parameters()}
+    engagement.reset()
+    trainer.run()
+    torch.cuda.synchronize()
+    launches = engagement.counters()
+    steps = SWINFIR_TRAIN_STEPS
+    values = [float(v) for v in losses]
+    log(f"\nswinfir trained {steps} steps at its recipe (batch {recipe['batch_size']}, bf16 {trainer.bfloat16}, "
+        f"fused_train {trainer.fused_train}); launches {launches}; losses {[round(v, 6) for v in values]}")
+    failed = []
+    if trainer.bfloat16 or not trainer.fused_train or recipe["batch_size"] != TRAIN_BATCH:
+        failed.append("the trainer did not take SwinFIR's f32 recipe with fused_train on the card")
+    for name in set(launches) | set(PER_STEP):
+        if launches.get(name, 0) != PER_STEP.get(name, 0) * steps:
+            failed.append(f"swinfir {name}: {launches.get(name, 0)} launches in {steps} steps, expected "
+                          f"{PER_STEP.get(name, 0)} a step")
+    if len(values) != steps or not all(np.isfinite(values)) or not values[-1] < values[0]:
+        failed.append(f"swinfir losses {values}: not finite and falling")
+    moved = sum(not torch.equal(p.detach(), before[k]) for k, p in model.module.named_parameters())
+    if moved != len(before):
+        failed.append(f"only {moved} of {len(before)} SwinFIR parameters changed")
+    shutil.rmtree(SWINFIR_TRAIN_DIR, ignore_errors=True)
+
+    module = model.module
+    module.fused_train = True
+    tx = build_optimizer(**{k: recipe[k] for k in ("learning_rate", "beta1", "beta2", "weight_decay", "milestones",
+                                                   "gamma")})
+    state = prepare_state(module, tx)
+    timed: list = []
+
+    def timed_loss(pred, target):
+        loss = l1_loss(pred, target)
+        timed.append(loss.detach())
+        return loss
+
+    step = make_train_step(module, tx, timed_loss, bfloat16=False)
+    lq, gt = _unit_batch(dev, TRAIN_BATCH, SEED + 4)
+    gen = torch.Generator().manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(lambda: step(state, lq, gt, gen), iters=5)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    module.fused_train = False
+    timed = [float(v) for v in timed]
+    log(f"swinfir train step f32 batch {TRAIN_BATCH} {TRAIN_CROP}x{TRAIN_CROP}: {step_ms:.3f} ms, "
+        f"{TRAIN_BATCH / (step_ms / 1e3):.1f} images/s, peak memory {peak:.2f} GiB; one batch's loss over "
+        f"{len(timed)} steps {[round(v, 6) for v in timed]}")
+    if not all(np.isfinite(timed)):
+        failed.append(f"swinfir timed losses {timed}")
+    del state, tx, model, trainer
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
+# -- MaxSR (B15) ---------------------------------------------------------------------
+
+
+def window_attn_ops(dev: torch.device, dtype: torch.dtype, case, seed: int):
+    """(q, k, v, bias, mask) of one B15 case: q, k, v the strided slices of
+    one (windows, N, 3, heads, d) projection, as MaxSR's attention hands
+    them (q scaled, so a fresh tensor); a bias gathered from a (2 ws - 1)^2
+    table (or None), a 0 / -100 mask (or None)."""
+    _, bw, heads, n, d, with_bias, nw = case
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    qkv = torch.randn(bw, n, 3, heads, d, generator=gen).to(dev, dtype).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv[0] * (2 * d**-0.5), qkv[1], qkv[2]
+    bias = mask = None
+    if with_bias:
+        ws = int(round(n**0.5))
+        if ws * ws == n:
+            table = torch.randn((2 * ws - 1) ** 2, heads, generator=gen)
+            bias = gather_rel_bias(table, relative_position_index(ws), heads).contiguous().to(dev)
+        else:
+            bias = torch.randn(heads, n, n, generator=gen).to(dev)
+    if nw:
+        mask = torch.where(torch.rand(nw, n, n, generator=gen) > 0.7, -100.0, 0.0).to(dev)
+    return q, k, v, bias, mask
+
+
+def window_attn_bounds(q, k, v, bias, mask) -> tuple:
+    """(flops, bytes) of one B15 launch: q, k, v, bias and mask read once,
+    the output written once."""
+    bw, heads, n, d = q.shape
+    return 4 * bw * heads * n * k.shape[2] * d, nbytes(q, k, v, bias, mask) + nbytes(q)
+
+
+def phase_window_attn_kernels(dev: torch.device) -> tuple:
+    """B15 against its plain version, f32 then bf16, over WINDOW_ATTN_CASES;
+    N 1089 must raise. Then ms, plain ms, bound and SDPA ms at the two MaxSR
+    shapes. Returns ({label: timing}, bf16 max abs error at the adaptive
+    shape)."""
+    failed, error = [], None
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, case in enumerate(WINDOW_ATTN_CASES):
+            q, k, v, bias, mask = window_attn_ops(dev, dtype, case, SEED + 30 + i)
+            got = window_attention(q, k, v, bias=bias, mask=mask)
+            torch.cuda.synchronize()
+            want = attention_plain(q.float(), k.float(), v.float(), bias, mask)
+            _, bw, heads, n, d, _, nw = case
+            part = f"window_attention [{case[0]}: {bw} windows, {heads} heads, N {n}, d {d}" + (
+                f", mask of {nw} windows]" if nw else "]")
+            err = kernel_check(part, got, want, dtype, failed)
+            if dtype == torch.bfloat16 and case[0] == "adaptive":
+                error = err
+            del got, want, q, k, v
+    try:
+        z = torch.zeros(1, 1, 1089, 16, device=dev, dtype=torch.bfloat16)
+        window_attention(z, z, z)
+        failed.append("window_attention took N 1089")
+    except NotImplementedError as e:
+        log(f"check window_attention N 1089: raises ({e})")
+    if failed:
+        raise AssertionError("B15 disagrees with its plain version: " + "; ".join(failed))
+
+    timing = {}
+    for i, case in enumerate(WINDOW_ATTN_CASES[:2]):
+        q, k, v, bias, mask = ops = window_attn_ops(dev, torch.bfloat16, case, SEED + 30 + i)
+        ms = time_ms(lambda: window_attention(q, k, v, bias=bias), iters=10)
+        plain_ms = time_ms(lambda: attention_plain(q, k, v, bias), iters=5)
+        attn_mask = None if bias is None else bias.to(q.dtype)
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask, scale=1.0), iters=10)
+        flops, moved = window_attn_bounds(*ops)
+        bms, by = bound_ms(flops, moved)
+        timing[case[0]] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
+        log(f"time window_attention [{case[0]}] bf16 ({case[1]} windows, N {case[3]}): {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), library (F.scaled_dot_product_attention"
+            f"{'' if bias is None else ', bias as mask'}) {library_ms:.4f} ms, {flops / 1e9:.2f} GFLOP, "
+            f"{moved / 1e6:.1f} MB")
+        del q, k, v, ops
+    return timing, error
+
+
+def phase_maxsr_serving(dev: torch.device, adaptive: bool) -> tuple:
+    """MaxSR x4 at full width in one mode: fused vs plain (f32, bf16 against
+    f32 plain), three bf16 requests with 32 B15 launches a forward and
+    nothing else, the forward's time. Returns (launches, forward ms)."""
+    mode = "adaptive" if adaptive else "static"
+    model = MaxSR.build(**{**MAXSR_MAIN, "adaptive": adaptive}, seed=SEED, device=dev)
+    log(f"\nmodel: MaxSR x4 {mode} dim {MAXSR_MAIN['dim']} depth {MAXSR_MAIN['depth']}, "
+        f"{model.count_parameters()} parameters")
+    images = requests()
+    x = torch.from_numpy(images[0]).to(dev).float()[None] / 255.0
+    plain = model.enable_fused(False)(x)
+    fused = model.enable_fused(True)(x)
+    torch.cuda.synchronize()
+    rel32 = rel_l2(fused, plain)
+    model.half()
+    fused16 = model(x)
+    torch.cuda.synchronize()
+    rel16 = rel_l2(fused16, plain)
+    log(f"maxsr {mode} e2e fused vs plain: f32 rel_l2 {rel32:.3e} limit {E2E_F32_REL_L2:.0e}; bf16 vs f32 plain "
+        f"rel_l2 {rel16:.3e} limit {E2E_BF16_REL_L2:.0e}")
+    failed = []
+    if not rel32 <= E2E_F32_REL_L2:
+        failed.append(f"maxsr {mode}: f32 fused forward disagrees with the plain forward")
+    if not rel16 <= E2E_BF16_REL_L2:
+        failed.append(f"maxsr {mode}: bf16 fused forward disagrees with the plain forward")
+    if not bool(torch.isfinite(fused16).all()) or fused16.shape != (1, 4 * LR, 4 * LR, 3):
+        failed.append(f"maxsr {mode}: bad bf16 forward {tuple(fused16.shape)}")
+    del plain, fused, fused16
+    engagement.reset()
+    outs = [model.inference(im) for im in images]
+    launches = engagement.counters()
+    log(f"maxsr {mode} served {len(outs)} requests; launches {launches}")
+    for out in outs:
+        if out.shape != (4 * LR, 4 * LR, 3) or out.dtype != np.uint8:
+            failed.append(f"maxsr {mode}: bad output {out.shape} {out.dtype}")
+    for name in set(launches) | set(MAXSR_PER_FORWARD):
+        if launches.get(name, 0) != MAXSR_PER_FORWARD.get(name, 0) * REQUESTS:
+            failed.append(f"maxsr {mode} {name}: {launches.get(name, 0)} launches, expected "
+                          f"{MAXSR_PER_FORWARD.get(name, 0)} a forward")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    fwd = time_ms(lambda: model(x), iters=5)
+    log(f"maxsr {mode} forward bf16 batch 1 {LR}x{LR}: {fwd:.3f} ms, {LR * LR / 1e6 / (fwd / 1e3):.3f} LR MP/s")
+    del model
+    torch.cuda.empty_cache()
+    return launches, fwd
+
+
+def phase_maxsr(dev: torch.device) -> dict:
+    """Phases 22-23; B15's JSON row (timed at the adaptive shape, the
+    default mode), its launches those of both modes' requests."""
+    timing, error = phase_window_attn_kernels(dev)
+    launches, fwds = 0, {}
+    for adaptive in (True, False):
+        counts, fwds[adaptive] = phase_maxsr_serving(dev, adaptive)
+        launches += counts.get("window_attention_pallas", 0)
+    per = MAXSR_PER_FORWARD["window_attention_pallas"]
+    for label, adaptive in (("adaptive", True), ("static", False)):
+        log(f"maxsr {label}: B15 {per} x {timing[label]['ms']:.3f} ms = "
+            f"{100 * per * timing[label]['ms'] / fwds[adaptive]:.1f} % of the forward")
+    source, replaces = KERNELS["window_attention_pallas"]
+    return dict(name="window_attention_pallas", route="cuda", source=source, replaces=replaces, launches=launches,
+                max_abs_err=error, **timing["adaptive"])
+
+
+
 # -- the user's entry points: trained checkpoints, Evaluator, CLI -----------------
 
 
@@ -1378,8 +1784,18 @@ def bicubic(lr: np.ndarray, h: int, w: int, dev: torch.device) -> np.ndarray:
     return torch.clamp(torch.round(up * 255.0), 0, 255).to(torch.uint8)[0].permute(1, 2, 0).cpu().numpy()
 
 
+def maxsr_stats_restored(model) -> list:
+    """[] when the MBConvs' BatchNorm running statistics came back from the
+    checkpoint (not the initial mean 0 / variance 1), else the failure."""
+    stats = {k: v for k, v in model.module.state_dict().items() if k.endswith(("running_mean", "running_var"))}
+    moved = [k for k, v in stats.items() if not torch.equal(v, torch.zeros_like(v) if k.endswith("mean") else
+                                                         torch.ones_like(v))]
+    log(f"trained maxsr_ckpt: {len(moved)} of {len(stats)} running statistics differ from their initial values")
+    return [] if stats and len(moved) == len(stats) else ["maxsr_ckpt: BatchNorm running statistics not restored"]
+
+
 def phase_trained(dev: torch.device) -> list:
-    """The seven trained checkpoints on the card, each image against the
+    """The nine trained checkpoints on the card, each image against the
     floors. Returns (checkpoint, image, bicubic, plain, fused f32, fused
     bf16) PSNRs."""
     table, failed = [], []
@@ -1387,6 +1803,8 @@ def phase_trained(dev: torch.device) -> list:
         ckpt = str(FIXTURES / subdir)
         for i, (lr, hr) in enumerate(fixture_pairs(scale)):
             model = load_model(ckpt, name, device=dev)
+            if name == "maxsr" and i == 0:
+                failed += maxsr_stats_restored(model)
             bi = compute_psnr(bicubic(lr, *hr.shape[:2], dev), hr)
             plain = compute_psnr(model.inference(lr), hr)
             fused = compute_psnr(model.enable_fused(True).inference(lr), hr)
@@ -1499,6 +1917,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     b4_errors = phase_b4_kernels(dev)
     rows += phase_x2_x3(dev, b4_errors)
+    resblock_error = phase_resblock_kernels(dev)
+    swinfir_row, _ = phase_swinfir_serving(dev, resblock_error)
+    rows.append(swinfir_row)
+    phase_swinfir_grads(dev)
+    phase_swinfir_train(dev)
+    rows.append(phase_maxsr(dev))
     phase_trained(dev)
     phase_evaluator(dev)
     phase_cli(dev)

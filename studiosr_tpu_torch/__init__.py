@@ -14,7 +14,12 @@ This package imports neither JAX nor anything of ``studiosr_tpu``.
 from studiosr_tpu_torch._device import resolve_device
 from studiosr_tpu_torch.engine import Evaluator, Evaluator2, Trainer, benchmark
 from studiosr_tpu_torch.models.hat import HAT
+from studiosr_tpu_torch.models.maxsr import MaxSR
+from studiosr_tpu_torch.models.swinfir import SwinFIR
 from studiosr_tpu_torch.models.swinir import SwinIR
 from studiosr_tpu_torch.zoo.registry import load_model
 
-__all__ = ["Evaluator", "Evaluator2", "HAT", "SwinIR", "Trainer", "benchmark", "load_model", "resolve_device"]
+__all__ = [
+    "Evaluator", "Evaluator2", "HAT", "MaxSR", "SwinFIR", "SwinIR", "Trainer", "benchmark", "load_model",
+    "resolve_device",
+]

@@ -1,12 +1,13 @@
 // 3x3 SAME convolution on NHWC maps, as an implicit GEMM.
 //
 // Shared by B2 (conv3x3.cu), B3 and B4 (upsampler.cu, which store through a
-// pixel shuffle) and B11 (cab_body.cu). A thread block owns a TH x TW pixel tile and BN output
+// pixel shuffle), B11 (cab_body.cu) and B14 (resblock.cu). A thread block owns a TH x TW pixel tile and BN output
 // channels. It walks Cin in chunks of KC: the chunk's (TH+2) x (TW+2) input
 // patch (zero outside the image: the SAME padding) and its 9 x KC x BN
 // weights are staged in shared memory, and the products accumulate in f32.
-// The epilogue adds the bias, applies the activation, adds the residual and
-// the skip map, and stores once. B11's instantiation (CAB) adds the exact
+// The epilogue adds the bias, applies the activation, scales by res_scale
+// (1 but for B14's second pass; a product by 1 changes no bit), adds the
+// residual and the skip map, and stores once. B11's instantiation (CAB) adds the exact
 // GELU and, with `psum` set, has each block write the sums over its tile's
 // pixels of every output channel's f32 value (before rounding to T),
 // psum[(b * tiles + tile) * Cout + co], summed in a fixed order (no
@@ -56,7 +57,7 @@ template <typename T, int BN, int TN, int TH, int TW, bool CAB>
 __global__ void __launch_bounds__(CONV_THREADS) conv3x3_kernel(
     const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ bias,
     const T* __restrict__ extra, T* __restrict__ out, int H, int W, int Cin, int Cout,
-    int act, float slope, int residual, int shuffle, float* __restrict__ psum) {
+    int act, float slope, float res_scale, int residual, int shuffle, float* __restrict__ psum) {
   constexpr int COLS = BN / TN;             // threads along output channels
   constexpr int ROWS = CONV_THREADS / COLS; // threads along pixels
   constexpr int TM = TH * TW / ROWS;        // pixels per thread
@@ -144,6 +145,7 @@ __global__ void __launch_bounds__(CONV_THREADS) conv3x3_kernel(
       if (act == ACT_RELU) v = fmaxf(v, 0.f);
       else if (act == ACT_LRELU) v = v >= 0.f ? v : slope * v;
       else if (CAB && act == ACT_GELU) v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+      v *= res_scale;
       if (residual) v += to_f32(x[pix * Cin + co]);
       if (extra) v += to_f32(extra[pix * Cout + co]);
       if constexpr (CAB) acc[m][n] = v;
@@ -183,7 +185,7 @@ template <int BN, int TH, bool CAB>
 __global__ void __launch_bounds__(CONV_THREADS) conv3x3_wmma_kernel(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w, const float* __restrict__ bias,
     const __nv_bfloat16* __restrict__ extra, __nv_bfloat16* __restrict__ out, int H, int W, int Cin, int Cout,
-    int act, float slope, int residual, int shuffle, float* __restrict__ psum) {
+    int act, float slope, float res_scale, int residual, int shuffle, float* __restrict__ psum) {
   using namespace nvcuda;
   constexpr int TW = 16, KC = CONV_KC, PH = TH + 2, PW = TW + 2;
   constexpr int NF = BN / 16, MPW = TH / (CONV_THREADS / 32);
@@ -260,6 +262,7 @@ __global__ void __launch_bounds__(CONV_THREADS) conv3x3_wmma_kernel(
     if (act == ACT_RELU) v = fmaxf(v, 0.f);
     else if (act == ACT_LRELU) v = v >= 0.f ? v : slope * v;
     else if (CAB && act == ACT_GELU) v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+    v *= res_scale;
     if (residual) v += to_f32(x[pix * Cin + co]);
     if (extra) v += to_f32(extra[pix * Cout + co]);
     if constexpr (CAB) tile[e] = v;
@@ -290,29 +293,32 @@ __host__ inline int conv3x3_pixel_tiles(int H, int W, int Cout) {
 // pixel tiles x 16 channels so fewer lanes idle. `shuffle` (0, 2 or 3) is
 // conv_out_index's. CAB (B11) admits ACT_GELU and `psum`, B x
 // conv3x3_pixel_tiles(H, W, Cout) x Cout f32 channel partials (or null).
+// The stored value is res_scale act(conv + bias) [+ x] [+ extra].
 template <typename T, bool CAB = false>
 cudaError_t launch_conv3x3(const T* x, const T* w, const float* bias, const T* extra, T* out, int B, int H,
                            int W, int Cin, int Cout, int act, float slope, int residual, int shuffle,
-                           cudaStream_t stream, float* psum = nullptr) {
+                           cudaStream_t stream, float* psum = nullptr, float res_scale = 1.f) {
   constexpr bool tc = std::is_same<T, __nv_bfloat16>::value;
   if (Cout > 16) {
     constexpr int BN = 64, TH = 8, TW = 16;
     dim3 grid(((H + TH - 1) / TH) * ((W + TW - 1) / TW), (Cout + BN - 1) / BN, B);
     if constexpr (tc)
       conv3x3_wmma_kernel<BN, TH, CAB><<<grid, CONV_THREADS, 0, stream>>>(x, w, bias, extra, out, H, W, Cin, Cout, act,
-                                                                     slope, residual, shuffle, psum);
+                                                                     slope, res_scale, residual, shuffle, psum);
     else
       conv3x3_kernel<T, BN, 4, TH, TW, CAB><<<grid, CONV_THREADS, 0, stream>>>(x, w, bias, extra, out, H, W, Cin, Cout,
-                                                                          act, slope, residual, shuffle, psum);
+                                                                          act, slope, res_scale, residual, shuffle,
+                                                                          psum);
   } else {
     constexpr int BN = 16, TH = 16, TW = 16;
     dim3 grid(((H + TH - 1) / TH) * ((W + TW - 1) / TW), (Cout + BN - 1) / BN, B);
     if constexpr (tc)
       conv3x3_wmma_kernel<BN, TH, CAB><<<grid, CONV_THREADS, 0, stream>>>(x, w, bias, extra, out, H, W, Cin, Cout, act,
-                                                                     slope, residual, shuffle, psum);
+                                                                     slope, res_scale, residual, shuffle, psum);
     else
       conv3x3_kernel<T, BN, 1, TH, TW, CAB><<<grid, CONV_THREADS, 0, stream>>>(x, w, bias, extra, out, H, W, Cin, Cout,
-                                                                          act, slope, residual, shuffle, psum);
+                                                                          act, slope, res_scale, residual, shuffle,
+                                                                          psum);
   }
   return cudaGetLastError();
 }

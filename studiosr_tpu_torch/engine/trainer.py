@@ -17,9 +17,15 @@ Port of ``studiosr_tpu/engine/trainer.py`` on one device:
   resume loads ``latest``, falls back to ``best`` only when the bytes are
   corrupt, and re-raises on config drift.
 
+* ``evaluate`` scores on the card (``evaluator.run(model, on_device=True)``:
+  the forward and the metrics on the device, two floats back an image) for
+  a model on the card and the package's own evaluators, and on the host
+  otherwise; ``eval_on_device`` forces either route, as the JAX Trainer's
+  argument does.
+
 ``steps_per_dispatch`` is accepted for the JAX package's signature and runs
 the same step sequence one step at a time. Not ported yet: reading JAX
-checkpoints, on-device evaluation, ``profile_dir`` and ``debug_nans``.
+checkpoints, ``profile_dir`` and ``debug_nans``.
 """
 
 from __future__ import annotations
@@ -80,6 +86,7 @@ class Trainer:
         ema_decay: float = 0.0,
         grad_accum_steps: int = 1,
         steps_per_dispatch: int = 1,
+        eval_on_device: Optional[bool] = None,
     ) -> None:
         if profile_dir:
             raise NotImplementedError("profile_dir: tracing the training run is not ported yet")
@@ -89,6 +96,7 @@ class Trainer:
         self.model = model
         self.dataset = train_dataset
         self.evaluator = evaluator
+        self.eval_on_device = eval_on_device
         self.device = model.device
 
         self.batch_size = batch_size
@@ -123,6 +131,10 @@ class Trainer:
                 warnings.warn(
                     f"fused_train=True ignored: {type(module).__name__} has no fused-training path", stacklevel=2
                 )
+        if self.fused_train:
+            # a model whose fused-training route is not ported raises here (MaxSR, ROADMAP A15b)
+            module.fused_train = True
+            module.fused_train = False
 
         self.criterion = get_loss(loss_function)
         self.ema_decay = float(ema_decay)
@@ -186,7 +198,18 @@ class Trainer:
     def evaluate(self) -> Tuple[float, float]:
         if not self.evaluator:
             return 0.0, 0.0
+        if self._eval_on_device():
+            return self.evaluator.run(self.model, on_device=True)
         return self.evaluator.run(self.model.inference)
+
+    def _eval_on_device(self) -> bool:
+        """The card route: forced by ``eval_on_device``, else taken for a
+        model on the card and one of the package's evaluators."""
+        if self.eval_on_device is not None:
+            return bool(self.eval_on_device)
+        from studiosr_tpu_torch.engine.evaluator import _EvaluatorBase
+
+        return self.device.type == "cuda" and isinstance(self.evaluator, _EvaluatorBase)
 
     # -- checkpointing ------------------------------------------------------
 

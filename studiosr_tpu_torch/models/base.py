@@ -10,8 +10,10 @@ PSNR / SSIM chain on the device and bring back two floats an image, never
 the HR image; ``half()`` switches to bfloat16 serving (it converts the
 module in place, so a Trainer never calls it on the f32 weights it trains);
 ``get_model_config`` gives the reconstruction config (the Trainer's
-``params.json``); :class:`FusedServingModel` adds ``enable_fused`` and the
-cached load-time ``serving_prep``.
+``params.json``) and ``get_training_config`` the model's published training
+recipe (``Trainer`` keyword arguments, ``_training_config``);
+:class:`FusedServingModel` adds ``enable_fused`` and the cached load-time
+``serving_prep``.
 
 A model wraps an ``nn.Module`` that lives on ``self.device``. Forwards run
 under ``torch.inference_mode``. Not ported: ``from_pretrained`` (the zoo's
@@ -55,6 +57,8 @@ def converge_images(images: List[np.ndarray]) -> np.ndarray:
 class Model:
     """Binds a PyTorch module (NHWC in, NHWC out), its config and its device."""
 
+    _training_config: Dict[str, Any] = {}
+
     def __init__(self, module: nn.Module, config: Dict[str, Any], device: torch.device) -> None:
         self.module = module
         self.config = dict(config)
@@ -82,6 +86,10 @@ class Model:
 
     def get_model_config(self) -> Dict[str, Any]:
         return dict(self.config)
+
+    def get_training_config(self) -> Dict[str, Any]:
+        """The recipe the model is trained with, as ``Trainer`` arguments."""
+        return dict(self._training_config)
 
     def count_parameters(self) -> int:
         return sum(p.numel() for p in self.module.parameters())

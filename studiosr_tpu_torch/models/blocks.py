@@ -9,12 +9,16 @@ is the joined flax path with torch leaf names.
 * LayerNorm eps is 1e-5.
 * Convolutions store torch OIHW weights and take NHWC activations: the input
   is handed to ``F.conv2d`` as a channels-last view (``permute(0, 3, 1, 2)``).
+* BatchNorm follows flax's ``nn.BatchNorm`` (the JAX package's
+  ``BatchNorm``): statistics in f32, the biased batch variance for both the
+  normalisation and the running update, momentum 0.1 in torch's convention
+  (flax's 0.9), eps 1e-5.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -27,6 +31,8 @@ __all__ = [
     "Normalizer",
     "Conv",
     "conv",
+    "BatchNorm",
+    "slots",
     "gelu",
     "LayerNorm",
     "Mlp",
@@ -57,17 +63,56 @@ class Normalizer:
 
 
 class Conv(nn.Conv2d):
-    """NHWC conv with torch-style ``k//2`` zero padding (OIHW weights)."""
+    """NHWC conv with torch-style ``k//2`` zero padding (OIHW weights);
+    ``groups=features`` makes it depthwise."""
 
-    def __init__(self, in_features: int, features: int, kernel_size: int = 3) -> None:
-        super().__init__(in_features, features, kernel_size, padding=kernel_size // 2)
+    def __init__(self, in_features: int, features: int, kernel_size: int = 3, groups: int = 1) -> None:
+        super().__init__(in_features, features, kernel_size, padding=kernel_size // 2, groups=groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
-def conv(in_features: int, features: int, kernel_size: int = 3) -> Conv:
-    return Conv(in_features, features, kernel_size)
+def conv(in_features: int, features: int, kernel_size: int = 3, groups: int = 1) -> Conv:
+    return Conv(in_features, features, kernel_size, groups)
+
+
+def slots(modules: Dict[str, nn.Module]) -> nn.Module:
+    """A parameter holder whose children carry ``modules``' names, for the
+    torch ``Sequential`` index paths (``fn.0``, ``to_out.0`` ...) of modules
+    that are called one by one."""
+    holder = nn.Module()
+    for name, module in modules.items():
+        holder.add_module(name, module)
+    return holder
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm over the channels of an NHWC map with flax's arithmetic.
+
+    Training mode normalises with the batch mean and the biased batch
+    variance, E[x^2] - E[x]^2 clipped at 0, in f32, and moves the running
+    statistics by 0.1 towards them (torch's own BatchNorm2d moves
+    ``running_var`` towards the unbiased variance); eval mode uses the
+    running statistics. The output has the input's dtype."""
+
+    def __init__(self, features: int) -> None:
+        super().__init__(features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if self.training:
+            mean = xf.mean(dim=(0, 1, 2))
+            var = torch.clamp(torch.square(xf).mean(dim=(0, 1, 2)) - torch.square(mean), min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean.detach().to(self.running_mean.dtype), alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var.detach().to(self.running_var.dtype), alpha=m)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean.float(), self.running_var.float()
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight.float()) + self.bias.float()
+        return y.to(x.dtype)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

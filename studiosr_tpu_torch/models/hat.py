@@ -37,7 +37,7 @@ import torch.nn.functional as F
 from studiosr_tpu_torch._device import resolve_device
 from studiosr_tpu_torch.models.base import FusedServingModel
 from studiosr_tpu_torch.models.blocks import LayerNorm, Mlp, Normalizer, Upsampler, conv, drop_path_scales, gelu
-from studiosr_tpu_torch.models.swinir import WindowAttention, _init_weights
+from studiosr_tpu_torch.models.swinir import _TRAINING_CONFIG, WindowAttention, _init_weights
 from studiosr_tpu_torch.ops.attention import attention_core
 from studiosr_tpu_torch.ops.attn_vjp import attention_map_vjp
 from studiosr_tpu_torch.ops.cuda.ocab import overlap_window
@@ -318,6 +318,8 @@ class HATModule(nn.Module):
 
 
 class HAT(FusedServingModel):
+    _training_config = _TRAINING_CONFIG  # the JAX package's HAT recipe is SwinIR's
+
     def _fused_fns(self):
         from studiosr_tpu_torch.serving.hat_fast import hat_fast_forward, prepare_hat_serving
 

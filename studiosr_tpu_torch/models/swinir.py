@@ -18,11 +18,16 @@ routes every Swin block through the custom-autograd fused halves
 (``ops/attn_vjp.py`` over B5/B8, ``ops/mlp_vjp.py`` over B6/B7) with the
 same parameters and the same scales; it requires ``drop_rate == 0``.
 Dropout (``drop_rate > 0``) is not ported: training mode raises for it.
+
+``resi_connection`` and ``conv_after_body`` (``studiosr_tpu/models/swinir.py``
+hooks) take a factory ``f(dim) -> nn.Module`` for each RSTB's residual conv
+and the conv after the body; SwinFIR passes its SFB. Without them both are
+3x3 convs, under the same parameter names.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -156,6 +161,7 @@ class RSTB(nn.Module):
         window_size: int,
         mlp_ratio: float = 4.0,
         drop_path: Sequence[float] = (),
+        resi_connection: Optional[Callable[[int], nn.Module]] = None,
     ) -> None:
         super().__init__()
         self.residual_group = _ResidualGroup(
@@ -167,7 +173,7 @@ class RSTB(nn.Module):
                 for i in range(depth)
             ]
         )
-        self.conv = conv(dim, dim)
+        self.conv = resi_connection(dim) if resi_connection is not None else conv(dim, dim)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         res = x
@@ -197,6 +203,8 @@ class SwinIRModule(nn.Module):
         drop_rate: float = 0.0,
         drop_path_rate: float = 0.0,
         fused_train: bool = False,
+        resi_connection: Optional[Callable[[int], nn.Module]] = None,
+        conv_after_body: Optional[Callable[[int], nn.Module]] = None,
     ) -> None:
         super().__init__()
         self.scale = scale
@@ -208,11 +216,12 @@ class SwinIRModule(nn.Module):
         self.patch_embed = _PatchEmbed(embed_dim)
         dpr = np.linspace(0, drop_path_rate, sum(depths)).tolist()
         self.layers = nn.ModuleList(
-            RSTB(embed_dim, depth, num_heads[i], window_size, mlp_ratio, dpr[sum(depths[:i]) : sum(depths[: i + 1])])
+            RSTB(embed_dim, depth, num_heads[i], window_size, mlp_ratio, dpr[sum(depths[:i]) : sum(depths[: i + 1])],
+                 resi_connection)
             for i, depth in enumerate(depths)
         )
         self.norm = LayerNorm(embed_dim)
-        self.conv_after_body = conv(embed_dim, embed_dim)
+        self.conv_after_body = conv_after_body(embed_dim) if conv_after_body is not None else conv(embed_dim, embed_dim)
         if upsampler == "pixelshuffle":
             self.conv_before_upsample = nn.ModuleList([conv(embed_dim, 64)])
             self.upsample = Upsampler(scale, 64)
@@ -280,7 +289,26 @@ def _init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 nn.init.trunc_normal_(m.relative_position_bias_table, std=0.02, a=-0.04, b=0.04, generator=generator)
 
 
+_TRAINING_CONFIG: Dict[str, Any] = dict(
+    batch_size=32,
+    learning_rate=0.0002,
+    beta1=0.9,
+    beta2=0.99,
+    weight_decay=0.0,
+    max_iters=500000,
+    gamma=0.5,
+    milestones=[250000, 400000, 450000, 475000],
+)
+
+
 class SwinIR(FusedServingModel):
+    _training_config = _TRAINING_CONFIG
+
+    @classmethod
+    def _module_hooks(cls) -> Dict[str, Any]:
+        """SwinIRModule's ``resi_connection`` / ``conv_after_body`` factories."""
+        return {}
+
     def _fused_fns(self):
         from studiosr_tpu_torch.serving.swinir_fast import prepare_serving, swinir_fast_forward
 
@@ -322,7 +350,7 @@ class SwinIR(FusedServingModel):
         )
         module = SwinIRModule(
             scale, n_colors, img_range, embed_dim, tuple(depths), tuple(num_heads), window_size, mlp_ratio, upsampler,
-            drop_rate, drop_path_rate, fused_train,
+            drop_rate, drop_path_rate, fused_train, **cls._module_hooks(),
         )
         _init_weights(module, torch.Generator().manual_seed(seed))
         return cls(module.to(dev).eval(), config, dev)

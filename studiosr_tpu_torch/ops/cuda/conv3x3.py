@@ -9,7 +9,10 @@ Weights are HWIO (3, 3, Cin, Cout) in the map's dtype; the bias is f32.
 
 Also B11, ``fused_cab_body`` (CUDA kernels ``csrc/cab_body.cu``): HAT's CAB
 trunk y2 = conv2(gelu(conv1(LN x))) with the per-image f32 channel sums of
-y2 that feed the squeeze-excite gate.
+y2 that feed the squeeze-excite gate; and B14, ``fused_resblock`` (CUDA
+kernels ``csrc/resblock.cu``, replacing ``conv3x3.py::fused_resblock``):
+y = x + res_scale (conv2(act(conv1(x) + b1)) + b2), SwinFIR's SFB spatial
+branch, at any height (the JAX wrapper declines odd ones to two convs).
 """
 
 from __future__ import annotations
@@ -24,13 +27,15 @@ from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, F as CF, ch
 
 __all__ = [
     "fused_conv3x3", "conv3x3_plain", "prepare_conv3x3_weights", "parse_activation", "fused_cab_body",
-    "cab_body_plain",
+    "cab_body_plain", "fused_resblock", "resblock_plain",
 ]
 
 _ARGS = (P, P, P, P, P, I, I, I, I, I, I, CF, I, P)
 _SIGNATURES = {"conv3x3_f32": _ARGS, "conv3x3_bf16": _ARGS}
 _CAB_ARGS = (P,) * 12 + (I,) * 5 + (P,)
 _CAB_SIGNATURES = {"cab_body_f32": _CAB_ARGS, "cab_body_bf16": _CAB_ARGS, "cab_body_partials": (I, I, I)}
+_RES_ARGS = (P,) * 7 + (I,) * 5 + (CF, CF, P)
+_RES_SIGNATURES = {"resblock_f32": _RES_ARGS, "resblock_bf16": _RES_ARGS}
 _ACT_CODES = {None: 0, "relu": 1, "lrelu": 2}  # shared with csrc/conv3x3.cuh
 
 
@@ -128,3 +133,37 @@ def fused_cab_body(x, ln_w, ln_b, w1, b1, w2, b2):
                 bsz, h, wd, c, cm, stream(dev))
     finish("fused_cab_body", status)
     return out, sums
+
+
+def resblock_plain(x, w1, b1, w2, b2, res_scale: float = 1.0, activation: Optional[str] = "relu"):
+    """Plain PyTorch version of B14, computed in f32 and returned in
+    ``x.dtype``: conv2's zero padding is h1 zero outside the image."""
+    h1 = conv3x3_plain(x.float(), w1, b1, activation)
+    return (x.float() + res_scale * conv3x3_plain(h1, w2, b2)).to(x.dtype)
+
+
+def fused_resblock(x, w1, b1, w2, b2, res_scale: float = 1.0, activation: Optional[str] = "relu"):
+    """B14: (B, H, W, C) -> x + res_scale (conv2(act(conv1(x) + b1)) + b2).
+    ``w1``, ``w2`` HWIO (3, 3, C, C) in the map's dtype, biases f32;
+    ``activation`` "relu", "lrelu[slope]" or None. CPU tensors take the plain
+    version; CUDA tensors launch the kernels or raise."""
+    if x.device.type == "cpu":
+        return resblock_plain(x, w1, b1, w2, b2, res_scale, activation)
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"fused_resblock: unsupported dtype {x.dtype}")
+    kind, slope = parse_activation(activation)
+    bsz, h, wd, c = x.shape
+    dev, dt, f32 = x.device, x.dtype, torch.float32
+    ptrs = [
+        check(x, "x", (bsz, h, wd, c), dt, dev),
+        check(w1, "w1", (3, 3, c, c), dt, dev), check(b1, "b1", (c,), f32, dev),
+        check(w2, "w2", (3, 3, c, c), dt, dev), check(b2, "b2", (c,), f32, dev),
+    ]
+    h1 = torch.empty_like(x)
+    out = torch.empty_like(x)
+    lib = _build.load("resblock", _RES_SIGNATURES)
+    fn = lib.resblock_bf16 if dt == torch.bfloat16 else lib.resblock_f32
+    status = fn(*ptrs, h1.data_ptr(), out.data_ptr(), bsz, h, wd, c, _ACT_CODES[kind], slope, float(res_scale),
+                stream(dev))
+    finish("fused_resblock", status)
+    return out

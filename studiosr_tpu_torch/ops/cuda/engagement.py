@@ -11,7 +11,8 @@ so there is no fallback to count. What remains:
   ``fused_window_attention_block`` (``_ws16`` at window 16),
   ``fused_mlp_block`` (``_extra`` with the CAB join), ``mlp_bwd``,
   ``attention_bwd`` (``_ws16`` at window 16), ``fused_cab_body``,
-  ``fused_ocab_block``, ``oca_core_fwd``, ``oca_core_bwd``;
+  ``fused_ocab_block``, ``oca_core_fwd``, ``oca_core_bwd``,
+  ``fused_resblock`` (B14), ``window_attention_pallas`` (B15);
 * ``structural_tail_decline(scale)`` — the by-design decline of a
   configuration that has no kernel at all (scale 8's log2-ladder tail),
   recorded and warned about so it is never silent;

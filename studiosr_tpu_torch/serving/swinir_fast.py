@@ -5,9 +5,13 @@ computation (``models/swinir.py``), with every Swin block through B1
 (``ops/cuda/swin_block.py``), the RSTB convs and ``conv_after_body`` through
 B2 (``ops/cuda/conv3x3.py``, the skip map folded in through ``extra``) and
 the tail through B3 at x4 or B4 at x2 / x3 (``ops/cuda/upsampler.py``); x8
-has no fused tail and records its structural decline. ``conv_first`` and
-``conv_before_upsample`` stay plain convolutions, as the JAX package leaves
-them to XLA. B1 returns its output aligned, so the JAX path's rolled-space
+has no fused tail and records its structural decline. SwinFIR's SFBs
+(``models/swinfir.py``) take the place of the RSTB convs and
+``conv_after_body``: each spatial branch runs through B14
+(``fused_resblock``), its spectral branch, 1x1 fusion and concat in plain
+torch, as the JAX package's ``_residual_conv`` routes them.
+``conv_first`` and ``conv_before_upsample`` stay plain convolutions, as the
+JAX package leaves them to XLA. B1 returns its output aligned, so the JAX path's rolled-space
 bookkeeping and its per-group realigning roll have no counterpart here.
 
 On CPU tensors every kernel wrapper takes its plain version; on CUDA
@@ -24,7 +28,7 @@ import torch.nn.functional as F
 
 from studiosr_tpu_torch.models.blocks import DEFAULT_RGB_MEAN
 from studiosr_tpu_torch.ops.cuda import engagement
-from studiosr_tpu_torch.ops.cuda.conv3x3 import fused_conv3x3, prepare_conv3x3_weights
+from studiosr_tpu_torch.ops.cuda.conv3x3 import fused_conv3x3, fused_resblock, prepare_conv3x3_weights
 from studiosr_tpu_torch.ops.cuda.swin_block import fused_swin_block
 from studiosr_tpu_torch.ops.cuda.upsampler import SCALES_S, fused_upsample_s, fused_upsample_x4
 from studiosr_tpu_torch.ops.pixel_shuffle import pixel_shuffle
@@ -46,10 +50,30 @@ def _conv_operands(conv: nn.Conv2d, dtype):
     return prepare_conv3x3_weights(conv.weight, dtype), _f32(conv.bias)
 
 
+def _residual_operands(block: nn.Module, dtype):
+    """A 3x3 conv's operands, or an SFB's spatial-branch pair
+    ``{"s0", "b0", "s2", "b2"}`` for B14."""
+    if isinstance(block, nn.Conv2d):
+        return _conv_operands(block, dtype)
+    (s0, b0), (s2, b2) = (_conv_operands(block.S.body._modules[k], dtype) for k in ("0", "2"))
+    return {"s0": s0, "b0": b0, "s2": s2, "b2": b2}
+
+
+def _residual_conv(block: nn.Module, x: torch.Tensor, operands, extra: torch.Tensor) -> torch.Tensor:
+    """``block(x) + extra``: B2 with the skip folded in for a 3x3 conv; for
+    an SFB its spatial branch through B14 (LeakyReLU 0.2, res_scale 1) and
+    the spectral branch, concat and 1x1 fusion in plain torch."""
+    if not isinstance(operands, dict):
+        return fused_conv3x3(x, *operands, extra=extra)
+    s = fused_resblock(x, operands["s0"], operands["b0"], operands["s2"], operands["b2"], activation="lrelu0.2")
+    return block.fusion(torch.cat([s, block.F(x)], dim=-1)) + extra
+
+
 def prepare_serving(module: nn.Module, config: Dict[str, Any], dtype) -> Dict[str, Any]:
     """Lay every kernel's weights out once, at load time.
 
-    Dense weights go to (in, out) and conv weights to HWIO in ``dtype``; the
+    Dense weights go to (in, out) and conv weights to HWIO in ``dtype`` (an
+    SFB's two spatial-branch convs as a ``{s0, b0, s2, b2}`` pair); the
     rel-pos bias is gathered to (heads, N, N); LayerNorm weights and biases
     become f32. Consumed by :func:`swinir_fast_forward`."""
     ws = int(config["window_size"])
@@ -72,8 +96,8 @@ def prepare_serving(module: nn.Module, config: Dict[str, Any], dtype) -> Dict[st
                 )
             )
         prep["blocks"].append(group)
-        prep["convs"].append(_conv_operands(layer.conv, dtype))
-    prep["after_body"] = _conv_operands(module.conv_after_body, dtype)
+        prep["convs"].append(_residual_operands(layer.conv, dtype))
+    prep["after_body"] = _residual_operands(module.conv_after_body, dtype)
     if config.get("upsampler", "pixelshuffle") == "pixelshuffle":
         prep["tail"] = tail_operands(module, int(config["scale"]), dtype)
     else:
@@ -136,9 +160,9 @@ def swinir_fast_forward(
         res = feats
         for bi, operands in enumerate(prep["blocks"][li]):
             res = fused_swin_block(res, **operands, heads=heads, window_size=ws, shift=0 if bi % 2 == 0 else ws // 2)
-        feats = fused_conv3x3(res, *prep["convs"][li], extra=feats)
+        feats = _residual_conv(layer.conv, res, prep["convs"][li], feats)
     feats = _layernorm(feats, module.norm)
-    x = fused_conv3x3(feats, *prep["after_body"], extra=shallow)
+    x = _residual_conv(module.conv_after_body, feats, prep["after_body"], shallow)
 
     if upsampler == "pixelshuffle":
         x = F.leaky_relu(module.conv_before_upsample[0](x), 0.01).contiguous()

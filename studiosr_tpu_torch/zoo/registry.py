@@ -15,9 +15,14 @@ the raw ones. Every leaf's shape is checked against the model before
 anything is copied, so a checkpoint whose ``params.json`` was edited fails
 loudly, naming the file and the leaf.
 
+A flax file's ``batch_stats`` (BatchNorm running statistics, MaxSR's
+MBConvs) come back as ``running_mean`` / ``running_var``; a BatchNorm's
+``num_batches_tracked``, which the JAX state has no counterpart of, keeps
+the module's value.
+
 The registry holds the names of the JAX package's twelve models; the port
-builds SwinIR and HAT, and the others raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+builds SwinIR, HAT, SwinFIR and MaxSR, and the others raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -33,22 +38,21 @@ import torch
 
 from studiosr_tpu_torch.utils.helpers import check_state_shapes
 from studiosr_tpu_torch.zoo.checkpoint import msgpack_restore
-from studiosr_tpu_torch.zoo.translate import drop_recomputed, jax_params_to_state_dict
+from studiosr_tpu_torch.zoo.translate import drop_recomputed, jax_params_to_state_dict, jax_variables_to_state_dict
 
 __all__ = ["MODEL_REGISTRY", "get_model_class", "load_model", "read_checkpoint"]
 
-_NOT_PORTED = {
-    "swinfir": "A14",
-    "maxsr": "A15",
-    **{name: "A16" for name in ("srcnn", "espcn", "vdsr", "srresnet", "edsr", "rcan", "han", "imdn")},
-}
+_NOT_PORTED = {name: "A16" for name in ("srcnn", "espcn", "vdsr", "srresnet", "edsr", "rcan", "han", "imdn")}
 _TORCH_ZIP = b"PK\x03\x04"
 
 
 def _registry() -> Dict[str, Any]:
     from studiosr_tpu_torch import models
 
-    return {"swinir": models.SwinIR, "hat": models.HAT, **{name: None for name in _NOT_PORTED}}
+    return {
+        "swinir": models.SwinIR, "hat": models.HAT, "swinfir": models.SwinFIR, "maxsr": models.MaxSR,
+        **{name: None for name in _NOT_PORTED},
+    }
 
 
 class _LazyRegistry(Mapping):
@@ -78,7 +82,7 @@ def get_model_class(name: str):
     if cls is None:
         raise NotImplementedError(
             f"model {name!r} is not ported to PyTorch yet (ROADMAP {_NOT_PORTED[name.lower()]}); "
-            "the port builds swinir and hat"
+            "the port builds swinir, hat, swinfir and maxsr"
         )
     return cls
 
@@ -86,8 +90,8 @@ def get_model_class(name: str):
 def read_checkpoint(path: str, params_only: bool = False) -> Dict[str, Any]:
     """A checkpoint file -> a torch-named state_dict of numpy arrays or
     tensors. A flax msgpack file holds the variables tree (``params`` and
-    maybe more), or with ``params_only`` (an EMA file) the params tree
-    itself; a ``torch.save`` file holds the state_dict."""
+    maybe ``batch_stats``, both kept), or with ``params_only`` (an EMA file)
+    the params tree itself; a ``torch.save`` file holds the state_dict."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:4] == _TORCH_ZIP:
@@ -95,11 +99,12 @@ def read_checkpoint(path: str, params_only: bool = False) -> Dict[str, Any]:
     tree = msgpack_restore(data)
     if not isinstance(tree, dict) or not (params_only or "params" in tree):
         raise ValueError(f"{path}: not a checkpoint of a variables tree")
-    return drop_recomputed(jax_params_to_state_dict(tree if params_only else tree["params"]))
+    return drop_recomputed(jax_params_to_state_dict(tree) if params_only else jax_variables_to_state_dict(tree))
 
 
 def _restore(module: torch.nn.Module, state: Dict[str, Any], path: str, params_only: bool) -> None:
     target = dict(module.named_parameters()) if params_only else module.state_dict()
+    target = {k: t for k, t in target.items() if k in state or not k.endswith("num_batches_tracked")}
     check_state_shapes(state, target, context=path)
     with torch.no_grad():
         for key, tensor in target.items():

@@ -6,8 +6,15 @@ params tree therefore maps onto ``module.state_dict()`` by name:
 
 * conv ``kernel`` (kH, kW, I, O) -> ``weight`` (O, I, kH, kW);
 * dense ``kernel`` (I, O) -> ``nn.Linear.weight`` (O, I);
-* LayerNorm ``scale`` -> ``weight``; ``bias`` -> ``bias``;
+* LayerNorm / BatchNorm ``scale`` -> ``weight``; ``bias`` -> ``bias``;
+* ``nn.Embed``'s ``embedding`` -> ``nn.Embedding.weight`` as it is;
+* the ``batch_stats`` collection's ``mean`` / ``var`` -> ``running_mean`` /
+  ``running_var`` (``studiosr_tpu/zoo/translate.py:152-153``);
 * other leaves (``relative_position_bias_table``) keep their names.
+
+A variables tree (``{"params": ..., "batch_stats": ...}``) maps both
+collections; a BatchNorm's ``num_batches_tracked`` is not part of the JAX
+state and keeps the module's own value.
 
 The torch-convention state_dict that the JAX package's ``export_state_dict``
 emits is accepted as well, by key name. Buffers recomputed here
@@ -24,7 +31,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-__all__ = ["load_jax_params", "jax_params_to_state_dict", "drop_recomputed"]
+__all__ = ["load_jax_params", "jax_params_to_state_dict", "jax_variables_to_state_dict", "drop_recomputed"]
 
 _DROPPED_SUFFIXES = (
     "relative_position_index",
@@ -35,7 +42,11 @@ _DROPPED_SUFFIXES = (
     "attn_mask",
 )
 _DROPPED_PREFIXES = ("sub_mean", "add_mean", "normalizer")
-_LEAF_TO_TORCH = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_LEAF_TO_TORCH = {
+    "kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias", "mean": "running_mean",
+    "var": "running_var",
+}
+_UNTRACKED = "num_batches_tracked"
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Iterator[Tuple[str, Any]]:
@@ -66,6 +77,18 @@ def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, np.ndarray]
     return state
 
 
+def jax_variables_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """A flax variables tree -> one torch-named state_dict of its ``params``
+    and, where it has them, its ``batch_stats`` (running statistics)."""
+    state = jax_params_to_state_dict(variables["params"])
+    state.update(jax_params_to_state_dict(variables.get("batch_stats", {})))
+    return state
+
+
+def _is_variables(tree: Mapping[str, Any]) -> bool:
+    return isinstance(tree.get("params"), Mapping)
+
+
 def drop_recomputed(state: Mapping[str, Any]) -> Dict[str, Any]:
     """``state`` without the buffers the port recomputes and the frozen
     MeanShift convs."""
@@ -73,14 +96,17 @@ def drop_recomputed(state: Mapping[str, Any]) -> Dict[str, Any]:
 
 
 def load_jax_params(module: nn.Module, params: Mapping[str, Any]) -> nn.Module:
-    """Fill ``module`` in place from a JAX params tree or an exported
-    torch-convention state_dict (flat mapping of arrays). Returns ``module``."""
-    if any(isinstance(v, Mapping) for v in params.values()):
+    """Fill ``module`` in place from a JAX params tree, a variables tree
+    (params and batch_stats) or an exported torch-convention state_dict
+    (flat mapping of arrays). Returns ``module``."""
+    if _is_variables(params):
+        state = jax_variables_to_state_dict(params)
+    elif any(isinstance(v, Mapping) for v in params.values()):
         state = jax_params_to_state_dict(params)
     else:
         state = dict(params)
     state = drop_recomputed(state)
-    target = module.state_dict()
+    target = {k: t for k, t in module.state_dict().items() if not k.endswith(_UNTRACKED)}
     missing = sorted(set(target) - set(state))
     unknown = sorted(set(state) - set(target))
     if missing or unknown:

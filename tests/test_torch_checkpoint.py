@@ -175,9 +175,12 @@ def test_edited_params_json_raises_naming_the_file(tmp_path, edit, match):
 
 
 def test_models_not_ported_raise_naming_their_item():
+    """The conv families raise naming A16; SwinFIR and MaxSR, which raised
+    naming A14 / A15 until they were ported, load."""
     with pytest.raises(NotImplementedError, match="A16"):
         load_model(os.path.join(FIXTURES, "ckpt"), "espcn", device="cpu")
-    with pytest.raises(NotImplementedError, match="A15"):
-        load_model(os.path.join(FIXTURES, "maxsr_ckpt"), "maxsr", device="cpu")
+    with pytest.raises(NotImplementedError, match="A16"):
+        load_model(os.path.join(FIXTURES, "srresnet_ckpt"), "srresnet", device="cpu")
+    assert type(load_model(os.path.join(FIXTURES, "maxsr_ckpt"), "maxsr", device="cpu")).__name__ == "MaxSR"
     with pytest.raises(KeyError, match="available"):
         load_model(os.path.join(FIXTURES, "swinir_ckpt"), "swinirr", device="cpu")

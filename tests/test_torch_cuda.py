@@ -499,3 +499,138 @@ def test_small_hat_fused_train_matches_plain_on_the_card(dev):
     np.testing.assert_allclose(results[1][0], results[0][0], rtol=1e-5)
     for k, g in results[0][1].items():
         assert float((results[1][1][k] - g).abs().max()) <= 1e-4 * float(g.abs().max()) + 1e-6, k
+
+
+# B14 (the SFB resblock) on odd heights and ragged maps, both activations
+# and res_scales; B15 (the window-attention core) at N 36 to 1024, with and
+# without a bias, with a mask over two images, at head dims 12 (MaxSR
+# light), 16, 32 and an odd one, on the strided q / k / v of a fused qkv
+# projection.
+RESBLOCK_CASES = [((1, 37, 53, 48), "lrelu0.2", 1.0), ((2, 13, 21, 16), "relu", 0.1),
+                  ((1, 24, 40, 180), "lrelu0.2", 1.0), ((1, 9, 8, 180), "relu", 0.1)]
+WINDOW_ATTN_CASES = [(8, 4, 36, 12, "bias", 1), (16, 4, 64, 32, "bias", 1), (4, 4, 256, 32, "none", 1),
+                     (2, 2, 1024, 16, "none", 1), (8, 2, 64, 16, "mask", 4), (6, 3, 49, 15, "mask", 3)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,activation,res_scale", RESBLOCK_CASES)
+def test_resblock_kernel_matches_plain(dev, dtype, shape, activation, res_scale):
+    from studiosr_tpu_torch.ops.cuda.conv3x3 import fused_resblock, resblock_plain
+
+    gen = torch.Generator().manual_seed(sum(shape))
+    c = shape[-1]
+    x = _randn(gen, *shape).to(dev, dtype)
+    ops = [_randn(gen, 3, 3, c, c, scale=(9 * c) ** -0.5), _randn(gen, c, scale=0.5),
+           _randn(gen, 3, 3, c, c, scale=(9 * c) ** -0.5), _randn(gen, c, scale=0.1)]
+    ops = [t.to(dev, dtype if t.dim() == 4 else torch.float32) for t in ops]
+    engagement.reset()
+    got = fused_resblock(x, *ops, res_scale=res_scale, activation=activation)
+    assert engagement.counters() == {"fused_resblock": 1}
+    want = resblock_plain(x.float(), *[t.float() for t in ops], res_scale=res_scale, activation=activation)
+    _assert_close(got, want, dtype)
+
+
+def _window_case(gen, bw, heads, n, d, dev, dtype):
+    """q, k, v as the slices of one (bw, n, 3, heads, d) projection, the
+    layout ``_Attention`` hands B15 (q scaled, so a fresh tensor)."""
+    qkv = _randn(gen, bw, n, 3, heads, d).to(dev, dtype).permute(2, 0, 3, 1, 4)
+    return qkv[0] * (2 * d**-0.5), qkv[1], qkv[2]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bw,heads,n,d,kind,nw", WINDOW_ATTN_CASES)
+def test_window_attn_core_kernel_matches_plain(dev, dtype, bw, heads, n, d, kind, nw):
+    from studiosr_tpu_torch.ops.attention import attention_plain
+    from studiosr_tpu_torch.ops.cuda.window_attn import window_attention
+
+    gen = torch.Generator().manual_seed(n + d + nw)
+    q, k, v = _window_case(gen, bw, heads, n, d, dev, dtype)
+    bias = _randn(gen, heads, n, n, scale=2.0).to(dev) if kind != "none" else None
+    mask = None
+    if kind == "mask":
+        mask = torch.where(torch.rand(nw, n, n, generator=gen) > 0.7, -100.0, 0.0).to(dev)
+    engagement.reset()
+    got = window_attention(q, k, v, bias=bias, mask=mask)
+    assert engagement.counters() == {"window_attention_pallas": 1}
+    want = attention_plain(q.float(), k.float(), v.float(), bias, mask)
+    assert got.shape == want.shape
+    _assert_close(got, want, dtype)
+    again = window_attention(q.contiguous(), k.contiguous(), v.contiguous(), bias=bias, mask=mask)
+    assert torch.equal(got, again)  # strides change no bit
+
+
+def test_window_attention_raises_and_keeps_the_oca_cap(dev):
+    """B15 takes N, M <= 1024 and raises above; B12 / B13 keep their own
+    256-query cap (the column pass's d bias tile), which B15 lifted only
+    for itself."""
+    from studiosr_tpu_torch.ops.cuda.oca_core import MAX_QUERIES, oca_core_bwd, oca_core_fwd
+    from studiosr_tpu_torch.ops.cuda.window_attn import window_attention
+
+    q = torch.zeros(1, 1, 1089, 16, device=dev)
+    with pytest.raises(NotImplementedError, match="1024"):
+        window_attention(q, q, q)
+    k = torch.zeros(1, 1, 64, 16, device=dev)
+    with pytest.raises(NotImplementedError, match="1024"):
+        window_attention(torch.zeros(1, 1, 64, 16, device=dev), q, q)
+    with pytest.raises(TypeError):
+        window_attention(k.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="tile"):
+        window_attention(torch.zeros(3, 1, 64, 16, device=dev), torch.zeros(3, 1, 64, 16, device=dev),
+                         torch.zeros(3, 1, 64, 16, device=dev), mask=torch.zeros(2, 64, 64, device=dev))
+    assert MAX_QUERIES == 256
+    big = torch.zeros(1, 2, 512, 16, device=dev)
+    with pytest.raises(NotImplementedError, match="nq"):
+        oca_core_fwd(big, big, big, torch.zeros(2, 512, 512, device=dev))
+    with pytest.raises(NotImplementedError, match="nq"):
+        oca_core_bwd(big, big, big, torch.zeros(2, 512, 512, device=dev), big)
+
+
+def test_new_wrappers_launch_on_a_cuda_tensor(dev):
+    """No plain fallback on the card: a CUDA tensor launches (and counts) or
+    raises, for B14 and B15 alike."""
+    from studiosr_tpu_torch.ops.cuda.conv3x3 import fused_resblock
+    from studiosr_tpu_torch.ops.cuda.window_attn import window_attention
+
+    x = torch.zeros(1, 8, 8, 4, device=dev)
+    w, b = torch.zeros(3, 3, 4, 4, device=dev), torch.zeros(4, device=dev)
+    engagement.reset()
+    fused_resblock(x, w, b, w, b)
+    window_attention(torch.zeros(2, 1, 8, 8, device=dev), torch.zeros(2, 1, 8, 8, device=dev),
+                     torch.zeros(2, 1, 8, 8, device=dev))
+    assert engagement.counters() == {"fused_resblock": 1, "window_attention_pallas": 1}
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_resblock(x.transpose(1, 2), w, b, w, b)
+    with pytest.raises(TypeError):
+        fused_resblock(x.half(), w.half(), b, w.half(), b)
+    with pytest.raises(ValueError, match="unknown activation"):
+        fused_resblock(x, w, b, w, b, activation="gelu")
+
+
+def test_small_swinfir_fused_matches_plain_on_the_card(dev):
+    from studiosr_tpu_torch import SwinFIR
+
+    model = SwinFIR.build(scale=4, embed_dim=24, depths=[2, 2], num_heads=[2, 2], window_size=8, device=dev)
+    images = [np.random.default_rng(i).integers(0, 256, (20, 28, 3), dtype=np.uint8) for i in range(2)]
+    plain = model.enable_fused(False).inference_batch(images)
+    engagement.reset()
+    fused = model.enable_fused(True).inference_batch(images)
+    assert engagement.counters() == {"fused_swin_block": 4, "fused_resblock": 3, "fused_upsample_x4": 1}
+    for got, want in zip(fused, plain):
+        diff = np.abs(got.astype(int) - want.astype(int))
+        assert got.shape == (80, 112, 3) and diff.max() <= 1 and (diff > 0).mean() < 0.01
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_small_maxsr_fused_matches_plain_on_the_card(dev, adaptive):
+    """Adaptive at 20 x 28: windows of 5 x 6 on the zero-padded 25 x 36
+    map (30 tokens); static: 8 x 8 windows on the reflect-padded 24 x 32."""
+    from studiosr_tpu_torch import MaxSR
+
+    model = MaxSR.build(scale=2, adaptive=adaptive, dim=32, dim_head=8, depth=[1, 1], dropout=0.0, device=dev)
+    image = np.random.default_rng(5).integers(0, 256, (20, 28, 3), dtype=np.uint8)
+    plain = model.enable_fused(False).inference(image)
+    engagement.reset()
+    fused = model.enable_fused(True).inference(image)
+    assert engagement.counters() == {"window_attention_pallas": 4}
+    diff = np.abs(fused.astype(int) - plain.astype(int))
+    assert fused.shape == (40, 56, 3) and diff.max() <= 1 and (diff > 0).mean() < 0.01

@@ -26,7 +26,7 @@ from studiosr_tpu.parallel.tiled import tiled_inference as jax_tiled_inference
 from studiosr_tpu.utils.helpers import imread as jax_imread
 from studiosr_tpu.utils.metrics import compute_psnr, compute_ssim
 from studiosr_tpu.zoo.registry import load_model as jax_load_model
-from studiosr_tpu_torch import Evaluator, Evaluator2, benchmark, load_model
+from studiosr_tpu_torch import Evaluator, Evaluator2, Trainer, benchmark, load_model
 from studiosr_tpu_torch.__main__ import main
 from studiosr_tpu_torch.parallel import tile_grid
 from studiosr_tpu_torch.utils import helpers, imread, imwrite
@@ -105,6 +105,38 @@ def test_tiled_modes_without_a_port_raise(x2_pair):
 
 
 # -- the Evaluator --------------------------------------------------------------
+
+
+@pytest.mark.parametrize("eval_on_device", [None, False, True])
+def test_trainer_eval_on_device_routes(tmp_path, x2_pair, eval_on_device):
+    """``Trainer(eval_on_device=...)``, the JAX Trainer's argument: True
+    scores through ``evaluator.run(model, on_device=True)`` (here on the
+    CPU device), False and None (a model on the CPU) on the host; the routes
+    agree to 1e-4 dB and 1e-5 SSIM."""
+    _, model = x2_pair
+    _layout(str(tmp_path / "fixture"), "evaluator2", 2)
+    ev = Evaluator2("fixture", 2, root=str(tmp_path))
+    routes = []
+    run = ev.run
+    ev.run = lambda fn, **kw: routes.append(kw.get("on_device", False)) or run(fn, **kw)
+    trainer = Trainer(model, None, evaluator=ev, ckpt_path=str(tmp_path / "run"), bfloat16=False,
+                      eval_on_device=eval_on_device)
+    psnr, ssim = trainer.evaluate()
+    assert routes == [bool(eval_on_device)]
+    host = run(model.inference)
+    assert abs(psnr - host[0]) < 1e-4 and abs(ssim - host[1]) < 1e-5
+
+
+@pytest.mark.parametrize("name", ["swinfir", "maxsr"])
+def test_registry_builds_swinfir_and_maxsr(name):
+    from studiosr_tpu.zoo.registry import get_model_class as jax_get_model_class
+    from studiosr_tpu_torch.zoo import get_model_class
+
+    cls = get_model_class(name)
+    assert cls.__name__ == jax_get_model_class(name).__name__
+    model = cls.build(scale=2, device="cpu", **(
+        dict(embed_dim=16, depths=[2], num_heads=[2]) if name == "swinfir" else dict(dim=16, dim_head=8, depth=[1])))
+    assert model(torch.zeros(1, 8, 8, 3)).shape == (1, 16, 16, 3)
 
 
 def _layout(root, kind, scale, names=("img0", "img1", "img2")):

@@ -30,6 +30,9 @@ WRAPPERS = [
     "studiosr_tpu_torch.ops.oca_vjp",
     "studiosr_tpu_torch.serving.hat_fast",
     "studiosr_tpu_torch.models.hat",
+    "studiosr_tpu_torch.models.swinfir",
+    "studiosr_tpu_torch.models.maxsr",
+    "studiosr_tpu_torch.ops.cuda.window_attn",
     "studiosr_tpu_torch.ops.attn_vjp",
     "studiosr_tpu_torch.ops.mlp_vjp",
     "studiosr_tpu_torch.engine.trainer",
@@ -65,7 +68,7 @@ def test_guard_sees_the_whole_package():
         "window_attention.py", "mlp_block.py", "mlp_bwd.py", "attn_bwd.py", "attn_vjp.py", "mlp_vjp.py",
         "trainer.py", "train_step.py", "dataset.py", "handler.py", "transforms.py", "losses.py", "helpers.py",
         "hat.py", "hat_fast.py", "ocab.py", "metrics.py", "png.py", "checkpoint.py", "registry.py", "tiled.py",
-        "evaluator.py", "__main__.py", "oca_core.py", "oca_vjp.py",
+        "evaluator.py", "__main__.py", "oca_core.py", "oca_vjp.py", "swinfir.py", "maxsr.py", "window_attn.py",
     } <= names
 
 
