@@ -47,10 +47,14 @@ Phases, in order; any failure exits non-zero before the final line:
 3. serving kernels vs plain at the main path's shapes, f32 and bf16: B1
    (shift 0 and 4), B2 (plain, extra, lrelu0.01, residual), B3;
 4. serving end to end: three seeded 256x256 uint8 requests through
-   ``inference`` (bf16, fused) with launch counts checked per forward, and
-   the fused forward against the plain port forward in f32 and bf16;
+   ``inference`` (bf16, fused) with launch counts checked per forward (and
+   every B2 launch through the bf16 kernel written for the H100, here and
+   in every served path that runs B2 or B15), and the fused forward against
+   the plain port forward in f32 and bf16;
 5. serving timing with CUDA events: the forward, each kernel, its plain
-   version, B2's library call, and each kernel's bound from its shapes;
+   version, B2's library call, and each kernel's bound from its shapes; for
+   B2 (and B15 in phase 22) kernel / library, the share of the bound and
+   ``-Xptxas -v``'s registers, static shared memory and spills;
 6. training kernels vs plain, batch 4 and the path's batch 32 of 64x64
    maps, f32 and bf16: B5 and B8 (shift 0 and 4), B6, B7, with drop-path
    scales that include a 0;
@@ -142,6 +146,7 @@ line, and last
 from __future__ import annotations
 
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -161,6 +166,7 @@ from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd, attention_bwd_pl
 from studiosr_tpu_torch.ops.attention import attention_plain
 from studiosr_tpu_torch.ops.cuda.conv3x3 import (
     cab_body_plain, conv3x3_plain, fused_cab_body, fused_conv3x3, fused_resblock, resblock_plain,
+    unpack_conv3x3_weights,
 )
 from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mlp_block_plain
 from studiosr_tpu_torch.ops.cuda.mlp_bwd import mlp_bwd, mlp_bwd_plain
@@ -308,6 +314,12 @@ KERNELS["window_attention_pallas"] = ("studiosr_tpu_torch/csrc/window_attn.cu",
 MAXSR_PER_FORWARD = {"window_attention_pallas": 32}
 # (label, windows, heads, tokens, head dim, bias, mask windows): the first two
 # are the two MaxSR modes' shapes at a 256x256 LR input.
+# The C entry of the kernel written for the H100 that every bf16 launch of
+# B2 and B15 on the served paths must go through, and each kernel's stem in
+# its build log (ptxas's registers, shared memory and spills).
+H100_ENTRIES = {"fused_conv3x3": "conv3x3_mma_bf16", "window_attention_pallas": "window_attn_flash_bf16"}
+H100_KERNELS = {"fused_conv3x3": ("conv3x3", "conv3x3_mma_kernel"),
+                "window_attention_pallas": ("window_attn", "wf_kernel")}
 WINDOW_ATTN_CASES = (
     ("adaptive", 256, 4, 256, 32, False, 0), ("static", 1024, 4, 64, 32, True, 0),
     ("mask over 2 images", 128, 4, 64, 32, True, 64), ("N 1024", 4, 4, 1024, 32, True, 0),
@@ -367,6 +379,44 @@ def kernel_check(part: str, got: torch.Tensor, want: torch.Tensor, dtype: torch.
     if not ok:
         failed.append(f"{part} {dtype}")
     return err
+
+
+def entry_failures(label: str, launches: dict) -> list:
+    """[] when every B2 and B15 launch of ``launches`` went through the bf16
+    entry of its kernel written for the H100 (``engagement.entries()`` since
+    the same reset), else the failures."""
+    entries, failed = engagement.entries(), []
+    for name, entry in H100_ENTRIES.items():
+        n = launches.get(name, 0)
+        if n:
+            log(f"{label}: {name} entries {entries.get(name)}")
+            if entries.get(name) != {entry: n}:
+                failed.append(f"{label}: {name} took {entries.get(name)}, expected all {n} launches through {entry}")
+    return failed
+
+
+def ptxas_report(name: str) -> str:
+    """Registers, static shared memory and spills (``-Xptxas -v``) of each
+    instantiation of the H100 kernel behind ``name``, from its build log."""
+    source, stem = H100_KERNELS[name]
+    parts, fn, spill = [], None, (0, 0)
+    for line in _build.build_log(source).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn and stem in fn:
+            smem = re.search(r"(\d+) bytes smem", line)
+            args = ",".join(re.findall(r"Li(\d+)E", fn))
+            parts.append(f"{stem}<{args}> {m.group(1)} registers, {smem.group(1) if smem else 0} B static smem, "
+                         f"spills {spill[0]} / {spill[1]} B")
+            fn = None
+    return "; ".join(parts)
 
 
 # -- phases --------------------------------------------------------------------
@@ -493,6 +543,9 @@ def phase_end_to_end(model: SwinIR, dev: torch.device) -> dict:
     for name, per in PER_FORWARD.items():
         if launches.get(name, 0) != per * REQUESTS:
             raise AssertionError(f"{name}: {launches.get(name, 0)} launches, expected {per} per forward")
+    failed = entry_failures("swinir serving", launches)
+    if failed:
+        raise AssertionError("; ".join(failed))
     return launches
 
 
@@ -516,7 +569,7 @@ def phase_timing(model: SwinIR, dev: torch.device, errors: dict, launches: dict)
             flops = 2 * tokens * c * (3 * c + c + 2 * hidden) + 4 * tokens * 64 * c
             moved = 2 * nbytes(x_) + nbytes(*ops[1:])
         elif name == "fused_conv3x3":
-            w, b, extra = ops[1], ops[2], ops[3]
+            w, b, extra = unpack_conv3x3_weights(ops[1], x_.shape[-1], ops[2].shape[0]), ops[2], ops[3]  # HWIO
             flops = 2 * (x_.numel() // x_.shape[-1]) * 9 * w.shape[2] * w.shape[3]
             moved = nbytes(x_, w, b, extra) + x_.numel() // x_.shape[-1] * w.shape[3] * x_.element_size()
             w_oihw, b_lib = w.permute(3, 2, 0, 1).contiguous(), b.to(x_.dtype)
@@ -540,6 +593,9 @@ def phase_timing(model: SwinIR, dev: torch.device, errors: dict, launches: dict)
         log(f"time {name} [{label}] bf16: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), "
             f"library {library_ms if library_ms is None else round(library_ms, 4)} ms, {flops / 1e9:.2f} GFLOP, "
             f"{moved / 1e6:.1f} MB")
+        if name in H100_KERNELS:
+            log(f"  {name}: kernel / library {ms / library_ms:.2f}, {100 * bms / ms:.1f} % of the bound; "
+                f"{ptxas_report(name)}")
     return rows
 
 
@@ -1018,6 +1074,7 @@ def phase_hat_end_to_end(model: HAT, dev: torch.device) -> dict:
         if launches.get(name, 0) != HAT_PER_FORWARD.get(name, 0) * REQUESTS:
             failed.append(f"{name}: {launches.get(name, 0)} launches, expected {HAT_PER_FORWARD.get(name, 0)} "
                           f"per forward")
+    failed += entry_failures("hat serving", launches)
     if failed:
         raise AssertionError("; ".join(failed))
     return launches
@@ -1361,6 +1418,7 @@ def phase_scale_serving(name: str, s: int, dev: torch.device) -> tuple:
     for k in set(launches) | set(expected):
         if launches.get(k, 0) != expected.get(k, 0) * REQUESTS:
             failed.append(f"{name} x{s} {k}: {launches.get(k, 0)} launches, expected {expected.get(k, 0)} a forward")
+    failed += entry_failures(f"{name} x{s} serving", launches)
     if failed:
         raise AssertionError("; ".join(failed))
 
@@ -1693,8 +1751,9 @@ def phase_window_attn_kernels(dev: torch.device) -> tuple:
         log(f"time window_attention [{case[0]}] bf16 ({case[1]} windows, N {case[3]}): {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), library (F.scaled_dot_product_attention"
             f"{'' if bias is None else ', bias as mask'}) {library_ms:.4f} ms, {flops / 1e9:.2f} GFLOP, "
-            f"{moved / 1e6:.1f} MB")
+            f"{moved / 1e6:.1f} MB; kernel / library {ms / library_ms:.2f}, {100 * bms / ms:.1f} % of the bound")
         del q, k, v, ops
+    log(f"  window_attention_pallas: {ptxas_report('window_attention_pallas')}")
     return timing, error
 
 
@@ -1737,6 +1796,7 @@ def phase_maxsr_serving(dev: torch.device, adaptive: bool) -> tuple:
         if launches.get(name, 0) != MAXSR_PER_FORWARD.get(name, 0) * REQUESTS:
             failed.append(f"maxsr {mode} {name}: {launches.get(name, 0)} launches, expected "
                           f"{MAXSR_PER_FORWARD.get(name, 0)} a forward")
+    failed += entry_failures(f"maxsr {mode} serving", launches)
     if failed:
         raise AssertionError("; ".join(failed))
     fwd = time_ms(lambda: model(x), iters=5)

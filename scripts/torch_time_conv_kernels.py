@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Time the kernels built on ``csrc/conv3x3.cuh`` on one NVIDIA GPU.
+"""Time the port's convolution kernels on one NVIDIA GPU.
 
     PYTHONPATH=<checkout> python3 scripts/torch_time_conv_kernels.py
 
-Times B2 (``fused_conv3x3`` with the skip map, SwinIR serving's 264 x 264 x
-180 map), B3 (``fused_upsample_x4``, 264 x 264 x 64) and B11
-(``fused_cab_body``, HAT serving's 256 x 256 x 180 map, 180 -> 60 -> 180) in
-bf16 with seeded operands, by CUDA events over 20 launches after 3 warm-up
-launches, and prints one JSON line: {"package": path, "card": nvidia-smi's
-name and power limit, "ms": {kernel: ms}}. The package is whichever
-``studiosr_tpu_torch`` is first on the path, so running it with
-``PYTHONPATH`` set to two checkouts in turn (A, B, B, A) compares them on one
-card.
+Times, in bf16 with seeded operands, by CUDA events over 20 launches after 3
+warm-up launches: B2 (``fused_conv3x3`` with the skip map, SwinIR serving's
+264 x 264 x 180 map, its weights laid out as the checkout's serving path
+lays them out: ``prepare_fused_conv3x3_weights`` where the checkout has it,
+else HWIO) and its library yardstick (cuDNN's ``F.conv2d`` + add,
+channels-last), B3 (``fused_upsample_x4``, 264 x 264 x 64), B4
+(``fused_upsample_s`` at x2 and x3, 264 x 264 x 64), B11
+(``fused_cab_body``, HAT serving's 256 x 256 x 180 map, 180 -> 60 -> 180) and
+B14 (``fused_resblock``, SwinFIR's 264 x 264 x 180 map, LeakyReLU 0.2), and
+prints one JSON line: {"package": path, "card": nvidia-smi's name and power
+limit, "ms": {kernel: ms}}. The package is whichever ``studiosr_tpu_torch``
+is first on the path, so running it with ``PYTHONPATH`` set to two checkouts
+in turn (A, B, B, A) compares them on one card.
 """
 
 from __future__ import annotations
@@ -20,11 +24,13 @@ import json
 import subprocess
 
 import torch
+import torch.nn.functional as F
 
 import studiosr_tpu_torch
 from studiosr_tpu_torch import resolve_device
-from studiosr_tpu_torch.ops.cuda.conv3x3 import fused_cab_body, fused_conv3x3
-from studiosr_tpu_torch.ops.cuda.upsampler import fused_upsample_x4
+from studiosr_tpu_torch.ops.cuda import conv3x3
+from studiosr_tpu_torch.ops.cuda.conv3x3 import fused_cab_body, fused_conv3x3, fused_resblock
+from studiosr_tpu_torch.ops.cuda.upsampler import fused_upsample_s, fused_upsample_x4
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -48,19 +54,29 @@ def main() -> None:
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).to(dev)
 
+    def conv_w(cin, cout):
+        return randn(3, 3, cin, cout, scale=(9 * cin) ** -0.5).to(bf), randn(cout, scale=0.1)
+
     x = randn(1, 264, 264, 180).to(bf)
-    w, b = randn(3, 3, 180, 180, scale=(9 * 180) ** -0.5).to(bf), randn(180, scale=0.1)
+    w, b = conv_w(180, 180)
+    w_oihw, b_lib, x_nchw = w.permute(3, 2, 0, 1).contiguous(), b.to(bf), x.permute(0, 3, 1, 2)
+    prepare = getattr(conv3x3, "prepare_fused_conv3x3_weights", conv3x3.prepare_conv3x3_weights)
+    w_b2 = prepare(w_oihw, bf)
     x64 = randn(1, 264, 264, 64).to(bf)
-    tail = [randn(3, 3, 64, 256, scale=(9 * 64) ** -0.5).to(bf), randn(256, scale=0.1),
-            randn(3, 3, 64, 256, scale=(9 * 64) ** -0.5).to(bf), randn(256, scale=0.1),
-            randn(3, 3, 64, 3, scale=(9 * 64) ** -0.5).to(bf), randn(3, scale=0.1)]
+    tail = [*conv_w(64, 256), *conv_w(64, 256), *conv_w(64, 3)]
+    tail_s = {s: [*conv_w(64, s * s * 64), *conv_w(64, 3)] for s in (2, 3)}
     h = randn(1, 256, 256, 180).to(bf)
-    cab = [1 + randn(180, scale=0.1), randn(180, scale=0.1), randn(3, 3, 180, 60, scale=(9 * 180) ** -0.5).to(bf),
-           randn(60, scale=0.1), randn(3, 3, 60, 180, scale=(9 * 60) ** -0.5).to(bf), randn(180, scale=0.1)]
+    cab = [1 + randn(180, scale=0.1), randn(180, scale=0.1), *conv_w(180, 60), *conv_w(60, 180)]
+    res = [*conv_w(180, 180), *conv_w(180, 180)]
     ms = {
-        "fused_conv3x3": time_ms(lambda: fused_conv3x3(x, w, b, extra=x)),
+        "fused_conv3x3": time_ms(lambda: fused_conv3x3(x, w_b2, b, extra=x)),
+        "fused_conv3x3 library (cuDNN conv2d + add)": time_ms(
+            lambda: F.conv2d(x_nchw, w_oihw, b_lib, padding=1).permute(0, 2, 3, 1) + x),
         "fused_upsample_x4": time_ms(lambda: fused_upsample_x4(x64, *tail)),
+        "fused_upsample_s x2": time_ms(lambda: fused_upsample_s(x64, *tail_s[2], 2)),
+        "fused_upsample_s x3": time_ms(lambda: fused_upsample_s(x64, *tail_s[3], 3)),
         "fused_cab_body": time_ms(lambda: fused_cab_body(h, *cab)),
+        "fused_resblock": time_ms(lambda: fused_resblock(x, *res, activation="lrelu0.2")),
     }
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]

@@ -4,9 +4,10 @@
     PYTHONPATH=<checkout> python3 scripts/torch_time_paths.py
 
 Times, as ``chip_smoke.py`` does (CUDA events, 2 warm-up calls, seeded
-random weights at full width): the SwinIR x4 and HAT x4 forward (bf16, batch
-1, a 256 x 256 uint8 image, fused serving) over 5 forwards, and the SwinIR
-x4 and HAT x4 train step (``make_train_step``, bf16 over f32 masters, batch
+random weights at full width): the SwinIR x4, HAT x4, SwinFIR x4 and MaxSR
+x4 (adaptive and static, the JAX package's ``build`` defaults) forward
+(bf16, batch 1, a 256 x 256 uint8 image, fused serving) over 5 forwards,
+and the SwinIR x4 and HAT x4 train step (``make_train_step``, bf16 over f32 masters, batch
 32 of 64 x 64 crops, fused_train) over 5 steps, and prints one JSON line:
 {"package": path, "card": nvidia-smi's name and power limit, "ms": {path:
 ms}}. A checkout whose HAT has no fused training path reads null there. The
@@ -24,12 +25,13 @@ import numpy as np
 import torch
 
 import studiosr_tpu_torch
-from studiosr_tpu_torch import HAT, SwinIR, resolve_device
+from studiosr_tpu_torch import HAT, MaxSR, SwinFIR, SwinIR, resolve_device
 from studiosr_tpu_torch.parallel import build_optimizer, make_train_step, prepare_state
 from studiosr_tpu_torch.utils import l1_loss
 
 WIDTHS = dict(scale=4, embed_dim=180, depths=[6] * 6, num_heads=[6] * 6, mlp_ratio=2.0, drop_path_rate=0.1)
 HAT_WIDTHS = dict(window_size=16, compress_ratio=3, squeeze_factor=30, conv_scale=0.01, overlap_ratio=0.5)
+MAXSR_WIDTHS = dict(scale=4, dim=128, dim_head=32, depth=[4] * 4, window_size=8, dropout=0.1)
 
 
 def time_ms(fn, iters: int = 5, warmup: int = 2) -> float:
@@ -48,6 +50,10 @@ def time_ms(fn, iters: int = 5, warmup: int = 2) -> float:
 def build(name: str, dev: torch.device, **kw):
     if name == "swinir":
         return SwinIR.build(**WIDTHS, window_size=8, seed=0, device=dev, **kw)
+    if name == "swinfir":
+        return SwinFIR.build(**WIDTHS, window_size=8, seed=0, device=dev, **kw)
+    if name.startswith("maxsr"):
+        return MaxSR.build(**MAXSR_WIDTHS, adaptive=name.endswith("adaptive"), seed=0, device=dev, **kw)
     return HAT.build(**WIDTHS, **HAT_WIDTHS, seed=0, device=dev, **kw)
 
 
@@ -83,6 +89,9 @@ def main() -> None:
         ms[f"{name} forward"] = forward_ms(name, dev)
         torch.cuda.empty_cache()
         ms[f"{name} train step"] = step_ms(name, dev)
+        torch.cuda.empty_cache()
+    for name in ("swinfir", "maxsr adaptive", "maxsr static"):
+        ms[f"{name} forward"] = forward_ms(name, dev)
         torch.cuda.empty_cache()
     print(json.dumps({"package": str(studiosr_tpu_torch.__file__), "card": card, "ms": ms}))
 

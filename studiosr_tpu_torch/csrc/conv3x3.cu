@@ -1,19 +1,33 @@
 // B2: fused 3x3 convolution, y = act(conv3x3(x) + b) [+ x] [+ extra].
 //
-// Replaces studiosr_tpu/ops/pallas/conv3x3.py::fused_conv3x3. The kernel
-// itself, its bound and its design are in conv3x3.cuh. The Pallas kernel's
-// 128-lane tap stacking and row-band halo operands were Mosaic layout
-// workarounds; here the halo is part of the staged patch.
+// Replaces studiosr_tpu/ops/pallas/conv3x3.py::fused_conv3x3 (:212). bf16
+// runs conv3x3_mma.cuh's kernel (its bound and design are there); f32, the
+// checks' dtype, runs conv3x3.cuh's FMA kernel. The Pallas kernel's 128-lane
+// tap stacking and row-band halo operands were Mosaic layout workarounds;
+// here the halo is part of the staged patch.
 #include "conv3x3.cuh"
+#include "conv3x3_mma.cuh"
 
-#define CONV3X3_ENTRY(NAME, T)                                                                         \
-  extern "C" int NAME(const void* x, const void* w, const void* bias, const void* extra, void* out,    \
-                      int B, int H, int W, int Cin, int Cout, int act, float slope, int residual,      \
-                      void* stream) {                                                                  \
-    return (int)launch_conv3x3<T>((const T*)x, (const T*)w, (const float*)bias, (const T*)extra,       \
-                                  (T*)out, B, H, W, Cin, Cout, act, slope, residual, 0,                \
-                                  (cudaStream_t)stream);                                               \
-  }
+extern "C" int conv3x3_f32(const void* x, const void* w, const void* bias, const void* extra, void* out, int B, int H,
+                           int W, int Cin, int Cout, int act, float slope, int residual, void* stream) {
+  return (int)launch_conv3x3<float>((const float*)x, (const float*)w, (const float*)bias, (const float*)extra,
+                                    (float*)out, B, H, W, Cin, Cout, act, slope, residual, 0, (cudaStream_t)stream);
+}
 
-CONV3X3_ENTRY(conv3x3_f32, float)
-CONV3X3_ENTRY(conv3x3_bf16, __nv_bfloat16)
+// w: the packed weights of ops/cuda/conv3x3.py pack_conv3x3_weights.
+extern "C" int conv3x3_mma_bf16(const void* x, const void* w, const void* bias, const void* extra, void* out, int B,
+                                int H, int W, int Cin, int Cout, int act, float slope, int residual, void* stream) {
+  if (B < 1 || H < 1 || W < 1 || Cin < 1 || Cout < 1 || (residual && Cin != Cout)) return (int)cudaErrorInvalidValue;
+  CmArgs a;
+  a.x = (const __nv_bfloat16*)x;
+  a.w = (const __nv_bfloat16*)w;
+  a.bias = (const float*)bias;
+  a.extra = (const __nv_bfloat16*)extra;
+  a.out = (__nv_bfloat16*)out;
+  a.B = B, a.H = H, a.W = W, a.Cin = Cin, a.Cout = Cout, a.act = act, a.slope = slope, a.residual = residual;
+  if ((uintptr_t)w % 16) return (int)cudaErrorMisalignedAddress;  // packed stages are copied in 16-byte pieces
+  const long long cin = Cin;
+  a.xw = hm_copy_width(x, Cin, &cin, 1);
+  a.pairs = Cout % 2 == 0 && (uintptr_t)out % 4 == 0 && (uintptr_t)x % 4 == 0 && (uintptr_t)extra % 4 == 0;
+  return (int)launch_conv3x3_mma(a, (cudaStream_t)stream);
+}

@@ -54,8 +54,9 @@ def stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def finish(name: str, status: int) -> None:
-    """Count the launch of ``name`` and raise if its status is not 0."""
-    engagement.launched(name)
+def finish(name: str, status: int, entry: Optional[str] = None) -> None:
+    """Count the launch of ``name`` (through C function ``entry``, when
+    named) and raise if its status is not 0."""
+    engagement.launched(name, entry)
     if status != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {status}")

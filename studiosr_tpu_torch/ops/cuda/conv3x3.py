@@ -5,7 +5,14 @@ y = act(conv3x3(x) + b) [+ x] [+ extra] on NHWC maps with zero SAME padding
 and f32 accumulation, in one pass over the map. ``activation`` is None,
 ``"relu"`` or ``"lrelu{slope}"`` (slope 0.01 when omitted). Any Cout.
 
-Weights are HWIO (3, 3, Cin, Cout) in the map's dtype; the bias is f32.
+Weights are HWIO (3, 3, Cin, Cout) in the map's dtype, or in bf16 the
+packed layout of :func:`pack_conv3x3_weights` (what serving prepares once at
+load time, :func:`prepare_fused_conv3x3_weights`); the bias is f32. bf16
+launches the kernel written for the H100 (``csrc/conv3x3_mma.cuh``, C entry
+``conv3x3_mma_bf16``), which reads packed weights (HWIO weights are packed
+first, on every call); f32 the FMA kernel of ``csrc/conv3x3.cuh``
+(``conv3x3_f32``) on HWIO weights. ``engagement.entries()`` tells the two
+apart.
 
 Also B11, ``fused_cab_body`` (CUDA kernels ``csrc/cab_body.cu``): HAT's CAB
 trunk y2 = conv2(gelu(conv1(LN x))) with the per-image f32 channel sums of
@@ -26,17 +33,24 @@ from studiosr_tpu_torch.ops.cuda import _build
 from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, F as CF, check, finish, stream
 
 __all__ = [
-    "fused_conv3x3", "conv3x3_plain", "prepare_conv3x3_weights", "parse_activation", "fused_cab_body",
-    "cab_body_plain", "fused_resblock", "resblock_plain",
+    "fused_conv3x3", "conv3x3_plain", "prepare_conv3x3_weights", "pack_conv3x3_weights", "unpack_conv3x3_weights",
+    "prepare_fused_conv3x3_weights", "parse_activation", "fused_cab_body", "cab_body_plain", "fused_resblock",
+    "resblock_plain",
 ]
 
 _ARGS = (P, P, P, P, P, I, I, I, I, I, I, CF, I, P)
-_SIGNATURES = {"conv3x3_f32": _ARGS, "conv3x3_bf16": _ARGS}
+_SIGNATURES = {"conv3x3_f32": _ARGS, "conv3x3_mma_bf16": _ARGS}
 _CAB_ARGS = (P,) * 12 + (I,) * 5 + (P,)
 _CAB_SIGNATURES = {"cab_body_f32": _CAB_ARGS, "cab_body_bf16": _CAB_ARGS, "cab_body_partials": (I, I, I)}
 _RES_ARGS = (P,) * 7 + (I,) * 5 + (CF, CF, P)
 _RES_SIGNATURES = {"resblock_f32": _RES_ARGS, "resblock_bf16": _RES_ARGS}
 _ACT_CODES = {None: 0, "relu": 1, "lrelu": 2}  # shared with csrc/conv3x3.cuh
+_MMA_KC, _MMA_BLOCK = 16, 192  # csrc/conv3x3_mma.cuh: input channels a stage, output channels a block
+
+
+def packed_conv3x3_shape(cin: int, cout: int) -> Tuple[int, ...]:
+    """(Cout blocks of 192, Cin stages of 16, 9 taps, 16 channels, 200)."""
+    return (-(-cout // _MMA_BLOCK), -(-cin // _MMA_KC), 9, _MMA_KC, _MMA_BLOCK + 8)
 
 
 def parse_activation(kind: Optional[str]) -> Tuple[Optional[str], float]:
@@ -53,8 +67,45 @@ def prepare_conv3x3_weights(weight: torch.Tensor, dtype: torch.dtype) -> torch.T
     return weight.detach().permute(2, 3, 1, 0).to(dtype).contiguous()
 
 
+def pack_conv3x3_weights(w: torch.Tensor) -> torch.Tensor:
+    """HWIO (3, 3, Cin, Cout) -> B2's packed bf16 weights: for each block of
+    output channels and each stage of 16 input channels, the (9, 16, width +
+    8) image of the kernel's shared-memory stage, zero past Cin and Cout, so
+    the kernel copies whole 16-byte pieces."""
+    _, _, cin, cout = w.shape
+    nblk, nst, _, kc, wl = packed_conv3x3_shape(cin, cout)
+    n = wl - 8
+    taps = F.pad(w.detach().to(torch.bfloat16).reshape(9, cin, cout), (0, nblk * n - cout, 0, nst * kc - cin))
+    packed = torch.zeros(nblk, nst, 9, kc, wl, dtype=torch.bfloat16, device=w.device)
+    packed[..., :n] = taps.reshape(9, nst, kc, nblk, n).permute(3, 1, 0, 2, 4)
+    return packed
+
+
+def unpack_conv3x3_weights(packed: torch.Tensor, cin: int, cout: int) -> torch.Tensor:
+    """Inverse of :func:`pack_conv3x3_weights`: HWIO (3, 3, Cin, Cout)."""
+    nblk, nst, _, kc, wl = packed_conv3x3_shape(cin, cout)
+    if tuple(packed.shape) != (nblk, nst, 9, kc, wl):
+        raise ValueError(f"packed weights {tuple(packed.shape)} do not fit Cin {cin}, Cout {cout}")
+    taps = packed[..., : wl - 8].permute(2, 1, 3, 0, 4).reshape(9, nst * kc, nblk * (wl - 8))
+    return taps[:, :cin, :cout].reshape(3, 3, cin, cout)
+
+
+def prepare_fused_conv3x3_weights(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """torch OIHW 3x3 conv weight -> B2's weight operand, laid out once at
+    load time: packed for bf16 (the kernel's own layout), HWIO otherwise.
+    B3, B4, B11 and B14 take :func:`prepare_conv3x3_weights`."""
+    hwio = prepare_conv3x3_weights(weight, dtype)
+    return pack_conv3x3_weights(hwio) if dtype == torch.bfloat16 else hwio
+
+
+def _hwio(w: torch.Tensor, cin: int, cout: int) -> torch.Tensor:
+    return unpack_conv3x3_weights(w, cin, cout) if w.dim() == 5 else w
+
+
 def conv3x3_plain(x, w, b, activation: Optional[str] = None, residual: bool = False, extra=None):
-    """Plain PyTorch version, computed in f32 and returned in ``x.dtype``."""
+    """Plain PyTorch version, computed in f32 and returned in ``x.dtype``;
+    ``w`` HWIO or packed."""
+    w = _hwio(w, x.shape[-1], b.shape[0])
     xf = x.float()
     y = F.conv2d(xf.permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1), b.float(), padding=1).permute(0, 2, 3, 1)
     kind, slope = parse_activation(activation)
@@ -70,27 +121,35 @@ def conv3x3_plain(x, w, b, activation: Optional[str] = None, residual: bool = Fa
 
 
 def fused_conv3x3(x, w, b, activation: Optional[str] = None, residual: bool = False, extra=None):
-    """(B, H, W, Cin) -> (B, H, W, Cout). CPU tensors take the plain version;
-    CUDA tensors launch the kernel or raise."""
+    """(B, H, W, Cin) -> (B, H, W, Cout); ``w`` HWIO, or packed in bf16. CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
     if x.device.type == "cpu":
         return conv3x3_plain(x, w, b, activation, residual, extra)
     if x.dtype not in KERNEL_DTYPES:
         raise TypeError(f"fused_conv3x3: unsupported dtype {x.dtype}")
     bsz, h, wd, cin = x.shape
-    cout = w.shape[-1]
+    cout = b.shape[0]
     if residual and cin != cout:
         raise ValueError(f"fused_conv3x3: residual needs Cin == Cout, got {cin} and {cout}")
     kind, slope = parse_activation(activation)
     dev = x.device
     px = check(x, "x", (bsz, h, wd, cin), x.dtype, dev)
-    pw = check(w, "w", (3, 3, cin, cout), x.dtype, dev)
+    if x.dtype == torch.bfloat16:
+        if w.dim() == 4:
+            check(w, "w", (3, 3, cin, cout), x.dtype, dev)
+            w = pack_conv3x3_weights(w)
+        pw = check(w, "w", packed_conv3x3_shape(cin, cout), x.dtype, dev)
+    else:
+        pw = check(w, "w", (3, 3, cin, cout), x.dtype, dev)
     pb = check(b, "b", (cout,), torch.float32, dev)
     pe = None if extra is None else check(extra, "extra", (bsz, h, wd, cout), x.dtype, dev)
     out = torch.empty((bsz, h, wd, cout), dtype=x.dtype, device=dev)
     lib = _build.load("conv3x3", _SIGNATURES)
-    fn = lib.conv3x3_bf16 if x.dtype == torch.bfloat16 else lib.conv3x3_f32
-    status = fn(px, pw, pb, pe, out.data_ptr(), bsz, h, wd, cin, cout, _ACT_CODES[kind], slope, int(residual), stream(dev))
-    finish("fused_conv3x3", status)
+    entry = "conv3x3_mma_bf16" if x.dtype == torch.bfloat16 else "conv3x3_f32"
+    status = getattr(lib, entry)(px, pw, pb, pe, out.data_ptr(), bsz, h, wd, cin, cout, _ACT_CODES[kind], slope,
+                                 int(residual), stream(dev))
+    finish("fused_conv3x3", status, entry)
     return out
 
 

@@ -12,11 +12,13 @@ so there is no fallback to count. What remains:
   ``fused_mlp_block`` (``_extra`` with the CAB join), ``mlp_bwd``,
   ``attention_bwd`` (``_ws16`` at window 16), ``fused_cab_body``,
   ``fused_ocab_block``, ``oca_core_fwd``, ``oca_core_bwd``,
-  ``fused_resblock`` (B14), ``window_attention_pallas`` (B15);
+  ``fused_resblock`` (B14), ``window_attention_pallas`` (B15); where a
+  wrapper names the C entry it called (B2, B15: one for f32, one for
+  bf16), ``entries()`` counts the launches of each;
 * ``structural_tail_decline(scale)`` — the by-design decline of a
   configuration that has no kernel at all (scale 8's log2-ladder tail),
   recorded and warned about so it is never silent;
-* ``counters()`` / ``declines()`` / ``reset()``.
+* ``counters()`` / ``entries()`` / ``declines()`` / ``reset()``.
 """
 
 from __future__ import annotations
@@ -24,14 +26,17 @@ from __future__ import annotations
 import collections
 import warnings
 
-__all__ = ["launched", "structural_tail_decline", "counters", "declines", "reset"]
+__all__ = ["launched", "structural_tail_decline", "counters", "entries", "declines", "reset"]
 
 _launches: collections.Counter = collections.Counter()
+_entries: collections.Counter = collections.Counter()
 _declines: dict = {}
 
 
-def launched(name: str) -> None:
+def launched(name: str, entry: str = None) -> None:
     _launches[name] += 1
+    if entry is not None:
+        _entries[(name, entry)] += 1
 
 
 def structural_tail_decline(scale: int) -> None:
@@ -48,6 +53,15 @@ def counters() -> dict:
     return dict(_launches)
 
 
+def entries() -> dict:
+    """{kernel name: {C entry: launches}} since the last reset, for the
+    wrappers that name their entry."""
+    out: dict = {}
+    for (name, entry), n in _entries.items():
+        out.setdefault(name, {})[entry] = n
+    return out
+
+
 def declines() -> dict:
     """{name: {"count": n, "reason": last reason}} of structural declines."""
     return {k: dict(v) for k, v in _declines.items()}
@@ -55,4 +69,5 @@ def declines() -> dict:
 
 def reset() -> None:
     _launches.clear()
+    _entries.clear()
     _declines.clear()

@@ -18,6 +18,12 @@ without a copy); bias and mask are handed to the kernel in f32. The output
 comes back as a transposed view of a (B', N, heads, d) tensor, the layout
 the output projection reads. The kernel takes N, M <= 1024 (as the JAX
 wrapper) and d <= 64; other shapes raise ``NotImplementedError``.
+
+bf16 launches the kernel written for the H100 (C entry
+``window_attn_flash_bf16``), every shape; f32, the checks' dtype, the
+shared-memory row pass of ``csrc/attn_core.cuh`` (``window_attn_f32``).
+Both count under ``window_attention_pallas``; ``engagement.entries()``
+tells them apart.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ __all__ = ["window_attention", "MAX_TOKENS"]
 MAX_TOKENS = 1024  # csrc/window_attn.cu WA_MAX_TOKENS
 _LL = ctypes.c_longlong
 _ARGS = (P, P, P, P, P, P, ctypes.POINTER(_LL), _LL, I, I, I, I, I, P)
-_SIGNATURES = {"window_attn_f32": _ARGS, "window_attn_bf16": _ARGS}
+_SIGNATURES = {"window_attn_f32": _ARGS, "window_attn_flash_bf16": _ARGS}
 
 
 def _rows(t):
@@ -78,8 +84,8 @@ def window_attention(q, k, v, bias=None, mask=None):
     flat = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     strides = (_LL * len(flat))(*flat)
     lib = _build.load("window_attn", _SIGNATURES)
-    fn = lib.window_attn_bf16 if q.dtype == torch.bfloat16 else lib.window_attn_f32
-    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None if b32 is None else b32.data_ptr(),
+    entry = "window_attn_flash_bf16" if q.dtype == torch.bfloat16 else "window_attn_f32"
+    status = getattr(lib, entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(), None if b32 is None else b32.data_ptr(),
                 None if m32 is None else m32.data_ptr(), out.data_ptr(), strides, bw, heads, n, m, d, nw, stream(dev))
-    finish("window_attention_pallas", status)
+    finish("window_attention_pallas", status, entry)
     return out

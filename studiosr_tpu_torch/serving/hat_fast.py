@@ -43,7 +43,9 @@ from studiosr_tpu_torch.ops.windows import (
     relative_position_index,
     relative_position_index_oca,
 )
-from studiosr_tpu_torch.serving.swinir_fast import _conv_operands, _dense, _f32, _layernorm, fused_tail, tail_operands
+from studiosr_tpu_torch.serving.swinir_fast import (
+    _b2_operands, _conv_operands, _dense, _f32, _layernorm, fused_tail, tail_operands,
+)
 
 __all__ = ["hat_fast_forward", "prepare_hat_serving"]
 
@@ -54,9 +56,9 @@ def _ln(norm: nn.LayerNorm, prefix: str = "ln") -> Dict[str, torch.Tensor]:
 
 def prepare_hat_serving(module: nn.Module, config: Dict[str, Any], dtype) -> Dict[str, Any]:
     """Lay every kernel's weights out once, at load time: dense weights to
-    (in, out) and conv weights to HWIO in ``dtype``, the rel-pos biases
-    gathered to (heads, 256, 256) and (heads, 256, 576), LayerNorm weights
-    and biases f32. Consumed by :func:`hat_fast_forward`."""
+    (in, out) and conv weights to HWIO in ``dtype`` (B2's packed in bf16),
+    the rel-pos biases gathered to (heads, 256, 256) and (heads, 256, 576),
+    LayerNorm weights and biases f32. Consumed by :func:`hat_fast_forward`."""
     ws = int(config["window_size"])
     overlap = float(config.get("overlap_ratio", 0.5))
     rpi, rpi_oca = relative_position_index(ws), relative_position_index_oca(ws, overlap)
@@ -85,8 +87,8 @@ def prepare_hat_serving(module: nn.Module, config: Dict[str, Any], dtype) -> Dic
             **_ln(oa.norm2, "ln2"), w1=_dense(oa.mlp.fc1, dtype), b1=_f32(oa.mlp.fc1.bias),
             w2=_dense(oa.mlp.fc2, dtype), b2=_f32(oa.mlp.fc2.bias),
         ))
-        prep["convs"].append(_conv_operands(layer.conv, dtype))
-    prep["after_body"] = _conv_operands(module.conv_after_body, dtype)
+        prep["convs"].append(_b2_operands(layer.conv, dtype))
+    prep["after_body"] = _b2_operands(module.conv_after_body, dtype)
     prep["tail"] = tail_operands(module, int(config["scale"]), dtype)
     return prep
 

@@ -28,7 +28,9 @@ import torch.nn.functional as F
 
 from studiosr_tpu_torch.models.blocks import DEFAULT_RGB_MEAN
 from studiosr_tpu_torch.ops.cuda import engagement
-from studiosr_tpu_torch.ops.cuda.conv3x3 import fused_conv3x3, fused_resblock, prepare_conv3x3_weights
+from studiosr_tpu_torch.ops.cuda.conv3x3 import (
+    fused_conv3x3, fused_resblock, prepare_conv3x3_weights, prepare_fused_conv3x3_weights,
+)
 from studiosr_tpu_torch.ops.cuda.swin_block import fused_swin_block
 from studiosr_tpu_torch.ops.cuda.upsampler import SCALES_S, fused_upsample_s, fused_upsample_x4
 from studiosr_tpu_torch.ops.pixel_shuffle import pixel_shuffle
@@ -50,11 +52,16 @@ def _conv_operands(conv: nn.Conv2d, dtype):
     return prepare_conv3x3_weights(conv.weight, dtype), _f32(conv.bias)
 
 
+def _b2_operands(conv: nn.Conv2d, dtype):
+    """B2's operands: in bf16 the weights packed in the kernel's layout."""
+    return prepare_fused_conv3x3_weights(conv.weight, dtype), _f32(conv.bias)
+
+
 def _residual_operands(block: nn.Module, dtype):
-    """A 3x3 conv's operands, or an SFB's spatial-branch pair
+    """A 3x3 conv's operands for B2, or an SFB's spatial-branch pair
     ``{"s0", "b0", "s2", "b2"}`` for B14."""
     if isinstance(block, nn.Conv2d):
-        return _conv_operands(block, dtype)
+        return _b2_operands(block, dtype)
     (s0, b0), (s2, b2) = (_conv_operands(block.S.body._modules[k], dtype) for k in ("0", "2"))
     return {"s0": s0, "b0": b0, "s2": s2, "b2": b2}
 
@@ -72,8 +79,9 @@ def _residual_conv(block: nn.Module, x: torch.Tensor, operands, extra: torch.Ten
 def prepare_serving(module: nn.Module, config: Dict[str, Any], dtype) -> Dict[str, Any]:
     """Lay every kernel's weights out once, at load time.
 
-    Dense weights go to (in, out) and conv weights to HWIO in ``dtype`` (an
-    SFB's two spatial-branch convs as a ``{s0, b0, s2, b2}`` pair); the
+    Dense weights go to (in, out) and conv weights to HWIO in ``dtype`` (B2's
+    packed in bf16; an SFB's two spatial-branch convs as a ``{s0, b0, s2,
+    b2}`` pair); the
     rel-pos bias is gathered to (heads, N, N); LayerNorm weights and biases
     become f32. Consumed by :func:`swinir_fast_forward`."""
     ws = int(config["window_size"])
@@ -101,7 +109,7 @@ def prepare_serving(module: nn.Module, config: Dict[str, Any], dtype) -> Dict[st
     if config.get("upsampler", "pixelshuffle") == "pixelshuffle":
         prep["tail"] = tail_operands(module, int(config["scale"]), dtype)
     else:
-        prep["up_direct"] = _conv_operands(module.upsample._modules["0"], dtype)
+        prep["up_direct"] = _b2_operands(module.upsample._modules["0"], dtype)
     return prep
 
 

@@ -18,7 +18,9 @@ import torch
 from studiosr_tpu_torch import HAT, SwinIR, resolve_device
 from studiosr_tpu_torch.ops.cuda import engagement
 from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd, attention_bwd_plain
-from studiosr_tpu_torch.ops.cuda.conv3x3 import cab_body_plain, conv3x3_plain, fused_cab_body, fused_conv3x3
+from studiosr_tpu_torch.ops.cuda.conv3x3 import (
+    cab_body_plain, conv3x3_plain, fused_cab_body, fused_conv3x3, pack_conv3x3_weights,
+)
 from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mlp_block_plain
 from studiosr_tpu_torch.ops.cuda.mlp_bwd import mlp_bwd, mlp_bwd_plain
 from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block, ocab_plain, overlap_window
@@ -78,26 +80,44 @@ def test_swin_block_kernel_matches_plain(dev, dtype, c, heads, shape, shift):
     _assert_close(got, want, dtype)
 
 
+# B2 (bf16: ``csrc/conv3x3_mma.cuh``, f32: ``conv3x3.cuh``): Cin 180, 20 (a
+# partial 16-channel stage) and 3; Cout 3, 12, 48, 70, 180 and 200 (two
+# blocks of 192); maps that are not tile multiples, odd widths; each
+# activation with the residual and the extra map; ``offset`` 1 starts x and
+# extra one element into their storage, so no pixel row is 4-byte aligned.
+CONV_CASES = [
+    (8, 12, None, False, False, (2, 13, 21), 0), (20, 70, "relu", False, True, (2, 13, 21), 0),
+    (12, 12, "lrelu0.2", True, True, (2, 13, 21), 0), (64, 3, None, False, False, (2, 13, 21), 0),
+    (180, 180, "lrelu", False, True, (2, 13, 21), 0), (180, 180, None, True, True, (1, 19, 37), 0),
+    (180, 180, "relu", True, True, (2, 9, 21), 0), (180, 180, "lrelu0.2", True, True, (1, 17, 33), 0),
+    (20, 20, "lrelu", True, True, (2, 13, 21), 0), (20, 48, "relu", False, True, (1, 11, 19), 0),
+    (180, 3, None, False, False, (1, 13, 27), 0), (180, 70, "lrelu0.1", False, True, (2, 9, 15), 0),
+    (20, 180, None, False, True, (1, 8, 17), 0), (32, 200, "relu", False, True, (1, 9, 19), 0),
+    (3, 180, None, False, False, (1, 10, 13), 0), (180, 180, "relu", True, True, (1, 7, 25), 1),
+]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize(
-    "cin,cout,activation,residual,with_extra",
-    [
-        (8, 12, None, False, False),
-        (20, 70, "relu", False, True),
-        (12, 12, "lrelu0.2", True, True),
-        (64, 3, None, False, False),
-        (180, 180, "lrelu", False, True),
-    ],
-)
-def test_conv3x3_kernel_matches_plain(dev, dtype, cin, cout, activation, residual, with_extra):
-    gen = torch.Generator().manual_seed(cin * cout)
-    x = _randn(gen, 2, 13, 21, cin).to(dev, dtype)
+@pytest.mark.parametrize("cin,cout,activation,residual,with_extra,shape,offset", CONV_CASES)
+def test_conv3x3_kernel_matches_plain(dev, dtype, cin, cout, activation, residual, with_extra, shape, offset):
+    gen = torch.Generator().manual_seed(cin * cout + shape[2])
+
+    def mapped(c):
+        flat = _randn(gen, offset + shape[0] * shape[1] * shape[2] * c).to(dev, dtype)
+        return flat[offset:].view(*shape, c)
+
+    x = mapped(cin)
     w = _randn(gen, 3, 3, cin, cout, scale=(9 * cin) ** -0.5).to(dev, dtype)
     b = _randn(gen, cout, scale=0.1).to(dev)
-    extra = _randn(gen, 2, 13, 21, cout).to(dev, dtype) if with_extra else None
+    extra = mapped(cout) if with_extra else None
+    engagement.reset()
     got = fused_conv3x3(x, w, b, activation, residual, extra)
+    entry = "conv3x3_mma_bf16" if dtype == torch.bfloat16 else "conv3x3_f32"
+    assert engagement.entries() == {"fused_conv3x3": {entry: 1}}
     want = conv3x3_plain(x.float(), w.float(), b, activation, residual, None if extra is None else extra.float())
     _assert_close(got, want, dtype)
+    if dtype == torch.bfloat16:  # the serving layout: packed once, the same bits
+        assert torch.equal(fused_conv3x3(x, pack_conv3x3_weights(w), b, activation, residual, extra), got)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -502,14 +522,24 @@ def test_small_hat_fused_train_matches_plain_on_the_card(dev):
 
 
 # B14 (the SFB resblock) on odd heights and ragged maps, both activations
-# and res_scales; B15 (the window-attention core) at N 36 to 1024, with and
-# without a bias, with a mask over two images, at head dims 12 (MaxSR
-# light), 16, 32 and an odd one, on the strided q / k / v of a fused qkv
-# projection.
+# and res_scales; B15 (the window-attention core; bf16: ``wf_kernel``, f32:
+# ``attn_core.cuh``'s row pass) at N and M from 36 to 1024, N != M (one unit
+# resident or, at M 1024 and d 64, the ring of key chunks), with and without
+# a bias, a mask over two images, both (in shared memory or read per score),
+# at head dims 12 (MaxSR light), 15, 16, 24, 32, 48 and 64, on the strided q
+# / k / v of a fused qkv projection, starting ``offset`` elements into their
+# storage (1, 2, 4: no 16-, 8- or 4-byte alignment), with more windows than
+# the persistent grid has blocks.
 RESBLOCK_CASES = [((1, 37, 53, 48), "lrelu0.2", 1.0), ((2, 13, 21, 16), "relu", 0.1),
                   ((1, 24, 40, 180), "lrelu0.2", 1.0), ((1, 9, 8, 180), "relu", 0.1)]
-WINDOW_ATTN_CASES = [(8, 4, 36, 12, "bias", 1), (16, 4, 64, 32, "bias", 1), (4, 4, 256, 32, "none", 1),
-                     (2, 2, 1024, 16, "none", 1), (8, 2, 64, 16, "mask", 4), (6, 3, 49, 15, "mask", 3)]
+WINDOW_ATTN_CASES = [
+    (8, 4, 36, 36, 12, "bias", 1, 0), (16, 4, 64, 64, 32, "bias", 1, 0), (4, 4, 256, 256, 32, "none", 1, 0),
+    (2, 2, 1024, 1024, 16, "none", 1, 0), (8, 2, 64, 64, 16, "mask", 4, 0), (6, 3, 49, 49, 15, "mask", 3, 0),
+    (6, 4, 36, 64, 12, "bias", 1, 0), (4, 2, 64, 36, 16, "mask", 2, 0), (4, 4, 256, 100, 32, "both", 2, 0),
+    (1, 2, 1024, 300, 32, "none", 1, 0), (2, 1, 100, 1024, 16, "bias", 1, 0), (2, 2, 64, 1024, 64, "none", 1, 0),
+    (3, 2, 49, 49, 32, "both", 3, 1), (3, 2, 64, 80, 32, "bias", 1, 2), (2, 3, 40, 72, 24, "none", 1, 4),
+    (2048, 2, 64, 64, 32, "bias", 1, 0), (600, 1, 256, 256, 32, "none", 1, 0), (8, 2, 36, 36, 48, "mask", 4, 0),
+]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -530,33 +560,39 @@ def test_resblock_kernel_matches_plain(dev, dtype, shape, activation, res_scale)
     _assert_close(got, want, dtype)
 
 
-def _window_case(gen, bw, heads, n, d, dev, dtype):
-    """q, k, v as the slices of one (bw, n, 3, heads, d) projection, the
-    layout ``_Attention`` hands B15 (q scaled, so a fresh tensor)."""
-    qkv = _randn(gen, bw, n, 3, heads, d).to(dev, dtype).permute(2, 0, 3, 1, 4)
-    return qkv[0] * (2 * d**-0.5), qkv[1], qkv[2]
+def _window_case(gen, bw, heads, n, m, d, offset, dev, dtype):
+    """q (bw, heads, n, d) and k, v (bw, heads, m, d): the slices of one
+    (bw, max(n, m), 3, heads, d) projection that starts ``offset`` elements
+    into its storage, the layout ``_Attention`` hands B15 (unscaled: the
+    scores get unit variance from the values' scale)."""
+    tok = max(n, m)
+    flat = _randn(gen, offset + bw * tok * 3 * heads * d, scale=d**-0.25).to(dev, dtype)
+    qkv = flat[offset:].view(bw, tok, 3, heads, d).permute(2, 0, 3, 1, 4)
+    return qkv[0][:, :, :n], qkv[1][:, :, :m], qkv[2][:, :, :m]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("bw,heads,n,d,kind,nw", WINDOW_ATTN_CASES)
-def test_window_attn_core_kernel_matches_plain(dev, dtype, bw, heads, n, d, kind, nw):
+@pytest.mark.parametrize("bw,heads,n,m,d,kind,nw,offset", WINDOW_ATTN_CASES)
+def test_window_attn_core_kernel_matches_plain(dev, dtype, bw, heads, n, m, d, kind, nw, offset):
     from studiosr_tpu_torch.ops.attention import attention_plain
     from studiosr_tpu_torch.ops.cuda.window_attn import window_attention
 
-    gen = torch.Generator().manual_seed(n + d + nw)
-    q, k, v = _window_case(gen, bw, heads, n, d, dev, dtype)
-    bias = _randn(gen, heads, n, n, scale=2.0).to(dev) if kind != "none" else None
+    gen = torch.Generator().manual_seed(bw + n + m + d + nw + offset)
+    q, k, v = _window_case(gen, bw, heads, n, m, d, offset, dev, dtype)
+    bias = _randn(gen, heads, n, m, scale=2.0).to(dev) if kind in ("bias", "both") else None
     mask = None
-    if kind == "mask":
-        mask = torch.where(torch.rand(nw, n, n, generator=gen) > 0.7, -100.0, 0.0).to(dev)
+    if kind in ("mask", "both"):
+        mask = torch.where(torch.rand(nw, n, m, generator=gen) > 0.7, -100.0, 0.0).to(dev)
     engagement.reset()
     got = window_attention(q, k, v, bias=bias, mask=mask)
+    entry = "window_attn_flash_bf16" if dtype == torch.bfloat16 else "window_attn_f32"
     assert engagement.counters() == {"window_attention_pallas": 1}
+    assert engagement.entries() == {"window_attention_pallas": {entry: 1}}
     want = attention_plain(q.float(), k.float(), v.float(), bias, mask)
-    assert got.shape == want.shape
+    assert got.shape == want.shape == (bw, heads, n, d)
     _assert_close(got, want, dtype)
     again = window_attention(q.contiguous(), k.contiguous(), v.contiguous(), bias=bias, mask=mask)
-    assert torch.equal(got, again)  # strides change no bit
+    assert torch.equal(got, again)  # strides and copy widths change no bit
 
 
 def test_window_attention_raises_and_keeps_the_oca_cap(dev):
@@ -634,3 +670,4 @@ def test_small_maxsr_fused_matches_plain_on_the_card(dev, adaptive):
     assert engagement.counters() == {"window_attention_pallas": 4}
     diff = np.abs(fused.astype(int) - plain.astype(int))
     assert fused.shape == (40, 56, 3) and diff.max() <= 1 and (diff > 0).mean() < 0.01
+
