@@ -45,16 +45,22 @@ Phases, in order; any failure exits non-zero before the final line:
 2. build: compiles ``studiosr_tpu_torch/csrc/*.cu`` (one nvcc per source,
    in parallel) and prints the seconds and ptxas register/spill lines;
 3. serving kernels vs plain at the main path's shapes, f32 and bf16: B1
-   (shift 0 and 4), B2 (plain, extra, lrelu0.01, residual), B3;
+   (shift 0 and 4), B2 (plain, extra, lrelu0.01, residual), B3; then B1 in
+   bf16 at the card tests' odd geometries (C 32 / d 16, C 180 at H != W and
+   an odd window count, d 8, 10, 12), and bit for bit: B1 on the blob packed
+   at load time against B1 on dense weights, B14 on packed weights against
+   B14 on HWIO;
 4. serving end to end: three seeded 256x256 uint8 requests through
    ``inference`` (bf16, fused) with launch counts checked per forward (and
-   every B2 launch through the bf16 kernel written for the H100, here and
-   in every served path that runs B2 or B15), and the fused forward against
-   the plain port forward in f32 and bf16;
+   every B1 and B2 launch through the bf16 kernel written for the H100, here
+   and in every served path that runs B1, B2, B14 or B15), and the fused
+   forward against the plain port forward in f32 and bf16;
 5. serving timing with CUDA events: the forward, each kernel, its plain
    version, B2's library call, and each kernel's bound from its shapes; for
-   B2 (and B15 in phase 22) kernel / library, the share of the bound and
-   ``-Xptxas -v``'s registers, static shared memory and spills;
+   B1 the same block as a sequence of bf16 PyTorch calls (no one call
+   computes it); for B1, B2 (B14 in phase 20, B15 in phase 22) kernel /
+   library, the share of the bound and ``-Xptxas -v``'s registers, static
+   shared memory and spills;
 6. training kernels vs plain, batch 4 and the path's batch 32 of 64x64
    maps, f32 and bf16: B5 and B8 (shift 0 and 4), B6, B7, with drop-path
    scales that include a 0;
@@ -108,8 +114,9 @@ Phases, in order; any failure exits non-zero before the final line:
     ragged odd height (1, 37, 53, 48) with both activations and both scales;
 20. SwinFIR x4 serving at full width: fused vs plain forward (f32, bf16),
     uint8 fused vs plain in f32 within 1 LSB, three requests with launch
-    counts (B1 36, B14 7, B3 1 a forward, B2 none), the forward's time and
-    B14's ms, plain ms, bound and library (cuDNN) ms;
+    counts (B1 36, B14 7, B3 1 a forward, B2 none; every B1 and B14 launch
+    through its bf16 entry), the forward's time and B14's ms, plain ms,
+    bound and library (cuDNN) ms;
 21. SwinFIR training: the fused-train module's loss and gradients in f32
     against an f64 witness and against plain autograd in f32 (batch 4, the
     SFBs' LeakyReLU kinks pinned too); ``Trainer.run`` for 3 steps at the
@@ -128,8 +135,9 @@ Phases, in order; any failure exits non-zero before the final line:
     x4 at window 8, SwinFIR x4, MaxSR x4 adaptive) on the card: plain f32
     beats bicubic by 0.3 dB, fused f32 is within 0.05 dB of plain, fused
     bf16 beats bicubic by 0.2 dB and is within 0.5 dB of plain, on each of
-    the three fixture images; MaxSR's BatchNorm running statistics came back
-    (not the initial 0 / 1);
+    the three fixture images, every bf16 B1 / B14 launch through its bf16
+    entry; MaxSR's BatchNorm running statistics came back (not the initial
+    0 / 1);
 25. the Evaluator (HR / LR_bicubic layout built under
     ``build/chip_smoke_eval/`` from the fixture PNGs) on the host and on the
     card for SwinIR x2 and HAT x3, fused bf16: within 1e-4 dB and 1e-5 SSIM;
@@ -176,7 +184,7 @@ from studiosr_tpu_torch.ops.cuda.swin_block import fused_swin_block, swin_block_
 from studiosr_tpu_torch.ops.cuda.upsampler import fused_upsample_s, fused_upsample_x4, upsample_s_plain, upsample_x4_plain
 from studiosr_tpu_torch.ops.cuda.window_attention import fused_window_attention_block, window_attention_plain
 from studiosr_tpu_torch.ops.cuda.window_attn import window_attention
-from studiosr_tpu_torch.ops.windows import gather_rel_bias, relative_position_index
+from studiosr_tpu_torch.ops.windows import calculate_mask, gather_rel_bias, relative_position_index
 from studiosr_tpu_torch.parallel import build_optimizer, make_train_step, prepare_state
 from studiosr_tpu_torch.serving.hat_fast import prepare_hat_serving
 from studiosr_tpu_torch.serving.swinir_fast import prepare_serving
@@ -196,7 +204,7 @@ BF16_REL_L2 = 1e-2
 E2E_F32_REL_L2, E2E_BF16_REL_L2 = 1e-4, 2e-2
 
 KERNELS = {
-    "fused_swin_block": ("studiosr_tpu_torch/csrc/swin_block.cu", "studiosr_tpu/ops/pallas/swin_block.py:691"),
+    "fused_swin_block": ("studiosr_tpu_torch/csrc/swin_block_mma.cu", "studiosr_tpu/ops/pallas/swin_block.py:691"),
     "fused_conv3x3": ("studiosr_tpu_torch/csrc/conv3x3.cu", "studiosr_tpu/ops/pallas/conv3x3.py:212"),
     "fused_upsample_x4": ("studiosr_tpu_torch/csrc/upsampler.cu", "studiosr_tpu/ops/pallas/upsampler.py:274"),
 }
@@ -315,11 +323,20 @@ MAXSR_PER_FORWARD = {"window_attention_pallas": 32}
 # (label, windows, heads, tokens, head dim, bias, mask windows): the first two
 # are the two MaxSR modes' shapes at a 256x256 LR input.
 # The C entry of the kernel written for the H100 that every bf16 launch of
-# B2 and B15 on the served paths must go through, and each kernel's stem in
-# its build log (ptxas's registers, shared memory and spills).
-H100_ENTRIES = {"fused_conv3x3": "conv3x3_mma_bf16", "window_attention_pallas": "window_attn_flash_bf16"}
-H100_KERNELS = {"fused_conv3x3": ("conv3x3", "conv3x3_mma_kernel"),
+# B1, B2, B14 and B15 on the served paths must go through, and each kernel's
+# stem in its build log (ptxas's registers, shared memory and spills).
+H100_ENTRIES = {"fused_swin_block": "swin_block_mma_bf16", "fused_conv3x3": "conv3x3_mma_bf16",
+                "fused_resblock": "resblock_mma_bf16", "window_attention_pallas": "window_attn_flash_bf16"}
+H100_KERNELS = {"fused_swin_block": ("swin_block_mma", "swin_block_mma_kernel"),
+                "fused_conv3x3": ("conv3x3", "conv3x3_mma_kernel"),
+                "fused_resblock": ("resblock", "conv3x3_mma_kernel"),
                 "window_attention_pallas": ("window_attn", "wf_kernel")}
+# B1 in bf16 beyond the main path's shape, as the card tests take it: (C,
+# heads, map, shift): C 32 with 2 heads of 16 (the trained fixtures), C 180
+# at H != W and an odd window count (a half-empty last window pair), d 8,
+# d 12 with an odd count of 8-column output tiles, d 10.
+B1_ODD_CASES = ((32, 2, (2, 16, 24), 0), (32, 2, (2, 16, 24), 4), (180, 6, (1, 24, 16), 4),
+                (180, 6, (1, 24, 24), 4), (16, 2, (1, 8, 24), 4), (24, 2, (2, 24, 8), 4), (60, 6, (1, 16, 16), 4))
 WINDOW_ATTN_CASES = (
     ("adaptive", 256, 4, 256, 32, False, 0), ("static", 1024, 4, 64, 32, True, 0),
     ("mask over 2 images", 128, 4, 64, 32, True, 64), ("N 1024", 4, 4, 1024, 32, True, 0),
@@ -382,7 +399,7 @@ def kernel_check(part: str, got: torch.Tensor, want: torch.Tensor, dtype: torch.
 
 
 def entry_failures(label: str, launches: dict) -> list:
-    """[] when every B2 and B15 launch of ``launches`` went through the bf16
+    """[] when every B1, B2, B14 and B15 launch of ``launches`` went through the bf16
     entry of its kernel written for the H100 (``engagement.entries()`` since
     the same reset), else the failures."""
     entries, failed = engagement.entries(), []
@@ -493,7 +510,7 @@ def phase_kernels(model: SwinIR, dev: torch.device) -> dict:
         for name, label, kernel, plain, ops in kernel_cases(model, dev, dtype):
             got = kernel(*ops)
             torch.cuda.synchronize()
-            want = plain(*[None if t is None else t.float() for t in ops])
+            want = plain(ops[0].float(), *ops[1:])  # f32 inside; weights as the kernel got them
             torch.cuda.synchronize()
             err = kernel_check(f"{name} [{label}]", got, want, dtype, failed)
             if dtype == torch.bfloat16:
@@ -501,6 +518,93 @@ def phase_kernels(model: SwinIR, dev: torch.device) -> dict:
     if failed:
         raise AssertionError("serving kernels disagree with their plain versions: " + "; ".join(failed))
     return errors
+
+
+def b1_operands(gen, c: int, heads: int, dev: torch.device):
+    """Seeded dense B1 operands at C ``c`` (hidden 2 C): weights bf16, the
+    rest f32, in ``fused_swin_block``'s order after x."""
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev, dtype)
+
+    bf, hidden = torch.bfloat16, 2 * c
+    return [randn(c, scale=0.1) + 1, randn(c, scale=0.1), randn(c, 3 * c, scale=c**-0.5, dtype=bf),
+            randn(3 * c, scale=0.1), randn(c, c, scale=c**-0.5, dtype=bf), randn(c, scale=0.1),
+            randn(heads, 64, 64, scale=0.5), randn(c, scale=0.1) + 1, randn(c, scale=0.1),
+            randn(c, hidden, scale=c**-0.5, dtype=bf), randn(hidden, scale=0.1),
+            randn(hidden, c, scale=hidden**-0.5, dtype=bf), randn(c, scale=0.1)]
+
+
+def phase_b1_b14_checks(model: SwinIR, dev: torch.device) -> None:
+    """The bf16 kernels written for the H100 beyond the main path's variant:
+    B1 at the card tests' odd geometries against its plain version, every
+    launch through ``swin_block_mma_bf16``; B1 on the blob serving packed at
+    load time equals B1 on the dense weights (packed per call) bit for bit
+    at the main path's shape; B14 on packed weights equals B14 on HWIO bit
+    for bit."""
+    from studiosr_tpu_torch.ops.cuda.conv3x3 import pack_conv3x3_weights, prepare_conv3x3_weights
+
+    failed = []
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 30)
+    for c, heads, shape, shift in B1_ODD_CASES:
+        ops = b1_operands(gen, c, heads, dev)
+        x = torch.randn(*shape, c, generator=gen).to(dev, torch.bfloat16)
+        kw = dict(heads=heads, window_size=8, shift=shift)
+        engagement.reset()
+        got = fused_swin_block(x, *ops, **kw)
+        failed += entry_failures(f"B1 C {c}", engagement.counters())
+        want = swin_block_plain(x.float(), *ops, **kw)
+        kernel_check(f"fused_swin_block [C {c}, {heads} heads, {'x'.join(map(str, shape))}, shift {shift}]", got,
+                     want, torch.bfloat16, failed)
+    blk = model.module.layers[0].residual_group.blocks[1]
+    prep = prepare_serving(model.module, model.config, torch.bfloat16)["blocks"][0][1]
+    dense = list(prepare_serving(model.module, model.config, torch.float32)["blocks"][0][1].values())
+    dense = [t.to(torch.bfloat16) if i in (2, 4, 9, 11) else t for i, t in enumerate(dense)]
+    hp = LR + MAIN["window_size"]
+    x = torch.randn(1, hp, hp, MAIN["embed_dim"], generator=gen).to(dev, torch.bfloat16)
+    kw = dict(heads=blk.attn.num_heads, window_size=8, shift=4)
+    same_b1 = torch.equal(fused_swin_block(x, **prep, **kw), fused_swin_block(x, *dense, **kw))
+    conv = model.module.layers[0].conv
+    hwio = prepare_conv3x3_weights(conv.weight, torch.bfloat16)
+    b = conv.bias.detach().float().contiguous()
+    same_b14 = torch.equal(fused_resblock(x, hwio, b, hwio, b, activation="lrelu0.2"),
+                           fused_resblock(x, pack_conv3x3_weights(hwio), b, pack_conv3x3_weights(hwio), b,
+                                          activation="lrelu0.2"))
+    log(f"B1 packed (load time) vs dense (packed per call) at {hp}x{hp}x{MAIN['embed_dim']}: bitwise "
+        f"{'equal' if same_b1 else 'DIFFERENT'}; B14 packed vs HWIO: bitwise {'equal' if same_b14 else 'DIFFERENT'}")
+    if not same_b1:
+        failed.append("B1 on the packed blob differs from B1 on the dense weights")
+    if not same_b14:
+        failed.append("B14 on packed weights differs from B14 on HWIO weights")
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
+def b1_torch_sequence(x, ops, heads: int, shift: int, window_mask=None):
+    """The Swin block as a sequence of bf16 PyTorch calls (layer_norm,
+    matmul, SDPA with the rel-pos bias and mask as its additive mask,
+    matmul, layer_norm, matmul + GELU, matmul, the rolls and window
+    partitions): the yardstick beside B1, which no single call computes.
+    ``ops``: dense operands, weights bf16; ``window_mask``: the (nW, 64, 64)
+    shifted-window mask in x's dtype when ``shift``."""
+    ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, bias, ln2_w, ln2_b, w1, b1, w2, b2 = ops
+    bsz, h, w, c = x.shape
+    d, dt = c // heads, x.dtype
+    xs = torch.roll(x, (-shift, -shift), dims=(1, 2)) if shift else x
+    ln = F.layer_norm(xs, (c,), ln1_w.to(dt), ln1_b.to(dt), 1e-5)
+    win = ln.reshape(bsz, h // 8, 8, w // 8, 8, c).permute(0, 1, 3, 2, 4, 5).reshape(-1, 64, c)
+    qkv = (win @ wqkv + bqkv.to(dt)).reshape(-1, 64, 3, heads, d).permute(2, 0, 3, 1, 4)
+    mask = bias.to(dt)[None]
+    if shift:
+        mask = (mask.reshape(1, 1, heads, 64, 64) + window_mask[None, :, None]).reshape(
+            -1, heads, 64, 64)
+        mask = mask.repeat(bsz, 1, 1, 1)
+    attn = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2], attn_mask=mask)
+    attn = attn.transpose(1, 2).reshape(-1, 64, c) @ wproj + bproj.to(dt)
+    attn = attn.reshape(bsz, h // 8, w // 8, 8, 8, c).permute(0, 1, 3, 2, 4, 5).reshape(bsz, h, w, c)
+    z = xs + attn
+    y = z + F.gelu(F.layer_norm(z, (c,), ln2_w.to(dt), ln2_b.to(dt), 1e-5) @ w1 + b1.to(dt)) @ w2 + b2.to(dt)
+    return torch.roll(y, (shift, shift), dims=(1, 2)) if shift else y
+
 
 
 def requests():
@@ -559,15 +663,23 @@ def phase_timing(model: SwinIR, dev: torch.device, errors: dict, launches: dict)
         if label not in ("shift 4", "extra", "x4"):  # the variant each kernel runs most on the path
             continue
         ms = time_ms(lambda: kernel(*ops), iters=10)
-        plain_ms = time_ms(lambda: plain(*ops), iters=10)
-        library_ms = None
+        plain_ops, library_ms = ops, None
         x_ = ops[0]
         if name == "fused_swin_block":
             c = x_.shape[-1]
-            hidden = ops[10].shape[-1]
+            hidden = ops[11].shape[-1]
             tokens = x_.numel() // c
             flops = 2 * tokens * c * (3 * c + c + 2 * hidden) + 4 * tokens * 64 * c
-            moved = 2 * nbytes(x_) + nbytes(*ops[1:])
+            moved = 2 * nbytes(x_) + nbytes(*ops[1:])  # the packed blob (weights and bias) read once
+            heads = MAIN["num_heads"][0]
+            plain_ops = (x_, *[t.to(x_.dtype) if i in (2, 4, 9, 11) else t for i, t in enumerate(
+                prepare_serving(model.module, model.config, torch.float32)["blocks"][0][1].values())])  # dense
+            wmask = torch.from_numpy(calculate_mask(tuple(x_.shape[1:3]), 8, 4)).to(dev, x_.dtype)
+            seq_err = rel_l2(b1_torch_sequence(x_, plain_ops[1:], heads, 4, wmask), plain(x_.float(), *ops[1:]))
+            seq_ms = time_ms(lambda: b1_torch_sequence(x_, plain_ops[1:], heads, 4, wmask), iters=10)
+            log(f"time fused_swin_block yardstick (a sequence of bf16 PyTorch calls: layer_norm, matmul, SDPA with "
+                f"the bias and mask, matmul, layer_norm, matmul + GELU, matmul; rel_l2 {seq_err:.2e} against the "
+                f"plain version): {seq_ms:.3f} ms")
         elif name == "fused_conv3x3":
             w, b, extra = unpack_conv3x3_weights(ops[1], x_.shape[-1], ops[2].shape[0]), ops[2], ops[3]  # HWIO
             flops = 2 * (x_.numel() // x_.shape[-1]) * 9 * w.shape[2] * w.shape[3]
@@ -583,6 +695,7 @@ def phase_timing(model: SwinIR, dev: torch.device, errors: dict, launches: dict)
             n_colors = ops[5].shape[-1]
             flops = 2 * 9 * cin * (pix * 4 * cin + 4 * pix * 4 * cin + 16 * pix * n_colors)
             moved = nbytes(*ops) + 16 * pix * n_colors * x_.element_size()
+        plain_ms = time_ms(lambda: plain(*plain_ops), iters=10)
         bms, by = bound_ms(flops, moved)
         source, replaces = KERNELS[name]
         rows.append(
@@ -594,8 +707,8 @@ def phase_timing(model: SwinIR, dev: torch.device, errors: dict, launches: dict)
             f"library {library_ms if library_ms is None else round(library_ms, 4)} ms, {flops / 1e9:.2f} GFLOP, "
             f"{moved / 1e6:.1f} MB")
         if name in H100_KERNELS:
-            log(f"  {name}: kernel / library {ms / library_ms:.2f}, {100 * bms / ms:.1f} % of the bound; "
-                f"{ptxas_report(name)}")
+            ratio = "none (no one call)" if library_ms is None else f"{ms / library_ms:.2f}"
+            log(f"  {name}: kernel / library {ratio}, {100 * bms / ms:.1f} % of the bound; {ptxas_report(name)}")
     return rows
 
 
@@ -1539,6 +1652,7 @@ def phase_swinfir_serving(dev: torch.device, error: float) -> tuple:
         if launches.get(name, 0) != SWINFIR_PER_FORWARD.get(name, 0) * REQUESTS:
             failed.append(f"swinfir {name}: {launches.get(name, 0)} launches, expected "
                           f"{SWINFIR_PER_FORWARD.get(name, 0)} a forward")
+    failed += entry_failures("swinfir serving", launches)
     if failed:
         raise AssertionError("; ".join(failed))
 
@@ -1550,7 +1664,8 @@ def phase_swinfir_serving(dev: torch.device, error: float) -> tuple:
     xb, w1, b1, w2, b2 = ops
     ms = time_ms(lambda: fused_resblock(*ops, activation="lrelu0.2"), iters=10)
     plain_ms = time_ms(lambda: resblock_plain(*ops, activation="lrelu0.2"), iters=10)
-    w1o, w2o = w1.permute(3, 2, 0, 1).contiguous(), w2.permute(3, 2, 0, 1).contiguous()
+    c = xb.shape[-1]
+    w1o, w2o = (unpack_conv3x3_weights(w, c, c).permute(3, 2, 0, 1).contiguous() for w in (w1, w2))  # HWIO -> OIHW
     b1l, b2l = b1.to(xb.dtype), b2.to(xb.dtype)
 
     def library():
@@ -1559,15 +1674,17 @@ def phase_swinfir_serving(dev: torch.device, error: float) -> tuple:
         return xb + F.conv2d(h1, w2o, b2l, padding=1).permute(0, 2, 3, 1)
 
     library_ms = time_ms(library, iters=10)
-    tokens, c = xb.numel() // xb.shape[-1], xb.shape[-1]
+    tokens = xb.numel() // c
     flops = 2 * 2 * tokens * 9 * c * c
-    moved = 2 * nbytes(xb) + nbytes(w1, b1, w2, b2)
+    moved = 2 * nbytes(xb) + nbytes(w1o, b1, w2o, b2)
     bms, by = bound_ms(flops, moved)
     per = SWINFIR_PER_FORWARD["fused_resblock"]
     shape = "x".join(map(str, xb.shape))
     log(f"time fused_resblock [lrelu0.2] bf16 at {shape}: {ms:.3f} ms ({100 * per * ms / fwd:.1f} "
         f"% of a forward at {per} a forward), plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), library (cuDNN "
         f"F.conv2d x2 + leaky_relu + add) {library_ms:.4f} ms, {flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB")
+    log(f"  fused_resblock: kernel / library {ms / library_ms:.2f}, {100 * bms / ms:.1f} % of the bound; "
+        f"{ptxas_report('fused_resblock')}")
     source, replaces = KERNELS["fused_resblock"]
     row = dict(name="fused_resblock", route="cuda", source=source, replaces=replaces,
                launches=launches.get("fused_resblock", 0), max_abs_err=error, ms=ms, plain_ms=plain_ms, bound_ms=bms,
@@ -1868,7 +1985,9 @@ def phase_trained(dev: torch.device) -> list:
             bi = compute_psnr(bicubic(lr, *hr.shape[:2], dev), hr)
             plain = compute_psnr(model.inference(lr), hr)
             fused = compute_psnr(model.enable_fused(True).inference(lr), hr)
+            engagement.reset()
             bf16 = compute_psnr(model.half().inference(lr), hr)
+            failed += entry_failures(f"trained {subdir} bf16", engagement.counters())
             table.append((subdir, i, bi, plain, fused, bf16))
             log(f"trained {subdir} img{i}: bicubic {bi:.4f} plain f32 {plain:.4f} fused f32 {fused:.4f} "
                 f"fused bf16 {bf16:.4f} dB")
@@ -1908,6 +2027,7 @@ def phase_evaluator(dev: torch.device) -> None:
             failed.append(f"{subdir}: on-card scores differ from the host protocol's")
         if launches.get("fused_upsample_s", 0) != 3:
             failed.append(f"{subdir}: the on-card route did not serve through B4 ({launches})")
+        failed += entry_failures(f"evaluator {subdir}", launches)
     shutil.rmtree(EVAL_DIR, ignore_errors=True)
     if failed:
         raise AssertionError("; ".join(failed))
@@ -1950,6 +2070,7 @@ def main() -> int:
     model = SwinIR.build(**MAIN, seed=SEED, device=dev)
     log(f"model: SwinIR x4 embed {MAIN['embed_dim']} depths {MAIN['depths']}, {model.count_parameters()} parameters")
     errors = phase_kernels(model, dev)
+    phase_b1_b14_checks(model, dev)
     launches = phase_end_to_end(model, dev)
     rows = phase_timing(model, dev, errors, launches)
     del model

@@ -4,8 +4,9 @@
     PYTHONPATH=<checkout> python3 scripts/torch_time_paths.py
 
 Times, as ``chip_smoke.py`` does (CUDA events, 2 warm-up calls, seeded
-random weights at full width): the SwinIR x4, HAT x4, SwinFIR x4 and MaxSR
-x4 (adaptive and static, the JAX package's ``build`` defaults) forward
+random weights at full width): the SwinIR x4, HAT x4, SwinFIR x4, MaxSR
+x4 (adaptive and static, the JAX package's ``build`` defaults) and SwinIR
+x2 and x3 forward
 (bf16, batch 1, a 256 x 256 uint8 image, fused serving) over 5 forwards,
 and the SwinIR x4 and HAT x4 train step (``make_train_step``, bf16 over f32 masters, batch
 32 of 64 x 64 crops, fused_train) over 5 steps, and prints one JSON line:
@@ -48,8 +49,9 @@ def time_ms(fn, iters: int = 5, warmup: int = 2) -> float:
 
 
 def build(name: str, dev: torch.device, **kw):
-    if name == "swinir":
-        return SwinIR.build(**WIDTHS, window_size=8, seed=0, device=dev, **kw)
+    if name.startswith("swinir"):  # "swinir", "swinir x2", "swinir x3"
+        scale = int(name[-1]) if name[-1].isdigit() else 4
+        return SwinIR.build(**{**WIDTHS, "scale": scale}, window_size=8, seed=0, device=dev, **kw)
     if name == "swinfir":
         return SwinFIR.build(**WIDTHS, window_size=8, seed=0, device=dev, **kw)
     if name.startswith("maxsr"):
@@ -90,7 +92,7 @@ def main() -> None:
         torch.cuda.empty_cache()
         ms[f"{name} train step"] = step_ms(name, dev)
         torch.cuda.empty_cache()
-    for name in ("swinfir", "maxsr adaptive", "maxsr static"):
+    for name in ("swinfir", "maxsr adaptive", "maxsr static", "swinir x2", "swinir x3"):
         ms[f"{name} forward"] = forward_ms(name, dev)
         torch.cuda.empty_cache()
     print(json.dumps({"package": str(studiosr_tpu_torch.__file__), "card": card, "ms": ms}))

@@ -25,6 +25,7 @@ extern "C" int conv3x3_mma_bf16(const void* x, const void* w, const void* bias, 
   a.extra = (const __nv_bfloat16*)extra;
   a.out = (__nv_bfloat16*)out;
   a.B = B, a.H = H, a.W = W, a.Cin = Cin, a.Cout = Cout, a.act = act, a.slope = slope, a.residual = residual;
+  a.res_scale = 1.f;
   if ((uintptr_t)w % 16) return (int)cudaErrorMisalignedAddress;  // packed stages are copied in 16-byte pieces
   const long long cin = Cin;
   a.xw = hm_copy_width(x, Cin, &cin, 1);

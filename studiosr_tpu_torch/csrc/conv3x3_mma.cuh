@@ -28,8 +28,10 @@
 // * sixteen warps split the pixel tile and the block's 192 output channels
 //   (Cout 180 padded inside the block), each holding its m16n8 f32
 //   accumulators in registers, so a staged weight serves the whole tile;
-// * the epilogue in registers: bias, activation, residual and extra read and
-//   the result stored as bf16 pairs (4 bytes) where Cout is even.
+// * the epilogue in registers: bias, activation, the res_scale factor (1 for
+//   B2; B14's second pass scales its conv by it before x is added), residual
+//   and extra read and the result stored as bf16 pairs (4 bytes) where Cout
+//   is even.
 // The weight stages (57.6 KB of a stage at Cout 180) make one block an SM;
 // every block reads all the weights from L2 (0.7 MB a block).
 #pragma once
@@ -51,6 +53,7 @@ struct CmArgs {
   __nv_bfloat16* out;
   int B, H, W, Cin, Cout, act;
   float slope;
+  float res_scale;  // scales act(conv + bias) before residual and extra are added
   int residual;
   int xw;      // copy width (bytes) of x's pixel rows: 16, 8, 4 or 2
   int pairs;   // out, x and extra take 4-byte (bf16 pair) accesses
@@ -161,7 +164,7 @@ __global__ void __launch_bounds__(32 * WM * WN, 1) conv3x3_mma_kernel(const CmAr
     v += a.bias[co];
     if (a.act == CM_RELU) v = fmaxf(v, 0.f);
     else if (a.act == CM_LRELU) v = v >= 0.f ? v : a.slope * v;
-    return v;
+    return v * a.res_scale;
   };
 #pragma unroll
   for (int i = 0; i < MT; ++i)

@@ -3,8 +3,10 @@
 // with window attention (WA) over 8 x 8 windows, the relative-position bias
 // and, for shifted blocks, the shifted-window mask.
 //
-// Replaces studiosr_tpu/ops/pallas/swin_block.py::fused_swin_block. It
-// computes what the TPU kernel computes, not its Mosaic layout: no
+// Replaces studiosr_tpu/ops/pallas/swin_block.py::fused_swin_block in f32,
+// the checks' dtype (C entry swin_block_f32); bf16 runs the kernel written
+// for the H100, swin_block_mma.cu. It computes what the TPU kernel
+// computes, not its Mosaic layout: no
 // window-pair score packing, no -1e30 pair bias, no compressed mask rows,
 // no half-stripe shift reads. The rounding points follow the TPU kernel:
 // LN outputs, q/k/v, probabilities, the attention output, z and the GELU
@@ -22,14 +24,9 @@
 // buffers (16-byte cp.async, the next chunk in flight while the current one
 // is multiplied). So that every chunk is whole and 16-byte aligned, a small
 // pack kernel first lays the four weight matrices out in one zero-padded
-// scratch (SwinPack; about 0.66 MB in bf16, L2-resident). q k^T and p v
-// read k and v in place (gemm64_smem). f32 blocks run the products on the
-// FMA pipes; bf16 blocks run them on the tensor cores (wmma 16x16x16, f32
-// accumulation). Operand K dimensions are padded with zeros (C 180 -> 192,
-// head dim 30 -> 32, hidden 360 -> 384). bf16 epilogues read the
-// accumulator fragments in registers (FragMap), so no f32 output tile
-// passes through shared memory. At C 180 a bf16 block takes 114,688 bytes
-// of shared memory and at most 128 registers a thread: two windows per SM.
+// scratch (SwinPack). q k^T and p v read k and v in place (gemm64_smem);
+// the products run on the FMA pipes. Operand K dimensions are padded with
+// zeros (C 180 -> 192, head dim 30 -> 32, hidden 360 -> 384).
 //
 // The shift: with shift s, token (h, w) of the rolled map is read from
 // ((h + s) mod H, (w + s) mod W) and its output is written back to that
@@ -40,13 +37,9 @@
 // calculate_mask) instead of being read from a dense (nW, 64, 64) operand.
 //
 // Bound on the card: 39.4 GFLOP per launch at the main path's shapes
-// against about 50 MB of traffic, so the block is bound by operations
-// (tensor-core bf16 rate, about 40 us). This first version is bound by
-// latency instead: 16 warps per SM, a barrier per staged K chunk, and
-// short dependent wmma chains in the per-head loop of small GEMMs
-// (64 x 96 x 192, 64 x 64 x 32, 64 x 32 x 64)
-// (scripts/torch_ablate_swin_block.py splits the time). Reading and
-// writing the map exactly once is what it keeps from the TPU design.
+// against about 50 MB of traffic, so the block is bound by operations.
+// Reading and writing the map exactly once is what it keeps from the TPU
+// design.
 #include "swin_common.cuh"
 
 // Shared-memory layout of one window: byte offsets and row strides (in
@@ -183,8 +176,7 @@ __global__ void __launch_bounds__(SB_THREADS, 2) swin_block_kernel(
   }
   zero_columns(lnb, LC, C, P.kc);
   zero_columns(attn, LC, C, P.kc);
-  FragMap map{{0u, 0u}};
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) map = read_frag_map(sc);  // sc is free until the scores
+  FragMap map{{0u, 0u}};  // read only by the tensor-core products, which f32 does not run
   __syncthreads();
   layernorm_rows<T>(xs, C, ln1_w, ln1_b, lnb, LC);
 
@@ -274,4 +266,3 @@ static cudaError_t swin_block(const T* x, T* out, int B, int H, int W, int C, in
   }
 
 SWIN_BLOCK_ENTRY(swin_block_f32, float)
-SWIN_BLOCK_ENTRY(swin_block_bf16, __nv_bfloat16)

@@ -30,7 +30,7 @@ CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 SOURCES = (
     "conv3x3", "swin_block", "upsampler", "window_attention", "mlp_block", "mlp_bwd", "attn_bwd", "cab_body",
-    "window_attention16", "ocab", "attn_bwd16", "oca_core", "resblock", "window_attn",
+    "window_attention16", "ocab", "attn_bwd16", "oca_core", "resblock", "window_attn", "swin_block_mma",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -19,7 +19,10 @@ trunk y2 = conv2(gelu(conv1(LN x))) with the per-image f32 channel sums of
 y2 that feed the squeeze-excite gate; and B14, ``fused_resblock`` (CUDA
 kernels ``csrc/resblock.cu``, replacing ``conv3x3.py::fused_resblock``):
 y = x + res_scale (conv2(act(conv1(x) + b1)) + b2), SwinFIR's SFB spatial
-branch, at any height (the JAX wrapper declines odd ones to two convs).
+branch, at any height (the JAX wrapper declines odd ones to two convs). In
+bf16 both of its passes run B2's kernel written for the H100 on packed
+weights (C entry ``resblock_mma_bf16``; serving packs them at load time,
+HWIO weights are packed per call); f32 runs ``resblock_f32`` on HWIO.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ _SIGNATURES = {"conv3x3_f32": _ARGS, "conv3x3_mma_bf16": _ARGS}
 _CAB_ARGS = (P,) * 12 + (I,) * 5 + (P,)
 _CAB_SIGNATURES = {"cab_body_f32": _CAB_ARGS, "cab_body_bf16": _CAB_ARGS, "cab_body_partials": (I, I, I)}
 _RES_ARGS = (P,) * 7 + (I,) * 5 + (CF, CF, P)
-_RES_SIGNATURES = {"resblock_f32": _RES_ARGS, "resblock_bf16": _RES_ARGS}
+_RES_SIGNATURES = {"resblock_f32": _RES_ARGS, "resblock_mma_bf16": _RES_ARGS}
 _ACT_CODES = {None: 0, "relu": 1, "lrelu": 2}  # shared with csrc/conv3x3.cuh
 _MMA_KC, _MMA_BLOCK = 16, 192  # csrc/conv3x3_mma.cuh: input channels a stage, output channels a block
 
@@ -91,15 +94,28 @@ def unpack_conv3x3_weights(packed: torch.Tensor, cin: int, cout: int) -> torch.T
 
 
 def prepare_fused_conv3x3_weights(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """torch OIHW 3x3 conv weight -> B2's weight operand, laid out once at
-    load time: packed for bf16 (the kernel's own layout), HWIO otherwise.
-    B3, B4, B11 and B14 take :func:`prepare_conv3x3_weights`."""
+    """torch OIHW 3x3 conv weight -> B2's (and B14's) weight operand, laid
+    out once at load time: packed for bf16 (the kernel's own layout), HWIO
+    otherwise. B3, B4 and B11 take :func:`prepare_conv3x3_weights`."""
     hwio = prepare_conv3x3_weights(weight, dtype)
     return pack_conv3x3_weights(hwio) if dtype == torch.bfloat16 else hwio
 
 
 def _hwio(w: torch.Tensor, cin: int, cout: int) -> torch.Tensor:
     return unpack_conv3x3_weights(w, cin, cout) if w.dim() == 5 else w
+
+
+def _b2_weights(w: torch.Tensor, name: str, cin: int, cout: int, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
+    """B2's weight operand as the kernel of ``dtype`` reads it: in bf16 the
+    packed layout (HWIO packed on the way), in f32 HWIO; raises otherwise."""
+    if dtype == torch.bfloat16:
+        if w.dim() == 4:
+            check(w, name, (3, 3, cin, cout), dtype, dev)
+            w = pack_conv3x3_weights(w)
+        check(w, name, packed_conv3x3_shape(cin, cout), dtype, dev)
+    else:
+        check(w, name, (3, 3, cin, cout), dtype, dev)
+    return w
 
 
 def conv3x3_plain(x, w, b, activation: Optional[str] = None, residual: bool = False, extra=None):
@@ -135,13 +151,8 @@ def fused_conv3x3(x, w, b, activation: Optional[str] = None, residual: bool = Fa
     kind, slope = parse_activation(activation)
     dev = x.device
     px = check(x, "x", (bsz, h, wd, cin), x.dtype, dev)
-    if x.dtype == torch.bfloat16:
-        if w.dim() == 4:
-            check(w, "w", (3, 3, cin, cout), x.dtype, dev)
-            w = pack_conv3x3_weights(w)
-        pw = check(w, "w", packed_conv3x3_shape(cin, cout), x.dtype, dev)
-    else:
-        pw = check(w, "w", (3, 3, cin, cout), x.dtype, dev)
+    w = _b2_weights(w, "w", cin, cout, x.dtype, dev)  # kept alive until the launch is enqueued
+    pw = w.data_ptr()
     pb = check(b, "b", (cout,), torch.float32, dev)
     pe = None if extra is None else check(extra, "extra", (bsz, h, wd, cout), x.dtype, dev)
     out = torch.empty((bsz, h, wd, cout), dtype=x.dtype, device=dev)
@@ -196,16 +207,17 @@ def fused_cab_body(x, ln_w, ln_b, w1, b1, w2, b2):
 
 def resblock_plain(x, w1, b1, w2, b2, res_scale: float = 1.0, activation: Optional[str] = "relu"):
     """Plain PyTorch version of B14, computed in f32 and returned in
-    ``x.dtype``: conv2's zero padding is h1 zero outside the image."""
+    ``x.dtype``; weights HWIO or packed. conv2's zero padding is h1 zero
+    outside the image."""
     h1 = conv3x3_plain(x.float(), w1, b1, activation)
     return (x.float() + res_scale * conv3x3_plain(h1, w2, b2)).to(x.dtype)
 
 
 def fused_resblock(x, w1, b1, w2, b2, res_scale: float = 1.0, activation: Optional[str] = "relu"):
     """B14: (B, H, W, C) -> x + res_scale (conv2(act(conv1(x) + b1)) + b2).
-    ``w1``, ``w2`` HWIO (3, 3, C, C) in the map's dtype, biases f32;
-    ``activation`` "relu", "lrelu[slope]" or None. CPU tensors take the plain
-    version; CUDA tensors launch the kernels or raise."""
+    ``w1``, ``w2`` HWIO (3, 3, C, C) in the map's dtype, or packed in bf16;
+    biases f32; ``activation`` "relu", "lrelu[slope]" or None. CPU tensors
+    take the plain version; CUDA tensors launch the kernels or raise."""
     if x.device.type == "cpu":
         return resblock_plain(x, w1, b1, w2, b2, res_scale, activation)
     if x.dtype not in KERNEL_DTYPES:
@@ -213,16 +225,16 @@ def fused_resblock(x, w1, b1, w2, b2, res_scale: float = 1.0, activation: Option
     kind, slope = parse_activation(activation)
     bsz, h, wd, c = x.shape
     dev, dt, f32 = x.device, x.dtype, torch.float32
+    w1, w2 = _b2_weights(w1, "w1", c, c, dt, dev), _b2_weights(w2, "w2", c, c, dt, dev)
     ptrs = [
-        check(x, "x", (bsz, h, wd, c), dt, dev),
-        check(w1, "w1", (3, 3, c, c), dt, dev), check(b1, "b1", (c,), f32, dev),
-        check(w2, "w2", (3, 3, c, c), dt, dev), check(b2, "b2", (c,), f32, dev),
+        check(x, "x", (bsz, h, wd, c), dt, dev), w1.data_ptr(), check(b1, "b1", (c,), f32, dev),
+        w2.data_ptr(), check(b2, "b2", (c,), f32, dev),
     ]
     h1 = torch.empty_like(x)
     out = torch.empty_like(x)
     lib = _build.load("resblock", _RES_SIGNATURES)
-    fn = lib.resblock_bf16 if dt == torch.bfloat16 else lib.resblock_f32
-    status = fn(*ptrs, h1.data_ptr(), out.data_ptr(), bsz, h, wd, c, _ACT_CODES[kind], slope, float(res_scale),
-                stream(dev))
-    finish("fused_resblock", status)
+    entry = "resblock_mma_bf16" if dt == torch.bfloat16 else "resblock_f32"
+    status = getattr(lib, entry)(*ptrs, h1.data_ptr(), out.data_ptr(), bsz, h, wd, c, _ACT_CODES[kind], slope,
+                                 float(res_scale), stream(dev))
+    finish("fused_resblock", status, entry)
     return out

@@ -1,4 +1,5 @@
-"""B1: the whole Swin block in one pass (CUDA kernel ``csrc/swin_block.cu``).
+"""B1: the whole Swin block in one pass (CUDA kernels ``csrc/swin_block_mma.cu``
+in bf16, ``csrc/swin_block.cu`` in f32).
 
 Replaces ``studiosr_tpu/ops/pallas/swin_block.py::fused_swin_block``:
 z = x + proj(WA(LN1 x)), y = z + fc2(gelu(fc1(LN2 z))) over ws x ws windows
@@ -10,14 +11,21 @@ input (the JAX kernel's ``read_shift`` leaves it in the rolled space).
 Operands: ``x`` (B, H, W, C); LayerNorm weights and every bias f32; dense
 weights in (in, out) layout in the map's dtype (``wqkv`` (C, 3C) with
 q | k | v column blocks, unscaled: the kernel applies 1/sqrt(d) to q);
-``bias`` the gathered (heads, N, N) f32 rel-pos bias. The HAT/training
-operands of the TPU kernel (``extra``, ``extra_scale``, ``drop_path``) are
-not part of this port.
+``bias`` the gathered (heads, N, N) f32 rel-pos bias. In bf16 the weights
+may instead come packed (:func:`pack_swin_weights`, what serving prepares
+once at load time): the packed blob takes the place of ``wqkv`` and
+``wproj``, ``bias``, ``w1``, ``w2`` are None. bf16 launches the kernel
+written for the H100 (C entry ``swin_block_mma_bf16``), which reads packed
+weights (dense ones are packed first, on every call); f32 the older kernel
+(``swin_block_f32``), which packs its dense weights into a scratch on every
+call. The HAT/training operands of the TPU kernel (``extra``,
+``extra_scale``, ``drop_path``) are not part of this port.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,15 +35,24 @@ from studiosr_tpu_torch.ops.cuda import _build
 from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, check, finish, stream
 from studiosr_tpu_torch.ops.windows import calculate_mask, window_partition, window_reverse
 
-__all__ = ["fused_swin_block", "swin_block_plain", "packed_elements", "KERNEL_WINDOW"]
+__all__ = [
+    "fused_swin_block", "swin_block_plain", "packed_elements", "pack_swin_weights", "unpack_swin_weights",
+    "swin_pack_stages", "mma_geometry_error", "KERNEL_WINDOW",
+]
 
-KERNEL_WINDOW = 8  # csrc/swin_block.cu SB_WS: one 64-token window per thread block
+KERNEL_WINDOW = 8  # one 64-token window per thread block (f32), per four warps (bf16)
 _ARGS = (P, P, I, I, I, I, I, I, I) + (P,) * 13 + (P, ctypes.c_longlong, P)
-_SIGNATURES = {"swin_block_f32": _ARGS, "swin_block_bf16": _ARGS}
+_SIGNATURES = {"swin_block_f32": _ARGS}
+_MMA_ARGS = (P,) * 11 + (I,) * 7 + (ctypes.c_longlong, P)
+_MMA_SIGNATURES = {"swin_block_mma_bf16": _MMA_ARGS, "swin_block_mma_elements": (I, I, I)}
+_MMA_RESTYPES = {"swin_block_mma_elements": ctypes.c_longlong}
+# csrc/swin_block_mma.cu: bytes a ring slot, hidden units a chunk, widest C
+_SLOT_BYTES, _CHUNK, _MMA_MAX_C = 28672, 64, 184
+_TOK = KERNEL_WINDOW * KERNEL_WINDOW
 
 
 def packed_elements(c: int, heads: int, hidden: int) -> int:
-    """Elements of the scratch the kernel packs its weights into: the
+    """Elements of the scratch the f32 kernel packs its weights into: the
     ``SwinPack`` layout of ``csrc/swin_block.cu`` (the kernel checks it)."""
 
     def pad(v: int, m: int) -> int:
@@ -46,11 +63,165 @@ def packed_elements(c: int, heads: int, hidden: int) -> int:
     return heads * kc * nq + kc * nc + kc * nh + kh * nc
 
 
+def _pad16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def _np(c: int) -> int:
+    """Columns of proj's and fc2's products (``sm_np``: the wgmma widths)."""
+    return next(n for n in (32, 64, 96, 128, 184) if c <= n)
+
+
+def mma_geometry_error(c: int, heads: int) -> str:
+    """Why the bf16 kernel does not take C ``c`` with ``heads`` heads, or ''."""
+    if c % heads:
+        return f"C {c} is not a multiple of {heads} heads"
+    if c % 4 or c > _MMA_MAX_C:
+        return f"C {c} (the bf16 kernel takes C a multiple of 4 up to {_MMA_MAX_C})"
+    if c // heads > 32:
+        return f"head dim {c // heads} (the bf16 kernel takes head dims up to 32)"
+    return ""
+
+
+def swin_pack_stages(c: int, heads: int, hidden: int) -> List[Tuple[str, int, int, int, int]]:
+    """The packed blob's stages in the order the kernel consumes them (the
+    loop of ``SmGeom::stages`` in ``csrc/swin_block_mma.cu``): (kind, head or
+    first hidden unit, first K row, K rows, columns). Per head: "qkv" stages
+    of its q|k|v columns (3 x pad16(d)) by rows of pad16(C), then one "pb"
+    stage (its f32 bias in score-fragment order, then its pad16(d) rows of
+    proj, 184 columns at C 180); per chunk of 64 hidden units: "fc1" stages
+    of its columns, then one "fc2" stage of its rows. A stage holds at most
+    28 KB."""
+    d = c // heads
+    dp, kc, np_ = _pad16(d), _pad16(c), _np(c)
+
+    def rows(n: int) -> int:
+        return min(kc, _SLOT_BYTES // (2 * n) // 16 * 16)
+
+    out = []
+    for h in range(heads):
+        rq = rows(3 * dp)
+        out += [("qkv", h, r0, min(rq, kc - r0), 3 * dp) for r0 in range(0, kc, rq)]
+        out.append(("pb", h, 0, dp, np_))
+    for c0 in range(0, hidden, _CHUNK):
+        hc = _pad16(min(_CHUNK, hidden - c0))
+        rh = rows(hc)
+        out += [("fc1", c0, r0, min(rh, kc - r0), hc) for r0 in range(0, kc, rh)]
+        out.append(("fc2", c0, 0, hc, np_))
+    return out
+
+
+def _stage_elements(kind: str, nrows: int, ncols: int) -> int:
+    return nrows * ncols + (2 * _TOK * _TOK if kind == "pb" else 0)
+
+
+def _k_major(block: torch.Tensor) -> torch.Tensor:
+    """(K, N) -> wgmma's K-major core-matrix order, flat: element (k, n) at
+    (n / 8) K 8 + (k / 8) 64 + (n % 8) 8 + k % 8 (``sm_kmajor``)."""
+    k, n = block.shape
+    return block.reshape(k // 8, 8, n // 8, 8).permute(2, 0, 3, 1).reshape(-1)
+
+
+def _from_k_major(flat: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    return flat.reshape(n // 8, k // 8, 8, 8).permute(1, 3, 0, 2).reshape(k, n)
+
+
+def _bias_fragments(bias_h: torch.Tensor) -> torch.Tensor:
+    """(64, 64) f32 -> the order a warp's score fragments hold it: for row
+    tile wr, key tile nt and lane 4 g + t, (16 wr + g, 8 nt + 2 t), its right
+    neighbour, and the same 8 rows down."""
+    return bias_h.reshape(4, 2, 8, 8, 4, 2).permute(0, 3, 2, 4, 1, 5).reshape(-1)
+
+
+def pack_swin_weights(wqkv, wproj, bias, w1, w2, heads: int) -> torch.Tensor:
+    """Dense B1 weights -> the bf16 blob ``csrc/swin_block_mma.cu`` streams:
+    the stages of :func:`swin_pack_stages` back to back, each the image of a
+    shared-memory ring slot (the weights in wgmma's K-major core-matrix
+    order), zero outside the source matrices. The f32 bias is stored bit for
+    bit (two bf16 elements a value)."""
+    c, hidden = wqkv.shape[0], w1.shape[1]
+    d = c // heads
+    dp, kc, np_ = _pad16(d), _pad16(c), _np(c)
+    dev = wqkv.device
+    bf = torch.bfloat16
+    # q|k|v of each head: (heads, pad16(C), 3 dp), head h's part p in columns p dp .. p dp + d
+    qkv = torch.zeros(heads, kc, 3, dp, dtype=bf, device=dev)
+    qkv[:, :c, :, :d] = wqkv.detach().to(bf).reshape(c, 3, heads, d).permute(2, 0, 1, 3)
+    qkv = qkv.reshape(heads, kc, 3 * dp)
+    proj = torch.zeros(heads, dp, np_, dtype=bf, device=dev)
+    proj[:, :d, :c] = wproj.detach().to(bf).reshape(heads, d, c)
+    w1p = torch.zeros(kc, _pad16(hidden) + _CHUNK, dtype=bf, device=dev)
+    w1p[:c, :hidden] = w1.detach().to(bf)
+    w2p = torch.zeros(_pad16(hidden) + _CHUNK, np_, dtype=bf, device=dev)
+    w2p[:hidden, :c] = w2.detach().to(bf)
+    bias_bits = bias.detach().float().contiguous()
+    pieces = []
+    for kind, idx, r0, nrows, ncols in swin_pack_stages(c, heads, hidden):
+        if kind == "qkv":
+            block = qkv[idx, r0 : r0 + nrows]
+        elif kind == "pb":
+            pieces.append(_bias_fragments(bias_bits[idx]).view(bf))
+            block = proj[idx]
+        elif kind == "fc1":
+            block = w1p[r0 : r0 + nrows, idx : idx + ncols]
+        else:
+            block = w2p[idx : idx + nrows]
+        pieces.append(_k_major(block))
+    return torch.cat(pieces)
+
+
+def unpack_swin_weights(packed: torch.Tensor, c: int, heads: int, hidden: int):
+    """Inverse of :func:`pack_swin_weights`: (wqkv, wproj, bias, w1, w2),
+    the weights bf16 and the bias f32."""
+    stages = swin_pack_stages(c, heads, hidden)
+    total = sum(_stage_elements(kind, nrows, ncols) for kind, _, _, nrows, ncols in stages)
+    if packed.dim() != 1 or packed.dtype != torch.bfloat16 or packed.numel() != total:
+        raise ValueError(
+            f"packed B1 weights {tuple(packed.shape)} {packed.dtype} do not fit C {c}, {heads} heads, hidden {hidden}"
+        )
+    d = c // heads
+    dp, kc = _pad16(d), _pad16(c)
+    bf = torch.bfloat16
+    dev = packed.device
+    qkv = torch.zeros(heads, kc, 3 * dp, dtype=bf, device=dev)
+    wproj = torch.zeros(heads, d, c, dtype=bf, device=dev)
+    bias = torch.zeros(heads, _TOK * _TOK, dtype=torch.float32, device=dev)
+    w1 = torch.zeros(kc, _pad16(hidden) + _CHUNK, dtype=bf, device=dev)
+    w2 = torch.zeros(_pad16(hidden) + _CHUNK, c, dtype=bf, device=dev)
+    at = 0
+    for kind, idx, r0, nrows, ncols in stages:
+        if kind == "pb":
+            bias[idx] = packed[at : at + 2 * _TOK * _TOK].view(torch.float32)
+            at += 2 * _TOK * _TOK
+        block = _from_k_major(packed[at : at + nrows * ncols], nrows, ncols)
+        at += nrows * ncols
+        if kind == "qkv":
+            qkv[idx, r0 : r0 + nrows] = block
+        elif kind == "pb":
+            wproj[idx] = block[:d, :c]
+        elif kind == "fc1":
+            w1[r0 : r0 + nrows, idx : idx + ncols] = block
+        else:
+            w2[idx : idx + nrows] = block[:, :c]
+    wqkv = qkv[:, :c].reshape(heads, c, 3, dp)[..., :d].permute(1, 2, 0, 3).reshape(c, 3 * c)
+    perm = bias.reshape(heads, 4, 8, 8, 4, 2, 2).permute(0, 1, 5, 3, 2, 4, 6)  # (wr, nt, g, t, hh, e) -> rows, cols
+    return wqkv, wproj.reshape(c, c), perm.reshape(heads, _TOK, _TOK), w1[:c, :hidden], w2[:hidden]
+
+
+def _dense(x, wqkv, wproj, bias, w1, w2, heads: int, hidden: int):
+    """The dense weights, unpacked where ``wqkv`` is the packed blob."""
+    if wqkv.dim() == 1:
+        return unpack_swin_weights(wqkv, x.shape[-1], heads, hidden)
+    return wqkv, wproj, bias, w1, w2
+
+
 def swin_block_plain(
     x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, bias, ln2_w, ln2_b, w1, b1, w2, b2,
     *, heads: int, window_size: int, shift: int = 0,
 ):
-    """Plain PyTorch version, computed in f32 and returned in ``x.dtype``."""
+    """Plain PyTorch version, computed in f32 and returned in ``x.dtype``;
+    weights dense or packed."""
+    wqkv, wproj, bias, w1, w2 = _dense(x, wqkv, wproj, bias, w1, w2, heads, b1.shape[0])
     b, h, w, c = x.shape
     ws = window_size
     n = ws * ws
@@ -76,8 +247,9 @@ def fused_swin_block(
     x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, bias, ln2_w, ln2_b, w1, b1, w2, b2,
     *, heads: int, window_size: int, shift: int = 0,
 ):
-    """(B, H, W, C) -> (B, H, W, C). CPU tensors take the plain version;
-    CUDA tensors launch the kernel or raise."""
+    """(B, H, W, C) -> (B, H, W, C); weights dense, or packed in bf16. CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
     args = (x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, bias, ln2_w, ln2_b, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return swin_block_plain(*args, heads=heads, window_size=window_size, shift=shift)
@@ -89,24 +261,49 @@ def fused_swin_block(
         raise NotImplementedError(f"fused_swin_block: the CUDA kernel takes window size {KERNEL_WINDOW}, not {ws}")
     if h % ws or w % ws or c % heads or not 0 <= shift < ws:
         raise ValueError(f"fused_swin_block: shape {tuple(x.shape)}, heads {heads}, shift {shift} do not fit")
-    hidden = w1.shape[-1]
-    n = ws * ws
+    hidden = b1.shape[-1]
     dev, dt, f32 = x.device, x.dtype, torch.float32
-    ptrs = [
-        check(ln1_w, "ln1_w", (c,), f32, dev), check(ln1_b, "ln1_b", (c,), f32, dev),
-        check(wqkv, "wqkv", (c, 3 * c), dt, dev), check(bqkv, "bqkv", (3 * c,), f32, dev),
-        check(wproj, "wproj", (c, c), dt, dev), check(bproj, "bproj", (c,), f32, dev),
-        check(bias, "bias", (heads, n, n), f32, dev),
-        check(ln2_w, "ln2_w", (c,), f32, dev), check(ln2_b, "ln2_b", (c,), f32, dev),
-        check(w1, "w1", (c, hidden), dt, dev), check(b1, "b1", (hidden,), f32, dev),
-        check(w2, "w2", (hidden, c), dt, dev), check(b2, "b2", (c,), f32, dev),
-    ]
     px = check(x, "x", (bsz, h, w, c), dt, dev)
     out = torch.empty_like(x)
-    pack = packed_elements(c, heads, hidden)
-    packed = torch.empty(pack, dtype=dt, device=dev)
-    lib = _build.load("swin_block", _SIGNATURES)
-    fn = lib.swin_block_bf16 if dt == torch.bfloat16 else lib.swin_block_f32
-    status = fn(px, out.data_ptr(), bsz, h, w, c, heads, hidden, shift, *ptrs, packed.data_ptr(), pack, stream(dev))
-    finish("fused_swin_block", status)
+    if dt == torch.bfloat16:
+        why = mma_geometry_error(c, heads)
+        if why:
+            raise NotImplementedError(f"fused_swin_block: the bf16 kernel does not take {why}")
+        if wqkv.dim() != 1:
+            check(wqkv, "wqkv", (c, 3 * c), dt, dev), check(wproj, "wproj", (c, c), dt, dev)
+            check(bias, "bias", (heads, _TOK, _TOK), f32, dev)
+            check(w1, "w1", (c, hidden), dt, dev), check(w2, "w2", (hidden, c), dt, dev)
+            wqkv = pack_swin_weights(wqkv, wproj, bias, w1, w2, heads)  # kept alive until the launch is enqueued
+        elif any(t is not None for t in (wproj, bias, w1, w2)):
+            raise ValueError("fused_swin_block: with packed weights wproj, bias, w1 and w2 are None")
+        lib = _build.load("swin_block_mma", _MMA_SIGNATURES, _MMA_RESTYPES)
+        pack = lib.swin_block_mma_elements(c, heads, hidden)
+        pw = check(wqkv, "packed weights", (pack,), dt, dev)
+        ptrs = [
+            check(ln1_w, "ln1_w", (c,), f32, dev), check(ln1_b, "ln1_b", (c,), f32, dev),
+            check(bqkv, "bqkv", (3 * c,), f32, dev), check(bproj, "bproj", (c,), f32, dev),
+            check(ln2_w, "ln2_w", (c,), f32, dev), check(ln2_b, "ln2_b", (c,), f32, dev),
+            check(b1, "b1", (hidden,), f32, dev), check(b2, "b2", (c,), f32, dev),
+        ]
+        entry = "swin_block_mma_bf16"
+        status = lib.swin_block_mma_bf16(px, out.data_ptr(), pw, *ptrs, bsz, h, w, c, heads, hidden, shift, pack,
+                                         stream(dev))
+    else:
+        n = ws * ws
+        ptrs = [
+            check(ln1_w, "ln1_w", (c,), f32, dev), check(ln1_b, "ln1_b", (c,), f32, dev),
+            check(wqkv, "wqkv", (c, 3 * c), dt, dev), check(bqkv, "bqkv", (3 * c,), f32, dev),
+            check(wproj, "wproj", (c, c), dt, dev), check(bproj, "bproj", (c,), f32, dev),
+            check(bias, "bias", (heads, n, n), f32, dev),
+            check(ln2_w, "ln2_w", (c,), f32, dev), check(ln2_b, "ln2_b", (c,), f32, dev),
+            check(w1, "w1", (c, hidden), dt, dev), check(b1, "b1", (hidden,), f32, dev),
+            check(w2, "w2", (hidden, c), dt, dev), check(b2, "b2", (c,), f32, dev),
+        ]
+        pack = packed_elements(c, heads, hidden)
+        packed = torch.empty(pack, dtype=dt, device=dev)
+        lib = _build.load("swin_block", _SIGNATURES)
+        entry = "swin_block_f32"
+        status = lib.swin_block_f32(px, out.data_ptr(), bsz, h, w, c, heads, hidden, shift, *ptrs, packed.data_ptr(),
+                                    pack, stream(dev))
+    finish("fused_swin_block", status, entry)
     return out

@@ -31,7 +31,7 @@ from studiosr_tpu_torch.ops.cuda import engagement
 from studiosr_tpu_torch.ops.cuda.conv3x3 import (
     fused_conv3x3, fused_resblock, prepare_conv3x3_weights, prepare_fused_conv3x3_weights,
 )
-from studiosr_tpu_torch.ops.cuda.swin_block import fused_swin_block
+from studiosr_tpu_torch.ops.cuda.swin_block import fused_swin_block, mma_geometry_error, pack_swin_weights
 from studiosr_tpu_torch.ops.cuda.upsampler import SCALES_S, fused_upsample_s, fused_upsample_x4
 from studiosr_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 from studiosr_tpu_torch.ops.windows import gather_rel_bias, pad_to_multiple_flip, relative_position_index
@@ -53,8 +53,29 @@ def _conv_operands(conv: nn.Conv2d, dtype):
 
 
 def _b2_operands(conv: nn.Conv2d, dtype):
-    """B2's operands: in bf16 the weights packed in the kernel's layout."""
+    """B2's (and B14's) operands: in bf16 the weights packed in the kernel's
+    layout, HWIO in f32."""
     return prepare_fused_conv3x3_weights(conv.weight, dtype), _f32(conv.bias)
+
+
+def _b1_operands(blk: nn.Module, heads: int, rpi, dtype) -> Dict[str, Any]:
+    """B1's operands for one Swin block, by keyword: in bf16 the weights and
+    the gathered rel-pos bias packed once into the kernel's blob (``wqkv``;
+    ``wproj``, ``bias``, ``w1``, ``w2`` None), dense (in, out) otherwise."""
+    a = blk.attn
+    ops = dict(
+        ln1_w=_f32(blk.norm1.weight), ln1_b=_f32(blk.norm1.bias),
+        wqkv=_dense(a.qkv, dtype), bqkv=_f32(a.qkv.bias),
+        wproj=_dense(a.proj, dtype), bproj=_f32(a.proj.bias),
+        bias=gather_rel_bias(_f32(a.relative_position_bias_table), rpi, heads).contiguous(),
+        ln2_w=_f32(blk.norm2.weight), ln2_b=_f32(blk.norm2.bias),
+        w1=_dense(blk.mlp.fc1, dtype), b1=_f32(blk.mlp.fc1.bias),
+        w2=_dense(blk.mlp.fc2, dtype), b2=_f32(blk.mlp.fc2.bias),
+    )
+    if dtype == torch.bfloat16 and not mma_geometry_error(ops["ln1_w"].shape[0], heads):
+        ops["wqkv"] = pack_swin_weights(ops["wqkv"], ops["wproj"], ops["bias"], ops["w1"], ops["w2"], heads)
+        ops.update(wproj=None, bias=None, w1=None, w2=None)
+    return ops
 
 
 def _residual_operands(block: nn.Module, dtype):
@@ -62,7 +83,7 @@ def _residual_operands(block: nn.Module, dtype):
     ``{"s0", "b0", "s2", "b2"}`` for B14."""
     if isinstance(block, nn.Conv2d):
         return _b2_operands(block, dtype)
-    (s0, b0), (s2, b2) = (_conv_operands(block.S.body._modules[k], dtype) for k in ("0", "2"))
+    (s0, b0), (s2, b2) = (_b2_operands(block.S.body._modules[k], dtype) for k in ("0", "2"))
     return {"s0": s0, "b0": b0, "s2": s2, "b2": b2}
 
 
@@ -79,31 +100,18 @@ def _residual_conv(block: nn.Module, x: torch.Tensor, operands, extra: torch.Ten
 def prepare_serving(module: nn.Module, config: Dict[str, Any], dtype) -> Dict[str, Any]:
     """Lay every kernel's weights out once, at load time.
 
-    Dense weights go to (in, out) and conv weights to HWIO in ``dtype`` (B2's
-    packed in bf16; an SFB's two spatial-branch convs as a ``{s0, b0, s2,
-    b2}`` pair); the
-    rel-pos bias is gathered to (heads, N, N); LayerNorm weights and biases
-    become f32. Consumed by :func:`swinir_fast_forward`."""
+    Dense weights go to (in, out) and conv weights to HWIO in ``dtype``; in
+    bf16 B1's weights and rel-pos bias are packed into its kernel's blob, and
+    B2's and B14's conv weights into theirs (an SFB's two spatial-branch convs
+    as a ``{s0, b0, s2, b2}`` pair); otherwise the rel-pos bias is gathered to
+    (heads, N, N). LayerNorm weights and biases become f32. Consumed by
+    :func:`swinir_fast_forward`."""
     ws = int(config["window_size"])
     rpi = relative_position_index(ws)
     prep: Dict[str, Any] = {"blocks": [], "convs": []}
     for li, layer in enumerate(module.layers):
         heads = int(config["num_heads"][li])
-        group = []
-        for blk in layer.residual_group.blocks:
-            a = blk.attn
-            group.append(
-                dict(
-                    ln1_w=_f32(blk.norm1.weight), ln1_b=_f32(blk.norm1.bias),
-                    wqkv=_dense(a.qkv, dtype), bqkv=_f32(a.qkv.bias),
-                    wproj=_dense(a.proj, dtype), bproj=_f32(a.proj.bias),
-                    bias=gather_rel_bias(_f32(a.relative_position_bias_table), rpi, heads).contiguous(),
-                    ln2_w=_f32(blk.norm2.weight), ln2_b=_f32(blk.norm2.bias),
-                    w1=_dense(blk.mlp.fc1, dtype), b1=_f32(blk.mlp.fc1.bias),
-                    w2=_dense(blk.mlp.fc2, dtype), b2=_f32(blk.mlp.fc2.bias),
-                )
-            )
-        prep["blocks"].append(group)
+        prep["blocks"].append([_b1_operands(blk, heads, rpi, dtype) for blk in layer.residual_group.blocks])
         prep["convs"].append(_residual_operands(layer.conv, dtype))
     prep["after_body"] = _residual_operands(module.conv_after_body, dtype)
     if config.get("upsampler", "pixelshuffle") == "pixelshuffle":

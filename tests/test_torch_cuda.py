@@ -67,17 +67,65 @@ def _block_operands(gen, c, heads, hidden, ws=8):
     ]
 
 
+# B1 (bf16: ``csrc/swin_block_mma.cu``, f32: ``swin_block.cu``): C 180 with
+# 6 heads of 30 (the main path's width), C 32 with 2 of 16 (the trained
+# fixtures), d 8 (C 16), d 12 with an odd count of 8-column output tiles (C
+# 24), d 10 (C 60); batch 2, H != W, shift 0 and 4, odd window counts (the
+# last window pair of the bf16 kernel half empty).
+SWIN_BLOCK_CASES = [
+    (32, 2, (2, 16, 24), 0), (32, 2, (2, 16, 24), 4), (180, 6, (1, 24, 16), 4), (180, 6, (2, 16, 24), 0),
+    (180, 6, (1, 24, 24), 4), (16, 2, (1, 8, 24), 4), (24, 2, (2, 24, 8), 4), (60, 6, (1, 16, 16), 4),
+]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("c,heads,shape,shift", [(32, 2, (2, 16, 24), 0), (32, 2, (2, 16, 24), 4), (180, 6, (1, 24, 16), 4)])
+@pytest.mark.parametrize("c,heads,shape,shift", SWIN_BLOCK_CASES)
 def test_swin_block_kernel_matches_plain(dev, dtype, c, heads, shape, shift):
     gen = torch.Generator().manual_seed(c + shift)
     ops = _block_operands(gen, c, heads, 2 * c)
     x = _randn(gen, *shape, c).to(dev, dtype)
     # weights in the map's dtype, LayerNorm weights, biases and the rel-pos bias in f32
     ops = [t.to(dev, dtype if i in (2, 4, 9, 11) else torch.float32) for i, t in enumerate(ops)]
+    engagement.reset()
     got = fused_swin_block(x, *ops, heads=heads, window_size=8, shift=shift)
+    entry = "swin_block_mma_bf16" if dtype == torch.bfloat16 else "swin_block_f32"
+    assert engagement.entries() == {"fused_swin_block": {entry: 1}}
     want = swin_block_plain(x.float(), *[t.float() for t in ops], heads=heads, window_size=8, shift=shift)
     _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("c,heads,shape,shift", [(180, 6, (1, 24, 16), 4), (32, 2, (2, 16, 24), 0)])
+def test_swin_block_packed_weights_match_dense_bitwise(dev, c, heads, shape, shift):
+    """The blob packed once (what serving holds) gives the same bits as
+    dense weights packed per call, and the C library counts the blob's
+    elements as the Python packer lays them out."""
+    from studiosr_tpu_torch.ops.cuda import _build
+    from studiosr_tpu_torch.ops.cuda.swin_block import _MMA_RESTYPES, _MMA_SIGNATURES, pack_swin_weights
+
+    gen = torch.Generator().manual_seed(c)
+    ops = [t.to(dev, torch.bfloat16 if i in (2, 4, 9, 11) else torch.float32)
+           for i, t in enumerate(_block_operands(gen, c, heads, 2 * c))]
+    x = _randn(gen, *shape, c).to(dev, torch.bfloat16)
+    packed = pack_swin_weights(ops[2], ops[4], ops[6], ops[9], ops[11], heads)
+    lib = _build.load("swin_block_mma", _MMA_SIGNATURES, _MMA_RESTYPES)
+    assert lib.swin_block_mma_elements(c, heads, 2 * c) == packed.numel()
+    dense = fused_swin_block(x, *ops, heads=heads, window_size=8, shift=shift)
+    ops[2], ops[4], ops[6], ops[9], ops[11] = packed, None, None, None, None
+    engagement.reset()
+    got = fused_swin_block(x, *ops, heads=heads, window_size=8, shift=shift)
+    assert engagement.entries() == {"fused_swin_block": {"swin_block_mma_bf16": 1}}
+    assert torch.equal(got, dense)
+
+
+@pytest.mark.parametrize("c,heads,why", [(240, 8, "C 240"), (96, 2, "head dim 48"), (90, 6, "C 90")])
+def test_swin_block_bf16_raises_on_geometries_it_does_not_take(dev, c, heads, why):
+    gen = torch.Generator().manual_seed(0)
+    ops = [t.to(dev, torch.bfloat16 if i in (2, 4, 9, 11) else torch.float32)
+           for i, t in enumerate(_block_operands(gen, c, heads, 2 * c))]
+    engagement.reset()
+    with pytest.raises(NotImplementedError, match=why):
+        fused_swin_block(torch.zeros(1, 8, 8, c, device=dev, dtype=torch.bfloat16), *ops, heads=heads, window_size=8)
+    assert engagement.counters() == {}
 
 
 # B2 (bf16: ``csrc/conv3x3_mma.cuh``, f32: ``conv3x3.cuh``): Cin 180, 20 (a
@@ -555,9 +603,28 @@ def test_resblock_kernel_matches_plain(dev, dtype, shape, activation, res_scale)
     ops = [t.to(dev, dtype if t.dim() == 4 else torch.float32) for t in ops]
     engagement.reset()
     got = fused_resblock(x, *ops, res_scale=res_scale, activation=activation)
+    entry = "resblock_mma_bf16" if dtype == torch.bfloat16 else "resblock_f32"
     assert engagement.counters() == {"fused_resblock": 1}
+    assert engagement.entries() == {"fused_resblock": {entry: 1}}
     want = resblock_plain(x.float(), *[t.float() for t in ops], res_scale=res_scale, activation=activation)
     _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("shape,activation,res_scale", RESBLOCK_CASES)
+def test_resblock_packed_weights_match_hwio_bitwise(dev, shape, activation, res_scale):
+    """bf16 B14 on weights packed once (serving's layout) gives the same bits
+    as on HWIO weights packed per call."""
+    from studiosr_tpu_torch.ops.cuda.conv3x3 import fused_resblock, pack_conv3x3_weights
+
+    gen = torch.Generator().manual_seed(sum(shape) + 1)
+    c = shape[-1]
+    x = _randn(gen, *shape).to(dev, torch.bfloat16)
+    w1, w2 = (_randn(gen, 3, 3, c, c, scale=(9 * c) ** -0.5).to(dev, torch.bfloat16) for _ in range(2))
+    b1, b2 = _randn(gen, c, scale=0.5).to(dev), _randn(gen, c, scale=0.1).to(dev)
+    hwio = fused_resblock(x, w1, b1, w2, b2, res_scale=res_scale, activation=activation)
+    packed = fused_resblock(x, pack_conv3x3_weights(w1), b1, pack_conv3x3_weights(w2), b2, res_scale=res_scale,
+                            activation=activation)
+    assert torch.equal(packed, hwio)
 
 
 def _window_case(gen, bw, heads, n, m, d, offset, dev, dtype):

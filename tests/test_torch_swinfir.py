@@ -187,3 +187,52 @@ def test_trained_fixture_served_by_both_packages():
         diff = np.abs(got.astype(int) - want.astype(int))
         assert diff.max() <= 1 and (diff > 0).mean() < 0.01
         assert abs(compute_psnr(got, hr) - compute_psnr(want, hr)) < 0.01
+
+
+def _bf16_pair(**kw):
+    """As _pair, with every parameter rounded to bf16 on both sides."""
+    jax_model = JaxSwinFIR.build(**kw)
+    jax_model.variables = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16).astype(a.dtype), jax_model.variables)
+    model = SwinFIR.build(**kw, device="cpu")
+    load_jax_params(model.module, jax_model.variables["params"])
+    return jax_model, model
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_prepare_serving_packs_the_sfb_convs_for_bf16_only(dtype):
+    """bf16 serving holds each SFB's two spatial-branch convs packed for
+    B14 (and B1's weights in its blob); f32 keeps HWIO and dense weights."""
+    from studiosr_tpu_torch.ops.cuda.conv3x3 import unpack_conv3x3_weights
+    from studiosr_tpu_torch.serving import prepare_serving
+
+    _, model = _bf16_pair(scale=4, **SMALL)
+    prep = prepare_serving(model.module, model.config, dtype)
+    c = SMALL["embed_dim"]
+    for sfb in (*prep["convs"], prep["after_body"]):
+        assert sorted(sfb) == ["b0", "b2", "s0", "s2"]
+        if dtype == torch.bfloat16:
+            assert sfb["s0"].dim() == 5 and sfb["s2"].dtype == torch.bfloat16
+        else:
+            assert sfb["s0"].shape == (3, 3, c, c) and sfb["s2"].dtype == torch.float32
+    conv = model.module.conv_after_body.S.body._modules["0"]
+    got = prep["after_body"]["s0"]
+    hwio = unpack_conv3x3_weights(got, c, c) if got.dim() == 5 else got
+    assert torch.equal(hwio.float(), conv.weight.permute(2, 3, 1, 0))
+    assert (prep["blocks"][0][0]["wqkv"].dim() == 1) == (dtype == torch.bfloat16)
+
+
+def test_fast_forward_on_bf16_prepared_weights_matches_jax():
+    """The served SwinFIR on the weights as bf16 serving lays them out (B1's
+    blob, B14's packed convs), through the plain versions in f32, against
+    the JAX package's fused forward on the same bf16-rounded weights."""
+    from studiosr_tpu_torch.serving import prepare_serving, swinir_fast_forward
+
+    jax_model, model = _bf16_pair(scale=4, **SMALL)
+    x = _input((1, 20, 24, 3), seed=9)
+    want = np.asarray(jax_model.enable_fused(True)(jnp.asarray(x)))
+    prep = prepare_serving(model.module, model.config, torch.bfloat16)
+    engagement.reset()
+    with torch.inference_mode():
+        got = swinir_fast_forward(model.module, torch.from_numpy(x), model.config, prep=prep)
+    assert engagement.counters() == {}
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)

@@ -3,6 +3,7 @@ vs the JAX package on the CPU, f32."""
 
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,6 +29,16 @@ SWINIR_CKPT = os.path.join(FIXTURES, "swinir_ckpt")
 def _pair(**kw):
     """A JAX SwinIR and the port's, holding the same weights."""
     jax_model = JaxSwinIR.build(**kw)
+    model = SwinIR.build(**kw, device="cpu")
+    load_jax_params(model.module, jax_model.variables["params"])
+    return jax_model, model
+
+
+def _bf16_pair(**kw):
+    """As _pair, with every parameter rounded to bf16 on both sides, so that
+    weights prepared in bf16 hold the model exactly."""
+    jax_model = JaxSwinIR.build(**kw)
+    jax_model.variables = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16).astype(a.dtype), jax_model.variables)
     model = SwinIR.build(**kw, device="cpu")
     load_jax_params(model.module, jax_model.variables["params"])
     return jax_model, model
@@ -169,3 +180,46 @@ def test_fused_scale8_records_structural_decline():
         got = model.enable_fused(True)(x)
     assert engagement.declines()["fused_upsample_tail"]["count"] == 1
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_prepare_serving_packs_b1_and_b2_for_bf16_only(dtype):
+    """bf16 serving holds B1's weights and rel-pos bias in its kernel's blob
+    and B2's conv weights packed; f32 keeps dense (in, out) weights, the
+    gathered bias and HWIO convs. B3's tail stays HWIO in both."""
+    from studiosr_tpu_torch.ops.cuda.swin_block import unpack_swin_weights
+
+    _, model = _bf16_pair(scale=4, **SMALL)
+    prep = prepare_serving(model.module, model.config, dtype)
+    c, hidden = SMALL["embed_dim"], int(SMALL["embed_dim"] * SMALL["mlp_ratio"])
+    blk = prep["blocks"][0][1]
+    w, _ = prep["convs"][0]
+    if dtype == torch.bfloat16:
+        assert blk["wqkv"].dim() == 1 and blk["wqkv"].dtype == torch.bfloat16
+        assert all(blk[k] is None for k in ("wproj", "bias", "w1", "w2"))
+        wqkv, wproj, bias, w1, w2 = unpack_swin_weights(blk["wqkv"], c, 2, hidden)
+        attn = model.module.layers[0].residual_group.blocks[1].attn
+        assert torch.equal(wqkv.float(), attn.qkv.weight.t()) and torch.equal(wproj.float(), attn.proj.weight.t())
+        assert bias.shape == (2, 64, 64) and w1.shape == (c, hidden) and w2.shape == (hidden, c)
+        assert w.dim() == 5 and w.dtype == torch.bfloat16
+    else:
+        assert blk["wqkv"].shape == (c, 3 * c) and blk["bias"].shape == (2, 64, 64) and blk["w1"].shape == (c, hidden)
+        assert w.shape == (3, 3, c, c) and w.dtype == torch.float32
+    assert all(t.dim() == 4 for t in prep["tail"][::2])
+
+
+@pytest.mark.parametrize("scale", [2, 4])
+def test_fast_forward_on_bf16_prepared_weights_matches_jax(scale):
+    """The served composition on the weights as bf16 serving lays them out
+    (B1's blob, B2's packed convs), through the plain versions in f32,
+    against the JAX package's fast forward on the same bf16-rounded weights
+    (interpret mode), at the f32 tolerance."""
+    jax_model, model = _bf16_pair(scale=scale, **SMALL)
+    x = _input((1, 20, 28, 3), seed=2)
+    want = jax_swinir_fast_forward(jax_model.variables, jnp.asarray(x), jax_model.config, interpret=True)
+    prep = prepare_serving(model.module, model.config, torch.bfloat16)
+    engagement.reset()
+    with torch.inference_mode():
+        got = swinir_fast_forward(model.module, torch.from_numpy(x), model.config, prep=prep)
+    assert engagement.counters() == {}
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=RTOL)
