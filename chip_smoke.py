@@ -49,18 +49,22 @@ Phases, in order; any failure exits non-zero before the final line:
    bf16 at the card tests' odd geometries (C 32 / d 16, C 180 at H != W and
    an odd window count, d 8, 10, 12), and bit for bit: B1 on the blob packed
    at load time against B1 on dense weights, B14 on packed weights against
-   B14 on HWIO;
+   B14 on HWIO; B3 at HAT's 256 x 256 x 64 and a ragged (2, 37, 53, 64),
+   f32 and bf16, each launch through its entry; bit for bit, B3 and B4 x2 /
+   x3 on the weights packed at load time against HWIO;
 4. serving end to end: three seeded 256x256 uint8 requests through
    ``inference`` (bf16, fused) with launch counts checked per forward (and
-   every B1 and B2 launch through the bf16 kernel written for the H100, here
-   and in every served path that runs B1, B2, B14 or B15), and the fused
-   forward against the plain port forward in f32 and bf16;
+   every B1, B2 and B3 launch through the bf16 kernel written for the H100,
+   here and in every served path that runs B1, B2, B3, B4, B14 or B15), and
+   the fused forward against the plain port forward in f32 and bf16;
 5. serving timing with CUDA events: the forward, each kernel, its plain
    version, B2's library call, and each kernel's bound from its shapes; for
    B1 the same block as a sequence of bf16 PyTorch calls (no one call
-   computes it); for B1, B2 (B14 in phase 20, B15 in phase 22) kernel /
-   library, the share of the bound and ``-Xptxas -v``'s registers, static
-   shared memory and spills;
+   computes it), and for B3 the same tail as a sequence of bf16 PyTorch
+   calls (three channels-last ``F.conv2d``, two ``F.pixel_shuffle``); for
+   B1, B2, B3 (B14 in phase 20, B15 in phase 22) kernel / library, the
+   share of the bound and ``-Xptxas -v``'s registers, static shared memory
+   and spills;
 6. training kernels vs plain, batch 4 and the path's batch 32 of 64x64
    maps, f32 and bf16: B5 and B8 (shift 0 and 4), B6, B7, with drop-path
    scales that include a 0;
@@ -105,10 +109,12 @@ Phases, in order; any failure exits non-zero before the final line:
     ms, plain ms, bound, and for B12 / B13 the library call's ms
     (``F.scaled_dot_product_attention`` with the bias as its mask);
 17. B4 vs plain at s = 2 and 3, f32 and bf16, at SwinIR's (1, 264, 264,
-    64), HAT's (1, 256, 256, 64) and a ragged (2, 37, 53, 64);
+    64), HAT's (1, 256, 256, 64) and a ragged (2, 37, 53, 64), each launch
+    through its entry;
 18. x2 / x3 at full width, SwinIR then HAT at each scale: fused vs plain
     forward (f32, bf16), three requests with launch counts per forward,
-    the forward's time (ms, LR MP/s) and B4's ms, plain ms and bound;
+    the forward's time (ms, LR MP/s) and B4's ms, plain ms, bound and the
+    same tail as a sequence of bf16 PyTorch calls;
 19. B14 vs plain, f32 and bf16, at SwinFIR's (1, 264, 264, 180) with
     LeakyReLU 0.2 and res_scale 1 (the path) and ReLU and 0.1, and at a
     ragged odd height (1, 37, 53, 48) with both activations and both scales;
@@ -181,7 +187,10 @@ from studiosr_tpu_torch.ops.cuda.mlp_bwd import mlp_bwd, mlp_bwd_plain
 from studiosr_tpu_torch.ops.cuda.oca_core import oca_core_bwd, oca_core_bwd_plain, oca_core_fwd, oca_core_plain
 from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block, ocab_plain, overlap_window
 from studiosr_tpu_torch.ops.cuda.swin_block import fused_swin_block, swin_block_plain
-from studiosr_tpu_torch.ops.cuda.upsampler import fused_upsample_s, fused_upsample_x4, upsample_s_plain, upsample_x4_plain
+from studiosr_tpu_torch.ops.cuda.upsampler import (
+    fused_upsample_s, fused_upsample_x4, pack_tail, unpack_conv_last_weights, unpack_shuffle_conv_weights,
+    upsample_s_plain, upsample_x4_plain,
+)
 from studiosr_tpu_torch.ops.cuda.window_attention import fused_window_attention_block, window_attention_plain
 from studiosr_tpu_torch.ops.cuda.window_attn import window_attention
 from studiosr_tpu_torch.ops.windows import calculate_mask, gather_rel_bias, relative_position_index
@@ -322,15 +331,17 @@ KERNELS["window_attention_pallas"] = ("studiosr_tpu_torch/csrc/window_attn.cu",
 MAXSR_PER_FORWARD = {"window_attention_pallas": 32}
 # (label, windows, heads, tokens, head dim, bias, mask windows): the first two
 # are the two MaxSR modes' shapes at a 256x256 LR input.
-# The C entry of the kernel written for the H100 that every bf16 launch of
-# B1, B2, B14 and B15 on the served paths must go through, and each kernel's
-# stem in its build log (ptxas's registers, shared memory and spills).
+# The C entry of the kernels written for the H100 that every bf16 launch of
+# B1, B2, B3, B4, B14 and B15 on the served paths must go through, and each
+# kernel's stem in its build log (ptxas's registers, shared memory and spills).
 H100_ENTRIES = {"fused_swin_block": "swin_block_mma_bf16", "fused_conv3x3": "conv3x3_mma_bf16",
-                "fused_resblock": "resblock_mma_bf16", "window_attention_pallas": "window_attn_flash_bf16"}
+                "fused_resblock": "resblock_mma_bf16", "window_attention_pallas": "window_attn_flash_bf16",
+                "fused_upsample_x4": "upsample_x4_mma_bf16", "fused_upsample_s": "upsample_s_mma_bf16"}
 H100_KERNELS = {"fused_swin_block": ("swin_block_mma", "swin_block_mma_kernel"),
                 "fused_conv3x3": ("conv3x3", "conv3x3_mma_kernel"),
                 "fused_resblock": ("resblock", "conv3x3_mma_kernel"),
-                "window_attention_pallas": ("window_attn", "wf_kernel")}
+                "window_attention_pallas": ("window_attn", "wf_kernel"),
+                "fused_upsample_x4": ("upsampler", "upsample_"), "fused_upsample_s": ("upsampler", "upsample_")}
 # B1 in bf16 beyond the main path's shape, as the card tests take it: (C,
 # heads, map, shift): C 32 with 2 heads of 16 (the trained fixtures), C 180
 # at H != W and an odd window count (a half-empty last window pair), d 8,
@@ -399,7 +410,7 @@ def kernel_check(part: str, got: torch.Tensor, want: torch.Tensor, dtype: torch.
 
 
 def entry_failures(label: str, launches: dict) -> list:
-    """[] when every B1, B2, B14 and B15 launch of ``launches`` went through the bf16
+    """[] when every B1, B2, B3, B4, B14 and B15 launch of ``launches`` went through the bf16
     entry of its kernel written for the H100 (``engagement.entries()`` since
     the same reset), else the failures."""
     entries, failed = engagement.entries(), []
@@ -430,7 +441,9 @@ def ptxas_report(name: str) -> str:
         if m and fn and stem in fn:
             smem = re.search(r"(\d+) bytes smem", line)
             args = ",".join(re.findall(r"Li(\d+)E", fn))
-            parts.append(f"{stem}<{args}> {m.group(1)} registers, {smem.group(1) if smem else 0} B static smem, "
+            length = re.match(r"_Z(\d+)", fn)
+            kernel = fn[length.end():length.end() + int(length.group(1))] if length else stem
+            parts.append(f"{kernel}<{args}> {m.group(1)} registers, {smem.group(1) if smem else 0} B static smem, "
                          f"spills {spill[0]} / {spill[1]} B")
             fn = None
     return "; ".join(parts)
@@ -579,6 +592,80 @@ def phase_b1_b14_checks(model: SwinIR, dev: torch.device) -> None:
         raise AssertionError("; ".join(failed))
 
 
+def tail_ops(gen, dev: torch.device, dtype: torch.dtype, cin: int, s: int, convs: int):
+    """Seeded HWIO tail operands (w0, b0, [w1, b1,] w2, b2) in ``dtype``."""
+    ops = []
+    for _ in range(convs):
+        ops += [(torch.randn(3, 3, cin, s * s * cin, generator=gen) * (9 * cin) ** -0.5).to(dev, dtype),
+                (torch.randn(s * s * cin, generator=gen) * 0.1).to(dev)]
+    return ops + [(torch.randn(3, 3, cin, 3, generator=gen) * (9 * cin) ** -0.5).to(dev, dtype),
+                  (torch.randn(3, generator=gen) * 0.1).to(dev)]
+
+
+def phase_tail_checks(dev: torch.device) -> None:
+    """B3 beyond the main path's shape: HAT's 256 x 256 x 64 and a ragged
+    (2, 37, 53, 64) map (no tile divides it, batch 2), f32 and bf16, against
+    its plain version, each launch through its entry (bf16: the kernels
+    written for the H100); and in bf16 at the main path's 264 x 264 x 64,
+    B3 and B4 x2 / x3 on the weights packed at load time equal the same
+    tails on HWIO weights (packed per call) bit for bit."""
+    failed = []
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 31)
+    for dtype in (torch.float32, torch.bfloat16):
+        entry = "upsample_x4_mma_bf16" if dtype == torch.bfloat16 else "upsample_x4_f32"
+        for shape in ((1, LR, LR, 64), (2, 37, 53, 64)):
+            x = torch.randn(*shape, generator=gen).to(dev, dtype)
+            ops = tail_ops(gen, dev, dtype, 64, 2, 2)
+            engagement.reset()
+            got = fused_upsample_x4(x, *ops)
+            if engagement.entries() != {"fused_upsample_x4": {entry: 1}}:
+                failed.append(f"B3 {shape} took {engagement.entries()}")
+            want = upsample_x4_plain(x.float(), *ops)
+            kernel_check(f"fused_upsample_x4 [{'x'.join(map(str, shape))}]", got, want, dtype, failed)
+            del got, want
+    hp = LR + MAIN["window_size"]
+    x = torch.randn(1, hp, hp, 64, generator=gen).to(dev, torch.bfloat16)
+    same = {}
+    for scale in (4, *SCALES_S):
+        ops = tail_ops(gen, dev, torch.bfloat16, 64, 2 if scale == 4 else scale, 2 if scale == 4 else 1)
+        if scale == 4:
+            same[scale] = torch.equal(fused_upsample_x4(x, *pack_tail(ops, 4)), fused_upsample_x4(x, *ops))
+        else:
+            same[scale] = torch.equal(fused_upsample_s(x, *pack_tail(ops, scale), scale),
+                                      fused_upsample_s(x, *ops, scale))
+    log(f"B3 / B4 x2 / x3 packed (load time) vs HWIO (packed per call) at {hp}x{hp}x64: bitwise "
+        + ", ".join(f"x{k} {'equal' if v else 'DIFFERENT'}" for k, v in same.items()))
+    failed += [f"x{k}: the tail on packed weights differs from the tail on HWIO weights" for k, v in same.items()
+               if not v]
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
+def hwio_tail(tail, cin: int, scale: int) -> list:
+    """The tail's weights back in HWIO, whichever layout they came in."""
+    s, n_colors = 2 if scale == 4 else scale, tail[-1].shape[0]
+    out = [unpack_shuffle_conv_weights(t, cin, s) if t.dim() == 6 else t for t in tail[:-2]]
+    return out + [unpack_conv_last_weights(tail[-2], n_colors) if tail[-2].dim() == 5 else tail[-2], tail[-1]]
+
+
+def tail_sequence(x, tail, scale: int):
+    """The pixelshuffle tail as a sequence of bf16 PyTorch calls (the
+    yardstick beside B3 and B4, which no single call computes):
+    channels-last ``F.conv2d`` (cuDNN) and ``F.pixel_shuffle``. ``tail``:
+    OIHW channels-last weights and biases in x's dtype, from
+    :func:`sequence_weights`."""
+    s = 2 if scale == 4 else scale
+    y = x.permute(0, 3, 1, 2)
+    for w, b in zip(tail[:-2:2], tail[1:-2:2]):
+        y = F.pixel_shuffle(F.conv2d(y, w, b, padding=1), s).contiguous(memory_format=torch.channels_last)
+    return F.conv2d(y, tail[-2], tail[-1], padding=1).permute(0, 2, 3, 1)
+
+
+def sequence_weights(tail, cin: int, scale: int, dtype: torch.dtype) -> list:
+    return [t.to(dtype).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last) if t.dim() == 4
+            else t.to(dtype) for t in hwio_tail(tail, cin, scale)]
+
+
 def b1_torch_sequence(x, ops, heads: int, shift: int, window_mask=None):
     """The Swin block as a sequence of bf16 PyTorch calls (layer_norm,
     matmul, SDPA with the rel-pos bias and mask as its additive mask,
@@ -692,9 +779,14 @@ def phase_timing(model: SwinIR, dev: torch.device, errors: dict, launches: dict)
         else:
             pix = x_.numel() // x_.shape[-1]
             cin = x_.shape[-1]
-            n_colors = ops[5].shape[-1]
+            n_colors = ops[6].shape[0]
             flops = 2 * 9 * cin * (pix * 4 * cin + 4 * pix * 4 * cin + 16 * pix * n_colors)
-            moved = nbytes(*ops) + 16 * pix * n_colors * x_.element_size()
+            moved = nbytes(x_, *hwio_tail(ops[1:], cin, 4)) + 16 * pix * n_colors * x_.element_size()
+            seq = sequence_weights(ops[1:], cin, 4, x_.dtype)
+            seq_err = rel_l2(tail_sequence(x_, seq, 4), plain(x_.float(), *ops[1:]))
+            seq_ms = time_ms(lambda: tail_sequence(x_, seq, 4), iters=10)
+            log(f"time fused_upsample_x4 yardstick (a sequence of bf16 PyTorch calls: channels-last F.conv2d x3 + "
+                f"F.pixel_shuffle x2; rel_l2 {seq_err:.2e} against the plain version): {seq_ms:.3f} ms")
         plain_ms = time_ms(lambda: plain(*plain_ops), iters=10)
         bms, by = bound_ms(flops, moved)
         source, replaces = KERNELS[name]
@@ -1460,9 +1552,13 @@ def phase_b4_kernels(dev: torch.device) -> dict:
     errors, failed = {}, []
     for s in SCALES_S:
         for dtype in (torch.float32, torch.bfloat16):
+            entry = "upsample_s_mma_bf16" if dtype == torch.bfloat16 else "upsample_s_f32"
             for label, ops in b4_cases(dev, dtype, s):
+                engagement.reset()
                 got = fused_upsample_s(*ops, s)
                 torch.cuda.synchronize()
+                if engagement.entries() != {"fused_upsample_s": {entry: 1}}:
+                    failed.append(f"B4 x{s} {label} took {engagement.entries()}")
                 want = upsample_s_plain(*[t.float() for t in ops], s)
                 torch.cuda.synchronize()
                 err = kernel_check(f"fused_upsample_s x{s} [{label}]", got, want, dtype, failed)
@@ -1480,10 +1576,10 @@ B4_LABEL = "x".join(map(str, B4_SHAPES[0]))
 def b4_bounds(ops, s: int) -> tuple:
     """(flops, bytes) of one B4 launch: each input read once, the output
     written once."""
-    x, w0, _, w2, _ = ops
-    pix, cin, n_colors = x.numel() // x.shape[-1], x.shape[-1], w2.shape[-1]
-    flops = 2 * pix * 9 * cin * w0.shape[-1] + 2 * s * s * pix * 9 * cin * n_colors
-    return flops, nbytes(*ops) + s * s * pix * n_colors * x.element_size()
+    x, _, b0, _, b2 = ops
+    pix, cin, n_colors = x.numel() // x.shape[-1], x.shape[-1], b2.shape[0]
+    flops = 2 * pix * 9 * cin * b0.shape[0] + 2 * s * s * pix * 9 * cin * n_colors
+    return flops, nbytes(x, *hwio_tail(ops[1:], cin, s)) + s * s * pix * n_colors * x.element_size()
 
 
 def s_model(name: str, s: int, dev: torch.device):
@@ -1544,8 +1640,12 @@ def phase_scale_serving(name: str, s: int, dev: torch.device) -> tuple:
     plain_ms = time_ms(lambda: upsample_s_plain(*ops, s), iters=10)
     flops, moved = b4_bounds(ops, s)
     bms, by = bound_ms(flops, moved)
+    seq = sequence_weights(ops[1:], 64, s, torch.bfloat16)
+    seq_ms = time_ms(lambda: tail_sequence(ops[0], seq, s), iters=10)
     log(f"time fused_upsample_s x{s} at {name}'s {hp}x{hp}x64 bf16: {ms:.3f} ms ({100 * ms / fwd:.1f} % of the "
-        f"forward), plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), {flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB")
+        f"forward), plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), {flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB; "
+        f"yardstick (a sequence of bf16 PyTorch calls: channels-last F.conv2d x2 + F.pixel_shuffle) {seq_ms:.3f} ms; "
+        f"{ptxas_report('fused_upsample_s')}")
     del model
     return launches, fwd, dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
 
@@ -2071,6 +2171,7 @@ def main() -> int:
     log(f"model: SwinIR x4 embed {MAIN['embed_dim']} depths {MAIN['depths']}, {model.count_parameters()} parameters")
     errors = phase_kernels(model, dev)
     phase_b1_b14_checks(model, dev)
+    phase_tail_checks(dev)
     launches = phase_end_to_end(model, dev)
     rows = phase_timing(model, dev, errors, launches)
     del model

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's convolution kernels and B1 on one NVIDIA GPU.
 
-    PYTHONPATH=<checkout> python3 scripts/torch_time_conv_kernels.py
+    python3 scripts/torch_time_conv_kernels.py [--checkout DIR]
 
 Times, in bf16 with seeded operands, by CUDA events over 20 launches after 3
 warm-up launches: B2 (``fused_conv3x3`` with the skip map, SwinIR serving's
@@ -9,36 +9,47 @@ warm-up launches: B2 (``fused_conv3x3`` with the skip map, SwinIR serving's
 lays them out: ``prepare_fused_conv3x3_weights`` where the checkout has it,
 else HWIO) and its library yardstick (cuDNN's ``F.conv2d`` + add,
 channels-last), B3 (``fused_upsample_x4``, 264 x 264 x 64), B4
-(``fused_upsample_s`` at x2 and x3, 264 x 264 x 64), B11
+(``fused_upsample_s`` at x2 and x3, 264 x 264 x 64), each tail on its
+weights laid out as the checkout's serving path lays them out (packed by
+``pack_tail`` where the checkout has it, else HWIO), beside the same tail as
+a sequence of bf16 PyTorch calls (channels-last ``F.conv2d`` and
+``F.pixel_shuffle``), B11
 (``fused_cab_body``, HAT serving's 256 x 256 x 180 map, 180 -> 60 -> 180) and
 B14 (``fused_resblock``, SwinFIR's 264 x 264 x 180 map, LeakyReLU 0.2, its
 weights packed as the checkout's serving path packs them where its B14
 takes packed weights, else HWIO) beside cuDNN's two convs + LeakyReLU +
 add, and B1 (``fused_swin_block``, the main path's 264 x 264 x 180 map, 6
 heads, hidden 360, shift 4, its weights packed once where the checkout has
-``pack_swin_weights``, else dense), and prints one JSON line: {"package": path, "card": nvidia-smi's name and power
-limit, "ms": {kernel: ms}}. The package is whichever ``studiosr_tpu_torch``
-is first on the path, so running it with ``PYTHONPATH`` set to two checkouts
-in turn (A, B, B, A) compares them on one card.
+``pack_swin_weights``, else dense).
+
+The per-pass split of B3 and B4: ``torch.profiler`` over 10 calls of each
+tail gives the device time of every kernel a call enqueues, in launch order
+(B3 is three passes: conv0, conv1, conv_last; B4 two: conv0, conv_last).
+
+Prints one JSON line: {"package": path, "card": nvidia-smi's name and power
+limit, "ms": {kernel: ms}, "passes": {tail: [[kernel name, ms], ...]}}. The
+package is whichever ``studiosr_tpu_torch`` is first on the path. With
+``--checkout DIR`` the script instead runs itself four times, with
+``PYTHONPATH`` set to DIR, this checkout, this checkout and DIR (A, B, B,
+A on one card), prints each line and then a table of the four.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import os
 import subprocess
+import sys
+from pathlib import Path
 
-import torch
-import torch.nn.functional as F
-
-import studiosr_tpu_torch
-from studiosr_tpu_torch import resolve_device
-from studiosr_tpu_torch.ops.cuda import conv3x3, swin_block
-from studiosr_tpu_torch.ops.cuda.conv3x3 import fused_cab_body, fused_conv3x3, fused_resblock
-from studiosr_tpu_torch.ops.cuda.swin_block import fused_swin_block
-from studiosr_tpu_torch.ops.cuda.upsampler import fused_upsample_s, fused_upsample_x4
+ROOT = Path(__file__).resolve().parents[1]
+CALLS = 10
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    import torch
+
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -51,7 +62,58 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def main() -> None:
+def pass_split(fn, calls: int = CALLS) -> list:
+    """[[kernel name, device ms], ...] of the kernels one call of ``fn``
+    enqueues, in launch order, each averaged over ``calls`` profiled calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                      and not e.name.startswith(("Memcpy", "Memset"))), key=lambda e: e.time_range.start)
+    if not kernels or len(kernels) % calls:
+        return [[f"{len(kernels)} device kernels in {calls} calls: no split", None]]
+    per = len(kernels) // calls
+    return [[kernels[i].name[:80], sum(k.time_range.elapsed_us() for k in kernels[i::per]) / calls / 1e3]
+            for i in range(per)]
+
+
+def tail_sequence(x, w0, b0, *rest):
+    """The pixelshuffle tail as a sequence of bf16 PyTorch calls:
+    channels-last ``F.conv2d`` (cuDNN) and ``F.pixel_shuffle``; ``rest`` is
+    (w1, b1, w2, b2, 2) at x4, (w2, b2, s) at x2 / x3, weights OIHW."""
+    import torch
+    import torch.nn.functional as F
+
+    *convs, s = rest
+    y = x.permute(0, 3, 1, 2)
+    y = F.pixel_shuffle(F.conv2d(y, w0, b0, padding=1), s)
+    if len(convs) == 4:
+        y = F.pixel_shuffle(F.conv2d(y.contiguous(memory_format=torch.channels_last), convs[0], convs[1], padding=1),
+                            s)
+    y = y.contiguous(memory_format=torch.channels_last)
+    return F.conv2d(y, convs[-2], convs[-1], padding=1).permute(0, 2, 3, 1)
+
+
+def measure() -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    if "PYTHONPATH" not in os.environ:
+        sys.path.insert(0, str(ROOT))
+    import studiosr_tpu_torch
+    from studiosr_tpu_torch import resolve_device
+    from studiosr_tpu_torch.ops.cuda import conv3x3, swin_block, upsampler
+    from studiosr_tpu_torch.ops.cuda.conv3x3 import fused_cab_body, fused_conv3x3, fused_resblock
+    from studiosr_tpu_torch.ops.cuda.swin_block import fused_swin_block
+    from studiosr_tpu_torch.ops.cuda.upsampler import fused_upsample_s, fused_upsample_x4
+
     dev = resolve_device("cuda")
     gen = torch.Generator().manual_seed(0)
     bf = torch.bfloat16
@@ -62,6 +124,10 @@ def main() -> None:
     def conv_w(cin, cout):
         return randn(3, 3, cin, cout, scale=(9 * cin) ** -0.5).to(bf), randn(cout, scale=0.1)
 
+    def oihw(ops):
+        return [t.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last) if t.dim() == 4 else t.to(bf)
+                for t in ops]
+
     x = randn(1, 264, 264, 180).to(bf)
     w, b = conv_w(180, 180)
     w_oihw, b_lib, x_nchw = w.permute(3, 2, 0, 1).contiguous(), b.to(bf), x.permute(0, 3, 1, 2)
@@ -70,6 +136,10 @@ def main() -> None:
     x64 = randn(1, 264, 264, 64).to(bf)
     tail = [*conv_w(64, 256), *conv_w(64, 256), *conv_w(64, 3)]
     tail_s = {s: [*conv_w(64, s * s * 64), *conv_w(64, 3)] for s in (2, 3)}
+    seq_x4, seq_s = oihw(tail), {s: oihw(t) for s, t in tail_s.items()}
+    pack_tail = getattr(upsampler, "pack_tail", None)  # the serving layout, where the checkout has one
+    if pack_tail is not None:
+        tail, tail_s = pack_tail(tail, 4), {s: pack_tail(t, s) for s, t in tail_s.items()}
     h = randn(1, 256, 256, 180).to(bf)
     cab = [1 + randn(180, scale=0.1), randn(180, scale=0.1), *conv_w(180, 60), *conv_w(60, 180)]
     res = [*conv_w(180, 180), *conv_w(180, 180)]
@@ -90,21 +160,58 @@ def main() -> None:
     if hasattr(swin_block, "pack_swin_weights"):  # packed once, as serving holds them
         packed = swin_block.pack_swin_weights(block[2], block[4], block[6], block[9], block[11], heads)
         block = [packed if i == 2 else None if i in (4, 6, 9, 11) else t for i, t in enumerate(block)]
+    tails = {
+        "fused_upsample_x4": lambda: fused_upsample_x4(x64, *tail),
+        "fused_upsample_s x2": lambda: fused_upsample_s(x64, *tail_s[2], 2),
+        "fused_upsample_s x3": lambda: fused_upsample_s(x64, *tail_s[3], 3),
+    }
     ms = {
         "fused_conv3x3": time_ms(lambda: fused_conv3x3(x, w_b2, b, extra=x)),
         "fused_conv3x3 library (cuDNN conv2d + add)": time_ms(
             lambda: F.conv2d(x_nchw, w_oihw, b_lib, padding=1).permute(0, 2, 3, 1) + x),
-        "fused_upsample_x4": time_ms(lambda: fused_upsample_x4(x64, *tail)),
-        "fused_upsample_s x2": time_ms(lambda: fused_upsample_s(x64, *tail_s[2], 2)),
-        "fused_upsample_s x3": time_ms(lambda: fused_upsample_s(x64, *tail_s[3], 3)),
+        **{name: time_ms(fn) for name, fn in tails.items()},
+        "fused_upsample_x4 sequence (bf16 conv2d x3 + pixel_shuffle x2)": time_ms(
+            lambda: tail_sequence(x64, *seq_x4, 2)),
+        **{f"fused_upsample_s x{s} sequence (bf16 conv2d x2 + pixel_shuffle)": time_ms(
+            lambda s=s: tail_sequence(x64, *seq_s[s], s)) for s in (2, 3)},
         "fused_cab_body": time_ms(lambda: fused_cab_body(h, *cab)),
         "fused_resblock": time_ms(lambda: fused_resblock(x, *res, activation="lrelu0.2")),
         "fused_resblock library (cuDNN conv2d x2 + leaky_relu + add)": time_ms(resblock_library),
         "fused_swin_block": time_ms(lambda: fused_swin_block(x, *block, heads=heads, window_size=8, shift=4)),
     }
+    passes = {name: pass_split(fn) for name, fn in tails.items()}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(json.dumps({"package": studiosr_tpu_torch.__file__, "card": card, "ms": ms}))
+    return {"package": studiosr_tpu_torch.__file__, "card": card, "ms": ms, "passes": passes}
+
+
+def ab(checkout: Path) -> None:
+    """Run this script on ``checkout``, this tree, this tree, ``checkout``."""
+    runs = []
+    for label, tree in (("parent", checkout), ("change", ROOT), ("change", ROOT), ("parent", checkout)):
+        env = dict(os.environ, PYTHONPATH=str(tree))
+        out = subprocess.run([sys.executable, str(Path(__file__).resolve())], env=env, cwd=tree, capture_output=True,
+                             text=True, check=True, timeout=1800).stdout
+        line = json.loads(out.strip().splitlines()[-1])
+        print(json.dumps({"run": label, **line}), flush=True)
+        runs.append((label, line))
+    print("ms, " + " / ".join(label for label, _ in runs))
+    for name in runs[0][1]["ms"]:
+        print(f"  {name}: " + " / ".join(f"{line['ms'].get(name, float('nan')):.4f}" for _, line in runs))
+    for name in runs[0][1]["passes"]:
+        for label, line in runs:
+            print(f"  {name} passes [{label}]: " + "; ".join(
+                f"{k} {'n/a' if t is None else f'{t:.4f}'}" for k, t in line["passes"][name]))
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--checkout", type=Path, help="a second checkout to compare with: parent, this, this, parent")
+    args = parser.parse_args()
+    if args.checkout:
+        ab(args.checkout.resolve())
+    else:
+        print(json.dumps(measure()))
 
 
 if __name__ == "__main__":

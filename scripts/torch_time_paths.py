@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's end-to-end paths on one NVIDIA GPU.
 
-    PYTHONPATH=<checkout> python3 scripts/torch_time_paths.py
+    PYTHONPATH=<checkout> python3 scripts/torch_time_paths.py [--only PATH ...]
 
 Times, as ``chip_smoke.py`` does (CUDA events, 2 warm-up calls, seeded
 random weights at full width): the SwinIR x4, HAT x4, SwinFIR x4, MaxSR
@@ -9,7 +9,7 @@ x4 (adaptive and static, the JAX package's ``build`` defaults) and SwinIR
 x2 and x3 forward
 (bf16, batch 1, a 256 x 256 uint8 image, fused serving) over 5 forwards,
 and the SwinIR x4 and HAT x4 train step (``make_train_step``, bf16 over f32 masters, batch
-32 of 64 x 64 crops, fused_train) over 5 steps, and prints one JSON line:
+32 of 64 x 64 crops, fused_train) over 5 steps (``--only`` names a subset), and prints one JSON line:
 {"package": path, "card": nvidia-smi's name and power limit, "ms": {path:
 ms}}. A checkout whose HAT has no fused training path reads null there. The
 package is whichever ``studiosr_tpu_torch`` is first on the path, so running
@@ -19,6 +19,7 @@ them on one card.
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 
@@ -82,19 +83,24 @@ def step_ms(name: str, dev: torch.device):
     return time_ms(lambda: step(state, lq, gt, gen))
 
 
+PATHS = ("swinir forward", "swinir train step", "hat forward", "hat train step", "swinfir forward",
+         "maxsr adaptive forward", "maxsr static forward", "swinir x2 forward", "swinir x3 forward")
+
+
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--only", nargs="+", choices=PATHS, default=PATHS, metavar="PATH",
+                        help=f"time only these paths, of: {', '.join(PATHS)}")
+    args = parser.parse_args()
     dev = resolve_device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     ms = {}
-    for name in ("swinir", "hat"):
-        ms[f"{name} forward"] = forward_ms(name, dev)
-        torch.cuda.empty_cache()
-        ms[f"{name} train step"] = step_ms(name, dev)
-        torch.cuda.empty_cache()
-    for name in ("swinfir", "maxsr adaptive", "maxsr static", "swinir x2", "swinir x3"):
-        ms[f"{name} forward"] = forward_ms(name, dev)
-        torch.cuda.empty_cache()
+    for path in PATHS:
+        if path in args.only:
+            name = path.rsplit(" ", 2 if path.endswith("train step") else 1)[0]
+            ms[path] = step_ms(name, dev) if path.endswith("train step") else forward_ms(name, dev)
+            torch.cuda.empty_cache()
     print(json.dumps({"package": str(studiosr_tpu_torch.__file__), "card": card, "ms": ms}))
 
 

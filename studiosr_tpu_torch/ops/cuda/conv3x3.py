@@ -96,7 +96,8 @@ def unpack_conv3x3_weights(packed: torch.Tensor, cin: int, cout: int) -> torch.T
 def prepare_fused_conv3x3_weights(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """torch OIHW 3x3 conv weight -> B2's (and B14's) weight operand, laid
     out once at load time: packed for bf16 (the kernel's own layout), HWIO
-    otherwise. B3, B4 and B11 take :func:`prepare_conv3x3_weights`."""
+    otherwise. B11 takes :func:`prepare_conv3x3_weights`; B3 and B4 pack
+    theirs with ``upsampler.pack_tail``."""
     hwio = prepare_conv3x3_weights(weight, dtype)
     return pack_conv3x3_weights(hwio) if dtype == torch.bfloat16 else hwio
 

@@ -6,36 +6,173 @@ each conv zero-padding at its own resolution. One call launches the tail
 (three conv passes, the shuffles folded into the stores); the
 intermediates are allocated here and rounded to the map's dtype.
 
-Weights are HWIO in the map's dtype: ``w0`` and ``w1`` (3, 3, Cin, 4 Cin),
-``w2`` (3, 3, Cin, n_colors); biases f32.
-
 B4 replaces ``studiosr_tpu/ops/pallas/upsampler.py::fused_upsample_s``:
 conv3x3 (Cin -> s^2 Cin) -> pixel_shuffle(s) -> conv_last, s in {2, 3}, in
 two conv passes; c0 is allocated here at sH x sW and rounded to the map's
-dtype, and conv_last zero-pads at that resolution. ``w0`` is (3, 3, Cin,
-s^2 Cin) and ``w2`` (3, 3, Cin, n_colors).
+dtype, and conv_last zero-pads at that resolution.
+
+Weights are HWIO in the map's dtype: ``w0`` (and at x4 ``w1``) (3, 3, Cin,
+s^2 Cin), ``w2`` (3, 3, Cin, n_colors); biases f32. In bf16 they may also
+come packed in the kernels' layouts (:func:`pack_tail`, what serving
+prepares once at load time): ``w0`` and ``w1`` by
+:func:`pack_shuffle_conv_weights`, ``w2`` by :func:`pack_conv_last_weights`;
+HWIO weights are packed on every call. bf16 launches the kernels written
+for the H100 (C entries ``upsample_x4_mma_bf16``, ``upsample_s_mma_bf16``:
+Cin a multiple of 16 up to 64, n_colors up to 8; other geometries raise),
+f32 the simple version on HWIO weights (``upsample_x4_f32``,
+``upsample_s_f32``). ``engagement.entries()`` tells them apart.
 """
 
 from __future__ import annotations
 
+from typing import Sequence, Tuple
+
 import torch
+import torch.nn.functional as F
 
 from studiosr_tpu_torch.ops.cuda import _build
 from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, check, finish, stream
 from studiosr_tpu_torch.ops.cuda.conv3x3 import conv3x3_plain
 from studiosr_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 
-__all__ = ["fused_upsample_x4", "upsample_x4_plain", "fused_upsample_s", "upsample_s_plain", "SCALES_S"]
+__all__ = [
+    "fused_upsample_x4", "upsample_x4_plain", "fused_upsample_s", "upsample_s_plain", "SCALES_S",
+    "pack_shuffle_conv_weights", "unpack_shuffle_conv_weights", "pack_conv_last_weights", "unpack_conv_last_weights",
+    "pack_tail", "mma_geometry_error",
+]
 
 SCALES_S = (2, 3)
 _ARGS = (P,) * 10 + (I,) * 5 + (P,)
 _ARGS_S = (P,) * 7 + (I,) * 6 + (P,)
-_SIGNATURES = {"upsample_x4_f32": _ARGS, "upsample_x4_bf16": _ARGS, "upsample_s_f32": _ARGS_S,
-               "upsample_s_bf16": _ARGS_S}
+_SIGNATURES = {"upsample_x4_f32": _ARGS, "upsample_x4_mma_bf16": _ARGS, "upsample_s_f32": _ARGS_S,
+               "upsample_s_mma_bf16": _ARGS_S}
+_CHUNK = {2: 128, 3: 96}  # csrc/upsampler.cu UpChunk: columns a ring slot
+_K, _MAX_COLORS = 64, 8  # csrc/upsampler.cu UP_K (the most Cin), UL_MAX_COLORS
+
+
+def mma_geometry_error(cin: int, n_colors: int) -> str:
+    """Why the bf16 kernels do not take this geometry, or ''."""
+    if cin % 16 or not 16 <= cin <= _K:
+        return f"Cin {cin} is not a multiple of 16 from 16 to {_K}"
+    if not 1 <= n_colors <= _MAX_COLORS:
+        return f"n_colors {n_colors} is not from 1 to {_MAX_COLORS}"
+    return ""
+
+
+def packed_shuffle_conv_shape(cin: int, s: int) -> Tuple[int, ...]:
+    """(chunks of NC columns, 9 taps, 8 groups of 8 input channels (K padded
+    to 64), NC / 8, 8 columns, 8 input channels)."""
+    nc = _CHUNK[s]
+    return (-(-s * s * cin // nc), 9, _K // 8, nc // 8, 8, 8)
+
+
+def pack_shuffle_conv_weights(w: torch.Tensor, s: int) -> torch.Tensor:
+    """HWIO (3, 3, Cin, s^2 Cin) -> the bf16 layout of the kernel's weight
+    ring: columns reordered from torch's pixel-shuffle order c s^2 + i s + j
+    to (i s + j) Cin + c (a Cin-column stretch is one subpixel plane), cut
+    into chunks of NC columns (zero past s^2 Cin), input channels zero-padded
+    to 64, and each (chunk, tap) laid out as the image of a ring slot,
+    wgmma's K-major operand: element (column n, input channel k) at [k / 8,
+    n / 8, n % 8, k % 8]."""
+    _, _, cin, cout = w.shape
+    if cout != s * s * cin:
+        raise ValueError(f"a pixel_shuffle({s}) conv needs Cout = {s * s} Cin, got {tuple(w.shape)}")
+    if cin > _K:
+        raise ValueError(f"Cin {cin} is more than {_K}")
+    nchunk, _, ncg, nng, _, _ = packed_shuffle_conv_shape(cin, s)
+    nc = 8 * nng
+    wt = w.detach().to(torch.bfloat16).reshape(9, cin, cin, s * s).transpose(2, 3).reshape(9, cin, cout)
+    wt = F.pad(wt, (0, nchunk * nc - cout, 0, _K - cin))
+    wt = wt.reshape(9, ncg, 8, nchunk, nng, 8)  # tap, k / 8, k % 8, chunk, n / 8, n % 8
+    return wt.permute(3, 0, 1, 4, 5, 2).contiguous()
+
+
+def unpack_shuffle_conv_weights(packed: torch.Tensor, cin: int, s: int) -> torch.Tensor:
+    """Inverse of :func:`pack_shuffle_conv_weights`: HWIO (3, 3, Cin, s^2 Cin)."""
+    shape = packed_shuffle_conv_shape(cin, s)
+    if tuple(packed.shape) != shape:
+        raise ValueError(f"packed weights {tuple(packed.shape)} do not fit Cin {cin} at x{s}: expected {shape}")
+    nchunk, _, _, nng, _, _ = shape
+    wt = packed.permute(1, 2, 5, 0, 3, 4).reshape(9, _K, nchunk * nng * 8)[:, :cin, : s * s * cin]
+    return wt.reshape(9, cin, s * s, cin).transpose(2, 3).reshape(3, 3, cin, s * s * cin)
+
+
+def pack_conv_last_weights(w: torch.Tensor) -> torch.Tensor:
+    """HWIO (3, 3, Cin, n_colors) -> the bf16 layout conv_last's warps read
+    into registers: for each tap and 16-channel k-step, mma.m16n8k16's B
+    fragment of each lane 4 g + t, (9, Cin / 16, 8, 4, 4) with element [tap,
+    ks, g, t, e] = w[tap, 16 ks + 2 t + 8 (e // 2) + e % 2, column g], zero
+    past n_colors."""
+    _, _, cin, n_colors = w.shape
+    wt = F.pad(w.detach().to(torch.bfloat16).reshape(9, cin, n_colors), (0, _MAX_COLORS - n_colors))
+    wt = wt.reshape(9, cin // 16, 2, 4, 2, _MAX_COLORS)  # tap, ks, k % 16 // 8, t, k % 2, column
+    return wt.permute(0, 1, 5, 3, 2, 4).reshape(9, cin // 16, _MAX_COLORS, 4, 4).contiguous()
+
+
+def unpack_conv_last_weights(packed: torch.Tensor, n_colors: int) -> torch.Tensor:
+    """Inverse of :func:`pack_conv_last_weights`: HWIO (3, 3, Cin, n_colors)."""
+    cin = 16 * packed.shape[1]
+    if tuple(packed.shape) != (9, cin // 16, _MAX_COLORS, 4, 4):
+        raise ValueError(f"packed conv_last weights {tuple(packed.shape)} are not (9, Cin / 16, 8, 4, 4)")
+    wt = packed.reshape(9, cin // 16, _MAX_COLORS, 4, 2, 2).permute(0, 1, 4, 3, 5, 2)
+    return wt.reshape(3, 3, cin, _MAX_COLORS)[..., :n_colors]
+
+
+def pack_tail(tail: Sequence[torch.Tensor], scale: int) -> tuple:
+    """The tail's operands (w0, b0, [w1, b1,] w2, b2), HWIO, with the
+    weights packed for the bf16 kernels (biases as they are); ``scale`` 4
+    for B3, 2 or 3 for B4."""
+    s = 2 if scale == 4 else scale
+    *convs, w2, b2 = tail
+    packed = [pack_shuffle_conv_weights(t, s) if i % 2 == 0 else t for i, t in enumerate(convs)]
+    return (*packed, pack_conv_last_weights(w2), b2)
+
+
+def _hwio_shuffle(w: torch.Tensor, cin: int, s: int) -> torch.Tensor:
+    return unpack_shuffle_conv_weights(w, cin, s) if w.dim() == 6 else w
+
+
+def _hwio_last(w: torch.Tensor, n_colors: int) -> torch.Tensor:
+    return unpack_conv_last_weights(w, n_colors) if w.dim() == 5 else w
+
+
+def _mma_weights(w, name: str, cin: int, s: int, dev: torch.device) -> torch.Tensor:
+    """A pixel_shuffle(s) conv's weights as the bf16 kernel reads them,
+    HWIO packed on the way; raises on anything else."""
+    if w.dim() == 4:
+        check(w, name, (3, 3, cin, s * s * cin), torch.bfloat16, dev)
+        w = pack_shuffle_conv_weights(w, s)
+    check(w, name, packed_shuffle_conv_shape(cin, s), torch.bfloat16, dev)
+    return w
+
+
+def _mma_last_weights(w, name: str, cin: int, n_colors: int, dev: torch.device) -> torch.Tensor:
+    """conv_last's weights as the bf16 kernel reads them, HWIO packed on
+    the way; raises on anything else."""
+    if w.dim() == 4:
+        check(w, name, (3, 3, cin, n_colors), torch.bfloat16, dev)
+        w = pack_conv_last_weights(w)
+    check(w, name, (9, cin // 16, _MAX_COLORS, 4, 4), torch.bfloat16, dev)
+    return w
+
+
+def _geometry(x: torch.Tensor, b2: torch.Tensor, name: str):
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name}: unsupported dtype {x.dtype}")
+    bsz, h, w, cin = x.shape
+    n_colors = b2.shape[0]
+    if x.dtype == torch.bfloat16:
+        error = mma_geometry_error(cin, n_colors)
+        if error:
+            raise ValueError(f"{name}: the bf16 kernel does not take this geometry: {error}")
+    return bsz, h, w, cin, n_colors
 
 
 def upsample_x4_plain(x, w0, b0, w1, b1, w2, b2):
-    """Plain PyTorch version; each conv in f32, stages rounded to ``x.dtype``."""
+    """Plain PyTorch version; each conv in f32, stages rounded to ``x.dtype``;
+    weights HWIO or packed."""
+    cin, n_colors = x.shape[-1], b2.shape[0]
+    w0, w1, w2 = _hwio_shuffle(w0, cin, 2), _hwio_shuffle(w1, cin, 2), _hwio_last(w2, n_colors)
     y = pixel_shuffle(conv3x3_plain(x, w0, b0), 2)
     y = pixel_shuffle(conv3x3_plain(y, w1, b1), 2)
     return conv3x3_plain(y, w2, b2)
@@ -46,29 +183,32 @@ def fused_upsample_x4(x, w0, b0, w1, b1, w2, b2):
     version; CUDA tensors launch the kernels or raise."""
     if x.device.type == "cpu":
         return upsample_x4_plain(x, w0, b0, w1, b1, w2, b2)
-    if x.dtype not in KERNEL_DTYPES:
-        raise TypeError(f"fused_upsample_x4: unsupported dtype {x.dtype}")
-    bsz, h, w, cin = x.shape
-    n_colors = w2.shape[-1]
+    bsz, h, w, cin, n_colors = _geometry(x, b2, "fused_upsample_x4")
     dev, dt, f32 = x.device, x.dtype, torch.float32
-    ptrs = [
-        check(x, "x", (bsz, h, w, cin), dt, dev),
-        check(w0, "w0", (3, 3, cin, 4 * cin), dt, dev), check(b0, "b0", (4 * cin,), f32, dev),
-        check(w1, "w1", (3, 3, cin, 4 * cin), dt, dev), check(b1, "b1", (4 * cin,), f32, dev),
-        check(w2, "w2", (3, 3, cin, n_colors), dt, dev), check(b2, "b2", (n_colors,), f32, dev),
-    ]
+    if dt == torch.bfloat16:  # kept alive until the launch is enqueued
+        w0, w1 = _mma_weights(w0, "w0", cin, 2, dev), _mma_weights(w1, "w1", cin, 2, dev)
+        w2 = _mma_last_weights(w2, "w2", cin, n_colors, dev)
+        pw = [w0.data_ptr(), w1.data_ptr(), w2.data_ptr()]
+    else:
+        pw = [check(w0, "w0", (3, 3, cin, 4 * cin), dt, dev), check(w1, "w1", (3, 3, cin, 4 * cin), dt, dev),
+              check(w2, "w2", (3, 3, cin, n_colors), dt, dev)]
+    ptrs = [check(x, "x", (bsz, h, w, cin), dt, dev), pw[0], check(b0, "b0", (4 * cin,), f32, dev),
+            pw[1], check(b1, "b1", (4 * cin,), f32, dev), pw[2], check(b2, "b2", (n_colors,), f32, dev)]
     t1 = torch.empty((bsz, 2 * h, 2 * w, cin), dtype=dt, device=dev)
     t2 = torch.empty((bsz, 4 * h, 4 * w, cin), dtype=dt, device=dev)
     out = torch.empty((bsz, 4 * h, 4 * w, n_colors), dtype=dt, device=dev)
     lib = _build.load("upsampler", _SIGNATURES)
-    fn = lib.upsample_x4_bf16 if dt == torch.bfloat16 else lib.upsample_x4_f32
-    status = fn(*ptrs, t1.data_ptr(), t2.data_ptr(), out.data_ptr(), bsz, h, w, cin, n_colors, stream(dev))
-    finish("fused_upsample_x4", status)
+    entry = "upsample_x4_mma_bf16" if dt == torch.bfloat16 else "upsample_x4_f32"
+    status = getattr(lib, entry)(*ptrs, t1.data_ptr(), t2.data_ptr(), out.data_ptr(), bsz, h, w, cin, n_colors,
+                                 stream(dev))
+    finish("fused_upsample_x4", status, entry)
     return out
 
 
 def upsample_s_plain(x, w0, b0, w2, b2, s: int):
-    """Plain PyTorch version of B4; each conv in f32, c0 rounded to ``x.dtype``."""
+    """Plain PyTorch version of B4; each conv in f32, c0 rounded to
+    ``x.dtype``; weights HWIO or packed."""
+    w0, w2 = _hwio_shuffle(w0, x.shape[-1], s), _hwio_last(w2, b2.shape[0])
     return conv3x3_plain(pixel_shuffle(conv3x3_plain(x, w0, b0), s), w2, b2)
 
 
@@ -79,20 +219,19 @@ def fused_upsample_s(x, w0, b0, w2, b2, s: int):
         raise ValueError(f"fused_upsample_s: scale {s} is not one of {SCALES_S}")
     if x.device.type == "cpu":
         return upsample_s_plain(x, w0, b0, w2, b2, s)
-    if x.dtype not in KERNEL_DTYPES:
-        raise TypeError(f"fused_upsample_s: unsupported dtype {x.dtype}")
-    bsz, h, w, cin = x.shape
-    n_colors = w2.shape[-1]
+    bsz, h, w, cin, n_colors = _geometry(x, b2, "fused_upsample_s")
     dev, dt, f32 = x.device, x.dtype, torch.float32
-    ptrs = [
-        check(x, "x", (bsz, h, w, cin), dt, dev),
-        check(w0, "w0", (3, 3, cin, s * s * cin), dt, dev), check(b0, "b0", (s * s * cin,), f32, dev),
-        check(w2, "w2", (3, 3, cin, n_colors), dt, dev), check(b2, "b2", (n_colors,), f32, dev),
-    ]
+    if dt == torch.bfloat16:  # kept alive until the launch is enqueued
+        w0, w2 = _mma_weights(w0, "w0", cin, s, dev), _mma_last_weights(w2, "w2", cin, n_colors, dev)
+        pw = [w0.data_ptr(), w2.data_ptr()]
+    else:
+        pw = [check(w0, "w0", (3, 3, cin, s * s * cin), dt, dev), check(w2, "w2", (3, 3, cin, n_colors), dt, dev)]
+    ptrs = [check(x, "x", (bsz, h, w, cin), dt, dev), pw[0], check(b0, "b0", (s * s * cin,), f32, dev),
+            pw[1], check(b2, "b2", (n_colors,), f32, dev)]
     c0 = torch.empty((bsz, s * h, s * w, cin), dtype=dt, device=dev)
     out = torch.empty((bsz, s * h, s * w, n_colors), dtype=dt, device=dev)
     lib = _build.load("upsampler", _SIGNATURES)
-    fn = lib.upsample_s_bf16 if dt == torch.bfloat16 else lib.upsample_s_f32
-    status = fn(*ptrs, c0.data_ptr(), out.data_ptr(), bsz, h, w, cin, n_colors, s, stream(dev))
-    finish("fused_upsample_s", status)
+    entry = "upsample_s_mma_bf16" if dt == torch.bfloat16 else "upsample_s_f32"
+    status = getattr(lib, entry)(*ptrs, c0.data_ptr(), out.data_ptr(), bsz, h, w, cin, n_colors, s, stream(dev))
+    finish("fused_upsample_s", status, entry)
     return out

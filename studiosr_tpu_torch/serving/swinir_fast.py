@@ -32,7 +32,9 @@ from studiosr_tpu_torch.ops.cuda.conv3x3 import (
     fused_conv3x3, fused_resblock, prepare_conv3x3_weights, prepare_fused_conv3x3_weights,
 )
 from studiosr_tpu_torch.ops.cuda.swin_block import fused_swin_block, mma_geometry_error, pack_swin_weights
-from studiosr_tpu_torch.ops.cuda.upsampler import SCALES_S, fused_upsample_s, fused_upsample_x4
+from studiosr_tpu_torch.ops.cuda.upsampler import (
+    SCALES_S, fused_upsample_s, fused_upsample_x4, mma_geometry_error as tail_geometry_error, pack_tail,
+)
 from studiosr_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 from studiosr_tpu_torch.ops.windows import gather_rel_bias, pad_to_multiple_flip, relative_position_index
 
@@ -124,12 +126,16 @@ def prepare_serving(module: nn.Module, config: Dict[str, Any], dtype) -> Dict[st
 def tail_operands(module: nn.Module, scale: int, dtype):
     """The fused tail's weights: B3's (``upsample.0``, ``upsample.2``,
     ``conv_last``) at x4, B4's (``upsample.0``, ``conv_last``) at x2 / x3,
-    None where no kernel serves the scale."""
+    None where no kernel serves the scale. In bf16 the weights are packed
+    once in the kernels' layouts (``pack_tail``), HWIO otherwise."""
     convs = {4: ("0", "2"), **{s: ("0",) for s in SCALES_S}}.get(scale)
     if convs is None:
         return None
     ops = [t for name in convs for t in _conv_operands(module.upsample._modules[name], dtype)]
-    return (*ops, *_conv_operands(module.conv_last, dtype))
+    ops = (*ops, *_conv_operands(module.conv_last, dtype))
+    if dtype == torch.bfloat16 and not tail_geometry_error(ops[0].shape[2], ops[-1].shape[0]):
+        ops = pack_tail(ops, scale)
+    return ops
 
 
 def fused_tail(module: nn.Module, x: torch.Tensor, scale: int, tail) -> torch.Tensor:

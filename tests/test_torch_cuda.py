@@ -25,7 +25,9 @@ from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mlp_block_pla
 from studiosr_tpu_torch.ops.cuda.mlp_bwd import mlp_bwd, mlp_bwd_plain
 from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block, ocab_plain, overlap_window
 from studiosr_tpu_torch.ops.cuda.swin_block import fused_swin_block, swin_block_plain
-from studiosr_tpu_torch.ops.cuda.upsampler import fused_upsample_s, fused_upsample_x4, upsample_s_plain, upsample_x4_plain
+from studiosr_tpu_torch.ops.cuda.upsampler import (
+    fused_upsample_s, fused_upsample_x4, pack_tail, upsample_s_plain, upsample_x4_plain,
+)
 from studiosr_tpu_torch.ops.cuda.window_attention import fused_window_attention_block, window_attention_plain
 
 pytestmark = pytest.mark.cuda
@@ -168,44 +170,96 @@ def test_conv3x3_kernel_matches_plain(dev, dtype, cin, cout, activation, residua
         assert torch.equal(fused_conv3x3(x, pack_conv3x3_weights(w), b, activation, residual, extra), got)
 
 
+# B3 and B4 (bf16: the kernels of ``csrc/upsampler.cu`` written for the H100,
+# f32: conv3x3.cuh's passes): Cin 16, 32, 48 and the models' 64; maps that
+# no 16 x 16 conv tile or 8 x 32 conv_last tile divides, H != W, batch 2,
+# and HAT's 256 x 256. In bf16 the weights packed once (``pack_tail``, the
+# serving layout) give the bits of HWIO weights packed per call.
+UPSAMPLE_X4_SHAPES = [(1, 12, 10, 16), (2, 8, 8, 64), (2, 37, 53, 64), (1, 20, 9, 32), (1, 256, 256, 64)]
+UPSAMPLE_S_CASES = [
+    (2, (1, 12, 10, 16)), (3, (1, 12, 10, 16)), (2, (2, 37, 53, 64)), (3, (2, 37, 53, 64)), (3, (1, 8, 8, 64)),
+    (2, (2, 9, 20, 48)), (3, (1, 20, 9, 32)), (2, (1, 256, 256, 64)), (3, (1, 256, 256, 64)),
+]
+
+
+def _tail_operands(gen, cin, cout, dev, dtype, convs=1):
+    ops = []
+    for _ in range(convs):
+        ops += [_randn(gen, 3, 3, cin, cout, scale=(9 * cin) ** -0.5), _randn(gen, cout, scale=0.1)]
+    ops += [_randn(gen, 3, 3, cin, 3, scale=(9 * cin) ** -0.5), _randn(gen, 3, scale=0.1)]
+    return [t.to(dev, dtype if t.dim() == 4 else torch.float32) for t in ops]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", [(1, 12, 10, 16), (2, 8, 8, 64)])
+@pytest.mark.parametrize("shape", UPSAMPLE_X4_SHAPES)
 def test_upsample_x4_kernel_matches_plain(dev, dtype, shape):
-    gen = torch.Generator().manual_seed(shape[-1])
+    gen = torch.Generator().manual_seed(shape[-1] + shape[1])
     cin = shape[-1]
     x = _randn(gen, *shape).to(dev, dtype)
-    ops = [
-        _randn(gen, 3, 3, cin, 4 * cin, scale=(9 * cin) ** -0.5), _randn(gen, 4 * cin, scale=0.1),
-        _randn(gen, 3, 3, cin, 4 * cin, scale=(9 * cin) ** -0.5), _randn(gen, 4 * cin, scale=0.1),
-        _randn(gen, 3, 3, cin, 3, scale=(9 * cin) ** -0.5), _randn(gen, 3, scale=0.1),
-    ]
-    ops = [t.to(dev, dtype if t.dim() == 4 else torch.float32) for t in ops]
+    ops = _tail_operands(gen, cin, 4 * cin, dev, dtype, convs=2)
+    engagement.reset()
     got = fused_upsample_x4(x, *ops)
+    entry = "upsample_x4_mma_bf16" if dtype == torch.bfloat16 else "upsample_x4_f32"
+    assert engagement.entries() == {"fused_upsample_x4": {entry: 1}}
     assert tuple(got.shape) == (shape[0], 4 * shape[1], 4 * shape[2], 3)
     want = upsample_x4_plain(x.float(), *[t.float() for t in ops])
     _assert_close(got, want, dtype)
+    if dtype == torch.bfloat16:
+        assert torch.equal(fused_upsample_x4(x, *pack_tail(ops, 4)), got)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize(
-    "s,shape", [(2, (1, 12, 10, 16)), (3, (1, 12, 10, 16)), (2, (2, 37, 53, 64)), (3, (2, 37, 53, 64)), (3, (1, 8, 8, 64))]
-)
+@pytest.mark.parametrize("s,shape", UPSAMPLE_S_CASES)
 def test_upsample_s_kernel_matches_plain(dev, dtype, s, shape):
-    """B4: ragged maps (not tile multiples), batch 2, a narrow Cin."""
+    """B4: ragged maps (not tile multiples), batch 2, narrow Cin."""
     gen = torch.Generator().manual_seed(s * shape[-1] + shape[1])
     cin = shape[-1]
     x = _randn(gen, *shape).to(dev, dtype)
-    ops = [
-        _randn(gen, 3, 3, cin, s * s * cin, scale=(9 * cin) ** -0.5), _randn(gen, s * s * cin, scale=0.1),
-        _randn(gen, 3, 3, cin, 3, scale=(9 * cin) ** -0.5), _randn(gen, 3, scale=0.1),
-    ]
-    ops = [t.to(dev, dtype if t.dim() == 4 else torch.float32) for t in ops]
+    ops = _tail_operands(gen, cin, s * s * cin, dev, dtype)
     engagement.reset()
     got = fused_upsample_s(x, *ops, s)
     assert engagement.counters() == {"fused_upsample_s": 1}
+    entry = "upsample_s_mma_bf16" if dtype == torch.bfloat16 else "upsample_s_f32"
+    assert engagement.entries() == {"fused_upsample_s": {entry: 1}}
     assert tuple(got.shape) == (shape[0], s * shape[1], s * shape[2], 3)
     want = upsample_s_plain(x.float(), *[t.float() for t in ops], s)
     _assert_close(got, want, dtype)
+    if dtype == torch.bfloat16:
+        assert torch.equal(fused_upsample_s(x, *pack_tail(ops, s), s), got)
+
+
+def test_upsample_bf16_raises_on_geometries_it_does_not_take(dev):
+    x = torch.zeros(1, 8, 8, 24, device=dev, dtype=torch.bfloat16)
+    ops = _tail_operands(torch.Generator().manual_seed(0), 24, 96, dev, torch.bfloat16, convs=2)
+    with pytest.raises(ValueError, match="Cin 24"):
+        fused_upsample_x4(x, *ops)
+    x = torch.zeros(1, 8, 8, 16, device=dev, dtype=torch.bfloat16)
+    ops = _tail_operands(torch.Generator().manual_seed(0), 16, 64, dev, torch.bfloat16)
+    wide = torch.zeros(3, 3, 16, 9, device=dev, dtype=torch.bfloat16), torch.zeros(9, device=dev)
+    with pytest.raises(ValueError, match="n_colors 9"):
+        fused_upsample_s(x, *ops[:2], *wide, 2)
+
+
+# Every bf16 tail launch of a served model (SwinIR x2 / x3 / x4, HAT x2 / x3
+# / x4, SwinFIR x4) goes through the kernels written for the H100, one launch
+# a forward, on the weights serving packed at load time.
+SERVED_TAILS = [("swinir", 2), ("swinir", 3), ("swinir", 4), ("hat", 2), ("hat", 3), ("hat", 4), ("swinfir", 4)]
+
+
+@pytest.mark.parametrize("name,scale", SERVED_TAILS)
+def test_served_bf16_tails_take_the_h100_kernels(dev, name, scale):
+    from studiosr_tpu_torch import SwinFIR
+
+    kw = dict(scale=scale, embed_dim=32, depths=[2, 2], num_heads=[2, 2], window_size=8, device=dev)
+    model = {"swinir": SwinIR, "hat": HAT, "swinfir": SwinFIR}[name].build(**kw).half().enable_fused(True)
+    images = [np.random.default_rng(i).integers(0, 256, (20, 28, 3), dtype=np.uint8) for i in range(2)]
+    engagement.reset()
+    outs = [model.inference(im) for im in images]
+    tail, entry = ("fused_upsample_x4", "upsample_x4_mma_bf16") if scale == 4 else (
+        "fused_upsample_s", "upsample_s_mma_bf16")
+    assert engagement.counters()[tail] == 2
+    assert engagement.entries()[tail] == {entry: 2}
+    assert all(out.shape == (20 * scale, 28 * scale, 3) for out in outs)
 
 
 @pytest.mark.parametrize("scale", [2, 3])

@@ -186,7 +186,9 @@ def test_fused_scale8_records_structural_decline():
 def test_prepare_serving_packs_b1_and_b2_for_bf16_only(dtype):
     """bf16 serving holds B1's weights and rel-pos bias in its kernel's blob
     and B2's conv weights packed; f32 keeps dense (in, out) weights, the
-    gathered bias and HWIO convs. B3's tail stays HWIO in both."""
+    gathered bias and HWIO convs. B3's tail is packed in bf16 (the two
+    pixel-shuffle convs in the wgmma ring's layout, conv_last in mma
+    fragment order) and HWIO in f32."""
     from studiosr_tpu_torch.ops.cuda.swin_block import unpack_swin_weights
 
     _, model = _bf16_pair(scale=4, **SMALL)
@@ -205,7 +207,9 @@ def test_prepare_serving_packs_b1_and_b2_for_bf16_only(dtype):
     else:
         assert blk["wqkv"].shape == (c, 3 * c) and blk["bias"].shape == (2, 64, 64) and blk["w1"].shape == (c, hidden)
         assert w.shape == (3, 3, c, c) and w.dtype == torch.float32
-    assert all(t.dim() == 4 for t in prep["tail"][::2])
+    dims = (6, 6, 5) if dtype == torch.bfloat16 else (4, 4, 4)
+    assert tuple(t.dim() for t in prep["tail"][::2]) == dims
+    assert all(t.dtype == torch.float32 for t in prep["tail"][1::2])
 
 
 @pytest.mark.parametrize("scale", [2, 4])
