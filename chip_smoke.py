@@ -232,7 +232,7 @@ KERNELS.update({
         "studiosr_tpu_torch/csrc/window_attention.cu", "studiosr_tpu/ops/pallas/swin_block.py:549"),
     "fused_mlp_block": ("studiosr_tpu_torch/csrc/mlp_block.cu", "studiosr_tpu/ops/pallas/swin_block.py:904"),
     "mlp_bwd": ("studiosr_tpu_torch/csrc/mlp_bwd.cu", "studiosr_tpu/ops/pallas/mlp_vjp.py:148"),
-    "attention_bwd": ("studiosr_tpu_torch/csrc/attn_bwd.cu", "studiosr_tpu/ops/pallas/attn_bwd.py:209"),
+    "attention_bwd": ("studiosr_tpu_torch/csrc/attn_bwd_mma.cu", "studiosr_tpu/ops/pallas/attn_bwd.py:209"),
 })
 PER_STEP = {"fused_window_attention_block": 36, "fused_mlp_block": 36, "mlp_bwd": 36, "attention_bwd": 36}
 # End-to-end gradients, held against an f64 witness (plain autograd of the
@@ -255,6 +255,7 @@ PER_STEP = {"fused_window_attention_block": 36, "fused_mlp_block": 36, "mlp_bwd"
 GRAD_RUNS = (("plain", torch.float64), ("plain", torch.float32), ("fused", torch.float32),
              ("plain", torch.bfloat16), ("fused", torch.bfloat16))
 GRAD_F32_REL_L2, GRAD_BF16_REL_L2, GRAD_BF16_CONTROL = 1e-5, 5e-2, 2.0
+GRAD_ENTRIES: dict = {}  # {(path, dtype): engagement.entries()} of train_grads' last runs
 
 # HAT x4 serving: XPixelGroup/HAT options/test/HAT_SRx4.yml (the JAX
 # package's defaults, models/hat.py:388-403), depth not cut.
@@ -279,7 +280,7 @@ HAT_TRAIN_MODEL = dict(HAT_MAIN, drop_path_rate=0.1)
 HAT_TRAIN_STEPS = 3
 HAT_TRAIN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_hat_train"
 KERNELS.update({
-    "attention_bwd_ws16": ("studiosr_tpu_torch/csrc/attn_bwd16.cu", "studiosr_tpu/ops/pallas/attn_bwd.py:508"),
+    "attention_bwd_ws16": ("studiosr_tpu_torch/csrc/attn_bwd_mma.cu", "studiosr_tpu/ops/pallas/attn_bwd.py:508"),
     "oca_core_fwd": ("studiosr_tpu_torch/csrc/oca_core.cu", "studiosr_tpu/ops/pallas/oca_core.py:117"),
     "oca_core_bwd": ("studiosr_tpu_torch/csrc/oca_core.cu", "studiosr_tpu/ops/pallas/oca_core.py:157"),
 })
@@ -341,7 +342,15 @@ H100_KERNELS = {"fused_swin_block": ("swin_block_mma", "swin_block_mma_kernel"),
                 "fused_conv3x3": ("conv3x3", "conv3x3_mma_kernel"),
                 "fused_resblock": ("resblock", "conv3x3_mma_kernel"),
                 "window_attention_pallas": ("window_attn", "wf_kernel"),
-                "fused_upsample_x4": ("upsampler", "upsample_"), "fused_upsample_s": ("upsampler", "upsample_")}
+                "fused_upsample_x4": ("upsampler", "upsample_"), "fused_upsample_s": ("upsampler", "upsample_"),
+                "attention_bwd": ("attn_bwd_mma", "am_"), "attention_bwd_ws16": ("attn_bwd_mma", "am_")}
+# The C entry every launch of B8 / B9 must take in a run of each dtype: bf16
+# the kernels written for the H100 (their geometry rule holds at every
+# width the paths train), f32 the older kernels.
+TRAIN_ENTRIES = {
+    torch.bfloat16: {"attention_bwd": "attn_bwd_mma_bf16", "attention_bwd_ws16": "attn_bwd16_mma_bf16"},
+    torch.float32: {"attention_bwd": "attn_bwd_f32", "attention_bwd_ws16": "attn_bwd16_f32"},
+}
 # B1 in bf16 beyond the main path's shape, as the card tests take it: (C,
 # heads, map, shift): C 32 with 2 heads of 16 (the trained fixtures), C 180
 # at H != W and an odd window count (a half-empty last window pair), d 8,
@@ -423,6 +432,20 @@ def entry_failures(label: str, launches: dict) -> list:
     return failed
 
 
+def train_entry_failures(label: str, launches: dict, dtype: torch.dtype, entries=None) -> list:
+    """[] when every B8 / B9 launch of ``launches`` went through the entry
+    ``TRAIN_ENTRIES`` names for ``dtype`` (``entries``: an
+    ``engagement.entries()`` taken since the same reset), else the failures."""
+    entries, failed = engagement.entries() if entries is None else entries, []
+    for name, entry in TRAIN_ENTRIES[dtype].items():
+        n = launches.get(name, 0)
+        if n:
+            log(f"{label}: {name} entries {entries.get(name)}")
+            if entries.get(name) != {entry: n}:
+                failed.append(f"{label}: {name} took {entries.get(name)}, expected all {n} launches through {entry}")
+    return failed
+
+
 def ptxas_report(name: str) -> str:
     """Registers, static shared memory and spills (``-Xptxas -v``) of each
     instantiation of the H100 kernel behind ``name``, from its build log."""
@@ -472,7 +495,7 @@ def phase_build() -> None:
     log(f"build: {seconds:.1f} s for {', '.join(_build.SOURCES)}")
     for name in _build.SOURCES:
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "Used" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
 
@@ -832,7 +855,8 @@ def train_kernel_cases(model: SwinIR, dev: torch.device, dtype: torch.dtype, bat
         a = blk.attn
         w = lambda t: t.detach().t().to(dtype).contiguous()  # noqa: E731
         f = lambda t: t.detach().float().contiguous()  # noqa: E731
-        bias = gather_rel_bias(f(a.relative_position_bias_table), relative_position_index(ws), heads).contiguous()
+        # the gathered bias in the path's dtype, as the bf16 step gathers it from its bf16 table
+        bias = gather_rel_bias(f(a.relative_position_bias_table), relative_position_index(ws), heads).to(dtype)
         attn_ops = (f(blk.norm1.weight), f(blk.norm1.bias), w(a.qkv.weight), f(a.qkv.bias), w(a.proj.weight),
                     f(a.proj.bias), bias)
         kw = dict(heads=heads, window_size=ws, shift=shift, drop_path=dp)
@@ -874,8 +898,10 @@ def phase_train_kernels(model, dev: torch.device, cases=None) -> dict:
     for batch in (CHECK_BATCH, TRAIN_BATCH):
         for dtype in (torch.float32, torch.bfloat16):
             for name, label, kernel, plain, ops in (cases or train_kernel_cases)(model, dev, dtype, batch):
+                engagement.reset()
                 got = _flat(kernel(*ops))
                 torch.cuda.synchronize()
+                failed += train_entry_failures(f"{name} [{label}] batch {batch}", engagement.counters(), dtype)
                 want = _flat(plain(*[t.float() for t in ops]))
                 torch.cuda.synchronize()
                 for i, (k, p) in enumerate(zip(got, want)):
@@ -956,6 +982,7 @@ def train_grads(model, dev: torch.device, seed: int, grad_runs=GRAD_RUNS) -> dic
             torch.cuda.synchronize()
             runs[(path, dtype)] = (float(diff.detach().abs().mean()), dict(zip(leaves, grads)),
                                    engagement.counters(), flipped)
+            GRAD_ENTRIES[(path, dtype)] = engagement.entries()
             del out, diff, grads, leaves
             torch.cuda.empty_cache()
     finally:
@@ -1022,6 +1049,8 @@ def phase_train_grads(dev: torch.device, name: str = "swinir") -> None:
             failed.append(f"{path} {dtype}: launches {launches}, expected {expected}")
         if not all(torch.isfinite(g).all() for g in grads.values()):
             failed.append(f"{path} {dtype}: non-finite gradients")
+        if path == "fused":
+            failed += train_entry_failures(f"{label}grads fused {dtype}", launches, dtype, GRAD_ENTRIES[(path, dtype)])
     f32, bf16 = report[("fused", torch.float32)], report[("fused", torch.bfloat16)]
     control = report[("plain", torch.bfloat16)]["params"]
     worst32 = max(f32["params"].values())
@@ -1102,6 +1131,7 @@ def phase_train(dev: torch.device):
     for name, per in PER_STEP.items():
         if launches.get(name, 0) != per * steps:
             failed.append(f"{name}: {launches.get(name, 0)} launches in {steps} steps, expected {per} per step")
+    failed += train_entry_failures("swinir trainer", launches, torch.bfloat16)
     if len(values) != steps or not all(np.isfinite(values)):
         failed.append(f"losses {values}")
     moved = sum(not torch.equal(p.detach(), before[k]) for k, p in trainer.model.module.named_parameters())
@@ -1150,6 +1180,31 @@ def train_bounds(name: str, ops) -> tuple:
     return flops, moved
 
 
+def kw_of(label: str, ws: int, batch: int, dev: torch.device) -> dict:
+    """The attention backward's keywords of the timed case ``label`` ("shift s")."""
+    dp = torch.full((batch,), 1 / 0.9, device=dev)
+    dp[0] = 0.0
+    return dict(heads=MAIN["num_heads"][0], window_size=ws, shift=int(label.split()[-1]), drop_path=dp)
+
+
+def attention_bwd_report(name: str, ops, ms: float, bms: float, kw: dict) -> None:
+    """B8 / B9's share of its bound, its ptxas line and its yardstick: the
+    same half and its backward as a sequence of bf16 PyTorch calls (cuBLAS,
+    SDPA with the bias and shift mask as a mask that takes a gradient,
+    LayerNorm; scripts/torch_time_attn_kernels.py), timed here and never on
+    the path."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from torch_time_attn_kernels import attention_half_sequence
+
+    x, g, *attn_ops = ops
+    sequence = attention_half_sequence(x, g, attn_ops, kw["heads"], kw["window_size"], kw["shift"], kw["drop_path"])
+    yard = time_ms(sequence, iters=3, warmup=1)
+    del sequence
+    torch.cuda.empty_cache()
+    log(f"  {name}: {100 * bms / ms:.1f} % of the bound; yardstick (bf16 PyTorch sequence) {yard:.3f} ms, "
+        f"kernel / yardstick {ms / yard:.3f}; {ptxas_report(name)}")
+
+
 def phase_train_timing(model: SwinIR, dev: torch.device, errors: dict, launches: dict, steps: int) -> list:
     module = model.module
     module.fused_train = True
@@ -1180,6 +1235,8 @@ def phase_train_timing(model: SwinIR, dev: torch.device, errors: dict, launches:
         log(f"time {name} [{label}] bf16 batch {TRAIN_BATCH}: {ms:.3f} ms ({100 * PER_STEP[name] * ms / step_ms:.1f} % "
             f"of a step at {PER_STEP[name]} a step), plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), "
             f"{flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB; launches {launches.get(name, 0)} in {steps} steps")
+        if name == "attention_bwd":
+            attention_bwd_report(name, ops, ms, bms, kw_of(label, MAIN["window_size"], TRAIN_BATCH, dev))
     log(f"train step: kernels {kernel_total:.1f} ms, the rest (convs, LayerNorms, tail, optimizer, gaps) "
         f"{step_ms - kernel_total:.1f} ms")
     return rows
@@ -1373,7 +1430,8 @@ def hat_train_kernel_cases(model: HAT, dev: torch.device, dtype: torch.dtype, ba
     for shift in (0, ws // 2):
         blk = model.module.layers[0].residual_group.blocks[1 if shift else 0]
         a = blk.attn
-        bias = gather_rel_bias(f(a.relative_position_bias_table), relative_position_index(ws), heads).contiguous()
+        # the gathered bias in the path's dtype, as the bf16 step gathers it from its bf16 table
+        bias = gather_rel_bias(f(a.relative_position_bias_table), relative_position_index(ws), heads).to(dtype)
         attn_ops = (f(blk.norm1.weight), f(blk.norm1.bias), w(a.qkv.weight), f(a.qkv.bias), w(a.proj.weight),
                     f(a.proj.bias), bias)
         kw = dict(heads=heads, window_size=ws, shift=shift, drop_path=dp)
@@ -1427,6 +1485,7 @@ def phase_hat_train(dev: torch.device):
                           f"{HAT_PER_STEP.get(name, 0)} a step")
     if len(values) != steps or not all(np.isfinite(values)):
         failed.append(f"hat losses {values}")
+    failed += train_entry_failures("hat trainer", launches, torch.bfloat16)
     moved = sum(not torch.equal(p.detach(), before[k]) for k, p in model.module.named_parameters())
     if moved != len(before):
         failed.append(f"only {moved} of {len(before)} HAT parameters changed")
@@ -1518,6 +1577,8 @@ def phase_hat_train_timing(model: HAT, dev: torch.device, errors: dict, launches
             f"{moved / 1e6:.1f} MB; launches {launches.get(name, 0)} in {steps} steps")
         if name == "fused_window_attention_block_ws16":
             continue  # its row is HAT serving's
+        if name == "attention_bwd_ws16":
+            attention_bwd_report(name, ops, ms, bms, kw_of(label, HAT_MAIN["window_size"], TRAIN_BATCH, dev))
         source, replaces = KERNELS[name]
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches.get(name, 0),
                          max_abs_err=errors[name], ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
@@ -1852,6 +1913,7 @@ def phase_swinfir_train(dev: torch.device) -> None:
     failed = []
     if trainer.bfloat16 or not trainer.fused_train or recipe["batch_size"] != TRAIN_BATCH:
         failed.append("the trainer did not take SwinFIR's f32 recipe with fused_train on the card")
+    failed += train_entry_failures("swinfir trainer", launches, torch.float32)
     for name in set(launches) | set(PER_STEP):
         if launches.get(name, 0) != PER_STEP.get(name, 0) * steps:
             failed.append(f"swinfir {name}: {launches.get(name, 0)} launches in {steps} steps, expected "

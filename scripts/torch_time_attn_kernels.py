@@ -1,39 +1,58 @@
 #!/usr/bin/env python3
-"""Time the port's attention-core kernels on one NVIDIA GPU.
+"""Time the port's attention kernels on one NVIDIA GPU.
 
-    PYTHONPATH=<checkout> python3 scripts/torch_time_attn_kernels.py
+    python3 scripts/torch_time_attn_kernels.py [--checkout DIR]
 
 Times, in bf16 with seeded operands, by CUDA events over 20 launches after 3
-warm-up launches: B15 (``window_attention``) at MaxSR x4's two serving
-shapes (adaptive: 256 windows of 256 tokens, no bias; static: 1024 windows
-of 64 tokens, a (4, 64, 64) bias; 4 heads of 32, q, k, v the slices of one
-projection) with ``F.scaled_dot_product_attention`` on the same operands as
-the library yardstick (the bias as its mask), and the kernels that share
-``csrc/attn_core.cuh`` at HAT x4 training's batch-32 shapes: B9
-(``attention_bwd`` at window 16, shift 8, 180 channels, 6 heads), B12 and
-B13 (``oca_core_fwd`` / ``oca_core_bwd`` on 512 windows, 6 heads, 256
-queries, 576 keys, d 30, the OCAB's transposed views). Prints one JSON line:
-{"package": path, "card": nvidia-smi's name and power limit, "ms": {kernel:
-ms}}. Run with ``PYTHONPATH`` set to two checkouts in turn (A, B, B, A) to
-compare them on one card.
+warm-up launches:
+
+* B15 (``window_attention``) at MaxSR x4's two serving shapes (adaptive: 256
+  windows of 256 tokens, no bias; static: 1024 windows of 64 tokens, a (4,
+  64, 64) bias; 4 heads of 32, q, k, v the slices of one projection) with
+  ``F.scaled_dot_product_attention`` on the same operands as the library
+  yardstick (the bias as its mask);
+* the attention backward at the training shapes, batch 32 of 64 x 64 maps,
+  180 channels, 6 heads, drop-path scales (0, 1/0.9, ...): B8
+  (``attention_bwd`` at window 8, shift 4, SwinIR) and B9 (window 16, shift
+  8, HAT), each beside its yardstick: the same half, y = x + d proj(WA(LN
+  x)) and its backward, as a sequence of bf16 PyTorch calls (cuBLAS
+  products, ``F.scaled_dot_product_attention`` with the rel-pos bias and the
+  shift mask as a mask that takes a gradient, LayerNorm), timed forward and
+  backward together as the kernels recompute the forward;
+* as controls that share no code with B8 / B9, at the same shapes: B5
+  (``fused_window_attention_block`` at window 8 and 16), B6
+  (``fused_mlp_block``, hidden 360) and B7 (``mlp_bwd``), and B12 / B13
+  (``oca_core_fwd`` / ``oca_core_bwd`` on 512 windows, 6 heads, 256 queries,
+  576 keys, d 30, the OCAB's transposed views).
+
+The per-pass split of B8 and B9: ``torch.profiler`` over 10 calls gives the
+device time of every kernel a call enqueues, by name in launch order. Prints one
+JSON line: {"package": path, "card": nvidia-smi's name and power limit,
+"ms": {kernel: ms}, "passes": {kernel: [[kernel name, launches, ms], ...]},
+"entries": {kernel: {C entry: launches}}}. The package is whichever
+``studiosr_tpu_torch`` is first on the path. With ``--checkout DIR`` the
+script instead runs itself four times, with ``PYTHONPATH`` set to DIR, this
+checkout, this checkout and DIR (A, B, B, A on one card), prints each line
+and then a table of the four.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import os
 import subprocess
+import sys
+from pathlib import Path
 
-import torch
-import torch.nn.functional as F
-
-import studiosr_tpu_torch
-from studiosr_tpu_torch import resolve_device
-from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd
-from studiosr_tpu_torch.ops.cuda.oca_core import oca_core_bwd, oca_core_fwd
-from studiosr_tpu_torch.ops.cuda.window_attn import window_attention
+ROOT = Path(__file__).resolve().parents[1]
+CALLS = 10
+BATCH, CROP, C, HEADS = 32, 64, 180, 6
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    import torch
+
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -46,7 +65,86 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def main() -> None:
+def pass_split(fn, calls: int = CALLS) -> list:
+    """[[kernel name, launches a call, device ms a call], ...] of the
+    kernels ``fn`` enqueues, by name in order of first launch, summed over
+    ``calls`` profiled calls and divided by ``calls``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                      and not e.name.startswith(("Memcpy", "Memset"))), key=lambda e: e.time_range.start)
+    split: dict = {}
+    for k in kernels:
+        n, us = split.get(k.name[:80], (0, 0.0))
+        split[k.name[:80]] = (n + 1, us + k.time_range.elapsed_us())
+    return [[name, n / calls, us / calls / 1e3] for name, (n, us) in split.items()]
+
+
+def attention_half_sequence(x, g, ops, heads: int, ws: int, shift: int, dp):
+    """The attention half and its backward as a sequence of bf16 PyTorch
+    calls: roll and partition, ``F.layer_norm``, ``F.linear`` (cuBLAS), SDPA
+    with the rel-pos bias plus the shift mask as its mask (a leaf that takes
+    the gradient), ``F.linear``, the drop-path scale and the residual; then
+    ``torch.autograd.grad`` of every operand against ``g``. Returns a
+    function of no arguments that runs both."""
+    import torch
+    import torch.nn.functional as F
+
+    from studiosr_tpu_torch.ops.windows import calculate_mask, window_partition, window_reverse
+
+    bsz, h, w, c = x.shape
+    n, d = ws * ws, c // heads
+    bf = torch.bfloat16
+    region = torch.from_numpy(calculate_mask((h, w), ws, shift)).to(x.device, bf) if shift else None
+    ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias = ops
+    leaves = [t.detach().to(bf).requires_grad_() for t in (x, ln_w, ln_b, wqkv.t(), bqkv, wproj.t(), bproj, bias)]
+    scale = dp.to(bf).reshape(-1, 1, 1, 1)
+
+    def both():
+        xx, lw, lb, wq, bq, wp, bp, bb = leaves
+        xr = torch.roll(xx, (-shift, -shift), (1, 2)) if shift else xx
+        xw = window_partition(xr, ws).reshape(-1, n, c)
+        ln = F.layer_norm(xw, (c,), lw, lb, 1e-5)
+        qkv = F.linear(ln, wq, bq).reshape(-1, n, 3, heads, d).permute(2, 0, 3, 1, 4)
+        if region is None:
+            mask = bb[None].expand(xw.shape[0], -1, -1, -1)
+        else:  # (1, nW, heads, N, N) over the images of the batch
+            mask = (bb.reshape(1, 1, heads, n, n) + region[None, :, None]).expand(bsz, -1, -1, -1, -1)
+            mask = mask.reshape(-1, heads, n, n)
+        o = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2], attn_mask=mask)
+        y = F.linear(o.transpose(1, 2).reshape(-1, n, c), wp, bp)
+        y = window_reverse(y.reshape(-1, ws, ws, c), ws, h, w)
+        if shift:
+            y = torch.roll(y, (shift, shift), (1, 2))
+        torch.autograd.grad(xx + scale * y, leaves, g)
+
+    return both
+
+
+def measure() -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    if "PYTHONPATH" not in os.environ:
+        sys.path.insert(0, str(ROOT))
+    import studiosr_tpu_torch
+    from studiosr_tpu_torch import resolve_device
+    from studiosr_tpu_torch.ops.cuda import engagement
+    from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd
+    from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block
+    from studiosr_tpu_torch.ops.cuda.mlp_bwd import mlp_bwd
+    from studiosr_tpu_torch.ops.cuda.oca_core import oca_core_bwd, oca_core_fwd
+    from studiosr_tpu_torch.ops.cuda.window_attention import fused_window_attention_block
+    from studiosr_tpu_torch.ops.cuda.window_attn import window_attention
+
     dev = resolve_device("cuda")
     gen = torch.Generator().manual_seed(0)
     bf = torch.bfloat16
@@ -54,7 +152,7 @@ def main() -> None:
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).to(dev)
 
-    ms = {}
+    ms, passes, entries = {}, {}, {}
     for mode, windows, n, with_bias in (("adaptive", 256, 256, False), ("static", 1024, 64, True)):
         qkv = randn(windows, n, 3, 4, 32).to(bf).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0] * 32**-0.5, qkv[1], qkv[2]
@@ -64,26 +162,72 @@ def main() -> None:
         ms[f"window_attention {mode} library (SDPA)"] = time_ms(
             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0))
 
-    c, heads = 180, 6
-    x, g = randn(32, 64, 64, c).to(bf), randn(32, 64, 64, c, scale=1e-3).to(bf)
-    attn_ops = (1 + randn(c, scale=0.1), randn(c, scale=0.1), randn(c, 3 * c, scale=c**-0.5).to(bf),
-                randn(3 * c, scale=0.1), randn(c, c, scale=c**-0.5).to(bf), randn(c, scale=0.1),
-                randn(heads, 256, 256, scale=0.5))
-    dp = torch.full((32,), 1 / 0.9, device=dev)
+    x, g = randn(BATCH, CROP, CROP, C).to(bf), randn(BATCH, CROP, CROP, C, scale=1e-3).to(bf)
+    dp = torch.full((BATCH,), 1 / 0.9, device=dev)
     dp[0] = 0.0
-    ms["attention_bwd_ws16"] = time_ms(
-        lambda: attention_bwd(x, g, *attn_ops, heads=heads, window_size=16, shift=8, drop_path=dp))
+    for name, ws, shift in (("attention_bwd", 8, 4), ("attention_bwd_ws16", 16, 8)):
+        attn_ops = (1 + randn(C, scale=0.1), randn(C, scale=0.1), randn(C, 3 * C, scale=C**-0.5).to(bf),
+                    randn(3 * C, scale=0.1), randn(C, C, scale=C**-0.5).to(bf), randn(C, scale=0.1),
+                    randn(HEADS, ws * ws, ws * ws, scale=0.5).to(bf))  # the bf16 step's gathered bias
+        kw = dict(heads=HEADS, window_size=ws, shift=shift, drop_path=dp)
+        fwd = f"fused_window_attention_block{'_ws16' if ws == 16 else ''}"
+        ms[fwd] = time_ms(lambda: fused_window_attention_block(x, *attn_ops, **kw))
+        engagement.reset()
+        ms[name] = time_ms(lambda: attention_bwd(x, g, *attn_ops, **kw))
+        entries[name] = engagement.entries().get(name)
+        passes[name] = pass_split(lambda: attention_bwd(x, g, *attn_ops, **kw))
+        sequence = attention_half_sequence(x, g, attn_ops, HEADS, ws, shift, dp)
+        ms[f"{name} yardstick (bf16 PyTorch sequence)"] = time_ms(sequence, iters=5, warmup=2)
+        del sequence
+        torch.cuda.empty_cache()
+
+    rows, rps = BATCH * CROP * CROP, CROP * CROP
+    xr, gr = x.reshape(rows, C), g.reshape(rows, C)
+    mlp_ops = (1 + randn(C, scale=0.1), randn(C, scale=0.1), randn(C, 2 * C, scale=C**-0.5).to(bf),
+               randn(2 * C, scale=0.1), randn(2 * C, C, scale=(2 * C)**-0.5).to(bf))
+    ms["fused_mlp_block"] = time_ms(lambda: fused_mlp_block(xr, *mlp_ops, randn(C, scale=0.1), drop_path=dp,
+                                                            rows_per_sample=rps))
+    ms["mlp_bwd"] = time_ms(lambda: mlp_bwd(xr, gr, *mlp_ops, drop_path=dp, rows_per_sample=rps))
 
     def view(n, scale):  # (512, 6, n, 30) over (512, n, 6, 30) storage, as the OCAB's views
-        return randn(512, n, heads, 30, scale=scale).to(bf).transpose(1, 2)
+        return randn(512, n, HEADS, 30, scale=scale).to(bf).transpose(1, 2)
 
     q, k, v, go = view(256, 2 * 30**-0.5), view(576, 1.0), view(576, 1.0), view(256, 1.0)
-    bias = randn(heads, 256, 576, scale=2.0)
+    bias = randn(HEADS, 256, 576, scale=2.0)
     ms["oca_core_fwd"] = time_ms(lambda: oca_core_fwd(q, k, v, bias))
     ms["oca_core_bwd"] = time_ms(lambda: oca_core_bwd(q, k, v, bias, go))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(json.dumps({"package": studiosr_tpu_torch.__file__, "card": card, "ms": ms}))
+    return {"package": studiosr_tpu_torch.__file__, "card": card, "ms": ms, "passes": passes, "entries": entries}
+
+
+def ab(checkout: Path) -> None:
+    """Run this script on ``checkout``, this tree, this tree, ``checkout``."""
+    runs = []
+    for label, tree in (("parent", checkout), ("change", ROOT), ("change", ROOT), ("parent", checkout)):
+        env = dict(os.environ, PYTHONPATH=str(tree))
+        out = subprocess.run([sys.executable, str(Path(__file__).resolve())], env=env, cwd=tree, capture_output=True,
+                             text=True, check=True, timeout=1800).stdout
+        line = json.loads(out.strip().splitlines()[-1])
+        print(json.dumps({"run": label, **line}), flush=True)
+        runs.append((label, line))
+    print("ms, " + " / ".join(label for label, _ in runs))
+    for name in runs[0][1]["ms"]:
+        print(f"  {name}: " + " / ".join(f"{line['ms'].get(name, float('nan')):.4f}" for _, line in runs))
+    for name in runs[0][1]["passes"]:
+        for label, line in runs:
+            print(f"  {name} passes [{label}]: " + "; ".join(
+                f"{k} x{n:g} {t:.4f}" for k, n, t in line["passes"][name]))
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--checkout", type=Path, help="a second checkout to compare with: parent, this, this, parent")
+    args = parser.parse_args()
+    if args.checkout:
+        ab(args.checkout.resolve())
+    else:
+        print(json.dumps(measure()))
 
 
 if __name__ == "__main__":

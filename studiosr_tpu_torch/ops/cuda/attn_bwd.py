@@ -1,5 +1,6 @@
 """B8 and B9: the backward of B5 with the forward recomputed (CUDA kernels
-``csrc/attn_bwd.cu`` at window 8, ``csrc/attn_bwd16.cu`` at window 16).
+``csrc/attn_bwd_mma.cu`` in bf16 at both windows; ``csrc/attn_bwd.cu`` at
+window 8 and ``csrc/attn_bwd16.cu`` at window 16 in f32 and at wider heads).
 
 Replaces ``studiosr_tpu/ops/pallas/attn_bwd.py::pairs_attention_bwd`` (B8)
 and ``::v5_attention_bwd`` (B9, HAT's window 16). For
@@ -16,12 +17,26 @@ gathered rel-pos bias (autograd of ``gather_rel_bias`` scatters it into the
 re-scaling. The kernels sum their partials in a fixed order, so the result
 is the same from run to run. Window-16 launches count as
 ``attention_bwd_ws16``.
+
+Routing, by dtype and geometry, never by a failure: bf16 with a head dim up
+to 32 and C a multiple of 4 up to 184 (:func:`mma_takes`) launches the
+kernels written for the H100, ``csrc/attn_bwd_mma.cu`` (C entries
+``attn_bwd_mma_bf16`` at window 8, ``attn_bwd16_mma_bf16`` at window 16);
+other bf16 geometries (a head dim above 32) launch ``attn_bwd_bf16`` /
+``attn_bwd16_bf16``, and f32 ``attn_bwd_f32`` / ``attn_bwd16_f32``. Each
+launch is counted under its C entry (``engagement.entries()``). The H100
+kernels read the weights packed per call (:func:`pack_attn_bwd_weights`'s
+rule, gathered on the card by the entry itself), read a bf16 bias (the bf16
+step's) as it is and any other in f32, and return the weight gradients
+with each head padded to pad16(d), which the wrapper drops.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from studiosr_tpu_torch.ops.cuda import _build
@@ -29,7 +44,7 @@ from studiosr_tpu_torch.ops.cuda._launch import P, I, check, finish, operand, st
 from studiosr_tpu_torch.ops.cuda.window_attention import KERNEL_WINDOW, KERNEL_WINDOW16, check_window_map
 from studiosr_tpu_torch.ops.windows import calculate_mask, window_partition, window_reverse
 
-__all__ = ["attention_bwd", "attention_bwd_plain", "window_bwd_math"]
+__all__ = ["attention_bwd", "attention_bwd_plain", "window_bwd_math", "mma_takes", "pack_attn_bwd_weights"]
 
 _LL = ctypes.c_longlong
 _ARGS = (P, P, P, I, I, I, I, I, I) + (P,) * 7 + (P,) * 6 + (P, _LL, P, _LL, P)
@@ -46,6 +61,89 @@ _SIGNATURES16 = {
     "attn_bwd16_scratch": (I, I, I, I, I, I, ctypes.POINTER(_LL), ctypes.POINTER(_LL)),
 }
 _RESTYPES16 = {"attn_bwd16_scratch": None}
+_ARGS_MMA = (P, P, P) + (I,) * 7 + (P,) * 8 + (_LL,) + (P,) * 6 + (P, _LL, P, _LL, P)
+_SIGNATURES_MMA = {
+    "attn_bwd_mma_bf16": _ARGS_MMA,
+    "attn_bwd16_mma_bf16": _ARGS_MMA,
+    "attn_bwd_mma_scratch": (I, I, I, I, I, I, ctypes.POINTER(_LL), ctypes.POINTER(_LL)),
+    "attn_bwd_mma_pack_elems": (I, I),
+}
+_RESTYPES_MMA = {"attn_bwd_mma_pack_elems": _LL}
+MMA_MAX_C, MMA_MAX_HEAD_DIM = 184, 32
+_NP_WIDTHS = (16, 32, 48, 64, 96, 128, 184)  # csrc/attn_bwd_mma.cu am_np: dln's product widths
+_KROWS, _KSTAGE = 96, 64  # K rows of a projection stage and of a dln stage (AM_KROWS, AM_KSTAGE)
+
+
+def mma_takes(c: int, heads: int) -> bool:
+    """Whether the bf16 kernels written for the H100 take this geometry: a
+    head dim up to 32 and C a multiple of 4 up to 184."""
+    return heads >= 1 and c % heads == 0 and c // heads <= MMA_MAX_HEAD_DIM and c % 4 == 0 and 4 <= c <= MMA_MAX_C
+
+
+def _pad16(v: int) -> int:
+    return (v + 15) // 16 * 16
+
+
+def _k_major(k, n, rows: int):
+    """Element (k, n) of a K-major wgmma operand image with ``rows`` K rows:
+    core matrices of 8 n x 8 k (``am_kmajor`` in csrc/attn_bwd_mma.cu)."""
+    return (n // 8) * rows * 8 + (k // 8) * 64 + (n % 8) * 8 + k % 8
+
+
+@functools.lru_cache(maxsize=None)
+def _pack_index(c: int, heads: int) -> np.ndarray:
+    """For each element of the packed weights, its flat index into
+    ``cat(wqkv.flatten(), wproj.flatten())`` (wqkv (C, 3C), wproj (C, C)), or
+    4 C^2 for a zero. Per head h (d = C / heads, DP = pad16(d), KC =
+    pad16(C)), in stages of 96 K rows: its q|k|v columns as B of LN @ Wqkv,
+    a K-major image of the stage's rows x 3 DP, column p DP + j =
+    wqkv[:, p C + h d + j] (zero for j >= d); then its rows of Wproj as B
+    of g_b @ Wproj^T, rows x DP, column j = wproj[h d + j, :]. Then Wqkv^T
+    as B of dqkv @ Wqkv^T (K = 3 heads DP padded dq|dk|dv columns, N = the
+    product width NP >= C) in stages of 64 K rows, each a K-major image:
+    row p heads DP + h DP + j, column n = wqkv[n, p C + h d + j]."""
+    d, dp, kc = c // heads, _pad16(c // heads), _pad16(c)
+    hd = heads * dp
+    npw = next(w for w in _NP_WIDTHS if c <= w)
+    zero = 4 * c * c
+    parts = []
+
+    def image(k, n, rows, src):
+        out = np.empty(k.size, np.int64)
+        out[_k_major(k, n, rows).ravel()] = src.ravel()
+        return out
+
+    for h in range(heads):
+        for k0 in range(0, kc, _KROWS):
+            rows = min(_KROWS, kc - k0)
+            k, n = np.meshgrid(np.arange(rows), np.arange(3 * dp), indexing="ij")
+            p, j, r = n // dp, n % dp, k0 + k
+            parts.append(image(k, n, rows, np.where((r < c) & (j < d), r * 3 * c + p * c + h * d + j, zero)))
+            k, j = np.meshgrid(np.arange(rows), np.arange(dp), indexing="ij")
+            r = k0 + k
+            parts.append(image(k, j, rows, np.where((r < c) & (j < d), 3 * c * c + (h * d + j) * c + r, zero)))
+    for s0 in range(0, 3 * hd, _KSTAGE):
+        rows = min(_KSTAGE, 3 * hd - s0)
+        k, n = np.meshgrid(np.arange(rows), np.arange(npw), indexing="ij")
+        col = s0 + k
+        p, h, j = col // hd, (col % hd) // dp, col % dp
+        parts.append(image(k, n, rows, np.where((j < d) & (n < c), n * 3 * c + p * c + h * d + j, zero)))
+    return np.concatenate(parts)
+
+
+def pack_attn_bwd_weights(wqkv: torch.Tensor, wproj: torch.Tensor, heads: int) -> torch.Tensor:
+    """The packed weights the H100 kernels stream (the rule of
+    :func:`_pack_index`), as a 1-D tensor of ``wqkv``'s dtype. The entry
+    gathers the same on the card on every call; this is its plain version."""
+    c = wqkv.shape[0]
+    src = torch.cat([wqkv.reshape(-1), wproj.to(wqkv.dtype).reshape(-1), wqkv.new_zeros(1)])
+    return src[torch.from_numpy(_pack_index(c, heads)).to(src.device)]
+
+
+@functools.lru_cache(maxsize=None)
+def _device_pack_index(c: int, heads: int, dev: torch.device) -> torch.Tensor:
+    """:func:`_pack_index` as an int32 tensor on ``dev``, for the entry's gather."""
+    return torch.from_numpy(_pack_index(c, heads).astype(np.int32)).to(dev)
 
 
 def _split_heads(t, heads: int):
@@ -135,16 +233,27 @@ def attention_bwd(
     bsz, h, w, c = x.shape
     n = window_size * window_size
     dev, dt, f32 = x.device, x.dtype, torch.float32
+    mma = dt == torch.bfloat16 and mma_takes(c, heads)
+    # the H100 kernels read a bf16 bias (the bf16 step's) as it is
+    bias_dt = torch.bfloat16 if mma and getattr(bias, "dtype", None) == torch.bfloat16 else f32
     ops = [
         operand(ln_w, "ln_w", (c,), f32, dev), operand(ln_b, "ln_b", (c,), f32, dev),
         operand(wqkv, "wqkv", (c, 3 * c), dt, dev), operand(bqkv, "bqkv", (3 * c,), f32, dev),
-        operand(wproj, "wproj", (c, c), dt, dev), operand(bias, "bias", (heads, n, n), f32, dev),
+        operand(wproj, "wproj", (c, c), dt, dev), operand(bias, "bias", (heads, n, n), bias_dt, dev),
         None if drop_path is None else operand(drop_path, "drop_path", (bsz,), f32, dev),
     ]
     px = check(x, "x", (bsz, h, w, c), dt, dev)
     pg = check(g, "g", (bsz, h, w, c), dt, dev)
     ws16 = window_size == KERNEL_WINDOW16
+    name = "attention_bwd_ws16" if ws16 else "attention_bwd"
+    dx = torch.empty_like(x)
+    ds_db = torch.empty(2 * c, dtype=f32, device=dev)
+    dbproj = torch.empty(c, dtype=f32, device=dev)
+    dbias = torch.empty(heads, n, n, dtype=f32, device=dev)
+    ptrs = [None if t is None else t.data_ptr() for t in ops]
     t_elems, f_elems = _LL(), _LL()
+    if mma:
+        return _attention_bwd_mma(px, pg, dx, x.shape, heads, window_size, shift, ops, ds_db, dbproj, dbias, name)
     if ws16:
         lib = _build.load("attn_bwd16", _SIGNATURES16, _RESTYPES16)
         lib.attn_bwd16_scratch(bsz, h, w, c, heads, window_size, ctypes.byref(t_elems), ctypes.byref(f_elems))
@@ -153,21 +262,51 @@ def attention_bwd(
         lib.attn_bwd_scratch(bsz, h, w, c, heads, ctypes.byref(t_elems), ctypes.byref(f_elems))
     tscratch = torch.empty(t_elems.value, dtype=dt, device=dev)
     fscratch = torch.empty(f_elems.value, dtype=f32, device=dev)
-    dx = torch.empty_like(x)
-    ds_db = torch.empty(2 * c, dtype=f32, device=dev)
     dwqkv, dbqkv = torch.empty(c, 3 * c, dtype=f32, device=dev), torch.empty(3 * c, dtype=f32, device=dev)
-    dwproj, dbproj = torch.empty(c, c, dtype=f32, device=dev), torch.empty(c, dtype=f32, device=dev)
-    dbias = torch.empty(heads, n, n, dtype=f32, device=dev)
-    bf16 = dt == torch.bfloat16
-    if ws16:
-        fn, geometry = lib.attn_bwd16_bf16 if bf16 else lib.attn_bwd16_f32, (heads, window_size, shift)
-    else:
-        fn, geometry = lib.attn_bwd_bf16 if bf16 else lib.attn_bwd_f32, (heads, shift)
-    ptrs = [None if t is None else t.data_ptr() for t in ops]
-    status = fn(
+    dwproj = torch.empty(c, c, dtype=f32, device=dev)
+    entry = ("attn_bwd16" if ws16 else "attn_bwd") + ("_bf16" if dt == torch.bfloat16 else "_f32")
+    geometry = (heads, window_size, shift) if ws16 else (heads, shift)
+    status = getattr(lib, entry)(
         px, pg, dx.data_ptr(), bsz, h, w, c, *geometry, *ptrs, ds_db.data_ptr(), dwqkv.data_ptr(),
         dbqkv.data_ptr(), dwproj.data_ptr(), dbproj.data_ptr(), dbias.data_ptr(), tscratch.data_ptr(),
         t_elems.value, fscratch.data_ptr(), f_elems.value, stream(dev),
     )
-    finish("attention_bwd_ws16" if ws16 else "attention_bwd", status)
+    finish(name, status, entry)
+    return dx, ds_db[:c], ds_db[c:], dwqkv, dbqkv, dwproj, dbproj, dbias
+
+
+def _attention_bwd_mma(px, pg, dx, shape, heads, window_size, shift, ops, ds_db, dbproj, dbias, name):
+    """The launch of ``csrc/attn_bwd_mma.cu`` (bf16, :func:`mma_takes`):
+    the weight gradients come back with each head padded to pad16(d) and are
+    cut here."""
+    bsz, h, w, c = shape
+    d, dp = c // heads, _pad16(c // heads)
+    hd, dev, f32 = heads * dp, dx.device, torch.float32
+    ln_w, ln_b, wqkv, bqkv, wproj, bias, drop = ops
+    lib = _build.load("attn_bwd_mma", _SIGNATURES_MMA, _RESTYPES_MMA)
+    index = _device_pack_index(c, heads, dev)
+    if lib.attn_bwd_mma_pack_elems(c, heads) != index.numel():
+        raise RuntimeError(f"{name}: the packed weights of C {c}, {heads} heads disagree with the kernel's layout")
+    t_elems, f_elems = _LL(), _LL()
+    status = lib.attn_bwd_mma_scratch(bsz, h, w, c, heads, window_size, ctypes.byref(t_elems), ctypes.byref(f_elems))
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA error {status} while sizing the scratch")
+    tscratch = torch.empty(t_elems.value, dtype=dx.dtype, device=dev)
+    fscratch = torch.empty(f_elems.value, dtype=f32, device=dev)
+    dwqkv = torch.empty(c, 3 * hd, dtype=f32, device=dev)
+    dbqkv = torch.empty(3 * hd, dtype=f32, device=dev)
+    dwproj = torch.empty(hd, c, dtype=f32, device=dev)
+    entry = "attn_bwd16_mma_bf16" if window_size == KERNEL_WINDOW16 else "attn_bwd_mma_bf16"
+    status = getattr(lib, entry)(
+        px, pg, dx.data_ptr(), bsz, h, w, c, heads, shift, int(bias.dtype == torch.bfloat16), ln_w.data_ptr(),
+        ln_b.data_ptr(), bqkv.data_ptr(), bias.data_ptr(), None if drop is None else drop.data_ptr(),
+        wqkv.data_ptr(), wproj.data_ptr(),
+        index.data_ptr(), index.numel(), ds_db.data_ptr(), dwqkv.data_ptr(), dbqkv.data_ptr(), dwproj.data_ptr(),
+        dbproj.data_ptr(), dbias.data_ptr(), tscratch.data_ptr(), t_elems.value, fscratch.data_ptr(), f_elems.value,
+        stream(dev),
+    )
+    finish(name, status, entry)
+    dwqkv = dwqkv.view(c, 3, heads, dp)[..., :d].reshape(c, 3 * c)
+    dbqkv = dbqkv.view(3, heads, dp)[..., :d].reshape(3 * c)
+    dwproj = dwproj.view(heads, dp, c)[:, :d].reshape(c, c)
     return dx, ds_db[:c], ds_db[c:], dwqkv, dbqkv, dwproj, dbproj, dbias

@@ -329,7 +329,10 @@ def test_attention_bwd_kernel_matches_plain(dev, dtype, c, heads, shape, shift):
     x = _randn(gen, *shape, c).to(dev, dtype)
     g = _randn(gen, *shape, c).to(dev, dtype)
     kw = dict(heads=heads, window_size=8, shift=shift, drop_path=dp)
+    engagement.reset()
     got = attention_bwd(x, g, *ops, **kw)
+    entry = "attn_bwd_mma_bf16" if dtype == torch.bfloat16 else "attn_bwd_f32"
+    assert engagement.entries() == {"attention_bwd": {entry: 1}}
     want = attention_bwd_plain(x.float(), g.float(), *[t.float() for t in ops], **kw)
     for a, e in zip(got, want):
         _assert_close(a, e, dtype)
@@ -535,12 +538,50 @@ def test_attention_bwd_ws16_kernel_matches_plain(dev, dtype, c, heads, shape, sh
     kw = dict(heads=heads, window_size=16, shift=shift, drop_path=dp)
     engagement.reset()
     got = attention_bwd(x, g, *ops, **kw)
-    assert engagement.counters() == {"attention_bwd_ws16": 1}
+    # bf16 head dims above 32 take the older bf16 kernel, by the wrapper's rule
+    entry = "attn_bwd16_f32" if dtype == torch.float32 else (
+        "attn_bwd16_mma_bf16" if c // heads <= 32 else "attn_bwd16_bf16")
+    assert engagement.entries() == {"attention_bwd_ws16": {entry: 1}}
     want = attention_bwd_plain(x.float(), g.float(), *[t.float() for t in ops], **kw)
     for a, e in zip(got, want):
         _assert_close(a, e, dtype)
     assert torch.equal(got[0][0], g[0])  # a dropped sample: dx = g
     again = attention_bwd(x, g, *ops, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: bitwise repeatable
+
+
+# The bf16 kernels written for the H100 (csrc/attn_bwd_mma.cu) at MaxSR's
+# geometry (C 128, 4 heads of 32, zero qkv bias) and at SwinIR's / HAT's,
+# on maps with H != W and more windows than the attention pass has blocks
+# (its window groups then hold several windows each): against the plain
+# version, a dropped sample passed through bit for bit, the same bits over
+# two calls, and the entry each launch took.
+H100_BWD_CASES = [(128, 4, (2, 16, 24), 4, 8), (128, 4, (2, 32, 48), 8, 16), (180, 6, (3, 128, 136), 4, 8),
+                  (180, 6, (2, 96, 112), 8, 16), (32, 2, (3, 24, 8), 0, 8), (64, 2, (2, 16, 48), 0, 16)]
+
+
+@pytest.mark.parametrize("c,heads,shape,shift,ws", H100_BWD_CASES)
+def test_attention_bwd_h100_kernels_match_plain(dev, c, heads, shape, shift, ws):
+    gen = torch.Generator().manual_seed(c + shape[1] + ws)
+    ops = _block_operands(gen, c, heads, 2 * c, ws=ws)[:7]
+    ops = [t.to(dev, torch.bfloat16 if i in (2, 4) else torch.float32) for i, t in enumerate(ops)]
+    if c in (64, 128):
+        ops[3] = torch.zeros_like(ops[3])  # MaxSR's projections have no bias
+        ops[6] = ops[6].to(torch.bfloat16)  # a bf16 rel-pos bias, as the bf16 step gathers it, read as it is
+    x = _randn(gen, *shape, c).to(dev, torch.bfloat16)
+    g = _randn(gen, *shape, c).to(dev, torch.bfloat16)
+    dp = torch.tensor([0.0, 1 / 0.9, 1.25][: shape[0]], device=dev)
+    kw = dict(heads=heads, window_size=ws, shift=shift, drop_path=dp)
+    engagement.reset()
+    got = attention_bwd(x, g, *ops, **kw)
+    again = attention_bwd(x, g, *ops, **kw)
+    name, entry = ("attention_bwd_ws16", "attn_bwd16_mma_bf16") if ws == 16 else ("attention_bwd", "attn_bwd_mma_bf16")
+    assert engagement.entries() == {name: {entry: 2}}
+    want = attention_bwd_plain(x.float(), g.float(), *[t.float() for t in ops], **kw)
+    for a, e in zip(got, want):
+        assert a.shape == e.shape
+        _assert_close(a, e, torch.bfloat16)
+    assert torch.equal(got[0][0], g[0])  # a dropped sample: dx = g
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: bitwise repeatable
 
 
