@@ -191,7 +191,9 @@ from studiosr_tpu_torch.ops.cuda.upsampler import (
     fused_upsample_s, fused_upsample_x4, pack_tail, unpack_conv_last_weights, unpack_shuffle_conv_weights,
     upsample_s_plain, upsample_x4_plain,
 )
-from studiosr_tpu_torch.ops.cuda.window_attention import fused_window_attention_block, window_attention_plain
+from studiosr_tpu_torch.ops.cuda.window_attention import (
+    fused_window_attention_block, unpack_window_attention, window_attention_plain,
+)
 from studiosr_tpu_torch.ops.cuda.window_attn import window_attention
 from studiosr_tpu_torch.ops.windows import calculate_mask, gather_rel_bias, relative_position_index
 from studiosr_tpu_torch.parallel import build_optimizer, make_train_step, prepare_state
@@ -229,9 +231,9 @@ DATA_IMAGES, DATA_LR = 64, 96
 TRAIN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
 KERNELS.update({
     "fused_window_attention_block": (
-        "studiosr_tpu_torch/csrc/window_attention.cu", "studiosr_tpu/ops/pallas/swin_block.py:549"),
+        "studiosr_tpu_torch/csrc/window_attention_mma.cu", "studiosr_tpu/ops/pallas/swin_block.py:549"),
     "fused_mlp_block": ("studiosr_tpu_torch/csrc/mlp_block.cu", "studiosr_tpu/ops/pallas/swin_block.py:904"),
-    "mlp_bwd": ("studiosr_tpu_torch/csrc/mlp_bwd.cu", "studiosr_tpu/ops/pallas/mlp_vjp.py:148"),
+    "mlp_bwd": ("studiosr_tpu_torch/csrc/mlp_bwd_mma.cu", "studiosr_tpu/ops/pallas/mlp_vjp.py:148"),
     "attention_bwd": ("studiosr_tpu_torch/csrc/attn_bwd_mma.cu", "studiosr_tpu/ops/pallas/attn_bwd.py:209"),
 })
 PER_STEP = {"fused_window_attention_block": 36, "fused_mlp_block": 36, "mlp_bwd": 36, "attention_bwd": 36}
@@ -264,7 +266,7 @@ HAT_MAIN = dict(scale=4, embed_dim=180, depths=[6] * 6, num_heads=[6] * 6, windo
 KERNELS.update({
     "fused_cab_body": ("studiosr_tpu_torch/csrc/cab_body.cu", "studiosr_tpu/ops/pallas/conv3x3.py:393"),
     "fused_window_attention_block_ws16": (
-        "studiosr_tpu_torch/csrc/window_attention16.cu", "studiosr_tpu/ops/pallas/swin_block.py:549"),
+        "studiosr_tpu_torch/csrc/window_attention_mma.cu", "studiosr_tpu/ops/pallas/swin_block.py:549"),
     "fused_mlp_block_extra": ("studiosr_tpu_torch/csrc/mlp_block.cu", "studiosr_tpu/ops/pallas/swin_block.py:904"),
     "fused_ocab_block": ("studiosr_tpu_torch/csrc/ocab.cu", "studiosr_tpu/ops/pallas/ocab.py:173"),
 })
@@ -333,23 +335,32 @@ MAXSR_PER_FORWARD = {"window_attention_pallas": 32}
 # (label, windows, heads, tokens, head dim, bias, mask windows): the first two
 # are the two MaxSR modes' shapes at a 256x256 LR input.
 # The C entry of the kernels written for the H100 that every bf16 launch of
-# B1, B2, B3, B4, B14 and B15 on the served paths must go through, and each
+# B1, B2, B3, B4, B5, B14 and B15 on the served paths must go through, and each
 # kernel's stem in its build log (ptxas's registers, shared memory and spills).
 H100_ENTRIES = {"fused_swin_block": "swin_block_mma_bf16", "fused_conv3x3": "conv3x3_mma_bf16",
                 "fused_resblock": "resblock_mma_bf16", "window_attention_pallas": "window_attn_flash_bf16",
-                "fused_upsample_x4": "upsample_x4_mma_bf16", "fused_upsample_s": "upsample_s_mma_bf16"}
+                "fused_upsample_x4": "upsample_x4_mma_bf16", "fused_upsample_s": "upsample_s_mma_bf16",
+                "fused_window_attention_block": "window_attention_mma_bf16",
+                "fused_window_attention_block_ws16": "window_attention16_mma_bf16"}
 H100_KERNELS = {"fused_swin_block": ("swin_block_mma", "swin_block_mma_kernel"),
                 "fused_conv3x3": ("conv3x3", "conv3x3_mma_kernel"),
                 "fused_resblock": ("resblock", "conv3x3_mma_kernel"),
                 "window_attention_pallas": ("window_attn", "wf_kernel"),
                 "fused_upsample_x4": ("upsampler", "upsample_"), "fused_upsample_s": ("upsampler", "upsample_"),
-                "attention_bwd": ("attn_bwd_mma", "am_"), "attention_bwd_ws16": ("attn_bwd_mma", "am_")}
-# The C entry every launch of B8 / B9 must take in a run of each dtype: bf16
-# the kernels written for the H100 (their geometry rule holds at every
-# width the paths train), f32 the older kernels.
+                "attention_bwd": ("attn_bwd_mma", "am_"), "attention_bwd_ws16": ("attn_bwd_mma", "am_"),
+                "fused_window_attention_block": ("window_attention_mma", "_kernel"),
+                "fused_window_attention_block_ws16": ("window_attention_mma", "_kernel"),
+                "mlp_bwd": ("mlp_bwd_mma", "_kernel")}
+# The C entry every launch of B5, B7, B8 and B9 must take in a run of each
+# dtype: bf16 the kernels written for the H100 (their geometry rules hold at
+# every width the paths train), f32 the older kernels.
 TRAIN_ENTRIES = {
-    torch.bfloat16: {"attention_bwd": "attn_bwd_mma_bf16", "attention_bwd_ws16": "attn_bwd16_mma_bf16"},
-    torch.float32: {"attention_bwd": "attn_bwd_f32", "attention_bwd_ws16": "attn_bwd16_f32"},
+    torch.bfloat16: {"attention_bwd": "attn_bwd_mma_bf16", "attention_bwd_ws16": "attn_bwd16_mma_bf16",
+                     "fused_window_attention_block": "window_attention_mma_bf16",
+                     "fused_window_attention_block_ws16": "window_attention16_mma_bf16", "mlp_bwd": "mlp_bwd_mma_bf16"},
+    torch.float32: {"attention_bwd": "attn_bwd_f32", "attention_bwd_ws16": "attn_bwd16_f32",
+                    "fused_window_attention_block": "window_attention_f32",
+                    "fused_window_attention_block_ws16": "window_attention16_f32", "mlp_bwd": "mlp_bwd_f32"},
 }
 # B1 in bf16 beyond the main path's shape, as the card tests take it: (C,
 # heads, map, shift): C 32 with 2 heads of 16 (the trained fixtures), C 180
@@ -1187,17 +1198,29 @@ def kw_of(label: str, ws: int, batch: int, dev: torch.device) -> dict:
     return dict(heads=MAIN["num_heads"][0], window_size=ws, shift=int(label.split()[-1]), drop_path=dp)
 
 
-def attention_bwd_report(name: str, ops, ms: float, bms: float, kw: dict) -> None:
-    """B8 / B9's share of its bound, its ptxas line and its yardstick: the
-    same half and its backward as a sequence of bf16 PyTorch calls (cuBLAS,
-    SDPA with the bias and shift mask as a mask that takes a gradient,
-    LayerNorm; scripts/torch_time_attn_kernels.py), timed here and never on
-    the path."""
+def yardstick_report(name: str, ops, ms: float, bms: float, kw: dict) -> None:
+    """A kernel's share of its bound, its ptxas line and its yardstick, the
+    same function as a sequence of bf16 PyTorch calls
+    (scripts/torch_time_attn_kernels.py), timed here and never on the path:
+    B8 / B9 the attention half and its backward (cuBLAS, SDPA with the bias
+    and shift mask as a mask that takes a gradient, LayerNorm); B5 the half
+    (LayerNorm, cuBLAS, SDPA with the bias and mask, the projection and the
+    add); B7 ``torch.autograd.grad`` through LayerNorm, two linears and the
+    exact GELU."""
     sys.path.insert(0, str(ROOT / "scripts"))
-    from torch_time_attn_kernels import attention_half_sequence
+    from torch_time_attn_kernels import (
+        attention_half_forward_sequence, attention_half_sequence, mlp_half_backward_sequence,
+    )
 
-    x, g, *attn_ops = ops
-    sequence = attention_half_sequence(x, g, attn_ops, kw["heads"], kw["window_size"], kw["shift"], kw["drop_path"])
+    if name.startswith("attention_bwd"):
+        x, g, *attn_ops = ops
+        sequence = attention_half_sequence(x, g, attn_ops, kw["heads"], kw["window_size"], kw["shift"],
+                                           kw["drop_path"])
+    elif name.startswith("fused_window_attention_block"):
+        sequence = attention_half_forward_sequence(ops[0], ops[1:], kw["heads"], kw["window_size"], kw["shift"],
+                                                   kw.get("drop_path"))
+    else:
+        sequence = mlp_half_backward_sequence(*ops[:2], ops[2:], kw["drop_path"], kw["rows_per_sample"])
     yard = time_ms(sequence, iters=3, warmup=1)
     del sequence
     torch.cuda.empty_cache()
@@ -1235,8 +1258,11 @@ def phase_train_timing(model: SwinIR, dev: torch.device, errors: dict, launches:
         log(f"time {name} [{label}] bf16 batch {TRAIN_BATCH}: {ms:.3f} ms ({100 * PER_STEP[name] * ms / step_ms:.1f} % "
             f"of a step at {PER_STEP[name]} a step), plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), "
             f"{flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB; launches {launches.get(name, 0)} in {steps} steps")
-        if name == "attention_bwd":
-            attention_bwd_report(name, ops, ms, bms, kw_of(label, MAIN["window_size"], TRAIN_BATCH, dev))
+        if name in ("attention_bwd", "fused_window_attention_block"):
+            yardstick_report(name, ops, ms, bms, kw_of(label, MAIN["window_size"], TRAIN_BATCH, dev))
+        elif name == "mlp_bwd":
+            dp = kw_of("shift 0", MAIN["window_size"], TRAIN_BATCH, dev)["drop_path"]
+            yardstick_report(name, ops, ms, bms, dict(drop_path=dp, rows_per_sample=TRAIN_CROP * TRAIN_CROP))
     log(f"train step: kernels {kernel_total:.1f} ms, the rest (convs, LayerNorms, tail, optimizer, gaps) "
         f"{step_ms - kernel_total:.1f} ms")
     return rows
@@ -1263,10 +1289,15 @@ def hat_kernel_cases(model: HAT, dev: torch.device, dtype: torch.dtype):
     cases = [("fused_cab_body", "cab", fused_cab_body, cab_body_plain, (x, *blocks[0]["cab"].values()))]
     for shift in (0, ws // 2):
         kw = dict(heads=heads, window_size=ws, shift=shift)
+        attn = blocks[1 if shift else 0]["attn"]
+        # bf16 serving hands the kernel one blob (weights and bias packed at load
+        # time); the plain version gets them back dense
+        dense = unpack_window_attention(attn["wqkv"], c, heads, ws) if attn["wproj"] is None else None
         cases.append(("fused_window_attention_block_ws16", f"shift {shift}",
                       lambda *o, kw=kw: fused_window_attention_block(*o, **kw),
-                      lambda *o, kw=kw: window_attention_plain(*o, **kw),
-                      (x, *blocks[1 if shift else 0]["attn"].values())))
+                      lambda *o, kw=kw, dense=dense: window_attention_plain(
+                          *(o if dense is None else (*o[:3], dense[0], o[4], dense[1], o[6], dense[2])), **kw),
+                      (x, *attn.values())))
     cases.append(("fused_mlp_block_extra", "extra",
                   lambda *o: fused_mlp_block(*o[:7], extra=o[7], extra_scale=o[8]),
                   lambda *o: mlp_block_plain(*o[:7], extra=o[7], extra_scale=o[8]),
@@ -1287,7 +1318,7 @@ def phase_hat_kernels(model: HAT, dev: torch.device) -> dict:
         for name, label, kernel, plain, ops in hat_kernel_cases(model, dev, dtype):
             got = _flat(kernel(*ops))
             torch.cuda.synchronize()
-            want = _flat(plain(*[t.float() for t in ops]))
+            want = _flat(plain(*[None if t is None else t.float() for t in ops]))
             torch.cuda.synchronize()
             for i, (k, p) in enumerate(zip(got, want)):
                 err = kernel_check(f"{name} [{label}] output {i}", k, p, dtype, failed)
@@ -1353,7 +1384,7 @@ def hat_bounds(name: str, ops) -> tuple:
         flops = 2 * 2 * tokens * 9 * c * w1.shape[-1]
         moved = 2 * nbytes(x) + nbytes(*ops[1:]) + 4 * x.shape[0] * c  # + the f32 sums
     elif name == "fused_window_attention_block_ws16":
-        n = ops[7].shape[-1]
+        n = HAT_MAIN["window_size"] ** 2
         flops = 2 * tokens * c * 4 * c + 4 * tokens * n * c
         moved = 2 * nbytes(x) + nbytes(*ops[1:])
     elif name == "fused_mlp_block_extra":
@@ -1387,6 +1418,11 @@ def phase_hat_timing(model: HAT, dev: torch.device, errors: dict, launches: dict
         log(f"time {name} [{label}] bf16: {ms:.3f} ms ({100 * per * ms / fwd:.1f} % of a forward at {per} a "
             f"forward), plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), {flops / 1e9:.2f} GFLOP, "
             f"{moved / 1e6:.1f} MB")
+        if name == "fused_window_attention_block_ws16":  # the yardstick on the weights the blob holds
+            c, heads, ws = HAT_MAIN["embed_dim"], HAT_MAIN["num_heads"][0], HAT_MAIN["window_size"]
+            wqkv, wproj, bias = unpack_window_attention(ops[3], c, heads, ws)
+            dense = (ops[0], ops[1], ops[2], wqkv, ops[4], wproj, ops[6], bias)
+            yardstick_report(name, dense, ms, bms, dict(heads=heads, window_size=ws, shift=int(label.split()[-1])))
     # B2 and B3 at HAT's shapes (their rows in the JSON line are SwinIR's)
     prep = model.serving_prep()
     gen = torch.Generator(device="cpu").manual_seed(SEED + 6)
@@ -1578,7 +1614,7 @@ def phase_hat_train_timing(model: HAT, dev: torch.device, errors: dict, launches
         if name == "fused_window_attention_block_ws16":
             continue  # its row is HAT serving's
         if name == "attention_bwd_ws16":
-            attention_bwd_report(name, ops, ms, bms, kw_of(label, HAT_MAIN["window_size"], TRAIN_BATCH, dev))
+            yardstick_report(name, ops, ms, bms, kw_of(label, HAT_MAIN["window_size"], TRAIN_BATCH, dev))
         source, replaces = KERNELS[name]
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches.get(name, 0),
                          max_abs_err=errors[name], ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,

@@ -11,7 +11,10 @@ shapes: batch 32 of 64 x 64 maps, 180 channels, 6 heads, window 8 with
 shift 4 (B8) and window 16 with shift 8 (B9), drop-path scales (0, 1/0.9,
 ...). For each, ``torch.profiler`` over 10 calls gives the device time of
 every kernel a call enqueues (the four passes: am_proj_kernel,
-am_attn_kernel, am_dln_kernel, am_wgrad_kernel, and the reductions).
+am_attn_kernel, am_rowgemm_kernel for dln, am_wgrad_kernel, and the
+reductions). The passes it shares with B5 and B7 live in
+``csrc/am_window.cuh`` and ``csrc/am_common.cuh``; their substitutions are
+made there.
 Variants that drop work compute wrong values and only bound the time of
 what remains. Prints one line a variant and then one JSON line: {"card":
 nvidia-smi's name and power limit, "passes": {variant: {window: [[kernel,
@@ -40,6 +43,7 @@ from torch_time_attn_kernels import pass_split  # noqa: E402
 
 OUT = _build.BUILD_DIR.parent / "ablate" / "attn_bwd"
 SRC = "attn_bwd_mma.cu"
+COMMON, WINDOW = "am_common.cuh", "am_window.cuh"  # the pieces it shares with B5 and B7
 WGMMA = '"wgmma.mma_async.sync.aligned.'
 # (variant, [(file, text, replacement)]): each text must occur in its file.
 # Passes 0 (am_ln_kernel), 3b (am_lnb_kernel) and the reductions are
@@ -48,12 +52,12 @@ VARIANTS = [
     ("full", []),
     # every wgmma instruction commented out of its PTX (operands, fences and waits stay)
     ("no wgmma products", [("wgmma.cuh", WGMMA, '"// wgmma.mma_async.sync.aligned.'),
-                           (SRC, WGMMA, '"// wgmma.mma_async.sync.aligned.')]),
+                           (COMMON, WGMMA, '"// wgmma.mma_async.sync.aligned.')]),
     ("proj: no LN or g_b row copies",
-     [(SRC, "    am_load_rows(G, a.ln, tile, valid, lnb);\n"
-            "    am_load_rows(G, a.gb, tile, valid, gbb);\n", "")]),
+     [(WINDOW, "    am_load_rows(KC, G.SC, a.ln, tile, valid, lnb);\n"
+               "    if (DATTN) am_load_rows(KC, G.SC, a.gb, tile, valid, gbb);\n", "")]),
     ("proj: no q|k|v or dattn stores",
-     [(SRC, "*reinterpret_cast<__nv_bfloat162*>(dst + am_kmajor(j, r, DP)) = __floats2bfloat162_rn(v0, v1);",
+     [(WINDOW, "*reinterpret_cast<__nv_bfloat162*>(dst + am_kmajor(j, r, DP)) = __floats2bfloat162_rn(v0, v1);",
        "if (v0 == 12345.f) dst[0] = __float2bfloat16(v1);")]),
     ("attn: no unit copies", [(SRC, "        hm_cp_async<16>(d, s, true);\n", "        (void)d, (void)s;\n")]),
     ("attn: no bias reads", [(SRC, "for (int nt = 0; nt < 8; ++nt) bb[nt] = bias4(c, nt);",
@@ -66,21 +70,23 @@ VARIANTS = [
       (SRC, "  if (NCH > 1 && n > 0) am_bar_wait_cluster(credit, (n - 1) & 1);", ""),
       (SRC, "      if (tid == 0) {\n        // the next window's phase", "      if (tid < 0) {\n        // the next window's phase"),
       (SRC, "  if (NCH > 1 && tid == 0)  // the first window's phase", "  if (NCH > 1 && tid < 0)  // the first window's phase")]),
-    ("attn: no ex2", [(SRC, 'asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));', "y = x;")]),
+    ("attn: no ex2", [(COMMON, 'asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));', "y = x;")]),
     ("attn: no d bias accumulation", [(SRC, "        acc = v;\n", "")]),
     ("attn: no transposes",
      [(SRC, "    am_transpose<DP>(Kk, Kt, NCH, 4 * WGS);\n    am_transpose<DP>(Vk, Vt, NCH, 4 * WGS);\n"
             "    am_transpose<DP>(Qk, Qt, 1, 4 * WGS);\n    am_transpose<DP>(Dk, Dt, 1, 4 * WGS);\n", "")]),
     ("dln: no dq|dk|dv copies",
-     [(SRC, "          hm_cp_async<16>(dst + am_kmajor(8 * kg, t, kr), src + (long long)t * K3 + AM_KSTAGE * s + "
-            "8 * kg, true);\n", "          (void)dst, (void)src;\n")]),
+     [(COMMON, "          hm_cp_async<16>(dst + am_kmajor(8 * kg, t, kr), src + (long long)t * q.lda + AM_KSTAGE * s + "
+               "8 * kg, true);\n", "          (void)dst, (void)src;\n")]),
     ("dln: no dln stores",
-     [(SRC, "        *reinterpret_cast<float2*>(a.dln + row * C + c) = "
-            "make_float2(acc[nt][2 * hh], acc[nt][2 * hh + 1]);",
-       "        if (acc[nt][2 * hh] == 12345.f) a.dln[0] = acc[nt][2 * hh + 1];")]),
+     [(COMMON, "        *reinterpret_cast<float2*>(out + ((long long)tile * AM_TOK + r0 + 8 * hh) * C + c) =\n"
+               "            make_float2(acc[nt][2 * hh], acc[nt][2 * hh + 1]);",
+       "        if (acc[nt][2 * hh] == 12345.f) out[0] = acc[nt][2 * hh + 1];")]),
     ("wgrad: no copies",
-     [(SRC, "          hm_cp_async<16>(sa + t * AW_LA + 8 * q, A + (k0 + t) * lda + m0 + 8 * q, true);", "          (void)sa;"),
-      (SRC, "          hm_cp_async<16>(sb + t * AW_LB + 8 * q, B + (k0 + t) * ldb + n0 + 8 * q, true);", "          (void)sb;")]),
+     [(COMMON, "          hm_cp_async<16>(sa + t * AW_LA + 8 * q, A + (k0 + t) * lda + m0 + 8 * q, true);",
+       "          (void)sa;"),
+      (COMMON, "          hm_cp_async<16>(sb + t * AW_LB + 8 * q, B + (k0 + t) * ldb + n0 + 8 * q, true);",
+       "          (void)sb;")]),
 ]
 
 

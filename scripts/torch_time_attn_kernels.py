@@ -19,14 +19,24 @@ warm-up launches:
   products, ``F.scaled_dot_product_attention`` with the rel-pos bias and the
   shift mask as a mask that takes a gradient, LayerNorm), timed forward and
   backward together as the kernels recompute the forward;
-* as controls that share no code with B8 / B9, at the same shapes: B5
-  (``fused_window_attention_block`` at window 8 and 16), B6
-  (``fused_mlp_block``, hidden 360) and B7 (``mlp_bwd``), and B12 / B13
+* B5 (``fused_window_attention_block``) at the same shapes, window 8 shift 4
+  (SwinIR's step) and window 16 shift 8 (HAT's step), and at HAT x4
+  serving's (1 x 256 x 256, window 16, shift 8, no drop-path; the weights
+  packed once as serving packs them, where the package has
+  ``pack_window_attention``), each beside its yardstick: the same half as
+  a sequence of bf16 PyTorch calls (LayerNorm, cuBLAS, SDPA with the bias
+  and shift mask as its mask, the projection and the add);
+* B7 (``mlp_bwd``, hidden 360) at the same rows, beside its yardstick:
+  ``torch.autograd.grad`` through LayerNorm, two linears and the exact GELU
+  in bf16, forward and backward together as the kernel recomputes the
+  forward;
+* as controls: B6 (``fused_mlp_block``, hidden 360), and B12 / B13
   (``oca_core_fwd`` / ``oca_core_bwd`` on 512 windows, 6 heads, 256 queries,
   576 keys, d 30, the OCAB's transposed views).
 
-The per-pass split of B8 and B9: ``torch.profiler`` over 10 calls gives the
-device time of every kernel a call enqueues, by name in launch order. Prints one
+The per-pass split of B5, B7, B8 and B9: ``torch.profiler`` over 10 calls
+gives the device time of every kernel a call enqueues, by name in launch
+order. Prints one
 JSON line: {"package": path, "card": nvidia-smi's name and power limit,
 "ms": {kernel: ms}, "passes": {kernel: [[kernel name, launches, ms], ...]},
 "entries": {kernel: {C entry: launches}}}. The package is whichever
@@ -129,6 +139,67 @@ def attention_half_sequence(x, g, ops, heads: int, ws: int, shift: int, dp):
     return both
 
 
+def attention_half_forward_sequence(x, ops, heads: int, ws: int, shift: int, dp):
+    """B5's function as a sequence of bf16 PyTorch calls: roll and
+    partition, ``F.layer_norm``, ``F.linear`` (cuBLAS), SDPA with the rel-pos
+    bias plus the shift mask as its mask, ``F.linear``, the drop-path scale
+    and the residual, rolled back. Returns a function of no arguments."""
+    import torch
+    import torch.nn.functional as F
+
+    from studiosr_tpu_torch.ops.windows import calculate_mask, window_partition, window_reverse
+
+    bsz, h, w, c = x.shape
+    n, d = ws * ws, c // heads
+    bf = torch.bfloat16
+    ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias = [t.detach().to(bf) for t in ops]
+    wq, wp = wqkv.t().contiguous(), wproj.t().contiguous()
+    if shift:  # (B nW, heads, N, N): the bias plus the region mask of each window
+        region = torch.from_numpy(calculate_mask((h, w), ws, shift)).to(x.device, bf)
+        mask = (bias.reshape(1, 1, heads, n, n) + region[None, :, None]).expand(bsz, -1, -1, -1, -1)
+        mask = mask.reshape(-1, heads, n, n).contiguous()
+    else:
+        mask = bias[None]
+    scale = None if dp is None else dp.to(bf).reshape(-1, 1, 1, 1)
+    xx = x.to(bf)
+
+    def forward():
+        xr = torch.roll(xx, (-shift, -shift), (1, 2)) if shift else xx
+        xw = window_partition(xr, ws).reshape(-1, n, c)
+        qkv = F.linear(F.layer_norm(xw, (c,), ln_w, ln_b, 1e-5), wq, bqkv).reshape(-1, n, 3, heads, d)
+        qkv = qkv.permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2], attn_mask=mask)
+        y = window_reverse(F.linear(o.transpose(1, 2).reshape(-1, n, c), wp, bproj).reshape(-1, ws, ws, c), ws, h, w)
+        if shift:
+            y = torch.roll(y, (shift, shift), (1, 2))
+        return xx + (y if scale is None else scale * y)
+
+    return forward
+
+
+def mlp_half_backward_sequence(x, g, ops, dp, rows_per_sample: int):
+    """B7's function as bf16 PyTorch calls: ``torch.autograd.grad`` of x + d
+    fc2(gelu(fc1(LN x))) (``F.layer_norm``, ``F.linear`` on cuBLAS, the exact
+    ``F.gelu``) against ``g``, the forward run with it as the kernel
+    recomputes it. Returns a function of no arguments."""
+    import torch
+    import torch.nn.functional as F
+
+    bf = torch.bfloat16
+    ln_w, ln_b, w1, b1, w2 = ops[:5]
+    b2 = torch.zeros(w2.shape[-1], device=x.device)
+    leaves = [t.detach().to(bf).requires_grad_() for t in (x, ln_w, ln_b, w1.t(), b1, w2.t(), b2)]
+    d = None if dp is None else dp.to(bf).repeat_interleave(rows_per_sample)[:, None]
+    gg = g.to(bf)
+
+    def both():
+        xx, lw, lb, wa, ba, wb, bb = leaves
+        y = F.linear(F.gelu(F.linear(F.layer_norm(xx, (xx.shape[-1],), lw, lb, 1e-5), wa, ba)), wb, bb)
+        torch.autograd.grad(xx + (y if d is None else d * y), leaves, gg)
+
+    return both
+
+
 def measure() -> dict:
     import torch
     import torch.nn.functional as F
@@ -171,7 +242,12 @@ def measure() -> dict:
                     randn(HEADS, ws * ws, ws * ws, scale=0.5).to(bf))  # the bf16 step's gathered bias
         kw = dict(heads=HEADS, window_size=ws, shift=shift, drop_path=dp)
         fwd = f"fused_window_attention_block{'_ws16' if ws == 16 else ''}"
+        engagement.reset()
         ms[fwd] = time_ms(lambda: fused_window_attention_block(x, *attn_ops, **kw))
+        entries[fwd] = engagement.entries().get(fwd)
+        passes[fwd] = pass_split(lambda: fused_window_attention_block(x, *attn_ops, **kw))
+        ms[f"{fwd} yardstick (bf16 PyTorch sequence)"] = time_ms(
+            attention_half_forward_sequence(x, attn_ops, HEADS, ws, shift, dp), iters=10)
         engagement.reset()
         ms[name] = time_ms(lambda: attention_bwd(x, g, *attn_ops, **kw))
         entries[name] = engagement.entries().get(name)
@@ -187,7 +263,31 @@ def measure() -> dict:
                randn(2 * C, scale=0.1), randn(2 * C, C, scale=(2 * C)**-0.5).to(bf))
     ms["fused_mlp_block"] = time_ms(lambda: fused_mlp_block(xr, *mlp_ops, randn(C, scale=0.1), drop_path=dp,
                                                             rows_per_sample=rps))
+    engagement.reset()
     ms["mlp_bwd"] = time_ms(lambda: mlp_bwd(xr, gr, *mlp_ops, drop_path=dp, rows_per_sample=rps))
+    entries["mlp_bwd"] = engagement.entries().get("mlp_bwd")
+    passes["mlp_bwd"] = pass_split(lambda: mlp_bwd(xr, gr, *mlp_ops, drop_path=dp, rows_per_sample=rps))
+    ms["mlp_bwd yardstick (bf16 PyTorch sequence)"] = time_ms(
+        mlp_half_backward_sequence(xr, gr, mlp_ops, dp, rps), iters=5, warmup=2)
+
+    # B5 at HAT x4 serving's shapes: one 256 x 256 map, window 16, no drop-path
+    name, ws = "fused_window_attention_block_ws16 serving", 16
+    xs = randn(1, 256, 256, C).to(bf)
+    dense = (1 + randn(C, scale=0.1), randn(C, scale=0.1), randn(C, 3 * C, scale=C**-0.5).to(bf),
+             randn(3 * C, scale=0.1), randn(C, C, scale=C**-0.5).to(bf), randn(C, scale=0.1),
+             randn(HEADS, ws * ws, ws * ws, scale=0.5))
+    served = list(dense)
+    try:  # serving packs the weights and the bias once, at load time
+        from studiosr_tpu_torch.ops.cuda.window_attention import pack_window_attention
+
+        served[2:7] = [pack_window_attention(dense[2], dense[4], dense[6], HEADS), dense[3], None, dense[5], None]
+    except ImportError:
+        pass
+    kw = dict(heads=HEADS, window_size=ws, shift=8)
+    ms[name] = time_ms(lambda: fused_window_attention_block(xs, *served, **kw))
+    passes[name] = pass_split(lambda: fused_window_attention_block(xs, *served, **kw))
+    ms[f"{name} yardstick (bf16 PyTorch sequence)"] = time_ms(
+        attention_half_forward_sequence(xs, dense, HEADS, ws, 8, None), iters=10)
 
     def view(n, scale):  # (512, 6, n, 30) over (512, n, 6, 30) storage, as the OCAB's views
         return randn(512, n, HEADS, 30, scale=scale).to(bf).transpose(1, 2)

@@ -50,10 +50,11 @@
 //    arrival) before any block refills an inbox. The scores are computed
 //    twice, not three times. dq|dk|dv and attn go out per token row, heads
 //    padded to DP.
-// 3. am_dln_kernel, a tile a warpgroup: dln = dqkv Wqkv^T on wgmma (A the
-//    tile's dq|dk|dv in 64-column chunks by cp.async, B streamed through
-//    the ring), in f32 to a scratch; 3b. am_lnb_kernel, a warp a row: the LN
-//    backward and dx, and per-block column sums of dln xhat and dln.
+// 3. am_rowgemm_kernel (am_common.cuh), a tile a warpgroup: dln = dqkv
+//    Wqkv^T on wgmma (A the tile's dq|dk|dv in 64-column chunks by cp.async,
+//    B streamed through the ring), in f32 to a scratch; 3b. am_lnb_kernel, a
+//    warp a row: the LN backward and dx, and per-block column sums of dln
+//    xhat and dln.
 // 4. am_wgrad_kernel: d Wqkv = LN^T dqkv, d Wproj = attn^T g_b and the bias
 //    gradients over all token rows on wgmma (split-K f32 partials), every
 //    partial summed in a fixed order (wgrad.cuh's reduce_parts).
@@ -65,217 +66,12 @@
 // _pack_index): per head, in stages of 96 K rows, its q|k|v columns and its
 // rows of Wproj; then Wqkv^T (K the padded dq|dk|dv columns) in stages of
 // 64 rows; each stage the image of a ring slot in wgmma's K-major
-// core-matrix layout (am_kmajor here, _k_major there: change both
+// core-matrix layout (am_kmajor in am_common.cuh, _k_major there: change both
 // together).
 // Takes bf16, window 8 or 16, head dims up to 32, C a multiple of 4 up to
 // 184, H and W multiples of the window; the wrapper routes anything else.
-#include "hopper_mma.cuh"
-#include "wgmma.cuh"
-#include "wgrad.cuh"
-
-using bf16 = __nv_bfloat16;
-
-// dln's product at C 180 and the weight gradients' (wgmma.cuh has the
-// register-A form of the first).
-template <>
-__device__ __forceinline__ void wg_ss<184>(float* d, uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %94, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n184k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91}, %92, %93, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-
-template <>
-__device__ __forceinline__ void wg_ss<192>(float* d, uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, %96, %97, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-constexpr int AM_TOK = 64;      // a tile's tokens; a chunk's queries or keys
-constexpr int AM_SLOTS = 4;     // ring slots
-constexpr int AM_SLOT_BYTES = 24576;  // bytes a slot (a stage's most)
-constexpr int AM_KROWS = 96;    // K rows of a projection stage
-constexpr int AM_MAX_STAGES = 64;
-constexpr int AM_HEAD_BYTES = 384;  // the ring's barriers (64 B) and stage table, 128-byte padded
-constexpr int AM_KSTAGE = 64;   // K rows of a dln weight stage
-constexpr int AM_ABUF = 4;      // dln: dq|dk|dv chunk buffers a warpgroup (AM_ABUF - 1 in flight)
-constexpr int AM_MAX_C = 184;
-constexpr float AM_LOG2E = 1.4426950408889634f;
-
-__host__ __device__ inline int am_pad16(int v) { return (v + 15) & ~15; }
-__host__ __device__ inline int am_min(int a, int b) { return a < b ? a : b; }
-// Product width of dln (columns of C): the wgmma widths the kernel has.
-__host__ __device__ inline int am_np(int C) {
-  return C <= 16 ? 16 : C <= 32 ? 32 : C <= 48 ? 48 : C <= 64 ? 64 : C <= 96 ? 96 : C <= 128 ? 128 : 184;
-}
-// Element (k, n) of a K-major operand image with `rows` K rows: core
-// matrices of 8 n x 8 k, k-groups 64 elements apart (LBO 128 bytes),
-// n-groups rows * 8 elements apart (SBO rows * 16 bytes). An A operand (m, k)
-// is am_kmajor(k, m, K).
-__host__ __device__ inline int am_kmajor(int k, int n, int rows) {
-  return (n / 8) * rows * 8 + (k / 8) * 64 + (n % 8) * 8 + k % 8;
-}
-
-// The geometry, shared by the kernels and the host; the packed layout is
-// mirrored by ops/cuda/attn_bwd.py.
-struct AmGeom {
-  int C, heads, d, DP, KC, HD, K3, NP, ws, N, NCH, SC;
-  __host__ __device__ AmGeom(int C_, int heads_, int ws_) : C(C_), heads(heads_), ws(ws_) {
-    d = C / heads;
-    DP = am_pad16(d);
-    KC = am_pad16(C);
-    HD = heads * DP;
-    K3 = 3 * HD;
-    NP = am_np(C);
-    N = ws * ws;
-    NCH = N / AM_TOK;
-    SC = (C + 7) & ~7;
-  }
-  // a head's weights: q|k|v (KC x 3 DP) and Wproj^T's head columns (KC x
-  // DP), in stages of AM_KROWS K rows, each q|k|v's rows then Wproj^T's
-  __host__ __device__ int proj_stages() const { return (KC + AM_KROWS - 1) / AM_KROWS; }
-  __host__ __device__ int proj_rows(int s) const { return am_min(AM_KROWS, KC - AM_KROWS * s); }
-  __host__ __device__ long long proj_elems() const { return (long long)heads * 4 * KC * DP; }
-  __host__ __device__ int dln_stages() const { return (K3 + AM_KSTAGE - 1) / AM_KSTAGE; }
-  __host__ __device__ int dln_rows(int s) const { return am_min(AM_KSTAGE, K3 - AM_KSTAGE * s); }
-  __host__ __device__ long long pack_elems() const { return proj_elems() + (long long)K3 * NP; }
-};
-
-struct AmArgs {
-  const bf16 *x, *g;
-  bf16* dx;
-  const float *ln_w, *ln_b, *bqkv, *dp;
-  const void* relbias;  // the bias in fragment order (am_bias_kernel): f32, or bf16 when bias16
-  const bf16* w;  // the packed weights
-  bf16 *img, *ln, *gb, *att, *dqkv;
-  float *stats, *dbias_part, *lnst, *dln;
-  int H, W, shift, nwx, nwi, windows, tiles, groups, bias16;
-};
-
-// -- mbarriers, the bulk copy and the ring ------------------------------------------
-
-__device__ __forceinline__ void am_bar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(hm_smem(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ bool am_bar_try(uint64_t* bar, int parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(done)
-      : "r"(hm_smem(bar)), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Waits for the phase of parity `parity`; traps after about ten seconds, so
-// a fault in the ring ends the launch with an error instead of hanging.
-__device__ __forceinline__ void am_bar_wait(uint64_t* bar, int parity) {
-  if (am_bar_try(bar, parity)) return;
-  const long long start = clock64();
-  while (!am_bar_try(bar, parity))
-    if (clock64() - start > 20000000000LL) __trap();
-}
-
-__device__ __forceinline__ void am_bar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(hm_smem(bar)) : "memory");
-}
-
-__device__ __forceinline__ void am_bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(hm_smem(bar)), "r"(bytes) : "memory");
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-                   hm_smem(dst)),
-               "l"(src), "r"(bytes), "r"(hm_smem(bar))
-               : "memory");
-}
-
-// A warp's view of the weight ring: stage j (of nst, repeating) is the
-// elements off[j] .. off[j + 1] of w (a table in shared memory). Thread 0 of
-// the block is also the producer: on acquiring stage i it issues stage
-// i + AM_SLOTS - 1, once every warp has released that slot.
-struct AmRing {
-  unsigned char* slots;
-  uint64_t *full, *empty;
-  const int* off;
-  const bf16* w;
-  int nst, total;
-  int i, slot, phase;
-  __device__ void issue(int k) {
-    const int j = k % nst, sl = k % AM_SLOTS;
-    am_bar_wait(&empty[sl], ((k / AM_SLOTS) & 1) ^ 1);
-    am_bulk_load(slots + (size_t)sl * AM_SLOT_BYTES, w + off[j], 2 * (off[j + 1] - off[j]), &full[sl]);
-  }
-  __device__ const bf16* acquire() {
-    if (threadIdx.x == 0 && i + AM_SLOTS - 1 < total) issue(i + AM_SLOTS - 1);
-    __syncwarp();
-    am_bar_wait(&full[slot], phase);
-    return (const bf16*)(slots + (size_t)slot * AM_SLOT_BYTES);
-  }
-  __device__ void release() {
-    __syncwarp();
-    if ((threadIdx.x & 31) == 0) am_bar_arrive(&empty[slot]);
-    ++i;
-    if (++slot == AM_SLOTS) slot = 0, phase ^= 1;
-  }
-};
-
-// The ring at the start of shared memory (AM_SLOTS slots, then AM_HEAD_BYTES
-// of barriers and the stage table, filled by thread 0 from `elems(j)`, the
-// elements of stage j), for `warps` consumer warps; the first stages
-// issued. Call with every thread, before any acquire.
-template <typename F>
-__device__ inline AmRing am_ring_start(unsigned char* smem, const bf16* w, int nst, int total, int warps, F elems) {
-  uint64_t* bars = (uint64_t*)(smem + AM_SLOTS * AM_SLOT_BYTES);
-  int* off = (int*)(smem + AM_SLOTS * AM_SLOT_BYTES + 64);
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < AM_SLOTS; ++i) am_bar_init(&bars[i], 1), am_bar_init(&bars[AM_SLOTS + i], warps);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    off[0] = 0;
-    for (int j = 0; j < nst; ++j) off[j + 1] = off[j] + elems(j);
-  }
-  __syncthreads();
-  AmRing r{smem, bars, bars + AM_SLOTS, off, w, nst, total, 0, 0, 0};
-  if (threadIdx.x == 0)
-    for (int k = 0; k < AM_SLOTS - 1 && k < total; ++k) r.issue(k);
-  return r;
-}
-
-// -- helpers ------------------------------------------------------------------------
-
-__device__ __forceinline__ float am_quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float am_quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-__device__ __forceinline__ float am_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float am_round(float v) { return __bfloat162float(__float2bfloat16(v)); }
-
-// Four 8 x 8 bf16 tiles from registers, each stored transposed: lane l gives
-// the address of row l % 8 of tile l / 8, which receives column l % 8.
-__device__ __forceinline__ void am_stsm_x4_t(void* p, uint32_t r0, uint32_t r1, uint32_t r2, uint32_t r3) {
-  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1,%2,%3,%4};\n" ::"r"(hm_smem(p)), "r"(r0),
-               "r"(r1), "r"(r2), "r"(r3)
-               : "memory");
-}
+// The pieces B5 and B7 share with it are in am_window.cuh and am_common.cuh.
+#include "am_window.cuh"
 
 __device__ __forceinline__ void am_cluster_sync() {
   asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
@@ -320,172 +116,6 @@ __device__ __forceinline__ void am_bar_wait_cluster(uint64_t* bar, int parity) {
         : "memory");
     if (done) return;
     if (clock64() - start > 20000000000LL) __trap();
-  }
-}
-
-__device__ __forceinline__ void am_wg_sync(int wg) { asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory"); }
-
-// Pixel of token t (0..63) of tile `tile`: window tile / NCH, its tokens
-// 64 (tile % NCH) + t, through the shift.
-__device__ __forceinline__ long long am_pixel(const AmGeom& G, const AmArgs& a, int tile, int t) {
-  const int w = tile / G.NCH, n = (tile % G.NCH) * AM_TOK + t;
-  const int img = w / a.nwi, wi = w % a.nwi;
-  int y = (wi / a.nwx) * G.ws + n / G.ws + a.shift, x = (wi % a.nwx) * G.ws + n % G.ws + a.shift;
-  if (y >= a.H) y -= a.H;
-  if (x >= a.W) x -= a.W;
-  return ((long long)img * a.H + y) * a.W + x;
-}
-
-// calculate_mask's region of window token n of the rolled map.
-__device__ __forceinline__ int am_region(const AmGeom& G, const AmArgs& a, int wi, int n) {
-  const int y = (wi / a.nwx) * G.ws + n / G.ws, x = (wi % a.nwx) * G.ws + n % G.ws;
-  return 3 * (y < a.H - G.ws ? 0 : (y < a.H - a.shift ? 1 : 2)) + (x < a.W - G.ws ? 0 : (x < a.W - a.shift ? 1 : 2));
-}
-
-// -- passes 0 and 1: LN and g_b rows; q|k|v and dattn --------------------------------
-
-// Shared memory of pass 1: the ring, its barriers, then per warpgroup its
-// LN and g_b tiles (K-major, 64 x KC).
-__host__ __device__ inline size_t am_proj_smem(const AmGeom& G) {
-  return (size_t)AM_SLOTS * AM_SLOT_BYTES + AM_HEAD_BYTES + 2 * (size_t)2 * AM_TOK * G.KC * 2;
-}
-
-// Pass 0, a warp a token row (rows in tile order, many blocks an SM): LN
-// (eps 1e-5, f32 statistics) and g_b = d g, rounded, into the row-major
-// scratch (SC columns, zero past C), LN's (mean, rstd) into stats. Lane l
-// takes the 4-column pieces l, l + 32 (C a multiple of 4, at most 184).
-__global__ void __launch_bounds__(256) am_ln_kernel(const AmArgs a, const AmGeom G, long long rows) {
-  const int lane = threadIdx.x & 31, C = G.C, NPC = G.SC / 4;
-  for (long long row = blockIdx.x * 8LL + (threadIdx.x >> 5); row < rows; row += gridDim.x * 8LL) {
-    const int tile = (int)(row / AM_TOK);
-    const long long off = am_pixel(G, a, tile, (int)(row % AM_TOK)) * C;
-    const float dd = a.dp ? a.dp[(tile / G.NCH) / a.nwi] : 1.f;
-    float v[2][4], gv[2][4], s = 0.f;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int c = 4 * (lane + 32 * j);
-      uint2 ux = make_uint2(0u, 0u), ug = make_uint2(0u, 0u);
-      if (c < C) {
-        ux = *reinterpret_cast<const uint2*>(a.x + off + c);
-        ug = *reinterpret_cast<const uint2*>(a.g + off + c);
-      }
-      const float2 x0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ux.x));
-      const float2 x1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ux.y));
-      const float2 g0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ug.x));
-      const float2 g1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ug.y));
-      v[j][0] = x0.x, v[j][1] = x0.y, v[j][2] = x1.x, v[j][3] = x1.y;
-      gv[j][0] = g0.x, gv[j][1] = g0.y, gv[j][2] = g1.x, gv[j][3] = g1.y;
-      s += v[j][0] + v[j][1] + v[j][2] + v[j][3];
-    }
-    const float mean = warp_sum(s) / C;
-    float q = 0.f;
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      if (4 * (lane + 32 * j) < C)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) q += (v[j][e] - mean) * (v[j][e] - mean);
-    const float rstd = rsqrtf(warp_sum(q) / C + 1e-5f);
-    if (lane == 0) a.stats[2 * row] = mean, a.stats[2 * row + 1] = rstd;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int pc = lane + 32 * j, c = 4 * pc;
-      if (pc >= NPC) continue;
-      uint32_t lo[2], go[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c0 = c + 2 * e;
-        const bool in = c0 < C;  // C is a multiple of 4: a pair is in or out whole
-        lo[e] = hm_pack(in ? (v[j][2 * e] - mean) * rstd * __ldg(a.ln_w + c0) + __ldg(a.ln_b + c0) : 0.f,
-                        in ? (v[j][2 * e + 1] - mean) * rstd * __ldg(a.ln_w + c0 + 1) + __ldg(a.ln_b + c0 + 1) : 0.f);
-        go[e] = hm_pack(dd * gv[j][2 * e], dd * gv[j][2 * e + 1]);
-      }
-      *reinterpret_cast<uint2*>(a.ln + row * G.SC + c) = make_uint2(lo[0], lo[1]);
-      *reinterpret_cast<uint2*>(a.gb + row * G.SC + c) = make_uint2(go[0], go[1]);
-    }
-  }
-}
-
-// The LN or g_b rows of a tile from the scratch into a K-major tile (KC
-// columns, zero past SC), one cp.async group of the warpgroup's threads.
-__device__ __forceinline__ void am_load_rows(const AmGeom& G, const bf16* rows, int tile, bool valid, bf16* tileb) {
-  const int KG = G.KC / 8, SG = G.SC / 8;
-  for (int i = threadIdx.x & 127; i < AM_TOK * KG; i += 128) {
-    const int t = i / KG, kg = i - t * KG;
-    const bool in = valid && kg < SG;
-    hm_cp_async<16>(tileb + am_kmajor(8 * kg, t, G.KC), in ? rows + ((long long)tile * AM_TOK + t) * G.SC + 8 * kg : rows,
-                    in);
-  }
-}
-
-// One warpgroup a 64-token tile, two a block, persistent over tile pairs.
-template <int DP>
-__global__ void __launch_bounds__(256, 1) am_proj_kernel(const AmArgs a, const AmGeom G) {
-  constexpr int NQ = 3 * DP, NQT = NQ / 8, NDT = DP / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
-  const int wg = warp >> 2, wr = warp & 3;
-  bf16* lnb = (bf16*)(smem + AM_SLOTS * AM_SLOT_BYTES + AM_HEAD_BYTES) + (size_t)wg * 2 * AM_TOK * G.KC;
-  bf16* gbb = lnb + AM_TOK * G.KC;
-  const int npairs = (a.tiles + 1) / 2;
-  const int pairs = blockIdx.x < npairs ? (npairs - 1 - blockIdx.x) / gridDim.x + 1 : 0;
-  const int hst = G.proj_stages(), nst = G.heads * hst;
-  AmRing ring = am_ring_start(smem, a.w, nst, nst * pairs, 8, [&](int j) { return 4 * G.proj_rows(j % hst) * DP; });
-  const float qscale = rsqrtf((float)G.d);
-  const int KC = G.KC, N = G.N;
-  for (int p = blockIdx.x; p < npairs; p += gridDim.x) {
-    const int tile = 2 * p + wg;
-    const bool valid = tile < a.tiles;
-    am_wg_sync(wg);  // the warpgroup's products on the last tiles are done
-    am_load_rows(G, a.ln, tile, valid, lnb);
-    am_load_rows(G, a.gb, tile, valid, gbb);
-    hm_cp_commit();
-    hm_cp_wait_upto(0);
-    wg_proxy_fence();
-    am_wg_sync(wg);
-    const int w = tile / G.NCH, c = tile % G.NCH;
-    for (int h = 0; h < G.heads; ++h) {
-      float aq[NQT][4], ad[NDT][4];
-      for (int sk = 0; sk < hst; ++sk) {
-        const bf16* st = ring.acquire();
-        const int k0 = sk * AM_KROWS, kr = G.proj_rows(sk);
-        wg_fence();
-        for (int kk = 0; kk < kr; kk += 16)
-          wg_ss<NQ>(&aq[0][0], wg_desc(lnb + (k0 + kk) * 8, 128, KC * 16), wg_desc(st + kk * 8, 128, kr * 16),
-                    k0 + kk > 0);
-        for (int kk = 0; kk < kr; kk += 16)
-          wg_ss<DP>(&ad[0][0], wg_desc(gbb + (k0 + kk) * 8, 128, KC * 16),
-                    wg_desc(st + kr * NQ + kk * 8, 128, kr * 16), k0 + kk > 0);
-        wg_commit();
-        wg_wait0();
-        wg_hold<NQT * 4>(&aq[0][0]);
-        wg_hold<NDT * 4>(&ad[0][0]);
-        ring.release();
-      }
-      if (!valid) continue;
-      // q (scaled), k, v, dattn of the (window, head) unit, chunk c: K-major
-      // images of 64 x DP, array order q, k, v, dattn
-      bf16* unit = a.img + ((long long)w * G.heads + h) * 4 * N * DP + c * AM_TOK * DP;
-#pragma unroll
-      for (int nt = 0; nt < NQT + NDT; ++nt) {
-        const int part = nt < NQT ? nt / NDT : 3, j = (nt < NQT ? nt % NDT : nt - NQT) * 8 + 2 * tq;
-        const float* acc = nt < NQT ? aq[nt] : ad[nt - NQT];
-        float b0 = 0.f, b1 = 0.f;
-        if (part < 3) {
-          const float* bp = a.bqkv + part * G.C + h * G.d;
-          b0 = j < G.d ? __ldg(bp + j) : 0.f;
-          b1 = j + 1 < G.d ? __ldg(bp + j + 1) : 0.f;
-        }
-        const float sc = part == 0 ? qscale : 1.f;
-        bf16* dst = unit + (long long)part * N * DP;
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int r = 16 * wr + gq + 8 * hh;
-          const float v0 = j < G.d ? (acc[2 * hh] + b0) * sc : 0.f;
-          const float v1 = j + 1 < G.d ? (acc[2 * hh + 1] + b1) * sc : 0.f;
-          *reinterpret_cast<__nv_bfloat162*>(dst + am_kmajor(j, r, DP)) = __floats2bfloat162_rn(v0, v1);
-        }
-      }
-    }
   }
 }
 
@@ -897,34 +527,6 @@ __global__ void __launch_bounds__(128 * am_wgs(NCH), NCH == 1 ? 3 : 1) am_attn_k
     }
 }
 
-// The gathered rel-pos bias (heads, N, N; f32, or bf16 when bias16) in the
-// order the attention pass's threads read it (bias4): element e of float4 /
-// 4-value group ((h NCH + r) NCH + c) 1024 + 128 nt + wt is the score
-// fragment of thread wt of the block of query chunk r, key chunk c, 8-column
-// tile nt. bf16 stays bf16 (exact), f32 stays f32.
-__global__ void am_bias_kernel(const void* __restrict__ bias, int bias16, int heads, int nch,
-                               void* __restrict__ out) {
-  const int n = nch * AM_TOK;
-  const long long groups = (long long)heads * n * n / 4;
-  for (long long gi = blockIdx.x * (long long)blockDim.x + threadIdx.x; gi < groups;
-       gi += (long long)gridDim.x * blockDim.x) {
-    const int wt = (int)(gi % 128), nt = (int)(gi / 128 % 8), c = (int)(gi / 1024 % nch);
-    const int r = (int)(gi / (1024LL * nch) % nch), h = (int)(gi / (1024LL * nch * nch));
-    const int q = AM_TOK * r + 16 * (wt >> 5) + ((wt & 31) >> 2), col = AM_TOK * c + 8 * nt + 2 * (wt & 3);
-    const long long e0 = ((long long)h * n + q) * n + col, e1 = e0 + 8LL * n;
-    if (bias16) {
-      const bf16* b = (const bf16*)bias;
-      __nv_bfloat162 v0, v1;
-      v0.x = b[e0], v0.y = b[e0 + 1], v1.x = b[e1], v1.y = b[e1 + 1];
-      reinterpret_cast<uint2*>(out)[gi] =
-          make_uint2(*reinterpret_cast<uint32_t*>(&v0), *reinterpret_cast<uint32_t*>(&v1));
-    } else {
-      const float* b = (const float*)bias;
-      reinterpret_cast<float4*>(out)[gi] = make_float4(b[e0], b[e0 + 1], b[e1], b[e1 + 1]);
-    }
-  }
-}
-
 // out[h][e] = sum over groups of part[h][g][e], in order of g.
 __global__ void am_dbias_reduce_kernel(const float* __restrict__ part, int heads, int groups, long long nn,
                                        float* __restrict__ out) {
@@ -937,286 +539,28 @@ __global__ void am_dbias_reduce_kernel(const float* __restrict__ part, int heads
   }
 }
 
-// -- pass 3: dln = dqkv Wqkv^T; 3b: the LN backward and dx -------------------------
-
-// The ring, its barriers and stage table, and each warpgroup's AM_ABUF
-// dq|dk|dv chunk buffers (K-major, 64 tokens x 64 K).
-__host__ __device__ inline size_t am_dln_smem(const AmGeom& G) {
-  return (size_t)AM_SLOTS * AM_SLOT_BYTES + AM_HEAD_BYTES + 2 * (size_t)AM_ABUF * AM_TOK * AM_KSTAGE * 2;
-}
-
-template <int NP>
-__global__ void __launch_bounds__(256, 1) am_dln_kernel(const AmArgs a, const AmGeom G) {
-  constexpr int NT = NP / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
-  const int wg = warp >> 2, wr = warp & 3, wt = tid & 127;
-  const int K3 = G.K3, C = G.C;
-  bf16* Ab = (bf16*)(smem + AM_SLOTS * AM_SLOT_BYTES + AM_HEAD_BYTES) + (size_t)wg * AM_ABUF * AM_TOK * AM_KSTAGE;
-  const int npairs = (a.tiles + 1) / 2, nst = G.dln_stages();
-  const int pairs = blockIdx.x < npairs ? (npairs - 1 - blockIdx.x) / gridDim.x + 1 : 0;
-  AmRing ring = am_ring_start(smem, a.w + G.proj_elems(), nst, nst * pairs, 8,
-                              [&](int j) { return G.dln_rows(j) * NP; });
-  for (int p = blockIdx.x; p < npairs; p += gridDim.x) {
-    const int tile = 2 * p + wg;
-    const bool valid = tile < a.tiles;
-    const bf16* src = a.dqkv + (long long)tile * AM_TOK * K3;
-    // K chunk s of the tile's dq|dk|dv rows into buffer s % AM_ABUF, one cp.async group
-    auto load = [&](int s) {
-      if (valid && s < nst) {
-        const int kr = G.dln_rows(s), KG = kr / 8;
-        bf16* dst = Ab + (s % AM_ABUF) * AM_TOK * AM_KSTAGE;
-        for (int i = wt; i < AM_TOK * KG; i += 128) {
-          const int t = i / KG, kg = i - t * KG;
-          hm_cp_async<16>(dst + am_kmajor(8 * kg, t, kr), src + (long long)t * K3 + AM_KSTAGE * s + 8 * kg, true);
-        }
-      }
-      hm_cp_commit();
-    };
-    am_wg_sync(wg);  // the warpgroup's last products are done with its buffers
-    for (int s = 0; s < AM_ABUF - 1; ++s) load(s);
-    float acc[NT][4];
-    for (int s = 0; s < nst; ++s) {
-      load(s + AM_ABUF - 1);
-      hm_cp_wait_upto(AM_ABUF - 1);
-      wg_proxy_fence();
-      am_wg_sync(wg);  // chunk s is in
-      const bf16* bs = ring.acquire();
-      const bf16* As = Ab + (s % AM_ABUF) * AM_TOK * AM_KSTAGE;
-      const int kr = G.dln_rows(s);
-      wg_fence();
-      for (int kk = 0; kk < kr; kk += 16)
-        wg_ss<NP>(&acc[0][0], wg_desc(As + kk * 8, 128, kr * 16), wg_desc(bs + kk * 8, 128, kr * 16), s > 0 || kk > 0);
-      wg_commit();
-      wg_wait0();
-      wg_hold<NT * 4>(&acc[0][0]);
-      ring.release();
-      am_wg_sync(wg);  // every warp is done with buffer s % AM_ABUF
-    }
-    if (!valid) continue;
-    // dln in f32 to the token rows (pass 3b takes the LN backward)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int c = nt * 8 + 2 * tq;
-      if (c >= C) continue;
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const long long row = (long long)tile * AM_TOK + 16 * wr + gq + 8 * hh;
-        *reinterpret_cast<float2*>(a.dln + row * C + c) = make_float2(acc[nt][2 * hh], acc[nt][2 * hh + 1]);
-      }
-    }
-  }
-}
+// -- pass 3: dln = dqkv Wqkv^T (am_rowgemm_kernel); 3b: the LN backward and dx -----
 
 // Pass 3b, a warp a token row (rows in tile order; block b takes rows b, b +
-// gridDim, ...): the LN backward and dx from dln, x, g and the LN
-// statistics, dx = g_b + rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat))
-// + (1 - d) g with dxhat = dln s, and the block's column sums of dln xhat
-// and dln (each lane its column pairs, the warps added in order) into
-// lnst[block][2 C]. Lane l takes the column pairs l, l + 32, l + 64.
+// gridDim, ...): the LN backward and dx from dln, x, g and the LN statistics
+// (am_lnb_row), and the block's column sums of dln xhat and dln into
+// lnst[block][2 C].
 __global__ void __launch_bounds__(256) am_lnb_kernel(const AmArgs a, const AmGeom G, long long rows) {
   __shared__ float sums[8][2 * AM_MAX_C];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, C = G.C;
+  const int warp = threadIdx.x >> 5, C = G.C;
   float cs[3][4] = {};  // per pair: dln xhat (c, c + 1), dln (c, c + 1)
   for (long long row = blockIdx.x + (long long)gridDim.x * warp; row < rows; row += gridDim.x * 8LL) {
     const int tile = (int)(row / AM_TOK);
     const long long off = am_pixel(G, a, tile, (int)(row % AM_TOK)) * C;
     const float dd = a.dp ? a.dp[(tile / G.NCH) / a.nwi] : 1.f;
-    const float mean = a.stats[2 * row], rstd = a.stats[2 * row + 1];
-    float2 dl[3], xh[3], gv[3], w[3];
-    float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const int c = 2 * (lane + 32 * j);
-      dl[j] = xh[j] = gv[j] = w[j] = make_float2(0.f, 0.f);
-      if (c < C) {
-        dl[j] = *reinterpret_cast<const float2*>(a.dln + row * C + c);
-        const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a.x + off + c));
-        gv[j] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a.g + off + c));
-        w[j] = make_float2(__ldg(a.ln_w + c), __ldg(a.ln_w + c + 1));
-        xh[j] = make_float2((xv.x - mean) * rstd, (xv.y - mean) * rstd);
-      }
-      const float d0 = dl[j].x * w[j].x, d1 = dl[j].y * w[j].y;
-      s1 += d0 + d1;
-      s2 += d0 * xh[j].x + d1 * xh[j].y;
-      cs[j][0] += dl[j].x * xh[j].x, cs[j][1] += dl[j].y * xh[j].y, cs[j][2] += dl[j].x, cs[j][3] += dl[j].y;
-    }
-    const float m1 = warp_sum(s1) / C, m2 = warp_sum(s2) / C;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const int c = 2 * (lane + 32 * j);
-      if (c >= C) continue;
-      const float y0 = am_round(dd * gv[j].x) + (dl[j].x * w[j].x - m1 - xh[j].x * m2) * rstd + (1.f - dd) * gv[j].x;
-      const float y1 = am_round(dd * gv[j].y) + (dl[j].y * w[j].y - m1 - xh[j].y * m2) * rstd + (1.f - dd) * gv[j].y;
-      *reinterpret_cast<__nv_bfloat162*>(a.dx + off + c) = __floats2bfloat162_rn(y0, y1);
-    }
+    am_lnb_row(a.dln + row * C, a.x + off, a.g + off, a.dx + off, a.stats[2 * row], a.stats[2 * row + 1], dd, C, a.ln_w,
+               cs);
   }
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    const int c = 2 * (lane + 32 * j);
-    if (c < C) {
-      sums[warp][c] = cs[j][0], sums[warp][c + 1] = cs[j][1];
-      sums[warp][C + c] = cs[j][2], sums[warp][C + c + 1] = cs[j][3];
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < 2 * C; i += 256) {
-    float v = 0.f;
-    for (int wi = 0; wi < 8; ++wi) v += sums[wi][i];
-    a.lnst[(long long)blockIdx.x * 2 * C + i] = v;
-  }
+  am_lnb_sums(cs, C, sums, a.lnst + (long long)blockIdx.x * 2 * C);
 }
 
-// -- pass 4: the weight gradients ---------------------------------------------------
-
-// dW (M x N) = A^T B over K token rows (A: K x M, B: K x N, row-major bf16,
-// strides multiples of 8) and the column sums of B, on wgmma. A block of
-// three warpgroups owns a 192 x 192 tile of dW and a range of K (split-K: each
-// range an f32 partial of its own, summed afterwards in a fixed order). Per
-// 64-row K chunk: cp.async of the A and B rows into a staging buffer (the
-// next chunk in flight), ldmatrix + stmatrix.trans into K-major images
-// (tokens contiguous), and four m64n192k16 products a warpgroup. At C 180 a
-// tile holds all of dW's rows, so B (dq|dk|dv) is read once and A (LN) once
-// for each of the three column tiles. Columns
-// past M or N of the last tiles are read as they lie (the caller leaves
-// 2 WG_BM elements of slack after the last matrix) and dropped.
-constexpr int AW_WGS = 3, AW_THREADS = 128 * AW_WGS, AW_M = 64 * AW_WGS, AW_N = 192, AW_K = 64, AW_LA = AW_M + 8, AW_LB = AW_N + 8;
-
-struct AwSmem {
-  static constexpr size_t sa = (size_t)AW_K * AW_LA * 2, sb = (size_t)AW_K * AW_LB * 2;
-  static constexpr size_t ia = (size_t)AW_M * AW_K * 2, ib = (size_t)AW_N * AW_K * 2;
-  static constexpr size_t total = 2 * (sa + sb) + ia + ib;
-};
-
-struct AwPlan {
-  int mt, nt, splits, krows;
-  long long part_elems;  // splits x M x N, then splits x N column sums
-};
-
-static AwPlan aw_plan(long long K, int M, int N, int sms) {
-  AwPlan p;
-  p.mt = (M + AW_M - 1) / AW_M, p.nt = (N + AW_N - 1) / AW_N;
-  const long long chunks = K / AW_K;
-  long long s = (sms + p.mt * p.nt - 1) / (p.mt * p.nt);
-  if (s > chunks) s = chunks;
-  if (s < 1) s = 1;
-  p.krows = (int)((chunks + s - 1) / s) * AW_K;
-  p.splits = (int)((K + p.krows - 1) / p.krows);
-  p.part_elems = (long long)p.splits * M * N + (long long)p.splits * N;
-  return p;
-}
-
-__global__ void __launch_bounds__(AW_THREADS, 1) am_wgrad_kernel(const bf16* __restrict__ A, int lda, const bf16* __restrict__ B,
-                                                         int ldb, long long K, int M, int N, int krows,
-                                                         float* __restrict__ part, float* __restrict__ colpart) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* stA = (bf16*)smem;                            // [2][64][AW_LA]
-  bf16* stB = (bf16*)(smem + 2 * AwSmem::sa);         // [2][64][AW_LB]
-  bf16* imA = (bf16*)(smem + 2 * (AwSmem::sa + AwSmem::sb));  // am_kmajor(t, m, 64)
-  bf16* imB = imA + AW_M * AW_K;                      // am_kmajor(t, n, 64)
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
-  const int wg = warp >> 2, wr = warp & 3;
-  const int m0 = blockIdx.x * AW_M, n0 = blockIdx.y * AW_N, s = blockIdx.z;
-  const long long kb = (long long)s * krows;
-  const int nch = (int)(((kb + krows < K ? kb + krows : K) - kb) / AW_K);
-  const bool sums = blockIdx.x == 0 && colpart != nullptr;
-  auto stage = [&](int j) {
-    if (j < nch) {
-      bf16* sa = stA + (j & 1) * AW_K * AW_LA;
-      bf16* sb = stB + (j & 1) * AW_K * AW_LB;
-      const long long k0 = kb + (long long)j * AW_K;
-      for (int i = tid; i < AW_K * (AW_M + AW_N) / 8; i += AW_THREADS) {
-        if (i < AW_K * AW_M / 8) {
-          const int t = i / (AW_M / 8), q = i % (AW_M / 8);
-          hm_cp_async<16>(sa + t * AW_LA + 8 * q, A + (k0 + t) * lda + m0 + 8 * q, true);
-        } else {
-          const int i2 = i - AW_K * AW_M / 8, t = i2 / (AW_N / 8), q = i2 % (AW_N / 8);
-          hm_cp_async<16>(sb + t * AW_LB + 8 * q, B + (k0 + t) * ldb + n0 + 8 * q, true);
-        }
-      }
-    }
-    hm_cp_commit();
-  };
-  float acc[AW_N / 8][4];
-  float colsum = 0.f;
-  stage(0);
-  for (int j = 0; j < nch; ++j) {
-    stage(j + 1);
-    hm_cp_wait_upto(1);
-    __syncthreads();  // chunk j is staged; the last products are done with the images
-    const bf16* sa = stA + (j & 1) * AW_K * AW_LA;
-    const bf16* sb = stB + (j & 1) * AW_K * AW_LB;
-    {
-      const int mi = lane >> 3, rho = lane & 7;
-      // core matrices (token group tg, column group cg): AW_M of A, AW_N of B
-      for (int q = warp; q < (AW_M + AW_N) / 4; q += 4 * AW_WGS) {
-        const int core = 4 * q + mi, tg = core & 7, cg = core >> 3;
-        const bool ina = cg < AW_M / 8;
-        const int cc = ina ? cg : cg - AW_M / 8;
-        const bf16* src = ina ? sa + (8 * tg + rho) * AW_LA + 8 * cc : sb + (8 * tg + rho) * AW_LB + 8 * cc;
-        bf16* dst = (ina ? imA : imB) + cc * 512 + tg * 64 + rho * 8;
-        uint32_t r0, r1, r2, r3;
-        hm_ldsm_x4(r0, r1, r2, r3, src);
-        am_stsm_x4_t(dst, r0, r1, r2, r3);
-      }
-    }
-    if (sums && tid < AW_N)
-      for (int t = 0; t < AW_K; ++t) colsum += __bfloat162float(sb[t * AW_LB + tid]);
-    wg_proxy_fence();
-    __syncthreads();
-    wg_fence();
-#pragma unroll
-    for (int ks = 0; ks < AW_K / 16; ++ks)
-      wg_ss<AW_N>(&acc[0][0], wg_desc(imA + wg * 8 * 512 + ks * 128, 128, 1024), wg_desc(imB + ks * 128, 128, 1024),
-                  j > 0 || ks > 0);
-    wg_commit();
-    wg_wait0();
-    wg_hold<AW_N / 2>(&acc[0][0]);
-  }
-  float* out = part + (size_t)s * M * N;
-#pragma unroll
-  for (int nt = 0; nt < AW_N / 8; ++nt) {
-    const int n = n0 + nt * 8 + 2 * tq;
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int m = m0 + 64 * wg + 16 * wr + gq + 8 * hh;
-      if (m < M && n < N) {
-        const float v0 = nch > 0 ? acc[nt][2 * hh] : 0.f, v1 = nch > 0 ? acc[nt][2 * hh + 1] : 0.f;
-        if (n + 1 < N) *reinterpret_cast<float2*>(out + (size_t)m * N + n) = make_float2(v0, v1);
-        else out[(size_t)m * N + n] = v0;
-      }
-    }
-  }
-  if (sums && tid < AW_N && n0 + tid < N) colpart[(size_t)s * N + n0 + tid] = colsum;
-}
-
-// dw (M x N) = A^T B over K rows and, when db is not null, db = the column
-// sums of B; `part` holds aw_plan(K, M, N, sms).part_elems floats.
-static cudaError_t am_wgrad(const bf16* A, int lda, const bf16* B, int ldb, long long K, int M, int N, float* dw,
-                            float* db, float* part, int sms, cudaStream_t stream) {
-  if (lda % 8 || ldb % 8 || K % AW_K) return cudaErrorInvalidValue;
-  const AwPlan p = aw_plan(K, M, N, sms);
-  float* colpart = part + (size_t)p.splits * M * N;
-  cudaError_t err = allow_smem(am_wgrad_kernel, AwSmem::total);
-  if (err != cudaSuccess) return err;
-  am_wgrad_kernel<<<dim3(p.mt, p.nt, p.splits), AW_THREADS, AwSmem::total, stream>>>(A, lda, B, ldb, K, M, N, p.krows, part,
-                                                                              db ? colpart : nullptr);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  err = reduce_parts(part, p.splits, (long long)M * N, dw, stream);
-  if (err != cudaSuccess || !db) return err;
-  return reduce_parts(colpart, p.splits, N, db, stream);
-}
 
 // -- host ------------------------------------------------------------------------------
-
-static bool am_geometry_ok(int C, int heads, int ws) {
-  if (!((ws == 8 || ws == 16) && heads >= 1 && C >= 4 && C <= AM_MAX_C && C % 4 == 0 && C % heads == 0 &&
-        C / heads <= 32))
-    return false;
-  const AmGeom G(C, heads, ws);
-  return G.heads * G.proj_stages() <= AM_MAX_STAGES && G.dln_stages() <= AM_MAX_STAGES;
-}
 
 // Scratch in bf16: q|k|v|dattn images (windows x heads x 4 x N x DP), LN and
 // g_b rows (SC), attn rows (HD), dq|dk|dv rows (K3), the packed weights
@@ -1258,13 +602,6 @@ static AmScratch am_scratch(int B, int H, int W, int C, int heads, int ws, int s
   const long long p1 = aw_plan(S.rows, C, G.K3, sms).part_elems, p2 = aw_plan(S.rows, G.HD, C, sms).part_elems;
   S.f_elems = S.wg + (p1 > p2 ? p1 : p2);
   return S;
-}
-
-static cudaError_t am_sms(int* sms) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
 // Elements of the packed weights for a geometry (ops/cuda/attn_bwd.py checks
@@ -1314,34 +651,13 @@ static cudaError_t am_launch_attn(const AmArgs& a, const AmGeom& G, int blocks, 
 template <int DP>
 static cudaError_t am_launch_proj_attn(const AmArgs& a, const AmGeom& G, const AmScratch& S, cudaStream_t stream) {
   const size_t bytes = am_proj_smem(G);
-  cudaError_t err = allow_smem(am_proj_kernel<DP>, bytes);
+  cudaError_t err = allow_smem(am_proj_kernel<DP, true>, bytes);
   if (err != cudaSuccess) return err;
-  am_proj_kernel<DP><<<S.proj_blocks, 256, bytes, stream>>>(a, G);
+  am_proj_kernel<DP, true><<<S.proj_blocks, 256, bytes, stream>>>(a, G);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int blocks = G.heads * S.groups * G.NCH;
   return G.NCH == 1 ? am_launch_attn<1, DP>(a, G, blocks, stream) : am_launch_attn<4, DP>(a, G, blocks, stream);
-}
-
-template <int NP>
-static cudaError_t am_launch_dln(const AmArgs& a, const AmGeom& G, const AmScratch& S, cudaStream_t stream) {
-  const size_t bytes = am_dln_smem(G);
-  cudaError_t err = allow_smem(am_dln_kernel<NP>, bytes);
-  if (err != cudaSuccess) return err;
-  am_dln_kernel<NP><<<S.dln_blocks, 256, bytes, stream>>>(a, G);
-  return cudaGetLastError();
-}
-
-// The packed weights: out[i] = wqkv (C x 3C) or wproj (C x C) at flat
-// index idx[i] of the two laid end to end, or 0 past them (the rule is
-// ops/cuda/attn_bwd.py _pack_index).
-__global__ void am_pack_kernel(const bf16* __restrict__ wqkv, const bf16* __restrict__ wproj, int C,
-                               const int* __restrict__ idx, long long n, bf16* __restrict__ out) {
-  const long long q = 3LL * C * C, z = 4LL * C * C;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n; i += (long long)gridDim.x * blockDim.x) {
-    const long long k = idx[i];
-    out[i] = k < q ? wqkv[k] : (k < z ? wproj[k - q] : __float2bfloat16(0.f));
-  }
 }
 
 // The gradients with the heads padded to DP: dwqkv (C x K3), dbqkv (K3) and
@@ -1366,7 +682,7 @@ static int am_run(int ws, const void* x, const void* g, void* dx, int B, int H, 
   cudaStream_t st = (cudaStream_t)stream;
   bf16* t = (bf16*)tscratch;
   float* f = (float*)fscratch;
-  AmArgs a;
+  AmArgs a{};
   a.x = (const bf16*)x, a.g = (const bf16*)g, a.dx = (bf16*)dx;
   a.ln_w = (const float*)ln_w, a.ln_b = (const float*)ln_b, a.bqkv = (const float*)bqkv;
   a.relbias = f + S.bias, a.bias16 = bias16, a.dp = (const float*)dp;
@@ -1376,14 +692,13 @@ static int am_run(int ws, const void* x, const void* g, void* dx, int B, int H, 
   a.H = H, a.W = W, a.shift = shift, a.nwx = W / ws, a.nwi = (H / ws) * (W / ws);
   a.windows = S.windows, a.tiles = S.tiles, a.groups = S.groups;
 
-  am_pack_kernel<<<(int)((pack_elems + 255) / 256 < 1024 ? (pack_elems + 255) / 256 : 1024), 256, 0, st>>>(
-      (const bf16*)wqkv, (const bf16*)wproj, C, pack_index, pack_elems, t + S.pack);
-  err = cudaGetLastError();
+  err = am_pack((const bf16*)wqkv, 3LL * C * C, (const bf16*)wproj, (long long)C * C, pack_index, pack_elems, t + S.pack,
+                st);
   if (err != cudaSuccess) return (int)err;
   am_bias_kernel<<<256, 256, 0, st>>>(relbias, bias16, heads, G.NCH, f + S.bias);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  am_ln_kernel<<<S.row_blocks, 256, 0, st>>>(a, G, S.rows);
+  am_ln_kernel<true><<<S.row_blocks, 256, 0, st>>>(a, G, S.rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = G.DP == 32 ? am_launch_proj_attn<32>(a, G, S, st) : am_launch_proj_attn<16>(a, G, S, st);
@@ -1394,15 +709,7 @@ static int am_run(int ws, const void* x, const void* g, void* dx, int B, int H, 
       a.dbias_part, heads, S.groups, nn, (float*)dbias);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  switch (G.NP) {
-    case 16: err = am_launch_dln<16>(a, G, S, st); break;
-    case 32: err = am_launch_dln<32>(a, G, S, st); break;
-    case 48: err = am_launch_dln<48>(a, G, S, st); break;
-    case 64: err = am_launch_dln<64>(a, G, S, st); break;
-    case 96: err = am_launch_dln<96>(a, G, S, st); break;
-    case 128: err = am_launch_dln<128>(a, G, S, st); break;
-    default: err = am_launch_dln<184>(a, G, S, st); break;
-  }
+  err = am_rowgemm(AmRowGemm{a.dqkv, a.w + G.proj_elems(), G.K3, G.K3, S.tiles}, C, AmStoreF32{a.dln, C}, S.dln_blocks, st);
   if (err != cudaSuccess) return (int)err;
   am_lnb_kernel<<<S.row_blocks, 256, 0, st>>>(a, G, S.rows);
   err = cudaGetLastError();
@@ -1433,3 +740,4 @@ static int am_run(int ws, const void* x, const void* g, void* dx, int B, int H, 
 
 ATTN_BWD_MMA_ENTRY(attn_bwd_mma_bf16, 8)
 ATTN_BWD_MMA_ENTRY(attn_bwd16_mma_bf16, 16)
+

@@ -41,7 +41,9 @@ import torch
 
 from studiosr_tpu_torch.ops.cuda import _build
 from studiosr_tpu_torch.ops.cuda._launch import P, I, check, finish, operand, stream
-from studiosr_tpu_torch.ops.cuda.window_attention import KERNEL_WINDOW, KERNEL_WINDOW16, check_window_map
+from studiosr_tpu_torch.ops.cuda.window_attention import (
+    _NP_WIDTHS, KERNEL_WINDOW, KERNEL_WINDOW16, _image, _pad16, check_window_map, mma_takes,
+)
 from studiosr_tpu_torch.ops.windows import calculate_mask, window_partition, window_reverse
 
 __all__ = ["attention_bwd", "attention_bwd_plain", "window_bwd_math", "mma_takes", "pack_attn_bwd_weights"]
@@ -69,25 +71,7 @@ _SIGNATURES_MMA = {
     "attn_bwd_mma_pack_elems": (I, I),
 }
 _RESTYPES_MMA = {"attn_bwd_mma_pack_elems": _LL}
-MMA_MAX_C, MMA_MAX_HEAD_DIM = 184, 32
-_NP_WIDTHS = (16, 32, 48, 64, 96, 128, 184)  # csrc/attn_bwd_mma.cu am_np: dln's product widths
 _KROWS, _KSTAGE = 96, 64  # K rows of a projection stage and of a dln stage (AM_KROWS, AM_KSTAGE)
-
-
-def mma_takes(c: int, heads: int) -> bool:
-    """Whether the bf16 kernels written for the H100 take this geometry: a
-    head dim up to 32 and C a multiple of 4 up to 184."""
-    return heads >= 1 and c % heads == 0 and c // heads <= MMA_MAX_HEAD_DIM and c % 4 == 0 and 4 <= c <= MMA_MAX_C
-
-
-def _pad16(v: int) -> int:
-    return (v + 15) // 16 * 16
-
-
-def _k_major(k, n, rows: int):
-    """Element (k, n) of a K-major wgmma operand image with ``rows`` K rows:
-    core matrices of 8 n x 8 k (``am_kmajor`` in csrc/attn_bwd_mma.cu)."""
-    return (n // 8) * rows * 8 + (k // 8) * 64 + (n % 8) * 8 + k % 8
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,27 +91,21 @@ def _pack_index(c: int, heads: int) -> np.ndarray:
     npw = next(w for w in _NP_WIDTHS if c <= w)
     zero = 4 * c * c
     parts = []
-
-    def image(k, n, rows, src):
-        out = np.empty(k.size, np.int64)
-        out[_k_major(k, n, rows).ravel()] = src.ravel()
-        return out
-
     for h in range(heads):
         for k0 in range(0, kc, _KROWS):
             rows = min(_KROWS, kc - k0)
             k, n = np.meshgrid(np.arange(rows), np.arange(3 * dp), indexing="ij")
             p, j, r = n // dp, n % dp, k0 + k
-            parts.append(image(k, n, rows, np.where((r < c) & (j < d), r * 3 * c + p * c + h * d + j, zero)))
+            parts.append(_image(k, n, rows, np.where((r < c) & (j < d), r * 3 * c + p * c + h * d + j, zero)))
             k, j = np.meshgrid(np.arange(rows), np.arange(dp), indexing="ij")
             r = k0 + k
-            parts.append(image(k, j, rows, np.where((r < c) & (j < d), 3 * c * c + (h * d + j) * c + r, zero)))
+            parts.append(_image(k, j, rows, np.where((r < c) & (j < d), 3 * c * c + (h * d + j) * c + r, zero)))
     for s0 in range(0, 3 * hd, _KSTAGE):
         rows = min(_KSTAGE, 3 * hd - s0)
         k, n = np.meshgrid(np.arange(rows), np.arange(npw), indexing="ij")
         col = s0 + k
         p, h, j = col // hd, (col % hd) // dp, col % dp
-        parts.append(image(k, n, rows, np.where((j < d) & (n < c), n * 3 * c + p * c + h * d + j, zero)))
+        parts.append(_image(k, n, rows, np.where((j < d) & (n < c), n * 3 * c + p * c + h * d + j, zero)))
     return np.concatenate(parts)
 
 

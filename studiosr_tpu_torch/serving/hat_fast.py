@@ -9,7 +9,9 @@ Port of ``studiosr_tpu/serving/hat_fast.py``: the exact HAT eval computation
   runs in plain ops, mean = sums / (H W) of the padded map;
 * B5 at window 16 (``ops/cuda/window_attention.py``) computes
   y = x + attn(LN1 x), the shift folded in and the output aligned, so the
-  JAX path's rolls have no counterpart;
+  JAX path's rolls have no counterpart; in bf16 its weights and bias are
+  packed once, at load time, for the kernel written for the H100
+  (``pack_window_attention``, where ``mma_takes`` the geometry);
 * B6 (``ops/cuda/mlp_block.py``) finishes the block. At batch 1 it folds in
   the CAB join x' = y + y2 * (g * conv_scale) through ``extra`` /
   ``extra_scale``; at batch > 1 the join runs in plain ops first.
@@ -36,7 +38,7 @@ from studiosr_tpu_torch.models.blocks import DEFAULT_RGB_MEAN
 from studiosr_tpu_torch.ops.cuda.conv3x3 import fused_cab_body, fused_conv3x3
 from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block
 from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block
-from studiosr_tpu_torch.ops.cuda.window_attention import fused_window_attention_block
+from studiosr_tpu_torch.ops.cuda.window_attention import fused_window_attention_block, mma_takes, pack_window_attention
 from studiosr_tpu_torch.ops.windows import (
     gather_rel_bias,
     pad_to_multiple_reflect,
@@ -56,9 +58,10 @@ def _ln(norm: nn.LayerNorm, prefix: str = "ln") -> Dict[str, torch.Tensor]:
 
 def prepare_hat_serving(module: nn.Module, config: Dict[str, Any], dtype) -> Dict[str, Any]:
     """Lay every kernel's weights out once, at load time: dense weights to
-    (in, out) and conv weights to HWIO in ``dtype`` (B2's packed in bf16),
-    the rel-pos biases gathered to (heads, 256, 256) and (heads, 256, 576),
-    LayerNorm weights and biases f32. Consumed by :func:`hat_fast_forward`."""
+    (in, out) and conv weights to HWIO in ``dtype`` (B2's packed in bf16, and
+    B5's q|k|v, proj and rel-pos bias in one blob), the rel-pos biases
+    gathered to (heads, 256, 256) and (heads, 256, 576), LayerNorm weights
+    and biases f32. Consumed by :func:`hat_fast_forward`."""
     ws = int(config["window_size"])
     overlap = float(config.get("overlap_ratio", 0.5))
     rpi, rpi_oca = relative_position_index(ws), relative_position_index_oca(ws, overlap)
@@ -70,11 +73,15 @@ def prepare_hat_serving(module: nn.Module, config: Dict[str, Any], dtype) -> Dic
             a, cab = blk.attn, blk.conv_block.cab._modules
             w1, b1 = _conv_operands(cab["0"], dtype)
             w2, b2 = _conv_operands(cab["2"], dtype)
+            attn = dict(**_ln(blk.norm1), wqkv=_dense(a.qkv, dtype), bqkv=_f32(a.qkv.bias),
+                        wproj=_dense(a.proj, dtype), bproj=_f32(a.proj.bias),
+                        bias=gather_rel_bias(_f32(a.relative_position_bias_table), rpi, heads).contiguous())
+            if dtype == torch.bfloat16 and mma_takes(attn["ln_w"].numel(), heads):
+                attn.update(wqkv=pack_window_attention(attn["wqkv"], attn["wproj"], attn["bias"], heads), wproj=None,
+                            bias=None)
             group.append(dict(
                 cab=dict(**_ln(blk.norm1), w1=w1, b1=b1, w2=w2, b2=b2),
-                attn=dict(**_ln(blk.norm1), wqkv=_dense(a.qkv, dtype), bqkv=_f32(a.qkv.bias),
-                          wproj=_dense(a.proj, dtype), bproj=_f32(a.proj.bias),
-                          bias=gather_rel_bias(_f32(a.relative_position_bias_table), rpi, heads).contiguous()),
+                attn=attn,
                 mlp=dict(**_ln(blk.norm2), w1=_dense(blk.mlp.fc1, dtype), b1=_f32(blk.mlp.fc1.bias),
                          w2=_dense(blk.mlp.fc2, dtype), b2=_f32(blk.mlp.fc2.bias)),
             ))

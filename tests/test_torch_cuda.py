@@ -28,7 +28,9 @@ from studiosr_tpu_torch.ops.cuda.swin_block import fused_swin_block, swin_block_
 from studiosr_tpu_torch.ops.cuda.upsampler import (
     fused_upsample_s, fused_upsample_x4, pack_tail, upsample_s_plain, upsample_x4_plain,
 )
-from studiosr_tpu_torch.ops.cuda.window_attention import fused_window_attention_block, window_attention_plain
+from studiosr_tpu_torch.ops.cuda.window_attention import (
+    fused_window_attention_block, pack_window_attention, window_attention_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -583,6 +585,85 @@ def test_attention_bwd_h100_kernels_match_plain(dev, c, heads, shape, shift, ws)
         _assert_close(a, e, torch.bfloat16)
     assert torch.equal(got[0][0], g[0])  # a dropped sample: dx = g
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: bitwise repeatable
+
+
+# The bf16 kernels written for the H100 for B5 (csrc/window_attention_mma.cu)
+# at the paths' shapes (batch 32 of 64 x 64 maps at both windows, HAT x4
+# serving's 256 x 256 map), at H != W with an odd window count and at head
+# dims 8, 12, 16, 24 and 32 (MaxSR's C 128: zero qkv bias, a bf16 bias read as
+# it is), with and without drop-path, at both shifts: against the plain
+# version, a dropped sample passed through bit for bit, the dense weights and
+# the serving blob (pack_window_attention) giving the same bits, and the
+# entry each launch took.
+H100_FWD_CASES = [
+    (180, 6, (32, 64, 64), 4, 8, True), (180, 6, (32, 64, 64), 8, 16, True), (180, 6, (1, 256, 256), 8, 16, False),
+    (180, 6, (1, 24, 40), 4, 8, True), (180, 6, (3, 48, 80), 0, 16, True), (16, 2, (2, 16, 24), 4, 8, True),
+    (24, 2, (2, 32, 16), 8, 16, False), (32, 2, (2, 24, 24), 0, 8, False), (48, 2, (2, 16, 48), 8, 16, True),
+    (128, 4, (2, 32, 48), 4, 8, True), (128, 4, (2, 32, 48), 8, 16, False),
+]
+
+
+@pytest.mark.parametrize("c,heads,shape,shift,ws,with_dp", H100_FWD_CASES)
+def test_window_attention_h100_kernels_match_plain(dev, c, heads, shape, shift, ws, with_dp):
+    gen = torch.Generator().manual_seed(c + shape[1] + ws + shift)
+    ops = _block_operands(gen, c, heads, 2 * c, ws=ws)[:7]
+    ops = [t.to(dev, torch.bfloat16 if i in (2, 4) else torch.float32) for i, t in enumerate(ops)]
+    if c == 128:
+        ops[3] = torch.zeros_like(ops[3])  # MaxSR's projections have no bias
+        ops[6] = ops[6].to(torch.bfloat16)  # a bf16 rel-pos bias, as the bf16 step gathers it
+    x = _randn(gen, *shape, c).to(dev, torch.bfloat16)
+    dp = None
+    if with_dp:
+        dp = torch.full((shape[0],), 1 / 0.9, device=dev)
+        dp[0] = 0.0
+    kw = dict(heads=heads, window_size=ws, shift=shift, drop_path=dp)
+    blob = pack_window_attention(ops[2], ops[4], ops[6].float(), heads)
+    engagement.reset()
+    got = fused_window_attention_block(x, *ops, **kw)
+    packed = fused_window_attention_block(x, ops[0], ops[1], blob, ops[3], None, ops[5], None, **kw)
+    name, entry = (("fused_window_attention_block_ws16", "window_attention16_mma_bf16") if ws == 16 else
+                   ("fused_window_attention_block", "window_attention_mma_bf16"))
+    assert engagement.entries() == {name: {entry: 2}}
+    want = window_attention_plain(x.float(), *[t.float() for t in ops], **kw)
+    _assert_close(got, want, torch.bfloat16)
+    assert torch.equal(got, packed)
+    if with_dp:
+        assert torch.equal(got[0], x[0])  # a dropped sample passes through exactly
+
+
+# B7's bf16 kernel written for the H100 (csrc/mlp_bwd_mma.cu) at the paths'
+# rows (batch 32 of 64 x 64, C 180, hidden 360), at row counts that leave a
+# ragged last tile, at C 16, 24, 32, 48 and 128 and at hidden 384, with and
+# without drop-path: every output against the plain version, a dropped
+# sample's dx equal to g, and two launches giving the same bits (the weight
+# gradients' partials summed in a fixed order).
+H100_MLP_CASES = [(180, 360, 32 * 4096, 4096), (180, 360, 1000, 500), (32, 64, 777, 0), (16, 32, 200, 100),
+                  (24, 48, 300, 150), (48, 96, 130, 65), (128, 256, 640, 320), (128, 384, 256, 0)]
+
+
+@pytest.mark.parametrize("c,hidden,rows,rows_per_sample", H100_MLP_CASES)
+def test_mlp_bwd_h100_kernel_matches_plain(dev, c, hidden, rows, rows_per_sample):
+    gen = torch.Generator().manual_seed(c + hidden + rows)
+    ops = _block_operands(gen, c, 2, hidden)[7:12]
+    ops = [t.to(dev, torch.bfloat16 if i in (2, 4) else torch.float32) for i, t in enumerate(ops)]
+    x = _randn(gen, rows, c).to(dev, torch.bfloat16)
+    g = _randn(gen, rows, c).to(dev, torch.bfloat16)
+    dp = None
+    if rows_per_sample:
+        dp = torch.full((rows // rows_per_sample,), 1 / 0.9, device=dev)
+        dp[0] = 0.0
+    kw = dict(drop_path=dp, rows_per_sample=rows_per_sample)
+    engagement.reset()
+    got = mlp_bwd(x, g, *ops, **kw)
+    again = mlp_bwd(x, g, *ops, **kw)
+    assert engagement.entries() == {"mlp_bwd": {"mlp_bwd_mma_bf16": 2}}
+    want = mlp_bwd_plain(x.float(), g.float(), *[t.float() for t in ops], **kw)
+    for a, e in zip(got, want):
+        assert a.shape == e.shape
+        _assert_close(a, e, torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: bitwise repeatable
+    if dp is not None:
+        assert torch.equal(got[0][:rows_per_sample], g[:rows_per_sample])  # a dropped sample: dx = g
 
 
 def _oca_case(gen, bw, heads, nq, nk, d, dev, dtype):
