@@ -66,8 +66,9 @@ Phases, in order; any failure exits non-zero before the final line:
    share of the bound and ``-Xptxas -v``'s registers, static shared memory
    and spills;
 6. training kernels vs plain, batch 4 and the path's batch 32 of 64x64
-   maps, f32 and bf16: B5 and B8 (shift 0 and 4), B6, B7, with drop-path
-   scales that include a 0;
+   maps, f32 and bf16: B5 and B8 (shift 0 and 4), B6 (also on a ragged row
+   count), B7, with drop-path scales that include a 0, each launch through
+   its dtype's C entry, B6 launched twice for the same bits;
 7. training gradients end to end, batch 4: loss and every parameter's
    gradient of the fused-train module, in f32 and in bf16 (bf16 copies of
    the weights, as the train step runs), against an f64 witness (plain
@@ -82,8 +83,8 @@ Phases, in order; any failure exits non-zero before the final line:
    steps, and each training kernel's ms, plain ms and bound at batch 32;
 10. HAT serving kernels vs plain at the path's shapes (256x256 map, C
     180), f32 and bf16: B11, B5 at window 16 (shift 0 and 8), B6 with
-    ``extra`` / ``extra_scale``, B10 (its border windows' keys reach
-    outside the image);
+    ``extra`` / ``extra_scale`` (twice, for the same bits), B10 (its border
+    windows' keys reach outside the image);
 11. HAT serving end to end: the fused forward against the plain port
     forward in f32 and bf16, then three seeded 256x256 uint8 requests
     through ``inference`` (bf16, fused) with launch counts checked per
@@ -93,9 +94,9 @@ Phases, in order; any failure exits non-zero before the final line:
 13. HAT training kernels vs plain at batch 4 and the path's batch 32 of
     64x64 maps, f32 and bf16: B5 at window 16 with drop-path and B9 (shift
     0 and 8, drop-path scales that include a 0), B12 and B13 on the OCAB's
-    transposed views at its geometry (256 queries, 576 keys, d 30) and at
-    the trained fixtures' (64, 144, d 16), with logits large enough that
-    the row max matters;
+    transposed views at its geometry (256 queries, 576 keys, d 30), on 37
+    windows and at the trained fixtures' (64, 144, d 16), with logits large
+    enough that the row max matters, B13 launched twice for the same bits;
 14. HAT gradients end to end, batch 4, as phase 7: the fused-train HAT's
     loss and every gradient in f32 and bf16 against an f64 witness (plain
     autograd of the port's HAT in f64), every ReLU (the squeeze-excite
@@ -182,7 +183,7 @@ from studiosr_tpu_torch.ops.cuda.conv3x3 import (
     cab_body_plain, conv3x3_plain, fused_cab_body, fused_conv3x3, fused_resblock, resblock_plain,
     unpack_conv3x3_weights,
 )
-from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mlp_block_plain
+from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mlp_block_plain, unpack_mlp_block
 from studiosr_tpu_torch.ops.cuda.mlp_bwd import mlp_bwd, mlp_bwd_plain
 from studiosr_tpu_torch.ops.cuda.oca_core import oca_core_bwd, oca_core_bwd_plain, oca_core_fwd, oca_core_plain
 from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block, ocab_plain, overlap_window
@@ -232,7 +233,7 @@ TRAIN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
 KERNELS.update({
     "fused_window_attention_block": (
         "studiosr_tpu_torch/csrc/window_attention_mma.cu", "studiosr_tpu/ops/pallas/swin_block.py:549"),
-    "fused_mlp_block": ("studiosr_tpu_torch/csrc/mlp_block.cu", "studiosr_tpu/ops/pallas/swin_block.py:904"),
+    "fused_mlp_block": ("studiosr_tpu_torch/csrc/mlp_block_mma.cu", "studiosr_tpu/ops/pallas/swin_block.py:904"),
     "mlp_bwd": ("studiosr_tpu_torch/csrc/mlp_bwd_mma.cu", "studiosr_tpu/ops/pallas/mlp_vjp.py:148"),
     "attention_bwd": ("studiosr_tpu_torch/csrc/attn_bwd_mma.cu", "studiosr_tpu/ops/pallas/attn_bwd.py:209"),
 })
@@ -267,7 +268,7 @@ KERNELS.update({
     "fused_cab_body": ("studiosr_tpu_torch/csrc/cab_body.cu", "studiosr_tpu/ops/pallas/conv3x3.py:393"),
     "fused_window_attention_block_ws16": (
         "studiosr_tpu_torch/csrc/window_attention_mma.cu", "studiosr_tpu/ops/pallas/swin_block.py:549"),
-    "fused_mlp_block_extra": ("studiosr_tpu_torch/csrc/mlp_block.cu", "studiosr_tpu/ops/pallas/swin_block.py:904"),
+    "fused_mlp_block_extra": ("studiosr_tpu_torch/csrc/mlp_block_mma.cu", "studiosr_tpu/ops/pallas/swin_block.py:904"),
     "fused_ocab_block": ("studiosr_tpu_torch/csrc/ocab.cu", "studiosr_tpu/ops/pallas/ocab.py:173"),
 })
 HAT_PER_FORWARD = {"fused_cab_body": 36, "fused_window_attention_block_ws16": 36, "fused_mlp_block_extra": 36,
@@ -284,7 +285,7 @@ HAT_TRAIN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_hat_trai
 KERNELS.update({
     "attention_bwd_ws16": ("studiosr_tpu_torch/csrc/attn_bwd_mma.cu", "studiosr_tpu/ops/pallas/attn_bwd.py:508"),
     "oca_core_fwd": ("studiosr_tpu_torch/csrc/oca_core.cu", "studiosr_tpu/ops/pallas/oca_core.py:117"),
-    "oca_core_bwd": ("studiosr_tpu_torch/csrc/oca_core.cu", "studiosr_tpu/ops/pallas/oca_core.py:157"),
+    "oca_core_bwd": ("studiosr_tpu_torch/csrc/oca_bwd_mma.cu", "studiosr_tpu/ops/pallas/oca_core.py:157"),
 })
 HAT_PER_STEP = {"fused_window_attention_block_ws16": 36, "attention_bwd_ws16": 36, "fused_mlp_block": 36,
                 "mlp_bwd": 36, "oca_core_fwd": 6, "oca_core_bwd": 6}
@@ -335,13 +336,15 @@ MAXSR_PER_FORWARD = {"window_attention_pallas": 32}
 # (label, windows, heads, tokens, head dim, bias, mask windows): the first two
 # are the two MaxSR modes' shapes at a 256x256 LR input.
 # The C entry of the kernels written for the H100 that every bf16 launch of
-# B1, B2, B3, B4, B5, B14 and B15 on the served paths must go through, and each
-# kernel's stem in its build log (ptxas's registers, shared memory and spills).
+# B1, B2, B3, B4, B5, B6, B14 and B15 on the served paths must go through, and
+# each kernel's stem in its build log (ptxas's registers, shared memory and
+# spills).
 H100_ENTRIES = {"fused_swin_block": "swin_block_mma_bf16", "fused_conv3x3": "conv3x3_mma_bf16",
                 "fused_resblock": "resblock_mma_bf16", "window_attention_pallas": "window_attn_flash_bf16",
                 "fused_upsample_x4": "upsample_x4_mma_bf16", "fused_upsample_s": "upsample_s_mma_bf16",
                 "fused_window_attention_block": "window_attention_mma_bf16",
-                "fused_window_attention_block_ws16": "window_attention16_mma_bf16"}
+                "fused_window_attention_block_ws16": "window_attention16_mma_bf16",
+                "fused_mlp_block": "mlp_block_mma_bf16", "fused_mlp_block_extra": "mlp_block_extra_mma_bf16"}
 H100_KERNELS = {"fused_swin_block": ("swin_block_mma", "swin_block_mma_kernel"),
                 "fused_conv3x3": ("conv3x3", "conv3x3_mma_kernel"),
                 "fused_resblock": ("resblock", "conv3x3_mma_kernel"),
@@ -350,18 +353,24 @@ H100_KERNELS = {"fused_swin_block": ("swin_block_mma", "swin_block_mma_kernel"),
                 "attention_bwd": ("attn_bwd_mma", "am_"), "attention_bwd_ws16": ("attn_bwd_mma", "am_"),
                 "fused_window_attention_block": ("window_attention_mma", "_kernel"),
                 "fused_window_attention_block_ws16": ("window_attention_mma", "_kernel"),
-                "mlp_bwd": ("mlp_bwd_mma", "_kernel")}
-# The C entry every launch of B5, B7, B8 and B9 must take in a run of each
+                "mlp_bwd": ("mlp_bwd_mma", "_kernel"), "fused_mlp_block": ("mlp_block_mma", "mf_kernel"),
+                "fused_mlp_block_extra": ("mlp_block_mma", "mf_kernel"), "oca_core_bwd": ("oca_bwd_mma", "ob_")}
+# The C entry every launch of B5-B9 and B13 must take in a run of each
 # dtype: bf16 the kernels written for the H100 (their geometry rules hold at
 # every width the paths train), f32 the older kernels.
 TRAIN_ENTRIES = {
     torch.bfloat16: {"attention_bwd": "attn_bwd_mma_bf16", "attention_bwd_ws16": "attn_bwd16_mma_bf16",
                      "fused_window_attention_block": "window_attention_mma_bf16",
-                     "fused_window_attention_block_ws16": "window_attention16_mma_bf16", "mlp_bwd": "mlp_bwd_mma_bf16"},
+                     "fused_window_attention_block_ws16": "window_attention16_mma_bf16", "mlp_bwd": "mlp_bwd_mma_bf16",
+                     "fused_mlp_block": "mlp_block_mma_bf16", "oca_core_bwd": "oca_core_bwd_mma_bf16"},
     torch.float32: {"attention_bwd": "attn_bwd_f32", "attention_bwd_ws16": "attn_bwd16_f32",
                     "fused_window_attention_block": "window_attention_f32",
-                    "fused_window_attention_block_ws16": "window_attention16_f32", "mlp_bwd": "mlp_bwd_f32"},
+                    "fused_window_attention_block_ws16": "window_attention16_f32", "mlp_bwd": "mlp_bwd_f32",
+                    "fused_mlp_block": "mlp_block_f32", "oca_core_bwd": "oca_core_bwd_f32"},
 }
+# The kernels redesigned in bf16 last, held to the same bits from launch to
+# launch (no atomic sums) at the path's batch (phases 6, 10 and 13).
+BITWISE = ("fused_mlp_block", "fused_mlp_block_extra", "oca_core_bwd")
 # B1 in bf16 beyond the main path's shape, as the card tests take it: (C,
 # heads, map, shift): C 32 with 2 heads of 16 (the trained fixtures), C 180
 # at H != W and an odd window count (a half-empty last window pair), d 8,
@@ -848,7 +857,8 @@ def _flat(out):
 def train_kernel_cases(model: SwinIR, dev: torch.device, dtype: torch.dtype, batch: int):
     """(name, label, kernel fn, plain fn, operands) for B5-B8 at the training
     shapes (64x64 maps, C 180), with block 0's (shift 0) and block 1's (shift
-    4) weights, drop-path scales (0, 1/0.9, ...) and a seeded cotangent."""
+    4) weights, drop-path scales (0, 1/0.9, ...) and a seeded cotangent; B6
+    also on the rows less 37 (a ragged last tile), without drop-path."""
     gen = torch.Generator(device="cpu").manual_seed(SEED + 2)
     c, heads, ws = MAIN["embed_dim"], MAIN["num_heads"][0], MAIN["window_size"]
 
@@ -885,6 +895,9 @@ def train_kernel_cases(model: SwinIR, dev: torch.device, dtype: torch.dtype, bat
         xr, gr = x.reshape(rows, c), g.reshape(rows, c)
         cases.append(("fused_mlp_block", "rows", lambda *o, kw=kw: fused_mlp_block(*o, **kw),
                       lambda *o, kw=kw: mlp_block_plain(*o, **kw), (xr, *mlp_ops, f(m.fc2.bias))))
+        # a row count that is not a whole number of 64-row tiles, no drop-path
+        cases.append(("fused_mlp_block", "ragged rows", fused_mlp_block, mlp_block_plain,
+                      (xr[: rows - 37], *mlp_ops, f(m.fc2.bias))))
         cases.append(("mlp_bwd", "rows", lambda *o, kw=kw: mlp_bwd(*o, **kw),
                       lambda *o, kw=kw: mlp_bwd_plain(*o, **kw), (xr, gr, *mlp_ops)))
     return cases
@@ -893,7 +906,7 @@ def train_kernel_cases(model: SwinIR, dev: torch.device, dtype: torch.dtype, bat
 # The operand whose sample 0 a kernel's first output equals when that
 # sample's drop-path scale is 0.
 PASS_THROUGH = {"fused_window_attention_block": 0, "fused_window_attention_block_ws16": 0, "attention_bwd": 1,
-                "attention_bwd_ws16": 1}
+                "attention_bwd_ws16": 1, "fused_mlp_block": 0}
 
 
 def phase_train_kernels(model, dev: torch.device, cases=None) -> dict:
@@ -902,8 +915,10 @@ def phase_train_kernels(model, dev: torch.device, cases=None) -> dict:
     gradient) held to the serving kernels' rule: at batch 4 (256 windows,
     one to each block of B8's per-window pass) and at the path's batch 32
     (2048 windows, eight to each block, which sums their bias-gradient
-    partials). Returns the bf16 max abs error of each kernel's first output
-    at batch 32."""
+    partials), each launch through its dtype's entry (``TRAIN_ENTRIES``)
+    and, in bf16 at batch 32, the kernels of ``BITWISE`` launched twice for
+    the same bits. Returns the bf16 max abs error of each kernel's first
+    output at batch 32."""
     errors: dict = {}
     failed = []
     for batch in (CHECK_BATCH, TRAIN_BATCH):
@@ -913,13 +928,21 @@ def phase_train_kernels(model, dev: torch.device, cases=None) -> dict:
                 got = _flat(kernel(*ops))
                 torch.cuda.synchronize()
                 failed += train_entry_failures(f"{name} [{label}] batch {batch}", engagement.counters(), dtype)
+                if dtype == torch.bfloat16 and batch == TRAIN_BATCH and name in BITWISE:
+                    again = _flat(kernel(*ops))
+                    same = all(torch.equal(a, b) for a, b in zip(got, again))
+                    log(f"check {name} [{label}] batch {batch} bf16: two launches give the same bits: {same}")
+                    if not same:
+                        failed.append(f"{name} [{label}] batch {batch}: two launches differ")
+                    del again
                 want = _flat(plain(*[t.float() for t in ops]))
                 torch.cuda.synchronize()
                 for i, (k, p) in enumerate(zip(got, want)):
                     err = kernel_check(f"{name} [{label}] batch {batch} output {i}", k, p, dtype, failed)
                     if dtype == torch.bfloat16 and i == 0 and batch == TRAIN_BATCH:
                         errors[name] = max(errors.get(name, 0.0), err)
-                if name in PASS_THROUGH and not torch.equal(got[0][0], ops[PASS_THROUGH[name]][0]):
+                if name in PASS_THROUGH and label != "ragged rows" and not torch.equal(got[0][0],
+                                                                                     ops[PASS_THROUGH[name]][0]):
                     failed.append(f"{name} [{label}] batch {batch} {dtype}: a dropped sample is not passed through")
                 del got, want
                 torch.cuda.empty_cache()
@@ -1206,10 +1229,14 @@ def yardstick_report(name: str, ops, ms: float, bms: float, kw: dict) -> None:
     and shift mask as a mask that takes a gradient, LayerNorm); B5 the half
     (LayerNorm, cuBLAS, SDPA with the bias and mask, the projection and the
     add); B7 ``torch.autograd.grad`` through LayerNorm, two linears and the
-    exact GELU."""
+    exact GELU; B6 LayerNorm, two linears, the exact GELU, the drop-path
+    scale and the add (for ``extra`` the join first); B13 the explicit
+    formulas of the backward (cuBLAS products, the softmax and its backward
+    in f32)."""
     sys.path.insert(0, str(ROOT / "scripts"))
     from torch_time_attn_kernels import (
         attention_half_forward_sequence, attention_half_sequence, mlp_half_backward_sequence,
+        mlp_half_forward_sequence, oca_backward_sequence,
     )
 
     if name.startswith("attention_bwd"):
@@ -1219,6 +1246,11 @@ def yardstick_report(name: str, ops, ms: float, bms: float, kw: dict) -> None:
     elif name.startswith("fused_window_attention_block"):
         sequence = attention_half_forward_sequence(ops[0], ops[1:], kw["heads"], kw["window_size"], kw["shift"],
                                                    kw.get("drop_path"))
+    elif name.startswith("fused_mlp_block"):
+        sequence = mlp_half_forward_sequence(ops[0], ops[1:7], kw.get("drop_path"), kw.get("rows_per_sample", 0),
+                                             kw.get("extra"), kw.get("extra_scale"))
+    elif name == "oca_core_bwd":
+        sequence = oca_backward_sequence(*ops)
     else:
         sequence = mlp_half_backward_sequence(*ops[:2], ops[2:], kw["drop_path"], kw["rows_per_sample"])
     yard = time_ms(sequence, iters=3, warmup=1)
@@ -1244,8 +1276,8 @@ def phase_train_timing(model: SwinIR, dev: torch.device, errors: dict, launches:
 
     rows, kernel_total = [], 0.0
     for name, label, kernel, plain, ops in train_kernel_cases(model, dev, torch.bfloat16, TRAIN_BATCH):
-        if label == "shift 0" and name != "fused_mlp_block" and name != "mlp_bwd":
-            continue  # the attention kernels are timed at shift 4; the shift costs nothing extra
+        if (label == "shift 0" and name != "fused_mlp_block" and name != "mlp_bwd") or label == "ragged rows":
+            continue  # the attention kernels are timed at shift 4 (the shift costs nothing extra); B6 on whole rows
         ms = time_ms(lambda: kernel(*ops), iters=10)
         plain_ms = time_ms(lambda: plain(*ops), iters=3, warmup=1)
         flops, moved = train_bounds(name, ops)
@@ -1260,7 +1292,7 @@ def phase_train_timing(model: SwinIR, dev: torch.device, errors: dict, launches:
             f"{flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB; launches {launches.get(name, 0)} in {steps} steps")
         if name in ("attention_bwd", "fused_window_attention_block"):
             yardstick_report(name, ops, ms, bms, kw_of(label, MAIN["window_size"], TRAIN_BATCH, dev))
-        elif name == "mlp_bwd":
+        elif name in ("mlp_bwd", "fused_mlp_block"):
             dp = kw_of("shift 0", MAIN["window_size"], TRAIN_BATCH, dev)["drop_path"]
             yardstick_report(name, ops, ms, bms, dict(drop_path=dp, rows_per_sample=TRAIN_CROP * TRAIN_CROP))
     log(f"train step: kernels {kernel_total:.1f} ms, the rest (convs, LayerNorms, tail, optimizer, gaps) "
@@ -1318,6 +1350,11 @@ def phase_hat_kernels(model: HAT, dev: torch.device) -> dict:
         for name, label, kernel, plain, ops in hat_kernel_cases(model, dev, dtype):
             got = _flat(kernel(*ops))
             torch.cuda.synchronize()
+            if dtype == torch.bfloat16 and name in BITWISE:
+                same = all(torch.equal(a, b) for a, b in zip(got, _flat(kernel(*ops))))
+                log(f"check {name} [{label}] bf16: two launches give the same bits: {same}")
+                if not same:
+                    failed.append(f"{name} [{label}]: two launches differ")
             want = _flat(plain(*[None if t is None else t.float() for t in ops]))
             torch.cuda.synchronize()
             for i, (k, p) in enumerate(zip(got, want)):
@@ -1387,8 +1424,8 @@ def hat_bounds(name: str, ops) -> tuple:
         n = HAT_MAIN["window_size"] ** 2
         flops = 2 * tokens * c * 4 * c + 4 * tokens * n * c
         moved = 2 * nbytes(x) + nbytes(*ops[1:])
-    elif name == "fused_mlp_block_extra":
-        flops = 4 * tokens * c * ops[3].shape[-1]
+    elif name == "fused_mlp_block_extra":  # ops[3] may be the packed blob: hidden from b1
+        flops = 4 * tokens * c * ops[4].numel()
         moved = 2 * nbytes(x) + nbytes(*ops[1:])
     else:
         nk, hidden = ops[7].shape[-1], ops[10].shape[-1]
@@ -1423,6 +1460,10 @@ def phase_hat_timing(model: HAT, dev: torch.device, errors: dict, launches: dict
             wqkv, wproj, bias = unpack_window_attention(ops[3], c, heads, ws)
             dense = (ops[0], ops[1], ops[2], wqkv, ops[4], wproj, ops[6], bias)
             yardstick_report(name, dense, ms, bms, dict(heads=heads, window_size=ws, shift=int(label.split()[-1])))
+        elif name == "fused_mlp_block_extra":
+            w1, w2 = ((ops[3], ops[5]) if ops[5] is not None
+                      else unpack_mlp_block(ops[3], ops[0].shape[-1], ops[4].numel()))  # the blob's weights
+            yardstick_report(name, (*ops[:3], w1, ops[4], w2, ops[6]), ms, bms, dict(extra=ops[7], extra_scale=ops[8]))
     # B2 and B3 at HAT's shapes (their rows in the JSON line are SwinIR's)
     prep = model.serving_prep()
     gen = torch.Generator(device="cpu").manual_seed(SEED + 6)
@@ -1447,9 +1488,10 @@ def hat_train_kernel_cases(model: HAT, dev: torch.device, dtype: torch.dtype, ba
     drop-path and B9 on (batch, 64, 64, 180) maps with group 0's block 0
     (shift 0) and block 1 (shift 8) weights, drop-path scales (0, 1/0.9,
     ...) and a seeded cotangent; B12 and B13 on the OCAB's (16 batch
-    windows, 6 heads, 256 | 576 tokens, d 30) transposed views and at the
-    trained fixtures' geometry (64 | 144 tokens, 2 heads, d 16), with
-    logits of a few units, so that the row max matters."""
+    windows, 6 heads, 256 | 576 tokens, d 30) transposed views, on 37
+    windows (not a whole number of B13's window groups) and at the trained
+    fixtures' geometry (64 | 144 tokens, 2 heads, d 16), with logits of a
+    few units, so that the row max matters."""
     gen = torch.Generator(device="cpu").manual_seed(SEED + 9)
     c, heads, ws = HAT_MAIN["embed_dim"], HAT_MAIN["num_heads"][0], HAT_MAIN["window_size"]
 
@@ -1479,8 +1521,10 @@ def hat_train_kernel_cases(model: HAT, dev: torch.device, dtype: torch.dtype, ba
                       lambda *o, kw=kw: attention_bwd_plain(*o, **kw), (x, g, *attn_ops)))
     owin, _ = overlap_window(ws, HAT_MAIN["overlap_ratio"])
     bw = batch * (TRAIN_CROP // ws) ** 2
-    for label, nq, nk, hh, d in (("path", ws * ws, owin * owin, heads, c // heads), ("fixture", 64, 144, 2, 16)):
-        def view(n, scale, hh=hh, d=d):  # (bw, hh, n, d) over (bw, n, hh, d) storage, as the OCAB's views
+    for label, bw, nq, nk, hh, d in (("path", bw, ws * ws, owin * owin, heads, c // heads),
+                                     ("odd bw", 37, ws * ws, owin * owin, heads, c // heads),
+                                     ("fixture", bw, 64, 144, 2, 16)):
+        def view(n, scale, bw=bw, hh=hh, d=d):  # (bw, hh, n, d) over (bw, n, hh, d) storage, as the OCAB's views
             return randn(bw, n, hh, d, scale=scale).transpose(1, 2)
 
         q, k, v, go = view(nq, 2 * d**-0.5), view(nk, 1.0), view(nk, 1.0), view(nq, 1.0)
@@ -1592,7 +1636,7 @@ def phase_hat_train_timing(model: HAT, dev: torch.device, errors: dict, launches
     kernel_total = sum(HAT_PER_STEP[n] * known[n] for n in ("fused_mlp_block", "mlp_bwd"))
     rows = []
     for name, label, kernel, plain, ops in hat_train_kernel_cases(model, dev, torch.bfloat16, TRAIN_BATCH):
-        if label in ("shift 0", "fixture"):
+        if label in ("shift 0", "fixture", "odd bw"):
             continue  # timed at shift 8 and at the path's geometry
         ms = time_ms(lambda: kernel(*ops), iters=10)
         plain_ms = time_ms(lambda: plain(*ops), iters=3, warmup=1)
@@ -1615,6 +1659,8 @@ def phase_hat_train_timing(model: HAT, dev: torch.device, errors: dict, launches
             continue  # its row is HAT serving's
         if name == "attention_bwd_ws16":
             yardstick_report(name, ops, ms, bms, kw_of(label, HAT_MAIN["window_size"], TRAIN_BATCH, dev))
+        elif name == "oca_core_bwd":
+            yardstick_report(name, ops, ms, bms, {})
         source, replaces = KERNELS[name]
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches.get(name, 0),
                          max_abs_err=errors[name], ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,

@@ -40,7 +40,7 @@ from torch_time_attn_kernels import pass_split  # noqa: E402
 OUT = _build.BUILD_DIR.parent / "ablate" / "mlp_bwd"
 SRC, COMMON = "mlp_bwd_mma.cu", "am_common.cuh"
 WGMMA = '"wgmma.mma_async.sync.aligned.'
-GELU = "            mb_gauss(h, cdf, pdf);\n"
+GELU = "            am_gauss(h, cdf, pdf);\n"
 STORES = ("          *reinterpret_cast<uint4*>(dst + (long long)r * G.HP + 8 * pc) =\n"
           "              *reinterpret_cast<const uint4*>(stg + r * MB_SROW + 8 * pc);\n")
 # (variant, [(file, text, replacement)]): each text must occur in its file.

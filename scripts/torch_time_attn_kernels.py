@@ -19,6 +19,10 @@ warm-up launches:
   products, ``F.scaled_dot_product_attention`` with the rel-pos bias and the
   shift mask as a mask that takes a gradient, LayerNorm), timed forward and
   backward together as the kernels recompute the forward;
+* B7 (``mlp_bwd``, hidden 360) at the same rows, beside its yardstick:
+  ``torch.autograd.grad`` through LayerNorm, two linears and the exact GELU
+  in bf16, forward and backward together as the kernel recomputes the
+  forward;
 * B5 (``fused_window_attention_block``) at the same shapes, window 8 shift 4
   (SwinIR's step) and window 16 shift 8 (HAT's step), and at HAT x4
   serving's (1 x 256 x 256, window 16, shift 8, no drop-path; the weights
@@ -26,15 +30,24 @@ warm-up launches:
   ``pack_window_attention``), each beside its yardstick: the same half as
   a sequence of bf16 PyTorch calls (LayerNorm, cuBLAS, SDPA with the bias
   and shift mask as its mask, the projection and the add);
-* B7 (``mlp_bwd``, hidden 360) at the same rows, beside its yardstick:
-  ``torch.autograd.grad`` through LayerNorm, two linears and the exact GELU
-  in bf16, forward and backward together as the kernel recomputes the
-  forward;
-* as controls: B6 (``fused_mlp_block``, hidden 360), and B12 / B13
-  (``oca_core_fwd`` / ``oca_core_bwd`` on 512 windows, 6 heads, 256 queries,
-  576 keys, d 30, the OCAB's transposed views).
+* B6 (``fused_mlp_block``, hidden 360, drop-path scales (0, 1/0.9, ...))
+  at the same rows, and B6 with HAT's CAB join (``extra`` / ``extra_scale``)
+  at HAT x4 serving's 65,536 rows, the weights packed once as serving packs
+  them where the package has ``pack_mlp_block``; each beside its yardstick:
+  the same function as a sequence of bf16 PyTorch calls (``F.layer_norm``,
+  ``F.linear``, the exact ``F.gelu``, ``F.linear``, the drop-path scale and
+  the add; for ``extra`` the join first);
+* B13 (``oca_core_bwd`` on 512 windows, 6 heads, 256 queries, 576 keys, d
+  30, the OCAB's transposed views: HAT's training step) beside two
+  yardsticks: ``F.scaled_dot_product_attention``'s backward with the bias
+  as a mask that takes a gradient, as (forward + backward) - forward, and
+  the explicit formulas of the backward as a sequence of bf16 PyTorch calls
+  (cuBLAS products, the softmax and its backward in f32);
+* as controls: B5, B7, B8, B9 (above), B12 (``oca_core_fwd`` at B13's
+  shapes) and B10 (``fused_ocab_block`` at HAT x4 serving's 256 x 256 map,
+  window 16, overlap 0.5).
 
-The per-pass split of B5, B7, B8 and B9: ``torch.profiler`` over 10 calls
+The per-pass split of B5, B6, B7, B8, B9 and B13: ``torch.profiler`` over 10 calls
 gives the device time of every kernel a call enqueues, by name in launch
 order. Prints one
 JSON line: {"package": path, "card": nvidia-smi's name and power limit,
@@ -200,6 +213,53 @@ def mlp_half_backward_sequence(x, g, ops, dp, rows_per_sample: int):
     return both
 
 
+def mlp_half_forward_sequence(x, ops, dp=None, rows_per_sample: int = 0, extra=None, extra_scale=None):
+    """B6's function as bf16 PyTorch calls: (for ``extra``) the join x' = x +
+    extra * extra_scale, then x' + d fc2(gelu(fc1(LN x'))) with
+    ``F.layer_norm``, ``F.linear`` on cuBLAS and the exact ``F.gelu``.
+    Returns a function of no arguments."""
+    import torch
+    import torch.nn.functional as F
+
+    bf = torch.bfloat16
+    ln_w, ln_b, w1, b1, w2, b2 = [t.detach().to(bf) for t in ops]
+    wa, wb = w1.t().contiguous(), w2.t().contiguous()
+    d = None if dp is None else dp.to(bf).repeat_interleave(rows_per_sample)[:, None]
+    es = None if extra_scale is None else extra_scale.to(bf)
+    xx = x.to(bf)
+
+    def forward():
+        xj = xx if extra is None else xx + extra * es
+        y = F.linear(F.gelu(F.linear(F.layer_norm(xj, (xj.shape[-1],), ln_w, ln_b, 1e-5), wa, b1)), wb, b2)
+        return xj + (y if d is None else d * y)
+
+    return forward
+
+
+def oca_backward_sequence(q, k, v, bias, g):
+    """B13's function as bf16 PyTorch calls, the explicit formulas of the
+    backward: s = q k^T (cuBLAS) + bias, p = softmax(s) in f32, dv = p^T g,
+    dp = g v^T, ds = p (dp - sum(p dp)) in f32, dq = ds k, dk = ds^T q (the
+    products on bf16 p and ds), d bias = sum of ds over the windows. Returns
+    a function of no arguments."""
+    import torch
+
+    bf = torch.bfloat16
+    qq, kk, vv, gg = (t.to(bf) for t in (q, k, v, g))
+    b32 = bias.float()
+
+    def backward():
+        p = torch.softmax((qq @ kk.transpose(-1, -2)).float() + b32, dim=-1)
+        pb = p.to(bf)
+        dv = pb.transpose(-1, -2) @ gg
+        dp = (gg @ vv.transpose(-1, -2)).float()
+        ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+        dsb = ds.to(bf)
+        return dsb @ kk, dsb.transpose(-1, -2) @ qq, dv, ds.sum(0)
+
+    return backward
+
+
 def measure() -> dict:
     import torch
     import torch.nn.functional as F
@@ -213,6 +273,7 @@ def measure() -> dict:
     from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block
     from studiosr_tpu_torch.ops.cuda.mlp_bwd import mlp_bwd
     from studiosr_tpu_torch.ops.cuda.oca_core import oca_core_bwd, oca_core_fwd
+    from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block
     from studiosr_tpu_torch.ops.cuda.window_attention import fused_window_attention_block
     from studiosr_tpu_torch.ops.cuda.window_attn import window_attention
 
@@ -261,8 +322,14 @@ def measure() -> dict:
     xr, gr = x.reshape(rows, C), g.reshape(rows, C)
     mlp_ops = (1 + randn(C, scale=0.1), randn(C, scale=0.1), randn(C, 2 * C, scale=C**-0.5).to(bf),
                randn(2 * C, scale=0.1), randn(2 * C, C, scale=(2 * C)**-0.5).to(bf))
-    ms["fused_mlp_block"] = time_ms(lambda: fused_mlp_block(xr, *mlp_ops, randn(C, scale=0.1), drop_path=dp,
-                                                            rows_per_sample=rps))
+    b2 = randn(C, scale=0.1)
+    fwd_kw = dict(drop_path=dp, rows_per_sample=rps)
+    engagement.reset()
+    ms["fused_mlp_block"] = time_ms(lambda: fused_mlp_block(xr, *mlp_ops, b2, **fwd_kw))
+    entries["fused_mlp_block"] = engagement.entries().get("fused_mlp_block")
+    passes["fused_mlp_block"] = pass_split(lambda: fused_mlp_block(xr, *mlp_ops, b2, **fwd_kw))
+    ms["fused_mlp_block yardstick (bf16 PyTorch sequence)"] = time_ms(
+        mlp_half_forward_sequence(xr, (*mlp_ops, b2), dp, rps), iters=10)
     engagement.reset()
     ms["mlp_bwd"] = time_ms(lambda: mlp_bwd(xr, gr, *mlp_ops, drop_path=dp, rows_per_sample=rps))
     entries["mlp_bwd"] = engagement.entries().get("mlp_bwd")
@@ -289,13 +356,56 @@ def measure() -> dict:
     ms[f"{name} yardstick (bf16 PyTorch sequence)"] = time_ms(
         attention_half_forward_sequence(xs, dense, HEADS, ws, 8, None), iters=10)
 
+    # B10 at HAT x4 serving's shapes: 24 x 24 key windows around 16 x 16 queries, the MLP after
+    ocab_ops = (1 + randn(C, scale=0.1), randn(C, scale=0.1), randn(C, 3 * C, scale=C**-0.5).to(bf),
+                randn(3 * C, scale=0.1), randn(C, C, scale=C**-0.5).to(bf), randn(C, scale=0.1),
+                randn(HEADS, 256, 576, scale=0.5), 1 + randn(C, scale=0.1), randn(C, scale=0.1),
+                randn(C, 2 * C, scale=C**-0.5).to(bf), randn(2 * C, scale=0.1),
+                randn(2 * C, C, scale=(2 * C)**-0.5).to(bf), randn(C, scale=0.1))
+    ms["fused_ocab_block serving"] = time_ms(
+        lambda: fused_ocab_block(xs, *ocab_ops, heads=HEADS, window_size=16, overlap_ratio=0.5))
+
+    # B6 with the CAB join at HAT x4 serving's shapes: 65,536 rows, the weights packed once
+    name = "fused_mlp_block_extra serving"
+    xe, extra = randn(256 * 256, C).to(bf), randn(256 * 256, C).to(bf)
+    escale = randn(C, scale=0.01)
+    dense = (*mlp_ops, b2)
+    served = list(dense)
+    try:  # serving packs fc1 and fc2 once, at load time
+        from studiosr_tpu_torch.ops.cuda.mlp_block import pack_mlp_block
+
+        served[2], served[4] = pack_mlp_block(dense[2], dense[4]), None
+    except ImportError:
+        pass
+    engagement.reset()
+    ms[name] = time_ms(lambda: fused_mlp_block(xe, *served, extra=extra, extra_scale=escale))
+    entries[name] = engagement.entries().get("fused_mlp_block_extra")
+    passes[name] = pass_split(lambda: fused_mlp_block(xe, *served, extra=extra, extra_scale=escale))
+    ms[f"{name} yardstick (bf16 PyTorch sequence)"] = time_ms(
+        mlp_half_forward_sequence(xe, dense, extra=extra, extra_scale=escale), iters=10)
+
     def view(n, scale):  # (512, 6, n, 30) over (512, n, 6, 30) storage, as the OCAB's views
         return randn(512, n, HEADS, 30, scale=scale).to(bf).transpose(1, 2)
 
     q, k, v, go = view(256, 2 * 30**-0.5), view(576, 1.0), view(576, 1.0), view(256, 1.0)
     bias = randn(HEADS, 256, 576, scale=2.0)
     ms["oca_core_fwd"] = time_ms(lambda: oca_core_fwd(q, k, v, bias))
+    engagement.reset()
     ms["oca_core_bwd"] = time_ms(lambda: oca_core_bwd(q, k, v, bias, go))
+    entries["oca_core_bwd"] = engagement.entries().get("oca_core_bwd")
+    passes["oca_core_bwd"] = pass_split(lambda: oca_core_bwd(q, k, v, bias, go))
+    ms["oca_core_bwd yardstick (bf16 PyTorch sequence)"] = time_ms(oca_backward_sequence(q, k, v, bias, go), iters=5,
+                                                                   warmup=2)
+    torch.cuda.empty_cache()
+    mask = bias.to(bf)
+    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0), iters=10)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v, mask)]
+
+    def sdpa_both():
+        out = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=1.0)
+        torch.autograd.grad(out, leaves, go)
+
+    ms["oca_core_bwd library (SDPA backward)"] = time_ms(sdpa_both, iters=5, warmup=2) - sdpa_fwd
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     return {"package": studiosr_tpu_torch.__file__, "card": card, "ms": ms, "passes": passes, "entries": entries}

@@ -1,13 +1,15 @@
 // The shared pieces of the bf16 kernels written for the H100 around window
-// attention and the MLP half (attn_bwd_mma.cu: B8 / B9; window_attention_mma.cu:
-// B5; mlp_bwd_mma.cu: B7): the wgmma widths they add to wgmma.cuh, the
-// K-major core-matrix image every wgmma operand is laid out in (am_kmajor,
-// mirrored by the packers in ops/cuda/), a weight ring fed by cp.async.bulk
-// through mbarriers, the row passes (LN, the LN backward) a warp a row, a
-// product per 64-row tile with the weights streamed through the ring
-// (am_rowgemm_kernel), the weight gradients on wgmma with every partial
-// summed in a fixed order (am_wgrad), and the gather that packs weights by
-// an index table (am_pack_kernel).
+// attention, the MLP half and the OCA core (attn_bwd_mma.cu: B8 / B9;
+// window_attention_mma.cu: B5; mlp_bwd_mma.cu: B7; mlp_block_mma.cu: B6;
+// oca_bwd_mma.cu: B13): the wgmma widths they add to wgmma.cuh, the K-major
+// core-matrix image every wgmma operand is laid out in (am_kmajor, mirrored
+// by the packers in ops/cuda/), a weight ring fed by cp.async.bulk through
+// mbarriers, the GELU's Phi without branches (am_gauss), the token-contiguous
+// copy of K-major tiles (am_transpose), the row passes (LN, the LN backward)
+// a warp a row, a product per 64-row tile with the weights streamed through
+// the ring (am_rowgemm_kernel), the weight gradients on wgmma with every
+// partial summed in a fixed order (am_wgrad), and the gather that packs
+// weights by an index table (am_pack_kernel).
 #pragma once
 
 #include "hopper_mma.cuh"
@@ -193,6 +195,49 @@ __device__ __forceinline__ void am_load_rows(int KC, int SC, const bf16* rows, i
     const bool in = valid && kg < SG;
     hm_cp_async<16>(tileb + am_kmajor(8 * kg, t, KC), in ? rows + ((long long)tile * AM_TOK + t) * SC + 8 * kg : rows,
                     in);
+  }
+}
+
+// The standard normal's cdf Phi(h) and density phi(h), without branches:
+// Phi from erfc(|h| / sqrt 2) by Numerical Recipes' erfcc (fractional error
+// below 1.2e-7 everywhere; in f32 Phi is within 2.3e-7 of the exact value,
+// and keeps its relative accuracy in the lower tail, where 1 + erf(x)
+// cancels), its e^(-h^2 / 2) shared with phi. GELU is h Phi(h), its
+// derivative Phi(h) + h phi(h): the exact erf GELU to f32 accuracy, at a
+// third of erff's and expf's instructions (the epilogue bounds
+// mlp_bwd_mma.cu's pass 1; mlp_block_mma.cu's GELU is h Phi(h) as well).
+__device__ __forceinline__ void am_gauss(float h, float& cdf, float& pdf) {
+  const float z = fabsf(h) * 0.70710678118654752f, t = __fdividef(1.f, fmaf(0.5f, z, 1.f));
+  float p = 0.17087277f;
+  p = fmaf(p, t, -0.82215223f);
+  p = fmaf(p, t, 1.48851587f);
+  p = fmaf(p, t, -1.13520398f);
+  p = fmaf(p, t, 0.27886807f);
+  p = fmaf(p, t, -0.18628806f);
+  p = fmaf(p, t, 0.09678418f);
+  p = fmaf(p, t, 0.37409196f);
+  p = fmaf(p, t, 1.00002368f);
+  p = fmaf(p, t, -1.26551223f);
+  const float e = __expf(-z * z), half = 0.5f * t * e * __expf(p);  // e^(-h^2/2); erfc(z) / 2
+  cdf = h >= 0.f ? 1.f - half : half;
+  pdf = 0.39894228040143268f * e;
+}
+
+// The token-contiguous copy of `chunks` 64 x DP K-major chunks: core matrix
+// (token group tg, column group jg) of a chunk goes, transposed, to core
+// matrix (jg, tg) of the same chunk laid out as am_kmajor(t, j, 64). The
+// block's warps share the work, four core matrices an ldmatrix / stmatrix.
+template <int DP>
+__device__ __forceinline__ void am_transpose(const bf16* src, bf16* dst, int chunks, int warps) {
+  constexpr int JG = DP / 8, GROUPS = 8 * JG / 4;  // x4 groups a chunk
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, mi = lane >> 3, rho = lane & 7;
+  for (int q = warp; q < chunks * GROUPS; q += warps) {
+    const int c = q / GROUPS, core = (q % GROUPS) * 4 + mi, tg = core / JG, jg = core % JG;
+    const bf16* s = src + c * AM_TOK * DP + tg * DP * 8 + jg * 64 + rho * 8;
+    bf16* d = dst + c * AM_TOK * DP + jg * 512 + tg * 64 + rho * 8;
+    uint32_t r0, r1, r2, r3;
+    hm_ldsm_x4(r0, r1, r2, r3, s);
+    am_stsm_x4_t(d, r0, r1, r2, r3);
   }
 }
 

@@ -159,24 +159,6 @@ __host__ __device__ inline AmAttnSmem am_attn_smem(const AmGeom& G) {
   return L;
 }
 
-// The token-contiguous copy of `chunks` 64 x DP K-major chunks: core matrix
-// (token group tg, column group jg) of a chunk goes, transposed, to core
-// matrix (jg, tg) of the same chunk laid out as am_kmajor(t, j, 64). The
-// block's warps share the work, four core matrices an ldmatrix / stmatrix.
-template <int DP>
-__device__ __forceinline__ void am_transpose(const bf16* src, bf16* dst, int chunks, int warps) {
-  constexpr int JG = DP / 8, GROUPS = 8 * JG / 4;  // x4 groups a chunk
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, mi = lane >> 3, rho = lane & 7;
-  for (int q = warp; q < chunks * GROUPS; q += warps) {
-    const int c = q / GROUPS, core = (q % GROUPS) * 4 + mi, tg = core / JG, jg = core % JG;
-    const bf16* s = src + c * AM_TOK * DP + tg * DP * 8 + jg * 64 + rho * 8;
-    bf16* d = dst + c * AM_TOK * DP + jg * 512 + tg * 64 + rho * 8;
-    uint32_t r0, r1, r2, r3;
-    hm_ldsm_x4(r0, r1, r2, r3, s);
-    am_stsm_x4_t(d, r0, r1, r2, r3);
-  }
-}
-
 // A block owns (head h, query chunk r, window group g); NCH 4 (window 16)
 // runs as clusters of four blocks, one a query chunk, each with two
 // warpgroups: warpgroup k takes key chunks (r + 2 i + k) mod 4, i = 0, 1.

@@ -77,30 +77,6 @@ struct MbArgs {
   int tiles, rps;
 };
 
-// The standard normal's cdf Phi(h) and density phi(h), without branches:
-// Phi from erfc(|h| / sqrt 2) by Numerical Recipes' erfcc (fractional error
-// below 1.2e-7 everywhere; in f32 Phi is within 2.3e-7 of the exact value,
-// and keeps its relative accuracy in the lower tail, where 1 + erf(x)
-// cancels), its e^(-h^2 / 2) shared with phi. GELU is h Phi(h), its
-// derivative Phi(h) + h phi(h): the exact erf GELU to f32 accuracy, at a
-// third of erff's and expf's instructions (the epilogue bounds pass 1).
-__device__ __forceinline__ void mb_gauss(float h, float& cdf, float& pdf) {
-  const float z = fabsf(h) * 0.70710678118654752f, t = __fdividef(1.f, fmaf(0.5f, z, 1.f));
-  float p = 0.17087277f;
-  p = fmaf(p, t, -0.82215223f);
-  p = fmaf(p, t, 1.48851587f);
-  p = fmaf(p, t, -1.13520398f);
-  p = fmaf(p, t, 0.27886807f);
-  p = fmaf(p, t, -0.18628806f);
-  p = fmaf(p, t, 0.09678418f);
-  p = fmaf(p, t, 0.37409196f);
-  p = fmaf(p, t, 1.00002368f);
-  p = fmaf(p, t, -1.26551223f);
-  const float e = __expf(-z * z), half = 0.5f * t * e * __expf(p);  // e^(-h^2/2); erfc(z) / 2
-  cdf = h >= 0.f ? 1.f - half : half;
-  pdf = 0.39894228040143268f * e;
-}
-
 // Pass 0, a warp a row: LN, its statistics and g_b of rows below R; the
 // padding rows past R zero.
 __global__ void __launch_bounds__(256) mb_ln_kernel(const MbArgs a, const MbGeom G) {
@@ -189,7 +165,7 @@ __global__ void __launch_bounds__(256, 1) mb_prod_kernel(const MbArgs a, const M
           for (int e = 0; e < 2; ++e) {
             const float h = ah[nt][2 * hh + e] + bj[e];
             float cdf, pdf;
-            mb_gauss(h, cdf, pdf);
+            am_gauss(h, cdf, pdf);
             const bool in = row < a.rows && j + e < G.hidden;
             gl[e] = in ? h * cdf : 0.f;
             dh[e] = in ? ag[nt][2 * hh + e] * (cdf + h * pdf) : 0.f;

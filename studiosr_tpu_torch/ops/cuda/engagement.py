@@ -13,8 +13,8 @@ so there is no fallback to count. What remains:
   ``attention_bwd`` (``_ws16`` at window 16), ``fused_cab_body``,
   ``fused_ocab_block``, ``oca_core_fwd``, ``oca_core_bwd``,
   ``fused_resblock`` (B14), ``window_attention_pallas`` (B15); where a
-  wrapper names the C entry it called (B1-B5, B7-B9, B14, B15: one for f32,
-  one or two for bf16), ``entries()`` counts the launches of each;
+  wrapper names the C entry it called (B1-B9, B13-B15: one for f32, one or
+  two for bf16), ``entries()`` counts the launches of each;
 * ``structural_tail_decline(scale)`` — the by-design decline of a
   configuration that has no kernel at all (scale 8's log2-ladder tail),
   recorded and warned about so it is never silent;

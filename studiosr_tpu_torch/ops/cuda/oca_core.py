@@ -1,4 +1,5 @@
-"""B12 and B13: the OCAB cross-attention core, forward and backward (CUDA kernels ``csrc/oca_core.cu``).
+"""B12 and B13: the OCAB cross-attention core, forward and backward (CUDA kernels ``csrc/oca_core.cu``;
+B13 in bf16 ``csrc/oca_bwd_mma.cu``).
 
 Replaces ``studiosr_tpu/ops/pallas/oca_core.py::oca_core_fwd`` (B12) and
 ``::oca_core_bwd`` (B13). On q (bw, heads, nq, d), already scaled by
@@ -14,6 +15,16 @@ without a copy); the bias is handed to the kernel in f32. Outputs come back
 as transposed views of (bw, tokens, heads, d) tensors, the layout the OCAB
 reads them in. The kernels take head dims up to 64 and at most 256 queries
 a window (the backward keeps a (nq, 64) f32 d bias tile in shared memory).
+
+Routing of B13, by dtype and geometry, never by a failure: bf16 with a head
+dim up to 32, at most 256 queries and 576 keys (:func:`mma_takes`) launches
+the kernel written for the H100, ``csrc/oca_bwd_mma.cu`` (C entry
+``oca_core_bwd_mma_bf16``): a pass that packs q, g, k and v into wgmma's
+K-major 64-token tiles (:func:`pack_images` is its plain version), the row
+statistics, then p, dscores and the sums per (head, key chunk, group of
+windows) (:func:`main_partition` mirrors the blocks' partition). Other bf16
+geometries and f32 launch ``oca_core_bwd_bf16`` / ``_f32``. Each launch is
+counted under its C entry (``engagement.entries()``).
 """
 
 from __future__ import annotations
@@ -26,7 +37,10 @@ from studiosr_tpu_torch.ops.cuda import _build
 from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, finish, operand, stream
 from studiosr_tpu_torch.ops.cuda.window_attention import MAX_HEAD_DIM
 
-__all__ = ["oca_core_fwd", "oca_core_bwd", "oca_core_plain", "oca_core_bwd_plain", "MAX_QUERIES"]
+__all__ = [
+    "oca_core_fwd", "oca_core_bwd", "oca_core_plain", "oca_core_bwd_plain", "MAX_QUERIES", "mma_takes", "pack_images",
+    "main_partition",
+]
 
 MAX_QUERIES = 256  # csrc/attn_core.cuh AC_MAX_NQ
 _LL = ctypes.c_longlong
@@ -41,6 +55,72 @@ _SIGNATURES = {
     "oca_core_bwd_scratch": (I, I, I, I),
 }
 _RESTYPES = {"oca_core_bwd_scratch": _LL}
+_SIGNATURES_MMA = {
+    "oca_core_bwd_mma_bf16": (P,) * 9 + (_STRIDES, I, I, I, I, I, P, _LL, P, _LL, P),
+    "oca_core_bwd_mma_scratch": (I,) * 5 + (ctypes.POINTER(_LL), ctypes.POINTER(_LL)),
+}
+MMA_MAX_QUERIES, MMA_MAX_KEYS, MMA_MAX_HEAD_DIM = 256, 576, 32  # csrc/oca_bwd_mma.cu OB_MAX_NQ, OB_MAX_NK
+_TOK = 64  # tokens a tile (AM_TOK)
+
+
+def mma_takes(heads: int, nq: int, nk: int, d: int) -> bool:
+    """Whether the bf16 backward written for the H100 takes this geometry: a
+    head dim up to 32, at most 256 queries and 576 keys a window."""
+    return heads >= 1 and 1 <= d <= MMA_MAX_HEAD_DIM and 1 <= nq <= MMA_MAX_QUERIES and 1 <= nk <= MMA_MAX_KEYS
+
+
+def _tiles(n: int) -> int:
+    return -(-n // _TOK)
+
+
+def pack_images(q, k, v, g) -> torch.Tensor:
+    """Plain version of the H100 backward's pass 0 (``ob_pack_kernel``): per
+    (window, head) unit, q and g in ceil(nq / 64) tiles, then k and v in
+    ceil(nk / 64) chunks, each 64 tokens x DP (16 at d <= 16, else 32) in
+    wgmma's K-major core-matrix image: token t, column j at (t // 8) DP 8 +
+    (j // 8) 64 + (t % 8) 8 + j % 8, zero past the tokens and past d.
+    Returns (bw * heads, unit elements) in q's dtype."""
+    bw, heads, nq, d = q.shape
+    nk = k.shape[2]
+    dp = 16 if d <= 16 else 32
+    parts = []
+    for t, n in ((q, nq), (g, nq), (k, nk), (v, nk)):
+        tiles = _tiles(n)
+        padded = t.new_zeros(bw, heads, tiles * _TOK, dp)
+        padded[:, :, :n, :d] = t
+        # (unit, tile, token group, token in group, column group, column in group)
+        x = padded.reshape(bw * heads, tiles, _TOK // 8, 8, dp // 8, 8)
+        parts.append(x.permute(0, 1, 2, 4, 3, 5).reshape(bw * heads, -1))
+    return torch.cat(parts, 1)
+
+
+def _groups(bw: int, heads: int, kt: int, sms: int) -> int:
+    """The main pass's count of window groups (``ob_groups``): the count, up
+    to 64 and to bw, whose waves of heads x kt blocks (one an SM) take the
+    fewest window steps, the smallest on a tie."""
+    best, best_cost = 1, None
+    for groups in range(1, min(bw, 64) + 1):
+        waves = -(-(groups * heads * kt) // sms)
+        cost = waves * -(-bw // groups)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = groups, cost
+    return best
+
+
+def main_partition(bw: int, heads: int, nq: int, nk: int, sms: int = 132):
+    """The H100 backward's main pass as its blocks take it: for each block
+    (in launch order) the (window, head, query tile, key chunk) units of work
+    it computes, in order: block b is (group b // (heads KT), head (b // KT) %
+    heads, key chunk b % KT), its warpgroup w takes query tiles w, w + 2, and
+    it walks the windows g, g + groups, .... Each (window, head, tile, chunk)
+    must appear exactly once."""
+    qt, kt = _tiles(nq), _tiles(nk)
+    groups = _groups(bw, heads, kt, sms)
+    blocks = []
+    for b in range(groups * heads * kt):
+        c, h, grp = b % kt, (b // kt) % heads, b // (kt * heads)
+        blocks.append([(w, h, i, c) for w in range(grp, bw, groups) for wg in range(2) for i in range(wg, qt, 2)])
+    return blocks
 
 
 def oca_core_plain(q, k, v, bias):
@@ -129,13 +209,24 @@ def oca_core_bwd(q, k, v, bias, g):
     b32 = operand(bias, "bias", (heads, nq, nk), torch.float32, dev)
     dq, dk, dv = _out(bw, heads, nq, d, q), _out(bw, heads, nk, d, q), _out(bw, heads, nk, d, q)
     dbias = torch.empty(heads, nq, nk, dtype=torch.float32, device=dev)
-    lib = _build.load("oca_core", _SIGNATURES, _RESTYPES)
-    f_elems = lib.oca_core_bwd_scratch(bw, heads, nq, nk)
-    fscratch = torch.empty(f_elems, dtype=torch.float32, device=dev)
-    fn = lib.oca_core_bwd_bf16 if q.dtype == torch.bfloat16 else lib.oca_core_bwd_f32
     strides = _strides(q, k, v, g, None, dq, dk, dv)
-    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), b32.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), dbias.data_ptr(), strides, bw, heads, nq, nk, d, fscratch.data_ptr(), f_elems,
-                stream(dev))
-    finish("oca_core_bwd", status)
+    ptrs = [t.data_ptr() for t in (q, k, v, b32, g, dq, dk, dv, dbias)]
+    if q.dtype == torch.bfloat16 and mma_takes(heads, nq, nk, d):
+        lib = _build.load("oca_bwd_mma", _SIGNATURES_MMA)
+        t_elems, f_elems = _LL(), _LL()
+        status = lib.oca_core_bwd_mma_scratch(bw, heads, nq, nk, d, ctypes.byref(t_elems), ctypes.byref(f_elems))
+        if status != 0:
+            raise RuntimeError(f"oca_core_bwd: CUDA error {status} while sizing the scratch")
+        tscratch = torch.empty(t_elems.value, dtype=q.dtype, device=dev)
+        fscratch = torch.empty(f_elems.value, dtype=torch.float32, device=dev)
+        entry = "oca_core_bwd_mma_bf16"
+        status = lib.oca_core_bwd_mma_bf16(*ptrs, strides, bw, heads, nq, nk, d, tscratch.data_ptr(), t_elems.value,
+                                           fscratch.data_ptr(), f_elems.value, stream(dev))
+    else:
+        lib = _build.load("oca_core", _SIGNATURES, _RESTYPES)
+        f_elems = lib.oca_core_bwd_scratch(bw, heads, nq, nk)
+        fscratch = torch.empty(f_elems, dtype=torch.float32, device=dev)
+        entry = "oca_core_bwd_bf16" if q.dtype == torch.bfloat16 else "oca_core_bwd_f32"
+        status = getattr(lib, entry)(*ptrs, strides, bw, heads, nq, nk, d, fscratch.data_ptr(), f_elems, stream(dev))
+    finish("oca_core_bwd", status, entry)
     return dq, dk, dv, dbias

@@ -14,7 +14,9 @@ Port of ``studiosr_tpu/serving/hat_fast.py``: the exact HAT eval computation
   (``pack_window_attention``, where ``mma_takes`` the geometry);
 * B6 (``ops/cuda/mlp_block.py``) finishes the block. At batch 1 it folds in
   the CAB join x' = y + y2 * (g * conv_scale) through ``extra`` /
-  ``extra_scale``; at batch > 1 the join runs in plain ops first.
+  ``extra_scale``; at batch > 1 the join runs in plain ops first. In bf16
+  its fc1 and fc2 are packed once, at load time, for the kernel written for
+  the H100 (``pack_mlp_block``, where ``mma_takes`` the geometry).
 
 Each group ends with B10 (``ops/cuda/ocab.py``) and its conv through B2,
 the skip folded in; ``conv_after_body`` runs through B2 as well and the tail
@@ -36,7 +38,7 @@ import torch.nn.functional as F
 
 from studiosr_tpu_torch.models.blocks import DEFAULT_RGB_MEAN
 from studiosr_tpu_torch.ops.cuda.conv3x3 import fused_cab_body, fused_conv3x3
-from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block
+from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mma_takes as mlp_mma_takes, pack_mlp_block
 from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block
 from studiosr_tpu_torch.ops.cuda.window_attention import fused_window_attention_block, mma_takes, pack_window_attention
 from studiosr_tpu_torch.ops.windows import (
@@ -59,7 +61,8 @@ def _ln(norm: nn.LayerNorm, prefix: str = "ln") -> Dict[str, torch.Tensor]:
 def prepare_hat_serving(module: nn.Module, config: Dict[str, Any], dtype) -> Dict[str, Any]:
     """Lay every kernel's weights out once, at load time: dense weights to
     (in, out) and conv weights to HWIO in ``dtype`` (B2's packed in bf16, and
-    B5's q|k|v, proj and rel-pos bias in one blob), the rel-pos biases
+    B5's q|k|v, proj and rel-pos bias in one blob, B6's fc1 and fc2 in
+    another), the rel-pos biases
     gathered to (heads, 256, 256) and (heads, 256, 576), LayerNorm weights
     and biases f32. Consumed by :func:`hat_fast_forward`."""
     ws = int(config["window_size"])
@@ -79,12 +82,11 @@ def prepare_hat_serving(module: nn.Module, config: Dict[str, Any], dtype) -> Dic
             if dtype == torch.bfloat16 and mma_takes(attn["ln_w"].numel(), heads):
                 attn.update(wqkv=pack_window_attention(attn["wqkv"], attn["wproj"], attn["bias"], heads), wproj=None,
                             bias=None)
-            group.append(dict(
-                cab=dict(**_ln(blk.norm1), w1=w1, b1=b1, w2=w2, b2=b2),
-                attn=attn,
-                mlp=dict(**_ln(blk.norm2), w1=_dense(blk.mlp.fc1, dtype), b1=_f32(blk.mlp.fc1.bias),
-                         w2=_dense(blk.mlp.fc2, dtype), b2=_f32(blk.mlp.fc2.bias)),
-            ))
+            mlp = dict(**_ln(blk.norm2), w1=_dense(blk.mlp.fc1, dtype), b1=_f32(blk.mlp.fc1.bias),
+                       w2=_dense(blk.mlp.fc2, dtype), b2=_f32(blk.mlp.fc2.bias))
+            if dtype == torch.bfloat16 and mlp_mma_takes(*mlp["w1"].shape):
+                mlp.update(w1=pack_mlp_block(mlp["w1"], mlp["w2"]), w2=None)
+            group.append(dict(cab=dict(**_ln(blk.norm1), w1=w1, b1=b1, w2=w2, b2=b2), attn=attn, mlp=mlp))
         prep["blocks"].append(group)
         oa = layer.residual_group.overlap_attn
         prep["ocab"].append(dict(

@@ -21,7 +21,7 @@ from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd, attention_bwd_pl
 from studiosr_tpu_torch.ops.cuda.conv3x3 import (
     cab_body_plain, conv3x3_plain, fused_cab_body, fused_conv3x3, pack_conv3x3_weights,
 )
-from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mlp_block_plain
+from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mlp_block_plain, pack_mlp_block
 from studiosr_tpu_torch.ops.cuda.mlp_bwd import mlp_bwd, mlp_bwd_plain
 from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block, ocab_plain, overlap_window
 from studiosr_tpu_torch.ops.cuda.swin_block import fused_swin_block, swin_block_plain
@@ -695,6 +695,71 @@ def test_oca_core_kernels_match_plain(dev, dtype, bw, heads, nq, nk, d):
         _assert_close(a, e, dtype)
     again = oca_core_bwd(q.contiguous(), k.contiguous(), v.contiguous(), bias, g.contiguous())
     assert all(torch.equal(a, b) for a, b in zip(grads, again))  # strides do not change a bit; no atomics
+
+
+# B13 in bf16 on the kernel written for the H100 (``csrc/oca_bwd_mma.cu``):
+# HAT's training step (512 windows, 6 heads, 256 | 576 tokens, d 30), a
+# window count that is not a whole number of the main pass's groups, the
+# trained fixtures' 64 | 144 at d 16, ragged tiles at d 24, an odd d and
+# an odd count of query tiles (three, padded to four).
+H100_OCA_CASES = [(512, 6, 256, 576, 30), (37, 6, 256, 576, 30), (16, 2, 64, 144, 16), (5, 3, 200, 300, 24),
+                  (3, 2, 100, 70, 7), (4, 2, 150, 100, 16)]
+
+
+@pytest.mark.parametrize("bw,heads,nq,nk,d", H100_OCA_CASES)
+def test_oca_core_bwd_h100_kernel_matches_plain(dev, bw, heads, nq, nk, d):
+    from studiosr_tpu_torch.ops.cuda.oca_core import oca_core_bwd, oca_core_bwd_plain
+
+    gen = torch.Generator().manual_seed(bw + nq + nk + d)
+    q, k, v, bias, g = _oca_case(gen, bw, heads, nq, nk, d, dev, torch.bfloat16)
+    engagement.reset()
+    got = oca_core_bwd(q, k, v, bias, g)
+    again = oca_core_bwd(q, k, v, bias, g)
+    assert engagement.entries() == {"oca_core_bwd": {"oca_core_bwd_mma_bf16": 2}}
+    want = oca_core_bwd_plain(q.float(), k.float(), v.float(), bias, g.float())
+    for a, e in zip(got, want):
+        assert a.shape == e.shape
+        _assert_close(a, e, torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomic sums: bitwise repeatable
+
+
+# B6 and B6 ``extra`` in bf16 on the kernel written for the H100
+# (``csrc/mlp_block_mma.cu``): C 180 / hidden 360 at the training step's
+# rows (batch 32 of 64 x 64) and at HAT serving's 65,536 with the join, ragged
+# row counts, narrow widths and hidden 384; drop-path scales with a 0 (that
+# sample passes through exactly); the weights packed once (the serving blob)
+# against dense ones bit for bit; two launches the same bits.
+H100_MLP_FWD_CASES = [(180, 360, 32 * 4096, 4096, None), (180, 360, 65536, 0, "extra"),
+                      (180, 360, 1000, 500, None), (180, 360, 777, 0, "extra"), (32, 64, 300, 150, None),
+                      (16, 32, 200, 0, "extra"), (128, 384, 130, 65, None), (60, 120, 100, 0, None)]
+
+
+@pytest.mark.parametrize("c,hidden,rows,rows_per_sample,mode", H100_MLP_FWD_CASES)
+def test_mlp_block_h100_kernel_matches_plain(dev, c, hidden, rows, rows_per_sample, mode):
+    gen = torch.Generator().manual_seed(c + hidden + rows)
+    ops = _block_operands(gen, c, 2, hidden)[7:]
+    ops = [t.to(dev, torch.bfloat16 if i in (2, 4) else torch.float32) for i, t in enumerate(ops)]
+    x = _randn(gen, rows, c).to(dev, torch.bfloat16)
+    kw = {}
+    if mode == "extra":
+        kw = dict(extra=_randn(gen, rows, c).to(dev, torch.bfloat16), extra_scale=_randn(gen, c, scale=0.5).to(dev))
+    elif rows_per_sample:
+        dp = torch.full((rows // rows_per_sample,), 1 / 0.9, device=dev)
+        dp[0] = 0.0
+        kw = dict(drop_path=dp, rows_per_sample=rows_per_sample)
+    name, entry = ("fused_mlp_block_extra", "mlp_block_extra_mma_bf16") if mode else ("fused_mlp_block",
+                                                                                      "mlp_block_mma_bf16")
+    engagement.reset()
+    got = fused_mlp_block(x, *ops, **kw)
+    again = fused_mlp_block(x, *ops, **kw)
+    packed = fused_mlp_block(x, ops[0], ops[1], pack_mlp_block(ops[2], ops[4]), ops[3], None, ops[5], **kw)
+    assert engagement.entries() == {name: {entry: 3}}
+    fkw = {k: (v.float() if k == "extra" else v) for k, v in kw.items()}
+    want = mlp_block_plain(x.float(), *[t.float() for t in ops], **fkw)
+    _assert_close(got, want, torch.bfloat16)
+    assert torch.equal(got, again) and torch.equal(got, packed)
+    if rows_per_sample and mode is None:
+        assert torch.equal(got[:rows_per_sample], x[:rows_per_sample])  # a dropped sample passes through exactly
 
 
 def test_hat_training_kernels_raise_on_shapes_they_do_not_take(dev):
