@@ -82,21 +82,24 @@ Phases, in order; any failure exits non-zero before the final line:
 9. training timing: step ms and images/s over 5 steps after 2 warm-up
    steps, and each training kernel's ms, plain ms and bound at batch 32;
 10. HAT serving kernels vs plain at the path's shapes (256x256 map, C
-    180), f32 and bf16: B11, B5 at window 16 (shift 0 and 8), B6 with
-    ``extra`` / ``extra_scale`` (twice, for the same bits), B10 (its border
-    windows' keys reach outside the image);
+    180), f32 and bf16: B11 (on the convs serving packs at load time), B5
+    at window 16 (shift 0 and 8), B6 with ``extra`` / ``extra_scale``, B11
+    and B6 twice for the same bits, B10 (its border windows' keys reach
+    outside the image);
 11. HAT serving end to end: the fused forward against the plain port
     forward in f32 and bf16, then three seeded 256x256 uint8 requests
     through ``inference`` (bf16, fused) with launch counts checked per
     forward;
 12. HAT serving timing: the forward (ms, LR MP/s), each HAT kernel's ms,
-    plain ms and bound, and B2 and B3 at HAT's shapes;
+    plain ms and bound, B11 beside the same function as a sequence of bf16
+    PyTorch calls, and B2 and B3 at HAT's shapes;
 13. HAT training kernels vs plain at batch 4 and the path's batch 32 of
     64x64 maps, f32 and bf16: B5 at window 16 with drop-path and B9 (shift
     0 and 8, drop-path scales that include a 0), B12 and B13 on the OCAB's
     transposed views at its geometry (256 queries, 576 keys, d 30), on 37
     windows and at the trained fixtures' (64, 144, d 16), with logits large
-    enough that the row max matters, B13 launched twice for the same bits;
+    enough that the row max matters (the path's bias in the run's dtype, as
+    the bf16 step gathers it), B12 and B13 launched twice for the same bits;
 14. HAT gradients end to end, batch 4, as phase 7: the fused-train HAT's
     loss and every gradient in f32 and bf16 against an f64 witness (plain
     autograd of the port's HAT in f64), every ReLU (the squeeze-excite
@@ -180,7 +183,7 @@ from studiosr_tpu_torch.ops.cuda import _build, engagement
 from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd, attention_bwd_plain
 from studiosr_tpu_torch.ops.attention import attention_plain
 from studiosr_tpu_torch.ops.cuda.conv3x3 import (
-    cab_body_plain, conv3x3_plain, fused_cab_body, fused_conv3x3, fused_resblock, resblock_plain,
+    cab_body_plain, conv3x3_plain, fused_cab_body, fused_conv3x3, fused_resblock, resblock_plain, unpack_cab_weights,
     unpack_conv3x3_weights,
 )
 from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mlp_block_plain, unpack_mlp_block
@@ -265,7 +268,7 @@ GRAD_ENTRIES: dict = {}  # {(path, dtype): engagement.entries()} of train_grads'
 HAT_MAIN = dict(scale=4, embed_dim=180, depths=[6] * 6, num_heads=[6] * 6, window_size=16, mlp_ratio=2.0,
                 compress_ratio=3, squeeze_factor=30, conv_scale=0.01, overlap_ratio=0.5)
 KERNELS.update({
-    "fused_cab_body": ("studiosr_tpu_torch/csrc/cab_body.cu", "studiosr_tpu/ops/pallas/conv3x3.py:393"),
+    "fused_cab_body": ("studiosr_tpu_torch/csrc/cab_mma.cu", "studiosr_tpu/ops/pallas/conv3x3.py:393"),
     "fused_window_attention_block_ws16": (
         "studiosr_tpu_torch/csrc/window_attention_mma.cu", "studiosr_tpu/ops/pallas/swin_block.py:549"),
     "fused_mlp_block_extra": ("studiosr_tpu_torch/csrc/mlp_block_mma.cu", "studiosr_tpu/ops/pallas/swin_block.py:904"),
@@ -284,7 +287,7 @@ HAT_TRAIN_STEPS = 3
 HAT_TRAIN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_hat_train"
 KERNELS.update({
     "attention_bwd_ws16": ("studiosr_tpu_torch/csrc/attn_bwd_mma.cu", "studiosr_tpu/ops/pallas/attn_bwd.py:508"),
-    "oca_core_fwd": ("studiosr_tpu_torch/csrc/oca_core.cu", "studiosr_tpu/ops/pallas/oca_core.py:117"),
+    "oca_core_fwd": ("studiosr_tpu_torch/csrc/oca_fwd_mma.cu", "studiosr_tpu/ops/pallas/oca_core.py:117"),
     "oca_core_bwd": ("studiosr_tpu_torch/csrc/oca_bwd_mma.cu", "studiosr_tpu/ops/pallas/oca_core.py:157"),
 })
 HAT_PER_STEP = {"fused_window_attention_block_ws16": 36, "attention_bwd_ws16": 36, "fused_mlp_block": 36,
@@ -336,7 +339,7 @@ MAXSR_PER_FORWARD = {"window_attention_pallas": 32}
 # (label, windows, heads, tokens, head dim, bias, mask windows): the first two
 # are the two MaxSR modes' shapes at a 256x256 LR input.
 # The C entry of the kernels written for the H100 that every bf16 launch of
-# B1, B2, B3, B4, B5, B6, B14 and B15 on the served paths must go through, and
+# B1, B2, B3, B4, B5, B6, B11, B14 and B15 on the served paths must go through, and
 # each kernel's stem in its build log (ptxas's registers, shared memory and
 # spills).
 H100_ENTRIES = {"fused_swin_block": "swin_block_mma_bf16", "fused_conv3x3": "conv3x3_mma_bf16",
@@ -344,7 +347,8 @@ H100_ENTRIES = {"fused_swin_block": "swin_block_mma_bf16", "fused_conv3x3": "con
                 "fused_upsample_x4": "upsample_x4_mma_bf16", "fused_upsample_s": "upsample_s_mma_bf16",
                 "fused_window_attention_block": "window_attention_mma_bf16",
                 "fused_window_attention_block_ws16": "window_attention16_mma_bf16",
-                "fused_mlp_block": "mlp_block_mma_bf16", "fused_mlp_block_extra": "mlp_block_extra_mma_bf16"}
+                "fused_mlp_block": "mlp_block_mma_bf16", "fused_mlp_block_extra": "mlp_block_extra_mma_bf16",
+                "fused_cab_body": "cab_body_mma_bf16"}
 H100_KERNELS = {"fused_swin_block": ("swin_block_mma", "swin_block_mma_kernel"),
                 "fused_conv3x3": ("conv3x3", "conv3x3_mma_kernel"),
                 "fused_resblock": ("resblock", "conv3x3_mma_kernel"),
@@ -354,23 +358,26 @@ H100_KERNELS = {"fused_swin_block": ("swin_block_mma", "swin_block_mma_kernel"),
                 "fused_window_attention_block": ("window_attention_mma", "_kernel"),
                 "fused_window_attention_block_ws16": ("window_attention_mma", "_kernel"),
                 "mlp_bwd": ("mlp_bwd_mma", "_kernel"), "fused_mlp_block": ("mlp_block_mma", "mf_kernel"),
-                "fused_mlp_block_extra": ("mlp_block_mma", "mf_kernel"), "oca_core_bwd": ("oca_bwd_mma", "ob_")}
-# The C entry every launch of B5-B9 and B13 must take in a run of each
+                "fused_mlp_block_extra": ("mlp_block_mma", "mf_kernel"), "oca_core_bwd": ("oca_bwd_mma", "ob_"),
+                "fused_cab_body": ("cab_mma", "_kernel"), "oca_core_fwd": ("oca_fwd_mma", "of_")}
+# The C entry every launch of B5-B9, B12 and B13 must take in a run of each
 # dtype: bf16 the kernels written for the H100 (their geometry rules hold at
 # every width the paths train), f32 the older kernels.
 TRAIN_ENTRIES = {
     torch.bfloat16: {"attention_bwd": "attn_bwd_mma_bf16", "attention_bwd_ws16": "attn_bwd16_mma_bf16",
                      "fused_window_attention_block": "window_attention_mma_bf16",
                      "fused_window_attention_block_ws16": "window_attention16_mma_bf16", "mlp_bwd": "mlp_bwd_mma_bf16",
-                     "fused_mlp_block": "mlp_block_mma_bf16", "oca_core_bwd": "oca_core_bwd_mma_bf16"},
+                     "fused_mlp_block": "mlp_block_mma_bf16", "oca_core_bwd": "oca_core_bwd_mma_bf16",
+                     "oca_core_fwd": "oca_core_fwd_mma_bf16"},
     torch.float32: {"attention_bwd": "attn_bwd_f32", "attention_bwd_ws16": "attn_bwd16_f32",
                     "fused_window_attention_block": "window_attention_f32",
                     "fused_window_attention_block_ws16": "window_attention16_f32", "mlp_bwd": "mlp_bwd_f32",
-                    "fused_mlp_block": "mlp_block_f32", "oca_core_bwd": "oca_core_bwd_f32"},
+                    "fused_mlp_block": "mlp_block_f32", "oca_core_bwd": "oca_core_bwd_f32",
+                    "oca_core_fwd": "oca_core_fwd_f32"},
 }
 # The kernels redesigned in bf16 last, held to the same bits from launch to
 # launch (no atomic sums) at the path's batch (phases 6, 10 and 13).
-BITWISE = ("fused_mlp_block", "fused_mlp_block_extra", "oca_core_bwd")
+BITWISE = ("fused_mlp_block", "fused_mlp_block_extra", "oca_core_bwd", "fused_cab_body", "oca_core_fwd")
 # B1 in bf16 beyond the main path's shape, as the card tests take it: (C,
 # heads, map, shift): C 32 with 2 heads of 16 (the trained fixtures), C 180
 # at H != W and an odd window count (a half-empty last window pair), d 8,
@@ -1416,9 +1423,8 @@ def hat_bounds(name: str, ops) -> tuple:
     x = ops[0]
     c = x.shape[-1]
     tokens = x.numel() // c
-    if name == "fused_cab_body":
-        w1 = ops[3]
-        flops = 2 * 2 * tokens * 9 * c * w1.shape[-1]
+    if name == "fused_cab_body":  # ops[3] may be packed: Cm from b1
+        flops = 2 * 2 * tokens * 9 * c * ops[4].numel()
         moved = 2 * nbytes(x) + nbytes(*ops[1:]) + 4 * x.shape[0] * c  # + the f32 sums
     elif name == "fused_window_attention_block_ws16":
         n = HAT_MAIN["window_size"] ** 2
@@ -1432,6 +1438,24 @@ def hat_bounds(name: str, ops) -> tuple:
         flops = 2 * tokens * c * 4 * c + 4 * tokens * nk * c + 4 * tokens * c * hidden
         moved = 2 * nbytes(x) + nbytes(*ops[1:])
     return flops, moved
+
+
+def cab_yardstick(ops, ms: float, bms: float) -> None:
+    """B11's share of its bound, its ptxas line and its yardstick: the same
+    function as a sequence of bf16 PyTorch calls (``F.layer_norm``,
+    channels-last cuDNN ``F.conv2d``, the exact ``F.gelu``, ``F.conv2d``, the
+    sum; scripts/torch_time_conv_kernels.py), timed here and never on the
+    path, on the weights serving packed."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from torch_time_conv_kernels import cab_sequence
+
+    x, ln_w, ln_b, w1, b1, w2, b2 = ops
+    c, cm = x.shape[-1], b1.numel()
+    oihw = [unpack_cab_weights(w, *io, n) if w.dim() == 7 else w for w, io, n in ((w1, (c, cm), 64), (w2, (cm, c), 96))]
+    oihw = [w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last) for w in oihw]
+    yard = time_ms(lambda: cab_sequence(x, ln_w, ln_b, oihw[0], b1.to(x.dtype), oihw[1], b2.to(x.dtype)), iters=10)
+    log(f"  fused_cab_body: {100 * bms / ms:.1f} % of the bound; yardstick (bf16 PyTorch sequence) {yard:.3f} ms, "
+        f"kernel / yardstick {ms / yard:.3f}; {ptxas_report('fused_cab_body')}")
 
 
 def phase_hat_timing(model: HAT, dev: torch.device, errors: dict, launches: dict) -> list:
@@ -1464,6 +1488,8 @@ def phase_hat_timing(model: HAT, dev: torch.device, errors: dict, launches: dict
             w1, w2 = ((ops[3], ops[5]) if ops[5] is not None
                       else unpack_mlp_block(ops[3], ops[0].shape[-1], ops[4].numel()))  # the blob's weights
             yardstick_report(name, (*ops[:3], w1, ops[4], w2, ops[6]), ms, bms, dict(extra=ops[7], extra_scale=ops[8]))
+        elif name == "fused_cab_body":
+            cab_yardstick(ops, ms, bms)
     # B2 and B3 at HAT's shapes (their rows in the JSON line are SwinIR's)
     prep = model.serving_prep()
     gen = torch.Generator(device="cpu").manual_seed(SEED + 6)
@@ -1528,7 +1554,8 @@ def hat_train_kernel_cases(model: HAT, dev: torch.device, dtype: torch.dtype, ba
             return randn(bw, n, hh, d, scale=scale).transpose(1, 2)
 
         q, k, v, go = view(nq, 2 * d**-0.5), view(nk, 1.0), view(nk, 1.0), view(nq, 1.0)
-        bias = (torch.randn(hh, nq, nk, generator=gen) * 2.0).to(dev)
+        # the path's bias in its dtype, as the bf16 step gathers it from its bf16 table (B12 reads it so); f32 else
+        bias = (torch.randn(hh, nq, nk, generator=gen) * 2.0).to(dev, dtype if label == "path" else torch.float32)
         cases.append(("oca_core_fwd", label, oca_core_fwd, oca_core_plain, (q, k, v, bias)))
         cases.append(("oca_core_bwd", label, oca_core_bwd, oca_core_bwd_plain, (q, k, v, bias, go)))
     return cases
@@ -1661,6 +1688,9 @@ def phase_hat_train_timing(model: HAT, dev: torch.device, errors: dict, launches
             yardstick_report(name, ops, ms, bms, kw_of(label, HAT_MAIN["window_size"], TRAIN_BATCH, dev))
         elif name == "oca_core_bwd":
             yardstick_report(name, ops, ms, bms, {})
+        else:
+            log(f"  {name}: {100 * bms / ms:.1f} % of the bound; kernel / library {ms / library_ms:.3f}; "
+                f"{ptxas_report(name)}")
         source, replaces = KERNELS[name]
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches.get(name, 0),
                          max_abs_err=errors[name], ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,

@@ -43,11 +43,13 @@ warm-up launches:
   as a mask that takes a gradient, as (forward + backward) - forward, and
   the explicit formulas of the backward as a sequence of bf16 PyTorch calls
   (cuBLAS products, the softmax and its backward in f32);
-* as controls: B5, B7, B8, B9 (above), B12 (``oca_core_fwd`` at B13's
-  shapes) and B10 (``fused_ocab_block`` at HAT x4 serving's 256 x 256 map,
-  window 16, overlap 0.5).
+* B12 (``oca_core_fwd`` at B13's shapes) with the bias in f32 and in bf16
+  (as HAT's bf16 step gathers it from its bf16 table), beside
+  ``F.scaled_dot_product_attention`` with the bias as its mask;
+* as controls: B5, B7, B8, B9 (above) and B10 (``fused_ocab_block`` at HAT
+  x4 serving's 256 x 256 map, window 16, overlap 0.5).
 
-The per-pass split of B5, B6, B7, B8, B9 and B13: ``torch.profiler`` over 10 calls
+The per-pass split of B5, B6, B7, B8, B9, B12 and B13: ``torch.profiler`` over 10 calls
 gives the device time of every kernel a call enqueues, by name in launch
 order. Prints one
 JSON line: {"package": path, "card": nvidia-smi's name and power limit,
@@ -389,7 +391,13 @@ def measure() -> dict:
 
     q, k, v, go = view(256, 2 * 30**-0.5), view(576, 1.0), view(576, 1.0), view(256, 1.0)
     bias = randn(HEADS, 256, 576, scale=2.0)
+    bias16 = bias.to(bf)
+    engagement.reset()
     ms["oca_core_fwd"] = time_ms(lambda: oca_core_fwd(q, k, v, bias))
+    ms["oca_core_fwd bf16 bias"] = time_ms(lambda: oca_core_fwd(q, k, v, bias16))
+    entries["oca_core_fwd"] = engagement.entries().get("oca_core_fwd")
+    passes["oca_core_fwd"] = pass_split(lambda: oca_core_fwd(q, k, v, bias))
+    passes["oca_core_fwd bf16 bias"] = pass_split(lambda: oca_core_fwd(q, k, v, bias16))
     engagement.reset()
     ms["oca_core_bwd"] = time_ms(lambda: oca_core_bwd(q, k, v, bias, go))
     entries["oca_core_bwd"] = engagement.entries().get("oca_core_bwd")
@@ -399,6 +407,7 @@ def measure() -> dict:
     torch.cuda.empty_cache()
     mask = bias.to(bf)
     sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0), iters=10)
+    ms["oca_core_fwd library (SDPA)"] = sdpa_fwd
     leaves = [t.detach().requires_grad_() for t in (q, k, v, mask)]
 
     def sdpa_both():

@@ -14,17 +14,21 @@ weights laid out as the checkout's serving path lays them out (packed by
 ``pack_tail`` where the checkout has it, else HWIO), beside the same tail as
 a sequence of bf16 PyTorch calls (channels-last ``F.conv2d`` and
 ``F.pixel_shuffle``), B11
-(``fused_cab_body``, HAT serving's 256 x 256 x 180 map, 180 -> 60 -> 180) and
-B14 (``fused_resblock``, SwinFIR's 264 x 264 x 180 map, LeakyReLU 0.2, its
+(``fused_cab_body``, HAT serving's 256 x 256 x 180 map, 180 -> 60 -> 180,
+its convs packed once where the checkout has ``pack_cab_convs``, else HWIO)
+beside the same function as a sequence of bf16 PyTorch calls
+(``F.layer_norm``, channels-last cuDNN ``F.conv2d``, the exact ``F.gelu``,
+``F.conv2d``, the sum over the map), and B14 (``fused_resblock``, SwinFIR's 264 x 264 x 180 map, LeakyReLU 0.2, its
 weights packed as the checkout's serving path packs them where its B14
 takes packed weights, else HWIO) beside cuDNN's two convs + LeakyReLU +
 add, and B1 (``fused_swin_block``, the main path's 264 x 264 x 180 map, 6
 heads, hidden 360, shift 4, its weights packed once where the checkout has
 ``pack_swin_weights``, else dense).
 
-The per-pass split of B3 and B4: ``torch.profiler`` over 10 calls of each
-tail gives the device time of every kernel a call enqueues, in launch order
-(B3 is three passes: conv0, conv1, conv_last; B4 two: conv0, conv_last).
+The per-pass split of B3, B4 and B11: ``torch.profiler`` over 10 calls of
+each gives the device time of every kernel a call enqueues, in launch order
+(B3 is three passes: conv0, conv1, conv_last; B4 two: conv0, conv_last; B11
+four on the H100 route: LN, conv1, conv2, the sum).
 
 Prints one JSON line: {"package": path, "card": nvidia-smi's name and power
 limit, "ms": {kernel: ms}, "passes": {tail: [[kernel name, ms], ...]}}. The
@@ -101,6 +105,19 @@ def tail_sequence(x, w0, b0, *rest):
     return F.conv2d(y, convs[-2], convs[-1], padding=1).permute(0, 2, 3, 1)
 
 
+def cab_sequence(x, ln_w, ln_b, w1, b1, w2, b2):
+    """B11 as a sequence of bf16 PyTorch calls: ``F.layer_norm``,
+    channels-last ``F.conv2d`` (cuDNN), the exact ``F.gelu``, ``F.conv2d``
+    and the f32 sum over the map; x NHWC, weights OIHW channels-last."""
+    import torch
+    import torch.nn.functional as F
+
+    ln = F.layer_norm(x, (x.shape[-1],), ln_w.to(x.dtype), ln_b.to(x.dtype), 1e-5).permute(0, 3, 1, 2)
+    h1 = F.gelu(F.conv2d(ln, w1, b1, padding=1))
+    y2 = F.conv2d(h1, w2, b2, padding=1)
+    return y2.permute(0, 2, 3, 1), y2.sum(dim=(2, 3), dtype=torch.float32)
+
+
 def measure() -> dict:
     import torch
     import torch.nn.functional as F
@@ -142,6 +159,10 @@ def measure() -> dict:
         tail, tail_s = pack_tail(tail, 4), {s: pack_tail(t, s) for s, t in tail_s.items()}
     h = randn(1, 256, 256, 180).to(bf)
     cab = [1 + randn(180, scale=0.1), randn(180, scale=0.1), *conv_w(180, 60), *conv_w(60, 180)]
+    cab_seq = oihw(cab)
+    cab_seq[:2] = cab[:2]
+    if hasattr(conv3x3, "pack_cab_convs"):  # packed once, as serving holds them
+        cab[2], cab[4] = conv3x3.pack_cab_convs(cab[2], cab[4])
     res = [*conv_w(180, 180), *conv_w(180, 180)]
     res_oihw = [t.permute(3, 2, 0, 1).contiguous() if t.dim() == 4 else t.to(bf) for t in res]
     if "resblock_mma_bf16" in getattr(conv3x3, "_RES_SIGNATURES", {}):  # B14 reads packed weights
@@ -175,11 +196,14 @@ def measure() -> dict:
         **{f"fused_upsample_s x{s} sequence (bf16 conv2d x2 + pixel_shuffle)": time_ms(
             lambda s=s: tail_sequence(x64, *seq_s[s], s)) for s in (2, 3)},
         "fused_cab_body": time_ms(lambda: fused_cab_body(h, *cab)),
+        "fused_cab_body sequence (bf16 layer_norm, conv2d, gelu, conv2d, sum)": time_ms(
+            lambda: cab_sequence(h, *cab_seq)),
         "fused_resblock": time_ms(lambda: fused_resblock(x, *res, activation="lrelu0.2")),
         "fused_resblock library (cuDNN conv2d x2 + leaky_relu + add)": time_ms(resblock_library),
         "fused_swin_block": time_ms(lambda: fused_swin_block(x, *block, heads=heads, window_size=8, shift=4)),
     }
     passes = {name: pass_split(fn) for name, fn in tails.items()}
+    passes["fused_cab_body"] = pass_split(lambda: fused_cab_body(h, *cab))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     return {"package": studiosr_tpu_torch.__file__, "card": card, "ms": ms, "passes": passes}

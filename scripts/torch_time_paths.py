@@ -5,8 +5,8 @@
 
 Times, as ``chip_smoke.py`` does (CUDA events, 2 warm-up calls, seeded
 random weights at full width): the SwinIR x4, HAT x4, SwinFIR x4, MaxSR
-x4 (adaptive and static, the JAX package's ``build`` defaults) and SwinIR
-x2 and x3 forward
+x4 (adaptive and static, the JAX package's ``build`` defaults), SwinIR
+x2 and x3 and HAT x2 and x3 forward
 (bf16, batch 1, a 256 x 256 uint8 image, fused serving) over 5 forwards,
 and the SwinIR x4 and HAT x4 train step (``make_train_step``, bf16 over f32 masters, batch
 32 of 64 x 64 crops, fused_train) over 5 steps (``--only`` names a subset), and prints one JSON line:
@@ -50,14 +50,14 @@ def time_ms(fn, iters: int = 5, warmup: int = 2) -> float:
 
 
 def build(name: str, dev: torch.device, **kw):
-    if name.startswith("swinir"):  # "swinir", "swinir x2", "swinir x3"
-        scale = int(name[-1]) if name[-1].isdigit() else 4
+    scale = int(name[-1]) if name[-1].isdigit() else 4  # "swinir x2", "hat x3", ...
+    if name.startswith("swinir"):
         return SwinIR.build(**{**WIDTHS, "scale": scale}, window_size=8, seed=0, device=dev, **kw)
     if name == "swinfir":
         return SwinFIR.build(**WIDTHS, window_size=8, seed=0, device=dev, **kw)
     if name.startswith("maxsr"):
         return MaxSR.build(**MAXSR_WIDTHS, adaptive=name.endswith("adaptive"), seed=0, device=dev, **kw)
-    return HAT.build(**WIDTHS, **HAT_WIDTHS, seed=0, device=dev, **kw)
+    return HAT.build(**{**WIDTHS, "scale": scale}, **HAT_WIDTHS, seed=0, device=dev, **kw)
 
 
 def forward_ms(name: str, dev: torch.device) -> float:
@@ -84,7 +84,8 @@ def step_ms(name: str, dev: torch.device):
 
 
 PATHS = ("swinir forward", "swinir train step", "hat forward", "hat train step", "swinfir forward",
-         "maxsr adaptive forward", "maxsr static forward", "swinir x2 forward", "swinir x3 forward")
+         "maxsr adaptive forward", "maxsr static forward", "swinir x2 forward", "swinir x3 forward",
+         "hat x2 forward", "hat x3 forward")
 
 
 def main() -> None:

@@ -1,5 +1,5 @@
 // B11: HAT's CAB trunk with the squeeze-excite channel sums,
-//   y2 = conv2(gelu(conv1(LN x))),  sums[b, c] = sum over H, W of y2[b, :, :, c],
+//   y2 = res_scale conv2(gelu(conv1(LN x))),  sums[b, c] = sum over H, W of y2[b, :, :, c],
 // x (B, H, W, C), conv1 C -> Cm, conv2 Cm -> C, both 3x3 with zero SAME
 // padding of their own input (the LayerNorm output and h1 are zero outside
 // the image, as in the reference chain).
@@ -10,6 +10,10 @@
 // in f32 before y2 is rounded. The TPU kernel's row bands with halos and
 // their re-zeroed border rows were its way to keep the chain in VMEM; here
 // the zero padding is the conv kernel's own.
+//
+// f32 (the checks' dtype) and the bf16 geometries csrc/cab_mma.cu does not
+// take (C odd or above 192, Cm above 64) run this file; bf16 otherwise runs
+// the kernel written for the H100 there.
 //
 // Design (simple version, four launches through device memory): a
 // LayerNorm pass (one warp per pixel), conv1 with the GELU in its epilogue
@@ -61,14 +65,14 @@ extern "C" int cab_body_partials(int H, int W, int C) { return conv3x3_pixel_til
 template <typename T>
 static cudaError_t cab_body(const T* x, const float* ln_w, const float* ln_b, const T* w1, const float* b1,
                             const T* w2, const float* b2, T* ln, T* h1, float* psum, T* out, float* sums, int B,
-                            int H, int W, int C, int Cm, cudaStream_t s) {
+                            int H, int W, int C, int Cm, float res_scale, cudaStream_t s) {
   const long long rows = (long long)B * H * W;
   cab_ln_kernel<T><<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(x, ln_w, ln_b, ln, rows, C);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = launch_conv3x3<T, true>(ln, w1, b1, nullptr, h1, B, H, W, C, Cm, ACT_GELU, 0.f, 0, 0, s);
   if (err != cudaSuccess) return err;
-  err = launch_conv3x3<T, true>(h1, w2, b2, nullptr, out, B, H, W, Cm, C, ACT_NONE, 0.f, 0, 0, s, psum);
+  err = launch_conv3x3<T, true>(h1, w2, b2, nullptr, out, B, H, W, Cm, C, ACT_NONE, 0.f, 0, 0, s, psum, res_scale);
   if (err != cudaSuccess) return err;
   cab_sum_kernel<<<(B * C + 255) / 256, 256, 0, s>>>(psum, sums, B, conv3x3_pixel_tiles(H, W, C), C);
   return cudaGetLastError();
@@ -77,10 +81,10 @@ static cudaError_t cab_body(const T* x, const float* ln_w, const float* ln_b, co
 #define CAB_BODY_ENTRY(NAME, T)                                                                             \
   extern "C" int NAME(const void* x, const void* ln_w, const void* ln_b, const void* w1, const void* b1,    \
                       const void* w2, const void* b2, void* ln, void* h1, void* psum, void* out, void* sums, \
-                      int B, int H, int W, int C, int Cm, void* stream) {                                   \
+                      int B, int H, int W, int C, int Cm, float res_scale, void* stream) {                  \
     return (int)cab_body<T>((const T*)x, (const float*)ln_w, (const float*)ln_b, (const T*)w1,               \
                             (const float*)b1, (const T*)w2, (const float*)b2, (T*)ln, (T*)h1, (float*)psum,  \
-                            (T*)out, (float*)sums, B, H, W, C, Cm, (cudaStream_t)stream);                    \
+                            (T*)out, (float*)sums, B, H, W, C, Cm, res_scale, (cudaStream_t)stream);         \
   }
 
 CAB_BODY_ENTRY(cab_body_f32, float)

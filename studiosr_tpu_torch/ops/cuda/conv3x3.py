@@ -14,10 +14,16 @@ first, on every call); f32 the FMA kernel of ``csrc/conv3x3.cuh``
 (``conv3x3_f32``) on HWIO weights. ``engagement.entries()`` tells the two
 apart.
 
-Also B11, ``fused_cab_body`` (CUDA kernels ``csrc/cab_body.cu``): HAT's CAB
-trunk y2 = conv2(gelu(conv1(LN x))) with the per-image f32 channel sums of
-y2 that feed the squeeze-excite gate; and B14, ``fused_resblock`` (CUDA
-kernels ``csrc/resblock.cu``, replacing ``conv3x3.py::fused_resblock``):
+Also B11, ``fused_cab_body``: HAT's CAB trunk y2 = res_scale
+conv2(gelu(conv1(LN x))) with the per-image f32 channel sums of y2 that
+feed the squeeze-excite gate. bf16 with C even up to 192 and Cm up to 64
+(:func:`cab_mma_takes`) launches the kernel written for the H100
+(``csrc/cab_mma.cu``, C entry ``cab_body_mma_bf16``) on weights packed by
+:func:`pack_cab_weights` (serving packs them at load time, HWIO weights are
+packed per call); f32 and other bf16 geometries run ``csrc/cab_body.cu``
+(``cab_body_f32`` / ``cab_body_bf16``) on HWIO weights. And B14,
+``fused_resblock`` (CUDA kernels ``csrc/resblock.cu``, replacing
+``conv3x3.py::fused_resblock``):
 y = x + res_scale (conv2(act(conv1(x) + b1)) + b2), SwinFIR's SFB spatial
 branch, at any height (the JAX wrapper declines odd ones to two convs). In
 bf16 both of its passes run B2's kernel written for the H100 on packed
@@ -38,13 +44,18 @@ from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, F as CF, ch
 __all__ = [
     "fused_conv3x3", "conv3x3_plain", "prepare_conv3x3_weights", "pack_conv3x3_weights", "unpack_conv3x3_weights",
     "prepare_fused_conv3x3_weights", "parse_activation", "fused_cab_body", "cab_body_plain", "fused_resblock",
-    "resblock_plain",
+    "resblock_plain", "cab_mma_takes", "pack_cab_weights", "pack_cab_convs", "unpack_cab_weights", "packed_cab_shape",
+    "cab_partition",
 ]
 
 _ARGS = (P, P, P, P, P, I, I, I, I, I, I, CF, I, P)
 _SIGNATURES = {"conv3x3_f32": _ARGS, "conv3x3_mma_bf16": _ARGS}
-_CAB_ARGS = (P,) * 12 + (I,) * 5 + (P,)
+_CAB_ARGS = (P,) * 12 + (I,) * 5 + (CF, P)
 _CAB_SIGNATURES = {"cab_body_f32": _CAB_ARGS, "cab_body_bf16": _CAB_ARGS, "cab_body_partials": (I, I, I)}
+_CAB_MMA_SIGNATURES = {"cab_body_mma_bf16": _CAB_ARGS, "cab_body_mma_tiles": (I, I)}
+# csrc/cab_mma.cu: conv1's and conv2's columns a ring slot, input channels a
+# slot (K chunk), the pixel tile, the widest C and Cm
+_CAB_N1, _CAB_N2, _CAB_KC, _CAB_TILE, _CAB_MAX_C, _CAB_MAX_CM = 64, 96, 64, (16, 8), 192, 64
 _RES_ARGS = (P,) * 7 + (I,) * 5 + (CF, CF, P)
 _RES_SIGNATURES = {"resblock_f32": _RES_ARGS, "resblock_mma_bf16": _RES_ARGS}
 _ACT_CODES = {None: 0, "relu": 1, "lrelu": 2}  # shared with csrc/conv3x3.cuh
@@ -96,7 +107,7 @@ def unpack_conv3x3_weights(packed: torch.Tensor, cin: int, cout: int) -> torch.T
 def prepare_fused_conv3x3_weights(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """torch OIHW 3x3 conv weight -> B2's (and B14's) weight operand, laid
     out once at load time: packed for bf16 (the kernel's own layout), HWIO
-    otherwise. B11 takes :func:`prepare_conv3x3_weights`; B3 and B4 pack
+    otherwise. B11 packs its own (:func:`pack_cab_weights`); B3 and B4 pack
     theirs with ``upsampler.pack_tail``."""
     hwio = prepare_conv3x3_weights(weight, dtype)
     return pack_conv3x3_weights(hwio) if dtype == torch.bfloat16 else hwio
@@ -165,44 +176,126 @@ def fused_conv3x3(x, w, b, activation: Optional[str] = None, residual: bool = Fa
     return out
 
 
-def cab_body_plain(x, ln_w, ln_b, w1, b1, w2, b2):
+def cab_mma_takes(c: int, cm: int) -> bool:
+    """Whether B11's bf16 kernel written for the H100 takes this geometry: C
+    even up to 192 (conv1's K, 64 a slot, at most three slots a tap; conv2's
+    columns in pairs), Cm up to 64 (conv1's N)."""
+    return 2 <= c <= _CAB_MAX_C and c % 2 == 0 and 1 <= cm <= _CAB_MAX_CM
+
+
+def packed_cab_shape(cin: int, cout: int, nc: int) -> Tuple[int, ...]:
+    """(column chunks of nc, 9 taps, K chunks of 64 input channels, 8 groups
+    of 8 input channels, nc / 8 groups of 8 columns, 8 columns, 8 input
+    channels)."""
+    return (-(-cout // nc), 9, -(-cin // _CAB_KC), _CAB_KC // 8, nc // 8, 8, 8)
+
+
+def pack_cab_weights(w: torch.Tensor, nc: int) -> torch.Tensor:
+    """HWIO (3, 3, Cin, Cout) -> the bf16 layout of B11's weight ring (conv1
+    ``nc`` 64, conv2 96): for each chunk of ``nc`` output columns, each tap
+    and each chunk of 64 input channels, the image of a ring slot, wgmma's
+    K-major operand: element (column n, input channel k) at [k / 8, n / 8, n
+    % 8, k % 8], zero past Cin and Cout."""
+    _, _, cin, cout = w.shape
+    nchunk, _, kch, kg, ng, _, _ = packed_cab_shape(cin, cout, nc)
+    wt = F.pad(w.detach().to(torch.bfloat16).reshape(9, cin, cout), (0, nchunk * nc - cout, 0, kch * _CAB_KC - cin))
+    wt = wt.reshape(9, kch, kg, 8, nchunk, ng, 8)  # tap, K chunk, k / 8, k % 8, chunk, n / 8, n % 8
+    return wt.permute(4, 0, 1, 2, 5, 6, 3).contiguous()
+
+
+def pack_cab_convs(w1: torch.Tensor, w2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B11's two HWIO convs packed as its bf16 kernel reads them: conv1 in
+    chunks of 64 columns, conv2 of 96."""
+    return pack_cab_weights(w1, _CAB_N1), pack_cab_weights(w2, _CAB_N2)
+
+
+def unpack_cab_weights(packed: torch.Tensor, cin: int, cout: int, nc: int) -> torch.Tensor:
+    """Inverse of :func:`pack_cab_weights`: HWIO (3, 3, Cin, Cout)."""
+    shape = packed_cab_shape(cin, cout, nc)
+    if tuple(packed.shape) != shape:
+        raise ValueError(f"packed weights {tuple(packed.shape)} do not fit Cin {cin}, Cout {cout}: expected {shape}")
+    nchunk, _, kch, _, ng, _, _ = shape
+    wt = packed.permute(1, 2, 3, 6, 0, 4, 5).reshape(9, kch * _CAB_KC, nchunk * ng * 8)
+    return wt[:, :cin, :cout].reshape(3, 3, cin, cout)
+
+
+def cab_partition(h: int, w: int):
+    """B11's pixel tiles as the H100 kernel's blocks take them: tile i (block
+    i of an image, the partials' middle index) is the 16 x 8 pixels from
+    (y0, x0) = (16 (i // ceil(W / 8)), 8 (i % ceil(W / 8))), clipped to the
+    map. Returns [(y0, y1, x0, x1)] in tile order."""
+    th, tw = _CAB_TILE
+    tiles_w = -(-w // tw)
+    return [(th * (i // tiles_w), min(th * (i // tiles_w) + th, h), tw * (i % tiles_w), min(tw * (i % tiles_w) + tw, w))
+            for i in range(-(-h // th) * tiles_w)]
+
+
+def _cab_hwio(w: torch.Tensor, cin: int, cout: int, nc: int) -> torch.Tensor:
+    return unpack_cab_weights(w, cin, cout, nc) if w.dim() == 7 else w
+
+
+def cab_body_plain(x, ln_w, ln_b, w1, b1, w2, b2, res_scale: float = 1.0):
     """Plain PyTorch version of B11, computed in f32: returns (y2 in
-    ``x.dtype``, f32 (B, C) sums of y2 over H and W). The convs zero-pad
-    the LayerNorm output and h1, as HAT's CAB does."""
-    ln = F.layer_norm(x.float(), (x.shape[-1],), ln_w.float(), ln_b.float(), 1e-5)
-    h1 = F.gelu(conv3x3_plain(ln, w1, b1))
-    y2 = conv3x3_plain(h1, w2, b2)
+    ``x.dtype``, f32 (B, C) sums of y2 over H and W), y2 = res_scale (conv2
+    + b2). The convs zero-pad the LayerNorm output and h1, as HAT's CAB does;
+    weights HWIO or packed."""
+    c, cm = x.shape[-1], b1.shape[0]
+    ln = F.layer_norm(x.float(), (c,), ln_w.float(), ln_b.float(), 1e-5)
+    h1 = F.gelu(conv3x3_plain(ln, _cab_hwio(w1, c, cm, _CAB_N1), b1))
+    y2 = res_scale * conv3x3_plain(h1, _cab_hwio(w2, cm, c, _CAB_N2), b2)
     return y2.to(x.dtype), y2.sum(dim=(1, 2))
 
 
-def fused_cab_body(x, ln_w, ln_b, w1, b1, w2, b2):
+def _cab_weights(w: torch.Tensor, name: str, cin: int, cout: int, nc: int, dev: torch.device) -> torch.Tensor:
+    """A conv's weights as B11's bf16 kernel reads them (HWIO packed on the way)."""
+    if w.dim() == 4:
+        check(w, name, (3, 3, cin, cout), torch.bfloat16, dev)
+        w = pack_cab_weights(w, nc)
+    check(w, name, packed_cab_shape(cin, cout, nc), torch.bfloat16, dev)
+    return w
+
+
+def fused_cab_body(x, ln_w, ln_b, w1, b1, w2, b2, res_scale: float = 1.0):
     """B11: (B, H, W, C) block input -> (y2 (B, H, W, C), channel sums (B, C)
     f32). ``w1`` (3, 3, C, Cm) and ``w2`` (3, 3, Cm, C) HWIO in the map's
-    dtype; LayerNorm weights and conv biases f32. CPU tensors take the plain
-    version; CUDA tensors launch the kernels or raise."""
+    dtype, or in bf16 packed by :func:`pack_cab_weights` (conv1 in chunks of
+    64 columns, conv2 of 96); LayerNorm weights and conv biases f32. CPU
+    tensors take the plain version; CUDA tensors launch the kernels or
+    raise."""
     if x.device.type == "cpu":
-        return cab_body_plain(x, ln_w, ln_b, w1, b1, w2, b2)
+        return cab_body_plain(x, ln_w, ln_b, w1, b1, w2, b2, res_scale)
     if x.dtype not in KERNEL_DTYPES:
         raise TypeError(f"fused_cab_body: unsupported dtype {x.dtype}")
     bsz, h, wd, c = x.shape
-    cm = w1.shape[-1]
+    cm = b1.shape[0]
     dev, dt, f32 = x.device, x.dtype, torch.float32
+    mma = dt == torch.bfloat16 and cab_mma_takes(c, cm)
+    if mma:  # kept alive until the launch is enqueued
+        w1, w2 = _cab_weights(w1, "w1", c, cm, _CAB_N1, dev), _cab_weights(w2, "w2", cm, c, _CAB_N2, dev)
     ptrs = [
         check(x, "x", (bsz, h, wd, c), dt, dev),
         check(ln_w, "ln_w", (c,), f32, dev), check(ln_b, "ln_b", (c,), f32, dev),
-        check(w1, "w1", (3, 3, c, cm), dt, dev), check(b1, "b1", (cm,), f32, dev),
-        check(w2, "w2", (3, 3, cm, c), dt, dev), check(b2, "b2", (c,), f32, dev),
+        w1.data_ptr() if mma else check(w1, "w1", (3, 3, c, cm), dt, dev), check(b1, "b1", (cm,), f32, dev),
+        w2.data_ptr() if mma else check(w2, "w2", (3, 3, cm, c), dt, dev), check(b2, "b2", (c,), f32, dev),
     ]
-    lib = _build.load("cab_body", _CAB_SIGNATURES)
-    ln = torch.empty_like(x)
-    h1 = torch.empty((bsz, h, wd, cm), dtype=dt, device=dev)
-    partials = torch.empty((bsz, lib.cab_body_partials(h, wd, c), c), dtype=f32, device=dev)
     out = torch.empty_like(x)
     sums = torch.empty((bsz, c), dtype=f32, device=dev)
-    fn = lib.cab_body_bf16 if dt == torch.bfloat16 else lib.cab_body_f32
-    status = fn(*ptrs, ln.data_ptr(), h1.data_ptr(), partials.data_ptr(), out.data_ptr(), sums.data_ptr(),
-                bsz, h, wd, c, cm, stream(dev))
-    finish("fused_cab_body", status)
+    if mma:
+        lib = _build.load("cab_mma", _CAB_MMA_SIGNATURES)
+        ln = torch.empty((bsz, h, wd, -(-c // _CAB_KC) * _CAB_KC), dtype=dt, device=dev)
+        h1 = torch.empty((bsz, h, wd, _CAB_N1), dtype=dt, device=dev)
+        tiles = lib.cab_body_mma_tiles(h, wd)
+        entry = "cab_body_mma_bf16"
+    else:
+        lib = _build.load("cab_body", _CAB_SIGNATURES)
+        ln = torch.empty_like(x)
+        h1 = torch.empty((bsz, h, wd, cm), dtype=dt, device=dev)
+        tiles = lib.cab_body_partials(h, wd, c)
+        entry = "cab_body_bf16" if dt == torch.bfloat16 else "cab_body_f32"
+    partials = torch.empty((bsz, tiles, c), dtype=f32, device=dev)
+    status = getattr(lib, entry)(*ptrs, ln.data_ptr(), h1.data_ptr(), partials.data_ptr(), out.data_ptr(),
+                                 sums.data_ptr(), bsz, h, wd, c, cm, float(res_scale), stream(dev))
+    finish("fused_cab_body", status, entry)
     return out, sums
 
 

@@ -1,5 +1,5 @@
 """B12 and B13: the OCAB cross-attention core, forward and backward (CUDA kernels ``csrc/oca_core.cu``;
-B13 in bf16 ``csrc/oca_bwd_mma.cu``).
+in bf16 ``csrc/oca_fwd_mma.cu`` and ``csrc/oca_bwd_mma.cu``).
 
 Replaces ``studiosr_tpu/ops/pallas/oca_core.py::oca_core_fwd`` (B12) and
 ``::oca_core_bwd`` (B13). On q (bw, heads, nq, d), already scaled by
@@ -16,15 +16,21 @@ as transposed views of (bw, tokens, heads, d) tensors, the layout the OCAB
 reads them in. The kernels take head dims up to 64 and at most 256 queries
 a window (the backward keeps a (nq, 64) f32 d bias tile in shared memory).
 
-Routing of B13, by dtype and geometry, never by a failure: bf16 with a head
-dim up to 32, at most 256 queries and 576 keys (:func:`mma_takes`) launches
-the kernel written for the H100, ``csrc/oca_bwd_mma.cu`` (C entry
+Routing of B12 and B13, by dtype and geometry, never by a failure: bf16
+with a head dim up to 32, at most 256 queries and 576 keys
+(:func:`mma_takes`) launches the kernels written for the H100. B12:
+``csrc/oca_fwd_mma.cu`` (C entry ``oca_core_fwd_mma_bf16``), a pass that
+packs q, k and v into wgmma's 64-token images (:func:`pack_fwd_images` is its
+plain version, :func:`fwd_from_images` the forward read from them), then the
+attention per (window, head, pair of query tiles); a bias handed in bf16 is
+read as it is, any other in f32. B13: ``csrc/oca_bwd_mma.cu`` (C entry
 ``oca_core_bwd_mma_bf16``): a pass that packs q, g, k and v into wgmma's
 K-major 64-token tiles (:func:`pack_images` is its plain version), the row
 statistics, then p, dscores and the sums per (head, key chunk, group of
 windows) (:func:`main_partition` mirrors the blocks' partition). Other bf16
-geometries and f32 launch ``oca_core_bwd_bf16`` / ``_f32``. Each launch is
-counted under its C entry (``engagement.entries()``).
+geometries and f32 launch ``oca_core_fwd_bf16`` / ``_f32`` and
+``oca_core_bwd_bf16`` / ``_f32``. Each launch is counted under its C entry
+(``engagement.entries()``).
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ from studiosr_tpu_torch.ops.cuda.window_attention import MAX_HEAD_DIM
 
 __all__ = [
     "oca_core_fwd", "oca_core_bwd", "oca_core_plain", "oca_core_bwd_plain", "MAX_QUERIES", "mma_takes", "pack_images",
-    "main_partition",
+    "main_partition", "pack_fwd_images", "fwd_from_images",
 ]
 
 MAX_QUERIES = 256  # csrc/attn_core.cuh AC_MAX_NQ
@@ -55,22 +61,48 @@ _SIGNATURES = {
     "oca_core_bwd_scratch": (I, I, I, I),
 }
 _RESTYPES = {"oca_core_bwd_scratch": _LL}
+_SIGNATURES_FWD_MMA = {
+    "oca_core_fwd_mma_bf16": (P, P, P, P, P, _STRIDES, I, I, I, I, I, I, P, _LL, P),
+    "oca_core_fwd_mma_scratch": (I,) * 5 + (ctypes.POINTER(_LL),),
+}
 _SIGNATURES_MMA = {
     "oca_core_bwd_mma_bf16": (P,) * 9 + (_STRIDES, I, I, I, I, I, P, _LL, P, _LL, P),
     "oca_core_bwd_mma_scratch": (I,) * 5 + (ctypes.POINTER(_LL), ctypes.POINTER(_LL)),
 }
-MMA_MAX_QUERIES, MMA_MAX_KEYS, MMA_MAX_HEAD_DIM = 256, 576, 32  # csrc/oca_bwd_mma.cu OB_MAX_NQ, OB_MAX_NK
+MMA_MAX_QUERIES, MMA_MAX_KEYS, MMA_MAX_HEAD_DIM = 256, 576, 32  # csrc/oca_*_mma.cu O*_MAX_NQ, O*_MAX_NK
 _TOK = 64  # tokens a tile (AM_TOK)
+# csrc/oca_fwd_mma.cu of_perm: the key a chunk's image position p = 8 nt + 2 tq + e holds (16 tq + 2 nt + e)
+_KEY_PERM = [16 * ((p % 8) // 2) + 2 * (p // 8) + p % 2 for p in range(_TOK)]
 
 
 def mma_takes(heads: int, nq: int, nk: int, d: int) -> bool:
-    """Whether the bf16 backward written for the H100 takes this geometry: a
-    head dim up to 32, at most 256 queries and 576 keys a window."""
+    """Whether the bf16 forward and backward written for the H100 take this
+    geometry: a head dim up to 32, at most 256 queries and 576 keys a
+    window."""
     return heads >= 1 and 1 <= d <= MMA_MAX_HEAD_DIM and 1 <= nq <= MMA_MAX_QUERIES and 1 <= nk <= MMA_MAX_KEYS
 
 
 def _tiles(n: int) -> int:
     return -(-n // _TOK)
+
+
+def _kmajor_tiles(t, n: int, dp: int, token_major: bool = False, permuted: bool = False) -> torch.Tensor:
+    """(bw, heads, n, d) -> (bw * heads, elements) of whole 64-token tiles
+    in wgmma's core-matrix image, zero past n and d: image position t,
+    column j at (t // 8) DP 8 + (j // 8) 64 + (t % 8) 8 + j % 8 (K-major in
+    d), or with ``token_major`` at (j // 8) 512 + (t // 8) 64 + (j % 8) 8 + t
+    % 8 (K-major in the tokens). Position t holds token t of the tile, or
+    with ``permuted`` token ``_KEY_PERM[t]``."""
+    bw, heads, _, d = t.shape
+    tiles = _tiles(n)
+    padded = t.new_zeros(bw, heads, tiles * _TOK, dp)
+    padded[:, :, :n, :d] = t
+    if permuted:
+        padded = padded.reshape(bw, heads, tiles, _TOK, dp)[:, :, :, _KEY_PERM].reshape(bw, heads, -1, dp)
+    # (unit, tile, token group, token in group, column group, column in group)
+    x = padded.reshape(bw * heads, tiles, _TOK // 8, 8, dp // 8, 8)
+    order = (0, 1, 4, 2, 5, 3) if token_major else (0, 1, 2, 4, 3, 5)
+    return x.permute(*order).reshape(bw * heads, -1)
 
 
 def pack_images(q, k, v, g) -> torch.Tensor:
@@ -80,18 +112,53 @@ def pack_images(q, k, v, g) -> torch.Tensor:
     wgmma's K-major core-matrix image: token t, column j at (t // 8) DP 8 +
     (j // 8) 64 + (t % 8) 8 + j % 8, zero past the tokens and past d.
     Returns (bw * heads, unit elements) in q's dtype."""
-    bw, heads, nq, d = q.shape
-    nk = k.shape[2]
+    nq, nk, d = q.shape[2], k.shape[2], q.shape[3]
     dp = 16 if d <= 16 else 32
-    parts = []
-    for t, n in ((q, nq), (g, nq), (k, nk), (v, nk)):
-        tiles = _tiles(n)
-        padded = t.new_zeros(bw, heads, tiles * _TOK, dp)
-        padded[:, :, :n, :d] = t
-        # (unit, tile, token group, token in group, column group, column in group)
-        x = padded.reshape(bw * heads, tiles, _TOK // 8, 8, dp // 8, 8)
-        parts.append(x.permute(0, 1, 2, 4, 3, 5).reshape(bw * heads, -1))
-    return torch.cat(parts, 1)
+    return torch.cat([_kmajor_tiles(t, n, dp) for t, n in ((q, nq), (g, nq), (k, nk), (v, nk))], 1)
+
+
+def pack_fwd_images(q, k, v) -> torch.Tensor:
+    """Plain version of the H100 forward's pass 0 (``of_pack_kernel``): per
+    (window, head) unit, q in ceil(nq / 64) tiles and k in ceil(nk / 64)
+    chunks, K-major in d as :func:`pack_images` lays them (position t,
+    column j at (t // 8) DP 8 + (j // 8) 64 + (t % 8) 8 + j % 8), then v in
+    ceil(nk / 64) chunks K-major in the tokens (the B operand of p v):
+    position t, column j at (j // 8) 512 + (t // 8) 64 + (j % 8) 8 + t % 8.
+    64 tokens x DP (16 at d <= 16, else 32) a tile, zero past the tokens and
+    past d. q's position t holds its token t; k's and v's position t = 8 nt +
+    2 tq + e of a chunk holds its key 16 tq + 2 nt + e, so the kernel's lane
+    quad tq finds its score columns' bias in 16 consecutive keys. Returns
+    (bw * heads, unit elements) in q's dtype."""
+    nq, nk, d = q.shape[2], k.shape[2], q.shape[3]
+    dp = 16 if d <= 16 else 32
+    return torch.cat([_kmajor_tiles(q, nq, dp), _kmajor_tiles(k, nk, dp, permuted=True),
+                      _kmajor_tiles(v, nk, dp, True, True)], 1)
+
+
+def fwd_from_images(img, bias, bw: int, heads: int, nq: int, nk: int, d: int):
+    """The forward as the H100 kernel reads its operands: q, k and v taken
+    back from the images of :func:`pack_fwd_images` (d's padding included, so a
+    misplaced element there changes the result), then :func:`oca_core_plain`.
+    Returns (bw, heads, nq, d)."""
+    dp = 16 if d <= 16 else 32
+    qt, kt = _tiles(nq), _tiles(nk)
+    units = img.reshape(bw * heads, qt + 2 * kt, _TOK * dp)
+
+    def back(part, n: int, token_major: bool = False, permuted: bool = False):
+        tiles = part.shape[1]
+        if token_major:  # (unit, tile, j // 8, t // 8, j % 8, t % 8)
+            x = part.reshape(bw * heads, tiles, dp // 8, 8, 8, 8).permute(0, 1, 3, 5, 2, 4)
+        else:  # (unit, tile, t // 8, j // 8, t % 8, j % 8)
+            x = part.reshape(bw * heads, tiles, 8, dp // 8, 8, 8).permute(0, 1, 2, 4, 3, 5)
+        x = x.reshape(bw, heads, tiles, _TOK, dp)
+        if permuted:  # position t holds key _KEY_PERM[t]
+            x = x[:, :, :, sorted(range(_TOK), key=_KEY_PERM.__getitem__)]
+        return x.reshape(bw, heads, tiles * _TOK, dp)[:, :, :n]
+
+    q = back(units[:, :qt], nq)
+    k = back(units[:, qt:qt + kt], nk, permuted=True)
+    v = back(units[:, qt + kt:], nk, True, True)
+    return oca_core_plain(q, k, v, bias)[..., :d]
 
 
 def _groups(bw: int, heads: int, kt: int, sms: int) -> int:
@@ -184,14 +251,30 @@ def oca_core_fwd(q, k, v, bias):
         return oca_core_plain(q, k, v, bias)
     bw, heads, nq, nk, d = _geometry("oca_core_fwd", q, k, v)
     q, k, v = _rows(q), _rows(k), _rows(v)
-    b32 = operand(bias, "bias", (heads, nq, nk), torch.float32, q.device)
+    dev = q.device
     out = _out(bw, heads, nq, d, q)
-    lib = _build.load("oca_core", _SIGNATURES, _RESTYPES)
-    fn = lib.oca_core_fwd_bf16 if q.dtype == torch.bfloat16 else lib.oca_core_fwd_f32
     strides = _strides(q, k, v, None, out, None, None, None)
-    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), b32.data_ptr(), out.data_ptr(), strides, bw, heads, nq, nk,
-                d, stream(q.device))
-    finish("oca_core_fwd", status)
+    if q.dtype == torch.bfloat16 and mma_takes(heads, nq, nk, d):
+        # a bf16 bias is read as it is (the same values as in f32, half the bytes); any other in f32
+        bdt = torch.bfloat16 if torch.is_tensor(bias) and bias.dtype == torch.bfloat16 else torch.float32
+        b = operand(bias, "bias", (heads, nq, nk), bdt, dev)
+        lib = _build.load("oca_fwd_mma", _SIGNATURES_FWD_MMA)
+        t_elems = _LL()
+        status = lib.oca_core_fwd_mma_scratch(bw, heads, nq, nk, d, ctypes.byref(t_elems))
+        if status != 0:
+            raise RuntimeError(f"oca_core_fwd: CUDA error {status} while sizing the scratch")
+        tscratch = torch.empty(t_elems.value, dtype=q.dtype, device=dev)
+        entry = "oca_core_fwd_mma_bf16"
+        status = lib.oca_core_fwd_mma_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                           strides, int(bdt == torch.bfloat16), bw, heads, nq, nk, d,
+                                           tscratch.data_ptr(), t_elems.value, stream(dev))
+    else:
+        b = operand(bias, "bias", (heads, nq, nk), torch.float32, dev)
+        lib = _build.load("oca_core", _SIGNATURES, _RESTYPES)
+        entry = "oca_core_fwd_bf16" if q.dtype == torch.bfloat16 else "oca_core_fwd_f32"
+        status = getattr(lib, entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(), b.data_ptr(), out.data_ptr(), strides,
+                                     bw, heads, nq, nk, d, stream(dev))
+    finish("oca_core_fwd", status, entry)
     return out
 
 

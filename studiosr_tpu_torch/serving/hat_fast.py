@@ -6,7 +6,9 @@ Port of ``studiosr_tpu/serving/hat_fast.py``: the exact HAT eval computation
 * B11 (``ops/cuda/conv3x3.py::fused_cab_body``) runs the CAB trunk on the
   block input, y2 = conv2(gelu(conv1(LN1 x))), with the per-image channel
   sums of y2; the squeeze-excite gate g = sigmoid(conv(relu(conv(mean))))
-  runs in plain ops, mean = sums / (H W) of the padded map;
+  runs in plain ops, mean = sums / (H W) of the padded map; in bf16 its two
+  convs are packed once, at load time, for the kernel written for the H100
+  (``pack_cab_convs``, where ``cab_mma_takes`` the geometry);
 * B5 at window 16 (``ops/cuda/window_attention.py``) computes
   y = x + attn(LN1 x), the shift folded in and the output aligned, so the
   JAX path's rolls have no counterpart; in bf16 its weights and bias are
@@ -37,7 +39,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from studiosr_tpu_torch.models.blocks import DEFAULT_RGB_MEAN
-from studiosr_tpu_torch.ops.cuda.conv3x3 import fused_cab_body, fused_conv3x3
+from studiosr_tpu_torch.ops.cuda.conv3x3 import cab_mma_takes, fused_cab_body, fused_conv3x3, pack_cab_convs
 from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mma_takes as mlp_mma_takes, pack_mlp_block
 from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block
 from studiosr_tpu_torch.ops.cuda.window_attention import fused_window_attention_block, mma_takes, pack_window_attention
@@ -60,9 +62,9 @@ def _ln(norm: nn.LayerNorm, prefix: str = "ln") -> Dict[str, torch.Tensor]:
 
 def prepare_hat_serving(module: nn.Module, config: Dict[str, Any], dtype) -> Dict[str, Any]:
     """Lay every kernel's weights out once, at load time: dense weights to
-    (in, out) and conv weights to HWIO in ``dtype`` (B2's packed in bf16, and
-    B5's q|k|v, proj and rel-pos bias in one blob, B6's fc1 and fc2 in
-    another), the rel-pos biases
+    (in, out) and conv weights to HWIO in ``dtype`` (B2's and B11's packed in
+    bf16, and B5's q|k|v, proj and rel-pos bias in one blob, B6's fc1 and fc2
+    in another), the rel-pos biases
     gathered to (heads, 256, 256) and (heads, 256, 576), LayerNorm weights
     and biases f32. Consumed by :func:`hat_fast_forward`."""
     ws = int(config["window_size"])
@@ -76,6 +78,8 @@ def prepare_hat_serving(module: nn.Module, config: Dict[str, Any], dtype) -> Dic
             a, cab = blk.attn, blk.conv_block.cab._modules
             w1, b1 = _conv_operands(cab["0"], dtype)
             w2, b2 = _conv_operands(cab["2"], dtype)
+            if dtype == torch.bfloat16 and cab_mma_takes(w1.shape[2], w1.shape[3]):
+                w1, w2 = pack_cab_convs(w1, w2)
             attn = dict(**_ln(blk.norm1), wqkv=_dense(a.qkv, dtype), bqkv=_f32(a.qkv.bias),
                         wproj=_dense(a.proj, dtype), bproj=_f32(a.proj.bias),
                         bias=gather_rel_bias(_f32(a.relative_position_bias_table), rpi, heads).contiguous())

@@ -419,6 +419,59 @@ def test_cab_body_kernel_matches_plain(dev, dtype, c, cm, shape):
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])  # no atomics: bitwise repeatable
 
 
+def _cab_operands(gen, c, cm, dev, dtype):
+    ops = [1 + _randn(gen, c, scale=0.1), _randn(gen, c, scale=0.1), _randn(gen, 3, 3, c, cm, scale=(9 * c) ** -0.5),
+           _randn(gen, cm, scale=0.1), _randn(gen, 3, 3, cm, c, scale=(9 * cm) ** -0.5), _randn(gen, c, scale=0.1)]
+    return [t.to(dev, dtype if t.dim() == 4 else torch.float32) for t in ops]
+
+
+# B11 in bf16 on the kernel written for the H100 (``csrc/cab_mma.cu``): HAT
+# serving's 256 x 256 x 180 (Cm 60), a ragged batch of two, the trained
+# fixtures' narrow widths (C 24, Cm 8), C 120 (two K chunks), odd Cm and a
+# map narrower than a tile; res_scale 1 and not.
+H100_CAB_CASES = [((1, 256, 256, 180), 60, 1.0), ((2, 37, 53, 180), 60, 0.5), ((1, 20, 28, 24), 8, 1.0),
+                  ((2, 13, 21, 32), 10, 1.0), ((1, 16, 40, 120), 40, 2.0), ((1, 5, 7, 16), 5, 1.0)]
+
+
+@pytest.mark.parametrize("shape,cm,res_scale", H100_CAB_CASES)
+def test_cab_body_h100_kernel_matches_plain(dev, shape, cm, res_scale):
+    """Against the plain version in f32; the weights packed at load time give
+    the bits of HWIO weights; two launches the same bits (no atomic sums)."""
+    from studiosr_tpu_torch.ops.cuda.conv3x3 import pack_cab_convs
+
+    c = shape[-1]
+    gen = torch.Generator().manual_seed(sum(shape) + cm)
+    x = _randn(gen, *shape).to(dev, torch.bfloat16)
+    ops = _cab_operands(gen, c, cm, dev, torch.bfloat16)
+    w1, w2 = pack_cab_convs(ops[2], ops[4])
+    engagement.reset()
+    got = fused_cab_body(x, *ops, res_scale=res_scale)
+    again = fused_cab_body(x, *ops, res_scale=res_scale)
+    packed = fused_cab_body(x, ops[0], ops[1], w1, ops[3], w2, ops[5], res_scale=res_scale)
+    assert engagement.entries() == {"fused_cab_body": {"cab_body_mma_bf16": 3}}
+    want = cab_body_plain(x.float(), *[t.float() for t in ops], res_scale=res_scale)
+    for a, e in zip(got, want):
+        assert a.shape == e.shape
+        _assert_close(a, e, torch.bfloat16)
+    assert all(torch.equal(a, b) and torch.equal(a, p) for a, b, p in zip(got, again, packed))
+
+
+def test_cab_body_routes_by_dtype_and_geometry(dev):
+    """f32, and bf16 outside the H100 kernel's geometry (C 200, Cm 72, odd
+    C), take cab_body.cu; res_scale reaches both routes."""
+    gen = torch.Generator().manual_seed(5)
+    engagement.reset()
+    for dtype, c, cm in ((torch.float32, 32, 10), (torch.bfloat16, 200, 20), (torch.bfloat16, 32, 72),
+                         (torch.bfloat16, 33, 10)):
+        x = _randn(gen, 1, 9, 11, c).to(dev, dtype)
+        ops = _cab_operands(gen, c, cm, dev, dtype)
+        got = fused_cab_body(x, *ops, res_scale=0.25)
+        want = cab_body_plain(x.float(), *[t.float() for t in ops], res_scale=0.25)
+        for a, e in zip(got, want):
+            _assert_close(a, e, dtype)
+    assert engagement.entries() == {"fused_cab_body": {"cab_body_f32": 1, "cab_body_bf16": 3}}
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize(
     "c,heads,shape,shift",
@@ -760,6 +813,51 @@ def test_mlp_block_h100_kernel_matches_plain(dev, c, hidden, rows, rows_per_samp
     assert torch.equal(got, again) and torch.equal(got, packed)
     if rows_per_sample and mode is None:
         assert torch.equal(got[:rows_per_sample], x[:rows_per_sample])  # a dropped sample passes through exactly
+
+
+# B12 in bf16 on the kernel written for the H100 (``csrc/oca_fwd_mma.cu``):
+# HAT's step (512 windows) and batch 4 (64), 37 windows, the trained
+# fixtures' 64 | 144 at d 16, ragged tiles at d 24, an odd d, an odd count of
+# query tiles (three: the pair's second warpgroup idles on the last).
+H100_OCA_FWD_CASES = [(512, 6, 256, 576, 30), (64, 6, 256, 576, 30), (37, 6, 256, 576, 30), (16, 2, 64, 144, 16),
+                      (5, 3, 200, 300, 24), (3, 2, 100, 70, 7), (4, 2, 150, 100, 16)]
+
+
+@pytest.mark.parametrize("bw,heads,nq,nk,d", H100_OCA_FWD_CASES)
+def test_oca_core_fwd_h100_kernel_matches_plain(dev, bw, heads, nq, nk, d):
+    """Against the plain version in f32; a bias handed in bf16 is read as it
+    is and gives the bits of the same values handed in f32; two launches the
+    same bits; contiguous operands the bits of the OCAB's strided views."""
+    from studiosr_tpu_torch.ops.cuda.oca_core import oca_core_fwd, oca_core_plain
+
+    gen = torch.Generator().manual_seed(bw + nq + nk + d)
+    q, k, v, bias, _ = _oca_case(gen, bw, heads, nq, nk, d, dev, torch.bfloat16)
+    b16 = bias.to(torch.bfloat16)
+    engagement.reset()
+    got = oca_core_fwd(q, k, v, bias)
+    again = oca_core_fwd(q, k, v, bias)
+    half = oca_core_fwd(q, k, v, b16)
+    same = oca_core_fwd(q, k, v, b16.float())
+    dense = oca_core_fwd(q.contiguous(), k.contiguous(), v.contiguous(), bias)
+    assert engagement.entries() == {"oca_core_fwd": {"oca_core_fwd_mma_bf16": 5}}
+    _assert_close(got, oca_core_plain(q.float(), k.float(), v.float(), bias), torch.bfloat16)
+    _assert_close(half, oca_core_plain(q.float(), k.float(), v.float(), b16.float()), torch.bfloat16)
+    assert got.shape == (bw, heads, nq, d) and got.transpose(1, 2).is_contiguous()
+    assert torch.equal(got, again) and torch.equal(half, same) and torch.equal(got, dense)
+
+
+def test_oca_core_fwd_routes_by_dtype_and_geometry(dev):
+    """f32, and bf16 outside the H100 kernel's geometry (d 48), take the
+    older entries; bf16 inside it the new one."""
+    from studiosr_tpu_torch.ops.cuda.oca_core import oca_core_fwd, oca_core_plain
+
+    gen = torch.Generator().manual_seed(3)
+    engagement.reset()
+    for dtype, d in ((torch.float32, 30), (torch.bfloat16, 48), (torch.bfloat16, 30)):
+        q, k, v, bias, _ = _oca_case(gen, 3, 2, 64, 144, d, dev, dtype)
+        _assert_close(oca_core_fwd(q, k, v, bias), oca_core_plain(q.float(), k.float(), v.float(), bias), dtype)
+    assert engagement.entries() == {"oca_core_fwd": {"oca_core_fwd_f32": 1, "oca_core_fwd_bf16": 1,
+                                                     "oca_core_fwd_mma_bf16": 1}}
 
 
 def test_hat_training_kernels_raise_on_shapes_they_do_not_take(dev):
