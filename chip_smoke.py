@@ -189,7 +189,7 @@ from studiosr_tpu_torch.ops.cuda.conv3x3 import (
 from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mlp_block_plain, unpack_mlp_block
 from studiosr_tpu_torch.ops.cuda.mlp_bwd import mlp_bwd, mlp_bwd_plain
 from studiosr_tpu_torch.ops.cuda.oca_core import oca_core_bwd, oca_core_bwd_plain, oca_core_fwd, oca_core_plain
-from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block, ocab_plain, overlap_window
+from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block, ocab_plain, overlap_window, unpack_ocab_block
 from studiosr_tpu_torch.ops.cuda.swin_block import fused_swin_block, swin_block_plain
 from studiosr_tpu_torch.ops.cuda.upsampler import (
     fused_upsample_s, fused_upsample_x4, pack_tail, unpack_conv_last_weights, unpack_shuffle_conv_weights,
@@ -272,7 +272,7 @@ KERNELS.update({
     "fused_window_attention_block_ws16": (
         "studiosr_tpu_torch/csrc/window_attention_mma.cu", "studiosr_tpu/ops/pallas/swin_block.py:549"),
     "fused_mlp_block_extra": ("studiosr_tpu_torch/csrc/mlp_block_mma.cu", "studiosr_tpu/ops/pallas/swin_block.py:904"),
-    "fused_ocab_block": ("studiosr_tpu_torch/csrc/ocab.cu", "studiosr_tpu/ops/pallas/ocab.py:173"),
+    "fused_ocab_block": ("studiosr_tpu_torch/csrc/ocab_mma.cu", "studiosr_tpu/ops/pallas/ocab.py:173"),
 })
 HAT_PER_FORWARD = {"fused_cab_body": 36, "fused_window_attention_block_ws16": 36, "fused_mlp_block_extra": 36,
                    "fused_ocab_block": 6, "fused_conv3x3": 7, "fused_upsample_x4": 1}
@@ -339,7 +339,7 @@ MAXSR_PER_FORWARD = {"window_attention_pallas": 32}
 # (label, windows, heads, tokens, head dim, bias, mask windows): the first two
 # are the two MaxSR modes' shapes at a 256x256 LR input.
 # The C entry of the kernels written for the H100 that every bf16 launch of
-# B1, B2, B3, B4, B5, B6, B11, B14 and B15 on the served paths must go through, and
+# B1, B2, B3, B4, B5, B6, B10, B11, B14 and B15 on the served paths must go through, and
 # each kernel's stem in its build log (ptxas's registers, shared memory and
 # spills).
 H100_ENTRIES = {"fused_swin_block": "swin_block_mma_bf16", "fused_conv3x3": "conv3x3_mma_bf16",
@@ -348,7 +348,7 @@ H100_ENTRIES = {"fused_swin_block": "swin_block_mma_bf16", "fused_conv3x3": "con
                 "fused_window_attention_block": "window_attention_mma_bf16",
                 "fused_window_attention_block_ws16": "window_attention16_mma_bf16",
                 "fused_mlp_block": "mlp_block_mma_bf16", "fused_mlp_block_extra": "mlp_block_extra_mma_bf16",
-                "fused_cab_body": "cab_body_mma_bf16"}
+                "fused_cab_body": "cab_body_mma_bf16", "fused_ocab_block": "ocab_mma_bf16"}
 H100_KERNELS = {"fused_swin_block": ("swin_block_mma", "swin_block_mma_kernel"),
                 "fused_conv3x3": ("conv3x3", "conv3x3_mma_kernel"),
                 "fused_resblock": ("resblock", "conv3x3_mma_kernel"),
@@ -359,7 +359,8 @@ H100_KERNELS = {"fused_swin_block": ("swin_block_mma", "swin_block_mma_kernel"),
                 "fused_window_attention_block_ws16": ("window_attention_mma", "_kernel"),
                 "mlp_bwd": ("mlp_bwd_mma", "_kernel"), "fused_mlp_block": ("mlp_block_mma", "mf_kernel"),
                 "fused_mlp_block_extra": ("mlp_block_mma", "mf_kernel"), "oca_core_bwd": ("oca_bwd_mma", "ob_"),
-                "fused_cab_body": ("cab_mma", "_kernel"), "oca_core_fwd": ("oca_fwd_mma", "of_")}
+                "fused_cab_body": ("cab_mma", "_kernel"), "oca_core_fwd": ("oca_fwd_mma", "of_"),
+                "fused_ocab_block": ("ocab_mma", "_kernel")}
 # The C entry every launch of B5-B9, B12 and B13 must take in a run of each
 # dtype: bf16 the kernels written for the H100 (their geometry rules hold at
 # every width the paths train), f32 the older kernels.
@@ -377,7 +378,8 @@ TRAIN_ENTRIES = {
 }
 # The kernels redesigned in bf16 last, held to the same bits from launch to
 # launch (no atomic sums) at the path's batch (phases 6, 10 and 13).
-BITWISE = ("fused_mlp_block", "fused_mlp_block_extra", "oca_core_bwd", "fused_cab_body", "oca_core_fwd")
+BITWISE = ("fused_mlp_block", "fused_mlp_block_extra", "oca_core_bwd", "fused_cab_body", "oca_core_fwd",
+           "fused_ocab_block")
 # B1 in bf16 beyond the main path's shape, as the card tests take it: (C,
 # heads, map, shift): C 32 with 2 heads of 16 (the trained fixtures), C 180
 # at H != W and an odd window count (a half-empty last window pair), d 8,
@@ -1342,9 +1344,21 @@ def hat_kernel_cases(model: HAT, dev: torch.device, dtype: torch.dtype):
                   lambda *o: mlp_block_plain(*o[:7], extra=o[7], extra_scale=o[8]),
                   (x.reshape(-1, c), *blocks[0]["mlp"].values(), extra, escale)))
     kw = dict(heads=heads, window_size=ws, overlap_ratio=HAT_MAIN["overlap_ratio"])
+    ocab = prep["ocab"][0]
+    # bf16 serving hands B10 one blob (q|k|v, proj, fc1, fc2 packed at load
+    # time) and the bias in bf16; the plain version gets the weights back dense
+    dense = (unpack_ocab_block(ocab["wqkv"], c, heads, ocab["b1"].numel()) if ocab["wproj"] is None else None)
     cases.append(("fused_ocab_block", "border windows", lambda *o: fused_ocab_block(*o, **kw),
-                  lambda *o: ocab_plain(*o, **kw), (x, *prep["ocab"][0].values())))
+                  lambda *o, dense=dense: ocab_plain(*(o if dense is None else dense_ocab(o, dense)), **kw),
+                  (x, *ocab.values())))
     return cases
+
+
+def dense_ocab(ops, dense) -> tuple:
+    """B10's operands (x first) with the weights ``dense`` = (wqkv, wproj, w1,
+    w2) in place of the blob."""
+    wqkv, wproj, w1, w2 = dense
+    return (*ops[:3], wqkv, ops[4], wproj, *ops[6:10], w1, ops[11], w2, ops[13])
 
 
 def phase_hat_kernels(model: HAT, dev: torch.device) -> dict:
@@ -1433,8 +1447,8 @@ def hat_bounds(name: str, ops) -> tuple:
     elif name == "fused_mlp_block_extra":  # ops[3] may be the packed blob: hidden from b1
         flops = 4 * tokens * c * ops[4].numel()
         moved = 2 * nbytes(x) + nbytes(*ops[1:])
-    else:
-        nk, hidden = ops[7].shape[-1], ops[10].shape[-1]
+    else:  # B10; ops[10] may be None (the blob): hidden from b1
+        nk, hidden = ops[7].shape[-1], ops[11].numel()
         flops = 2 * tokens * c * 4 * c + 4 * tokens * nk * c + 4 * tokens * c * hidden
         moved = 2 * nbytes(x) + nbytes(*ops[1:])
     return flops, moved
@@ -1456,6 +1470,28 @@ def cab_yardstick(ops, ms: float, bms: float) -> None:
     yard = time_ms(lambda: cab_sequence(x, ln_w, ln_b, oihw[0], b1.to(x.dtype), oihw[1], b2.to(x.dtype)), iters=10)
     log(f"  fused_cab_body: {100 * bms / ms:.1f} % of the bound; yardstick (bf16 PyTorch sequence) {yard:.3f} ms, "
         f"kernel / yardstick {ms / yard:.3f}; {ptxas_report('fused_cab_body')}")
+
+
+def ocab_yardstick(ops, ms: float, bms: float) -> None:
+    """B10's share of its bound, its ptxas line and its yardstick: the same
+    block as a sequence of bf16 PyTorch calls (``F.layer_norm``,
+    ``F.linear``, the unfold of the zero-padded k | v map, SDPA with the
+    bias as its mask, the projection and the residual, the MLP half;
+    scripts/torch_time_attn_kernels.py), timed here and never on the path,
+    on the weights serving packed. No one PyTorch call computes the block,
+    so its JSON row's library time stays null."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from torch_time_attn_kernels import ocab_forward_sequence
+
+    c, heads = ops[0].shape[-1], HAT_MAIN["num_heads"][0]
+    if ops[5] is None:  # the blob's weights
+        ops = dense_ocab(ops, unpack_ocab_block(ops[3], c, heads, ops[11].numel()))
+    sequence = ocab_forward_sequence(ops[0], ops[1:], heads, HAT_MAIN["window_size"], HAT_MAIN["overlap_ratio"])
+    yard = time_ms(sequence, iters=5, warmup=1)
+    del sequence
+    torch.cuda.empty_cache()
+    log(f"  fused_ocab_block: {100 * bms / ms:.1f} % of the bound; yardstick (bf16 PyTorch sequence) {yard:.3f} ms, "
+        f"kernel / yardstick {ms / yard:.3f}; {ptxas_report('fused_ocab_block')}")
 
 
 def phase_hat_timing(model: HAT, dev: torch.device, errors: dict, launches: dict) -> list:
@@ -1490,6 +1526,8 @@ def phase_hat_timing(model: HAT, dev: torch.device, errors: dict, launches: dict
             yardstick_report(name, (*ops[:3], w1, ops[4], w2, ops[6]), ms, bms, dict(extra=ops[7], extra_scale=ops[8]))
         elif name == "fused_cab_body":
             cab_yardstick(ops, ms, bms)
+        elif name == "fused_ocab_block":
+            ocab_yardstick(ops, ms, bms)
     # B2 and B3 at HAT's shapes (their rows in the JSON line are SwinIR's)
     prep = model.serving_prep()
     gen = torch.Generator(device="cpu").manual_seed(SEED + 6)

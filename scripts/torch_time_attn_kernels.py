@@ -46,10 +46,17 @@ warm-up launches:
 * B12 (``oca_core_fwd`` at B13's shapes) with the bias in f32 and in bf16
   (as HAT's bf16 step gathers it from its bf16 table), beside
   ``F.scaled_dot_product_attention`` with the bias as its mask;
-* as controls: B5, B7, B8, B9 (above) and B10 (``fused_ocab_block`` at HAT
-  x4 serving's 256 x 256 map, window 16, overlap 0.5).
+* B10 (``fused_ocab_block`` at HAT x4 serving's 256 x 256 map, window 16,
+  overlap 0.5: 24 x 24 key windows; the weights packed once and the bias
+  in bf16, as serving prepares them, where the package has
+  ``pack_ocab_block``), beside its yardstick: the same block as a sequence
+  of bf16 PyTorch calls (``F.layer_norm``, ``F.linear``, the unfold of the
+  zero-padded k | v map, SDPA with the bias as its mask, the projection and
+  the residual, then the MLP half);
+* as controls: B5, B7, B8, B9 (above).
 
-The per-pass split of B5, B6, B7, B8, B9, B12 and B13: ``torch.profiler`` over 10 calls
+The kernels are built first, one ``nvcc`` a source, all started together.
+The per-pass split of B5, B6, B7, B8, B9, B10, B12 and B13: ``torch.profiler`` over 10 calls
 gives the device time of every kernel a call enqueues, by name in launch
 order. Prints one
 JSON line: {"package": path, "card": nvidia-smi's name and power limit,
@@ -262,6 +269,40 @@ def oca_backward_sequence(q, k, v, bias, g):
     return backward
 
 
+def ocab_forward_sequence(x, ops, heads: int, ws: int, overlap_ratio: float):
+    """B10's function as bf16 PyTorch calls: ``F.layer_norm``, ``F.linear``
+    (cuBLAS) to q | k | v once a pixel, q's windows, the zero-padded k | v
+    map unfolded into the owin x owin windows around them, SDPA with the
+    rel-pos bias as its mask (zero keys outside the image keep their
+    logits, as in the block), the projection and the residual, then
+    y + fc2(gelu(fc1(LN2 y))). Returns a function of no arguments."""
+    import torch
+    import torch.nn.functional as F
+
+    from studiosr_tpu_torch.ops.windows import window_partition, window_reverse
+
+    bsz, h, w, c = x.shape
+    owin = int(ws * overlap_ratio) + ws
+    pad, nq, nk, d = (owin - ws) // 2, ws * ws, owin * owin, c // heads
+    bf = torch.bfloat16
+    ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, bias, ln2_w, ln2_b, w1, b1, w2, b2 = [t.detach().to(bf) for t in ops]
+    wq, wp, wa, wb = (t.t().contiguous() for t in (wqkv, wproj, w1, w2))
+    xx = x.to(bf)
+
+    def forward():
+        qkv = F.linear(F.layer_norm(xx, (c,), ln1_w, ln1_b, 1e-5), wq, bqkv)
+        q = window_partition(qkv[..., :c], ws).reshape(-1, nq, heads, d).transpose(1, 2)
+        kv = F.pad(qkv[..., c:], (0, 0, pad, pad, pad, pad)).unfold(1, owin, ws).unfold(2, owin, ws)
+        kv = kv.permute(0, 1, 2, 4, 5, 3).reshape(-1, nk, 2, heads, d)
+        o = F.scaled_dot_product_attention(q, kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2),
+                                           attn_mask=bias)
+        o = F.linear(o.transpose(1, 2).reshape(-1, nq, c), wp, bproj).reshape(-1, ws, ws, c)
+        y = xx + window_reverse(o, ws, h, w)
+        return y + F.linear(F.gelu(F.linear(F.layer_norm(y, (c,), ln2_w, ln2_b, 1e-5), wa, b1)), wb, b2)
+
+    return forward
+
+
 def measure() -> dict:
     import torch
     import torch.nn.functional as F
@@ -270,7 +311,7 @@ def measure() -> dict:
         sys.path.insert(0, str(ROOT))
     import studiosr_tpu_torch
     from studiosr_tpu_torch import resolve_device
-    from studiosr_tpu_torch.ops.cuda import engagement
+    from studiosr_tpu_torch.ops.cuda import _build, engagement
     from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd
     from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block
     from studiosr_tpu_torch.ops.cuda.mlp_bwd import mlp_bwd
@@ -280,6 +321,7 @@ def measure() -> dict:
     from studiosr_tpu_torch.ops.cuda.window_attn import window_attention
 
     dev = resolve_device("cuda")
+    _build.build()
     gen = torch.Generator().manual_seed(0)
     bf = torch.bfloat16
 
@@ -364,8 +406,23 @@ def measure() -> dict:
                 randn(HEADS, 256, 576, scale=0.5), 1 + randn(C, scale=0.1), randn(C, scale=0.1),
                 randn(C, 2 * C, scale=C**-0.5).to(bf), randn(2 * C, scale=0.1),
                 randn(2 * C, C, scale=(2 * C)**-0.5).to(bf), randn(C, scale=0.1))
-    ms["fused_ocab_block serving"] = time_ms(
-        lambda: fused_ocab_block(xs, *ocab_ops, heads=HEADS, window_size=16, overlap_ratio=0.5))
+    name, kw = "fused_ocab_block serving", dict(heads=HEADS, window_size=16, overlap_ratio=0.5)
+    served = list(ocab_ops)
+    try:  # serving packs q|k|v, proj, fc1 and fc2 once, at load time, and hands the bias in bf16
+        from studiosr_tpu_torch.ops.cuda.ocab import pack_ocab_block
+
+        served[2] = pack_ocab_block(ocab_ops[2], ocab_ops[4], ocab_ops[9], ocab_ops[11], HEADS)
+        served[4] = served[9] = served[11] = None
+        served[6] = ocab_ops[6].to(bf)
+    except ImportError:
+        pass
+    engagement.reset()
+    ms[name] = time_ms(lambda: fused_ocab_block(xs, *served, **kw))
+    entries[name] = engagement.entries().get("fused_ocab_block")
+    passes[name] = pass_split(lambda: fused_ocab_block(xs, *served, **kw))
+    ms[f"{name} yardstick (bf16 PyTorch sequence)"] = time_ms(
+        ocab_forward_sequence(xs, ocab_ops, HEADS, 16, 0.5), iters=10)
+    torch.cuda.empty_cache()
 
     # B6 with the CAB join at HAT x4 serving's shapes: 65,536 rows, the weights packed once
     name = "fused_mlp_block_extra serving"

@@ -204,6 +204,41 @@ __global__ void am_bias_kernel(const void* __restrict__ bias, int bias16, int he
   }
 }
 
+// The epilogue of the projection that ends an attention half (B5's pass 3,
+// B10's proj): y = x + d_b (acc + bproj), rounded, at the pixels of
+// rows r0, r0 + 8 of tile `tile` (columns below C). Every x load is issued
+// before the first store: y may lie where x does, so a load after a store
+// would wait for it.
+struct WaOut {
+  AmArgs a;
+  AmGeom G;
+  template <int NT>
+  __device__ __forceinline__ void operator()(int tile, int r0, int tq, const float (&acc)[NT][4]) const {
+    const float dd = a.dp ? a.dp[(tile / G.NCH) / a.nwi] : 1.f;
+    const long long off[2] = {am_pixel(G, a, tile, r0) * G.C, am_pixel(G, a, tile, r0 + 8) * G.C};
+    __nv_bfloat162 xv[NT][2];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int c = nt * 8 + 2 * tq;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        xv[nt][hh] = c < G.C ? *reinterpret_cast<const __nv_bfloat162*>(a.x + off[hh] + c) : __nv_bfloat162();
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int c = nt * 8 + 2 * tq;
+      if (c >= G.C) continue;
+      const float b0 = __ldg(a.bproj + c), b1 = __ldg(a.bproj + c + 1);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float2 x = __bfloat1622float2(xv[nt][hh]);
+        *reinterpret_cast<__nv_bfloat162*>(a.dx + off[hh] + c) =
+            __floats2bfloat162_rn(x.x + dd * (acc[nt][2 * hh] + b0), x.y + dd * (acc[nt][2 * hh + 1] + b1));
+      }
+    }
+  }
+};
+
 static bool am_geometry_ok(int C, int heads, int ws) {
   if (!((ws == 8 || ws == 16) && heads >= 1 && C >= 4 && C <= AM_MAX_C && C % 4 == 0 && C % heads == 0 &&
         C / heads <= 32))

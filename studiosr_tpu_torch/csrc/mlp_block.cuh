@@ -2,7 +2,8 @@
 // drop-path scale,
 //   y = x + d_{row / rows_per_sample} * fc2(gelu(fc1(LN x))),
 // x (rows, C): the forward of fused training's MLP half (ops/mlp_vjp.py),
-// and the MLP tail of B10 (ocab.cu). Or, with HAT's CAB join folded in
+// and the MLP tail of B10 (ocab.cu: f32, and the bf16 geometries
+// ocab_mma.cu does not take). Or, with HAT's CAB join folded in
 // (EXTRA, HAT serving at batch 1),
 //   x' = x + extra * escale (escale per channel, f32),
 //   y = x' + fc2(gelu(fc1(LN x'))),

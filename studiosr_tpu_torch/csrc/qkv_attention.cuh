@@ -1,5 +1,7 @@
 // Window attention in two passes through device memory, shared by B5 at
-// window 16 (window_attention16.cu) and B10 (ocab.cu); B9 (attn_bwd16.cu)
+// window 16 (window_attention16.cu) and B10 (ocab.cu), each in f32 and at
+// the geometries the bf16 kernels written for the H100 do not take (in bf16
+// B5 runs window_attention_mma.cu, B10 ocab_mma.cu); B9 (attn_bwd16.cu)
 // shares pass 1.
 //
 // Pass 1, ln_qkv_kernel: LayerNorm and the q|k|v projection of 64 pixel

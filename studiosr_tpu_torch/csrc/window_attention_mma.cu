@@ -190,40 +190,6 @@ __global__ void __launch_bounds__(128, 3) wa_attn_kernel(const AmArgs a, const A
   }
 }
 
-// Pass 3's epilogue: y = x + d_b (acc + bproj), rounded, at the pixels of
-// rows r0, r0 + 8 of tile `tile` (columns below C). Every x load is issued
-// before the first store: y may lie where x does, so a load after a store
-// would wait for it.
-struct WaOut {
-  AmArgs a;
-  AmGeom G;
-  template <int NT>
-  __device__ __forceinline__ void operator()(int tile, int r0, int tq, const float (&acc)[NT][4]) const {
-    const float dd = a.dp ? a.dp[(tile / G.NCH) / a.nwi] : 1.f;
-    const long long off[2] = {am_pixel(G, a, tile, r0) * G.C, am_pixel(G, a, tile, r0 + 8) * G.C};
-    __nv_bfloat162 xv[NT][2];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int c = nt * 8 + 2 * tq;
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-        xv[nt][hh] = c < G.C ? *reinterpret_cast<const __nv_bfloat162*>(a.x + off[hh] + c) : __nv_bfloat162();
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int c = nt * 8 + 2 * tq;
-      if (c >= G.C) continue;
-      const float b0 = __ldg(a.bproj + c), b1 = __ldg(a.bproj + c + 1);
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const float2 x = __bfloat1622float2(xv[nt][hh]);
-        *reinterpret_cast<__nv_bfloat162*>(a.dx + off[hh] + c) =
-            __floats2bfloat162_rn(x.x + dd * (acc[nt][2 * hh] + b0), x.y + dd * (acc[nt][2 * hh + 1] + b1));
-      }
-    }
-  }
-};
-
 // Scratch in bf16: the q|k|v images (windows x heads x 3 x N x DP), LN rows
 // (SC), attn rows (HD), the packed weights and the bias in fragment order
 // (f32, or bf16 when the bias is; the room of f32), the last two used only

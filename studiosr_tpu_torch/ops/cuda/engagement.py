@@ -13,7 +13,7 @@ so there is no fallback to count. What remains:
   ``attention_bwd`` (``_ws16`` at window 16), ``fused_cab_body``,
   ``fused_ocab_block``, ``oca_core_fwd``, ``oca_core_bwd``,
   ``fused_resblock`` (B14), ``window_attention_pallas`` (B15); where a
-  wrapper names the C entry it called (every kernel but B10: one for f32,
+  wrapper names the C entry it called (every kernel: one for f32,
   one or two for bf16), ``entries()`` counts the launches of each;
 * ``structural_tail_decline(scale)`` — the by-design decline of a
   configuration that has no kernel at all (scale 8's log2-ladder tail),

@@ -1,4 +1,5 @@
-"""B10: HAT's overlapping cross-attention block (CUDA kernels ``csrc/ocab.cu``).
+"""B10: HAT's overlapping cross-attention block (CUDA kernels ``csrc/ocab_mma.cu`` in bf16,
+``csrc/ocab.cu`` in f32 and at other geometries).
 
 Replaces ``studiosr_tpu/ops/pallas/ocab.py::fused_ocab_block``. On (B, H, W,
 C) maps:
@@ -15,8 +16,21 @@ and they take softmax mass. They are not masked.
 
 Operands: ``wqkv`` (C, 3C) with q | k | v column blocks, unscaled, ``wproj``
 (C, C), ``w1`` (C, hidden), ``w2`` (hidden, C), (in, out) layout, in the
-map's dtype; LayerNorm weights, biases and the gathered (heads, ws^2,
-owin^2) rel-pos ``bias`` in bf16 or f32, handed to the kernels in f32.
+map's dtype; LayerNorm weights and biases in bf16 or f32, handed to the
+kernels in f32; the gathered (heads, ws^2, owin^2) rel-pos ``bias``.
+
+Routing, by dtype and geometry, never by a failure: bf16 where
+:func:`ocab_mma_takes` the geometry (a head dim up to 32, C a multiple of 4
+up to 184, window 8 or 16, at most 576 keys a window, a hidden width up to
+384) launches the kernels written for the H100, ``csrc/ocab_mma.cu`` (C
+entry ``ocab_mma_bf16``). They read q|k|v, proj, fc1 and fc2 as one packed
+blob (:func:`pack_ocab_block`: HAT serving packs it once, at load time, and
+the blob takes ``wqkv``'s place, ``wproj``, ``w1`` and ``w2`` None; dense
+weights are packed on every call) and the bias in bf16, rounded as the JAX
+package's kernel rounds it to the map's dtype. Other bf16 geometries and f32
+launch ``ocab_bf16`` / ``ocab_f32`` (``csrc/ocab.cu``) on dense weights with
+the bias in f32. Each launch is counted under its C entry
+(``engagement.entries()``).
 """
 
 from __future__ import annotations
@@ -29,10 +43,17 @@ import torch.nn.functional as F
 from studiosr_tpu_torch.ops.attention import attention_core
 from studiosr_tpu_torch.ops.cuda import _build
 from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, check, finish, operand, stream
-from studiosr_tpu_torch.ops.cuda.window_attention import MAX_HEAD_DIM
+from studiosr_tpu_torch.ops.cuda.mlp_block import (
+    _mma_pack_index, mma_takes as mlp_mma_takes, pack_mlp_block, unpack_mlp_block,
+)
+from studiosr_tpu_torch.ops.cuda.oca_core import MMA_MAX_KEYS, _kmajor_tiles
+from studiosr_tpu_torch.ops.cuda.window_attention import MAX_HEAD_DIM, _fwd_pack_index, mma_takes
 from studiosr_tpu_torch.ops.windows import window_partition, window_reverse
 
-__all__ = ["fused_ocab_block", "ocab_plain", "overlap_window"]
+__all__ = [
+    "fused_ocab_block", "ocab_plain", "overlap_window", "ocab_mma_takes", "pack_ocab_block", "unpack_ocab_block",
+    "packed_ocab_elems", "pack_key_images",
+]
 
 _LL = ctypes.c_longlong
 _ARGS = (P, P, I, I, I, I, I, I, I, I) + (P,) * 13 + (P, P, P, _LL, P)
@@ -43,6 +64,13 @@ _SIGNATURES = {
     "qkv_attention_scratch_elems": (I, I, I),
 }
 _RESTYPES = {"ocab_pack_elems": _LL, "qkv_attention_scratch_elems": _LL}
+_SIGNATURES_MMA = {
+    "ocab_mma_bf16": (P, P) + (I,) * 8 + (P,) * 10 + (_LL, P, _LL, P),
+    "ocab_mma_pack_elems": (I, I, I),
+    "ocab_mma_scratch": (I,) * 8 + (ctypes.POINTER(_LL),),
+}
+_RESTYPES_MMA = {"ocab_mma_pack_elems": _LL}
+MMA_WINDOWS = (8, 16)  # csrc/am_window.cuh am_geometry_ok: the tile order of windows 8 and 16
 
 
 def overlap_window(window_size: int, overlap_ratio: float):
@@ -51,12 +79,83 @@ def overlap_window(window_size: int, overlap_ratio: float):
     return owin, (owin - window_size) // 2
 
 
+def ocab_mma_takes(c: int, heads: int, window_size: int, overlap_ratio: float, hidden: int) -> bool:
+    """Whether the bf16 kernels written for the H100 take this geometry: a
+    head dim up to 32 and C a multiple of 4 up to 184 (B5's q|k|v and
+    projection), window 8 or 16 with an even margin and at most 576 keys
+    (B12's attention), a hidden width up to 384 (B6's MLP)."""
+    owin, pad = overlap_window(window_size, overlap_ratio)
+    return (window_size in MMA_WINDOWS and owin == window_size + 2 * pad and owin * owin <= MMA_MAX_KEYS
+            and mma_takes(c, heads) and mlp_mma_takes(c, hidden))
+
+
+def packed_ocab_elems(c: int, heads: int, hidden: int) -> int:
+    """Elements of :func:`pack_ocab_block`'s blob."""
+    return _fwd_pack_index(c, heads).size + _mma_pack_index(c, hidden).size
+
+
+def pack_ocab_block(wqkv: torch.Tensor, wproj: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                    heads: int) -> torch.Tensor:
+    """Dense B10 weights -> the bf16 blob the H100 kernels stream (what
+    serving prepares once, at load time): q|k|v and Wproj packed by
+    ``window_attention._fwd_pack_index``'s rule (B5's layout), then fc1 and
+    fc2 by ``mlp_block._mma_pack_index``'s (B6's)."""
+    c, hidden = wqkv.shape[0], w1.shape[-1]
+    if (tuple(wqkv.shape) != (c, 3 * c) or tuple(wproj.shape) != (c, c) or tuple(w1.shape) != (c, hidden)
+            or tuple(w2.shape) != (hidden, c)):
+        raise ValueError(f"pack_ocab_block: wqkv {tuple(wqkv.shape)}, wproj {tuple(wproj.shape)}, w1 "
+                         f"{tuple(w1.shape)}, w2 {tuple(w2.shape)} do not fit")
+    bf = torch.bfloat16
+    src = torch.cat([wqkv.detach().to(bf).reshape(-1), wproj.detach().to(bf).reshape(-1), wqkv.new_zeros(1, dtype=bf)])
+    attn = src[torch.from_numpy(_fwd_pack_index(c, heads)).to(src.device)]
+    return torch.cat([attn, pack_mlp_block(w1.detach().to(bf), w2.detach().to(bf))])
+
+
+def unpack_ocab_block(blob: torch.Tensor, c: int, heads: int, hidden: int):
+    """(wqkv, wproj, w1, w2) back from :func:`pack_ocab_block`'s blob."""
+    index = _fwd_pack_index(c, heads)
+    if blob.dim() != 1 or blob.dtype != torch.bfloat16 or blob.numel() != packed_ocab_elems(c, heads, hidden):
+        raise ValueError(f"packed B10 weights {tuple(blob.shape)} {blob.dtype} do not fit C {c}, {heads} heads, "
+                         f"hidden {hidden}")
+    flat = blob.new_zeros(4 * c * c + 1)
+    flat[torch.from_numpy(index).to(blob.device)] = blob[: index.size]
+    w1, w2 = unpack_mlp_block(blob[index.size:], c, hidden)
+    return flat[: 3 * c * c].reshape(c, 3 * c), flat[3 * c * c : 4 * c * c].reshape(c, c), w1, w2
+
+
+def pack_key_images(k, v, window_size: int, overlap_ratio: float) -> torch.Tensor:
+    """Plain version of the H100 kernels' pass 2 (``oc_gather_kernel``): k
+    and v, (B, H, W, heads, d) maps after the projection, -> per (window,
+    head) unit, windows in row-major order over the batch, the owin x owin
+    keys around the window in ceil(owin^2 / 64) chunks of 64, k's then v's,
+    laid out as B12's key images (``oca_core.pack_fwd_images``: k K-major in
+    d, v K-major in the keys, position p of a chunk holding its key 16 ((p %
+    8) // 2) + 2 (p // 8) + p % 2, DP 16 at d <= 16, else 32), zero where a
+    key lies outside the image, past owin^2 and past d. Returns (windows *
+    heads, elements) in k's dtype."""
+    b, h, w, heads, d = k.shape
+    ws = window_size
+    owin, pad = overlap_window(ws, overlap_ratio)
+    nk, dp = owin * owin, 16 if d <= 16 else 32
+
+    def key_windows(t):  # (windows, heads, nk, d), zero outside the image
+        t = F.pad(t.reshape(b, h, w, heads * d), (0, 0, pad, pad, pad, pad)).unfold(1, owin, ws).unfold(2, owin, ws)
+        return t.permute(0, 1, 2, 4, 5, 3).reshape(-1, nk, heads, d).transpose(1, 2)
+
+    return torch.cat([_kmajor_tiles(key_windows(k), nk, dp, permuted=True),
+                      _kmajor_tiles(key_windows(v), nk, dp, token_major=True, permuted=True)], 1)
+
+
 def ocab_plain(
     x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, bias, ln2_w, ln2_b, w1, b1, w2, b2,
     *, heads: int, window_size: int, overlap_ratio: float,
 ):
-    """Plain PyTorch version, computed in f32 and returned in ``x.dtype``."""
+    """Plain PyTorch version, computed in f32 and returned in ``x.dtype``;
+    the weights dense, or packed (``wqkv`` the blob, ``wproj``, ``w1`` and
+    ``w2`` None)."""
     b, h, w, c = x.shape
+    if wproj is None:
+        wqkv, wproj, w1, w2 = unpack_ocab_block(wqkv, c, heads, b1.numel())
     ws = window_size
     owin, pad = overlap_window(ws, overlap_ratio)
     d = c // heads
@@ -77,8 +176,9 @@ def fused_ocab_block(
     x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, bias, ln2_w, ln2_b, w1, b1, w2, b2,
     *, heads: int, window_size: int, overlap_ratio: float,
 ):
-    """(B, H, W, C) -> (B, H, W, C). CPU tensors take the plain version;
-    CUDA tensors launch the kernels or raise."""
+    """(B, H, W, C) -> (B, H, W, C); weights dense, or packed in bf16
+    (:func:`pack_ocab_block`). CPU tensors take the plain version; CUDA
+    tensors launch the kernels or raise."""
     kw = dict(heads=heads, window_size=window_size, overlap_ratio=overlap_ratio)
     if x.device.type == "cpu":
         return ocab_plain(x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, bias, ln2_w, ln2_b, w1, b1, w2, b2, **kw)
@@ -87,11 +187,17 @@ def fused_ocab_block(
     bsz, h, w, c = x.shape
     ws = window_size
     owin, pad = overlap_window(ws, overlap_ratio)
-    if h % ws or w % ws or (ws * ws) % 64 or c % heads:
-        raise ValueError(f"fused_ocab_block: shape {tuple(x.shape)}, heads {heads}, window {ws} do not fit")
+    if h % ws or w % ws or (ws * ws) % 64 or c % heads or owin != ws + 2 * pad:
+        raise ValueError(f"fused_ocab_block: shape {tuple(x.shape)}, heads {heads}, window {ws}, key window {owin} "
+                         "do not fit")
+    hidden = b1.numel()
+    if x.dtype == torch.bfloat16 and ocab_mma_takes(c, heads, ws, overlap_ratio, hidden):
+        return _ocab_mma(x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, bias, ln2_w, ln2_b, w1, b1, w2, b2, heads, ws, pad)
+    if wproj is None:
+        raise ValueError(f"fused_ocab_block: packed weights need bf16 and a geometry ocab_mma_takes, not {x.dtype}, "
+                         f"C {c}, {heads} heads, window {ws}, key window {owin}, hidden {hidden}")
     if c // heads > MAX_HEAD_DIM:
         raise NotImplementedError(f"fused_ocab_block: head dim {c // heads} > {MAX_HEAD_DIM}")
-    hidden = w1.shape[-1]
     dev, dt, f32 = x.device, x.dtype, torch.float32
     ops = [
         operand(ln1_w, "ln1_w", (c,), f32, dev), operand(ln1_b, "ln1_b", (c,), f32, dev),
@@ -109,8 +215,49 @@ def fused_ocab_block(
     pack = lib.ocab_pack_elems(c, heads, hidden)
     packed = torch.empty(pack, dtype=dt, device=dev)
     qkv = torch.empty(lib.qkv_attention_scratch_elems(bsz * h * w, c, heads), dtype=dt, device=dev)
-    fn = lib.ocab_bf16 if dt == torch.bfloat16 else lib.ocab_f32
-    status = fn(px, out.data_ptr(), bsz, h, w, c, heads, ws, pad, hidden, *[t.data_ptr() for t in ops],
-                qkv.data_ptr(), y.data_ptr(), packed.data_ptr(), pack, stream(dev))
-    finish("fused_ocab_block", status)
+    entry = "ocab_bf16" if dt == torch.bfloat16 else "ocab_f32"
+    status = getattr(lib, entry)(px, out.data_ptr(), bsz, h, w, c, heads, ws, pad, hidden,
+                                 *[t.data_ptr() for t in ops], qkv.data_ptr(), y.data_ptr(), packed.data_ptr(), pack,
+                                 stream(dev))
+    finish("fused_ocab_block", status, entry)
+    return out
+
+
+def _ocab_mma(x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, bias, ln2_w, ln2_b, w1, b1, w2, b2, heads, ws, pad):
+    """The launch of ``csrc/ocab_mma.cu`` (bf16, :func:`ocab_mma_takes`) on
+    the serving blob or on dense weights, packed here."""
+    bsz, h, w, c = x.shape
+    hidden = b1.numel()
+    owin = ws + 2 * pad
+    dev, f32, bf = x.device, torch.float32, torch.bfloat16
+    lib = _build.load("ocab_mma", _SIGNATURES_MMA, _RESTYPES_MMA)
+    pack = packed_ocab_elems(c, heads, hidden)
+    if lib.ocab_mma_pack_elems(c, heads, hidden) != pack:
+        raise RuntimeError(f"fused_ocab_block: the packed weights of C {c}, {heads} heads, hidden {hidden} disagree "
+                           "with the kernel's layout")
+    if wproj is None:  # the serving blob
+        if w1 is not None or w2 is not None:
+            raise ValueError("fused_ocab_block: with packed weights wproj, w1 and w2 are None")
+        blob = wqkv
+    else:
+        blob = pack_ocab_block(wqkv, wproj, w1, w2, heads)
+    pblob = check(blob, "packed weights", (pack,), bf, dev)
+    if pblob % 16:
+        raise ValueError("fused_ocab_block: the packed weights must lie on a 16-byte boundary")
+    # the kernel reads every operand during the launch; keep each converted copy alive until then
+    ops = [operand(t, name, (n,), f32, dev) for t, name, n in (
+        (ln1_w, "ln1_w", c), (ln1_b, "ln1_b", c), (bqkv, "bqkv", 3 * c), (bproj, "bproj", c))]
+    ops.append(operand(bias, "bias", (heads, ws * ws, owin * owin), bf, dev))
+    ops += [operand(t, name, (n,), f32, dev) for t, name, n in (
+        (ln2_w, "ln2_w", c), (ln2_b, "ln2_b", c), (b1, "b1", hidden), (b2, "b2", c))]
+    px = check(x, "x", (bsz, h, w, c), bf, dev)
+    t_elems = _LL()
+    status = lib.ocab_mma_scratch(bsz, h, w, c, heads, ws, pad, hidden, ctypes.byref(t_elems))
+    if status != 0:
+        raise RuntimeError(f"fused_ocab_block: CUDA error {status} while sizing the scratch")
+    tscratch = torch.empty(t_elems.value, dtype=bf, device=dev)
+    out = torch.empty_like(x)
+    status = lib.ocab_mma_bf16(px, out.data_ptr(), bsz, h, w, c, heads, ws, pad, hidden, *[t.data_ptr() for t in ops],
+                               pblob, pack, tscratch.data_ptr(), t_elems.value, stream(dev))
+    finish("fused_ocab_block", status, "ocab_mma_bf16")
     return out

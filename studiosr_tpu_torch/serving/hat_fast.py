@@ -21,8 +21,13 @@ Port of ``studiosr_tpu/serving/hat_fast.py``: the exact HAT eval computation
   the H100 (``pack_mlp_block``, where ``mma_takes`` the geometry).
 
 Each group ends with B10 (``ops/cuda/ocab.py``) and its conv through B2,
-the skip folded in; ``conv_after_body`` runs through B2 as well and the tail
-through B3 at x4 or B4 at x2 / x3 (x8 records its structural decline).
+the skip folded in. In bf16, B10's q|k|v, proj, fc1 and fc2 are packed
+once, at load time, for the kernels written for the H100
+(``pack_ocab_block``, where ``ocab_mma_takes`` the geometry), and its
+gathered rel-pos bias is rounded to the map's dtype, as the JAX package's
+``prepare_ocab_weights`` rounds it. ``conv_after_body`` runs through B2 as
+well and the tail through B3 at x4 or B4 at x2 / x3 (x8 records its
+structural decline).
 ``conv_first``, ``conv_before_upsample`` and the LayerNorms
 outside the blocks stay plain, as the JAX package leaves them to XLA.
 
@@ -41,7 +46,7 @@ import torch.nn.functional as F
 from studiosr_tpu_torch.models.blocks import DEFAULT_RGB_MEAN
 from studiosr_tpu_torch.ops.cuda.conv3x3 import cab_mma_takes, fused_cab_body, fused_conv3x3, pack_cab_convs
 from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mma_takes as mlp_mma_takes, pack_mlp_block
-from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block
+from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block, ocab_mma_takes, pack_ocab_block
 from studiosr_tpu_torch.ops.cuda.window_attention import fused_window_attention_block, mma_takes, pack_window_attention
 from studiosr_tpu_torch.ops.windows import (
     gather_rel_bias,
@@ -64,9 +69,9 @@ def prepare_hat_serving(module: nn.Module, config: Dict[str, Any], dtype) -> Dic
     """Lay every kernel's weights out once, at load time: dense weights to
     (in, out) and conv weights to HWIO in ``dtype`` (B2's and B11's packed in
     bf16, and B5's q|k|v, proj and rel-pos bias in one blob, B6's fc1 and fc2
-    in another), the rel-pos biases
-    gathered to (heads, 256, 256) and (heads, 256, 576), LayerNorm weights
-    and biases f32. Consumed by :func:`hat_fast_forward`."""
+    in another, B10's q|k|v, proj, fc1 and fc2 in a third), the rel-pos
+    biases gathered to (heads, 256, 256) and (heads, 256, 576) (the latter in
+    ``dtype``), LayerNorm weights and biases f32. Consumed by :func:`hat_fast_forward`."""
     ws = int(config["window_size"])
     overlap = float(config.get("overlap_ratio", 0.5))
     rpi, rpi_oca = relative_position_index(ws), relative_position_index_oca(ws, overlap)
@@ -93,13 +98,17 @@ def prepare_hat_serving(module: nn.Module, config: Dict[str, Any], dtype) -> Dic
             group.append(dict(cab=dict(**_ln(blk.norm1), w1=w1, b1=b1, w2=w2, b2=b2), attn=attn, mlp=mlp))
         prep["blocks"].append(group)
         oa = layer.residual_group.overlap_attn
-        prep["ocab"].append(dict(
+        ocab = dict(
             **_ln(oa.norm1, "ln1"), wqkv=_dense(oa.qkv, dtype), bqkv=_f32(oa.qkv.bias), wproj=_dense(oa.proj, dtype),
             bproj=_f32(oa.proj.bias),
-            bias=gather_rel_bias(_f32(oa.relative_position_bias_table), rpi_oca, heads).contiguous(),
+            bias=gather_rel_bias(_f32(oa.relative_position_bias_table), rpi_oca, heads).to(dtype).contiguous(),
             **_ln(oa.norm2, "ln2"), w1=_dense(oa.mlp.fc1, dtype), b1=_f32(oa.mlp.fc1.bias),
             w2=_dense(oa.mlp.fc2, dtype), b2=_f32(oa.mlp.fc2.bias),
-        ))
+        )
+        if dtype == torch.bfloat16 and ocab_mma_takes(ocab["bproj"].numel(), heads, ws, overlap, ocab["b1"].numel()):
+            ocab.update(wqkv=pack_ocab_block(ocab["wqkv"], ocab["wproj"], ocab["w1"], ocab["w2"], heads), wproj=None,
+                        w1=None, w2=None)
+        prep["ocab"].append(ocab)
         prep["convs"].append(_b2_operands(layer.conv, dtype))
     prep["after_body"] = _b2_operands(module.conv_after_body, dtype)
     prep["tail"] = tail_operands(module, int(config["scale"]), dtype)

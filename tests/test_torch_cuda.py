@@ -23,7 +23,7 @@ from studiosr_tpu_torch.ops.cuda.conv3x3 import (
 )
 from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mlp_block_plain, pack_mlp_block
 from studiosr_tpu_torch.ops.cuda.mlp_bwd import mlp_bwd, mlp_bwd_plain
-from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block, ocab_plain, overlap_window
+from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block, ocab_plain, overlap_window, pack_ocab_block
 from studiosr_tpu_torch.ops.cuda.swin_block import fused_swin_block, swin_block_plain
 from studiosr_tpu_torch.ops.cuda.upsampler import (
     fused_upsample_s, fused_upsample_x4, pack_tail, upsample_s_plain, upsample_x4_plain,
@@ -530,6 +530,57 @@ def test_ocab_kernel_matches_plain(dev, dtype, c, heads, shape, ws, overlap):
     assert engagement.counters() == {"fused_ocab_block": 1}
     want = ocab_plain(x.float(), *[t.float() for t in ops], **kw)
     _assert_close(got, want, dtype)
+
+
+# B10 in bf16 on the kernels written for the H100 (``csrc/ocab_mma.cu``):
+# HAT's 180 / 6 at window 16, overlap 0.5 (24 x 24 key windows reaching
+# outside the image at every border window) at 32 x 32, 48 x 32 and batch 2;
+# the trained fixtures' window 8 with 12 x 12 key windows (144 keys: the
+# last chunk part padding) and overlap 1 (16 x 16); HAT x4 serving's map.
+H100_OCAB_CASES = [(180, 6, (1, 32, 32), 16, 0.5), (180, 6, (1, 48, 32), 16, 0.5), (180, 6, (2, 32, 48), 16, 0.5),
+                   (32, 2, (2, 16, 24), 8, 0.5), (24, 3, (2, 16, 24), 8, 1.0), (180, 6, (1, 256, 256), 16, 0.5)]
+
+
+@pytest.mark.parametrize("c,heads,shape,ws,overlap", H100_OCAB_CASES)
+def test_ocab_h100_kernel_matches_plain(dev, c, heads, shape, ws, overlap):
+    """On the blob serving packs and a bf16 bias, against the plain version
+    in f32 on the dense weights and the same bias values; dense weights give
+    the blob's bits; two launches the same bits."""
+    gen = torch.Generator().manual_seed(c + ws + shape[0])
+    owin, _ = overlap_window(ws, overlap)
+    blk = _block_operands(gen, c, heads, 2 * c, ws=ws)
+    ops = blk[:6] + [_randn(gen, heads, ws * ws, owin * owin, scale=0.5)] + blk[7:]
+    ops = [t.to(dev, torch.bfloat16 if i in (2, 4, 6, 9, 11) else torch.float32) for i, t in enumerate(ops)]
+    served = list(ops)
+    served[2], served[4], served[9], served[11] = pack_ocab_block(ops[2], ops[4], ops[9], ops[11], heads), None, None, None
+    x = _randn(gen, *shape, c).to(dev, torch.bfloat16)
+    kw = dict(heads=heads, window_size=ws, overlap_ratio=overlap)
+    engagement.reset()
+    got = fused_ocab_block(x, *served, **kw)
+    again = fused_ocab_block(x, *served, **kw)
+    dense = fused_ocab_block(x, *ops, **kw)
+    assert engagement.entries() == {"fused_ocab_block": {"ocab_mma_bf16": 3}}
+    _assert_close(got, ocab_plain(x.float(), *[t.float() for t in ops], **kw), torch.bfloat16)
+    assert torch.equal(got, again) and torch.equal(got, dense)
+
+
+def test_ocab_routes_by_dtype_and_geometry(dev):
+    """f32, and bf16 outside the H100 kernels' geometry (head dim 48), take
+    ``csrc/ocab.cu``; bf16 inside it ``csrc/ocab_mma.cu``; packed weights
+    outside it raise."""
+    gen = torch.Generator().manual_seed(4)
+    engagement.reset()
+    for dtype, c, heads in ((torch.float32, 32, 2), (torch.bfloat16, 96, 2), (torch.bfloat16, 32, 2)):
+        blk = _block_operands(gen, c, heads, 2 * c, ws=8)
+        ops = blk[:6] + [_randn(gen, heads, 64, 256, scale=0.5)] + blk[7:]
+        ops = [t.to(dev, dtype if i in (2, 4, 9, 11) else torch.float32) for i, t in enumerate(ops)]
+        x = _randn(gen, 1, 16, 24, c).to(dev, dtype)
+        kw = dict(heads=heads, window_size=8, overlap_ratio=1.0)
+        _assert_close(fused_ocab_block(x, *ops, **kw), ocab_plain(x.float(), *[t.float() for t in ops], **kw), dtype)
+    assert engagement.entries() == {"fused_ocab_block": {"ocab_f32": 1, "ocab_bf16": 1, "ocab_mma_bf16": 1}}
+    blob = pack_ocab_block(ops[2], ops[4], ops[9], ops[11], 2)
+    with pytest.raises(ValueError, match="packed weights"):
+        fused_ocab_block(x.float(), *ops[:2], blob, ops[3], None, *ops[5:9], None, ops[10], None, ops[12], **kw)
 
 
 def test_small_hat_fused_matches_plain_on_the_card(dev):
