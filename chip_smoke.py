@@ -34,7 +34,14 @@ against its plain PyTorch version:
   heads of 32, depth [4]x4) and in its static mode at the same widths:
   serving bf16, batch 1, 256x256 LR input, the 32 attention cores of a
   forward through B15;
-* the user's entry points: the nine trained checkpoints of
+* MaxSR x4 training at the same widths: ``Trainer.run`` at the JAX
+  package's recipe, batch 32 of 64x64 LR crops, bf16 over f32 masters,
+  ``fused_train`` by default (B5-B8 at C 128, 4 heads of 32, window 8, B6 /
+  B7 at hidden 512: 32 launches each a step);
+* the eight conv families at their build defaults (x4, bf16, batch 1,
+  256x256 LR, cuDNN convs, no kernel of the port), EDSR and SRResNet
+  training 3 steps at their recipes;
+* the user's entry points: the eighteen trained checkpoints of
   ``tests/fixtures/quality`` read by ``load_model`` (no JAX, no flax) with
   the fixture PNGs read by the port's codec, the ``Evaluator2`` on the host
   and on the card, and the CLI (``python3 -m studiosr_tpu_torch``).
@@ -141,19 +148,51 @@ Phases, in order; any failure exits non-zero before the final line:
 23. MaxSR x4 serving at full width, adaptive and static: fused vs plain
     forward (f32, bf16), three requests with 32 B15 launches a forward and
     nothing else, the forward's time;
-24. the nine trained checkpoints (SwinIR x2 / x3 / x4 / x8, HAT x2 / x3 /
+24. MaxSR training kernels vs plain at its geometry, batch 4 and 32 of
+    64x64 maps (C 128, 4 heads of 32, window 8, zero qkv / proj biases, no
+    drop-path), f32 and bf16: B5 and B8 with the static mode's table bias
+    and the adaptive mode's zero bias, B6 (whole and ragged rows) and B7 at
+    hidden 512, each launch through its dtype's entry, B6 twice for the
+    same bits;
+25. MaxSR gradients end to end, batch 4, as phase 7, adaptive then static:
+    the fused-train module's loss and every gradient in f32 and bf16
+    against an f64 witness, the f32 run held against plain autograd in f32
+    (plain f32 itself reads 1.8e-5 from the witness), the bf16 run against
+    the witness (the MBConvs' conv biases before a BatchNorm, whose
+    gradient is 0, against the norm of all the reference's gradients);
+26. MaxSR training: ``Trainer.run`` for 3 steps at the JAX Trainer's
+    defaults with nothing passed (bf16, fused_train by default), 32
+    launches each of B5-B8 a step through their bf16 H100 entries and
+    nothing else, finite losses, moved weights and running statistics,
+    then an evaluation on the card of square LR maps of 72 and 128 (windows
+    9 and 12: plain in eval mode, no launch);
+27. MaxSR training timing: step ms, images/s, peak memory; B5 and B8 (both
+    modes), B6 and B7 at batch 32: ms, plain ms, bound, bf16 PyTorch
+    yardstick; the kernels line's ``*_maxsr`` rows;
+28. the eight conv families (SRCNN, ESPCN, VDSR, SRResNet, EDSR, RCAN, HAN,
+    IMDN) x4 at their build defaults (the reference's flax init): every
+    conv of the bf16 forward vs f32 on its input, the bf16 forward vs the
+    f32 one end to end (logged), three bf16 requests with no kernel of the
+    port launched, the forward's time;
+29. EDSR and SRResNet: ``Trainer.run`` for 3 steps at their recipes
+    (finite losses, moved weights and running statistics, no launch);
+30. the nine trained checkpoints (SwinIR x2 / x3 / x4 / x8, HAT x2 / x3 /
     x4 at window 8, SwinFIR x4, MaxSR x4 adaptive) on the card: plain f32
     beats bicubic by 0.3 dB, fused f32 is within 0.05 dB of plain, fused
     bf16 beats bicubic by 0.2 dB and is within 0.5 dB of plain, on each of
     the three fixture images, every bf16 B1 / B14 launch through its bf16
     entry; MaxSR's BatchNorm running statistics came back (not the initial
-    0 / 1);
-25. the Evaluator (HR / LR_bicubic layout built under
+    0 / 1); then the nine conv-family checkpoints: plain f32 beats bicubic
+    by 2.0 dB and bf16 by 1.5 dB (ESPCN x2: both by 1.0 dB, f32 above 30
+    dB), the bf16 forward within 2e-2 of the f32 one, no launch, SRResNet's
+    running statistics restored;
+31. the Evaluator (HR / LR_bicubic layout built under
     ``build/chip_smoke_eval/`` from the fixture PNGs) on the host and on the
     card for SwinIR x2 and HAT x3, fused bf16: within 1e-4 dB and 1e-5 SSIM;
     the CLI as a subprocess on the x4 checkpoint with ``--half``, whole and
     ``--tile 32 --tile-overlap 8``, against the in-process route, and
-    tiled in process at tile 16, overlap 4.
+    tiled in process at tile 16, overlap 4; the CLI on the EDSR x4
+    checkpoint with ``--half`` against the in-process route.
 
 Prints the card line, the script's seconds, a ``{"kernels": [...]}`` JSON
 line, and last
@@ -164,6 +203,7 @@ line, and last
 from __future__ import annotations
 
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -178,7 +218,9 @@ from torch.func import functional_call
 
 import studiosr_tpu_torch
 from studiosr_tpu_torch import HAT, Evaluator2, MaxSR, SwinFIR, SwinIR, Trainer, load_model, resolve_device
+from studiosr_tpu_torch.zoo.registry import get_model_class
 from studiosr_tpu_torch.data import PairedImageDataset
+from studiosr_tpu_torch.models.blocks import Conv
 from studiosr_tpu_torch.ops.cuda import _build, engagement
 from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd, attention_bwd_plain
 from studiosr_tpu_torch.ops.attention import attention_plain
@@ -203,7 +245,7 @@ from studiosr_tpu_torch.ops.windows import calculate_mask, gather_rel_bias, rela
 from studiosr_tpu_torch.parallel import build_optimizer, make_train_step, prepare_state
 from studiosr_tpu_torch.serving.hat_fast import prepare_hat_serving
 from studiosr_tpu_torch.serving.swinir_fast import prepare_serving
-from studiosr_tpu_torch.utils import compute_psnr, imread, imwrite, l1_loss
+from studiosr_tpu_torch.utils import compute_psnr, get_loss, imread, imwrite, l1_loss
 
 MAIN = dict(scale=4, embed_dim=180, depths=[6] * 6, num_heads=[6] * 6, window_size=8, mlp_ratio=2.0)
 LR = 256
@@ -391,6 +433,49 @@ WINDOW_ATTN_CASES = (
     ("mask over 2 images", 128, 4, 64, 32, True, 64), ("N 1024", 4, 4, 1024, 32, True, 0),
     ("N 36 d 16", 64, 2, 36, 16, True, 0), ("d 12", 64, 4, 64, 12, False, 0),
 )
+
+# MaxSR x4 training: MAXSR_MAIN (adaptive; and its static mode) at the JAX
+# Trainer's defaults (batch 32 of 64x64 LR crops, bf16 over f32 masters, Adam
+# 2e-4 (0.9, 0.99), L1), fused_train left to the Trainer: each of the 32
+# attention pairs a step through B5 and B8 (C 128, 4 heads of 32, window 8,
+# zero qkv / proj biases) and B6 and B7 (hidden 512).
+MAXSR_TRAIN_STEPS = 3
+MAXSR_TRAIN_DIR = ROOT / "build" / "chip_smoke_maxsr_train"
+# the MaxSR Trainer's evaluation set: square LR maps whose adaptive windows
+# (9, 12) the training kernels do not take; evaluations run plainly
+MAXSR_EVAL_SIDES = (72, 128)
+MAXSR_PER_STEP = {"fused_window_attention_block": 32, "attention_bwd": 32, "fused_mlp_block": 32, "mlp_bwd": 32}
+# the kernels line's MaxSR-step rows: row name -> the wrapper whose launches it counts
+MAXSR_ROWS = {f"{name}_maxsr": name for name in MAXSR_PER_STEP}
+KERNELS.update({row: KERNELS[name] for row, name in MAXSR_ROWS.items()})
+# How hold_grads holds a model's gradients: the f32 fused run against the f64
+# witness, or (MaxSR) against plain autograd in f32, whose own reading from the
+# witness goes up to 1.8e-5 (conv_last.weight, adaptive, batch 4: sums over
+# 262,144 output pixels), so that only the fused-vs-plain reading isolates the
+# kernels' error; and the parameters whose gradient is 0 in exact arithmetic
+# (MaxSR's MBConv convs' biases, each followed by a BatchNorm on batch
+# statistics), whose error is measured against the norm of all the
+# reference's gradients, not against their own.
+GRAD_RULES = {"f32_against": ("fused", torch.float32), "zero_grads": ()}
+MAXSR_GRAD_RULES = {"f32_against": ("fused-vs-plain", torch.float32),
+                    "zero_grads": ("fn.0.bias", "fn.3.bias", "fn.7.bias")}
+
+# The eight conv families (no TPU kernel in the JAX package: cuDNN convs) at
+# their build defaults, the published widths; x4 serving, bf16, batch 1,
+# 256x256 LR; EDSR and SRResNet (BatchNorm) train 3 steps at their recipes.
+CONV_FAMILIES = ("srcnn", "espcn", "vdsr", "srresnet", "edsr", "rcan", "han", "imdn")
+CONV_TRAIN = ("edsr", "srresnet")
+CONV_TRAIN_STEPS = 3
+CONV_TRAIN_DIR = ROOT / "build" / "chip_smoke_conv_train"
+# Their trained checkpoints (tests/fixtures/quality) and floors
+# (tests/models/test_quality_fixture.py): (directory, model, scale, LR suffix);
+# plain f32 > bicubic + 2.0 dB, bf16 > bicubic + 1.5; the ESPCN x2 checkpoint
+# (``ckpt``) > bicubic + 1.0 and > 30 dB, its bf16 > bicubic + 1.0.
+CONV_TRAINED = (("ckpt", "espcn", 2, "_lr"), ("srcnn_ckpt", "srcnn", 2, "_lrx2"), ("vdsr_ckpt", "vdsr", 2, "_lrx2"),
+                ("srresnet_ckpt", "srresnet", 4, "_lrx4"), ("edsr_ckpt", "edsr", 4, "_lrx4"),
+                ("rcan_ckpt", "rcan", 4, "_lrx4"), ("han_ckpt", "han", 4, "_lrx4"), ("han_x8_ckpt", "han", 8, "_lrx8"),
+                ("imdn_ckpt", "imdn", 4, "_lrx4"))
+CONV_FLOOR_PLAIN, CONV_FLOOR_BF16, ESPCN_FLOOR, ESPCN_ABSOLUTE = 2.0, 1.5, 1.0, 30.0
 
 
 def log(msg: str) -> None:
@@ -950,8 +1035,8 @@ def phase_train_kernels(model, dev: torch.device, cases=None) -> dict:
                     err = kernel_check(f"{name} [{label}] batch {batch} output {i}", k, p, dtype, failed)
                     if dtype == torch.bfloat16 and i == 0 and batch == TRAIN_BATCH:
                         errors[name] = max(errors.get(name, 0.0), err)
-                if name in PASS_THROUGH and label != "ragged rows" and not torch.equal(got[0][0],
-                                                                                     ops[PASS_THROUGH[name]][0]):
+                if name in PASS_THROUGH and not label.startswith(("ragged", "maxsr")) and not torch.equal(
+                        got[0][0], ops[PASS_THROUGH[name]][0]):  # MaxSR's pairs have no drop-path
                     failed.append(f"{name} [{label}] batch {batch} {dtype}: a dropped sample is not passed through")
                 del got, want
                 torch.cuda.empty_cache()
@@ -1035,19 +1120,23 @@ def train_grads(model, dev: torch.device, seed: int, grad_runs=GRAD_RUNS) -> dic
     return runs
 
 
-def grad_report(runs: dict, seed: int, label: str = "") -> dict:
-    """Every run's loss and gradients against the f64 witness, logged.
-    Returns {(path, dtype): {"loss": rel, "all": rel_l2, "params": {name: rel_l2}}}
-    plus the fused f32 run against the plain f32 run under ("fused-vs-plain", f32)."""
+def grad_report(runs: dict, seed: int, label: str = "", zero_grads: tuple = ()) -> dict:
+    """Every run's loss and gradients against the f64 witness, logged; the
+    parameters named by the suffixes ``zero_grads`` against the norm of all
+    the reference's gradients. Returns {(path, dtype): {"loss": rel, "all":
+    rel_l2, "params": {name: rel_l2}}} plus the fused f32 run against the
+    plain f32 run under ("fused-vs-plain", f32)."""
     ref_loss, ref, _, _ = runs[("plain", torch.float64)]
     names = list(ref)
     ref_all = torch.cat([ref[k].flatten() for k in names])
 
     def compare(loss, grads, ref_loss, ref, ref_all):
+        norm = float(torch.linalg.vector_norm(ref_all.double()))
         return {
             "loss": abs(loss - ref_loss) / abs(ref_loss),
             "all": rel_l2(torch.cat([grads[k].flatten() for k in names]), ref_all),
-            "params": {k: rel_l2(grads[k], ref[k]) for k in names},
+            "params": {k: (float(torch.linalg.vector_norm(grads[k].double() - ref[k].double())) / norm
+                           if k.endswith(zero_grads) else rel_l2(grads[k], ref[k])) for k in names},
         }
 
     report = {}
@@ -1060,8 +1149,8 @@ def grad_report(runs: dict, seed: int, label: str = "") -> dict:
         torch.cat([plain32[1][k].flatten() for k in names])), flipped=None)
     for (path, dtype), r in report.items():
         params = sorted(((v, k) for k, v in r["params"].items()), reverse=True)
-        tables = [v for v, k in params if k.endswith("bias_table")]
-        others = [(v, k) for v, k in params if not k.endswith("bias_table")]
+        tables = [v for v, k in params if k.endswith(("bias_table", "rel_pos_bias.weight"))] or [float("nan")]
+        others = [(v, k) for v, k in params if not k.endswith(("bias_table", "rel_pos_bias.weight"))]
         against = "plain f32" if path == "fused-vs-plain" else "f64 plain"
         flips = "" if r["flipped"] is None else (
             f"; kinks on the other side from the witness: L1 {r['flipped'][0]}, ReLU {r['flipped'][1]}")
@@ -1076,15 +1165,26 @@ def grad_report(runs: dict, seed: int, label: str = "") -> dict:
 def phase_train_grads(dev: torch.device, name: str = "swinir") -> None:
     """The fused-train module's loss and gradients, f32 and bf16, and the
     plain f32 and bf16 controls, against an f64 witness: plain autograd of
-    the port's SwinIR (or HAT) in f64 on the same weights, batch and
-    drop-path draws."""
+    the port's SwinIR (or HAT, or MaxSR in both modes) in f64 on the same
+    weights, batch and drop-path (dropsample) draws."""
+    if name == "maxsr":  # both modes, the adaptive one (the default) first
+        for adaptive in (True, False):
+            model = MaxSR.build(**{**MAXSR_MAIN, "adaptive": adaptive}, seed=SEED, device=dev)
+            hold_grads(dev, model, MAXSR_PER_STEP, f"maxsr {'adaptive' if adaptive else 'static'} ", MAXSR_GRAD_RULES)
+        return
     if name == "swinir":
         model, per_step, label = SwinIR.build(**TRAIN_MODEL, seed=SEED, device=dev), PER_STEP, ""
     else:
         model, per_step, label = HAT.build(**HAT_TRAIN_MODEL, seed=SEED, device=dev), HAT_PER_STEP, "hat "
+    hold_grads(dev, model, per_step, label)
+
+
+def hold_grads(dev: torch.device, model, per_step: dict, label: str, rules: dict = GRAD_RULES) -> None:
+    """``train_grads`` of ``model`` held to the limits of PERF.md section 2,
+    its f32 run and its zero-gradient parameters as ``rules`` says."""
     runs = train_grads(model, dev, SEED)
     del model
-    report = grad_report(runs, SEED, label)
+    report = grad_report(runs, SEED, label, rules["zero_grads"])
     failed = []
     for (path, dtype), (_, grads, launches, _) in runs.items():
         expected = per_step if path == "fused" else {}
@@ -1094,18 +1194,20 @@ def phase_train_grads(dev: torch.device, name: str = "swinir") -> None:
             failed.append(f"{path} {dtype}: non-finite gradients")
         if path == "fused":
             failed += train_entry_failures(f"{label}grads fused {dtype}", launches, dtype, GRAD_ENTRIES[(path, dtype)])
-    f32, bf16 = report[("fused", torch.float32)], report[("fused", torch.bfloat16)]
+    f32, bf16 = report[rules["f32_against"]], report[("fused", torch.bfloat16)]
+    against = "plain autograd in f32" if rules["f32_against"][0] == "fused-vs-plain" else "the f64 witness"
     control = report[("plain", torch.bfloat16)]["params"]
     worst32 = max(f32["params"].values())
     worst16 = max(bf16["params"].values())
     limits16 = {k: max(GRAD_BF16_REL_L2, GRAD_BF16_CONTROL * control[k]) for k in bf16["params"]}
     raised = {k: round(v, 4) for k, v in limits16.items() if v > GRAD_BF16_REL_L2}
-    log(f"{label}grads held: fused f32 loss rel {f32['loss']:.3e} and each parameter (worst {worst32:.3e}) <= "
-        f"{GRAD_F32_REL_L2:.0e}; fused bf16 loss rel {bf16['loss']:.3e} and all gradients {bf16['all']:.3e} <= "
-        f"{GRAD_BF16_REL_L2:.0e}, each parameter (worst {worst16:.3e}) <= {GRAD_BF16_REL_L2:.0e} or "
-        f"{GRAD_BF16_CONTROL:g}x the plain bf16 control's error (limits above {GRAD_BF16_REL_L2:.0e}: {raised})")
-    if f32["loss"] > GRAD_F32_REL_L2 or worst32 > GRAD_F32_REL_L2:
-        failed.append("f32 fused gradients disagree with the f64 witness")
+    log(f"{label}grads held: fused f32 vs {against}: loss rel {f32['loss']:.3e} and each parameter (worst "
+        f"{worst32:.3e}) <= {GRAD_F32_REL_L2:.0e}; fused bf16 loss rel {bf16['loss']:.3e} and all gradients "
+        f"{bf16['all']:.3e} <= {GRAD_BF16_REL_L2:.0e}, each parameter (worst {worst16:.3e}) <= "
+        f"{GRAD_BF16_REL_L2:.0e} or {GRAD_BF16_CONTROL:g}x the plain bf16 control's error (limits above "
+        f"{GRAD_BF16_REL_L2:.0e}: {raised})")
+    if max(f32["loss"], worst32) > GRAD_F32_REL_L2:
+        failed.append(f"f32 fused gradients disagree with {against}")
     if max(bf16["loss"], bf16["all"]) > GRAD_BF16_REL_L2 or any(
         v > limits16[k] for k, v in bf16["params"].items()
     ):
@@ -1134,7 +1236,7 @@ class MemoryPairs(PairedImageDataset):
 
 
 def _trainer(dev: torch.device, seed: int, losses: list, model=None, steps: int = TRAIN_STEPS + 1,
-             eval_interval: int = TRAIN_STEPS, ckpt_path: Path = TRAIN_DIR) -> Trainer:
+             eval_interval: int = TRAIN_STEPS, ckpt_path: Path = TRAIN_DIR, evaluator=None) -> Trainer:
     def criterion(pred, target):
         loss = l1_loss(pred, target)
         losses.append(loss.detach())
@@ -1142,7 +1244,7 @@ def _trainer(dev: torch.device, seed: int, losses: list, model=None, steps: int 
 
     if model is None:
         model = SwinIR.build(**TRAIN_MODEL, seed=seed, device=dev)
-    return Trainer(model, MemoryPairs(SEED), batch_size=TRAIN_BATCH, num_workers=4, max_iters=steps,
+    return Trainer(model, MemoryPairs(SEED), evaluator, batch_size=TRAIN_BATCH, num_workers=4, max_iters=steps,
                    eval_interval=eval_interval, ckpt_path=str(ckpt_path), seed=SEED, log_interval=100,
                    loss_function=criterion)
 
@@ -2253,17 +2355,304 @@ def phase_maxsr(dev: torch.device) -> dict:
 
 
 
+# -- MaxSR training (B5-B8 at its geometry) ------------------------------------------
+
+
+def maxsr_train_kernel_cases(models, dev: torch.device, dtype: torch.dtype, batch: int):
+    """(name, label, kernel fn, plain fn, operands) of B5, B8, B6 and B7 at
+    MaxSR's training shapes ((batch, 64, 64, 128) maps, 4 heads of 32, window
+    8, zero qkv and proj biases, no drop-path) with the first attention
+    pair's weights of each mode of ``models`` (adaptive, static): the
+    static mode's table bias gathered in the run's dtype (as the bf16 step
+    gathers it from its bf16 table), the adaptive mode's f32 zero bias and
+    inner LayerNorm; B6 and B7 (hidden 512) on the static pair's rows,
+    whole and less 37 (a ragged last tile)."""
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 40)
+    c, ws = MAXSR_MAIN["dim"], MAXSR_MAIN["window_size"]
+    heads = c // MAXSR_MAIN["dim_head"]
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev, dtype)
+
+    x = randn(batch, TRAIN_CROP, TRAIN_CROP, c)
+    g = randn(batch, TRAIN_CROP, TRAIN_CROP, c, scale=1e-3)
+    w = lambda t: t.detach().t().to(dtype).contiguous()  # noqa: E731
+    f = lambda t: t.detach().float().contiguous()  # noqa: E731
+    zb3, zb1 = torch.zeros(3 * c, device=dev), torch.zeros(c, device=dev)
+    kw = dict(heads=heads, window_size=ws, shift=0)
+    cases = []
+    for mode, model in zip(("adaptive", "static"), models):
+        pair = next(model.module._trios(0))[1]
+        attn, ff = pair._modules[pair.attn_name], pair._modules[pair.ff_name]
+        a = attn.fn
+        if a.static:
+            ln, bias = attn.norm, gather_rel_bias(f(a.rel_pos_bias.weight), relative_position_index(ws), heads)
+            bias = bias.to(dtype)
+        else:
+            ln, bias = a.norm, torch.zeros(heads, ws * ws, ws * ws, device=dev)
+        attn_ops = (f(ln.weight), f(ln.bias), w(a.to_qkv.weight), zb3, w(a.to_out._modules["0"].weight), zb1, bias)
+        label = f"maxsr {mode}"
+        cases.append(("fused_window_attention_block", label, lambda *o: fused_window_attention_block(*o, **kw),
+                      lambda *o: window_attention_plain(*o, **kw), (x, *attn_ops)))
+        cases.append(("attention_bwd", label, lambda *o: attention_bwd(*o, **kw),
+                      lambda *o: attention_bwd_plain(*o, **kw), (x, g, *attn_ops)))
+        if a.static:
+            net = ff.fn.net._modules
+            rows = batch * TRAIN_CROP * TRAIN_CROP
+            xr, gr = x.reshape(rows, c), g.reshape(rows, c)
+            mlp_ops = (f(ff.norm.weight), f(ff.norm.bias), w(net["0"].weight), f(net["0"].bias), w(net["3"].weight))
+            cases.append(("fused_mlp_block", "maxsr rows", fused_mlp_block, mlp_block_plain,
+                          (xr, *mlp_ops, f(net["3"].bias))))
+            cases.append(("fused_mlp_block", "maxsr ragged rows", fused_mlp_block, mlp_block_plain,
+                          (xr[: rows - 37], *mlp_ops, f(net["3"].bias))))
+            cases.append(("mlp_bwd", "maxsr rows", mlp_bwd, mlp_bwd_plain, (xr, gr, *mlp_ops)))
+    return cases
+
+
+def maxsr_models(dev: torch.device) -> tuple:
+    return tuple(MaxSR.build(**{**MAXSR_MAIN, "adaptive": adaptive}, seed=SEED, device=dev)
+                 for adaptive in (True, False))
+
+
+def phase_maxsr_train(dev: torch.device):
+    """``Trainer.run`` on MaxSR x4 (the build defaults) for 3 steps at the
+    JAX Trainer's defaults, nothing passed to turn the kernels on: bf16 and
+    fused_train by default on the card, launch counts per step (B5-B8 32
+    each, nothing else, every launch through its bf16 H100 entry), finite
+    losses, moved weights, the MBConvs' BatchNorm running statistics moved;
+    after the last step an evaluation on the card of square LR maps of
+    ``MAXSR_EVAL_SIDES`` (windows 9 and 12: the plain path, no launch)."""
+    shutil.rmtree(MAXSR_TRAIN_DIR, ignore_errors=True)
+    rng = np.random.default_rng(SEED + 5)
+    eval_root = MAXSR_TRAIN_DIR / "eval" / "square"
+    scale = MAXSR_MAIN["scale"]
+    (eval_root / "HR").mkdir(parents=True)
+    (eval_root / "LR_bicubic" / f"X{scale}").mkdir(parents=True)
+    for side in MAXSR_EVAL_SIDES:
+        imwrite(str(eval_root / "HR" / f"{side}.png"), rng.integers(0, 256, (scale * side,) * 2 + (3,), np.uint8))
+        imwrite(str(eval_root / "LR_bicubic" / f"X{scale}" / f"{side}.png"),
+                rng.integers(0, 256, (side, side, 3), np.uint8))
+    losses: list = []
+    model = MaxSR.build(**MAXSR_MAIN, seed=SEED, device=dev)
+    trainer = _trainer(dev, SEED, losses, model=model, steps=MAXSR_TRAIN_STEPS, eval_interval=MAXSR_TRAIN_STEPS,
+                       ckpt_path=MAXSR_TRAIN_DIR, evaluator=Evaluator2("square", scale, root=str(eval_root.parent)))
+    module = model.module
+    before = {k: p.detach().clone() for k, p in module.named_parameters()}
+    stats = {k: v.clone() for k, v in module.state_dict().items() if k.endswith(("running_mean", "running_var"))}
+    engagement.reset()
+    t0 = time.perf_counter()
+    trainer.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = engagement.counters()
+    steps = MAXSR_TRAIN_STEPS
+    values = [float(v) for v in losses]
+    log(f"\nmaxsr trained {steps} steps in {seconds:.3f} s (host clock, first steps included); bf16 "
+        f"{trainer.bfloat16}, fused_train {trainer.fused_train}; launches {launches}")
+    log(f"maxsr losses {[round(v, 6) for v in values]}; evaluation on the card of square LR maps "
+        f"{MAXSR_EVAL_SIDES} (windows {[math.ceil(math.sqrt(s)) for s in MAXSR_EVAL_SIDES]}): PSNR "
+        f"{trainer.best_psnr:.4f} dB")
+    failed = []
+    if not (np.isfinite(trainer.best_psnr) and trainer.best_psnr > 0):
+        failed.append(f"maxsr trainer evaluation: PSNR {trainer.best_psnr}")
+    if not (trainer.bfloat16 and trainer.fused_train):
+        failed.append("the trainer did not default to bf16 and fused_train for MaxSR on the card")
+    for name in set(launches) | set(MAXSR_PER_STEP):
+        if launches.get(name, 0) != MAXSR_PER_STEP.get(name, 0) * steps:
+            failed.append(f"maxsr {name}: {launches.get(name, 0)} launches in {steps} steps, expected "
+                          f"{MAXSR_PER_STEP.get(name, 0)} a step")
+    failed += train_entry_failures("maxsr trainer", launches, torch.bfloat16)
+    if len(values) != steps or not all(np.isfinite(values)):
+        failed.append(f"maxsr losses {values}")
+    moved = sum(not torch.equal(p.detach(), before[k]) for k, p in module.named_parameters())
+    if moved != len(before):
+        failed.append(f"only {moved} of {len(before)} MaxSR parameters changed")
+    state = module.state_dict()
+    stat_moved = sum(not torch.equal(state[k], v) for k, v in stats.items())
+    log(f"maxsr trainer: {stat_moved} of {len(stats)} BatchNorm running statistics moved")
+    if not stats or stat_moved != len(stats):
+        failed.append("the MBConvs' BatchNorm running statistics did not all move in the fused steps")
+    shutil.rmtree(MAXSR_TRAIN_DIR, ignore_errors=True)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return model, launches, steps
+
+
+def phase_maxsr_train_timing(model, models, dev: torch.device, errors: dict, launches: dict, steps: int) -> list:
+    """MaxSR step ms, images/s and peak memory over 5 steps after 2 warm-up
+    steps; B5, B8 (both modes), B6 and B7 at batch 32: ms, plain ms, bound,
+    the bf16 PyTorch yardstick; the kernels line's MaxSR-step rows (B5 and
+    B8 timed in the adaptive mode, the default)."""
+    module = model.module
+    module.fused_train = True
+    tx = build_optimizer()
+    state = prepare_state(module, tx)
+    step = make_train_step(module, tx, l1_loss, bfloat16=True)
+    lq, gt = _unit_batch(dev, TRAIN_BATCH, SEED + 4)
+    gen = torch.Generator().manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(lambda: step(state, lq, gt, gen), iters=5)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    module.fused_train = False
+    del state, tx
+    torch.cuda.empty_cache()
+    log(f"maxsr train step bf16 batch {TRAIN_BATCH} {TRAIN_CROP}x{TRAIN_CROP}: {step_ms:.3f} ms, "
+        f"{TRAIN_BATCH / (step_ms / 1e3):.1f} images/s, peak memory {peak:.2f} GiB")
+    rows, kernel_total = [], 0.0
+    ones = torch.ones(TRAIN_BATCH, device=dev)  # the yardsticks' drop-path scale: 1, as MaxSR's pairs have none
+    for name, label, kernel, plain, ops in maxsr_train_kernel_cases(models, dev, torch.bfloat16, TRAIN_BATCH):
+        if label == "maxsr ragged rows":
+            continue
+        ms = time_ms(lambda: kernel(*ops), iters=10)
+        plain_ms = time_ms(lambda: plain(*ops), iters=3, warmup=1)
+        flops, moved = train_bounds(name, ops)
+        bms, by = bound_ms(flops, moved)
+        per = MAXSR_PER_STEP[name]
+        log(f"time {name} [{label}] bf16 batch {TRAIN_BATCH}: {ms:.3f} ms ({100 * per * ms / step_ms:.1f} % of a "
+            f"MaxSR step at {per} a step), plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), {flops / 1e9:.2f} "
+            f"GFLOP, {moved / 1e6:.1f} MB; launches {launches.get(name, 0)} in {steps} steps")
+        kw = dict(heads=MAXSR_MAIN["dim"] // MAXSR_MAIN["dim_head"], window_size=MAXSR_MAIN["window_size"], shift=0,
+                  drop_path=ones, rows_per_sample=TRAIN_CROP * TRAIN_CROP)
+        yardstick_report(name, ops, ms, bms, kw)
+        if label == "maxsr static" and name in ("fused_window_attention_block", "attention_bwd"):
+            continue  # the rows are the adaptive mode's, the default
+        kernel_total += per * ms
+        source, replaces = KERNELS[name]
+        rows.append(dict(name=f"{name}_maxsr", route="cuda", source=source, replaces=replaces,
+                         launches=launches.get(name, 0), max_abs_err=errors[name], ms=ms, plain_ms=plain_ms,
+                         bound_ms=bms, bound_by=by, library_ms=None))
+    log(f"maxsr train step: kernels {kernel_total:.1f} ms, the rest (MBConvs, LayerNorms, stem, fusion, tail, "
+        f"loss, optimizer, gaps) {step_ms - kernel_total:.1f} ms")
+    return rows
+
+
+# -- the conv families (cuDNN convs; no kernel of the port) ---------------------------
+
+
+def conv_layer_errors(module: torch.nn.Module) -> tuple:
+    """Forward hooks on every NHWC ``Conv`` of ``module``: each call's output
+    against the same conv in f32 on the same (bf16) input and weights,
+    relative L2. Returns (handles, [(name, rel), ...])."""
+    errors = []
+
+    def hook(name):
+        def check(conv, inputs, out):
+            bias = None if conv.bias is None else conv.bias.float()
+            want = conv._conv_forward(inputs[0].permute(0, 3, 1, 2).float(), conv.weight.float(), bias)
+            errors.append((name, rel_l2(out, want.permute(0, 2, 3, 1))))
+        return check
+
+    handles = [m.register_forward_hook(hook(n)) for n, m in module.named_modules() if isinstance(m, Conv)]
+    return handles, errors
+
+
+def phase_conv_serving(dev: torch.device) -> None:
+    """Each conv family x4 at its build defaults (the published widths and
+    the reference's flax init): every conv of the bf16 forward against the
+    same conv in f32 on the same input (relative L2, held); the bf16 forward
+    against the f32 one end to end (relative L2, logged: at the reference
+    init RCAN's and HAN's 200 residual blocks grow the output to ~1e6, where
+    bf16's rounding is amplified past any limit; the trained checkpoints of
+    phase 30 hold it); three bf16 requests through ``inference`` with no
+    kernel of the port launched; the bf16 forward's time."""
+    images = requests()
+    x = torch.from_numpy(images[0]).to(dev).float()[None] / 255.0
+    failed = []
+    for name in CONV_FAMILIES:
+        model = get_model_class(name).build(scale=4, seed=SEED, device=dev)
+        plain = model(x)
+        model.half()
+        handles, layers = conv_layer_errors(model.module)
+        engagement.reset()
+        try:
+            y16 = model(x)
+        finally:
+            for handle in handles:
+                handle.remove()
+        outs = [model.inference(im) for im in images]
+        launches = engagement.counters()
+        torch.cuda.synchronize()
+        rel16 = rel_l2(y16, plain)
+        worst = max(layers, key=lambda e: e[1])
+        fwd = time_ms(lambda: model(x), iters=5)
+        log(f"{name} x4 ({model.count_parameters()} parameters) bf16: {len(layers)} conv calls each vs f32 on its "
+            f"input, worst rel_l2 {worst[1]:.3e} ({worst[0]}) limit {E2E_BF16_REL_L2:.0e}; end to end vs the f32 "
+            f"forward rel_l2 {rel16:.3e} (f32 output std {float(plain.std()):.3e}); served {len(outs)} requests, "
+            f"launches {launches}; forward bf16 batch 1 {LR}x{LR}: {fwd:.3f} ms, "
+            f"{LR * LR / 1e6 / (fwd / 1e3):.3f} LR MP/s")
+        if not worst[1] <= E2E_BF16_REL_L2:
+            failed.append(f"{name}: bf16 conv {worst[0]} disagrees with f32 on its input ({worst[1]:.3e})")
+        if not bool(torch.isfinite(y16).all()) or y16.shape != (1, 4 * LR, 4 * LR, 3):
+            failed.append(f"{name}: bf16 forward {tuple(y16.shape)}, finite {bool(torch.isfinite(y16).all())}")
+        if launches:
+            failed.append(f"{name}: launched {launches}")
+        if any(o.shape != (4 * LR, 4 * LR, 3) or o.dtype != np.uint8 for o in outs):
+            failed.append(f"{name}: bad outputs")
+        del model, plain, y16
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
+def phase_conv_train(dev: torch.device) -> None:
+    """``Trainer.run`` for 3 steps of EDSR and of SRResNet (BatchNorm) at
+    their recipes (``get_training_config``) on the seeded in-memory dataset:
+    finite losses, moved weights and (SRResNet) running statistics, no kernel
+    of the port launched."""
+    failed = []
+    for name in CONV_TRAIN:
+        shutil.rmtree(CONV_TRAIN_DIR, ignore_errors=True)
+        model = get_model_class(name).build(scale=4, seed=SEED, device=dev)
+        recipe = model.get_training_config()
+        loss_fn, losses = get_loss(recipe.pop("loss_function", "l1")), []
+
+        def criterion(pred, target, loss_fn=loss_fn, losses=losses):
+            loss = loss_fn(pred, target)
+            losses.append(loss.detach())
+            return loss
+
+        trainer = Trainer(model, MemoryPairs(SEED), **{**recipe, "max_iters": CONV_TRAIN_STEPS}, num_workers=4,
+                          eval_interval=CONV_TRAIN_STEPS + 1, ckpt_path=str(CONV_TRAIN_DIR), seed=SEED,
+                          log_interval=100, loss_function=criterion)
+        module = model.module
+        before = {k: v.clone() for k, v in module.state_dict().items() if not k.endswith("num_batches_tracked")}
+        engagement.reset()
+        t0 = time.perf_counter()
+        trainer.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = engagement.counters()
+        values = [float(v) for v in losses]
+        state = module.state_dict()
+        moved = sum(not torch.equal(state[k], v) for k, v in before.items())
+        log(f"{name} trained {CONV_TRAIN_STEPS} steps at its recipe (batch {recipe['batch_size']}, bf16 "
+            f"{trainer.bfloat16}) in {seconds:.3f} s (host clock); losses {[round(v, 6) for v in values]}; "
+            f"{moved} of {len(before)} parameters and running statistics moved; launches {launches}")
+        if len(values) != CONV_TRAIN_STEPS or not all(np.isfinite(values)):
+            failed.append(f"{name} losses {values}")
+        if moved != len(before):
+            failed.append(f"{name}: only {moved} of {len(before)} parameters and statistics moved")
+        if launches or trainer.bfloat16 != recipe.get("bfloat16", True):
+            failed.append(f"{name}: launches {launches}, bf16 {trainer.bfloat16}")
+        del trainer, model
+        torch.cuda.empty_cache()
+    shutil.rmtree(CONV_TRAIN_DIR, ignore_errors=True)
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
 # -- the user's entry points: trained checkpoints, Evaluator, CLI -----------------
 
 
-def fixture_pairs(scale: int):
+def fixture_pairs(scale: int, suffix: str = ""):
     """The three fixture images: (LR at ``scale``, HR mod-cropped to it),
-    read with the port's PNG codec."""
+    read with the port's PNG codec; ``suffix`` names another LR file."""
     pairs = []
     for i in range(3):
         hr = imread(str(FIXTURES / f"img{i}_hr.png"))
         hr = hr[: hr.shape[0] // scale * scale, : hr.shape[1] // scale * scale]
-        pairs.append((imread(str(FIXTURES / f"img{i}_lrx{scale}.png")), hr))
+        pairs.append((imread(str(FIXTURES / f"img{i}{suffix or f'_lrx{scale}'}.png")), hr))
     return pairs
 
 
@@ -2273,18 +2662,19 @@ def bicubic(lr: np.ndarray, h: int, w: int, dev: torch.device) -> np.ndarray:
     return torch.clamp(torch.round(up * 255.0), 0, 255).to(torch.uint8)[0].permute(1, 2, 0).cpu().numpy()
 
 
-def maxsr_stats_restored(model) -> list:
-    """[] when the MBConvs' BatchNorm running statistics came back from the
-    checkpoint (not the initial mean 0 / variance 1), else the failure."""
+def stats_restored(model, subdir: str) -> list:
+    """[] when the BatchNorm running statistics (MaxSR's MBConvs, SRResNet's
+    blocks) came back from the checkpoint (not the initial mean 0 / variance
+    1), else the failure."""
     stats = {k: v for k, v in model.module.state_dict().items() if k.endswith(("running_mean", "running_var"))}
     moved = [k for k, v in stats.items() if not torch.equal(v, torch.zeros_like(v) if k.endswith("mean") else
                                                          torch.ones_like(v))]
-    log(f"trained maxsr_ckpt: {len(moved)} of {len(stats)} running statistics differ from their initial values")
-    return [] if stats and len(moved) == len(stats) else ["maxsr_ckpt: BatchNorm running statistics not restored"]
+    log(f"trained {subdir}: {len(moved)} of {len(stats)} running statistics differ from their initial values")
+    return [] if stats and len(moved) == len(stats) else [f"{subdir}: BatchNorm running statistics not restored"]
 
 
 def phase_trained(dev: torch.device) -> list:
-    """The nine trained checkpoints on the card, each image against the
+    """The eighteen trained checkpoints on the card, each image against the
     floors. Returns (checkpoint, image, bicubic, plain, fused f32, fused
     bf16) PSNRs."""
     table, failed = [], []
@@ -2293,7 +2683,7 @@ def phase_trained(dev: torch.device) -> list:
         for i, (lr, hr) in enumerate(fixture_pairs(scale)):
             model = load_model(ckpt, name, device=dev)
             if name == "maxsr" and i == 0:
-                failed += maxsr_stats_restored(model)
+                failed += stats_restored(model, subdir)
             bi = compute_psnr(bicubic(lr, *hr.shape[:2], dev), hr)
             plain = compute_psnr(model.inference(lr), hr)
             fused = compute_psnr(model.enable_fused(True).inference(lr), hr)
@@ -2309,6 +2699,32 @@ def phase_trained(dev: torch.device) -> list:
                 failed.append(f"{subdir} img{i}: fused {fused:.3f} vs plain {plain:.3f}")
             if not (bf16 > bi + FLOOR_BF16 and abs(bf16 - plain) < FLOOR_BF16_VS_PLAIN):
                 failed.append(f"{subdir} img{i}: bf16 {bf16:.3f} vs bicubic {bi:.3f}, plain {plain:.3f}")
+    for subdir, name, scale, suffix in CONV_TRAINED:
+        ckpt = str(FIXTURES / subdir)
+        for i, (lr, hr) in enumerate(fixture_pairs(scale, suffix)):
+            model = load_model(ckpt, name, device=dev)
+            if name == "srresnet" and i == 0:
+                failed += stats_restored(model, subdir)
+            bi = compute_psnr(bicubic(lr, *hr.shape[:2], dev), hr)
+            plain = compute_psnr(model.inference(lr), hr)
+            x = torch.from_numpy(lr).to(dev).float()[None] / 255.0
+            y32 = model(x)
+            engagement.reset()
+            rel16 = rel_l2(model.half()(x), y32)
+            bf16 = compute_psnr(model.inference(lr), hr)
+            launches = engagement.counters()
+            table.append((subdir, i, bi, plain, None, bf16))
+            log(f"trained {subdir} img{i}: bicubic {bi:.4f} plain f32 {plain:.4f} bf16 {bf16:.4f} dB; bf16 vs f32 "
+                f"forward rel_l2 {rel16:.3e} limit {E2E_BF16_REL_L2:.0e}")
+            if not rel16 <= E2E_BF16_REL_L2:
+                failed.append(f"{subdir} img{i}: bf16 forward vs f32 rel_l2 {rel16:.3e}")
+            if name == "espcn":
+                if not (plain > bi + ESPCN_FLOOR and plain > ESPCN_ABSOLUTE and bf16 > bi + ESPCN_FLOOR):
+                    failed.append(f"{subdir} img{i}: plain {plain:.3f}, bf16 {bf16:.3f} vs bicubic {bi:.3f}")
+            elif not (plain > bi + CONV_FLOOR_PLAIN and bf16 > bi + CONV_FLOOR_BF16):
+                failed.append(f"{subdir} img{i}: plain {plain:.3f}, bf16 {bf16:.3f} vs bicubic {bi:.3f}")
+            if launches:
+                failed.append(f"{subdir}: launched {launches}")
     if failed:
         raise AssertionError("trained checkpoints below their floors: " + "; ".join(failed))
     return table
@@ -2365,10 +2781,23 @@ def phase_cli(dev: torch.device) -> None:
         log(f"cli {label} ({time.perf_counter() - t0:.1f} s, host clock): PSNR {psnrs[label]:.4f} dB")
     tiled16 = compute_psnr(model.inference_tiled(lr, tile=16, tile_overlap=4, tile_batch=4), hr)
     log(f"cli: in-process fused bf16 {want:.4f} dB; tiled in process at tile 16, overlap 4: {tiled16:.4f} dB")
+    # a conv family's checkpoint the same way (EDSR x4, bf16 on cuDNN)
+    conv_ckpt = FIXTURES / "edsr_ckpt"
+    conv_want = compute_psnr(load_model(str(conv_ckpt), "edsr", device=dev).half().inference(lr), hr)
+    out = CLI_DIR / "edsr"
+    cmd = [sys.executable, "-m", "studiosr_tpu_torch", "--image", str(image.relative_to(ROOT)), "--scale", "4",
+           "--model", "edsr", "--ckpt", str(conv_ckpt.relative_to(ROOT)), "--output", str(out), "--half"]
+    t0 = time.perf_counter()
+    subprocess.run(cmd, cwd=ROOT, check=True, timeout=600, capture_output=True, text=True)
+    conv_cli = compute_psnr(imread(str(out / "img0_lrx4.edsr_x4.png")), hr)
+    log(f"cli edsr_ckpt ({time.perf_counter() - t0:.1f} s, host clock): PSNR {conv_cli:.4f} dB; in process bf16 "
+        f"{conv_want:.4f} dB")
     shutil.rmtree(CLI_DIR, ignore_errors=True)
     failed = []
     if not abs(psnrs["whole"] - want) < CLI_PSNR:
         failed.append(f"the CLI's {psnrs['whole']:.4f} dB differs from the in-process {want:.4f} dB")
+    if not abs(conv_cli - conv_want) < CLI_PSNR:
+        failed.append(f"the CLI's EDSR {conv_cli:.4f} dB differs from the in-process {conv_want:.4f} dB")
     if not (psnrs["tiled"] > psnrs["whole"] - TILED_PSNR and tiled16 > want - TILED_PSNR):
         failed.append(f"tiled {psnrs['tiled']:.4f} / {tiled16:.4f} dB vs whole {psnrs['whole']:.4f} dB")
     if failed:
@@ -2417,6 +2846,15 @@ def main() -> int:
     phase_swinfir_grads(dev)
     phase_swinfir_train(dev)
     rows.append(phase_maxsr(dev))
+    models = maxsr_models(dev)
+    maxsr_errors = phase_train_kernels(models, dev, maxsr_train_kernel_cases)
+    phase_train_grads(dev, "maxsr")
+    maxsr_trained, maxsr_launches, maxsr_steps = phase_maxsr_train(dev)
+    rows += phase_maxsr_train_timing(maxsr_trained, models, dev, maxsr_errors, maxsr_launches, maxsr_steps)
+    del maxsr_trained, models
+    torch.cuda.empty_cache()
+    phase_conv_serving(dev)
+    phase_conv_train(dev)
     phase_trained(dev)
     phase_evaluator(dev)
     phase_cli(dev)

@@ -2,13 +2,15 @@
 """Device time of each CUDA kernel inside the port's training kernels, and
 of a whole training step.
 
-    python3 scripts/torch_profile_train_kernels.py [--model swinir|hat]
+    python3 scripts/torch_profile_train_kernels.py [--model swinir|hat|maxsr]
 
 1. One launch of each wrapper runs at the training step's shapes (C 180, 6
    heads, batch 32 of 64x64 maps, bf16, one drop-path scale 0) under
    ``torch.profiler``: for SwinIR x4 B5, B6, B7, B8 (window 8); for HAT_SRx4
    B5 and B9 at window 16, B6, B7, and B12, B13 on the OCAB's (512 windows,
-   6 heads, 256 queries, 576 keys, d 30) transposed views. The script
+   6 heads, 256 queries, 576 keys, d 30) transposed views; for MaxSR x4 (the
+   build defaults) B5, B6, B7, B8 at C 128, 4 heads, hidden 512, window 8,
+   shift 0, no drop-path, zero qkv and proj biases. The script
    prints, per wrapper, the device time of every kernel it enqueued (the
    weight pack, the projection, attention and LN passes, the
    weight-gradient GEMMs, the reductions), averaged over 5 calls after 2
@@ -35,7 +37,7 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from studiosr_tpu_torch import HAT, SwinIR, resolve_device  # noqa: E402
+from studiosr_tpu_torch import HAT, MaxSR, SwinIR, resolve_device  # noqa: E402
 from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd  # noqa: E402
 from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block  # noqa: E402
 from studiosr_tpu_torch.ops.cuda.mlp_bwd import mlp_bwd  # noqa: E402
@@ -55,6 +57,8 @@ def profile_step(dev: torch.device, name: str) -> None:
     if name == "swinir":
         model = SwinIR.build(scale=4, embed_dim=C, depths=[6] * 6, num_heads=[HEADS] * 6, window_size=8,
                              mlp_ratio=2.0, drop_path_rate=0.1, device=dev)
+    elif name == "maxsr":
+        model = MaxSR.build(scale=4, device=dev)
     else:
         model = HAT.build(scale=4, embed_dim=C, depths=[6] * 6, num_heads=[HEADS] * 6, window_size=16, mlp_ratio=2.0,
                           compress_ratio=3, squeeze_factor=30, conv_scale=0.01, overlap_ratio=0.5,
@@ -88,7 +92,7 @@ def profile_step(dev: torch.device, name: str) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--model", choices=("swinir", "hat"), default="swinir")
+    parser.add_argument("--model", choices=("swinir", "hat", "maxsr"), default="swinir")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -102,18 +106,22 @@ def main() -> int:
     def randn(*shape, scale=1.0, dtype=bf):
         return (torch.randn(*shape, generator=gen) * scale).to(dev, dtype)
 
-    x, g = randn(B, S, S, C), randn(B, S, S, C, scale=1e-3)
-    ws = 8 if args.model == "swinir" else 16
-    attn = (1 + randn(C, scale=0.1, dtype=f32), randn(C, scale=0.1, dtype=f32), randn(C, 3 * C, scale=C**-0.5),
-            randn(3 * C, scale=0.1, dtype=f32), randn(C, C, scale=C**-0.5), randn(C, scale=0.1, dtype=f32),
-            randn(HEADS, ws * ws, ws * ws, scale=0.5, dtype=f32))
-    mlp = (1 + randn(C, scale=0.1, dtype=f32), randn(C, scale=0.1, dtype=f32), randn(C, 2 * C, scale=C**-0.5),
-           randn(2 * C, scale=0.1, dtype=f32), randn(2 * C, C, scale=(2 * C) ** -0.5))
-    b2 = randn(C, scale=0.1, dtype=f32)
+    maxsr = args.model == "maxsr"
+    c, heads, hidden = (128, 4, 512) if maxsr else (C, HEADS, 2 * C)
+    x, g = randn(B, S, S, c), randn(B, S, S, c, scale=1e-3)
+    ws = 16 if args.model == "hat" else 8
+    attn = [1 + randn(c, scale=0.1, dtype=f32), randn(c, scale=0.1, dtype=f32), randn(c, 3 * c, scale=c**-0.5),
+            randn(3 * c, scale=0.1, dtype=f32), randn(c, c, scale=c**-0.5), randn(c, scale=0.1, dtype=f32),
+            randn(heads, ws * ws, ws * ws, scale=0.5, dtype=f32)]
+    mlp = (1 + randn(c, scale=0.1, dtype=f32), randn(c, scale=0.1, dtype=f32), randn(c, hidden, scale=c**-0.5),
+           randn(hidden, scale=0.1, dtype=f32), randn(hidden, c, scale=hidden**-0.5))
+    b2 = randn(c, scale=0.1, dtype=f32)
     dp = torch.full((B,), 1 / 0.9, device=dev)
     dp[0] = 0.0
-    rows = (x.reshape(-1, C), g.reshape(-1, C))
-    akw = dict(heads=HEADS, window_size=ws, shift=ws // 2, drop_path=dp)
+    if maxsr:  # MaxSR's pairs: no drop-path, no qkv / proj bias, no shift
+        dp, attn[3], attn[5] = None, torch.zeros_like(attn[3]), torch.zeros_like(attn[5])
+    rows = (x.reshape(-1, c), g.reshape(-1, c))
+    akw = dict(heads=heads, window_size=ws, shift=0 if maxsr else ws // 2, drop_path=dp)
     mkw = dict(drop_path=dp, rows_per_sample=S * S)
     cases = {
         f"B5 fused_window_attention_block (window {ws})": lambda: fused_window_attention_block(x, *attn, **akw),

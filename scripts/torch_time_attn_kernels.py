@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's attention kernels on one NVIDIA GPU.
 
-    python3 scripts/torch_time_attn_kernels.py [--checkout DIR]
+    python3 scripts/torch_time_attn_kernels.py [--checkout DIR] [--bits FILE]
 
 Times, in bf16 with seeded operands, by CUDA events over 20 launches after 3
 warm-up launches:
@@ -66,6 +66,17 @@ JSON line: {"package": path, "card": nvidia-smi's name and power limit,
 script instead runs itself four times, with ``PYTHONPATH`` set to DIR, this
 checkout, this checkout and DIR (A, B, B, A on one card), prints each line
 and then a table of the four.
+
+``--bits FILE`` times nothing: it writes to FILE (``torch.save``) every
+output of the bf16 B6, B7 and B10 at the widths SwinIR's and HAT's paths
+run them (C 180, hidden 360), seeded: B6 on 131,072 rows with drop-path
+scales (the training step's) and with HAT's CAB join (``extra``) on 65,536
+rows on weights packed as HAT serving packs them; B7 on 131,072 rows with
+drop-path scales, dx and every f32 gradient; B10 at HAT x4 serving's 256 x
+256 map, window 16, overlap 0.5, packed weights and a bf16 bias. With
+``--checkout DIR`` as well, it writes FILE.parent from DIR's package and
+FILE.change from this checkout's on one card, names every output as the
+same bits or not, and exits 1 if any differs.
 """
 
 from __future__ import annotations
@@ -477,6 +488,69 @@ def measure() -> dict:
     return {"package": studiosr_tpu_torch.__file__, "card": card, "ms": ms, "passes": passes, "entries": entries}
 
 
+def kernel_bits() -> dict:
+    """The ``--bits`` outputs, on the host."""
+    import torch
+
+    if "PYTHONPATH" not in os.environ:
+        sys.path.insert(0, str(ROOT))
+    from studiosr_tpu_torch import resolve_device
+    from studiosr_tpu_torch.ops.cuda import _build
+    from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, pack_mlp_block
+    from studiosr_tpu_torch.ops.cuda.mlp_bwd import mlp_bwd
+    from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block, pack_ocab_block
+
+    dev = resolve_device("cuda")
+    _build.build(("mlp_block_mma", "mlp_bwd_mma", "ocab_mma"))
+    gen = torch.Generator().manual_seed(0)
+    bf, hidden = torch.bfloat16, 2 * C
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev, dtype)
+
+    rows, rps = BATCH * CROP * CROP, CROP * CROP
+    mlp = [1 + randn(C, scale=0.1), randn(C, scale=0.1), randn(C, hidden, scale=C**-0.5, dtype=bf),
+           randn(hidden, scale=0.1), randn(hidden, C, scale=hidden**-0.5, dtype=bf), randn(C, scale=0.1)]
+    x, g = randn(rows, C, dtype=bf), randn(rows, C, scale=1e-3, dtype=bf)
+    dp = torch.full((rows // rps,), 1 / 0.9, device=dev)
+    dp[0] = 0.0
+    out = {"B6 step": fused_mlp_block(x, *mlp, drop_path=dp, rows_per_sample=rps)}
+    for i, t in enumerate(mlp_bwd(x, g, *mlp[:5], drop_path=dp, rows_per_sample=rps)):
+        out[f"B7 step output {i}"] = t
+    xe, extra, escale = randn(65536, C, dtype=bf), randn(65536, C, dtype=bf), randn(C, scale=0.01)
+    blob = pack_mlp_block(mlp[2], mlp[4])
+    out["B6 extra serving"] = fused_mlp_block(xe, mlp[0], mlp[1], blob, mlp[3], None, mlp[5], extra=extra,
+                                              extra_scale=escale)
+    ocab = [1 + randn(C, scale=0.1), randn(C, scale=0.1), randn(C, 3 * C, scale=C**-0.5, dtype=bf),
+            randn(3 * C, scale=0.1), randn(C, C, scale=C**-0.5, dtype=bf), randn(C, scale=0.1),
+            randn(HEADS, 256, 576, scale=0.5, dtype=bf), 1 + randn(C, scale=0.1), randn(C, scale=0.1),
+            randn(C, hidden, scale=C**-0.5, dtype=bf), randn(hidden, scale=0.1),
+            randn(hidden, C, scale=hidden**-0.5, dtype=bf), randn(C, scale=0.1)]
+    ocab[2] = pack_ocab_block(ocab[2], ocab[4], ocab[9], ocab[11], HEADS)
+    ocab[4] = ocab[9] = ocab[11] = None
+    xs = randn(1, 256, 256, C, dtype=bf)
+    out["B10 serving"] = fused_ocab_block(xs, *ocab, heads=HEADS, window_size=16, overlap_ratio=0.5)
+    torch.cuda.synchronize()
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def ab_bits(checkout: Path, path: Path) -> int:
+    """``--bits`` on ``checkout`` and on this tree; 1 if any output differs."""
+    import torch
+
+    files = []
+    for label, tree in (("parent", checkout), ("change", ROOT)):
+        files.append(path.with_name(f"{path.name}.{label}"))
+        env = dict(os.environ, PYTHONPATH=str(tree))
+        subprocess.run([sys.executable, str(Path(__file__).resolve()), "--bits", str(files[-1])], env=env, cwd=tree,
+                       check=True, timeout=1800)
+    a, b = (torch.load(f, weights_only=True) for f in files)
+    differ = sorted(k for k in a.keys() | b.keys() if k not in a or k not in b or not torch.equal(a[k], b[k]))
+    for k in sorted(a):
+        print(f"{k}: {tuple(a[k].shape)} {a[k].dtype} {'differs' if k in differ else 'the same bits'}")
+    return 1 if differ else 0
+
+
 def ab(checkout: Path) -> None:
     """Run this script on ``checkout``, this tree, this tree, ``checkout``."""
     runs = []
@@ -496,15 +570,23 @@ def ab(checkout: Path) -> None:
                 f"{k} x{n:g} {t:.4f}" for k, n, t in line["passes"][name]))
 
 
-def main() -> None:
+def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--checkout", type=Path, help="a second checkout to compare with: parent, this, this, parent")
+    parser.add_argument("--bits", type=Path, metavar="FILE", help="write B6's, B7's and B10's outputs at hidden 360")
     args = parser.parse_args()
-    if args.checkout:
+    if args.bits and args.checkout:
+        return ab_bits(args.checkout.resolve(), args.bits.resolve())
+    if args.bits:
+        import torch
+
+        torch.save(kernel_bits(), args.bits)
+    elif args.checkout:
         ab(args.checkout.resolve())
     else:
         print(json.dumps(measure()))
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

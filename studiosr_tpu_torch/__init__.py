@@ -13,13 +13,10 @@ This package imports neither JAX nor anything of ``studiosr_tpu``.
 
 from studiosr_tpu_torch._device import resolve_device
 from studiosr_tpu_torch.engine import Evaluator, Evaluator2, Trainer, benchmark
-from studiosr_tpu_torch.models.hat import HAT
-from studiosr_tpu_torch.models.maxsr import MaxSR
-from studiosr_tpu_torch.models.swinfir import SwinFIR
-from studiosr_tpu_torch.models.swinir import SwinIR
+from studiosr_tpu_torch.models import EDSR, ESPCN, HAN, HAT, IMDN, RCAN, SRCNN, VDSR, MaxSR, SRResNet, SwinFIR, SwinIR
 from studiosr_tpu_torch.zoo.registry import load_model
 
 __all__ = [
-    "Evaluator", "Evaluator2", "HAT", "MaxSR", "SwinFIR", "SwinIR", "Trainer", "benchmark", "load_model",
-    "resolve_device",
+    "EDSR", "ESPCN", "Evaluator", "Evaluator2", "HAN", "HAT", "IMDN", "MaxSR", "RCAN", "SRCNN", "SRResNet", "SwinFIR",
+    "SwinIR", "Trainer", "VDSR", "benchmark", "load_model", "resolve_device",
 ]

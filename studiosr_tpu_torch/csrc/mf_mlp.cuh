@@ -8,7 +8,10 @@
 #include "am_common.cuh"
 
 constexpr int MF_CHUNK = 64;  // hidden units a chunk
-constexpr int MF_MAX_HIDDEN = 6 * MF_CHUNK;
+// hidden units at most: MaxSR's feed-forward (dim 128 x 4). Nothing in shared
+// memory or registers grows with it (the chunk loop is not unrolled); mirrored
+// by ops/cuda/mlp_block.py MMA_MAX_HIDDEN.
+constexpr int MF_MAX_HIDDEN = 8 * MF_CHUNK;
 
 // fc2's product width for C columns: the register-A wgmma widths wgmma.cuh has.
 __host__ __device__ inline int mf_np(int C) {

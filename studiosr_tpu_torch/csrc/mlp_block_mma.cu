@@ -46,7 +46,7 @@
 // Training packs the weights on every call (one gather by the index table of
 // ops/cuda/mlp_block.py _mma_pack_index, am_pack_kernel); HAT serving packs
 // them once, at load time (pack_mlp_block). Takes bf16, C a multiple of 4
-// up to 184, hidden up to 384; the wrapper routes anything else.
+// up to 184, hidden up to 512 (MF_MAX_HIDDEN); the wrapper routes anything else.
 // The kernel and its launch live in mf_mlp.cuh (B10's MLP tail runs them too).
 #include "mf_mlp.cuh"
 

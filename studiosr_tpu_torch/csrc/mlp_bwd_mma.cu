@@ -42,11 +42,16 @@
 // W2^T's columns; then W1^T (K the padded hidden units) in stages of 64
 // rows; each stage the image of a ring slot in wgmma's K-major core-matrix
 // layout (am_kmajor in am_common.cuh, _k_major there: change both together).
-// Takes bf16, C a multiple of 4 up to 184, hidden up to 384.
+// Takes bf16, C a multiple of 4 up to 184, hidden up to 512 (MB_MAX_HIDDEN).
 #include "am_common.cuh"
 
 constexpr int MB_CHUNK = 96;  // hidden units a product chunk
-constexpr int MB_MAX_HIDDEN = 4 * MB_CHUNK;
+// hidden units at most: MaxSR's feed-forward (dim 128 x 4), six chunks, the
+// last 32 wide. The chunk loop and pass 2's K loop are not unrolled, and no
+// shared memory, register or ring table grows with it (at most 18 stages of
+// the 80 the ring's table holds); only the scratch rows do. Mirrored by
+// ops/cuda/mlp_bwd.py MMA_MAX_HIDDEN.
+constexpr int MB_MAX_HIDDEN = 512;
 
 // The geometry, shared by the kernels and the host; the packed layout is
 // mirrored by ops/cuda/mlp_bwd.py.

@@ -7,8 +7,9 @@ Port of ``studiosr_tpu/engine/trainer.py`` on one device:
   and an EMA shadow (``ema_decay``);
 * ``fused_train`` defaults on for a model on the card (and off on the CPU):
   every Swin block then runs forward and backward through the CUDA kernels
-  B5-B8 (SwinIR), and every HAB and OCAB through B5, B9, B6, B7, B12 and
-  B13 (HAT). The module's flag is set for the run and restored after it;
+  B5-B8 (SwinIR), every HAB and OCAB through B5, B9, B6, B7, B12 and
+  B13 (HAT), and every MaxSR attention pair through B5-B8. The module's
+  flag is set for the run and restored after it;
 * each step draws its drop-path scales from a ``torch.Generator`` seeded
   from (seed, iteration), so a resumed run takes the same steps;
 * checkpoints are the triple-file scheme ``{tag}.model.ckpt`` /
@@ -132,7 +133,7 @@ class Trainer:
                     f"fused_train=True ignored: {type(module).__name__} has no fused-training path", stacklevel=2
                 )
         if self.fused_train:
-            # a model whose fused-training route is not ported raises here (MaxSR, ROADMAP A15b)
+            # a module that cannot take the route raises here (SwinIR or HAT with a drop_rate)
             module.fused_train = True
             module.fused_train = False
 

@@ -13,6 +13,10 @@ is the joined flax path with torch leaf names.
   ``BatchNorm``): statistics in f32, the biased batch variance for both the
   normalisation and the running update, momentum 0.1 in torch's convention
   (flax's 0.9), eps 1e-5.
+* The conv families' pieces (``mean_shift``, ``ResBlock``,
+  ``ChannelAttention``, ``PReLU``) keep the flax names (``body.0``,
+  ``conv_du.2``) and run on ``torch.nn.functional``'s convolutions
+  (cuDNN on the card), as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -40,6 +44,11 @@ __all__ = [
     "drop_path_scales",
     "drop_path",
     "DropPath",
+    "mean_shift",
+    "ResBlock",
+    "ChannelAttention",
+    "PReLU",
+    "flax_default_init",
 ]
 
 # DIV2K RGB mean, the normalization constant of the reference models.
@@ -66,15 +75,59 @@ class Conv(nn.Conv2d):
     """NHWC conv with torch-style ``k//2`` zero padding (OIHW weights);
     ``groups=features`` makes it depthwise."""
 
-    def __init__(self, in_features: int, features: int, kernel_size: int = 3, groups: int = 1) -> None:
-        super().__init__(in_features, features, kernel_size, padding=kernel_size // 2, groups=groups)
+    def __init__(self, in_features: int, features: int, kernel_size: int = 3, groups: int = 1,
+                 bias: bool = True) -> None:
+        super().__init__(in_features, features, kernel_size, padding=kernel_size // 2, groups=groups, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
-def conv(in_features: int, features: int, kernel_size: int = 3, groups: int = 1) -> Conv:
-    return Conv(in_features, features, kernel_size, groups)
+def conv(in_features: int, features: int, kernel_size: int = 3, groups: int = 1, bias: bool = True) -> Conv:
+    return Conv(in_features, features, kernel_size, groups, bias)
+
+
+def mean_shift(x: torch.Tensor, img_range: float, sign: int = -1, rgb_mean=DEFAULT_RGB_MEAN,
+               rgb_std=(1.0, 1.0, 1.0)) -> torch.Tensor:
+    """The frozen 1x1 MeanShift conv as its affine map, x / std + sign *
+    range * mean / std, in ``x.dtype``."""
+    std = torch.tensor(rgb_std, dtype=x.dtype, device=x.device)
+    mean = torch.tensor(rgb_mean, dtype=x.dtype, device=x.device)
+    return x / std + sign * img_range * mean / std
+
+
+class ResBlock(nn.Module):
+    """conv-ReLU-conv with the residual scaled: x + res_scale * body(x)."""
+
+    def __init__(self, n_feats: int, kernel_size: int = 3, res_scale: float = 1.0) -> None:
+        super().__init__()
+        self.res_scale = res_scale
+        self.body = slots({"0": conv(n_feats, n_feats, kernel_size), "2": conv(n_feats, n_feats, kernel_size)})
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        body = self.body._modules
+        return x + body["2"](F.relu(body["0"](x))) * self.res_scale
+
+
+class ChannelAttention(nn.Module):
+    """Squeeze-excite gate: mean pool, 1x1 squeeze conv, ReLU, 1x1 excite
+    conv, sigmoid, times x."""
+
+    def __init__(self, channel: int, reduction: int = 16) -> None:
+        super().__init__()
+        self.conv_du = slots({"0": conv(channel, channel // reduction, 1), "2": conv(channel // reduction, channel, 1)})
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        du = self.conv_du._modules
+        return x * torch.sigmoid(du["2"](F.relu(du["0"](x.mean(dim=(1, 2), keepdim=True)))))
+
+
+class PReLU(nn.PReLU):
+    """``nn.PReLU`` (its ``weight``, init 0.25) on an NHWC map: one slope, or
+    one a channel along the last axis; x where x >= 0, else slope * x."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, self.weight.to(x.dtype) * x)
 
 
 def slots(modules: Dict[str, nn.Module]) -> nn.Module:
@@ -203,3 +256,20 @@ class Upsampler(nn.Module):
         for i in range(int(math.log2(s))):
             x = pixel_shuffle(self._modules[str(2 * i)](x), 2)
         return x
+
+
+def flax_default_init(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded init as flax's defaults, the JAX ``build``'s: lecun-normal conv
+    and dense kernels (a normal truncated at two standard deviations, scaled
+    to variance 1 / fan_in) with zero biases; norms ones / zeros. PReLU keeps
+    its 0.25."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Linear, nn.Conv2d, nn.Conv3d)):
+                std = m.weight[0].numel() ** -0.5 / 0.87962566103423978
+                nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
+            elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
+                nn.init.ones_(m.weight)
+                nn.init.zeros_(m.bias)

@@ -24,8 +24,22 @@ residual branch is kept with probability 1 - dropout and scaled by
 ``forward``. ``enable_fused`` routes the attention cores (32 a forward at
 the default depth) through B15 (``ops/cuda/window_attn.py``); the
 feed-forward and the map-level fused route stay plain, as the JAX package's
-``FF_FUSED_SERVING`` and ``MAP_FUSED_SERVING`` leave them. Fused training
-is not ported yet (ROADMAP A15b): ``fused_train=True`` raises.
+``FF_FUSED_SERVING`` and ``MAP_FUSED_SERVING`` leave them.
+
+``fused_train`` (``studiosr_tpu/models/maxsr.py:365-419``) runs, in training
+mode, each attention pair whose windows are square (wh == ww) on the whole
+map: the attention half through ``ops/attn_vjp.py::attention_map_vjp`` (B5
+forward, B8 backward at window 8; B5 and B9 at window 16; any other window
+raises on the card) with zero qkv / proj biases, the feed-forward half
+through ``ops/mlp_vjp.py::mlp_block_vjp`` (B6 / B7 at hidden 4 dim). Grid
+attention is block attention of the perfect-shuffled map
+(:func:`shuffle_grid`). The static mode hands over its gathered table bias
+in the step's dtype; the adaptive mode runs its outer LayerNorm plainly,
+hands the kernels a zero bias and re-bases their residual: x + (block(ln) -
+ln). A non-square adaptive map, and every pair in eval mode (the Trainer's
+evaluations, whose square maps may have any window), take the plain path, as
+the JAX Trainer evaluates its plain module. The MBConvs (BatchNorm running
+statistics, dropsample) run plainly on both paths.
 """
 
 from __future__ import annotations
@@ -41,11 +55,16 @@ from studiosr_tpu_torch._device import resolve_device
 from studiosr_tpu_torch.models.base import Model
 from studiosr_tpu_torch.models.blocks import BatchNorm, LayerNorm, Normalizer, conv, drop_path_scales, gelu, slots
 from studiosr_tpu_torch.ops.attention import attention_core
+from studiosr_tpu_torch.ops.attn_vjp import attention_map_vjp
 from studiosr_tpu_torch.ops.cuda.window_attn import window_attention
+from studiosr_tpu_torch.ops.mlp_vjp import mlp_block_vjp
 from studiosr_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 from studiosr_tpu_torch.ops.windows import gather_rel_bias, pad_to_multiple_reflect, relative_position_index
 
-__all__ = ["MaxSR", "MaxSRModule", "MBConv", "block_partition", "block_reverse", "grid_partition", "grid_reverse"]
+__all__ = [
+    "MaxSR", "MaxSRModule", "MBConv", "block_partition", "block_reverse", "grid_partition", "grid_reverse",
+    "shuffle_grid", "unshuffle_grid",
+]
 
 
 class SqueezeExcitation(nn.Module):
@@ -120,6 +139,23 @@ def grid_reverse(x: torch.Tensor, grid: Tuple[int, int], wh: int, ww: int) -> to
     return x.reshape(b, wh * nx, ww * ny, c)
 
 
+def shuffle_grid(x: torch.Tensor, wh: int, ww: int) -> torch.Tensor:
+    """The spatial perfect shuffle that makes grid partition a block
+    partition: ``grid_partition(x) == block_partition(shuffle_grid(x))``."""
+    b, h, w, c = x.shape
+    nx, ny = h // wh, w // ww
+    x = x.reshape(b, wh, nx, w, c).transpose(1, 2).reshape(b, h, w, c)
+    return x.reshape(b, h, ww, ny, c).transpose(2, 3).reshape(b, h, w, c)
+
+
+def unshuffle_grid(x: torch.Tensor, wh: int, ww: int) -> torch.Tensor:
+    """The inverse of :func:`shuffle_grid`."""
+    b, h, w, c = x.shape
+    nx, ny = h // wh, w // ww
+    x = x.reshape(b, nx, wh, w, c).transpose(1, 2).reshape(b, h, w, c)
+    return x.reshape(b, h, ny, ww, c).transpose(2, 3).reshape(b, h, w, c)
+
+
 class _Attention(nn.Module):
     """Multi-head attention over (B', N, C) window tokens: the trained
     rel-pos bias table in static mode; an inner LayerNorm and no bias in
@@ -173,18 +209,47 @@ class _AttentionPair(nn.Module):
     def __init__(self, dim: int, dim_head: int, window_size: int, static: bool, grid: bool) -> None:
         super().__init__()
         self.grid = grid
+        self.fused_train = False
         self.attn_name, self.ff_name = ("1", "2") if static else ("attention", "feedforward")
         self.add_module(self.attn_name, slots({"norm": LayerNorm(dim), "fn": _Attention(dim, dim_head, window_size,
                                                                                          static)}))
         self.add_module(self.ff_name, slots({"norm": LayerNorm(dim), "fn": _FeedForward(dim)}))
 
     def forward(self, x: torch.Tensor, wh: int, ww: int) -> torch.Tensor:
+        if self.fused_train and self.training and wh == ww:
+            return self._fused(x, wh)
         attn, ff = self._modules[self.attn_name], self._modules[self.ff_name]
         partition, reverse = (grid_partition, grid_reverse) if self.grid else (block_partition, block_reverse)
         tokens, grid_shape = partition(x, wh, ww)
         tokens = tokens + attn.fn(attn.norm(tokens))
         tokens = tokens + ff.fn(ff.norm(tokens))
         return reverse(tokens, grid_shape, wh, ww)
+
+    def _fused(self, x: torch.Tensor, ws: int) -> torch.Tensor:
+        """The pair on the whole map through B5 / B8 (B9) and B6 / B7."""
+        attn, ff = self._modules[self.attn_name], self._modules[self.ff_name]
+        a, net = attn.fn, ff.fn.net._modules
+        b, h, w, c = x.shape
+        # _Attention has no qkv / proj biases: zeros that take no gradient
+        zb3, zb1 = torch.zeros(3 * c, device=x.device), torch.zeros(c, device=x.device)
+        wqkv, wproj = a.to_qkv.weight.t(), a.to_out._modules["0"].weight.t()
+        if self.grid:
+            x = shuffle_grid(x, ws, ws)
+        if a.static:
+            bias = gather_rel_bias(a.rel_pos_bias.weight, relative_position_index(ws), a.heads)
+            x = attention_map_vjp(x, attn.norm.weight, attn.norm.bias, wqkv, zb3, wproj, zb1, bias, None, 0, a.heads,
+                                  ws)
+        else:
+            # x + proj(attn(LN_in(LN_out x))): LN_out plainly, then the kernels'
+            # residual re-based, x + (block(ln) - ln)
+            x32 = x.float()
+            ln = F.layer_norm(x32, (c,), attn.norm.weight.float(), attn.norm.bias.float(), 1e-5).to(x.dtype)
+            zbias = torch.zeros(a.heads, ws * ws, ws * ws, device=x.device)
+            y = attention_map_vjp(ln, a.norm.weight, a.norm.bias, wqkv, zb3, wproj, zb1, zbias, None, 0, a.heads, ws)
+            x = (x32 + (y.float() - ln.float())).to(x.dtype)
+        y = mlp_block_vjp(x.reshape(b * h * w, c), ff.norm.weight, ff.norm.bias, net["0"].weight.t(), net["0"].bias,
+                          net["3"].weight.t(), net["3"].bias).reshape(b, h, w, c)
+        return unshuffle_grid(y, ws, ws) if self.grid else y
 
 
 class MaxSRModule(nn.Module):
@@ -251,14 +316,15 @@ class MaxSRModule(nn.Module):
 
     @property
     def fused_train(self) -> bool:
-        return False
+        """Run the attention pairs of square windows through B5-B8 in training
+        mode; in eval mode (the Trainer's evaluations) they stay plain."""
+        return any(m.fused_train for m in self.modules() if isinstance(m, _AttentionPair))
 
     @fused_train.setter
     def fused_train(self, enabled: bool) -> None:
-        if enabled:
-            raise NotImplementedError(
-                "MaxSR fused training is not ported yet (ROADMAP A15b); train with fused_train=False"
-            )
+        for m in self.modules():
+            if isinstance(m, _AttentionPair):
+                m.fused_train = bool(enabled)
 
     def _trios(self, s: int):
         stage = self.stages._modules[str(s)]._modules
@@ -358,7 +424,7 @@ class MaxSR(Model):
         fused_train: bool = False,
     ) -> "MaxSR":
         """Seeded MaxSR on ``device`` (default ``cuda``; raises without it),
-        in eval mode. ``fused_train=True`` raises (ROADMAP A15b)."""
+        in eval mode; ``fused_train`` routes training through B5-B8."""
         dev = resolve_device(device)
         config: Dict[str, Any] = dict(
             scale=scale,

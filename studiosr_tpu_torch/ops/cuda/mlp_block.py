@@ -18,7 +18,7 @@ It runs a second instantiation of the kernels and counts its launches as
 has none).
 
 Routing, by dtype and geometry, never by a failure: bf16 with C a multiple
-of 4 up to 184 and a hidden width up to 384 (:func:`mma_takes`) launches
+of 4 up to 184 and a hidden width up to 512 (:func:`mma_takes`) launches
 the kernel written for the H100, ``csrc/mlp_block_mma.cu`` (C entries
 ``mlp_block_mma_bf16`` and, with ``extra``, ``mlp_block_extra_mma_bf16``),
 which reads the weights packed: dense weights are gathered on every call by
@@ -58,14 +58,14 @@ _EXTRA_ARGS_MMA = (P, P, I, I, I) + (P,) * 8 + (P, P, _LL, P, P)
 _SIGNATURES_MMA = {"mlp_block_mma_bf16": _ARGS_MMA, "mlp_block_extra_mma_bf16": _EXTRA_ARGS_MMA,
                    "mlp_block_mma_pack_elems": (I, I)}
 _RESTYPES_MMA = {"mlp_block_mma_pack_elems": _LL}
-MMA_MAX_C, MMA_MAX_HIDDEN = 184, 384
+MMA_MAX_C, MMA_MAX_HIDDEN = 184, 512
 _CHUNK = 64  # hidden units a chunk (MF_CHUNK)
 _FC2_WIDTHS = (32, 64, 96, 128, 184)  # csrc/mlp_block_mma.cu mf_np: fc2's product widths
 
 
 def mma_takes(c: int, hidden: int) -> bool:
     """Whether the bf16 kernel written for the H100 takes this geometry: C a
-    multiple of 4 up to 184 and a hidden width up to 384."""
+    multiple of 4 up to 184 and a hidden width up to 512."""
     return c % 4 == 0 and 4 <= c <= MMA_MAX_C and 1 <= hidden <= MMA_MAX_HIDDEN
 
 

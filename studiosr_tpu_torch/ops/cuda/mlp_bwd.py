@@ -13,7 +13,7 @@ each to its parameter's dtype). The kernels sum their weight-gradient
 partials in a fixed order, so the result is the same from run to run.
 
 Routing, by dtype and geometry, never by a failure: bf16 with C a multiple
-of 4 up to 184 and a hidden width up to 384 (:func:`mma_takes`) launches
+of 4 up to 184 and a hidden width up to 512 (:func:`mma_takes`) launches
 the kernel written for the H100, ``csrc/mlp_bwd_mma.cu`` (C entry
 ``mlp_bwd_mma_bf16``), which reads the weights packed on every call by
 :func:`_pack_index`'s rule (gathered on the card by the entry); other bf16
@@ -52,14 +52,14 @@ _SIGNATURES_MMA = {
     "mlp_bwd_mma_pack_elems": (I, I),
 }
 _RESTYPES_MMA = {"mlp_bwd_mma_pack_elems": _LL}
-MMA_MAX_C, MMA_MAX_HIDDEN = 184, 384
+MMA_MAX_C, MMA_MAX_HIDDEN = 184, 512
 _CHUNK, _KSTAGE = 96, 64  # hidden units a product chunk (MB_CHUNK), K rows a weight stage (AM_KSTAGE)
 _INV_SQRT2PI = 0.3989422804014327
 
 
 def mma_takes(c: int, hidden: int) -> bool:
     """Whether the bf16 kernel written for the H100 takes this geometry: C a
-    multiple of 4 up to 184 and a hidden width up to 384."""
+    multiple of 4 up to 184 and a hidden width up to 512."""
     return c % 4 == 0 and 4 <= c <= MMA_MAX_C and 1 <= hidden <= MMA_MAX_HIDDEN
 
 

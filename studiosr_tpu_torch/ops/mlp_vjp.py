@@ -1,8 +1,10 @@
 """Differentiable fused MLP half of a Swin block.
 
-Port of ``studiosr_tpu/ops/pallas/mlp_vjp.py``'s ``mlp_block_dp_vjp``:
-y = x + d * fc2(gelu(fc1(LN x))) on (rows, C), with the per-sample
-drop-path scale d = ``dp_scales[row // rows_per_sample]``. Forward through
+Port of ``studiosr_tpu/ops/pallas/mlp_vjp.py``'s ``mlp_block_dp_vjp`` and
+``mlp_block_vjp``: y = x + d * fc2(gelu(fc1(LN x))) on (rows, C), with the
+per-sample drop-path scale d = ``dp_scales[row // rows_per_sample]``, or
+d = 1 (``mlp_block_vjp``, MaxSR's feed-forward: the kernels then read no
+scales at all). Forward through
 B6 (``ops/cuda/mlp_block.py``), backward through B7
 (``ops/cuda/mlp_bwd.py``), which recomputes LN, fc1 and GELU, so the only
 residuals are the input and the operands. B7 takes the branch cotangent
@@ -18,7 +20,7 @@ import torch
 from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block
 from studiosr_tpu_torch.ops.cuda.mlp_bwd import mlp_bwd
 
-__all__ = ["mlp_block_dp_vjp"]
+__all__ = ["mlp_block_dp_vjp", "mlp_block_vjp"]
 
 
 class _MlpBlock(torch.autograd.Function):
@@ -43,3 +45,9 @@ def mlp_block_dp_vjp(x, ln_w, ln_b, w1, b1, w2, b2, dp_scales, rows_per_sample: 
     ``dp_scales`` (B,) already divided by keep; rows_per_sample maps rows to
     samples."""
     return _MlpBlock.apply(x, ln_w, ln_b, w1, b1, w2, b2, dp_scales, rows_per_sample)
+
+
+def mlp_block_vjp(x, ln_w, ln_b, w1, b1, w2, b2):
+    """:func:`mlp_block_dp_vjp` without drop-path
+    (``studiosr_tpu/ops/pallas/mlp_vjp.py:128``)."""
+    return _MlpBlock.apply(x, ln_w, ln_b, w1, b1, w2, b2, None, 0)

@@ -20,9 +20,7 @@ MBConvs) come back as ``running_mean`` / ``running_var``; a BatchNorm's
 ``num_batches_tracked``, which the JAX state has no counterpart of, keeps
 the module's value.
 
-The registry holds the names of the JAX package's twelve models; the port
-builds SwinIR, HAT, SwinFIR and MaxSR, and the others raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+The registry holds the JAX package's twelve models by the same names.
 """
 
 from __future__ import annotations
@@ -42,7 +40,6 @@ from studiosr_tpu_torch.zoo.translate import drop_recomputed, jax_params_to_stat
 
 __all__ = ["MODEL_REGISTRY", "get_model_class", "load_model", "read_checkpoint"]
 
-_NOT_PORTED = {name: "A16" for name in ("srcnn", "espcn", "vdsr", "srresnet", "edsr", "rcan", "han", "imdn")}
 _TORCH_ZIP = b"PK\x03\x04"
 
 
@@ -50,15 +47,15 @@ def _registry() -> Dict[str, Any]:
     from studiosr_tpu_torch import models
 
     return {
-        "swinir": models.SwinIR, "hat": models.HAT, "swinfir": models.SwinFIR, "maxsr": models.MaxSR,
-        **{name: None for name in _NOT_PORTED},
+        "srcnn": models.SRCNN, "espcn": models.ESPCN, "vdsr": models.VDSR, "srresnet": models.SRResNet,
+        "edsr": models.EDSR, "rcan": models.RCAN, "han": models.HAN, "imdn": models.IMDN, "swinir": models.SwinIR,
+        "hat": models.HAT, "swinfir": models.SwinFIR, "maxsr": models.MaxSR,
     }
 
 
 class _LazyRegistry(Mapping):
     """Dict-like view over the model registry (built lazily: importing the
-    models package here would be circular). Names not ported yet map to
-    None; :func:`get_model_class` raises for them."""
+    models package here would be circular)."""
 
     def __getitem__(self, name: str):
         reg = _registry()
@@ -78,13 +75,7 @@ MODEL_REGISTRY = _LazyRegistry()
 
 
 def get_model_class(name: str):
-    cls = MODEL_REGISTRY[name]
-    if cls is None:
-        raise NotImplementedError(
-            f"model {name!r} is not ported to PyTorch yet (ROADMAP {_NOT_PORTED[name.lower()]}); "
-            "the port builds swinir, hat, swinfir and maxsr"
-        )
-    return cls
+    return MODEL_REGISTRY[name]
 
 
 def read_checkpoint(path: str, params_only: bool = False) -> Dict[str, Any]:

@@ -5,8 +5,11 @@ reference torch key prefixes (``studiosr_tpu/zoo/translate.py``). A JAX
 params tree therefore maps onto ``module.state_dict()`` by name:
 
 * conv ``kernel`` (kH, kW, I, O) -> ``weight`` (O, I, kH, kW);
+* 3-D conv ``kernel`` (kD, kH, kW, I, O) -> ``weight`` (O, I, kD, kH, kW)
+  (HAN's CSAM, ``studiosr_tpu/zoo/translate.py:214-215``);
 * dense ``kernel`` (I, O) -> ``nn.Linear.weight`` (O, I);
-* LayerNorm / BatchNorm ``scale`` -> ``weight``; ``bias`` -> ``bias``;
+* LayerNorm / BatchNorm ``scale`` -> ``weight``; PReLU ``alpha`` ->
+  ``weight``; ``bias`` -> ``bias``;
 * ``nn.Embed``'s ``embedding`` -> ``nn.Embedding.weight`` as it is;
 * the ``batch_stats`` collection's ``mean`` / ``var`` -> ``running_mean`` /
   ``running_var`` (``studiosr_tpu/zoo/translate.py:152-153``);
@@ -43,8 +46,8 @@ _DROPPED_SUFFIXES = (
 )
 _DROPPED_PREFIXES = ("sub_mean", "add_mean", "normalizer")
 _LEAF_TO_TORCH = {
-    "kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias", "mean": "running_mean",
-    "var": "running_var",
+    "kernel": "weight", "scale": "weight", "embedding": "weight", "alpha": "weight", "bias": "bias",
+    "mean": "running_mean", "var": "running_var",
 }
 _UNTRACKED = "num_batches_tracked"
 
@@ -68,6 +71,8 @@ def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, np.ndarray]
         if leaf == "kernel":
             if arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)
+            elif arr.ndim == 5:
+                arr = arr.transpose(4, 3, 0, 1, 2)
             elif arr.ndim == 2:
                 arr = arr.T
             else:

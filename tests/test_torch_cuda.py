@@ -1128,3 +1128,156 @@ def test_small_maxsr_fused_matches_plain_on_the_card(dev, adaptive):
     diff = np.abs(fused.astype(int) - plain.astype(int))
     assert fused.shape == (40, 56, 3) and diff.max() <= 1 and (diff > 0).mean() < 0.01
 
+
+
+# -- MaxSR's fused training and the conv families ----------------------------------------
+
+# B6 and B7 in bf16 at MaxSR's feed-forward (C 128, hidden 512: six of B7's
+# 96-unit chunks, the last 32 wide; eight of B6's 64-unit ones): the step's
+# rows (batch 32 of 64 x 64), ragged row counts, without drop-path (MaxSR's
+# pairs have none) and with it; every output against the plain version, two
+# launches the same bits, each launch through the H100 entry.
+MAXSR_MLP_CASES = [(32 * 4096, 0), (1000, 0), (777, 0), (130, 65)]
+
+
+@pytest.mark.parametrize("rows,rows_per_sample", MAXSR_MLP_CASES)
+def test_mlp_h100_kernels_at_maxsr_hidden_512_match_plain(dev, rows, rows_per_sample):
+    c, hidden = 128, 512
+    gen = torch.Generator().manual_seed(rows + 512)
+    ops = _block_operands(gen, c, 4, hidden)[7:]
+    ops = [t.to(dev, torch.bfloat16 if i in (2, 4) else torch.float32) for i, t in enumerate(ops)]
+    x = _randn(gen, rows, c).to(dev, torch.bfloat16)
+    g = _randn(gen, rows, c).to(dev, torch.bfloat16)
+    kw = {}
+    if rows_per_sample:
+        dp = torch.full((rows // rows_per_sample,), 1 / 0.9, device=dev)
+        dp[0] = 0.0
+        kw = dict(drop_path=dp, rows_per_sample=rows_per_sample)
+    engagement.reset()
+    out, out2 = fused_mlp_block(x, *ops, **kw), fused_mlp_block(x, *ops, **kw)
+    grads, grads2 = mlp_bwd(x, g, *ops[:5], **kw), mlp_bwd(x, g, *ops[:5], **kw)
+    assert engagement.entries() == {"fused_mlp_block": {"mlp_block_mma_bf16": 2}, "mlp_bwd": {"mlp_bwd_mma_bf16": 2}}
+    _assert_close(out, mlp_block_plain(x.float(), *[t.float() for t in ops], **kw), torch.bfloat16)
+    want = mlp_bwd_plain(x.float(), g.float(), *[t.float() for t in ops[:5]], **kw)
+    for a, e in zip(grads, want):
+        assert a.shape == e.shape
+        _assert_close(a, e, torch.bfloat16)
+    assert torch.equal(out, out2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+
+
+# B5 and B8 in bf16 at MaxSR's attention pairs (C 128, 4 heads of 32, window
+# 8, no shift, zero qkv and proj biases): the static mode's table bias,
+# gathered in bf16 as the bf16 step hands it over, and the adaptive mode's
+# f32 zero bias; the step's batch 32 of 64 x 64 and a small H != W map.
+MAXSR_ATTN_CASES = [("static", (32, 64, 64)), ("adaptive", (32, 64, 64)), ("static", (2, 16, 24)),
+                    ("adaptive", (3, 24, 16))]
+
+
+@pytest.mark.parametrize("mode,shape", MAXSR_ATTN_CASES)
+def test_attention_h100_kernels_at_maxsr_geometry_match_plain(dev, mode, shape):
+    from studiosr_tpu_torch.ops.windows import gather_rel_bias, relative_position_index
+
+    c, heads, ws = 128, 4, 8
+    gen = torch.Generator().manual_seed(shape[0] + len(mode))
+    ops = _block_operands(gen, c, heads, 4 * c)[:7]
+    ops = [t.to(dev, torch.bfloat16 if i in (2, 4) else torch.float32) for i, t in enumerate(ops)]
+    ops[3], ops[5] = torch.zeros_like(ops[3]), torch.zeros_like(ops[5])
+    if mode == "static":
+        table = _randn(gen, (2 * ws - 1) ** 2, heads, scale=0.5).to(dev, torch.bfloat16)
+        ops[6] = gather_rel_bias(table, relative_position_index(ws), heads)
+    else:
+        ops[6] = torch.zeros(heads, ws * ws, ws * ws, device=dev)
+    x = _randn(gen, *shape, c).to(dev, torch.bfloat16)
+    g = _randn(gen, *shape, c).to(dev, torch.bfloat16)
+    kw = dict(heads=heads, window_size=ws, shift=0)
+    engagement.reset()
+    out = fused_window_attention_block(x, *ops, **kw)
+    grads = attention_bwd(x, g, *ops, **kw)
+    assert engagement.entries() == {"fused_window_attention_block": {"window_attention_mma_bf16": 1},
+                                    "attention_bwd": {"attn_bwd_mma_bf16": 1}}
+    f32 = [t.float() for t in ops]
+    _assert_close(out, window_attention_plain(x.float(), *f32, **kw), torch.bfloat16)
+    for a, e in zip(grads, attention_bwd_plain(x.float(), g.float(), *f32, **kw)):
+        assert a.shape == e.shape
+        _assert_close(a, e, torch.bfloat16)
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_small_maxsr_fused_train_matches_plain_on_the_card(dev, adaptive):
+    """A bf16 fused-train step of a narrow MaxSR (C 32, heads of 16) on 64 x
+    64 maps: every pair through B5-B8 (4 launches each), the loss and the
+    gradients within the bf16 rule of plain autograd in f32 on the same
+    bf16 weights."""
+    from torch.func import functional_call
+
+    from studiosr_tpu_torch import MaxSR
+
+    model = MaxSR.build(scale=2, adaptive=adaptive, dim=32, dim_head=16, depth=[1, 1], dropout=0.0, device=dev)
+    module = model.module.train()
+    x = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(7)).to(dev)
+    names = [k for k, _ in module.named_parameters()]
+    results = []
+    for fused, dtype in ((False, torch.float32), (True, torch.bfloat16)):
+        module.fused_train = fused
+        leaves = {k: p.detach().to(torch.bfloat16).to(dtype).requires_grad_() for k, p in module.named_parameters()}
+        engagement.reset()
+        out = functional_call(module, leaves, (x.to(torch.bfloat16).to(dtype),))
+        loss = out.float().square().mean()
+        results.append((loss, torch.autograd.grad(loss, list(leaves.values())), engagement.counters()))
+    module.fused_train = False
+    assert results[0][2] == {}
+    assert results[1][2] == {"fused_window_attention_block": 4, "attention_bwd": 4, "fused_mlp_block": 4,
+                             "mlp_bwd": 4}
+    assert abs(float(results[1][0]) - float(results[0][0])) <= 2e-2 * abs(float(results[0][0]))
+    all_fused = torch.cat([g.float().flatten() for g in results[1][1]])
+    all_plain = torch.cat([g.flatten() for g in results[0][1]])
+    assert float(torch.linalg.vector_norm(all_fused - all_plain) / torch.linalg.vector_norm(all_plain)) <= 5e-2
+    assert len(names) == len(results[1][1])
+
+
+def test_maxsr_fused_train_raises_on_a_window_the_kernels_do_not_take(dev):
+    """An adaptive 36 x 36 map has square windows of 6: the fused pair takes
+    it and the kernels raise, naming the window sizes they take."""
+    from studiosr_tpu_torch import MaxSR
+
+    model = MaxSR.build(scale=2, adaptive=True, dim=32, dim_head=16, depth=[1], dropout=0.0, device=dev,
+                        fused_train=True)
+    with pytest.raises(NotImplementedError, match="window sizes"):
+        model.module.train()(torch.rand(1, 36, 36, 3, device=dev))
+
+
+@pytest.mark.parametrize("size", [36, 72])
+def test_maxsr_fused_train_evaluates_plainly_on_any_window(dev, size):
+    """In eval mode (the Trainer's evaluations) a module with the flag on
+    serves square adaptive maps of windows 6 and 9 plainly: no kernel
+    launched, the flag-off output."""
+    from studiosr_tpu_torch import MaxSR
+
+    model = MaxSR.build(scale=2, adaptive=True, dim=32, dim_head=16, depth=[1], dropout=0.1, device=dev)
+    x = torch.rand(1, size, size, 3, generator=torch.Generator().manual_seed(size)).to(dev)
+    want = model.module(x)
+    model.module.fused_train = True
+    engagement.reset()
+    got = model.module(x)
+    assert engagement.counters() == {}
+    _assert_close(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("name", ["srcnn", "espcn", "vdsr", "srresnet", "edsr", "rcan", "han", "imdn"])
+def test_small_conv_family_serves_bf16_on_the_card(dev, name):
+    """Each conv family at narrow widths, bf16 against its f32 forward on the
+    card (relative L2 2e-2), with no kernel of the port launched."""
+    from studiosr_tpu_torch.zoo.registry import get_model_class
+
+    small = {"srcnn": {}, "espcn": dict(channels=16), "vdsr": dict(channels=16, n_layers=3),
+             "srresnet": dict(channels=16, num_rcb=2), "edsr": dict(n_feats=16, n_resblocks=2),
+             "rcan": dict(n_feats=16, n_resblocks=2, n_resgroups=2, reduction=4),
+             "han": dict(n_feats=16, n_resblocks=2, n_resgroups=2, reduction=4), "imdn": dict(n_feats=16, n_modules=2)}
+    model = get_model_class(name).build(scale=4, **small[name], device=dev)
+    x = torch.rand(1, 20, 28, 3, generator=torch.Generator().manual_seed(8))
+    want = model(x)
+    engagement.reset()
+    got = model.half()(x)
+    assert engagement.counters() == {}
+    assert got.shape == (1, 80, 112, 3)
+    _assert_close(got, want, torch.bfloat16)

@@ -174,13 +174,16 @@ def test_attention_backend_switch():
 
 
 def test_fused_train_raises_naming_a15b(tmp_path):
+    """Fused training raised naming ROADMAP A15b until it was ported: the
+    module's flag, ``build(fused_train=True)`` and a Trainer asked for it
+    now take it, and nothing raises naming A15b."""
     model = MaxSR.build(scale=2, **SMALL, device="cpu")
-    with pytest.raises(NotImplementedError, match="A15b"):
-        model.module.fused_train = True
-    with pytest.raises(NotImplementedError, match="A15b"):
-        MaxSR.build(scale=2, **SMALL, device="cpu", fused_train=True)
-    with pytest.raises(NotImplementedError, match="A15b"):
-        Trainer(model, None, ckpt_path=str(tmp_path), fused_train=True, bfloat16=False)
+    model.module.fused_train = True
+    assert model.module.fused_train
+    model.module.fused_train = False
+    assert MaxSR.build(scale=2, **SMALL, device="cpu", fused_train=True).module.fused_train
+    trainer = Trainer(model, None, ckpt_path=str(tmp_path), fused_train=True, bfloat16=False)
+    assert trainer.fused_train and not model.module.fused_train
 
 
 def test_from_pretrained_reads_a_local_torch_state_dict(tmp_path):

@@ -381,12 +381,13 @@ def test_window_attention_routes_by_dtype_window_and_head_dim(monkeypatch, dtype
     (torch.bfloat16, 180, 360, "mlp_bwd_mma_bf16"),
     (torch.bfloat16, 32, 64, "mlp_bwd_mma_bf16"),
     (torch.bfloat16, 128, 384, "mlp_bwd_mma_bf16"),
+    (torch.bfloat16, 128, 512, "mlp_bwd_mma_bf16"),  # MaxSR's feed-forward
     (torch.bfloat16, 90, 180, "mlp_bwd_bf16"),  # C not a multiple of 4: the older kernel, by rule
-    (torch.bfloat16, 64, 512, "mlp_bwd_bf16"),  # hidden above 384
+    (torch.bfloat16, 64, 576, "mlp_bwd_bf16"),  # hidden above 512
     (torch.float32, 180, 360, "mlp_bwd_f32"),
 ])
 def test_mlp_bwd_routes_by_dtype_and_width(monkeypatch, dtype, c, hidden, entry):
-    """bf16 with C a multiple of 4 up to 184 and hidden up to 384 goes to the
+    """bf16 with C a multiple of 4 up to 184 and hidden up to 512 goes to the
     kernel written for the H100, other bf16 widths and f32 to the older
     kernel; each launch counts under ``mlp_bwd`` and its C entry."""
     import studiosr_tpu_torch.ops.cuda.mlp_bwd as module

@@ -76,7 +76,7 @@ def _expected_b6_pack(c: int, hidden: int) -> list:
     return out
 
 
-@pytest.mark.parametrize("c,hidden", [(180, 360), (32, 64), (16, 40), (60, 120)])
+@pytest.mark.parametrize("c,hidden", [(180, 360), (32, 64), (16, 40), (60, 120), (128, 512)])
 def test_b6_packed_layout_matches_its_rule_element_by_element(c, hidden):
     index = _mma_pack_index(c, hidden)
     expected = _expected_b6_pack(c, hidden)
@@ -93,7 +93,7 @@ def test_b6_packed_layout_matches_its_rule_element_by_element(c, hidden):
     np.testing.assert_array_equal(blob.numpy(), np.array(ref))
 
 
-@pytest.mark.parametrize("c,hidden", [(180, 360), (32, 64), (24, 100)])
+@pytest.mark.parametrize("c,hidden", [(180, 360), (32, 64), (24, 100), (128, 512)])
 def test_b6_unpacking_the_packed_weights_gives_them_back(c, hidden):
     rng = np.random.default_rng(c + hidden)
     w1 = _t(rng.standard_normal((c, hidden)).astype(np.float32)).to(torch.bfloat16)
@@ -263,12 +263,13 @@ def _launches(lib):
     (torch.bfloat16, 180, 360, "extra", "mlp_block_extra_mma_bf16"),  # HAT serving's join
     (torch.bfloat16, 32, 64, None, "mlp_block_mma_bf16"),  # the fixtures' width
     (torch.bfloat16, 90, 180, None, "mlp_block_bf16"),  # C not a multiple of 4: the older kernel, by rule
-    (torch.bfloat16, 64, 512, "extra", "mlp_block_extra_bf16"),  # hidden above 384
+    (torch.bfloat16, 128, 512, None, "mlp_block_mma_bf16"),  # MaxSR's feed-forward
+    (torch.bfloat16, 64, 576, "extra", "mlp_block_extra_bf16"),  # hidden above 512
     (torch.float32, 180, 360, "drop_path", "mlp_block_f32"),
     (torch.float32, 180, 360, "extra", "mlp_block_extra_f32"),
 ])
 def test_fused_mlp_block_routes_by_dtype_and_width(monkeypatch, dtype, c, hidden, mode, entry):
-    """bf16 with C a multiple of 4 up to 184 and hidden up to 384 goes to the
+    """bf16 with C a multiple of 4 up to 184 and hidden up to 512 goes to the
     kernel written for the H100 (dense weights, gathered by the entry, or
     the serving blob), other bf16 widths and f32 to the older kernel; each
     launch counts under its kernel and its C entry."""
