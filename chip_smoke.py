@@ -44,13 +44,18 @@ against its plain PyTorch version:
 * the user's entry points: the eighteen trained checkpoints of
   ``tests/fixtures/quality`` read by ``load_model`` (no JAX, no flax) with
   the fixture PNGs read by the port's codec, the ``Evaluator2`` on the host
-  and on the card, and the CLI (``python3 -m studiosr_tpu_torch``).
+  and on the card, the CLI (``python3 -m studiosr_tpu_torch``), and the
+  training entry point ``scripts/torch_train.py`` (SwinIR classical x4 at
+  its recipe, batch 32 of 64x64, bf16, ``fused_train``: B5-B8 36 launches
+  each a step) on a DIV2K-layout corpus made from the seed.
 
 Phases, in order; any failure exits non-zero before the final line:
 
 1. device: requires CUDA; prints nvidia-smi's name and power limit;
 2. build: compiles ``studiosr_tpu_torch/csrc/*.cu`` (one nvcc per source,
-   in parallel) and prints the seconds and ptxas register/spill lines;
+   in parallel) and prints the seconds and ptxas register/spill lines,
+   then the host library ``studiosr_tpu_torch/native/`` (g++; a failed
+   build fails the run);
 3. serving kernels vs plain at the main path's shapes, f32 and bf16: B1
    (shift 0 and 4), B2 (plain, extra, lrelu0.01, residual), B3; then B1 in
    bf16 at the card tests' odd geometries (C 32 / d 16, C 180 at H != W and
@@ -192,7 +197,25 @@ Phases, in order; any failure exits non-zero before the final line:
     the CLI as a subprocess on the x4 checkpoint with ``--half``, whole and
     ``--tile 32 --tile-overlap 8``, against the in-process route, and
     tiled in process at tile 16, overlap 4; the CLI on the EDSR x4
-    checkpoint with ``--half`` against the in-process route.
+    checkpoint with ``--half`` against the in-process route;
+32. C6: MaxSR adaptive (dim 32, one head, one trio) served fused, bf16, at
+    a 1025x1025 LR input (windows of 33² = 1089 tokens, above B15's 1024):
+    two structural declines a forward recorded, no launch, the output
+    bit for bit the unfused route's;
+33. the training entry point: a DIV2K-layout corpus in a temporary
+    directory (four seeded HR images of 600-696 px with their X2 / X3 / X4
+    by the port's bicubic, written with Paeth rows; a DIV2K_mini set from
+    the fixture PNGs); ``scripts/torch_train.py --model swinir --scale 4
+    --dataset DIV2K --size 64`` through ``main(argv)`` for 6 iterations
+    with evaluations at 3 and 6 and ``--profile-dir``, then as a
+    subprocess, then resumed to 9 in process: 16 sub-images in each of the
+    four packs, every PNG decode and crop-augment on the native host
+    route, B5-B8 36 launches each a step through their bf16 H100 entries
+    and nothing else, finite losses, ``latest`` and ``best`` written, the
+    resume at iteration 6, the Chrome trace naming B5-B8's CUDA kernels;
+    then the step call's host time, the ``get_batch`` wait per step, a
+    loader batch of 32 on the native and the plain routes, and a 480²
+    all-Paeth PNG decode by each unfilter.
 
 Prints the card line, the script's seconds, a ``{"kernels": [...]}`` JSON
 line, and last
@@ -202,12 +225,14 @@ line, and last
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import math
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -217,9 +242,9 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 import studiosr_tpu_torch
-from studiosr_tpu_torch import HAT, Evaluator2, MaxSR, SwinFIR, SwinIR, Trainer, load_model, resolve_device
+from studiosr_tpu_torch import HAT, DIV2K, Evaluator2, MaxSR, SwinFIR, SwinIR, Trainer, load_model, native, resolve_device
 from studiosr_tpu_torch.zoo.registry import get_model_class
-from studiosr_tpu_torch.data import PairedImageDataset
+from studiosr_tpu_torch.data import PairedImageDataset, PrefetchLoader
 from studiosr_tpu_torch.models.blocks import Conv
 from studiosr_tpu_torch.ops.cuda import _build, engagement
 from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd, attention_bwd_plain
@@ -241,11 +266,13 @@ from studiosr_tpu_torch.ops.cuda.window_attention import (
     fused_window_attention_block, unpack_window_attention, window_attention_plain,
 )
 from studiosr_tpu_torch.ops.cuda.window_attn import window_attention
+from studiosr_tpu_torch.ops.resize import bicubic_resize
 from studiosr_tpu_torch.ops.windows import calculate_mask, gather_rel_bias, relative_position_index
 from studiosr_tpu_torch.parallel import build_optimizer, make_train_step, prepare_state
 from studiosr_tpu_torch.serving.hat_fast import prepare_hat_serving
 from studiosr_tpu_torch.serving.swinir_fast import prepare_serving
 from studiosr_tpu_torch.utils import compute_psnr, get_loss, imread, imwrite, l1_loss
+from studiosr_tpu_torch.utils.png import decode_png, encode_png, write_png
 
 MAIN = dict(scale=4, embed_dim=180, depths=[6] * 6, num_heads=[6] * 6, window_size=8, mlp_ratio=2.0)
 LR = 256
@@ -471,6 +498,23 @@ CONV_TRAIN_DIR = ROOT / "build" / "chip_smoke_conv_train"
 # (tests/models/test_quality_fixture.py): (directory, model, scale, LR suffix);
 # plain f32 > bicubic + 2.0 dB, bf16 > bicubic + 1.5; the ESPCN x2 checkpoint
 # (``ckpt``) > bicubic + 1.0 and > 30 dB, its bf16 > bicubic + 1.0.
+# C6: MaxSR adaptive served fused at a 1025² LR input (windows of 33² = 1089
+# tokens, above B15's 1024), narrowed so the plain core's f32 scores (1089
+# windows x 1089² x 4 B = 5.2 GB an attention call) fit: dim 32, one head,
+# one stage of one trio (two attention calls a forward).
+DECLINE_LR = 1025
+DECLINE_MODEL = dict(scale=4, adaptive=True, dim=32, dim_head=32, depth=[1], window_size=8, dropout=0.1)
+# The training entry point: a DIV2K-layout corpus of four seeded HR images
+# (sides multiples of 12 between 600 and 719: 2 x 2 crops in every pack, 16
+# a pack) with their X2 / X3 / X4 by the port's bicubic, written with Paeth
+# rows; scripts/torch_train.py at SwinIR classical x4's recipe (batch 32 of
+# 64²), 6 iterations, evaluations at 3 and 6, then resumed to 9.
+ENTRY_SIDES = ((600, 648), (696, 624), (660, 600), (636, 684))
+ENTRY_STEPS, ENTRY_RESUMED = 6, 9
+ENTRY_PACK = 16
+# B5-B8's bf16 H100 kernels as the profiler's trace names them
+ENTRY_TRACE_KERNELS = {"fused_window_attention_block": "wa_attn_kernel", "fused_mlp_block": "mf_kernel",
+                       "mlp_bwd": "mb_prod_kernel", "attention_bwd": "am_attn_kernel"}
 CONV_TRAINED = (("ckpt", "espcn", 2, "_lr"), ("srcnn_ckpt", "srcnn", 2, "_lrx2"), ("vdsr_ckpt", "vdsr", 2, "_lrx2"),
                 ("srresnet_ckpt", "srresnet", 4, "_lrx4"), ("edsr_ckpt", "edsr", 4, "_lrx4"),
                 ("rcan_ckpt", "rcan", 4, "_lrx4"), ("han_ckpt", "han", 4, "_lrx4"), ("han_x8_ckpt", "han", 8, "_lrx8"),
@@ -607,6 +651,10 @@ def phase_device() -> torch.device:
 def phase_build() -> None:
     seconds = _build.build()
     log(f"build: {seconds:.1f} s for {', '.join(_build.SOURCES)}")
+    start = time.perf_counter()
+    library = native.build()  # raises with g++'s output if the host library does not build
+    native.library()
+    log(f"build: host library {library.name} ({native.SOURCES}) loaded, {time.perf_counter() - start:.1f} s")
     for name in _build.SOURCES:
         for line in _build.build_log(name).splitlines():
             if "Used" in line or "spill" in line:
@@ -2804,6 +2852,257 @@ def phase_cli(dev: torch.device) -> None:
         raise AssertionError("; ".join(failed))
 
 
+def phase_maxsr_decline(dev: torch.device) -> None:
+    """C6: MaxSR adaptive with ``enable_fused(True)`` serves a 1025² LR
+    image: each attention call over 1024 tokens a window is B15's recorded
+    structural decline (two a forward), nothing launches, and the output is
+    the unfused route's, bit for bit."""
+    model = MaxSR.build(**DECLINE_MODEL, seed=SEED, device=dev).half()
+    image = np.random.default_rng(SEED + 77).integers(0, 256, (DECLINE_LR, DECLINE_LR, 3), dtype=np.uint8)
+    x = torch.from_numpy(image).to(dev).float()[None] / 255.0
+    failed, side = [], 4 * DECLINE_LR
+    torch.cuda.reset_peak_memory_stats()
+    engagement.reset()
+    start = time.perf_counter()
+    served = model.enable_fused(True).inference(image)
+    seconds = time.perf_counter() - start
+    launches, declines = engagement.counters(), engagement.declines()
+    with torch.no_grad():
+        fused = model(x)
+    torch.cuda.synchronize()
+    after = engagement.declines()
+    engagement.reset()
+    unfused_served = model.enable_fused(False).inference(image)
+    with torch.no_grad():
+        unfused = model(x)
+    torch.cuda.synchronize()
+    log(f"\nC6: MaxSR adaptive dim {DECLINE_MODEL['dim']}, depth {DECLINE_MODEL['depth']}, fused bf16 at "
+        f"{DECLINE_LR}² LR: served {served.shape} {served.dtype} in {seconds:.2f} s (host clock, first call), peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}; declines {declines}; the float "
+        f"forward's max |fused - unfused| {float((fused - unfused).abs().max()):.3e}; uint8 "
+        f"{'equal' if np.array_equal(served, unfused_served) else 'differ'}")
+    if served.shape != (side, side, 3) or served.dtype != np.uint8:
+        failed.append(f"C6: served {served.shape} {served.dtype}, expected ({side}, {side}, 3) uint8")
+    if launches:
+        failed.append(f"C6: the declined forward launched {launches}")
+    if declines.get("window_attention_pallas", {}).get("count") != 2 or set(declines) != {"window_attention_pallas"}:
+        failed.append(f"C6: declines {declines}, expected two of window_attention_pallas (one an attention call)")
+    if after.get("window_attention_pallas", {}).get("count") != 4:
+        failed.append(f"C6: the float forward recorded {after}, expected two more declines")
+    if engagement.declines():
+        failed.append(f"C6: the unfused route recorded declines {engagement.declines()}")
+    if not (torch.equal(fused, unfused) and np.array_equal(served, unfused_served)):
+        failed.append("C6: the declined fused route's output differs from the unfused route's")
+    if not bool(torch.isfinite(fused).all()):
+        failed.append("C6: non-finite output")
+    del model, x, fused, unfused
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
+def entry_corpus(data: Path, dev: torch.device) -> None:
+    """ENTRY_SIDES' HR images and their bicubic X2 / X3 / X4 in DIV2K's
+    layout (Paeth rows), and a DIV2K_mini set from the fixture PNGs."""
+    rng = np.random.default_rng(SEED + 90)
+    hr_dir = data / "DIV2K" / "DIV2K_train_HR"
+    hr_dir.mkdir(parents=True)
+    for i, (h, w) in enumerate(ENTRY_SIDES):
+        y, x = np.mgrid[:h, :w]
+        base = 128 + 80 * np.sin(x / (9 + 3 * i)) * np.cos(y / (13 + i))
+        hr = np.clip(base[..., None] + rng.normal(0, 12, (h, w, 3)), 0, 255).astype(np.uint8)
+        write_png(str(hr_dir / f"{i + 1:04d}.png"), hr, row_filter=4)
+        t = torch.from_numpy(hr).to(dev).float()[None] / 255.0
+        for s in (2, 3, 4):
+            lr_dir = data / "DIV2K" / "DIV2K_train_LR_bicubic" / f"X{s}"
+            lr_dir.mkdir(parents=True, exist_ok=True)
+            lr = torch.clamp(torch.round(bicubic_resize(t, h // s, w // s) * 255.0), 0, 255).to(torch.uint8)
+            write_png(str(lr_dir / f"{i + 1:04d}x{s}.png"), lr[0].cpu().numpy(), row_filter=4)
+    for sub, suffix in (("GTmod12", "hr"), ("LRbicx4", "lrx4")):
+        (data / "DIV2K_mini" / sub).mkdir(parents=True)
+        for i in range(3):
+            imwrite(str(data / "DIV2K_mini" / sub / f"img{i}.png"), imread(str(FIXTURES / f"img{i}_{suffix}.png")))
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median host milliseconds of ``fn()`` over ``reps`` calls."""
+    times = []
+    for _ in range(reps):
+        start = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - start))
+    return float(np.median(times))
+
+
+def plain_host_routes(fn):
+    """``fn()`` with the host library's callers on their plain versions."""
+    available = native.available
+    native.available = lambda: False
+    try:
+        return fn()
+    finally:
+        native.available = available
+
+
+def phase_train_entry(dev: torch.device) -> None:
+    """``scripts/torch_train.py --model swinir --scale 4 --dataset DIV2K``
+    on a DIV2K-layout corpus, in process (``main(argv)``) and as a
+    subprocess, then resumed to iteration 9; the prepared packs, the host
+    routes, B5-B8's launches, the losses, the checkpoints and the trace
+    checked; step, loader and decode times printed."""
+    spec = importlib.util.spec_from_file_location("torch_train", ROOT / "scripts" / "torch_train.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    import studiosr_tpu_torch.engine.trainer as trainer_module
+
+    failed, losses = [], []
+    get_loss_fn = trainer_module.get_loss
+
+    def recording_loss(name):
+        fn = get_loss_fn(name)
+
+        def criterion(pred, target):
+            loss = fn(pred, target)
+            losses.append(loss.detach())
+            return loss
+
+        return criterion
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_entry_") as tmp:
+        root = Path(tmp)
+        data = root / "data"
+        start = time.perf_counter()
+        entry_corpus(data, dev)
+        log(f"\ntrain entry: corpus of {len(ENTRY_SIDES)} HR images written in {time.perf_counter() - start:.1f} s")
+        common = ["--model", "swinir", "--scale", "4", "--dataset", "DIV2K", "--data-dir", str(data), "--size", "64",
+                  "--eval-interval", "3", "--ckpt", str(root / "ckpt")]
+        engagement.reset()
+        native.reset_counters()
+        trainer_module.get_loss = recording_loss
+        try:
+            start = time.perf_counter()
+            trainer = script.main(common + ["--max-iters", str(ENTRY_STEPS), "--profile-dir", str(root / "trace")])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+        finally:
+            trainer_module.get_loss = get_loss_fn
+        launches, entries, routes = engagement.counters(), engagement.entries(), native.counters()
+        values = [float(v) for v in losses]
+        sub = data / "DIV2K" / "sub"
+        packs = {p: len(list((sub / p).glob("*.png"))) for p in
+                 ("DIV2K_train_HR", *(f"DIV2K_train_LR_bicubic/X{s}" for s in (2, 3, 4)))}
+        log(f"train entry in process: {ENTRY_STEPS} iterations in {seconds:.1f} s (host clock: prepare, build, "
+            f"steps, 2 evaluations, checkpoints, trace); batch {trainer.batch_size}, bf16 {trainer.bfloat16}, "
+            f"fused_train {trainer.fused_train}; packs {packs}; launches {launches}; host routes {routes}; "
+            f"best PSNR {trainer.best_psnr:.4f} dB")
+        log(f"train entry losses {[round(v, 6) for v in values]}")
+        if packs != {p: ENTRY_PACK for p in packs}:
+            failed.append(f"prepare built {packs}, expected {ENTRY_PACK} sub-images a pack")
+        if trainer.batch_size != TRAIN_BATCH or not (trainer.bfloat16 and trainer.fused_train):
+            failed.append("the entry point did not train at the recipe's batch 32, bf16, fused_train")
+        for name in PER_STEP:
+            if launches.get(name, 0) != PER_STEP[name] * ENTRY_STEPS:
+                failed.append(f"train entry {name}: {launches.get(name, 0)} launches in {ENTRY_STEPS} steps, "
+                              f"expected {PER_STEP[name]} a step")
+        if set(launches) - set(PER_STEP):
+            failed.append(f"train entry launched {sorted(set(launches) - set(PER_STEP))} besides B5-B8")
+        failed += train_entry_failures("train entry", launches, torch.bfloat16, entries)
+        if len(values) != ENTRY_STEPS or not all(np.isfinite(values)):
+            failed.append(f"train entry losses {values}")
+        crop, unfilter = routes.get("crop_augment", {}), routes.get("unfilter", {})
+        originals = len(ENTRY_SIDES) * 4
+        if crop.get("native", 0) < TRAIN_BATCH * ENTRY_STEPS or crop.get("numpy", 0):
+            failed.append(f"the loader's crop-augment routes {crop}: every sample must take the native one")
+        if unfilter.get("native", 0) < originals or unfilter.get("python", 0):
+            failed.append(f"PNG unfilter routes {unfilter}: every decode (the {originals} originals first) must "
+                          "take the native one")
+        files = sorted(p.name for p in (root / "ckpt").iterdir())
+        if not {"best.model.ckpt", "best.train.ckpt", "latest.model.ckpt", "latest.train.ckpt"} <= set(files):
+            failed.append(f"checkpoints {files}: latest and best expected")
+        traces = sorted((root / "trace").glob("*.json"))
+        if len(traces) != 1:
+            failed.append(f"profile_dir holds {traces}, expected one Chrome trace")
+        else:
+            start = time.perf_counter()
+            events = json.loads(traces[0].read_text())["traceEvents"]
+            kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+            named = {name: sum(k in e for e in kernels) for name, k in ENTRY_TRACE_KERNELS.items()}
+            log(f"train entry trace {traces[0].name}: {traces[0].stat().st_size / 1e6:.1f} MB, {len(events)} events, "
+                f"{len(kernels)} kernels; B5-B8's kernels named {named} times "
+                f"({time.perf_counter() - start:.1f} s to read)")
+            for name, count in named.items():
+                if count < ENTRY_STEPS:
+                    failed.append(f"the trace names {ENTRY_TRACE_KERNELS[name]} ({name}) {count} times")
+            del events, kernels
+        step_ms = [1e3 * t for t in trainer.timings["step"]]
+        wait_ms = [1e3 * t for t in trainer.timings["get_batch"]]
+        del trainer
+
+        cmd = [sys.executable, "scripts/torch_train.py", *common[:-1], str(root / "ckpt_sub"), "--max-iters",
+               str(ENTRY_STEPS), "--profile-dir", str(root / "trace_sub")]
+        start = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, timeout=600, capture_output=True, text=True)
+        log(f"train entry as a subprocess: exit {proc.returncode} in {time.perf_counter() - start:.1f} s (host clock)")
+        sub_files = {p.name for p in (root / "ckpt_sub").iterdir()} if (root / "ckpt_sub").exists() else set()
+        if proc.returncode:
+            failed.append(f"scripts/torch_train.py exited {proc.returncode}: {proc.stderr[-3000:]}")
+        elif not ({"best.model.ckpt", "latest.model.ckpt"} <= sub_files and list((root / "trace_sub").glob("*.json"))):
+            failed.append(f"the subprocess left {sorted(sub_files)} and no trace")
+
+        engagement.reset()
+        native.reset_counters()
+        resumed = script.main(common + ["--max-iters", str(ENTRY_RESUMED)])
+        torch.cuda.synchronize()
+        resumed_launches = engagement.counters()
+        resumed_steps = len(resumed.timings["step"])
+        log(f"train entry resumed: {resumed_steps} iterations to {resumed.data_handler.iterations}; launches "
+            f"{resumed_launches}")
+        if resumed_steps != ENTRY_RESUMED - ENTRY_STEPS or resumed.data_handler.iterations != ENTRY_RESUMED:
+            failed.append(f"the run with --max-iters {ENTRY_RESUMED} took {resumed_steps} steps, expected a resume "
+                          f"at iteration {ENTRY_STEPS}")
+        for name in PER_STEP:
+            if resumed_launches.get(name, 0) != PER_STEP[name] * (ENTRY_RESUMED - ENTRY_STEPS):
+                failed.append(f"resumed {name}: {resumed_launches.get(name, 0)} launches")
+        if native.counters().get("unfilter", {}).get("python", 0) or native.counters().get("crop_augment", {}).get(
+                "numpy", 0):
+            failed.append(f"the resumed run took a plain host route: {native.counters()}")
+        resumed_ms = [1e3 * t for t in resumed.timings["step"]]
+        resumed_wait = [1e3 * t for t in resumed.timings["get_batch"]]
+        del resumed
+        if failed:
+            raise AssertionError("; ".join(failed))
+
+        # The host routes' times (after the checks: the plain ones are taken here on purpose).
+        dataset = DIV2K(str(data), size=64, scale=4, transform=True, to_tensor=True)
+        loader = PrefetchLoader(dataset, TRAIN_BATCH, num_workers=1, seed=SEED, normalize=False)
+        indices = np.arange(TRAIN_BATCH) % len(dataset)
+        batch_native = host_ms(lambda: loader._make_batch(0, 0, indices), reps=5)
+        batch_plain = plain_host_routes(lambda: host_ms(lambda: loader._make_batch(0, 0, indices), reps=2))
+        pairs = [dataset.get_image_pair(int(i)) for i in indices]
+        rng = np.random.default_rng(SEED)
+        augment_native = host_ms(lambda: [native.paired_crop_augment(lq, gt, 64, 4, 3, 5, True, False, True)
+                                          for lq, gt in pairs], reps=5)
+        augment_numpy = host_ms(lambda: [dataset.to_tensor(*dataset.transform(lq, gt)) for lq, gt in pairs], reps=5)
+        image = np.clip(128 + rng.normal(0, 30, (480, 480, 3)), 0, 255).astype(np.uint8)
+        data_paeth = encode_png(image, 4)
+        decode_native = host_ms(lambda: decode_png(data_paeth), reps=5)
+        decode_python = plain_host_routes(lambda: host_ms(lambda: decode_png(data_paeth), reps=2))
+        if not np.array_equal(decode_png(data_paeth), image):
+            raise AssertionError("the 480² Paeth PNG does not decode to its pixels")
+    log(f"train entry step (host clock, the step call; {TRAIN_BATCH} x 64² bf16 fused): profiled run "
+        f"{[round(t, 1) for t in step_ms]} ms, median of iterations 2-{ENTRY_STEPS} "
+        f"{float(np.median(step_ms[1:])):.1f} ms; resumed run without the profiler {[round(t, 1) for t in resumed_ms]} ms")
+    log(f"train entry get_batch wait per step (host clock): profiled run mean {float(np.mean(wait_ms)):.2f} ms "
+        f"(first {wait_ms[0]:.1f}, max of the rest {max(wait_ms[1:]):.2f}); resumed run "
+        f"{[round(t, 2) for t in resumed_wait]} ms")
+    log(f"loader, one batch of {TRAIN_BATCH} on one thread (decode two sub-image PNGs, crop 64² / 256², augment, "
+        f"stack; host clock): native routes {batch_native:.1f} ms, plain routes (Python unfilter, numpy "
+        f"crop-augment) {batch_plain:.1f} ms; the crop-augment of {TRAIN_BATCH} decoded pairs alone: native "
+        f"{augment_native:.2f} ms, numpy {augment_numpy:.2f} ms")
+    log(f"decode of a 480² RGB PNG, Paeth on every row (host clock): native unfilter {decode_native:.2f} ms, "
+        f"Python unfilter {decode_python:.1f} ms")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     dev = phase_device()
@@ -2858,6 +3157,8 @@ def main() -> int:
     phase_trained(dev)
     phase_evaluator(dev)
     phase_cli(dev)
+    phase_maxsr_decline(dev)
+    phase_train_entry(dev)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

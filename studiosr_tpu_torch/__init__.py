@@ -12,11 +12,13 @@ This package imports neither JAX nor anything of ``studiosr_tpu``.
 """
 
 from studiosr_tpu_torch._device import resolve_device
+from studiosr_tpu_torch.data import DF2K, DIV2K, DataHandler, DataIterator, Flickr2K, PairedImageDataset
 from studiosr_tpu_torch.engine import Evaluator, Evaluator2, Trainer, benchmark
 from studiosr_tpu_torch.models import EDSR, ESPCN, HAN, HAT, IMDN, RCAN, SRCNN, VDSR, MaxSR, SRResNet, SwinFIR, SwinIR
 from studiosr_tpu_torch.zoo.registry import load_model
 
 __all__ = [
-    "EDSR", "ESPCN", "Evaluator", "Evaluator2", "HAN", "HAT", "IMDN", "MaxSR", "RCAN", "SRCNN", "SRResNet", "SwinFIR",
-    "SwinIR", "Trainer", "VDSR", "benchmark", "load_model", "resolve_device",
+    "DF2K", "DIV2K", "DataHandler", "DataIterator", "EDSR", "ESPCN", "Evaluator", "Evaluator2", "Flickr2K", "HAN",
+    "HAT", "IMDN", "MaxSR", "PairedImageDataset", "RCAN", "SRCNN", "SRResNet", "SwinFIR", "SwinIR", "Trainer", "VDSR",
+    "benchmark", "load_model", "resolve_device",
 ]

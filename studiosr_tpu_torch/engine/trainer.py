@@ -9,7 +9,9 @@ Port of ``studiosr_tpu/engine/trainer.py`` on one device:
   every Swin block then runs forward and backward through the CUDA kernels
   B5-B8 (SwinIR), every HAB and OCAB through B5, B9, B6, B7, B12 and
   B13 (HAT), and every MaxSR attention pair through B5-B8. The module's
-  flag is set for the run and restored after it;
+  flag is set for the steps and restored for the evaluations and after
+  the run (the JAX Trainer fuses a clone for the step and evaluates the
+  module it was given);
 * each step draws its drop-path scales from a ``torch.Generator`` seeded
   from (seed, iteration), so a resumed run takes the same steps;
 * checkpoints are the triple-file scheme ``{tag}.model.ckpt`` /
@@ -24,9 +26,20 @@ Port of ``studiosr_tpu/engine/trainer.py`` on one device:
   otherwise; ``eval_on_device`` forces either route, as the JAX Trainer's
   argument does.
 
+* ``profile_dir`` traces the whole run with ``torch.profiler`` (host
+  activity, and the card's kernels for a model on the card) and writes a
+  Chrome trace into it when the run ends, as the JAX Trainer traces its
+  run with ``jax.profiler``;
+* ``debug_nans`` checks the loss and every gradient of each step before the
+  update and raises ``FloatingPointError`` naming the iteration and the
+  first non-finite one (the JAX Trainer sets ``jax_debug_nans``); it adds a
+  device sync a step and leaves a finite step's state as it is without it;
+* ``timings`` holds each step's host seconds in ``get_batch`` (the wait for
+  the loader) and in the step call.
+
 ``steps_per_dispatch`` is accepted for the JAX package's signature and runs
 the same step sequence one step at a time. Not ported yet: reading JAX
-checkpoints, ``profile_dir`` and ``debug_nans``.
+checkpoints.
 """
 
 from __future__ import annotations
@@ -89,10 +102,6 @@ class Trainer:
         steps_per_dispatch: int = 1,
         eval_on_device: Optional[bool] = None,
     ) -> None:
-        if profile_dir:
-            raise NotImplementedError("profile_dir: tracing the training run is not ported yet")
-        if debug_nans:
-            raise NotImplementedError("debug_nans is not ported yet")
         del steps_per_dispatch  # one step at a time: the same sequence of steps
         self.model = model
         self.dataset = train_dataset
@@ -111,6 +120,9 @@ class Trainer:
         self.bfloat16 = bfloat16 and self.device.type == "cuda"
         self.seed = seed
         self.log_interval = log_interval
+        self.profile_dir = profile_dir
+        self.debug_nans = bool(debug_nans)
+        self.timings: dict = {"get_batch": [], "step": []}
 
         # Fused-training kernels: opt in for modules that support the flag;
         # default on for those on the card.
@@ -167,15 +179,24 @@ class Trainer:
         restore_fused = getattr(module, "fused_train", None)
         if self.fused_train:
             module.fused_train = True
-        step_fn = make_train_step(module, self.tx, self.criterion, bfloat16=self.bfloat16, ema_decay=self.ema_decay)
+        step_fn = make_train_step(module, self.tx, self.criterion, bfloat16=self.bfloat16, ema_decay=self.ema_decay,
+                                  debug_nans=self.debug_nans)
         logger = Logger(os.path.join(self.ckpt_path, "train.log"))
+        profiler = self._start_profiler()
         window_start, window_images = time.perf_counter(), 0
         try:
             while self.data_handler.iterations < self.max_iters:
+                t0 = time.perf_counter()
                 lq, gt = self.data_handler.get_batch()
+                t1 = time.perf_counter()
                 iterations = self.data_handler.iterations
                 batch = (torch.from_numpy(lq), torch.from_numpy(gt))
-                self.state, loss = step_fn(self.state, *batch, step_generator(self.seed, iterations))
+                try:
+                    self.state, loss = step_fn(self.state, *batch, step_generator(self.seed, iterations))
+                except FloatingPointError as e:
+                    raise FloatingPointError(f"iteration {iterations}: {e}") from e
+                self.timings["get_batch"].append(t1 - t0)
+                self.timings["step"].append(time.perf_counter() - t1)
                 window_images += lq.shape[0]
                 if iterations % self.log_interval == 0:
                     loss_value = float(loss)
@@ -184,7 +205,13 @@ class Trainer:
                     print(f" Iterations = {iterations:<8} loss = {loss_value:.5f} ({rate:7.1f} img/s)", end="\r")
                     window_start, window_images = time.perf_counter(), 0
                 if iterations % self.eval_interval == 0:
-                    psnr, ssim = self.evaluate()
+                    if self.fused_train:  # as the JAX Trainer, which fuses a clone for the step only
+                        module.fused_train = restore_fused
+                    try:
+                        psnr, ssim = self.evaluate()
+                    finally:
+                        if self.fused_train:
+                            module.fused_train = True
                     logger.info(f" Iterations = {iterations:<8}  PSNR: {psnr:6.3f} SSIM: {ssim:6.4f}")
                     if self.evaluator and self.best_psnr <= psnr:
                         self.best_psnr = psnr
@@ -195,6 +222,27 @@ class Trainer:
                 module.fused_train = restore_fused
             logger.close()
             self.data_handler.close()
+            self._stop_profiler(profiler)
+
+    def _start_profiler(self):
+        """A running ``torch.profiler`` over the run when ``profile_dir`` is set."""
+        if not self.profile_dir:
+            return None
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profiler(self, profiler) -> None:
+        """Stop the profiler and write its Chrome trace into ``profile_dir``."""
+        if profiler is None:
+            return
+        profiler.stop()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        name = f"trainer-{time.strftime('%Y%m%d-%H%M%S')}-{os.getpid()}.pt.trace.json"
+        profiler.export_chrome_trace(os.path.join(self.profile_dir, name))
 
     def evaluate(self) -> Tuple[float, float]:
         if not self.evaluator:

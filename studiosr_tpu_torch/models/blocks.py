@@ -43,6 +43,7 @@ __all__ = [
     "Upsampler",
     "drop_path_scales",
     "drop_path",
+    "dropout",
     "DropPath",
     "mean_shift",
     "ResBlock",
@@ -179,17 +180,40 @@ def LayerNorm(features: int) -> nn.LayerNorm:
 
 
 class Mlp(nn.Module):
-    """Linear-GELU-Linear feed-forward (eval: no dropout)."""
+    """Linear-GELU-Linear feed-forward; in training mode ``drop`` applies
+    dropout after the GELU and after fc2, as the reference's ``Mlp``."""
 
-    def __init__(self, in_features: int, hidden_features: Optional[int] = None, out_features: Optional[int] = None):
+    def __init__(
+        self, in_features: int, hidden_features: Optional[int] = None, out_features: Optional[int] = None,
+        drop: float = 0.0,
+    ):
         super().__init__()
         hidden = hidden_features or in_features
         out = out_features or in_features
+        self.drop = drop
         self.fc1 = nn.Linear(in_features, hidden)
         self.fc2 = nn.Linear(hidden, out)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(gelu(self.fc1(x)))
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = dropout(gelu(self.fc1(x)), self.drop, self.training, generator)
+        return dropout(self.fc2(x), self.drop, self.training, generator)
+
+
+def dropout(
+    x: torch.Tensor, rate: float, training: bool, generator: Optional[torch.Generator] = None
+) -> torch.Tensor:
+    """Element-wise dropout (flax ``nn.Dropout``): each element kept with
+    probability 1 - rate and divided by it, the rest zero; the identity out
+    of training mode or at rate 0. The bits are drawn on ``x``'s device from
+    a generator seeded by one draw of ``generator`` (the step's explicit
+    generator; the global one when None), so a step's draws are a function
+    of its generator's seed."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    seed = int(torch.randint(0, 2**62, (1,), generator=generator))
+    bits = torch.rand(x.shape, generator=torch.Generator(device=x.device).manual_seed(seed), device=x.device) < keep
+    return torch.where(bits, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def drop_path_scales(

@@ -16,7 +16,9 @@ The OCAB's overlapping key/value windows come from the zero-padded
 values are zero, so their logits are the bias alone; they are not masked.
 
 Training mode applies stochastic depth to both residual halves of every
-HAB, as SwinIR's port does. ``fused_train`` (``studiosr_tpu/models/hat.py``
+HAB, as SwinIR's port does, and ``drop_rate`` dropout after the patch
+embedding's LayerNorm (the reference's HAB and OCAB MLPs take no dropout),
+in plain autograd; ``fused_train`` (``studiosr_tpu/models/hat.py``
 HAB / OCAB ``fused_train``) routes each HAB's attention half through
 ``attention_map_vjp`` (B5 forward, B8 / B9 backward) and its MLP half
 through ``mlp_block_dp_vjp`` (B6, B7), and each OCAB's attention core
@@ -36,7 +38,9 @@ import torch.nn.functional as F
 
 from studiosr_tpu_torch._device import resolve_device
 from studiosr_tpu_torch.models.base import FusedServingModel
-from studiosr_tpu_torch.models.blocks import LayerNorm, Mlp, Normalizer, Upsampler, conv, drop_path_scales, gelu
+from studiosr_tpu_torch.models.blocks import (
+    LayerNorm, Mlp, Normalizer, Upsampler, conv, drop_path_scales, dropout, gelu,
+)
 from studiosr_tpu_torch.models.swinir import _TRAINING_CONFIG, WindowAttention, _init_weights
 from studiosr_tpu_torch.ops.attention import attention_core
 from studiosr_tpu_torch.ops.attn_vjp import attention_map_vjp
@@ -299,14 +303,12 @@ class HATModule(nn.Module):
                 blk.fused_train = self._fused_train
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """NHWC forward; ``generator`` feeds the drop-path draws in training mode."""
-        if self.training and self.drop_rate:
-            raise NotImplementedError("dropout (drop_rate > 0) is not ported; HAT's recipes train with 0")
+        """NHWC forward; ``generator`` feeds the drop-path and dropout draws in training mode."""
         h, w = x.shape[1:3]
         x = self.normalizer.normalize(pad_to_multiple_reflect(x, self.window_size))
         x = self.conv_first(x)
         shallow = x
-        feats = self.patch_embed.norm(x)
+        feats = dropout(self.patch_embed.norm(x), self.drop_rate, self.training, generator)
         for layer in self.layers:
             feats = layer(feats, generator)
         feats = self.norm(feats)

@@ -22,8 +22,11 @@ Training mode uses the BatchNorm batch statistics (flax's arithmetic,
 residual branch is kept with probability 1 - dropout and scaled by
 1 / (1 - dropout), the draws taken from the ``generator`` handed to
 ``forward``. ``enable_fused`` routes the attention cores (32 a forward at
-the default depth) through B15 (``ops/cuda/window_attn.py``); the
-feed-forward and the map-level fused route stay plain, as the JAX package's
+the default depth) through B15 (``ops/cuda/window_attn.py``); a window of
+more than 1024 tokens (adaptive mode on about a megapixel of LR, 1025²
+giving 33² tokens) is B15's structural decline, recorded in
+``engagement.declines()`` and served by the plain core, as the JAX
+wrapper declines it; the feed-forward and the map-level fused route stay plain, as the JAX package's
 ``FF_FUSED_SERVING`` and ``MAP_FUSED_SERVING`` leave them.
 
 ``fused_train`` (``studiosr_tpu/models/maxsr.py:365-419``) runs, in training
@@ -54,9 +57,9 @@ import torch.nn.functional as F
 from studiosr_tpu_torch._device import resolve_device
 from studiosr_tpu_torch.models.base import Model
 from studiosr_tpu_torch.models.blocks import BatchNorm, LayerNorm, Normalizer, conv, drop_path_scales, gelu, slots
-from studiosr_tpu_torch.ops.attention import attention_core
+from studiosr_tpu_torch.ops.attention import attention_core, attention_plain
 from studiosr_tpu_torch.ops.attn_vjp import attention_map_vjp
-from studiosr_tpu_torch.ops.cuda.window_attn import window_attention
+from studiosr_tpu_torch.ops.cuda import window_attn
 from studiosr_tpu_torch.ops.mlp_vjp import mlp_block_vjp
 from studiosr_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 from studiosr_tpu_torch.ops.windows import gather_rel_bias, pad_to_multiple_reflect, relative_position_index
@@ -185,8 +188,14 @@ class _Attention(nn.Module):
         bias = None
         if self.static:
             bias = gather_rel_bias(self.rel_pos_bias.weight, relative_position_index(self.window_size), heads)
-        if self.fused:
-            out = window_attention(q, k, v, bias=bias)
+        if self.fused and window_attn.takes(n, n, d):
+            out = window_attn.window_attention(q, k, v, bias=bias)
+        elif self.fused:
+            # B15 takes at most 1024 tokens a window (about a megapixel of LR
+            # in adaptive mode): a structural decline, as the JAX wrapper's,
+            # recorded, then attention_core's plain route
+            window_attn.decline(n, n, d)
+            out = attention_plain(q, k, v, bias)
         else:
             out = attention_core(q, k, v, bias=bias)
         return self.to_out._modules["0"](out.transpose(1, 2).reshape(b_, n, c))

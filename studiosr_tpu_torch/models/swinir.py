@@ -17,7 +17,9 @@ keep scales from the ``generator`` handed to ``forward``. ``fused_train``
 routes every Swin block through the custom-autograd fused halves
 (``ops/attn_vjp.py`` over B5/B8, ``ops/mlp_vjp.py`` over B6/B7) with the
 same parameters and the same scales; it requires ``drop_rate == 0``.
-Dropout (``drop_rate > 0``) is not ported: training mode raises for it.
+``drop_rate > 0`` applies dropout in training mode after the patch
+embedding's LayerNorm and in every block's MLP (after the GELU and after
+fc2), in plain autograd, its draws seeded from the same ``generator``.
 
 ``resi_connection`` and ``conv_after_body`` (``studiosr_tpu/models/swinir.py``
 hooks) take a factory ``f(dim) -> nn.Module`` for each RSTB's residual conv
@@ -36,7 +38,7 @@ import torch.nn.functional as F
 
 from studiosr_tpu_torch._device import resolve_device
 from studiosr_tpu_torch.models.base import FusedServingModel
-from studiosr_tpu_torch.models.blocks import LayerNorm, Mlp, Normalizer, Upsampler, conv, drop_path_scales
+from studiosr_tpu_torch.models.blocks import LayerNorm, Mlp, Normalizer, Upsampler, conv, drop_path_scales, dropout
 from studiosr_tpu_torch.ops.attention import attention_core
 from studiosr_tpu_torch.ops.attn_vjp import attention_map_vjp
 from studiosr_tpu_torch.ops.mlp_vjp import mlp_block_dp_vjp
@@ -90,6 +92,7 @@ class SwinTransformerBlock(nn.Module):
         shift_size: int = 0,
         mlp_ratio: float = 4.0,
         drop_path: float = 0.0,
+        drop: float = 0.0,
     ):
         super().__init__()
         self.window_size = window_size
@@ -99,7 +102,7 @@ class SwinTransformerBlock(nn.Module):
         self.norm1 = LayerNorm(dim)
         self.attn = WindowAttention(dim, window_size, num_heads)
         self.norm2 = LayerNorm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), drop=drop)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, h, w, c = x.shape
@@ -123,7 +126,7 @@ class SwinTransformerBlock(nn.Module):
         if scales is not None:
             x = x * scales[:, 0].reshape(-1, 1, 1, 1).to(x.dtype)
         x = shortcut + x
-        y = self.mlp(self.norm2(x))
+        y = self.mlp(self.norm2(x), generator)
         if scales is not None:
             y = y * scales[:, 1].reshape(-1, 1, 1, 1).to(y.dtype)
         return x + y
@@ -162,13 +165,14 @@ class RSTB(nn.Module):
         mlp_ratio: float = 4.0,
         drop_path: Sequence[float] = (),
         resi_connection: Optional[Callable[[int], nn.Module]] = None,
+        drop: float = 0.0,
     ) -> None:
         super().__init__()
         self.residual_group = _ResidualGroup(
             [
                 SwinTransformerBlock(
                     dim, num_heads, window_size, 0 if i % 2 == 0 else window_size // 2, mlp_ratio,
-                    drop_path[i] if drop_path else 0.0,
+                    drop_path[i] if drop_path else 0.0, drop,
                 )
                 for i in range(depth)
             ]
@@ -217,7 +221,7 @@ class SwinIRModule(nn.Module):
         dpr = np.linspace(0, drop_path_rate, sum(depths)).tolist()
         self.layers = nn.ModuleList(
             RSTB(embed_dim, depth, num_heads[i], window_size, mlp_ratio, dpr[sum(depths[:i]) : sum(depths[: i + 1])],
-                 resi_connection)
+                 resi_connection, drop_rate)
             for i, depth in enumerate(depths)
         )
         self.norm = LayerNorm(embed_dim)
@@ -247,16 +251,14 @@ class SwinIRModule(nn.Module):
                 blk.fused_train = self._fused_train
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """NHWC forward; ``generator`` feeds the drop-path draws in training mode."""
-        if self.training and self.drop_rate:
-            raise NotImplementedError("dropout (drop_rate > 0) is not ported; SwinIR's recipes train with 0")
+        """NHWC forward; ``generator`` feeds the drop-path and dropout draws in training mode."""
         h, w = x.shape[1:3]
         pad = pad_to_multiple_reflect if self.training else pad_to_multiple_flip
         x = self.normalizer.normalize(pad(x, self.window_size))
 
         x = self.conv_first(x)
         shallow = x
-        feats = self.patch_embed.norm(x)
+        feats = dropout(self.patch_embed.norm(x), self.drop_rate, self.training, generator)
         for layer in self.layers:
             feats = layer(feats, generator)
         feats = self.norm(feats)

@@ -6,9 +6,11 @@ Port of ``studiosr_tpu/ops/attention.py``. Operands are (B, heads, N, d);
 
 Two backends, as in the JAX package: ``"xla"`` (the default) computes the
 plain PyTorch version here; ``"pallas"`` (the JAX package's opt-in name)
-routes every call through B15, ``ops/cuda/window_attn.py::window_attention``,
-which launches its CUDA kernel on a CUDA tensor and takes this plain version
-on a CPU one.
+routes every call that B15 takes (``window_attn.takes``) through
+``ops/cuda/window_attn.py::window_attention``, which launches its CUDA
+kernel on a CUDA tensor and takes this plain version on a CPU one; a call
+it does not take (above 1024 tokens a window) is recorded as B15's
+structural decline and computed here, as the JAX backend falls through.
 """
 
 from __future__ import annotations
@@ -43,9 +45,11 @@ def attention_core(
     """softmax(q @ k^T + bias + mask) @ v; ``q`` already carries 1/sqrt(d).
     Scores and softmax in f32, or f64 for f64 operands."""
     if _BACKEND == "pallas":
-        from studiosr_tpu_torch.ops.cuda.window_attn import window_attention
+        from studiosr_tpu_torch.ops.cuda import window_attn
 
-        return window_attention(q, k, v, bias=bias, mask=mask)
+        if window_attn.takes(q.shape[2], k.shape[2], q.shape[3]):
+            return window_attn.window_attention(q, k, v, bias=bias, mask=mask)
+        window_attn.decline(q.shape[2], k.shape[2], q.shape[3])
     return attention_plain(q, k, v, bias, mask)
 
 

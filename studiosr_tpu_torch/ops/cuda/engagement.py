@@ -15,9 +15,12 @@ so there is no fallback to count. What remains:
   ``fused_resblock`` (B14), ``window_attention_pallas`` (B15); where a
   wrapper names the C entry it called (every kernel: one for f32,
   one or two for bf16), ``entries()`` counts the launches of each;
-* ``structural_tail_decline(scale)`` — the by-design decline of a
-  configuration that has no kernel at all (scale 8's log2-ladder tail),
-  recorded and warned about so it is never silent;
+* ``structural_decline(name, reason)`` — the by-design decline of a
+  configuration that a kernel does not take (the JAX wrapper declines it
+  too), recorded and warned about so it is never silent; its uses:
+  ``structural_tail_decline(scale)`` (scale 8's log2-ladder tail has no
+  fused kernel) and B15 above 1024 tokens a window
+  (``window_attn.decline``, MaxSR adaptive on about a megapixel of LR);
 * ``counters()`` / ``entries()`` / ``declines()`` / ``reset()``.
 """
 
@@ -26,7 +29,7 @@ from __future__ import annotations
 import collections
 import warnings
 
-__all__ = ["launched", "structural_tail_decline", "counters", "entries", "declines", "reset"]
+__all__ = ["launched", "structural_decline", "structural_tail_decline", "counters", "entries", "declines", "reset"]
 
 _launches: collections.Counter = collections.Counter()
 _entries: collections.Counter = collections.Counter()
@@ -39,13 +42,18 @@ def launched(name: str, entry: str = None) -> None:
         _entries[(name, entry)] += 1
 
 
-def structural_tail_decline(scale: int) -> None:
-    """Record that the fused upsample tail has no kernel for ``scale``."""
-    reason = f"scale {scale}: no fused tail (plain log2-ladder path)"
-    entry = _declines.setdefault("fused_upsample_tail", {"count": 0, "reason": reason})
+def structural_decline(name: str, reason: str) -> None:
+    """Record (and warn) that the kernel ``name`` declined a configuration
+    by design, for ``reason``; the caller takes the plain route."""
+    entry = _declines.setdefault(name, {"count": 0, "reason": reason})
     entry["count"] += 1
     entry["reason"] = reason
-    warnings.warn(f"fused_upsample_tail declined by design: {reason}", stacklevel=2)
+    warnings.warn(f"{name} declined by design: {reason}", stacklevel=3)
+
+
+def structural_tail_decline(scale: int) -> None:
+    """Record that the fused upsample tail has no kernel for ``scale``."""
+    structural_decline("fused_upsample_tail", f"scale {scale}: no fused tail (plain log2-ladder path)")
 
 
 def counters() -> dict:

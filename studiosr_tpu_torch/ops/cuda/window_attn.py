@@ -17,7 +17,11 @@ contiguous (the q / k / v slices of a fused qkv projection reach the kernel
 without a copy); bias and mask are handed to the kernel in f32. The output
 comes back as a transposed view of a (B', N, heads, d) tensor, the layout
 the output projection reads. The kernel takes N, M <= 1024 (as the JAX
-wrapper) and d <= 64; other shapes raise ``NotImplementedError``.
+wrapper) and d <= 64 (``takes``); other shapes raise
+``NotImplementedError``. Callers that route around it (MaxSR's fused
+attention, ``attention_core``'s "pallas" backend) ask ``takes`` first and,
+where it says no, record the structural decline (``decline``, as the JAX
+wrapper's ``engagement.fallback``) and take the plain route.
 
 bf16 launches the kernel written for the H100 (C entry
 ``window_attn_flash_bf16``), every shape; f32, the checks' dtype, the
@@ -33,16 +37,28 @@ import ctypes
 import torch
 
 from studiosr_tpu_torch.ops.attention import attention_plain
-from studiosr_tpu_torch.ops.cuda import _build
+from studiosr_tpu_torch.ops.cuda import _build, engagement
 from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, finish, operand, stream
 from studiosr_tpu_torch.ops.cuda.window_attention import MAX_HEAD_DIM
 
-__all__ = ["window_attention", "MAX_TOKENS"]
+__all__ = ["window_attention", "takes", "decline", "MAX_TOKENS"]
 
 MAX_TOKENS = 1024  # csrc/window_attn.cu WA_MAX_TOKENS
 _LL = ctypes.c_longlong
 _ARGS = (P, P, P, P, P, P, ctypes.POINTER(_LL), _LL, I, I, I, I, I, P)
 _SIGNATURES = {"window_attn_f32": _ARGS, "window_attn_flash_bf16": _ARGS}
+
+
+def takes(n: int, m: int, d: int) -> bool:
+    """Whether B15 takes N query and M key tokens a window at head dim d."""
+    return n <= MAX_TOKENS and m <= MAX_TOKENS and d <= MAX_HEAD_DIM
+
+
+def decline(n: int, m: int, d: int) -> None:
+    """Record B15's structural decline of (N, M, d), which ``takes`` refused."""
+    engagement.structural_decline(
+        "window_attention_pallas", f"N {n}, M {m}, d {d}: the kernel takes N, M <= {MAX_TOKENS} and d <= "
+        f"{MAX_HEAD_DIM} (plain attention_core)")
 
 
 def _rows(t):
@@ -64,7 +80,7 @@ def window_attention(q, k, v, bias=None, mask=None):
     m = k.shape[2]
     if k.shape[0] != bw or k.shape[1] != heads or k.shape[3] != d or min(bw, heads, n, m, d) < 1:
         raise ValueError(f"{name}: q {tuple(q.shape)} and k {tuple(k.shape)} do not fit")
-    if n > MAX_TOKENS or m > MAX_TOKENS or d > MAX_HEAD_DIM:
+    if not takes(n, m, d):
         raise NotImplementedError(f"{name}: the kernel takes N, M <= {MAX_TOKENS} and d <= {MAX_HEAD_DIM}, "
                                   f"not N {n}, M {m}, d {d}")
     dev = q.device

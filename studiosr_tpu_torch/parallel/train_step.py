@@ -18,6 +18,9 @@ process data parallelism is not part of this port yet):
   autocast, which rounds at other places), the loss is f32, gradients flow
   back through the cast and arrive in f32. uint8 batches are divided by
   255 on the device. The EMA decays only on steps that applied an update.
+  ``debug_nans`` checks the loss and every gradient before the update and
+  raises ``FloatingPointError`` naming the first non-finite one (the
+  counterpart of ``jax_debug_nans``); a finite step is not changed by it.
 """
 
 from __future__ import annotations
@@ -29,7 +32,9 @@ import torch
 import torch.nn as nn
 from torch.func import functional_call
 
-__all__ = ["TrainState", "Adam", "multistep_schedule", "build_optimizer", "make_train_step", "prepare_state"]
+__all__ = [
+    "TrainState", "Adam", "multistep_schedule", "build_optimizer", "make_train_step", "prepare_state",
+]
 
 
 @dataclasses.dataclass
@@ -148,10 +153,27 @@ def _to_unit(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     return t.float() / 255.0 if t.dtype == torch.uint8 else t.float()
 
 
-def make_train_step(module: nn.Module, tx: Adam, loss_fn: Callable, bfloat16: bool = True, ema_decay: float = 0.0):
+def check_finite(loss: torch.Tensor, names: Sequence[str], grads: Sequence[torch.Tensor]) -> None:
+    """Raise ``FloatingPointError`` unless the loss and every gradient are
+    finite, naming the first parameter whose gradient is not."""
+    finite = torch.stack([torch.isfinite(loss).all()] + [torch.isfinite(g).all() for g in grads]).cpu()
+    if bool(finite.all()):
+        return
+    if not bool(finite[0]):
+        raise FloatingPointError(f"non-finite loss {float(loss.detach())}")
+    first = int((~finite[1:]).nonzero()[0])
+    raise FloatingPointError(f"non-finite gradient of {names[first]}")
+
+
+def make_train_step(
+    module: nn.Module, tx: Adam, loss_fn: Callable, bfloat16: bool = True, ema_decay: float = 0.0,
+    debug_nans: bool = False,
+):
     """``step(state, lq, gt, generator=None) -> (state, loss)``: one
     optimizer step on ``module`` (trained in training mode, left in the mode
-    it was in). ``generator`` feeds the drop-path draws."""
+    it was in). ``generator`` feeds the drop-path and dropout draws;
+    ``debug_nans`` raises before the update on a non-finite loss or
+    gradient."""
     device = next(module.parameters()).device
 
     def step(state: TrainState, lq: torch.Tensor, gt: torch.Tensor, generator: Optional[torch.Generator] = None):
@@ -171,6 +193,8 @@ def make_train_step(module: nn.Module, tx: Adam, loss_fn: Callable, bfloat16: bo
                 grads = torch.autograd.grad(loss, masters)
         finally:
             module.train(was_training)
+        if debug_nans:
+            check_finite(loss, names, grads)
         applied = tx.update(state.params, dict(zip(names, grads)), state.opt_state)
         if ema_decay and applied:
             with torch.no_grad():

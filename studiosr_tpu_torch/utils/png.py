@@ -4,9 +4,13 @@
 ``cv2.imread(path, cv2.IMREAD_COLOR)`` followed by BGR -> RGB does: gray is
 replicated into three channels, alpha is dropped (not composited), a palette
 is expanded. All five row filters are undone (None, Sub, Up, Average,
-Paeth). Other bit depths and interlaced files raise :class:`UnsupportedPNG`,
-for the caller to hand them to cv2. ``write_png`` writes 8-bit RGB with the
-None filter. Chunk CRCs are checked on read.
+Paeth), in C++ through the port's host library (``native/``) where it
+loads, else by :func:`unfilter_plain` (numpy, and a Python loop for the
+Average and Paeth rows, whose bytes depend on the one just rebuilt). Other
+bit depths and interlaced files raise :class:`UnsupportedPNG`, for the
+caller to hand them to cv2. ``write_png`` writes 8-bit RGB (gray, RGBA)
+with the None filter on every row, or the filters asked for. Chunk CRCs are
+checked on read.
 """
 
 from __future__ import annotations
@@ -16,7 +20,12 @@ import zlib
 
 import numpy as np
 
-__all__ = ["UnsupportedPNG", "read_png", "write_png", "decode_png", "encode_png", "PNG_SIGNATURE"]
+from studiosr_tpu_torch import native
+
+__all__ = [
+    "UnsupportedPNG", "read_png", "write_png", "decode_png", "encode_png", "filter_rows", "unfilter_plain",
+    "PNG_SIGNATURE",
+]
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # color type -> samples per pixel
@@ -47,7 +56,20 @@ def _chunks(data: bytes):
 
 
 def _unfilter(raw: np.ndarray, height: int, stride: int, bpp: int) -> np.ndarray:
-    """Undo the per-row filters of ``raw`` (height x (1 + stride) bytes)."""
+    """Undo the per-row filters of ``raw`` (height x (1 + stride) bytes):
+    through the port's host library where it loads (``native/``, which also
+    releases the GIL), else through :func:`unfilter_plain`. The bytes are the
+    same either way; ``native.counters()["unfilter"]`` counts the routes."""
+    if native.available():
+        native.count("unfilter", "native")
+        return native.png_unfilter(raw, height, stride, bpp)
+    native.count("unfilter", "python")
+    return unfilter_plain(raw, height, stride, bpp)
+
+
+def unfilter_plain(raw: np.ndarray, height: int, stride: int, bpp: int) -> np.ndarray:
+    """The plain version of :func:`_unfilter`: numpy for None, Sub and Up,
+    a Python loop along the row for Average and Paeth."""
     rows = raw.reshape(height, stride + 1)
     out = np.zeros((height, stride), np.uint8)
     prior = np.zeros(stride, np.uint8)
@@ -84,6 +106,39 @@ def _unfilter_sequential(kind: int, line, prior, bpp: int) -> np.ndarray:
     return np.asarray(cur, np.uint8)
 
 
+def filter_rows(pixels: np.ndarray, row_filter, bpp: int) -> np.ndarray:
+    """Filter (height, stride) uint8 rows for a PNG: (height, 1 + stride),
+    each row led by its filter type. ``row_filter`` is one type (0-4) for
+    every row or a sequence of one per row."""
+    height, stride = pixels.shape
+    kinds = np.broadcast_to(np.asarray(row_filter, np.int64), (height,))
+    if kinds.min(initial=0) < 0 or kinds.max(initial=0) > 4:
+        raise ValueError(f"PNG filter types are 0-4, got {sorted(set(kinds.tolist()))}")
+    x = pixels.astype(np.int32)
+    a = np.zeros_like(x)  # the byte to the left, above, above-left
+    a[:, bpp:] = x[:, :-bpp]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, bpp:] = x[:-1, :-bpp]
+    pred = np.zeros_like(x)
+    for kind in set(kinds.tolist()) - {0}:
+        rows = kinds == kind
+        ra, rb, rc = a[rows], b[rows], c[rows]
+        if kind == 1:
+            pred[rows] = ra
+        elif kind == 2:
+            pred[rows] = rb
+        elif kind == 3:
+            pred[rows] = (ra + rb) >> 1
+        else:
+            p = ra + rb - rc
+            pa, pb, pc = np.abs(p - ra), np.abs(p - rb), np.abs(p - rc)
+            pred[rows] = np.where((pa <= pb) & (pa <= pc), ra, np.where(pb <= pc, rb, rc))
+    filtered = ((x - pred) & 0xFF).astype(np.uint8)
+    return np.concatenate([kinds.astype(np.uint8)[:, None], filtered], axis=1)
+
+
 def decode_png(data: bytes) -> np.ndarray:
     """PNG bytes -> RGB uint8 (H, W, 3), as cv2's IMREAD_COLOR + BGR->RGB."""
     header, palette, idat = None, None, []
@@ -118,18 +173,28 @@ def decode_png(data: bytes) -> np.ndarray:
     return np.ascontiguousarray(pixels[..., :3])
 
 
-def encode_png(image: np.ndarray) -> bytes:
-    """RGB uint8 (H, W, 3) -> 8-bit RGB PNG bytes (filter None on every row)."""
+def encode_png(image: np.ndarray, row_filter=0) -> bytes:
+    """uint8 (H, W, 3) RGB -> 8-bit RGB PNG bytes; (H, W) or (H, W, 1) gray
+    and (H, W, 4) RGBA are written as such. Every row is filtered with
+    ``row_filter`` (0, None, by default; or one type per row)."""
     image = np.ascontiguousarray(image)
-    if image.dtype != np.uint8 or image.ndim != 3 or image.shape[-1] != 3:
-        raise ValueError(f"write_png takes RGB uint8 (H, W, 3), got {image.dtype} {image.shape}")
-    height, width = image.shape[:2]
-    rows = np.concatenate([np.zeros((height, 1), np.uint8), image.reshape(height, width * 3)], axis=1)
+    if image.ndim == 2:
+        image = image[..., None]
+    color = {1: 0, 3: 2, 4: 6}.get(image.shape[-1]) if image.ndim == 3 else None
+    if image.dtype != np.uint8 or color is None:
+        raise ValueError(f"write_png takes RGB uint8 (H, W, 3), or gray (H, W, 1) or RGBA (H, W, 4), got {image.dtype} "
+                         f"{image.shape}")
+    height, width, channels = image.shape
+    pixels = image.reshape(height, width * channels)
+    if np.all(np.asarray(row_filter) == 0):
+        rows = np.concatenate([np.zeros((height, 1), np.uint8), pixels], axis=1)
+    else:
+        rows = filter_rows(pixels, row_filter, channels)
 
     def chunk(kind: bytes, body: bytes) -> bytes:
         return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
 
-    ihdr = struct.pack(">IIBBBBB", width, height, 8, 2, 0, 0, 0)
+    ihdr = struct.pack(">IIBBBBB", width, height, 8, color, 0, 0, 0)
     return (PNG_SIGNATURE + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(rows.tobytes()))
             + chunk(b"IEND", b""))
 
@@ -139,7 +204,7 @@ def read_png(path: str) -> np.ndarray:
         return decode_png(f.read())
 
 
-def write_png(path: str, image: np.ndarray) -> None:
-    data = encode_png(image)
+def write_png(path: str, image: np.ndarray, row_filter=0) -> None:
+    data = encode_png(image, row_filter)
     with open(path, "wb") as f:
         f.write(data)

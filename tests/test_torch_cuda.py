@@ -1281,3 +1281,70 @@ def test_small_conv_family_serves_bf16_on_the_card(dev, name):
     assert engagement.counters() == {}
     assert got.shape == (1, 80, 112, 3)
     _assert_close(got, want, torch.bfloat16)
+
+
+def test_maxsr_fused_serving_declines_above_1024_tokens(dev):
+    """C6: MaxSR adaptive with ``enable_fused(True)`` serves a 1025² LR
+    image (windows of 33² = 1089 tokens, above B15's 1024): each of the
+    trio's two attention calls is a recorded structural decline, nothing
+    launches, and the output is the unfused route's, bit for bit. Narrowed
+    to dim 32, one head, one trio: the plain core's f32 scores take 5.2 GB
+    an attention call."""
+    from studiosr_tpu_torch import MaxSR
+
+    model = MaxSR.build(scale=4, adaptive=True, dim=32, dim_head=32, depth=[1], device=dev).half()
+    image = np.random.default_rng(0).integers(0, 256, (1025, 1025, 3), dtype=np.uint8)
+    engagement.reset()
+    with pytest.warns(UserWarning, match="declined by design"):
+        fused = model.enable_fused(True).inference(image)
+    assert engagement.counters() == {}
+    assert engagement.declines()["window_attention_pallas"]["count"] == 2
+    plain = model.enable_fused(False).inference(image)
+    assert fused.shape == (4100, 4100, 3) and fused.dtype == np.uint8
+    assert np.array_equal(fused, plain)
+
+
+def _paeth_div2k(root, side=600):
+    """One seeded HR image (Paeth rows) and its X2 / X3 / X4 in DIV2K's layout."""
+    from studiosr_tpu_torch.utils.png import write_png
+
+    hr = np.random.default_rng(1).integers(0, 256, (side, side, 3), dtype=np.uint8)
+    (root / "DIV2K" / "DIV2K_train_HR").mkdir(parents=True)
+    write_png(str(root / "DIV2K" / "DIV2K_train_HR" / "0001.png"), hr, row_filter=4)
+    for s in (2, 3, 4):
+        d = root / "DIV2K" / "DIV2K_train_LR_bicubic" / f"X{s}"
+        d.mkdir(parents=True)
+        write_png(str(d / f"0001x{s}.png"), hr[::s, ::s], row_filter=4)
+
+
+def test_trainer_on_the_card_takes_the_native_host_routes_and_traces_the_kernels(dev, tmp_path):
+    """Two steps of a SwinIR of the main path's widths (two blocks) on the
+    card from a prepared DIV2K corpus with ``profile_dir``: every sample
+    through the native crop-augment, every PNG through the native unfilter,
+    B5-B8 launched twice each through their bf16 H100 entries, and the
+    Chrome trace names their CUDA kernels."""
+    import json
+
+    from studiosr_tpu_torch import DIV2K, Trainer, native
+
+    _paeth_div2k(tmp_path / "data")
+    native.reset_counters()
+    dataset = DIV2K(str(tmp_path / "data"), size=16, scale=4, transform=True, to_tensor=True)
+    model = SwinIR.build(scale=4, embed_dim=180, depths=[2], num_heads=[6], window_size=8, mlp_ratio=2.0, device=dev)
+    trainer = Trainer(model, dataset, batch_size=4, num_workers=2, max_iters=2, eval_interval=2,
+                      ckpt_path=str(tmp_path / "ckpt"), profile_dir=str(tmp_path / "trace"))
+    engagement.reset()
+    trainer.run()
+    torch.cuda.synchronize()
+    routes = native.counters()
+    # the loader prefetches ahead of the steps: at least the 8 samples taken
+    assert set(routes["crop_augment"]) == {"native"} and routes["crop_augment"]["native"] >= 8
+    assert set(routes["unfilter"]) == {"native"}
+    assert trainer.bfloat16 and trainer.fused_train
+    kernels = {"fused_window_attention_block": "wa_attn_kernel", "fused_mlp_block": "mf_kernel",
+               "mlp_bwd": "mb_prod_kernel", "attention_bwd": "am_attn_kernel"}
+    assert engagement.counters() == {name: 4 for name in kernels}
+    (trace,) = (tmp_path / "trace").glob("*.json")
+    names = [e.get("name", "") for e in json.loads(trace.read_text())["traceEvents"] if e.get("cat") == "kernel"]
+    for name, kernel in kernels.items():
+        assert sum(kernel in n for n in names) >= 2, (name, kernel)

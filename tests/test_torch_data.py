@@ -164,9 +164,9 @@ def test_trainer_fused_train_defaults_and_errors(tmp_path):
     built_fused = SwinIR.build(**TINY, fused_train=True, device="cpu")
     with pytest.raises(ValueError, match="fused_train=False"):
         Trainer(built_fused, None, ckpt_path=str(tmp_path), fused_train=False)
-    for option in ("profile_dir", "debug_nans"):
-        with pytest.raises(NotImplementedError):
-            _trainer(tmp_path, 1, **{option: "x"})
+    # profile_dir and debug_nans are taken (they raised before they were ported)
+    traced = _trainer(tmp_path, 1, profile_dir=str(tmp_path / "trace"), debug_nans=True)
+    assert traced.profile_dir == str(tmp_path / "trace") and traced.debug_nans is True
 
 
 def test_fused_trainer_run_leaves_the_module_unfused(tmp_path):

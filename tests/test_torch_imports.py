@@ -16,7 +16,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "studiosr_tpu_torch"
 FORBIDDEN = ("jax", "flax", "optax", "msgpack", "studiosr_tpu")
-SOURCES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("torch_*.py"))
 WRAPPERS = [
     "studiosr_tpu_torch.ops.cuda.conv3x3",
     "studiosr_tpu_torch.ops.cuda.swin_block",
@@ -69,6 +69,7 @@ def test_guard_sees_the_whole_package():
         "trainer.py", "train_step.py", "dataset.py", "handler.py", "transforms.py", "losses.py", "helpers.py",
         "hat.py", "hat_fast.py", "ocab.py", "metrics.py", "png.py", "checkpoint.py", "registry.py", "tiled.py",
         "evaluator.py", "__main__.py", "oca_core.py", "oca_vjp.py", "swinfir.py", "maxsr.py", "window_attn.py",
+        "torch_train.py",
     } <= names
 
 
