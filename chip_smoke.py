@@ -174,6 +174,15 @@ Phases, in order; any failure exits non-zero before the final line:
 27. MaxSR training timing: step ms, images/s, peak memory; B5 and B8 (both
     modes), B6 and B7 at batch 32: ms, plain ms, bound, bf16 PyTorch
     yardstick; the kernels line's ``*_maxsr`` rows;
+27b. MaxSR adaptive fused training at other square LR crops, full width,
+    bf16 over f32 masters (``phase_maxsr_windows``): 48² at batch 32
+    (windows of 7: B5 + B8, one 64-token tile a window), 96² at batch 8
+    (10: B5 + B9, two tiles) and 144² at batch 4 (12: three tiles), 3 steps
+    each with the launches per kernel, the step's ms and peak memory; B5
+    and B8 / B9 against their plain versions on the first attention pair's
+    operands of a step, timed beside their plain versions, bounds and
+    bf16 PyTorch yardsticks (the kernels line's ``*_maxsr_ws{7,10,12}``
+    rows); the f64 gradient witness at batch 4 of each crop;
 28. the eight conv families (SRCNN, ESPCN, VDSR, SRResNet, EDSR, RCAN, HAN,
     IMDN) x4 at their build defaults (the reference's flax init): every
     conv of the bf16 forward vs f32 on its input, the bf16 forward vs the
@@ -208,7 +217,12 @@ Phases, in order; any failure exits non-zero before the final line:
     the fixture PNGs); ``scripts/torch_train.py --model swinir --scale 4
     --dataset DIV2K --size 64`` through ``main(argv)`` for 6 iterations
     with evaluations at 3 and 6 and ``--profile-dir``, then as a
-    subprocess, then resumed to 9 in process: 16 sub-images in each of the
+    subprocess with ``--multihost`` (``phase_multihost``: a process group
+    of one on NCCL from ``COORDINATOR_ADDRESS``, its parameters at
+    iteration 6 bit for bit the in-process run's; then
+    ``evaluate_uint8_batch`` and ``tiled_inference`` over the mesh
+    ``[cuda:0]`` against their mesh-less outputs on SwinIR x4 serving),
+    then resumed to 9 in process: 16 sub-images in each of the
     four packs, every PNG decode and crop-augment on the native host
     route, B5-B8 36 launches each a step through their bf16 H100 entries
     and nothing else, finite losses, ``latest`` and ``best`` written, the
@@ -228,8 +242,10 @@ from __future__ import annotations
 import importlib.util
 import json
 import math
+import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -474,6 +490,14 @@ MAXSR_EVAL_SIDES = (72, 128)
 MAXSR_PER_STEP = {"fused_window_attention_block": 32, "attention_bwd": 32, "fused_mlp_block": 32, "mlp_bwd": 32}
 # the kernels line's MaxSR-step rows: row name -> the wrapper whose launches it counts
 MAXSR_ROWS = {f"{name}_maxsr": name for name in MAXSR_PER_STEP}
+# MaxSR adaptive fused training at square LR crops of other windows: (side,
+# batch, the gradient witness's batch). 48² (the EDSR-style patch) has
+# windows of 7 (B5 + B8, one 64-token tile a window), 96² of 10 and 144² of
+# 12 (B5 + B9, two and three tiles); the batches keep a step under about 25
+# GiB (96² at batch 32 would take about 80); the plain f64 witness at 144²
+# and batch 4 takes more than the card's 80 GB, so it runs at batch 2 there.
+MAXSR_WINDOW_CROPS = ((48, 32, 4), (96, 8, 4), (144, 4, 2))
+MAXSR_WINDOW_STEPS = 3
 KERNELS.update({row: KERNELS[name] for row, name in MAXSR_ROWS.items()})
 # How hold_grads holds a model's gradients: the f32 fused run against the f64
 # witness, or (MaxSR) against plain autograd in f32, whose own reading from the
@@ -1093,16 +1117,17 @@ def phase_train_kernels(model, dev: torch.device, cases=None) -> dict:
     return errors
 
 
-def _unit_batch(dev: torch.device, batch: int, seed: int):
+def _unit_batch(dev: torch.device, batch: int, seed: int, crop: int = TRAIN_CROP):
     rng = np.random.default_rng(seed)
-    lq = rng.integers(0, 256, (batch, TRAIN_CROP, TRAIN_CROP, 3), dtype=np.uint8)
-    gt = rng.integers(0, 256, (batch, 4 * TRAIN_CROP, 4 * TRAIN_CROP, 3), dtype=np.uint8)
+    lq = rng.integers(0, 256, (batch, crop, crop, 3), dtype=np.uint8)
+    gt = rng.integers(0, 256, (batch, 4 * crop, 4 * crop, 3), dtype=np.uint8)
     return torch.from_numpy(lq).to(dev), torch.from_numpy(gt).to(dev)
 
 
-def train_grads(model, dev: torch.device, seed: int, grad_runs=GRAD_RUNS) -> dict:
+def train_grads(model, dev: torch.device, seed: int, grad_runs=GRAD_RUNS, crop: int = TRAIN_CROP,
+                batch: int = CHECK_BATCH) -> dict:
     """Loss and every parameter's gradient of the port's ``model`` (SwinIR or
-    HAT, f32 weights from ``seed``) at batch 4, one run for each (path,
+    HAT, f32 weights from ``seed``) at batch 4 (``batch``) of ``crop``² LR maps, one run for each (path,
     dtype) of ``GRAD_RUNS``, with the same weights, uint8 batch and
     drop-path draws. The weights and input are copied into the run's dtype
     (the bf16 policy of the train step) and the loss is taken in f32 (f64
@@ -1124,7 +1149,7 @@ def train_grads(model, dev: torch.device, seed: int, grad_runs=GRAD_RUNS) -> dic
     Returns {(path, dtype): (loss, {name: grad}, launches, (L1 signs,
     ReLU sides) unlike the witness's)}."""
     module = model.module.train()
-    lq, gt = _unit_batch(dev, CHECK_BATCH, seed + 3)
+    lq, gt = _unit_batch(dev, batch, seed + 3, crop)
     x, target = lq.float() / 255.0, gt.float() / 255.0
     named = list(module.named_parameters())
     runs, sign, witness, flips = {}, None, {}, [0]
@@ -1168,7 +1193,7 @@ def train_grads(model, dev: torch.device, seed: int, grad_runs=GRAD_RUNS) -> dic
     return runs
 
 
-def grad_report(runs: dict, seed: int, label: str = "", zero_grads: tuple = ()) -> dict:
+def grad_report(runs: dict, seed: int, label: str = "", zero_grads: tuple = (), batch: int = CHECK_BATCH) -> dict:
     """Every run's loss and gradients against the f64 witness, logged; the
     parameters named by the suffixes ``zero_grads`` against the norm of all
     the reference's gradients. Returns {(path, dtype): {"loss": rel, "all":
@@ -1202,7 +1227,7 @@ def grad_report(runs: dict, seed: int, label: str = "", zero_grads: tuple = ()) 
         against = "plain f32" if path == "fused-vs-plain" else "f64 plain"
         flips = "" if r["flipped"] is None else (
             f"; kinks on the other side from the witness: L1 {r['flipped'][0]}, ReLU {r['flipped'][1]}")
-        log(f"{label}grads seed {seed} {path} {str(dtype)[6:]} vs {against}, batch {CHECK_BATCH}: "
+        log(f"{label}grads seed {seed} {path} {str(dtype)[6:]} vs {against}, batch {batch}: "
             f"loss rel {r['loss']:.3e}"
             f"{flips}; all gradients rel_l2 {r['all']:.3e}; per parameter median {params[len(params) // 2][0]:.3e}, "
             f"worst {params[0][0]:.3e} ({params[0][1]}); bias tables median {float(np.median(tables)):.3e} "
@@ -1227,12 +1252,13 @@ def phase_train_grads(dev: torch.device, name: str = "swinir") -> None:
     hold_grads(dev, model, per_step, label)
 
 
-def hold_grads(dev: torch.device, model, per_step: dict, label: str, rules: dict = GRAD_RULES) -> None:
+def hold_grads(dev: torch.device, model, per_step: dict, label: str, rules: dict = GRAD_RULES,
+               crop: int = TRAIN_CROP, batch: int = CHECK_BATCH) -> None:
     """``train_grads`` of ``model`` held to the limits of PERF.md section 2,
     its f32 run and its zero-gradient parameters as ``rules`` says."""
-    runs = train_grads(model, dev, SEED)
+    runs = train_grads(model, dev, SEED, crop=crop, batch=batch)
     del model
-    report = grad_report(runs, SEED, label, rules["zero_grads"])
+    report = grad_report(runs, SEED, label, rules["zero_grads"], batch)
     failed = []
     for (path, dtype), (_, grads, launches, _) in runs.items():
         expected = per_step if path == "fused" else {}
@@ -1358,7 +1384,8 @@ def train_bounds(name: str, ops) -> tuple:
     c = x.shape[-1]
     tokens = x.numel() // c
     if name == "fused_window_attention_block":
-        flops = 2 * tokens * c * 4 * c + 4 * tokens * 64 * c
+        n = ops[7].shape[-1]  # tokens a window: the window's own, not its padding to whole tiles
+        flops = 2 * tokens * c * 4 * c + 4 * tokens * n * c
         moved = 2 * nbytes(x) + nbytes(*ops[1:])
     elif name in ("attention_bwd", "attention_bwd_ws16"):
         n = ops[-1].shape[-1]  # tokens a window
@@ -1380,7 +1407,7 @@ def kw_of(label: str, ws: int, batch: int, dev: torch.device) -> dict:
     return dict(heads=MAIN["num_heads"][0], window_size=ws, shift=int(label.split()[-1]), drop_path=dp)
 
 
-def yardstick_report(name: str, ops, ms: float, bms: float, kw: dict) -> None:
+def yardstick_report(name: str, ops, ms: float, bms: float, kw: dict) -> float:
     """A kernel's share of its bound, its ptxas line and its yardstick, the
     same function as a sequence of bf16 PyTorch calls
     (scripts/torch_time_attn_kernels.py), timed here and never on the path:
@@ -1417,6 +1444,7 @@ def yardstick_report(name: str, ops, ms: float, bms: float, kw: dict) -> None:
     torch.cuda.empty_cache()
     log(f"  {name}: {100 * bms / ms:.1f} % of the bound; yardstick (bf16 PyTorch sequence) {yard:.3f} ms, "
         f"kernel / yardstick {ms / yard:.3f}; {ptxas_report(name)}")
+    return yard
 
 
 def phase_train_timing(model: SwinIR, dev: torch.device, errors: dict, launches: dict, steps: int) -> list:
@@ -2575,6 +2603,119 @@ def phase_maxsr_train_timing(model, models, dev: torch.device, errors: dict, lau
     return rows
 
 
+# -- MaxSR adaptive fused training at other square crops (B5 / B8 / B9 at windows 7-12) --
+
+
+def maxsr_window_per_step(ws: int) -> dict:
+    """MaxSR's launches a fused step at window ``ws``: 32 of each, B5 and the
+    attention backward under their window family's keys."""
+    suffix = "_ws16" if ws * ws > 64 else ""
+    return {"fused_window_attention_block" + suffix: 32, "attention_bwd" + suffix: 32, "fused_mlp_block": 32,
+            "mlp_bwd": 32}
+
+
+def phase_maxsr_windows(dev: torch.device) -> list:
+    """MaxSR x4 adaptive at full width, bf16 over f32 masters, fused_train,
+    at square LR crops whose windows the earlier phases do not reach
+    (``MAXSR_WINDOW_CROPS``: 48² has windows of 7, 96² of 10, 144² of 12, the
+    map zero-padded to the window's square): ``MAXSR_WINDOW_STEPS`` steps
+    each, the launches per kernel (32 of B5, B8 or B9, B6 and B7 a step,
+    through their bf16 H100 entries), finite losses, the step's ms and peak
+    memory; B5 and B8 / B9 against their plain versions on the first
+    attention pair's operands of a step (its input and its bf16 weights),
+    timed with their plain versions, bounds and bf16 PyTorch yardsticks;
+    the f64 gradient witness at batch 4 (``hold_grads``, MaxSR's rules; at
+    144² batch 2: its plain f64 run at batch 4 outgrows the card's 80 GB).
+    Returns the kernels line's rows, one a kernel a window."""
+    import studiosr_tpu_torch.models.maxsr as maxsr_module
+
+    rows, failed = [], []
+    for side, batch, witness_batch in MAXSR_WINDOW_CROPS:
+        ws = math.ceil(math.sqrt(side))
+        per_step = maxsr_window_per_step(ws)
+        model = MaxSR.build(**MAXSR_MAIN, seed=SEED, device=dev)
+        module = model.module
+        module.fused_train = True
+        tx = build_optimizer()
+        state = prepare_state(module, tx)
+        step = make_train_step(module, tx, l1_loss, bfloat16=True)
+        lq, gt = _unit_batch(dev, batch, SEED + 6, side)
+        captured = []
+        vjp = maxsr_module.attention_map_vjp
+
+        def capture(*args):  # the first attention pair's operands of the first step
+            if not captured:
+                captured.append([a.detach().clone() if torch.is_tensor(a) else a for a in args])
+            return vjp(*args)
+
+        gen = torch.Generator().manual_seed(SEED)
+        maxsr_module.attention_map_vjp = capture
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            engagement.reset()
+            losses = []
+            for _ in range(MAXSR_WINDOW_STEPS):
+                state, loss = step(state, lq, gt, gen)
+                losses.append(float(loss))
+            torch.cuda.synchronize()
+            launches, entries = engagement.counters(), engagement.entries()
+        finally:
+            maxsr_module.attention_map_vjp = vjp
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        step_ms = time_ms(lambda: step(state, lq, gt, gen), iters=2, warmup=1)
+        module.fused_train = False
+        del state, tx, step
+        torch.cuda.empty_cache()
+        log(f"\nmaxsr windows: LR {side}² (window {ws}, map {ws * ws}², batch {batch}) bf16 fused: "
+            f"{MAXSR_WINDOW_STEPS} steps, losses {[round(v, 6) for v in losses]}, launches {launches}; step "
+            f"{step_ms:.3f} ms, {batch / (step_ms / 1e3):.1f} images/s, peak memory {peak:.2f} GiB")
+        label = f"maxsr {side}² window {ws}"
+        for name in set(launches) | set(per_step):
+            if launches.get(name, 0) != per_step.get(name, 0) * MAXSR_WINDOW_STEPS:
+                failed.append(f"{label} {name}: {launches.get(name, 0)} launches in {MAXSR_WINDOW_STEPS} steps, "
+                              f"expected {per_step.get(name, 0)} a step")
+        failed += train_entry_failures(label, launches, torch.bfloat16, entries)
+        if not all(np.isfinite(losses)):
+            failed.append(f"{label} losses {losses}")
+
+        x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, dp, shift, heads, ws_ = captured[0]
+        attn_ops = (ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias)
+        g = (torch.randn(x.shape, generator=torch.Generator().manual_seed(SEED + ws)) * 1e-3).to(dev, x.dtype)
+        kw = dict(heads=heads, window_size=ws_, shift=shift, drop_path=dp)
+        cases = (("fused_window_attention_block", fused_window_attention_block, window_attention_plain, (x, *attn_ops)),
+                 ("attention_bwd", attention_bwd, attention_bwd_plain, (x, g, *attn_ops)))
+        for base, kernel, plain, ops in cases:
+            name = base + ("_ws16" if ws * ws > 64 else "")
+            got = _flat(kernel(*ops, **kw))
+            want = _flat(plain(*[t.float() for t in ops], **kw))
+            err = [kernel_check(f"{name} [{label}] output {i}", k, p, torch.bfloat16, failed)
+                   for i, (k, p) in enumerate(zip(got, want))][0]  # the row's error: the first output's
+            del got, want
+            ms = time_ms(lambda: kernel(*ops, **kw), iters=10)
+            plain_ms = time_ms(lambda: plain(*ops, **kw), iters=3, warmup=1)
+            flops, moved = train_bounds(base, ops)
+            bms, by = bound_ms(flops, moved)
+            log(f"time {name} [{label}] bf16: {ms:.3f} ms ({100 * 32 * ms / step_ms:.1f} % of the step at 32 a "
+                f"step), plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), {flops / 1e9:.2f} GFLOP, "
+                f"{moved / 1e6:.1f} MB; launches {launches.get(name, 0)} in {MAXSR_WINDOW_STEPS} steps")
+            yard = yardstick_report(name, ops, ms, bms, dict(kw, drop_path=torch.ones(batch, device=dev)))
+            source, replaces = KERNELS[name]
+            rows.append(dict(name=f"{name}_maxsr_ws{ws}", route="cuda", source=source, replaces=replaces,
+                             launches=launches.get(name, 0), max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bms, bound_by=by, library_ms=None))
+            log(f"  {name} [{label}] yardstick (bf16 PyTorch sequence, not a single call): {yard:.3f} ms")
+            torch.cuda.empty_cache()
+        del captured, x, g, attn_ops, cases, module, model
+        torch.cuda.empty_cache()
+        hold_grads(dev, MaxSR.build(**MAXSR_MAIN, seed=SEED, device=dev), per_step, f"maxsr {side}² ",
+                   MAXSR_GRAD_RULES, crop=side, batch=witness_batch)
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("maxsr windows: " + "; ".join(failed))
+    return rows
+
+
 # -- the conv families (cuDNN convs; no kernel of the port) ---------------------------
 
 
@@ -2944,6 +3085,64 @@ def plain_host_routes(fn):
         native.available = available
 
 
+def phase_multihost(dev: torch.device, root: Path, common: list) -> list:
+    """A17 on the card: ``scripts/torch_train.py --multihost`` as a
+    subprocess, a process group of one (``COORDINATOR_ADDRESS`` on a free
+    local port, NCCL), the same ``ENTRY_STEPS`` steps as the in-process run
+    of ``phase_train_entry`` (whose ``latest`` checkpoint, written at the
+    same iteration, is the reference): its parameters bit for bit the run's
+    without a group, the gradients and loss having gone through an NCCL
+    all-reduce over one rank; then ``evaluate_uint8_batch`` and
+    ``tiled_inference`` over the mesh ``[cuda:0]`` against their mesh-less
+    outputs on SwinIR x4 serving. Returns the failures."""
+    from studiosr_tpu_torch.parallel import get_mesh, tiled_inference
+
+    failed = []
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, COORDINATOR_ADDRESS=f"127.0.0.1:{port}", NUM_PROCESSES="1", PROCESS_ID="0")
+    cmd = [sys.executable, "scripts/torch_train.py", *common[:-1], str(root / "ckpt_sub"), "--max-iters",
+           str(ENTRY_STEPS), "--profile-dir", str(root / "trace_sub"), "--multihost"]
+    start = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, timeout=600, capture_output=True, text=True)
+    group = [line for line in proc.stdout.splitlines() if line.startswith("process group:")]
+    log(f"multihost: scripts/torch_train.py --multihost as a subprocess: exit {proc.returncode} in "
+        f"{time.perf_counter() - start:.1f} s (host clock); {group}")
+    sub_files = {p.name for p in (root / "ckpt_sub").iterdir()} if (root / "ckpt_sub").exists() else set()
+    if proc.returncode:
+        return [f"scripts/torch_train.py --multihost exited {proc.returncode}: {proc.stderr[-3000:]}"]
+    if group != ["process group: rank 0 of 1, backend nccl"]:
+        failed.append(f"--multihost did not join an NCCL group of one: {group}")
+    if not ({"best.model.ckpt", "latest.model.ckpt"} <= sub_files and list((root / "trace_sub").glob("*.json"))):
+        failed.append(f"the --multihost subprocess left {sorted(sub_files)} and no trace")
+    else:
+        got = torch.load(root / "ckpt_sub" / "latest.model.ckpt", weights_only=True)
+        want = torch.load(root / "ckpt" / "latest.model.ckpt", weights_only=True)
+        differ = sorted(k for k in want if k not in got or not torch.equal(got[k], want[k]))
+        log(f"multihost: {len(want) - len(differ)} of {len(want)} parameters of --multihost at iteration "
+            f"{ENTRY_STEPS} bit for bit those of the run without a group")
+        if differ or set(got) != set(want):
+            failed.append(f"--multihost parameters differ from the run without a group: {differ[:5]}")
+
+    model = SwinIR.build(**MAIN, seed=SEED, device=dev).half().enable_fused(True)
+    mesh = get_mesh([dev])
+    rng = np.random.default_rng(SEED + 17)
+    lqs = rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+    gts = rng.integers(0, 256, (2, 256, 256, 3), dtype=np.uint8)
+    plain = model.evaluate_uint8_batch(lqs, gts, crop_border=4)
+    meshed = model.evaluate_uint8_batch(lqs, gts, crop_border=4, mesh=mesh)
+    image = rng.integers(0, 256, (100, 120, 3), dtype=np.uint8)
+    tiles = tiled_inference(model, image, tile=64, tile_overlap=8, tile_batch=4)
+    tiles_mesh = tiled_inference(model, image, tile=64, tile_overlap=8, tile_batch=4, mesh=mesh)
+    same = (all(np.array_equal(a, b) for a, b in zip(plain, meshed)), np.array_equal(tiles, tiles_mesh))
+    log(f"multihost: mesh {mesh}: evaluate_uint8_batch PSNR {plain[0].tolist()} / {meshed[0].tolist()}, the same "
+        f"numbers {same[0]}; tiled_inference {tiles.shape} the same pixels {same[1]}")
+    if not all(same):
+        failed.append(f"the mesh= routes differ from the mesh-less ones: {same}")
+    return failed
+
+
 def phase_train_entry(dev: torch.device) -> None:
     """``scripts/torch_train.py --model swinir --scale 4 --dataset DIV2K``
     on a DIV2K-layout corpus, in process (``main(argv)``) and as a
@@ -3038,16 +3237,7 @@ def phase_train_entry(dev: torch.device) -> None:
         wait_ms = [1e3 * t for t in trainer.timings["get_batch"]]
         del trainer
 
-        cmd = [sys.executable, "scripts/torch_train.py", *common[:-1], str(root / "ckpt_sub"), "--max-iters",
-               str(ENTRY_STEPS), "--profile-dir", str(root / "trace_sub")]
-        start = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=ROOT, timeout=600, capture_output=True, text=True)
-        log(f"train entry as a subprocess: exit {proc.returncode} in {time.perf_counter() - start:.1f} s (host clock)")
-        sub_files = {p.name for p in (root / "ckpt_sub").iterdir()} if (root / "ckpt_sub").exists() else set()
-        if proc.returncode:
-            failed.append(f"scripts/torch_train.py exited {proc.returncode}: {proc.stderr[-3000:]}")
-        elif not ({"best.model.ckpt", "latest.model.ckpt"} <= sub_files and list((root / "trace_sub").glob("*.json"))):
-            failed.append(f"the subprocess left {sorted(sub_files)} and no trace")
+        failed += phase_multihost(dev, root, common)
 
         engagement.reset()
         native.reset_counters()
@@ -3157,6 +3347,8 @@ def main() -> int:
     phase_trained(dev)
     phase_evaluator(dev)
     phase_cli(dev)
+    rows += phase_maxsr_windows(dev)
+    torch.cuda.empty_cache()
     phase_maxsr_decline(dev)
     phase_train_entry(dev)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

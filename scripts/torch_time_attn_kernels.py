@@ -73,7 +73,11 @@ run them (C 180, hidden 360), seeded: B6 on 131,072 rows with drop-path
 scales (the training step's) and with HAT's CAB join (``extra``) on 65,536
 rows on weights packed as HAT serving packs them; B7 on 131,072 rows with
 drop-path scales, dx and every f32 gradient; B10 at HAT x4 serving's 256 x
-256 map, window 16, overlap 0.5, packed weights and a bf16 bias. With
+256 map, window 16, overlap 0.5, packed weights and a bf16 bias. Then B5
+and its backward (B8 at window 8, B9 at window 16) at both windows with the
+shift and drop-path scales: in bf16 at C 180 (the kernels written for the
+H100, batch 8 of 64 x 64 maps; MaxSR's C 128 with a bf16 bias too), at
+head dim 48 (the older bf16 kernels) and in f32 (batch 2). With
 ``--checkout DIR`` as well, it writes FILE.parent from DIR's package and
 FILE.change from this checkout's on one card, names every output as the
 same bits or not, and exits 1 if any differs.
@@ -501,7 +505,8 @@ def kernel_bits() -> dict:
     from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block, pack_ocab_block
 
     dev = resolve_device("cuda")
-    _build.build(("mlp_block_mma", "mlp_bwd_mma", "ocab_mma"))
+    _build.build(("mlp_block_mma", "mlp_bwd_mma", "ocab_mma", "window_attention_mma", "attn_bwd_mma",
+                  "window_attention", "window_attention16", "attn_bwd", "attn_bwd16"))
     gen = torch.Generator().manual_seed(0)
     bf, hidden = torch.bfloat16, 2 * C
 
@@ -530,6 +535,22 @@ def kernel_bits() -> dict:
     ocab[4] = ocab[9] = ocab[11] = None
     xs = randn(1, 256, 256, C, dtype=bf)
     out["B10 serving"] = fused_ocab_block(xs, *ocab, heads=HEADS, window_size=16, overlap_ratio=0.5)
+    from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd
+    from studiosr_tpu_torch.ops.cuda.window_attention import fused_window_attention_block
+
+    for dt, c, heads, batch in ((bf, C, HEADS, 8), (bf, 128, 4, 8), (bf, 96, 2, 2), (torch.float32, 64, 2, 2)):
+        for ws in (8, 16):
+            label = f"{'bf16' if dt == bf else 'f32'} C {c} window {ws}"
+            ops = [1 + randn(c, scale=0.1), randn(c, scale=0.1), randn(c, 3 * c, scale=c**-0.5, dtype=dt),
+                   randn(3 * c, scale=0.1), randn(c, c, scale=c**-0.5, dtype=dt), randn(c, scale=0.1),
+                   randn(heads, ws * ws, ws * ws, scale=0.5, dtype=bf if c == 128 else torch.float32)]
+            xa, ga = randn(batch, CROP, CROP, c, dtype=dt), randn(batch, CROP, CROP, c, scale=1e-3, dtype=dt)
+            dpa = torch.full((batch,), 1 / 0.9, device=dev)
+            dpa[0] = 0.0
+            kw = dict(heads=heads, window_size=ws, shift=ws // 2, drop_path=dpa)
+            out[f"B5 {label}"] = fused_window_attention_block(xa, *ops, **kw)
+            for i, t in enumerate(attention_bwd(xa, ga, *ops, **kw)):
+                out[f"B8/B9 {label} output {i}"] = t
     torch.cuda.synchronize()
     return {k: v.cpu() for k, v in out.items()}
 

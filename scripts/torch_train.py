@@ -10,8 +10,17 @@ published training recipe (``get_training_config``; ``--max-iters`` and
 ``--batch-size`` override it), prepares the corpus's sub-image grids on
 first use, and evaluates and checkpoints every ``eval_interval``
 iterations. The evaluation set is read from ``<data-dir>/<eval-dataset>``.
-Resume is automatic from ``<ckpt>/latest``. ``--multihost`` waits for
-multi-process data parallelism (ROADMAP A17) and raises.
+Resume is automatic from ``<ckpt>/latest``. ``--multihost`` joins a
+process group first (``studiosr_tpu_torch.parallel.dist.initialize``, from
+``COORDINATOR_ADDRESS``, ``NUM_PROCESSES`` and ``PROCESS_ID``; NCCL on
+``cuda``, gloo on ``cpu``): one process a card, each on its shard of the
+global batch, rank 0 alone logging, evaluating and checkpointing. For two
+cards of one host:
+
+    COORDINATOR_ADDRESS=localhost:29500 NUM_PROCESSES=2 PROCESS_ID=0 \
+        python3 scripts/torch_train.py --multihost ... &
+    COORDINATOR_ADDRESS=localhost:29500 NUM_PROCESSES=2 PROCESS_ID=1 \
+        python3 scripts/torch_train.py --multihost ...
 
 ``main(argv)`` runs it in process and returns the ``Trainer``.
 """
@@ -44,7 +53,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="maintain EMA weights ({tag}.ema.ckpt; serve with load_model(ema=True))")
     parser.add_argument("--grad-accum", type=int, default=1,
                         help="micro-steps accumulated per optimizer update (effective batch = k x batch)")
-    parser.add_argument("--multihost", action="store_true", help="multi-process data parallelism (not ported yet)")
+    parser.add_argument("--multihost", action="store_true",
+                        help="multi-process data parallelism (COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID)")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     return parser.parse_args(argv)
 
@@ -52,7 +62,22 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None):
     args = parse_args(argv)
     if args.multihost:
-        raise NotImplementedError("--multihost: multi-process data parallelism is not ported yet (ROADMAP A17)")
+        import torch.distributed
+
+        from studiosr_tpu_torch.parallel import dist
+
+        dist.initialize(device=args.device)
+        if dist.is_initialized():
+            print(f"process group: rank {dist.process_index()} of {dist.process_count()}, backend "
+                  f"{torch.distributed.get_backend()}")
+    try:
+        return _train(args)
+    finally:
+        if args.multihost:
+            dist.shutdown()
+
+
+def _train(args):
 
     import studiosr_tpu_torch.data as data
     from studiosr_tpu_torch.engine import Evaluator, Trainer

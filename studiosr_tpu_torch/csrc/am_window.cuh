@@ -1,7 +1,10 @@
 // The window-attention half of a Swin block as the bf16 kernels written for
 // the H100 see it (attn_bwd_mma.cu: B8 / B9, window_attention_mma.cu: B5):
 // tokens in tile order (64 tokens a tile: a window at 8, a quarter of one at
-// 16), the shift folded into reads and writes, the geometry and the packed
+// 16; a window of N = ws^2 tokens takes NCH = ceil(N / 64) tiles, the tokens
+// past N padding that no pass loads or stores: LN and g_b rows of zeros, keys
+// whose bias is -inf), the shift folded into reads and writes, the geometry
+// and the packed
 // weights' layout (mirrored by ops/cuda/attn_bwd.py and
 // ops/cuda/window_attention.py), and the passes both directions share: the
 // LN rows (am_ln_kernel), q|k|v on wgmma (am_proj_kernel; with dattn in the
@@ -14,7 +17,7 @@
 // mirrored by ops/cuda/attn_bwd.py (the backward's) and
 // ops/cuda/window_attention.py (the forward's).
 struct AmGeom {
-  int C, heads, d, DP, KC, HD, K3, NP, ws, N, NCH, SC;
+  int C, heads, d, DP, KC, HD, K3, NP, ws, N, NCH, SC, NV;  // N: NCH whole tiles; NV = ws^2 of them real
   __host__ __device__ AmGeom(int C_, int heads_, int ws_) : C(C_), heads(heads_), ws(ws_) {
     d = C / heads;
     DP = am_pad16(d);
@@ -22,8 +25,9 @@ struct AmGeom {
     HD = heads * DP;
     K3 = 3 * HD;
     NP = am_np(C);
-    N = ws * ws;
-    NCH = N / AM_TOK;
+    NV = ws * ws;
+    NCH = (NV + AM_TOK - 1) / AM_TOK;
+    N = NCH * AM_TOK;
     SC = (C + 7) & ~7;
   }
   // a head's weights: q|k|v (KC x 3 DP) and Wproj^T's head columns (KC x
@@ -52,8 +56,14 @@ struct AmArgs {
   int H, W, shift, nwx, nwi, windows, tiles, groups, bias16;
 };
 
+// Whether token t (0..63) of tile `tile` is one of its window's NV tokens
+// (always, without the division, when the window fills its tiles).
+__device__ __forceinline__ bool am_valid(const AmGeom& G, int tile, int t) {
+  return G.NV == G.N || (tile % G.NCH) * AM_TOK + t < G.NV;
+}
+
 // Pixel of token t (0..63) of tile `tile`: window tile / NCH, its tokens
-// 64 (tile % NCH) + t, through the shift.
+// 64 (tile % NCH) + t, through the shift; only for a valid token.
 __device__ __forceinline__ long long am_pixel(const AmGeom& G, const AmArgs& a, int tile, int t) {
   const int w = tile / G.NCH, n = (tile % G.NCH) * AM_TOK + t;
   const int img = w / a.nwi, wi = w % a.nwi;
@@ -80,11 +90,20 @@ __host__ __device__ inline size_t am_proj_smem(const AmGeom& G) {
 // Pass 0, a warp a token row (rows in tile order, many blocks an SM): LN
 // (eps 1e-5, f32 statistics) into the row-major scratch (SC columns, zero
 // past C), rounded; in the backward (BWD) also g_b = d g, rounded, and LN's
-// (mean, rstd) into stats.
-template <bool BWD>
+// (mean, rstd) into stats. PAD (a window that does not fill its tiles): a
+// padding token's rows are zeros.
+template <bool BWD, bool PAD>
 __global__ void __launch_bounds__(256) am_ln_kernel(const AmArgs a, const AmGeom G, long long rows) {
   for (long long row = blockIdx.x * 8LL + (threadIdx.x >> 5); row < rows; row += gridDim.x * 8LL) {
     const int tile = (int)(row / AM_TOK);
+    if (PAD && !am_valid(G, tile, (int)(row % AM_TOK))) {
+      for (int c = 4 * (threadIdx.x & 31); c < G.SC; c += 128) {
+        *reinterpret_cast<uint2*>(a.ln + row * G.SC + c) = make_uint2(0u, 0u);
+        if (BWD) *reinterpret_cast<uint2*>(a.gb + row * G.SC + c) = make_uint2(0u, 0u);
+      }
+      if (BWD && (threadIdx.x & 31) == 0) a.stats[2 * row] = 0.f, a.stats[2 * row + 1] = 0.f;
+      continue;
+    }
     const long long off = am_pixel(G, a, tile, (int)(row % AM_TOK)) * G.C;
     const float dd = a.dp ? a.dp[(tile / G.NCH) / a.nwi] : 1.f;
     am_ln_row<BWD>(a.x + off, BWD ? a.g + off : nullptr, dd, G.C, G.SC, a.ln_w, a.ln_b,
@@ -176,12 +195,14 @@ __global__ void __launch_bounds__(256, 1) am_proj_kernel(const AmArgs a, const A
   }
 }
 
-// The gathered rel-pos bias (heads, N, N; f32, or bf16 when bias16) in the
+// The gathered rel-pos bias (heads, nv, nv; f32, or bf16 when bias16) in the
 // order the attention pass's threads read it (bias4): element e of float4 /
 // 4-value group ((h NCH + r) NCH + c) 1024 + 128 nt + wt is the score
 // fragment of thread wt of the block of query chunk r, key chunk c, 8-column
-// tile nt. bf16 stays bf16 (exact), f32 stays f32.
-__global__ void am_bias_kernel(const void* __restrict__ bias, int bias16, int heads, int nch,
+// tile nt. A padding key's column is -inf, so it takes no probability; a
+// padding query's row is zero at the real keys (a finite row, never stored).
+// bf16 stays bf16 (exact), f32 stays f32.
+__global__ void am_bias_kernel(const void* __restrict__ bias, int bias16, int heads, int nch, int nv,
                                void* __restrict__ out) {
   const int n = nch * AM_TOK;
   const long long groups = (long long)heads * n * n / 4;
@@ -190,39 +211,52 @@ __global__ void am_bias_kernel(const void* __restrict__ bias, int bias16, int he
     const int wt = (int)(gi % 128), nt = (int)(gi / 128 % 8), c = (int)(gi / 1024 % nch);
     const int r = (int)(gi / (1024LL * nch) % nch), h = (int)(gi / (1024LL * nch * nch));
     const int q = AM_TOK * r + 16 * (wt >> 5) + ((wt & 31) >> 2), col = AM_TOK * c + 8 * nt + 2 * (wt & 3);
-    const long long e0 = ((long long)h * n + q) * n + col, e1 = e0 + 8LL * n;
+    // elements (q, col), (q, col + 1), (q + 8, col), (q + 8, col + 1): the
+    // bias, or -1 for 0 (a padding query) and -2 for -inf (a padding key)
+    long long e[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int qq = q + 8 * (k >> 1), cc = col + (k & 1);
+      e[k] = cc >= nv ? -2 : (qq >= nv ? -1 : ((long long)h * nv + qq) * nv + cc);
+    }
     if (bias16) {
       const bf16* b = (const bf16*)bias;
+      auto at = [&](int k) { return e[k] >= 0 ? b[e[k]] : __float2bfloat16(e[k] == -1 ? 0.f : -INFINITY); };
       __nv_bfloat162 v0, v1;
-      v0.x = b[e0], v0.y = b[e0 + 1], v1.x = b[e1], v1.y = b[e1 + 1];
+      v0.x = at(0), v0.y = at(1), v1.x = at(2), v1.y = at(3);
       reinterpret_cast<uint2*>(out)[gi] =
           make_uint2(*reinterpret_cast<uint32_t*>(&v0), *reinterpret_cast<uint32_t*>(&v1));
     } else {
       const float* b = (const float*)bias;
-      reinterpret_cast<float4*>(out)[gi] = make_float4(b[e0], b[e0 + 1], b[e1], b[e1 + 1]);
+      float v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[k] = e[k] >= 0 ? b[e[k]] : (e[k] == -1 ? 0.f : -INFINITY);
+      reinterpret_cast<float4*>(out)[gi] = make_float4(v[0], v[1], v[2], v[3]);
     }
   }
 }
 
 // The epilogue of the projection that ends an attention half (B5's pass 3,
 // B10's proj): y = x + d_b (acc + bproj), rounded, at the pixels of
-// rows r0, r0 + 8 of tile `tile` (columns below C). Every x load is issued
-// before the first store: y may lie where x does, so a load after a store
-// would wait for it.
+// rows r0, r0 + 8 of tile `tile` (columns below C; with PAD, none for a
+// padding token). Every x load is issued before the first store: y may lie
+// where x does, so a load after a store would wait for it.
+template <bool PAD>
 struct WaOut {
   AmArgs a;
   AmGeom G;
   template <int NT>
   __device__ __forceinline__ void operator()(int tile, int r0, int tq, const float (&acc)[NT][4]) const {
     const float dd = a.dp ? a.dp[(tile / G.NCH) / a.nwi] : 1.f;
-    const long long off[2] = {am_pixel(G, a, tile, r0) * G.C, am_pixel(G, a, tile, r0 + 8) * G.C};
+    const bool ok[2] = {!PAD || am_valid(G, tile, r0), !PAD || am_valid(G, tile, r0 + 8)};
+    const long long off[2] = {ok[0] ? am_pixel(G, a, tile, r0) * G.C : 0, ok[1] ? am_pixel(G, a, tile, r0 + 8) * G.C : 0};
     __nv_bfloat162 xv[NT][2];
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       const int c = nt * 8 + 2 * tq;
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh)
-        xv[nt][hh] = c < G.C ? *reinterpret_cast<const __nv_bfloat162*>(a.x + off[hh] + c) : __nv_bfloat162();
+        xv[nt][hh] = c < G.C && ok[hh] ? *reinterpret_cast<const __nv_bfloat162*>(a.x + off[hh] + c) : __nv_bfloat162();
     }
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
@@ -231,6 +265,7 @@ struct WaOut {
       const float b0 = __ldg(a.bproj + c), b1 = __ldg(a.bproj + c + 1);
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
+        if (!ok[hh]) continue;
         const float2 x = __bfloat1622float2(xv[nt][hh]);
         *reinterpret_cast<__nv_bfloat162*>(a.dx + off[hh] + c) =
             __floats2bfloat162_rn(x.x + dd * (acc[nt][2 * hh] + b0), x.y + dd * (acc[nt][2 * hh + 1] + b1));
@@ -239,8 +274,9 @@ struct WaOut {
   }
 };
 
+// Windows 2..16: N = ws^2 up to 256 tokens, 1..4 tiles.
 static bool am_geometry_ok(int C, int heads, int ws) {
-  if (!((ws == 8 || ws == 16) && heads >= 1 && C >= 4 && C <= AM_MAX_C && C % 4 == 0 && C % heads == 0 &&
+  if (!(ws >= 2 && ws <= 16 && heads >= 1 && C >= 4 && C <= AM_MAX_C && C % 4 == 0 && C % heads == 0 &&
         C / heads <= 32))
     return false;
   const AmGeom G(C, heads, ws);

@@ -1,9 +1,13 @@
 // B8: the backward of B5 (window_attention.cu) with the forward recomputed
 // flash-style,
-//   y = x + d_b * proj(WA(LN x))  on (B, H, W, C) maps, window 8,
+//   y = x + d_b * proj(WA(LN x))  on (B, H, W, C) maps, windows 2..8,
 // with the shift folded into reads and writes as B5 does: from x and the
 // cotangent g it emits dx and the f32 gradients of the LN scale and bias,
-// Wqkv, bqkv, Wproj, bproj and the gathered rel-pos bias (heads, 64, 64).
+// Wqkv, bqkv, Wproj, bproj and the gathered rel-pos bias (heads, N, N),
+// N = ws^2. A window's tokens are the first N of the block's 64 rows; the
+// rest are zero LN and g_b rows whose keys score -inf, so their p, dscores
+// and dq / dk / dv are zeros: they add nothing to the weight gradients, d
+// bias or the LN sums, and nothing is stored for them.
 //
 // Replaces studiosr_tpu/ops/pallas/attn_bwd.py::pairs_attention_bwd. Its
 // window-pair score packing, -1e30 pair bias and head padding to 32 lanes
@@ -137,9 +141,9 @@ struct AttnBwdScratch {
   long long slots, dbias, stats, part, f_elems;
 };
 
-__host__ inline AttnBwdScratch attn_bwd_scratch_layout(int B, int H, int W, int C, int heads) {
+__host__ inline AttnBwdScratch attn_bwd_scratch_layout(int B, int H, int W, int C, int heads, int ws) {
   AttnBwdScratch S;
-  const long long wins = (long long)B * (H / SB_WS) * (W / SB_WS);
+  const long long wins = (long long)B * (H / ws) * (W / ws);
   S.rows = wins * SB_TOK;
   S.ln = 0;
   S.gb = S.ln + S.rows * pad8(C);
@@ -158,7 +162,7 @@ __host__ inline AttnBwdScratch attn_bwd_scratch_layout(int B, int H, int W, int 
 
 template <typename T>
 __global__ void __launch_bounds__(SB_THREADS, 2) attn_bwd_window_kernel(
-    const T* __restrict__ x, const T* __restrict__ g, int B, int H, int W, int C, int heads, int shift,
+    const T* __restrict__ x, const T* __restrict__ g, int B, int H, int W, int C, int heads, int ws, int shift,
     const float* __restrict__ ln_w, const float* __restrict__ ln_b, const float* __restrict__ bqkv,
     const float* __restrict__ relbias, const float* __restrict__ dp, const T* __restrict__ packed,
     T* __restrict__ ln_out, T* __restrict__ gb_out, T* __restrict__ att_out, T* __restrict__ dqkv_out,
@@ -183,8 +187,8 @@ __global__ void __launch_bounds__(SB_THREADS, 2) attn_bwd_window_kernel(
   const int LC = L.ld_c, LA = L.ld_a, LQ = L.ld_q, LPT = L.ld_pt, LDS = L.ld_dst;
   const int SC = pad8(C), S3 = pad8(3 * C);  // scratch row strides
   const float qscale = rsqrtf((float)d);
-  const int nwin = (H / SB_WS) * (W / SB_WS), total = B * nwin;
-  float* part = dbias_part + (size_t)blockIdx.x * heads * SB_TOK * SB_TOK;
+  const int nv = ws * ws, nwin = (H / ws) * (W / ws), total = B * nwin;
+  float* part = dbias_part + (size_t)blockIdx.x * heads * nv * nv;
 
   zero_columns(lnb, LC, C, P.kc);
   const FragMap map = frag_map_for<T>((float*)bst);
@@ -193,16 +197,21 @@ __global__ void __launch_bounds__(SB_THREADS, 2) attn_bwd_window_kernel(
     const int img = win / nwin, wi = win % nwin;
     const float dd = dp ? dp[img] : 1.f;
     const long long row0 = (long long)win * SB_TOK;
-    if (tid < SB_TOK) rid[tid] = window_token_region(wi, tid, H, W, shift);
+    if (tid < SB_TOK) rid[tid] = window_token_region_ws(wi, tid, H, W, shift, ws);
     for (int i = tid; i < SB_TOK * C; i += SB_THREADS) {
       const int t = i / C, c = i - t * C;
-      const T v = from_f32<T>(dd * to_f32(g[window_token_offset(img, wi, t, H, W, C, shift) + c]));
+      const T v = t < nv ? from_f32<T>(dd * to_f32(g[window_token_offset_ws(img, wi, t, H, W, C, shift, ws) + c]))
+                         : from_f32<T>(0.f);
       gbs[t * LC + c] = v;
       gb_out[(row0 + t) * SC + c] = v;
     }
     zero_columns(gbs, LC, C, P.kc);
     for (int r = warp; r < SB_TOK; r += SB_THREADS / 32) {
-      const T* xr = x + window_token_offset(img, wi, r, H, W, C, shift);
+      if (r >= nv) {
+        for (int c = lane; c < C; c += 32) lnb[r * LC + c] = ln_out[(row0 + r) * SC + c] = from_f32<T>(0.f);
+        continue;
+      }
+      const T* xr = x + window_token_offset_ws(img, wi, r, H, W, C, shift, ws);
       float mu, rs;
       row_stats(xr, C, mu, rs);
       for (int c = lane; c < C; c += 32) {
@@ -219,8 +228,11 @@ __global__ void __launch_bounds__(SB_THREADS, 2) attn_bwd_window_kernel(
       const T* dav = datt + h * DP;
       head_qkv<T>(lnb, LC, packed + (size_t)h * P.kc * P.nq, bqkv, C, heads, h, qkv, LQ, bst, map);
       gemm64_smem<row_major, col_major>(qkv, LQ, qkv + DP, LQ, DP, SB_TOK, map, [&](int r, int n, float acc) {
-        float v = acc + relbias[(h * SB_TOK + r) * SB_TOK + n];
-        if (rid[r] != rid[n]) v += -100.f;
+        float v = -INFINITY;  // past the window's keys
+        if (n < nv) {
+          v = acc + (r < nv ? relbias[(h * nv + r) * nv + n] : 0.f);
+          if (rid[r] != rid[n]) v += -100.f;
+        }
         p[r * SB_TL + n] = v;
       });
       // normalized probabilities, f32 and in T; one warp per row
@@ -251,9 +263,11 @@ __global__ void __launch_bounds__(SB_THREADS, 2) attn_bwd_window_kernel(
         __syncwarp();
         dst[r * LDS + lane] = from_f32<T>(sa);
         dst[r * LDS + lane + 32] = from_f32<T>(sb);
-        float* pr = part + (h * SB_TOK + r) * SB_TOK;
-        pr[lane] += sa;
-        pr[lane + 32] += sb;
+        if (r < nv) {
+          float* pr = part + (h * nv + r) * nv;
+          if (lane < nv) pr[lane] += sa;
+          if (lane + 32 < nv) pr[lane + 32] += sb;
+        }
       }
       __syncthreads();
       // dk = dscores^T q -> slot 3
@@ -280,7 +294,7 @@ __global__ void __launch_bounds__(SB_THREADS, 2) attn_bwd_window_kernel(
 
 template <typename T>
 __global__ void __launch_bounds__(SB_THREADS) attn_bwd_ln_kernel(
-    const T* __restrict__ x, const T* __restrict__ g, T* __restrict__ dx, int H, int W, int C, int shift,
+    const T* __restrict__ x, const T* __restrict__ g, T* __restrict__ dx, int H, int W, int C, int ws, int shift,
     const float* __restrict__ ln_w, const float* __restrict__ dp, const T* __restrict__ dqkv,
     const T* __restrict__ wqt, int nc, float* __restrict__ stats) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -292,7 +306,7 @@ __global__ void __launch_bounds__(SB_THREADS) attn_bwd_ln_kernel(
   T* bst = (T*)(smem + L.bst);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int LQ = L.ld_q, C3 = 3 * C, S3 = pad8(C3);
-  const int nwin = (H / SB_WS) * (W / SB_WS), win = blockIdx.x, img = win / nwin, wi = win % nwin;
+  const int nv = ws * ws, nwin = (H / ws) * (W / ws), win = blockIdx.x, img = win / nwin, wi = win % nwin;
   const float dd = dp ? dp[img] : 1.f;
   const long long row0 = (long long)win * SB_TOK;
 
@@ -305,8 +319,8 @@ __global__ void __launch_bounds__(SB_THREADS) attn_bwd_ln_kernel(
   __syncthreads();
   gemm64<T>(dq, LQ, pad32(C3), C, wqt, nc, bst, map, [&](int r, int n, float acc) { dln[r * C + n] = acc; });
 
-  for (int r = warp; r < SB_TOK; r += SB_THREADS / 32) {
-    const size_t off = window_token_offset(img, wi, r, H, W, C, shift);
+  for (int r = warp; r < nv; r += SB_THREADS / 32) {
+    const size_t off = window_token_offset_ws(img, wi, r, H, W, C, shift, ws);
     const T* xr = x + off;
     const T* gr = g + off;
     float mu, rs;
@@ -331,9 +345,9 @@ __global__ void __launch_bounds__(SB_THREADS) attn_bwd_ln_kernel(
   __syncthreads();
   for (int c = tid; c < C; c += SB_THREADS) {
     float sw = 0.f, sb = 0.f;
-    for (int r = 0; r < SB_TOK; ++r) {
+    for (int r = 0; r < nv; ++r) {
       const float dl = dln[r * C + c];
-      sw += dl * (to_f32(x[window_token_offset(img, wi, r, H, W, C, shift) + c]) - mean[r]) * rstd[r];
+      sw += dl * (to_f32(x[window_token_offset_ws(img, wi, r, H, W, C, shift, ws) + c]) - mean[r]) * rstd[r];
       sb += dl;
     }
     stats[win * 2LL * C + c] = sw;
@@ -341,19 +355,21 @@ __global__ void __launch_bounds__(SB_THREADS) attn_bwd_ln_kernel(
   }
 }
 
-extern "C" void attn_bwd_scratch(int B, int H, int W, int C, int heads, long long* t_elems, long long* f_elems) {
-  const AttnBwdScratch S = attn_bwd_scratch_layout(B, H, W, C, heads);
+extern "C" void attn_bwd_scratch(int B, int H, int W, int C, int heads, int ws, long long* t_elems,
+                                 long long* f_elems) {
+  const AttnBwdScratch S = attn_bwd_scratch_layout(B, H, W, C, heads, ws);
   *t_elems = S.t_elems;
   *f_elems = S.f_elems;
 }
 
 template <typename T>
-static cudaError_t attn_bwd(const T* x, const T* g, T* dx, int B, int H, int W, int C, int heads, int shift,
+static cudaError_t attn_bwd(const T* x, const T* g, T* dx, int B, int H, int W, int C, int heads, int ws, int shift,
                             const float* ln_w, const float* ln_b, const T* wqkv, const float* bqkv, const T* wproj,
                             const float* relbias, const float* dp, float* ds_db, float* dwqkv, float* dbqkv,
                             float* dwproj, float* dbproj, float* dbias, T* tscratch, long long t_elems,
                             float* fscratch, long long f_elems, cudaStream_t stream) {
-  const AttnBwdScratch S = attn_bwd_scratch_layout(B, H, W, C, heads);
+  if (ws < 2 || ws > SB_WS || H % ws || W % ws || shift < 0 || shift >= ws) return cudaErrorInvalidValue;
+  const AttnBwdScratch S = attn_bwd_scratch_layout(B, H, W, C, heads, ws);
   const AttnBwdPack P = attn_bwd_pack_layout(C, heads);
   if (S.t_elems != t_elems || S.f_elems != f_elems) return cudaErrorInvalidValue;
   const int d = C / heads, DP = pad16(d);
@@ -372,7 +388,8 @@ static cudaError_t attn_bwd(const T* x, const T* g, T* dx, int B, int H, int W, 
   err = allow_smem(attn_bwd_window_kernel<T>, L1.total);
   if (err != cudaSuccess) return err;
   attn_bwd_window_kernel<T><<<(int)S.slots, SB_THREADS, L1.total, stream>>>(
-      x, g, B, H, W, C, heads, shift, ln_w, ln_b, bqkv, relbias, dp, packed, ln, gb, att, dqkv, fscratch + S.dbias);
+      x, g, B, H, W, C, heads, ws, shift, ln_w, ln_b, bqkv, relbias, dp, packed, ln, gb, att, dqkv,
+      fscratch + S.dbias);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -380,12 +397,12 @@ static cudaError_t attn_bwd(const T* x, const T* g, T* dx, int B, int H, int W, 
   err = allow_smem(attn_bwd_ln_kernel<T>, L2.total);
   if (err != cudaSuccess) return err;
   const int wins = (int)(S.rows / SB_TOK);
-  attn_bwd_ln_kernel<T><<<wins, SB_THREADS, L2.total, stream>>>(x, g, dx, H, W, C, shift, ln_w, dp, dqkv,
+  attn_bwd_ln_kernel<T><<<wins, SB_THREADS, L2.total, stream>>>(x, g, dx, H, W, C, ws, shift, ln_w, dp, dqkv,
                                                                packed + P.wqt, P.nc, fscratch + S.stats);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  err = reduce_parts(fscratch + S.dbias, (int)S.slots, (long long)heads * SB_TOK * SB_TOK, dbias, stream);
+  err = reduce_parts(fscratch + S.dbias, (int)S.slots, (long long)heads * ws * ws * ws * ws, dbias, stream);
   if (err != cudaSuccess) return err;
   err = reduce_parts(fscratch + S.stats, wins, 2LL * C, ds_db, stream);
   if (err != cudaSuccess) return err;
@@ -396,12 +413,13 @@ static cudaError_t attn_bwd(const T* x, const T* g, T* dx, int B, int H, int W, 
 }
 
 #define ATTN_BWD_ENTRY(NAME, T)                                                                                   \
-  extern "C" int NAME(const void* x, const void* g, void* dx, int B, int H, int W, int C, int heads, int shift,   \
+  extern "C" int NAME(const void* x, const void* g, void* dx, int B, int H, int W, int C, int heads, int ws,      \
+                      int shift,                                                                                  \
                       const void* ln_w, const void* ln_b, const void* wqkv, const void* bqkv, const void* wproj,  \
                       const void* relbias, const void* dp, void* ds_db, void* dwqkv, void* dbqkv, void* dwproj,   \
                       void* dbproj, void* dbias, void* tscratch, long long t_elems, void* fscratch,                \
                       long long f_elems, void* stream) {                                                          \
-    return (int)attn_bwd<T>((const T*)x, (const T*)g, (T*)dx, B, H, W, C, heads, shift, (const float*)ln_w,       \
+    return (int)attn_bwd<T>((const T*)x, (const T*)g, (T*)dx, B, H, W, C, heads, ws, shift, (const float*)ln_w,   \
                             (const float*)ln_b, (const T*)wqkv, (const float*)bqkv, (const T*)wproj,              \
                             (const float*)relbias, (const float*)dp, (float*)ds_db, (float*)dwqkv,                \
                             (float*)dbqkv, (float*)dwproj, (float*)dbproj, (float*)dbias, (T*)tscratch, t_elems, \

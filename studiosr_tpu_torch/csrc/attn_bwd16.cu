@@ -1,10 +1,13 @@
-// B9: the backward of B5 at window 16 (window_attention16.cu) with the
+// B9: the backward of B5 at windows 9..16 (window_attention16.cu) with the
 // forward recomputed,
-//   y = x + d_b * proj(WA(LN x))  on (B, H, W, C) maps, 16 x 16 windows,
+//   y = x + d_b * proj(WA(LN x))  on (B, H, W, C) maps, ws x ws windows,
 // the shift folded into reads and writes as B5 does: from x and the
 // cotangent g it emits dx and the f32 gradients of the LN scale and bias,
-// Wqkv, bqkv, Wproj, bproj and the gathered rel-pos bias (heads, 256, 256).
-// The contract is B8's (attn_bwd.cu) at another window.
+// Wqkv, bqkv, Wproj, bproj and the gathered rel-pos bias (heads, N, N),
+// N = ws^2 (HAT's 256). The contract is B8's (attn_bwd.cu) at other windows.
+// attn_core.cuh takes a window of N tokens in ceil(N / 64) chunks, the last
+// one ragged; the pixel-row passes take B H W rows in blocks of 64, the last
+// one ragged (rows past the map read as zeros and are never stored).
 //
 // Replaces studiosr_tpu/ops/pallas/attn_bwd.py::v5_attention_bwd (kernel
 // _bwd_kernel_v5). The TPU kernel takes a stripe of windows per program
@@ -58,8 +61,7 @@ struct WinGeom {
   long long units;
   int heads, nq, nk, d;
   float dq_scale;
-  int H, W, shift, C, DP, SC, S3, nwx, nwin;
-  static constexpr int WS = 16;
+  int H, W, ws, shift, C, DP, SC, S3, nwx, nwin;
   static constexpr bool PADDED = true;  // rows of DP values, zero past d, 32-byte aligned
 
   __host__ __device__ bool mma_rows() const { return true; }
@@ -71,18 +73,18 @@ struct WinGeom {
     T *att, *dqkv;
     const float* b;
     long long id, base, qkv_row, datt_row;  // base: the first pixel of the window's image
-    int H, W, shift, y0, x0, qkv_col, datt_col, out_col, DP, C, SC, S3, nq, nk;
-    // Pixel of token t: ((y0 + t / 16 + shift) mod H, (x0 + t % 16 + shift) mod W).
+    int H, W, ws, shift, y0, x0, qkv_col, datt_col, out_col, DP, C, SC, S3, nq, nk;
+    // Pixel of token t: ((y0 + t / ws + shift) mod H, (x0 + t % ws + shift) mod W).
     __device__ long long pixel(int t) const {
-      int y = y0 + t / WS + shift, x = x0 + t % WS + shift;
+      int y = y0 + t / ws + shift, x = x0 + t % ws + shift;
       if (y >= H) y -= H;
       if (x >= W) x -= W;
       return base + (long long)y * W + x;
     }
     // calculate_mask's region of token t of the rolled map.
     __device__ int region(int t) const {
-      const int y = y0 + t / WS, x = x0 + t % WS;
-      return 3 * (y < H - WS ? 0 : (y < H - shift ? 1 : 2)) + (x < W - WS ? 0 : (x < W - shift ? 1 : 2));
+      const int y = y0 + t / ws, x = x0 + t % ws;
+      return 3 * (y < H - ws ? 0 : (y < H - shift ? 1 : 2)) + (x < W - ws ? 0 : (x < W - shift ? 1 : 2));
     }
     __device__ const T* part(int t, int p) const { return qkv + pixel(t) * qkv_row + qkv_col + p * DP; }
     __device__ const T* q(int r) const { return r < nq ? part(r, 0) : nullptr; }
@@ -102,8 +104,8 @@ struct WinGeom {
     const long long win = u / heads;
     const int h = (int)(u % heads), img = (int)(win / nwin), wi = (int)(win % nwin);
     return Unit{qkv, datt, att, dqkv, relbias + (size_t)h * nq * nk, u, (long long)img * H * W, 3LL * heads * DP,
-                (long long)heads * DP, H, W, shift, (wi / nwx) * WS, (wi % nwx) * WS, h * 3 * DP, h * DP, h * d, DP,
-                C, SC, S3, nq, nk};
+                (long long)heads * DP, H, W, ws, shift, (wi / nwx) * ws, (wi % nwx) * ws, h * 3 * DP, h * DP, h * d,
+                DP, C, SC, S3, nq, nk};
   }
 };
 
@@ -127,12 +129,13 @@ __host__ __device__ inline Ab16Pack ab16_pack_layout(int C, int heads) {
   return P;
 }
 
-// Scratch in T: q|k|v, dattn, LN, g_b, attn, dqkv (pixel rows), the packed
+// Scratch in T: q|k|v, dattn (pixel rows), LN, g_b, attn, dqkv (pixel rows
+// and zero rows up to whole chunks of the weight gradients' K), the packed
 // weights and the slack wgrad.cuh reads past its last tile. f32: the
 // attention passes' statistics and d bias partials, the LN sums per block,
 // the wgrad partials.
 struct Ab16Scratch {
-  long long rows, qkv, datt, ln, gb, att, dqkv, pack, t_elems;
+  long long rows, rows_k, qkv, datt, ln, gb, att, dqkv, pack, t_elems;
   long long attn, lnst, wg, f_elems;
   int groups;
 };
@@ -141,27 +144,30 @@ __host__ inline Ab16Scratch ab16_scratch_layout(int B, int H, int W, int C, int 
   Ab16Scratch S;
   const int DP = pad16(C / heads), n = ws * ws;
   S.rows = (long long)B * H * W;
+  S.rows_k = (S.rows + SB_TOK - 1) / SB_TOK * SB_TOK;  // wgrad.cuh's K: a multiple of WG_BK
   S.qkv = 0;
   S.datt = S.qkv + S.rows * heads * 3 * DP;
   S.ln = S.datt + S.rows * heads * DP;
-  S.gb = S.ln + S.rows * pad8(C);
-  S.att = S.gb + S.rows * pad8(C);
-  S.dqkv = S.att + S.rows * pad8(C);
-  S.pack = S.dqkv + S.rows * pad8(3 * C);
+  S.gb = S.ln + S.rows_k * pad8(C);
+  S.att = S.gb + S.rows_k * pad8(C);
+  S.dqkv = S.att + S.rows_k * pad8(C);
+  S.pack = S.dqkv + S.rows_k * pad8(3 * C);
   S.t_elems = S.pack + ab16_pack_layout(C, heads).total + 2 * WG_BM;
   const long long windows = (long long)B * (H / ws) * (W / ws);
   S.groups = ac_groups(windows, heads, n);
   S.attn = 0;
   S.lnst = S.attn + ac_stats_elems(windows * heads, n) + ac_part_elems(S.groups, heads, n, n);
-  S.wg = S.lnst + S.rows / SB_TOK * 2 * C;
-  const long long p1 = wgrad_plan(S.rows, C, 3 * C).part_elems, p2 = wgrad_plan(S.rows, C, C).part_elems;
+  S.wg = S.lnst + S.rows_k / SB_TOK * 2 * C;  // a partial a block of 64 rows
+  const long long p1 = wgrad_plan(S.rows_k, C, 3 * C).part_elems, p2 = wgrad_plan(S.rows_k, C, C).part_elems;
   S.f_elems = S.wg + (p1 > p2 ? p1 : p2);
   return S;
 }
 
-// g_b = d g (rounded to T) of 64 pixel rows, and dattn = g_b Wproj^T per head.
+// g_b = d g (rounded to T) of 64 pixel rows (of `rows`), and dattn = g_b
+// Wproj^T per head.
 template <typename T>
-__global__ void __launch_bounds__(SB_THREADS) ab16_gb_kernel(const T* __restrict__ g, int HW, int C, int heads,
+__global__ void __launch_bounds__(SB_THREADS) ab16_gb_kernel(const T* __restrict__ g, long long rows, int HW, int C,
+                                                            int heads,
                                                             const float* __restrict__ dp, const T* __restrict__ wpt,
                                                             int npt, T* __restrict__ gb, int SC,
                                                             T* __restrict__ datt) {
@@ -173,6 +179,10 @@ __global__ void __launch_bounds__(SB_THREADS) ab16_gb_kernel(const T* __restrict
   for (int i = threadIdx.x; i < SB_TOK * C; i += SB_THREADS) {
     const int r = i / C, c = i - r * C;
     const long long row = r0 + r;
+    if (row >= rows) {
+      gbs[r * LC + c] = from_f32<T>(0.f);
+      continue;
+    }
     const T v = from_f32<T>((dp ? dp[row / HW] : 1.f) * to_f32(g[row * C + c]));
     gbs[r * LC + c] = v;
     gb[row * SC + c] = v;
@@ -181,7 +191,9 @@ __global__ void __launch_bounds__(SB_THREADS) ab16_gb_kernel(const T* __restrict
   const FragMap map = frag_map_for<T>((float*)bst);  // bst is free until the first staged chunk
   __syncthreads();
   gemm64<T>(gbs, LC, pad32(C), HD, wpt, npt, bst, map,
-            [&](int r, int n, float acc) { datt[(r0 + r) * HD + n] = from_f32<T>(acc); });
+            [&](int r, int n, float acc) {
+              if (r0 + r < rows) datt[(r0 + r) * HD + n] = from_f32<T>(acc);
+            });
 }
 
 __host__ inline size_t ab16_gb_smem(int C, size_t tsz) {
@@ -210,11 +222,11 @@ __host__ __device__ inline Ab16LnSmem ab16_ln_smem_layout(int C, size_t tsz) {
   return L;
 }
 
-// dln = dqkv Wqkv^T of 64 pixel rows, the LN backward and dx, and the
-// block's column sums of dln xhat and dln into stats[block][2C].
+// dln = dqkv Wqkv^T of 64 pixel rows (of `rows`), the LN backward and dx,
+// and the block's column sums of dln xhat and dln into stats[block][2C].
 template <typename T>
 __global__ void __launch_bounds__(SB_THREADS) ab16_ln_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                                                            T* __restrict__ dx, int HW, int C,
+                                                            T* __restrict__ dx, long long rows, int HW, int C,
                                                             const float* __restrict__ ln_w,
                                                             const float* __restrict__ dp, const T* __restrict__ dqkv,
                                                             int S3, const T* __restrict__ wqt, int nc,
@@ -229,17 +241,18 @@ __global__ void __launch_bounds__(SB_THREADS) ab16_ln_kernel(const T* __restrict
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int LQ = L.ld_q, C3 = 3 * C;
   const long long row0 = (long long)blockIdx.x * SB_TOK;
+  const int nr = rows - row0 < SB_TOK ? (int)(rows - row0) : SB_TOK;
 
   for (int i = tid; i < SB_TOK * C3; i += SB_THREADS) {
     const int r = i / C3, c = i - r * C3;
-    dq[r * LQ + c] = dqkv[(row0 + r) * S3 + c];
+    dq[r * LQ + c] = r < nr ? dqkv[(row0 + r) * S3 + c] : from_f32<T>(0.f);
   }
   zero_columns(dq, LQ, C3, pad32(C3));
   const FragMap map = frag_map_for<T>((float*)bst);
   __syncthreads();
   gemm64<T>(dq, LQ, pad32(C3), C, wqt, nc, bst, map, [&](int r, int n, float acc) { dln[r * C + n] = acc; });
 
-  for (int r = warp; r < SB_TOK; r += SB_THREADS / 32) {
+  for (int r = warp; r < nr; r += SB_THREADS / 32) {
     const long long row = row0 + r;
     const size_t off = (size_t)row * C;
     const float dd = dp ? dp[row / HW] : 1.f;
@@ -267,7 +280,7 @@ __global__ void __launch_bounds__(SB_THREADS) ab16_ln_kernel(const T* __restrict
   __syncthreads();
   for (int c = tid; c < C; c += SB_THREADS) {
     float sw = 0.f, sb = 0.f;
-    for (int r = 0; r < SB_TOK; ++r) {
+    for (int r = 0; r < nr; ++r) {
       const float dl = dln[r * C + c];
       sw += dl * (to_f32(x[(size_t)(row0 + r) * C + c]) - mean[r]) * rstd[r];
       sb += dl;
@@ -278,7 +291,7 @@ __global__ void __launch_bounds__(SB_THREADS) ab16_ln_kernel(const T* __restrict
 }
 
 static bool ab16_shape_ok(int B, int H, int W, int C, int heads, int ws, int shift) {
-  return B > 0 && ws == WinGeom<float>::WS && H > 0 && W > 0 && H % ws == 0 && W % ws == 0 && C % heads == 0 &&
+  return B > 0 && ws >= 9 && ws * ws <= AC_MAX_NQ && H > 0 && W > 0 && H % ws == 0 && W % ws == 0 && C % heads == 0 &&
          pad16(C / heads) <= 64 && shift >= 0 && shift < ws;
 }
 
@@ -307,7 +320,16 @@ static cudaError_t attn_bwd16(const T* x, const T* g, T* dx, int B, int H, int W
   T* packed = tscratch + S.pack;
   cudaError_t err = pack_segments(segs, packed, (size_t)P.total, stream);
   if (err != cudaSuccess) return err;
-  const unsigned blocks = (unsigned)(S.rows / SB_TOK);
+  const unsigned blocks = (unsigned)(S.rows_k / SB_TOK);
+  if (S.rows_k > S.rows) {  // the weight gradients' zero rows past the map
+    const long long tail = S.rows_k - S.rows;
+    const long long zeroed[3] = {S.ln, S.gb, S.att};
+    for (const long long at : zeroed)
+      if ((err = cudaMemsetAsync(tscratch + at + S.rows * SC, 0, tail * SC * sizeof(T), stream)) != cudaSuccess)
+        return err;
+    if ((err = cudaMemsetAsync(tscratch + S.dqkv + S.rows * S3, 0, tail * S3 * sizeof(T), stream)) != cudaSuccess)
+      return err;
+  }
 
   const LnQkvSmem L1 = ln_qkv_smem_layout<T>(C);
   err = allow_smem(ln_qkv_kernel<T>, L1.total);
@@ -320,7 +342,7 @@ static cudaError_t attn_bwd16(const T* x, const T* g, T* dx, int B, int H, int W
   const size_t L2 = ab16_gb_smem(C, sizeof(T));
   err = allow_smem(ab16_gb_kernel<T>, L2);
   if (err != cudaSuccess) return err;
-  ab16_gb_kernel<T><<<blocks, SB_THREADS, L2, stream>>>(g, H * W, C, heads, dp, packed + P.wpt, P.npt,
+  ab16_gb_kernel<T><<<blocks, SB_THREADS, L2, stream>>>(g, S.rows, H * W, C, heads, dp, packed + P.wpt, P.npt,
                                                         tscratch + S.gb, SC, tscratch + S.datt);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -337,6 +359,7 @@ static cudaError_t attn_bwd16(const T* x, const T* g, T* dx, int B, int H, int W
   G.dq_scale = 1.f / sqrtf((float)d);
   G.H = H;
   G.W = W;
+  G.ws = ws;
   G.shift = shift;
   G.C = C;
   G.DP = DP;
@@ -351,15 +374,15 @@ static cudaError_t attn_bwd16(const T* x, const T* g, T* dx, int B, int H, int W
   const Ab16LnSmem L4 = ab16_ln_smem_layout(C, sizeof(T));
   err = allow_smem(ab16_ln_kernel<T>, L4.total);
   if (err != cudaSuccess) return err;
-  ab16_ln_kernel<T><<<blocks, SB_THREADS, L4.total, stream>>>(x, g, dx, H * W, C, ln_w, dp, tscratch + S.dqkv, S3,
+  ab16_ln_kernel<T><<<blocks, SB_THREADS, L4.total, stream>>>(x, g, dx, S.rows, H * W, C, ln_w, dp, tscratch + S.dqkv, S3,
                                                               packed + P.wqt, P.nc, fscratch + S.lnst);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = reduce_parts(fscratch + S.lnst, (int)blocks, 2LL * C, ds_db, stream);
   if (err != cudaSuccess) return err;
-  err = wgrad(tscratch + S.ln, SC, tscratch + S.dqkv, S3, S.rows, C, 3 * C, dwqkv, dbqkv, fscratch + S.wg, stream);
+  err = wgrad(tscratch + S.ln, SC, tscratch + S.dqkv, S3, S.rows_k, C, 3 * C, dwqkv, dbqkv, fscratch + S.wg, stream);
   if (err != cudaSuccess) return err;
-  return wgrad(tscratch + S.att, SC, tscratch + S.gb, SC, S.rows, C, C, dwproj, dbproj, fscratch + S.wg, stream);
+  return wgrad(tscratch + S.att, SC, tscratch + S.gb, SC, S.rows_k, C, C, dwproj, dbproj, fscratch + S.wg, stream);
 }
 
 #define ATTN_BWD16_ENTRY(NAME, T)                                                                                 \

@@ -1,14 +1,20 @@
 // B8 and B9 in bf16, written for the H100: the backward of the attention
 // half of a Swin block with the forward recomputed,
 //   y = x + d_b * proj(WA(LN x))  on (B, H, W, C) maps,
-// window attention over 8 x 8 (B8, SwinIR) or 16 x 16 (B9, HAT) windows,
-// the shift folded into reads and writes. From x and the cotangent g it
+// window attention over ws x ws windows, ws 2..8 (B8: SwinIR's 8) or 9..16
+// (B9: HAT's 16), the shift folded into reads and writes. From x and the cotangent g it
 // emits dx and the f32 gradients of the LN scale and bias, Wqkv, bqkv,
 // Wproj, bproj and the gathered rel-pos bias (heads, N, N).
 //
 // Replaces studiosr_tpu/ops/pallas/attn_bwd.py::pairs_attention_bwd (:209)
 // and ::v5_attention_bwd (:508) in bf16; f32, the checks' dtype, keeps
-// attn_bwd.cu / attn_bwd16.cu, and so do head dims above 32. The contract
+// attn_bwd.cu / attn_bwd16.cu, and so do head dims above 32. A window of
+// N = ws^2 tokens is padded to NCH = ceil(N / 64) whole tiles (am_window.cuh):
+// the padding tokens' LN and g_b rows are zeros and their keys score -inf
+// (their bias, am_bias_kernel),
+// so their p, dscores, dq, dk and dv are zeros and they add nothing to the
+// weight gradients, d bias or the LN sums; the entry attn_bwd_mma_bf16 takes
+// windows 2..8 (one tile), attn_bwd16_mma_bf16 9..16 (two to four). The contract
 // is theirs: g_b = d g rounded to bf16, dx = g_b + LN-backward(dln) + (1 -
 // d) g; the LN output, q / k / v, the probabilities, dattn, dscores and dq /
 // dk / dv rounded to bf16; products accumulate in f32; softmax, its
@@ -37,15 +43,16 @@
 //    need are made by ldmatrix + stmatrix.trans. Sweep 1 computes the scores
 //    and dprobs = dattn v^T of every 64-key chunk on wgmma in registers and
 //    keeps the row max, sum and D = sum p dp online; sweep 2 recomputes them
-//    (at window 8, one chunk, it keeps them), forms p and dscores in
+//    (over one chunk, windows 2-8, it keeps them), forms p and dscores in
 //    registers and runs attn = p v, dq = dscores k, and, from p^T and
 //    dscores^T written to shared memory by stmatrix.trans, dk = dscores^T q
 //    and dv = p^T dattn. Each block keeps its f32 d bias rows (64 x N) in
-//    shared memory across its windows. At window 16 two warpgroups split
-//    the key chunks, and the four blocks of a window's query quarters form a
-//    cluster: each pushes its dk / dv partial of a chunk into the chunk's
-//    owner's inbox in distributed shared memory (st.async, counted on the
-//    owner's mbarrier), and the owner adds them in a fixed order when its
+//    shared memory across its windows. Over two to four chunks (windows
+//    9-16) two warpgroups split the key chunks (at three, warpgroup 1 takes
+//    one), and the blocks of a window's query chunks form a cluster: each
+//    pushes its dk / dv partial of a chunk into the chunk's owner's inbox
+//    in distributed shared memory (st.async, counted on the owner's
+//    mbarrier), and the owner adds them in a fixed order when its
 //    next window's sweep 2 begins, handing back credits (a remote mbarrier
 //    arrival) before any block refills an inbox. The scores are computed
 //    twice, not three times. dq|dk|dv and attn go out per token row, heads
@@ -68,7 +75,7 @@
 // 64 rows; each stage the image of a ring slot in wgmma's K-major
 // core-matrix layout (am_kmajor in am_common.cuh, _k_major there: change both
 // together).
-// Takes bf16, window 8 or 16, head dims up to 32, C a multiple of 4 up to
+// Takes bf16, windows 2..16, head dims up to 32, C a multiple of 4 up to
 // 184, H and W multiples of the window; the wrapper routes anything else.
 // The pieces B5 and B7 share with it are in am_window.cuh and am_common.cuh.
 #include "am_window.cuh"
@@ -121,8 +128,8 @@ __device__ __forceinline__ void am_bar_wait_cluster(uint64_t* bar, int parity) {
 
 // -- pass 2: the attention core ---------------------------------------------------
 
-// Warpgroups of an attention block: at window 16 two, splitting the key
-// chunks of the block's 64 queries (AM_WGS(4) = 2); at window 8 one.
+// Warpgroups of an attention block: two over two to four tiles, splitting
+// the key chunks of the block's 64 queries; one over one tile.
 __host__ __device__ constexpr int am_wgs(int nch) { return nch == 1 ? 1 : 2; }
 
 struct AmAttnSmem {
@@ -159,13 +166,13 @@ __host__ __device__ inline AmAttnSmem am_attn_smem(const AmGeom& G) {
   return L;
 }
 
-// A block owns (head h, query chunk r, window group g); NCH 4 (window 16)
-// runs as clusters of four blocks, one a query chunk, each with two
-// warpgroups: warpgroup k takes key chunks (r + 2 i + k) mod 4, i = 0, 1.
+// A block owns (head h, query chunk r, window group g); NCH > 1 runs as
+// clusters of NCH blocks, one a query chunk, each with two warpgroups:
+// warpgroup k takes key chunks (r + 2 i + k) mod NCH for 2 i + k < NCH.
 template <int NCH, int DP>
 __global__ void __launch_bounds__(128 * am_wgs(NCH), NCH == 1 ? 3 : 1) am_attn_kernel(const AmArgs a, const AmGeom G) {
   constexpr int N = NCH * AM_TOK, KS = DP / 16, NDT = DP / 8;
-  constexpr int WGS = am_wgs(NCH), STEPS = NCH / WGS, THREADS = 128 * WGS;
+  constexpr int WGS = am_wgs(NCH), STEPS = (NCH + WGS - 1) / WGS, THREADS = 128 * WGS;
   extern __shared__ __align__(128) unsigned char smem[];
   const AmAttnSmem L = am_attn_smem(G);
   bf16 *Kk = (bf16*)(smem + L.kk), *Vk = (bf16*)(smem + L.vk), *Kt = (bf16*)(smem + L.kt), *Vt = (bf16*)(smem + L.vt);
@@ -322,6 +329,7 @@ __global__ void __launch_bounds__(128 * am_wgs(NCH), NCH == 1 ? 3 : 1) am_attn_k
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, u[2] = {0.f, 0.f};
 #pragma unroll 1
     for (int i = 0; i < STEPS; ++i) {
+      if (NCH % WGS && WGS * i + wg >= NCH) break;  // NCH 3: warpgroup 1 takes one chunk
       sd((r + WGS * i + wg) % NCH);
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
@@ -371,6 +379,7 @@ __global__ void __launch_bounds__(128 * am_wgs(NCH), NCH == 1 ? 3 : 1) am_attn_k
     }
 #pragma unroll 1
     for (int i = 0; i < STEPS; ++i) {
+      if (NCH % WGS && WGS * i + wg >= NCH) break;
       const int c = (r + WGS * i + wg) % NCH;
       if (NCH > 1) sd(c);
       uint32_t pa[4][4], sa[4][4];
@@ -509,14 +518,16 @@ __global__ void __launch_bounds__(128 * am_wgs(NCH), NCH == 1 ? 3 : 1) am_attn_k
     }
 }
 
-// out[h][e] = sum over groups of part[h][g][e], in order of g.
-__global__ void am_dbias_reduce_kernel(const float* __restrict__ part, int heads, int groups, long long nn,
+// out[h][q][k] (nv x nv) = sum over groups of part[h][g][q][k] (n x n, the
+// padded window), in order of g.
+__global__ void am_dbias_reduce_kernel(const float* __restrict__ part, int heads, int groups, int n, int nv,
                                        float* __restrict__ out) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < heads * nn;
+  const long long nn = (long long)n * n, vv = (long long)nv * nv;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < heads * vv;
        i += (long long)gridDim.x * blockDim.x) {
-    const long long h = i / nn, e = i % nn;
+    const long long h = i / vv, e = i % vv, src = e / nv * n + e % nv;
     float v = 0.f;
-    for (int g = 0; g < groups; ++g) v += part[(h * groups + g) * nn + e];
+    for (int g = 0; g < groups; ++g) v += part[(h * groups + g) * nn + src];
     out[i] = v;
   }
 }
@@ -526,13 +537,14 @@ __global__ void am_dbias_reduce_kernel(const float* __restrict__ part, int heads
 // Pass 3b, a warp a token row (rows in tile order; block b takes rows b, b +
 // gridDim, ...): the LN backward and dx from dln, x, g and the LN statistics
 // (am_lnb_row), and the block's column sums of dln xhat and dln into
-// lnst[block][2 C].
+// lnst[block][2 C]; padding tokens are skipped.
 __global__ void __launch_bounds__(256) am_lnb_kernel(const AmArgs a, const AmGeom G, long long rows) {
   __shared__ float sums[8][2 * AM_MAX_C];
   const int warp = threadIdx.x >> 5, C = G.C;
   float cs[3][4] = {};  // per pair: dln xhat (c, c + 1), dln (c, c + 1)
   for (long long row = blockIdx.x + (long long)gridDim.x * warp; row < rows; row += gridDim.x * 8LL) {
     const int tile = (int)(row / AM_TOK);
+    if (!am_valid(G, tile, (int)(row % AM_TOK))) continue;
     const long long off = am_pixel(G, a, tile, (int)(row % AM_TOK)) * C;
     const float dd = a.dp ? a.dp[(tile / G.NCH) / a.nwi] : 1.f;
     am_lnb_row(a.dln + row * C, a.x + off, a.g + off, a.dx + off, a.stats[2 * row], a.stats[2 * row + 1], dd, C, a.ln_w,
@@ -562,7 +574,7 @@ static AmScratch am_scratch(int B, int H, int W, int C, int heads, int ws, int s
   S.windows = B * (H / ws) * (W / ws);
   S.tiles = S.windows * G.NCH;
   S.rows = (long long)S.tiles * AM_TOK;
-  const int blocks = G.NCH == 1 ? 3 * sms : sms / G.NCH;  // attention blocks (clusters at window 16) in flight
+  const int blocks = G.NCH == 1 ? 3 * sms : sms / G.NCH;  // attention blocks (clusters above window 8) in flight
   S.groups = blocks / heads < 1 ? 1 : blocks / heads;
   if (S.groups > S.windows) S.groups = S.windows;
   const int pairs = (S.tiles + 1) / 2;
@@ -639,7 +651,12 @@ static cudaError_t am_launch_proj_attn(const AmArgs& a, const AmGeom& G, const A
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int blocks = G.heads * S.groups * G.NCH;
-  return G.NCH == 1 ? am_launch_attn<1, DP>(a, G, blocks, stream) : am_launch_attn<4, DP>(a, G, blocks, stream);
+  switch (G.NCH) {
+    case 1: return am_launch_attn<1, DP>(a, G, blocks, stream);
+    case 2: return am_launch_attn<2, DP>(a, G, blocks, stream);
+    case 3: return am_launch_attn<3, DP>(a, G, blocks, stream);
+    default: return am_launch_attn<4, DP>(a, G, blocks, stream);
+  }
 }
 
 // The gradients with the heads padded to DP: dwqkv (C x K3), dbqkv (K3) and
@@ -677,18 +694,20 @@ static int am_run(int ws, const void* x, const void* g, void* dx, int B, int H, 
   err = am_pack((const bf16*)wqkv, 3LL * C * C, (const bf16*)wproj, (long long)C * C, pack_index, pack_elems, t + S.pack,
                 st);
   if (err != cudaSuccess) return (int)err;
-  am_bias_kernel<<<256, 256, 0, st>>>(relbias, bias16, heads, G.NCH, f + S.bias);
+  am_bias_kernel<<<256, 256, 0, st>>>(relbias, bias16, heads, G.NCH, G.NV, f + S.bias);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  am_ln_kernel<true><<<S.row_blocks, 256, 0, st>>>(a, G, S.rows);
+  if (G.NV < G.N)
+    am_ln_kernel<true, true><<<S.row_blocks, 256, 0, st>>>(a, G, S.rows);
+  else
+    am_ln_kernel<true, false><<<S.row_blocks, 256, 0, st>>>(a, G, S.rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = G.DP == 32 ? am_launch_proj_attn<32>(a, G, S, st) : am_launch_proj_attn<16>(a, G, S, st);
   if (err != cudaSuccess) return (int)err;
-  const long long nn = (long long)G.N * G.N;
-  const long long n = heads * nn;
+  const long long n = heads * (long long)G.NV * G.NV;
   am_dbias_reduce_kernel<<<(int)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024), 256, 0, st>>>(
-      a.dbias_part, heads, S.groups, nn, (float*)dbias);
+      a.dbias_part, heads, S.groups, G.N, G.NV, (float*)dbias);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = am_rowgemm(AmRowGemm{a.dqkv, a.w + G.proj_elems(), G.K3, G.K3, S.tiles}, C, AmStoreF32{a.dln, C}, S.dln_blocks, st);
@@ -708,18 +727,20 @@ static int am_run(int ws, const void* x, const void* g, void* dx, int B, int H, 
   return (int)am_wgrad(a.att, G.HD, a.gb, G.SC, S.rows, G.HD, C, (float*)dwproj, (float*)dbproj, f + S.wg, sms, st);
 }
 
-#define ATTN_BWD_MMA_ENTRY(NAME, WS)                                                                              \
-  extern "C" int NAME(const void* x, const void* g, void* dx, int B, int H, int W, int C, int heads, int shift,   \
-                      int bias16,                                                                                 \
+// Two entries, one a family: windows 2..8 (B8, one tile a window) and 9..16 (B9).
+#define ATTN_BWD_MMA_ENTRY(NAME, WS_LO, WS_HI)                                                                    \
+  extern "C" int NAME(const void* x, const void* g, void* dx, int B, int H, int W, int C, int heads, int ws,      \
+                      int shift, int bias16,                                                                      \
                       const void* ln_w, const void* ln_b, const void* bqkv, const void* relbias, const void* dp,  \
                       const void* wqkv, const void* wproj, const void* pack_index, long long pack_elems,          \
                       void* ds_db, void* dwqkv, void* dbqkv, void* dwproj, void* dbproj, void* dbias,             \
                       void* tscratch, long long t_elems, void* fscratch, long long f_elems, void* stream) {       \
-    return am_run(WS, x, g, dx, B, H, W, C, heads, shift, bias16, ln_w, ln_b, bqkv, relbias, dp, wqkv, wproj,    \
+    if (ws < WS_LO || ws > WS_HI) return (int)cudaErrorInvalidValue;                                             \
+    return am_run(ws, x, g, dx, B, H, W, C, heads, shift, bias16, ln_w, ln_b, bqkv, relbias, dp, wqkv, wproj,    \
                   (const int*)pack_index, pack_elems, ds_db, dwqkv, dbqkv, dwproj, dbproj, dbias, tscratch,      \
                   t_elems, fscratch, f_elems, stream);                                                            \
   }
 
-ATTN_BWD_MMA_ENTRY(attn_bwd_mma_bf16, 8)
-ATTN_BWD_MMA_ENTRY(attn_bwd16_mma_bf16, 16)
+ATTN_BWD_MMA_ENTRY(attn_bwd_mma_bf16, 2, 8)
+ATTN_BWD_MMA_ENTRY(attn_bwd16_mma_bf16, 9, 16)
 

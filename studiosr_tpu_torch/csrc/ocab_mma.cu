@@ -119,7 +119,7 @@ __global__ void __launch_bounds__(256) oc_gather_kernel(const OcArgs a) {
 
 static bool oc_geometry_ok(int B, int H, int W, int C, int heads, int ws, int pad, int hidden) {
   const int owin = ws + 2 * pad;
-  return am_geometry_ok(C, heads, ws) && mf_geometry_ok(C, hidden) && pad >= 0 && owin * owin <= OF_MAX_NK &&
+  return am_geometry_ok(C, heads, ws) && ws * ws % AM_TOK == 0 && mf_geometry_ok(C, hidden) && pad >= 0 && owin * owin <= OF_MAX_NK &&
          ws * ws <= OF_MAX_NQ && B >= 1 && H >= ws && W >= ws && H % ws == 0 && W % ws == 0;
 }
 
@@ -230,12 +230,13 @@ extern "C" int ocab_mma_bf16(const void* x, void* out, int B, int H, int W, int 
   // d = DP: each head's padding columns go out too (zero: v's padding is)
   o.heads = heads, o.nq = G.N, o.nk = owin * owin, o.d = G.DP, o.QT = G.NCH, o.KT = S.KT, o.pairs = 1;
   o.vec = (uintptr_t)relbias % 16 == 0 && o.nk % 8 == 0;
-  am_ln_kernel<false><<<S.row_blocks, 256, 0, st>>>(a, G, S.rows);
+  am_ln_kernel<false, false><<<S.row_blocks, 256, 0, st>>>(a, G, S.rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = G.DP == 32 ? oc_launch<32>(a, G, g, o, S, st) : oc_launch<16>(a, G, g, o, S, st);
   if (err != cudaSuccess) return (int)err;
-  err = am_rowgemm(AmRowGemm{t + S.att, a.w + G.qkv_elems(), G.HD, G.HD, S.tiles}, C, WaOut{a, G}, S.proj_blocks, st);
+  err = am_rowgemm(AmRowGemm{t + S.att, a.w + G.qkv_elems(), G.HD, G.HD, S.tiles}, C, WaOut<false>{a, G},
+                   S.proj_blocks, st);
   if (err != cudaSuccess) return (int)err;
   return mf_run<false>(t + S.y, nullptr, out, (int)S.rows, C, hidden, ln2_w, ln2_b, nullptr, b1, nullptr, b2, nullptr,
                        0, nullptr, nullptr, a.w + wpack, M.pack_elems(), nullptr, stream);

@@ -1,5 +1,5 @@
 // Window attention in two passes through device memory, shared by B5 at
-// window 16 (window_attention16.cu) and B10 (ocab.cu), each in f32 and at
+// windows 9-16 (window_attention16.cu) and B10 (ocab.cu), each in f32 and at
 // the geometries the bf16 kernels written for the H100 do not take (in bf16
 // B5 runs window_attention_mma.cu, B10 ocab_mma.cu); B9 (attn_bwd16.cu)
 // shares pass 1.
@@ -242,12 +242,16 @@ __host__ __device__ inline QaSmem qa_smem_layout(int C, int heads) {
 }
 
 // Where the tokens of a block live. Window wi (row-major) of image img;
-// queries qc * 64 .. + 63 of its ws x ws tokens (row-major).
+// queries qc * 64 .. + 63 of its ws x ws tokens (row-major), those past nq
+// (the last chunk of a window of ws^2 not a multiple of 64) zero rows that
+// are never stored.
 struct QaGeom {
   int H, W, ws, shift, pad, owin, nq, nk;
   int img, wy, wx, qc;
 
-  // Pixel (linear in the batch) of query token t (window-local), shift folded in.
+  // Pixel (linear in the batch) of query token t (window-local), shift folded
+  // in, or -1 past nq.
+  __device__ long long query_row(int t) const { return t < nq ? query_pixel(t) : -1; }
   __device__ long long query_pixel(int t) const {
     const int y = (wy * ws + t / ws + shift) % H, x = (wx * ws + t % ws + shift) % W;
     return ((long long)img * H + y) * W + x;
@@ -333,7 +337,7 @@ __global__ void __launch_bounds__(SB_THREADS) qkv_attention_kernel(
   g.owin = ws + 2 * pad;
   g.nq = ws * ws;
   g.nk = OVERLAP ? g.owin * g.owin : g.nq;
-  const int nqc = g.nq / QA_CHUNK, nwx = W / ws, nwin = (H / ws) * nwx;
+  const int nqc = (g.nq + QA_CHUNK - 1) / QA_CHUNK, nwx = W / ws, nwin = (H / ws) * nwx;
   g.qc = blockIdx.x % nqc;
   const int wi = (blockIdx.x / nqc) % nwin;
   g.img = blockIdx.x / (nqc * nwin);
@@ -345,7 +349,7 @@ __global__ void __launch_bounds__(SB_THREADS) qkv_attention_kernel(
   if (tid < QA_CHUNK) rid[tid] = OVERLAP ? 0 : g.region(q0 + tid);
   zero_columns(attn, LC, C, P.kc);
   const FragMap map = frag_map_for<T>(sc);  // sc is free until the first scores
-  auto qpix = [&](int r) { return g.query_pixel(q0 + r); };
+  auto qpix = [&](int r) { return g.query_row(q0 + r); };
 
   for (int h = 0; h < heads; ++h) {
     const int col = h * 3 * DP;
@@ -376,7 +380,7 @@ __global__ void __launch_bounds__(SB_THREADS) qkv_attention_kernel(
         const int t = k0 + n;
         float v = -INFINITY;
         if (t < g.nk) {
-          v = acc + relbias[((size_t)h * g.nq + q0 + r) * g.nk + t];
+          v = acc + (q0 + r < g.nq ? relbias[((size_t)h * g.nq + q0 + r) * g.nk + t] : 0.f);
           if (!OVERLAP && rid[r] != g.region(t)) v += -100.f;
         }
         sc[r * lsc + n] = v;
@@ -412,6 +416,7 @@ __global__ void __launch_bounds__(SB_THREADS) qkv_attention_kernel(
   }
   __syncthreads();
   gemm64<T>(attn, LC, P.kc, C, packed_proj, P.nc, bst, map, [&](int r, int n, float acc) {
+    if (q0 + r >= g.nq) return;
     const size_t p = (size_t)qpix(r) * C + n;
     out[p] = from_f32<T>(to_f32(x[p]) + scale * (acc + bproj[n]));
   });
@@ -507,7 +512,7 @@ __global__ void __launch_bounds__(SB_THREADS, 2) qkv_attention_mma_kernel(
   g.owin = ws + 2 * pad;
   g.nq = ws * ws;
   g.nk = OVERLAP ? g.owin * g.owin : g.nq;
-  const int nqc = g.nq / QA_CHUNK, nwx = W / ws, nwin = (H / ws) * nwx;
+  const int nqc = (g.nq + QA_CHUNK - 1) / QA_CHUNK, nwx = W / ws, nwin = (H / ws) * nwx;
   g.qc = blockIdx.x % nqc;
   const int wi = (blockIdx.x / nqc) % nwin;
   g.img = blockIdx.x / (nqc * nwin);
@@ -539,6 +544,7 @@ __global__ void __launch_bounds__(SB_THREADS, 2) qkv_attention_mma_kernel(
     // q of this warp's 16 rows, as a fragments (DP / 16 k-steps, at most 4)
     uint32_t qa[4][4];
     if (active) {
+      // a query row past nq reads some pixel's q: its scores are never stored
       const T* qr0 = qkv + g.query_pixel(qrow[0]) * N + h * 3 * DP;
       const T* qr1 = qkv + g.query_pixel(qrow[1]) * N + h * 3 * DP;
 #pragma unroll
@@ -578,23 +584,25 @@ __global__ void __launch_bounds__(SB_THREADS, 2) qkv_attention_mma_kernel(
                          *reinterpret_cast<const uint32_t*>(kr + 8));
         }
       }
-      // + bias (+ the shift mask), -inf past the last key; running max
+      // + bias (+ the shift mask), -inf past the last key (no bias past the
+      // last query); running max
       const int k0 = j * QA_CHUNK;
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
-        const int t = k0 + nt * 8 + 2 * tq;  // columns t, t + 1 (nk is even)
+        const int t = k0 + nt * 8 + 2 * tq;  // columns t, t + 1
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           float v0 = -INFINITY, v1 = -INFINITY;
+          const bool qin = qrow[half] < g.nq;
+          const float* br = bias_h + (size_t)qrow[half] * g.nk + t;
           if (t < g.nk) {
-            const float2 b = *reinterpret_cast<const float2*>(bias_h + (size_t)qrow[half] * g.nk + t);
-            v0 = s[nt][2 * half] + b.x;
-            v1 = s[nt][2 * half + 1] + b.y;
-            if (!OVERLAP && shift) {
-              if (g.region(t) != qrid[half]) v0 += -100.f;
-              if (g.region(t + 1) != qrid[half]) v1 += -100.f;
-            }
+            v0 = s[nt][2 * half] + (qin ? br[0] : 0.f);
+            if (!OVERLAP && shift && g.region(t) != qrid[half]) v0 += -100.f;
+          }
+          if (t + 1 < g.nk) {
+            v1 = s[nt][2 * half + 1] + (qin ? br[1] : 0.f);
+            if (!OVERLAP && shift && g.region(t + 1) != qrid[half]) v1 += -100.f;
           }
           s[nt][2 * half] = v0;
           s[nt][2 * half + 1] = v1;
@@ -661,6 +669,7 @@ __global__ void __launch_bounds__(SB_THREADS, 2) qkv_attention_mma_kernel(
   }
   __syncthreads();
   gemm64<T>(attn, LC, P.kc, C, packed_proj, P.nc, bst, map, [&](int r, int n, float acc) {
+    if (q0 + r >= g.nq) return;
     const size_t p = (size_t)g.query_pixel(q0 + r) * C + n;
     out[p] = __float2bfloat16(__bfloat162float(x[p]) + scale * (acc + bproj[n]));
   });
@@ -679,7 +688,7 @@ static cudaError_t qkv_attention(const T* x, T* out, T* qkv, int B, int H, int W
                                  const float* bqkv, const T* wproj, const float* bproj, const float* relbias,
                                  const float* dp, T* packed, cudaStream_t stream) {
   const QkvPack P = qkv_pack_layout(C, heads);
-  if (ws <= 0 || (ws * ws) % QA_CHUNK || H % ws || W % ws || C % heads || P.DP > 64) return cudaErrorInvalidValue;
+  if (ws <= 0 || H % ws || W % ws || C % heads || P.DP > 64) return cudaErrorInvalidValue;
   std::vector<PackSeg> segs;
   qkv_pack_segments(segs, wqkv, wproj, C, heads, 0);
   cudaError_t err = pack_segments(segs, packed, (size_t)P.total, stream);
@@ -692,7 +701,7 @@ static cudaError_t qkv_attention(const T* x, T* out, T* qkv, int B, int H, int W
       x, qkv, rows, C, heads, ln_w, ln_b, bqkv, packed, nullptr, 0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const unsigned blocks = (unsigned)B * (H / ws) * (W / ws) * (ws * ws / QA_CHUNK);
+  const unsigned blocks = (unsigned)B * (H / ws) * (W / ws) * ((ws * ws + QA_CHUNK - 1) / QA_CHUNK);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     const QaMmaSmem L2 = qa_mma_smem_layout(C, heads);
     err = allow_smem(qkv_attention_mma_kernel<OVERLAP>, L2.total);

@@ -332,6 +332,22 @@ __device__ __forceinline__ int window_token_region(int wi, int t, int H, int W, 
   return 3 * region_id((wi / nwx) * SB_WS + t / SB_WS, H, shift) + region_id((wi % nwx) * SB_WS + t % SB_WS, W, shift);
 }
 
+// The two above at any window ws (window_attention.cu and attn_bwd.cu at
+// windows 2..8, the tokens of a window the first ws^2 of its 64 rows).
+__device__ __forceinline__ size_t window_token_offset_ws(int img, int wi, int t, int H, int W, int C, int shift,
+                                                         int ws) {
+  const int nwx = W / ws;
+  const int y = ((wi / nwx) * ws + t / ws + shift) % H;
+  const int x = ((wi % nwx) * ws + t % ws + shift) % W;
+  return (((size_t)img * H + y) * W + x) * C;
+}
+
+__device__ __forceinline__ int window_token_region_ws(int wi, int t, int H, int W, int shift, int ws) {
+  if (!shift) return 0;
+  const int nwx = W / ws, y = (wi / nwx) * ws + t / ws, x = (wi % nwx) * ws + t % ws;
+  return 3 * (y < H - ws ? 0 : (y < H - shift ? 1 : 2)) + (x < W - ws ? 0 : (x < W - shift ? 1 : 2));
+}
+
 template <typename T>
 __device__ __forceinline__ void zero_columns(T* buf, int ld, int from, int to) {
   const int width = to - from;

@@ -1,8 +1,10 @@
 // B5: the attention half of a Swin block with a per-sample drop-path scale,
 //   y = x + d_b * proj(WA(LN x)),
-// with window attention (WA) over 8 x 8 windows, the relative-position bias
-// and, for shifted blocks, the shifted-window mask. The forward of fused
-// training (ops/attn_vjp.py).
+// with window attention (WA) over ws x ws windows, ws 2..8, the
+// relative-position bias and, for shifted blocks, the shifted-window mask.
+// The forward of fused training (ops/attn_vjp.py). A window's N = ws^2 tokens
+// are the first N of the block's 64 rows: the rest are zero rows whose keys
+// score -inf and whose outputs are never stored.
 //
 // Replaces studiosr_tpu/ops/pallas/swin_block.py::fused_window_attention_block
 // (its window-pair kernel with drop_path). As B1 (swin_block.cu) it folds
@@ -74,7 +76,7 @@ __host__ __device__ inline AttnPack attn_pack_layout(int C, int heads) {
 
 template <typename T>
 __global__ void __launch_bounds__(SB_THREADS, 2) window_attention_kernel(
-    const T* __restrict__ x, T* __restrict__ out, int H, int W, int C, int heads, int shift,
+    const T* __restrict__ x, T* __restrict__ out, int H, int W, int C, int heads, int ws, int shift,
     const float* __restrict__ ln_w, const float* __restrict__ ln_b, const float* __restrict__ bqkv,
     const float* __restrict__ bproj, const float* __restrict__ relbias, const float* __restrict__ dp,
     const T* __restrict__ packed) {
@@ -94,15 +96,15 @@ __global__ void __launch_bounds__(SB_THREADS, 2) window_attention_kernel(
   const int tid = threadIdx.x;
   const int d = C / heads, DP = pad16(d);
   const int LC = L.ld_c, LQ = L.ld_qkv;
-  const int nwin = (H / SB_WS) * (W / SB_WS);
+  const int nv = ws * ws, nwin = (H / ws) * (W / ws);
   const int img = blockIdx.x / nwin, wi = blockIdx.x % nwin;
   const float scale = dp ? dp[img] : 1.f;
 
   for (int i = tid; i < SB_TOK * C; i += SB_THREADS) {
     const int t = i / C;
-    xs[i] = x[window_token_offset(img, wi, t, H, W, C, shift) + (i - t * C)];
+    xs[i] = t < nv ? x[window_token_offset_ws(img, wi, t, H, W, C, shift, ws) + (i - t * C)] : from_f32<T>(0.f);
   }
-  if (tid < SB_TOK) rid[tid] = window_token_region(wi, tid, H, W, shift);
+  if (tid < SB_TOK) rid[tid] = window_token_region_ws(wi, tid, H, W, shift, ws);
   zero_columns(lnb, LC, C, P.kc);
   zero_columns(attn, LC, C, P.kc);
   const FragMap map = frag_map_for<T>(sc);  // sc is free until the scores
@@ -111,11 +113,14 @@ __global__ void __launch_bounds__(SB_THREADS, 2) window_attention_kernel(
 
   for (int h = 0; h < heads; ++h) {
     head_qkv<T>(lnb, LC, packed + (size_t)h * P.kc * P.nq, bqkv, C, heads, h, qkvh, LQ, bst, map);
-    // scores = q k^T + bias (+ mask)
+    // scores = q k^T + bias (+ mask); -inf past the window's keys
     gemm64_smem<nvcuda::wmma::row_major, nvcuda::wmma::col_major>(
         qkvh, LQ, qkvh + DP, LQ, DP, SB_TOK, map, [&](int r, int n, float acc) {
-          float v = acc + relbias[(h * SB_TOK + r) * SB_TOK + n];
-          if (rid[r] != rid[n]) v += -100.f;
+          float v = -INFINITY;
+          if (n < nv) {
+            v = acc + (r < nv ? relbias[(h * nv + r) * nv + n] : 0.f);
+            if (rid[r] != rid[n]) v += -100.f;
+          }
           sc[r * SB_TL + n] = v;
         });
     softmax_rows<T>(sc, inv);
@@ -127,7 +132,8 @@ __global__ void __launch_bounds__(SB_THREADS, 2) window_attention_kernel(
   }
 
   gemm64<T>(attn, LC, P.kc, C, packed + P.proj, P.nc, bst, map, [&](int r, int n, float acc) {
-    const size_t o = window_token_offset(img, wi, r, H, W, C, shift) + n;
+    if (r >= nv) return;
+    const size_t o = window_token_offset_ws(img, wi, r, H, W, C, shift, ws) + n;
     out[o] = from_f32<T>(to_f32(xs[r * C + n]) + scale * (acc + bproj[n]));
   });
 }
@@ -135,12 +141,13 @@ __global__ void __launch_bounds__(SB_THREADS, 2) window_attention_kernel(
 extern "C" long long window_attention_pack_elems(int C, int heads) { return attn_pack_layout(C, heads).total; }
 
 template <typename T>
-static cudaError_t window_attention(const T* x, T* out, int B, int H, int W, int C, int heads, int shift,
+static cudaError_t window_attention(const T* x, T* out, int B, int H, int W, int C, int heads, int ws, int shift,
                                     const float* ln_w, const float* ln_b, const T* wqkv, const float* bqkv,
                                     const T* wproj, const float* bproj, const float* relbias, const float* dp,
                                     T* packed, long long pack_elems, cudaStream_t stream) {
   const AttnPack P = attn_pack_layout(C, heads);
-  if (P.total != pack_elems) return cudaErrorInvalidValue;
+  if (P.total != pack_elems || ws < 2 || ws > SB_WS || H % ws || W % ws || shift < 0 || shift >= ws)
+    return cudaErrorInvalidValue;
   std::vector<PackSeg> segs;
   qkv_head_segments(segs, wqkv, C, heads, 0);
   segs.push_back(PackSeg{wproj, P.proj, P.nc, C, C, C, 1});
@@ -149,18 +156,18 @@ static cudaError_t window_attention(const T* x, T* out, int B, int H, int W, int
   const AttnSmem L = attn_smem_layout(C, heads, sizeof(T));
   err = allow_smem(window_attention_kernel<T>, L.total);
   if (err != cudaSuccess) return err;
-  const int blocks = B * (H / SB_WS) * (W / SB_WS);
-  window_attention_kernel<T><<<blocks, SB_THREADS, L.total, stream>>>(x, out, H, W, C, heads, shift, ln_w, ln_b,
-                                                                     bqkv, bproj, relbias, dp, packed);
+  const int blocks = B * (H / ws) * (W / ws);
+  window_attention_kernel<T><<<blocks, SB_THREADS, L.total, stream>>>(x, out, H, W, C, heads, ws, shift, ln_w,
+                                                                     ln_b, bqkv, bproj, relbias, dp, packed);
   return cudaGetLastError();
 }
 
 #define WINDOW_ATTENTION_ENTRY(NAME, T)                                                                          \
-  extern "C" int NAME(const void* x, void* out, int B, int H, int W, int C, int heads, int shift,              \
+  extern "C" int NAME(const void* x, void* out, int B, int H, int W, int C, int heads, int ws, int shift,      \
                       const void* ln_w, const void* ln_b, const void* wqkv, const void* bqkv, const void* wproj, \
                       const void* bproj, const void* relbias, const void* dp, void* packed, long long pack_elems, \
                       void* stream) {                                                                            \
-    return (int)window_attention<T>((const T*)x, (T*)out, B, H, W, C, heads, shift, (const float*)ln_w,          \
+    return (int)window_attention<T>((const T*)x, (T*)out, B, H, W, C, heads, ws, shift, (const float*)ln_w,      \
                                     (const float*)ln_b, (const T*)wqkv, (const float*)bqkv, (const T*)wproj,     \
                                     (const float*)bproj, (const float*)relbias, (const float*)dp, (T*)packed,    \
                                     pack_elems, (cudaStream_t)stream);                                           \

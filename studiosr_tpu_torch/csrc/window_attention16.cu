@@ -1,9 +1,10 @@
-// B5 at window 16 (HAT serving): the attention half of a Swin block,
+// B5 at windows 9-16 (HAT serving at 16): the attention half of a Swin block,
 //   y = x + d_b * proj(WA(LN x)),
-// with window attention (WA) over 16 x 16 windows (256 tokens), the
-// (heads, 256, 256) relative-position bias and, for shifted blocks, the
-// shifted-window mask; the output aligned with the input (the shift folded
-// into reads and writes, as the ws-8 kernel of window_attention.cu does).
+// with window attention (WA) over ws x ws windows (N = ws^2 tokens, 256 at
+// 16; a window of N not a multiple of 64 ends in a ragged chunk of queries
+// and keys), the (heads, N, N) relative-position bias and, for shifted
+// blocks, the shifted-window mask; the output aligned with the input (the
+// shift folded into reads and writes, as window_attention.cu does at 2-8).
 //
 // Replaces studiosr_tpu/ops/pallas/swin_block.py::fused_window_attention_block
 // at ws 16 (its "v5" per-head kernel, _attn_block_kernel / _v5_attn_stripe).

@@ -1,20 +1,26 @@
 // B5 in bf16, written for the H100: the attention half of a Swin block,
 //   y = x + d_b * proj(WA(LN x))  on (B, H, W, C) maps,
-// window attention over 8 x 8 (SwinIR) or 16 x 16 (HAT) windows with the
+// window attention over ws x ws windows, ws 2..16 (SwinIR's 8, HAT's 16,
+// MaxSR's adaptive ceil(sqrt(side))), with the
 // gathered rel-pos bias (heads, N, N) and, for shifted blocks, the -100
 // region mask of calculate_mask; the shift folded into reads and writes, the
 // output aligned with the input; d_b the per-sample drop-path scale (none in
 // serving).
 //
 // Replaces studiosr_tpu/ops/pallas/swin_block.py::fused_window_attention_block
-// (:549) in bf16 at both windows; f32, the checks' dtype, keeps
+// (:549) in bf16 at windows 2..16; f32, the checks' dtype, keeps
 // window_attention.cu / window_attention16.cu, and so do head dims above 32.
+// A window of N = ws^2 tokens is padded to NCH = ceil(N / 64) whole tiles
+// (am_window.cuh): windows 2..8 take one tile (the entry
+// window_attention_mma_bf16), 9..16 two to four (window_attention16_mma_bf16);
+// the padding keys score -inf (their bias, am_bias_kernel), the padding
+// queries are never stored.
 // Rounding points follow the TPU kernel: the LN output, q / k / v, the
 // probabilities and the attention output rounded to bf16; products
 // accumulate in f32; LN and softmax statistics in f32, the softmax
-// max-subtracted (at window 16 online over its four key chunks, the
-// probabilities rounded before they are normalised; at window 8, one chunk,
-// after); d_b scales the f32 delta.
+// max-subtracted (over two to four key chunks online, the probabilities
+// rounded before they are normalised; over one chunk, after); d_b scales the
+// f32 delta.
 //
 // Bound on the card at SwinIR's training shapes (T = 131,072 tokens, C 180,
 // 6 heads of 30): 2 T C 4C + 4 T 64 C = 40 GFLOP against 94 MB for x and y,
@@ -46,7 +52,7 @@
 // in fragment order after the weights); each stage the image of a ring slot in wgmma's K-major
 // core-matrix layout (am_kmajor in am_common.cuh, _k_major there: change
 // both together).
-// Takes bf16, window 8 or 16, head dims up to 32, C a multiple of 4 up to
+// Takes bf16, windows 2..16, head dims up to 32, C a multiple of 4 up to
 // 184, H and W multiples of the window; the wrapper routes anything else.
 #include "am_window.cuh"
 
@@ -239,7 +245,10 @@ static cudaError_t wa_launch(const AmArgs& a, const AmGeom& G, const WaScratch& 
   am_proj_kernel<DP, false><<<S.proj_blocks, 256, pbytes, stream>>>(a, G);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  auto attn = G.NCH == 1 ? wa_attn_kernel<1, DP> : wa_attn_kernel<4, DP>;
+  auto attn = G.NCH == 1   ? wa_attn_kernel<1, DP>
+              : G.NCH == 2 ? wa_attn_kernel<2, DP>
+              : G.NCH == 3 ? wa_attn_kernel<3, DP>
+                           : wa_attn_kernel<4, DP>;
   const size_t abytes = wa_attn_smem(G);
   err = allow_smem(attn, abytes);
   if (err != cudaSuccess) return err;
@@ -284,26 +293,35 @@ static int wa_run(int ws, const void* x, void* out, int B, int H, int W, int C, 
     err = am_pack((const bf16*)wqkv, 3LL * C * C, (const bf16*)wproj, (long long)C * C, pack_index, pack_elems,
                   t + S.pack, st);
     if (err != cudaSuccess) return (int)err;
-    am_bias_kernel<<<256, 256, 0, st>>>(relbias, bias16, heads, G.NCH, t + S.bias);
+    am_bias_kernel<<<256, 256, 0, st>>>(relbias, bias16, heads, G.NCH, G.NV, t + S.bias);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  am_ln_kernel<false><<<S.row_blocks, 256, 0, st>>>(a, G, S.rows);
+  const bool pad = G.NV < G.N;  // a window that does not fill its tiles
+  if (pad)
+    am_ln_kernel<false, true><<<S.row_blocks, 256, 0, st>>>(a, G, S.rows);
+  else
+    am_ln_kernel<false, false><<<S.row_blocks, 256, 0, st>>>(a, G, S.rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = G.DP == 32 ? wa_launch<32>(a, G, S, st) : wa_launch<16>(a, G, S, st);
   if (err != cudaSuccess) return (int)err;
-  return (int)am_rowgemm(AmRowGemm{a.att, a.w + G.qkv_elems(), G.HD, G.HD, S.tiles}, C, WaOut{a, G}, S.proj_blocks, st);
+  const AmRowGemm q{a.att, a.w + G.qkv_elems(), G.HD, G.HD, S.tiles};
+  return (int)(pad ? am_rowgemm(q, C, WaOut<true>{a, G}, S.proj_blocks, st)
+                   : am_rowgemm(q, C, WaOut<false>{a, G}, S.proj_blocks, st));
 }
 
-#define WINDOW_ATTENTION_MMA_ENTRY(NAME, WS)                                                                          \
-  extern "C" int NAME(const void* x, void* out, int B, int H, int W, int C, int heads, int shift, int bias16,         \
-                      const void* ln_w, const void* ln_b, const void* bqkv, const void* bproj, const void* relbias,   \
-                      const void* dp, const void* wqkv, const void* wproj, const void* pack_index, const void* packed, \
-                      long long pack_elems, void* tscratch, long long t_elems, void* stream) {                         \
-    return wa_run(WS, x, out, B, H, W, C, heads, shift, bias16, ln_w, ln_b, bqkv, bproj, relbias, dp, wqkv, wproj,   \
+// Two entries, one a family: windows 2..8 (one tile a window) and 9..16.
+#define WINDOW_ATTENTION_MMA_ENTRY(NAME, WS_LO, WS_HI)                                                                \
+  extern "C" int NAME(const void* x, void* out, int B, int H, int W, int C, int heads, int ws, int shift,             \
+                      int bias16, const void* ln_w, const void* ln_b, const void* bqkv, const void* bproj,            \
+                      const void* relbias, const void* dp, const void* wqkv, const void* wproj,                       \
+                      const void* pack_index, const void* packed, long long pack_elems, void* tscratch,               \
+                      long long t_elems, void* stream) {                                                              \
+    if (ws < WS_LO || ws > WS_HI) return (int)cudaErrorInvalidValue;                                                 \
+    return wa_run(ws, x, out, B, H, W, C, heads, shift, bias16, ln_w, ln_b, bqkv, bproj, relbias, dp, wqkv, wproj,   \
                   (const int*)pack_index, packed, pack_elems, tscratch, t_elems, stream);                             \
   }
 
-WINDOW_ATTENTION_MMA_ENTRY(window_attention_mma_bf16, 8)
-WINDOW_ATTENTION_MMA_ENTRY(window_attention16_mma_bf16, 16)
+WINDOW_ATTENTION_MMA_ENTRY(window_attention_mma_bf16, 2, 8)
+WINDOW_ATTENTION_MMA_ENTRY(window_attention16_mma_bf16, 9, 16)

@@ -11,8 +11,9 @@ that the port imports nothing of the JAX package):
   per-rank index sharding;
 * ``DataIterator``: counts iterations, restartable at an iteration for
   checkpoint resume;
-* ``DataHandler``: the facade the Trainer uses. One process here: rank 0 of
-  1 (multi-process data parallelism is not part of this port yet).
+* ``DataHandler``: the facade the Trainer uses, topology-aware: its rank
+  and world size come from ``parallel/dist.py``, each process loading
+  global batch / world size samples of its own shard.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Tuple
 
 import numpy as np
+
+from studiosr_tpu_torch.parallel import dist
 
 __all__ = ["DataIterator", "PrefetchLoader", "DataHandler", "set_seed"]
 
@@ -204,8 +207,12 @@ class DataIterator:
 
 
 class DataHandler:
-    """Data entry point of the Trainer: one process, rank 0 of 1, so the
-    local batch is the global batch and this process is the main one."""
+    """Topology-aware data entry point of the Trainer.
+
+    ``batch_size`` is the *global* batch; each process loads ``batch_size //
+    process_count`` samples of its rank's shard of every epoch (the
+    ``order[rank::world_size]`` of ``PrefetchLoader``). ``is_main_process``
+    gates logging, evaluation and checkpoints (rank 0)."""
 
     def __init__(
         self,
@@ -218,10 +225,10 @@ class DataHandler:
     ) -> None:
         self.dataset = dataset
         self.global_batch_size = batch_size
-        self.rank = 0
-        self.world_size = 1
-        self.is_main_process = True
-        self.local_batch_size = batch_size
+        self.rank = dist.process_index()
+        self.world_size = dist.process_count()
+        self.is_main_process = self.rank == 0
+        self.local_batch_size = max(1, batch_size // self.world_size)
 
         self.loader = PrefetchLoader(
             dataset,

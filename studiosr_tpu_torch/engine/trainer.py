@@ -1,6 +1,13 @@
 """Iteration-based trainer: train step, checkpoint/resume, periodic evaluation.
 
-Port of ``studiosr_tpu/engine/trainer.py`` on one device:
+Port of ``studiosr_tpu/engine/trainer.py``, data-parallel over the
+processes of a ``torch.distributed`` group when ``parallel/dist.py``'s
+``initialize`` has started one (a card a process; NCCL on the card, gloo on
+the CPU): every rank steps on its shard of the global batch with the
+gradients averaged across ranks (``make_train_step(mesh=...)``), from rank
+0's weights; rank 0 alone writes the log, evaluates and checkpoints, and a
+resume reads the same checkpoint on every rank. Without a group, one
+process on one device:
 
 * the MultiStepLR Adam recipe (``parallel/train_step.py``), bf16 compute
   over f32 master weights on the card (f32 on the CPU), ``grad_accum_steps``
@@ -54,6 +61,7 @@ from typing import Callable, List, Optional, Tuple
 import torch
 
 from studiosr_tpu_torch.data import DataHandler
+from studiosr_tpu_torch.parallel.mesh import get_mesh, replicate
 from studiosr_tpu_torch.parallel.train_step import TrainState, build_optimizer, make_train_step, prepare_state
 from studiosr_tpu_torch.utils import Logger, get_loss
 
@@ -172,16 +180,19 @@ class Trainer:
         )
         self.data_handler.set_seed(self.seed)
         module = self.model.module
+        mesh = get_mesh([self.device])
+        replicate(module, mesh)  # every rank starts from rank 0's weights
         self.state = prepare_state(module, self.tx, ema_decay=self.ema_decay)
-        if self.load("latest"):
+        if self.load("latest"):  # every rank reads the same checkpoint
             print(f"-> The latest checkpoint was loaded. [best_psnr = {self.best_psnr:6.3f}]")
 
         restore_fused = getattr(module, "fused_train", None)
         if self.fused_train:
             module.fused_train = True
         step_fn = make_train_step(module, self.tx, self.criterion, bfloat16=self.bfloat16, ema_decay=self.ema_decay,
-                                  debug_nans=self.debug_nans)
-        logger = Logger(os.path.join(self.ckpt_path, "train.log"))
+                                  debug_nans=self.debug_nans, mesh=mesh)
+        main = self.data_handler.is_main_process
+        logger = Logger(os.path.join(self.ckpt_path, "train.log")) if main else None
         profiler = self._start_profiler()
         window_start, window_images = time.perf_counter(), 0
         try:
@@ -204,7 +215,7 @@ class Trainer:
                     rate = window_images / max(elapsed, 1e-9)
                     print(f" Iterations = {iterations:<8} loss = {loss_value:.5f} ({rate:7.1f} img/s)", end="\r")
                     window_start, window_images = time.perf_counter(), 0
-                if iterations % self.eval_interval == 0:
+                if iterations % self.eval_interval == 0 and main:
                     if self.fused_train:  # as the JAX Trainer, which fuses a clone for the step only
                         module.fused_train = restore_fused
                     try:
@@ -220,7 +231,8 @@ class Trainer:
         finally:
             if restore_fused is not None:
                 module.fused_train = restore_fused
-            logger.close()
+            if logger:
+                logger.close()
             self.data_handler.close()
             self._stop_profiler(profiler)
 

@@ -17,8 +17,7 @@ recipe (``Trainer`` keyword arguments, ``_training_config``);
 
 A model wraps an ``nn.Module`` that lives on ``self.device``. Forwards run
 under ``torch.inference_mode``. Not ported: ``from_pretrained`` (the zoo's
-weights are not in the repository, ROADMAP A8), the mesh-sharded routes
-(A17) and export.
+weights are not in the repository, ROADMAP A8) and export.
 """
 
 from __future__ import annotations
@@ -175,17 +174,22 @@ class Model:
 
     def evaluate_uint8_batch(self, lqs, gts, crop_border: int = 0, y_only: bool = True, mesh=None):
         """Per-image (PSNRs, SSIMs) numpy arrays of a same-shape uint8 batch,
-        one forward on ``self.device``; a (B, 2) f32 array comes back."""
+        one forward on ``self.device``; a (B, 2) f32 array comes back. A
+        ``mesh`` (``parallel/mesh.py``) must hold only ``self.device`` (a
+        process drives its own card) and gives the mesh-less result."""
         if mesh is not None:
-            raise NotImplementedError("evaluate_uint8_batch(mesh=...): multi-device evaluation is not ported "
-                                      "(ROADMAP A17)")
+            from studiosr_tpu_torch.parallel.mesh import check_devices
+
+            check_devices(mesh, self.device)
         lqs = torch.from_numpy(np.ascontiguousarray(np.asarray(lqs)))
+        gts = torch.from_numpy(np.ascontiguousarray(np.asarray(gts)))
         with torch.inference_mode():
-            srs = self.forward_uint8(lqs)
-            gts = torch.from_numpy(np.ascontiguousarray(np.asarray(gts))).to(self.device)
-            out = torch.stack([self._metric_stack(sr, gt, crop_border, y_only) for sr, gt in zip(srs, gts)])
-            out = out.cpu().numpy()
+            out = self._score_batch(lqs, gts.to(self.device), crop_border, y_only).cpu().numpy()
         return out[:, 0], out[:, 1]
+
+    def _score_batch(self, lqs, gts, crop_border: int, y_only: bool) -> torch.Tensor:
+        srs = self.forward_uint8(lqs)
+        return torch.stack([self._metric_stack(sr, gt, crop_border, y_only) for sr, gt in zip(srs, gts)])
 
     # -- dtype policy --------------------------------------------------------
 

@@ -32,8 +32,8 @@ wrapper declines it; the feed-forward and the map-level fused route stay plain, 
 ``fused_train`` (``studiosr_tpu/models/maxsr.py:365-419``) runs, in training
 mode, each attention pair whose windows are square (wh == ww) on the whole
 map: the attention half through ``ops/attn_vjp.py::attention_map_vjp`` (B5
-forward, B8 backward at window 8; B5 and B9 at window 16; any other window
-raises on the card) with zero qkv / proj biases, the feed-forward half
+forward, B8 backward at windows 2-8; B5 and B9 at 9-16; above 16, a map
+side above 256, raises on the card) with zero qkv / proj biases, the feed-forward half
 through ``ops/mlp_vjp.py::mlp_block_vjp`` (B6 / B7 at hidden 4 dim). Grid
 attention is block attention of the perfect-shuffled map
 (:func:`shuffle_grid`). The static mode hands over its gathered table bias

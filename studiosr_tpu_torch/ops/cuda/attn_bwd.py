@@ -1,9 +1,11 @@
 """B8 and B9: the backward of B5 with the forward recomputed (CUDA kernels
-``csrc/attn_bwd_mma.cu`` in bf16 at both windows; ``csrc/attn_bwd.cu`` at
-window 8 and ``csrc/attn_bwd16.cu`` at window 16 in f32 and at wider heads).
+``csrc/attn_bwd_mma.cu`` in bf16 at windows 2 to 16; ``csrc/attn_bwd.cu`` at
+windows 2 to 8 and ``csrc/attn_bwd16.cu`` at 9 to 16 in f32 and at wider
+heads).
 
-Replaces ``studiosr_tpu/ops/pallas/attn_bwd.py::pairs_attention_bwd`` (B8)
-and ``::v5_attention_bwd`` (B9, HAT's window 16). For
+Replaces ``studiosr_tpu/ops/pallas/attn_bwd.py::pairs_attention_bwd`` (B8,
+windows with 2 ws^2 <= 128: 2 to 8) and ``::v5_attention_bwd`` (B9, the
+larger windows: 9 to 16, HAT's 16). For
 y = x + d_b * proj(WA(LN x)) on (B, H, W, C) maps, with ``shift`` and
 ``drop_path`` as in ``ops/cuda/window_attention.py`` (the output aligned
 with the input), and the cotangent ``g`` of y, it returns
@@ -15,13 +17,14 @@ each to its parameter's dtype); d bias is (heads, N, N), the gradient of the
 gathered rel-pos bias (autograd of ``gather_rel_bias`` scatters it into the
 (2 ws - 1)^2 table). ``wqkv`` is unscaled, so its q columns need no
 re-scaling. The kernels sum their partials in a fixed order, so the result
-is the same from run to run. Window-16 launches count as
-``attention_bwd_ws16``.
+is the same from run to run. Launches at windows 2 to 8 count as
+``attention_bwd``, at 9 to 16 as ``attention_bwd_ws16``
+(``window_attention.large_window``).
 
 Routing, by dtype and geometry, never by a failure: bf16 with a head dim up
 to 32 and C a multiple of 4 up to 184 (:func:`mma_takes`) launches the
 kernels written for the H100, ``csrc/attn_bwd_mma.cu`` (C entries
-``attn_bwd_mma_bf16`` at window 8, ``attn_bwd16_mma_bf16`` at window 16);
+``attn_bwd_mma_bf16`` at windows 2 to 8, ``attn_bwd16_mma_bf16`` at 9 to 16);
 other bf16 geometries (a head dim above 32) launch ``attn_bwd_bf16`` /
 ``attn_bwd16_bf16``, and f32 ``attn_bwd_f32`` / ``attn_bwd16_f32``. Each
 launch is counted under its C entry (``engagement.entries()``). The H100
@@ -42,18 +45,18 @@ import torch
 from studiosr_tpu_torch.ops.cuda import _build
 from studiosr_tpu_torch.ops.cuda._launch import P, I, check, finish, operand, stream
 from studiosr_tpu_torch.ops.cuda.window_attention import (
-    _NP_WIDTHS, KERNEL_WINDOW, KERNEL_WINDOW16, _image, _pad16, check_window_map, mma_takes,
+    _NP_WIDTHS, _image, _pad16, check_window_map, large_window, mma_takes,
 )
 from studiosr_tpu_torch.ops.windows import calculate_mask, window_partition, window_reverse
 
 __all__ = ["attention_bwd", "attention_bwd_plain", "window_bwd_math", "mma_takes", "pack_attn_bwd_weights"]
 
 _LL = ctypes.c_longlong
-_ARGS = (P, P, P, I, I, I, I, I, I) + (P,) * 7 + (P,) * 6 + (P, _LL, P, _LL, P)
+_ARGS = (P, P, P, I, I, I, I, I, I, I) + (P,) * 7 + (P,) * 6 + (P, _LL, P, _LL, P)
 _SIGNATURES = {
     "attn_bwd_f32": _ARGS,
     "attn_bwd_bf16": _ARGS,
-    "attn_bwd_scratch": (I, I, I, I, I, ctypes.POINTER(_LL), ctypes.POINTER(_LL)),
+    "attn_bwd_scratch": (I, I, I, I, I, I, ctypes.POINTER(_LL), ctypes.POINTER(_LL)),
 }
 _RESTYPES = {"attn_bwd_scratch": None}
 _ARGS16 = (P, P, P, I, I, I, I, I, I, I) + (P,) * 7 + (P,) * 6 + (P, _LL, P, _LL, P)
@@ -63,7 +66,7 @@ _SIGNATURES16 = {
     "attn_bwd16_scratch": (I, I, I, I, I, I, ctypes.POINTER(_LL), ctypes.POINTER(_LL)),
 }
 _RESTYPES16 = {"attn_bwd16_scratch": None}
-_ARGS_MMA = (P, P, P) + (I,) * 7 + (P,) * 8 + (_LL,) + (P,) * 6 + (P, _LL, P, _LL, P)
+_ARGS_MMA = (P, P, P) + (I,) * 8 + (P,) * 8 + (_LL,) + (P,) * 6 + (P, _LL, P, _LL, P)
 _SIGNATURES_MMA = {
     "attn_bwd_mma_bf16": _ARGS_MMA,
     "attn_bwd16_mma_bf16": _ARGS_MMA,
@@ -203,11 +206,13 @@ def attention_bwd_plain(
 def attention_bwd(
     x, g, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, *, heads: int, window_size: int, shift: int = 0, drop_path=None
 ):
-    """CPU tensors take the plain version; CUDA tensors launch the kernel or raise."""
+    """CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise. A launch counts under ``attention_bwd`` at windows 2 to 8 and
+    under ``attention_bwd_ws16`` at 9 to 16."""
     kw = dict(heads=heads, window_size=window_size, shift=shift, drop_path=drop_path)
     if x.device.type == "cpu":
         return attention_bwd_plain(x, g, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, **kw)
-    check_window_map("attention_bwd", x, heads, window_size, shift, (KERNEL_WINDOW, KERNEL_WINDOW16))
+    check_window_map("attention_bwd", x, heads, window_size, shift)
     bsz, h, w, c = x.shape
     n = window_size * window_size
     dev, dt, f32 = x.device, x.dtype, torch.float32
@@ -222,7 +227,7 @@ def attention_bwd(
     ]
     px = check(x, "x", (bsz, h, w, c), dt, dev)
     pg = check(g, "g", (bsz, h, w, c), dt, dev)
-    ws16 = window_size == KERNEL_WINDOW16
+    ws16 = large_window(window_size)
     name = "attention_bwd_ws16" if ws16 else "attention_bwd"
     dx = torch.empty_like(x)
     ds_db = torch.empty(2 * c, dtype=f32, device=dev)
@@ -237,15 +242,14 @@ def attention_bwd(
         lib.attn_bwd16_scratch(bsz, h, w, c, heads, window_size, ctypes.byref(t_elems), ctypes.byref(f_elems))
     else:
         lib = _build.load("attn_bwd", _SIGNATURES, _RESTYPES)
-        lib.attn_bwd_scratch(bsz, h, w, c, heads, ctypes.byref(t_elems), ctypes.byref(f_elems))
+        lib.attn_bwd_scratch(bsz, h, w, c, heads, window_size, ctypes.byref(t_elems), ctypes.byref(f_elems))
     tscratch = torch.empty(t_elems.value, dtype=dt, device=dev)
     fscratch = torch.empty(f_elems.value, dtype=f32, device=dev)
     dwqkv, dbqkv = torch.empty(c, 3 * c, dtype=f32, device=dev), torch.empty(3 * c, dtype=f32, device=dev)
     dwproj = torch.empty(c, c, dtype=f32, device=dev)
     entry = ("attn_bwd16" if ws16 else "attn_bwd") + ("_bf16" if dt == torch.bfloat16 else "_f32")
-    geometry = (heads, window_size, shift) if ws16 else (heads, shift)
     status = getattr(lib, entry)(
-        px, pg, dx.data_ptr(), bsz, h, w, c, *geometry, *ptrs, ds_db.data_ptr(), dwqkv.data_ptr(),
+        px, pg, dx.data_ptr(), bsz, h, w, c, heads, window_size, shift, *ptrs, ds_db.data_ptr(), dwqkv.data_ptr(),
         dbqkv.data_ptr(), dwproj.data_ptr(), dbproj.data_ptr(), dbias.data_ptr(), tscratch.data_ptr(),
         t_elems.value, fscratch.data_ptr(), f_elems.value, stream(dev),
     )
@@ -274,9 +278,10 @@ def _attention_bwd_mma(px, pg, dx, shape, heads, window_size, shift, ops, ds_db,
     dwqkv = torch.empty(c, 3 * hd, dtype=f32, device=dev)
     dbqkv = torch.empty(3 * hd, dtype=f32, device=dev)
     dwproj = torch.empty(hd, c, dtype=f32, device=dev)
-    entry = "attn_bwd16_mma_bf16" if window_size == KERNEL_WINDOW16 else "attn_bwd_mma_bf16"
+    entry = "attn_bwd16_mma_bf16" if large_window(window_size) else "attn_bwd_mma_bf16"
     status = getattr(lib, entry)(
-        px, pg, dx.data_ptr(), bsz, h, w, c, heads, shift, int(bias.dtype == torch.bfloat16), ln_w.data_ptr(),
+        px, pg, dx.data_ptr(), bsz, h, w, c, heads, window_size, shift, int(bias.dtype == torch.bfloat16),
+        ln_w.data_ptr(),
         ln_b.data_ptr(), bqkv.data_ptr(), bias.data_ptr(), None if drop is None else drop.data_ptr(),
         wqkv.data_ptr(), wproj.data_ptr(),
         index.data_ptr(), index.numel(), ds_db.data_ptr(), dwqkv.data_ptr(), dbqkv.data_ptr(), dwproj.data_ptr(),

@@ -15,9 +15,10 @@ Window models are exactly tile-consistent when ``tile`` is a window
 multiple; outputs differ from whole-image inference only through context
 beyond the overlap, which ``tile_overlap`` controls.
 
-Not ported: ``mesh`` (tiles sharded over devices, ROADMAP A17) and
-``device_loop=True`` (the JAX package's one-program mode for the TPU);
-``device_loop`` None or False takes the host loop.
+``mesh`` (``parallel/mesh.py``) must hold only the model's device (a
+process drives its own card) and gives the mesh-less call's output. Not
+ported: ``device_loop=True`` (the JAX package's one-program
+mode for the TPU); ``device_loop`` None or False takes the host loop.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ from collections import deque
 
 import numpy as np
 import torch
+
+from studiosr_tpu_torch.parallel.mesh import check_devices
 
 __all__ = ["tiled_inference", "tile_grid"]
 
@@ -56,7 +59,7 @@ def tiled_inference(
     ``2 * tile_overlap`` and only each tile's interior is written to the
     output, except at the image borders, where the halo is kept."""
     if mesh is not None:
-        raise NotImplementedError("tiled_inference(mesh=...): tiles sharded over devices are not ported (ROADMAP A17)")
+        check_devices(mesh, model.device)
     if device_loop:
         raise NotImplementedError("tiled_inference(device_loop=True): the one-program tile loop is not ported; "
                                   "device_loop None or False takes the host loop")

@@ -1,7 +1,7 @@
-"""One optimizer step: forward, loss, backward, Adam, EMA (one device).
+"""One optimizer step: forward, loss, backward, Adam, EMA, data-parallel
+over the processes of a mesh.
 
-Port of ``studiosr_tpu/parallel/train_step.py`` without the mesh (multi-
-process data parallelism is not part of this port yet):
+Port of ``studiosr_tpu/parallel/train_step.py``:
 
 * ``TrainState``: the f32 master parameters, the optimizer state, the step
   count and the optional EMA shadow. Its ``params`` are the module's own
@@ -21,6 +21,16 @@ process data parallelism is not part of this port yet):
   ``debug_nans`` checks the loss and every gradient before the update and
   raises ``FloatingPointError`` naming the first non-finite one (the
   counterpart of ``jax_debug_nans``); a finite step is not changed by it.
+* ``mesh=`` (``parallel/mesh.py``) with a process group: each process
+  steps on its own shard of the batch, and the loss and the gradients are
+  all-reduced to their mean over the processes, as one flat bucket, before
+  Adam (the JAX step's ``pmean`` under ``shard_map``), so every rank applies
+  the same update. Each rank's drop-path / dropout generator is folded with
+  its rank, so the shards draw different masks; BatchNorm normalises over
+  the local shard and its running statistics are averaged across ranks
+  after the step (DDP without SyncBN, the JAX manual path's semantics).
+  Without a group the step is the mesh-less one; in a group of one
+  process it runs the collectives, which are the identity there.
 """
 
 from __future__ import annotations
@@ -31,6 +41,8 @@ from typing import Any, Callable, Dict, Optional, Sequence
 import torch
 import torch.nn as nn
 from torch.func import functional_call
+
+from studiosr_tpu_torch.parallel.mesh import Mesh, all_reduce_mean
 
 __all__ = [
     "TrainState", "Adam", "multistep_schedule", "build_optimizer", "make_train_step", "prepare_state",
@@ -165,21 +177,34 @@ def check_finite(loss: torch.Tensor, names: Sequence[str], grads: Sequence[torch
     raise FloatingPointError(f"non-finite gradient of {names[first]}")
 
 
+def fold_generator(generator: Optional[torch.Generator], rank: int) -> Optional[torch.Generator]:
+    """A generator of its own for rank ``rank`` from the step's
+    (``jax.random.fold_in`` of the step key with the device index)."""
+    if generator is None:
+        return None
+    return torch.Generator().manual_seed((generator.initial_seed() * 1_000_003 + rank + 1) % (1 << 63))
+
+
 def make_train_step(
     module: nn.Module, tx: Adam, loss_fn: Callable, bfloat16: bool = True, ema_decay: float = 0.0,
-    debug_nans: bool = False,
+    debug_nans: bool = False, mesh: Optional[Mesh] = None,
 ):
     """``step(state, lq, gt, generator=None) -> (state, loss)``: one
     optimizer step on ``module`` (trained in training mode, left in the mode
     it was in). ``generator`` feeds the drop-path and dropout draws;
     ``debug_nans`` raises before the update on a non-finite loss or
-    gradient."""
+    gradient. With a ``mesh`` of several processes, ``lq`` and ``gt`` are
+    this rank's shard and the returned loss is the mean over the ranks."""
     device = next(module.parameters()).device
+    parallel = mesh is not None and torch.distributed.is_initialized()
+    stats = [b for k, b in module.named_buffers() if k.endswith(("running_mean", "running_var"))] if parallel else []
 
     def step(state: TrainState, lq: torch.Tensor, gt: torch.Tensor, generator: Optional[torch.Generator] = None):
         x, target = _to_unit(lq, device), _to_unit(gt, device)
         names = list(state.params)
         masters = [state.params[k] for k in names]
+        if parallel and mesh.world_size > 1:
+            generator = fold_generator(generator, mesh.rank)
         was_training = module.training
         module.train()
         try:
@@ -193,6 +218,13 @@ def make_train_step(
                 grads = torch.autograd.grad(loss, masters)
         finally:
             module.train(was_training)
+        loss = loss.detach()
+        if parallel:
+            loss, *grads = all_reduce_mean([loss, *grads], mesh)
+            if stats:
+                with torch.no_grad():
+                    for b, mean in zip(stats, all_reduce_mean(stats, mesh)):
+                        b.copy_(mean)
         if debug_nans:
             check_finite(loss, names, grads)
         applied = tx.update(state.params, dict(zip(names, grads)), state.opt_state)
@@ -202,6 +234,6 @@ def make_train_step(
                 torch._foreach_mul_(ema, ema_decay)
                 torch._foreach_add_(ema, [state.params[k] for k in state.ema_params], alpha=1.0 - ema_decay)
         state.step += 1
-        return state, loss.detach()
+        return state, loss
 
     return step

@@ -111,15 +111,21 @@ def _operands(rng, c, heads, ws):
                 wproj=f(c, c, k=0.3), bproj=f(c, k=0.1), bias=f(heads, n, n, k=0.05))
 
 
-@pytest.mark.parametrize("ws,shift,dp", [
+# windows 8 and 16, then the others the kernels take by padding to whole
+# 64-token tiles: 4, 6 and 7 (pairs_attention_bwd, 2 ws^2 <= 128) and 10 and
+# 12 (v5_attention_bwd); each with and without the shift ws // 2 and drop-path
+PLAIN_CASES = [
     (8, 0, None), (8, 4, None), (8, 0, (0.0, 1.25)), (8, 4, (0.0, 1.25)),
     (16, 0, None), (16, 8, None), (16, 0, (0.0, 1.25)), (16, 8, (0.0, 1.25)),
-])
+] + [(ws, s, dp) for ws in (4, 6, 7, 10, 12) for s in (0, ws // 2) for dp in (None, (1.25, 0.0))]
+
+
+@pytest.mark.parametrize("ws,shift,dp", PLAIN_CASES)
 def test_plain_on_packed_and_dense_weights_matches_pallas(ws, shift, dp):
     """The plain version, on the dense weights and on the weights read back
-    from the packed layout, against ``pairs_attention_bwd`` (window 8) /
-    ``v5_attention_bwd`` (window 16) in interpret mode: b 2, C 16, 2 heads of
-    8, two windows by two."""
+    from the packed layout, against ``pairs_attention_bwd`` (windows up to 8)
+    / ``v5_attention_bwd`` (the larger ones) in interpret mode, at atol 3e-4,
+    rtol 2e-3: b 2, C 16, 2 heads of 8, two windows by two."""
     rng = np.random.default_rng(70 + ws + shift + (dp is not None))
     b, c, heads = 2, 16, 2
     h = w = 2 * ws
@@ -129,7 +135,7 @@ def test_plain_on_packed_and_dense_weights_matches_pallas(ws, shift, dp):
     dps = None if dp is None else np.asarray(dp, np.float32)
     mask = jnp.asarray(calculate_mask((h, w), ws, shift)) if shift else None
     roll = lambda a: jnp.roll(jnp.asarray(a), (-shift, -shift), axis=(1, 2))  # noqa: E731
-    pallas = pairs_attention_bwd if ws == 8 else v5_attention_bwd
+    pallas = pairs_attention_bwd if 2 * ws * ws <= 128 else v5_attention_bwd
     want = pallas(roll(x), roll(g), *[jnp.asarray(v) for v in ops.values()], mask,
                   None if dps is None else jnp.asarray(dps), heads=heads, window_size=ws, interpret=True)
     want = [np.asarray(jnp.roll(want[0], (shift, shift), axis=(1, 2)))] + [np.asarray(a) for a in want[1:]]
@@ -144,7 +150,8 @@ def test_plain_on_packed_and_dense_weights_matches_pallas(ws, shift, dp):
         assert torch.equal(a, p), name
         np.testing.assert_allclose(a.numpy(), e, atol=3e-4, rtol=2e-3, err_msg=name)
     if dps is not None:
-        np.testing.assert_array_equal(got[0][0].numpy(), g[0])
+        dropped = int(np.argmin(dps))
+        np.testing.assert_array_equal(got[0][dropped].numpy(), g[dropped])
 
 
 class _FakeLibrary:
@@ -175,12 +182,26 @@ class _FakeLibrary:
     (torch.bfloat16, 8, 90, 6, "attn_bwd_bf16"),  # C not a multiple of 4
     (torch.float32, 8, 180, 6, "attn_bwd_f32"),
     (torch.float32, 16, 180, 6, "attn_bwd16_f32"),
+    # the other windows, by family: 2-8 count as attention_bwd, 9-16 as _ws16
+    (torch.bfloat16, 2, 128, 4, "attn_bwd_mma_bf16"),
+    (torch.bfloat16, 4, 128, 4, "attn_bwd_mma_bf16"),
+    (torch.bfloat16, 7, 128, 4, "attn_bwd_mma_bf16"),  # MaxSR at a 48 x 48 crop
+    (torch.bfloat16, 9, 128, 4, "attn_bwd16_mma_bf16"),
+    (torch.bfloat16, 10, 128, 4, "attn_bwd16_mma_bf16"),  # MaxSR at 96 x 96
+    (torch.bfloat16, 12, 180, 6, "attn_bwd16_mma_bf16"),
+    (torch.bfloat16, 6, 96, 2, "attn_bwd_bf16"),
+    (torch.bfloat16, 12, 96, 2, "attn_bwd16_bf16"),
+    (torch.float32, 6, 180, 6, "attn_bwd_f32"),
+    (torch.float32, 12, 180, 6, "attn_bwd16_f32"),
 ])
 def test_attention_bwd_routes_by_dtype_window_and_head_dim(monkeypatch, dtype, ws, c, heads, entry):
     """bf16 with a head dim up to 32 and C a multiple of 4 up to 184 goes to
     the kernels written for the H100, other bf16 geometries and f32 to the
-    older kernels; each launch counts under its kernel and its C entry, and
-    the padded weight gradients come back at their parameters' shapes."""
+    older kernels; windows 2-8 to the small family's entries, counted under
+    ``attention_bwd``, windows 9-16 to the large family's, counted under
+    ``attention_bwd_ws16``; each launch counts under its kernel and its C
+    entry, which is handed the window, and the padded weight gradients come
+    back at their parameters' shapes."""
     import studiosr_tpu_torch.ops.cuda.attn_bwd as module
     from studiosr_tpu_torch.ops.cuda import _build
 
@@ -197,16 +218,17 @@ def test_attention_bwd_routes_by_dtype_window_and_head_dim(monkeypatch, dtype, w
     shapes = [x.shape, (c,), (c,), (c, 3 * c), (3 * c,), (c, c), (c,), (heads, n, n)]
     assert [tuple(t.shape) for t in grads] == [tuple(s) for s in shapes]
     assert grads[0].dtype == dtype and all(t.dtype == f32 for t in grads[1:])
-    launches = [name for name, _ in lib.calls if not name.endswith("_scratch")]
-    assert launches == [entry]
+    launches = [(name, args) for name, args in lib.calls if not name.endswith("_scratch")]
+    assert [name for name, _ in launches] == [entry]
+    assert launches[0][1][6:9] == (c, heads, ws)  # (x, g, dx, B, H, W, C, heads, ws, ...)
     assert mma_takes(c, heads) == (c % 4 == 0 and c // heads <= 32)
-    name = "attention_bwd_ws16" if ws == 16 else "attention_bwd"
+    name = "attention_bwd_ws16" if ws > 8 else "attention_bwd"
     assert engagement.counters() == {name: 1}
     assert engagement.entries() == {name: {entry: 1}}
     engagement.reset()
 
 
-@pytest.mark.parametrize("ws,shift", [(8, 4), (16, 8)])
+@pytest.mark.parametrize("ws,shift", [(8, 4), (16, 8), (5, 2), (7, 3), (12, 6)])
 def test_attention_map_vjp_grads_match_autograd_of_plain_at_maxsr_head_dim(ws, shift):
     """``attention_map_vjp`` (B5 forward, B8 / B9 backward) against autograd
     of the plain forward at MaxSR's head dim 32 (C 64, 2 heads, zero qkv

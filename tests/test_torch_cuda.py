@@ -735,6 +735,69 @@ def test_window_attention_h100_kernels_match_plain(dev, c, heads, shape, shift, 
         assert torch.equal(got[0], x[0])  # a dropped sample passes through exactly
 
 
+# B5, B8 and B9 at every square window from 2 to 16: windows 2-8 take one
+# 64-row tile a window (the small family, counted under the window-8 keys),
+# 9-16 two to four (the large family, ``_ws16``), a window of N = ws^2
+# tokens padded to whole tiles. bf16 at MaxSR's head dim 32 (the kernels
+# written for the H100), f32 and bf16 at head dim 48 (the older kernels), on
+# maps of 2 x 3 windows with the shift ws // 2 and a 0 drop-path scale:
+# against the plain versions, the serving blob giving the dense weights'
+# bits, the backward's bits repeatable, and the entry each launch took.
+ANY_WINDOW_CASES = [(ws, torch.bfloat16, 64, 2) for ws in range(2, 17)] + [
+    (ws, torch.float32, 32, 2) for ws in range(2, 17)] + [(5, torch.bfloat16, 96, 2), (12, torch.bfloat16, 96, 2)]
+
+
+@pytest.mark.parametrize("ws,dtype,c,heads", ANY_WINDOW_CASES)
+def test_window_kernels_take_every_window_from_2_to_16(dev, ws, dtype, c, heads):
+    from studiosr_tpu_torch.ops.cuda.window_attention import large_window, mma_takes
+
+    gen = torch.Generator().manual_seed(100 + ws + c)
+    ops = _block_operands(gen, c, heads, 2 * c, ws=ws)[:7]
+    ops = [t.to(dev, dtype if i in (2, 4) else torch.float32) for i, t in enumerate(ops)]
+    shape = (2, 2 * ws, 3 * ws)
+    x = _randn(gen, *shape, c).to(dev, dtype)
+    g = _randn(gen, *shape, c).to(dev, dtype)
+    dp = torch.tensor([0.0, 1.25], device=dev)
+    kw = dict(heads=heads, window_size=ws, shift=ws // 2, drop_path=dp)
+    mma = dtype == torch.bfloat16 and mma_takes(c, heads)
+    suffix = "_ws16" if large_window(ws) else ""
+    fam = "16" if large_window(ws) else ""
+    engagement.reset()
+    y = fused_window_attention_block(x, *ops, **kw)
+    grads = attention_bwd(x, g, *ops, **kw)
+    again = attention_bwd(x, g, *ops, **kw)
+    kind = "_mma_bf16" if mma else ("_bf16" if dtype == torch.bfloat16 else "_f32")
+    assert engagement.entries() == {"fused_window_attention_block" + suffix: {f"window_attention{fam}{kind}": 1},
+                                    "attention_bwd" + suffix: {f"attn_bwd{fam}{kind}": 2}}
+    _assert_close(y, window_attention_plain(x.float(), *[t.float() for t in ops], **kw), dtype)
+    assert torch.equal(y[0], x[0])  # a dropped sample passes through exactly
+    want = attention_bwd_plain(x.float(), g.float(), *[t.float() for t in ops], **kw)
+    for a, e in zip(grads, want):
+        assert a.shape == e.shape
+        _assert_close(a, e, dtype)
+    assert torch.equal(grads[0][0], g[0])  # a dropped sample: dx = g
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))  # no atomics: bitwise repeatable
+    if mma:
+        blob = pack_window_attention(ops[2], ops[4], ops[6], heads)
+        packed = fused_window_attention_block(x, ops[0], ops[1], blob, ops[3], None, ops[5], None, **kw)
+        assert torch.equal(y, packed)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_window_kernels_raise_above_window_16(dev, dtype):
+    """Window 17 (N = 289 > 256 tokens) is past the large family's shared
+    memory: both wrappers raise, naming the windows the kernels take."""
+    gen = torch.Generator().manual_seed(17)
+    ops = [t.to(dev, dtype if i in (2, 4) else torch.float32) for i, t in
+           enumerate(_block_operands(gen, 32, 2, 64, ws=17)[:7])]
+    x = _randn(gen, 1, 17, 17, 32).to(dev, dtype)
+    kw = dict(heads=2, window_size=17, shift=0, drop_path=None)
+    with pytest.raises(NotImplementedError, match="window sizes 2-16"):
+        fused_window_attention_block(x, *ops, **kw)
+    with pytest.raises(NotImplementedError, match="window sizes 2-16"):
+        attention_bwd(x, x, *ops, **kw)
+
+
 # B7's bf16 kernel written for the H100 (csrc/mlp_bwd_mma.cu) at the paths'
 # rows (batch 32 of 64 x 64, C 180, hidden 360), at row counts that leave a
 # ragged last tile, at C 16, 24, 32, 48 and 128 and at hidden 384, with and
@@ -1236,14 +1299,35 @@ def test_small_maxsr_fused_train_matches_plain_on_the_card(dev, adaptive):
 
 
 def test_maxsr_fused_train_raises_on_a_window_the_kernels_do_not_take(dev):
-    """An adaptive 36 x 36 map has square windows of 6: the fused pair takes
-    it and the kernels raise, naming the window sizes they take."""
+    """An adaptive 36 x 36 map has square windows of 6: the fused step runs
+    there (B5 / B8 in the small family, 4 launches each) and its loss and
+    gradients are within the bf16 rule of plain autograd in f32. An adaptive
+    289 x 289 map has windows of 17, past the kernels' 16: the fused pair
+    takes it and the kernels raise, naming the window sizes they take."""
+    from torch.func import functional_call
+
     from studiosr_tpu_torch import MaxSR
 
-    model = MaxSR.build(scale=2, adaptive=True, dim=32, dim_head=16, depth=[1], dropout=0.0, device=dev,
-                        fused_train=True)
-    with pytest.raises(NotImplementedError, match="window sizes"):
-        model.module.train()(torch.rand(1, 36, 36, 3, device=dev))
+    model = MaxSR.build(scale=2, adaptive=True, dim=32, dim_head=16, depth=[1, 1], dropout=0.0, device=dev)
+    module = model.module.train()
+    x = torch.rand(2, 36, 36, 3, generator=torch.Generator().manual_seed(6)).to(dev)
+    results = []
+    for fused, dtype in ((False, torch.float32), (True, torch.bfloat16)):
+        module.fused_train = fused
+        leaves = {k: p.detach().to(torch.bfloat16).to(dtype).requires_grad_() for k, p in module.named_parameters()}
+        engagement.reset()
+        loss = functional_call(module, leaves, (x.to(torch.bfloat16).to(dtype),)).float().square().mean()
+        results.append((loss, torch.autograd.grad(loss, list(leaves.values())), engagement.counters()))
+    assert results[0][2] == {}
+    assert results[1][2] == {"fused_window_attention_block": 4, "attention_bwd": 4, "fused_mlp_block": 4,
+                             "mlp_bwd": 4}
+    assert abs(float(results[1][0]) - float(results[0][0])) <= 2e-2 * abs(float(results[0][0]))
+    all_fused = torch.cat([g.float().flatten() for g in results[1][1]])
+    all_plain = torch.cat([g.flatten() for g in results[0][1]])
+    assert float(torch.linalg.vector_norm(all_fused - all_plain) / torch.linalg.vector_norm(all_plain)) <= 5e-2
+    module.fused_train = True
+    with pytest.raises(NotImplementedError, match="window sizes 2-16"):
+        module(torch.rand(1, 289, 289, 3, device=dev))
 
 
 @pytest.mark.parametrize("size", [36, 72])

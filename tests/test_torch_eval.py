@@ -28,7 +28,7 @@ from studiosr_tpu.utils.metrics import compute_psnr, compute_ssim
 from studiosr_tpu.zoo.registry import load_model as jax_load_model
 from studiosr_tpu_torch import Evaluator, Evaluator2, Trainer, benchmark, load_model
 from studiosr_tpu_torch.__main__ import main
-from studiosr_tpu_torch.parallel import tile_grid
+from studiosr_tpu_torch.parallel import get_mesh, tile_grid
 from studiosr_tpu_torch.utils import helpers, imread, imwrite
 
 torch.set_num_threads(2)
@@ -82,8 +82,12 @@ def test_evaluate_uint8_batch_matches_jax(x2_pair):
     want = jax_model.evaluate_uint8_batch(np.stack(lqs), np.stack(gts), crop_border=2)
     np.testing.assert_allclose(got[0], want[0], atol=1e-4)
     np.testing.assert_allclose(got[1], want[1], atol=1e-5)
-    with pytest.raises(NotImplementedError, match="A17"):
-        model.evaluate_uint8_batch(np.stack(lqs), np.stack(gts), mesh=object())
+    # over a mesh of the model's own device: the mesh-less numbers; a mesh on another device raises
+    meshed = model.evaluate_uint8_batch(np.stack(lqs), np.stack(gts), crop_border=2, mesh=get_mesh(["cpu", "cpu"]))
+    np.testing.assert_array_equal(meshed[0], got[0])
+    np.testing.assert_array_equal(meshed[1], got[1])
+    with pytest.raises(ValueError, match="lives on"):
+        model.evaluate_uint8_batch(np.stack(lqs), np.stack(gts), mesh=get_mesh(["meta"]))
 
 
 @pytest.mark.parametrize("tile,overlap,batch", [(32, 8, 4), (24, 4, 3), (100, 16, 8)])
@@ -99,8 +103,11 @@ def test_tiled_modes_without_a_port_raise(x2_pair):
     lr = _fixture(0)[0]
     with pytest.raises(NotImplementedError, match="device_loop"):
         model.inference_tiled(lr, tile=32, device_loop=True)
-    with pytest.raises(NotImplementedError, match="A17"):
-        model.inference_tiled(lr, tile=32, mesh=object())
+    # tiles over a mesh of the model's own device: the mesh-less output
+    np.testing.assert_array_equal(model.inference_tiled(lr, tile=32, tile_batch=4, mesh=get_mesh(["cpu", "cpu"])),
+                                  model.inference_tiled(lr, tile=32, tile_batch=4))
+    with pytest.raises(ValueError, match="lives on"):
+        model.inference_tiled(lr, tile=32, mesh=get_mesh(["meta"]))
     np.testing.assert_array_equal(tile_grid(84, 32, 16), [0, 16, 32, 48, 52])
 
 

@@ -98,6 +98,48 @@ def test_fused_train_matches_jax(adaptive):
         np.testing.assert_allclose(state[k].numpy(), v, atol=1e-6, rtol=1e-5, err_msg=k)
 
 
+@pytest.mark.parametrize("size", [36, 49, 100])
+def test_adaptive_fused_train_matches_jax_at_other_windows(monkeypatch, size):
+    """Adaptive maps of 36, 49 and 100 square have windows of 6, 7 and 10
+    (ceil(sqrt(side)), the map zero-padded to the window's square): the loss
+    and every gradient of one fused-train forward against the JAX package's
+    with its fused forwards forced onto the Pallas kernels in interpret mode
+    (B5 with B8 at 6 and 7, B9 at 10), at the tolerances above."""
+    from studiosr_tpu.ops import attn_vjp
+    from studiosr_tpu.ops.pallas import mlp_vjp
+
+    monkeypatch.setattr(attn_vjp, "FORCE_FUSED", True)
+    monkeypatch.setattr(mlp_vjp, "FORCE_FUSED", True)
+    jax_module = JaxMaxSRModule(**CFG, adaptive=True, dropout=0.0, fused_train=True)
+    rng = np.random.default_rng(size)
+    x = rng.random((1, size, size, 3), dtype=np.float32)
+    gt = rng.random((1, 2 * size, 2 * size, 3), dtype=np.float32)
+    variables = _variables(jax_module, x, seed=size)
+
+    def loss(params):
+        out, _ = jax_module.apply({**variables, "params": params}, jnp.asarray(x), train=True,
+                                  mutable=["batch_stats"])
+        return jnp.mean(jnp.abs(out - jnp.asarray(gt)))
+
+    jax.clear_caches()  # an unforced trace of the same shapes may be cached
+    try:
+        want_loss, want_grads = jax.jit(jax.value_and_grad(loss))(variables["params"])
+    finally:
+        jax.clear_caches()
+    model = MaxSR.build(**CFG, adaptive=True, dropout=0.0, device="cpu")
+    load_jax_params(model.module, variables)
+    module = model.module.train()
+    module.fused_train = True
+    got_loss = torch.mean(torch.abs(module(_t(x)) - _t(gt)))
+    got_loss.backward()
+    np.testing.assert_allclose(got_loss.item(), float(want_loss), rtol=1e-5)
+    want = jax_params_to_state_dict(want_grads)
+    grads = {k: p.grad.numpy() for k, p in module.named_parameters()}
+    assert sorted(grads) == sorted(want)
+    for k, g in grads.items():
+        np.testing.assert_allclose(g, want[k], atol=2e-5, rtol=1e-3, err_msg=k)
+
+
 @pytest.mark.parametrize("adaptive", [False, True])
 def test_fused_and_plain_maxsr_agree_with_dropsample(adaptive):
     """The same generator draws the same dropsample scales on both paths, so

@@ -96,9 +96,11 @@ def _expected_bias_order(heads: int, ws: int) -> list:
     thread wt (warp wt / 32, lane 4 g + t) of the block of query chunk r
     holds, for key chunk c and 8-column tile nt, its score fragment (q, col),
     (q, col + 1), (q + 8, col), (q + 8, col + 1) with q = 64 r + 16 warp + g
-    and col = 64 c + 8 nt + 2 t. Each element names (head, query, key)."""
+    and col = 64 c + 8 nt + 2 t, over the window's ws^2 tokens padded to
+    whole chunks of 64. Each element names (head, query, key), or "-inf" for
+    a padding key's column and "0" for a padding query's row at a real key."""
     n = ws * ws
-    nch = n // 64
+    nch = -(-n // 64)
     out = []
     for h in range(heads):
         for r in range(nch):
@@ -106,7 +108,8 @@ def _expected_bias_order(heads: int, ws: int) -> list:
                 for nt in range(8):
                     for wt in range(128):
                         q, col = 64 * r + 16 * (wt // 32) + (wt % 32) // 4, 64 * c + 8 * nt + 2 * (wt % 4)
-                        out += [(h, q, col), (h, q, col + 1), (h, q + 8, col), (h, q + 8, col + 1)]
+                        out += ["-inf" if k >= n else ("0" if qq >= n else (h, qq, k))
+                                for qq, k in ((q, col), (q, col + 1), (q + 8, col), (q + 8, col + 1))]
     return out
 
 
@@ -143,6 +146,28 @@ def test_b5_unpack_of_pack_is_the_identity(c, heads):
     # every weight is in the pack once; the rest is zero padding
     counts = np.bincount(_fwd_pack_index(c, heads), minlength=4 * c * c + 1)
     assert (counts[: 4 * c * c] == 1).all()
+
+
+@pytest.mark.parametrize("ws", [7, 12])
+def test_b5_blob_bias_at_a_padded_window_follows_its_rule(ws):
+    """At windows whose ws^2 tokens are not whole 64-token tiles (7: 49 in
+    one tile; 12: 144 in three), the serving blob's bias element by element:
+    the gathered bias in fragment order, -inf at the padding keys (they take
+    no probability) and 0 at the padding queries' real keys; and unpacking
+    gives the weights and the bias back."""
+    c, heads, n = 32, 2, ws * ws
+    wqkv = (torch.arange(3 * c * c, dtype=torch.float32).reshape(c, 3 * c) + 1).remainder(251)
+    wproj = -(torch.arange(c * c, dtype=torch.float32).reshape(c, c) + 1).remainder(241)
+    bias = torch.arange(heads * n * n, dtype=torch.float32).reshape(heads, n, n) * 0.5 + 3
+    blob = pack_window_attention(wqkv, wproj, bias, heads)
+    nw, npad = _fwd_pack_index(c, heads).size, -(-n // 64) * 64
+    assert blob.numel() == nw + 2 * heads * npad * npad
+    want = np.array([float(e) if isinstance(e, str) else float(bias[e]) for e in _expected_bias_order(heads, ws)])
+    np.testing.assert_array_equal(blob[nw:].view(torch.float32).numpy(), want)
+    order = _bias_order(heads, ws)
+    assert np.array_equal(np.sort(order[order < heads * n * n]), np.arange(heads * n * n))
+    a, b, e = unpack_window_attention(blob, c, heads, ws)
+    assert torch.equal(a.float(), wqkv) and torch.equal(b.float(), wproj) and torch.equal(e, bias)
 
 
 def test_b5_window16_bias_order_follows_its_rule():
@@ -263,13 +288,14 @@ def _attn_operands(rng, c, heads, ws):
 
 @pytest.mark.parametrize("ws,shift,dp", [
     (8, 0, None), (8, 4, None), (8, 0, (0.0, 1.25)), (8, 4, (1.25, 0.0)), (16, 0, None), (16, 8, None),
-])
+] + [(ws, s, dp) for ws in (4, 6, 7, 10, 12) for s in (0, ws // 2) for dp in (None, (0.0, 1.25))])
 def test_b5_plain_on_packed_and_dense_weights_matches_pallas(ws, shift, dp):
     """The plain version, on the dense weights and on the serving blob
     (``pack_window_attention``, bf16-exact weights), against
-    ``fused_window_attention_block`` in interpret mode: C 32, 2 heads of 16,
-    two windows by two, batch 2. The shifted JAX block is roll(+s) . block .
-    roll(-s) with the mask."""
+    ``fused_window_attention_block`` in interpret mode (its window-pair
+    layout at windows up to 8, one window a program above), at ATOL_B5 and
+    RTOL_B5: C 32, 2 heads of 16, two windows by two, batch 2. The shifted
+    JAX block is roll(+s) . block . roll(-s) with the mask."""
     rng = np.random.default_rng(90 + ws + shift + (dp is not None))
     b, c, heads = 2, 32, 2
     h = w = 2 * ws
@@ -280,10 +306,16 @@ def test_b5_plain_on_packed_and_dense_weights_matches_pallas(ws, shift, dp):
     dps = None if dp is None else np.asarray(dp, np.float32)
     mask = jnp.asarray(calculate_mask((h, w), ws, shift)) if shift else None
     jx = jnp.roll(jnp.asarray(x), (-shift, -shift), axis=(1, 2))
+    # the JAX kernel folds drop-path in its window-pair layout only; above it
+    # the JAX package scales outside the kernel (ops/attn_vjp.py _map_fwd),
+    # which is the reference here
+    fold = dps is not None and 2 * ws * ws <= 128
     want = jax_fused_window_attention_block(jx, *[jnp.asarray(v) for v in ops.values()], mask, heads=heads,
-                                            window_size=ws, drop_path=None if dps is None else jnp.asarray(dps),
+                                            window_size=ws, drop_path=jnp.asarray(dps) if fold else None,
                                             interpret=True)
     want = np.asarray(jnp.roll(want, (shift, shift), axis=(1, 2)))
+    if dps is not None and not fold:
+        want = x + dps.reshape(-1, 1, 1, 1) * (want - x)
     dense = {k: _t(v) for k, v in ops.items()}
     blob = pack_window_attention(dense["wqkv"], dense["wproj"], dense["bias"], heads)
     kw = dict(heads=heads, window_size=ws, shift=shift, drop_path=None if dps is None else _t(dps))
@@ -347,12 +379,25 @@ def _launches(lib):
     (torch.bfloat16, 8, 90, 6, False, "window_attention_bf16"),  # C not a multiple of 4
     (torch.float32, 8, 180, 6, False, "window_attention_f32"),
     (torch.float32, 16, 180, 6, False, "window_attention16_f32"),
+    # the other windows, by family: 2-8 count as fused_window_attention_block, 9-16 as _ws16
+    (torch.bfloat16, 3, 128, 4, False, "window_attention_mma_bf16"),
+    (torch.bfloat16, 7, 128, 4, False, "window_attention_mma_bf16"),  # MaxSR at a 48 x 48 crop
+    (torch.bfloat16, 7, 32, 2, True, "window_attention_mma_bf16"),
+    (torch.bfloat16, 10, 128, 4, False, "window_attention16_mma_bf16"),  # MaxSR at 96 x 96
+    (torch.bfloat16, 12, 180, 6, True, "window_attention16_mma_bf16"),
+    (torch.bfloat16, 15, 128, 4, False, "window_attention16_mma_bf16"),
+    (torch.bfloat16, 5, 96, 2, False, "window_attention_bf16"),
+    (torch.bfloat16, 12, 96, 2, False, "window_attention16_bf16"),
+    (torch.float32, 6, 180, 6, False, "window_attention_f32"),
+    (torch.float32, 12, 180, 6, False, "window_attention16_f32"),
 ])
 def test_window_attention_routes_by_dtype_window_and_head_dim(monkeypatch, dtype, ws, c, heads, packed, entry):
     """bf16 with a head dim up to 32 and C a multiple of 4 up to 184 goes to
     the kernels written for the H100 (dense weights or the serving blob),
-    other bf16 geometries and f32 to the older kernels; each launch counts
-    under its kernel and its C entry."""
+    other bf16 geometries and f32 to the older kernels; windows 2-8 to the
+    small family's entries, counted under ``fused_window_attention_block``,
+    windows 9-16 to the large family's, under ``_ws16``; each launch counts
+    under its kernel and its C entry, which is handed the window."""
     import studiosr_tpu_torch.ops.cuda.window_attention as module
 
     lib = _fake(monkeypatch, module)
@@ -361,19 +406,21 @@ def test_window_attention_routes_by_dtype_window_and_head_dim(monkeypatch, dtype
     x = meta(2, 2 * ws, 3 * ws, c)
     weights = dict(wqkv=meta(c, 3 * c), wproj=meta(c, c), bias=meta(heads, n, n, dt=f32))
     if packed:
-        weights = dict(wqkv=meta(_fwd_pack_index(c, heads).size + 2 * heads * n * n), wproj=None, bias=None)
+        npad = -(-n // 64) * 64
+        weights = dict(wqkv=meta(_fwd_pack_index(c, heads).size + 2 * heads * npad * npad), wproj=None, bias=None)
     out = fused_window_attention_block(x, meta(c, dt=f32), meta(c, dt=f32), bqkv=meta(3 * c, dt=f32),
                                        bproj=meta(c, dt=f32), **weights, heads=heads, window_size=ws, shift=ws // 2,
                                        drop_path=None if packed else meta(2, dt=f32))
     assert out.shape == x.shape and out.dtype == dtype
     assert _launches(lib) == [entry]
     assert mma_takes(c, heads) == (c % 4 == 0 and c // heads <= 32)
-    name = "fused_window_attention_block_ws16" if ws == 16 else "fused_window_attention_block"
+    name = "fused_window_attention_block_ws16" if ws > 8 else "fused_window_attention_block"
     assert engagement.counters() == {name: 1}
     assert engagement.entries() == {name: {entry: 1}}
+    args = dict(lib.calls)[entry]
+    assert args[5:8] == (c, heads, ws)  # (x, out, B, H, W, C, heads, ws, shift, ...)
     if "mma" in entry:  # dense weights are gathered by the entry; the blob is handed over as it is
-        args = dict(lib.calls)[entry]
-        assert (args[15] is None) == packed and (args[18] is None) == (not packed)
+        assert (args[16] is None) == packed and (args[19] is None) == (not packed)
     engagement.reset()
 
 
@@ -429,7 +476,7 @@ def test_mlp_block_dp_vjp_grads_match_autograd_of_plain(c, rows_per_sample, dp):
         np.testing.assert_allclose(a.numpy(), e.numpy(), atol=1e-4, rtol=1e-4, err_msg=name)
 
 
-@pytest.mark.parametrize("ws,shift", [(8, 4), (16, 0)])
+@pytest.mark.parametrize("ws,shift", [(8, 4), (16, 0), (6, 3), (10, 5)])
 def test_attention_map_vjp_grads_match_autograd_of_plain_at_fixture_width(ws, shift):
     """``attention_map_vjp`` (B5 forward, B8 / B9 backward) against autograd
     of the plain forward at the trained fixtures' width (C 32, 2 heads of

@@ -156,17 +156,21 @@ def test_default_device_raises_without_cuda():
 
 
 def test_fused_configuration_without_kernel_raises():
-    """The serving modes with no port raise, on any device, naming their
-    ROADMAP item, instead of quietly serving another way: mesh-sharded
-    evaluation and tiling (A17) and the one-program tile loop. Fused x3,
-    which raised until its tail kernel B4 was ported, now serves."""
+    """The serving mode with no port raises, on any device, instead of
+    quietly serving another way: the one-program tile loop. Mesh-sharded
+    evaluation and tiling (A17), which raised until they were ported, serve
+    the mesh-less results; fused x3, which raised until its tail kernel B4
+    was ported, now serves."""
+    from studiosr_tpu_torch.parallel import get_mesh
+
     model = SwinIR.build(scale=3, **SMALL, device="cpu").enable_fused(True)
     assert model(torch.zeros(1, 16, 16, 3)).shape == (1, 48, 48, 3)
     image = np.zeros((16, 16, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match="A17"):
-        model.evaluate_uint8_batch(image[None], np.zeros((1, 48, 48, 3), np.uint8), mesh=object())
-    with pytest.raises(NotImplementedError, match="A17"):
-        model.inference_tiled(image, tile=8, mesh=object())
+    mesh = get_mesh(["cpu"])
+    hr = np.zeros((1, 48, 48, 3), np.uint8)
+    assert all(np.array_equal(a, b) for a, b in zip(model.evaluate_uint8_batch(image[None], hr, mesh=mesh),
+                                                     model.evaluate_uint8_batch(image[None], hr)))
+    np.testing.assert_array_equal(model.inference_tiled(image, tile=8, mesh=mesh), model.inference_tiled(image, tile=8))
     with pytest.raises(NotImplementedError, match="device_loop"):
         model.inference_tiled(image, tile=8, device_loop=True)
 

@@ -228,9 +228,22 @@ def test_train_script_wires_the_recipe(tmp_path, monkeypatch, grad_accum):
     assert trainer.device.type == "cpu" and trainer.data_handler.iterations == 2
 
 
-def test_train_script_multihost_waits_for_a17():
-    with pytest.raises(NotImplementedError, match="A17"):
+def test_train_script_multihost_waits_for_a17(monkeypatch):
+    """``--multihost`` (A17, ported) joins the process group before anything
+    else, on the device the run names (gloo for ``cpu``); the 2-process run
+    itself is tests/test_torch_distributed.py's."""
+    from studiosr_tpu_torch.parallel import dist
+
+    calls = []
+
+    def initialize(**kw):
+        calls.append(kw)
+        raise KeyboardInterrupt  # stop before the model is built
+
+    monkeypatch.setattr(dist, "initialize", initialize)
+    with pytest.raises(KeyboardInterrupt):
         _train_script().main(["--multihost", "--device", "cpu"])
+    assert calls == [{"device": "cpu"}]
 
 
 def _tiny_div2k(root):
