@@ -47,7 +47,15 @@ against its plain PyTorch version:
   and on the card, the CLI (``python3 -m studiosr_tpu_torch``), and the
   training entry point ``scripts/torch_train.py`` (SwinIR classical x4 at
   its recipe, batch 32 of 64x64, bf16, ``fused_train``: B5-B8 36 launches
-  each a step) on a DIV2K-layout corpus made from the seed.
+  each a step) on a DIV2K-layout corpus made from the seed;
+* SwinFIR x4 at window 12 with SwinIR classical's widths (embed 180, depths
+  [6]x6, 6 heads, mlp ratio 2, the SFBs): bf16, batch 1, 256x256 LR, each
+  Swin block as B5 then B6 (the route of every window but 8), and SwinIR x4
+  at windows 4, 16 and 8 at a reduced depth;
+* the published-weight zoo offline: release-layout files written under a
+  temporary ``./pretrained`` from seeded port models (SwinIR x4, HAT, EDSR,
+  RCAN at their published widths) and read by ``from_pretrained``, the CLI
+  without ``--ckpt``.
 
 Phases, in order; any failure exits non-zero before the final line:
 
@@ -229,7 +237,26 @@ Phases, in order; any failure exits non-zero before the final line:
     resume at iteration 6, the Chrome trace naming B5-B8's CUDA kernels;
     then the step call's host time, the ``get_batch`` wait per step, a
     loader batch of 32 on the native and the plain routes, and a 480²
-    all-Paeth PNG decode by each unfilter.
+    all-Paeth PNG decode by each unfilter;
+34. C7 (``phase_windows_serving``, after phase 20): SwinFIR x4 at window 12,
+    full width, bf16 fused: the forward within 2e-2 of the plain f32 one, B5
+    36, B6 36, B14 7, B3 1 and no B1 a forward, each through its bf16 H100
+    entry, the forward's ms over 5 forwards after 2 warm-ups; B5 and B6 alone
+    on the first shifted block's served operands against their plain
+    versions, their ms, plain ms, bounds and bf16 PyTorch yardsticks (the
+    kernels line's ``*_swinfir_ws12`` rows); SwinIR x4 at depth [2]x2, f32
+    and bf16, at windows 4 and 16 (B5 + B6) and 8 (B1) against the plain f32
+    forward with the launches of a forward; window 24 must raise
+    ``NotImplementedError`` naming windows 2-16 before any launch;
+35. the zoo (``phase_zoo``, after phase 31): in a temporary directory,
+    ``pretrained/001_classicalSR_DF2K_s64w8_SwinIR-M_x4.pth`` in the
+    release's layout (``{"params": ...}`` from a seeded port SwinIR x4, the
+    rel-pos indices and shift masks, three keys under ``module.``); the CLI
+    without ``--ckpt`` (``--half``) as a subprocess from there; the
+    parameters ``SwinIR.from_pretrained`` loads equal the written ones bit for
+    bit, and the CLI's PNG the in-process fused bf16 output (B1 36, B2 7, B3
+    1); HAT (``params_ema``), EDSR (DIV2K, range 255) and RCAN x4 at their
+    published widths the same way, one 32² forward each.
 
 Prints the card line, the script's seconds, a ``{"kernels": [...]}`` JSON
 line, and last
@@ -544,6 +571,32 @@ CONV_TRAINED = (("ckpt", "espcn", 2, "_lr"), ("srcnn_ckpt", "srcnn", 2, "_lrx2")
                 ("rcan_ckpt", "rcan", 4, "_lrx4"), ("han_ckpt", "han", 4, "_lrx4"), ("han_x8_ckpt", "han", 8, "_lrx8"),
                 ("imdn_ckpt", "imdn", 4, "_lrx4"))
 CONV_FLOOR_PLAIN, CONV_FLOOR_BF16, ESPCN_FLOOR, ESPCN_ABSOLUTE = 2.0, 1.5, 1.0, 30.0
+# C7, fused serving at windows other than 8: SwinFIR x4 at window 12 with SwinIR
+# classical's widths (embed 180, depths [6]x6, 6 heads, mlp ratio 2, the SFBs),
+# depth not cut; bf16, batch 1, 256² LR (264² after the flip padding); each
+# Swin block as B5 (window 12: its multi-tile family, the shift folded into
+# its reads) then B6, B14 for the SFBs, B3 for the tail, no B1.
+WINDOWS_MAIN = dict(MAIN, window_size=12)
+WINDOWS_PER_FORWARD = {"fused_window_attention_block_ws16": 36, "fused_mlp_block": 36, "fused_resblock": 7,
+                       "fused_upsample_x4": 1}
+WINDOWS_ROWS = {"fused_window_attention_block_ws16": "fused_window_attention_block_swinfir_ws12",
+                "fused_mlp_block": "fused_mlp_block_swinfir_ws12"}
+KERNELS.update({row: KERNELS[name] for name, row in WINDOWS_ROWS.items()})
+# routing coverage at a reduced depth (two groups of two blocks), SwinIR x4 at
+# the published widths: windows 4 and 16 take B5 + B6, window 8 B1; a window
+# above 16 raises before any launch
+WINDOWS_REDUCED = dict(MAIN, depths=[2, 2], num_heads=[6, 6])
+WINDOWS_COVERAGE = {4: {"fused_window_attention_block": 4, "fused_mlp_block": 4},
+                    16: {"fused_window_attention_block_ws16": 4, "fused_mlp_block": 4},
+                    8: {"fused_swin_block": 4}}
+WINDOW_QUEUED, WINDOWS_LR = 24, 64
+# The zoo, offline: release-layout files written under a temporary
+# ./pretrained from seeded port models at the published widths, then read by
+# from_pretrained (the CLI without --ckpt for SwinIR x4).
+ZOO_SWINIR_FILE = "001_classicalSR_DF2K_s64w8_SwinIR-M_x4.pth"
+ZOO_OTHERS = (("hat", "HAT_SRx4.pth", "params_ema"), ("edsr", "r32f256x4.pth", None),
+              ("rcan", "models_ECCV2018RCAN/RCAN_BIX4.pt", None))
+ZOO_PER_FORWARD = {"fused_swin_block": 36, "fused_conv3x3": 7, "fused_upsample_x4": 1}
 
 
 def log(msg: str) -> None:
@@ -2716,6 +2769,264 @@ def phase_maxsr_windows(dev: torch.device) -> list:
     return rows
 
 
+# -- C7: fused serving at windows other than 8 ---------------------------------------
+
+
+def window_bounds(name: str, ops, ws: int) -> tuple:
+    """(flops, bytes) of one B5 or B6 launch on its served operands: each
+    input read once, each output written once; B5's products over the
+    window's own ws² tokens, not its padding to whole tiles."""
+    x = ops[0]
+    c = x.shape[-1]
+    tokens = x.numel() // c
+    if name.startswith("fused_window_attention_block"):
+        flops = 2 * tokens * c * 4 * c + 4 * tokens * ws * ws * c
+    else:
+        flops = 4 * tokens * c * ops[4].numel()  # hidden from b1: w1 may be the packed blob
+    return flops, 2 * nbytes(x) + nbytes(*ops[1:])
+
+
+def windows_coverage(dev: torch.device) -> list:
+    """SwinIR x4 at the published widths, depth cut to [2]x2, bf16 and f32,
+    at windows 4, 16 and 8: the fused forward against the plain f32 one and
+    the launches of a forward, each through its dtype's entry; then window
+    24, which must raise naming windows 2-16 before any launch."""
+    failed = []
+    x = torch.rand(1, WINDOWS_LR, WINDOWS_LR, 3, generator=torch.Generator().manual_seed(SEED + 12)).to(dev)
+    for ws, per in WINDOWS_COVERAGE.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            model = SwinIR.build(**dict(WINDOWS_REDUCED, window_size=ws), seed=SEED, device=dev)
+            plain = model(x)
+            if dtype == torch.bfloat16:
+                model.half()
+            model.enable_fused(True).serving_prep()
+            engagement.reset()
+            fused = model(x)
+            torch.cuda.synchronize()
+            launches, entries = engagement.counters(), engagement.entries()
+            want = dict(per, fused_conv3x3=3, fused_upsample_x4=1)
+            rel = rel_l2(fused, plain)
+            limit = E2E_F32_REL_L2 if dtype == torch.float32 else E2E_BF16_REL_L2
+            label = f"windows swinir [2]x2 window {ws} {str(dtype)[6:]}"
+            log(f"{label}: fused vs plain f32 rel_l2 {rel:.3e} limit {limit:.0e}; launches {launches}")
+            if not rel <= limit:
+                failed.append(f"{label}: rel_l2 {rel:.3e}")
+            if launches != want:
+                failed.append(f"{label}: launches {launches}, expected {want}")
+            failed += train_entry_failures(label, launches, dtype, entries)
+            if dtype == torch.bfloat16:
+                failed += entry_failures(label, launches)
+            del model
+    model = SwinIR.build(**dict(WINDOWS_REDUCED, window_size=WINDOW_QUEUED), seed=SEED, device=dev)
+    model.half().enable_fused(True)
+    engagement.reset()
+    try:
+        model(x)
+        failed.append(f"window {WINDOW_QUEUED} served fused instead of raising")
+    except NotImplementedError as err:
+        log(f"windows: window {WINDOW_QUEUED} raises NotImplementedError: {err}")
+        if "2-16" not in str(err):
+            failed.append(f"window {WINDOW_QUEUED}'s error does not name windows 2-16: {err}")
+    if engagement.counters():
+        failed.append(f"window {WINDOW_QUEUED} launched {engagement.counters()} before raising")
+    return failed
+
+
+def phase_windows_serving(dev: torch.device) -> list:
+    """SwinFIR x4 at window 12 and full width, bf16 fused (``WINDOWS_MAIN``):
+    the forward against the plain f32 forward, the launches of a forward
+    (B5 36 at window 12, B6 36, B14 7, B3 1, B1 none, each through its bf16
+    H100 entry), the forward's ms over 5 forwards after 2 warm-ups; B5 and B6
+    alone on the served operands of the first shifted block, against their
+    plain versions, timed beside them, their bounds and bf16 PyTorch
+    yardsticks; then the routing coverage (``windows_coverage``). Returns the
+    kernels line's two rows."""
+    failed = []
+    model = SwinFIR.build(**WINDOWS_MAIN, seed=SEED, device=dev)
+    log(f"\nmodel: SwinFIR x4 window {WINDOWS_MAIN['window_size']} embed {WINDOWS_MAIN['embed_dim']} depths "
+        f"{WINDOWS_MAIN['depths']}, {model.count_parameters()} parameters")
+    x = torch.from_numpy(requests()[0]).to(dev).float()[None] / 255.0
+    plain = model(x)
+    model.half().enable_fused(True)
+    prep = model.serving_prep()  # load-time weight layout, outside the counted run
+    engagement.reset()
+    fused = model(x)
+    torch.cuda.synchronize()
+    launches, entries = engagement.counters(), engagement.entries()
+    rel = rel_l2(fused, plain)
+    log(f"windows swinfir window 12 bf16 fused vs f32 plain: rel_l2 {rel:.3e} limit {E2E_BF16_REL_L2:.0e}; "
+        f"launches {launches}")
+    if not rel <= E2E_BF16_REL_L2:
+        failed.append(f"swinfir window 12: bf16 fused vs f32 plain rel_l2 {rel:.3e}")
+    if not bool(torch.isfinite(fused).all()) or fused.shape != (1, 4 * LR, 4 * LR, 3):
+        failed.append(f"swinfir window 12: bad forward {tuple(fused.shape)}")
+    if launches != WINDOWS_PER_FORWARD:
+        failed.append(f"swinfir window 12: launches {launches}, expected {WINDOWS_PER_FORWARD}")
+    failed += entry_failures("windows swinfir window 12", launches)
+    failed += train_entry_failures("windows swinfir window 12", launches, torch.bfloat16, entries)
+    del plain, fused
+    fwd = time_ms(lambda: model(x), iters=5)
+    log(f"windows swinfir window 12 forward bf16 batch 1 {LR}x{LR}: {fwd:.3f} ms, "
+        f"{LR * LR / 1e6 / (fwd / 1e3):.3f} LR MP/s")
+
+    ws, heads = WINDOWS_MAIN["window_size"], WINDOWS_MAIN["num_heads"][0]
+    hp = LR + (-LR % ws)
+    c = WINDOWS_MAIN["embed_dim"]
+    gen = torch.Generator().manual_seed(SEED + 13)
+    xb = torch.randn(1, hp, hp, c, generator=gen).to(dev, torch.bfloat16)
+    blk = prep["blocks"][0][1]  # the first shifted block's served operands
+    attn = blk["attn"]
+    attn_ops = (xb, attn["ln_w"], attn["ln_b"], attn["wqkv"], attn["bqkv"], attn["wproj"], attn["bproj"],
+                attn["bias"])
+    wqkv, wproj, bias = unpack_window_attention(attn["wqkv"], c, heads, ws)
+    kw = dict(heads=heads, window_size=ws, shift=ws // 2)
+    mlp = blk["mlp"]
+    rows = xb.reshape(-1, c)
+    mlp_ops = (rows, mlp["ln_w"], mlp["ln_b"], mlp["w1"], mlp["b1"], mlp["w2"], mlp["b2"])
+    w1, w2 = unpack_mlp_block(mlp["w1"], c, mlp["b1"].numel())
+    cases = (
+        ("fused_window_attention_block_ws16", lambda: fused_window_attention_block(*attn_ops, **kw),
+         lambda ops: window_attention_plain(*ops, **kw), attn_ops,
+         (xb, attn["ln_w"], attn["ln_b"], wqkv, attn["bqkv"], wproj, attn["bproj"], bias)),
+        ("fused_mlp_block", lambda: fused_mlp_block(*mlp_ops), lambda ops: mlp_block_plain(*ops), mlp_ops,
+         (rows, mlp["ln_w"], mlp["ln_b"], w1, mlp["b1"], w2, mlp["b2"])),
+    )
+    rows_out = []
+    for name, kernel, plain_fn, ops, dense in cases:
+        engagement.reset()
+        got = kernel()
+        if engagement.counters() != {name: 1}:
+            failed.append(f"{name} at window 12 launched {engagement.counters()}")
+        # the plain version in f32 on the same bf16 input (it reads the packed weights as they are)
+        err = kernel_check(f"{name} [swinfir window 12]", got, plain_fn((ops[0].float(), *ops[1:])), torch.bfloat16,
+                           failed)
+        del got
+        ms = time_ms(kernel, iters=20)
+        plain_ms = time_ms(lambda: plain_fn(ops), iters=3, warmup=1)
+        flops, moved = window_bounds(name, ops, ws)
+        bms, by = bound_ms(flops, moved)
+        per = WINDOWS_PER_FORWARD[name]
+        log(f"time {name} [swinfir window 12] bf16: {ms:.3f} ms ({100 * per * ms / fwd:.1f} % of a forward at {per} "
+            f"a forward), plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), {flops / 1e9:.2f} GFLOP, "
+            f"{moved / 1e6:.1f} MB; launches {launches.get(name, 0)} in the forward")
+        yard = yardstick_report(name, dense, ms, bms, kw if name != "fused_mlp_block" else {})
+        log(f"  {name} [swinfir window 12] yardstick (bf16 PyTorch sequence, not a single call): {yard:.3f} ms")
+        source, replaces = KERNELS[WINDOWS_ROWS[name]]
+        rows_out.append(dict(name=WINDOWS_ROWS[name], route="cuda", source=source, replaces=replaces,
+                             launches=launches.get(name, 0), max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                             bound_by=by, library_ms=None))
+        torch.cuda.empty_cache()
+    del model, prep, attn_ops, mlp_ops, cases, xb, rows
+    torch.cuda.empty_cache()
+    failed += windows_coverage(dev)
+    if failed:
+        raise AssertionError("windows serving: " + "; ".join(failed))
+    return rows_out
+
+
+# -- the zoo, offline -------------------------------------------------------------------
+
+
+def release_state(model, family: str) -> dict:
+    """A seeded port model's parameters in a release's layout: the
+    state_dict, SwinIR's and HAT's recomputed rel-pos indices and shift
+    masks, the MeanShift convs of EDSR and RCAN, and (SwinIR) the first
+    three keys under a ``module.`` prefix."""
+    state = {k: v.detach().cpu().clone() for k, v in model.module.state_dict().items()}
+    ws = model.config.get("window_size", 8)
+    if family in ("swinir", "hat"):
+        blocks = sorted({k.split(".attn.")[0] for k in state if ".residual_group.blocks." in k and ".attn." in k})
+        for i, prefix in enumerate(blocks):
+            state[f"{prefix}.attn.relative_position_index"] = torch.zeros(ws * ws, ws * ws, dtype=torch.int64)
+            if i % 2:
+                state[f"{prefix}.attn_mask"] = torch.zeros(4, ws * ws, ws * ws)
+    else:
+        for name in ("sub_mean", "add_mean"):
+            state[f"{name}.weight"] = torch.eye(3).reshape(3, 3, 1, 1)
+            state[f"{name}.bias"] = torch.zeros(3)
+    if family == "swinir":
+        for key in sorted(state)[:3]:
+            state[f"module.{key}"] = state.pop(key)
+    return state
+
+
+def loaded_failures(label: str, model, written: dict) -> list:
+    """[] when every parameter and buffer of ``model`` equals the written
+    release's (``module.`` prefixes stripped), bit for bit."""
+    written = {k[len("module."):] if k.startswith("module.") else k: v for k, v in written.items()}
+    bad = [k for k, v in model.module.state_dict().items()
+           if not k.endswith("num_batches_tracked") and not torch.equal(v.cpu(), written[k].to(v.dtype))]
+    log(f"zoo {label}: {len(model.module.state_dict())} entries loaded, {len(bad)} differ from the written file")
+    return [f"zoo {label}: {bad[:5]} differ from the written release"] if bad else []
+
+
+def phase_zoo(dev: torch.device) -> None:
+    """The published-weight zoo with no network: a SwinIR x4 release file
+    (``{"params": state}`` from a seeded port SwinIR x4, the recomputed
+    buffers, three keys under ``module.``) under a temporary ``./pretrained``;
+    ``python3 -m studiosr_tpu_torch`` without ``--ckpt`` serves a fixture LR
+    image from there (``--half``); the parameters ``SwinIR.from_pretrained``
+    loads equal the written ones bit for bit, and the CLI's PNG equals the
+    in-process fused bf16 output, B1-B3 launched; then HAT (``params_ema``),
+    EDSR (DIV2K, pixel range 255) and RCAN x4 at their published widths the
+    same way, one 32² forward each on the card."""
+    failed = []
+    lr = imread(str(FIXTURES / "img0_lrx4.png"))
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        (root / "pretrained").mkdir()
+        source = SwinIR.build(scale=4, seed=SEED + 7, device="cpu")
+        written = release_state(source, "swinir")
+        torch.save({"params": written, "iter": 500000}, root / "pretrained" / ZOO_SWINIR_FILE)
+        cmd = [sys.executable, "-m", "studiosr_tpu_torch", "--image", str(FIXTURES / "img0_lrx4.png"), "--scale",
+               "4", "--model", "swinir", "--output", "out", "--half"]
+        t0 = time.perf_counter()
+        subprocess.run(cmd, cwd=root, env=dict(os.environ, PYTHONPATH=str(ROOT)), check=True, timeout=600,
+                       capture_output=True, text=True)
+        log(f"zoo: the CLI without --ckpt served {ZOO_SWINIR_FILE} in {time.perf_counter() - t0:.1f} s (host clock)")
+        cli = imread(str(root / "out" / "img0_lrx4.swinir_x4.png"))
+        os.chdir(root)
+        try:
+            model = SwinIR.from_pretrained(scale=4)
+            failed += loaded_failures("swinir x4", model, written)
+            model.half().enable_fused(True).serving_prep()
+            engagement.reset()
+            out = model.inference(lr)
+            launches = engagement.counters()
+            log(f"zoo swinir x4 in process, fused bf16: launches {launches}; the CLI's PNG "
+                f"{'equals' if np.array_equal(cli, out) else 'differs from'} the in-process output "
+                f"({int((cli != out).sum())} values differ)")
+            if not np.array_equal(cli, out):
+                failed.append("zoo: the CLI's PNG differs from the in-process from_pretrained output")
+            if launches != ZOO_PER_FORWARD:
+                failed.append(f"zoo swinir x4: launches {launches}, expected {ZOO_PER_FORWARD}")
+            failed += entry_failures("zoo swinir x4", launches)
+            del model, source
+            x = torch.rand(1, 32, 32, 3, generator=torch.Generator().manual_seed(SEED + 8)).to(dev)
+            for family, file_name, wrapper in ZOO_OTHERS:
+                cls = get_model_class(family)
+                kw = {"img_range": 255.0} if family in ("edsr", "rcan") else {}
+                written = release_state(cls.build(scale=4, seed=SEED + 7, device="cpu", **kw), family)
+                path = root / "pretrained" / file_name
+                path.parent.mkdir(parents=True, exist_ok=True)
+                torch.save(written if wrapper is None else {wrapper: written}, path)
+                model = cls.from_pretrained(scale=4)
+                failed += loaded_failures(f"{family} x4", model, written)
+                y = model(x * (255.0 if model.img_range == 255.0 else 1.0))
+                torch.cuda.synchronize()
+                log(f"zoo {family} x4 ({model.count_parameters()} parameters) 32² forward on the card: "
+                    f"{tuple(y.shape)}, finite {bool(torch.isfinite(y).all())}")
+                if y.shape != (1, 128, 128, 3) or not bool(torch.isfinite(y).all()):
+                    failed.append(f"zoo {family} x4: bad forward {tuple(y.shape)}")
+                del model
+        finally:
+            os.chdir(cwd)
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
 # -- the conv families (cuDNN convs; no kernel of the port) ---------------------------
 
 
@@ -3332,6 +3643,7 @@ def main() -> int:
     resblock_error = phase_resblock_kernels(dev)
     swinfir_row, _ = phase_swinfir_serving(dev, resblock_error)
     rows.append(swinfir_row)
+    rows += phase_windows_serving(dev)
     phase_swinfir_grads(dev)
     phase_swinfir_train(dev)
     rows.append(phase_maxsr(dev))
@@ -3347,6 +3659,7 @@ def main() -> int:
     phase_trained(dev)
     phase_evaluator(dev)
     phase_cli(dev)
+    phase_zoo(dev)
     rows += phase_maxsr_windows(dev)
     torch.cuda.empty_cache()
     phase_maxsr_decline(dev)

@@ -30,6 +30,9 @@ warm-up launches:
   ``pack_window_attention``), each beside its yardstick: the same half as
   a sequence of bf16 PyTorch calls (LayerNorm, cuBLAS, SDPA with the bias
   and shift mask as its mask, the projection and the add);
+* B5 and B6 at SwinFIR / SwinIR x4 serving at window 12 (one 264 x 264
+  map, shift 6, no drop-path, the weights packed once as serving packs
+  them), each beside the same yardstick;
 * B6 (``fused_mlp_block``, hidden 360, drop-path scales (0, 1/0.9, ...))
   at the same rows, and B6 with HAT's CAB join (``extra`` / ``extra_scale``)
   at HAT x4 serving's 65,536 rows, the weights packed once as serving packs
@@ -414,6 +417,44 @@ def measure() -> dict:
     passes[name] = pass_split(lambda: fused_window_attention_block(xs, *served, **kw))
     ms[f"{name} yardstick (bf16 PyTorch sequence)"] = time_ms(
         attention_half_forward_sequence(xs, dense, HEADS, ws, 8, None), iters=10)
+
+    # B5 and B6 at SwinFIR / SwinIR x4 serving at window 12: one 264 x 264 map (256 flip-padded to the
+    # window's multiple), shift 6, the weights packed once as serving packs them
+    ws, hp = 12, 264
+    name = "fused_window_attention_block_ws16 serving ws12"
+    x12 = randn(1, hp, hp, C).to(bf)
+    dense = (1 + randn(C, scale=0.1), randn(C, scale=0.1), randn(C, 3 * C, scale=C**-0.5).to(bf),
+             randn(3 * C, scale=0.1), randn(C, C, scale=C**-0.5).to(bf), randn(C, scale=0.1),
+             randn(HEADS, ws * ws, ws * ws, scale=0.5))
+    served = list(dense)
+    try:
+        from studiosr_tpu_torch.ops.cuda.window_attention import pack_window_attention
+
+        served[2:7] = [pack_window_attention(dense[2], dense[4], dense[6], HEADS), dense[3], None, dense[5], None]
+    except ImportError:
+        pass
+    kw = dict(heads=HEADS, window_size=ws, shift=ws // 2)
+    ms[name] = time_ms(lambda: fused_window_attention_block(x12, *served, **kw))
+    passes[name] = pass_split(lambda: fused_window_attention_block(x12, *served, **kw))
+    ms[f"{name} yardstick (bf16 PyTorch sequence)"] = time_ms(
+        attention_half_forward_sequence(x12, dense, HEADS, ws, ws // 2, None), iters=10)
+    name = "fused_mlp_block serving ws12"
+    r12 = x12.reshape(-1, C)
+    dense = (*mlp_ops, b2)
+    served = list(dense)
+    try:
+        from studiosr_tpu_torch.ops.cuda.mlp_block import pack_mlp_block
+
+        served[2], served[4] = pack_mlp_block(dense[2], dense[4]), None
+    except ImportError:
+        pass
+    engagement.reset()
+    ms[name] = time_ms(lambda: fused_mlp_block(r12, *served))
+    entries[name] = engagement.entries().get("fused_mlp_block")
+    passes[name] = pass_split(lambda: fused_mlp_block(r12, *served))
+    ms[f"{name} yardstick (bf16 PyTorch sequence)"] = time_ms(mlp_half_forward_sequence(r12, dense), iters=10)
+    del x12, r12
+    torch.cuda.empty_cache()
 
     # B10 at HAT x4 serving's shapes: 24 x 24 key windows around 16 x 16 queries, the MLP after
     ocab_ops = (1 + randn(C, scale=0.1), randn(C, scale=0.1), randn(C, 3 * C, scale=C**-0.5).to(bf),

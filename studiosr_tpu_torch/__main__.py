@@ -4,9 +4,11 @@ Port of ``studiosr_tpu/__main__.py``, with the same flags plus ``--device``
 (default ``cuda``, as every entry point of the port; ``--device cpu`` runs
 the plain path on the CPU). ``--ckpt`` serves a trained checkpoint directory
 (``params.json`` + ``{tag}.model.ckpt``, written by the JAX package's Trainer
-or the port's) and works offline. Without ``--ckpt`` the model comes from
-``from_pretrained``, which raises: the published zoo weights are not in the
-repository (ROADMAP A8). ``--half`` serves in bf16 through the fused CUDA
+or the port's) and works offline. Without ``--ckpt`` the CLI serves the
+published weights through ``from_pretrained``: the release file under
+``./pretrained`` (``001_classicalSR_DF2K_s64w8_SwinIR-M_x4.pth``,
+``HAT_SRx4.pth``, ...), offline when it is there, downloaded there first when
+it is not. ``--half`` serves in bf16 through the fused CUDA
 kernels; ``--tile`` serves overlapping tiles; ``--self-ensemble`` averages
 the 8 rot90 / flip variants; ``--batch`` groups same-shaped images into one
 forward. PNG is read and written without cv2.
@@ -67,7 +69,7 @@ def main() -> None:
         if model.scale != args.scale:
             parser.error(f"--scale {args.scale} but checkpoint is x{model.scale} ({args.ckpt})")
     else:
-        model = get_model_class(args.model).from_pretrained(scale=args.scale)
+        model = get_model_class(args.model).from_pretrained(scale=args.scale, device=args.device)
     if args.half:
         model.half()
         if hasattr(model, "enable_fused"):

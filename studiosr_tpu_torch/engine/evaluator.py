@@ -11,8 +11,10 @@ under ``root``.
 ``on_device=True`` with a model (an object with ``evaluate_uint8``) runs the
 forward and both metrics on the model's device and brings back two floats
 an image; with a bare callable it scores its output with the device
-metrics on the card. ``visualize`` needs ``utils/compare.py``, which is
-not ported (ROADMAP A18).
+metrics on the card. ``visualize=True`` scores on the route above without
+the device pair (the SR image must come back) and hands each image's
+nearest, bicubic (the port's ``ops/resize.py``), SR and HR panels, in BGR,
+to ``utils/compare.py``'s interactive viewer, which needs cv2.
 """
 
 from __future__ import annotations
@@ -67,16 +69,15 @@ class _EvaluatorBase:
         logging: bool = False,
         on_device: bool = False,
     ) -> Tuple[float, float]:
-        if visualize:
-            raise NotImplementedError("Evaluator visualize=True needs utils/compare.py, not ported (ROADMAP A18)")
         crop_border = self.scale
-        device_pair = on_device and hasattr(func, "evaluate_uint8")
+        device_pair = on_device and hasattr(func, "evaluate_uint8") and not visualize
         metric_device = None
-        if on_device and not device_pair:
-            metric_device = resolve_device("cuda")
+        if on_device and not device_pair:  # a model's own device (visualize brings its SR back), else the card
+            metric_device = func.device if hasattr(func, "evaluate_uint8") else resolve_device("cuda")
         psnrs, ssims = [], []
         for i in range(len(self.testset)):
             lq, gt = self.testset[i]
+            sr = None
             if device_pair:
                 psnr, ssim = func.evaluate_uint8(lq, gt, crop_border=crop_border, y_only=y_only)
             else:
@@ -96,7 +97,23 @@ class _EvaluatorBase:
                     f" {self.dataset:>8} - {i + 1:>3}/{len(self.testset):>3} PSNR: {psnr:6.3f}, SSIM: {ssim:6.4f}",
                     end="\r",
                 )
+            if visualize and sr is not None:
+                _visualize(lq, sr, gt)
         return float(np.mean(psnrs)), float(np.mean(ssims))
+
+
+def _visualize(lq: np.ndarray, sr: np.ndarray, gt: np.ndarray) -> None:
+    """``compare`` on the nearest and bicubic upsamples of ``lq``, ``sr`` and
+    ``gt``, each flipped to BGR as the viewer draws it."""
+    from studiosr_tpu_torch.ops.resize import bicubic_resize
+    from studiosr_tpu_torch.utils.compare import compare
+
+    h, w = gt.shape[:2]
+    rows, cols = (np.arange(h) * lq.shape[0]) // h, (np.arange(w) * lq.shape[1]) // w
+    nearest = lq[rows][:, cols]
+    x = torch.from_numpy(np.ascontiguousarray(lq, dtype=np.float32))[None]
+    bicubic = np.clip(np.round(bicubic_resize(x, h, w)[0].numpy()), 0, 255).astype(np.uint8)
+    compare([im[:, :, ::-1] for im in (nearest, bicubic, sr, gt)])
 
 
 class Evaluator(_EvaluatorBase):

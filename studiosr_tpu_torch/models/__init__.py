@@ -1,5 +1,6 @@
 """Models of the port (NHWC, PyTorch): the JAX package's twelve."""
 
+from studiosr_tpu_torch.models.base import Model
 from studiosr_tpu_torch.models.edsr import EDSR
 from studiosr_tpu_torch.models.espcn import ESPCN
 from studiosr_tpu_torch.models.han import HAN
@@ -13,4 +14,4 @@ from studiosr_tpu_torch.models.swinfir import SwinFIR
 from studiosr_tpu_torch.models.swinir import SwinIR
 from studiosr_tpu_torch.models.vdsr import VDSR
 
-__all__ = ["EDSR", "ESPCN", "HAN", "HAT", "IMDN", "MaxSR", "RCAN", "SRCNN", "SRResNet", "SwinFIR", "SwinIR", "VDSR"]
+__all__ = ["EDSR", "ESPCN", "HAN", "HAT", "IMDN", "MaxSR", "Model", "RCAN", "SRCNN", "SRResNet", "SwinFIR", "SwinIR", "VDSR"]

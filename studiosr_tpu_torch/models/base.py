@@ -7,8 +7,14 @@ does normalize -> forward -> x255, round, clip, uint8 on the device;
 ``inference_tiled`` serves overlapping tiles (``parallel/tiled.py``);
 ``evaluate_uint8`` / ``evaluate_uint8_batch`` run the forward and the
 PSNR / SSIM chain on the device and bring back two floats an image, never
-the HR image; ``half()`` switches to bfloat16 serving (it converts the
-module in place, so a Trainer never calls it on the f32 weights it trains);
+the HR image; ``astype(dtype)`` casts the module and the forward's input
+(``half()`` is ``astype(torch.bfloat16)``, the serving dtype; it converts
+the module in place, so a Trainer never calls it on the f32 weights it
+trains); ``eval()`` and ``to(device)`` chain as the reference's torch idiom
+does; ``from_pretrained`` builds the family's published configuration (the
+families with a release override it to read the weights, ``zoo/``);
+``export`` saves the eval forward as a ``torch.export`` program and
+``export_onnx`` as ONNX (where the ``onnx`` package is installed);
 ``get_model_config`` gives the reconstruction config (the Trainer's
 ``params.json``) and ``get_training_config`` the model's published training
 recipe (``Trainer`` keyword arguments, ``_training_config``);
@@ -16,8 +22,7 @@ recipe (``Trainer`` keyword arguments, ``_training_config``);
 ``serving_prep``.
 
 A model wraps an ``nn.Module`` that lives on ``self.device``. Forwards run
-under ``torch.inference_mode``. Not ported: ``from_pretrained`` (the zoo's
-weights are not in the repository, ROADMAP A8) and export.
+under ``torch.inference_mode``.
 """
 
 from __future__ import annotations
@@ -77,11 +82,11 @@ class Model:
         return float(self.config.get("img_range", 1.0))
 
     @classmethod
-    def from_pretrained(cls, scale: int = 4) -> "Model":
-        raise NotImplementedError(
-            f"{cls.__name__}.from_pretrained: the published zoo weights are not in the repository (ROADMAP A8); "
-            "load a trained checkpoint directory with zoo.load_model instead"
-        )
+    def from_pretrained(cls, scale: int = 4, device=None) -> "Model":
+        """The family's published configuration; a family with released
+        weights overrides this to read them (SRCNN, ESPCN and SRResNet have
+        none and build, as in the JAX package)."""
+        return cls.build(scale=scale, device=device)  # type: ignore[attr-defined]
 
     def get_model_config(self) -> Dict[str, Any]:
         return dict(self.config)
@@ -193,11 +198,62 @@ class Model:
 
     # -- dtype policy --------------------------------------------------------
 
+    def astype(self, dtype: torch.dtype) -> "Model":
+        """Cast the parameters to ``dtype``; inputs are cast to it in the forward."""
+        self.module.to(dtype)
+        self._compute_dtype = dtype
+        return self
+
     def half(self) -> "Model":
         """bfloat16 parameters and activations (the serving dtype)."""
-        self.module.to(torch.bfloat16)
-        self._compute_dtype = torch.bfloat16
+        return self.astype(torch.bfloat16)
+
+    # -- the reference's torch chainables ------------------------------------
+
+    def eval(self) -> "Model":
+        """The module in eval mode (the only mode forwards run in); chainable."""
+        self.module.eval()
         return self
+
+    def to(self, device) -> "Model":
+        """Move the module to ``device`` (``resolve_device``'s rules: CUDA that
+        is missing raises); drops the cached fused-serving weights."""
+        from studiosr_tpu_torch._device import resolve_device
+
+        self.device = resolve_device(device)
+        self.module.to(self.device)
+        self.__dict__.pop("_serving_prep_cache", None)
+        return self
+
+    # -- export --------------------------------------------------------------
+
+    def _export_input(self, input_shape) -> torch.Tensor:
+        return torch.zeros(*input_shape, dtype=self._compute_dtype or torch.float32, device=self.device)
+
+    def export(self, path: Optional[str] = None, input_shape: List[int] = [1, 256, 256, 3]) -> str:
+        """Save the eval forward of the plain module (NHWC in, NHWC out, in the
+        model's dtype) as a ``torch.export`` program (``torch.export.save``,
+        reloaded with ``torch.export.load``), to ``{Class}x{scale}.pt2`` by
+        default: the analog of the JAX package's StableHLO text. Returns the path."""
+        if path is None:
+            path = f"{self.__class__.__name__}x{self.scale}.pt2"
+        with torch.no_grad():
+            program = torch.export.export(self.module.eval(), (self._export_input(input_shape),))
+        torch.export.save(program, path)
+        return path
+
+    def export_onnx(self, path: Optional[str] = None, input_shape: List[int] = [1, 64, 64, 3], opset: int = 17) -> str:
+        """Save the eval forward of the plain module (NHWC) as ONNX to
+        ``{Class}x{scale}.onnx`` by default. Needs the ``onnx`` package at
+        call time and raises ``ImportError`` without it."""
+        import onnx  # noqa: F401  (torch.onnx.export's TorchScript route writes through it)
+
+        if path is None:
+            path = f"{self.__class__.__name__}x{self.scale}.onnx"
+        with torch.no_grad():
+            torch.onnx.export(self.module.eval(), self._export_input(input_shape), path, opset_version=opset,
+                              dynamo=False)
+        return path
 
 
 class FusedServingModel(Model):

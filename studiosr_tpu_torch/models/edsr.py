@@ -61,3 +61,31 @@ class EDSR(Model):
         module = EDSRModule(**config)
         flax_default_init(module, torch.Generator().manual_seed(seed))
         return cls(module.to(dev).eval(), config, dev)
+
+    @classmethod
+    def from_pretrained(cls, scale: int = 4, dataset: str = "DIV2K", device=None) -> "EDSR":
+        """The published EDSR weights from ``./pretrained`` (downloaded there on
+        first use): the authors' DIV2K models (pixel range 255) or the DF2K
+        ones (range 1), every parameter required."""
+        from studiosr_tpu_torch.zoo import fetch, load_torch_state_dict, translate_state_dict
+
+        if scale not in (2, 3, 4) or dataset not in ("DIV2K", "DF2K"):
+            raise ValueError(f"EDSR.from_pretrained: no release at scale {scale}, dataset {dataset}")
+        if dataset == "DIV2K":
+            urls = {
+                2: "https://cv.snu.ac.kr/research/EDSR/models/edsr_x2-0edfb8a3.pt",
+                3: "https://cv.snu.ac.kr/research/EDSR/models/edsr_x3-ea3ef2c6.pt",
+                4: "https://cv.snu.ac.kr/research/EDSR/models/edsr_x4-4f62e9ef.pt",
+            }
+            model = cls.build(scale=scale, img_range=255.0, device=device)
+            path = fetch(f"r32f256x{scale}.pth", url=urls[scale])
+        else:
+            file_ids = {
+                2: "1XEqY_nkUMdIid4lM9zAW99rYDx5eftBT",
+                3: "1H1yFCFK14Z0DWAZHCtGXcWS6377fbkJE",
+                4: "1TeH67rKNSR3dXs56aLqsA-UvLL3TZL-g",
+            }
+            model = cls.build(scale=scale, device=device)
+            path = fetch(f"EDSRx{scale}.pth", gdrive_id=file_ids[scale])
+        translate_state_dict(load_torch_state_dict(path), model.module)
+        return model

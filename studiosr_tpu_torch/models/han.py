@@ -114,3 +114,24 @@ class HAN(Model):
         module = HANModule(**config)
         flax_default_init(module, torch.Generator().manual_seed(seed))
         return cls(module.to(dev).eval(), config, dev)
+
+    @classmethod
+    def from_pretrained(cls, scale: int = 4, device=None) -> "HAN":
+        """The published ``HAN_BIX{scale}`` weights (x2, x3, x4, x8, pixel range
+        255) from ``./pretrained`` (downloaded there on first use); missing
+        parameters keep their initial values, as the reference's
+        ``strict=False`` load."""
+        from studiosr_tpu_torch.zoo import fetch, load_torch_state_dict, translate_state_dict
+
+        file_ids = {
+            2: "12NhWDksOXiVnGw-Zbv6Y20J2DnRRKkJ2",
+            3: "1bcos3CfYZ-qfSszxEnPohJaUFgVihOB_",
+            4: "1f86ez0hgFLwe9hjhQogHpkACtYgfqrRi",
+            8: "1Z5mYsASGKfn77ze25EjS8sUNAJ-KjzpO",
+        }
+        if scale not in file_ids:
+            raise ValueError(f"HAN.from_pretrained: no release at scale {scale}")
+        model = cls.build(scale=scale, img_range=255.0, device=device)
+        path = fetch(f"HAN_BIX{scale}.pt", gdrive_id=file_ids[scale])
+        translate_state_dict(load_torch_state_dict(path), model.module, strict=False)
+        return model

@@ -378,3 +378,22 @@ class HAT(FusedServingModel):
                 if isinstance(m, OCAB):
                     nn.init.trunc_normal_(m.relative_position_bias_table, std=0.02, a=-0.04, b=0.04, generator=gen)
         return cls(module.to(dev).eval(), config, dev)
+
+    @classmethod
+    def from_pretrained(cls, scale: int = 4, device=None) -> "HAT":
+        """The XPixelGroup/HAT ``HAT_SRx{scale}`` checkpoints (x2, x3, x4)
+        from ``./pretrained`` (downloaded there on first use), the
+        ``params_ema`` wrapper, every parameter required."""
+        from studiosr_tpu_torch.zoo import fetch, load_torch_state_dict, translate_state_dict
+
+        file_ids = {
+            2: "1M2HZD6i9ZNpsJR-dKKBjlzL_AXntCvGR",
+            3: "1dWG4X_6VUSi1hhIwX0zEwddWI9M0tFmI",
+            4: "1pdhaO1fJq3tgSqDIbymdDiGxu4S0nqVq",
+        }
+        if scale not in file_ids:
+            raise ValueError(f"HAT.from_pretrained: no release at scale {scale}")
+        model = cls.build(scale=scale, device=device)
+        path = fetch(f"HAT_SRx{scale}.pth", gdrive_id=file_ids[scale])
+        translate_state_dict(load_torch_state_dict(path, key="params_ema"), model.module)
+        return model

@@ -96,3 +96,18 @@ class IMDN(Model):
         module = IMDNModule(**config)
         flax_default_init(module, torch.Generator().manual_seed(seed))
         return cls(module.to(dev).eval(), config, dev)
+
+    @classmethod
+    def from_pretrained(cls, scale: int = 4, device=None) -> "IMDN":
+        """The published ``IMDN_x{scale}`` checkpoints (x2, x3, x4) from
+        ``./pretrained`` (downloaded there on first use), their ``module.``
+        prefixes stripped, every parameter required."""
+        from studiosr_tpu_torch.zoo import fetch, load_torch_state_dict, translate_state_dict
+
+        if scale not in (2, 3, 4):
+            raise ValueError(f"IMDN.from_pretrained: no release at scale {scale}")
+        model = cls.build(scale=scale, device=device)
+        path = fetch(f"IMDN_x{scale}.pth",
+                     url=f"https://github.com/Zheng222/IMDN/raw/master/checkpoints/IMDN_x{scale}.pth")
+        translate_state_dict(load_torch_state_dict(path), model.module)
+        return model

@@ -468,14 +468,7 @@ class MaxSR(Model):
             config.update(dim=48, dim_head=12, depth=[2, 2, 2, 2])
         model = cls.build(**config, device=device)
         if ckpt_path is not None:
-            from studiosr_tpu_torch.zoo.translate import load_jax_params
+            from studiosr_tpu_torch.zoo.translate import load_jax_params, load_torch_state_dict
 
-            state = torch.load(ckpt_path, map_location="cpu", weights_only=True)
-            for key in ("params_ema", "params", "state_dict"):
-                if isinstance(state.get(key), dict):
-                    state = state[key]
-                    break
-            state = {k[len("module."):] if k.startswith("module.") else k: v.detach().cpu().numpy()
-                     for k, v in state.items()}
-            load_jax_params(model.module, state)
+            load_jax_params(model.module, load_torch_state_dict(ckpt_path))
         return model

@@ -11,6 +11,7 @@ back. The convs run on cuDNN. Module names are the flax paths
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional
 
 import torch
@@ -93,3 +94,23 @@ class RCAN(Model):
         module = RCANModule(**config)
         flax_default_init(module, torch.Generator().manual_seed(seed))
         return cls(module.to(dev).eval(), config, dev)
+
+    @classmethod
+    def from_pretrained(cls, scale: int = 4, device=None) -> "RCAN":
+        """The published ``RCAN_BIX{scale}`` weights (pixel range 255) from
+        ``./pretrained/models_ECCV2018RCAN``; the authors' zip is downloaded
+        and extracted there only when that directory is absent. Missing
+        parameters keep their initial values, as the reference's
+        ``strict=False`` load."""
+        from studiosr_tpu_torch.utils.helpers import gdown_and_extract
+        from studiosr_tpu_torch.zoo import load_torch_state_dict, translate_state_dict
+
+        pretrained_dir = "pretrained"
+        rcan_path = os.path.join(pretrained_dir, "models_ECCV2018RCAN")
+        if not os.path.exists(rcan_path):
+            os.makedirs(pretrained_dir, exist_ok=True)
+            gdown_and_extract(id="10bEK-NxVtOS9-XSeyOZyaRmxUTX3iIRa", save_dir=pretrained_dir)
+        model = cls.build(scale=scale, img_range=255.0, device=device)
+        state = load_torch_state_dict(os.path.join(rcan_path, f"RCAN_BIX{scale}.pt"))
+        translate_state_dict(state, model.module, strict=False)
+        return model

@@ -356,3 +356,32 @@ class SwinIR(FusedServingModel):
         )
         _init_weights(module, torch.Generator().manual_seed(seed))
         return cls(module.to(dev).eval(), config, dev)
+
+    @classmethod
+    def from_pretrained(
+        cls, scale: int = 4, light: bool = False, dataset: str = "DF2K", pretrained: bool = True, device=None,
+    ) -> "SwinIR":
+        """The JingyunLiang/SwinIR release checkpoints (classical x2 / x3 / x4
+        / x8 trained on DF2K or DIV2K, lightweight x2 / x3 / x4), read from
+        ``./pretrained`` and downloaded there on first use; the ``params``
+        wrapper unwrapped, extra keys reported and never fatal, missing
+        parameters printed as a warning. ``pretrained=False`` builds the
+        release's configuration without weights."""
+        if scale not in (2, 3, 4, 8) or dataset not in ("DIV2K", "DF2K"):
+            raise ValueError(f"SwinIR.from_pretrained: no release at scale {scale}, dataset {dataset}")
+        config: Dict[str, Any] = {"scale": scale}
+        img_size = 64 if dataset == "DF2K" else 48
+        task, label = "001_classicalSR", "M"
+        if light:
+            config.update(depths=[6, 6, 6, 6], embed_dim=60, num_heads=[6, 6, 6, 6], upsampler="pixelshuffledirect")
+            task, dataset, img_size, label = "002_lightweightSR", "DIV2K", 64, "S"
+        model = cls.build(**config, device=device)
+        if pretrained:
+            from studiosr_tpu_torch.zoo import fetch, load_torch_state_dict, translate_state_dict
+
+            file_name = f"{task}_{dataset}_s{img_size}w8_SwinIR-{label}_x{scale}.pth"
+            path = fetch(file_name, url=f"https://github.com/JingyunLiang/SwinIR/releases/download/v0.0/{file_name}")
+            report = translate_state_dict(load_torch_state_dict(path, key="auto"), model.module, strict=False)
+            if report.missing:
+                print(f"warning: {len(report.missing)} parameters missing from checkpoint: {report.missing[:5]} ...")
+        return model

@@ -70,3 +70,22 @@ class VDSR(Model):
         module = VDSRModule(**config)
         _init_weights(module, torch.Generator().manual_seed(seed))
         return cls(module.to(dev).eval(), config, dev)
+
+    @classmethod
+    def from_pretrained(cls, scale: int = 4, device=None) -> "VDSR":
+        """The published ``VDSRx{scale}`` checkpoints (x2, x3, x4) from
+        ``./pretrained`` (downloaded there on first use), every parameter
+        required."""
+        from studiosr_tpu_torch.zoo import fetch, load_torch_state_dict, translate_state_dict
+
+        file_ids = {
+            2: "1eQnGseT3SqQirB5ueAFfsClhLlpeoUOX",
+            3: "1wXOnLFf7rWglzzVMzYSVrb5Po79vUUq3",
+            4: "1Q5DKy7oAQbgGqxI-unxPy9X3GcHwZokC",
+        }
+        if scale not in file_ids:
+            raise ValueError(f"VDSR.from_pretrained: no release at scale {scale}")
+        model = cls.build(scale=scale, device=device)
+        path = fetch(f"VDSRx{scale}.pth", gdrive_id=file_ids[scale])
+        translate_state_dict(load_torch_state_dict(path), model.module)
+        return model

@@ -55,14 +55,10 @@ from studiosr_tpu_torch.ops.windows import (
     relative_position_index_oca,
 )
 from studiosr_tpu_torch.serving.swinir_fast import (
-    _b2_operands, _conv_operands, _dense, _f32, _layernorm, fused_tail, tail_operands,
+    _b2_operands, _conv_operands, _dense, _f32, _layernorm, _ln, fused_tail, tail_operands,
 )
 
 __all__ = ["hat_fast_forward", "prepare_hat_serving"]
-
-
-def _ln(norm: nn.LayerNorm, prefix: str = "ln") -> Dict[str, torch.Tensor]:
-    return {f"{prefix}_w": _f32(norm.weight), f"{prefix}_b": _f32(norm.bias)}
 
 
 def prepare_hat_serving(module: nn.Module, config: Dict[str, Any], dtype) -> Dict[str, Any]:

@@ -2,7 +2,12 @@
 
 Port of ``studiosr_tpu/serving/swinir_fast.py``: the exact SwinIR eval
 computation (``models/swinir.py``), with every Swin block through B1
-(``ops/cuda/swin_block.py``), the RSTB convs and ``conv_after_body`` through
+(``ops/cuda/swin_block.py``) at window 8, and at windows 2-7 and 9-16 as B5
+(``ops/cuda/window_attention.py``, the shift and its mask folded into its
+reads) then B6 (``ops/cuda/mlp_block.py``) on the flattened rows, the JAX
+package's own route where its whole-block kernel declines the window; above
+16 no kernel takes the window and :func:`prepare_serving` raises for a
+module on the card. The RSTB convs and ``conv_after_body`` through
 B2 (``ops/cuda/conv3x3.py``, the skip map folded in through ``extra``) and
 the tail through B3 at x4 or B4 at x2 / x3 (``ops/cuda/upsampler.py``); x8
 has no fused tail and records its structural decline. SwinFIR's SFBs
@@ -31,9 +36,15 @@ from studiosr_tpu_torch.ops.cuda import engagement
 from studiosr_tpu_torch.ops.cuda.conv3x3 import (
     fused_conv3x3, fused_resblock, prepare_conv3x3_weights, prepare_fused_conv3x3_weights,
 )
-from studiosr_tpu_torch.ops.cuda.swin_block import fused_swin_block, mma_geometry_error, pack_swin_weights
+from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mma_takes as mlp_mma_takes, pack_mlp_block
+from studiosr_tpu_torch.ops.cuda.swin_block import (
+    KERNEL_WINDOW, fused_swin_block, mma_geometry_error, pack_swin_weights,
+)
 from studiosr_tpu_torch.ops.cuda.upsampler import (
     SCALES_S, fused_upsample_s, fused_upsample_x4, mma_geometry_error as tail_geometry_error, pack_tail,
+)
+from studiosr_tpu_torch.ops.cuda.window_attention import (
+    KERNEL_WINDOWS, fused_window_attention_block, mma_takes as attn_mma_takes, pack_window_attention,
 )
 from studiosr_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 from studiosr_tpu_torch.ops.windows import gather_rel_bias, pad_to_multiple_flip, relative_position_index
@@ -43,6 +54,10 @@ __all__ = ["swinir_fast_forward", "prepare_serving", "tail_operands", "fused_tai
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.detach().float().contiguous()
+
+
+def _ln(norm: nn.LayerNorm, prefix: str = "ln") -> Dict[str, torch.Tensor]:
+    return {f"{prefix}_w": _f32(norm.weight), f"{prefix}_b": _f32(norm.bias)}
 
 
 def _dense(linear: nn.Linear, dtype) -> torch.Tensor:
@@ -80,6 +95,35 @@ def _b1_operands(blk: nn.Module, heads: int, rpi, dtype) -> Dict[str, Any]:
     return ops
 
 
+def _b5_b6_operands(blk: nn.Module, heads: int, rpi, dtype) -> Dict[str, Any]:
+    """B5's and B6's operands for one Swin block at a window B1 does not
+    take, ``{"attn": ..., "mlp": ...}`` by keyword: in bf16 B5's weights and
+    gathered rel-pos bias packed once into its kernel's blob where
+    ``mma_takes`` the geometry (``wqkv``; ``wproj``, ``bias`` None), and
+    B6's fc1 and fc2 into its blob where its ``mma_takes`` does (``w1``;
+    ``w2`` None); dense (in, out) otherwise."""
+    a = blk.attn
+    attn = dict(**_ln(blk.norm1), wqkv=_dense(a.qkv, dtype), bqkv=_f32(a.qkv.bias), wproj=_dense(a.proj, dtype),
+                bproj=_f32(a.proj.bias),
+                bias=gather_rel_bias(_f32(a.relative_position_bias_table), rpi, heads).contiguous())
+    if dtype == torch.bfloat16 and attn_mma_takes(attn["ln_w"].numel(), heads):
+        attn.update(wqkv=pack_window_attention(attn["wqkv"], attn["wproj"], attn["bias"], heads), wproj=None,
+                    bias=None)
+    mlp = dict(**_ln(blk.norm2), w1=_dense(blk.mlp.fc1, dtype), b1=_f32(blk.mlp.fc1.bias),
+               w2=_dense(blk.mlp.fc2, dtype), b2=_f32(blk.mlp.fc2.bias))
+    if dtype == torch.bfloat16 and mlp_mma_takes(*mlp["w1"].shape):
+        mlp.update(w1=pack_mlp_block(mlp["w1"], mlp["w2"]), w2=None)
+    return {"attn": attn, "mlp": mlp}
+
+
+def _swin_block(x: torch.Tensor, operands: Dict[str, Any], heads: int, ws: int, shift: int) -> torch.Tensor:
+    """One Swin block: B1 on its operands, or B5 then B6 on theirs."""
+    if "attn" not in operands:
+        return fused_swin_block(x, **operands, heads=heads, window_size=ws, shift=shift)
+    y = fused_window_attention_block(x, **operands["attn"], heads=heads, window_size=ws, shift=shift)
+    return fused_mlp_block(y.reshape(-1, y.shape[-1]), **operands["mlp"]).reshape(y.shape)
+
+
 def _residual_operands(block: nn.Module, dtype):
     """A 3x3 conv's operands for B2, or an SFB's spatial-branch pair
     ``{"s0", "b0", "s2", "b2"}`` for B14."""
@@ -106,14 +150,22 @@ def prepare_serving(module: nn.Module, config: Dict[str, Any], dtype) -> Dict[st
     bf16 B1's weights and rel-pos bias are packed into its kernel's blob, and
     B2's and B14's conv weights into theirs (an SFB's two spatial-branch convs
     as a ``{s0, b0, s2, b2}`` pair); otherwise the rel-pos bias is gathered to
-    (heads, N, N). LayerNorm weights and biases become f32. Consumed by
+    (heads, N, N). LayerNorm weights and biases become f32. Window 8 lays out
+    B1's operands; the other windows B5's and B6's (:func:`_b5_b6_operands`).
+    A module on the card at a window no kernel takes (above 16) raises
+    ``NotImplementedError`` here, before any launch. Consumed by
     :func:`swinir_fast_forward`."""
     ws = int(config["window_size"])
+    if ws not in KERNEL_WINDOWS and next(module.parameters()).device.type == "cuda":
+        raise NotImplementedError(
+            f"fused SwinIR serving: the CUDA kernels take windows {KERNEL_WINDOWS[0]}-{KERNEL_WINDOWS[-1]} (B1 at "
+            f"{KERNEL_WINDOW}, B5 + B6 at the others), not {ws}; B5 above window 16 is queued in ROADMAP")
+    block_operands = _b1_operands if ws == KERNEL_WINDOW else _b5_b6_operands
     rpi = relative_position_index(ws)
     prep: Dict[str, Any] = {"blocks": [], "convs": []}
     for li, layer in enumerate(module.layers):
         heads = int(config["num_heads"][li])
-        prep["blocks"].append([_b1_operands(blk, heads, rpi, dtype) for blk in layer.residual_group.blocks])
+        prep["blocks"].append([block_operands(blk, heads, rpi, dtype) for blk in layer.residual_group.blocks])
         prep["convs"].append(_residual_operands(layer.conv, dtype))
     prep["after_body"] = _residual_operands(module.conv_after_body, dtype)
     if config.get("upsampler", "pixelshuffle") == "pixelshuffle":
@@ -181,7 +233,7 @@ def swinir_fast_forward(
         heads = int(config["num_heads"][li])
         res = feats
         for bi, operands in enumerate(prep["blocks"][li]):
-            res = fused_swin_block(res, **operands, heads=heads, window_size=ws, shift=0 if bi % 2 == 0 else ws // 2)
+            res = _swin_block(res, operands, heads, ws, 0 if bi % 2 == 0 else ws // 2)
         feats = _residual_conv(layer.conv, res, prep["convs"][li], feats)
     feats = _layernorm(feats, module.norm)
     x = _residual_conv(module.conv_after_body, feats, prep["after_body"], shallow)

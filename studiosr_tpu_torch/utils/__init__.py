@@ -1,3 +1,4 @@
+from studiosr_tpu_torch.utils.compare import compare
 from studiosr_tpu_torch.utils.helpers import (
     Logger,
     check_state_shapes,
@@ -5,6 +6,7 @@ from studiosr_tpu_torch.utils.helpers import (
     download,
     download_gdrive,
     gdown_and_extract,
+    get_image_extensions,
     get_image_files,
     imread,
     imwrite,
@@ -16,16 +18,19 @@ from studiosr_tpu_torch.utils.metrics import (
     compute_ssim,
     compute_ssim_torch,
     crop_img_to_equal,
+    is_rgb,
     to_y,
 )
 
 __all__ = [
     "Logger",
     "check_state_shapes",
+    "compare",
     "count_parameters",
     "download",
     "download_gdrive",
     "gdown_and_extract",
+    "get_image_extensions",
     "get_image_files",
     "imread",
     "imwrite",
@@ -39,5 +44,6 @@ __all__ = [
     "compute_ssim",
     "compute_ssim_torch",
     "crop_img_to_equal",
+    "is_rgb",
     "to_y",
 ]

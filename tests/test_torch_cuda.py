@@ -1432,3 +1432,55 @@ def test_trainer_on_the_card_takes_the_native_host_routes_and_traces_the_kernels
     names = [e.get("name", "") for e in json.loads(trace.read_text())["traceEvents"] if e.get("cat") == "kernel"]
     for name, kernel in kernels.items():
         assert sum(kernel in n for n in names) >= 2, (name, kernel)
+
+
+# C7: fused SwinIR / SwinFIR serving at windows other than 8 (B5 then B6 for
+# each Swin block; B1 at window 8). Windows 2-7 take B5's one-tile family,
+# 9-16 its multi-tile one; C 24 with 2 heads of 12 (the bf16 H100 kernels'
+# geometry rule takes it).
+SERVING_WINDOWS = [2, 3, 4, 5, 6, 7, 9, 10, 12, 16]
+
+
+def _rel_l2(got, want):
+    return float(torch.linalg.vector_norm(got.double() - want.double()) / torch.linalg.vector_norm(want.double()))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", ["swinir", "swinfir"])
+@pytest.mark.parametrize("ws", SERVING_WINDOWS)
+def test_fused_serving_at_every_window_matches_plain(dev, ws, name, dtype):
+    """The fused forward against the plain f32 forward of the same weights
+    (relative L2 1e-4 in f32, 2e-2 in bf16, as chip_smoke.py's end-to-end
+    rule), B5 and B6 launched once a Swin block and B1 never."""
+    from studiosr_tpu_torch import SwinFIR
+
+    cls = SwinFIR if name == "swinfir" else SwinIR
+    model = cls.build(scale=4, embed_dim=24, depths=[2, 2], num_heads=[2, 2], window_size=ws, device=dev)
+    x = torch.rand(1, 20, 28, 3, generator=torch.Generator().manual_seed(ws)).to(dev)
+    want = model(x)
+    if dtype == torch.bfloat16:
+        model.half()
+    engagement.reset()
+    got = model.enable_fused(True)(x)
+    b5 = "fused_window_attention_block" + ("_ws16" if ws > 8 else "")
+    counts = engagement.counters()
+    assert counts[b5] == 4 and counts["fused_mlp_block"] == 4 and "fused_swin_block" not in counts
+    assert _rel_l2(got, want) <= (1e-4 if dtype == torch.float32 else 2e-2)
+
+
+def test_fused_serving_above_window_16_raises_before_any_launch(dev):
+    model = SwinIR.build(scale=4, embed_dim=24, depths=[2, 2], num_heads=[2, 2], window_size=24, device=dev)
+    model.half().enable_fused(True)
+    engagement.reset()
+    with pytest.raises(NotImplementedError, match="windows 2-16"):
+        model(torch.rand(1, 24, 24, 3, device=dev))
+    assert engagement.counters() == {}
+    assert model.enable_fused(False)(torch.rand(1, 24, 24, 3, device=dev)).shape == (1, 96, 96, 3)
+
+
+def test_window_8_still_serves_through_b1(dev):
+    """SwinIR classical x4 at full width, window 8: 36 B1 launches a forward, no B5 or B6."""
+    model = SwinIR.build(scale=4, device=dev).half().enable_fused(True)
+    engagement.reset()
+    model(torch.rand(1, 32, 32, 3, device=dev))
+    assert engagement.counters() == {"fused_swin_block": 36, "fused_conv3x3": 7, "fused_upsample_x4": 1}

@@ -170,8 +170,11 @@ def test_evaluator_matches_jax_on_both_layouts(tmp_path, x2_pair, kind):
     if not torch.cuda.is_available():  # a bare callable's on-device scores are taken on the card
         with pytest.raises(RuntimeError, match="CUDA"):
             port.run(model.inference, on_device=True)
-    with pytest.raises(NotImplementedError, match="A18"):
-        port.run(model, visualize=True)
+    shown = []  # visualize=True hands each image's panels to the viewer and scores as the host route does
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(sys.modules["studiosr_tpu_torch.utils.compare"], "compare", shown.append)
+        assert port.run(model, visualize=True) == host
+    assert len(shown) == len(port.testset) and all(len(panels) == 4 for panels in shown)
 
 
 def test_benchmark_table(tmp_path, monkeypatch, capsys, x2_pair):
@@ -276,5 +279,12 @@ def test_cli_tiled_half_and_errors(tmp_path, monkeypatch):
     assert compute_psnr(tiled, hr) > compute_psnr(whole, hr) - 0.5
     with pytest.raises(SystemExit):  # argparse error: the checkpoint is x4
         _cli(monkeypatch, main, base[:3] + ["2"] + base[4:] + ["--output", str(tmp_path / "x")])
-    with pytest.raises(NotImplementedError, match="A8"):
-        _cli(monkeypatch, main, ["--image", img, "--model", "hat", "--output", str(tmp_path / "z")])
+    # without --ckpt the CLI serves the release file under ./pretrained, and reaches for the network without it
+    monkeypatch.chdir(tmp_path)
+
+    def offline(*args, **kwargs):
+        raise ConnectionError("offline")
+
+    monkeypatch.setattr(helpers, "download_gdrive", offline)
+    with pytest.raises(ConnectionError, match="offline"):
+        _cli(monkeypatch, main, ["--image", img, "--model", "hat", "--output", str(tmp_path / "z"), "--device", "cpu"])

@@ -43,6 +43,9 @@ WRAPPERS = [
     "studiosr_tpu_torch.utils.png",
     "studiosr_tpu_torch.parallel.tiled",
     "studiosr_tpu_torch.__main__",
+    "studiosr_tpu_torch.zoo",
+    "studiosr_tpu_torch.utils.compare",
+    "studiosr_tpu_torch.serving.swinir_fast",
 ]
 
 
@@ -69,8 +72,10 @@ def test_guard_sees_the_whole_package():
         "trainer.py", "train_step.py", "dataset.py", "handler.py", "transforms.py", "losses.py", "helpers.py",
         "hat.py", "hat_fast.py", "ocab.py", "metrics.py", "png.py", "checkpoint.py", "registry.py", "tiled.py",
         "evaluator.py", "__main__.py", "oca_core.py", "oca_vjp.py", "swinfir.py", "maxsr.py", "window_attn.py",
-        "torch_train.py",
+        "torch_train.py", "compare.py",
     } <= names
+    paths = {str(p.relative_to(PACKAGE)) for p in SOURCES if PACKAGE in p.parents}
+    assert {"zoo/__init__.py", "zoo/translate.py", "utils/compare.py", "models/base.py"} <= paths
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
