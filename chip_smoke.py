@@ -51,7 +51,12 @@ against its plain PyTorch version:
 * SwinFIR x4 at window 12 with SwinIR classical's widths (embed 180, depths
   [6]x6, 6 heads, mlp ratio 2, the SFBs): bf16, batch 1, 256x256 LR, each
   Swin block as B5 then B6 (the route of every window but 8), and SwinIR x4
-  at windows 4, 16 and 8 at a reduced depth;
+  at windows 4, 16, 24 and 8 at a reduced depth;
+* above window 16 (B5's and B9's streaming family): SwinIR classical x4 at
+  window 24 (the classical widths, depth not cut; bf16, batch 1, 256x256
+  LR: B5 36 and B6 36 a forward, no B1) and MaxSR x4 adaptive fused
+  training at a 289x289 LR crop (window 17, batch 1, ``MAXSR_MAIN``), then
+  the tiled device loop (SwinIR x4, 512 x 384, tile 128);
 * the published-weight zoo offline: release-layout files written under a
   temporary ``./pretrained`` from seeded port models (SwinIR x4, HAT, EDSR,
   RCAN at their published widths) and read by ``from_pretrained``, the CLI
@@ -190,7 +195,24 @@ Phases, in order; any failure exits non-zero before the final line:
     and B8 / B9 against their plain versions on the first attention pair's
     operands of a step, timed beside their plain versions, bounds and
     bf16 PyTorch yardsticks (the kernels line's ``*_maxsr_ws{7,10,12}``
-    rows); the f64 gradient witness at batch 4 of each crop;
+    rows); the f64 gradient witness at batch 4 of each crop (its plain runs
+    recompute each attention pair in the backward, ``recomputed``, so the
+    f64 one fits the card);
+27c. B5 and its backward above window 16 (``phase_large_windows``): against
+    their plain versions at windows 17, 20, 24, 32 and 33, shift 0 and ws /
+    2, with and without drop-path, bf16 at C 128 / 4 heads and C 180 / 6
+    (the streaming family's H100 entries), bf16 at C 128 / 2 heads (head
+    dim 64) and f32 at C 128 / 4 (the older kernels' ``_large`` entries),
+    the serving blob giving the dense weights' bits and the backward its
+    bits again; window 32 timed (ms, plain ms, bound, bf16 PyTorch
+    yardstick: the ``*_large_ws32`` rows); SwinIR classical x4 at window
+    24, full width, bf16 fused: the forward within 2e-2 of the plain f32
+    one, B5 36 (``_large``), B6 36, B2 7, B3 1, no B1, its ms and LR MP/s
+    beside window 8's, B5 on the served operands timed (the
+    ``*_large_swinir_ws24`` row); the tiled device loop against the host
+    loop, bit for bit, with the host seconds of each; then MaxSR x4 adaptive
+    fused training at a 289² crop (window 17, batch 1) as phase 27b, its f64
+    witness at batch 1 (the ``*_large_maxsr_ws17`` rows);
 28. the eight conv families (SRCNN, ESPCN, VDSR, SRResNet, EDSR, RCAN, HAN,
     IMDN) x4 at their build defaults (the reference's flax init): every
     conv of the bf16 forward vs f32 on its input, the bf16 forward vs the
@@ -245,9 +267,8 @@ Phases, in order; any failure exits non-zero before the final line:
     on the first shifted block's served operands against their plain
     versions, their ms, plain ms, bounds and bf16 PyTorch yardsticks (the
     kernels line's ``*_swinfir_ws12`` rows); SwinIR x4 at depth [2]x2, f32
-    and bf16, at windows 4 and 16 (B5 + B6) and 8 (B1) against the plain f32
-    forward with the launches of a forward; window 24 must raise
-    ``NotImplementedError`` naming windows 2-16 before any launch;
+    and bf16, at windows 4, 16 and 24 (B5 + B6) and 8 (B1) against the plain
+    f32 forward with the launches of a forward;
 35. the zoo (``phase_zoo``, after phase 31): in a temporary directory,
     ``pretrained/001_classicalSR_DF2K_s64w8_SwinIR-M_x4.pth`` in the
     release's layout (``{"params": ...}`` from a seeded port SwinIR x4, the
@@ -282,6 +303,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch.func import functional_call
 
 import studiosr_tpu_torch
@@ -290,7 +312,7 @@ from studiosr_tpu_torch.zoo.registry import get_model_class
 from studiosr_tpu_torch.data import PairedImageDataset, PrefetchLoader
 from studiosr_tpu_torch.models.blocks import Conv
 from studiosr_tpu_torch.ops.cuda import _build, engagement
-from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd, attention_bwd_plain
+from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd, attention_bwd_plain, mma_takes
 from studiosr_tpu_torch.ops.attention import attention_plain
 from studiosr_tpu_torch.ops.cuda.conv3x3 import (
     cab_body_plain, conv3x3_plain, fused_cab_body, fused_conv3x3, fused_resblock, resblock_plain, unpack_cab_weights,
@@ -306,7 +328,8 @@ from studiosr_tpu_torch.ops.cuda.upsampler import (
     upsample_s_plain, upsample_x4_plain,
 )
 from studiosr_tpu_torch.ops.cuda.window_attention import (
-    fused_window_attention_block, unpack_window_attention, window_attention_plain,
+    fused_window_attention_block, pack_window_attention, unpack_window_attention, window_attention_plain,
+    window_family,
 )
 from studiosr_tpu_torch.ops.cuda.window_attn import window_attention
 from studiosr_tpu_torch.ops.resize import bicubic_resize
@@ -459,6 +482,7 @@ H100_ENTRIES = {"fused_swin_block": "swin_block_mma_bf16", "fused_conv3x3": "con
                 "fused_upsample_x4": "upsample_x4_mma_bf16", "fused_upsample_s": "upsample_s_mma_bf16",
                 "fused_window_attention_block": "window_attention_mma_bf16",
                 "fused_window_attention_block_ws16": "window_attention16_mma_bf16",
+                "fused_window_attention_block_large": "window_attention_large_mma_bf16",
                 "fused_mlp_block": "mlp_block_mma_bf16", "fused_mlp_block_extra": "mlp_block_extra_mma_bf16",
                 "fused_cab_body": "cab_body_mma_bf16", "fused_ocab_block": "ocab_mma_bf16"}
 H100_KERNELS = {"fused_swin_block": ("swin_block_mma", "swin_block_mma_kernel"),
@@ -467,8 +491,10 @@ H100_KERNELS = {"fused_swin_block": ("swin_block_mma", "swin_block_mma_kernel"),
                 "window_attention_pallas": ("window_attn", "wf_kernel"),
                 "fused_upsample_x4": ("upsampler", "upsample_"), "fused_upsample_s": ("upsampler", "upsample_"),
                 "attention_bwd": ("attn_bwd_mma", "am_"), "attention_bwd_ws16": ("attn_bwd_mma", "am_"),
+                "attention_bwd_large": ("attn_bwd_mma", "al_"),
                 "fused_window_attention_block": ("window_attention_mma", "_kernel"),
                 "fused_window_attention_block_ws16": ("window_attention_mma", "_kernel"),
+                "fused_window_attention_block_large": ("window_attention_mma", "wa_attn_large"),
                 "mlp_bwd": ("mlp_bwd_mma", "_kernel"), "fused_mlp_block": ("mlp_block_mma", "mf_kernel"),
                 "fused_mlp_block_extra": ("mlp_block_mma", "mf_kernel"), "oca_core_bwd": ("oca_bwd_mma", "ob_"),
                 "fused_cab_body": ("cab_mma", "_kernel"), "oca_core_fwd": ("oca_fwd_mma", "of_"),
@@ -478,13 +504,18 @@ H100_KERNELS = {"fused_swin_block": ("swin_block_mma", "swin_block_mma_kernel"),
 # every width the paths train), f32 the older kernels.
 TRAIN_ENTRIES = {
     torch.bfloat16: {"attention_bwd": "attn_bwd_mma_bf16", "attention_bwd_ws16": "attn_bwd16_mma_bf16",
+                     "attention_bwd_large": "attn_bwd_large_mma_bf16",
                      "fused_window_attention_block": "window_attention_mma_bf16",
-                     "fused_window_attention_block_ws16": "window_attention16_mma_bf16", "mlp_bwd": "mlp_bwd_mma_bf16",
+                     "fused_window_attention_block_ws16": "window_attention16_mma_bf16",
+                     "fused_window_attention_block_large": "window_attention_large_mma_bf16",
+                     "mlp_bwd": "mlp_bwd_mma_bf16",
                      "fused_mlp_block": "mlp_block_mma_bf16", "oca_core_bwd": "oca_core_bwd_mma_bf16",
                      "oca_core_fwd": "oca_core_fwd_mma_bf16"},
     torch.float32: {"attention_bwd": "attn_bwd_f32", "attention_bwd_ws16": "attn_bwd16_f32",
+                    "attention_bwd_large": "attn_bwd_large_f32",
                     "fused_window_attention_block": "window_attention_f32",
-                    "fused_window_attention_block_ws16": "window_attention16_f32", "mlp_bwd": "mlp_bwd_f32",
+                    "fused_window_attention_block_ws16": "window_attention16_f32",
+                    "fused_window_attention_block_large": "window_attention_large_f32", "mlp_bwd": "mlp_bwd_f32",
                     "fused_mlp_block": "mlp_block_f32", "oca_core_bwd": "oca_core_bwd_f32",
                     "oca_core_fwd": "oca_core_fwd_f32"},
 }
@@ -521,9 +552,10 @@ MAXSR_ROWS = {f"{name}_maxsr": name for name in MAXSR_PER_STEP}
 # batch, the gradient witness's batch). 48² (the EDSR-style patch) has
 # windows of 7 (B5 + B8, one 64-token tile a window), 96² of 10 and 144² of
 # 12 (B5 + B9, two and three tiles); the batches keep a step under about 25
-# GiB (96² at batch 32 would take about 80); the plain f64 witness at 144²
-# and batch 4 takes more than the card's 80 GB, so it runs at batch 2 there.
-MAXSR_WINDOW_CROPS = ((48, 32, 4), (96, 8, 4), (144, 4, 2))
+# GiB (96² at batch 32 would take about 80). The plain runs of the gradient
+# witness recompute each attention pair in the backward (``train_grads``), so
+# the f64 one fits the card at 144² and batch 4.
+MAXSR_WINDOW_CROPS = ((48, 32, 4), (96, 8, 4), (144, 4, 4))
 MAXSR_WINDOW_STEPS = 3
 KERNELS.update({row: KERNELS[name] for row, name in MAXSR_ROWS.items()})
 # How hold_grads holds a model's gradients: the f32 fused run against the f64
@@ -583,13 +615,48 @@ WINDOWS_ROWS = {"fused_window_attention_block_ws16": "fused_window_attention_blo
                 "fused_mlp_block": "fused_mlp_block_swinfir_ws12"}
 KERNELS.update({row: KERNELS[name] for name, row in WINDOWS_ROWS.items()})
 # routing coverage at a reduced depth (two groups of two blocks), SwinIR x4 at
-# the published widths: windows 4 and 16 take B5 + B6, window 8 B1; a window
-# above 16 raises before any launch
+# the published widths: windows 4, 16 and 24 take B5 + B6 (B5 in its three
+# families), window 8 B1
 WINDOWS_REDUCED = dict(MAIN, depths=[2, 2], num_heads=[6, 6])
 WINDOWS_COVERAGE = {4: {"fused_window_attention_block": 4, "fused_mlp_block": 4},
                     16: {"fused_window_attention_block_ws16": 4, "fused_mlp_block": 4},
+                    24: {"fused_window_attention_block_large": 4, "fused_mlp_block": 4},
                     8: {"fused_swin_block": 4}}
-WINDOW_QUEUED, WINDOWS_LR = 24, 64
+WINDOWS_LR = 64
+# B5 and its backward above window 16 (the streaming family, ``_large``):
+# the kernel checks at windows 17 to 33 (N 289 to 1089; 32 is 16 whole
+# 64-token chunks, 33 the most padding), each geometry on a map of 2 x 3
+# windows, batch 2, shift 0 and ws / 2, with and without drop-path (a 0 and a
+# 1.25 scale): bf16 at MaxSR's C 128 / 4 heads and SwinIR's C 180 / 6 (the
+# kernels written for the H100), bf16 at C 128 / 2 heads (head dim 64: the
+# older kernels), f32 at C 128 / 4 heads; then window 32 timed at C 128 / 4
+# heads on 4 x 4 windows
+KERNELS.update({
+    "fused_window_attention_block_large": (
+        "studiosr_tpu_torch/csrc/window_attention_mma.cu", "studiosr_tpu/ops/pallas/swin_block.py:549"),
+    "attention_bwd_large": ("studiosr_tpu_torch/csrc/attn_bwd_mma.cu", "studiosr_tpu/ops/pallas/attn_bwd.py:508"),
+})
+LARGE_WINDOWS = (17, 20, 24, 32, 33)
+LARGE_GEOMETRIES = ((torch.bfloat16, 128, 4), (torch.bfloat16, 180, 6), (torch.bfloat16, 128, 2),
+                    (torch.float32, 128, 4))
+LARGE_TIMED = (32, 128, 4, 4)  # window, C, heads, windows a side
+LARGE_ROWS = {"fused_window_attention_block_large": "fused_window_attention_block_large_ws32",
+              "attention_bwd_large": "attention_bwd_large_ws32"}
+KERNELS.update({row: KERNELS[name] for name, row in LARGE_ROWS.items()})
+# SwinIR classical x4 at window 24 (JingyunLiang/SwinIR's classical widths:
+# embed 180, depths [6]x6, 6 heads, mlp ratio 2), depth not cut: bf16, batch
+# 1, 256² LR (264² after the flip padding, 121 windows of 576 tokens); each
+# Swin block as B5 (the streaming family) then B6, B2 7 and B3 1, no B1
+LARGE_SWINIR = dict(MAIN, window_size=24)
+LARGE_SWINIR_PER_FORWARD = {"fused_window_attention_block_large": 36, "fused_mlp_block": 36, "fused_conv3x3": 7,
+                            "fused_upsample_x4": 1}
+KERNELS["fused_window_attention_block_large_swinir_ws24"] = KERNELS["fused_window_attention_block_large"]
+# MaxSR x4 adaptive fused training at a 289² LR crop (window 17, batch 1; the
+# witness at batch 1 too), as phase_maxsr_windows trains its crops
+LARGE_MAXSR_CROP = (289, 1, 1)
+# the tiled device loop on the card: SwinIR x4 (MAIN, bf16 fused) on a 512 x
+# 384 image at tile 128, overlap 16, tile batch 8 (20 tiles, 3 batches)
+TILED_IMAGE, TILED_TILE, TILED_OVERLAP = (512, 384), 128, 16
 # The zoo, offline: release-layout files written under a temporary
 # ./pretrained from seeded port models at the published widths, then read by
 # from_pretrained (the CLI without --ckpt for SwinIR x4).
@@ -1219,8 +1286,14 @@ def train_grads(model, dev: torch.device, seed: int, grad_runs=GRAD_RUNS, crop: 
     kinks = [m for n, m in module.named_modules()
              if n == "conv_before_upsample.0" or n.endswith("attention.1") or n.endswith(SFB_KINKS)]
     handles = [m.register_forward_hook(pin) for m in kinks]
+    pairs = [m for m in module.modules() if type(m).__name__ == "_AttentionPair"]
     try:
         for path, dtype in grad_runs:
+            for pair in pairs:  # the plain runs recompute each MaxSR attention pair in the backward
+                if path == "plain":
+                    pair.forward = recomputed(pair)
+                else:
+                    pair.__dict__.pop("forward", None)
             module.fused_train = path == "fused"
             acc = torch.float64 if dtype == torch.float64 else torch.float32
             leaves = {k: p.detach().to(dtype).requires_grad_() for k, p in named}
@@ -1242,8 +1315,36 @@ def train_grads(model, dev: torch.device, seed: int, grad_runs=GRAD_RUNS, crop: 
     finally:
         for handle in handles:
             handle.remove()
+        for pair in pairs:
+            pair.__dict__.pop("forward", None)
         module.fused_train = False
     return runs
+
+
+def recomputed(module: torch.nn.Module):
+    """``module``'s forward under activation checkpointing: the backward
+    recomputes it from its input and the parameters it was called with (the
+    run's leaves, handed in explicitly, so the recomputation sees them after
+    ``functional_call`` has put the module's own back). A MaxSR attention
+    pair draws nothing at random, so the recomputation is the forward; the
+    plain f64 witness then holds one pair's scores at a time, not all 32."""
+    forward = module.forward
+
+    def run(*args):
+        if getattr(module, "_recomputing", False):
+            return forward(*args)
+        names, params = zip(*module.named_parameters())
+
+        def fn(x, *leaves):
+            module._recomputing = True
+            try:
+                return functional_call(module, dict(zip(names, leaves)), (x, *args[1:]))
+            finally:
+                module._recomputing = False
+
+        return torch.utils.checkpoint.checkpoint(fn, args[0], *params, use_reentrant=False)
+
+    return run
 
 
 def grad_report(runs: dict, seed: int, label: str = "", zero_grads: tuple = (), batch: int = CHECK_BATCH) -> dict:
@@ -1436,11 +1537,11 @@ def train_bounds(name: str, ops) -> tuple:
     x = ops[0]
     c = x.shape[-1]
     tokens = x.numel() // c
-    if name == "fused_window_attention_block":
+    if name.startswith("fused_window_attention_block"):
         n = ops[7].shape[-1]  # tokens a window: the window's own, not its padding to whole tiles
         flops = 2 * tokens * c * 4 * c + 4 * tokens * n * c
         moved = 2 * nbytes(x) + nbytes(*ops[1:])
-    elif name in ("attention_bwd", "attention_bwd_ws16"):
+    elif name.startswith("attention_bwd"):
         n = ops[-1].shape[-1]  # tokens a window
         flops = 3 * 2 * tokens * c * 3 * c + 2 * 2 * tokens * c * c + 12 * tokens * n * c
         moved = 3 * nbytes(x) + nbytes(*ops[2:]) + 4 * sum(t.numel() for t in ops[2:])  # + f32 gradients
@@ -2662,12 +2763,12 @@ def phase_maxsr_train_timing(model, models, dev: torch.device, errors: dict, lau
 def maxsr_window_per_step(ws: int) -> dict:
     """MaxSR's launches a fused step at window ``ws``: 32 of each, B5 and the
     attention backward under their window family's keys."""
-    suffix = "_ws16" if ws * ws > 64 else ""
+    suffix = window_family(ws)
     return {"fused_window_attention_block" + suffix: 32, "attention_bwd" + suffix: 32, "fused_mlp_block": 32,
             "mlp_bwd": 32}
 
 
-def phase_maxsr_windows(dev: torch.device) -> list:
+def phase_maxsr_windows(dev: torch.device, crops=MAXSR_WINDOW_CROPS) -> list:
     """MaxSR x4 adaptive at full width, bf16 over f32 masters, fused_train,
     at square LR crops whose windows the earlier phases do not reach
     (``MAXSR_WINDOW_CROPS``: 48² has windows of 7, 96² of 10, 144² of 12, the
@@ -2677,13 +2778,13 @@ def phase_maxsr_windows(dev: torch.device) -> list:
     memory; B5 and B8 / B9 against their plain versions on the first
     attention pair's operands of a step (its input and its bf16 weights),
     timed with their plain versions, bounds and bf16 PyTorch yardsticks;
-    the f64 gradient witness at batch 4 (``hold_grads``, MaxSR's rules; at
-    144² batch 2: its plain f64 run at batch 4 outgrows the card's 80 GB).
-    Returns the kernels line's rows, one a kernel a window."""
+    the f64 gradient witness at the crop's witness batch (``hold_grads``,
+    MaxSR's rules). ``crops`` as ``MAXSR_WINDOW_CROPS``. Returns the kernels
+    line's rows, one a kernel a window."""
     import studiosr_tpu_torch.models.maxsr as maxsr_module
 
     rows, failed = [], []
-    for side, batch, witness_batch in MAXSR_WINDOW_CROPS:
+    for side, batch, witness_batch in crops:
         ws = math.ceil(math.sqrt(side))
         per_step = maxsr_window_per_step(ws)
         model = MaxSR.build(**MAXSR_MAIN, seed=SEED, device=dev)
@@ -2739,7 +2840,7 @@ def phase_maxsr_windows(dev: torch.device) -> list:
         cases = (("fused_window_attention_block", fused_window_attention_block, window_attention_plain, (x, *attn_ops)),
                  ("attention_bwd", attention_bwd, attention_bwd_plain, (x, g, *attn_ops)))
         for base, kernel, plain, ops in cases:
-            name = base + ("_ws16" if ws * ws > 64 else "")
+            name = base + window_family(ws)
             got = _flat(kernel(*ops, **kw))
             want = _flat(plain(*[t.float() for t in ops], **kw))
             err = [kernel_check(f"{name} [{label}] output {i}", k, p, torch.bfloat16, failed)
@@ -2788,9 +2889,9 @@ def window_bounds(name: str, ops, ws: int) -> tuple:
 
 def windows_coverage(dev: torch.device) -> list:
     """SwinIR x4 at the published widths, depth cut to [2]x2, bf16 and f32,
-    at windows 4, 16 and 8: the fused forward against the plain f32 one and
-    the launches of a forward, each through its dtype's entry; then window
-    24, which must raise naming windows 2-16 before any launch."""
+    at windows 4, 16, 24 and 8: the fused forward against the plain f32 one
+    and the launches of a forward, each through its dtype's entry (window 24
+    raised before B5's streaming family was written; now it serves)."""
     failed = []
     x = torch.rand(1, WINDOWS_LR, WINDOWS_LR, 3, generator=torch.Generator().manual_seed(SEED + 12)).to(dev)
     for ws, per in WINDOWS_COVERAGE.items():
@@ -2817,18 +2918,6 @@ def windows_coverage(dev: torch.device) -> list:
             if dtype == torch.bfloat16:
                 failed += entry_failures(label, launches)
             del model
-    model = SwinIR.build(**dict(WINDOWS_REDUCED, window_size=WINDOW_QUEUED), seed=SEED, device=dev)
-    model.half().enable_fused(True)
-    engagement.reset()
-    try:
-        model(x)
-        failed.append(f"window {WINDOW_QUEUED} served fused instead of raising")
-    except NotImplementedError as err:
-        log(f"windows: window {WINDOW_QUEUED} raises NotImplementedError: {err}")
-        if "2-16" not in str(err):
-            failed.append(f"window {WINDOW_QUEUED}'s error does not name windows 2-16: {err}")
-    if engagement.counters():
-        failed.append(f"window {WINDOW_QUEUED} launched {engagement.counters()} before raising")
     return failed
 
 
@@ -2922,6 +3011,231 @@ def phase_windows_serving(dev: torch.device) -> list:
     if failed:
         raise AssertionError("windows serving: " + "; ".join(failed))
     return rows_out
+
+
+# -- B5 and its backward above window 16 -------------------------------------------------
+
+
+def large_window_ops(dev: torch.device, dtype: torch.dtype, c: int, heads: int, ws: int, shape, seed: int):
+    """x, g (``shape`` + (C,), in ``dtype``) and B5's dense operands at window
+    ``ws``: LN weights, q|k|v and proj weights (``dtype``) and biases, the
+    (heads, N, N) bias (f32), from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    r = lambda *size, k=1.0: torch.randn(*size, generator=gen) * k  # noqa: E731
+    n = ws * ws
+    ops = [1 + r(c, k=0.1), r(c, k=0.1), r(c, 3 * c, k=c**-0.5), r(3 * c, k=0.1), r(c, c, k=c**-0.5), r(c, k=0.1),
+           r(heads, n, n, k=0.5)]
+    ops = [t.to(dev, dtype if i in (2, 4) else torch.float32) for i, t in enumerate(ops)]
+    return r(*shape, c).to(dev, dtype), r(*shape, c).to(dev, dtype), ops
+
+
+def large_window_checks(dev: torch.device, failed: list) -> dict:
+    """B5 and its backward against their plain versions at every window of
+    ``LARGE_WINDOWS`` and geometry of ``LARGE_GEOMETRIES`` (2 x 3 windows,
+    batch 2; shift 0 and ws / 2, with and without drop-path), each launch
+    through the streaming family's entry of its route; the serving blob
+    gives the dense weights' bits, the backward repeats its bits, and a
+    dropped sample passes through (dx = g). One line a window and geometry.
+    Returns the launches at window 32 in the geometry that is timed."""
+    timed = {}
+    for ws in LARGE_WINDOWS:
+        for dtype, c, heads in LARGE_GEOMETRIES:
+            x, g, ops = large_window_ops(dev, dtype, c, heads, ws, (2, 2 * ws, 3 * ws), SEED + ws + c + heads)
+            xf, gf, opsf = x.float(), g.float(), [t.float() for t in ops]
+            kind = "_mma_bf16" if dtype == torch.bfloat16 and mma_takes(c, heads) else (
+                "_bf16" if dtype == torch.bfloat16 else "_f32")
+            label = f"large window {ws} {str(dtype)[6:]} C {c} / {heads} heads"
+            worst, n = 0.0, 0
+            engagement.reset()
+            for shift in (0, ws // 2):
+                for dp in (None, torch.tensor([0.0, 1.25], device=dev)):
+                    kw = dict(heads=heads, window_size=ws, shift=shift, drop_path=dp)
+                    case = f"{label} shift {shift}" + (" drop-path" if dp is not None else "")
+                    y = fused_window_attention_block(x, *ops, **kw)
+                    grads = attention_bwd(x, g, *ops, **kw)
+                    pairs = [(y, window_attention_plain(xf, *opsf, **kw))]
+                    pairs += list(zip(grads, attention_bwd_plain(xf, gf, *opsf, **kw)))
+                    for i, (got, want) in enumerate(pairs):
+                        got = got.float()
+                        if not bool(torch.isfinite(got).all()) or got.shape != want.shape:
+                            failed.append(f"{case} output {i}: non-finite or {tuple(got.shape)}")
+                            continue
+                        if dtype == torch.float32:
+                            err = float((got - want).abs().max()) / (F32_RTOL * float(want.abs().max()) + F32_ATOL)
+                        else:
+                            err = rel_l2(got, want) / BF16_REL_L2
+                        worst, n = max(worst, err), n + 1
+                        if not err <= 1.0:
+                            failed.append(f"{case} output {i}: {err:.3f} of its limit")
+                    if dp is not None and not (torch.equal(y[0], x[0]) and torch.equal(grads[0][0], g[0])):
+                        failed.append(f"{case}: a dropped sample does not pass through")
+                    if not all(torch.equal(a, b) for a, b in zip(grads, attention_bwd(x, g, *ops, **kw))):
+                        failed.append(f"{case}: the backward's bits differ from launch to launch")
+                    if kind == "_mma_bf16" and shift == 0 and dp is None:
+                        blob = pack_window_attention(ops[2], ops[4], ops[6], heads)
+                        if not torch.equal(y, fused_window_attention_block(x, ops[0], ops[1], blob, ops[3], None,
+                                                                           ops[5], None, **kw)):
+                            failed.append(f"{case}: the serving blob gives other bits than the dense weights")
+                    del y, grads, pairs
+            torch.cuda.synchronize()
+            entries, launches = engagement.entries(), engagement.counters()
+            want = {"fused_window_attention_block_large": {f"window_attention_large{kind}": 4 + (kind == "_mma_bf16")},
+                    "attention_bwd_large": {f"attn_bwd_large{kind}": 8}}
+            if entries != want:
+                failed.append(f"{label}: entries {entries}, expected {want}")
+            if (ws, c, heads, dtype) == (*LARGE_TIMED[:3], torch.bfloat16):
+                timed = launches
+            rule = "max abs error vs 1e-4 max|p| + 1e-5" if dtype == torch.float32 else "rel_l2 vs 1e-2"
+            log(f"check {label}: {n} outputs over shift 0 / {ws // 2} with and without drop-path, worst "
+                f"{worst:.3f} of the limit ({rule}); entries {entries}")
+            del x, g, ops, xf, gf, opsf
+            torch.cuda.empty_cache()
+    return timed
+
+
+def large_window_timing(dev: torch.device, launches: dict, failed: list) -> list:
+    """B5 and its backward at window 32 (C 128, 4 heads, bf16, batch 1, 4 x 4
+    windows, shift 16, drop-path scales of 1): against their plain versions,
+    timed beside them, with their bounds and bf16 PyTorch yardsticks. The
+    kernels line's two ``_ws32`` rows."""
+    ws, c, heads, side = LARGE_TIMED
+    x, g, ops = large_window_ops(dev, torch.bfloat16, c, heads, ws, (1, side * ws, side * ws), SEED + 32)
+    kw = dict(heads=heads, window_size=ws, shift=ws // 2, drop_path=torch.ones(1, device=dev))
+    rows = []
+    cases = (("fused_window_attention_block_large", fused_window_attention_block, window_attention_plain, (x, *ops)),
+             ("attention_bwd_large", attention_bwd, attention_bwd_plain, (x, g, *ops)))
+    for name, kernel, plain, args in cases:
+        got = _flat(kernel(*args, **kw))
+        want = _flat(plain(*[t.float() for t in args], **kw))
+        err = [kernel_check(f"{name} [window {ws}] output {i}", k, p, torch.bfloat16, failed)
+               for i, (k, p) in enumerate(zip(got, want))][0]
+        del got, want
+        ms = time_ms(lambda: kernel(*args, **kw), iters=10)
+        plain_ms = time_ms(lambda: plain(*args, **kw), iters=3, warmup=1)
+        flops, moved = train_bounds(name, args)
+        bms, by = bound_ms(flops, moved)
+        log(f"time {name} [window {ws}, C {c}, {heads} heads, {side}x{side} windows] bf16: {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), {flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB")
+        yard = yardstick_report(name, args, ms, bms, kw)
+        source, replaces = KERNELS[name]
+        rows.append(dict(name=LARGE_ROWS[name], route="cuda", source=source, replaces=replaces,
+                         launches=launches.get(name, 0), max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                         bound_by=by, library_ms=None))
+        torch.cuda.empty_cache()
+    return rows
+
+
+def large_window_swinir(dev: torch.device, failed: list) -> tuple:
+    """SwinIR classical x4 at window 24 (``LARGE_SWINIR``), bf16 fused, batch
+    1, 256² LR: against the plain f32 forward, the launches of a forward (B5
+    36 through its streaming family's H100 entry, B6 36, B2 7, B3 1, B1
+    none), its ms and LR MP/s beside window 8's (``MAIN``) in this run; B5
+    alone on the first shifted block's served operands against its plain
+    version, timed, with its bound and bf16 PyTorch yardstick. Returns (the
+    kernels line's row, the window-8 model, bf16 fused)."""
+    name = "fused_window_attention_block_large"
+    model = SwinIR.build(**LARGE_SWINIR, seed=SEED, device=dev)
+    x = torch.from_numpy(requests()[0]).to(dev).float()[None] / 255.0
+    plain = model(x)
+    model.half().enable_fused(True)
+    prep = model.serving_prep()  # load-time weight layout, outside the counted run
+    engagement.reset()
+    fused = model(x)
+    torch.cuda.synchronize()
+    launches, entries = engagement.counters(), engagement.entries()
+    rel = rel_l2(fused, plain)
+    log(f"\nlarge windows: SwinIR x4 window 24 bf16 fused vs f32 plain: rel_l2 {rel:.3e} limit "
+        f"{E2E_BF16_REL_L2:.0e}; launches {launches}")
+    if not rel <= E2E_BF16_REL_L2 or fused.shape != (1, 4 * LR, 4 * LR, 3) or not bool(torch.isfinite(fused).all()):
+        failed.append(f"swinir window 24: rel_l2 {rel:.3e}, shape {tuple(fused.shape)}")
+    if launches != LARGE_SWINIR_PER_FORWARD:
+        failed.append(f"swinir window 24: launches {launches}, expected {LARGE_SWINIR_PER_FORWARD}")
+    failed += entry_failures("large windows swinir window 24", launches)
+    failed += train_entry_failures("large windows swinir window 24", launches, torch.bfloat16, entries)
+    del plain, fused
+    fwd = time_ms(lambda: model(x), iters=5)
+    main = SwinIR.build(**MAIN, seed=SEED, device=dev).half().enable_fused(True)
+    fwd8 = time_ms(lambda: main(x), iters=5)
+    log(f"large windows: SwinIR x4 forward bf16 batch 1 {LR}x{LR}: window 24 {fwd:.3f} ms "
+        f"({LR * LR / 1e6 / (fwd / 1e3):.3f} LR MP/s), window 8 {fwd8:.3f} ms ({LR * LR / 1e6 / (fwd8 / 1e3):.3f} "
+        f"LR MP/s)")
+
+    ws, heads, c = 24, LARGE_SWINIR["num_heads"][0], LARGE_SWINIR["embed_dim"]
+    hp = LR + (-LR % ws)
+    xb = torch.randn(1, hp, hp, c, generator=torch.Generator().manual_seed(SEED + 24)).to(dev, torch.bfloat16)
+    attn = prep["blocks"][0][1]["attn"]  # the first shifted block's served operands
+    ops = (xb, attn["ln_w"], attn["ln_b"], attn["wqkv"], attn["bqkv"], attn["wproj"], attn["bproj"], attn["bias"])
+    wqkv, wproj, bias = unpack_window_attention(attn["wqkv"], c, heads, ws)
+    dense = (xb, attn["ln_w"], attn["ln_b"], wqkv, attn["bqkv"], wproj, attn["bproj"], bias)
+    kw = dict(heads=heads, window_size=ws, shift=ws // 2)
+    engagement.reset()
+    got = fused_window_attention_block(*ops, **kw)
+    if engagement.counters() != {name: 1}:
+        failed.append(f"{name} at window 24 launched {engagement.counters()}")
+    err = kernel_check(f"{name} [swinir window 24]", got, window_attention_plain(xb.float(), *ops[1:], **kw),
+                       torch.bfloat16, failed)
+    del got
+    ms = time_ms(lambda: fused_window_attention_block(*ops, **kw), iters=20)
+    plain_ms = time_ms(lambda: window_attention_plain(*ops, **kw), iters=3, warmup=1)
+    flops, moved = window_bounds(name, ops, ws)
+    bms, by = bound_ms(flops, moved)
+    log(f"time {name} [swinir window 24] bf16: {ms:.3f} ms ({100 * 36 * ms / fwd:.1f} % of a forward at 36 a "
+        f"forward), plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), {flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} "
+        f"MB; launches {launches.get(name, 0)} in the forward")
+    yard = yardstick_report(name, dense, ms, bms, kw)
+    log(f"  {name} [swinir window 24] yardstick (bf16 PyTorch sequence, not a single call): {yard:.3f} ms")
+    source, replaces = KERNELS[name]
+    row = dict(name=f"{name}_swinir_ws24", route="cuda", source=source, replaces=replaces,
+               launches=launches.get(name, 0), max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+               library_ms=None)
+    del model, prep, ops, dense, xb, attn
+    torch.cuda.empty_cache()
+    return row, main
+
+
+def large_window_tiled(dev: torch.device, model, failed: list) -> None:
+    """The tiled device loop on the card: ``model`` (SwinIR x4, bf16 fused) on
+    a seeded ``TILED_IMAGE`` uint8 image, ``device_loop`` True against False,
+    bit for bit, with the host seconds of each (a second call of each)."""
+    image = np.random.default_rng(SEED + 5).integers(0, 256, (*TILED_IMAGE, 3), dtype=np.uint8)
+    kw = dict(tile=TILED_TILE, tile_overlap=TILED_OVERLAP, tile_batch=8)
+    seconds, outs = {}, {}
+    for loop in (True, False, True, False):
+        start = time.perf_counter()
+        engagement.reset()
+        outs[loop] = model.inference_tiled(image, device_loop=loop, **kw)
+        seconds[loop] = time.perf_counter() - start
+        if not engagement.counters().get("fused_swin_block"):
+            failed.append(f"tiled device_loop={loop}: no B1 launch")
+    same = np.array_equal(outs[True], outs[False])
+    log(f"large windows: tiled SwinIR x4 bf16 {TILED_IMAGE[0]}x{TILED_IMAGE[1]} tile {TILED_TILE} overlap "
+        f"{TILED_OVERLAP}: device loop {seconds[True]:.3f} s, host loop {seconds[False]:.3f} s (host clock, second "
+        f"call of each); outputs {'bit for bit equal' if same else 'DIFFER'} {outs[True].shape}")
+    if not same or outs[True].shape != (4 * TILED_IMAGE[0], 4 * TILED_IMAGE[1], 3):
+        failed.append("tiled: device_loop=True differs from the host loop")
+
+
+def phase_large_windows(dev: torch.device) -> list:
+    """B5 and its backward above window 16, then the tiled device loop:
+    the kernel checks (``large_window_checks``) and window 32 timed; SwinIR
+    x4 served at window 24; MaxSR x4 adaptive trained fused at a 289² crop
+    (window 17: ``phase_maxsr_windows``, the f64 witness at batch 1); the
+    tiled device loop against the host loop. Returns the kernels line's
+    rows."""
+    failed = []
+    start = time.perf_counter()
+    timed = large_window_checks(dev, failed)
+    rows = large_window_timing(dev, timed, failed)
+    log(f"large windows: kernel checks and window 32 timed in {time.perf_counter() - start:.1f} s")
+    row, main = large_window_swinir(dev, failed)
+    rows.append(row)
+    large_window_tiled(dev, main, failed)
+    del main
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("large windows: " + "; ".join(failed))
+    rows += phase_maxsr_windows(dev, (LARGE_MAXSR_CROP,))
+    return rows
 
 
 # -- the zoo, offline -------------------------------------------------------------------
@@ -3661,6 +3975,8 @@ def main() -> int:
     phase_cli(dev)
     phase_zoo(dev)
     rows += phase_maxsr_windows(dev)
+    torch.cuda.empty_cache()
+    rows += phase_large_windows(dev)
     torch.cuda.empty_cache()
     phase_maxsr_decline(dev)
     phase_train_entry(dev)

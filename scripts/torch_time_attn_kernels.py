@@ -30,6 +30,12 @@ warm-up launches:
   ``pack_window_attention``), each beside its yardstick: the same half as
   a sequence of bf16 PyTorch calls (LayerNorm, cuBLAS, SDPA with the bias
   and shift mask as its mask, the projection and the add);
+* above window 16 (B5's and B9's streaming family, ``_large``): B5 and its
+  backward at MaxSR x4's adaptive step on a 289 x 289 crop (window 17, C
+  128, 4 heads, batch 1, no shift, drop-path scale 1) and B5 at SwinIR x4
+  serving at window 24 (one 264 x 264 map, C 180, shift 12, the weights
+  packed once), each beside its yardstick; a checkout from before the
+  family raises there, and its times are NaN;
 * B5 and B6 at SwinFIR / SwinIR x4 serving at window 12 (one 264 x 264
   map, shift 6, no drop-path, the weights packed once as serving packs
   them), each beside the same yardstick;
@@ -528,6 +534,40 @@ def measure() -> dict:
         torch.autograd.grad(out, leaves, go)
 
     ms["oca_core_bwd library (SDPA backward)"] = time_ms(sdpa_both, iters=5, warmup=2) - sdpa_fwd
+
+    # above window 16: MaxSR's step at a 289² crop (window 17) and SwinIR x4 serving at window 24
+    for label, ws, c, heads, side, shift, train in (("maxsr step 289", 17, 128, 4, 289, 0, True),
+                                                    ("swinir serving", 24, 180, 6, 264, 12, False)):
+        xl = randn(1, side, side, c).to(bf)
+        dense = (1 + randn(c, scale=0.1), randn(c, scale=0.1), randn(c, 3 * c, scale=c**-0.5).to(bf),
+                 randn(3 * c, scale=0.1), randn(c, c, scale=c**-0.5).to(bf), randn(c, scale=0.1),
+                 randn(heads, ws * ws, ws * ws, scale=0.5))
+        kw = dict(heads=heads, window_size=ws, shift=shift, drop_path=torch.ones(1, device=dev) if train else None)
+        served = list(dense)
+        if not train:
+            from studiosr_tpu_torch.ops.cuda.window_attention import pack_window_attention
+
+            served[2:7] = [pack_window_attention(dense[2], dense[4], dense[6], heads), dense[3], None, dense[5], None]
+        names = [(f"fused_window_attention_block_large {label}",
+                  lambda: fused_window_attention_block(xl, *served, **kw))]
+        if train:
+            gl = randn(1, side, side, c, scale=1e-3).to(bf)
+            names.append((f"attention_bwd_large {label}", lambda: attention_bwd(xl, gl, *dense, **kw)))
+        for name, fn in names:
+            try:
+                fn()
+            except NotImplementedError:  # a checkout from before the streaming family
+                ms[name] = float("nan")
+                continue
+            ms[name] = time_ms(fn, iters=10)
+            passes[name] = pass_split(fn)
+        ms[f"fused_window_attention_block_large {label} yardstick (bf16 PyTorch sequence)"] = time_ms(
+            attention_half_forward_sequence(xl, dense, heads, ws, shift, kw["drop_path"]), iters=5)
+        if train:
+            sequence = attention_half_sequence(xl, gl, dense, heads, ws, shift, kw["drop_path"])
+            ms[f"attention_bwd_large {label} yardstick (bf16 PyTorch sequence)"] = time_ms(sequence, iters=3, warmup=1)
+            del sequence
+        torch.cuda.empty_cache()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     return {"package": studiosr_tpu_torch.__file__, "card": card, "ms": ms, "passes": passes, "entries": entries}

@@ -274,9 +274,30 @@ struct WaOut {
   }
 };
 
-// Windows 2..16: N = ws^2 up to 256 tokens, 1..4 tiles.
+// The bias of score fragment (thread wt, 8-column tile nt) of query chunk r,
+// key chunk c, head h from am_bias_kernel's copy: (q, col), (q, col + 1),
+// (q + 8, col), (q + 8, col + 1).
+__device__ __forceinline__ float4 am_bias4(const AmArgs& a, int nch, int h, int r, int c, int nt, int wt) {
+  const size_t e = (((size_t)(h * nch + r) * nch + c) * 8 + nt) * 128 + wt;
+  if (!a.bias16) return reinterpret_cast<const float4*>(a.relbias)[e];
+  const uint2 u = reinterpret_cast<const uint2*>(a.relbias)[e];
+  const float2 p0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 p1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(p0.x, p0.y, p1.x, p1.y);
+}
+
+// One value of the same copy: query q, key k (0..63) of the tile (r, c).
+__device__ __forceinline__ float am_bias_at(const AmArgs& a, int nch, int h, int r, int c, int q, int k) {
+  const int wt = 32 * (q >> 4) + 4 * (q & 7) + ((k & 7) >> 1), e = 2 * ((q >> 3) & 1) + (k & 1);
+  const size_t i = ((((size_t)(h * nch + r) * nch + c) * 8 + (k >> 3)) * 128 + wt) * 4 + e;
+  return a.bias16 ? __bfloat162float(reinterpret_cast<const bf16*>(a.relbias)[i])
+                  : reinterpret_cast<const float*>(a.relbias)[i];
+}
+
+// Square windows from 2 (the entries take their own ranges: 2..8, 9..16 and
+// 17 up): N = ws^2 tokens in NCH = ceil(N / 64) tiles.
 static bool am_geometry_ok(int C, int heads, int ws) {
-  if (!(ws >= 2 && ws <= 16 && heads >= 1 && C >= 4 && C <= AM_MAX_C && C % 4 == 0 && C % heads == 0 &&
+  if (!(ws >= 2 && heads >= 1 && C >= 4 && C <= AM_MAX_C && C % 4 == 0 && C % heads == 0 &&
         C / heads <= 32))
     return false;
   const AmGeom G(C, heads, ws);

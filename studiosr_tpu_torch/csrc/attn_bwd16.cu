@@ -1,4 +1,4 @@
-// B9: the backward of B5 at windows 9..16 (window_attention16.cu) with the
+// B9: the backward of B5 at windows from 9 (window_attention16.cu) with the
 // forward recomputed,
 //   y = x + d_b * proj(WA(LN x))  on (B, H, W, C) maps, ws x ws windows,
 // the shift folded into reads and writes as B5 does: from x and the
@@ -291,7 +291,7 @@ __global__ void __launch_bounds__(SB_THREADS) ab16_ln_kernel(const T* __restrict
 }
 
 static bool ab16_shape_ok(int B, int H, int W, int C, int heads, int ws, int shift) {
-  return B > 0 && ws >= 9 && ws * ws <= AC_MAX_NQ && H > 0 && W > 0 && H % ws == 0 && W % ws == 0 && C % heads == 0 &&
+  return B > 0 && ws >= 9 && H > 0 && W > 0 && H % ws == 0 && W % ws == 0 && C % heads == 0 &&
          pad16(C / heads) <= 64 && shift >= 0 && shift < ws;
 }
 
@@ -385,12 +385,15 @@ static cudaError_t attn_bwd16(const T* x, const T* g, T* dx, int B, int H, int W
   return wgrad(tscratch + S.att, SC, tscratch + S.gb, SC, S.rows_k, C, C, dwproj, dbproj, fscratch + S.wg, stream);
 }
 
-#define ATTN_BWD16_ENTRY(NAME, T)                                                                                 \
+// Two entries a dtype: windows 9..16 and 17 up (the column pass without its
+// d bias rows, ac_dbias_kernel beside it: attn_core.cuh's ac_cols).
+#define ATTN_BWD16_ENTRY(NAME, T, WS_LO, WS_HI)                                                                   \
   extern "C" int NAME(const void* x, const void* g, void* dx, int B, int H, int W, int C, int heads, int ws,      \
                       int shift, const void* ln_w, const void* ln_b, const void* wqkv, const void* bqkv,         \
                       const void* wproj, const void* relbias, const void* dp, void* ds_db, void* dwqkv,          \
                       void* dbqkv, void* dwproj, void* dbproj, void* dbias, void* tscratch, long long t_elems,   \
                       void* fscratch, long long f_elems, void* stream) {                                         \
+    if (ws < WS_LO || ws > WS_HI) return (int)cudaErrorInvalidValue;                                             \
     return (int)attn_bwd16<T>((const T*)x, (const T*)g, (T*)dx, B, H, W, C, heads, ws, shift, (const float*)ln_w, \
                               (const float*)ln_b, (const T*)wqkv, (const float*)bqkv, (const T*)wproj,           \
                               (const float*)relbias, (const float*)dp, (float*)ds_db, (float*)dwqkv,             \
@@ -398,5 +401,7 @@ static cudaError_t attn_bwd16(const T* x, const T* g, T* dx, int B, int H, int W
                               t_elems, (float*)fscratch, f_elems, (cudaStream_t)stream);                         \
   }
 
-ATTN_BWD16_ENTRY(attn_bwd16_f32, float)
-ATTN_BWD16_ENTRY(attn_bwd16_bf16, __nv_bfloat16)
+ATTN_BWD16_ENTRY(attn_bwd16_f32, float, 9, 16)
+ATTN_BWD16_ENTRY(attn_bwd16_bf16, __nv_bfloat16, 9, 16)
+ATTN_BWD16_ENTRY(attn_bwd_large_f32, float, 17, 1 << 14)
+ATTN_BWD16_ENTRY(attn_bwd_large_bf16, __nv_bfloat16, 17, 1 << 14)

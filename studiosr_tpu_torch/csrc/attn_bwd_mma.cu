@@ -1,7 +1,7 @@
 // B8 and B9 in bf16, written for the H100: the backward of the attention
 // half of a Swin block with the forward recomputed,
 //   y = x + d_b * proj(WA(LN x))  on (B, H, W, C) maps,
-// window attention over ws x ws windows, ws 2..8 (B8: SwinIR's 8) or 9..16
+// window attention over ws x ws windows, ws 2..8 (B8: SwinIR's 8), 9..16 or 17 up
 // (B9: HAT's 16), the shift folded into reads and writes. From x and the cotangent g it
 // emits dx and the f32 gradients of the LN scale and bias, Wqkv, bqkv,
 // Wproj, bproj and the gathered rel-pos bias (heads, N, N).
@@ -14,7 +14,8 @@
 // (their bias, am_bias_kernel),
 // so their p, dscores, dq, dk and dv are zeros and they add nothing to the
 // weight gradients, d bias or the LN sums; the entry attn_bwd_mma_bf16 takes
-// windows 2..8 (one tile), attn_bwd16_mma_bf16 9..16 (two to four). The contract
+// windows 2..8 (one tile), attn_bwd16_mma_bf16 9..16 (two to four),
+// attn_bwd_large_mma_bf16 17 up (pass 2 in three streaming passes, below). The contract
 // is theirs: g_b = d g rounded to bf16, dx = g_b + LN-backward(dln) + (1 -
 // d) g; the LN output, q / k / v, the probabilities, dattn, dscores and dq /
 // dk / dv rounded to bf16; products accumulate in f32; softmax, its
@@ -75,7 +76,7 @@
 // 64 rows; each stage the image of a ring slot in wgmma's K-major
 // core-matrix layout (am_kmajor in am_common.cuh, _k_major there: change both
 // together).
-// Takes bf16, windows 2..16, head dims up to 32, C a multiple of 4 up to
+// Takes bf16, windows from 2, head dims up to 32, C a multiple of 4 up to
 // 184, H and W multiples of the window; the wrapper routes anything else.
 // The pieces B5 and B7 share with it are in am_window.cuh and am_common.cuh.
 #include "am_window.cuh"
@@ -518,6 +519,417 @@ __global__ void __launch_bounds__(128 * am_wgs(NCH), NCH == 1 ? 3 : 1) am_attn_k
     }
 }
 
+// -- pass 2 above window 16: three streaming passes ---------------------------------
+//
+// At NCH >= 5 tiles (N > 256) the window's k and v (and the f32 d bias rows
+// of a query chunk, 64 N) outgrow a block's shared memory, and the cluster
+// of NCH blocks outgrows the portable cluster size of 8. So the attention
+// core runs in FlashAttention-2 order, each pass a warpgroup a block that
+// streams 64-token chunks through two cp.async buffers, every score and
+// dprob recomputed from the images of pass 1 (all K-major in d):
+// 2a. al_rows_kernel, (window, head, query chunk r): sweep 1 over the key
+//     chunks keeps the row max m, sum l and u = sum 2^(s - m) dp online;
+//     sweep 2 forms p and dscores and runs attn = p v and dq = dscores k
+//     (k and v made token-contiguous by am_transpose). m, 1 / l and D = u / l
+//     go to a row-statistics scratch.
+// 2b. al_cols_kernel, (window, head, key chunk c): s^T = k q^T and dp^T =
+//     v dattn^T for each query chunk, p^T and dscores^T from the row
+//     statistics, dv = p^T dattn and dk = dscores^T q.
+// 2c. al_dbias_kernel, (window group g, head, query chunk r, key chunk c):
+//     the tile's dscores over the group's windows, summed in registers and
+//     written once to the group's partial; am_dbias_reduce_kernel sums the
+//     groups in order. The partials are groups x heads x N^2 f32, the groups
+//     few (al_groups).
+// The scores and dprobs are computed three times and the statistics twice;
+// the rounding points are B9's.
+
+// Row statistics of a (window, head) unit: m (log2 units), 1 / l and D a row.
+__host__ __device__ inline long long al_stat_elems(int windows, const AmGeom& G) {
+  return (long long)windows * G.heads * G.N * 3;
+}
+
+// Window groups of pass 2c: about two blocks an SM, at most one a window.
+static int al_groups(int windows, const AmGeom& G, int sms) {
+  const int tiles = G.heads * G.NCH * G.NCH;
+  int g = (2 * sms + tiles - 1) / tiles;
+  if (g > windows) g = windows;
+  return g < 1 ? 1 : g;
+}
+
+// Scores (+ bias and mask) and dprobs of one 64 x 64 tile of a (window,
+// head): rows the 64 tokens of image A, columns those of image B (q and k,
+// dattn and v for 2a and 2c; k and q, v and dattn transposed for 2b), each
+// a K-major 64 x DP chunk in shared memory.
+template <int DP>
+__device__ __forceinline__ void al_sd(const bf16* A, const bf16* B, const bf16* A2, const bf16* B2, float (&s)[8][4],
+                                      float (&dp)[8][4]) {
+  wg_fence();
+#pragma unroll
+  for (int ks = 0; ks < DP / 16; ++ks)
+    wg_ss<64>(&s[0][0], wg_desc(A + ks * 128, 128, DP * 16), wg_desc(B + ks * 128, 128, DP * 16), ks > 0);
+#pragma unroll
+  for (int ks = 0; ks < DP / 16; ++ks)
+    wg_ss<64>(&dp[0][0], wg_desc(A2 + ks * 128, 128, DP * 16), wg_desc(B2 + ks * 128, 128, DP * 16), ks > 0);
+  wg_commit();
+  wg_wait0();
+  wg_hold<32>(&s[0][0]);
+  wg_hold<32>(&dp[0][0]);
+}
+
+// Copy 64 x DP chunks from global to shared memory (16-byte pieces), one
+// per (src, dst) pair, issued by the block's 128 threads.
+template <int DP, int K>
+__device__ __forceinline__ void al_load(const bf16* const (&src)[K], bf16* const (&dst)[K]) {
+  constexpr int PIECES = AM_TOK * DP / 8;
+  for (int i = threadIdx.x; i < K * PIECES; i += 128) {
+    const int k = i / PIECES, j = i - k * PIECES;
+    hm_cp_async<16>(dst[k] + j * 8, src[k] + j * 8, true);
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(128, 2) al_rows_kernel(const AmArgs a, const AmGeom G, float* __restrict__ rowst) {
+  constexpr int CH = AM_TOK * DP, NDT = DP / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qk = (bf16*)smem;
+  bf16* Dk = Qk + CH;
+  bf16* Kb = Dk + CH;      // two buffers
+  bf16* Vb = Kb + 2 * CH;  // two buffers
+  bf16* Kt = Vb + 2 * CH;
+  bf16* Vt = Kt + CH;
+  const int NCH = G.NCH, N = G.N;
+  const int tid = threadIdx.x, wr = tid >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  const int r = blockIdx.x % NCH, h = (blockIdx.x / NCH) % G.heads, w = blockIdx.x / (NCH * G.heads);
+  const bf16* unit = a.img + ((long long)w * G.heads + h) * 4 * N * DP;
+  const float dq_scale = rsqrtf((float)G.d);
+  const int q0 = 16 * wr + gq;
+  auto load_kv = [&](int c) {
+    const int b = c & 1;
+    al_load<DP, 2>({unit + (long long)N * DP + c * CH, unit + 2LL * N * DP + c * CH}, {Kb + b * CH, Vb + b * CH});
+    hm_cp_commit();
+  };
+  al_load<DP, 2>({unit + r * CH, unit + 3LL * N * DP + r * CH}, {Qk, Dk});
+  const int wi = w % a.nwi;
+  const int rq0 = a.shift ? am_region(G, a, wi, r * AM_TOK + q0) : 0;
+  const int rq1 = a.shift ? am_region(G, a, wi, r * AM_TOK + q0 + 8) : 0;
+  float s[8][4], dp[8][4];
+  // chunk c's scores (+ bias and mask) and dprobs into s, dp
+  auto sd = [&](int c) {
+    const int b = c & 1;
+    float4 bb[8];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) bb[nt] = am_bias4(a, NCH, h, r, c, nt, tid);
+    al_sd<DP>(Qk, Kb + b * CH, Dk, Vb + b * CH, s, dp);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = c * AM_TOK + nt * 8 + 2 * tq;
+      s[nt][0] += bb[nt].x, s[nt][1] += bb[nt].y, s[nt][2] += bb[nt].z, s[nt][3] += bb[nt].w;
+      if (a.shift) {
+        const int k0 = am_region(G, a, wi, col), k1 = am_region(G, a, wi, col + 1);
+        if (k0 != rq0) s[nt][0] += -100.f;
+        if (k1 != rq0) s[nt][1] += -100.f;
+        if (k0 != rq1) s[nt][2] += -100.f;
+        if (k1 != rq1) s[nt][3] += -100.f;
+      }
+    }
+  };
+  // chunk c of a sweep ready in buffer c & 1, chunk c + 1 in flight
+  auto next = [&](int c) {
+    if (c + 1 < NCH) {
+      load_kv(c + 1);
+      hm_cp_wait_upto(1);
+    } else {
+      hm_cp_wait_upto(0);
+    }
+    wg_proxy_fence();
+    __syncthreads();
+  };
+
+  // sweep 1: m (log2 units), l and u
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, u[2] = {0.f, 0.f};
+  load_kv(0);
+#pragma unroll 1
+  for (int c = 0; c < NCH; ++c) {
+    next(c);
+    sd(c);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * hh], s[nt][2 * hh + 1]));
+      const float mn = fmaxf(m[hh], am_quad_max(mx) * AM_LOG2E), sc = am_exp2(m[hh] - mn);
+      l[hh] *= sc, u[hh] *= sc, m[hh] = mn;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = am_exp2(fmaf(s[nt][2 * hh + e], AM_LOG2E, -mn));
+          l[hh] += p, u[hh] += p * dp[nt][2 * hh + e];
+        }
+    }
+    __syncthreads();  // buffer c & 1 is free for chunk c + 2
+  }
+  float linv[2], D[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] = am_quad_sum(l[hh]), u[hh] = am_quad_sum(u[hh]);
+    linv[hh] = 1.f / l[hh], D[hh] = u[hh] / l[hh];
+  }
+  if (tq == 0)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float* st = rowst + (((long long)w * G.heads + h) * N + r * AM_TOK + q0 + 8 * hh) * 3;
+      st[0] = m[hh], st[1] = linv[hh], st[2] = D[hh];
+    }
+
+  // sweep 2: p, dscores; attn = p v, dq = dscores k
+  float o[NDT][4], dq[NDT][4];
+  load_kv(0);
+#pragma unroll 1
+  for (int c = 0; c < NCH; ++c) {
+    next(c);
+    am_transpose<DP>(Kb + (c & 1) * CH, Kt, 1, 4);
+    am_transpose<DP>(Vb + (c & 1) * CH, Vt, 1, 4);
+    sd(c);
+    uint32_t pa[4][4], sa[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = am_exp2(fmaf(s[nt][e], AM_LOG2E, -m[e >> 1])) * linv[e >> 1];
+        s[nt][e] = p;
+        dp[nt][e] = p * (dp[nt][e] - D[e >> 1]);
+      }
+      pa[nt >> 1][(nt & 1) * 2] = hm_pack(s[nt][0], s[nt][1]);
+      pa[nt >> 1][(nt & 1) * 2 + 1] = hm_pack(s[nt][2], s[nt][3]);
+      sa[nt >> 1][(nt & 1) * 2] = hm_pack(dp[nt][0], dp[nt][1]);
+      sa[nt >> 1][(nt & 1) * 2 + 1] = hm_pack(dp[nt][2], dp[nt][3]);
+    }
+    wg_proxy_fence();
+    __syncthreads();  // the transposed k and v are in
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      wg_rs<DP>(&o[0][0], pa[ks], wg_desc(Vt + ks * 128, 128, AM_TOK * 16), c > 0 || ks > 0);
+      wg_rs<DP>(&dq[0][0], sa[ks], wg_desc(Kt + ks * 128, 128, AM_TOK * 16), c > 0 || ks > 0);
+    }
+    wg_commit();
+    wg_wait0();
+    wg_hold<NDT * 4>(&o[0][0]);
+    wg_hold<NDT * 4>(&dq[0][0]);
+    wg_hold<16>(&pa[0][0]);
+    wg_hold<16>(&sa[0][0]);
+    __syncthreads();  // every warp is done with the buffers and the transposed copies
+  }
+  const long long row0 = ((long long)w * NCH + r) * AM_TOK;
+#pragma unroll
+  for (int nt = 0; nt < NDT; ++nt) {
+    const int j = nt * 8 + 2 * tq;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const long long row = row0 + q0 + 8 * hh;
+      *reinterpret_cast<__nv_bfloat162*>(a.dqkv + row * G.K3 + h * DP + j) =
+          __floats2bfloat162_rn(dq[nt][2 * hh] * dq_scale, dq[nt][2 * hh + 1] * dq_scale);
+      *reinterpret_cast<__nv_bfloat162*>(a.att + row * G.HD + h * DP + j) =
+          __floats2bfloat162_rn(o[nt][2 * hh], o[nt][2 * hh + 1]);
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(128, 2) al_cols_kernel(const AmArgs a, const AmGeom G,
+                                                         const float* __restrict__ rowst) {
+  constexpr int CH = AM_TOK * DP, NDT = DP / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Kk = (bf16*)smem;
+  bf16* Vk = Kk + CH;
+  bf16* Qb = Vk + CH;      // two buffers
+  bf16* Db = Qb + 2 * CH;  // two buffers
+  bf16* Qt = Db + 2 * CH;
+  bf16* Dt = Qt + CH;
+  float* stb = (float*)(Dt + CH);  // two buffers of a query chunk's (m, 1 / l, D)
+  const int NCH = G.NCH, N = G.N;
+  const int tid = threadIdx.x, wr = tid >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  const int c = blockIdx.x % NCH, h = (blockIdx.x / NCH) % G.heads, w = blockIdx.x / (NCH * G.heads);
+  const bf16* unit = a.img + ((long long)w * G.heads + h) * 4 * N * DP;
+  const float* ust = rowst + ((long long)w * G.heads + h) * N * 3;
+  const int k0 = 16 * wr + gq;  // this thread's key rows k0, k0 + 8 of chunk c
+  auto load_q = [&](int r) {
+    const int b = r & 1;
+    al_load<DP, 2>({unit + r * CH, unit + 3LL * N * DP + r * CH}, {Qb + b * CH, Db + b * CH});
+    for (int i = tid; i < 3 * AM_TOK / 4; i += 128)
+      hm_cp_async<16>(stb + b * 3 * AM_TOK + 4 * i, ust + (long long)r * AM_TOK * 3 + 4 * i, true);
+    hm_cp_commit();
+  };
+  al_load<DP, 2>({unit + (long long)N * DP + c * CH, unit + 2LL * N * DP + c * CH}, {Kk, Vk});
+  load_q(0);
+  const int wi = w % a.nwi;
+  const int rk0 = a.shift ? am_region(G, a, wi, c * AM_TOK + k0) : 0;
+  const int rk1 = a.shift ? am_region(G, a, wi, c * AM_TOK + k0 + 8) : 0;
+  float dk[NDT][4], dv[NDT][4];
+#pragma unroll 1
+  for (int r = 0; r < NCH; ++r) {
+    const int b = r & 1;
+    if (r + 1 < NCH) {
+      load_q(r + 1);
+      hm_cp_wait_upto(1);
+    } else {
+      hm_cp_wait_upto(0);
+    }
+    wg_proxy_fence();
+    __syncthreads();  // query chunk r (and k, v) in
+    am_transpose<DP>(Qb + b * CH, Qt, 1, 4);
+    am_transpose<DP>(Db + b * CH, Dt, 1, 4);
+    float s[8][4], dp[8][4];  // rows: keys k0, k0 + 8; columns: the chunk's queries
+    al_sd<DP>(Kk, Qb + b * CH, Vk, Db + b * CH, s, dp);
+    const float* st = stb + b * 3 * AM_TOK;
+    uint32_t pa[4][4], sa[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = nt * 8 + 2 * tq + (e & 1), k = k0 + 8 * (e >> 1);
+        float v = s[nt][e] + am_bias_at(a, NCH, h, r, c, q, k);
+        if (a.shift && am_region(G, a, wi, r * AM_TOK + q) != ((e >> 1) ? rk1 : rk0)) v += -100.f;
+        const float p = am_exp2(fmaf(v, AM_LOG2E, -st[3 * q])) * st[3 * q + 1];
+        s[nt][e] = p;
+        dp[nt][e] = p * (dp[nt][e] - st[3 * q + 2]);
+      }
+      pa[nt >> 1][(nt & 1) * 2] = hm_pack(s[nt][0], s[nt][1]);
+      pa[nt >> 1][(nt & 1) * 2 + 1] = hm_pack(s[nt][2], s[nt][3]);
+      sa[nt >> 1][(nt & 1) * 2] = hm_pack(dp[nt][0], dp[nt][1]);
+      sa[nt >> 1][(nt & 1) * 2 + 1] = hm_pack(dp[nt][2], dp[nt][3]);
+    }
+    wg_proxy_fence();
+    __syncthreads();  // the transposed q and dattn are in
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      wg_rs<DP>(&dv[0][0], pa[ks], wg_desc(Dt + ks * 128, 128, AM_TOK * 16), r > 0 || ks > 0);
+      wg_rs<DP>(&dk[0][0], sa[ks], wg_desc(Qt + ks * 128, 128, AM_TOK * 16), r > 0 || ks > 0);
+    }
+    wg_commit();
+    wg_wait0();
+    wg_hold<NDT * 4>(&dv[0][0]);
+    wg_hold<NDT * 4>(&dk[0][0]);
+    wg_hold<16>(&pa[0][0]);
+    wg_hold<16>(&sa[0][0]);
+    __syncthreads();  // every warp is done with buffer r & 1 and the transposed copies
+  }
+  const long long row0 = ((long long)w * NCH + c) * AM_TOK;
+#pragma unroll
+  for (int nt = 0; nt < NDT; ++nt) {
+    const int j = nt * 8 + 2 * tq;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      bf16* dr = a.dqkv + (row0 + k0 + 8 * hh) * G.K3 + h * DP + j;
+      *reinterpret_cast<__nv_bfloat162*>(dr + G.HD) = __floats2bfloat162_rn(dk[nt][2 * hh], dk[nt][2 * hh + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dr + 2 * G.HD) = __floats2bfloat162_rn(dv[nt][2 * hh], dv[nt][2 * hh + 1]);
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(128, 2) al_dbias_kernel(const AmArgs a, const AmGeom G,
+                                                          const float* __restrict__ rowst) {
+  constexpr int CH = AM_TOK * DP;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* buf = (bf16*)smem;                  // two buffers of q, dattn (chunk r), k, v (chunk c)
+  float* stb = (float*)(buf + 2 * 4 * CH);  // two buffers of the query chunk's (m, 1 / l, D)
+  const int NCH = G.NCH, N = G.N;
+  const int tid = threadIdx.x, wr = tid >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  int i = blockIdx.x;
+  const int c = i % NCH;
+  i /= NCH;
+  const int r = i % NCH;
+  i /= NCH;
+  const int h = i % G.heads, g = i / G.heads;
+  const int q0 = 16 * wr + gq;
+  auto load = [&](int w, int b) {
+    const bf16* unit = a.img + ((long long)w * G.heads + h) * 4 * N * DP;
+    bf16* d = buf + b * 4 * CH;
+    al_load<DP, 4>({unit + r * CH, unit + 3LL * N * DP + r * CH, unit + (long long)N * DP + c * CH,
+                    unit + 2LL * N * DP + c * CH},
+                   {d, d + CH, d + 2 * CH, d + 3 * CH});
+    const float* ust = rowst + (((long long)w * G.heads + h) * N + r * AM_TOK) * 3;
+    for (int j = tid; j < 3 * AM_TOK / 4; j += 128) hm_cp_async<16>(stb + b * 3 * AM_TOK + 4 * j, ust + 4 * j, true);
+    hm_cp_commit();
+  };
+  float4 bb[8];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) bb[nt] = am_bias4(a, NCH, h, r, c, nt, tid);
+  float acc[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  if (g < a.windows) load(g, 0);
+  int b = 0;
+#pragma unroll 1
+  for (int w = g; w < a.windows; w += a.groups, b ^= 1) {
+    if (w + a.groups < a.windows) {
+      load(w + a.groups, b ^ 1);
+      hm_cp_wait_upto(1);
+    } else {
+      hm_cp_wait_upto(0);
+    }
+    wg_proxy_fence();
+    __syncthreads();
+    const bf16* d = buf + b * 4 * CH;
+    const float* st = stb + b * 3 * AM_TOK;
+    float s[8][4], dp[8][4];
+    al_sd<DP>(d, d + 2 * CH, d + CH, d + 3 * CH, s, dp);
+    const int wi = w % a.nwi;
+    const int rq[2] = {a.shift ? am_region(G, a, wi, r * AM_TOK + q0) : 0,
+                       a.shift ? am_region(G, a, wi, r * AM_TOK + q0 + 8) : 0};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const float b4[4] = {bb[nt].x, bb[nt].y, bb[nt].z, bb[nt].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = q0 + 8 * (e >> 1);
+        float v = s[nt][e] + b4[e];
+        if (a.shift && am_region(G, a, wi, c * AM_TOK + nt * 8 + 2 * tq + (e & 1)) != rq[e >> 1]) v += -100.f;
+        const float p = am_exp2(fmaf(v, AM_LOG2E, -st[3 * q])) * st[3 * q + 1];
+        acc[nt][e] += p * (dp[nt][e] - st[3 * q + 2]);
+      }
+    }
+    __syncthreads();  // every warp is done with buffer b before the window after next fills it
+  }
+  float* part = a.dbias_part + (((size_t)h * a.groups + g) * N + r * AM_TOK) * N + c * AM_TOK;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int col = nt * 8 + 2 * tq;
+    *reinterpret_cast<float2*>(part + (size_t)q0 * N + col) = make_float2(acc[nt][0], acc[nt][1]);
+    *reinterpret_cast<float2*>(part + (size_t)(q0 + 8) * N + col) = make_float2(acc[nt][2], acc[nt][3]);
+  }
+}
+
+// Shared memory of the three passes: eight 64 x DP chunks, and in 2b and 2c
+// two buffers of a query chunk's statistics; 32 KB / 33.5 KB at DP 32, at
+// any window.
+__host__ __device__ inline size_t al_rows_smem(const AmGeom& G) { return (size_t)8 * AM_TOK * G.DP * 2; }
+__host__ __device__ inline size_t al_cols_smem(const AmGeom& G) {
+  return (size_t)8 * AM_TOK * G.DP * 2 + 2 * 3 * AM_TOK * 4;
+}
+__host__ __device__ inline size_t al_dbias_smem(const AmGeom& G) { return al_cols_smem(G); }
+
+template <int DP>
+static cudaError_t al_launch(const AmArgs& a, const AmGeom& G, float* rowst, cudaStream_t stream) {
+  const int units = a.windows * G.heads * G.NCH;
+  size_t bytes = al_rows_smem(G);
+  cudaError_t err = allow_smem(al_rows_kernel<DP>, bytes);
+  if (err != cudaSuccess) return err;
+  al_rows_kernel<DP><<<units, 128, bytes, stream>>>(a, G, rowst);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  bytes = al_cols_smem(G);
+  if ((err = allow_smem(al_cols_kernel<DP>, bytes)) != cudaSuccess) return err;
+  al_cols_kernel<DP><<<units, 128, bytes, stream>>>(a, G, rowst);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  bytes = al_dbias_smem(G);
+  if ((err = allow_smem(al_dbias_kernel<DP>, bytes)) != cudaSuccess) return err;
+  al_dbias_kernel<DP><<<a.groups * G.heads * G.NCH * G.NCH, 128, bytes, stream>>>(a, G, rowst);
+  return cudaGetLastError();
+}
+
 // out[h][q][k] (nv x nv) = sum over groups of part[h][g][q][k] (n x n, the
 // padded window), in order of g.
 __global__ void am_dbias_reduce_kernel(const float* __restrict__ part, int heads, int groups, int n, int nv,
@@ -564,7 +976,7 @@ __global__ void __launch_bounds__(256) am_lnb_kernel(const AmArgs a, const AmGeo
 // wgrad partials.
 struct AmScratch {
   long long rows, img, ln, gb, att, dqkv, pack, t_elems;
-  long long stats, dln, bias, dbias, lnst, wg, f_elems;
+  long long stats, dln, bias, dbias, lnst, wg, rowst, f_elems;
   int windows, tiles, groups, proj_blocks, dln_blocks, row_blocks;
 };
 
@@ -577,6 +989,7 @@ static AmScratch am_scratch(int B, int H, int W, int C, int heads, int ws, int s
   const int blocks = G.NCH == 1 ? 3 * sms : sms / G.NCH;  // attention blocks (clusters above window 8) in flight
   S.groups = blocks / heads < 1 ? 1 : blocks / heads;
   if (S.groups > S.windows) S.groups = S.windows;
+  if (G.NCH > 4) S.groups = al_groups(S.windows, G, sms);
   const int pairs = (S.tiles + 1) / 2;
   S.proj_blocks = S.dln_blocks = pairs < sms ? pairs : sms;
   S.row_blocks = 8 * sms;  // passes 0 and 3b: a warp a row, eight blocks an SM
@@ -594,7 +1007,8 @@ static AmScratch am_scratch(int B, int H, int W, int C, int heads, int ws, int s
   S.lnst = S.dbias + (long long)heads * S.groups * G.N * G.N;
   S.wg = S.lnst + (long long)(S.row_blocks + sms) * 2 * C;  // 3b's partials, then their sums by eights
   const long long p1 = aw_plan(S.rows, C, G.K3, sms).part_elems, p2 = aw_plan(S.rows, G.HD, C, sms).part_elems;
-  S.f_elems = S.wg + (p1 > p2 ? p1 : p2);
+  S.rowst = (S.wg + (p1 > p2 ? p1 : p2) + 3) & ~3LL;  // pass 2a's row statistics above window 16, 16-byte aligned
+  S.f_elems = S.rowst + (G.NCH > 4 ? al_stat_elems(S.windows, G) : 0);
   return S;
 }
 
@@ -643,13 +1057,15 @@ static cudaError_t am_launch_attn(const AmArgs& a, const AmGeom& G, int blocks, 
 }
 
 template <int DP>
-static cudaError_t am_launch_proj_attn(const AmArgs& a, const AmGeom& G, const AmScratch& S, cudaStream_t stream) {
+static cudaError_t am_launch_proj_attn(const AmArgs& a, const AmGeom& G, const AmScratch& S, float* rowst,
+                                       cudaStream_t stream) {
   const size_t bytes = am_proj_smem(G);
   cudaError_t err = allow_smem(am_proj_kernel<DP, true>, bytes);
   if (err != cudaSuccess) return err;
   am_proj_kernel<DP, true><<<S.proj_blocks, 256, bytes, stream>>>(a, G);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  if (G.NCH > 4) return al_launch<DP>(a, G, rowst, stream);
   const int blocks = G.heads * S.groups * G.NCH;
   switch (G.NCH) {
     case 1: return am_launch_attn<1, DP>(a, G, blocks, stream);
@@ -703,7 +1119,7 @@ static int am_run(int ws, const void* x, const void* g, void* dx, int B, int H, 
     am_ln_kernel<true, false><<<S.row_blocks, 256, 0, st>>>(a, G, S.rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = G.DP == 32 ? am_launch_proj_attn<32>(a, G, S, st) : am_launch_proj_attn<16>(a, G, S, st);
+  err = G.DP == 32 ? am_launch_proj_attn<32>(a, G, S, f + S.rowst, st) : am_launch_proj_attn<16>(a, G, S, f + S.rowst, st);
   if (err != cudaSuccess) return (int)err;
   const long long n = heads * (long long)G.NV * G.NV;
   am_dbias_reduce_kernel<<<(int)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024), 256, 0, st>>>(
@@ -727,7 +1143,8 @@ static int am_run(int ws, const void* x, const void* g, void* dx, int B, int H, 
   return (int)am_wgrad(a.att, G.HD, a.gb, G.SC, S.rows, G.HD, C, (float*)dwproj, (float*)dbproj, f + S.wg, sms, st);
 }
 
-// Two entries, one a family: windows 2..8 (B8, one tile a window) and 9..16 (B9).
+// Three entries, one a family: windows 2..8 (B8, one tile a window), 9..16
+// (B9) and 17 up (B9 in three streaming passes).
 #define ATTN_BWD_MMA_ENTRY(NAME, WS_LO, WS_HI)                                                                    \
   extern "C" int NAME(const void* x, const void* g, void* dx, int B, int H, int W, int C, int heads, int ws,      \
                       int shift, int bias16,                                                                      \
@@ -743,4 +1160,5 @@ static int am_run(int ws, const void* x, const void* g, void* dx, int B, int H, 
 
 ATTN_BWD_MMA_ENTRY(attn_bwd_mma_bf16, 2, 8)
 ATTN_BWD_MMA_ENTRY(attn_bwd16_mma_bf16, 9, 16)
+ATTN_BWD_MMA_ENTRY(attn_bwd_large_mma_bf16, 17, 1 << 14)
 

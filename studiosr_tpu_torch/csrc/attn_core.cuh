@@ -54,7 +54,7 @@
 #include "wgrad.cuh"
 
 constexpr int AC_TILE = 64;     // query rows a tile, keys a chunk
-constexpr int AC_MAX_NQ = 256;  // the column pass keeps nq x 64 f32 of d bias in shared memory (64 KB)
+constexpr int AC_MAX_NQ = 256;  // the column pass keeps nq x 64 f32 of d bias in shared memory (64 KB); above, ac_dbias_kernel
 // Row-pass modes: B12's forward; B13's dq; B9's dq and attention output.
 constexpr int AC_FWD = 0, AC_ROWS = 1, AC_ROWS_O = 2;
 constexpr int AC_MMA_THREADS = 128;  // the mma kernels: four warps of 16 rows
@@ -256,14 +256,15 @@ __global__ void __launch_bounds__(SB_THREADS) ac_rows_kernel(G geo, float* __res
   }
 }
 
-template <typename T, class G>
+// DBIAS false (nq above AC_MAX_NQ): dk and dv only, d bias by ac_dbias_kernel.
+template <typename T, class G, bool DBIAS = true>
 __global__ void __launch_bounds__(SB_THREADS) ac_cols_kernel(G geo, const float* __restrict__ stats, int groups,
                                                              float* __restrict__ dbias_part) {
   using nvcuda::wmma::col_major;
   using nvcuda::wmma::row_major;
   extern __shared__ __align__(128) unsigned char smem[];
   const int d = geo.d, DP = pad16(d), nq = geo.nq, nk = geo.nk, heads = geo.heads;
-  const AcSmem L = ac_smem_layout<T>(DP, nq, true);
+  const AcSmem L = ac_smem_layout<T>(DP, nq, DBIAS);
   T* qs = (T*)(smem + L.q);
   T* gs = (T*)(smem + L.g);
   T* ks = (T*)(smem + L.k);
@@ -286,7 +287,8 @@ __global__ void __launch_bounds__(SB_THREADS) ac_cols_kernel(G geo, const float*
   const int k0 = kc * AC_TILE;
   const long long windows = geo.units / heads;
 
-  for (int i = tid; i < nqc * AC_TILE * AC_TILE; i += SB_THREADS) db[i] = 0.f;
+  if (DBIAS)
+    for (int i = tid; i < nqc * AC_TILE * AC_TILE; i += SB_THREADS) db[i] = 0.f;
   const FragMap map = frag_map_for<T>(sc);
   for (long long w = grp; w < windows; w += groups) {
     const auto U = geo.unit(w * heads + h);
@@ -321,9 +323,11 @@ __global__ void __launch_bounds__(SB_THREADS) ac_cols_kernel(G geo, const float*
         pt[r * ldp + lane + 32] = from_f32<T>(pb);
         dst[r * ldp + lane] = from_f32<T>(sa);
         dst[r * ldp + lane + 32] = from_f32<T>(sb);
-        float* dbr = db + (size_t)(q0 + r) * AC_TILE;
-        dbr[lane] += sa;
-        dbr[lane + 32] += sb;
+        if (DBIAS) {
+          float* dbr = db + (size_t)(q0 + r) * AC_TILE;
+          dbr[lane] += sa;
+          dbr[lane + 32] += sb;
+        }
       }
       __syncthreads();
       // dv = p^T g, dk = dscores^T q (rows: this block's keys)
@@ -340,11 +344,83 @@ __global__ void __launch_bounds__(SB_THREADS) ac_cols_kernel(G geo, const float*
       }
     }
   }
+  if (!DBIAS) return;
   __syncthreads();
   float* part = dbias_part + ((size_t)grp * heads + h) * nq * nk;
   for (int i = tid; i < nq * AC_TILE; i += SB_THREADS) {
     const int q = i / AC_TILE, n = i - q * AC_TILE;
     if (k0 + n < nk) part[(size_t)q * nk + k0 + n] = db[i];
+  }
+}
+
+// d bias above AC_MAX_NQ, where the column pass's nq x 64 f32 rows outgrow
+// shared memory: a block owns one 64 x 64 tile (window group grp, head h,
+// query chunk qc, key chunk kc), recomputes its scores and dp for each window
+// of the group, and sums its dscores in shared memory (16 KB) in window
+// order; the tile goes to the group's partial as the column pass's would.
+template <typename T, class G>
+__global__ void __launch_bounds__(SB_THREADS) ac_dbias_kernel(G geo, const float* __restrict__ stats, int groups,
+                                                              float* __restrict__ dbias_part) {
+  using nvcuda::wmma::col_major;
+  using nvcuda::wmma::row_major;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int d = geo.d, DP = pad16(d), nq = geo.nq, nk = geo.nk, heads = geo.heads;
+  const AcSmem L = ac_smem_layout<T>(DP, nq, false);
+  T* qs = (T*)(smem + L.q);
+  T* gs = (T*)(smem + L.g);
+  T* ks = (T*)(smem + L.k);
+  T* vs = (T*)(smem + L.v);
+  float* sc = (float*)(smem + L.sc);
+  float* dpr = (float*)(smem + L.dp);
+  float* mrow = (float*)(smem + L.m);
+  float* ilrow = (float*)(smem + L.l);
+  float* drow = (float*)(smem + L.dsum);
+  const T** rows = (const T**)(smem + L.rows);
+  float* db = (float*)(smem + L.total);
+  const int lq = L.lq, lsc = L.lsc;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nqc = (nq + AC_TILE - 1) / AC_TILE, nkc = (nk + AC_TILE - 1) / AC_TILE;
+  int b = blockIdx.x;
+  const int kc = b % nkc;
+  b /= nkc;
+  const int qc = b % nqc;
+  b /= nqc;
+  const int h = b % heads, grp = b / heads;
+  const int q0 = qc * AC_TILE, k0 = kc * AC_TILE;
+  const long long windows = geo.units / heads;
+  for (int i = tid; i < AC_TILE * AC_TILE; i += SB_THREADS) db[i] = 0.f;
+  const FragMap map = frag_map_for<T>(sc);
+  for (long long w = grp; w < windows; w += groups) {
+    const auto U = geo.unit(w * heads + h);
+    __syncthreads();  // the previous window is done with every buffer
+    ac_load2(qs, [&](int r) { return U.q(q0 + r); }, gs, [&](int r) { return U.g(q0 + r); }, lq, d, DP, rows);
+    __syncthreads();
+    ac_load2(ks, [&](int t) { return U.k(k0 + t); }, vs, [&](int t) { return U.v(k0 + t); }, lq, d, DP, rows);
+    if (tid < AC_TILE) {
+      mrow[tid] = ilrow[tid] = drow[tid] = 0.f;  // a missing row has p = 0
+      if (q0 + tid < nq) {
+        const float* st = stats + ((size_t)U.id * nq + q0 + tid) * 3;
+        mrow[tid] = st[0];
+        ilrow[tid] = 1.f / st[1];
+        drow[tid] = st[2];
+      }
+    }
+    __syncthreads();
+    ac_scores<T>(U, q0, k0, qs, ks, lq, DP, sc, lsc, map);
+    gemm64_smem<row_major, col_major>(gs, lq, vs, lq, DP, AC_TILE, map,
+                                      [&](int r, int n, float acc) { dpr[r * lsc + n] = acc; });
+    for (int r = warp; r < AC_TILE; r += SB_THREADS / 32) {
+      const float m = mrow[r], il = ilrow[r], dd = drow[r];
+      const float pa = expf(sc[r * lsc + lane] - m) * il, pb = expf(sc[r * lsc + lane + 32] - m) * il;
+      db[r * AC_TILE + lane] += pa * (dpr[r * lsc + lane] - dd);
+      db[r * AC_TILE + lane + 32] += pb * (dpr[r * lsc + lane + 32] - dd);
+    }
+  }
+  __syncthreads();
+  float* part = dbias_part + ((size_t)grp * heads + h) * nq * nk;
+  for (int i = tid; i < AC_TILE * AC_TILE; i += SB_THREADS) {
+    const int q = i / AC_TILE, n = i - q * AC_TILE;
+    if (q0 + q < nq && k0 + n < nk) part[(size_t)(q0 + q) * nk + k0 + n] = db[i];
   }
 }
 
@@ -747,6 +823,19 @@ template <typename T, class G>
 static cudaError_t ac_cols(const G& geo, const float* stats, int groups, float* part, cudaStream_t stream) {
   const int DP = pad16(geo.d), nkc = (geo.nk + AC_TILE - 1) / AC_TILE;
   const unsigned blocks = (unsigned)(geo.heads * nkc * groups);
+  if (geo.nq > AC_MAX_NQ) {  // windows above 16: dk / dv, then d bias a 64 x 64 tile a block
+    const AcSmem L = ac_smem_layout<T>(DP, geo.nq, false);
+    cudaError_t err = allow_smem(ac_cols_kernel<T, G, false>, L.total);
+    if (err != cudaSuccess) return err;
+    ac_cols_kernel<T, G, false><<<blocks, SB_THREADS, L.total, stream>>>(geo, stats, groups, part);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const size_t bytes = L.total + (size_t)AC_TILE * AC_TILE * sizeof(float);
+    if ((err = allow_smem(ac_dbias_kernel<T, G>, bytes)) != cudaSuccess) return err;
+    const int nqc = (geo.nq + AC_TILE - 1) / AC_TILE;
+    ac_dbias_kernel<T, G><<<(unsigned)(groups * geo.heads * nqc * nkc), SB_THREADS, bytes, stream>>>(geo, stats, groups,
+                                                                                                    part);
+    return cudaGetLastError();
+  }
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if ((DP == 16 || DP == 32) && geo.mma_rows()) {
       const size_t bytes = (size_t)pad64(geo.nq) * AC_TILE * sizeof(float);

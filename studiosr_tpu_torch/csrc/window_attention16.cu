@@ -1,4 +1,4 @@
-// B5 at windows 9-16 (HAT serving at 16): the attention half of a Swin block,
+// B5 at windows from 9 (HAT serving at 16): the attention half of a Swin block,
 //   y = x + d_b * proj(WA(LN x)),
 // with window attention (WA) over ws x ws windows (N = ws^2 tokens, 256 at
 // 16; a window of N not a multiple of 64 ends in a ragged chunk of queries
@@ -27,12 +27,15 @@
 
 extern "C" long long qkv_attention_pack_elems(int C, int heads) { return qkv_pack_layout(C, heads).total; }
 
-#define WINDOW_ATTENTION16_ENTRY(NAME, T)                                                                         \
+// Two entries a dtype: windows 9..16 and 17 up, one kernel (pass 2 streams
+// the keys at any window).
+#define WINDOW_ATTENTION16_ENTRY(NAME, T, WS_LO, WS_HI)                                                           \
   extern "C" int NAME(const void* x, void* out, int B, int H, int W, int C, int heads, int ws, int shift,        \
                       const void* ln_w, const void* ln_b, const void* wqkv, const void* bqkv, const void* wproj, \
                       const void* bproj, const void* relbias, const void* dp, void* qkv, void* packed,          \
                       long long pack_elems, void* stream) {                                                     \
-    if (pack_elems != qkv_pack_layout(C, heads).total || shift < 0 || shift >= ws) return (int)cudaErrorInvalidValue; \
+    if (pack_elems != qkv_pack_layout(C, heads).total || shift < 0 || shift >= ws || ws < WS_LO || ws > WS_HI)   \
+      return (int)cudaErrorInvalidValue;                                                                        \
     return (int)qkv_attention<T, false>((const T*)x, (T*)out, (T*)qkv, B, H, W, C, heads, ws, shift, 0,          \
                                         (const float*)ln_w, (const float*)ln_b, (const T*)wqkv,                  \
                                         (const float*)bqkv, (const T*)wproj, (const float*)bproj,                \
@@ -40,5 +43,7 @@ extern "C" long long qkv_attention_pack_elems(int C, int heads) { return qkv_pac
                                         (cudaStream_t)stream);                                                   \
   }
 
-WINDOW_ATTENTION16_ENTRY(window_attention16_f32, float)
-WINDOW_ATTENTION16_ENTRY(window_attention16_bf16, __nv_bfloat16)
+WINDOW_ATTENTION16_ENTRY(window_attention16_f32, float, 9, 16)
+WINDOW_ATTENTION16_ENTRY(window_attention16_bf16, __nv_bfloat16, 9, 16)
+WINDOW_ATTENTION16_ENTRY(window_attention_large_f32, float, 17, 1 << 14)
+WINDOW_ATTENTION16_ENTRY(window_attention_large_bf16, __nv_bfloat16, 17, 1 << 14)

@@ -1,6 +1,6 @@
 // B5 in bf16, written for the H100: the attention half of a Swin block,
 //   y = x + d_b * proj(WA(LN x))  on (B, H, W, C) maps,
-// window attention over ws x ws windows, ws 2..16 (SwinIR's 8, HAT's 16,
+// window attention over ws x ws windows, any ws from 2 (SwinIR's 8, HAT's 16,
 // MaxSR's adaptive ceil(sqrt(side))), with the
 // gathered rel-pos bias (heads, N, N) and, for shifted blocks, the -100
 // region mask of calculate_mask; the shift folded into reads and writes, the
@@ -8,11 +8,13 @@
 // serving).
 //
 // Replaces studiosr_tpu/ops/pallas/swin_block.py::fused_window_attention_block
-// (:549) in bf16 at windows 2..16; f32, the checks' dtype, keeps
+// (:549) in bf16 at every window; f32, the checks' dtype, keeps
 // window_attention.cu / window_attention16.cu, and so do head dims above 32.
 // A window of N = ws^2 tokens is padded to NCH = ceil(N / 64) whole tiles
 // (am_window.cuh): windows 2..8 take one tile (the entry
-// window_attention_mma_bf16), 9..16 two to four (window_attention16_mma_bf16);
+// window_attention_mma_bf16), 9..16 two to four (window_attention16_mma_bf16),
+// 17 up five and more, the key chunks streamed (window_attention_large_mma_bf16,
+// wa_attn_large_kernel);
 // the padding keys score -inf (their bias, am_bias_kernel), the padding
 // queries are never stored.
 // Rounding points follow the TPU kernel: the LN output, q / k / v, the
@@ -52,7 +54,7 @@
 // in fragment order after the weights); each stage the image of a ring slot in wgmma's K-major
 // core-matrix layout (am_kmajor in am_common.cuh, _k_major there: change
 // both together).
-// Takes bf16, windows 2..16, head dims up to 32, C a multiple of 4 up to
+// Takes bf16, windows from 2, head dims up to 32, C a multiple of 4 up to
 // 184, H and W multiples of the window; the wrapper routes anything else.
 #include "am_window.cuh"
 
@@ -196,6 +198,128 @@ __global__ void __launch_bounds__(128, 3) wa_attn_kernel(const AmArgs a, const A
   }
 }
 
+// Windows above 16 (NCH >= 5 tiles): the window's k and v do not stay in
+// shared memory (2 NCH 64 DP bf16, 144 KB at window 33 and without a bound
+// above), so a warpgroup owning (window, head, 64 queries) streams them a
+// 64-key chunk at a time through two cp.async buffers, the next chunk in
+// flight while this one is used; scores, bias, mask, the online softmax and
+// o += p v as in wa_attn_kernel; the shift's regions computed as the keys
+// come. 20 KB of shared memory at DP 32, at any window.
+__host__ __device__ inline size_t wa_large_smem(const AmGeom& G) { return (size_t)5 * AM_TOK * G.DP * 2; }
+
+template <int DP>
+__global__ void __launch_bounds__(128, 4) wa_attn_large_kernel(const AmArgs a, const AmGeom G) {
+  constexpr int CH = AM_TOK * DP, KS = DP / 16, NDT = DP / 8, PIECES = CH / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qk = (bf16*)smem;
+  bf16* Kb = Qk + CH;      // two buffers of a chunk's k (K-major in d)
+  bf16* Vb = Kb + 2 * CH;  // two buffers of its v (K-major in the token)
+  const int NCH = G.NCH, N = G.N;
+  const int tid = threadIdx.x, wr = tid >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  const int r = blockIdx.x % NCH, h = (blockIdx.x / NCH) % G.heads, w = blockIdx.x / (NCH * G.heads);
+  const bf16* unit = a.img + ((long long)w * G.heads + h) * 3 * N * DP;
+  auto load = [&](int c) {
+    const int b = c & 1;
+    for (int i = tid; i < 2 * PIECES; i += 128) {
+      const bool v = i >= PIECES;
+      const int j = v ? i - PIECES : i;
+      hm_cp_async<16>((v ? Vb : Kb) + b * CH + j * 8, unit + (v ? 2 : 1) * (long long)N * DP + c * CH + j * 8, true);
+    }
+  };
+  for (int i = tid; i < PIECES; i += 128) hm_cp_async<16>(Qk + i * 8, unit + r * CH + i * 8, true);
+  load(0);
+  hm_cp_commit();
+  const int q0 = 16 * wr + gq, wi = w % a.nwi;
+  const int rq0 = a.shift ? am_region(G, a, wi, r * AM_TOK + q0) : 0;
+  const int rq1 = a.shift ? am_region(G, a, wi, r * AM_TOK + q0 + 8) : 0;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[NDT][4];
+#pragma unroll 1
+  for (int c = 0; c < NCH; ++c) {
+    if (c + 1 < NCH) {
+      load(c + 1);
+      hm_cp_commit();
+      hm_cp_wait_upto(1);
+    } else {
+      hm_cp_wait_upto(0);
+    }
+    wg_proxy_fence();
+    __syncthreads();  // chunk c (and q) in for every thread
+    const bf16 *Kk = Kb + (c & 1) * CH, *Vt = Vb + (c & 1) * CH;
+    float4 bb[8];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) bb[nt] = am_bias4(a, NCH, h, r, c, nt, tid);
+    float s[8][4];
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      wg_ss<64>(&s[0][0], wg_desc(Qk + ks * 128, 128, DP * 16), wg_desc(Kk + ks * 128, 128, DP * 16), ks > 0);
+    wg_commit();
+    wg_wait0();
+    wg_hold<32>(&s[0][0]);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = c * AM_TOK + nt * 8 + 2 * tq;
+      s[nt][0] += bb[nt].x, s[nt][1] += bb[nt].y, s[nt][2] += bb[nt].z, s[nt][3] += bb[nt].w;
+      if (a.shift) {
+        const int k0 = am_region(G, a, wi, col), k1 = am_region(G, a, wi, col + 1);
+        if (k0 != rq0) s[nt][0] += -100.f;
+        if (k1 != rq0) s[nt][1] += -100.f;
+        if (k0 != rq1) s[nt][2] += -100.f;
+        if (k1 != rq1) s[nt][3] += -100.f;
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * hh], s[nt][2 * hh + 1]));
+      const float mn = fmaxf(m[hh], am_quad_max(mx) * AM_LOG2E), sc = am_exp2(m[hh] - mn);
+      l[hh] *= sc, m[hh] = mn;
+      if (c > 0)
+#pragma unroll
+        for (int nt = 0; nt < NDT; ++nt) o[nt][2 * hh] *= sc, o[nt][2 * hh + 1] *= sc;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = am_exp2(fmaf(s[nt][2 * hh + e], AM_LOG2E, -mn));
+          s[nt][2 * hh + e] = p;
+          l[hh] += p;
+        }
+    }
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      pa[nt >> 1][(nt & 1) * 2] = hm_pack(s[nt][0], s[nt][1]);
+      pa[nt >> 1][(nt & 1) * 2 + 1] = hm_pack(s[nt][2], s[nt][3]);
+    }
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wg_rs<DP>(&o[0][0], pa[ks], wg_desc(Vt + ks * 128, 128, AM_TOK * 16), c > 0 || ks > 0);
+    wg_commit();
+    wg_wait0();
+    wg_hold<NDT * 4>(&o[0][0]);
+    wg_hold<16>(&pa[0][0]);
+    __syncthreads();  // every warp is done with buffer c & 1 before chunk c + 2 fills it
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float inv = 1.f / am_quad_sum(l[hh]);
+#pragma unroll
+    for (int nt = 0; nt < NDT; ++nt) o[nt][2 * hh] *= inv, o[nt][2 * hh + 1] *= inv;
+  }
+  const long long row0 = ((long long)w * NCH + r) * AM_TOK;
+#pragma unroll
+  for (int nt = 0; nt < NDT; ++nt) {
+    const int j = nt * 8 + 2 * tq;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<__nv_bfloat162*>(a.att + (row0 + q0 + 8 * hh) * G.HD + h * DP + j) =
+          __floats2bfloat162_rn(o[nt][2 * hh], o[nt][2 * hh + 1]);
+  }
+}
+
 // Scratch in bf16: the q|k|v images (windows x heads x 3 x N x DP), LN rows
 // (SC), attn rows (HD), the packed weights and the bias in fragment order
 // (f32, or bf16 when the bias is; the room of f32), the last two used only
@@ -245,6 +369,13 @@ static cudaError_t wa_launch(const AmArgs& a, const AmGeom& G, const WaScratch& 
   am_proj_kernel<DP, false><<<S.proj_blocks, 256, pbytes, stream>>>(a, G);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  if (G.NCH > 4) {
+    const size_t lbytes = wa_large_smem(G);
+    err = allow_smem(wa_attn_large_kernel<DP>, lbytes);
+    if (err != cudaSuccess) return err;
+    wa_attn_large_kernel<DP><<<S.windows * G.heads * G.NCH, 128, lbytes, stream>>>(a, G);
+    return cudaGetLastError();
+  }
   auto attn = G.NCH == 1   ? wa_attn_kernel<1, DP>
               : G.NCH == 2 ? wa_attn_kernel<2, DP>
               : G.NCH == 3 ? wa_attn_kernel<3, DP>
@@ -311,7 +442,8 @@ static int wa_run(int ws, const void* x, void* out, int B, int H, int W, int C, 
                    : am_rowgemm(q, C, WaOut<false>{a, G}, S.proj_blocks, st));
 }
 
-// Two entries, one a family: windows 2..8 (one tile a window) and 9..16.
+// Three entries, one a family: windows 2..8 (one tile a window), 9..16 and
+// 17 up (the key chunks streamed).
 #define WINDOW_ATTENTION_MMA_ENTRY(NAME, WS_LO, WS_HI)                                                                \
   extern "C" int NAME(const void* x, void* out, int B, int H, int W, int C, int heads, int ws, int shift,             \
                       int bias16, const void* ln_w, const void* ln_b, const void* bqkv, const void* bproj,            \
@@ -325,3 +457,4 @@ static int wa_run(int ws, const void* x, void* out, int B, int H, int W, int C, 
 
 WINDOW_ATTENTION_MMA_ENTRY(window_attention_mma_bf16, 2, 8)
 WINDOW_ATTENTION_MMA_ENTRY(window_attention16_mma_bf16, 9, 16)
+WINDOW_ATTENTION_MMA_ENTRY(window_attention_large_mma_bf16, 17, 1 << 14)

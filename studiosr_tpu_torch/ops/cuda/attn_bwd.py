@@ -1,11 +1,11 @@
 """B8 and B9: the backward of B5 with the forward recomputed (CUDA kernels
-``csrc/attn_bwd_mma.cu`` in bf16 at windows 2 to 16; ``csrc/attn_bwd.cu`` at
-windows 2 to 8 and ``csrc/attn_bwd16.cu`` at 9 to 16 in f32 and at wider
-heads).
+``csrc/attn_bwd_mma.cu`` in bf16 at every window; ``csrc/attn_bwd.cu`` at
+windows 2 to 8 and ``csrc/attn_bwd16.cu`` from 9 in f32 and at wider heads).
 
 Replaces ``studiosr_tpu/ops/pallas/attn_bwd.py::pairs_attention_bwd`` (B8,
 windows with 2 ws^2 <= 128: 2 to 8) and ``::v5_attention_bwd`` (B9, the
-larger windows: 9 to 16, HAT's 16). For
+larger windows: 9 to 16, HAT's 16, and from 17 in three streaming passes,
+MaxSR adaptive above a 256 x 256 crop). For
 y = x + d_b * proj(WA(LN x)) on (B, H, W, C) maps, with ``shift`` and
 ``drop_path`` as in ``ops/cuda/window_attention.py`` (the output aligned
 with the input), and the cotangent ``g`` of y, it returns
@@ -18,15 +18,16 @@ gathered rel-pos bias (autograd of ``gather_rel_bias`` scatters it into the
 (2 ws - 1)^2 table). ``wqkv`` is unscaled, so its q columns need no
 re-scaling. The kernels sum their partials in a fixed order, so the result
 is the same from run to run. Launches at windows 2 to 8 count as
-``attention_bwd``, at 9 to 16 as ``attention_bwd_ws16``
-(``window_attention.large_window``).
+``attention_bwd``, at 9 to 16 as ``attention_bwd_ws16`` and from 17 as
+``attention_bwd_large`` (``window_attention.window_family``).
 
 Routing, by dtype and geometry, never by a failure: bf16 with a head dim up
 to 32 and C a multiple of 4 up to 184 (:func:`mma_takes`) launches the
 kernels written for the H100, ``csrc/attn_bwd_mma.cu`` (C entries
-``attn_bwd_mma_bf16`` at windows 2 to 8, ``attn_bwd16_mma_bf16`` at 9 to 16);
-other bf16 geometries (a head dim above 32) launch ``attn_bwd_bf16`` /
-``attn_bwd16_bf16``, and f32 ``attn_bwd_f32`` / ``attn_bwd16_f32``. Each
+``attn_bwd_mma_bf16`` at windows 2 to 8, ``attn_bwd16_mma_bf16`` at 9 to 16,
+``attn_bwd_large_mma_bf16`` from 17); other bf16 geometries (a head dim
+above 32) launch ``attn_bwd_bf16`` / ``attn_bwd16_bf16`` /
+``attn_bwd_large_bf16``, and f32 the ``_f32`` entries, by the same split. Each
 launch is counted under its C entry (``engagement.entries()``). The H100
 kernels read the weights packed per call (:func:`pack_attn_bwd_weights`'s
 rule, gathered on the card by the entry itself), read a bf16 bias (the bf16
@@ -45,7 +46,7 @@ import torch
 from studiosr_tpu_torch.ops.cuda import _build
 from studiosr_tpu_torch.ops.cuda._launch import P, I, check, finish, operand, stream
 from studiosr_tpu_torch.ops.cuda.window_attention import (
-    _NP_WIDTHS, _image, _pad16, check_window_map, large_window, mma_takes,
+    _NP_WIDTHS, FAMILY_STEM, _image, _pad16, check_window_map, large_window, mma_takes, window_family,
 )
 from studiosr_tpu_torch.ops.windows import calculate_mask, window_partition, window_reverse
 
@@ -63,6 +64,8 @@ _ARGS16 = (P, P, P, I, I, I, I, I, I, I) + (P,) * 7 + (P,) * 6 + (P, _LL, P, _LL
 _SIGNATURES16 = {
     "attn_bwd16_f32": _ARGS16,
     "attn_bwd16_bf16": _ARGS16,
+    "attn_bwd_large_f32": _ARGS16,
+    "attn_bwd_large_bf16": _ARGS16,
     "attn_bwd16_scratch": (I, I, I, I, I, I, ctypes.POINTER(_LL), ctypes.POINTER(_LL)),
 }
 _RESTYPES16 = {"attn_bwd16_scratch": None}
@@ -70,6 +73,7 @@ _ARGS_MMA = (P, P, P) + (I,) * 8 + (P,) * 8 + (_LL,) + (P,) * 6 + (P, _LL, P, _L
 _SIGNATURES_MMA = {
     "attn_bwd_mma_bf16": _ARGS_MMA,
     "attn_bwd16_mma_bf16": _ARGS_MMA,
+    "attn_bwd_large_mma_bf16": _ARGS_MMA,
     "attn_bwd_mma_scratch": (I, I, I, I, I, I, ctypes.POINTER(_LL), ctypes.POINTER(_LL)),
     "attn_bwd_mma_pack_elems": (I, I),
 }
@@ -207,8 +211,9 @@ def attention_bwd(
     x, g, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, *, heads: int, window_size: int, shift: int = 0, drop_path=None
 ):
     """CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise. A launch counts under ``attention_bwd`` at windows 2 to 8 and
-    under ``attention_bwd_ws16`` at 9 to 16."""
+    raise. A launch counts under ``attention_bwd`` at windows 2 to 8, under
+    ``attention_bwd_ws16`` at 9 to 16 and under ``attention_bwd_large`` from
+    17."""
     kw = dict(heads=heads, window_size=window_size, shift=shift, drop_path=drop_path)
     if x.device.type == "cpu":
         return attention_bwd_plain(x, g, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, **kw)
@@ -227,8 +232,8 @@ def attention_bwd(
     ]
     px = check(x, "x", (bsz, h, w, c), dt, dev)
     pg = check(g, "g", (bsz, h, w, c), dt, dev)
-    ws16 = large_window(window_size)
-    name = "attention_bwd_ws16" if ws16 else "attention_bwd"
+    ws16, family = large_window(window_size), window_family(window_size)
+    name = "attention_bwd" + family
     dx = torch.empty_like(x)
     ds_db = torch.empty(2 * c, dtype=f32, device=dev)
     dbproj = torch.empty(c, dtype=f32, device=dev)
@@ -247,7 +252,7 @@ def attention_bwd(
     fscratch = torch.empty(f_elems.value, dtype=f32, device=dev)
     dwqkv, dbqkv = torch.empty(c, 3 * c, dtype=f32, device=dev), torch.empty(3 * c, dtype=f32, device=dev)
     dwproj = torch.empty(c, c, dtype=f32, device=dev)
-    entry = ("attn_bwd16" if ws16 else "attn_bwd") + ("_bf16" if dt == torch.bfloat16 else "_f32")
+    entry = "attn_bwd" + FAMILY_STEM[family] + ("_bf16" if dt == torch.bfloat16 else "_f32")
     status = getattr(lib, entry)(
         px, pg, dx.data_ptr(), bsz, h, w, c, heads, window_size, shift, *ptrs, ds_db.data_ptr(), dwqkv.data_ptr(),
         dbqkv.data_ptr(), dwproj.data_ptr(), dbproj.data_ptr(), dbias.data_ptr(), tscratch.data_ptr(),
@@ -278,7 +283,7 @@ def _attention_bwd_mma(px, pg, dx, shape, heads, window_size, shift, ops, ds_db,
     dwqkv = torch.empty(c, 3 * hd, dtype=f32, device=dev)
     dbqkv = torch.empty(3 * hd, dtype=f32, device=dev)
     dwproj = torch.empty(hd, c, dtype=f32, device=dev)
-    entry = "attn_bwd16_mma_bf16" if large_window(window_size) else "attn_bwd_mma_bf16"
+    entry = "attn_bwd" + FAMILY_STEM[window_family(window_size)] + "_mma_bf16"
     status = getattr(lib, entry)(
         px, pg, dx.data_ptr(), bsz, h, w, c, heads, window_size, shift, int(bias.dtype == torch.bfloat16),
         ln_w.data_ptr(),

@@ -8,9 +8,10 @@ so there is no fallback to count. What remains:
   (CPU tensors take the plain version and count nothing), under the
   kernel's name: ``fused_swin_block``, ``fused_conv3x3``,
   ``fused_upsample_x4``, ``fused_upsample_s`` (B4, x2 / x3),
-  ``fused_window_attention_block`` (``_ws16`` at window 16),
-  ``fused_mlp_block`` (``_extra`` with the CAB join), ``mlp_bwd``,
-  ``attention_bwd`` (``_ws16`` at window 16), ``fused_cab_body``,
+  ``fused_window_attention_block`` (``_ws16`` at windows 9-16,
+  ``_large`` from 17), ``fused_mlp_block`` (``_extra`` with the CAB join),
+  ``mlp_bwd``, ``attention_bwd`` (``_ws16``, ``_large`` alike),
+  ``fused_cab_body``,
   ``fused_ocab_block``, ``oca_core_fwd``, ``oca_core_bwd``,
   ``fused_resblock`` (B14), ``window_attention_pallas`` (B15); where a
   wrapper names the C entry it called (every kernel: one for f32,

@@ -1,5 +1,5 @@
 """B5: the attention half of a Swin block (CUDA kernels ``csrc/window_attention_mma.cu``
-in bf16 at windows 2 to 16; ``csrc/window_attention.cu`` and ``csrc/window_attention16.cu``
+in bf16 at every window; ``csrc/window_attention.cu`` and ``csrc/window_attention16.cu``
 in f32 and at wider heads).
 
 Replaces ``studiosr_tpu/ops/pallas/swin_block.py::fused_window_attention_block``
@@ -11,18 +11,22 @@ roll(+shift) . half . roll(-shift) with the shifted-window mask of
 ``ops/windows.py::calculate_mask`` of the rolled map, and returns the output
 aligned with the input: the map-level function of ``attention_map_vjp``.
 
-The kernels take square windows of 2 to 16 in two families, split where the
-JAX package splits its layouts (the window pair at 2 ws^2 <= 128): windows
-2 to 8 (N = ws^2 <= 64 tokens, one 64-row tile a window; SwinIR's 8) count
-as ``fused_window_attention_block``, windows 9 to 16 (two to four 64-row
-chunks; HAT's 16) as ``fused_window_attention_block_ws16``. A window's
-tokens past N pad its last tile: their keys score -inf and their rows are
-never stored. Outside the bf16 route below, the small windows run
-``csrc/window_attention.cu`` (one window per thread block) and the large
-ones ``csrc/window_attention16.cu``: an LN + q|k|v projection pass into a
-scratch, then an attention + proj pass per (window, 64-query chunk) with an
-online softmax over 64-key chunks. Above 16 (N > 256) no kernel takes the
-window and the wrappers raise ``NotImplementedError``.
+The kernels take square windows from 2 up in three families
+(:func:`window_family`): windows 2 to 8 (N = ws^2 <= 64 tokens, one 64-row
+tile a window; SwinIR's 8; the JAX package's window pair at 2 ws^2 <= 128)
+count as ``fused_window_attention_block``, windows 9 to 16 (two to four
+64-row chunks; HAT's 16) as ``fused_window_attention_block_ws16``, and
+windows from 17 (five chunks and more, the key chunks streamed; SwinIR at
+24, MaxSR adaptive above a 256 x 256 crop) as
+``fused_window_attention_block_large``. A window's tokens past N pad its
+last tile: their keys score -inf and their rows are never stored. Outside
+the bf16 route below, the small windows run ``csrc/window_attention.cu``
+(one window per thread block) and the others ``csrc/window_attention16.cu``:
+an LN + q|k|v projection pass into a scratch, then an attention + proj pass
+per (window, 64-query chunk) with an online softmax over 64-key chunks.
+Above :data:`KERNEL_WINDOW_MAX` the gathered (heads, N, N) f32 bias alone
+outgrows the card (16 GiB a head at 256) and the wrappers raise
+``NotImplementedError`` before any launch.
 
 Operands: ``wqkv`` (C, 3C) with q | k | v column blocks, unscaled (the
 kernel applies 1/sqrt(d) to q) and ``wproj`` (C, C), (in, out) layout, cast
@@ -34,8 +38,9 @@ Routing, by dtype and geometry, never by a failure: bf16 with a head dim up
 to 32 and C a multiple of 4 up to 184 (:func:`mma_takes`) at any window
 launches the kernels written for the H100, ``csrc/window_attention_mma.cu``
 (C entries ``window_attention_mma_bf16`` for windows 2 to 8,
-``window_attention16_mma_bf16`` for 9 to 16); other bf16 geometries and f32
-launch ``window_attention_bf16`` / ``window_attention16_bf16`` and the
+``window_attention16_mma_bf16`` for 9 to 16, ``window_attention_large_mma_bf16``
+from 17); other bf16 geometries and f32 launch ``window_attention_bf16`` /
+``window_attention16_bf16`` / ``window_attention_large_bf16`` and the
 ``_f32`` entries, by the same split. Each launch is counted under its C entry
 (``engagement.entries()``). The H100 kernels read the weights packed: dense
 weights are gathered on every call by :func:`_fwd_pack_index`'s rule (the
@@ -61,13 +66,16 @@ from studiosr_tpu_torch.ops.windows import calculate_mask, window_partition, win
 
 __all__ = [
     "fused_window_attention_block", "window_attention_plain", "check_window_map", "mma_takes", "pack_window_attention",
-    "unpack_window_attention", "large_window", "padded_tokens", "KERNEL_WINDOW", "KERNEL_WINDOW16", "KERNEL_WINDOWS",
-    "MAX_HEAD_DIM",
+    "unpack_window_attention", "large_window", "window_family", "padded_tokens", "KERNEL_WINDOW", "KERNEL_WINDOW16",
+    "KERNEL_WINDOW_MAX", "KERNEL_WINDOWS", "MAX_HEAD_DIM", "FAMILY_STEM",
 ]
 
 KERNEL_WINDOW = 8  # csrc/swin_common.cuh SB_WS: one 64-token tile a window, the largest of the small family
-KERNEL_WINDOW16 = 16  # csrc/window_attention16.cu: 64-query chunks of a window, the largest of the large family
-KERNEL_WINDOWS = tuple(range(2, KERNEL_WINDOW16 + 1))  # the square windows the kernels take
+KERNEL_WINDOW16 = 16  # csrc/window_attention16.cu: 64-query chunks of a window, the largest of the 9-16 family
+KERNEL_WINDOW_MAX = 256  # N = 65,536: the gathered (heads, N, N) f32 bias is 16 GiB a head
+KERNEL_WINDOWS = range(2, KERNEL_WINDOW_MAX + 1)  # the square windows the kernels take
+# a family's C entries: window_attention{stem}_..., attn_bwd{stem}_...
+FAMILY_STEM = {"": "", "_ws16": "16", "_large": "_large"}
 MAX_HEAD_DIM = 64  # csrc/qkv_attention.cuh: one head's q|k|v columns, padded to 16, fit a 64-wide tile
 _ARGS = (P, P, I, I, I, I, I, I, I) + (P,) * 8 + (P, ctypes.c_longlong, P)
 _SIGNATURES = {
@@ -80,6 +88,8 @@ _ARGS16 = (P, P, I, I, I, I, I, I, I) + (P,) * 8 + (P, P, ctypes.c_longlong, P)
 _SIGNATURES16 = {
     "window_attention16_f32": _ARGS16,
     "window_attention16_bf16": _ARGS16,
+    "window_attention_large_f32": _ARGS16,
+    "window_attention_large_bf16": _ARGS16,
     "qkv_attention_pack_elems": (I, I),
     "qkv_attention_scratch_elems": (I, I, I),
 }
@@ -89,6 +99,7 @@ _ARGS_MMA = (P, P) + (I,) * 8 + (P,) * 10 + (_LL, P, _LL, P)
 _SIGNATURES_MMA = {
     "window_attention_mma_bf16": _ARGS_MMA,
     "window_attention16_mma_bf16": _ARGS_MMA,
+    "window_attention_large_mma_bf16": _ARGS_MMA,
     "window_attention_mma_pack_elems": (I, I),
     "window_attention_mma_scratch": (I,) * 6 + (ctypes.POINTER(_LL),),
 }
@@ -99,10 +110,17 @@ _KROWS, _KSTAGE, _TOK = 96, 64, 64  # K rows of a q|k|v stage and of a Wproj sta
 
 
 def large_window(window_size: int) -> bool:
-    """Whether a window takes the large family (9 to 16: N = ws^2 > 64
-    tokens, the JAX package's one-window-a-program layout) rather than the
-    small one (2 to 8: the window-pair layout, 2 ws^2 <= 128)."""
+    """Whether a window spans more than one 64-token tile (from 9: N = ws^2
+    > 64, the JAX package's one-window-a-program layout) rather than one
+    (2 to 8: the window-pair layout, 2 ws^2 <= 128)."""
     return window_size * window_size > _TOK
+
+
+def window_family(window_size: int) -> str:
+    """The suffix the launches of a window count under: "" at 2 to 8 (one
+    tile), "_ws16" at 9 to 16 (two to four tiles), "_large" from 17 (five
+    tiles and more, the key and query chunks streamed)."""
+    return "_large" if window_size > KERNEL_WINDOW16 else "_ws16" if large_window(window_size) else ""
 
 
 def padded_tokens(window_size: int) -> int:
@@ -257,13 +275,15 @@ def window_attention_plain(
 
 def check_window_map(name: str, x: torch.Tensor, heads: int, window_size: int, shift: int) -> None:
     """Raise unless the window kernels (B5, B8 / B9) take this map: a square
-    window of 2 to 16 (above 16, N > 256 tokens outgrows the large family's
-    shared memory), and at the large windows a head dim up to 64."""
+    window of 2 to :data:`KERNEL_WINDOW_MAX` (above it the gathered f32 bias
+    alone outgrows the card's memory), and above window 8 a head dim up to
+    64."""
     if x.dtype not in KERNEL_DTYPES:
         raise TypeError(f"{name}: unsupported dtype {x.dtype}")
     if window_size not in KERNEL_WINDOWS:
         raise NotImplementedError(
-            f"{name}: the CUDA kernels take window sizes {KERNEL_WINDOWS[0]}-{KERNEL_WINDOWS[-1]}, not {window_size}")
+            f"{name}: the CUDA kernels take window sizes {KERNEL_WINDOWS[0]}-{KERNEL_WINDOWS[-1]}, not {window_size} "
+            f"(the (heads, N, N) f32 bias of a larger window outgrows device memory)")
     _, h, w, c = x.shape
     if h % window_size or w % window_size or c % heads or not 0 <= shift < window_size:
         raise ValueError(f"{name}: shape {tuple(x.shape)}, heads {heads}, shift {shift} do not fit")
@@ -277,8 +297,9 @@ def fused_window_attention_block(
     """(B, H, W, C) -> (B, H, W, C); weights dense, or packed in bf16
     (:func:`pack_window_attention`). CPU tensors take the plain version;
     CUDA tensors launch the kernel or raise. A launch counts under
-    ``fused_window_attention_block`` at windows 2 to 8 and under
-    ``fused_window_attention_block_ws16`` at 9 to 16 (:func:`large_window`)."""
+    ``fused_window_attention_block`` at windows 2 to 8, under
+    ``fused_window_attention_block_ws16`` at 9 to 16 and under
+    ``fused_window_attention_block_large`` from 17 (:func:`window_family`)."""
     kw = dict(heads=heads, window_size=window_size, shift=shift, drop_path=drop_path)
     if x.device.type == "cpu":
         return window_attention_plain(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, **kw)
@@ -286,8 +307,8 @@ def fused_window_attention_block(
     bsz, h, w, c = x.shape
     n = window_size * window_size
     dev, dt = x.device, x.dtype
-    large = large_window(window_size)
-    name = "fused_window_attention_block" + ("_ws16" if large else "")
+    large, family = large_window(window_size), window_family(window_size)
+    name = "fused_window_attention_block" + family
     if dt == torch.bfloat16 and mma_takes(c, heads):
         return _window_attention_mma(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, heads, window_size, shift,
                                      drop_path, name)
@@ -304,12 +325,11 @@ def fused_window_attention_block(
     ptrs = [None if t is None else t.data_ptr() for t in ops]
     px = check(x, "x", (bsz, h, w, c), dt, dev)
     out = torch.empty_like(x)
-    suffix = "_bf16" if dt == torch.bfloat16 else "_f32"
+    entry = "window_attention" + FAMILY_STEM[family] + ("_bf16" if dt == torch.bfloat16 else "_f32")
     if not large:
         lib = _build.load("window_attention", _SIGNATURES, _RESTYPES)
         pack = lib.window_attention_pack_elems(c, heads)
         packed = torch.empty(pack, dtype=dt, device=dev)
-        entry = "window_attention" + suffix
         status = getattr(lib, entry)(px, out.data_ptr(), bsz, h, w, c, heads, window_size, shift, *ptrs,
                                      packed.data_ptr(), pack, stream(dev))
     else:
@@ -317,7 +337,6 @@ def fused_window_attention_block(
         pack = lib.qkv_attention_pack_elems(c, heads)
         packed = torch.empty(pack, dtype=dt, device=dev)
         qkv = torch.empty(lib.qkv_attention_scratch_elems(bsz * h * w, c, heads), dtype=dt, device=dev)
-        entry = "window_attention16" + suffix
         status = getattr(lib, entry)(px, out.data_ptr(), bsz, h, w, c, heads, window_size, shift, *ptrs,
                                      qkv.data_ptr(), packed.data_ptr(), pack, stream(dev))
     finish(name, status, entry)
@@ -356,7 +375,7 @@ def _window_attention_mma(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, heads, 
         raise RuntimeError(f"{name}: CUDA error {status} while sizing the scratch")
     tscratch = torch.empty(t_elems.value, dtype=torch.bfloat16, device=dev)
     out = torch.empty_like(x)
-    entry = "window_attention16_mma_bf16" if large_window(window_size) else "window_attention_mma_bf16"
+    entry = "window_attention" + FAMILY_STEM[window_family(window_size)] + "_mma_bf16"
     # the entry's order: ln_w, ln_b, bqkv, bproj, bias, drop_path, wqkv, wproj, the pack index
     ptrs = [None if t is None else t.data_ptr() for t in (*vectors, dense[0], dp, *dense[1:])]
     status = getattr(lib, entry)(px, out.data_ptr(), bsz, h, w, c, heads, window_size, shift, bias16, *ptrs, blob,

@@ -1,6 +1,7 @@
 """Tiled-patch inference: fixed tile shape, batched, overlap-discard reassembly.
 
-Port of ``studiosr_tpu/parallel/tiled.py``'s host loop:
+Port of ``studiosr_tpu/parallel/tiled.py``, its host loop and its device
+loop:
 
   pad -> overlapping tiles of one shape -> batched uint8 forwards ->
   overlap-discard reassembly
@@ -9,16 +10,20 @@ Port of ``studiosr_tpu/parallel/tiled.py``'s host loop:
   the image size: the tail batch is padded with zero tiles;
 * uint8 crosses the host boundary both ways (``Model.forward_uint8``), and
   two batches are enqueued ahead of the copy back, so the host reassembles
-  one batch while the device computes the next.
+  one batch while the device computes the next;
+* the device loop (``device_loop=True``, and by default at most
+  :data:`DEVICE_LOOP_TILES` tiles, the JAX package's rule) keeps the tiles,
+  the forwards and the reassembly on the model's device: the padded uint8
+  image crosses to it once and the uint8 output comes back once. The
+  batches, their padding and the write order are the host loop's, so the
+  bytes are too.
 
 Window models are exactly tile-consistent when ``tile`` is a window
 multiple; outputs differ from whole-image inference only through context
 beyond the overlap, which ``tile_overlap`` controls.
 
 ``mesh`` (``parallel/mesh.py``) must hold only the model's device (a
-process drives its own card) and gives the mesh-less call's output. Not
-ported: ``device_loop=True`` (the JAX package's one-program
-mode for the TPU); ``device_loop`` None or False takes the host loop.
+process drives its own card) and gives the mesh-less call's output.
 """
 
 from __future__ import annotations
@@ -31,7 +36,9 @@ import torch
 
 from studiosr_tpu_torch.parallel.mesh import check_devices
 
-__all__ = ["tiled_inference", "tile_grid"]
+__all__ = ["tiled_inference", "tile_grid", "DEVICE_LOOP_TILES"]
+
+DEVICE_LOOP_TILES = 512  # device_loop=None takes the device loop up to this many tiles
 
 
 def tile_grid(size: int, tile: int, stride: int) -> np.ndarray:
@@ -57,12 +64,11 @@ def tiled_inference(
 
     ``tile`` and ``tile_overlap`` are in LR pixels; tiles overlap by
     ``2 * tile_overlap`` and only each tile's interior is written to the
-    output, except at the image borders, where the halo is kept."""
+    output, except at the image borders, where the halo is kept.
+    ``device_loop`` True runs the loop on the model's device, False on the
+    host, None on the device at most :data:`DEVICE_LOOP_TILES` tiles."""
     if mesh is not None:
         check_devices(mesh, model.device)
-    if device_loop:
-        raise NotImplementedError("tiled_inference(device_loop=True): the one-program tile loop is not ported; "
-                                  "device_loop None or False takes the host loop")
     scale = model.scale
     h, w, c = image.shape
 
@@ -86,20 +92,13 @@ def tiled_inference(
     coords = [(y, x) for y in tile_grid(ph, tile, stride) for x in tile_grid(pw, tile, stride)]
     n = len(coords)
     batch = min(tile_batch, int(2 ** math.ceil(math.log2(max(1, n)))))
+    if device_loop is None:
+        device_loop = n <= DEVICE_LOOP_TILES
+    if device_loop:
+        return _device_tiled(model, padded, coords, tile, tile_overlap, batch, h, w)
+
     tiles = np.stack([padded[y : y + tile, x : x + tile] for y, x in coords])
-
-    out_tile = tile * scale
     output = np.zeros((ph * scale, pw * scale, c), dtype=np.uint8)
-
-    def _write(sr: np.ndarray, start: int) -> None:
-        for j, (y, x0) in enumerate(coords[start : start + batch]):
-            oy, ox = y * scale, x0 * scale
-            top = 0 if y == 0 else tile_overlap * scale
-            left = 0 if x0 == 0 else tile_overlap * scale
-            bottom = out_tile if y + tile >= ph else out_tile - tile_overlap * scale
-            right = out_tile if x0 + tile >= pw else out_tile - tile_overlap * scale
-            output[oy + top : oy + bottom, ox + left : ox + right] = sr[j, top:bottom, left:right]
-
     inflight: deque = deque()
     depth = 2
     for start in range(0, n, batch):
@@ -109,8 +108,42 @@ def tiled_inference(
         inflight.append((model.forward_uint8(torch.from_numpy(chunk)), start))
         if len(inflight) > depth:
             sr, at = inflight.popleft()
-            _write(sr.cpu().numpy(), at)
+            _write(output, sr.cpu().numpy(), coords[at : at + batch], tile, tile_overlap, scale, (ph, pw))
     while inflight:
         sr, at = inflight.popleft()
-        _write(sr.cpu().numpy(), at)
+        _write(output, sr.cpu().numpy(), coords[at : at + batch], tile, tile_overlap, scale, (ph, pw))
     return output[: h * scale, : w * scale]
+
+
+def _write(output, sr, coords, tile: int, tile_overlap: int, scale: int, padded_shape) -> None:
+    """Overlap-discard: each tile's interior of ``sr`` (one batch, tiles at
+    ``coords``) into ``output``; at the image borders the halo is kept."""
+    ph, pw = padded_shape
+    out_tile = tile * scale
+    for j, (y, x0) in enumerate(coords):
+        oy, ox = y * scale, x0 * scale
+        top = 0 if y == 0 else tile_overlap * scale
+        left = 0 if x0 == 0 else tile_overlap * scale
+        bottom = out_tile if y + tile >= ph else out_tile - tile_overlap * scale
+        right = out_tile if x0 + tile >= pw else out_tile - tile_overlap * scale
+        output[oy + top : oy + bottom, ox + left : ox + right] = sr[j, top:bottom, left:right]
+
+
+def _device_tiled(model, padded: np.ndarray, coords, tile: int, tile_overlap: int, batch: int, h: int, w: int):
+    """The tile loop on ``model.device``: the padded uint8 image crosses to
+    it once, the tiles are sliced there in the host loop's order and batched
+    in its fixed shape (the tail batch padded with zero tiles), each batch's
+    uint8 forward is reassembled there in the host loop's write order (so
+    snapped-edge overlaps resolve the same way), and the uint8 output
+    crosses back once."""
+    scale, dev = model.scale, model.device
+    ph, pw, c = padded.shape
+    img = torch.from_numpy(np.ascontiguousarray(padded)).to(dev)
+    output = torch.zeros((ph * scale, pw * scale, c), dtype=torch.uint8, device=dev)
+    fill = [torch.zeros((tile, tile, c), dtype=torch.uint8, device=dev)]
+    for start in range(0, len(coords), batch):
+        part = coords[start : start + batch]
+        tiles = [img[y : y + tile, x : x + tile] for y, x in part]
+        sr = model.forward_uint8(torch.stack(tiles + fill * (batch - len(tiles))))
+        _write(output, sr, part, tile, tile_overlap, scale, (ph, pw))
+    return output[: h * scale, : w * scale].cpu().numpy()

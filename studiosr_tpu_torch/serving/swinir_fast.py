@@ -2,12 +2,11 @@
 
 Port of ``studiosr_tpu/serving/swinir_fast.py``: the exact SwinIR eval
 computation (``models/swinir.py``), with every Swin block through B1
-(``ops/cuda/swin_block.py``) at window 8, and at windows 2-7 and 9-16 as B5
+(``ops/cuda/swin_block.py``) at window 8, and at every other window (2-7, 9
+up: SwinIR at 24, the key chunks streamed from 17) as B5
 (``ops/cuda/window_attention.py``, the shift and its mask folded into its
 reads) then B6 (``ops/cuda/mlp_block.py``) on the flattened rows, the JAX
-package's own route where its whole-block kernel declines the window; above
-16 no kernel takes the window and :func:`prepare_serving` raises for a
-module on the card. The RSTB convs and ``conv_after_body`` through
+package's own route where its whole-block kernel declines the window. The RSTB convs and ``conv_after_body`` through
 B2 (``ops/cuda/conv3x3.py``, the skip map folded in through ``extra``) and
 the tail through B3 at x4 or B4 at x2 / x3 (``ops/cuda/upsampler.py``); x8
 has no fused tail and records its structural decline. SwinFIR's SFBs
@@ -44,7 +43,7 @@ from studiosr_tpu_torch.ops.cuda.upsampler import (
     SCALES_S, fused_upsample_s, fused_upsample_x4, mma_geometry_error as tail_geometry_error, pack_tail,
 )
 from studiosr_tpu_torch.ops.cuda.window_attention import (
-    KERNEL_WINDOWS, fused_window_attention_block, mma_takes as attn_mma_takes, pack_window_attention,
+    fused_window_attention_block, mma_takes as attn_mma_takes, pack_window_attention,
 )
 from studiosr_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 from studiosr_tpu_torch.ops.windows import gather_rel_bias, pad_to_multiple_flip, relative_position_index
@@ -152,14 +151,8 @@ def prepare_serving(module: nn.Module, config: Dict[str, Any], dtype) -> Dict[st
     as a ``{s0, b0, s2, b2}`` pair); otherwise the rel-pos bias is gathered to
     (heads, N, N). LayerNorm weights and biases become f32. Window 8 lays out
     B1's operands; the other windows B5's and B6's (:func:`_b5_b6_operands`).
-    A module on the card at a window no kernel takes (above 16) raises
-    ``NotImplementedError`` here, before any launch. Consumed by
-    :func:`swinir_fast_forward`."""
+    Consumed by :func:`swinir_fast_forward`."""
     ws = int(config["window_size"])
-    if ws not in KERNEL_WINDOWS and next(module.parameters()).device.type == "cuda":
-        raise NotImplementedError(
-            f"fused SwinIR serving: the CUDA kernels take windows {KERNEL_WINDOWS[0]}-{KERNEL_WINDOWS[-1]} (B1 at "
-            f"{KERNEL_WINDOW}, B5 + B6 at the others), not {ws}; B5 above window 16 is queued in ROADMAP")
     block_operands = _b1_operands if ws == KERNEL_WINDOW else _b5_b6_operands
     rpi = relative_position_index(ws)
     prep: Dict[str, Any] = {"blocks": [], "convs": []}

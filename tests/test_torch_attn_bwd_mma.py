@@ -112,12 +112,13 @@ def _operands(rng, c, heads, ws):
 
 
 # windows 8 and 16, then the others the kernels take by padding to whole
-# 64-token tiles: 4, 6 and 7 (pairs_attention_bwd, 2 ws^2 <= 128) and 10 and
-# 12 (v5_attention_bwd); each with and without the shift ws // 2 and drop-path
+# 64-token tiles: 4, 6 and 7 (pairs_attention_bwd, 2 ws^2 <= 128), 10 and 12
+# (v5_attention_bwd), and 17, 20, 24 and 33 (v5_attention_bwd; the streaming
+# family in the port); each with and without the shift ws // 2 and drop-path
 PLAIN_CASES = [
     (8, 0, None), (8, 4, None), (8, 0, (0.0, 1.25)), (8, 4, (0.0, 1.25)),
     (16, 0, None), (16, 8, None), (16, 0, (0.0, 1.25)), (16, 8, (0.0, 1.25)),
-] + [(ws, s, dp) for ws in (4, 6, 7, 10, 12) for s in (0, ws // 2) for dp in (None, (1.25, 0.0))]
+] + [(ws, s, dp) for ws in (4, 6, 7, 10, 12, 17, 20, 24, 33) for s in (0, ws // 2) for dp in (None, (1.25, 0.0))]
 
 
 @pytest.mark.parametrize("ws,shift,dp", PLAIN_CASES)
@@ -193,13 +194,20 @@ class _FakeLibrary:
     (torch.bfloat16, 12, 96, 2, "attn_bwd16_bf16"),
     (torch.float32, 6, 180, 6, "attn_bwd_f32"),
     (torch.float32, 12, 180, 6, "attn_bwd16_f32"),
+    # from 17 the streaming family, counted as _large
+    (torch.bfloat16, 17, 128, 4, "attn_bwd_large_mma_bf16"),  # MaxSR at a 289 x 289 crop
+    (torch.bfloat16, 24, 180, 6, "attn_bwd_large_mma_bf16"),
+    (torch.bfloat16, 33, 128, 4, "attn_bwd_large_mma_bf16"),
+    (torch.bfloat16, 20, 128, 2, "attn_bwd_large_bf16"),  # head dim 64
+    (torch.float32, 17, 128, 4, "attn_bwd_large_f32"),
 ])
 def test_attention_bwd_routes_by_dtype_window_and_head_dim(monkeypatch, dtype, ws, c, heads, entry):
     """bf16 with a head dim up to 32 and C a multiple of 4 up to 184 goes to
     the kernels written for the H100, other bf16 geometries and f32 to the
     older kernels; windows 2-8 to the small family's entries, counted under
     ``attention_bwd``, windows 9-16 to the large family's, counted under
-    ``attention_bwd_ws16``; each launch counts under its kernel and its C
+    ``attention_bwd_ws16``, windows from 17 to the streaming family's,
+    counted under ``attention_bwd_large``; each launch counts under its kernel and its C
     entry, which is handed the window, and the padded weight gradients come
     back at their parameters' shapes."""
     import studiosr_tpu_torch.ops.cuda.attn_bwd as module
@@ -222,7 +230,7 @@ def test_attention_bwd_routes_by_dtype_window_and_head_dim(monkeypatch, dtype, w
     assert [name for name, _ in launches] == [entry]
     assert launches[0][1][6:9] == (c, heads, ws)  # (x, g, dx, B, H, W, C, heads, ws, ...)
     assert mma_takes(c, heads) == (c % 4 == 0 and c // heads <= 32)
-    name = "attention_bwd_ws16" if ws > 8 else "attention_bwd"
+    name = "attention_bwd" + ("_large" if ws > 16 else "_ws16" if ws > 8 else "")
     assert engagement.counters() == {name: 1}
     assert engagement.entries() == {name: {entry: 1}}
     engagement.reset()

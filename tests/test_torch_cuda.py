@@ -29,7 +29,7 @@ from studiosr_tpu_torch.ops.cuda.upsampler import (
     fused_upsample_s, fused_upsample_x4, pack_tail, upsample_s_plain, upsample_x4_plain,
 )
 from studiosr_tpu_torch.ops.cuda.window_attention import (
-    fused_window_attention_block, pack_window_attention, window_attention_plain,
+    fused_window_attention_block, pack_window_attention, window_attention_plain, window_family,
 )
 
 pytestmark = pytest.mark.cuda
@@ -749,7 +749,24 @@ ANY_WINDOW_CASES = [(ws, torch.bfloat16, 64, 2) for ws in range(2, 17)] + [
 
 @pytest.mark.parametrize("ws,dtype,c,heads", ANY_WINDOW_CASES)
 def test_window_kernels_take_every_window_from_2_to_16(dev, ws, dtype, c, heads):
-    from studiosr_tpu_torch.ops.cuda.window_attention import large_window, mma_takes
+    _check_window_kernels(dev, ws, dtype, c, heads)
+
+
+# Above 16 (N > 256, five 64-token chunks and more: the streaming family,
+# ``_large``): windows 17, 24 and 33 in both directions and on both routes,
+# bf16 at head dim 32 (the kernels written for the H100), bf16 at head dim 64
+# and f32 (the older kernels), as above.
+LARGE_WINDOW_CASES = [(ws, dtype, c, 2) for ws in (17, 24, 33)
+                      for dtype, c in ((torch.bfloat16, 64), (torch.bfloat16, 128), (torch.float32, 32))]
+
+
+@pytest.mark.parametrize("ws,dtype,c,heads", LARGE_WINDOW_CASES)
+def test_window_kernels_take_every_window_above_16(dev, ws, dtype, c, heads):
+    _check_window_kernels(dev, ws, dtype, c, heads)
+
+
+def _check_window_kernels(dev, ws, dtype, c, heads):
+    from studiosr_tpu_torch.ops.cuda.window_attention import FAMILY_STEM, mma_takes
 
     gen = torch.Generator().manual_seed(100 + ws + c)
     ops = _block_operands(gen, c, heads, 2 * c, ws=ws)[:7]
@@ -760,8 +777,8 @@ def test_window_kernels_take_every_window_from_2_to_16(dev, ws, dtype, c, heads)
     dp = torch.tensor([0.0, 1.25], device=dev)
     kw = dict(heads=heads, window_size=ws, shift=ws // 2, drop_path=dp)
     mma = dtype == torch.bfloat16 and mma_takes(c, heads)
-    suffix = "_ws16" if large_window(ws) else ""
-    fam = "16" if large_window(ws) else ""
+    suffix = window_family(ws)
+    fam = FAMILY_STEM[suffix]
     engagement.reset()
     y = fused_window_attention_block(x, *ops, **kw)
     grads = attention_bwd(x, g, *ops, **kw)
@@ -785,17 +802,21 @@ def test_window_kernels_take_every_window_from_2_to_16(dev, ws, dtype, c, heads)
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_window_kernels_raise_above_window_16(dev, dtype):
-    """Window 17 (N = 289 > 256 tokens) is past the large family's shared
-    memory: both wrappers raise, naming the windows the kernels take."""
+    """Windows above 16 launch the streaming family now; the wrappers raise
+    only past KERNEL_WINDOW_MAX (256), where the (heads, N, N) f32 bias alone
+    outgrows the card, naming the windows the kernels take, before any
+    launch (the operands are not looked at)."""
     gen = torch.Generator().manual_seed(17)
     ops = [t.to(dev, dtype if i in (2, 4) else torch.float32) for i, t in
-           enumerate(_block_operands(gen, 32, 2, 64, ws=17)[:7])]
-    x = _randn(gen, 1, 17, 17, 32).to(dev, dtype)
-    kw = dict(heads=2, window_size=17, shift=0, drop_path=None)
-    with pytest.raises(NotImplementedError, match="window sizes 2-16"):
+           enumerate(_block_operands(gen, 32, 2, 64, ws=4)[:7])]
+    x = torch.zeros(1, 257, 257, 32, device=dev, dtype=dtype)
+    kw = dict(heads=2, window_size=257, shift=0, drop_path=None)
+    engagement.reset()
+    with pytest.raises(NotImplementedError, match="window sizes 2-256"):
         fused_window_attention_block(x, *ops, **kw)
-    with pytest.raises(NotImplementedError, match="window sizes 2-16"):
+    with pytest.raises(NotImplementedError, match="window sizes 2-256"):
         attention_bwd(x, x, *ops, **kw)
+    assert engagement.counters() == {}
 
 
 # B7's bf16 kernel written for the H100 (csrc/mlp_bwd_mma.cu) at the paths'
@@ -1302,8 +1323,9 @@ def test_maxsr_fused_train_raises_on_a_window_the_kernels_do_not_take(dev):
     """An adaptive 36 x 36 map has square windows of 6: the fused step runs
     there (B5 / B8 in the small family, 4 launches each) and its loss and
     gradients are within the bf16 rule of plain autograd in f32. An adaptive
-    289 x 289 map has windows of 17, past the kernels' 16: the fused pair
-    takes it and the kernels raise, naming the window sizes they take."""
+    289 x 289 map has windows of 17, which the kernels did not take until
+    their streaming family was written: the fused pair now trains there, B5
+    and its backward through the ``_large`` family, 4 launches each."""
     from torch.func import functional_call
 
     from studiosr_tpu_torch import MaxSR
@@ -1326,8 +1348,12 @@ def test_maxsr_fused_train_raises_on_a_window_the_kernels_do_not_take(dev):
     all_plain = torch.cat([g.flatten() for g in results[0][1]])
     assert float(torch.linalg.vector_norm(all_fused - all_plain) / torch.linalg.vector_norm(all_plain)) <= 5e-2
     module.fused_train = True
-    with pytest.raises(NotImplementedError, match="window sizes 2-16"):
-        module(torch.rand(1, 289, 289, 3, device=dev))
+    engagement.reset()
+    out = module(torch.rand(1, 289, 289, 3, generator=torch.Generator().manual_seed(7)).to(dev))
+    out.float().square().mean().backward()
+    assert out.shape == (1, 578, 578, 3) and bool(torch.isfinite(out).all())
+    assert engagement.counters() == {"fused_window_attention_block_large": 4, "attention_bwd_large": 4,
+                                     "fused_mlp_block": 4, "mlp_bwd": 4}
 
 
 @pytest.mark.parametrize("size", [36, 72])
@@ -1436,9 +1462,9 @@ def test_trainer_on_the_card_takes_the_native_host_routes_and_traces_the_kernels
 
 # C7: fused SwinIR / SwinFIR serving at windows other than 8 (B5 then B6 for
 # each Swin block; B1 at window 8). Windows 2-7 take B5's one-tile family,
-# 9-16 its multi-tile one; C 24 with 2 heads of 12 (the bf16 H100 kernels'
-# geometry rule takes it).
-SERVING_WINDOWS = [2, 3, 4, 5, 6, 7, 9, 10, 12, 16]
+# 9-16 its multi-tile one, 17 up its streaming one; C 24 with 2 heads of 12
+# (the bf16 H100 kernels' geometry rule takes it).
+SERVING_WINDOWS = [2, 3, 4, 5, 6, 7, 9, 10, 12, 16, 20, 24]
 
 
 def _rel_l2(got, want):
@@ -1462,20 +1488,25 @@ def test_fused_serving_at_every_window_matches_plain(dev, ws, name, dtype):
         model.half()
     engagement.reset()
     got = model.enable_fused(True)(x)
-    b5 = "fused_window_attention_block" + ("_ws16" if ws > 8 else "")
+    b5 = "fused_window_attention_block" + window_family(ws)
     counts = engagement.counters()
     assert counts[b5] == 4 and counts["fused_mlp_block"] == 4 and "fused_swin_block" not in counts
     assert _rel_l2(got, want) <= (1e-4 if dtype == torch.float32 else 2e-2)
 
 
 def test_fused_serving_above_window_16_raises_before_any_launch(dev):
+    """Window 24 raised here until B5's streaming family was written; now
+    the bf16 fused forward serves through it (B5 and B6 once a block, B1
+    never), within 2e-2 of the plain f32 forward."""
     model = SwinIR.build(scale=4, embed_dim=24, depths=[2, 2], num_heads=[2, 2], window_size=24, device=dev)
+    x = torch.rand(1, 24, 24, 3, generator=torch.Generator().manual_seed(24)).to(dev)
+    want = model(x)
     model.half().enable_fused(True)
     engagement.reset()
-    with pytest.raises(NotImplementedError, match="windows 2-16"):
-        model(torch.rand(1, 24, 24, 3, device=dev))
-    assert engagement.counters() == {}
-    assert model.enable_fused(False)(torch.rand(1, 24, 24, 3, device=dev)).shape == (1, 96, 96, 3)
+    got = model(x)
+    assert engagement.counters() == {"fused_window_attention_block_large": 4, "fused_mlp_block": 4,
+                                     "fused_conv3x3": 3, "fused_upsample_x4": 1}
+    assert got.shape == (1, 96, 96, 3) and _rel_l2(got, want) <= 2e-2
 
 
 def test_window_8_still_serves_through_b1(dev):

@@ -283,3 +283,41 @@ def test_train_step_hat_matches_jax():
         np.testing.assert_allclose(got, exp, atol=2e-6, rtol=1e-4, err_msg=k)
         np.testing.assert_allclose(got_ema, exp_ema, atol=2e-6, rtol=1e-4, err_msg=f"ema {k}")
     assert state.step == 1
+
+
+def test_hat_above_window_16_stops_at_b12_b13(monkeypatch):
+    """Where the port stops for HAT above window 16 (window 24: C 180, 6
+    heads, overlap 0.5, 36 x 36 key windows), on the card's routes driven
+    with a stand-in library (B5 takes the window: the routing tests): B10
+    takes the older ``ocab_bf16`` entry (``ocab_mma_takes`` is windows 8 and
+    16), and the OCA core's B12 / B13 raise at 576 queries (above 256)."""
+    import studiosr_tpu_torch.ops.cuda.ocab as ocab_module
+    from studiosr_tpu_torch.ops.cuda import _build
+    from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block, overlap_window
+
+    calls = []
+
+    class Library:
+        def __getattr__(self, name):
+            return lambda *args: calls.append(name) or (1 if name.endswith("elems") else 0)
+
+    monkeypatch.setattr(_build, "load", lambda name, signatures, restypes=None: Library())
+    monkeypatch.setattr(ocab_module, "stream", lambda device: 0)
+    ws, c, heads, hidden = 24, 180, 6, 360
+    owin, _ = overlap_window(ws, 0.5)
+    meta = lambda *s, dt=torch.bfloat16: torch.empty(*s, dtype=dt, device="meta")  # noqa: E731
+    f32 = torch.float32
+    x = meta(1, 2 * ws, 2 * ws, c)
+    attn = [meta(c, dt=f32), meta(c, dt=f32), meta(c, 3 * c), meta(3 * c, dt=f32), meta(c, c), meta(c, dt=f32)]
+    mlp = [meta(c, dt=f32), meta(c, dt=f32), meta(c, hidden), meta(hidden, dt=f32), meta(hidden, c), meta(c, dt=f32)]
+    engagement.reset()
+    fused_ocab_block(x, *attn, meta(heads, ws * ws, owin * owin, dt=f32), *mlp, heads=heads, window_size=ws,
+                     overlap_ratio=0.5)
+    assert engagement.entries() == {"fused_ocab_block": {"ocab_bf16": 1}}
+    assert owin == 36
+    with pytest.raises(NotImplementedError, match="nq <= 256"):
+        q, k = meta(2, heads, ws * ws, c // heads), meta(2, heads, owin * owin, c // heads)
+        oca_core_fwd(q, k, k, meta(heads, ws * ws, owin * owin, dt=f32))
+    with pytest.raises(NotImplementedError, match="nq <= 256"):
+        oca_core_bwd(q, k, k, meta(heads, ws * ws, owin * owin, dt=f32), q)
+    engagement.reset()

@@ -98,13 +98,14 @@ def test_fused_train_matches_jax(adaptive):
         np.testing.assert_allclose(state[k].numpy(), v, atol=1e-6, rtol=1e-5, err_msg=k)
 
 
-@pytest.mark.parametrize("size", [36, 49, 100])
+@pytest.mark.parametrize("size", [36, 49, 100, 257])
 def test_adaptive_fused_train_matches_jax_at_other_windows(monkeypatch, size):
-    """Adaptive maps of 36, 49 and 100 square have windows of 6, 7 and 10
-    (ceil(sqrt(side)), the map zero-padded to the window's square): the loss
-    and every gradient of one fused-train forward against the JAX package's
-    with its fused forwards forced onto the Pallas kernels in interpret mode
-    (B5 with B8 at 6 and 7, B9 at 10), at the tolerances above."""
+    """Adaptive maps of 36, 49, 100 and 257 square have windows of 6, 7, 10
+    and 17 (ceil(sqrt(side)), the map zero-padded to the window's square):
+    the loss and every gradient of one fused-train forward against the JAX
+    package's with its fused forwards forced onto the Pallas kernels in
+    interpret mode (B5 with B8 at 6 and 7, B9 at 10 and 17; on the card 17
+    takes the streaming family), at the tolerances above."""
     from studiosr_tpu.ops import attn_vjp
     from studiosr_tpu.ops.pallas import mlp_vjp
 

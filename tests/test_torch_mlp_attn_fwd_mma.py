@@ -170,6 +170,27 @@ def test_b5_blob_bias_at_a_padded_window_follows_its_rule(ws):
     assert torch.equal(a.float(), wqkv) and torch.equal(b.float(), wproj) and torch.equal(e, bias)
 
 
+@pytest.mark.parametrize("ws,heads", [(17, 2), (24, 2), (32, 1), (33, 1)])
+def test_b5_large_window_bias_order_follows_its_rule(ws, heads):
+    """The streaming family's bias order (NCH 5, 9, 16 and 18 chunks of 64
+    tokens) element by element against the rule, each real element once;
+    and the serving blob unpacks to the weights and the bias it packed."""
+    n = ws * ws
+    order = _bias_order(heads, ws)
+    code = {"0": heads * n * n, "-inf": heads * n * n + 1}
+    want = np.array([code[e] if isinstance(e, str) else (e[0] * n + e[1]) * n + e[2]
+                     for e in _expected_bias_order(heads, ws)])
+    np.testing.assert_array_equal(order, want)
+    assert np.array_equal(np.sort(order[order < heads * n * n]), np.arange(heads * n * n))
+    rng = np.random.default_rng(ws)
+    c = 16 * heads
+    wqkv = _t(rng.standard_normal((c, 3 * c)).astype(np.float32)).to(torch.bfloat16)
+    wproj = _t(rng.standard_normal((c, c)).astype(np.float32)).to(torch.bfloat16)
+    bias = _t(rng.standard_normal((heads, n, n)).astype(np.float32))
+    a, b, e = unpack_window_attention(pack_window_attention(wqkv, wproj, bias, heads), c, heads, ws)
+    assert torch.equal(a, wqkv) and torch.equal(b, wproj) and torch.equal(e, bias)
+
+
 def test_b5_window16_bias_order_follows_its_rule():
     heads = 2
     order = _bias_order(heads, 16)
@@ -288,7 +309,7 @@ def _attn_operands(rng, c, heads, ws):
 
 @pytest.mark.parametrize("ws,shift,dp", [
     (8, 0, None), (8, 4, None), (8, 0, (0.0, 1.25)), (8, 4, (1.25, 0.0)), (16, 0, None), (16, 8, None),
-] + [(ws, s, dp) for ws in (4, 6, 7, 10, 12) for s in (0, ws // 2) for dp in (None, (0.0, 1.25))])
+] + [(ws, s, dp) for ws in (4, 6, 7, 10, 12, 17, 20, 24, 33) for s in (0, ws // 2) for dp in (None, (0.0, 1.25))])
 def test_b5_plain_on_packed_and_dense_weights_matches_pallas(ws, shift, dp):
     """The plain version, on the dense weights and on the serving blob
     (``pack_window_attention``, bf16-exact weights), against
@@ -390,14 +411,21 @@ def _launches(lib):
     (torch.bfloat16, 12, 96, 2, False, "window_attention16_bf16"),
     (torch.float32, 6, 180, 6, False, "window_attention_f32"),
     (torch.float32, 12, 180, 6, False, "window_attention16_f32"),
+    # from 17 the streaming family, counted as _large
+    (torch.bfloat16, 17, 128, 4, False, "window_attention_large_mma_bf16"),  # MaxSR at a 289 x 289 crop
+    (torch.bfloat16, 24, 180, 6, True, "window_attention_large_mma_bf16"),  # SwinIR served at window 24
+    (torch.bfloat16, 33, 180, 6, False, "window_attention_large_mma_bf16"),
+    (torch.bfloat16, 20, 128, 2, False, "window_attention_large_bf16"),  # head dim 64
+    (torch.float32, 24, 180, 6, False, "window_attention_large_f32"),
 ])
 def test_window_attention_routes_by_dtype_window_and_head_dim(monkeypatch, dtype, ws, c, heads, packed, entry):
     """bf16 with a head dim up to 32 and C a multiple of 4 up to 184 goes to
     the kernels written for the H100 (dense weights or the serving blob),
     other bf16 geometries and f32 to the older kernels; windows 2-8 to the
     small family's entries, counted under ``fused_window_attention_block``,
-    windows 9-16 to the large family's, under ``_ws16``; each launch counts
-    under its kernel and its C entry, which is handed the window."""
+    windows 9-16 to the large family's, under ``_ws16``, windows from 17 to
+    the streaming family's, under ``_large``; each launch counts under its
+    kernel and its C entry, which is handed the window."""
     import studiosr_tpu_torch.ops.cuda.window_attention as module
 
     lib = _fake(monkeypatch, module)
@@ -414,7 +442,7 @@ def test_window_attention_routes_by_dtype_window_and_head_dim(monkeypatch, dtype
     assert out.shape == x.shape and out.dtype == dtype
     assert _launches(lib) == [entry]
     assert mma_takes(c, heads) == (c % 4 == 0 and c // heads <= 32)
-    name = "fused_window_attention_block_ws16" if ws > 8 else "fused_window_attention_block"
+    name = "fused_window_attention_block" + ("_large" if ws > 16 else "_ws16" if ws > 8 else "")
     assert engagement.counters() == {name: 1}
     assert engagement.entries() == {name: {entry: 1}}
     args = dict(lib.calls)[entry]

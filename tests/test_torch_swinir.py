@@ -156,11 +156,10 @@ def test_default_device_raises_without_cuda():
 
 
 def test_fused_configuration_without_kernel_raises():
-    """The serving mode with no port raises, on any device, instead of
-    quietly serving another way: the one-program tile loop. Mesh-sharded
-    evaluation and tiling (A17), which raised until they were ported, serve
-    the mesh-less results; fused x3, which raised until its tail kernel B4
-    was ported, now serves."""
+    """Every serving mode that raised until it was ported now serves:
+    mesh-sharded evaluation and tiling (A17) the mesh-less results, fused x3
+    (its tail kernel B4), and the one-program tile loop the host loop's
+    bytes."""
     from studiosr_tpu_torch.parallel import get_mesh
 
     model = SwinIR.build(scale=3, **SMALL, device="cpu").enable_fused(True)
@@ -171,8 +170,8 @@ def test_fused_configuration_without_kernel_raises():
     assert all(np.array_equal(a, b) for a, b in zip(model.evaluate_uint8_batch(image[None], hr, mesh=mesh),
                                                      model.evaluate_uint8_batch(image[None], hr)))
     np.testing.assert_array_equal(model.inference_tiled(image, tile=8, mesh=mesh), model.inference_tiled(image, tile=8))
-    with pytest.raises(NotImplementedError, match="device_loop"):
-        model.inference_tiled(image, tile=8, device_loop=True)
+    np.testing.assert_array_equal(model.inference_tiled(image, tile=8, device_loop=True),
+                                  model.inference_tiled(image, tile=8, device_loop=False))
 
 
 def test_fused_scale8_records_structural_decline():

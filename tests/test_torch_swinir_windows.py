@@ -1,7 +1,7 @@
 """Fused SwinIR / SwinFIR serving at windows other than 8 (B5 then B6 for
 each Swin block) vs the JAX package's fast forward (interpret mode) on the
-CPU, f32; window 8 keeps B1's operands; a window no kernel takes still
-serves on the CPU through the plain versions."""
+CPU, f32, at windows 4 to 24 (20 and 24 take B5's streaming family on the
+card); window 8 keeps B1's operands."""
 
 import jax
 import jax.numpy as jnp
@@ -21,7 +21,7 @@ from studiosr_tpu_torch.zoo import load_jax_params
 
 torch.set_num_threads(2)
 
-WINDOWS = (4, 6, 12, 16)
+WINDOWS = (4, 6, 12, 16, 20, 24)
 # (label, JAX class, port class, scale, embed_dim)
 MODELS = (("swinir x4", JaxSwinIR, SwinIR, 4, 16), ("swinir x2", JaxSwinIR, SwinIR, 2, 16),
           ("swinfir x4", JaxSwinFIR, SwinFIR, 4, 24))
@@ -120,11 +120,13 @@ def test_prepare_serving_lays_out_b1_at_8_and_b5_b6_elsewhere(ws, dtype):
 
 
 def test_window_without_a_kernel_serves_plainly_on_the_cpu():
-    """Window 24 (no CUDA kernel takes it; a module on the card raises in
-    prepare_serving) serves on the CPU through the plain versions, equal to
-    the eager forward."""
+    """Window 24 (on the card B5's streaming family, which took no window
+    above 16 until it was written) serves fused on the CPU through the plain
+    versions, equal to the eager forward, and lays out B5's and B6's
+    operands."""
     model = SwinIR.build(**_small(24), device="cpu")
     x = torch.from_numpy(_input((1, 20, 28, 3), seed=24))
     want = model(x)
     got = model.enable_fused(True)(x)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=RTOL)
+    assert set(prepare_serving(model.module, model.config, torch.bfloat16)["blocks"][0][0]) == {"attn", "mlp"}
