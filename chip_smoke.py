@@ -57,6 +57,13 @@ against its plain PyTorch version:
   LR: B5 36 and B6 36 a forward, no B1) and MaxSR x4 adaptive fused
   training at a 289x289 LR crop (window 17, batch 1, ``MAXSR_MAIN``), then
   the tiled device loop (SwinIR x4, 512 x 384, tile 128);
+* HAT at every window (B10's H100 kernel at any window, B12 / B13's large
+  family above 256 queries or 576 keys): HAT x4 at ``HAT_SRx4.yml``'s widths
+  at window 24 (depth not cut; bf16, batch 1, 256x256 LR: B11 36, B5 36,
+  B6 ``extra`` 36, B10 6, B2 7, B3 1 a forward) and at window 12 the same
+  way, and trained fused at window 24 at the JAX recipe (batch 32 of 64x64
+  crops: B5 / B9 36 in their streaming family, B6 / B7 36, B12 / B13 6 a
+  step);
 * the published-weight zoo offline: release-layout files written under a
   temporary ``./pretrained`` from seeded port models (SwinIR x4, HAT, EDSR,
   RCAN at their published widths) and read by ``from_pretrained``, the CLI
@@ -277,7 +284,25 @@ Phases, in order; any failure exits non-zero before the final line:
     parameters ``SwinIR.from_pretrained`` loads equal the written ones bit for
     bit, and the CLI's PNG the in-process fused bf16 output (B1 36, B2 7, B3
     1); HAT (``params_ema``), EDSR (DIV2K, range 255) and RCAN x4 at their
-    published widths the same way, one 32² forward each.
+    published widths the same way, one 32² forward each;
+36. HAT at every window (``phase_hat_windows``, after phase 27c): B12 / B13
+    against their plain versions at HAT's OCA geometries of windows 4, 12,
+    24 and 32 (9 windows, 6 heads of 30, f32 and bf16; above 256 queries or
+    576 keys the ``_large`` counters, bf16 through their large H100
+    entries), B13's bits again, and B10 on maps of 2 x 3 windows (bf16 on
+    the H100 kernel, the blob and dense weights giving the same bits); HAT
+    x4 at windows 24 and 12, full width, bf16 fused: the forward within
+    2e-2 of the plain f32 one, the launches of a forward, its ms, B10 on
+    group 0's served operands against its plain version, timed beside its
+    bound and bf16 PyTorch sequence (the ``fused_ocab_block_ws24`` /
+    ``_ws12`` rows); HAT x4 at window 24 trained 3 steps by ``Trainer.run``
+    at the recipe (launches a step, finite losses, peak memory), the step's
+    ms; B12 and B13 at the step's shapes (288 windows, 576 | 1296, the bias
+    in bf16) against their plain versions, twice for the same bits, timed
+    beside SDPA with the bias as its mask (the ``oca_core_*_large`` rows);
+    the window-24 model's gradients against the f64 witness at batch 4
+    (its plain runs recompute each window attention and OCAB in the
+    backward).
 
 Prints the card line, the script's seconds, a ``{"kernels": [...]}`` JSON
 line, and last
@@ -320,8 +345,10 @@ from studiosr_tpu_torch.ops.cuda.conv3x3 import (
 )
 from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mlp_block_plain, unpack_mlp_block
 from studiosr_tpu_torch.ops.cuda.mlp_bwd import mlp_bwd, mlp_bwd_plain
-from studiosr_tpu_torch.ops.cuda.oca_core import oca_core_bwd, oca_core_bwd_plain, oca_core_fwd, oca_core_plain
-from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block, ocab_plain, overlap_window, unpack_ocab_block
+from studiosr_tpu_torch.ops.cuda.oca_core import counter, oca_core_bwd, oca_core_bwd_plain, oca_core_fwd, oca_core_plain
+from studiosr_tpu_torch.ops.cuda.ocab import (
+    fused_ocab_block, ocab_plain, overlap_window, pack_ocab_block, unpack_ocab_block,
+)
 from studiosr_tpu_torch.ops.cuda.swin_block import fused_swin_block, swin_block_plain
 from studiosr_tpu_torch.ops.cuda.upsampler import (
     fused_upsample_s, fused_upsample_x4, pack_tail, unpack_conv_last_weights, unpack_shuffle_conv_weights,
@@ -498,7 +525,8 @@ H100_KERNELS = {"fused_swin_block": ("swin_block_mma", "swin_block_mma_kernel"),
                 "mlp_bwd": ("mlp_bwd_mma", "_kernel"), "fused_mlp_block": ("mlp_block_mma", "mf_kernel"),
                 "fused_mlp_block_extra": ("mlp_block_mma", "mf_kernel"), "oca_core_bwd": ("oca_bwd_mma", "ob_"),
                 "fused_cab_body": ("cab_mma", "_kernel"), "oca_core_fwd": ("oca_fwd_mma", "of_"),
-                "fused_ocab_block": ("ocab_mma", "_kernel")}
+                "fused_ocab_block": ("ocab_mma", "_kernel"), "oca_core_fwd_large": ("oca_fwd_mma", "of_"),
+                "oca_core_bwd_large": ("oca_bwd_mma", "ol_")}
 # The C entry every launch of B5-B9, B12 and B13 must take in a run of each
 # dtype: bf16 the kernels written for the H100 (their geometry rules hold at
 # every width the paths train), f32 the older kernels.
@@ -510,14 +538,16 @@ TRAIN_ENTRIES = {
                      "fused_window_attention_block_large": "window_attention_large_mma_bf16",
                      "mlp_bwd": "mlp_bwd_mma_bf16",
                      "fused_mlp_block": "mlp_block_mma_bf16", "oca_core_bwd": "oca_core_bwd_mma_bf16",
-                     "oca_core_fwd": "oca_core_fwd_mma_bf16"},
+                     "oca_core_fwd": "oca_core_fwd_mma_bf16", "oca_core_bwd_large": "oca_core_bwd_large_mma_bf16",
+                     "oca_core_fwd_large": "oca_core_fwd_large_mma_bf16"},
     torch.float32: {"attention_bwd": "attn_bwd_f32", "attention_bwd_ws16": "attn_bwd16_f32",
                     "attention_bwd_large": "attn_bwd_large_f32",
                     "fused_window_attention_block": "window_attention_f32",
                     "fused_window_attention_block_ws16": "window_attention16_f32",
                     "fused_window_attention_block_large": "window_attention_large_f32", "mlp_bwd": "mlp_bwd_f32",
                     "fused_mlp_block": "mlp_block_f32", "oca_core_bwd": "oca_core_bwd_f32",
-                    "oca_core_fwd": "oca_core_fwd_f32"},
+                    "oca_core_fwd": "oca_core_fwd_f32", "oca_core_bwd_large": "oca_core_bwd_f32",
+                    "oca_core_fwd_large": "oca_core_fwd_f32"},
 }
 # The kernels redesigned in bf16 last, held to the same bits from launch to
 # launch (no atomic sums) at the path's batch (phases 6, 10 and 13).
@@ -654,6 +684,27 @@ KERNELS["fused_window_attention_block_large_swinir_ws24"] = KERNELS["fused_windo
 # MaxSR x4 adaptive fused training at a 289² LR crop (window 17, batch 1; the
 # witness at batch 1 too), as phase_maxsr_windows trains its crops
 LARGE_MAXSR_CROP = (289, 1, 1)
+# HAT at every window (B10, B12 and B13 beyond windows 8 and 16): HAT x4 at
+# XPixelGroup/HAT options/test/HAT_SRx4.yml's widths (C 180, depths [6]x6, 6
+# heads, overlap 0.5, mlp ratio 2), depth not cut, at window 24 (a 36 x 36
+# key window): served in bf16 at batch 1, 256² LR (a 264² map, 121 windows
+# of 576 queries and 1296 keys) and trained fused at the JAX recipe (batch
+# 32 of 64² crops, padded to 72²: 288 windows a step); window 12 served the
+# same way (484 windows of 144 queries and 324 keys). The kernel checks run
+# at windows 4, 12, 24 and 32; B12 / B13 above 256 queries or 576 keys count
+# under their ``_large`` counters.
+HAT_WS24 = dict(HAT_MAIN, window_size=24)
+HAT_WS24_TRAIN = dict(HAT_WS24, drop_path_rate=0.1)
+HAT_WINDOW_CHECKS = (4, 12, 24, 32)
+HAT_WINDOWS_SERVED = (24, 12)
+HAT_WS24_STEPS = 3
+HAT_WS24_DIR = ROOT / "build" / "chip_smoke_hat_ws24_train"
+KERNELS.update({
+    "oca_core_fwd_large": ("studiosr_tpu_torch/csrc/oca_fwd_mma.cu", "studiosr_tpu/ops/pallas/oca_core.py:117"),
+    "oca_core_bwd_large": ("studiosr_tpu_torch/csrc/oca_bwd_mma.cu", "studiosr_tpu/ops/pallas/oca_core.py:157"),
+})
+HAT_WS24_PER_STEP = {"fused_window_attention_block_large": 36, "attention_bwd_large": 36, "fused_mlp_block": 36,
+                     "mlp_bwd": 36, "oca_core_fwd_large": 6, "oca_core_bwd_large": 6}
 # the tiled device loop on the card: SwinIR x4 (MAIN, bf16 fused) on a 512 x
 # 384 image at tile 128, overlap 16, tile batch 8 (20 tiles, 3 batches)
 TILED_IMAGE, TILED_TILE, TILED_OVERLAP = (512, 384), 128, 16
@@ -1245,7 +1296,7 @@ def _unit_batch(dev: torch.device, batch: int, seed: int, crop: int = TRAIN_CROP
 
 
 def train_grads(model, dev: torch.device, seed: int, grad_runs=GRAD_RUNS, crop: int = TRAIN_CROP,
-                batch: int = CHECK_BATCH) -> dict:
+                batch: int = CHECK_BATCH, recompute: tuple = ("_AttentionPair",)) -> dict:
     """Loss and every parameter's gradient of the port's ``model`` (SwinIR or
     HAT, f32 weights from ``seed``) at batch 4 (``batch``) of ``crop``² LR maps, one run for each (path,
     dtype) of ``GRAD_RUNS``, with the same weights, uint8 batch and
@@ -1264,7 +1315,9 @@ def train_grads(model, dev: torch.device, seed: int, grad_runs=GRAD_RUNS, crop: 
     the witness's value there (with the run's own gradient through it).
     Both counts are returned.
 
-    ``grad_runs`` lists the (path, dtype) runs, the f64 witness first.
+    ``grad_runs`` lists the (path, dtype) runs, the f64 witness first. The
+    plain runs recompute the modules whose class ``recompute`` names in the
+    backward (``recomputed``).
 
     Returns {(path, dtype): (loss, {name: grad}, launches, (L1 signs,
     ReLU sides) unlike the witness's)}."""
@@ -1286,10 +1339,10 @@ def train_grads(model, dev: torch.device, seed: int, grad_runs=GRAD_RUNS, crop: 
     kinks = [m for n, m in module.named_modules()
              if n == "conv_before_upsample.0" or n.endswith("attention.1") or n.endswith(SFB_KINKS)]
     handles = [m.register_forward_hook(pin) for m in kinks]
-    pairs = [m for m in module.modules() if type(m).__name__ == "_AttentionPair"]
+    pairs = [m for m in module.modules() if type(m).__name__ in recompute]
     try:
         for path, dtype in grad_runs:
-            for pair in pairs:  # the plain runs recompute each MaxSR attention pair in the backward
+            for pair in pairs:  # the plain runs recompute each such module (MaxSR's attention pairs) in the backward
                 if path == "plain":
                     pair.forward = recomputed(pair)
                 else:
@@ -1327,18 +1380,20 @@ def recomputed(module: torch.nn.Module):
     run's leaves, handed in explicitly, so the recomputation sees them after
     ``functional_call`` has put the module's own back). A MaxSR attention
     pair draws nothing at random, so the recomputation is the forward; the
-    plain f64 witness then holds one pair's scores at a time, not all 32."""
+    plain f64 witness then holds one pair's scores at a time, not all 32.
+    HAT's window attention and OCAB draw nothing at random either (its drop
+    path is drawn in the HAB around them)."""
     forward = module.forward
 
-    def run(*args):
+    def run(*args, **kwargs):
         if getattr(module, "_recomputing", False):
-            return forward(*args)
+            return forward(*args, **kwargs)
         names, params = zip(*module.named_parameters())
 
         def fn(x, *leaves):
             module._recomputing = True
             try:
-                return functional_call(module, dict(zip(names, leaves)), (x, *args[1:]))
+                return functional_call(module, dict(zip(names, leaves)), (x, *args[1:]), kwargs)
             finally:
                 module._recomputing = False
 
@@ -1407,10 +1462,10 @@ def phase_train_grads(dev: torch.device, name: str = "swinir") -> None:
 
 
 def hold_grads(dev: torch.device, model, per_step: dict, label: str, rules: dict = GRAD_RULES,
-               crop: int = TRAIN_CROP, batch: int = CHECK_BATCH) -> None:
+               crop: int = TRAIN_CROP, batch: int = CHECK_BATCH, recompute: tuple = ("_AttentionPair",)) -> None:
     """``train_grads`` of ``model`` held to the limits of PERF.md section 2,
     its f32 run and its zero-gradient parameters as ``rules`` says."""
-    runs = train_grads(model, dev, SEED, crop=crop, batch=batch)
+    runs = train_grads(model, dev, SEED, crop=crop, batch=batch, recompute=recompute)
     del model
     report = grad_report(runs, SEED, label, rules["zero_grads"], batch)
     failed = []
@@ -1804,7 +1859,7 @@ def cab_yardstick(ops, ms: float, bms: float) -> None:
         f"kernel / yardstick {ms / yard:.3f}; {ptxas_report('fused_cab_body')}")
 
 
-def ocab_yardstick(ops, ms: float, bms: float) -> None:
+def ocab_yardstick(ops, ms: float, bms: float, ws: int = HAT_MAIN["window_size"]) -> float:
     """B10's share of its bound, its ptxas line and its yardstick: the same
     block as a sequence of bf16 PyTorch calls (``F.layer_norm``,
     ``F.linear``, the unfold of the zero-padded k | v map, SDPA with the
@@ -1818,12 +1873,13 @@ def ocab_yardstick(ops, ms: float, bms: float) -> None:
     c, heads = ops[0].shape[-1], HAT_MAIN["num_heads"][0]
     if ops[5] is None:  # the blob's weights
         ops = dense_ocab(ops, unpack_ocab_block(ops[3], c, heads, ops[11].numel()))
-    sequence = ocab_forward_sequence(ops[0], ops[1:], heads, HAT_MAIN["window_size"], HAT_MAIN["overlap_ratio"])
+    sequence = ocab_forward_sequence(ops[0], ops[1:], heads, ws, HAT_MAIN["overlap_ratio"])
     yard = time_ms(sequence, iters=5, warmup=1)
     del sequence
     torch.cuda.empty_cache()
     log(f"  fused_ocab_block: {100 * bms / ms:.1f} % of the bound; yardstick (bf16 PyTorch sequence) {yard:.3f} ms, "
         f"kernel / yardstick {ms / yard:.3f}; {ptxas_report('fused_ocab_block')}")
+    return yard
 
 
 def phase_hat_timing(model: HAT, dev: torch.device, errors: dict, launches: dict) -> list:
@@ -3238,6 +3294,292 @@ def phase_large_windows(dev: torch.device) -> list:
     return rows
 
 
+# -- HAT at every window (B10, B12 and B13 beyond windows 8 and 16) ----------------------
+
+
+def hat_window_ocab_ops(dev: torch.device, dtype: torch.dtype, ws: int, shape, seed: int):
+    """x (``shape`` + (C,)) and B10's dense operands at HAT x4's widths (C
+    180, 6 heads, hidden 360) and window ``ws``, overlap 0.5, from ``seed``:
+    LN weights, q|k|v, proj, fc1 and fc2 (``dtype``) and their biases (f32),
+    the (heads, ws², owin²) bias in the map's dtype, as serving rounds it."""
+    gen = torch.Generator().manual_seed(seed)
+    c, heads = HAT_MAIN["embed_dim"], HAT_MAIN["num_heads"][0]
+    hidden = int(c * HAT_MAIN["mlp_ratio"])
+    owin, _ = overlap_window(ws, HAT_MAIN["overlap_ratio"])
+    r = lambda *size, k=1.0: torch.randn(*size, generator=gen) * k  # noqa: E731
+    ops = [1 + r(c, k=0.1), r(c, k=0.1), r(c, 3 * c, k=c**-0.5), r(3 * c, k=0.1), r(c, c, k=c**-0.5), r(c, k=0.1),
+           r(heads, ws * ws, owin * owin, k=0.5), 1 + r(c, k=0.1), r(c, k=0.1), r(c, hidden, k=c**-0.5),
+           r(hidden, k=0.1), r(hidden, c, k=hidden**-0.5), r(c, k=0.1)]
+    ops = [t.to(dev, dtype if i in (2, 4, 6, 9, 11) else torch.float32) for i, t in enumerate(ops)]
+    return r(*shape, c).to(dev, dtype), ops
+
+
+def hat_window_checks(dev: torch.device, failed: list) -> None:
+    """B12 / B13 and B10 against their plain versions at every window of
+    ``HAT_WINDOW_CHECKS``, f32 then bf16, at HAT x4's widths: B12 / B13 on 9
+    windows of the OCAB's transposed views (6 heads of 30, logits of a few
+    units, the bias in the path's dtype), B10 on a map of 2 x 3 windows
+    (bf16 on the serving blob); each launch through its dtype's entry, B13's
+    bits repeated, the blob giving the dense weights' bits. One line a window
+    and dtype."""
+    c, heads = HAT_MAIN["embed_dim"], HAT_MAIN["num_heads"][0]
+    d, bw = c // heads, 9
+    for ws in HAT_WINDOW_CHECKS:
+        owin, _ = overlap_window(ws, HAT_MAIN["overlap_ratio"])
+        nq, nk = ws * ws, owin * owin
+        fwd, bwd = counter("oca_core_fwd", nq, nk), counter("oca_core_bwd", nq, nk)
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator().manual_seed(SEED + 100 + ws)
+
+            def view(n, scale):  # (bw, heads, n, d) over (bw, n, heads, d) storage, as the OCAB's views
+                return (torch.randn(bw, n, heads, d, generator=gen) * scale).to(dev, dtype).transpose(1, 2)
+
+            q, k, v, g = view(nq, 2 * d**-0.5), view(nk, 1.0), view(nk, 1.0), view(nq, 1.0)
+            bias = (torch.randn(heads, nq, nk, generator=gen) * 2.0).to(dev, dtype)
+            label = f"hat window {ws} {str(dtype)[6:]}"
+            engagement.reset()
+            out = oca_core_fwd(q, k, v, bias)
+            grads = oca_core_bwd(q, k, v, bias, g)
+            again = oca_core_bwd(q, k, v, bias, g)
+            torch.cuda.synchronize()
+            want = {fwd: {TRAIN_ENTRIES[dtype][fwd]: 1}, bwd: {TRAIN_ENTRIES[dtype][bwd]: 2}}
+            if engagement.entries() != want:
+                failed.append(f"{label}: entries {engagement.entries()}, expected {want}")
+            errs = [kernel_check(f"{fwd} [{label}, {bw} windows, {nq} | {nk}]", out,
+                                 oca_core_plain(q.float(), k.float(), v.float(), bias), dtype, failed)]
+            plain = oca_core_bwd_plain(q.float(), k.float(), v.float(), bias, g.float())
+            errs += [kernel_check(f"{bwd} [{label}] output {i}", a, e, dtype, failed)
+                     for i, (a, e) in enumerate(zip(grads, plain))]
+            if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                failed.append(f"{bwd} [{label}]: two launches differ")
+            del q, k, v, g, bias, out, grads, again, plain
+
+            x, ops = hat_window_ocab_ops(dev, dtype, ws, (1, 2 * ws, 3 * ws), SEED + 200 + ws)
+            kw = dict(heads=heads, window_size=ws, overlap_ratio=HAT_MAIN["overlap_ratio"])
+            engagement.reset()
+            got = fused_ocab_block(x, *ops, **kw)
+            same = True
+            if dtype == torch.bfloat16:
+                served = list(ops)
+                served[2], served[4], served[9], served[11] = (pack_ocab_block(ops[2], ops[4], ops[9], ops[11], heads),
+                                                               None, None, None)
+                same = torch.equal(got, fused_ocab_block(x, *served, **kw)) and torch.equal(
+                    got, fused_ocab_block(x, *ops, **kw))
+            torch.cuda.synchronize()
+            entry = "ocab_mma_bf16" if dtype == torch.bfloat16 else "ocab_f32"
+            n = 3 if dtype == torch.bfloat16 else 1
+            if engagement.entries() != {"fused_ocab_block": {entry: n}}:
+                failed.append(f"{label} B10: entries {engagement.entries()}, expected {n} through {entry}")
+            if not same:
+                failed.append(f"{label} B10: the blob, dense weights or a second launch give other bits")
+            errs.append(kernel_check(f"fused_ocab_block [{label}, map {2 * ws}x{3 * ws}]", got,
+                                     ocab_plain(x.float(), *[t.float() for t in ops], **kw), dtype, failed))
+            log(f"check {label}: B12 / B13 entries {want}, B10 through {entry}, worst max abs error "
+                f"{max(errs):.3e}")
+            del x, ops, got
+            torch.cuda.empty_cache()
+
+
+def hat_window_serving(dev: torch.device, ws: int, failed: list) -> tuple:
+    """HAT x4 at window ``ws`` (``HAT_MAIN``'s widths, depth not cut), bf16
+    fused, batch 1, 256² LR, against the plain f32 forward: the launches of
+    a forward (B11, B5, B6 with the join 36 each, B10 6 on the H100 kernel,
+    B2 7, B3 1), its ms; then B10 alone on group 0's served operands on a
+    264² map, against its plain version, timed with its bound and bf16
+    PyTorch sequence. Returns (the kernels line's row, forward ms)."""
+    model = HAT.build(**dict(HAT_MAIN, window_size=ws), seed=SEED, device=dev)
+    x = torch.from_numpy(requests()[0]).to(dev).float()[None] / 255.0
+    plain = model.enable_fused(False)(x)
+    model.half().enable_fused(True)
+    prep = model.serving_prep()  # load-time weight layout, outside the counted run
+    engagement.reset()
+    fused = model(x)
+    torch.cuda.synchronize()
+    launches = engagement.counters()
+    per = {"fused_cab_body": 36, "fused_window_attention_block" + window_family(ws): 36, "fused_mlp_block_extra": 36,
+           "fused_ocab_block": 6, "fused_conv3x3": 7, "fused_upsample_x4": 1}
+    rel = rel_l2(fused, plain)
+    log(f"\nhat windows: HAT x4 window {ws} bf16 fused vs f32 plain: rel_l2 {rel:.3e} limit {E2E_BF16_REL_L2:.0e}; "
+        f"launches {launches}")
+    if not rel <= E2E_BF16_REL_L2 or fused.shape != (1, 4 * LR, 4 * LR, 3) or not bool(torch.isfinite(fused).all()):
+        failed.append(f"hat window {ws}: rel_l2 {rel:.3e}, shape {tuple(fused.shape)}")
+    if launches != per:
+        failed.append(f"hat window {ws}: launches {launches}, expected {per}")
+    failed += entry_failures(f"hat windows window {ws}", launches)
+    del plain, fused
+    fwd = time_ms(lambda: model(x), iters=5)
+    log(f"hat windows: HAT x4 forward bf16 batch 1 {LR}x{LR} at window {ws}: {fwd:.3f} ms "
+        f"({LR * LR / 1e6 / (fwd / 1e3):.3f} LR MP/s)")
+
+    name, c, heads = "fused_ocab_block", HAT_MAIN["embed_dim"], HAT_MAIN["num_heads"][0]
+    hp = LR + (-LR % ws)
+    xb = torch.randn(1, hp, hp, c, generator=torch.Generator().manual_seed(SEED + ws)).to(dev, torch.bfloat16)
+    ops = (xb, *prep["ocab"][0].values())
+    # the served blob (q|k|v, proj, fc1, fc2) and the bias in bf16; the plain version on the dense weights
+    dense = dense_ocab(ops, unpack_ocab_block(ops[3], c, heads, ops[11].numel()))
+    kw = dict(heads=heads, window_size=ws, overlap_ratio=HAT_MAIN["overlap_ratio"])
+    engagement.reset()
+    got = fused_ocab_block(*ops, **kw)
+    if engagement.entries() != {name: {"ocab_mma_bf16": 1}}:
+        failed.append(f"{name} at window {ws} launched {engagement.entries()}")
+    err = kernel_check(f"{name} [hat window {ws}, {hp}x{hp}]", got, ocab_plain(*[t.float() for t in dense], **kw),
+                       torch.bfloat16, failed)
+    del got
+    ms = time_ms(lambda: fused_ocab_block(*ops, **kw), iters=20)
+    plain_ms = time_ms(lambda: ocab_plain(*dense, **kw), iters=3, warmup=1)
+    flops, moved = hat_bounds(name, ops)
+    bms, by = bound_ms(flops, moved)
+    log(f"time {name} [hat window {ws}, {hp}x{hp}] bf16: {ms:.3f} ms ({100 * 6 * ms / fwd:.1f} % of a forward at 6 a "
+        f"forward), plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), {flops / 1e9:.2f} GFLOP, "
+        f"{moved / 1e6:.1f} MB; launches {launches.get(name, 0)} in the forward")
+    yard = ocab_yardstick(ops, ms, bms, ws)
+    log(f"  {name} [hat window {ws}] yardstick (bf16 PyTorch sequence, not a single call): {yard:.3f} ms")
+    source, replaces = KERNELS[name]
+    row = dict(name=f"{name}_ws{ws}", route="cuda", source=source, replaces=replaces, launches=launches.get(name, 0),
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None)
+    del model, prep, ops, dense, xb
+    torch.cuda.empty_cache()
+    return row, fwd
+
+
+def hat_ws24_train(dev: torch.device, failed: list) -> tuple:
+    """Trainer.run on HAT x4 at window 24 (``HAT_WS24_TRAIN``) for
+    ``HAT_WS24_STEPS`` steps at the recipe (the trainer's defaults on the
+    card: bf16, fused_train, batch 32 of 64² crops): launches a step, finite
+    losses, peak memory; then the step's ms over 5 steps after 2 warm-up
+    steps. Returns (launches of the run, step ms)."""
+    shutil.rmtree(HAT_WS24_DIR, ignore_errors=True)
+    losses: list = []
+    model = HAT.build(**HAT_WS24_TRAIN, seed=SEED, device=dev)
+    trainer = _trainer(dev, SEED, losses, model=model, steps=HAT_WS24_STEPS, eval_interval=HAT_WS24_STEPS + 1,
+                       ckpt_path=HAT_WS24_DIR)
+    torch.cuda.reset_peak_memory_stats()
+    engagement.reset()
+    t0 = time.perf_counter()
+    trainer.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, entries = engagement.counters(), engagement.entries()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    values = [float(v) for v in losses]
+    log(f"\nhat windows: HAT x4 window 24 trained {HAT_WS24_STEPS} steps at batch {TRAIN_BATCH} in {seconds:.3f} s "
+        f"(host clock, first steps included); bf16 {trainer.bfloat16}, fused_train {trainer.fused_train}; peak memory "
+        f"{peak:.2f} GiB; launches {launches}; losses {[round(v, 6) for v in values]}")
+    if not (trainer.bfloat16 and trainer.fused_train):
+        failed.append("hat window 24: the trainer did not default to bf16 and fused_train")
+    for name in set(launches) | set(HAT_WS24_PER_STEP):
+        if launches.get(name, 0) != HAT_WS24_PER_STEP.get(name, 0) * HAT_WS24_STEPS:
+            failed.append(f"hat window 24 trainer: {name} {launches.get(name, 0)} launches in {HAT_WS24_STEPS} steps, "
+                          f"expected {HAT_WS24_PER_STEP.get(name, 0)} a step")
+    if len(values) != HAT_WS24_STEPS or not all(np.isfinite(values)):
+        failed.append(f"hat window 24 losses {values}")
+    failed += train_entry_failures("hat window 24 trainer", launches, torch.bfloat16, entries)
+    shutil.rmtree(HAT_WS24_DIR, ignore_errors=True)
+    del trainer
+
+    module = model.module
+    module.fused_train = True
+    tx = build_optimizer()
+    state = prepare_state(module, tx)
+    step = make_train_step(module, tx, l1_loss, bfloat16=True)
+    lq, gt = _unit_batch(dev, TRAIN_BATCH, SEED + 4)
+    gen = torch.Generator().manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(lambda: step(state, lq, gt, gen), iters=5)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"hat windows: HAT x4 window 24 train step bf16 batch {TRAIN_BATCH} {TRAIN_CROP}x{TRAIN_CROP} (72² after the "
+        f"padding, 288 windows): {step_ms:.3f} ms, {TRAIN_BATCH / (step_ms / 1e3):.1f} images/s, peak memory "
+        f"{peak:.2f} GiB")
+    del state, tx, model, module
+    torch.cuda.empty_cache()
+    return launches, step_ms
+
+
+def hat_ws24_oca_rows(dev: torch.device, launches: dict, step_ms: float, failed: list) -> list:
+    """B12 and B13 in their large family at the window-24 step's shapes (288
+    windows, 6 heads, 576 queries, 1296 keys, d 30, the OCAB's transposed
+    views, the bias in bf16 as the bf16 step gathers it): against their
+    plain versions, two launches the same bits, timed beside the plain
+    versions and SDPA with the bias as its mask. The kernels line's two
+    ``_large`` rows."""
+    c, heads, ws = HAT_MAIN["embed_dim"], HAT_MAIN["num_heads"][0], 24
+    owin, _ = overlap_window(ws, HAT_MAIN["overlap_ratio"])
+    d, nq, nk = c // heads, ws * ws, owin * owin
+    bw = TRAIN_BATCH * (-(-TRAIN_CROP // ws)) ** 2
+    gen = torch.Generator().manual_seed(SEED + 24)
+
+    def view(n, scale):
+        return (torch.randn(bw, n, heads, d, generator=gen) * scale).to(dev, torch.bfloat16).transpose(1, 2)
+
+    q, k, v, go = view(nq, 2 * d**-0.5), view(nk, 1.0), view(nk, 1.0), view(nq, 1.0)
+    bias = (torch.randn(heads, nq, nk, generator=gen) * 2.0).to(dev, torch.bfloat16)
+    rows = []
+    for name, kernel, plain, ops in (("oca_core_fwd_large", oca_core_fwd, oca_core_plain, (q, k, v, bias)),
+                                     ("oca_core_bwd_large", oca_core_bwd, oca_core_bwd_plain, (q, k, v, bias, go))):
+        label = f"hat window 24 step, {bw} windows, {nq} | {nk}"
+        engagement.reset()
+        got = _flat(kernel(*ops))
+        again = _flat(kernel(*ops))
+        torch.cuda.synchronize()
+        if engagement.entries() != {name: {TRAIN_ENTRIES[torch.bfloat16][name]: 2}}:
+            failed.append(f"{name} [{label}]: entries {engagement.entries()}")
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"check {name} [{label}] bf16: two launches give the same bits: {same}")
+        if not same:
+            failed.append(f"{name} [{label}]: two launches differ")
+        del again
+        want = _flat(plain(*[t.float() for t in ops]))
+        err = [kernel_check(f"{name} [{label}] output {i}", a, e, torch.bfloat16, failed)
+               for i, (a, e) in enumerate(zip(got, want))][0]
+        del got, want
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda: kernel(*ops), iters=10)
+        plain_ms = time_ms(lambda: plain(*ops), iters=3, warmup=1)
+        torch.cuda.empty_cache()
+        flops, moved = oca_bounds(name.replace("_large", ""), ops)
+        bms, by = bound_ms(flops, moved)
+        library_ms = sdpa_ms(name.replace("_large", ""), ops)
+        torch.cuda.empty_cache()
+        log(f"time {name} [{label}] bf16: {ms:.3f} ms ({100 * 6 * ms / step_ms:.1f} % of a window-24 step at 6 a "
+            f"step), plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), library (SDPA, the bias as its mask) "
+            f"{library_ms if library_ms is None else round(library_ms, 4)} ms, {flops / 1e9:.2f} GFLOP, "
+            f"{moved / 1e6:.1f} MB; launches {launches.get(name, 0)} in {HAT_WS24_STEPS} steps; "
+            f"{100 * bms / ms:.1f} % of the bound; {ptxas_report(name)}")
+        source, replaces = KERNELS[name]
+        rows.append(dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches.get(name, 0),
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         library_ms=library_ms))
+    del q, k, v, go, bias
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_hat_windows(dev: torch.device) -> list:
+    """HAT at every window: the kernel checks at windows 4, 12, 24 and 32;
+    HAT x4 served at windows 24 and 12 at full width; HAT x4 trained fused
+    at window 24 (the Trainer, then the step timed, then B12 and B13 at the
+    step's shapes); the gradients of the window-24 model against the f64
+    witness at batch 4 (the plain runs recompute each window attention and
+    OCAB in the backward). Returns the kernels line's rows."""
+    failed = []
+    start = time.perf_counter()
+    hat_window_checks(dev, failed)
+    log(f"hat windows: kernel checks at windows {HAT_WINDOW_CHECKS} in {time.perf_counter() - start:.1f} s")
+    rows, forwards = [], {}
+    for ws in HAT_WINDOWS_SERVED:
+        row, forwards[ws] = hat_window_serving(dev, ws, failed)
+        rows.append(row)
+    launches, step_ms = hat_ws24_train(dev, failed)
+    rows += hat_ws24_oca_rows(dev, launches, step_ms, failed)
+    if failed:
+        raise AssertionError("hat windows: " + "; ".join(failed))
+    hold_grads(dev, HAT.build(**HAT_WS24_TRAIN, seed=SEED, device=dev), HAT_WS24_PER_STEP, "hat window 24 ",
+               recompute=("WindowAttention", "OCAB"))
+    log(f"hat windows: {time.perf_counter() - start:.1f} s in all; forwards {forwards} ms")
+    return rows
+
+
 # -- the zoo, offline -------------------------------------------------------------------
 
 
@@ -3977,6 +4319,8 @@ def main() -> int:
     rows += phase_maxsr_windows(dev)
     torch.cuda.empty_cache()
     rows += phase_large_windows(dev)
+    torch.cuda.empty_cache()
+    rows += phase_hat_windows(dev)
     torch.cuda.empty_cache()
     phase_maxsr_decline(dev)
     phase_train_entry(dev)

@@ -62,6 +62,13 @@ warm-up launches:
   of bf16 PyTorch calls (``F.layer_norm``, ``F.linear``, the unfold of the
   zero-padded k | v map, SDPA with the bias as its mask, the projection and
   the residual, then the MLP half);
+* HAT at other windows: B10 on a 264 x 264 map at windows 24 (36 x 36
+  key windows) and 12 (144 queries in three 64-row tiles), on the blob
+  where the checkout's H100 kernel takes the window and on dense weights
+  through the older kernel where not (``nan`` where the checkout raises),
+  beside its yardstick; B12 and B13 in their large family at HAT's
+  window-24 step (288 windows, 6 heads, 576 | 1296, d 30, the bias in
+  bf16);
 * as controls: B5, B7, B8, B9 (above).
 
 The kernels are built first, one ``nvcc`` a source, all started together.
@@ -82,7 +89,10 @@ run them (C 180, hidden 360), seeded: B6 on 131,072 rows with drop-path
 scales (the training step's) and with HAT's CAB join (``extra``) on 65,536
 rows on weights packed as HAT serving packs them; B7 on 131,072 rows with
 drop-path scales, dx and every f32 gradient; B10 at HAT x4 serving's 256 x
-256 map, window 16, overlap 0.5, packed weights and a bf16 bias. Then B5
+256 map, window 16, overlap 0.5, packed weights and a bf16 bias, and at
+window 8 (a 64 x 96 map, 12 x 12 key windows); B12 (with the bias in f32
+and in bf16) and B13 at the OCA geometries of windows 8 and 16 (64 windows
+of 6 heads, 64 | 144 and 256 | 576 queries | keys, the OCAB's views). Then B5
 and its backward (B8 at window 8, B9 at window 16) at both windows with the
 shift and drop-path scales: in bf16 at C 180 (the kernels written for the
 H100, batch 8 of 64 x 64 maps; MaxSR's C 128 with a bf16 bias too), at
@@ -568,6 +578,53 @@ def measure() -> dict:
             ms[f"attention_bwd_large {label} yardstick (bf16 PyTorch sequence)"] = time_ms(sequence, iters=3, warmup=1)
             del sequence
         torch.cuda.empty_cache()
+    # HAT at windows 24 and 12: B10 serving on a 264² map (the blob where the
+    # checkout's H100 kernel takes the window, else dense weights on the
+    # older kernel; a checkout from before every window raises at 12), and
+    # B12 / B13 at the window-24 step (288 windows, 576 | 1296)
+    from studiosr_tpu_torch.ops.cuda.ocab import ocab_mma_takes, pack_ocab_block
+
+    for ws in (24, 12):
+        nk = (3 * ws // 2) ** 2
+        dense = [1 + randn(C, scale=0.1), randn(C, scale=0.1), randn(C, 3 * C, scale=C**-0.5).to(bf),
+                 randn(3 * C, scale=0.1), randn(C, C, scale=C**-0.5).to(bf), randn(C, scale=0.1),
+                 randn(HEADS, ws * ws, nk, scale=0.5).to(bf), 1 + randn(C, scale=0.1), randn(C, scale=0.1),
+                 randn(C, 2 * C, scale=C**-0.5).to(bf), randn(2 * C, scale=0.1),
+                 randn(2 * C, C, scale=(2 * C)**-0.5).to(bf), randn(C, scale=0.1)]
+        served = list(dense)
+        if ocab_mma_takes(C, HEADS, ws, 0.5, 2 * C):
+            served[2], served[4], served[9], served[11] = pack_ocab_block(dense[2], dense[4], dense[9], dense[11],
+                                                                          HEADS), None, None, None
+        x264 = randn(1, 264, 264, C).to(bf)
+        name, kw = f"fused_ocab_block serving ws{ws}", dict(heads=HEADS, window_size=ws, overlap_ratio=0.5)
+        engagement.reset()
+        try:
+            fused_ocab_block(x264, *served, **kw)
+        except (NotImplementedError, ValueError):  # a checkout from before every window
+            ms[name] = float("nan")
+        else:
+            ms[name] = time_ms(lambda: fused_ocab_block(x264, *served, **kw))
+            entries[name] = engagement.entries().get("fused_ocab_block")
+            passes[name] = pass_split(lambda: fused_ocab_block(x264, *served, **kw))
+        ms[f"{name} yardstick (bf16 PyTorch sequence)"] = time_ms(ocab_forward_sequence(x264, dense, HEADS, ws, 0.5),
+                                                                 iters=5)
+        torch.cuda.empty_cache()
+    q, k, v, go = (randn(288, n, HEADS, 30, scale=sc).to(bf).transpose(1, 2)
+                   for n, sc in ((576, 2 * 30**-0.5), (1296, 1.0), (1296, 1.0), (576, 1.0)))
+    bias16 = randn(HEADS, 576, 1296, scale=2.0).to(bf)
+    for name, fn in (("oca_core_fwd_large hat step ws24", lambda: oca_core_fwd(q, k, v, bias16)),
+                     ("oca_core_bwd_large hat step ws24", lambda: oca_core_bwd(q, k, v, bias16, go))):
+        engagement.reset()
+        try:
+            fn()
+        except NotImplementedError:  # a checkout from before the large family
+            ms[name] = float("nan")
+            continue
+        ms[name] = time_ms(fn, iters=10)
+        entries[name] = engagement.entries()
+        passes[name] = pass_split(fn)
+    del q, k, v, go, bias16
+    torch.cuda.empty_cache()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     return {"package": studiosr_tpu_torch.__file__, "card": card, "ms": ms, "passes": passes, "entries": entries}
@@ -587,7 +644,7 @@ def kernel_bits() -> dict:
 
     dev = resolve_device("cuda")
     _build.build(("mlp_block_mma", "mlp_bwd_mma", "ocab_mma", "window_attention_mma", "attn_bwd_mma",
-                  "window_attention", "window_attention16", "attn_bwd", "attn_bwd16"))
+                  "window_attention", "window_attention16", "attn_bwd", "attn_bwd16", "oca_fwd_mma", "oca_bwd_mma"))
     gen = torch.Generator().manual_seed(0)
     bf, hidden = torch.bfloat16, 2 * C
 
@@ -616,6 +673,20 @@ def kernel_bits() -> dict:
     ocab[4] = ocab[9] = ocab[11] = None
     xs = randn(1, 256, 256, C, dtype=bf)
     out["B10 serving"] = fused_ocab_block(xs, *ocab, heads=HEADS, window_size=16, overlap_ratio=0.5)
+    ocab[6] = randn(HEADS, 64, 144, scale=0.5, dtype=bf)  # window 8: 12 x 12 key windows
+    out["B10 serving window 8"] = fused_ocab_block(randn(1, 64, 96, C, dtype=bf), *ocab, heads=HEADS, window_size=8,
+                                                   overlap_ratio=0.5)
+    from studiosr_tpu_torch.ops.cuda.oca_core import oca_core_bwd, oca_core_fwd
+
+    for ws in (8, 16):  # B12 / B13 at HAT's OCA geometry of windows 8 and 16, on the OCAB's transposed views
+        nq, nk, d = ws * ws, (3 * ws // 2) ** 2, C // HEADS
+        q, k, v, go = (randn(64, n, HEADS, d, scale=s, dtype=bf).transpose(1, 2)
+                       for n, s in ((nq, 2 * d**-0.5), (nk, 1.0), (nk, 1.0), (nq, 1.0)))
+        bias = randn(HEADS, nq, nk, scale=2.0)
+        out[f"B12 window {ws} f32 bias"] = oca_core_fwd(q, k, v, bias)
+        out[f"B12 window {ws} bf16 bias"] = oca_core_fwd(q, k, v, bias.to(bf))
+        for i, t in enumerate(oca_core_bwd(q, k, v, bias, go)):
+            out[f"B13 window {ws} output {i}"] = t
     from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd
     from studiosr_tpu_torch.ops.cuda.window_attention import fused_window_attention_block
 
@@ -675,7 +746,8 @@ def ab(checkout: Path) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--checkout", type=Path, help="a second checkout to compare with: parent, this, this, parent")
-    parser.add_argument("--bits", type=Path, metavar="FILE", help="write B6's, B7's and B10's outputs at hidden 360")
+    parser.add_argument("--bits", type=Path, metavar="FILE",
+                        help="write B5-B10's outputs at windows 8 and 16 and B12's and B13's at their OCA geometries")
     args = parser.parse_args()
     if args.bits and args.checkout:
         return ab_bits(args.checkout.resolve(), args.bits.resolve())

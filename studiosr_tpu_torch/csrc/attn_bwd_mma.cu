@@ -576,17 +576,6 @@ __device__ __forceinline__ void al_sd(const bf16* A, const bf16* B, const bf16* 
   wg_hold<32>(&dp[0][0]);
 }
 
-// Copy 64 x DP chunks from global to shared memory (16-byte pieces), one
-// per (src, dst) pair, issued by the block's 128 threads.
-template <int DP, int K>
-__device__ __forceinline__ void al_load(const bf16* const (&src)[K], bf16* const (&dst)[K]) {
-  constexpr int PIECES = AM_TOK * DP / 8;
-  for (int i = threadIdx.x; i < K * PIECES; i += 128) {
-    const int k = i / PIECES, j = i - k * PIECES;
-    hm_cp_async<16>(dst[k] + j * 8, src[k] + j * 8, true);
-  }
-}
-
 template <int DP>
 __global__ void __launch_bounds__(128, 2) al_rows_kernel(const AmArgs a, const AmGeom G, float* __restrict__ rowst) {
   constexpr int CH = AM_TOK * DP, NDT = DP / 8;
@@ -605,10 +594,11 @@ __global__ void __launch_bounds__(128, 2) al_rows_kernel(const AmArgs a, const A
   const int q0 = 16 * wr + gq;
   auto load_kv = [&](int c) {
     const int b = c & 1;
-    al_load<DP, 2>({unit + (long long)N * DP + c * CH, unit + 2LL * N * DP + c * CH}, {Kb + b * CH, Vb + b * CH});
+    am_load_chunks<DP, 2>({unit + (long long)N * DP + c * CH, unit + 2LL * N * DP + c * CH},
+                          {Kb + b * CH, Vb + b * CH});
     hm_cp_commit();
   };
-  al_load<DP, 2>({unit + r * CH, unit + 3LL * N * DP + r * CH}, {Qk, Dk});
+  am_load_chunks<DP, 2>({unit + r * CH, unit + 3LL * N * DP + r * CH}, {Qk, Dk});
   const int wi = w % a.nwi;
   const int rq0 = a.shift ? am_region(G, a, wi, r * AM_TOK + q0) : 0;
   const int rq1 = a.shift ? am_region(G, a, wi, r * AM_TOK + q0 + 8) : 0;
@@ -756,12 +746,12 @@ __global__ void __launch_bounds__(128, 2) al_cols_kernel(const AmArgs a, const A
   const int k0 = 16 * wr + gq;  // this thread's key rows k0, k0 + 8 of chunk c
   auto load_q = [&](int r) {
     const int b = r & 1;
-    al_load<DP, 2>({unit + r * CH, unit + 3LL * N * DP + r * CH}, {Qb + b * CH, Db + b * CH});
+    am_load_chunks<DP, 2>({unit + r * CH, unit + 3LL * N * DP + r * CH}, {Qb + b * CH, Db + b * CH});
     for (int i = tid; i < 3 * AM_TOK / 4; i += 128)
       hm_cp_async<16>(stb + b * 3 * AM_TOK + 4 * i, ust + (long long)r * AM_TOK * 3 + 4 * i, true);
     hm_cp_commit();
   };
-  al_load<DP, 2>({unit + (long long)N * DP + c * CH, unit + 2LL * N * DP + c * CH}, {Kk, Vk});
+  am_load_chunks<DP, 2>({unit + (long long)N * DP + c * CH, unit + 2LL * N * DP + c * CH}, {Kk, Vk});
   load_q(0);
   const int wi = w % a.nwi;
   const int rk0 = a.shift ? am_region(G, a, wi, c * AM_TOK + k0) : 0;
@@ -848,9 +838,9 @@ __global__ void __launch_bounds__(128, 2) al_dbias_kernel(const AmArgs a, const 
   auto load = [&](int w, int b) {
     const bf16* unit = a.img + ((long long)w * G.heads + h) * 4 * N * DP;
     bf16* d = buf + b * 4 * CH;
-    al_load<DP, 4>({unit + r * CH, unit + 3LL * N * DP + r * CH, unit + (long long)N * DP + c * CH,
-                    unit + 2LL * N * DP + c * CH},
-                   {d, d + CH, d + 2 * CH, d + 3 * CH});
+    am_load_chunks<DP, 4>({unit + r * CH, unit + 3LL * N * DP + r * CH, unit + (long long)N * DP + c * CH,
+                           unit + 2LL * N * DP + c * CH},
+                          {d, d + CH, d + 2 * CH, d + 3 * CH});
     const float* ust = rowst + (((long long)w * G.heads + h) * N + r * AM_TOK) * 3;
     for (int j = tid; j < 3 * AM_TOK / 4; j += 128) hm_cp_async<16>(stb + b * 3 * AM_TOK + 4 * j, ust + 4 * j, true);
     hm_cp_commit();

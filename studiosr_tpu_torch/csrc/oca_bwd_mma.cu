@@ -7,8 +7,11 @@
 //
 // Replaces studiosr_tpu/ops/pallas/oca_core.py::oca_core_bwd (:157, kernel
 // _bwd_kernel at :73) in bf16; f32, the checks' dtype, keeps oca_core.cu on
-// attn_core.cuh, and so do head dims above 32, more than 256 queries or 576
-// keys. The contract is its: p and dscores = p (dp - D) rounded to bf16
+// attn_core.cuh, and so do head dims above 32. Two entries: up to 256
+// queries and 576 keys (HAT's windows up to 16) oca_core_bwd_mma_bf16 runs
+// the five passes below; above (HAT's windows from 17) oca_core_bwd_large_mma_bf16
+// runs pass 0 and three streaming passes whose shared memory does not grow
+// with nq or nk (below, before the host code). The contract is its: p and dscores = p (dp - D) rounded to bf16
 // before their products, products accumulated in f32, the softmax (max
 // subtracted, a deliberate difference: ROADMAP.md C) and its backward in
 // f32, d bias the sum of the f32 dscores; every sum across blocks in a fixed
@@ -469,16 +472,358 @@ __global__ void __launch_bounds__(256) ob_dq_kernel(const ObArgs a) {
   }
 }
 
+// -- above 256 queries or 576 keys: three streaming passes -------------------------------
+//
+// ob_main_kernel keeps every query tile of a window in shared memory and a
+// block's d bias slice (all query rows x 64 keys) in registers, so it stops
+// at 256 queries; ob_stats_kernel and the d bias partials' owners stop at
+// 576 keys. Above, the attention core runs as B9 runs it above window 16
+// (attn_bwd_mma.cu al_*_kernel), generalised to nq x nk and to the images
+// of pass 0, a warpgroup a block streaming 64-token chunks through two
+// cp.async buffers, every score and dprob recomputed:
+// 1. ol_rows_kernel, (window, head, query tile r): sweep 1 over the key
+//    chunks keeps the row max m, sum l and u = sum p dp online (m, 1 / l and
+//    D = u / l to the statistics, ob_stats_kernel's layout); sweep 2 forms p
+//    and dscores and runs dq = dscores k (k made token-contiguous by
+//    am_transpose), summed over the chunks in order in registers, and writes
+//    dq once.
+// 2. ol_cols_kernel, (window, head, key chunk c): s^T = k q^T and dp^T = v
+//    g^T for each query tile in order, p^T and dscores^T from the statistics,
+//    dv = p^T g and dk = dscores^T q in registers, written once.
+// 3. ol_dbias_kernel, (window group, head, query tile, key chunk): the tile's
+//    dscores over the group's windows in order, summed in registers and
+//    written once to the group's partial; reduce_parts sums the groups in
+//    order. The partials are groups x heads x nq x nk f32, the groups few
+//    (ol_groups: about two blocks an SM).
+// About 34 KB of shared memory a block at DP 32, at any nq and nk. The
+// scores and dprobs are computed three times and the statistics twice; the
+// rounding points are those of the passes above (p and dscores rounded to
+// bf16 before their products, the softmax and d bias in f32).
+
+// A query tile's statistics (64 rows x (m, 1 / l, D)) into shared memory.
+__device__ __forceinline__ void ol_load_stats(float* dst, const float* src) {
+  for (int i = threadIdx.x; i < 3 * AM_TOK / 4; i += 128) hm_cp_async<16>(dst + 4 * i, src + 4 * i, true);
+}
+
+// Store rows row, row + 8 (columns j, j + 1) of a dq / dk / dv tile held as
+// wgmma accumulators to a strided view: rows below n, columns below d.
+template <int NDT>
+__device__ __forceinline__ void ol_store(const ObArgs& a, bf16* out, long long ts, int row, int n,
+                                         const float (&acc)[NDT][4]) {
+  const int tq = threadIdx.x & 3;
+#pragma unroll
+  for (int nt = 0; nt < NDT; ++nt) {
+    const int j = nt * 8 + 2 * tq;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (row + 8 * hh >= n || j >= a.d) continue;
+      bf16* dst = out + (long long)(row + 8 * hh) * ts + j;
+      if (a.pairs) {
+        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(acc[nt][2 * hh], acc[nt][2 * hh + 1]);
+      } else {
+        dst[0] = __float2bfloat16(acc[nt][2 * hh]);
+        if (j + 1 < a.d) dst[1] = __float2bfloat16(acc[nt][2 * hh + 1]);
+      }
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(128, 2) ol_rows_kernel(const ObArgs a) {
+  constexpr int CH = AM_TOK * DP, NDT = DP / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qk = (bf16*)smem;
+  bf16* Gk = Qk + CH;
+  bf16* Kb = Gk + CH;      // two buffers
+  bf16* Vb = Kb + 2 * CH;  // two buffers
+  bf16* Kt = Vb + 2 * CH;
+  const int QT = a.QT, KT = a.KT;
+  const int tid = threadIdx.x, wr = tid >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  const long long u = blockIdx.x / QT;
+  const int r = blockIdx.x % QT, h = (int)(u % a.heads);
+  const bf16* img = a.img + u * a.unit_elems;
+  const bf16 *kimg = img + 2LL * QT * CH, *vimg = kimg + (long long)KT * CH;
+  const int row = r * AM_TOK + 16 * wr + gq;  // this thread's query rows row, row + 8
+  auto load_kv = [&](int c) {
+    const int b = c & 1;
+    am_load_chunks<DP, 2>({kimg + (long long)c * CH, vimg + (long long)c * CH}, {Kb + b * CH, Vb + b * CH});
+    hm_cp_commit();
+  };
+  am_load_chunks<DP, 2>({img + (long long)r * CH, img + (long long)(QT + r) * CH}, {Qk, Gk});
+  float s[8][4], dp[8][4];
+  // chunk c's scores (+ bias, -inf past nk) and dprobs into s, dp
+  auto sd = [&](int c) {
+    float4 bb[8];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) bb[nt] = ob_bias4(a, h, row, c * AM_TOK + nt * 8 + 2 * tq);
+    ob_scores<DP>(s, dp, Qk, Gk, Kb + (c & 1) * CH, Vb + (c & 1) * CH);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = c * AM_TOK + nt * 8 + 2 * tq;
+      s[nt][0] = col < a.nk ? s[nt][0] + bb[nt].x : -INFINITY;
+      s[nt][1] = col + 1 < a.nk ? s[nt][1] + bb[nt].y : -INFINITY;
+      s[nt][2] = col < a.nk ? s[nt][2] + bb[nt].z : -INFINITY;
+      s[nt][3] = col + 1 < a.nk ? s[nt][3] + bb[nt].w : -INFINITY;
+    }
+  };
+  // chunk c of a sweep ready in buffer c & 1, chunk c + 1 in flight
+  auto next = [&](int c) {
+    if (c + 1 < KT) {
+      load_kv(c + 1);
+      hm_cp_wait_upto(1);
+    } else {
+      hm_cp_wait_upto(0);
+    }
+    wg_proxy_fence();
+    __syncthreads();
+  };
+
+  // sweep 1: m (log2 units), l and u
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, us[2] = {0.f, 0.f};
+  load_kv(0);
+#pragma unroll 1
+  for (int c = 0; c < KT; ++c) {
+    next(c);
+    sd(c);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * hh], s[nt][2 * hh + 1]));
+      const float mn = fmaxf(m[hh], am_quad_max(mx) * AM_LOG2E), sc = am_exp2(m[hh] - mn);
+      l[hh] *= sc, us[hh] *= sc, m[hh] = mn;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = am_exp2(fmaf(s[nt][2 * hh + e], AM_LOG2E, -mn));
+          l[hh] += p, us[hh] += p * dp[nt][2 * hh + e];
+        }
+    }
+    __syncthreads();  // buffer c & 1 is free for chunk c + 2
+  }
+  float linv[2], D[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] = am_quad_sum(l[hh]), us[hh] = am_quad_sum(us[hh]);
+    linv[hh] = 1.f / l[hh], D[hh] = us[hh] / l[hh];
+    if (tq == 0) {
+      float* st = a.stats + (u * QT * AM_TOK + row + 8 * hh) * 3;
+      st[0] = m[hh], st[1] = linv[hh], st[2] = D[hh];
+    }
+  }
+
+  // sweep 2: p, dscores; dq = dscores k
+  float dq[NDT][4];
+  load_kv(0);
+#pragma unroll 1
+  for (int c = 0; c < KT; ++c) {
+    next(c);
+    am_transpose<DP>(Kb + (c & 1) * CH, Kt, 1, 4);
+    sd(c);
+    uint32_t sa[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = am_exp2(fmaf(s[nt][e], AM_LOG2E, -m[e >> 1])) * linv[e >> 1];
+        dp[nt][e] = p * (dp[nt][e] - D[e >> 1]);
+      }
+      sa[nt >> 1][(nt & 1) * 2] = hm_pack(dp[nt][0], dp[nt][1]);
+      sa[nt >> 1][(nt & 1) * 2 + 1] = hm_pack(dp[nt][2], dp[nt][3]);
+    }
+    wg_proxy_fence();
+    __syncthreads();  // the transposed k is in
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wg_rs<DP>(&dq[0][0], sa[ks], wg_desc(Kt + ks * 128, 128, AM_TOK * 16), c > 0 || ks > 0);
+    wg_commit();
+    wg_wait0();
+    wg_hold<NDT * 4>(&dq[0][0]);
+    wg_hold<16>(&sa[0][0]);
+    __syncthreads();  // every warp is done with the buffers and the transposed copy
+  }
+  ol_store<NDT>(a, a.dq + (u / a.heads) * a.st[OB_DQ][0] + h * a.st[OB_DQ][1], a.st[OB_DQ][2], row, a.nq, dq);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(128, 2) ol_cols_kernel(const ObArgs a) {
+  constexpr int CH = AM_TOK * DP, NDT = DP / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Kk = (bf16*)smem;
+  bf16* Vk = Kk + CH;
+  bf16* Qb = Vk + CH;      // two buffers
+  bf16* Gb = Qb + 2 * CH;  // two buffers
+  bf16* Qt = Gb + 2 * CH;
+  bf16* Gt = Qt + CH;
+  float* stb = (float*)(Gt + CH);  // two buffers of a query tile's (m, 1 / l, D)
+  const int QT = a.QT, KT = a.KT;
+  const int tid = threadIdx.x, wr = tid >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  const long long u = blockIdx.x / KT;
+  const int c = blockIdx.x % KT, h = (int)(u % a.heads);
+  const bf16* img = a.img + u * a.unit_elems;
+  const float* ust = a.stats + u * QT * AM_TOK * 3;
+  const float* bias = a.bias + (size_t)h * a.nq * a.nk;
+  const int key = c * AM_TOK + 16 * wr + gq;  // this thread's key rows key, key + 8
+  auto load_q = [&](int r) {
+    const int b = r & 1;
+    am_load_chunks<DP, 2>({img + (long long)r * CH, img + (long long)(QT + r) * CH}, {Qb + b * CH, Gb + b * CH});
+    ol_load_stats(stb + b * 3 * AM_TOK, ust + (long long)r * AM_TOK * 3);
+    hm_cp_commit();
+  };
+  am_load_chunks<DP, 2>({img + (long long)(2 * QT + c) * CH, img + (long long)(2 * QT + KT + c) * CH}, {Kk, Vk});
+  load_q(0);
+  float dk[NDT][4], dv[NDT][4];
+#pragma unroll 1
+  for (int r = 0; r < QT; ++r) {
+    const int b = r & 1;
+    float bv[8][4];  // the bias of this thread's (key, query) pairs, loaded before the products
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = r * AM_TOK + nt * 8 + 2 * tq + (e & 1), k = key + 8 * (e >> 1);
+        bv[nt][e] = q < a.nq && k < a.nk ? __ldg(bias + (size_t)q * a.nk + k) : 0.f;
+      }
+    if (r + 1 < QT) {
+      load_q(r + 1);
+      hm_cp_wait_upto(1);
+    } else {
+      hm_cp_wait_upto(0);
+    }
+    wg_proxy_fence();
+    __syncthreads();  // query tile r (and k, v) in
+    am_transpose<DP>(Qb + b * CH, Qt, 1, 4);
+    am_transpose<DP>(Gb + b * CH, Gt, 1, 4);
+    float s[8][4], dp[8][4];  // rows: keys key, key + 8; columns: the tile's queries
+    ob_scores<DP>(s, dp, Kk, Vk, Qb + b * CH, Gb + b * CH);
+    const float* st = stb + b * 3 * AM_TOK;
+    uint32_t pa[4][4], sa[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qq = nt * 8 + 2 * tq + (e & 1);
+        const bool in = r * AM_TOK + qq < a.nq && key + 8 * (e >> 1) < a.nk;
+        const float p = in ? am_exp2(fmaf(s[nt][e] + bv[nt][e], AM_LOG2E, -st[3 * qq])) * st[3 * qq + 1] : 0.f;
+        s[nt][e] = p;
+        dp[nt][e] = p * (dp[nt][e] - st[3 * qq + 2]);
+      }
+      pa[nt >> 1][(nt & 1) * 2] = hm_pack(s[nt][0], s[nt][1]);
+      pa[nt >> 1][(nt & 1) * 2 + 1] = hm_pack(s[nt][2], s[nt][3]);
+      sa[nt >> 1][(nt & 1) * 2] = hm_pack(dp[nt][0], dp[nt][1]);
+      sa[nt >> 1][(nt & 1) * 2 + 1] = hm_pack(dp[nt][2], dp[nt][3]);
+    }
+    wg_proxy_fence();
+    __syncthreads();  // the transposed q and g are in
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      wg_rs<DP>(&dv[0][0], pa[ks], wg_desc(Gt + ks * 128, 128, AM_TOK * 16), r > 0 || ks > 0);
+      wg_rs<DP>(&dk[0][0], sa[ks], wg_desc(Qt + ks * 128, 128, AM_TOK * 16), r > 0 || ks > 0);
+    }
+    wg_commit();
+    wg_wait0();
+    wg_hold<NDT * 4>(&dv[0][0]);
+    wg_hold<NDT * 4>(&dk[0][0]);
+    wg_hold<16>(&pa[0][0]);
+    wg_hold<16>(&sa[0][0]);
+    __syncthreads();  // every warp is done with buffer b and the transposed copies
+  }
+  const long long w = u / a.heads;
+  ol_store<NDT>(a, a.dk + w * a.st[OB_DK][0] + h * a.st[OB_DK][1], a.st[OB_DK][2], key, a.nk, dk);
+  ol_store<NDT>(a, a.dv + w * a.st[OB_DV][0] + h * a.st[OB_DV][1], a.st[OB_DV][2], key, a.nk, dv);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(128, 2) ol_dbias_kernel(const ObArgs a) {
+  constexpr int CH = AM_TOK * DP;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* buf = (bf16*)smem;                  // two buffers of q, g (tile r), k, v (chunk c)
+  float* stb = (float*)(buf + 2 * 4 * CH);  // two buffers of the query tile's (m, 1 / l, D)
+  const int QT = a.QT, KT = a.KT;
+  const int tid = threadIdx.x, wr = tid >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  int i = blockIdx.x;
+  const int c = i % KT;
+  i /= KT;
+  const int r = i % QT;
+  i /= QT;
+  const int h = i % a.heads, g = i / a.heads;
+  const int q0 = 16 * wr + gq, row = r * AM_TOK + q0;
+  auto load = [&](int w, int b) {
+    const long long u = (long long)w * a.heads + h;
+    const bf16* img = a.img + u * a.unit_elems;
+    bf16* d = buf + b * 4 * CH;
+    am_load_chunks<DP, 4>({img + (long long)r * CH, img + (long long)(QT + r) * CH,
+                           img + (long long)(2 * QT + c) * CH, img + (long long)(2 * QT + KT + c) * CH},
+                          {d, d + CH, d + 2 * CH, d + 3 * CH});
+    ol_load_stats(stb + b * 3 * AM_TOK, a.stats + (u * QT * AM_TOK + r * AM_TOK) * 3);
+    hm_cp_commit();
+  };
+  float4 bb[8];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) bb[nt] = ob_bias4(a, h, row, c * AM_TOK + nt * 8 + 2 * tq);
+  float acc[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  if (g < a.bw) load(g, 0);
+  int b = 0;
+#pragma unroll 1
+  for (int w = g; w < a.bw; w += a.groups, b ^= 1) {
+    if (w + a.groups < a.bw) {
+      load(w + a.groups, b ^ 1);
+      hm_cp_wait_upto(1);
+    } else {
+      hm_cp_wait_upto(0);
+    }
+    wg_proxy_fence();
+    __syncthreads();
+    const bf16* d = buf + b * 4 * CH;
+    const float* st = stb + b * 3 * AM_TOK;
+    float s[8][4], dp[8][4];
+    ob_scores<DP>(s, dp, d, d + CH, d + 2 * CH, d + 3 * CH);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const float b4[4] = {bb[nt].x, bb[nt].y, bb[nt].z, bb[nt].w};
+      const int col = c * AM_TOK + nt * 8 + 2 * tq;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = q0 + 8 * (e >> 1);
+        const bool in = row + 8 * (e >> 1) < a.nq && col + (e & 1) < a.nk;
+        const float p = in ? am_exp2(fmaf(s[nt][e] + b4[e], AM_LOG2E, -st[3 * q])) * st[3 * q + 1] : 0.f;
+        acc[nt][e] += p * (dp[nt][e] - st[3 * q + 2]);
+      }
+    }
+    __syncthreads();  // every warp is done with buffer b before the window after next fills it
+  }
+  float* part = a.dbp + ((size_t)g * a.heads + h) * a.nq * a.nk;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int rr = row + 8 * (e >> 1), col = c * AM_TOK + nt * 8 + 2 * tq + (e & 1);
+      if (rr < a.nq && col < a.nk) part[(size_t)rr * a.nk + col] = acc[nt][e];
+    }
+}
+
+// Shared memory of the three streaming passes: seven or eight 64 x DP
+// chunks, and in 2 and 3 two buffers of a query tile's statistics.
+__host__ __device__ inline size_t ol_rows_smem(int DP) { return (size_t)7 * AM_TOK * DP * 2; }
+__host__ __device__ inline size_t ol_cols_smem(int DP) { return (size_t)8 * AM_TOK * DP * 2 + 2 * 3 * AM_TOK * 4; }
+
 // -- host ------------------------------------------------------------------------------
 
-static bool ob_shape_ok(int bw, int heads, int nq, int nk, int d) {
-  return bw > 0 && heads > 0 && nq > 0 && nq <= OB_MAX_NQ && nk > 0 && nk <= OB_MAX_NK && d > 0 && d <= 32;
+// The geometries of B13's entries: the first takes at most OB_MAX_NQ queries
+// and OB_MAX_NK keys, the large one (`large`) every count.
+static bool ob_shape_ok(int bw, int heads, int nq, int nk, int d, bool large) {
+  return bw > 0 && heads > 0 && nq > 0 && nk > 0 && d > 0 && d <= 32 && (large || (nq <= OB_MAX_NQ && nk <= OB_MAX_NK));
 }
 
 // Scratch in bf16: the images (units x (2 QT + 2 KT) tiles of 64 x DP). In
 // f32: the row statistics (3 a padded query row), dq's chunk partials (units
-// x KT x QT x 64 x DP), the groups' d bias partials (groups x heads x nq x
-// nk).
+// x KT x QT x 64 x DP; none in the large entry, whose row pass owns dq), the
+// groups' d bias partials (groups x heads x nq x nk).
 struct ObScratch {
   long long units, unit_elems, t_elems, stats, dqp, dbp, f_elems;
   int QT, KT, DP, groups;
@@ -497,39 +842,60 @@ static int ob_groups(int bw, int heads, int KT, int sms) {
   return best;
 }
 
-static ObScratch ob_scratch(int bw, int heads, int nq, int nk, int d, int sms) {
+// The large entry's window groups (ol_dbias_kernel): about two blocks an
+// SM, at most one a window.
+static int ol_groups(int bw, int heads, int QT, int KT, int sms) {
+  const long long tiles = (long long)heads * QT * KT, g = (2LL * sms + tiles - 1) / tiles;
+  return (int)(g > bw ? bw : (g < 1 ? 1 : g));
+}
+
+static ObScratch ob_scratch(int bw, int heads, int nq, int nk, int d, int sms, bool large) {
   ObScratch S;
   S.QT = (nq + AM_TOK - 1) / AM_TOK;
   S.KT = (nk + AM_TOK - 1) / AM_TOK;
   S.DP = d <= 16 ? 16 : 32;
-  S.groups = ob_groups(bw, heads, S.KT, sms);
+  S.groups = large ? ol_groups(bw, heads, S.QT, S.KT, sms) : ob_groups(bw, heads, S.KT, sms);
   S.units = (long long)bw * heads;
   S.unit_elems = (long long)(2 * S.QT + 2 * S.KT) * AM_TOK * S.DP;
   S.t_elems = S.units * S.unit_elems;
   S.stats = 0;
   S.dqp = S.stats + S.units * S.QT * AM_TOK * 3;
-  S.dbp = S.dqp + S.units * S.KT * S.QT * AM_TOK * S.DP;
+  S.dbp = S.dqp + (large ? 0 : S.units * S.KT * S.QT * AM_TOK * S.DP);
   S.f_elems = S.dbp + (long long)S.groups * heads * nq * nk;
   return S;
 }
 
-extern "C" int oca_core_bwd_mma_scratch(int bw, int heads, int nq, int nk, int d, long long* t_elems,
-                                        long long* f_elems) {
-  if (!ob_shape_ok(bw, heads, nq, nk, d)) return (int)cudaErrorInvalidValue;
+static int ob_sizes(int bw, int heads, int nq, int nk, int d, bool large, long long* t_elems, long long* f_elems) {
+  if (!ob_shape_ok(bw, heads, nq, nk, d, large)) return (int)cudaErrorInvalidValue;
   int sms = 0;
   const cudaError_t err = am_sms(&sms);
   if (err != cudaSuccess) return (int)err;
-  const ObScratch S = ob_scratch(bw, heads, nq, nk, d, sms);
+  const ObScratch S = ob_scratch(bw, heads, nq, nk, d, sms, large);
   *t_elems = S.t_elems;
   *f_elems = S.f_elems;
   return 0;
 }
 
-template <int DP, int QTP>
-static cudaError_t ob_launch(const ObArgs& a, const ObScratch& S, float* dbias, cudaStream_t st) {
+extern "C" int oca_core_bwd_mma_scratch(int bw, int heads, int nq, int nk, int d, long long* t_elems,
+                                        long long* f_elems) {
+  return ob_sizes(bw, heads, nq, nk, d, false, t_elems, f_elems);
+}
+
+extern "C" int oca_core_bwd_large_mma_scratch(int bw, int heads, int nq, int nk, int d, long long* t_elems,
+                                              long long* f_elems) {
+  return ob_sizes(bw, heads, nq, nk, d, true, t_elems, f_elems);
+}
+
+template <int DP>
+static cudaError_t ob_pack(const ObArgs& a, const ObScratch& S, cudaStream_t st) {
   const long long pieces = S.units * (2 * S.QT + 2 * S.KT) * AM_TOK * (DP / 8);
   ob_pack_kernel<DP><<<(int)((pieces + 255) / 256 < 8192 ? (pieces + 255) / 256 : 8192), 256, 0, st>>>(a);
-  cudaError_t err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+template <int DP, int QTP>
+static cudaError_t ob_launch(const ObArgs& a, const ObScratch& S, float* dbias, cudaStream_t st) {
+  cudaError_t err = ob_pack<DP>(a, S, st);
   if (err != cudaSuccess) return err;
   const int npair = (S.QT + 1) / 2;
   const size_t sbytes = (size_t)(2 * S.KT + 4) * AM_TOK * DP * 2;
@@ -551,17 +917,34 @@ static cudaError_t ob_launch(const ObArgs& a, const ObScratch& S, float* dbias, 
   return reduce_parts(a.dbp, S.groups, (long long)a.heads * a.nq * a.nk, dbias, st);
 }
 
+template <int DP>
+static cudaError_t ol_launch(const ObArgs& a, const ObScratch& S, float* dbias, cudaStream_t st) {
+  cudaError_t err = ob_pack<DP>(a, S, st);
+  if (err != cudaSuccess) return err;
+  size_t bytes = ol_rows_smem(DP);
+  if ((err = allow_smem(ol_rows_kernel<DP>, bytes)) != cudaSuccess) return err;
+  ol_rows_kernel<DP><<<(int)(S.units * S.QT), 128, bytes, st>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  bytes = ol_cols_smem(DP);
+  if ((err = allow_smem(ol_cols_kernel<DP>, bytes)) != cudaSuccess) return err;
+  ol_cols_kernel<DP><<<(int)(S.units * S.KT), 128, bytes, st>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = allow_smem(ol_dbias_kernel<DP>, bytes)) != cudaSuccess) return err;
+  ol_dbias_kernel<DP><<<S.groups * a.heads * S.QT * S.KT, 128, bytes, st>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return reduce_parts(a.dbp, S.groups, (long long)a.heads * a.nq * a.nk, dbias, st);
+}
+
 // strides: (window, head, token) of q, k, v, g, out (unused), dq, dk, dv,
 // in elements; d contiguous in each. dbias (heads, nq, nk) comes back in f32.
-extern "C" int oca_core_bwd_mma_bf16(const void* q, const void* k, const void* v, const void* relbias, const void* g,
-                                     void* dq, void* dk, void* dv, void* dbias, const long long* strides, int bw,
-                                     int heads, int nq, int nk, int d, void* tscratch, long long t_elems,
-                                     void* fscratch, long long f_elems, void* stream) {
-  if (!ob_shape_ok(bw, heads, nq, nk, d)) return (int)cudaErrorInvalidValue;
+static int ob_run(const void* q, const void* k, const void* v, const void* relbias, const void* g, void* dq, void* dk,
+                  void* dv, void* dbias, const long long* strides, int bw, int heads, int nq, int nk, int d,
+                  void* tscratch, long long t_elems, void* fscratch, long long f_elems, void* stream, bool large) {
+  if (!ob_shape_ok(bw, heads, nq, nk, d, large)) return (int)cudaErrorInvalidValue;
   int sms = 0;
   cudaError_t err = am_sms(&sms);
   if (err != cudaSuccess) return (int)err;
-  const ObScratch S = ob_scratch(bw, heads, nq, nk, d, sms);
+  const ObScratch S = ob_scratch(bw, heads, nq, nk, d, sms, large);
   if (S.t_elems != t_elems || S.f_elems != f_elems) return (int)cudaErrorInvalidValue;
   if ((uintptr_t)tscratch % 16 || (uintptr_t)fscratch % 16) return (int)cudaErrorMisalignedAddress;
   ObArgs a{};
@@ -582,8 +965,21 @@ extern "C" int oca_core_bwd_mma_bf16(const void* q, const void* k, const void* v
     for (int j = 0; j < 3; ++j) a.pairs = a.pairs && strides[3 * (OB_DQ + i) + j] % 2 == 0;
   }
   cudaStream_t st = (cudaStream_t)stream;
-  const bool four = S.QT > 2;  // QT rounded up to even: 2 or 4 query tiles
   float* db = (float*)dbias;
+  if (large) return (int)(S.DP == 32 ? ol_launch<32>(a, S, db, st) : ol_launch<16>(a, S, db, st));
+  const bool four = S.QT > 2;  // QT rounded up to even: 2 or 4 query tiles
   if (S.DP == 32) return (int)(four ? ob_launch<32, 4>(a, S, db, st) : ob_launch<32, 2>(a, S, db, st));
   return (int)(four ? ob_launch<16, 4>(a, S, db, st) : ob_launch<16, 2>(a, S, db, st));
 }
+
+#define OB_ENTRY(NAME, LARGE)                                                                                     \
+  extern "C" int NAME(const void* q, const void* k, const void* v, const void* relbias, const void* g, void* dq, \
+                      void* dk, void* dv, void* dbias, const long long* strides, int bw, int heads, int nq,      \
+                      int nk, int d, void* tscratch, long long t_elems, void* fscratch, long long f_elems,       \
+                      void* stream) {                                                                             \
+    return ob_run(q, k, v, relbias, g, dq, dk, dv, dbias, strides, bw, heads, nq, nk, d, tscratch, t_elems,      \
+                  fscratch, f_elems, stream, LARGE);                                                              \
+  }
+
+OB_ENTRY(oca_core_bwd_mma_bf16, false)
+OB_ENTRY(oca_core_bwd_large_mma_bf16, true)

@@ -23,8 +23,10 @@
 // Design: B12 is attn_core.cuh's row pass in forward mode, one block per
 // (window, head, 64 queries). B13 is its row pass (row statistics, then dq)
 // and its column pass (dk, dv for 64 keys of every window of a group, and
-// the group's d bias tile in shared memory), then a fixed-order sum of the
-// groups' tiles: no atomics, the same bits from run to run. In bf16 with d
+// the group's d bias tile in shared memory; above 256 queries, HAT's windows
+// from 17, the d bias of a 64 x 64 tile a block in ac_dbias_kernel), then a
+// fixed-order sum of the groups' tiles: no atomics, the same bits from run
+// to run. In bf16 with d
 // even and 4-byte aligned rows (the OCAB's d 30 views) both run on
 // mma.sync, the rows staged by 4-byte cp.async: a 60-byte row at a 360-byte
 // stride admits no wider copy, which is the cost of reading the views in
@@ -113,8 +115,10 @@ static OcaGeom<T> oca_geom(const void* q, const void* k, const void* v, const vo
   return G;
 }
 
+// Any query and key count: above AC_MAX_NQ queries the column pass leaves d
+// bias to ac_dbias_kernel (a 64 x 64 tile a block, nq x nk as they come).
 static bool oca_shape_ok(int bw, int heads, int nq, int nk, int d) {
-  return bw > 0 && heads > 0 && nq > 0 && nq <= AC_MAX_NQ && nk > 0 && d > 0 && pad16(d) <= 64;
+  return bw > 0 && heads > 0 && nq > 0 && nk > 0 && d > 0 && pad16(d) <= 64;
 }
 
 extern "C" long long oca_core_bwd_scratch(int bw, int heads, int nq, int nk) {

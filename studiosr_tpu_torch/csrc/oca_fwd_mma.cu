@@ -6,8 +6,12 @@
 //
 // Replaces studiosr_tpu/ops/pallas/oca_core.py::oca_core_fwd (:117, kernel
 // _fwd_kernel at :57) in bf16; f32, the checks' dtype, keeps oca_core.cu on
-// attn_core.cuh, and so do head dims above 32, more than 256 queries or 576
-// keys. The contract is its: scores and the softmax in f32, p rounded to
+// attn_core.cuh, and so do head dims above 32. Two entries: up to 256
+// queries and 576 keys (HAT's windows up to 16) oca_core_fwd_mma_bf16 holds
+// a unit's k and v whole in shared memory; above, oca_core_fwd_large_mma_bf16
+// (HAT's windows from 17: 576 x 1296 at window 24) runs the same passes with
+// the key chunks streamed through a ring of four (of_fwd_ring_kernel). The
+// contract is its: scores and the softmax in f32, p rounded to
 // bf16 before its product with v, products accumulated in f32, the output
 // rounded once. The softmax is taken online over 64-key chunks with the row
 // max subtracted (a deliberate difference: ROADMAP.md C), so p is rounded
@@ -54,14 +58,22 @@
 // 0.226, attention 0.450), 0.736 with an f32 bias; SDPA with the bias as
 // its mask 10.2.
 // The images, the passes and the geometry rule live in of_attn.cuh (B10's
-// attention pass runs the same of_fwd_kernel).
+// attention pass runs the same of_fwd_kernel / of_fwd_ring_kernel).
 #include "of_attn.cuh"
 
-// Elements of the bf16 scratch (the images).
-extern "C" int oca_core_fwd_mma_scratch(int bw, int heads, int nq, int nk, int d, long long* t_elems) {
-  if (!of_shape_ok(bw, heads, nq, nk, d)) return (int)cudaErrorInvalidValue;
+// Elements of the bf16 scratch (the images); `any`: the large entry's geometry.
+static int of_scratch(int bw, int heads, int nq, int nk, int d, bool any, long long* t_elems) {
+  if (!of_shape_ok(bw, heads, nq, nk, d, any)) return (int)cudaErrorInvalidValue;
   *t_elems = of_plan(bw, heads, nq, nk, d).t_elems;
   return 0;
+}
+
+extern "C" int oca_core_fwd_mma_scratch(int bw, int heads, int nq, int nk, int d, long long* t_elems) {
+  return of_scratch(bw, heads, nq, nk, d, false, t_elems);
+}
+
+extern "C" int oca_core_fwd_large_mma_scratch(int bw, int heads, int nq, int nk, int d, long long* t_elems) {
+  return of_scratch(bw, heads, nq, nk, d, true, t_elems);
 }
 
 template <int DP, typename BT>
@@ -70,20 +82,16 @@ static cudaError_t of_launch(const OfArgs& a, const OfPlan& P, cudaStream_t st) 
   of_pack_kernel<DP><<<(int)((pieces + 255) / 256 < 8192 ? (pieces + 255) / 256 : 8192), 256, 0, st>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t bytes = (size_t)(2 * P.KT + 2) * AM_TOK * DP * 2;
-  err = allow_smem(of_fwd_kernel<DP, BT>, bytes);
-  if (err != cudaSuccess) return err;
-  of_fwd_kernel<DP, BT><<<(int)(P.units * ((P.QT + 1) / 2)), 256, bytes, st>>>(a);
-  return cudaGetLastError();
+  return of_attn_launch<DP, BT>(a, st);
 }
 
 // strides: (window, head, token) of q, k, v, g (unused), out, dq, dk, dv
 // (unused), in elements; d contiguous in each. bias_bf16: the bias is bf16
 // (else f32).
-extern "C" int oca_core_fwd_mma_bf16(const void* q, const void* k, const void* v, const void* bias, void* out,
-                                     const long long* strides, int bias_bf16, int bw, int heads, int nq, int nk,
-                                     int d, void* tscratch, long long t_elems, void* stream) {
-  if (!of_shape_ok(bw, heads, nq, nk, d)) return (int)cudaErrorInvalidValue;
+static int of_run(const void* q, const void* k, const void* v, const void* bias, void* out, const long long* strides,
+                  int bias_bf16, int bw, int heads, int nq, int nk, int d, void* tscratch, long long t_elems,
+                  void* stream, bool any) {
+  if (!of_shape_ok(bw, heads, nq, nk, d, any)) return (int)cudaErrorInvalidValue;
   const OfPlan P = of_plan(bw, heads, nq, nk, d);
   if (P.t_elems != t_elems) return (int)cudaErrorInvalidValue;
   if ((uintptr_t)tscratch % 16) return (int)cudaErrorMisalignedAddress;
@@ -95,7 +103,7 @@ extern "C" int oca_core_fwd_mma_bf16(const void* q, const void* k, const void* v
   a.img = (bf16*)tscratch;
   a.units = P.units, a.unit_elems = P.unit_elems;
   a.qimg = a.img, a.q_unit = P.unit_elems, a.kv0 = (long long)P.QT * AM_TOK * P.DP;
-  a.heads = heads, a.nq = nq, a.nk = nk, a.d = d, a.QT = P.QT, a.KT = P.KT;
+  a.heads = heads, a.nq = nq, a.nk = nk, a.d = d, a.QT = P.QT, a.KT = P.KT, a.nrows = nq;
   a.pairs = d % 2 == 0 && (uintptr_t)out % 4 == 0;
   a.vec = (uintptr_t)bias % 16 == 0 && nk % (bias_bf16 ? 8 : 4) == 0;
   for (int j = 0; j < 3; ++j) a.pairs = a.pairs && strides[3 * OF_O + j] % 2 == 0;
@@ -104,3 +112,13 @@ extern "C" int oca_core_fwd_mma_bf16(const void* q, const void* k, const void* v
     return (int)(bias_bf16 ? of_launch<32, bf16>(a, P, st) : of_launch<32, float>(a, P, st));
   return (int)(bias_bf16 ? of_launch<16, bf16>(a, P, st) : of_launch<16, float>(a, P, st));
 }
+
+#define OF_ENTRY(NAME, ANY)                                                                                       \
+  extern "C" int NAME(const void* q, const void* k, const void* v, const void* bias, void* out,                  \
+                      const long long* strides, int bias_bf16, int bw, int heads, int nq, int nk, int d,         \
+                      void* tscratch, long long t_elems, void* stream) {                                         \
+    return of_run(q, k, v, bias, out, strides, bias_bf16, bw, heads, nq, nk, d, tscratch, t_elems, stream, ANY); \
+  }
+
+OF_ENTRY(oca_core_fwd_mma_bf16, false)
+OF_ENTRY(oca_core_fwd_large_mma_bf16, true)

@@ -7,10 +7,16 @@
 // on (B, H, W, C) maps.
 //
 // Replaces studiosr_tpu/ops/pallas/ocab.py::fused_ocab_block (:173, kernel
-// _ocab_kernel at :41) in bf16; f32, the checks' dtype, keeps ocab.cu, and so
-// do head dims above 32, windows other than 8 and 16, more than 576 keys and
-// hidden widths above 384. Keys outside the image are zero k and v rows
-// whose logit is the bias alone: they take softmax mass and are not masked
+// _ocab_kernel at :41) in bf16 at every window from 2 with an even key
+// margin (owin = ws + 2 pad); f32, the checks' dtype, keeps ocab.cu, and so
+// do head dims above 32 and hidden widths above 384. A window whose ws^2
+// tokens do not fill whole 64-token tiles is padded to them as B5 pads it
+// (am_window.cuh AmGeom): the padding tokens' LN rows are zero, their
+// queries read no bias, their rows reach no pixel of the map, and no key
+// image holds them. Above 576 keys (windows from 17) the attention pass streams
+// the key chunks through a ring (of_attn.cuh of_fwd_ring_kernel). Keys
+// outside the image are zero k and v rows whose logit is the bias alone:
+// they take softmax mass and are not masked
 // (only the image slots past owin^2 are). The bias is read in bf16, as the
 // TPU kernel rounds it to the map's dtype. Rounding points follow the TPU
 // kernel: the LN outputs, q, k, v, the probabilities, the attention output,
@@ -27,7 +33,8 @@
 // 1.596 ms (NVIDIA H100 80GB HBM3, 700 W). Here, six passes counted as one
 // launch, each a pass the other bf16 kernels already run:
 // 0. am_ln_kernel (am_window.cuh): LN1 rows in tile order (64 tokens a tile:
-//    a window at 8, a quarter of one at 16).
+//    a window at 8, a quarter of one at 16, a window's ws^2 tokens padded to
+//    whole tiles elsewhere).
 // 1. am_proj_kernel<DP, false>, B5's q|k|v on wgmma, once a pixel (the TPU
 //    kernel re-projects each key 2.25 times): per (window, head) q (scaled)
 //    and k K-major in d, v K-major in the token, each window's own tokens.
@@ -38,9 +45,10 @@
 //    and past owin^2. Each position's source is found once a block (a
 //    first version found it for each 16-byte piece, 64-bit divisions
 //    included: 0.30 ms at HAT's shapes, instruction-bound).
-// 3. of_fwd_kernel (of_attn.cuh), B12's attention pass, on pass 1's q
-//    images and pass 2's key images, the bias read in bf16; the attention
-//    output per token row, each head's DP columns (zero past d).
+// 3. of_fwd_kernel (of_attn.cuh; of_fwd_ring_kernel above 576 keys), B12's
+//    attention pass, on pass 1's q images and pass 2's key images, the bias
+//    read in bf16; the attention output per token row, each head's DP
+//    columns (zero past d).
 // 4. am_rowgemm_kernel with WaOut, B5's pass 3: y = x + attn Wproj + bproj,
 //    to the pixel.
 // 5. mf_kernel (mf_mlp.cuh), B6's kernel: out = y + fc2(gelu(fc1(LN2 y))).
@@ -118,9 +126,8 @@ __global__ void __launch_bounds__(256) oc_gather_kernel(const OcArgs a) {
 }
 
 static bool oc_geometry_ok(int B, int H, int W, int C, int heads, int ws, int pad, int hidden) {
-  const int owin = ws + 2 * pad;
-  return am_geometry_ok(C, heads, ws) && ws * ws % AM_TOK == 0 && mf_geometry_ok(C, hidden) && pad >= 0 && owin * owin <= OF_MAX_NK &&
-         ws * ws <= OF_MAX_NQ && B >= 1 && H >= ws && W >= ws && H % ws == 0 && W % ws == 0;
+  return am_geometry_ok(C, heads, ws) && mf_geometry_ok(C, hidden) && pad >= 0 && B >= 1 && H >= ws && W >= ws &&
+         H % ws == 0 && W % ws == 0;
 }
 
 // Scratch in bf16: LN1 rows (SC), pass 1's images (windows x heads x 3 x N x
@@ -181,11 +188,7 @@ static cudaError_t oc_launch(const AmArgs& a, const AmGeom& G, const OcArgs& g, 
   oc_gather_kernel<DP><<<(int)(g.units * g.KT), 256, 0, st>>>(g);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t bytes = (size_t)(2 * o.KT + 2) * AM_TOK * DP * 2;
-  err = allow_smem(of_fwd_kernel<DP, bf16>, bytes);
-  if (err != cudaSuccess) return err;
-  of_fwd_kernel<DP, bf16><<<(int)(o.units * ((o.QT + 1) / 2)), 256, bytes, st>>>(o);
-  return cudaGetLastError();
+  return of_attn_launch<DP, bf16>(o, st);
 }
 
 // packed: the blob of pack_ocab_block; relbias (heads, ws^2, owin^2) bf16;
@@ -227,17 +230,24 @@ extern "C" int ocab_mma_bf16(const void* x, void* out, int B, int H, int W, int 
   o.bias = relbias;
   o.img = t + S.kv, o.units = g.units, o.unit_elems = 2LL * S.KT * AM_TOK * G.DP, o.kv0 = 0;
   o.qimg = t + S.proj, o.q_unit = 3LL * G.N * G.DP;
-  // d = DP: each head's padding columns go out too (zero: v's padding is)
-  o.heads = heads, o.nq = G.N, o.nk = owin * owin, o.d = G.DP, o.QT = G.NCH, o.KT = S.KT, o.pairs = 1;
+  // d = DP: each head's padding columns go out too (zero: v's padding is);
+  // the bias rows are the window's NV queries, the rows stored its NCH whole
+  // tiles (a padding token's row is finite and never reaches the map)
+  o.heads = heads, o.nq = G.NV, o.nk = owin * owin, o.d = G.DP, o.QT = G.NCH, o.KT = S.KT, o.pairs = 1;
+  o.nrows = G.N;
   o.vec = (uintptr_t)relbias % 16 == 0 && o.nk % 8 == 0;
-  am_ln_kernel<false, false><<<S.row_blocks, 256, 0, st>>>(a, G, S.rows);
+  const bool pad_tiles = G.NV < G.N;
+  if (pad_tiles) am_ln_kernel<false, true><<<S.row_blocks, 256, 0, st>>>(a, G, S.rows);
+  else am_ln_kernel<false, false><<<S.row_blocks, 256, 0, st>>>(a, G, S.rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = G.DP == 32 ? oc_launch<32>(a, G, g, o, S, st) : oc_launch<16>(a, G, g, o, S, st);
   if (err != cudaSuccess) return (int)err;
-  err = am_rowgemm(AmRowGemm{t + S.att, a.w + G.qkv_elems(), G.HD, G.HD, S.tiles}, C, WaOut<false>{a, G},
-                   S.proj_blocks, st);
+  const AmRowGemm rg{t + S.att, a.w + G.qkv_elems(), G.HD, G.HD, S.tiles};
+  err = pad_tiles ? am_rowgemm(rg, C, WaOut<true>{a, G}, S.proj_blocks, st)
+                  : am_rowgemm(rg, C, WaOut<false>{a, G}, S.proj_blocks, st);
   if (err != cudaSuccess) return (int)err;
-  return mf_run<false>(t + S.y, nullptr, out, (int)S.rows, C, hidden, ln2_w, ln2_b, nullptr, b1, nullptr, b2, nullptr,
+  // y holds the map's B H W pixel rows (the tiles' padding tokens map to none)
+  return mf_run<false>(t + S.y, nullptr, out, B * H * W, C, hidden, ln2_w, ln2_b, nullptr, b1, nullptr, b2, nullptr,
                        0, nullptr, nullptr, a.w + wpack, M.pack_elems(), nullptr, stream);
 }

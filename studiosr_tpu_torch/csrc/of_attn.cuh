@@ -9,7 +9,12 @@
 
 #include "am_common.cuh"
 
-constexpr int OF_MAX_NQ = 256, OF_MAX_NK = 576;
+// The attention pass holds a unit's whole k and v images in shared memory up
+// to OF_MAX_NK keys (of_fwd_kernel: B12's oca_core_fwd_mma entry, B10 up to
+// window 16); past it the same pass streams the key chunks through a ring of
+// OF_STAGES k / v chunk pairs (of_fwd_ring_kernel), 40 KB at DP 32 for any
+// key count.
+constexpr int OF_MAX_NQ = 256, OF_MAX_NK = 576, OF_STAGES = 4;
 
 // Strides, in elements, of the eight tensors of oca_core.cu's stride table,
 // (window, head, token) each: q, k, v, g (unused), out, dq, dk, dv (unused).
@@ -29,6 +34,7 @@ struct OfArgs {
   long long q_unit, kv0;
   int heads, nq, nk, d, QT, KT, pairs;  // pairs: out takes 4-byte stores
   int vec;  // the bias's rows take 16-byte loads (aligned base, nk a multiple of 16 bytes' worth)
+  int nrows;  // query rows stored (nq; B10 stores a padded window's whole tiles)
 };
 
 // The key a chunk's image position p holds: p = 8 nt + 2 tq + e, the score
@@ -126,8 +132,9 @@ __device__ __forceinline__ void of_bias16(const OfArgs& a, int h, int r, int col
 
 // A block a (window, head, pair of query tiles), warpgroup w the tile 2 pair
 // + w (past the last tile it computes on the next image's rows and stores
-// nothing).
-template <int DP, typename BT>
+// nothing). PADQ: the rows stored are a.nrows (B10's padded windows; the
+// bias rows a.nq), else a.nq.
+template <int DP, typename BT, bool PADQ = false>
 __global__ void __launch_bounds__(256, 2) of_fwd_kernel(const OfArgs a) {
   constexpr int NDT = DP / 8, KS = DP / 16;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -235,22 +242,169 @@ __global__ void __launch_bounds__(256, 2) of_fwd_kernel(const OfArgs a) {
     const int half = a.d / 2;
     for (int e = lane; e < 16 * half; e += 32) {
       const int rr = e / half, jw = e - rr * half;
-      if (i < a.QT && row0 + rr < a.nq)
+      if (i < a.QT && row0 + rr < (PADQ ? a.nrows : a.nq))
         *reinterpret_cast<uint32_t*>(out + (row0 + rr) * a.st[OF_O][2] + 2 * jw) =
             *reinterpret_cast<const uint32_t*>(stage + rr * DP + 2 * jw);
     }
   } else {
     for (int e = lane; e < 16 * a.d; e += 32) {
       const int rr = e / a.d, j = e - rr * a.d;
-      if (i < a.QT && row0 + rr < a.nq) out[(row0 + rr) * a.st[OF_O][2] + j] = stage[rr * DP + j];
+      if (i < a.QT && row0 + rr < (PADQ ? a.nrows : a.nq)) out[(row0 + rr) * a.st[OF_O][2] + j] = stage[rr * DP + j];
+    }
+  }
+}
+
+// of_fwd_kernel above OF_MAX_NK keys: the same pass, its key chunks
+// streamed through OF_STAGES buffers, chunk c in buffer c % OF_STAGES,
+// refilled once both warpgroups are done with it; rows stored below
+// a.nrows. (A separate kernel, so that the whole-unit one keeps its code.)
+template <int DP, typename BT>
+__global__ void __launch_bounds__(256, 2) of_fwd_ring_kernel(const OfArgs a) {
+  constexpr int NDT = DP / 8, KS = DP / 16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127, wr = wt >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int npair = (a.QT + 1) / 2, KT = a.KT, NB = OF_STAGES;
+  const long long u = blockIdx.x / npair;
+  const int pair = blockIdx.x % npair, i = 2 * pair + wg, h = (int)(u % a.heads);
+  const long long tile = (long long)AM_TOK * DP;
+  bf16* K = (bf16*)smem;     // NB chunks of k
+  bf16* VT = K + NB * tile;  // NB chunks of v, token-contiguous
+  bf16* Q = VT + NB * tile;  // the pair's q tiles
+  const bf16* kv = a.img + u * a.unit_elems + a.kv0;
+  const bf16* qs = a.qimg + u * a.q_unit + 2 * pair * tile;
+  const int cp = (int)tile / 8, qp = 2 * cp;  // 16-byte pieces of a chunk, of the pair's q
+  auto load = [&](int c) {  // group c: chunk c of k and v (group 0 also the q tiles)
+    const int b = c % OF_STAGES;
+    for (int e = tid; e < 2 * cp + (c == 0 ? qp : 0); e += 256) {
+      if (e < cp) hm_cp_async<16>(K + b * tile + 8 * e, kv + c * tile + 8 * e, true);
+      else if (e < 2 * cp) hm_cp_async<16>(VT + b * tile + 8 * (e - cp), kv + (KT + c) * tile + 8 * (e - cp), true);
+      else hm_cp_async<16>(Q + 8 * (e - 2 * cp), qs + 8 * (e - 2 * cp), true);
+    }
+    hm_cp_commit();
+  };
+  for (int c = 0; c < (KT > OF_STAGES ? OF_STAGES : KT); ++c) load(c);
+  bf16* const Qw = Q + wg * tile;
+  const int r0 = i * AM_TOK + 16 * wr + gq;  // this thread's query rows r0, r0 + 8
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[NDT][4];
+#pragma unroll
+  for (int nt = 0; nt < NDT; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+#pragma unroll 1
+  for (int c = 0; c < KT; ++c) {
+    float bv[2][16];  // loaded before the products, so their latency hides under them
+    const int key0 = c * AM_TOK + 16 * tq;  // this thread's 16 keys
+    of_bias16<BT>(a, h, r0, key0, bv);
+    // chunk c is in: of the groups committed (OF_STAGES ahead of c), those
+    // past c may still be in flight
+    hm_cp_wait_upto(KT - 1 - c > OF_STAGES - 1 ? OF_STAGES - 1 : KT - 1 - c);
+    wg_proxy_fence();
+    __syncthreads();
+    const int b = c % OF_STAGES;
+    float s[8][4];
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      wg_ss<64>(&s[0][0], wg_desc(Qw + ks * 128, 128, DP * 16), wg_desc(K + b * tile + ks * 128, 128, DP * 16),
+                ks > 0);
+    wg_commit();
+    wg_wait0();
+    wg_hold<32>(&s[0][0]);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = 2 * nt + (e & 1);  // column (nt, e & 1) holds key key0 + m
+        s[nt][e] = key0 + m < a.nk ? s[nt][e] + bv[e >> 1][m] : -INFINITY;
+      }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * hh], s[nt][2 * hh + 1]));
+      const float mn = fmaxf(m[hh], am_quad_max(mx) * AM_LOG2E), sc = am_exp2(m[hh] - mn);
+      l[hh] *= sc, m[hh] = mn;
+#pragma unroll
+      for (int nt = 0; nt < NDT; ++nt) o[nt][2 * hh] *= sc, o[nt][2 * hh + 1] *= sc;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = am_exp2(fmaf(s[nt][2 * hh + e], AM_LOG2E, -mn));
+          l[hh] += p, s[nt][2 * hh + e] = p;
+        }
+    }
+    uint32_t pa[4][4];  // p as wgmma's A fragments, 16 keys each
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      pa[nt >> 1][(nt & 1) * 2] = hm_pack(s[nt][0], s[nt][1]);
+      pa[nt >> 1][(nt & 1) * 2 + 1] = hm_pack(s[nt][2], s[nt][3]);
+    }
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wg_rs<DP>(&o[0][0], pa[ks], wg_desc(VT + b * tile + ks * 128, 128, AM_TOK * 16), 1);
+    wg_commit();
+    wg_wait0();
+    wg_hold<NDT * 4>(&o[0][0]);
+    wg_hold<16>(&pa[0][0]);
+    if (c + OF_STAGES < KT) {
+      __syncthreads();  // both warpgroups are done with buffer b
+      load(c + OF_STAGES);
+    }
+  }
+  // o / l, rounded, staged row-major (DP a row) in the warpgroup's own q
+  // tile (no wgmma reads it any more), a warp its 16 rows; then each row's d
+  // values to the out view.
+  float inv[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) inv[hh] = 1.f / am_quad_sum(l[hh]);
+  bf16* const stage = Qw + 16 * wr * DP;
+#pragma unroll
+  for (int nt = 0; nt < NDT; ++nt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<__nv_bfloat162*>(stage + (gq + 8 * hh) * DP + nt * 8 + 2 * tq) =
+          __floats2bfloat162_rn(o[nt][2 * hh] * inv[hh], o[nt][2 * hh + 1] * inv[hh]);
+  __syncwarp();
+  const long long w = u / a.heads;
+  bf16* const out = a.out + w * a.st[OF_O][0] + h * a.st[OF_O][1];
+  const int row0 = i * AM_TOK + 16 * wr;
+  if (a.pairs) {
+    const int half = a.d / 2;
+    for (int e = lane; e < 16 * half; e += 32) {
+      const int rr = e / half, jw = e - rr * half;
+      if (i < a.QT && row0 + rr < a.nrows)
+        *reinterpret_cast<uint32_t*>(out + (row0 + rr) * a.st[OF_O][2] + 2 * jw) =
+            *reinterpret_cast<const uint32_t*>(stage + rr * DP + 2 * jw);
+    }
+  } else {
+    for (int e = lane; e < 16 * a.d; e += 32) {
+      const int rr = e / a.d, j = e - rr * a.d;
+      if (i < a.QT && row0 + rr < a.nrows) out[(row0 + rr) * a.st[OF_O][2] + j] = stage[rr * DP + j];
     }
   }
 }
 
 // -- host ------------------------------------------------------------------------------
 
-static bool of_shape_ok(int bw, int heads, int nq, int nk, int d) {
-  return bw > 0 && heads > 0 && nq > 0 && nq <= OF_MAX_NQ && nk > 0 && nk <= OF_MAX_NK && d > 0 && d <= 32;
+// The geometries of B12's entries: the whole-unit one takes at most
+// OF_MAX_NQ queries and OF_MAX_NK keys, the large one (`any`) every count.
+static bool of_shape_ok(int bw, int heads, int nq, int nk, int d, bool any = false) {
+  return bw > 0 && heads > 0 && nq > 0 && nk > 0 && d > 0 && d <= 32 && (any || (nq <= OF_MAX_NQ && nk <= OF_MAX_NK));
+}
+
+// The attention pass: every key chunk in its own buffer up to OF_MAX_NK
+// keys, the ring of OF_STAGES above.
+template <int DP, typename BT>
+static cudaError_t of_attn_launch(const OfArgs& a, cudaStream_t st) {
+  const bool ring = a.KT * AM_TOK > OF_MAX_NK, padq = a.nrows != a.nq;
+  const size_t bytes = (size_t)(2 * (ring ? OF_STAGES : a.KT) + 2) * AM_TOK * DP * 2;
+  const int blocks = (int)(a.units * ((a.QT + 1) / 2));
+  auto kernel = ring ? of_fwd_ring_kernel<DP, BT> : padq ? of_fwd_kernel<DP, BT, true> : of_fwd_kernel<DP, BT>;
+  cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, 256, bytes, st>>>(a);
+  return cudaGetLastError();
 }
 
 struct OfPlan {

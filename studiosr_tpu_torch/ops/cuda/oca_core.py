@@ -13,12 +13,13 @@ q, k, v (and g) are f32 or bf16, one dtype, any strided view whose last
 dimension is contiguous (the OCAB's transposed views reach the kernel
 without a copy); the bias is handed to the kernel in f32. Outputs come back
 as transposed views of (bw, tokens, heads, d) tensors, the layout the OCAB
-reads them in. The kernels take head dims up to 64 and at most 256 queries
-a window (the backward keeps a (nq, 64) f32 d bias tile in shared memory).
+reads them in. The kernels take head dims up to 64 and any query and key
+count (HAT at every window).
 
 Routing of B12 and B13, by dtype and geometry, never by a failure: bf16
 with a head dim up to 32, at most 256 queries and 576 keys
-(:func:`mma_takes`) launches the kernels written for the H100. B12:
+(:func:`mma_takes`: HAT's windows up to 16) launches the kernels written
+for the H100. B12:
 ``csrc/oca_fwd_mma.cu`` (C entry ``oca_core_fwd_mma_bf16``), a pass that
 packs q, k and v into wgmma's 64-token images (:func:`pack_fwd_images` is its
 plain version, :func:`fwd_from_images` the forward read from them), then the
@@ -27,10 +28,18 @@ read as it is, any other in f32. B13: ``csrc/oca_bwd_mma.cu`` (C entry
 ``oca_core_bwd_mma_bf16``): a pass that packs q, g, k and v into wgmma's
 K-major 64-token tiles (:func:`pack_images` is its plain version), the row
 statistics, then p, dscores and the sums per (head, key chunk, group of
-windows) (:func:`main_partition` mirrors the blocks' partition). Other bf16
-geometries and f32 launch ``oca_core_fwd_bf16`` / ``_f32`` and
-``oca_core_bwd_bf16`` / ``_f32``. Each launch is counted under its C entry
-(``engagement.entries()``).
+windows) (:func:`main_partition` mirrors the blocks' partition). bf16 with
+a head dim up to 32 above that (HAT's windows from 17, 576 queries x 1296
+keys at window 24) launches their large entries,
+``oca_core_fwd_large_mma_bf16`` (the same passes, the key chunks streamed
+through a ring) and ``oca_core_bwd_large_mma_bf16`` (the same images, then a
+row pass for the statistics and dq, a column pass for dk and dv and a d
+bias pass of 64 x 64 tiles over groups of windows, the groups summed in
+order). Other bf16 geometries and f32 launch ``oca_core_fwd_bf16`` /
+``_f32`` and ``oca_core_bwd_bf16`` / ``_f32``. A launch at more than 256
+queries or 576 keys is counted under ``oca_core_fwd_large`` /
+``oca_core_bwd_large``, the others under ``oca_core_fwd`` /
+``oca_core_bwd``, and each under its C entry (``engagement.entries()``).
 """
 
 from __future__ import annotations
@@ -44,11 +53,10 @@ from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, finish, ope
 from studiosr_tpu_torch.ops.cuda.window_attention import MAX_HEAD_DIM
 
 __all__ = [
-    "oca_core_fwd", "oca_core_bwd", "oca_core_plain", "oca_core_bwd_plain", "MAX_QUERIES", "mma_takes", "pack_images",
-    "main_partition", "pack_fwd_images", "fwd_from_images",
+    "oca_core_fwd", "oca_core_bwd", "oca_core_plain", "oca_core_bwd_plain", "mma_takes", "pack_images",
+    "main_partition", "pack_fwd_images", "fwd_from_images", "counter",
 ]
 
-MAX_QUERIES = 256  # csrc/attn_core.cuh AC_MAX_NQ
 _LL = ctypes.c_longlong
 _STRIDES = ctypes.POINTER(_LL)
 _FWD = (P, P, P, P, P, _STRIDES, I, I, I, I, I, P)
@@ -61,13 +69,19 @@ _SIGNATURES = {
     "oca_core_bwd_scratch": (I, I, I, I),
 }
 _RESTYPES = {"oca_core_bwd_scratch": _LL}
+_FWD_MMA = (P, P, P, P, P, _STRIDES, I, I, I, I, I, I, P, _LL, P)
 _SIGNATURES_FWD_MMA = {
-    "oca_core_fwd_mma_bf16": (P, P, P, P, P, _STRIDES, I, I, I, I, I, I, P, _LL, P),
+    "oca_core_fwd_mma_bf16": _FWD_MMA,
     "oca_core_fwd_mma_scratch": (I,) * 5 + (ctypes.POINTER(_LL),),
+    "oca_core_fwd_large_mma_bf16": _FWD_MMA,
+    "oca_core_fwd_large_mma_scratch": (I,) * 5 + (ctypes.POINTER(_LL),),
 }
+_BWD_MMA = (P,) * 9 + (_STRIDES, I, I, I, I, I, P, _LL, P, _LL, P)
 _SIGNATURES_MMA = {
-    "oca_core_bwd_mma_bf16": (P,) * 9 + (_STRIDES, I, I, I, I, I, P, _LL, P, _LL, P),
+    "oca_core_bwd_mma_bf16": _BWD_MMA,
     "oca_core_bwd_mma_scratch": (I,) * 5 + (ctypes.POINTER(_LL), ctypes.POINTER(_LL)),
+    "oca_core_bwd_large_mma_bf16": _BWD_MMA,
+    "oca_core_bwd_large_mma_scratch": (I,) * 5 + (ctypes.POINTER(_LL), ctypes.POINTER(_LL)),
 }
 MMA_MAX_QUERIES, MMA_MAX_KEYS, MMA_MAX_HEAD_DIM = 256, 576, 32  # csrc/oca_*_mma.cu O*_MAX_NQ, O*_MAX_NK
 _TOK = 64  # tokens a tile (AM_TOK)
@@ -80,6 +94,18 @@ def mma_takes(heads: int, nq: int, nk: int, d: int) -> bool:
     geometry: a head dim up to 32, at most 256 queries and 576 keys a
     window."""
     return heads >= 1 and 1 <= d <= MMA_MAX_HEAD_DIM and 1 <= nq <= MMA_MAX_QUERIES and 1 <= nk <= MMA_MAX_KEYS
+
+
+def _large(nq: int, nk: int) -> bool:
+    """More queries or keys than the whole-unit kernels hold: the large family."""
+    return nq > MMA_MAX_QUERIES or nk > MMA_MAX_KEYS
+
+
+def counter(name: str, nq: int, nk: int) -> str:
+    """The launch counter of B12 (``name`` ``oca_core_fwd``) or B13
+    (``oca_core_bwd``) at this geometry: ``_large`` above 256 queries or
+    576 keys, in either dtype."""
+    return name + ("_large" if _large(nq, nk) else "")
 
 
 def _tiles(n: int) -> int:
@@ -218,9 +244,8 @@ def _geometry(name: str, q, k, v):
     nk = k.shape[2]
     if k.shape[0] != bw or k.shape[1] != heads or k.shape[3] != d or min(bw, heads, nq, nk, d) < 1:
         raise ValueError(f"{name}: q {tuple(q.shape)} and k {tuple(k.shape)} do not fit")
-    if d > MAX_HEAD_DIM or nq > MAX_QUERIES:
-        raise NotImplementedError(f"{name}: the kernels take d <= {MAX_HEAD_DIM} and nq <= {MAX_QUERIES}, "
-                                  f"not d {d}, nq {nq}")
+    if d > MAX_HEAD_DIM:
+        raise NotImplementedError(f"{name}: the kernels take d <= {MAX_HEAD_DIM}, not d {d}")
     for t in (q, k, v):
         if t.device != q.device:
             raise ValueError(f"{name}: operands on {q.device} and {t.device}")
@@ -254,27 +279,27 @@ def oca_core_fwd(q, k, v, bias):
     dev = q.device
     out = _out(bw, heads, nq, d, q)
     strides = _strides(q, k, v, None, out, None, None, None)
-    if q.dtype == torch.bfloat16 and mma_takes(heads, nq, nk, d):
+    if q.dtype == torch.bfloat16 and d <= MMA_MAX_HEAD_DIM:
         # a bf16 bias is read as it is (the same values as in f32, half the bytes); any other in f32
         bdt = torch.bfloat16 if torch.is_tensor(bias) and bias.dtype == torch.bfloat16 else torch.float32
         b = operand(bias, "bias", (heads, nq, nk), bdt, dev)
         lib = _build.load("oca_fwd_mma", _SIGNATURES_FWD_MMA)
+        entry = "oca_core_fwd_mma_bf16" if mma_takes(heads, nq, nk, d) else "oca_core_fwd_large_mma_bf16"
         t_elems = _LL()
-        status = lib.oca_core_fwd_mma_scratch(bw, heads, nq, nk, d, ctypes.byref(t_elems))
+        status = getattr(lib, entry.replace("_bf16", "_scratch"))(bw, heads, nq, nk, d, ctypes.byref(t_elems))
         if status != 0:
             raise RuntimeError(f"oca_core_fwd: CUDA error {status} while sizing the scratch")
         tscratch = torch.empty(t_elems.value, dtype=q.dtype, device=dev)
-        entry = "oca_core_fwd_mma_bf16"
-        status = lib.oca_core_fwd_mma_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                           strides, int(bdt == torch.bfloat16), bw, heads, nq, nk, d,
-                                           tscratch.data_ptr(), t_elems.value, stream(dev))
+        status = getattr(lib, entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(), b.data_ptr(), out.data_ptr(), strides,
+                                     int(bdt == torch.bfloat16), bw, heads, nq, nk, d, tscratch.data_ptr(),
+                                     t_elems.value, stream(dev))
     else:
         b = operand(bias, "bias", (heads, nq, nk), torch.float32, dev)
         lib = _build.load("oca_core", _SIGNATURES, _RESTYPES)
         entry = "oca_core_fwd_bf16" if q.dtype == torch.bfloat16 else "oca_core_fwd_f32"
         status = getattr(lib, entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(), b.data_ptr(), out.data_ptr(), strides,
                                      bw, heads, nq, nk, d, stream(dev))
-    finish("oca_core_fwd", status, entry)
+    finish(counter("oca_core_fwd", nq, nk), status, entry)
     return out
 
 
@@ -294,22 +319,23 @@ def oca_core_bwd(q, k, v, bias, g):
     dbias = torch.empty(heads, nq, nk, dtype=torch.float32, device=dev)
     strides = _strides(q, k, v, g, None, dq, dk, dv)
     ptrs = [t.data_ptr() for t in (q, k, v, b32, g, dq, dk, dv, dbias)]
-    if q.dtype == torch.bfloat16 and mma_takes(heads, nq, nk, d):
+    if q.dtype == torch.bfloat16 and d <= MMA_MAX_HEAD_DIM:
         lib = _build.load("oca_bwd_mma", _SIGNATURES_MMA)
+        entry = "oca_core_bwd_mma_bf16" if mma_takes(heads, nq, nk, d) else "oca_core_bwd_large_mma_bf16"
         t_elems, f_elems = _LL(), _LL()
-        status = lib.oca_core_bwd_mma_scratch(bw, heads, nq, nk, d, ctypes.byref(t_elems), ctypes.byref(f_elems))
+        status = getattr(lib, entry.replace("_bf16", "_scratch"))(bw, heads, nq, nk, d, ctypes.byref(t_elems),
+                                                                  ctypes.byref(f_elems))
         if status != 0:
             raise RuntimeError(f"oca_core_bwd: CUDA error {status} while sizing the scratch")
         tscratch = torch.empty(t_elems.value, dtype=q.dtype, device=dev)
         fscratch = torch.empty(f_elems.value, dtype=torch.float32, device=dev)
-        entry = "oca_core_bwd_mma_bf16"
-        status = lib.oca_core_bwd_mma_bf16(*ptrs, strides, bw, heads, nq, nk, d, tscratch.data_ptr(), t_elems.value,
-                                           fscratch.data_ptr(), f_elems.value, stream(dev))
+        status = getattr(lib, entry)(*ptrs, strides, bw, heads, nq, nk, d, tscratch.data_ptr(), t_elems.value,
+                                     fscratch.data_ptr(), f_elems.value, stream(dev))
     else:
         lib = _build.load("oca_core", _SIGNATURES, _RESTYPES)
         f_elems = lib.oca_core_bwd_scratch(bw, heads, nq, nk)
         fscratch = torch.empty(f_elems, dtype=torch.float32, device=dev)
         entry = "oca_core_bwd_bf16" if q.dtype == torch.bfloat16 else "oca_core_bwd_f32"
         status = getattr(lib, entry)(*ptrs, strides, bw, heads, nq, nk, d, fscratch.data_ptr(), f_elems, stream(dev))
-    finish("oca_core_bwd", status, entry)
+    finish(counter("oca_core_bwd", nq, nk), status, entry)
     return dq, dk, dv, dbias

@@ -19,11 +19,17 @@ Operands: ``wqkv`` (C, 3C) with q | k | v column blocks, unscaled, ``wproj``
 map's dtype; LayerNorm weights and biases in bf16 or f32, handed to the
 kernels in f32; the gathered (heads, ws^2, owin^2) rel-pos ``bias``.
 
+The map's sides are multiples of the window and the key window's margin
+is even (owin = ws + 2 pad): anything else raises ``ValueError``. Every
+such window from 2 is taken; a window whose ws^2 tokens are not a multiple
+of 64 is padded to whole 64-token tiles inside the kernels (rows that are
+never stored).
+
 Routing, by dtype and geometry, never by a failure: bf16 where
 :func:`ocab_mma_takes` the geometry (a head dim up to 32, C a multiple of 4
-up to 184, window 8 or 16, at most 576 keys a window, a hidden width up to
-384) launches the kernels written for the H100, ``csrc/ocab_mma.cu`` (C
-entry ``ocab_mma_bf16``). They read q|k|v, proj, fc1 and fc2 as one packed
+up to 184, a hidden width up to 384, any window) launches the kernels
+written for the H100, ``csrc/ocab_mma.cu`` (C entry ``ocab_mma_bf16``;
+above 576 keys a window its attention pass streams the keys). They read q|k|v, proj, fc1 and fc2 as one packed
 blob (:func:`pack_ocab_block`: HAT serving packs it once, at load time, and
 the blob takes ``wqkv``'s place, ``wproj``, ``w1`` and ``w2`` None; dense
 weights are packed on every call) and the bias in bf16, rounded as the JAX
@@ -46,7 +52,7 @@ from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, check, fini
 from studiosr_tpu_torch.ops.cuda.mlp_block import (
     _mma_pack_index, mma_takes as mlp_mma_takes, pack_mlp_block, unpack_mlp_block,
 )
-from studiosr_tpu_torch.ops.cuda.oca_core import MMA_MAX_KEYS, _kmajor_tiles
+from studiosr_tpu_torch.ops.cuda.oca_core import _kmajor_tiles
 from studiosr_tpu_torch.ops.cuda.window_attention import MAX_HEAD_DIM, _fwd_pack_index, mma_takes
 from studiosr_tpu_torch.ops.windows import window_partition, window_reverse
 
@@ -70,7 +76,6 @@ _SIGNATURES_MMA = {
     "ocab_mma_scratch": (I,) * 8 + (ctypes.POINTER(_LL),),
 }
 _RESTYPES_MMA = {"ocab_mma_pack_elems": _LL}
-MMA_WINDOWS = (8, 16)  # csrc/am_window.cuh am_geometry_ok: the tile order of windows 8 and 16
 
 
 def overlap_window(window_size: int, overlap_ratio: float):
@@ -82,11 +87,11 @@ def overlap_window(window_size: int, overlap_ratio: float):
 def ocab_mma_takes(c: int, heads: int, window_size: int, overlap_ratio: float, hidden: int) -> bool:
     """Whether the bf16 kernels written for the H100 take this geometry: a
     head dim up to 32 and C a multiple of 4 up to 184 (B5's q|k|v and
-    projection), window 8 or 16 with an even margin and at most 576 keys
-    (B12's attention), a hidden width up to 384 (B6's MLP)."""
+    projection), a window from 2 with an even key margin (B12's attention
+    pass, streaming above 576 keys), a hidden width up to 384 (B6's MLP)."""
     owin, pad = overlap_window(window_size, overlap_ratio)
-    return (window_size in MMA_WINDOWS and owin == window_size + 2 * pad and owin * owin <= MMA_MAX_KEYS
-            and mma_takes(c, heads) and mlp_mma_takes(c, hidden))
+    return (window_size >= 2 and owin == window_size + 2 * pad and mma_takes(c, heads)
+            and mlp_mma_takes(c, hidden))
 
 
 def packed_ocab_elems(c: int, heads: int, hidden: int) -> int:
@@ -187,7 +192,7 @@ def fused_ocab_block(
     bsz, h, w, c = x.shape
     ws = window_size
     owin, pad = overlap_window(ws, overlap_ratio)
-    if h % ws or w % ws or (ws * ws) % 64 or c % heads or owin != ws + 2 * pad:
+    if h % ws or w % ws or c % heads or owin != ws + 2 * pad:
         raise ValueError(f"fused_ocab_block: shape {tuple(x.shape)}, heads {heads}, window {ws}, key window {owin} "
                          "do not fit")
     hidden = b1.numel()

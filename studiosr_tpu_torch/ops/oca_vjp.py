@@ -5,10 +5,13 @@ bias) v over q (bw, heads, nq, d), already scaled by 1/sqrt(d), k and v (bw,
 heads, nk, d) and the (heads, nq, nk) bias, forward through B12 and backward
 through B13 (``ops/cuda/oca_core.py``), which recomputes the scores, so the
 (bw, heads, nq, nk) f32 score tensor is never kept. A call without grad
-takes B12 as well, as the JAX primal does. The JAX package's chunked-scan
-fallback for layouts its kernels decline has no counterpart: a CUDA tensor
-launches the kernels or raises. On CPU tensors both take their plain
-versions.
+takes B12 as well, as the JAX primal does. The JAX package falls back to a
+chunked XLA scan where its kernels decline a layout (``oca_supported``:
+query or key counts not multiples of 8, or scores past its VMEM budget,
+as at HAT's windows 4, 12 and above 24); the port needs no such route,
+because B12 and B13 take every query and key count on the card (their
+large entries above 256 queries or 576 keys), and a CUDA tensor launches
+the kernels or raises. On CPU tensors both take their plain versions.
 """
 
 from __future__ import annotations

@@ -9,8 +9,9 @@ Port of ``studiosr_tpu/serving/hat_fast.py``: the exact HAT eval computation
   runs in plain ops, mean = sums / (H W) of the padded map; in bf16 its two
   convs are packed once, at load time, for the kernel written for the H100
   (``pack_cab_convs``, where ``cab_mma_takes`` the geometry);
-* B5 at window 16 (``ops/cuda/window_attention.py``) computes
-  y = x + attn(LN1 x), the shift folded in and the output aligned, so the
+* B5 at the model's window (``ops/cuda/window_attention.py``; HAT's 16, or
+  any window from 2) computes y = x + attn(LN1 x), the shift folded in and
+  the output aligned, so the
   JAX path's rolls have no counterpart; in bf16 its weights and bias are
   packed once, at load time, for the kernel written for the H100
   (``pack_window_attention``, where ``mma_takes`` the geometry);
@@ -20,10 +21,11 @@ Port of ``studiosr_tpu/serving/hat_fast.py``: the exact HAT eval computation
   its fc1 and fc2 are packed once, at load time, for the kernel written for
   the H100 (``pack_mlp_block``, where ``mma_takes`` the geometry).
 
-Each group ends with B10 (``ops/cuda/ocab.py``) and its conv through B2,
-the skip folded in. In bf16, B10's q|k|v, proj, fc1 and fc2 are packed
-once, at load time, for the kernels written for the H100
-(``pack_ocab_block``, where ``ocab_mma_takes`` the geometry), and its
+Each group ends with B10 (``ops/cuda/ocab.py``, at every window with an
+even key margin) and its conv through B2, the skip folded in. In bf16,
+B10's q|k|v, proj, fc1 and fc2 are packed once, at load time, for the
+kernels written for the H100 (``pack_ocab_block``, where
+``ocab_mma_takes`` the geometry: at HAT's widths every window), and its
 gathered rel-pos bias is rounded to the map's dtype, as the JAX package's
 ``prepare_ocab_weights`` rounds it. ``conv_after_body`` runs through B2 as
 well and the tail through B3 at x4 or B4 at x2 / x3 (x8 records its
@@ -66,8 +68,9 @@ def prepare_hat_serving(module: nn.Module, config: Dict[str, Any], dtype) -> Dic
     (in, out) and conv weights to HWIO in ``dtype`` (B2's and B11's packed in
     bf16, and B5's q|k|v, proj and rel-pos bias in one blob, B6's fc1 and fc2
     in another, B10's q|k|v, proj, fc1 and fc2 in a third), the rel-pos
-    biases gathered to (heads, 256, 256) and (heads, 256, 576) (the latter in
-    ``dtype``), LayerNorm weights and biases f32. Consumed by :func:`hat_fast_forward`."""
+    biases gathered to (heads, ws², ws²) and (heads, ws², owin²) ((heads,
+    256, 256) and (heads, 256, 576) at window 16; the latter in ``dtype``),
+    LayerNorm weights and biases f32. Consumed by :func:`hat_fast_forward`."""
     ws = int(config["window_size"])
     overlap = float(config.get("overlap_ratio", 0.5))
     rpi, rpi_oca = relative_position_index(ws), relative_position_index_oca(ws, overlap)

@@ -28,7 +28,9 @@ from studiosr_tpu_torch.ops.cuda.conv3x3 import (
     cab_body_plain, cab_mma_takes, cab_partition, fused_cab_body, pack_cab_convs, pack_cab_weights,
     packed_cab_shape, unpack_cab_weights,
 )
-from studiosr_tpu_torch.ops.cuda.oca_core import fwd_from_images, mma_takes, oca_core_fwd, pack_fwd_images
+from studiosr_tpu_torch.ops.cuda.oca_core import (
+    counter, fwd_from_images, mma_takes, oca_core_fwd, pack_fwd_images,
+)
 from studiosr_tpu_torch.serving.hat_fast import prepare_hat_serving
 
 torch.set_num_threads(2)
@@ -325,15 +327,16 @@ def test_fused_cab_body_routes_by_dtype_and_geometry(monkeypatch, dtype, c, cm, 
     (torch.bfloat16, 6, 256, 576, 30, torch.float32, "oca_core_fwd_mma_bf16"),
     (torch.bfloat16, 2, 64, 144, 16, torch.float32, "oca_core_fwd_mma_bf16"),  # the trained fixtures' window 8
     (torch.bfloat16, 2, 64, 144, 48, torch.float32, "oca_core_fwd_bf16"),  # head dim above 32: the older kernel
-    (torch.bfloat16, 2, 64, 640, 16, torch.bfloat16, "oca_core_fwd_bf16"),  # more than 576 keys
+    (torch.bfloat16, 2, 64, 640, 16, torch.bfloat16, "oca_core_fwd_large_mma_bf16"),  # more than 576 keys
     (torch.float32, 6, 256, 576, 30, torch.float32, "oca_core_fwd_f32"),
 ])
 def test_oca_core_fwd_routes_by_dtype_and_geometry(monkeypatch, dtype, heads, nq, nk, d, bias_dtype, entry):
-    """bf16 with a head dim up to 32, at most 256 queries and 576 keys goes to
-    the forward written for the H100, which reads a bf16 bias as it is (flag
-    1) and any other in f32; other bf16 geometries and f32 take the older
-    kernel with the bias in f32; the output is the OCAB's transposed view;
-    each launch counts under ``oca_core_fwd`` and its C entry."""
+    """bf16 with a head dim up to 32 goes to the forward written for the
+    H100 (its large entry above 256 queries or 576 keys), which reads a bf16
+    bias as it is (flag 1) and any other in f32; other bf16 geometries and
+    f32 take the older kernel with the bias in f32; the output is the OCAB's
+    transposed view; each launch counts under ``oca_core_fwd`` (above 256
+    queries or 576 keys ``oca_core_fwd_large``) and its C entry."""
     import studiosr_tpu_torch.ops.cuda.oca_core as module
 
     lib = _fake(monkeypatch, module)
@@ -343,8 +346,9 @@ def test_oca_core_fwd_routes_by_dtype_and_geometry(monkeypatch, dtype, heads, nq
     assert out.shape == (bw, heads, nq, d) and out.dtype == dtype
     assert out.stride() == (nq * heads * d, d, heads * d, 1)  # (bw, nq, heads, d) storage
     assert _launches(lib) == [entry]
-    assert (dtype == torch.bfloat16 and mma_takes(heads, nq, nk, d)) == ("mma" in entry)
+    assert (dtype == torch.bfloat16 and mma_takes(heads, nq, nk, d)) == (entry == "oca_core_fwd_mma_bf16")
+    assert (dtype == torch.bfloat16 and d <= 32 and counter("", nq, nk) == "_large") == ("large" in entry)
     if "mma" in entry:
         assert lib.calls[-1][1][6] == int(bias_dtype == torch.bfloat16)
-    assert engagement.entries() == {"oca_core_fwd": {entry: 1}}
+    assert engagement.entries() == {counter("oca_core_fwd", nq, nk): {entry: 1}}
     engagement.reset()

@@ -23,7 +23,9 @@ from studiosr_tpu_torch.ops.cuda.conv3x3 import (
 )
 from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mlp_block_plain, pack_mlp_block
 from studiosr_tpu_torch.ops.cuda.mlp_bwd import mlp_bwd, mlp_bwd_plain
-from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block, ocab_plain, overlap_window, pack_ocab_block
+from studiosr_tpu_torch.ops.cuda.ocab import (
+    fused_ocab_block, ocab_mma_takes, ocab_plain, overlap_window, pack_ocab_block,
+)
 from studiosr_tpu_torch.ops.cuda.swin_block import fused_swin_block, swin_block_plain
 from studiosr_tpu_torch.ops.cuda.upsampler import (
     fused_upsample_s, fused_upsample_x4, pack_tail, upsample_s_plain, upsample_x4_plain,
@@ -1006,9 +1008,6 @@ def test_hat_training_kernels_raise_on_shapes_they_do_not_take(dev):
     with pytest.raises(ValueError, match="do not fit"):
         attention_bwd(torch.zeros(1, 24, 16, 160, device=dev), torch.zeros(1, 24, 16, 160, device=dev), *ops,
                       heads=2, window_size=16)
-    q = torch.zeros(1, 2, 512, 16, device=dev)
-    with pytest.raises(NotImplementedError, match="nq"):
-        oca_attention(q, q, q, torch.zeros(2, 512, 512, device=dev))
     q = torch.zeros(1, 2, 64, 80, device=dev)
     with pytest.raises(NotImplementedError, match="d <= 64"):
         oca_attention(q, q, q, torch.zeros(2, 64, 64, device=dev))
@@ -1137,10 +1136,10 @@ def test_window_attn_core_kernel_matches_plain(dev, dtype, bw, heads, n, m, d, k
 
 
 def test_window_attention_raises_and_keeps_the_oca_cap(dev):
-    """B15 takes N, M <= 1024 and raises above; B12 / B13 keep their own
-    256-query cap (the column pass's d bias tile), which B15 lifted only
-    for itself."""
-    from studiosr_tpu_torch.ops.cuda.oca_core import MAX_QUERIES, oca_core_bwd, oca_core_fwd
+    """B15 takes N, M <= 1024 and raises above. B12 / B13 no longer share a
+    cap: above 256 queries (f32 here) they launch their entries under the
+    ``_large`` counters and agree with their plain versions."""
+    from studiosr_tpu_torch.ops.cuda.oca_core import oca_core_bwd, oca_core_bwd_plain, oca_core_fwd, oca_core_plain
     from studiosr_tpu_torch.ops.cuda.window_attn import window_attention
 
     q = torch.zeros(1, 1, 1089, 16, device=dev)
@@ -1154,12 +1153,17 @@ def test_window_attention_raises_and_keeps_the_oca_cap(dev):
     with pytest.raises(ValueError, match="tile"):
         window_attention(torch.zeros(3, 1, 64, 16, device=dev), torch.zeros(3, 1, 64, 16, device=dev),
                          torch.zeros(3, 1, 64, 16, device=dev), mask=torch.zeros(2, 64, 64, device=dev))
-    assert MAX_QUERIES == 256
-    big = torch.zeros(1, 2, 512, 16, device=dev)
-    with pytest.raises(NotImplementedError, match="nq"):
-        oca_core_fwd(big, big, big, torch.zeros(2, 512, 512, device=dev))
-    with pytest.raises(NotImplementedError, match="nq"):
-        oca_core_bwd(big, big, big, torch.zeros(2, 512, 512, device=dev), big)
+    gen = torch.Generator().manual_seed(11)
+    big = (torch.randn(1, 2, 512, 16, generator=gen) * 0.25).to(dev)
+    bias = torch.randn(2, 512, 512, generator=gen).to(dev)
+    engagement.reset()
+    out = oca_core_fwd(big, big, big, bias)
+    grads = oca_core_bwd(big, big, big, bias, big)
+    assert engagement.entries() == {"oca_core_fwd_large": {"oca_core_fwd_f32": 1},
+                                    "oca_core_bwd_large": {"oca_core_bwd_f32": 1}}
+    _assert_close(out, oca_core_plain(big, big, big, bias), torch.float32)
+    for got, want in zip(grads, oca_core_bwd_plain(big, big, big, bias, big)):
+        _assert_close(got, want, torch.float32)
 
 
 def test_new_wrappers_launch_on_a_cuda_tensor(dev):
@@ -1515,3 +1519,139 @@ def test_window_8_still_serves_through_b1(dev):
     engagement.reset()
     model(torch.rand(1, 32, 32, 3, device=dev))
     assert engagement.counters() == {"fused_swin_block": 36, "fused_conv3x3": 7, "fused_upsample_x4": 1}
+
+
+# HAT at every window (B10, B12 and B13 beyond windows 8 and 16). B12 / B13
+# at the OCA geometries of HAT's windows 4, 12, 24 and 32 at overlap 0.5 (nq
+# ws^2, nk (1.5 ws)^2: 16 | 36, 144 | 324, 576 | 1296, 1024 | 2304), window
+# 24 at head dim 16 and 37 windows of 6 heads, window 20 at an odd head
+# dim: up to 256 queries and 576 keys the entries the windows up to 16 take,
+# above them the large entries in bf16 (the streaming family) and
+# ``oca_core.cu`` in f32, counted under ``_large``; against the plain
+# versions, the backward's bits repeatable, a bf16 bias read as it is.
+HAT_OCA_WINDOWS = [(3, 2, 4, 30), (3, 2, 12, 30), (3, 2, 24, 30), (2, 2, 32, 30), (5, 3, 24, 16), (2, 2, 20, 7),
+                   (37, 6, 24, 30)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bw,heads,ws,d", HAT_OCA_WINDOWS)
+def test_oca_core_at_every_hat_window(dev, dtype, bw, heads, ws, d):
+    from studiosr_tpu_torch.ops.cuda.oca_core import (
+        counter, oca_core_bwd, oca_core_bwd_plain, oca_core_fwd, oca_core_plain,
+    )
+
+    owin, _ = overlap_window(ws, 0.5)
+    nq, nk = ws * ws, owin * owin
+    gen = torch.Generator().manual_seed(bw + ws + d)
+    q, k, v, bias, g = _oca_case(gen, bw, heads, nq, nk, d, dev, dtype)
+    kind = "f32"
+    if dtype == torch.bfloat16:
+        kind = "large_mma_bf16" if counter("", nq, nk) == "_large" else "mma_bf16"  # every case has d <= 32
+    engagement.reset()
+    out = oca_core_fwd(q, k, v, bias)
+    grads = oca_core_bwd(q, k, v, bias, g)
+    again = oca_core_bwd(q, k, v, bias, g)
+    assert engagement.entries() == {counter("oca_core_fwd", nq, nk): {f"oca_core_fwd_{kind}": 1},
+                                    counter("oca_core_bwd", nq, nk): {f"oca_core_bwd_{kind}": 2}}
+    assert (ws > 16) == ("_large" in counter("oca_core_fwd", nq, nk))
+    _assert_close(out, oca_core_plain(q.float(), k.float(), v.float(), bias), dtype)
+    want = oca_core_bwd_plain(q.float(), k.float(), v.float(), bias, g.float())
+    for a, e in zip(grads, want):
+        assert a.shape == e.shape
+        _assert_close(a, e, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))  # no atomic sums: bitwise repeatable
+    if dtype == torch.bfloat16:
+        b16 = bias.to(torch.bfloat16)
+        assert torch.equal(oca_core_fwd(q, k, v, b16), oca_core_fwd(q, k, v, b16.float()))
+
+
+# B10 at every window HAT can be built with (an even key margin): windows 4,
+# 5, 12 and 20 (ws^2 not a multiple of 64: padded to whole 64-token tiles),
+# 8 and 16, 24 and 32 (more than 576 keys: the attention pass streams
+# them), at overlap 0.5 and 1.0, HAT's 180 / 6 at window 12; bf16 on the
+# kernels written for the H100 (the blob and dense weights give the same
+# bits, two launches the same bits), f32 and bf16 at head dim 48 on ocab.cu
+# (its last 64-query chunk of a window partial at 12).
+HAT_OCAB_WINDOWS = [(48, 2, (1, 8, 12), 4, 0.5), (32, 2, (1, 10, 15), 5, 0.5), (32, 2, (2, 16, 24), 8, 0.5),
+                    (180, 6, (1, 24, 36), 12, 0.5), (24, 3, (1, 24, 24), 12, 1.0), (32, 2, (1, 32, 48), 16, 0.5),
+                    (32, 2, (1, 40, 40), 20, 0.5), (48, 2, (1, 48, 72), 24, 0.5), (48, 2, (1, 64, 64), 32, 0.5),
+                    (96, 2, (1, 24, 36), 12, 0.5), (96, 2, (1, 48, 48), 24, 0.5)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c,heads,shape,ws,overlap", HAT_OCAB_WINDOWS)
+def test_ocab_at_every_hat_window(dev, dtype, c, heads, shape, ws, overlap):
+    gen = torch.Generator().manual_seed(c + ws + shape[0])
+    owin, _ = overlap_window(ws, overlap)
+    blk = _block_operands(gen, c, heads, 2 * c, ws=ws)
+    bias_dtype = torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
+    ops = blk[:6] + [_randn(gen, heads, ws * ws, owin * owin, scale=0.5).to(bias_dtype)] + blk[7:]
+    ops = [t.to(dev, dtype if i in (2, 4, 9, 11) else (bias_dtype if i == 6 else torch.float32))
+           for i, t in enumerate(ops)]
+    x = _randn(gen, *shape, c).to(dev, dtype)
+    kw = dict(heads=heads, window_size=ws, overlap_ratio=overlap)
+    engagement.reset()
+    got = fused_ocab_block(x, *ops, **kw)
+    mma = dtype == torch.bfloat16 and ocab_mma_takes(c, heads, ws, overlap, 2 * c)
+    entry = "ocab_mma_bf16" if mma else ("ocab_bf16" if dtype == torch.bfloat16 else "ocab_f32")
+    assert engagement.entries() == {"fused_ocab_block": {entry: 1}}
+    assert mma == (dtype == torch.bfloat16 and c // heads <= 32)
+    _assert_close(got, ocab_plain(x.float(), *[t.float() for t in ops], **kw), dtype)
+    if mma:
+        served = list(ops)
+        served[2], served[4], served[9], served[11] = (pack_ocab_block(ops[2], ops[4], ops[9], ops[11], heads), None,
+                                                       None, None)
+        assert torch.equal(got, fused_ocab_block(x, *served, **kw))
+        assert torch.equal(got, fused_ocab_block(x, *ops, **kw))
+
+
+# C8: HAT serves fused in bf16 at every window from 2 to 32 with an even key
+# margin at overlap 0.5 (int(ws / 2) even), B10 on the kernels written for
+# the H100; embed 32, 2 heads (head dim 16), one group of one block.
+HAT_SERVING_WINDOWS = [ws for ws in range(2, 33) if int(ws * 0.5) % 2 == 0]
+
+
+@pytest.mark.parametrize("ws", HAT_SERVING_WINDOWS)
+def test_hat_serves_fused_at_every_even_margin_window(dev, ws):
+    """The bf16 fused forward against the plain f32 forward of the same
+    weights (relative L2 2e-2, chip_smoke.py's end-to-end rule), B10 once
+    through ``ocab_mma_bf16``."""
+    model = HAT.build(scale=4, embed_dim=32, depths=[1], num_heads=[2], window_size=ws, device=dev)
+    x = torch.rand(1, 20, 28, 3, generator=torch.Generator().manual_seed(ws)).to(dev)
+    want = model(x)
+    model.half().enable_fused(True)
+    engagement.reset()
+    got = model(x)
+    assert engagement.entries()["fused_ocab_block"] == {"ocab_mma_bf16": 1}
+    assert got.shape == (1, 80, 112, 3) and bool(torch.isfinite(got).all())
+    assert _rel_l2(got, want) <= 2e-2
+
+
+# C9: HAT trains fused at windows 12 (ws^2 padded to whole tiles: B5's
+# two-to-four-tile family, B12 / B13's first entries) and 24 (the streaming
+# families of B5 / B9 and B12 / B13), f32 against plain autograd.
+@pytest.mark.parametrize("ws", [12, 24])
+def test_small_hat_fused_train_at_windows_12_and_24(dev, ws):
+    model = HAT.build(scale=4, embed_dim=32, depths=[2], num_heads=[2], window_size=ws, drop_path_rate=0.5,
+                      device=dev)
+    module = model.module.train()
+    x = torch.rand(2, 2 * ws, 2 * ws, 3, generator=torch.Generator().manual_seed(1)).to(dev)
+    gt = torch.rand(2, 8 * ws, 8 * ws, 3, generator=torch.Generator().manual_seed(2)).to(dev)
+    results = []
+    for fused in (False, True):
+        module.fused_train = fused
+        module.zero_grad()
+        engagement.reset()
+        out = module(x, generator=torch.Generator().manual_seed(3))
+        loss = torch.mean(torch.abs(out - gt))
+        loss.backward()
+        torch.cuda.synchronize()
+        results.append((loss.item(), {k: p.grad.clone() for k, p in module.named_parameters()},
+                        engagement.counters()))
+    fam, oca = window_family(ws), "_large" if ws > 16 else ""
+    assert results[0][2] == {}
+    assert results[1][2] == {"fused_window_attention_block" + fam: 2, "attention_bwd" + fam: 2, "fused_mlp_block": 2,
+                             "mlp_bwd": 2, "oca_core_fwd" + oca: 1, "oca_core_bwd" + oca: 1}
+    np.testing.assert_allclose(results[1][0], results[0][0], rtol=1e-5)
+    for k, g in results[0][1].items():
+        assert float((results[1][1][k] - g).abs().max()) <= 1e-4 * float(g.abs().max()) + 1e-6, k

@@ -286,23 +286,27 @@ def test_train_step_hat_matches_jax():
 
 
 def test_hat_above_window_16_stops_at_b12_b13(monkeypatch):
-    """Where the port stops for HAT above window 16 (window 24: C 180, 6
-    heads, overlap 0.5, 36 x 36 key windows), on the card's routes driven
-    with a stand-in library (B5 takes the window: the routing tests): B10
-    takes the older ``ocab_bf16`` entry (``ocab_mma_takes`` is windows 8 and
-    16), and the OCA core's B12 / B13 raise at 576 queries (above 256)."""
+    """HAT above window 16 (window 24: C 180, 6 heads, overlap 0.5, 36 x 36
+    key windows) on the card's routes, driven with a stand-in library: B10
+    in bf16 takes the kernels written for the H100 (``ocab_mma_bf16``), and
+    the OCA core's B12 / B13 at 576 queries and 1296 keys take their large
+    entries in bf16 and ``oca_core.cu`` in f32, counted under the
+    ``_large`` counters; nothing raises."""
+    import studiosr_tpu_torch.ops.cuda.oca_core as oca_module
     import studiosr_tpu_torch.ops.cuda.ocab as ocab_module
     from studiosr_tpu_torch.ops.cuda import _build
-    from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block, overlap_window
-
-    calls = []
+    from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block, overlap_window, packed_ocab_elems
 
     class Library:
+        def ocab_mma_pack_elems(self, c, heads, hidden):
+            return packed_ocab_elems(c, heads, hidden)
+
         def __getattr__(self, name):
-            return lambda *args: calls.append(name) or (1 if name.endswith("elems") else 0)
+            return lambda *args: 1 if name.endswith("elems") else 0
 
     monkeypatch.setattr(_build, "load", lambda name, signatures, restypes=None: Library())
     monkeypatch.setattr(ocab_module, "stream", lambda device: 0)
+    monkeypatch.setattr(oca_module, "stream", lambda device: 0)
     ws, c, heads, hidden = 24, 180, 6, 360
     owin, _ = overlap_window(ws, 0.5)
     meta = lambda *s, dt=torch.bfloat16: torch.empty(*s, dtype=dt, device="meta")  # noqa: E731
@@ -313,11 +317,13 @@ def test_hat_above_window_16_stops_at_b12_b13(monkeypatch):
     engagement.reset()
     fused_ocab_block(x, *attn, meta(heads, ws * ws, owin * owin, dt=f32), *mlp, heads=heads, window_size=ws,
                      overlap_ratio=0.5)
-    assert engagement.entries() == {"fused_ocab_block": {"ocab_bf16": 1}}
+    assert engagement.entries() == {"fused_ocab_block": {"ocab_mma_bf16": 1}}
     assert owin == 36
-    with pytest.raises(NotImplementedError, match="nq <= 256"):
-        q, k = meta(2, heads, ws * ws, c // heads), meta(2, heads, owin * owin, c // heads)
+    for dt, suffix in ((torch.bfloat16, "large_mma_bf16"), (f32, "f32")):
+        engagement.reset()
+        q, k = meta(2, heads, ws * ws, c // heads, dt=dt), meta(2, heads, owin * owin, c // heads, dt=dt)
         oca_core_fwd(q, k, k, meta(heads, ws * ws, owin * owin, dt=f32))
-    with pytest.raises(NotImplementedError, match="nq <= 256"):
         oca_core_bwd(q, k, k, meta(heads, ws * ws, owin * owin, dt=f32), q)
+        assert engagement.entries() == {"oca_core_fwd_large": {f"oca_core_fwd_{suffix}": 1},
+                                        "oca_core_bwd_large": {f"oca_core_bwd_{suffix}": 1}}
     engagement.reset()

@@ -25,7 +25,7 @@ from studiosr_tpu_torch.ops.cuda.mlp_block import (
     _mma_pack_index, fused_mlp_block, mlp_block_plain, mma_takes, pack_mlp_block, unpack_mlp_block,
 )
 from studiosr_tpu_torch.ops.cuda.oca_core import (
-    main_partition, oca_core_bwd, oca_core_bwd_plain, oca_core_plain, pack_images,
+    counter, main_partition, oca_core_bwd, oca_core_bwd_plain, oca_core_plain, pack_images,
 )
 from studiosr_tpu_torch.ops.cuda.oca_core import mma_takes as oca_mma_takes
 from studiosr_tpu_torch.ops.mlp_vjp import mlp_block_dp_vjp
@@ -318,14 +318,15 @@ def test_fused_mlp_block_packed_weights_outside_the_h100_rule_raise(monkeypatch)
     (torch.bfloat16, 2, 64, 144, 16, "oca_core_bwd_mma_bf16"),  # the trained fixtures' window 8
     (torch.bfloat16, 3, 200, 300, 24, "oca_core_bwd_mma_bf16"),  # ragged tiles
     (torch.bfloat16, 2, 64, 144, 48, "oca_core_bwd_bf16"),  # head dim above 32: the older kernel, by rule
-    (torch.bfloat16, 2, 64, 640, 16, "oca_core_bwd_bf16"),  # more than 576 keys
+    (torch.bfloat16, 2, 64, 640, 16, "oca_core_bwd_large_mma_bf16"),  # more than 576 keys: the large entry
     (torch.float32, 6, 256, 576, 30, "oca_core_bwd_f32"),
 ])
 def test_oca_core_bwd_routes_by_dtype_and_geometry(monkeypatch, dtype, heads, nq, nk, d, entry):
-    """bf16 with a head dim up to 32, at most 256 queries and 576 keys goes to
-    the backward written for the H100, other bf16 geometries and f32 to the
-    older kernel; the outputs are the OCAB's transposed views; each launch
-    counts under ``oca_core_bwd`` and its C entry."""
+    """bf16 with a head dim up to 32 goes to the backward written for the
+    H100 (its large entry above 256 queries or 576 keys), other bf16
+    geometries and f32 to the older kernel; the outputs are the OCAB's
+    transposed views; each launch counts under ``oca_core_bwd`` (above 256
+    queries or 576 keys ``oca_core_bwd_large``) and its C entry."""
     import studiosr_tpu_torch.ops.cuda.oca_core as module
 
     lib = _fake(monkeypatch, module)
@@ -337,8 +338,9 @@ def test_oca_core_bwd_routes_by_dtype_and_geometry(monkeypatch, dtype, heads, nq
     assert dq.dtype == dtype and dbias.dtype == torch.float32
     assert dq.stride() == (nq * heads * d, d, heads * d, 1)  # (bw, nq, heads, d) storage
     assert _launches(lib) == [entry]
-    assert (dtype == torch.bfloat16 and oca_mma_takes(heads, nq, nk, d)) == ("mma" in entry)
-    assert engagement.entries() == {"oca_core_bwd": {entry: 1}}
+    assert (dtype == torch.bfloat16 and oca_mma_takes(heads, nq, nk, d)) == (entry == "oca_core_bwd_mma_bf16")
+    assert (dtype == torch.bfloat16 and d <= 32 and counter("", nq, nk) == "_large") == ("large" in entry)
+    assert engagement.entries() == {counter("oca_core_bwd", nq, nk): {entry: 1}}
     engagement.reset()
 
 

@@ -352,7 +352,7 @@ class _FakeLibrary:
     (torch.bfloat16, 96, 2, 16, 0.5, 192, False, "ocab_bf16"),  # head dim 48: the older kernel, by rule
     (torch.bfloat16, 30, 2, 16, 0.5, 60, False, "ocab_bf16"),  # C not a multiple of 4
     (torch.bfloat16, 180, 6, 16, 0.5, 720, False, "ocab_bf16"),  # hidden above 384
-    (torch.bfloat16, 32, 2, 16, 1.0, 64, False, "ocab_bf16"),  # 32 x 32 keys: more than 576
+    (torch.bfloat16, 32, 2, 16, 1.0, 64, False, "ocab_mma_bf16"),  # 32 x 32 keys: the streaming attention pass
     (torch.float32, 180, 6, 16, 0.5, 360, False, "ocab_f32"),
 ])
 def test_fused_ocab_block_routes_by_dtype_and_geometry(monkeypatch, dtype, c, heads, ws, overlap, hidden, packed,

@@ -18,7 +18,7 @@ from studiosr_tpu_torch.zoo import jax_params_to_state_dict, load_jax_params
 
 torch.set_num_threads(2)
 
-SMALL = dict(embed_dim=24, depths=[2, 2], num_heads=[2, 2], window_size=8, mlp_ratio=2.0)
+SMALL = dict(embed_dim=24, depths=[2], num_heads=[2], window_size=8, mlp_ratio=2.0)  # one group: unshifted, shifted
 ATOL, RTOL = 2e-4, 1e-4
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures", "quality")
 SWINFIR_CKPT = os.path.join(FIXTURES, "swinfir_ckpt")
@@ -84,7 +84,8 @@ def test_fused_train_gradients_match_jax():
         out = fused.apply({"params": params}, jnp.asarray(x), train=True, rngs={"dropout": jax.random.PRNGKey(0)})
         return jnp.mean(jnp.abs(out - jnp.asarray(gt)))
 
-    want_loss, want_grads = jax.value_and_grad(loss)(jax_model.variables["params"])
+    # jit: faster than eager
+    want_loss, want_grads = jax.jit(jax.value_and_grad(loss))(jax_model.variables["params"])
     want = jax_params_to_state_dict(want_grads)
     module = model.module.train()
     module.fused_train = True

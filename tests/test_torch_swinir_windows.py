@@ -1,7 +1,10 @@
 """Fused SwinIR / SwinFIR serving at windows other than 8 (B5 then B6 for
 each Swin block) vs the JAX package's fast forward (interpret mode) on the
 CPU, f32, at windows 4 to 24 (20 and 24 take B5's streaming family on the
-card); window 8 keeps B1's operands."""
+card); window 8 keeps B1's operands. The models are one group of two Swin
+blocks (the second shifted), their weights drawn from a seed
+(``tests/test_torch_hat_windows.py::_seeded``) instead of the JAX package's
+initialisers, whose forward costs each case seconds of tracing."""
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +21,7 @@ from studiosr_tpu_torch.ops.cuda.mlp_block import unpack_mlp_block
 from studiosr_tpu_torch.ops.cuda.window_attention import unpack_window_attention
 from studiosr_tpu_torch.serving import prepare_serving, swinir_fast_forward
 from studiosr_tpu_torch.zoo import load_jax_params
+from tests.test_torch_hat_windows import _seeded
 
 torch.set_num_threads(2)
 
@@ -30,14 +34,15 @@ SWINFIR_ATOL = 2e-4  # tests/test_torch_swinfir.py's
 
 
 def _small(ws: int, embed_dim: int = 16, scale: int = 4) -> dict:
-    return dict(scale=scale, embed_dim=embed_dim, depths=[2, 2], num_heads=[2, 2], window_size=ws, mlp_ratio=2.0)
+    return dict(scale=scale, embed_dim=embed_dim, depths=[2], num_heads=[2], window_size=ws, mlp_ratio=2.0)
 
 
 def _pair(jax_cls, cls, bf16: bool = False, **kw):
-    """A JAX model and the port's, holding the same weights (rounded to bf16
-    on both sides with ``bf16``, so that weights prepared in bf16 hold the
-    model exactly)."""
-    jax_model = jax_cls.build(**kw)
+    """A JAX model and the port's, holding the same seeded weights (rounded
+    to bf16 on both sides with ``bf16``, so that weights prepared in bf16
+    hold the model exactly)."""
+    jax_model = jax_cls.build(**kw, fast_init=True)
+    jax_model.variables = _seeded(jax_model.variables, kw["window_size"])
     if bf16:
         jax_model.variables = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16).astype(a.dtype),
                                                      jax_model.variables)
@@ -94,7 +99,7 @@ def test_prepare_serving_lays_out_b1_at_8_and_b5_b6_elsewhere(ws, dtype):
     N, N) bias in f32) and B6's (packed in bf16, dense in f32)."""
     _, model = _pair(JaxSwinIR, SwinIR, bf16=True, **_small(ws))
     prep = prepare_serving(model.module, model.config, dtype)
-    blk = prep["blocks"][1][1]
+    blk = prep["blocks"][0][1]
     c, hidden, n = 16, 32, ws * ws
     if ws == 8:
         assert set(blk) == {"ln1_w", "ln1_b", "wqkv", "bqkv", "wproj", "bproj", "bias", "ln2_w", "ln2_b", "w1", "b1",
@@ -103,7 +108,7 @@ def test_prepare_serving_lays_out_b1_at_8_and_b5_b6_elsewhere(ws, dtype):
         return
     assert set(blk) == {"attn", "mlp"}
     attn, mlp = blk["attn"], blk["mlp"]
-    module_blk = model.module.layers[1].residual_group.blocks[1]
+    module_blk = model.module.layers[0].residual_group.blocks[1]
     want_qkv, want_proj = module_blk.attn.qkv.weight.t(), module_blk.attn.proj.weight.t()
     want_w1, want_w2 = module_blk.mlp.fc1.weight.t(), module_blk.mlp.fc2.weight.t()
     if dtype == torch.bfloat16:
