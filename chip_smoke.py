@@ -68,6 +68,10 @@ against its plain PyTorch version:
   temporary ``./pretrained`` from seeded port models (SwinIR x4, HAT, EDSR,
   RCAN at their published widths) and read by ``from_pretrained``, the CLI
   without ``--ckpt``.
+* serving over a mesh in one process: SwinIR x4 at a 1024x1024 LR image and
+  HAT x4 at 512x512 (the widths above, bf16 fused), tiled over two slots of
+  the card (and over every card where there are two or more), each slot a
+  replica with its own host thread and CUDA stream.
 
 Phases, in order; any failure exits non-zero before the final line:
 
@@ -303,6 +307,18 @@ Phases, in order; any failure exits non-zero before the final line:
     the window-24 model's gradients against the f64 witness at batch 4
     (its plain runs recompute each window attention and OCAB in the
     backward).
+37. serving over a mesh (``phase_mesh_serving``, after phase 36, A20 and
+    C10): SwinIR x4 at a 1024² LR image and HAT x4 at 512², bf16 fused,
+    ``tiled_inference`` (tile 128, overlap 16, batch 8) over a mesh of two
+    slots on the card in the host loop and the device loop, each output
+    byte for byte the mesh-less call's and each slot launching B1-B3
+    (SwinIR) or B11, B5 at window 16, B6 and B10 (HAT); then
+    ``evaluate_uint8_batch`` of four 128² images over the mesh, the
+    mesh-less scores exactly; the host seconds of each route beside the
+    card's name and power limit. With two cards or more, the same over a
+    mesh of every card, and a model built on ``cuda:1`` served while
+    ``cuda:0`` is current (its bytes those of the model on this card);
+    with one card, a line saying that half did not run.
 
 Prints the card line, the script's seconds, a ``{"kernels": [...]}`` JSON
 line, and last
@@ -322,7 +338,9 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -715,6 +733,18 @@ ZOO_SWINIR_FILE = "001_classicalSR_DF2K_s64w8_SwinIR-M_x4.pth"
 ZOO_OTHERS = (("hat", "HAT_SRx4.pth", "params_ema"), ("edsr", "r32f256x4.pth", None),
               ("rcan", "models_ECCV2018RCAN/RCAN_BIX4.pt", None))
 ZOO_PER_FORWARD = {"fused_swin_block": 36, "fused_conv3x3": 7, "fused_upsample_x4": 1}
+
+# Serving over a mesh in one process (A20, C10): SwinIR x4 (MAIN) at a
+# 1024² LR image and HAT x4 (HAT_MAIN) at 512², bf16 fused, tiles of 128
+# with the default overlap 16 and tile batch 8, over two slots on the card
+# (each its own replica, host thread and stream), both loops; each slot's
+# launches of the kernels its tiles run (HAT's tile batches hold more than
+# one image, so B6 without the CAB join); MESH_EVAL images scored.
+MESH_TILED = dict(tile=128, tile_overlap=16, tile_batch=8)
+MESH_MODELS = (("swinir", 1024, ("fused_swin_block", "fused_conv3x3", "fused_upsample_x4")),
+               ("hat", 512, ("fused_cab_body", "fused_window_attention_block_ws16", "fused_mlp_block",
+                             "fused_ocab_block")))
+MESH_EVAL = (4, 128)  # images, LR side
 
 
 def log(msg: str) -> None:
@@ -3580,6 +3610,134 @@ def phase_hat_windows(dev: torch.device) -> list:
     return rows
 
 
+# -- serving over a mesh in one process (A20), every kernel on its operands' card (C10) --
+
+
+def card_line() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def slot_launches(model, mesh, fn):
+    """``fn()`` and the launches of each slot of ``mesh`` during it, by
+    kernel: ``engagement.launched`` is wrapped for the call to file each
+    launch also under the stream current on the launching thread, which
+    ``run_sharded`` makes the slot's own. The counts themselves are
+    unchanged."""
+    from studiosr_tpu_torch.parallel import mesh as mesh_module
+
+    streams = {stream.cuda_stream: i for i, (_, stream) in enumerate(mesh_module._slots(model, mesh))}
+    per_slot = [Counter() for _ in streams]
+    lock, counted = threading.Lock(), engagement.launched
+
+    def launched(name, entry=None):
+        counted(name, entry)
+        slot = streams.get(torch.cuda.current_stream().cuda_stream)
+        if slot is not None:
+            with lock:
+                per_slot[slot][name] += 1
+
+    engagement.launched = launched
+    try:
+        out = fn()
+    finally:
+        engagement.launched = counted
+    return out, per_slot
+
+
+def mesh_model(family: str, device) -> object:
+    config = MAIN if family == "swinir" else HAT_MAIN
+    return (SwinIR if family == "swinir" else HAT).build(**config, seed=SEED, device=device).half().enable_fused(True)
+
+
+def mesh_tiled(model, image, mesh, expect, label: str, failed: list) -> dict:
+    """Both loops of ``tiled_inference`` over ``mesh`` against the mesh-less
+    call on ``model``: the bytes equal, each slot launching every kernel of
+    ``expect``; host seconds of a second call of each. Returns {route: s}."""
+    from studiosr_tpu_torch.parallel import tiled_inference
+
+    seconds = {}
+    for loop in (False, True):
+        name = "device loop" if loop else "host loop"
+        want = tiled_inference(model, image, device_loop=loop, **MESH_TILED)
+        got, per_slot = slot_launches(model, mesh, lambda: tiled_inference(model, image, mesh=mesh, device_loop=loop,
+                                                                           **MESH_TILED))
+        if got.shape != want.shape or not np.array_equal(got, want):
+            failed.append(f"{label} {name}: the mesh's output differs from the mesh-less one")
+        for i, counts in enumerate(per_slot):
+            missing = [k for k in expect if not counts.get(k)]
+            if missing:
+                failed.append(f"{label} {name}: slot {i} launched no {missing} (it launched {dict(counts)})")
+        for route, run in (("mesh-less", lambda: tiled_inference(model, image, device_loop=loop, **MESH_TILED)),
+                           (f"{mesh.size} slots", lambda: tiled_inference(model, image, mesh=mesh, device_loop=loop,
+                                                                          **MESH_TILED))):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            run()
+            seconds[f"{name}, {route}"] = time.perf_counter() - start
+        log(f"mesh serving: {label} {name}: {'bytes equal' if np.array_equal(got, want) else 'DIFFER'} "
+            f"{got.shape}; launches a slot {[dict(c) for c in per_slot]}")
+    return seconds
+
+
+def phase_mesh_serving(dev: torch.device) -> None:
+    """A20 and C10 on the card: SwinIR x4 at 1024² and HAT x4 at 512², bf16
+    fused, tiled over a mesh of two slots on this card in both loops, and
+    ``evaluate_uint8_batch`` over it, each against the mesh-less call byte
+    for byte (scores exactly), with each slot's launches; where the machine
+    has two cards or more, the same over a mesh of every card and a model
+    built on ``cuda:1`` served while ``cuda:0`` is current. Host seconds of
+    each route beside the card's name and power limit."""
+    from studiosr_tpu_torch.parallel import get_mesh, tiled_inference
+
+    failed = []
+    start = time.perf_counter()
+    rng = np.random.default_rng(SEED + 21)
+    index = torch.cuda.current_device()
+    two = get_mesh([torch.device("cuda", index)] * 2)
+    cards = torch.cuda.device_count()
+    card = card_line()
+    for family, side, expect in MESH_MODELS:
+        model = mesh_model(family, dev)
+        image = rng.integers(0, 256, (side, side, 3), dtype=np.uint8)
+        seconds = mesh_tiled(model, image, two, expect, f"{family} x4 {side}²", failed)
+        n, lr = MESH_EVAL
+        lqs = rng.integers(0, 256, (n, lr, lr, 3), dtype=np.uint8)
+        gts = rng.integers(0, 256, (n, 4 * lr, 4 * lr, 3), dtype=np.uint8)
+        want = model.evaluate_uint8_batch(lqs, gts, crop_border=4)
+        got = model.evaluate_uint8_batch(lqs, gts, crop_border=4, mesh=two)
+        same = all(np.array_equal(a, b) for a, b in zip(got, want))
+        log(f"mesh serving: {family} evaluate_uint8_batch of {n} {lr}² over 2 slots: PSNR {got[0].tolist()}, "
+            f"{'the mesh-less scores exactly' if same else 'DIFFERENT from the mesh-less ' + str(want[0].tolist())}")
+        if not same:
+            failed.append(f"{family} evaluate_uint8_batch: the mesh's scores differ from the mesh-less ones")
+        if cards >= 2:
+            every = get_mesh()
+            seconds.update({f"every card ({cards}) {k}": v for k, v in
+                            mesh_tiled(model, image, every, expect, f"{family} x4 {side}² {cards} cards",
+                                       failed).items()})
+            with torch.cuda.device(0):
+                other = mesh_model(family, "cuda:1")
+                moved = np.array_equal(tiled_inference(other, image, **MESH_TILED),
+                                       tiled_inference(model, image, **MESH_TILED))
+            log(f"mesh serving: {family} built on cuda:1 and served while cuda:0 is current (C10): "
+                f"{'the bytes' if moved else 'NOT the bytes'} of cuda:{index}'s")
+            if not moved:
+                failed.append(f"{family}: served on cuda:1 with cuda:0 current, the output differs from cuda:{index}'s")
+            del other
+        log(f"mesh serving: {family} x4 {side}² tiled (tile {MESH_TILED['tile']}, overlap "
+            f"{MESH_TILED['tile_overlap']}, batch {MESH_TILED['tile_batch']}), host seconds of a second call "
+            f"(synchronised before, the copy to the host after): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in seconds.items()) + f" [{card}]")
+        del model
+        torch.cuda.empty_cache()
+    if cards < 2:
+        log(f"mesh serving: one card (torch.cuda.device_count() == {cards}): the cross-card half did not run")
+    if failed:
+        raise AssertionError("mesh serving: " + "; ".join(failed))
+    log(f"mesh serving: {time.perf_counter() - start:.1f} s in all")
+
+
 # -- the zoo, offline -------------------------------------------------------------------
 
 
@@ -4322,6 +4480,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows += phase_hat_windows(dev)
     torch.cuda.empty_cache()
+    phase_mesh_serving(dev)
     phase_maxsr_decline(dev)
     phase_train_entry(dev)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

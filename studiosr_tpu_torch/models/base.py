@@ -7,10 +7,14 @@ does normalize -> forward -> x255, round, clip, uint8 on the device;
 ``inference_tiled`` serves overlapping tiles (``parallel/tiled.py``);
 ``evaluate_uint8`` / ``evaluate_uint8_batch`` run the forward and the
 PSNR / SSIM chain on the device and bring back two floats an image, never
-the HR image; ``astype(dtype)`` casts the module and the forward's input
-(``half()`` is ``astype(torch.bfloat16)``, the serving dtype; it converts
-the module in place, so a Trainer never calls it on the f32 weights it
-trains); ``eval()`` and ``to(device)`` chain as the reference's torch idiom
+the HR image; ``manual_forward_uint8`` / ``sharded_forward`` and the
+``mesh=`` of ``evaluate_uint8_batch`` and ``inference_tiled`` split the
+batch over the slots of a mesh (``parallel/mesh.py``: a replica a slot,
+each running the single-card path on its share); ``astype(dtype)`` casts
+the module and the forward's input (``half()`` is
+``astype(torch.bfloat16)``, the serving dtype; it converts the module in
+place, so a Trainer never calls it on the f32 weights it trains);
+``eval()`` and ``to(device)`` chain as the reference's torch idiom
 does; ``from_pretrained`` builds the family's published configuration (the
 families with a release override it to read the weights, ``zoo/``);
 ``export`` saves the eval forward as a ``torch.export`` program and
@@ -120,6 +124,26 @@ class Model:
             y = self._forward(x) * in_range
             return torch.clamp(torch.round(y), 0, 255).to(torch.uint8)
 
+    def manual_forward_uint8(self, x, mesh) -> torch.Tensor:
+        """:meth:`forward_uint8` over ``mesh``: the batch cut into one equal
+        contiguous share a slot, each slot's replica running the single-card
+        path (fused kernels and tails included) on its share, the uint8
+        results gathered on ``self.device`` in batch order, without
+        synchronising. A batch that does not divide over the slots raises."""
+        from studiosr_tpu_torch.parallel.mesh import run_sharded
+
+        return run_sharded(self, mesh, lambda replica, share: replica.forward_uint8(share), torch.as_tensor(x))
+
+    def sharded_forward(self, x, mesh=None) -> torch.Tensor:
+        """The float NHWC forward (f32 out on ``self.device``); with ``mesh``,
+        split over its slots as :meth:`manual_forward_uint8` splits the uint8
+        one."""
+        if mesh is None:
+            return self(torch.as_tensor(x))
+        from studiosr_tpu_torch.parallel.mesh import run_sharded
+
+        return run_sharded(self, mesh, lambda replica, share: replica(share), torch.as_tensor(x))
+
     # -- numpy inference contract -------------------------------------------
 
     def inference(self, image: np.ndarray) -> np.ndarray:
@@ -179,17 +203,25 @@ class Model:
 
     def evaluate_uint8_batch(self, lqs, gts, crop_border: int = 0, y_only: bool = True, mesh=None):
         """Per-image (PSNRs, SSIMs) numpy arrays of a same-shape uint8 batch,
-        one forward on ``self.device``; a (B, 2) f32 array comes back. A
-        ``mesh`` (``parallel/mesh.py``) must hold only ``self.device`` (a
-        process drives its own card) and gives the mesh-less result."""
-        if mesh is not None:
-            from studiosr_tpu_torch.parallel.mesh import check_devices
-
-            check_devices(mesh, self.device)
+        one forward on ``self.device``; a (B, 2) f32 array comes back. With
+        a ``mesh`` (``parallel/mesh.py``) each slot scores its share of the
+        images and only the (B, 2) array is gathered; B must divide by
+        ``mesh.size``."""
         lqs = torch.from_numpy(np.ascontiguousarray(np.asarray(lqs)))
         gts = torch.from_numpy(np.ascontiguousarray(np.asarray(gts)))
-        with torch.inference_mode():
-            out = self._score_batch(lqs, gts.to(self.device), crop_border, y_only).cpu().numpy()
+        if mesh is None:
+            with torch.inference_mode():
+                out = self._score_batch(lqs, gts.to(self.device), crop_border, y_only).cpu().numpy()
+            return out[:, 0], out[:, 1]
+        if lqs.shape[0] % mesh.size:
+            raise ValueError(f"evaluate_uint8_batch: batch {lqs.shape[0]} does not divide over the "
+                             f"{mesh.size}-device mesh — pad or drop images")
+        from studiosr_tpu_torch.parallel.mesh import run_sharded
+
+        def score(replica, lq, gt):
+            return replica._score_batch(lq, gt.to(replica.device), crop_border, y_only)
+
+        out = run_sharded(self, mesh, score, lqs, gts).cpu().numpy()
         return out[:, 0], out[:, 1]
 
     def _score_batch(self, lqs, gts, crop_border: int, y_only: bool) -> torch.Tensor:
@@ -202,6 +234,7 @@ class Model:
         """Cast the parameters to ``dtype``; inputs are cast to it in the forward."""
         self.module.to(dtype)
         self._compute_dtype = dtype
+        self.__dict__.pop("_replica_cache", None)
         return self
 
     def half(self) -> "Model":
@@ -217,12 +250,14 @@ class Model:
 
     def to(self, device) -> "Model":
         """Move the module to ``device`` (``resolve_device``'s rules: CUDA that
-        is missing raises); drops the cached fused-serving weights."""
+        is missing raises); drops the cached fused-serving weights and the
+        mesh replicas."""
         from studiosr_tpu_torch._device import resolve_device
 
         self.device = resolve_device(device)
         self.module.to(self.device)
         self.__dict__.pop("_serving_prep_cache", None)
+        self.__dict__.pop("_replica_cache", None)
         return self
 
     # -- export --------------------------------------------------------------
@@ -269,8 +304,10 @@ class FusedServingModel(Model):
         raise NotImplementedError
 
     def enable_fused(self, enabled: bool = True) -> "FusedServingModel":
-        """Serve through the CUDA kernels (serving/swinir_fast.py)."""
+        """Serve through the CUDA kernels (serving/swinir_fast.py); drops the
+        mesh replicas."""
         self._fused = enabled
+        self.__dict__.pop("_replica_cache", None)
         return self
 
     def serving_prep(self):

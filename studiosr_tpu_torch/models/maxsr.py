@@ -409,9 +409,11 @@ class MaxSR(Model):
     _fused = False
 
     def enable_fused(self, enabled: bool = True) -> "MaxSR":
-        """Serve the attention cores through B15; the parameters are unchanged."""
+        """Serve the attention cores through B15; the parameters are unchanged
+        (the mesh replicas are dropped)."""
         self.module.fused = enabled
         self._fused = enabled
+        self.__dict__.pop("_replica_cache", None)
         return self
 
     @classmethod

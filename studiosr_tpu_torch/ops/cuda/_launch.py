@@ -1,8 +1,10 @@
 """Operand checks and launch bookkeeping shared by the kernel wrappers.
 
-A wrapper validates every operand before it hands a pointer to C, launches
-on ``torch.cuda.current_stream()`` without synchronising, counts the launch
-and raises on a non-zero launch status. There is no fallback.
+A wrapper validates every operand before it hands a pointer to C, calls
+every C entry through :func:`call` (which makes the operands' card the
+current device and passes its current stream), launches without
+synchronising, counts the launch and raises on a non-zero launch status.
+There is no fallback.
 """
 
 from __future__ import annotations
@@ -14,10 +16,11 @@ import torch
 
 from studiosr_tpu_torch.ops.cuda import engagement
 
-__all__ = ["P", "I", "F", "KERNEL_DTYPES", "check", "operand", "stream", "finish"]
+__all__ = ["P", "I", "F", "KERNEL_DTYPES", "STREAM", "check", "operand", "call", "finish"]
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+STREAM = object()  # stands, among call()'s arguments, for the device's current stream
 
 
 def check(t: Optional[torch.Tensor], name: str, shape: Sequence[int], dtype: torch.dtype, device: torch.device):
@@ -50,8 +53,16 @@ def operand(t: Optional[torch.Tensor], name: str, shape: Sequence[int], dtype: t
     return t.detach().to(dtype).contiguous()
 
 
-def stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def call(device: torch.device, entry, *args):
+    """``entry(*args)``, a C function of a kernel library, with ``device``
+    the current CUDA device and the previous one current again afterwards:
+    the C side reads the SM count, sets function attributes and launches on
+    the current device. :data:`STREAM` among ``args`` becomes ``device``'s
+    current stream. Every C entry is called through here, so a kernel runs
+    on its operands' card whichever card the calling thread had current."""
+    with torch.cuda.device(device):
+        handle = torch.cuda.current_stream(device).cuda_stream
+        return entry(*(handle if a is STREAM else a for a in args))
 
 
 def finish(name: str, status: int, entry: Optional[str] = None) -> None:

@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from studiosr_tpu_torch.ops.cuda import _build
-from studiosr_tpu_torch.ops.cuda._launch import P, I, check, finish, operand, stream
+from studiosr_tpu_torch.ops.cuda._launch import P, I, check, finish, operand, STREAM, call
 from studiosr_tpu_torch.ops.cuda.window_attention import (
     _NP_WIDTHS, FAMILY_STEM, _image, _pad16, check_window_map, large_window, mma_takes, window_family,
 )
@@ -244,20 +244,19 @@ def attention_bwd(
         return _attention_bwd_mma(px, pg, dx, x.shape, heads, window_size, shift, ops, ds_db, dbproj, dbias, name)
     if ws16:
         lib = _build.load("attn_bwd16", _SIGNATURES16, _RESTYPES16)
-        lib.attn_bwd16_scratch(bsz, h, w, c, heads, window_size, ctypes.byref(t_elems), ctypes.byref(f_elems))
+        call(dev, lib.attn_bwd16_scratch, bsz, h, w, c, heads, window_size, ctypes.byref(t_elems),
+             ctypes.byref(f_elems))
     else:
         lib = _build.load("attn_bwd", _SIGNATURES, _RESTYPES)
-        lib.attn_bwd_scratch(bsz, h, w, c, heads, window_size, ctypes.byref(t_elems), ctypes.byref(f_elems))
+        call(dev, lib.attn_bwd_scratch, bsz, h, w, c, heads, window_size, ctypes.byref(t_elems), ctypes.byref(f_elems))
     tscratch = torch.empty(t_elems.value, dtype=dt, device=dev)
     fscratch = torch.empty(f_elems.value, dtype=f32, device=dev)
     dwqkv, dbqkv = torch.empty(c, 3 * c, dtype=f32, device=dev), torch.empty(3 * c, dtype=f32, device=dev)
     dwproj = torch.empty(c, c, dtype=f32, device=dev)
     entry = "attn_bwd" + FAMILY_STEM[family] + ("_bf16" if dt == torch.bfloat16 else "_f32")
-    status = getattr(lib, entry)(
-        px, pg, dx.data_ptr(), bsz, h, w, c, heads, window_size, shift, *ptrs, ds_db.data_ptr(), dwqkv.data_ptr(),
-        dbqkv.data_ptr(), dwproj.data_ptr(), dbproj.data_ptr(), dbias.data_ptr(), tscratch.data_ptr(),
-        t_elems.value, fscratch.data_ptr(), f_elems.value, stream(dev),
-    )
+    status = call(dev, getattr(lib, entry), px, pg, dx.data_ptr(), bsz, h, w, c, heads, window_size, shift, *ptrs,
+                  ds_db.data_ptr(), dwqkv.data_ptr(), dbqkv.data_ptr(), dwproj.data_ptr(), dbproj.data_ptr(),
+                  dbias.data_ptr(), tscratch.data_ptr(), t_elems.value, fscratch.data_ptr(), f_elems.value, STREAM)
     finish(name, status, entry)
     return dx, ds_db[:c], ds_db[c:], dwqkv, dbqkv, dwproj, dbproj, dbias
 
@@ -272,10 +271,11 @@ def _attention_bwd_mma(px, pg, dx, shape, heads, window_size, shift, ops, ds_db,
     ln_w, ln_b, wqkv, bqkv, wproj, bias, drop = ops
     lib = _build.load("attn_bwd_mma", _SIGNATURES_MMA, _RESTYPES_MMA)
     index = _device_pack_index(c, heads, dev)
-    if lib.attn_bwd_mma_pack_elems(c, heads) != index.numel():
+    if call(dev, lib.attn_bwd_mma_pack_elems, c, heads) != index.numel():
         raise RuntimeError(f"{name}: the packed weights of C {c}, {heads} heads disagree with the kernel's layout")
     t_elems, f_elems = _LL(), _LL()
-    status = lib.attn_bwd_mma_scratch(bsz, h, w, c, heads, window_size, ctypes.byref(t_elems), ctypes.byref(f_elems))
+    status = call(dev, lib.attn_bwd_mma_scratch, bsz, h, w, c, heads, window_size, ctypes.byref(t_elems),
+                  ctypes.byref(f_elems))
     if status != 0:
         raise RuntimeError(f"{name}: CUDA error {status} while sizing the scratch")
     tscratch = torch.empty(t_elems.value, dtype=dx.dtype, device=dev)
@@ -284,15 +284,12 @@ def _attention_bwd_mma(px, pg, dx, shape, heads, window_size, shift, ops, ds_db,
     dbqkv = torch.empty(3 * hd, dtype=f32, device=dev)
     dwproj = torch.empty(hd, c, dtype=f32, device=dev)
     entry = "attn_bwd" + FAMILY_STEM[window_family(window_size)] + "_mma_bf16"
-    status = getattr(lib, entry)(
-        px, pg, dx.data_ptr(), bsz, h, w, c, heads, window_size, shift, int(bias.dtype == torch.bfloat16),
-        ln_w.data_ptr(),
-        ln_b.data_ptr(), bqkv.data_ptr(), bias.data_ptr(), None if drop is None else drop.data_ptr(),
-        wqkv.data_ptr(), wproj.data_ptr(),
-        index.data_ptr(), index.numel(), ds_db.data_ptr(), dwqkv.data_ptr(), dbqkv.data_ptr(), dwproj.data_ptr(),
-        dbproj.data_ptr(), dbias.data_ptr(), tscratch.data_ptr(), t_elems.value, fscratch.data_ptr(), f_elems.value,
-        stream(dev),
-    )
+    status = call(dev, getattr(lib, entry), px, pg, dx.data_ptr(), bsz, h, w, c, heads, window_size, shift,
+                  int(bias.dtype == torch.bfloat16), ln_w.data_ptr(), ln_b.data_ptr(), bqkv.data_ptr(), bias.data_ptr(),
+                  None if drop is None else drop.data_ptr(), wqkv.data_ptr(), wproj.data_ptr(), index.data_ptr(),
+                  index.numel(), ds_db.data_ptr(), dwqkv.data_ptr(), dbqkv.data_ptr(), dwproj.data_ptr(),
+                  dbproj.data_ptr(), dbias.data_ptr(), tscratch.data_ptr(), t_elems.value, fscratch.data_ptr(),
+                  f_elems.value, STREAM)
     finish(name, status, entry)
     dwqkv = dwqkv.view(c, 3, heads, dp)[..., :d].reshape(c, 3 * c)
     dbqkv = dbqkv.view(3, heads, dp)[..., :d].reshape(3 * c)

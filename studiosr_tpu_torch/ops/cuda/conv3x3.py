@@ -39,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from studiosr_tpu_torch.ops.cuda import _build
-from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, F as CF, check, finish, stream
+from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, F as CF, check, finish, STREAM, call
 
 __all__ = [
     "fused_conv3x3", "conv3x3_plain", "prepare_conv3x3_weights", "pack_conv3x3_weights", "unpack_conv3x3_weights",
@@ -170,8 +170,8 @@ def fused_conv3x3(x, w, b, activation: Optional[str] = None, residual: bool = Fa
     out = torch.empty((bsz, h, wd, cout), dtype=x.dtype, device=dev)
     lib = _build.load("conv3x3", _SIGNATURES)
     entry = "conv3x3_mma_bf16" if x.dtype == torch.bfloat16 else "conv3x3_f32"
-    status = getattr(lib, entry)(px, pw, pb, pe, out.data_ptr(), bsz, h, wd, cin, cout, _ACT_CODES[kind], slope,
-                                 int(residual), stream(dev))
+    status = call(dev, getattr(lib, entry), px, pw, pb, pe, out.data_ptr(), bsz, h, wd, cin, cout, _ACT_CODES[kind],
+                  slope, int(residual), STREAM)
     finish("fused_conv3x3", status, entry)
     return out
 
@@ -284,17 +284,17 @@ def fused_cab_body(x, ln_w, ln_b, w1, b1, w2, b2, res_scale: float = 1.0):
         lib = _build.load("cab_mma", _CAB_MMA_SIGNATURES)
         ln = torch.empty((bsz, h, wd, -(-c // _CAB_KC) * _CAB_KC), dtype=dt, device=dev)
         h1 = torch.empty((bsz, h, wd, _CAB_N1), dtype=dt, device=dev)
-        tiles = lib.cab_body_mma_tiles(h, wd)
+        tiles = call(dev, lib.cab_body_mma_tiles, h, wd)
         entry = "cab_body_mma_bf16"
     else:
         lib = _build.load("cab_body", _CAB_SIGNATURES)
         ln = torch.empty_like(x)
         h1 = torch.empty((bsz, h, wd, cm), dtype=dt, device=dev)
-        tiles = lib.cab_body_partials(h, wd, c)
+        tiles = call(dev, lib.cab_body_partials, h, wd, c)
         entry = "cab_body_bf16" if dt == torch.bfloat16 else "cab_body_f32"
     partials = torch.empty((bsz, tiles, c), dtype=f32, device=dev)
-    status = getattr(lib, entry)(*ptrs, ln.data_ptr(), h1.data_ptr(), partials.data_ptr(), out.data_ptr(),
-                                 sums.data_ptr(), bsz, h, wd, c, cm, float(res_scale), stream(dev))
+    status = call(dev, getattr(lib, entry), *ptrs, ln.data_ptr(), h1.data_ptr(), partials.data_ptr(), out.data_ptr(),
+                  sums.data_ptr(), bsz, h, wd, c, cm, float(res_scale), STREAM)
     finish("fused_cab_body", status, entry)
     return out, sums
 
@@ -328,7 +328,7 @@ def fused_resblock(x, w1, b1, w2, b2, res_scale: float = 1.0, activation: Option
     out = torch.empty_like(x)
     lib = _build.load("resblock", _RES_SIGNATURES)
     entry = "resblock_mma_bf16" if dt == torch.bfloat16 else "resblock_f32"
-    status = getattr(lib, entry)(*ptrs, h1.data_ptr(), out.data_ptr(), bsz, h, wd, c, _ACT_CODES[kind], slope,
-                                 float(res_scale), stream(dev))
+    status = call(dev, getattr(lib, entry), *ptrs, h1.data_ptr(), out.data_ptr(), bsz, h, wd, c, _ACT_CODES[kind],
+                  slope, float(res_scale), STREAM)
     finish("fused_resblock", status, entry)
     return out

@@ -23,11 +23,15 @@ so there is no fallback to count. What remains:
   fused kernel) and B15 above 1024 tokens a window
   (``window_attn.decline``, MaxSR adaptive on about a megapixel of LR);
 * ``counters()`` / ``entries()`` / ``declines()`` / ``reset()``.
+
+The counts take a lock: the mesh routes (``parallel/mesh.py``) launch from
+one host thread a slot.
 """
 
 from __future__ import annotations
 
 import collections
+import threading
 import warnings
 
 __all__ = ["launched", "structural_decline", "structural_tail_decline", "counters", "entries", "declines", "reset"]
@@ -35,20 +39,23 @@ __all__ = ["launched", "structural_decline", "structural_tail_decline", "counter
 _launches: collections.Counter = collections.Counter()
 _entries: collections.Counter = collections.Counter()
 _declines: dict = {}
+_lock = threading.Lock()
 
 
 def launched(name: str, entry: str = None) -> None:
-    _launches[name] += 1
-    if entry is not None:
-        _entries[(name, entry)] += 1
+    with _lock:
+        _launches[name] += 1
+        if entry is not None:
+            _entries[(name, entry)] += 1
 
 
 def structural_decline(name: str, reason: str) -> None:
     """Record (and warn) that the kernel ``name`` declined a configuration
     by design, for ``reason``; the caller takes the plain route."""
-    entry = _declines.setdefault(name, {"count": 0, "reason": reason})
-    entry["count"] += 1
-    entry["reason"] = reason
+    with _lock:
+        entry = _declines.setdefault(name, {"count": 0, "reason": reason})
+        entry["count"] += 1
+        entry["reason"] = reason
     warnings.warn(f"{name} declined by design: {reason}", stacklevel=3)
 
 
@@ -59,24 +66,28 @@ def structural_tail_decline(scale: int) -> None:
 
 def counters() -> dict:
     """{kernel name: launches since the last reset}."""
-    return dict(_launches)
+    with _lock:
+        return dict(_launches)
 
 
 def entries() -> dict:
     """{kernel name: {C entry: launches}} since the last reset, for the
     wrappers that name their entry."""
     out: dict = {}
-    for (name, entry), n in _entries.items():
-        out.setdefault(name, {})[entry] = n
+    with _lock:
+        for (name, entry), n in _entries.items():
+            out.setdefault(name, {})[entry] = n
     return out
 
 
 def declines() -> dict:
     """{name: {"count": n, "reason": last reason}} of structural declines."""
-    return {k: dict(v) for k, v in _declines.items()}
+    with _lock:
+        return {k: dict(v) for k, v in _declines.items()}
 
 
 def reset() -> None:
-    _launches.clear()
-    _entries.clear()
-    _declines.clear()
+    with _lock:
+        _launches.clear()
+        _entries.clear()
+        _declines.clear()

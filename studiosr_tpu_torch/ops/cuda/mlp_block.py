@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from studiosr_tpu_torch.ops.cuda import _build
-from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, check, finish, operand, stream
+from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, check, finish, operand, STREAM, call
 from studiosr_tpu_torch.ops.cuda.window_attention import _image, _pad16
 
 __all__ = ["fused_mlp_block", "mlp_block_plain", "row_scales", "mma_takes", "pack_mlp_block", "unpack_mlp_block"]
@@ -190,22 +190,22 @@ def fused_mlp_block(
     px = check(x, "x", (rows, c), dt, dev)
     out = torch.empty_like(x)
     lib = _build.load("mlp_block", _SIGNATURES, _RESTYPES)
-    pack = lib.mlp_block_pack_elems(c, hidden)
+    pack = call(dev, lib.mlp_block_pack_elems, c, hidden)
     packed = torch.empty(pack, dtype=dt, device=dev)
     ptrs = [t.data_ptr() for t in ops]
     bf16 = dt == torch.bfloat16
     if extra is None:
         dp = None if drop_path is None else operand(drop_path, "drop_path", (drop_path.numel(),), f32, dev)
         entry = "mlp_block_bf16" if bf16 else "mlp_block_f32"
-        status = getattr(lib, entry)(px, out.data_ptr(), rows, c, hidden, *ptrs, None if dp is None else dp.data_ptr(),
-                                     rows_per_sample, packed.data_ptr(), pack, stream(dev))
+        status = call(dev, getattr(lib, entry), px, out.data_ptr(), rows, c, hidden, *ptrs,
+                      None if dp is None else dp.data_ptr(), rows_per_sample, packed.data_ptr(), pack, STREAM)
         finish("fused_mlp_block", status, entry)
     else:
         pe = check(extra, "extra", (rows, c), dt, dev)
         es = operand(extra_scale, "extra_scale", (c,), f32, dev)
         entry = "mlp_block_extra_bf16" if bf16 else "mlp_block_extra_f32"
-        status = getattr(lib, entry)(px, out.data_ptr(), rows, c, hidden, *ptrs, pe, es.data_ptr(), packed.data_ptr(),
-                                     pack, stream(dev))
+        status = call(dev, getattr(lib, entry), px, out.data_ptr(), rows, c, hidden, *ptrs, pe, es.data_ptr(),
+                      packed.data_ptr(), pack, STREAM)
         finish("fused_mlp_block_extra", status, entry)
     return out
 
@@ -217,7 +217,7 @@ def _fused_mma(x, ln_w, ln_b, w1, b1, w2, b2, drop_path, rows_per_sample, extra,
     dev, dt, f32 = x.device, x.dtype, torch.float32
     lib = _build.load("mlp_block_mma", _SIGNATURES_MMA, _RESTYPES_MMA)
     index = _device_pack_index(c, hidden, dev)
-    pack = lib.mlp_block_mma_pack_elems(c, hidden)
+    pack = call(dev, lib.mlp_block_mma_pack_elems, c, hidden)
     if pack != index.numel():
         raise RuntimeError(f"fused_mlp_block: the packed weights of C {c}, hidden {hidden} disagree with the "
                            "kernel's layout")
@@ -236,15 +236,16 @@ def _fused_mma(x, ln_w, ln_b, w1, b1, w2, b2, drop_path, rows_per_sample, extra,
     out = torch.empty_like(x)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     weights = [ptr(ops[0]), ptr(ops[1]), ptr(dense[0]), ptr(ops[2]), ptr(dense[1]), ptr(ops[3])]
-    tail = [index.data_ptr(), blob, pack, ptr(scratch), stream(dev)]
+    tail = [index.data_ptr(), blob, pack, ptr(scratch), STREAM]
     if extra is None:
         dp = None if drop_path is None else operand(drop_path, "drop_path", (drop_path.numel(),), f32, dev)
-        status = lib.mlp_block_mma_bf16(px, out.data_ptr(), rows, c, hidden, *weights, ptr(dp), rows_per_sample,
-                                        *tail)
+        status = call(dev, lib.mlp_block_mma_bf16, px, out.data_ptr(), rows, c, hidden, *weights, ptr(dp),
+                      rows_per_sample, *tail)
         finish("fused_mlp_block", status, "mlp_block_mma_bf16")
     else:
         pe = check(extra, "extra", (rows, c), dt, dev)
         es = operand(extra_scale, "extra_scale", (c,), f32, dev)
-        status = lib.mlp_block_extra_mma_bf16(px, out.data_ptr(), rows, c, hidden, *weights, pe, es.data_ptr(), *tail)
+        status = call(dev, lib.mlp_block_extra_mma_bf16, px, out.data_ptr(), rows, c, hidden, *weights, pe,
+                      es.data_ptr(), *tail)
         finish("fused_mlp_block_extra", status, "mlp_block_extra_mma_bf16")
     return out

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from studiosr_tpu_torch.ops.cuda import _build
-from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, check, finish, operand, stream
+from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, check, finish, operand, STREAM, call
 from studiosr_tpu_torch.ops.cuda.mlp_block import row_scales
 from studiosr_tpu_torch.ops.cuda.window_attention import _NP_WIDTHS, _image, _pad16
 
@@ -166,22 +166,21 @@ def mlp_bwd(x, g, ln_w, ln_b, w1, b1, w2, *, drop_path=None, rows_per_sample: in
     if dt == torch.bfloat16 and mma_takes(c, hidden):
         lib = _build.load("mlp_bwd_mma", _SIGNATURES_MMA, _RESTYPES_MMA)
         index = _device_pack_index(c, hidden, dev)
-        if lib.mlp_bwd_mma_pack_elems(c, hidden) != index.numel():
+        if call(dev, lib.mlp_bwd_mma_pack_elems, c, hidden) != index.numel():
             raise RuntimeError(f"mlp_bwd: the packed weights of C {c}, hidden {hidden} disagree with the kernel's "
                                "layout")
-        status = lib.mlp_bwd_mma_scratch(rows, c, hidden, ctypes.byref(t_elems), ctypes.byref(f_elems))
+        status = call(dev, lib.mlp_bwd_mma_scratch, rows, c, hidden, ctypes.byref(t_elems), ctypes.byref(f_elems))
         if status != 0:
             raise RuntimeError(f"mlp_bwd: CUDA error {status} while sizing the scratch")
         entry = "mlp_bwd_mma_bf16"
         args += [index.data_ptr(), index.numel()]
     else:
         lib = _build.load("mlp_bwd", _SIGNATURES, _RESTYPES)
-        lib.mlp_bwd_scratch(rows, c, hidden, ctypes.byref(t_elems), ctypes.byref(f_elems))
+        call(dev, lib.mlp_bwd_scratch, rows, c, hidden, ctypes.byref(t_elems), ctypes.byref(f_elems))
         entry = "mlp_bwd_bf16" if dt == torch.bfloat16 else "mlp_bwd_f32"
     tscratch = torch.empty(t_elems.value, dtype=dt, device=dev)
     fscratch = torch.empty(f_elems.value, dtype=f32, device=dev)
-    status = getattr(lib, entry)(
-        *args, *grads, tscratch.data_ptr(), t_elems.value, fscratch.data_ptr(), f_elems.value, stream(dev)
-    )
+    status = call(dev, getattr(lib, entry), *args, *grads, tscratch.data_ptr(), t_elems.value, fscratch.data_ptr(),
+                  f_elems.value, STREAM)
     finish("mlp_bwd", status, entry)
     return dx, ds_db[:c], ds_db[c:], dw1, db1, dw2, db2

@@ -49,7 +49,7 @@ import ctypes
 import torch
 
 from studiosr_tpu_torch.ops.cuda import _build
-from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, finish, operand, stream
+from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, finish, operand, STREAM, call
 from studiosr_tpu_torch.ops.cuda.window_attention import MAX_HEAD_DIM
 
 __all__ = [
@@ -286,19 +286,20 @@ def oca_core_fwd(q, k, v, bias):
         lib = _build.load("oca_fwd_mma", _SIGNATURES_FWD_MMA)
         entry = "oca_core_fwd_mma_bf16" if mma_takes(heads, nq, nk, d) else "oca_core_fwd_large_mma_bf16"
         t_elems = _LL()
-        status = getattr(lib, entry.replace("_bf16", "_scratch"))(bw, heads, nq, nk, d, ctypes.byref(t_elems))
+        status = call(dev, getattr(lib, entry.replace("_bf16", "_scratch")), bw, heads, nq, nk, d,
+                      ctypes.byref(t_elems))
         if status != 0:
             raise RuntimeError(f"oca_core_fwd: CUDA error {status} while sizing the scratch")
         tscratch = torch.empty(t_elems.value, dtype=q.dtype, device=dev)
-        status = getattr(lib, entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(), b.data_ptr(), out.data_ptr(), strides,
-                                     int(bdt == torch.bfloat16), bw, heads, nq, nk, d, tscratch.data_ptr(),
-                                     t_elems.value, stream(dev))
+        status = call(dev, getattr(lib, entry), q.data_ptr(), k.data_ptr(), v.data_ptr(), b.data_ptr(), out.data_ptr(),
+                      strides, int(bdt == torch.bfloat16), bw, heads, nq, nk, d, tscratch.data_ptr(), t_elems.value,
+                      STREAM)
     else:
         b = operand(bias, "bias", (heads, nq, nk), torch.float32, dev)
         lib = _build.load("oca_core", _SIGNATURES, _RESTYPES)
         entry = "oca_core_fwd_bf16" if q.dtype == torch.bfloat16 else "oca_core_fwd_f32"
-        status = getattr(lib, entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(), b.data_ptr(), out.data_ptr(), strides,
-                                     bw, heads, nq, nk, d, stream(dev))
+        status = call(dev, getattr(lib, entry), q.data_ptr(), k.data_ptr(), v.data_ptr(), b.data_ptr(), out.data_ptr(),
+                      strides, bw, heads, nq, nk, d, STREAM)
     finish(counter("oca_core_fwd", nq, nk), status, entry)
     return out
 
@@ -323,19 +324,20 @@ def oca_core_bwd(q, k, v, bias, g):
         lib = _build.load("oca_bwd_mma", _SIGNATURES_MMA)
         entry = "oca_core_bwd_mma_bf16" if mma_takes(heads, nq, nk, d) else "oca_core_bwd_large_mma_bf16"
         t_elems, f_elems = _LL(), _LL()
-        status = getattr(lib, entry.replace("_bf16", "_scratch"))(bw, heads, nq, nk, d, ctypes.byref(t_elems),
-                                                                  ctypes.byref(f_elems))
+        status = call(dev, getattr(lib, entry.replace("_bf16", "_scratch")), bw, heads, nq, nk, d,
+                      ctypes.byref(t_elems), ctypes.byref(f_elems))
         if status != 0:
             raise RuntimeError(f"oca_core_bwd: CUDA error {status} while sizing the scratch")
         tscratch = torch.empty(t_elems.value, dtype=q.dtype, device=dev)
         fscratch = torch.empty(f_elems.value, dtype=torch.float32, device=dev)
-        status = getattr(lib, entry)(*ptrs, strides, bw, heads, nq, nk, d, tscratch.data_ptr(), t_elems.value,
-                                     fscratch.data_ptr(), f_elems.value, stream(dev))
+        status = call(dev, getattr(lib, entry), *ptrs, strides, bw, heads, nq, nk, d, tscratch.data_ptr(),
+                      t_elems.value, fscratch.data_ptr(), f_elems.value, STREAM)
     else:
         lib = _build.load("oca_core", _SIGNATURES, _RESTYPES)
-        f_elems = lib.oca_core_bwd_scratch(bw, heads, nq, nk)
+        f_elems = call(dev, lib.oca_core_bwd_scratch, bw, heads, nq, nk)
         fscratch = torch.empty(f_elems, dtype=torch.float32, device=dev)
         entry = "oca_core_bwd_bf16" if q.dtype == torch.bfloat16 else "oca_core_bwd_f32"
-        status = getattr(lib, entry)(*ptrs, strides, bw, heads, nq, nk, d, fscratch.data_ptr(), f_elems, stream(dev))
+        status = call(dev, getattr(lib, entry), *ptrs, strides, bw, heads, nq, nk, d, fscratch.data_ptr(), f_elems,
+                      STREAM)
     finish(counter("oca_core_bwd", nq, nk), status, entry)
     return dq, dk, dv, dbias

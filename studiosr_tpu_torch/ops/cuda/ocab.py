@@ -48,7 +48,7 @@ import torch.nn.functional as F
 
 from studiosr_tpu_torch.ops.attention import attention_core
 from studiosr_tpu_torch.ops.cuda import _build
-from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, check, finish, operand, stream
+from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, check, finish, operand, STREAM, call
 from studiosr_tpu_torch.ops.cuda.mlp_block import (
     _mma_pack_index, mma_takes as mlp_mma_takes, pack_mlp_block, unpack_mlp_block,
 )
@@ -217,13 +217,12 @@ def fused_ocab_block(
     out = torch.empty_like(x)
     y = torch.empty_like(x)
     lib = _build.load("ocab", _SIGNATURES, _RESTYPES)
-    pack = lib.ocab_pack_elems(c, heads, hidden)
+    pack = call(dev, lib.ocab_pack_elems, c, heads, hidden)
     packed = torch.empty(pack, dtype=dt, device=dev)
-    qkv = torch.empty(lib.qkv_attention_scratch_elems(bsz * h * w, c, heads), dtype=dt, device=dev)
+    qkv = torch.empty(call(dev, lib.qkv_attention_scratch_elems, bsz * h * w, c, heads), dtype=dt, device=dev)
     entry = "ocab_bf16" if dt == torch.bfloat16 else "ocab_f32"
-    status = getattr(lib, entry)(px, out.data_ptr(), bsz, h, w, c, heads, ws, pad, hidden,
-                                 *[t.data_ptr() for t in ops], qkv.data_ptr(), y.data_ptr(), packed.data_ptr(), pack,
-                                 stream(dev))
+    status = call(dev, getattr(lib, entry), px, out.data_ptr(), bsz, h, w, c, heads, ws, pad, hidden,
+                  *[t.data_ptr() for t in ops], qkv.data_ptr(), y.data_ptr(), packed.data_ptr(), pack, STREAM)
     finish("fused_ocab_block", status, entry)
     return out
 
@@ -237,7 +236,7 @@ def _ocab_mma(x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, bias, ln2_w, ln2_b, w1,
     dev, f32, bf = x.device, torch.float32, torch.bfloat16
     lib = _build.load("ocab_mma", _SIGNATURES_MMA, _RESTYPES_MMA)
     pack = packed_ocab_elems(c, heads, hidden)
-    if lib.ocab_mma_pack_elems(c, heads, hidden) != pack:
+    if call(dev, lib.ocab_mma_pack_elems, c, heads, hidden) != pack:
         raise RuntimeError(f"fused_ocab_block: the packed weights of C {c}, {heads} heads, hidden {hidden} disagree "
                            "with the kernel's layout")
     if wproj is None:  # the serving blob
@@ -257,12 +256,12 @@ def _ocab_mma(x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, bias, ln2_w, ln2_b, w1,
         (ln2_w, "ln2_w", c), (ln2_b, "ln2_b", c), (b1, "b1", hidden), (b2, "b2", c))]
     px = check(x, "x", (bsz, h, w, c), bf, dev)
     t_elems = _LL()
-    status = lib.ocab_mma_scratch(bsz, h, w, c, heads, ws, pad, hidden, ctypes.byref(t_elems))
+    status = call(dev, lib.ocab_mma_scratch, bsz, h, w, c, heads, ws, pad, hidden, ctypes.byref(t_elems))
     if status != 0:
         raise RuntimeError(f"fused_ocab_block: CUDA error {status} while sizing the scratch")
     tscratch = torch.empty(t_elems.value, dtype=bf, device=dev)
     out = torch.empty_like(x)
-    status = lib.ocab_mma_bf16(px, out.data_ptr(), bsz, h, w, c, heads, ws, pad, hidden, *[t.data_ptr() for t in ops],
-                               pblob, pack, tscratch.data_ptr(), t_elems.value, stream(dev))
+    status = call(dev, lib.ocab_mma_bf16, px, out.data_ptr(), bsz, h, w, c, heads, ws, pad, hidden,
+                  *[t.data_ptr() for t in ops], pblob, pack, tscratch.data_ptr(), t_elems.value, STREAM)
     finish("fused_ocab_block", status, "ocab_mma_bf16")
     return out

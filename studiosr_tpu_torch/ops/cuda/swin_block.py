@@ -32,7 +32,7 @@ import torch.nn.functional as F
 
 from studiosr_tpu_torch.ops.attention import attention_core
 from studiosr_tpu_torch.ops.cuda import _build
-from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, check, finish, stream
+from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, check, finish, STREAM, call
 from studiosr_tpu_torch.ops.windows import calculate_mask, window_partition, window_reverse
 
 __all__ = [
@@ -277,7 +277,7 @@ def fused_swin_block(
         elif any(t is not None for t in (wproj, bias, w1, w2)):
             raise ValueError("fused_swin_block: with packed weights wproj, bias, w1 and w2 are None")
         lib = _build.load("swin_block_mma", _MMA_SIGNATURES, _MMA_RESTYPES)
-        pack = lib.swin_block_mma_elements(c, heads, hidden)
+        pack = call(dev, lib.swin_block_mma_elements, c, heads, hidden)
         pw = check(wqkv, "packed weights", (pack,), dt, dev)
         ptrs = [
             check(ln1_w, "ln1_w", (c,), f32, dev), check(ln1_b, "ln1_b", (c,), f32, dev),
@@ -286,8 +286,8 @@ def fused_swin_block(
             check(b1, "b1", (hidden,), f32, dev), check(b2, "b2", (c,), f32, dev),
         ]
         entry = "swin_block_mma_bf16"
-        status = lib.swin_block_mma_bf16(px, out.data_ptr(), pw, *ptrs, bsz, h, w, c, heads, hidden, shift, pack,
-                                         stream(dev))
+        status = call(dev, lib.swin_block_mma_bf16, px, out.data_ptr(), pw, *ptrs, bsz, h, w, c, heads, hidden, shift,
+                      pack, STREAM)
     else:
         n = ws * ws
         ptrs = [
@@ -303,7 +303,7 @@ def fused_swin_block(
         packed = torch.empty(pack, dtype=dt, device=dev)
         lib = _build.load("swin_block", _SIGNATURES)
         entry = "swin_block_f32"
-        status = lib.swin_block_f32(px, out.data_ptr(), bsz, h, w, c, heads, hidden, shift, *ptrs, packed.data_ptr(),
-                                    pack, stream(dev))
+        status = call(dev, lib.swin_block_f32, px, out.data_ptr(), bsz, h, w, c, heads, hidden, shift, *ptrs,
+                      packed.data_ptr(), pack, STREAM)
     finish("fused_swin_block", status, entry)
     return out

@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from studiosr_tpu_torch.ops.cuda import _build
-from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, check, finish, stream
+from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, check, finish, STREAM, call
 from studiosr_tpu_torch.ops.cuda.conv3x3 import conv3x3_plain
 from studiosr_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 
@@ -199,8 +199,8 @@ def fused_upsample_x4(x, w0, b0, w1, b1, w2, b2):
     out = torch.empty((bsz, 4 * h, 4 * w, n_colors), dtype=dt, device=dev)
     lib = _build.load("upsampler", _SIGNATURES)
     entry = "upsample_x4_mma_bf16" if dt == torch.bfloat16 else "upsample_x4_f32"
-    status = getattr(lib, entry)(*ptrs, t1.data_ptr(), t2.data_ptr(), out.data_ptr(), bsz, h, w, cin, n_colors,
-                                 stream(dev))
+    status = call(dev, getattr(lib, entry), *ptrs, t1.data_ptr(), t2.data_ptr(), out.data_ptr(), bsz, h, w, cin,
+                  n_colors, STREAM)
     finish("fused_upsample_x4", status, entry)
     return out
 
@@ -232,6 +232,6 @@ def fused_upsample_s(x, w0, b0, w2, b2, s: int):
     out = torch.empty((bsz, s * h, s * w, n_colors), dtype=dt, device=dev)
     lib = _build.load("upsampler", _SIGNATURES)
     entry = "upsample_s_mma_bf16" if dt == torch.bfloat16 else "upsample_s_f32"
-    status = getattr(lib, entry)(*ptrs, c0.data_ptr(), out.data_ptr(), bsz, h, w, cin, n_colors, s, stream(dev))
+    status = call(dev, getattr(lib, entry), *ptrs, c0.data_ptr(), out.data_ptr(), bsz, h, w, cin, n_colors, s, STREAM)
     finish("fused_upsample_s", status, entry)
     return out

@@ -61,7 +61,7 @@ import torch.nn.functional as F
 
 from studiosr_tpu_torch.ops.attention import attention_core
 from studiosr_tpu_torch.ops.cuda import _build
-from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, check, finish, operand, stream
+from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, check, finish, operand, STREAM, call
 from studiosr_tpu_torch.ops.windows import calculate_mask, window_partition, window_reverse
 
 __all__ = [
@@ -328,17 +328,17 @@ def fused_window_attention_block(
     entry = "window_attention" + FAMILY_STEM[family] + ("_bf16" if dt == torch.bfloat16 else "_f32")
     if not large:
         lib = _build.load("window_attention", _SIGNATURES, _RESTYPES)
-        pack = lib.window_attention_pack_elems(c, heads)
+        pack = call(dev, lib.window_attention_pack_elems, c, heads)
         packed = torch.empty(pack, dtype=dt, device=dev)
-        status = getattr(lib, entry)(px, out.data_ptr(), bsz, h, w, c, heads, window_size, shift, *ptrs,
-                                     packed.data_ptr(), pack, stream(dev))
+        status = call(dev, getattr(lib, entry), px, out.data_ptr(), bsz, h, w, c, heads, window_size, shift, *ptrs,
+                      packed.data_ptr(), pack, STREAM)
     else:
         lib = _build.load("window_attention16", _SIGNATURES16, _RESTYPES16)
-        pack = lib.qkv_attention_pack_elems(c, heads)
+        pack = call(dev, lib.qkv_attention_pack_elems, c, heads)
         packed = torch.empty(pack, dtype=dt, device=dev)
-        qkv = torch.empty(lib.qkv_attention_scratch_elems(bsz * h * w, c, heads), dtype=dt, device=dev)
-        status = getattr(lib, entry)(px, out.data_ptr(), bsz, h, w, c, heads, window_size, shift, *ptrs,
-                                     qkv.data_ptr(), packed.data_ptr(), pack, stream(dev))
+        qkv = torch.empty(call(dev, lib.qkv_attention_scratch_elems, bsz * h * w, c, heads), dtype=dt, device=dev)
+        status = call(dev, getattr(lib, entry), px, out.data_ptr(), bsz, h, w, c, heads, window_size, shift, *ptrs,
+                      qkv.data_ptr(), packed.data_ptr(), pack, STREAM)
     finish(name, status, entry)
     return out
 
@@ -351,7 +351,7 @@ def _window_attention_mma(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, heads, 
     dev, f32 = x.device, torch.float32
     lib = _build.load("window_attention_mma", _SIGNATURES_MMA, _RESTYPES_MMA)
     index = _device_pack_index(c, heads, dev)
-    if lib.window_attention_mma_pack_elems(c, heads) != index.numel():
+    if call(dev, lib.window_attention_mma_pack_elems, c, heads) != index.numel():
         raise RuntimeError(f"{name}: the packed weights of C {c}, {heads} heads disagree with the kernel's layout")
     dp = None if drop_path is None else operand(drop_path, "drop_path", (bsz,), f32, dev)
     vectors = [operand(t, k, (m * c,), f32, dev) for t, k, m in ((ln_w, "ln_w", 1), (ln_b, "ln_b", 1),
@@ -370,7 +370,7 @@ def _window_attention_mma(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, heads, 
         bias16 = int(bias_dt == torch.bfloat16)
     px = check(x, "x", (bsz, h, w, c), x.dtype, dev)
     t_elems = _LL()
-    status = lib.window_attention_mma_scratch(bsz, h, w, c, heads, window_size, ctypes.byref(t_elems))
+    status = call(dev, lib.window_attention_mma_scratch, bsz, h, w, c, heads, window_size, ctypes.byref(t_elems))
     if status != 0:
         raise RuntimeError(f"{name}: CUDA error {status} while sizing the scratch")
     tscratch = torch.empty(t_elems.value, dtype=torch.bfloat16, device=dev)
@@ -378,7 +378,7 @@ def _window_attention_mma(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, heads, 
     entry = "window_attention" + FAMILY_STEM[window_family(window_size)] + "_mma_bf16"
     # the entry's order: ln_w, ln_b, bqkv, bproj, bias, drop_path, wqkv, wproj, the pack index
     ptrs = [None if t is None else t.data_ptr() for t in (*vectors, dense[0], dp, *dense[1:])]
-    status = getattr(lib, entry)(px, out.data_ptr(), bsz, h, w, c, heads, window_size, shift, bias16, *ptrs, blob,
-                                 index.numel(), tscratch.data_ptr(), t_elems.value, stream(dev))
+    status = call(dev, getattr(lib, entry), px, out.data_ptr(), bsz, h, w, c, heads, window_size, shift, bias16, *ptrs,
+                  blob, index.numel(), tscratch.data_ptr(), t_elems.value, STREAM)
     finish(name, status, entry)
     return out

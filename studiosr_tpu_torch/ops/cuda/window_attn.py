@@ -38,7 +38,7 @@ import torch
 
 from studiosr_tpu_torch.ops.attention import attention_plain
 from studiosr_tpu_torch.ops.cuda import _build, engagement
-from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, finish, operand, stream
+from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, finish, operand, STREAM, call
 from studiosr_tpu_torch.ops.cuda.window_attention import MAX_HEAD_DIM
 
 __all__ = ["window_attention", "takes", "decline", "MAX_TOKENS"]
@@ -101,7 +101,8 @@ def window_attention(q, k, v, bias=None, mask=None):
     strides = (_LL * len(flat))(*flat)
     lib = _build.load("window_attn", _SIGNATURES)
     entry = "window_attn_flash_bf16" if q.dtype == torch.bfloat16 else "window_attn_f32"
-    status = getattr(lib, entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(), None if b32 is None else b32.data_ptr(),
-                None if m32 is None else m32.data_ptr(), out.data_ptr(), strides, bw, heads, n, m, d, nw, stream(dev))
+    status = call(dev, getattr(lib, entry), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  None if b32 is None else b32.data_ptr(), None if m32 is None else m32.data_ptr(), out.data_ptr(),
+                  strides, bw, heads, n, m, d, nw, STREAM)
     finish("window_attention_pallas", status, entry)
     return out

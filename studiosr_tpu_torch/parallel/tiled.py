@@ -22,8 +22,13 @@ Window models are exactly tile-consistent when ``tile`` is a window
 multiple; outputs differ from whole-image inference only through context
 beyond the overlap, which ``tile_overlap`` controls.
 
-``mesh`` (``parallel/mesh.py``) must hold only the model's device (a
-process drives its own card) and gives the mesh-less call's output.
+With a ``mesh`` (``parallel/mesh.py``) the tile batch is rounded up to a
+multiple of ``mesh.size`` and each batch is split over the mesh's slots,
+as the JAX package shards it over its devices: the host loop sends each
+batch through ``Model.manual_forward_uint8``, the device loop cuts each
+slot's tiles on the slot's card and reassembles on the model's device.
+The output is the mesh-less call's, byte for byte. A mesh over several
+processes raises, as in the JAX package: shard images across processes.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from collections import deque
 import numpy as np
 import torch
 
-from studiosr_tpu_torch.parallel.mesh import check_devices
+from studiosr_tpu_torch.parallel.mesh import replicas, run_sharded
 
 __all__ = ["tiled_inference", "tile_grid", "DEVICE_LOOP_TILES"]
 
@@ -67,8 +72,10 @@ def tiled_inference(
     output, except at the image borders, where the halo is kept.
     ``device_loop`` True runs the loop on the model's device, False on the
     host, None on the device at most :data:`DEVICE_LOOP_TILES` tiles."""
-    if mesh is not None:
-        check_devices(mesh, model.device)
+    if mesh is not None and mesh.world_size > 1:
+        raise ValueError("tiled_inference(mesh=...) over several processes: every process holds the whole image, so "
+                         "each tile would be computed once a process; pass a mesh over this process's devices (or "
+                         "mesh=None) and shard IMAGES across processes instead")
     scale = model.scale
     h, w, c = image.shape
 
@@ -92,10 +99,13 @@ def tiled_inference(
     coords = [(y, x) for y in tile_grid(ph, tile, stride) for x in tile_grid(pw, tile, stride)]
     n = len(coords)
     batch = min(tile_batch, int(2 ** math.ceil(math.log2(max(1, n)))))
+    if mesh is not None:
+        batch = -(-max(batch, mesh.size) // mesh.size) * mesh.size  # a multiple of the mesh's size
     if device_loop is None:
         device_loop = n <= DEVICE_LOOP_TILES
     if device_loop:
-        return _device_tiled(model, padded, coords, tile, tile_overlap, batch, h, w)
+        return _device_tiled(model, padded, coords, tile, tile_overlap, batch, h, w, mesh)
+    forward = model.forward_uint8 if mesh is None else (lambda chunk: model.manual_forward_uint8(chunk, mesh))
 
     tiles = np.stack([padded[y : y + tile, x : x + tile] for y, x in coords])
     output = np.zeros((ph * scale, pw * scale, c), dtype=np.uint8)
@@ -105,7 +115,7 @@ def tiled_inference(
         chunk = tiles[start : start + batch]
         if len(chunk) < batch:  # zero-pad the tail batch to the fixed shape
             chunk = np.concatenate([chunk, np.zeros((batch - len(chunk), tile, tile, c), np.uint8)])
-        inflight.append((model.forward_uint8(torch.from_numpy(chunk)), start))
+        inflight.append((forward(torch.from_numpy(chunk)), start))
         if len(inflight) > depth:
             sr, at = inflight.popleft()
             _write(output, sr.cpu().numpy(), coords[at : at + batch], tile, tile_overlap, scale, (ph, pw))
@@ -129,21 +139,31 @@ def _write(output, sr, coords, tile: int, tile_overlap: int, scale: int, padded_
         output[oy + top : oy + bottom, ox + left : ox + right] = sr[j, top:bottom, left:right]
 
 
-def _device_tiled(model, padded: np.ndarray, coords, tile: int, tile_overlap: int, batch: int, h: int, w: int):
+def _device_tiled(model, padded: np.ndarray, coords, tile: int, tile_overlap: int, batch: int, h: int, w: int,
+                  mesh=None):
     """The tile loop on ``model.device``: the padded uint8 image crosses to
     it once, the tiles are sliced there in the host loop's order and batched
     in its fixed shape (the tail batch padded with zero tiles), each batch's
     uint8 forward is reassembled there in the host loop's write order (so
     snapped-edge overlaps resolve the same way), and the uint8 output
-    crosses back once."""
+    crosses back once. With a ``mesh`` the image crosses once to each slot,
+    which cuts its share of every batch there and runs it; the shares are
+    gathered and reassembled on ``model.device``."""
     scale, dev = model.scale, model.device
     ph, pw, c = padded.shape
-    img = torch.from_numpy(np.ascontiguousarray(padded)).to(dev)
+    host = torch.from_numpy(np.ascontiguousarray(padded))
+    images = {id(r): host.to(r.device) for r in (replicas(model, mesh) if mesh is not None else [model])}
+
+    def forward(replica, part):
+        img = images[id(replica)]
+        fill = torch.zeros((tile, tile, c), dtype=torch.uint8, device=img.device) if None in part else None
+        tiles = [fill if yx is None else img[yx[0] : yx[0] + tile, yx[1] : yx[1] + tile] for yx in part]
+        return replica.forward_uint8(torch.stack(tiles))
+
     output = torch.zeros((ph * scale, pw * scale, c), dtype=torch.uint8, device=dev)
-    fill = [torch.zeros((tile, tile, c), dtype=torch.uint8, device=dev)]
     for start in range(0, len(coords), batch):
         part = coords[start : start + batch]
-        tiles = [img[y : y + tile, x : x + tile] for y, x in part]
-        sr = model.forward_uint8(torch.stack(tiles + fill * (batch - len(tiles))))
+        padded_part = list(part) + [None] * (batch - len(part))
+        sr = forward(model, padded_part) if mesh is None else run_sharded(model, mesh, forward, padded_part)
         _write(output, sr, part, tile, tile_overlap, scale, (ph, pw))
     return output[: h * scale, : w * scale].cpu().numpy()

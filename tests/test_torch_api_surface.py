@@ -31,19 +31,15 @@ RENAMES = {
     # Model methods
     "apply_train": ("studiosr_tpu_torch.parallel.make_train_step", "module.train() and the module's forward with a "
                                                                    "torch.Generator, as the train step applies it"),
-    "manual_forward_uint8": ("studiosr_tpu_torch.models.base.Model.forward_uint8",
-                             "a process drives its own card: the single-device forward is the mesh's"),
-    "needs_manual_spmd": (None, "Pallas kernels cannot be partitioned by GSPMD; the CUDA kernels launch on the "
-                                "process's own card, data parallelism is multi-process (parallel/dist.py)"),
+    "needs_manual_spmd": ("studiosr_tpu_torch.parallel.mesh.run_sharded",
+                          "CUDA kernels need no manual partitioning: every slot runs the single-card path"),
     "params": ("torch.nn.Module.parameters", "model.module.parameters() and model.module.state_dict()"),
     "serving_prep": ("studiosr_tpu_torch.models.base.FusedServingModel.serving_prep",
                      "kept on the families with a fused CUDA serving path"),
     "set_matmul_precision": ("studiosr_tpu_torch.models.base.Model.astype",
                              "f32 is f32 (resolve_device turns TF32 off on the card); astype / half for bf16"),
-    "shard_map_batch": ("studiosr_tpu_torch.parallel.mesh.check_devices",
-                        "a mesh holds only the process's own card; no shard_map"),
-    "sharded_forward": ("studiosr_tpu_torch.models.base.Model.evaluate_uint8_batch",
-                        "its mesh= argument; data parallelism is multi-process (parallel/dist.py)"),
+    "shard_map_batch": ("studiosr_tpu_torch.parallel.mesh.run_sharded",
+                        "CUDA kernels need no manual partitioning: every slot runs the single-card path"),
 }
 
 

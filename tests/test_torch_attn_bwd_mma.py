@@ -19,8 +19,16 @@ from studiosr_tpu_torch.ops.attn_vjp import attention_map_vjp
 from studiosr_tpu_torch.ops.cuda import engagement
 from studiosr_tpu_torch.ops.cuda.attn_bwd import _pack_index, attention_bwd, mma_takes, pack_attn_bwd_weights
 from studiosr_tpu_torch.ops.cuda.window_attention import window_attention_plain
+from studiosr_tpu_torch.ops.cuda._launch import STREAM
 
 torch.set_num_threads(2)
+
+
+def _meta_call(device, entry, *args):
+    """``_launch.call`` for operands on the meta device, which reach the
+    launch path without a card: no card to make current, stream 0."""
+    return entry(*(0 if a is STREAM else a for a in args))
+
 
 GRAD_NAMES = ["dx", "ds", "db", "dwqkv", "dbqkv", "dwproj", "dbproj", "dbias"]
 # (C, heads): SwinIR's and HAT's 6 heads of 30, MaxSR's 4 of 32, the trained
@@ -215,7 +223,7 @@ def test_attention_bwd_routes_by_dtype_window_and_head_dim(monkeypatch, dtype, w
 
     lib = _FakeLibrary()
     monkeypatch.setattr(_build, "load", lambda name, signatures, restypes=None: lib)
-    monkeypatch.setattr(module, "stream", lambda device: 0)
+    monkeypatch.setattr(module, "call", _meta_call)
     engagement.reset()
     n, f32 = ws * ws, torch.float32
     meta = lambda *s, dt=dtype: torch.empty(*s, dtype=dt, device="meta")  # noqa: E731

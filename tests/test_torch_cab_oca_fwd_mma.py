@@ -32,8 +32,16 @@ from studiosr_tpu_torch.ops.cuda.oca_core import (
     counter, fwd_from_images, mma_takes, oca_core_fwd, pack_fwd_images,
 )
 from studiosr_tpu_torch.serving.hat_fast import prepare_hat_serving
+from studiosr_tpu_torch.ops.cuda._launch import STREAM
 
 torch.set_num_threads(2)
+
+
+def _meta_call(device, entry, *args):
+    """``_launch.call`` for operands on the meta device, which reach the
+    launch path without a card: no card to make current, stream 0."""
+    return entry(*(0 if a is STREAM else a for a in args))
+
 
 ATOL_B11, RTOL_B11 = 2e-5, 1e-4
 ATOL_B12, RTOL_B12 = 1e-4, 1e-4
@@ -283,7 +291,7 @@ def _fake(monkeypatch, module):
 
     lib = _FakeLibrary()
     monkeypatch.setattr(_build, "load", lambda name, signatures, restypes=None: lib)
-    monkeypatch.setattr(module, "stream", lambda device: 0)
+    monkeypatch.setattr(module, "call", _meta_call)
     engagement.reset()
     return lib
 

@@ -1655,3 +1655,35 @@ def test_small_hat_fused_train_at_windows_12_and_24(dev, ws):
     np.testing.assert_allclose(results[1][0], results[0][0], rtol=1e-5)
     for k, g in results[0][1].items():
         assert float((results[1][1][k] - g).abs().max()) <= 1e-4 * float(g.abs().max()) + 1e-6, k
+
+
+# A20: serving over a mesh of slots in one process, each slot its own
+# replica, host thread and CUDA stream; the bytes are the mesh-less ones.
+@pytest.mark.parametrize("family", ["swinir", "hat"])
+def test_tiled_over_two_slots_of_one_card_gives_the_meshless_bytes(dev, family):
+    from studiosr_tpu_torch.parallel import get_mesh, tiled_inference
+
+    cls = SwinIR if family == "swinir" else HAT
+    model = cls.build(scale=4, embed_dim=32, depths=[2], num_heads=[2], window_size=8, device=dev, seed=0)
+    model.half().enable_fused(True)
+    image = np.random.default_rng(4).integers(0, 256, (80, 72, 3), dtype=np.uint8)
+    mesh = get_mesh([torch.device("cuda", torch.cuda.current_device())] * 2)
+    for loop in (False, True):
+        engagement.reset()
+        got = tiled_inference(model, image, tile=32, tile_overlap=8, tile_batch=4, mesh=mesh, device_loop=loop)
+        assert engagement.counters(), "the mesh route launched no kernel"
+        want = tiled_inference(model, image, tile=32, tile_overlap=8, tile_batch=4, device_loop=loop)
+        np.testing.assert_array_equal(got, want)
+
+
+# C10: a kernel launches on its operands' card, whichever card is current.
+def test_kernels_launch_on_their_operands_card(dev):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    gen = torch.Generator().manual_seed(0)
+    x, w, b = _randn(gen, 1, 24, 24, 32), _randn(gen, 3, 3, 32, 32, scale=0.1), _randn(gen, 32, scale=0.1)
+    want = fused_conv3x3(*(t.to("cuda:0") for t in (x, w, b)))
+    with torch.cuda.device(0):
+        got = fused_conv3x3(*(t.to("cuda:1") for t in (x, w, b)))
+        assert torch.cuda.current_device() == 0
+    torch.testing.assert_close(got.cpu(), want.cpu(), rtol=0, atol=0)

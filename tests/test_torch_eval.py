@@ -82,11 +82,11 @@ def test_evaluate_uint8_batch_matches_jax(x2_pair):
     want = jax_model.evaluate_uint8_batch(np.stack(lqs), np.stack(gts), crop_border=2)
     np.testing.assert_allclose(got[0], want[0], atol=1e-4)
     np.testing.assert_allclose(got[1], want[1], atol=1e-5)
-    # over a mesh of the model's own device: the mesh-less numbers; a mesh on another device raises
-    meshed = model.evaluate_uint8_batch(np.stack(lqs), np.stack(gts), crop_border=2, mesh=get_mesh(["cpu", "cpu"]))
+    # over a mesh of three CPU slots (one image each): the mesh-less numbers; a device that is not cpu or cuda raises
+    meshed = model.evaluate_uint8_batch(np.stack(lqs), np.stack(gts), crop_border=2, mesh=get_mesh(["cpu"] * 3))
     np.testing.assert_array_equal(meshed[0], got[0])
     np.testing.assert_array_equal(meshed[1], got[1])
-    with pytest.raises(ValueError, match="lives on"):
+    with pytest.raises(ValueError, match="runs on 'cuda' or 'cpu'"):
         model.evaluate_uint8_batch(np.stack(lqs), np.stack(gts), mesh=get_mesh(["meta"]))
 
 
@@ -100,17 +100,17 @@ def test_inference_tiled_matches_jax_host_loop(x2_pair, tile, overlap, batch):
 
 def test_tiled_modes_without_a_port_raise(x2_pair):
     """Every tiled mode serves now (it raised until the one it named was
-    ported): the device loop gives the host loop's bytes, and a mesh of the
-    model's own device the mesh-less output; a mesh on another device still
-    raises."""
+    ported): the device loop gives the host loop's bytes, and a mesh of
+    slots (each its own replica) the mesh-less output; a mesh on a device
+    that is not cpu or cuda still raises."""
     _, model = x2_pair
     lr = _fixture(0)[0]
     np.testing.assert_array_equal(model.inference_tiled(lr, tile=32, device_loop=True),
                                   model.inference_tiled(lr, tile=32, device_loop=False))
-    # tiles over a mesh of the model's own device: the mesh-less output
+    # tiles over a mesh of two CPU slots: the mesh-less output
     np.testing.assert_array_equal(model.inference_tiled(lr, tile=32, tile_batch=4, mesh=get_mesh(["cpu", "cpu"])),
                                   model.inference_tiled(lr, tile=32, tile_batch=4))
-    with pytest.raises(ValueError, match="lives on"):
+    with pytest.raises(ValueError, match="runs on 'cuda' or 'cpu'"):
         model.inference_tiled(lr, tile=32, mesh=get_mesh(["meta"]))
     np.testing.assert_array_equal(tile_grid(84, 32, 16), [0, 16, 32, 48, 52])
 

@@ -28,8 +28,16 @@ from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd
 from studiosr_tpu_torch.ops.cuda.oca_core import oca_core_bwd, oca_core_bwd_plain, oca_core_fwd, oca_core_plain
 from studiosr_tpu_torch.ops.cuda.window_attention import window_attention_plain
 from studiosr_tpu_torch.ops.oca_vjp import oca_attention
+from studiosr_tpu_torch.ops.cuda._launch import STREAM
 
 torch.set_num_threads(2)
+
+
+def _meta_call(device, entry, *args):
+    """``_launch.call`` for operands on the meta device, which reach the
+    launch path without a card: no card to make current, stream 0."""
+    return entry(*(0 if a is STREAM else a for a in args))
+
 
 GRAD_NAMES_ATTN = ["dx", "ds", "db", "dwqkv", "dbqkv", "dwproj", "dbproj", "dbias"]
 
@@ -305,8 +313,8 @@ def test_hat_above_window_16_stops_at_b12_b13(monkeypatch):
             return lambda *args: 1 if name.endswith("elems") else 0
 
     monkeypatch.setattr(_build, "load", lambda name, signatures, restypes=None: Library())
-    monkeypatch.setattr(ocab_module, "stream", lambda device: 0)
-    monkeypatch.setattr(oca_module, "stream", lambda device: 0)
+    monkeypatch.setattr(ocab_module, "call", _meta_call)
+    monkeypatch.setattr(oca_module, "call", _meta_call)
     ws, c, heads, hidden = 24, 180, 6, 360
     owin, _ = overlap_window(ws, 0.5)
     meta = lambda *s, dt=torch.bfloat16: torch.empty(*s, dtype=dt, device="meta")  # noqa: E731

@@ -49,8 +49,16 @@ from studiosr_tpu_torch.ops.windows import gather_rel_bias, relative_position_in
 from studiosr_tpu_torch.serving.hat_fast import hat_fast_forward
 from studiosr_tpu_torch.zoo import jax_params_to_state_dict, load_jax_params
 from tests.test_torch_ocab_mma import _FakeLibrary, _block_from_images, _block_ops, _expected_key_images, _images
+from studiosr_tpu_torch.ops.cuda._launch import STREAM
 
 torch.set_num_threads(2)
+
+
+def _meta_call(device, entry, *args):
+    """``_launch.call`` for operands on the meta device, which reach the
+    launch path without a card: no card to make current, stream 0."""
+    return entry(*(0 if a is STREAM else a for a in args))
+
 
 # every window from 2 to 32 whose key margin is even at overlap 0.5
 HAT_WINDOWS = [ws for ws in range(2, 33) if int(ws * 0.5) % 2 == 0]
@@ -221,8 +229,8 @@ def test_every_even_margin_window_reaches_a_kernel(monkeypatch, ws, dtype):
     from studiosr_tpu_torch.ops.cuda import _build
 
     monkeypatch.setattr(_build, "load", lambda name, signatures, restypes=None: _FakeLibrary())
-    monkeypatch.setattr(ocab_module, "stream", lambda device: 0)
-    monkeypatch.setattr(oca_module, "stream", lambda device: 0)
+    monkeypatch.setattr(ocab_module, "call", _meta_call)
+    monkeypatch.setattr(oca_module, "call", _meta_call)
     c, heads, hidden, f32 = 180, 6, 360, torch.float32
     owin, _ = overlap_window(ws, 0.5)
     nq, nk, d = ws * ws, owin * owin, c // heads

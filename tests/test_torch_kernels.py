@@ -25,8 +25,16 @@ from studiosr_tpu_torch.ops.cuda.swin_block import (
     fused_swin_block, mma_geometry_error, pack_swin_weights, swin_block_plain, swin_pack_stages, unpack_swin_weights,
 )
 from studiosr_tpu_torch.ops.cuda.upsampler import fused_upsample_x4
+from studiosr_tpu_torch.ops.cuda._launch import STREAM
 
 torch.set_num_threads(2)
+
+
+def _meta_call(device, entry, *args):
+    """``_launch.call`` for operands on the meta device, which reach the
+    launch path without a card: no card to make current, stream 0."""
+    return entry(*(0 if a is STREAM else a for a in args))
+
 
 ATOL, RTOL = 5e-5, 1e-4
 
@@ -188,7 +196,7 @@ def _fake_launches(monkeypatch, module):
 
     lib = _FakeLibrary()
     monkeypatch.setattr(_build, "load", lambda name, signatures: lib)
-    monkeypatch.setattr(module, "stream", lambda device: 0)
+    monkeypatch.setattr(module, "call", _meta_call)
     engagement.reset()
     return lib
 
@@ -416,7 +424,7 @@ def test_swin_block_launch_takes_the_entry_of_its_dtype(monkeypatch, dtype, entr
 
     lib = _CountingLibrary()
     monkeypatch.setattr(_build, "load", lambda name, signatures, restypes=None: lib)
-    monkeypatch.setattr(module, "stream", lambda device: 0)
+    monkeypatch.setattr(module, "call", _meta_call)
     engagement.reset()
     c, heads, hidden = 180, 6, 360
     meta = lambda *s, dt=dtype: torch.empty(*s, dtype=dt, device="meta")

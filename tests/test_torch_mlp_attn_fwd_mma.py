@@ -32,8 +32,16 @@ from studiosr_tpu_torch.ops.cuda.window_attention import (
     unpack_window_attention, window_attention_plain,
 )
 from studiosr_tpu_torch.ops.mlp_vjp import mlp_block_dp_vjp
+from studiosr_tpu_torch.ops.cuda._launch import STREAM
 
 torch.set_num_threads(2)
+
+
+def _meta_call(device, entry, *args):
+    """``_launch.call`` for operands on the meta device, which reach the
+    launch path without a card: no card to make current, stream 0."""
+    return entry(*(0 if a is STREAM else a for a in args))
+
 
 # (C, heads): SwinIR's and HAT's 6 heads of 30, MaxSR's 4 of 32, the trained
 # fixtures' 2 of 16, and head dims 8, 12 and 24 of the card tests; B7 takes
@@ -381,7 +389,7 @@ def _fake(monkeypatch, module):
 
     lib = _FakeLibrary()
     monkeypatch.setattr(_build, "load", lambda name, signatures, restypes=None: lib)
-    monkeypatch.setattr(module, "stream", lambda device: 0)
+    monkeypatch.setattr(module, "call", _meta_call)
     engagement.reset()
     return lib
 

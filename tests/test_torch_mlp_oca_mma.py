@@ -30,8 +30,16 @@ from studiosr_tpu_torch.ops.cuda.oca_core import (
 from studiosr_tpu_torch.ops.cuda.oca_core import mma_takes as oca_mma_takes
 from studiosr_tpu_torch.ops.mlp_vjp import mlp_block_dp_vjp
 from studiosr_tpu_torch.ops.oca_vjp import oca_attention
+from studiosr_tpu_torch.ops.cuda._launch import STREAM
 
 torch.set_num_threads(2)
+
+
+def _meta_call(device, entry, *args):
+    """``_launch.call`` for operands on the meta device, which reach the
+    launch path without a card: no card to make current, stream 0."""
+    return entry(*(0 if a is STREAM else a for a in args))
+
 
 ATOL_B6, RTOL_B6 = 5e-5, 1e-4
 ATOL_B13, RTOL_B13 = 1e-4, 1e-4
@@ -248,7 +256,7 @@ def _fake(monkeypatch, module):
 
     lib = _FakeLibrary()
     monkeypatch.setattr(_build, "load", lambda name, signatures, restypes=None: lib)
-    monkeypatch.setattr(module, "stream", lambda device: 0)
+    monkeypatch.setattr(module, "call", _meta_call)
     engagement.reset()
     return lib
 

@@ -37,8 +37,16 @@ from studiosr_tpu_torch.ops.cuda.window_attention import pack_window_attention
 from studiosr_tpu_torch.ops.windows import gather_rel_bias, relative_position_index_oca, window_partition, window_reverse
 from studiosr_tpu_torch.serving.hat_fast import hat_fast_forward, prepare_hat_serving
 from studiosr_tpu_torch.zoo import load_jax_params
+from studiosr_tpu_torch.ops.cuda._launch import STREAM
 
 torch.set_num_threads(2)
+
+
+def _meta_call(device, entry, *args):
+    """``_launch.call`` for operands on the meta device, which reach the
+    launch path without a card: no card to make current, stream 0."""
+    return entry(*(0 if a is STREAM else a for a in args))
+
 
 ATOL, RTOL = 5e-5, 1e-4
 
@@ -366,7 +374,7 @@ def test_fused_ocab_block_routes_by_dtype_and_geometry(monkeypatch, dtype, c, he
 
     lib = _FakeLibrary()
     monkeypatch.setattr(_build, "load", lambda name, signatures, restypes=None: lib)
-    monkeypatch.setattr(module, "stream", lambda device: 0)
+    monkeypatch.setattr(module, "call", _meta_call)
     engagement.reset()
     owin, pad = overlap_window(ws, overlap)
     f32 = torch.float32
