@@ -62,8 +62,9 @@ against its plain PyTorch version:
   at window 24 (depth not cut; bf16, batch 1, 256x256 LR: B11 36, B5 36,
   B6 ``extra`` 36, B10 6, B2 7, B3 1 a forward) and at window 12 the same
   way, and trained fused at window 24 at the JAX recipe (batch 32 of 64x64
-  crops: B5 / B9 36 in their streaming family, B6 / B7 36, B12 / B13 6 a
-  step);
+  crops: B5 / B9 36 in their large family, B6 / B7 36, B12 / B13 6 a
+  step), B12, B13, B5 and B9 timed at the step's shapes (B9 and B13 on
+  the two-formation core ``csrc/lb_core.cuh``);
 * the published-weight zoo offline: release-layout files written under a
   temporary ``./pretrained`` from seeded port models (SwinIR x4, HAT, EDSR,
   RCAN at their published widths) and read by ``from_pretrained``, the CLI
@@ -304,6 +305,10 @@ Phases, in order; any failure exits non-zero before the final line:
     ms; B12 and B13 at the step's shapes (288 windows, 576 | 1296, the bias
     in bf16) against their plain versions, twice for the same bits, timed
     beside SDPA with the bias as its mask (the ``oca_core_*_large`` rows);
+    B5 and B9 at the step's shapes (batch 32 of 72² maps, shift 12,
+    drop-path, the bias in bf16) the same way, timed beside their plain
+    versions and bf16 PyTorch sequences (the ``*_large_hat_ws24`` rows; B9
+    and B13 on the two-formation core ``csrc/lb_core.cuh``);
     the window-24 model's gradients against the f64 witness at batch 4
     (its plain runs recompute each window attention and OCAB in the
     backward).
@@ -536,7 +541,7 @@ H100_KERNELS = {"fused_swin_block": ("swin_block_mma", "swin_block_mma_kernel"),
                 "window_attention_pallas": ("window_attn", "wf_kernel"),
                 "fused_upsample_x4": ("upsampler", "upsample_"), "fused_upsample_s": ("upsampler", "upsample_"),
                 "attention_bwd": ("attn_bwd_mma", "am_"), "attention_bwd_ws16": ("attn_bwd_mma", "am_"),
-                "attention_bwd_large": ("attn_bwd_mma", "al_"),
+                "attention_bwd_large": ("attn_bwd_mma", "lb_"),
                 "fused_window_attention_block": ("window_attention_mma", "_kernel"),
                 "fused_window_attention_block_ws16": ("window_attention_mma", "_kernel"),
                 "fused_window_attention_block_large": ("window_attention_mma", "wa_attn_large"),
@@ -544,7 +549,7 @@ H100_KERNELS = {"fused_swin_block": ("swin_block_mma", "swin_block_mma_kernel"),
                 "fused_mlp_block_extra": ("mlp_block_mma", "mf_kernel"), "oca_core_bwd": ("oca_bwd_mma", "ob_"),
                 "fused_cab_body": ("cab_mma", "_kernel"), "oca_core_fwd": ("oca_fwd_mma", "of_"),
                 "fused_ocab_block": ("ocab_mma", "_kernel"), "oca_core_fwd_large": ("oca_fwd_mma", "of_"),
-                "oca_core_bwd_large": ("oca_bwd_mma", "ol_")}
+                "oca_core_bwd_large": ("oca_bwd_mma", "lb_")}
 # The C entry every launch of B5-B9, B12 and B13 must take in a run of each
 # dtype: bf16 the kernels written for the H100 (their geometry rules hold at
 # every width the paths train), f32 the older kernels.
@@ -3585,11 +3590,64 @@ def hat_ws24_oca_rows(dev: torch.device, launches: dict, step_ms: float, failed:
     return rows
 
 
+def hat_ws24_attention_rows(dev: torch.device, launches: dict, step_ms: float, failed: list) -> list:
+    """B5 and B9 in their large families at the window-24 step's shapes
+    (batch 32 of 72² maps, 288 windows of 576 tokens, C 180, 6 heads, shift
+    12, drop-path scales with a 0, the bias in bf16 as the bf16 step gathers
+    it): against their plain versions, B9's two launches the same bits, each
+    timed beside its plain version and its bf16 PyTorch sequence, with its
+    bound. The kernels line's ``*_large_hat_ws24`` rows (B9's on
+    ``lb_core.cuh``)."""
+    ws = 24
+    c, heads = HAT_MAIN["embed_dim"], HAT_MAIN["num_heads"][0]
+    side = -(-TRAIN_CROP // ws) * ws
+    x, g, ops = large_window_ops(dev, torch.bfloat16, c, heads, ws, (TRAIN_BATCH, side, side), SEED + 240)
+    ops[6] = ops[6].to(torch.bfloat16)
+    kw = kw_of(f"shift {ws // 2}", ws, TRAIN_BATCH, dev)
+    label = f"hat window 24 step, {TRAIN_BATCH} x {side}² maps, C {c}, {heads} heads"
+    rows = []
+    cases = (("fused_window_attention_block_large", fused_window_attention_block, window_attention_plain, (x, *ops)),
+             ("attention_bwd_large", attention_bwd, attention_bwd_plain, (x, g, *ops)))
+    for name, kernel, plain, args in cases:
+        engagement.reset()
+        got = _flat(kernel(*args, **kw))
+        again = _flat(kernel(*args, **kw))
+        torch.cuda.synchronize()
+        if engagement.entries() != {name: {TRAIN_ENTRIES[torch.bfloat16][name]: 2}}:
+            failed.append(f"{name} [{label}]: entries {engagement.entries()}")
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"check {name} [{label}] bf16: two launches give the same bits: {same}")
+        if not same:
+            failed.append(f"{name} [{label}]: two launches differ")
+        del again
+        want = _flat(plain(*[t.float() for t in args], **kw))
+        err = [kernel_check(f"{name} [{label}] output {i}", a, e, torch.bfloat16, failed)
+               for i, (a, e) in enumerate(zip(got, want))][0]
+        del got, want
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda: kernel(*args, **kw), iters=10)
+        plain_ms = time_ms(lambda: plain(*args, **kw), iters=3, warmup=1)
+        torch.cuda.empty_cache()
+        flops, moved = train_bounds(name, args)
+        bms, by = bound_ms(flops, moved)
+        log(f"time {name} [{label}] bf16: {ms:.3f} ms ({100 * 36 * ms / step_ms:.1f} % of a window-24 step at 36 a "
+            f"step), plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), {flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} "
+            f"MB; launches {launches.get(name, 0)} in {HAT_WS24_STEPS} steps")
+        yardstick_report(name, args, ms, bms, kw)
+        source, replaces = KERNELS[name]
+        rows.append(dict(name=f"{name}_hat_ws24", route="cuda", source=source, replaces=replaces,
+                         launches=launches.get(name, 0), max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                         bound_by=by, library_ms=None))
+    del x, g, ops
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_hat_windows(dev: torch.device) -> list:
     """HAT at every window: the kernel checks at windows 4, 12, 24 and 32;
     HAT x4 served at windows 24 and 12 at full width; HAT x4 trained fused
-    at window 24 (the Trainer, then the step timed, then B12 and B13 at the
-    step's shapes); the gradients of the window-24 model against the f64
+    at window 24 (the Trainer, then the step timed, then B12, B13, B5 and B9
+    at the step's shapes); the gradients of the window-24 model against the f64
     witness at batch 4 (the plain runs recompute each window attention and
     OCAB in the backward). Returns the kernels line's rows."""
     failed = []
@@ -3602,6 +3660,7 @@ def phase_hat_windows(dev: torch.device) -> list:
         rows.append(row)
     launches, step_ms = hat_ws24_train(dev, failed)
     rows += hat_ws24_oca_rows(dev, launches, step_ms, failed)
+    rows += hat_ws24_attention_rows(dev, launches, step_ms, failed)
     if failed:
         raise AssertionError("hat windows: " + "; ".join(failed))
     hold_grads(dev, HAT.build(**HAT_WS24_TRAIN, seed=SEED, device=dev), HAT_WS24_PER_STEP, "hat window 24 ",

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's attention kernels on one NVIDIA GPU.
 
-    python3 scripts/torch_time_attn_kernels.py [--checkout DIR] [--bits FILE]
+    python3 scripts/torch_time_attn_kernels.py [--checkout DIR] [--large] [--bits FILE]
 
 Times, in bf16 with seeded operands, by CUDA events over 20 launches after 3
 warm-up launches:
@@ -30,12 +30,14 @@ warm-up launches:
   ``pack_window_attention``), each beside its yardstick: the same half as
   a sequence of bf16 PyTorch calls (LayerNorm, cuBLAS, SDPA with the bias
   and shift mask as its mask, the projection and the add);
-* above window 16 (B5's and B9's streaming family, ``_large``): B5 and its
+* above window 16 (B5's and B9's large families, ``_large``): B5 and its
   backward at MaxSR x4's adaptive step on a 289 x 289 crop (window 17, C
-  128, 4 heads, batch 1, no shift, drop-path scale 1) and B5 at SwinIR x4
-  serving at window 24 (one 264 x 264 map, C 180, shift 12, the weights
-  packed once), each beside its yardstick; a checkout from before the
-  family raises there, and its times are NaN;
+  128, 4 heads, batch 1, no shift, drop-path scale 1) and at HAT x4's
+  window-24 step (batch 32 of 72 x 72 maps, C 180, 6 heads, shift 12,
+  drop-path scales, the bias in bf16), and B5 at SwinIR x4 serving at
+  window 24 (one 264 x 264 map, C 180, shift 12, the weights packed once),
+  each beside its yardstick; a checkout from before the family raises
+  there, and its times are NaN;
 * B5 and B6 at SwinFIR / SwinIR x4 serving at window 12 (one 264 x 264
   map, shift 6, no drop-path, the weights packed once as serving packs
   them), each beside the same yardstick;
@@ -68,13 +70,16 @@ warm-up launches:
   through the older kernel where not (``nan`` where the checkout raises),
   beside its yardstick; B12 and B13 in their large family at HAT's
   window-24 step (288 windows, 6 heads, 576 | 1296, d 30, the bias in
-  bf16);
+  bf16), and B13 there again with the same bias values in bf16 and in f32,
+  timed bf16, f32, f32, bf16 (each row the mean of its two runs, and its
+  ``spread`` their difference);
 * as controls: B5, B7, B8, B9 (above).
 
 The kernels are built first, one ``nvcc`` a source, all started together.
 The per-pass split of B5, B6, B7, B8, B9, B10, B12 and B13: ``torch.profiler`` over 10 calls
 gives the device time of every kernel a call enqueues, by name in launch
-order. Prints one
+order. ``--large`` times only what is above window 16 (the item before
+last, and B10, B12, B13 at HAT's windows 24 and 12). Prints one
 JSON line: {"package": path, "card": nvidia-smi's name and power limit,
 "ms": {kernel: ms}, "passes": {kernel: [[kernel name, launches, ms], ...]},
 "entries": {kernel: {C entry: launches}}}. The package is whichever
@@ -337,7 +342,7 @@ def ocab_forward_sequence(x, ops, heads: int, ws: int, overlap_ratio: float):
     return forward
 
 
-def measure() -> dict:
+def measure(large_only: bool = False) -> dict:
     import torch
     import torch.nn.functional as F
 
@@ -363,6 +368,10 @@ def measure() -> dict:
         return (torch.randn(*shape, generator=gen) * scale).to(dev)
 
     ms, passes, entries = {}, {}, {}
+    if large_only:
+        measure_large(dev, randn, ms, passes, entries)
+        return {"package": studiosr_tpu_torch.__file__, "card": card_line(), "ms": ms, "passes": passes,
+                "entries": entries}
     for mode, windows, n, with_bias in (("adaptive", 256, 256, False), ("static", 1024, 64, True)):
         qkv = randn(windows, n, 3, 4, 32).to(bf).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0] * 32**-0.5, qkv[1], qkv[2]
@@ -545,14 +554,43 @@ def measure() -> dict:
 
     ms["oca_core_bwd library (SDPA backward)"] = time_ms(sdpa_both, iters=5, warmup=2) - sdpa_fwd
 
-    # above window 16: MaxSR's step at a 289² crop (window 17) and SwinIR x4 serving at window 24
-    for label, ws, c, heads, side, shift, train in (("maxsr step 289", 17, 128, 4, 289, 0, True),
-                                                    ("swinir serving", 24, 180, 6, 264, 12, False)):
-        xl = randn(1, side, side, c).to(bf)
+    measure_large(dev, randn, ms, passes, entries)
+    return {"package": studiosr_tpu_torch.__file__, "card": card_line(), "ms": ms, "passes": passes,
+            "entries": entries}
+
+
+def card_line() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def measure_large(dev, randn, ms: dict, passes: dict, entries: dict) -> None:
+    """Above window 16: B5 and B9 in their large families (MaxSR's step at a
+    289² crop, SwinIR x4 serving at window 24, HAT's window-24 step) and B10,
+    B12 and B13 at HAT's windows 24 and 12, each beside its yardstick."""
+    import torch
+    import torch.nn.functional as F  # noqa: F401
+
+    from studiosr_tpu_torch.ops.cuda import engagement
+    from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd
+    from studiosr_tpu_torch.ops.cuda.oca_core import oca_core_bwd, oca_core_fwd
+    from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block
+    from studiosr_tpu_torch.ops.cuda.window_attention import fused_window_attention_block
+
+    bf = torch.bfloat16
+    # above window 16: MaxSR's step at a 289² crop (window 17), SwinIR x4 serving at window 24 and HAT's
+    # window-24 step (batch 32 of 72² maps, 288 windows, the bias in bf16 as the bf16 step gathers it)
+    for label, ws, c, heads, batch, side, shift, train in (
+            ("maxsr step 289", 17, 128, 4, 1, 289, 0, True), ("swinir serving", 24, 180, 6, 1, 264, 12, False),
+            ("hat step ws24", 24, 180, 6, BATCH, 72, 12, True)):
+        xl = randn(batch, side, side, c).to(bf)
         dense = (1 + randn(c, scale=0.1), randn(c, scale=0.1), randn(c, 3 * c, scale=c**-0.5).to(bf),
                  randn(3 * c, scale=0.1), randn(c, c, scale=c**-0.5).to(bf), randn(c, scale=0.1),
                  randn(heads, ws * ws, ws * ws, scale=0.5))
-        kw = dict(heads=heads, window_size=ws, shift=shift, drop_path=torch.ones(1, device=dev) if train else None)
+        if batch > 1:
+            dense = (*dense[:6], dense[6].to(bf))
+        dpl = torch.full((batch,), 1 / 0.9, device=dev) if batch > 1 else torch.ones(1, device=dev)
+        kw = dict(heads=heads, window_size=ws, shift=shift, drop_path=dpl if train else None)
         served = list(dense)
         if not train:
             from studiosr_tpu_torch.ops.cuda.window_attention import pack_window_attention
@@ -561,7 +599,7 @@ def measure() -> dict:
         names = [(f"fused_window_attention_block_large {label}",
                   lambda: fused_window_attention_block(xl, *served, **kw))]
         if train:
-            gl = randn(1, side, side, c, scale=1e-3).to(bf)
+            gl = randn(batch, side, side, c, scale=1e-3).to(bf)
             names.append((f"attention_bwd_large {label}", lambda: attention_bwd(xl, gl, *dense, **kw)))
         for name, fn in names:
             try:
@@ -569,7 +607,9 @@ def measure() -> dict:
             except NotImplementedError:  # a checkout from before the streaming family
                 ms[name] = float("nan")
                 continue
+            engagement.reset()
             ms[name] = time_ms(fn, iters=10)
+            entries[name] = engagement.entries()
             passes[name] = pass_split(fn)
         ms[f"fused_window_attention_block_large {label} yardstick (bf16 PyTorch sequence)"] = time_ms(
             attention_half_forward_sequence(xl, dense, heads, ws, shift, kw["drop_path"]), iters=5)
@@ -612,6 +652,7 @@ def measure() -> dict:
     q, k, v, go = (randn(288, n, HEADS, 30, scale=sc).to(bf).transpose(1, 2)
                    for n, sc in ((576, 2 * 30**-0.5), (1296, 1.0), (1296, 1.0), (576, 1.0)))
     bias16 = randn(HEADS, 576, 1296, scale=2.0).to(bf)
+    bias32 = bias16.float()
     for name, fn in (("oca_core_fwd_large hat step ws24", lambda: oca_core_fwd(q, k, v, bias16)),
                      ("oca_core_bwd_large hat step ws24", lambda: oca_core_bwd(q, k, v, bias16, go))):
         engagement.reset()
@@ -623,11 +664,22 @@ def measure() -> dict:
         ms[name] = time_ms(fn, iters=10)
         entries[name] = engagement.entries()
         passes[name] = pass_split(fn)
-    del q, k, v, go, bias16
+    # B13's backward with the same bias in bf16 and in f32 (the same values),
+    # timed bf16, f32, f32, bf16: each row the mean of its two runs, with
+    # their difference as its spread
+    runs = {"bf16 bias": [], "f32 bias": []}
+    for label in ("bf16 bias", "f32 bias", "f32 bias", "bf16 bias"):
+        b = bias16 if label == "bf16 bias" else bias32
+        try:
+            runs[label].append(time_ms(lambda: oca_core_bwd(q, k, v, b, go), iters=10))
+        except NotImplementedError:
+            runs[label].append(float("nan"))
+    for label, (t0, t1) in runs.items():
+        ms[f"oca_core_bwd_large hat step ws24 {label}"] = (t0 + t1) / 2
+        ms[f"oca_core_bwd_large hat step ws24 {label} spread"] = abs(t0 - t1)
+    passes["oca_core_bwd_large hat step ws24 f32 bias"] = pass_split(lambda: oca_core_bwd(q, k, v, bias32, go))
+    del q, k, v, go, bias16, bias32
     torch.cuda.empty_cache()
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
-    return {"package": studiosr_tpu_torch.__file__, "card": card, "ms": ms, "passes": passes, "entries": entries}
 
 
 def kernel_bits() -> dict:
@@ -724,13 +776,13 @@ def ab_bits(checkout: Path, path: Path) -> int:
     return 1 if differ else 0
 
 
-def ab(checkout: Path) -> None:
+def ab(checkout: Path, large: bool = False) -> None:
     """Run this script on ``checkout``, this tree, this tree, ``checkout``."""
     runs = []
     for label, tree in (("parent", checkout), ("change", ROOT), ("change", ROOT), ("parent", checkout)):
         env = dict(os.environ, PYTHONPATH=str(tree))
-        out = subprocess.run([sys.executable, str(Path(__file__).resolve())], env=env, cwd=tree, capture_output=True,
-                             text=True, check=True, timeout=1800).stdout
+        cmd = [sys.executable, str(Path(__file__).resolve())] + (["--large"] if large else [])
+        out = subprocess.run(cmd, env=env, cwd=tree, capture_output=True, text=True, check=True, timeout=1800).stdout
         line = json.loads(out.strip().splitlines()[-1])
         print(json.dumps({"run": label, **line}), flush=True)
         runs.append((label, line))
@@ -746,6 +798,8 @@ def ab(checkout: Path) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--checkout", type=Path, help="a second checkout to compare with: parent, this, this, parent")
+    parser.add_argument("--large", action="store_true",
+                        help="time only the kernels above window 16 (B5, B9, B10, B12, B13 in their large families)")
     parser.add_argument("--bits", type=Path, metavar="FILE",
                         help="write B5-B10's outputs at windows 8 and 16 and B12's and B13's at their OCA geometries")
     args = parser.parse_args()
@@ -756,9 +810,9 @@ def main() -> int:
 
         torch.save(kernel_bits(), args.bits)
     elif args.checkout:
-        ab(args.checkout.resolve())
+        ab(args.checkout.resolve(), args.large)
     else:
-        print(json.dumps(measure()))
+        print(json.dumps(measure(args.large)))
     return 0
 
 

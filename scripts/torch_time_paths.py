@@ -9,9 +9,10 @@ x4 (adaptive and static, the JAX package's ``build`` defaults), SwinIR
 x2 and x3 and HAT x2 and x3 forward
 (bf16, batch 1, a 256 x 256 uint8 image, fused serving) over 5 forwards,
 and the SwinIR x4 and HAT x4 train step (``make_train_step``, bf16 over f32 masters, batch
-32 of 64 x 64 crops, fused_train) over 5 steps (``--only`` names a subset), and prints one JSON line:
+32 of 64 x 64 crops, fused_train; HAT also at window 24, the crops padded
+to 72 x 72: 288 windows a step) over 5 steps (``--only`` names a subset), and prints one JSON line:
 {"package": path, "card": nvidia-smi's name and power limit, "ms": {path:
-ms}}. A checkout whose HAT has no fused training path reads null there. The
+ms}, "peak_gib": {train step: peak memory over its timed steps}}. A checkout whose HAT has no fused training path reads null there. The
 package is whichever ``studiosr_tpu_torch`` is first on the path, so running
 it with ``PYTHONPATH`` set to two checkouts in turn (A, B, B, A) compares
 them on one card.
@@ -50,6 +51,8 @@ def time_ms(fn, iters: int = 5, warmup: int = 2) -> float:
 
 
 def build(name: str, dev: torch.device, **kw):
+    if name == "hat ws24":
+        return HAT.build(**WIDTHS, **{**HAT_WIDTHS, "window_size": 24}, seed=0, device=dev, **kw)
     scale = int(name[-1]) if name[-1].isdigit() else 4  # "swinir x2", "hat x3", ...
     if name.startswith("swinir"):
         return SwinIR.build(**{**WIDTHS, "scale": scale}, window_size=8, seed=0, device=dev, **kw)
@@ -80,10 +83,18 @@ def step_ms(name: str, dev: torch.device):
     lq = torch.from_numpy(rng.integers(0, 256, (32, 64, 64, 3), dtype=np.uint8)).to(dev)
     gt = torch.from_numpy(rng.integers(0, 256, (32, 256, 256, 3), dtype=np.uint8)).to(dev)
     gen = torch.Generator().manual_seed(0)
-    return time_ms(lambda: step(state, lq, gt, gen))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(lambda: step(state, lq, gt, gen))
+    PEAK[name] = torch.cuda.max_memory_allocated() / 2**30
+    return ms
 
 
-PATHS = ("swinir forward", "swinir train step", "hat forward", "hat train step", "swinfir forward",
+PEAK: dict = {}
+
+
+PATHS = ("swinir forward", "swinir train step", "hat forward", "hat train step", "hat ws24 train step",
+         "swinfir forward",
          "maxsr adaptive forward", "maxsr static forward", "swinir x2 forward", "swinir x3 forward",
          "hat x2 forward", "hat x3 forward")
 
@@ -102,7 +113,8 @@ def main() -> None:
             name = path.rsplit(" ", 2 if path.endswith("train step") else 1)[0]
             ms[path] = step_ms(name, dev) if path.endswith("train step") else forward_ms(name, dev)
             torch.cuda.empty_cache()
-    print(json.dumps({"package": str(studiosr_tpu_torch.__file__), "card": card, "ms": ms}))
+    peak = {f"{name} train step": gib for name, gib in PEAK.items()}
+    print(json.dumps({"package": str(studiosr_tpu_torch.__file__), "card": card, "ms": ms, "peak_gib": peak}))
 
 
 if __name__ == "__main__":

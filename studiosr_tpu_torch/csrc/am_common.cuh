@@ -223,18 +223,6 @@ __device__ __forceinline__ void am_gauss(float h, float& cdf, float& pdf) {
   pdf = 0.39894228040143268f * e;
 }
 
-// Copy 64 x DP chunks from global to shared memory (16-byte cp.async
-// pieces), one per (src, dst) pair, issued by a block of 128 threads (the
-// streaming passes of attn_bwd_mma.cu and oca_bwd_mma.cu).
-template <int DP, int K>
-__device__ __forceinline__ void am_load_chunks(const bf16* const (&src)[K], bf16* const (&dst)[K]) {
-  constexpr int PIECES = AM_TOK * DP / 8;
-  for (int i = threadIdx.x; i < K * PIECES; i += 128) {
-    const int k = i / PIECES, j = i - k * PIECES;
-    hm_cp_async<16>(dst[k] + j * 8, src[k] + j * 8, true);
-  }
-}
-
 // The token-contiguous copy of `chunks` 64 x DP K-major chunks: core matrix
 // (token group tg, column group jg) of a chunk goes, transposed, to core
 // matrix (jg, tg) of the same chunk laid out as am_kmajor(t, j, 64). The

@@ -286,14 +286,6 @@ __device__ __forceinline__ float4 am_bias4(const AmArgs& a, int nch, int h, int 
   return make_float4(p0.x, p0.y, p1.x, p1.y);
 }
 
-// One value of the same copy: query q, key k (0..63) of the tile (r, c).
-__device__ __forceinline__ float am_bias_at(const AmArgs& a, int nch, int h, int r, int c, int q, int k) {
-  const int wt = 32 * (q >> 4) + 4 * (q & 7) + ((k & 7) >> 1), e = 2 * ((q >> 3) & 1) + (k & 1);
-  const size_t i = ((((size_t)(h * nch + r) * nch + c) * 8 + (k >> 3)) * 128 + wt) * 4 + e;
-  return a.bias16 ? __bfloat162float(reinterpret_cast<const bf16*>(a.relbias)[i])
-                  : reinterpret_cast<const float*>(a.relbias)[i];
-}
-
 // Square windows from 2 (the entries take their own ranges: 2..8, 9..16 and
 // 17 up): N = ws^2 tokens in NCH = ceil(N / 64) tiles.
 static bool am_geometry_ok(int C, int heads, int ws) {

@@ -4,8 +4,10 @@ windows 2 to 8 and ``csrc/attn_bwd16.cu`` from 9 in f32 and at wider heads).
 
 Replaces ``studiosr_tpu/ops/pallas/attn_bwd.py::pairs_attention_bwd`` (B8,
 windows with 2 ws^2 <= 128: 2 to 8) and ``::v5_attention_bwd`` (B9, the
-larger windows: 9 to 16, HAT's 16, and from 17 in three streaming passes,
-MaxSR adaptive above a 256 x 256 crop). For
+larger windows: 9 to 16, HAT's 16, and from 17 on ``csrc/lb_core.cuh``'s
+two-formation core, each score tile formed twice (B13's large family shares
+it; :func:`large_partition` mirrors its blocks), MaxSR adaptive above a 256
+x 256 crop, HAT at window 24). For
 y = x + d_b * proj(WA(LN x)) on (B, H, W, C) maps, with ``shift`` and
 ``drop_path`` as in ``ops/cuda/window_attention.py`` (the output aligned
 with the input), and the cotangent ``g`` of y, it returns
@@ -43,14 +45,15 @@ import functools
 import numpy as np
 import torch
 
-from studiosr_tpu_torch.ops.cuda import _build
+from studiosr_tpu_torch.ops.cuda import _build, large_bwd
 from studiosr_tpu_torch.ops.cuda._launch import P, I, check, finish, operand, STREAM, call
 from studiosr_tpu_torch.ops.cuda.window_attention import (
     _NP_WIDTHS, FAMILY_STEM, _image, _pad16, check_window_map, large_window, mma_takes, window_family,
 )
 from studiosr_tpu_torch.ops.windows import calculate_mask, window_partition, window_reverse
 
-__all__ = ["attention_bwd", "attention_bwd_plain", "window_bwd_math", "mma_takes", "pack_attn_bwd_weights"]
+__all__ = ["attention_bwd", "attention_bwd_plain", "window_bwd_math", "mma_takes", "pack_attn_bwd_weights",
+           "large_partition", "large_plan"]
 
 _LL = ctypes.c_longlong
 _ARGS = (P, P, P, I, I, I, I, I, I, I) + (P,) * 7 + (P,) * 6 + (P, _LL, P, _LL, P)
@@ -129,6 +132,22 @@ def pack_attn_bwd_weights(wqkv: torch.Tensor, wproj: torch.Tensor, heads: int) -
 def _device_pack_index(c: int, heads: int, dev: torch.device) -> torch.Tensor:
     """:func:`_pack_index` as an int32 tensor on ``dev``, for the entry's gather."""
     return torch.from_numpy(_pack_index(c, heads).astype(np.int32)).to(dev)
+
+
+def large_plan(windows: int, c: int, heads: int, ws: int, sms: int = 132) -> large_bwd.Plan:
+    """The plan of ``attn_bwd_large_mma_bf16``'s attention core (windows
+    from 17): ``windows`` windows of ceil(ws^2 / 64) query tiles and key
+    chunks, the head dim padded to 16 or 32; its ``f_elems`` are the f32
+    scratch the entry adds for the core."""
+    tiles = -(-ws * ws // 64)
+    return large_bwd.plan(windows, heads, tiles, tiles, _pad16(c // heads), sms)
+
+
+def large_partition(windows: int, c: int, heads: int, ws: int, sms: int = 132) -> dict:
+    """The core's passes at window ``ws`` as their blocks take them
+    (``large_bwd.partition``)."""
+    tiles = -(-ws * ws // 64)
+    return large_bwd.partition(windows, heads, tiles, tiles, _pad16(c // heads), sms)
 
 
 def _split_heads(t, heads: int):

@@ -11,7 +11,8 @@ Replaces ``studiosr_tpu/ops/pallas/oca_core.py::oca_core_fwd`` (B12) and
 
 q, k, v (and g) are f32 or bf16, one dtype, any strided view whose last
 dimension is contiguous (the OCAB's transposed views reach the kernel
-without a copy); the bias is handed to the kernel in f32. Outputs come back
+without a copy); the bias is handed to the kernel in f32 (the large backward
+reads a bf16 bias as it is, as B12 does). Outputs come back
 as transposed views of (bw, tokens, heads, d) tensors, the layout the OCAB
 reads them in. The kernels take head dims up to 64 and any query and key
 count (HAT at every window).
@@ -32,10 +33,12 @@ windows) (:func:`main_partition` mirrors the blocks' partition). bf16 with
 a head dim up to 32 above that (HAT's windows from 17, 576 queries x 1296
 keys at window 24) launches their large entries,
 ``oca_core_fwd_large_mma_bf16`` (the same passes, the key chunks streamed
-through a ring) and ``oca_core_bwd_large_mma_bf16`` (the same images, then a
-row pass for the statistics and dq, a column pass for dk and dv and a d
-bias pass of 64 x 64 tiles over groups of windows, the groups summed in
-order). Other bf16 geometries and f32 launch ``oca_core_fwd_bf16`` /
+through a ring) and ``oca_core_bwd_large_mma_bf16`` (the same images, then
+``csrc/lb_core.cuh``'s two-formation core, which B9's large family shares:
+the row statistics, then p, dscores, d bias, dq's partials, dk and dv per
+(group of windows, head, key chunk), then the sums in a fixed order; each
+score tile formed twice; :func:`large_partition` mirrors its blocks and
+:func:`large_scratch` its scratch). Other bf16 geometries and f32 launch ``oca_core_fwd_bf16`` /
 ``_f32`` and ``oca_core_bwd_bf16`` / ``_f32``. A launch at more than 256
 queries or 576 keys is counted under ``oca_core_fwd_large`` /
 ``oca_core_bwd_large``, the others under ``oca_core_fwd`` /
@@ -48,13 +51,13 @@ import ctypes
 
 import torch
 
-from studiosr_tpu_torch.ops.cuda import _build
+from studiosr_tpu_torch.ops.cuda import _build, large_bwd
 from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, finish, operand, STREAM, call
 from studiosr_tpu_torch.ops.cuda.window_attention import MAX_HEAD_DIM
 
 __all__ = [
     "oca_core_fwd", "oca_core_bwd", "oca_core_plain", "oca_core_bwd_plain", "mma_takes", "pack_images",
-    "main_partition", "pack_fwd_images", "fwd_from_images", "counter",
+    "main_partition", "pack_fwd_images", "fwd_from_images", "counter", "large_partition", "large_scratch",
 ]
 
 _LL = ctypes.c_longlong
@@ -80,7 +83,7 @@ _BWD_MMA = (P,) * 9 + (_STRIDES, I, I, I, I, I, P, _LL, P, _LL, P)
 _SIGNATURES_MMA = {
     "oca_core_bwd_mma_bf16": _BWD_MMA,
     "oca_core_bwd_mma_scratch": (I,) * 5 + (ctypes.POINTER(_LL), ctypes.POINTER(_LL)),
-    "oca_core_bwd_large_mma_bf16": _BWD_MMA,
+    "oca_core_bwd_large_mma_bf16": (P,) * 9 + (_STRIDES, I) + _BWD_MMA[10:],  # and the bias's dtype
     "oca_core_bwd_large_mma_scratch": (I,) * 5 + (ctypes.POINTER(_LL), ctypes.POINTER(_LL)),
 }
 MMA_MAX_QUERIES, MMA_MAX_KEYS, MMA_MAX_HEAD_DIM = 256, 576, 32  # csrc/oca_*_mma.cu O*_MAX_NQ, O*_MAX_NK
@@ -216,6 +219,27 @@ def main_partition(bw: int, heads: int, nq: int, nk: int, sms: int = 132):
     return blocks
 
 
+def _dp(d: int) -> int:
+    return 16 if d <= 16 else 32
+
+
+def large_partition(bw: int, heads: int, nq: int, nk: int, d: int, sms: int = 132) -> dict:
+    """The large entry's passes as their blocks take them
+    (``large_bwd.partition``): bw windows of ceil(nq / 64) query tiles and
+    ceil(nk / 64) key chunks, d padded to 16 or 32."""
+    return large_bwd.partition(bw, heads, _tiles(nq), _tiles(nk), _dp(d), sms)
+
+
+def large_scratch(bw: int, heads: int, nq: int, nk: int, d: int, sms: int = 132) -> tuple:
+    """(bf16, f32) scratch elements of the large entry (``ob_scratch``): the
+    images, units x (2 QT + 2 KT) tiles of 64 x DP; ``lb_core.cuh``'s
+    statistics, dq partials, dk / dv partials and d-bias slabs, then the
+    bias in fragment order (heads x QT x KT tiles of 64 x 64)."""
+    qt, kt, dp = _tiles(nq), _tiles(nk), _dp(d)
+    return (bw * heads * (2 * qt + 2 * kt) * _TOK * dp,
+            large_bwd.plan(bw, heads, qt, kt, dp, sms).f_elems + heads * qt * kt * _TOK * _TOK)
+
+
 def oca_core_plain(q, k, v, bias):
     """``studiosr_tpu/ops/oca_vjp.py::_core_math`` in f32, returned in ``q.dtype``."""
     p = torch.softmax(q.float() @ k.float().transpose(-1, -2) + bias.float()[None], dim=-1)
@@ -315,14 +339,17 @@ def oca_core_bwd(q, k, v, bias, g):
         raise ValueError(f"oca_core_bwd: g {tuple(g.shape)} {g.dtype} does not match q {tuple(q.shape)} {q.dtype}")
     q, k, v, g = _rows(q), _rows(k), _rows(v), _rows(g)
     dev = q.device
-    b32 = operand(bias, "bias", (heads, nq, nk), torch.float32, dev)
+    large = q.dtype == torch.bfloat16 and d <= MMA_MAX_HEAD_DIM and not mma_takes(heads, nq, nk, d)
+    # the large entry reads a bf16 bias (the bf16 step's) as it is; the others read f32
+    bdt = torch.bfloat16 if large and torch.is_tensor(bias) and bias.dtype == torch.bfloat16 else torch.float32
+    b32 = operand(bias, "bias", (heads, nq, nk), bdt, dev)
     dq, dk, dv = _out(bw, heads, nq, d, q), _out(bw, heads, nk, d, q), _out(bw, heads, nk, d, q)
     dbias = torch.empty(heads, nq, nk, dtype=torch.float32, device=dev)
     strides = _strides(q, k, v, g, None, dq, dk, dv)
     ptrs = [t.data_ptr() for t in (q, k, v, b32, g, dq, dk, dv, dbias)]
     if q.dtype == torch.bfloat16 and d <= MMA_MAX_HEAD_DIM:
         lib = _build.load("oca_bwd_mma", _SIGNATURES_MMA)
-        entry = "oca_core_bwd_mma_bf16" if mma_takes(heads, nq, nk, d) else "oca_core_bwd_large_mma_bf16"
+        entry = "oca_core_bwd_large_mma_bf16" if large else "oca_core_bwd_mma_bf16"
         t_elems, f_elems = _LL(), _LL()
         status = call(dev, getattr(lib, entry.replace("_bf16", "_scratch")), bw, heads, nq, nk, d,
                       ctypes.byref(t_elems), ctypes.byref(f_elems))
@@ -330,7 +357,8 @@ def oca_core_bwd(q, k, v, bias, g):
             raise RuntimeError(f"oca_core_bwd: CUDA error {status} while sizing the scratch")
         tscratch = torch.empty(t_elems.value, dtype=q.dtype, device=dev)
         fscratch = torch.empty(f_elems.value, dtype=torch.float32, device=dev)
-        status = call(dev, getattr(lib, entry), *ptrs, strides, bw, heads, nq, nk, d, tscratch.data_ptr(),
+        flag = (int(bdt == torch.bfloat16),) if large else ()
+        status = call(dev, getattr(lib, entry), *ptrs, strides, *flag, bw, heads, nq, nk, d, tscratch.data_ptr(),
                       t_elems.value, fscratch.data_ptr(), f_elems.value, STREAM)
     else:
         lib = _build.load("oca_core", _SIGNATURES, _RESTYPES)

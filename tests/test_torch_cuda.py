@@ -802,6 +802,84 @@ def _check_window_kernels(dev, ws, dtype, c, heads):
         assert torch.equal(y, packed)
 
 
+# B9's large family on lb_core.cuh's two-formation core (the C entry
+# attn_bwd_large_mma_bf16): windows 17, 24 and 33 (one and two query parts),
+# C 128 / 4 heads and 180 / 6, shift 0 and ws / 2, with and without
+# drop-path, on maps of 2 x 3 windows, batch 2: every output against the
+# plain version, two launches the same bits, each launch through the entry.
+# And window 48 at C 128 / 4 heads (four query parts; the 12 windows in two
+# batches, the d-bias slabs carried from the first to the second).
+LB_B9_CASES = [(ws, c, heads, shift, dp) for ws in (17, 24, 33) for c, heads in ((128, 4), (180, 6))
+               for shift in (0, ws // 2) for dp in (False, True)] + [(48, 128, 4, 24, True)]
+
+
+@pytest.mark.parametrize("ws,c,heads,shift,drop", LB_B9_CASES)
+def test_attention_bwd_large_two_formation_core_matches_plain(dev, ws, c, heads, shift, drop):
+    gen = torch.Generator().manual_seed(ws + c + shift)
+    ops = [t.to(dev, torch.bfloat16 if i in (2, 4) else torch.float32)
+           for i, t in enumerate(_block_operands(gen, c, heads, 2 * c, ws=ws)[:7])]
+    x = _randn(gen, 2, 2 * ws, 3 * ws, c).to(dev, torch.bfloat16)
+    g = _randn(gen, 2, 2 * ws, 3 * ws, c).to(dev, torch.bfloat16)
+    kw = dict(heads=heads, window_size=ws, shift=shift,
+              drop_path=torch.tensor([0.0, 1.25], device=dev) if drop else None)
+    engagement.reset()
+    grads = attention_bwd(x, g, *ops, **kw)
+    again = attention_bwd(x, g, *ops, **kw)
+    assert engagement.entries() == {"attention_bwd_large": {"attn_bwd_large_mma_bf16": 2}}
+    want = attention_bwd_plain(x.float(), g.float(), *[t.float() for t in ops], **kw)
+    for a, e in zip(grads, want):
+        assert a.shape == e.shape
+        _assert_close(a, e, torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))  # no atomics: bitwise repeatable
+
+
+# B13's large family on the same core (oca_core_bwd_large_mma_bf16) at HAT's
+# window-24 and window-32 OCA geometries (576 x 1296, 1024 x 2304: one and
+# two query parts) with more windows than SMs, 2 heads of 30, and at windows
+# 48 and 64 with 6 heads (2304 x 5184 on 3 windows: a batch a window, the
+# d-bias slabs carried across three batches; 4096 x 9216 on 2: the eight
+# query parts in two runs as well): against the plain version, two launches
+# the same bits, a bf16 bias read as it is giving the f32 bias's bits.
+LB_B13_CASES = [(140, 2, 576, 1296, 30), (136, 2, 1024, 2304, 30), (3, 6, 2304, 5184, 30), (2, 6, 4096, 9216, 30)]
+
+
+@pytest.mark.parametrize("bw,heads,nq,nk,d", LB_B13_CASES)
+def test_oca_core_bwd_large_two_formation_core_matches_plain(dev, bw, heads, nq, nk, d):
+    from studiosr_tpu_torch.ops.cuda.oca_core import oca_core_bwd, oca_core_bwd_plain
+
+    gen = torch.Generator().manual_seed(bw + nq)
+    q, k, v, bias, g = _oca_case(gen, bw, heads, nq, nk, d, dev, torch.bfloat16)
+    bias = bias.to(torch.bfloat16).float()  # values a bf16 bias holds exactly
+    engagement.reset()
+    grads = oca_core_bwd(q, k, v, bias, g)
+    again = oca_core_bwd(q, k, v, bias, g)
+    b16 = oca_core_bwd(q, k, v, bias.to(torch.bfloat16), g)
+    assert engagement.entries() == {"oca_core_bwd_large": {"oca_core_bwd_large_mma_bf16": 3}}
+    want = oca_core_bwd_plain(q.float(), k.float(), v.float(), bias, g.float())
+    for a, e in zip(grads, want):
+        assert a.shape == e.shape
+        _assert_close(a, e, torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))  # no atomic sums: bitwise repeatable
+    assert all(torch.equal(a, b) for a, b in zip(grads, b16))
+
+
+def test_large_scratch_matches_the_mirror(dev):
+    """B13's large entry sizes its scratch as ``oca_core.large_scratch`` (the
+    images, lb_core.cuh's plan) at this card's SM count."""
+    import ctypes
+
+    from studiosr_tpu_torch.ops.cuda import _build
+    from studiosr_tpu_torch.ops.cuda import oca_core as oca_module
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lib = _build.load("oca_bwd_mma", oca_module._SIGNATURES_MMA)
+    for geom in ((288, 6, 576, 1296, 30), (8, 6, 1024, 2304, 30), (5, 3, 100, 700, 12), (128, 6, 2304, 5184, 30),
+                 (2, 6, 4096, 9216, 30)):
+        t, f = ctypes.c_longlong(), ctypes.c_longlong()
+        assert lib.oca_core_bwd_large_mma_scratch(*geom, ctypes.byref(t), ctypes.byref(f)) == 0
+        assert (t.value, f.value) == oca_module.large_scratch(*geom, sms=sms)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_window_kernels_raise_above_window_16(dev, dtype):
     """Windows above 16 launch the streaming family now; the wrappers raise
