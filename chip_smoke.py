@@ -544,11 +544,11 @@ H100_KERNELS = {"fused_swin_block": ("swin_block_mma", "swin_block_mma_kernel"),
                 "attention_bwd_large": ("attn_bwd_mma", "lb_"),
                 "fused_window_attention_block": ("window_attention_mma", "_kernel"),
                 "fused_window_attention_block_ws16": ("window_attention_mma", "_kernel"),
-                "fused_window_attention_block_large": ("window_attention_mma", "wa_attn_large"),
+                "fused_window_attention_block_large": ("window_attention_mma", "lf_fwd"),
                 "mlp_bwd": ("mlp_bwd_mma", "_kernel"), "fused_mlp_block": ("mlp_block_mma", "mf_kernel"),
                 "fused_mlp_block_extra": ("mlp_block_mma", "mf_kernel"), "oca_core_bwd": ("oca_bwd_mma", "ob_"),
                 "fused_cab_body": ("cab_mma", "_kernel"), "oca_core_fwd": ("oca_fwd_mma", "of_"),
-                "fused_ocab_block": ("ocab_mma", "_kernel"), "oca_core_fwd_large": ("oca_fwd_mma", "of_"),
+                "fused_ocab_block": ("ocab_mma", "_kernel"), "oca_core_fwd_large": ("oca_fwd_mma", "of_|lf_fwd"),
                 "oca_core_bwd_large": ("oca_bwd_mma", "lb_")}
 # The C entry every launch of B5-B9, B12 and B13 must take in a run of each
 # dtype: bf16 the kernels written for the H100 (their geometry rules hold at
@@ -575,7 +575,7 @@ TRAIN_ENTRIES = {
 # The kernels redesigned in bf16 last, held to the same bits from launch to
 # launch (no atomic sums) at the path's batch (phases 6, 10 and 13).
 BITWISE = ("fused_mlp_block", "fused_mlp_block_extra", "oca_core_bwd", "fused_cab_body", "oca_core_fwd",
-           "fused_ocab_block")
+           "fused_ocab_block", "fused_window_attention_block_large", "oca_core_fwd_large")
 # B1 in bf16 beyond the main path's shape, as the card tests take it: (C,
 # heads, map, shift): C 32 with 2 heads of 16 (the trained fixtures), C 180
 # at H != W and an odd window count (a half-empty last window pair), d 8,
@@ -849,7 +849,7 @@ def ptxas_report(name: str) -> str:
             spill = (int(m.group(1)), int(m.group(2)))
             continue
         m = re.search(r"Used (\d+) registers", line)
-        if m and fn and stem in fn:
+        if m and fn and re.search(stem, fn):
             smem = re.search(r"(\d+) bytes smem", line)
             args = ",".join(re.findall(r"Li(\d+)E", fn))
             length = re.match(r"_Z(\d+)", fn)
@@ -3125,8 +3125,9 @@ def large_window_checks(dev: torch.device, failed: list) -> dict:
     ``LARGE_WINDOWS`` and geometry of ``LARGE_GEOMETRIES`` (2 x 3 windows,
     batch 2; shift 0 and ws / 2, with and without drop-path), each launch
     through the streaming family's entry of its route; the serving blob
-    gives the dense weights' bits, the backward repeats its bits, and a
-    dropped sample passes through (dx = g). One line a window and geometry.
+    gives the dense weights' bits, the backward (and, on the H100 core, the
+    forward) repeats its bits, and a dropped sample passes through (dx = g).
+    One line a window and geometry.
     Returns the launches at window 32 in the geometry that is timed."""
     timed = {}
     for ws in LARGE_WINDOWS:
@@ -3143,6 +3144,9 @@ def large_window_checks(dev: torch.device, failed: list) -> dict:
                     kw = dict(heads=heads, window_size=ws, shift=shift, drop_path=dp)
                     case = f"{label} shift {shift}" + (" drop-path" if dp is not None else "")
                     y = fused_window_attention_block(x, *ops, **kw)
+                    if kind == "_mma_bf16" and "fused_window_attention_block_large" in BITWISE and not torch.equal(
+                            y, fused_window_attention_block(x, *ops, **kw)):
+                        failed.append(f"{case}: the forward's bits differ from launch to launch")
                     grads = attention_bwd(x, g, *ops, **kw)
                     pairs = [(y, window_attention_plain(xf, *opsf, **kw))]
                     pairs += list(zip(grads, attention_bwd_plain(xf, gf, *opsf, **kw)))
@@ -3170,7 +3174,7 @@ def large_window_checks(dev: torch.device, failed: list) -> dict:
                     del y, grads, pairs
             torch.cuda.synchronize()
             entries, launches = engagement.entries(), engagement.counters()
-            want = {"fused_window_attention_block_large": {f"window_attention_large{kind}": 4 + (kind == "_mma_bf16")},
+            want = {"fused_window_attention_block_large": {f"window_attention_large{kind}": 4 + 5 * (kind == "_mma_bf16")},
                     "attention_bwd_large": {f"attn_bwd_large{kind}": 8}}
             if entries != want:
                 failed.append(f"{label}: entries {entries}, expected {want}")
@@ -3263,6 +3267,8 @@ def large_window_swinir(dev: torch.device, failed: list) -> tuple:
     got = fused_window_attention_block(*ops, **kw)
     if engagement.counters() != {name: 1}:
         failed.append(f"{name} at window 24 launched {engagement.counters()}")
+    if name in BITWISE and not torch.equal(got, fused_window_attention_block(*ops, **kw)):
+        failed.append(f"{name} [swinir window 24]: two launches differ")
     err = kernel_check(f"{name} [swinir window 24]", got, window_attention_plain(xb.float(), *ops[1:], **kw),
                        torch.bfloat16, failed)
     del got
@@ -3355,8 +3361,8 @@ def hat_window_checks(dev: torch.device, failed: list) -> None:
     windows of the OCAB's transposed views (6 heads of 30, logits of a few
     units, the bias in the path's dtype), B10 on a map of 2 x 3 windows
     (bf16 on the serving blob); each launch through its dtype's entry, B13's
-    bits repeated, the blob giving the dense weights' bits. One line a window
-    and dtype."""
+    bits (and in bf16 those of B12's large entry) repeated, the blob giving
+    the dense weights' bits. One line a window and dtype."""
     c, heads = HAT_MAIN["embed_dim"], HAT_MAIN["num_heads"][0]
     d, bw = c // heads, 9
     for ws in HAT_WINDOW_CHECKS:
@@ -3374,10 +3380,13 @@ def hat_window_checks(dev: torch.device, failed: list) -> None:
             label = f"hat window {ws} {str(dtype)[6:]}"
             engagement.reset()
             out = oca_core_fwd(q, k, v, bias)
+            twice = dtype == torch.bfloat16 and fwd in BITWISE
+            if twice and not torch.equal(out, oca_core_fwd(q, k, v, bias)):
+                failed.append(f"{fwd} [{label}]: two launches differ")
             grads = oca_core_bwd(q, k, v, bias, g)
             again = oca_core_bwd(q, k, v, bias, g)
             torch.cuda.synchronize()
-            want = {fwd: {TRAIN_ENTRIES[dtype][fwd]: 1}, bwd: {TRAIN_ENTRIES[dtype][bwd]: 2}}
+            want = {fwd: {TRAIN_ENTRIES[dtype][fwd]: 1 + twice}, bwd: {TRAIN_ENTRIES[dtype][bwd]: 2}}
             if engagement.entries() != want:
                 failed.append(f"{label}: entries {engagement.entries()}, expected {want}")
             errs = [kernel_check(f"{fwd} [{label}, {bw} windows, {nq} | {nk}]", out,

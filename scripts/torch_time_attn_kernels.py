@@ -70,7 +70,7 @@ warm-up launches:
   through the older kernel where not (``nan`` where the checkout raises),
   beside its yardstick; B12 and B13 in their large family at HAT's
   window-24 step (288 windows, 6 heads, 576 | 1296, d 30, the bias in
-  bf16), and B13 there again with the same bias values in bf16 and in f32,
+  bf16; B12 also with it in f32), and B13 there again with the same bias values in bf16 and in f32,
   timed bf16, f32, f32, bf16 (each row the mean of its two runs, and its
   ``spread`` their difference);
 * as controls: B5, B7, B8, B9 (above).
@@ -101,7 +101,10 @@ of 6 heads, 64 | 144 and 256 | 576 queries | keys, the OCAB's views). Then B5
 and its backward (B8 at window 8, B9 at window 16) at both windows with the
 shift and drop-path scales: in bf16 at C 180 (the kernels written for the
 H100, batch 8 of 64 x 64 maps; MaxSR's C 128 with a bf16 bias too), at
-head dim 48 (the older bf16 kernels) and in f32 (batch 2). With
+head dim 48 (the older bf16 kernels) and in f32 (batch 2). Then the forward
+above window 16 ("large forward ..."): B5 at window 24 (shift 12, drop-path,
+a bf16 bias; and on the serving blob) and 17 (C 128, 4 heads), B12's large
+entry at 576 | 1296 and 100 | 700 (d 12) with either bias, B10 at window 24. With
 ``--checkout DIR`` as well, it writes FILE.parent from DIR's package and
 FILE.change from this checkout's on one card, names every output as the
 same bits or not, and exits 1 if any differs.
@@ -654,6 +657,7 @@ def measure_large(dev, randn, ms: dict, passes: dict, entries: dict) -> None:
     bias16 = randn(HEADS, 576, 1296, scale=2.0).to(bf)
     bias32 = bias16.float()
     for name, fn in (("oca_core_fwd_large hat step ws24", lambda: oca_core_fwd(q, k, v, bias16)),
+                     ("oca_core_fwd_large hat step ws24 f32 bias", lambda: oca_core_fwd(q, k, v, bias32)),
                      ("oca_core_bwd_large hat step ws24", lambda: oca_core_bwd(q, k, v, bias16, go))):
         engagement.reset()
         try:
@@ -755,6 +759,33 @@ def kernel_bits() -> dict:
             out[f"B5 {label}"] = fused_window_attention_block(xa, *ops, **kw)
             for i, t in enumerate(attention_bwd(xa, ga, *ops, **kw)):
                 out[f"B8/B9 {label} output {i}"] = t
+    # above window 16 (the streaming forward): B5 at window 24 (C 180, shift
+    # 12, drop-path, a bf16 bias; the serving blob's f32 bias unshifted) and
+    # MaxSR's window 17 (C 128, 289 tokens in five tiles), B12's large entry
+    # (576 | 1296 with either bias, ragged 100 | 700 at d 12), B10 at window 24
+    for label, ws, c, heads, shape, shift, served in (("window 24", 24, C, HEADS, (2, 48, 72), 12, False),
+                                                      ("window 24 served", 24, C, HEADS, (1, 72, 72), 0, True),
+                                                      ("window 17", 17, 128, 4, (1, 68, 68), 0, False)):
+        ops = [1 + randn(c, scale=0.1), randn(c, scale=0.1), randn(c, 3 * c, scale=c**-0.5, dtype=bf),
+               randn(3 * c, scale=0.1), randn(c, c, scale=c**-0.5, dtype=bf), randn(c, scale=0.1),
+               randn(heads, ws * ws, ws * ws, scale=0.5, dtype=torch.float32 if served else bf)]
+        xa = randn(*shape, c, dtype=bf)
+        dpa = None if served else torch.full((shape[0],), 1 / 0.9, device=dev)
+        kw = dict(heads=heads, window_size=ws, shift=shift, drop_path=dpa)
+        if served:
+            from studiosr_tpu_torch.ops.cuda.window_attention import pack_window_attention
+
+            ops[2:7] = [pack_window_attention(ops[2], ops[4], ops[6], heads), ops[3], None, ops[5], None]
+        out[f"large forward B5 {label}"] = fused_window_attention_block(xa, *ops, **kw)
+    for nq, nk, d, bw in ((576, 1296, 30, 16), (100, 700, 12, 5)):
+        q, k, v = (randn(bw, n, HEADS, d, scale=s, dtype=bf).transpose(1, 2)
+                   for n, s in ((nq, 2 * d**-0.5), (nk, 1.0), (nk, 1.0)))
+        bias = randn(HEADS, nq, nk, scale=2.0)
+        out[f"large forward B12 {nq} | {nk} f32 bias"] = oca_core_fwd(q, k, v, bias)
+        out[f"large forward B12 {nq} | {nk} bf16 bias"] = oca_core_fwd(q, k, v, bias.to(bf))
+    ocab[6] = randn(HEADS, 576, 1296, scale=0.5, dtype=bf)
+    out["large forward B10 window 24"] = fused_ocab_block(randn(1, 48, 72, C, dtype=bf), *ocab, heads=HEADS,
+                                                          window_size=24, overlap_ratio=0.5)
     torch.cuda.synchronize()
     return {k: v.cpu() for k, v in out.items()}
 

@@ -6,7 +6,8 @@
 Times, as ``chip_smoke.py`` does (CUDA events, 2 warm-up calls, seeded
 random weights at full width): the SwinIR x4, HAT x4, SwinFIR x4, MaxSR
 x4 (adaptive and static, the JAX package's ``build`` defaults), SwinIR
-x2 and x3 and HAT x2 and x3 forward
+x2 and x3 and HAT x2 and x3 forward, and SwinIR x4 at window 24 (its 256 x 256
+image padded to 264 x 264)
 (bf16, batch 1, a 256 x 256 uint8 image, fused serving) over 5 forwards,
 and the SwinIR x4 and HAT x4 train step (``make_train_step``, bf16 over f32 masters, batch
 32 of 64 x 64 crops, fused_train; HAT also at window 24, the crops padded
@@ -53,6 +54,8 @@ def time_ms(fn, iters: int = 5, warmup: int = 2) -> float:
 def build(name: str, dev: torch.device, **kw):
     if name == "hat ws24":
         return HAT.build(**WIDTHS, **{**HAT_WIDTHS, "window_size": 24}, seed=0, device=dev, **kw)
+    if name == "swinir ws24":
+        return SwinIR.build(**WIDTHS, window_size=24, seed=0, device=dev, **kw)
     scale = int(name[-1]) if name[-1].isdigit() else 4  # "swinir x2", "hat x3", ...
     if name.startswith("swinir"):
         return SwinIR.build(**{**WIDTHS, "scale": scale}, window_size=8, seed=0, device=dev, **kw)
@@ -93,7 +96,7 @@ def step_ms(name: str, dev: torch.device):
 PEAK: dict = {}
 
 
-PATHS = ("swinir forward", "swinir train step", "hat forward", "hat train step", "hat ws24 train step",
+PATHS = ("swinir forward", "swinir ws24 forward", "swinir train step", "hat forward", "hat train step", "hat ws24 train step",
          "swinfir forward",
          "maxsr adaptive forward", "maxsr static forward", "swinir x2 forward", "swinir x3 forward",
          "hat x2 forward", "hat x3 forward")

@@ -22,7 +22,7 @@
 // dk / dv rounded to bf16 (from window 17 the probabilities of attn = p v,
 // which feeds d Wproj, are rounded before their normalisation: 2^(s - m)
 // rounded, attn divided by the row sum after the product, as B5's forward
-// above window 16, wa_attn_large_kernel, rounds them; those of dv and
+// above window 16, lf_core.cuh, rounds them; those of dv and
 // dscores after it, as below 17); products accumulate in f32; softmax, its
 // backward, the LN backward and d bias in f32; every sum across blocks in a
 // fixed order (no atomics: the same bits from run to run).

@@ -22,7 +22,7 @@
 //    2^(s - m) (rounded to bf16) v over the chunks, rescaled as m grows
 //    (FlashAttention's forward), divided by l at the end: the probabilities
 //    are rounded before their normalisation, as B5's forward above window
-//    16 (wa_attn_large_kernel) rounds them (the streaming passes this
+//    16 (lf_core.cuh) rounds them (the streaming passes this
 //    replaces rounded them after it; the bf16 step's tolerance holds
 //    either).
 // 2. lb_main_kernel (formation 2), a block a (group of windows g, head h, key

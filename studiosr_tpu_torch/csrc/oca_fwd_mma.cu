@@ -9,8 +9,9 @@
 // attn_core.cuh, and so do head dims above 32. Two entries: up to 256
 // queries and 576 keys (HAT's windows up to 16) oca_core_fwd_mma_bf16 holds
 // a unit's k and v whole in shared memory; above, oca_core_fwd_large_mma_bf16
-// (HAT's windows from 17: 576 x 1296 at window 24) runs the same passes with
-// the key chunks streamed through a ring of four (of_fwd_ring_kernel). The
+// (HAT's windows from 17: 576 x 1296 at window 24) runs the same pack, puts
+// the bias in fragment order (of_bias_kernel), then runs lf_core.cuh's
+// pipelined forward, a block a (unit, query tile). The
 // contract is its: scores and the softmax in f32, p rounded to
 // bf16 before its product with v, products accumulated in f32, the output
 // rounded once. The softmax is taken online over 64-key chunks with the row
@@ -58,31 +59,34 @@
 // 0.226, attention 0.450), 0.736 with an f32 bias; SDPA with the bias as
 // its mask 10.2.
 // The images, the passes and the geometry rule live in of_attn.cuh (B10's
-// attention pass runs the same of_fwd_kernel / of_fwd_ring_kernel).
+// attention pass runs the same of_fwd_kernel, and above 576 keys the same
+// lf_core.cuh pass).
 #include "of_attn.cuh"
 
-// Elements of the bf16 scratch (the images); `any`: the large entry's geometry.
-static int of_scratch(int bw, int heads, int nq, int nk, int d, bool any, long long* t_elems) {
+// Elements of the bf16 scratch (the images; in the large entry, `any`, also
+// the bias in fragment order, in its dtype: bias_bf16 or f32).
+static int of_scratch(int bw, int heads, int nq, int nk, int d, bool any, int bias_bf16, long long* t_elems) {
   if (!of_shape_ok(bw, heads, nq, nk, d, any)) return (int)cudaErrorInvalidValue;
-  *t_elems = of_plan(bw, heads, nq, nk, d).t_elems;
+  *t_elems = of_plan(bw, heads, nq, nk, d, any, bias_bf16).t_elems;
   return 0;
 }
 
 extern "C" int oca_core_fwd_mma_scratch(int bw, int heads, int nq, int nk, int d, long long* t_elems) {
-  return of_scratch(bw, heads, nq, nk, d, false, t_elems);
+  return of_scratch(bw, heads, nq, nk, d, false, 0, t_elems);
 }
 
-extern "C" int oca_core_fwd_large_mma_scratch(int bw, int heads, int nq, int nk, int d, long long* t_elems) {
-  return of_scratch(bw, heads, nq, nk, d, true, t_elems);
+extern "C" int oca_core_fwd_large_mma_scratch(int bw, int heads, int nq, int nk, int d, int bias_bf16,
+                                              long long* t_elems) {
+  return of_scratch(bw, heads, nq, nk, d, true, bias_bf16, t_elems);
 }
 
 template <int DP, typename BT>
-static cudaError_t of_launch(const OfArgs& a, const OfPlan& P, cudaStream_t st) {
+static cudaError_t of_launch(const OfArgs& a, const OfPlan& P, cudaStream_t st, bool large) {
   const long long pieces = P.units * (P.QT + 2 * P.KT) * AM_TOK * (DP / 8);
   of_pack_kernel<DP><<<(int)((pieces + 255) / 256 < 8192 ? (pieces + 255) / 256 : 8192), 256, 0, st>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return of_attn_launch<DP, BT>(a, st);
+  return of_attn_launch<DP, BT>(a, st, large);
 }
 
 // strides: (window, head, token) of q, k, v, g (unused), out, dq, dk, dv
@@ -92,7 +96,7 @@ static int of_run(const void* q, const void* k, const void* v, const void* bias,
                   int bias_bf16, int bw, int heads, int nq, int nk, int d, void* tscratch, long long t_elems,
                   void* stream, bool any) {
   if (!of_shape_ok(bw, heads, nq, nk, d, any)) return (int)cudaErrorInvalidValue;
-  const OfPlan P = of_plan(bw, heads, nq, nk, d);
+  const OfPlan P = of_plan(bw, heads, nq, nk, d, any, bias_bf16);
   if (P.t_elems != t_elems) return (int)cudaErrorInvalidValue;
   if ((uintptr_t)tscratch % 16) return (int)cudaErrorMisalignedAddress;
   OfArgs a{};
@@ -101,6 +105,7 @@ static int of_run(const void* q, const void* k, const void* v, const void* bias,
     for (int j = 0; j < 3; ++j) a.st[t][j] = strides[3 * t + j];
   a.bias = bias;
   a.img = (bf16*)tscratch;
+  a.bfrag = any ? (bf16*)tscratch + P.bias : nullptr;
   a.units = P.units, a.unit_elems = P.unit_elems;
   a.qimg = a.img, a.q_unit = P.unit_elems, a.kv0 = (long long)P.QT * AM_TOK * P.DP;
   a.heads = heads, a.nq = nq, a.nk = nk, a.d = d, a.QT = P.QT, a.KT = P.KT, a.nrows = nq;
@@ -109,8 +114,8 @@ static int of_run(const void* q, const void* k, const void* v, const void* bias,
   for (int j = 0; j < 3; ++j) a.pairs = a.pairs && strides[3 * OF_O + j] % 2 == 0;
   const cudaStream_t st = (cudaStream_t)stream;
   if (P.DP == 32)
-    return (int)(bias_bf16 ? of_launch<32, bf16>(a, P, st) : of_launch<32, float>(a, P, st));
-  return (int)(bias_bf16 ? of_launch<16, bf16>(a, P, st) : of_launch<16, float>(a, P, st));
+    return (int)(bias_bf16 ? of_launch<32, bf16>(a, P, st, any) : of_launch<32, float>(a, P, st, any));
+  return (int)(bias_bf16 ? of_launch<16, bf16>(a, P, st, any) : of_launch<16, float>(a, P, st, any));
 }
 
 #define OF_ENTRY(NAME, ANY)                                                                                       \

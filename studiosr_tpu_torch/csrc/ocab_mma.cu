@@ -13,8 +13,8 @@
 // tokens do not fill whole 64-token tiles is padded to them as B5 pads it
 // (am_window.cuh AmGeom): the padding tokens' LN rows are zero, their
 // queries read no bias, their rows reach no pixel of the map, and no key
-// image holds them. Above 576 keys (windows from 17) the attention pass streams
-// the key chunks through a ring (of_attn.cuh of_fwd_ring_kernel). Keys
+// image holds them. Above 576 keys (windows from 17) the attention pass is
+// lf_core.cuh's pipelined forward, which streams the key chunks. Keys
 // outside the image are zero k and v rows whose logit is the bias alone:
 // they take softmax mass and are not masked
 // (only the image slots past owin^2 are). The bias is read in bf16, as the
@@ -45,7 +45,7 @@
 //    and past owin^2. Each position's source is found once a block (a
 //    first version found it for each 16-byte piece, 64-bit divisions
 //    included: 0.30 ms at HAT's shapes, instruction-bound).
-// 3. of_fwd_kernel (of_attn.cuh; of_fwd_ring_kernel above 576 keys), B12's
+// 3. of_fwd_kernel (of_attn.cuh; lf_core.cuh's lf_fwd_kernel above 576 keys), B12's
 //    attention pass, on pass 1's q images and pass 2's key images, the bias
 //    read in bf16; the attention output per token row, each head's DP
 //    columns (zero past d).
@@ -132,9 +132,10 @@ static bool oc_geometry_ok(int B, int H, int W, int C, int heads, int ws, int pa
 
 // Scratch in bf16: LN1 rows (SC), pass 1's images (windows x heads x 3 x N x
 // DP), the key images (windows x heads x 2 KT x 64 x DP), the attention rows
-// (HD) and y (C), each on a 16-byte boundary.
+// (HD), y (C) and, above OF_MAX_NK keys, the bias in fragment order
+// (of_bias_kernel), each on a 16-byte boundary.
 struct OcScratch {
-  long long rows, ln, proj, kv, att, y, t_elems;
+  long long rows, ln, proj, kv, att, y, bias, t_elems;
   int windows, tiles, KT, proj_blocks, row_blocks;
 };
 
@@ -154,7 +155,8 @@ static OcScratch oc_scratch(int B, int H, int W, int C, int heads, int ws, int p
   S.kv = S.proj + (long long)S.windows * heads * 3 * G.N * G.DP;
   S.att = S.kv + (long long)S.windows * heads * 2 * S.KT * AM_TOK * G.DP;
   S.y = S.att + S.rows * G.HD;
-  S.t_elems = S.y + (S.rows * C + 7) / 8 * 8;
+  S.bias = S.y + (S.rows * C + 7) / 8 * 8;
+  S.t_elems = S.bias + (S.KT * AM_TOK > OF_MAX_NK ? of_bias_elems(heads, G.NCH, S.KT, true) : 0);
   return S;
 }
 
@@ -236,6 +238,7 @@ extern "C" int ocab_mma_bf16(const void* x, void* out, int B, int H, int W, int 
   o.heads = heads, o.nq = G.NV, o.nk = owin * owin, o.d = G.DP, o.QT = G.NCH, o.KT = S.KT, o.pairs = 1;
   o.nrows = G.N;
   o.vec = (uintptr_t)relbias % 16 == 0 && o.nk % 8 == 0;
+  o.bfrag = t + S.bias;
   const bool pad_tiles = G.NV < G.N;
   if (pad_tiles) am_ln_kernel<false, true><<<S.row_blocks, 256, 0, st>>>(a, G, S.rows);
   else am_ln_kernel<false, false><<<S.row_blocks, 256, 0, st>>>(a, G, S.rows);

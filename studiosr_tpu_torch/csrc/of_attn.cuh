@@ -8,13 +8,13 @@
 #pragma once
 
 #include "am_common.cuh"
+#include "lf_core.cuh"
 
 // The attention pass holds a unit's whole k and v images in shared memory up
 // to OF_MAX_NK keys (of_fwd_kernel: B12's oca_core_fwd_mma entry, B10 up to
-// window 16); past it the same pass streams the key chunks through a ring of
-// OF_STAGES k / v chunk pairs (of_fwd_ring_kernel), 40 KB at DP 32 for any
-// key count.
-constexpr int OF_MAX_NQ = 256, OF_MAX_NK = 576, OF_STAGES = 4;
+// window 16); past it, and in B12's large entry, the pass is lf_core.cuh's
+// (lf_fwd_kernel on LfOf), which streams the key chunks for any count.
+constexpr int OF_MAX_NQ = 256, OF_MAX_NK = 576;
 
 // Strides, in elements, of the eight tensors of oca_core.cu's stride table,
 // (window, head, token) each: q, k, v, g (unused), out, dq, dk, dv (unused).
@@ -35,6 +35,7 @@ struct OfArgs {
   int heads, nq, nk, d, QT, KT, pairs;  // pairs: out takes 4-byte stores
   int vec;  // the bias's rows take 16-byte loads (aligned base, nk a multiple of 16 bytes' worth)
   int nrows;  // query rows stored (nq; B10 stores a padded window's whole tiles)
+  void* bfrag;  // the bias in fragment order (of_bias_kernel), for lf_core.cuh's pass: of_bias_elems
 };
 
 // The key a chunk's image position p holds: p = 8 nt + 2 tq + e, the score
@@ -254,135 +255,99 @@ __global__ void __launch_bounds__(256, 2) of_fwd_kernel(const OfArgs a) {
   }
 }
 
-// of_fwd_kernel above OF_MAX_NK keys: the same pass, its key chunks
-// streamed through OF_STAGES buffers, chunk c in buffer c % OF_STAGES,
-// refilled once both warpgroups are done with it; rows stored below
-// a.nrows. (A separate kernel, so that the whole-unit one keeps its code.)
-template <int DP, typename BT>
-__global__ void __launch_bounds__(256, 2) of_fwd_ring_kernel(const OfArgs a) {
-  constexpr int NDT = DP / 8, KS = DP / 16;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127, wr = wt >> 5, lane = tid & 31;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int npair = (a.QT + 1) / 2, KT = a.KT, NB = OF_STAGES;
-  const long long u = blockIdx.x / npair;
-  const int pair = blockIdx.x % npair, i = 2 * pair + wg, h = (int)(u % a.heads);
-  const long long tile = (long long)AM_TOK * DP;
-  bf16* K = (bf16*)smem;     // NB chunks of k
-  bf16* VT = K + NB * tile;  // NB chunks of v, token-contiguous
-  bf16* Q = VT + NB * tile;  // the pair's q tiles
-  const bf16* kv = a.img + u * a.unit_elems + a.kv0;
-  const bf16* qs = a.qimg + u * a.q_unit + 2 * pair * tile;
-  const int cp = (int)tile / 8, qp = 2 * cp;  // 16-byte pieces of a chunk, of the pair's q
-  auto load = [&](int c) {  // group c: chunk c of k and v (group 0 also the q tiles)
-    const int b = c % OF_STAGES;
-    for (int e = tid; e < 2 * cp + (c == 0 ? qp : 0); e += 256) {
-      if (e < cp) hm_cp_async<16>(K + b * tile + 8 * e, kv + c * tile + 8 * e, true);
-      else if (e < 2 * cp) hm_cp_async<16>(VT + b * tile + 8 * (e - cp), kv + (KT + c) * tile + 8 * (e - cp), true);
-      else hm_cp_async<16>(Q + 8 * (e - 2 * cp), qs + 8 * (e - 2 * cp), true);
-    }
-    hm_cp_commit();
-  };
-  for (int c = 0; c < (KT > OF_STAGES ? OF_STAGES : KT); ++c) load(c);
-  bf16* const Qw = Q + wg * tile;
-  const int r0 = i * AM_TOK + 16 * wr + gq;  // this thread's query rows r0, r0 + 8
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[NDT][4];
-#pragma unroll
-  for (int nt = 0; nt < NDT; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
-#pragma unroll 1
-  for (int c = 0; c < KT; ++c) {
-    float bv[2][16];  // loaded before the products, so their latency hides under them
-    const int key0 = c * AM_TOK + 16 * tq;  // this thread's 16 keys
-    of_bias16<BT>(a, h, r0, key0, bv);
-    // chunk c is in: of the groups committed (OF_STAGES ahead of c), those
-    // past c may still be in flight
-    hm_cp_wait_upto(KT - 1 - c > OF_STAGES - 1 ? OF_STAGES - 1 : KT - 1 - c);
-    wg_proxy_fence();
-    __syncthreads();
-    const int b = c % OF_STAGES;
-    float s[8][4];
-    wg_fence();
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-      wg_ss<64>(&s[0][0], wg_desc(Qw + ks * 128, 128, DP * 16), wg_desc(K + b * tile + ks * 128, 128, DP * 16),
-                ks > 0);
-    wg_commit();
-    wg_wait0();
-    wg_hold<32>(&s[0][0]);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = 2 * nt + (e & 1);  // column (nt, e & 1) holds key key0 + m
-        s[nt][e] = key0 + m < a.nk ? s[nt][e] + bv[e >> 1][m] : -INFINITY;
-      }
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * hh], s[nt][2 * hh + 1]));
-      const float mn = fmaxf(m[hh], am_quad_max(mx) * AM_LOG2E), sc = am_exp2(m[hh] - mn);
-      l[hh] *= sc, m[hh] = mn;
-#pragma unroll
-      for (int nt = 0; nt < NDT; ++nt) o[nt][2 * hh] *= sc, o[nt][2 * hh + 1] *= sc;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float p = am_exp2(fmaf(s[nt][2 * hh + e], AM_LOG2E, -mn));
-          l[hh] += p, s[nt][2 * hh + e] = p;
-        }
-    }
-    uint32_t pa[4][4];  // p as wgmma's A fragments, 16 keys each
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      pa[nt >> 1][(nt & 1) * 2] = hm_pack(s[nt][0], s[nt][1]);
-      pa[nt >> 1][(nt & 1) * 2 + 1] = hm_pack(s[nt][2], s[nt][3]);
-    }
-    wg_fence();
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      wg_rs<DP>(&o[0][0], pa[ks], wg_desc(VT + b * tile + ks * 128, 128, AM_TOK * 16), 1);
-    wg_commit();
-    wg_wait0();
-    wg_hold<NDT * 4>(&o[0][0]);
-    wg_hold<16>(&pa[0][0]);
-    if (c + OF_STAGES < KT) {
-      __syncthreads();  // both warpgroups are done with buffer b
-      load(c + OF_STAGES);
-    }
+// Above OF_MAX_NK keys (and in B12's large entry) the pass runs on
+// lf_core.cuh's pipelined forward, a block a (unit, query tile). Its bias
+// is first put in fragment order by of_bias_kernel (below), so a stage
+// takes a tile's bias in one bulk copy (a copy a 64-key row, 192 a chunk
+// for a first version's three tiles, held the pass to the copy engine's
+// rate: 5.6 ms at the HAT window-24 step, scripts/torch_ablate_large_fwd.py).
+// This family's part: the images as of_fwd_kernel reads them; rows below
+// a.nrows stored through the block's q tile, as of_fwd_kernel stores them.
+template <int DP>
+struct LfOf {
+  OfArgs a;
+  int QT, KT, heads;
+  long long units;
+  const void* bias;  // a.bfrag
+  __device__ const bf16* q(long long u, int r) const { return a.qimg + u * a.q_unit + (long long)r * AM_TOK * DP; }
+  __device__ const bf16* k(long long u, int c) const {
+    return a.img + u * a.unit_elems + a.kv0 + (long long)c * AM_TOK * DP;
   }
+  __device__ const bf16* v(long long u, int c) const {
+    return a.img + u * a.unit_elems + a.kv0 + (long long)(a.KT + c) * AM_TOK * DP;
+  }
+  __device__ bool masked(long long) const { return false; }
+  __device__ int tag(long long, int) const { return 0; }
   // o / l, rounded, staged row-major (DP a row) in the warpgroup's own q
-  // tile (no wgmma reads it any more), a warp its 16 rows; then each row's d
-  // values to the out view.
-  float inv[2];
+  // tile, a warp its 16 rows; then each row's d values to the out view
+  __device__ void store(long long u, int r, const float (&o)[DP / 8][4], const float (&inv)[2], bf16* Qw) const {
+    const int lane = threadIdx.x & 31, wr = (threadIdx.x >> 5) & 3, gq = lane >> 2, tq = lane & 3;
+    bf16* const stage = Qw + 16 * wr * DP;
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) inv[hh] = 1.f / am_quad_sum(l[hh]);
-  bf16* const stage = Qw + 16 * wr * DP;
+    for (int nt = 0; nt < DP / 8; ++nt)
 #pragma unroll
-  for (int nt = 0; nt < NDT; ++nt)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh)
-      *reinterpret_cast<__nv_bfloat162*>(stage + (gq + 8 * hh) * DP + nt * 8 + 2 * tq) =
-          __floats2bfloat162_rn(o[nt][2 * hh] * inv[hh], o[nt][2 * hh + 1] * inv[hh]);
-  __syncwarp();
-  const long long w = u / a.heads;
-  bf16* const out = a.out + w * a.st[OF_O][0] + h * a.st[OF_O][1];
-  const int row0 = i * AM_TOK + 16 * wr;
-  if (a.pairs) {
-    const int half = a.d / 2;
-    for (int e = lane; e < 16 * half; e += 32) {
-      const int rr = e / half, jw = e - rr * half;
-      if (i < a.QT && row0 + rr < a.nrows)
-        *reinterpret_cast<uint32_t*>(out + (row0 + rr) * a.st[OF_O][2] + 2 * jw) =
-            *reinterpret_cast<const uint32_t*>(stage + rr * DP + 2 * jw);
-    }
-  } else {
-    for (int e = lane; e < 16 * a.d; e += 32) {
-      const int rr = e / a.d, j = e - rr * a.d;
-      if (i < a.QT && row0 + rr < a.nrows) out[(row0 + rr) * a.st[OF_O][2] + j] = stage[rr * DP + j];
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<__nv_bfloat162*>(stage + (gq + 8 * hh) * DP + nt * 8 + 2 * tq) =
+            __floats2bfloat162_rn(o[nt][2 * hh] * inv[hh], o[nt][2 * hh + 1] * inv[hh]);
+    __syncwarp();
+    bf16* const out = a.out + u / heads * a.st[OF_O][0] + (u % heads) * a.st[OF_O][1];
+    const int row0 = r * AM_TOK + 16 * wr;
+    if (a.pairs) {
+      const int half = a.d / 2;
+      for (int e = lane; e < 16 * half; e += 32) {
+        const int rr = e / half, jw = e - rr * half;
+        if (row0 + rr < a.nrows)
+          *reinterpret_cast<uint32_t*>(out + (row0 + rr) * a.st[OF_O][2] + 2 * jw) =
+              *reinterpret_cast<const uint32_t*>(stage + rr * DP + 2 * jw);
+      }
+    } else {
+      for (int e = lane; e < 16 * a.d; e += 32) {
+        const int rr = e / a.d, j = e - rr * a.d;
+        if (row0 + rr < a.nrows) out[(row0 + rr) * a.st[OF_O][2] + j] = stage[rr * DP + j];
+      }
     }
   }
+};
+
+// The bias (heads, nq, nk; BT) in lf_core.cuh's fragment order, as
+// am_bias_kernel lays B5's: group ((h QT + r) KT + c) 1024 + 128 nt + wt (a
+// float4, or four bf16) is thread wt's score fragment of query tile r, key
+// chunk c, 8-column tile nt: rows q, q + 8 (q = 64 r + 16 (wt / 32) + wt % 32
+// / 4), image positions p, p + 1 (p = 8 nt + 2 (wt % 4)), which hold keys
+// 64 c + of_perm(p) and the next; -inf past nk (as the old pass scored keys
+// past nk), 0 past nq. bf16 stays bf16, f32 f32.
+template <typename BT>
+__global__ void of_bias_kernel(const BT* __restrict__ bias, int heads, int nq, int nk, int QT, int KT,
+                               BT* __restrict__ out) {
+  const long long groups = (long long)heads * QT * KT * 1024;
+  const BT ninf = from_f32<BT>(-INFINITY), zero = from_f32<BT>(0.f);
+  for (long long gi = blockIdx.x * (long long)blockDim.x + threadIdx.x; gi < groups;
+       gi += (long long)gridDim.x * blockDim.x) {
+    const int wt = (int)(gi % 128), nt = (int)(gi / 128 % 8), c = (int)(gi / 1024 % KT);
+    const long long hr = gi / (1024LL * KT);
+    const int r = (int)(hr % QT), h = (int)(hr / QT);
+    const int q = AM_TOK * r + 16 * (wt >> 5) + ((wt & 31) >> 2), key = AM_TOK * c + of_perm(8 * nt + 2 * (wt & 3));
+    BT v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int qq = q + 8 * (k >> 1), kk = key + (k & 1);
+      v[k] = kk >= nk ? ninf : qq >= nq ? zero : bias[((long long)h * nq + qq) * nk + kk];
+    }
+    if constexpr (std::is_same<BT, float>::value) {
+      reinterpret_cast<float4*>(out)[gi] = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+      __nv_bfloat162 v0, v1;
+      v0.x = v[0], v0.y = v[1], v1.x = v[2], v1.y = v[3];
+      reinterpret_cast<uint2*>(out)[gi] =
+          make_uint2(*reinterpret_cast<uint32_t*>(&v0), *reinterpret_cast<uint32_t*>(&v1));
+    }
+  }
+}
+
+// Elements of bf16 scratch the fragment-ordered bias takes (b16: a bf16
+// bias, else an f32 one).
+__host__ __device__ inline long long of_bias_elems(int heads, int QT, int KT, bool b16) {
+  return (long long)heads * QT * KT * 1024 * (b16 ? 4 : 8);
 }
 
 // -- host ------------------------------------------------------------------------------
@@ -394,13 +359,22 @@ static bool of_shape_ok(int bw, int heads, int nq, int nk, int d, bool any = fal
 }
 
 // The attention pass: every key chunk in its own buffer up to OF_MAX_NK
-// keys, the ring of OF_STAGES above.
+// keys; above them, or in B12's large entry (`large`), lf_core.cuh's
+// pipelined forward.
 template <int DP, typename BT>
-static cudaError_t of_attn_launch(const OfArgs& a, cudaStream_t st) {
-  const bool ring = a.KT * AM_TOK > OF_MAX_NK, padq = a.nrows != a.nq;
-  const size_t bytes = (size_t)(2 * (ring ? OF_STAGES : a.KT) + 2) * AM_TOK * DP * 2;
+static cudaError_t of_attn_launch(const OfArgs& a, cudaStream_t st, bool large = false) {
+  if (large || a.KT * AM_TOK > OF_MAX_NK) {
+    const long long groups = (long long)a.heads * a.QT * a.KT * 1024;
+    of_bias_kernel<BT><<<(int)((groups + 255) / 256 < 8192 ? (groups + 255) / 256 : 8192), 256, 0, st>>>(
+        (const BT*)a.bias, a.heads, a.nq, a.nk, a.QT, a.KT, (BT*)a.bfrag);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    return lf_launch<DP>(LfOf<DP>{a, a.QT, a.KT, a.heads, a.units, a.bfrag}, std::is_same<BT, bf16>::value, st);
+  }
+  const bool padq = a.nrows != a.nq;
+  const size_t bytes = (size_t)(2 * a.KT + 2) * AM_TOK * DP * 2;
   const int blocks = (int)(a.units * ((a.QT + 1) / 2));
-  auto kernel = ring ? of_fwd_ring_kernel<DP, BT> : padq ? of_fwd_kernel<DP, BT, true> : of_fwd_kernel<DP, BT>;
+  auto kernel = padq ? of_fwd_kernel<DP, BT, true> : of_fwd_kernel<DP, BT>;
   cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   kernel<<<blocks, 256, bytes, st>>>(a);
@@ -408,18 +382,21 @@ static cudaError_t of_attn_launch(const OfArgs& a, cudaStream_t st) {
 }
 
 struct OfPlan {
-  long long units, unit_elems, t_elems;
+  long long units, unit_elems, t_elems, bias;  // bias: where the fragment-ordered bias starts (large)
   int QT, KT, DP;
 };
 
-static OfPlan of_plan(int bw, int heads, int nq, int nk, int d) {
+// The scratch: the images, then (`large`: lf_core.cuh's pass) the bias in
+// fragment order (b16: bf16, else f32).
+static OfPlan of_plan(int bw, int heads, int nq, int nk, int d, bool large, bool b16) {
   OfPlan P;
   P.QT = (nq + AM_TOK - 1) / AM_TOK;
   P.KT = (nk + AM_TOK - 1) / AM_TOK;
   P.DP = d <= 16 ? 16 : 32;
   P.units = (long long)bw * heads;
   P.unit_elems = (long long)(P.QT + 2 * P.KT) * AM_TOK * P.DP;
-  P.t_elems = P.units * P.unit_elems;
+  P.bias = P.units * P.unit_elems;
+  P.t_elems = P.bias + (large ? of_bias_elems(heads, P.QT, P.KT, b16) : 0);
   return P;
 }
 

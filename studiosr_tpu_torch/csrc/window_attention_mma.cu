@@ -13,8 +13,8 @@
 // A window of N = ws^2 tokens is padded to NCH = ceil(N / 64) whole tiles
 // (am_window.cuh): windows 2..8 take one tile (the entry
 // window_attention_mma_bf16), 9..16 two to four (window_attention16_mma_bf16),
-// 17 up five and more, the key chunks streamed (window_attention_large_mma_bf16,
-// wa_attn_large_kernel);
+// 17 up five and more, the key chunks streamed (window_attention_large_mma_bf16:
+// pass 2 is lf_core.cuh's pipelined forward);
 // the padding keys score -inf (their bias, am_bias_kernel), the padding
 // queries are never stored.
 // Rounding points follow the TPU kernel: the LN output, q / k / v, the
@@ -57,6 +57,7 @@
 // Takes bf16, windows from 2, head dims up to 32, C a multiple of 4 up to
 // 184, H and W multiples of the window; the wrapper routes anything else.
 #include "am_window.cuh"
+#include "lf_core.cuh"
 
 // Shared memory of the attention pass: the window's k (K-major in d) and v
 // (K-major in the token), the block's 64 queries' q and the keys' region ids.
@@ -200,125 +201,43 @@ __global__ void __launch_bounds__(128, 3) wa_attn_kernel(const AmArgs a, const A
 
 // Windows above 16 (NCH >= 5 tiles): the window's k and v do not stay in
 // shared memory (2 NCH 64 DP bf16, 144 KB at window 33 and without a bound
-// above), so a warpgroup owning (window, head, 64 queries) streams them a
-// 64-key chunk at a time through two cp.async buffers, the next chunk in
-// flight while this one is used; scores, bias, mask, the online softmax and
-// o += p v as in wa_attn_kernel; the shift's regions computed as the keys
-// come. 20 KB of shared memory at DP 32, at any window.
-__host__ __device__ inline size_t wa_large_smem(const AmGeom& G) { return (size_t)5 * AM_TOK * G.DP * 2; }
-
+// above), so the attention runs on lf_core.cuh's pipelined forward: a block
+// a (window, head, 64 queries) streaming the 64-key chunks through a ring;
+// scores, bias, mask, the online softmax and o += p v as in
+// wa_attn_kernel. This family's part: unit u = w heads + h of pass 1's
+// images; the bias in am_bias_kernel's fragment order (tile (h, r, c) 1024
+// float4, or uint2 in bf16, contiguous), as lf_core.cuh reads it; the
+// shift's regions (am_region) as the tags; attn per token row, head h's DP
+// columns, stored from the fragments.
 template <int DP>
-__global__ void __launch_bounds__(128, 4) wa_attn_large_kernel(const AmArgs a, const AmGeom G) {
-  constexpr int CH = AM_TOK * DP, KS = DP / 16, NDT = DP / 8, PIECES = CH / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qk = (bf16*)smem;
-  bf16* Kb = Qk + CH;      // two buffers of a chunk's k (K-major in d)
-  bf16* Vb = Kb + 2 * CH;  // two buffers of its v (K-major in the token)
-  const int NCH = G.NCH, N = G.N;
-  const int tid = threadIdx.x, wr = tid >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
-  const int r = blockIdx.x % NCH, h = (blockIdx.x / NCH) % G.heads, w = blockIdx.x / (NCH * G.heads);
-  const bf16* unit = a.img + ((long long)w * G.heads + h) * 3 * N * DP;
-  auto load = [&](int c) {
-    const int b = c & 1;
-    for (int i = tid; i < 2 * PIECES; i += 128) {
-      const bool v = i >= PIECES;
-      const int j = v ? i - PIECES : i;
-      hm_cp_async<16>((v ? Vb : Kb) + b * CH + j * 8, unit + (v ? 2 : 1) * (long long)N * DP + c * CH + j * 8, true);
-    }
-  };
-  for (int i = tid; i < PIECES; i += 128) hm_cp_async<16>(Qk + i * 8, unit + r * CH + i * 8, true);
-  load(0);
-  hm_cp_commit();
-  const int q0 = 16 * wr + gq, wi = w % a.nwi;
-  const int rq0 = a.shift ? am_region(G, a, wi, r * AM_TOK + q0) : 0;
-  const int rq1 = a.shift ? am_region(G, a, wi, r * AM_TOK + q0 + 8) : 0;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[NDT][4];
-#pragma unroll 1
-  for (int c = 0; c < NCH; ++c) {
-    if (c + 1 < NCH) {
-      load(c + 1);
-      hm_cp_commit();
-      hm_cp_wait_upto(1);
-    } else {
-      hm_cp_wait_upto(0);
-    }
-    wg_proxy_fence();
-    __syncthreads();  // chunk c (and q) in for every thread
-    const bf16 *Kk = Kb + (c & 1) * CH, *Vt = Vb + (c & 1) * CH;
-    float4 bb[8];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) bb[nt] = am_bias4(a, NCH, h, r, c, nt, tid);
-    float s[8][4];
-    wg_fence();
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-      wg_ss<64>(&s[0][0], wg_desc(Qk + ks * 128, 128, DP * 16), wg_desc(Kk + ks * 128, 128, DP * 16), ks > 0);
-    wg_commit();
-    wg_wait0();
-    wg_hold<32>(&s[0][0]);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int col = c * AM_TOK + nt * 8 + 2 * tq;
-      s[nt][0] += bb[nt].x, s[nt][1] += bb[nt].y, s[nt][2] += bb[nt].z, s[nt][3] += bb[nt].w;
-      if (a.shift) {
-        const int k0 = am_region(G, a, wi, col), k1 = am_region(G, a, wi, col + 1);
-        if (k0 != rq0) s[nt][0] += -100.f;
-        if (k1 != rq0) s[nt][1] += -100.f;
-        if (k0 != rq1) s[nt][2] += -100.f;
-        if (k1 != rq1) s[nt][3] += -100.f;
-      }
-    }
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * hh], s[nt][2 * hh + 1]));
-      const float mn = fmaxf(m[hh], am_quad_max(mx) * AM_LOG2E), sc = am_exp2(m[hh] - mn);
-      l[hh] *= sc, m[hh] = mn;
-      if (c > 0)
-#pragma unroll
-        for (int nt = 0; nt < NDT; ++nt) o[nt][2 * hh] *= sc, o[nt][2 * hh + 1] *= sc;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float p = am_exp2(fmaf(s[nt][2 * hh + e], AM_LOG2E, -mn));
-          s[nt][2 * hh + e] = p;
-          l[hh] += p;
-        }
-    }
-    uint32_t pa[4][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      pa[nt >> 1][(nt & 1) * 2] = hm_pack(s[nt][0], s[nt][1]);
-      pa[nt >> 1][(nt & 1) * 2 + 1] = hm_pack(s[nt][2], s[nt][3]);
-    }
-    wg_fence();
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      wg_rs<DP>(&o[0][0], pa[ks], wg_desc(Vt + ks * 128, 128, AM_TOK * 16), c > 0 || ks > 0);
-    wg_commit();
-    wg_wait0();
-    wg_hold<NDT * 4>(&o[0][0]);
-    wg_hold<16>(&pa[0][0]);
-    __syncthreads();  // every warp is done with buffer c & 1 before chunk c + 2 fills it
+struct LfB5 {
+  AmArgs a;
+  AmGeom G;
+  int QT, KT, heads;
+  long long units;
+  const void* bias;  // a.relbias: tile (h, r, c) the ((h NCH + r) NCH + c)-th of am_bias_kernel's order
+  __device__ const bf16* img(long long u) const { return a.img + u * 3 * G.N * DP; }
+  __device__ const bf16* q(long long u, int r) const { return img(u) + (long long)r * AM_TOK * DP; }
+  __device__ const bf16* k(long long u, int c) const { return img(u) + ((long long)G.N + c * AM_TOK) * DP; }
+  __device__ const bf16* v(long long u, int c) const { return img(u) + (2LL * G.N + c * AM_TOK) * DP; }
+  // a window off the last row and column of windows lies in region 0 whole
+  __device__ bool masked(long long u) const {
+    const int wi = (int)((u / heads) % a.nwi);
+    return a.shift && (wi / a.nwx == a.nwi / a.nwx - 1 || wi % a.nwx == a.nwx - 1);
   }
+  __device__ int tag(long long u, int n) const { return am_region(G, a, (int)((u / heads) % a.nwi), n); }
+  __device__ void store(long long u, int r, const float (&o)[DP / 8][4], const float (&inv)[2], bf16*) const {
+    const int lane = threadIdx.x & 31, q0 = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2), tq = lane & 3;
+    const int h = (int)(u % heads);
+    const long long row0 = (u / heads * G.NCH + r) * AM_TOK;
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const float inv = 1.f / am_quad_sum(l[hh]);
+    for (int nt = 0; nt < DP / 8; ++nt)
 #pragma unroll
-    for (int nt = 0; nt < NDT; ++nt) o[nt][2 * hh] *= inv, o[nt][2 * hh + 1] *= inv;
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<__nv_bfloat162*>(a.att + (row0 + q0 + 8 * hh) * G.HD + h * DP + nt * 8 + 2 * tq) =
+            __floats2bfloat162_rn(o[nt][2 * hh] * inv[hh], o[nt][2 * hh + 1] * inv[hh]);
   }
-  const long long row0 = ((long long)w * NCH + r) * AM_TOK;
-#pragma unroll
-  for (int nt = 0; nt < NDT; ++nt) {
-    const int j = nt * 8 + 2 * tq;
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh)
-      *reinterpret_cast<__nv_bfloat162*>(a.att + (row0 + q0 + 8 * hh) * G.HD + h * DP + j) =
-          __floats2bfloat162_rn(o[nt][2 * hh], o[nt][2 * hh + 1]);
-  }
-}
+};
 
 // Scratch in bf16: the q|k|v images (windows x heads x 3 x N x DP), LN rows
 // (SC), attn rows (HD), the packed weights and the bias in fragment order
@@ -370,11 +289,8 @@ static cudaError_t wa_launch(const AmArgs& a, const AmGeom& G, const WaScratch& 
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (G.NCH > 4) {
-    const size_t lbytes = wa_large_smem(G);
-    err = allow_smem(wa_attn_large_kernel<DP>, lbytes);
-    if (err != cudaSuccess) return err;
-    wa_attn_large_kernel<DP><<<S.windows * G.heads * G.NCH, 128, lbytes, stream>>>(a, G);
-    return cudaGetLastError();
+    const LfB5<DP> f{a, G, G.NCH, G.NCH, G.heads, (long long)S.windows * G.heads, a.relbias};
+    return lf_launch<DP>(f, a.bias16, stream);
   }
   auto attn = G.NCH == 1   ? wa_attn_kernel<1, DP>
               : G.NCH == 2 ? wa_attn_kernel<2, DP>

@@ -77,7 +77,7 @@ _SIGNATURES_FWD_MMA = {
     "oca_core_fwd_mma_bf16": _FWD_MMA,
     "oca_core_fwd_mma_scratch": (I,) * 5 + (ctypes.POINTER(_LL),),
     "oca_core_fwd_large_mma_bf16": _FWD_MMA,
-    "oca_core_fwd_large_mma_scratch": (I,) * 5 + (ctypes.POINTER(_LL),),
+    "oca_core_fwd_large_mma_scratch": (I,) * 6 + (ctypes.POINTER(_LL),),  # and the bias's dtype
 }
 _BWD_MMA = (P,) * 9 + (_STRIDES, I, I, I, I, I, P, _LL, P, _LL, P)
 _SIGNATURES_MMA = {
@@ -308,9 +308,12 @@ def oca_core_fwd(q, k, v, bias):
         bdt = torch.bfloat16 if torch.is_tensor(bias) and bias.dtype == torch.bfloat16 else torch.float32
         b = operand(bias, "bias", (heads, nq, nk), bdt, dev)
         lib = _build.load("oca_fwd_mma", _SIGNATURES_FWD_MMA)
-        entry = "oca_core_fwd_mma_bf16" if mma_takes(heads, nq, nk, d) else "oca_core_fwd_large_mma_bf16"
+        large = not mma_takes(heads, nq, nk, d)
+        entry = "oca_core_fwd_large_mma_bf16" if large else "oca_core_fwd_mma_bf16"
         t_elems = _LL()
-        status = call(dev, getattr(lib, entry.replace("_bf16", "_scratch")), bw, heads, nq, nk, d,
+        # the large entry's scratch holds the bias in fragment order, in its dtype
+        flag = (int(bdt == torch.bfloat16),) if large else ()
+        status = call(dev, getattr(lib, entry.replace("_bf16", "_scratch")), bw, heads, nq, nk, d, *flag,
                       ctypes.byref(t_elems))
         if status != 0:
             raise RuntimeError(f"oca_core_fwd: CUDA error {status} while sizing the scratch")

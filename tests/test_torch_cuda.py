@@ -767,6 +767,102 @@ def test_window_kernels_take_every_window_above_16(dev, ws, dtype, c, heads):
     _check_window_kernels(dev, ws, dtype, c, heads)
 
 
+# The forward above window 16 on lf_core.cuh's pipelined core. B5 at windows
+# 17, 24 and 33, C 128 / 4 heads and 180 / 6, shift ws / 2 (the windows of
+# the last window row and column masked, the others not) and 0, with
+# drop-path, a bf16 bias; MaxSR's 289² map at window 17 (289 tokens in five
+# tiles, two blocks a unit, the second one tile short), unshifted: against
+# the plain version, two launches the same bits, each through the entry.
+LF_B5_CASES = [(ws, c, heads, (2, 2 * ws, 3 * ws), shift) for ws in (17, 24, 33) for c, heads in ((128, 4), (180, 6))
+               for shift in (0, ws // 2)] + [(17, 128, 4, (1, 289, 289), 0)]
+
+
+@pytest.mark.parametrize("ws,c,heads,shape,shift", LF_B5_CASES)
+def test_window_attention_large_core_matches_plain_and_repeats(dev, ws, c, heads, shape, shift):
+    gen = torch.Generator().manual_seed(ws + c + shift + shape[1])
+    ops = [t.to(dev, torch.bfloat16 if i in (2, 4, 6) else torch.float32)
+           for i, t in enumerate(_block_operands(gen, c, heads, 2 * c, ws=ws)[:7])]
+    x = _randn(gen, *shape, c).to(dev, torch.bfloat16)
+    dp = torch.full((shape[0],), 1.25, device=dev)
+    dp[0] = 0.0
+    kw = dict(heads=heads, window_size=ws, shift=shift, drop_path=dp)
+    engagement.reset()
+    y = fused_window_attention_block(x, *ops, **kw)
+    again = fused_window_attention_block(x, *ops, **kw)
+    assert engagement.entries() == {"fused_window_attention_block_large": {"window_attention_large_mma_bf16": 2}}
+    _assert_close(y, window_attention_plain(x.float(), *[t.float() for t in ops], **kw), torch.bfloat16)
+    assert torch.equal(y, again)  # one owner a row, no atomics: bitwise repeatable
+    assert torch.equal(y[0], x[0])  # a dropped sample passes through exactly
+
+
+def test_window_attention_large_core_serves_the_packed_f32_blob(dev):
+    """SwinIR x4 serving at window 24 (C 180, 6 heads, shift 12, no
+    drop-path) on a 2 x 3 window map: the blob (the f32 bias in fragment
+    order, three stages a block) against the plain version, two launches
+    and the dense weights with the same f32 bias giving the same bits."""
+    ws, c, heads = 24, 180, 6
+    gen = torch.Generator().manual_seed(2400)
+    ops = [t.to(dev, torch.bfloat16 if i in (2, 4) else torch.float32)
+           for i, t in enumerate(_block_operands(gen, c, heads, 2 * c, ws=ws)[:7])]
+    x = _randn(gen, 1, 2 * ws, 3 * ws, c).to(dev, torch.bfloat16)
+    kw = dict(heads=heads, window_size=ws, shift=ws // 2, drop_path=None)
+    blob = pack_window_attention(ops[2], ops[4], ops[6], heads)
+    engagement.reset()
+    served = fused_window_attention_block(x, ops[0], ops[1], blob, ops[3], None, ops[5], None, **kw)
+    again = fused_window_attention_block(x, ops[0], ops[1], blob, ops[3], None, ops[5], None, **kw)
+    dense = fused_window_attention_block(x, *ops, **kw)
+    assert engagement.entries() == {"fused_window_attention_block_large": {"window_attention_large_mma_bf16": 3}}
+    _assert_close(served, window_attention_plain(x.float(), *[t.float() for t in ops], **kw), torch.bfloat16)
+    assert torch.equal(served, again) and torch.equal(served, dense)
+
+
+# B12's large entry and B10 above 576 keys on the same core, the bias put in
+# fragment order first: B12 at HAT's window-24 OCA geometry (576 x 1296, more
+# windows than SMs) and ragged (100 x 700, d 12: a partial last chunk and
+# query tile, bf16 rows of 1400 bytes) with either bias dtype, and 300 x
+# 100 (the large entry below 576 keys); B10 at window 24 (1296 keys) and 20
+# (900), HAT's widths, on the blob: against the plain versions, two launches
+# the same bits.
+LF_OF_CASES = [(140, 2, 576, 1296, 30, torch.bfloat16), (140, 2, 576, 1296, 30, torch.float32),
+               (5, 3, 100, 700, 12, torch.float32), (5, 3, 100, 700, 12, torch.bfloat16),
+               (4, 2, 300, 100, 16, torch.float32)]
+
+
+@pytest.mark.parametrize("bw,heads,nq,nk,d,bias_dtype", LF_OF_CASES)
+def test_oca_core_fwd_large_core_matches_plain_and_repeats(dev, bw, heads, nq, nk, d, bias_dtype):
+    from studiosr_tpu_torch.ops.cuda.oca_core import oca_core_fwd, oca_core_plain
+
+    gen = torch.Generator().manual_seed(bw + nq + nk)
+    q, k, v, bias, _ = _oca_case(gen, bw, heads, nq, nk, d, dev, torch.bfloat16)
+    bias = bias.to(bias_dtype)
+    engagement.reset()
+    out = oca_core_fwd(q, k, v, bias)
+    again = oca_core_fwd(q, k, v, bias)
+    assert engagement.entries() == {"oca_core_fwd_large": {"oca_core_fwd_large_mma_bf16": 2}}
+    _assert_close(out, oca_core_plain(q.float(), k.float(), v.float(), bias.float()), torch.bfloat16)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("ws", [24, 20])
+def test_ocab_above_576_keys_core_matches_plain_and_repeats(dev, ws):
+    c, heads = 180, 6
+    gen = torch.Generator().manual_seed(ws + 7)
+    owin, _ = overlap_window(ws, 0.5)
+    blk = _block_operands(gen, c, heads, 2 * c, ws=ws)
+    ops = blk[:6] + [_randn(gen, heads, ws * ws, owin * owin, scale=0.5)] + blk[7:]
+    ops = [t.to(dev, torch.bfloat16 if i in (2, 4, 6, 9, 11) else torch.float32) for i, t in enumerate(ops)]
+    x = _randn(gen, 1, 2 * ws, 3 * ws, c).to(dev, torch.bfloat16)
+    kw = dict(heads=heads, window_size=ws, overlap_ratio=0.5)
+    served = list(ops)
+    served[2], served[4], served[9], served[11] = pack_ocab_block(ops[2], ops[4], ops[9], ops[11], heads), None, None, None
+    engagement.reset()
+    got = fused_ocab_block(x, *served, **kw)
+    again = fused_ocab_block(x, *served, **kw)
+    assert engagement.entries() == {"fused_ocab_block": {"ocab_mma_bf16": 2}}
+    _assert_close(got, ocab_plain(x.float(), *[t.float() for t in ops], **kw), torch.bfloat16)
+    assert torch.equal(got, again)
+
+
 def _check_window_kernels(dev, ws, dtype, c, heads):
     from studiosr_tpu_torch.ops.cuda.window_attention import FAMILY_STEM, mma_takes
 
