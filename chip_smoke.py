@@ -167,8 +167,13 @@ Phases, in order; any failure exits non-zero before the final line:
 21. SwinFIR training: the fused-train module's loss and gradients in f32
     against an f64 witness and against plain autograd in f32 (batch 4, the
     SFBs' LeakyReLU kinks pinned too); ``Trainer.run`` for 3 steps at the
-    recipe (batch 32, f32) with launch counts (B5-B8 36 a step) and a
-    falling loss; step ms, images/s and peak memory over 7 steps of one
+    recipe (batch 32, f32) with launch counts (B5-B8 36 a step; every B7
+    and B8 launch through its f32 kernel written for the H100,
+    ``mlp_bwd_mma_f32`` / ``attn_bwd_mma_f32``) and a falling loss; B8
+    (shift 4) and B7 in f32 at the step's shapes on the trained weights
+    against their plain versions, timed beside the plain versions, the
+    bound at 3xTF32 and an f32 PyTorch sequence (the ``*_f32`` rows of the
+    kernels line); step ms, images/s and peak memory over 7 steps of one
     batch (the last 5 timed);
 22. B15 vs plain, f32 and bf16: MaxSR adaptive (256 windows of 256 tokens,
     4 heads, d 32, no bias), static (1024 windows of 64 tokens, a table
@@ -509,6 +514,14 @@ RESBLOCK_SHAPES = ((1, LR + MAIN["window_size"], LR + MAIN["window_size"], MAIN[
 RESBLOCK_VARIANTS = (("lrelu0.2", 1.0), ("relu", 0.1), ("relu", 1.0), ("lrelu0.2", 0.1))
 SWINFIR_TRAIN_STEPS = 3
 SWINFIR_TRAIN_DIR = ROOT / "build" / "chip_smoke_swinfir_train"
+# SwinFIR's f32 step runs B7 and B8 through their f32 kernels written for the
+# H100 (3xTF32 products): their rows in the kernels line, bound at three TF32
+# products a product (494.7 TFLOP/s dense TF32, the FMA pipes' 66.9 logged)
+KERNELS.update({
+    "attention_bwd_f32": ("studiosr_tpu_torch/csrc/attn_bwd_f32.cu", "studiosr_tpu/ops/pallas/attn_bwd.py:209"),
+    "mlp_bwd_f32": ("studiosr_tpu_torch/csrc/mlp_bwd_f32.cu", "studiosr_tpu/ops/pallas/mlp_vjp.py:148"),
+})
+PEAK_TF32X3_FLOPS, PEAK_FMA_FLOPS = 494.7e12 / 3, 66.9e12
 SWINFIR_GRAD_RUNS = (("plain", torch.float64), ("plain", torch.float32), ("fused", torch.float32))
 # the pre-activations of the SFBs' LeakyReLU(0.2)s: kinks pinned to the witness's side
 SFB_KINKS = ("S.body.0", "conv_before_fft.0", "fu.conv_layer")
@@ -549,10 +562,14 @@ H100_KERNELS = {"fused_swin_block": ("swin_block_mma", "swin_block_mma_kernel"),
                 "fused_mlp_block_extra": ("mlp_block_mma", "mf_kernel"), "oca_core_bwd": ("oca_bwd_mma", "ob_"),
                 "fused_cab_body": ("cab_mma", "_kernel"), "oca_core_fwd": ("oca_fwd_mma", "of_"),
                 "fused_ocab_block": ("ocab_mma", "_kernel"), "oca_core_fwd_large": ("oca_fwd_mma", "of_|lf_fwd"),
-                "oca_core_bwd_large": ("oca_bwd_mma", "lb_")}
+                "oca_core_bwd_large": ("oca_bwd_mma", "lb_"),
+                "attention_bwd_f32": ("attn_bwd_f32", "ab32_|tfw?_gemm"),
+                "mlp_bwd_f32": ("mlp_bwd_f32", "mb32_|tfw?_gemm")}
 # The C entry every launch of B5-B9, B12 and B13 must take in a run of each
 # dtype: bf16 the kernels written for the H100 (their geometry rules hold at
-# every width the paths train), f32 the older kernels.
+# every width the paths train); f32 B7 and B8 (windows 2-8) the f32 kernels
+# written for the H100 (3xTF32 on the tensor cores: SwinFIR's recipe trains
+# in f32), the others the older kernels.
 TRAIN_ENTRIES = {
     torch.bfloat16: {"attention_bwd": "attn_bwd_mma_bf16", "attention_bwd_ws16": "attn_bwd16_mma_bf16",
                      "attention_bwd_large": "attn_bwd_large_mma_bf16",
@@ -563,11 +580,11 @@ TRAIN_ENTRIES = {
                      "fused_mlp_block": "mlp_block_mma_bf16", "oca_core_bwd": "oca_core_bwd_mma_bf16",
                      "oca_core_fwd": "oca_core_fwd_mma_bf16", "oca_core_bwd_large": "oca_core_bwd_large_mma_bf16",
                      "oca_core_fwd_large": "oca_core_fwd_large_mma_bf16"},
-    torch.float32: {"attention_bwd": "attn_bwd_f32", "attention_bwd_ws16": "attn_bwd16_f32",
+    torch.float32: {"attention_bwd": "attn_bwd_mma_f32", "attention_bwd_ws16": "attn_bwd16_f32",
                     "attention_bwd_large": "attn_bwd_large_f32",
                     "fused_window_attention_block": "window_attention_f32",
                     "fused_window_attention_block_ws16": "window_attention16_f32",
-                    "fused_window_attention_block_large": "window_attention_large_f32", "mlp_bwd": "mlp_bwd_f32",
+                    "fused_window_attention_block_large": "window_attention_large_f32", "mlp_bwd": "mlp_bwd_mma_f32",
                     "fused_mlp_block": "mlp_block_f32", "oca_core_bwd": "oca_core_bwd_f32",
                     "oca_core_fwd": "oca_core_fwd_f32", "oca_core_bwd_large": "oca_core_bwd_f32",
                     "oca_core_fwd_large": "oca_core_fwd_f32"},
@@ -2456,11 +2473,61 @@ def phase_swinfir_grads(dev: torch.device) -> None:
         raise AssertionError("; ".join(failed))
 
 
-def phase_swinfir_train(dev: torch.device) -> None:
+def swinfir_f32_rows(model, dev: torch.device, launches: dict, failed: list) -> list:
+    """B8 (shift 4) and B7 in f32 at SwinFIR's step shapes, with ``model``'s
+    weights, on their f32 kernels written for the H100: every output against
+    the plain version (the f32 rule), the time, the plain version's, the
+    bound at 3xTF32 (the FMA pipes' beside it in the log), the same function
+    as a sequence of f32 PyTorch calls (TF32 off; timed here, never on the
+    path), the ptxas line; ``launches`` the trainer run's."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from torch_time_attn_kernels import attention_half_sequence, mlp_half_backward_sequence
+
+    rows = []
+    for name, label, kernel, plain, ops in train_kernel_cases(model, dev, torch.float32, TRAIN_BATCH):
+        if name not in ("attention_bwd", "mlp_bwd") or label == "shift 0":
+            continue
+        row = f"{name}_f32"
+        engagement.reset()
+        got = _flat(kernel(*ops))
+        torch.cuda.synchronize()
+        failed += train_entry_failures(f"swinfir {row}", engagement.counters(), torch.float32)
+        want = _flat(plain(*ops))
+        err = max(kernel_check(f"swinfir {row} [{label}] output {i}", k, p, torch.float32, failed)
+                  for i, (k, p) in enumerate(zip(got, want)))
+        del got, want
+        ms = time_ms(lambda: kernel(*ops), iters=10)
+        plain_ms = time_ms(lambda: plain(*ops), iters=3, warmup=1)
+        flops, moved = train_bounds(name, ops)
+        t_ops, t_bytes = flops / PEAK_TF32X3_FLOPS, moved / PEAK_BYTES
+        bms, by = 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+        kw = kw_of(label if name == "attention_bwd" else "shift 0", MAIN["window_size"], TRAIN_BATCH, dev)
+        if name == "attention_bwd":
+            sequence = attention_half_sequence(ops[0], ops[1], ops[2:], kw["heads"], kw["window_size"], kw["shift"],
+                                               kw["drop_path"], dtype=torch.float32)
+        else:
+            sequence = mlp_half_backward_sequence(*ops[:2], ops[2:], kw["drop_path"], TRAIN_CROP * TRAIN_CROP,
+                                                  dtype=torch.float32)
+        yard = time_ms(sequence, iters=3, warmup=1)
+        del sequence
+        torch.cuda.empty_cache()
+        source, replaces = KERNELS[row]
+        rows.append(dict(name=row, route="cuda", source=source, replaces=replaces, launches=launches.get(name, 0),
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None))
+        log(f"time {row} [{label}] f32 batch {TRAIN_BATCH}: {ms:.3f} ms ({PER_STEP[name] * ms:.1f} ms a step at "
+            f"{PER_STEP[name]} a step), plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}, 3xTF32; "
+            f"the FMA pipes {1e3 * flops / PEAK_FMA_FLOPS:.4f} ms), {flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB; "
+            f"launches {launches.get(name, 0)} in the trainer's steps; yardstick (f32 PyTorch sequence) {yard:.3f} ms, "
+            f"{100 * bms / ms:.1f} % of the bound; {ptxas_report(row)}")
+    return rows
+
+
+def phase_swinfir_train(dev: torch.device) -> list:
     """``Trainer.run`` on SwinFIR for 3 steps at its recipe (batch 32, f32,
     fused_train by default on the card), then 7 steps of one batch timed
     (the last 5): launch counts, finite losses that fall over the trainer's
-    steps, moved weights, step ms, images/s, peak memory."""
+    steps, moved weights, step ms, images/s, peak memory. Returns the rows
+    of B7 and B8 in f32 (``swinfir_f32_rows``)."""
     shutil.rmtree(SWINFIR_TRAIN_DIR, ignore_errors=True)
     model = SwinFIR.build(**TRAIN_MODEL, seed=SEED, device=dev)
     recipe = model.get_training_config()
@@ -2497,6 +2564,8 @@ def phase_swinfir_train(dev: torch.device) -> None:
     if moved != len(before):
         failed.append(f"only {moved} of {len(before)} SwinFIR parameters changed")
     shutil.rmtree(SWINFIR_TRAIN_DIR, ignore_errors=True)
+    del before
+    rows = swinfir_f32_rows(model, dev, launches, failed)
 
     module = model.module
     module.fused_train = True
@@ -2528,6 +2597,7 @@ def phase_swinfir_train(dev: torch.device) -> None:
     torch.cuda.empty_cache()
     if failed:
         raise AssertionError("; ".join(failed))
+    return rows
 
 
 # -- MaxSR (B15) ---------------------------------------------------------------------
@@ -4527,7 +4597,7 @@ def main() -> int:
     rows.append(swinfir_row)
     rows += phase_windows_serving(dev)
     phase_swinfir_grads(dev)
-    phase_swinfir_train(dev)
+    rows += phase_swinfir_train(dev)
     rows.append(phase_maxsr(dev))
     models = maxsr_models(dev)
     maxsr_errors = phase_train_kernels(models, dev, maxsr_train_kernel_cases)

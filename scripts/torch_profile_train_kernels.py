@@ -2,7 +2,7 @@
 """Device time of each CUDA kernel inside the port's training kernels, and
 of a whole training step.
 
-    python3 scripts/torch_profile_train_kernels.py [--model swinir|hat|maxsr]
+    python3 scripts/torch_profile_train_kernels.py [--model swinir|hat|maxsr|swinfir]
 
 1. One launch of each wrapper runs at the training step's shapes (C 180, 6
    heads, batch 32 of 64x64 maps, bf16, one drop-path scale 0) under
@@ -16,7 +16,7 @@ of a whole training step.
    weight-gradient GEMMs, the reductions), averaged over 5 calls after 2
    warm-up calls.
 2. Three steps of ``make_train_step`` (the model at full width, the
-   batch-32 recipe, bf16, fused_train) after 2 warm-up steps: host ms a
+   batch-32 recipe, bf16 (SwinFIR f32), fused_train) after 2 warm-up steps: host ms a
    step, the device's busy ms a step (the kernels' device times summed; one
    stream) and so its idle share, the device kernels a step, and the
    kernels that take the most device time.
@@ -37,7 +37,7 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from studiosr_tpu_torch import HAT, MaxSR, SwinIR, resolve_device  # noqa: E402
+from studiosr_tpu_torch import HAT, MaxSR, SwinFIR, SwinIR, resolve_device  # noqa: E402
 from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd  # noqa: E402
 from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block  # noqa: E402
 from studiosr_tpu_torch.ops.cuda.mlp_bwd import mlp_bwd  # noqa: E402
@@ -47,6 +47,7 @@ from studiosr_tpu_torch.parallel import build_optimizer, make_train_step, prepar
 from studiosr_tpu_torch.utils import l1_loss  # noqa: E402
 
 B, S, C, HEADS, CALLS, STEPS = 32, 64, 180, 6, 5, 3
+TOP = {"swinfir": 40}  # the step's kernels listed (SwinFIR: its SFBs' convs and FFTs beside B5-B8)
 
 
 def _device_kernels(prof):
@@ -57,6 +58,9 @@ def profile_step(dev: torch.device, name: str) -> None:
     if name == "swinir":
         model = SwinIR.build(scale=4, embed_dim=C, depths=[6] * 6, num_heads=[HEADS] * 6, window_size=8,
                              mlp_ratio=2.0, drop_path_rate=0.1, device=dev)
+    elif name == "swinfir":
+        model = SwinFIR.build(scale=4, embed_dim=C, depths=[6] * 6, num_heads=[HEADS] * 6, window_size=8,
+                              mlp_ratio=2.0, drop_path_rate=0.1, device=dev)
     elif name == "maxsr":
         model = MaxSR.build(scale=4, device=dev)
     else:
@@ -67,7 +71,7 @@ def profile_step(dev: torch.device, name: str) -> None:
     module.fused_train = True
     tx = build_optimizer()
     state = prepare_state(module, tx)
-    step = make_train_step(module, tx, l1_loss, bfloat16=True)
+    step = make_train_step(module, tx, l1_loss, bfloat16=name != "swinfir")  # SwinFIR's recipe trains in f32
     rng = torch.Generator().manual_seed(1)
     lq = torch.randint(0, 256, (B, S, S, 3), generator=rng, dtype=torch.uint8).to(dev)
     gt = torch.randint(0, 256, (B, 4 * S, 4 * S, 3), generator=rng, dtype=torch.uint8).to(dev)
@@ -86,13 +90,13 @@ def profile_step(dev: torch.device, name: str) -> None:
     launches = sum(e.count for e in kernels) / STEPS
     print(f"{name} train step (profiled): host {wall:.1f} ms a step, device busy {busy:.1f} ms "
           f"({100 * (1 - busy / wall):.1f} % idle), {launches:.0f} device kernels a step")
-    for e in sorted(kernels, key=lambda e: -e.device_time_total)[:15]:
+    for e in sorted(kernels, key=lambda e: -e.device_time_total)[:TOP.get(name, 15)]:
         print(f"  {e.device_time_total / STEPS / 1e3:8.3f} ms  x{e.count // STEPS:<5} {e.key[:100]}")
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--model", choices=("swinir", "hat", "maxsr"), default="swinir")
+    parser.add_argument("--model", choices=("swinir", "hat", "maxsr", "swinfir"), default="swinir")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -101,7 +105,8 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card)
     gen = torch.Generator().manual_seed(0)
-    bf, f32 = torch.bfloat16, torch.float32
+    f32 = torch.float32
+    bf = f32 if args.model == "swinfir" else torch.bfloat16  # the kernels' operands in the step's dtype
 
     def randn(*shape, scale=1.0, dtype=bf):
         return (torch.randn(*shape, generator=gen) * scale).to(dev, dtype)

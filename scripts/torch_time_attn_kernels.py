@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's attention kernels on one NVIDIA GPU.
 
-    python3 scripts/torch_time_attn_kernels.py [--checkout DIR] [--large] [--bits FILE]
+    python3 scripts/torch_time_attn_kernels.py [--checkout DIR] [--large | --f32] [--bits FILE]
 
 Times, in bf16 with seeded operands, by CUDA events over 20 launches after 3
 warm-up launches:
@@ -88,6 +88,13 @@ script instead runs itself four times, with ``PYTHONPATH`` set to DIR, this
 checkout, this checkout and DIR (A, B, B, A on one card), prints each line
 and then a table of the four.
 
+``--f32`` times only B5, B6, B7 and B8 in f32 at SwinFIR's training step
+(batch 32 of 64 x 64 maps, C 180, 6 heads, window 8 shift 4, hidden 360,
+drop-path scales), each with its per-pass split, its plain version's time,
+its bounds ("bounds": GFLOP and MB of a launch, ms at 3xTF32 (164.9
+TFLOP/s), on the FMA pipes (66.9) and at 3.35 TB/s) and its library
+yardstick: the same function as a sequence of f32 PyTorch calls, TF32 off.
+
 ``--bits FILE`` times nothing: it writes to FILE (``torch.save``) every
 output of the bf16 B6, B7 and B10 at the widths SwinIR's and HAT's paths
 run them (C 180, hidden 360), seeded: B6 on 131,072 rows with drop-path
@@ -101,13 +108,17 @@ of 6 heads, 64 | 144 and 256 | 576 queries | keys, the OCAB's views). Then B5
 and its backward (B8 at window 8, B9 at window 16) at both windows with the
 shift and drop-path scales: in bf16 at C 180 (the kernels written for the
 H100, batch 8 of 64 x 64 maps; MaxSR's C 128 with a bf16 bias too), at
-head dim 48 (the older bf16 kernels) and in f32 (batch 2). Then the forward
+head dim 48 (the older bf16 kernels) and in f32 (batch 2, C 64 and 180). Then the forward
 above window 16 ("large forward ..."): B5 at window 24 (shift 12, drop-path,
 a bf16 bias; and on the serving blob) and 17 (C 128, 4 heads), B12's large
 entry at 576 | 1296 and 100 | 700 (d 12) with either bias, B10 at window 24. With
 ``--checkout DIR`` as well, it writes FILE.parent from DIR's package and
 FILE.change from this checkout's on one card, names every output as the
-same bits or not, and exits 1 if any differs.
+same bits or not, and exits 1 if any bf16 output differs. The f32 outputs
+("(f32)" in their names: B5-B8 at C 64 and at SwinFIR's C 180 (window 8
+and 16, batch 2), B6 and B7 on two samples' rows at C 180) are listed as
+the same bits or with their largest difference relative to their largest
+value: the f32 B7 and B8 change with their kernels.
 """
 
 from __future__ import annotations
@@ -162,13 +173,13 @@ def pass_split(fn, calls: int = CALLS) -> list:
     return [[name, n / calls, us / calls / 1e3] for name, (n, us) in split.items()]
 
 
-def attention_half_sequence(x, g, ops, heads: int, ws: int, shift: int, dp):
-    """The attention half and its backward as a sequence of bf16 PyTorch
-    calls: roll and partition, ``F.layer_norm``, ``F.linear`` (cuBLAS), SDPA
-    with the rel-pos bias plus the shift mask as its mask (a leaf that takes
-    the gradient), ``F.linear``, the drop-path scale and the residual; then
-    ``torch.autograd.grad`` of every operand against ``g``. Returns a
-    function of no arguments that runs both."""
+def attention_half_sequence(x, g, ops, heads: int, ws: int, shift: int, dp, dtype=None):
+    """The attention half and its backward as a sequence of bf16 (or
+    ``dtype``) PyTorch calls: roll and partition, ``F.layer_norm``,
+    ``F.linear`` (cuBLAS), SDPA with the rel-pos bias plus the shift mask as
+    its mask (a leaf that takes the gradient), ``F.linear``, the drop-path
+    scale and the residual; then ``torch.autograd.grad`` of every operand
+    against ``g``. Returns a function of no arguments that runs both."""
     import torch
     import torch.nn.functional as F
 
@@ -176,7 +187,7 @@ def attention_half_sequence(x, g, ops, heads: int, ws: int, shift: int, dp):
 
     bsz, h, w, c = x.shape
     n, d = ws * ws, c // heads
-    bf = torch.bfloat16
+    bf = dtype or torch.bfloat16
     region = torch.from_numpy(calculate_mask((h, w), ws, shift)).to(x.device, bf) if shift else None
     ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias = ops
     leaves = [t.detach().to(bf).requires_grad_() for t in (x, ln_w, ln_b, wqkv.t(), bqkv, wproj.t(), bproj, bias)]
@@ -203,11 +214,11 @@ def attention_half_sequence(x, g, ops, heads: int, ws: int, shift: int, dp):
     return both
 
 
-def attention_half_forward_sequence(x, ops, heads: int, ws: int, shift: int, dp):
-    """B5's function as a sequence of bf16 PyTorch calls: roll and
-    partition, ``F.layer_norm``, ``F.linear`` (cuBLAS), SDPA with the rel-pos
-    bias plus the shift mask as its mask, ``F.linear``, the drop-path scale
-    and the residual, rolled back. Returns a function of no arguments."""
+def attention_half_forward_sequence(x, ops, heads: int, ws: int, shift: int, dp, dtype=None):
+    """B5's function as a sequence of bf16 (or ``dtype``) PyTorch calls: roll
+    and partition, ``F.layer_norm``, ``F.linear`` (cuBLAS), SDPA with the
+    rel-pos bias plus the shift mask as its mask, ``F.linear``, the drop-path
+    scale and the residual, rolled back. Returns a function of no arguments."""
     import torch
     import torch.nn.functional as F
 
@@ -215,7 +226,7 @@ def attention_half_forward_sequence(x, ops, heads: int, ws: int, shift: int, dp)
 
     bsz, h, w, c = x.shape
     n, d = ws * ws, c // heads
-    bf = torch.bfloat16
+    bf = dtype or torch.bfloat16
     ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias = [t.detach().to(bf) for t in ops]
     wq, wp = wqkv.t().contiguous(), wproj.t().contiguous()
     if shift:  # (B nW, heads, N, N): the bias plus the region mask of each window
@@ -241,15 +252,16 @@ def attention_half_forward_sequence(x, ops, heads: int, ws: int, shift: int, dp)
     return forward
 
 
-def mlp_half_backward_sequence(x, g, ops, dp, rows_per_sample: int):
-    """B7's function as bf16 PyTorch calls: ``torch.autograd.grad`` of x + d
-    fc2(gelu(fc1(LN x))) (``F.layer_norm``, ``F.linear`` on cuBLAS, the exact
-    ``F.gelu``) against ``g``, the forward run with it as the kernel
-    recomputes it. Returns a function of no arguments."""
+def mlp_half_backward_sequence(x, g, ops, dp, rows_per_sample: int, dtype=None):
+    """B7's function as bf16 (or ``dtype``) PyTorch calls:
+    ``torch.autograd.grad`` of x + d fc2(gelu(fc1(LN x))) (``F.layer_norm``,
+    ``F.linear`` on cuBLAS, the exact ``F.gelu``) against ``g``, the forward
+    run with it as the kernel recomputes it. Returns a function of no
+    arguments."""
     import torch
     import torch.nn.functional as F
 
-    bf = torch.bfloat16
+    bf = dtype or torch.bfloat16
     ln_w, ln_b, w1, b1, w2 = ops[:5]
     b2 = torch.zeros(w2.shape[-1], device=x.device)
     leaves = [t.detach().to(bf).requires_grad_() for t in (x, ln_w, ln_b, w1.t(), b1, w2.t(), b2)]
@@ -264,15 +276,15 @@ def mlp_half_backward_sequence(x, g, ops, dp, rows_per_sample: int):
     return both
 
 
-def mlp_half_forward_sequence(x, ops, dp=None, rows_per_sample: int = 0, extra=None, extra_scale=None):
-    """B6's function as bf16 PyTorch calls: (for ``extra``) the join x' = x +
-    extra * extra_scale, then x' + d fc2(gelu(fc1(LN x'))) with
-    ``F.layer_norm``, ``F.linear`` on cuBLAS and the exact ``F.gelu``.
+def mlp_half_forward_sequence(x, ops, dp=None, rows_per_sample: int = 0, extra=None, extra_scale=None, dtype=None):
+    """B6's function as bf16 (or ``dtype``) PyTorch calls: (for ``extra``)
+    the join x' = x + extra * extra_scale, then x' + d fc2(gelu(fc1(LN x')))
+    with ``F.layer_norm``, ``F.linear`` on cuBLAS and the exact ``F.gelu``.
     Returns a function of no arguments."""
     import torch
     import torch.nn.functional as F
 
-    bf = torch.bfloat16
+    bf = dtype or torch.bfloat16
     ln_w, ln_b, w1, b1, w2, b2 = [t.detach().to(bf) for t in ops]
     wa, wb = w1.t().contiguous(), w2.t().contiguous()
     d = None if dp is None else dp.to(bf).repeat_interleave(rows_per_sample)[:, None]
@@ -562,6 +574,93 @@ def measure(large_only: bool = False) -> dict:
             "entries": entries}
 
 
+# SwinFIR's f32 recipe: 3xTF32 on the TF32 tensor cores (494.7 TFLOP/s dense,
+# three products a product) and the f32 FMA pipes' peak, TFLOP/s
+TF32X3_TFLOPS, FMA_TFLOPS, HBM_TBS = 494.7 / 3, 66.9, 3.35
+N_TOK = 64  # a window's tokens at window 8
+
+
+def f32_bounds(name: str, tokens: int, nbytes: int) -> dict:
+    """GFLOP of one launch of B5-B8 at C 180, 6 heads, window 8, hidden 360
+    (PERF.md's count), its bytes (each input read once, each output
+    written once), and the least ms at 3xTF32, on the FMA pipes and at the
+    HBM rate."""
+    t, c, hid, n = tokens, C, 2 * C, N_TOK
+    flops = {"fused_window_attention_block": 2 * t * c * 4 * c + 4 * t * n * c,
+             "fused_mlp_block": 4 * t * c * hid,
+             "mlp_bwd": 10 * t * c * hid,
+             "attention_bwd": 3 * 2 * t * c * 3 * c + 2 * 2 * t * c * c + 12 * t * n * c}[name]
+    return {"gflop": flops / 1e9, "mb": nbytes / 1e6, "tf32x3_ms": flops / TF32X3_TFLOPS / 1e9,
+            "fma_ms": flops / FMA_TFLOPS / 1e9, "bytes_ms": nbytes / HBM_TBS / 1e9}
+
+
+def measure_f32() -> dict:
+    """``--f32``: B5-B8 in f32 at SwinFIR's step shapes (batch 32 of 64 x 64
+    maps, C 180, 6 heads, window 8 shift 4, hidden 360, drop-path scales
+    (0, 1/0.9, ...)), each with its per-pass split, its bound and its
+    library yardstick: the same function as a sequence of f32 PyTorch calls
+    (cuBLAS with TF32 off, as ``resolve_device`` sets it)."""
+    import torch
+
+    if "PYTHONPATH" not in os.environ:
+        sys.path.insert(0, str(ROOT))
+    import studiosr_tpu_torch
+    from studiosr_tpu_torch import resolve_device
+    from studiosr_tpu_torch.ops.cuda import _build, engagement
+    from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd, attention_bwd_plain
+    from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mlp_block_plain
+    from studiosr_tpu_torch.ops.cuda.mlp_bwd import mlp_bwd, mlp_bwd_plain
+    from studiosr_tpu_torch.ops.cuda.window_attention import fused_window_attention_block, window_attention_plain
+
+    dev = resolve_device("cuda")
+    _build.build()
+    gen = torch.Generator().manual_seed(0)
+    f32, ws, shift = torch.float32, 8, 4
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    x, g = randn(BATCH, CROP, CROP, C), randn(BATCH, CROP, CROP, C, scale=1e-3)
+    dp = torch.full((BATCH,), 1 / 0.9, device=dev)
+    dp[0] = 0.0
+    attn_ops = (1 + randn(C, scale=0.1), randn(C, scale=0.1), randn(C, 3 * C, scale=C**-0.5), randn(3 * C, scale=0.1),
+                randn(C, C, scale=C**-0.5), randn(C, scale=0.1), randn(HEADS, ws * ws, ws * ws, scale=0.5))
+    rows, rps = BATCH * CROP * CROP, CROP * CROP
+    xr, gr = x.reshape(rows, C), g.reshape(rows, C)
+    mlp_ops = (1 + randn(C, scale=0.1), randn(C, scale=0.1), randn(C, 2 * C, scale=C**-0.5), randn(2 * C, scale=0.1),
+               randn(2 * C, C, scale=(2 * C)**-0.5))
+    b2 = randn(C, scale=0.1)
+    akw = dict(heads=HEADS, window_size=ws, shift=shift, drop_path=dp)
+    mkw = dict(drop_path=dp, rows_per_sample=rps)
+    weights = sum(t.numel() * 4 for t in attn_ops)
+    cases = (
+        ("fused_window_attention_block", lambda: fused_window_attention_block(x, *attn_ops, **akw),
+         lambda: window_attention_plain(x, *attn_ops, **akw),
+         attention_half_forward_sequence(x, attn_ops, HEADS, ws, shift, dp, dtype=f32), 2 * x.numel() * 4 + weights),
+        ("fused_mlp_block", lambda: fused_mlp_block(xr, *mlp_ops, b2, **mkw),
+         lambda: mlp_block_plain(xr, *mlp_ops, b2, **mkw),
+         mlp_half_forward_sequence(xr, (*mlp_ops, b2), dp, rps, dtype=f32), 2 * xr.numel() * 4),
+        ("mlp_bwd", lambda: mlp_bwd(xr, gr, *mlp_ops, **mkw), lambda: mlp_bwd_plain(xr, gr, *mlp_ops, **mkw),
+         mlp_half_backward_sequence(xr, gr, mlp_ops, dp, rps, dtype=f32), 3 * xr.numel() * 4),
+        ("attention_bwd", lambda: attention_bwd(x, g, *attn_ops, **akw),
+         lambda: attention_bwd_plain(x, g, *attn_ops, **akw),
+         attention_half_sequence(x, g, attn_ops, HEADS, ws, shift, dp, dtype=f32), 3 * x.numel() * 4 + weights),
+    )
+    ms, passes, entries, bounds = {}, {}, {}, {}
+    for name, kernel, plain, sequence, moved in cases:
+        label = f"{name} f32"
+        engagement.reset()
+        ms[label] = time_ms(kernel)
+        entries[label] = engagement.entries().get(name)
+        passes[label] = pass_split(kernel)
+        ms[f"{label} plain"] = time_ms(plain, iters=3, warmup=1)
+        ms[f"{label} library (f32 PyTorch sequence)"] = time_ms(sequence, iters=5, warmup=2)
+        bounds[label] = f32_bounds(name, rows, moved)
+        torch.cuda.empty_cache()
+    return {"package": studiosr_tpu_torch.__file__, "card": card_line(), "ms": ms, "passes": passes,
+            "entries": entries, "bounds": bounds}
+
+
 def card_line() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
@@ -716,6 +815,12 @@ def kernel_bits() -> dict:
     out = {"B6 step": fused_mlp_block(x, *mlp, drop_path=dp, rows_per_sample=rps)}
     for i, t in enumerate(mlp_bwd(x, g, *mlp[:5], drop_path=dp, rows_per_sample=rps)):
         out[f"B7 step output {i}"] = t
+    f32_rows = 2 * rps  # f32: two samples' rows, SwinFIR's widths
+    mlp32 = [t.float() for t in mlp]
+    x32, g32 = x[:f32_rows].float(), g[:f32_rows].float()
+    out["(f32) B6 rows"] = fused_mlp_block(x32, *mlp32, drop_path=dp[:2], rows_per_sample=rps)
+    for i, t in enumerate(mlp_bwd(x32, g32, *mlp32[:5], drop_path=dp[:2], rows_per_sample=rps)):
+        out[f"(f32) B7 rows output {i}"] = t
     xe, extra, escale = randn(65536, C, dtype=bf), randn(65536, C, dtype=bf), randn(C, scale=0.01)
     blob = pack_mlp_block(mlp[2], mlp[4])
     out["B6 extra serving"] = fused_mlp_block(xe, mlp[0], mlp[1], blob, mlp[3], None, mlp[5], extra=extra,
@@ -746,9 +851,10 @@ def kernel_bits() -> dict:
     from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd
     from studiosr_tpu_torch.ops.cuda.window_attention import fused_window_attention_block
 
-    for dt, c, heads, batch in ((bf, C, HEADS, 8), (bf, 128, 4, 8), (bf, 96, 2, 2), (torch.float32, 64, 2, 2)):
+    for dt, c, heads, batch in ((bf, C, HEADS, 8), (bf, 128, 4, 8), (bf, 96, 2, 2), (torch.float32, 64, 2, 2),
+                                (torch.float32, C, HEADS, 2)):
         for ws in (8, 16):
-            label = f"{'bf16' if dt == bf else 'f32'} C {c} window {ws}"
+            label = f"{'bf16' if dt == bf else '(f32)'} C {c} window {ws}"
             ops = [1 + randn(c, scale=0.1), randn(c, scale=0.1), randn(c, 3 * c, scale=c**-0.5, dtype=dt),
                    randn(3 * c, scale=0.1), randn(c, c, scale=c**-0.5, dtype=dt), randn(c, scale=0.1),
                    randn(heads, ws * ws, ws * ws, scale=0.5, dtype=bf if c == 128 else torch.float32)]
@@ -803,16 +909,23 @@ def ab_bits(checkout: Path, path: Path) -> int:
     a, b = (torch.load(f, weights_only=True) for f in files)
     differ = sorted(k for k in a.keys() | b.keys() if k not in a or k not in b or not torch.equal(a[k], b[k]))
     for k in sorted(a):
-        print(f"{k}: {tuple(a[k].shape)} {a[k].dtype} {'differs' if k in differ else 'the same bits'}")
-    return 1 if differ else 0
+        note = "the same bits"
+        if k in differ and k in b and a[k].shape == b[k].shape:
+            rel = float((a[k].double() - b[k].double()).abs().max() / a[k].double().abs().max().clamp_min(1e-30))
+            note = f"differs (max |change - parent| / max |parent| {rel:.3e})"
+        elif k in differ:
+            note = "differs"
+        print(f"{k}: {tuple(a[k].shape)} {a[k].dtype} {note}")
+    return 1 if any("(f32)" not in k for k in differ) else 0
 
 
-def ab(checkout: Path, large: bool = False) -> None:
+def ab(checkout: Path, large: bool = False, f32: bool = False) -> None:
     """Run this script on ``checkout``, this tree, this tree, ``checkout``."""
     runs = []
     for label, tree in (("parent", checkout), ("change", ROOT), ("change", ROOT), ("parent", checkout)):
         env = dict(os.environ, PYTHONPATH=str(tree))
-        cmd = [sys.executable, str(Path(__file__).resolve())] + (["--large"] if large else [])
+        cmd = [sys.executable, str(Path(__file__).resolve())] + (["--large"] if large else []) + (
+            ["--f32"] if f32 else [])
         out = subprocess.run(cmd, env=env, cwd=tree, capture_output=True, text=True, check=True, timeout=1800).stdout
         line = json.loads(out.strip().splitlines()[-1])
         print(json.dumps({"run": label, **line}), flush=True)
@@ -831,6 +944,8 @@ def main() -> int:
     parser.add_argument("--checkout", type=Path, help="a second checkout to compare with: parent, this, this, parent")
     parser.add_argument("--large", action="store_true",
                         help="time only the kernels above window 16 (B5, B9, B10, B12, B13 in their large families)")
+    parser.add_argument("--f32", action="store_true",
+                        help="time only B5-B8 in f32 at SwinFIR's step shapes, beside f32 PyTorch sequences")
     parser.add_argument("--bits", type=Path, metavar="FILE",
                         help="write B5-B10's outputs at windows 8 and 16 and B12's and B13's at their OCA geometries")
     args = parser.parse_args()
@@ -841,7 +956,9 @@ def main() -> int:
 
         torch.save(kernel_bits(), args.bits)
     elif args.checkout:
-        ab(args.checkout.resolve(), args.large)
+        ab(args.checkout.resolve(), args.large, args.f32)
+    elif args.f32:
+        print(json.dumps(measure_f32()))
     else:
         print(json.dumps(measure(args.large)))
     return 0

@@ -11,7 +11,9 @@ image padded to 264 x 264)
 (bf16, batch 1, a 256 x 256 uint8 image, fused serving) over 5 forwards,
 and the SwinIR x4 and HAT x4 train step (``make_train_step``, bf16 over f32 masters, batch
 32 of 64 x 64 crops, fused_train; HAT also at window 24, the crops padded
-to 72 x 72: 288 windows a step) over 5 steps (``--only`` names a subset), and prints one JSON line:
+to 72 x 72: 288 windows a step), the MaxSR x4 adaptive train step (the
+same bf16 recipe) and the SwinFIR x4 train step at its f32 recipe
+(``bfloat16=False``, fused_train) over 5 steps (``--only`` names a subset), and prints one JSON line:
 {"package": path, "card": nvidia-smi's name and power limit, "ms": {path:
 ms}, "peak_gib": {train step: peak memory over its timed steps}}. A checkout whose HAT has no fused training path reads null there. The
 package is whichever ``studiosr_tpu_torch`` is first on the path, so running
@@ -81,7 +83,7 @@ def step_ms(name: str, dev: torch.device):
         return None
     tx = build_optimizer()
     state = prepare_state(module, tx)
-    step = make_train_step(module, tx, l1_loss, bfloat16=True)
+    step = make_train_step(module, tx, l1_loss, bfloat16=name != "swinfir")  # SwinFIR's recipe trains in f32
     rng = np.random.default_rng(4)
     lq = torch.from_numpy(rng.integers(0, 256, (32, 64, 64, 3), dtype=np.uint8)).to(dev)
     gt = torch.from_numpy(rng.integers(0, 256, (32, 256, 256, 3), dtype=np.uint8)).to(dev)
@@ -97,7 +99,7 @@ PEAK: dict = {}
 
 
 PATHS = ("swinir forward", "swinir ws24 forward", "swinir train step", "hat forward", "hat train step", "hat ws24 train step",
-         "swinfir forward",
+         "swinfir forward", "swinfir train step", "maxsr adaptive train step",
          "maxsr adaptive forward", "maxsr static forward", "swinir x2 forward", "swinir x3 forward",
          "hat x2 forward", "hat x3 forward")
 

@@ -9,7 +9,10 @@
 // and dq / dk / dv are zeros: they add nothing to the weight gradients, d
 // bias or the LN sums, and nothing is stored for them.
 //
-// Replaces studiosr_tpu/ops/pallas/attn_bwd.py::pairs_attention_bwd. Its
+// Replaces studiosr_tpu/ops/pallas/attn_bwd.py::pairs_attention_bwd at the
+// geometries the kernels written for the H100 do not take: head dims above
+// 32 (bf16 and f32), and f32 at C not a multiple of 4 or above 256 (f32
+// otherwise runs attn_bwd_f32.cu, bf16 attn_bwd_mma.cu). Its
 // window-pair score packing, -1e30 pair bias and head padding to 32 lanes
 // are Mosaic layouts and have no counterpart. The branch cotangent is g_b =
 // d g rounded to T; dx = g_b + LN-backward(dln) + (1 - d) g. wqkv is

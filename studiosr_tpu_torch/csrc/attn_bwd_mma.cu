@@ -7,8 +7,10 @@
 // Wproj, bproj and the gathered rel-pos bias (heads, N, N).
 //
 // Replaces studiosr_tpu/ops/pallas/attn_bwd.py::pairs_attention_bwd (:209)
-// and ::v5_attention_bwd (:508) in bf16; f32, the checks' dtype, keeps
-// attn_bwd.cu / attn_bwd16.cu, and so do head dims above 32. A window of
+// and ::v5_attention_bwd (:508) in bf16. f32, the dtype of SwinFIR's
+// training recipe, runs attn_bwd_f32.cu at windows 2..8 (3xTF32 on the
+// tensor cores) and attn_bwd16.cu above; head dims above 32 keep
+// attn_bwd.cu / attn_bwd16.cu in either dtype. A window of
 // N = ws^2 tokens is padded to NCH = ceil(N / 64) whole tiles (am_window.cuh):
 // the padding tokens' LN and g_b rows are zeros and their keys score -inf
 // (their bias, am_bias_kernel),

@@ -3,7 +3,10 @@
 // from x and the cotangent g it emits dx and the f32 gradients of the LN
 // scale and bias, fc1 (W1, b1) and fc2 (W2, b2).
 //
-// Replaces studiosr_tpu/ops/pallas/mlp_vjp.py::_bwd (reached through
+// At the widths the kernels written for the H100 do not take (f32 runs
+// mlp_bwd_f32.cu at C a multiple of 4 up to 256, bf16 mlp_bwd_mma.cu at C a
+// multiple of 4 up to 184 and hidden up to 512),
+// replaces studiosr_tpu/ops/pallas/mlp_vjp.py::_bwd (reached through
 // _dp_bwd): the branch cotangent is g_b = d g rounded to T, dx = g_b +
 // LN-backward(dln) + (1 - d) g. Rounding points follow the TPU kernel: LN
 // output, GELU output, dh1 and g_b in T; products accumulate in f32;

@@ -5,8 +5,9 @@
 // gradients of the LN scale and bias, fc1 (W1, b1) and fc2 (W2, b2).
 //
 // Replaces studiosr_tpu/ops/pallas/mlp_vjp.py::_bwd (:148, reached through
-// _dp_bwd) in bf16; f32, the checks' dtype, keeps mlp_bwd.cu. The contract is
-// its: g_b = d g rounded to bf16, dx = g_b + LN-backward(dln) + (1 - d) g;
+// _dp_bwd) in bf16; f32, the dtype of SwinFIR's training recipe, runs
+// mlp_bwd_f32.cu (3xTF32 on the tensor cores). The contract is its: g_b =
+// d g rounded to bf16, dx = g_b + LN-backward(dln) + (1 - d) g;
 // the LN output, gelu(h1), dh1 and g_b rounded to bf16; products accumulate
 // in f32; LN statistics and the LN backward in f32; the exact erf GELU;
 // every sum across blocks in a fixed order (no atomics: the same bits from

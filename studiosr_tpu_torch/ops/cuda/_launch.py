@@ -16,7 +16,7 @@ import torch
 
 from studiosr_tpu_torch.ops.cuda import engagement
 
-__all__ = ["P", "I", "F", "KERNEL_DTYPES", "STREAM", "check", "operand", "call", "finish"]
+__all__ = ["P", "I", "F", "KERNEL_DTYPES", "STREAM", "check", "operand", "aligned", "call", "finish"]
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -51,6 +51,12 @@ def operand(t: Optional[torch.Tensor], name: str, shape: Sequence[int], dtype: t
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     return t.detach().to(dtype).contiguous()
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it, starting on a 16-byte boundary (for kernels
+    that read four f32 values at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def call(device: torch.device, entry, *args):

@@ -17,7 +17,9 @@ from studiosr_tpu.ops.pallas.attn_bwd import pairs_attention_bwd, v5_attention_b
 from studiosr_tpu.ops.windows import calculate_mask
 from studiosr_tpu_torch.ops.attn_vjp import attention_map_vjp
 from studiosr_tpu_torch.ops.cuda import engagement
-from studiosr_tpu_torch.ops.cuda.attn_bwd import _pack_index, attention_bwd, mma_takes, pack_attn_bwd_weights
+from studiosr_tpu_torch.ops.cuda.attn_bwd import (
+    _f32_pack_index, _pack_index, attention_bwd, mma_takes, pack_attn_bwd_weights,
+)
 from studiosr_tpu_torch.ops.cuda.window_attention import window_attention_plain
 from studiosr_tpu_torch.ops.cuda._launch import STREAM
 
@@ -174,6 +176,9 @@ class _FakeLibrary:
     def attn_bwd_mma_pack_elems(self, c, heads):
         return _pack_index(c, heads).size
 
+    def attn_bwd_mma_f32_pack_elems(self, c, heads):
+        return _f32_pack_index(c, heads).size
+
     def __getattr__(self, name):
         def entry(*args):
             self.calls.append((name, args))
@@ -189,7 +194,7 @@ class _FakeLibrary:
     (torch.bfloat16, 8, 32, 2, "attn_bwd_mma_bf16"),
     (torch.bfloat16, 16, 96, 2, "attn_bwd16_bf16"),  # head dim 48: the older bf16 kernel, by rule
     (torch.bfloat16, 8, 90, 6, "attn_bwd_bf16"),  # C not a multiple of 4
-    (torch.float32, 8, 180, 6, "attn_bwd_f32"),
+    (torch.float32, 8, 180, 6, "attn_bwd_mma_f32"),  # f32 at windows 2-8: csrc/attn_bwd_f32.cu
     (torch.float32, 16, 180, 6, "attn_bwd16_f32"),
     # the other windows, by family: 2-8 count as attention_bwd, 9-16 as _ws16
     (torch.bfloat16, 2, 128, 4, "attn_bwd_mma_bf16"),
@@ -200,7 +205,8 @@ class _FakeLibrary:
     (torch.bfloat16, 12, 180, 6, "attn_bwd16_mma_bf16"),
     (torch.bfloat16, 6, 96, 2, "attn_bwd_bf16"),
     (torch.bfloat16, 12, 96, 2, "attn_bwd16_bf16"),
-    (torch.float32, 6, 180, 6, "attn_bwd_f32"),
+    (torch.float32, 6, 180, 6, "attn_bwd_mma_f32"),
+    (torch.float32, 6, 96, 2, "attn_bwd_f32"),  # f32 at head dim 48: the older kernel, by rule
     (torch.float32, 12, 180, 6, "attn_bwd16_f32"),
     # from 17 the streaming family, counted as _large
     (torch.bfloat16, 17, 128, 4, "attn_bwd_large_mma_bf16"),  # MaxSR at a 289 x 289 crop
@@ -211,8 +217,9 @@ class _FakeLibrary:
 ])
 def test_attention_bwd_routes_by_dtype_window_and_head_dim(monkeypatch, dtype, ws, c, heads, entry):
     """bf16 with a head dim up to 32 and C a multiple of 4 up to 184 goes to
-    the kernels written for the H100, other bf16 geometries and f32 to the
-    older kernels; windows 2-8 to the small family's entries, counted under
+    the kernels written for the H100, and f32 at windows 2-8 with a head dim
+    up to 32 to the f32 one; other geometries to the older kernels;
+    windows 2-8 to the small family's entries, counted under
     ``attention_bwd``, windows 9-16 to the large family's, counted under
     ``attention_bwd_ws16``, windows from 17 to the streaming family's,
     counted under ``attention_bwd_large``; each launch counts under its kernel and its C

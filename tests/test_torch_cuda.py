@@ -17,7 +17,7 @@ import torch
 
 from studiosr_tpu_torch import HAT, SwinIR, resolve_device
 from studiosr_tpu_torch.ops.cuda import engagement
-from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd, attention_bwd_plain
+from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd, attention_bwd_plain, f32_mma_takes
 from studiosr_tpu_torch.ops.cuda.conv3x3 import (
     cab_body_plain, conv3x3_plain, fused_cab_body, fused_conv3x3, pack_conv3x3_weights,
 )
@@ -335,7 +335,7 @@ def test_attention_bwd_kernel_matches_plain(dev, dtype, c, heads, shape, shift):
     kw = dict(heads=heads, window_size=8, shift=shift, drop_path=dp)
     engagement.reset()
     got = attention_bwd(x, g, *ops, **kw)
-    entry = "attn_bwd_mma_bf16" if dtype == torch.bfloat16 else "attn_bwd_f32"
+    entry = "attn_bwd_mma_bf16" if dtype == torch.bfloat16 else "attn_bwd_mma_f32"
     assert engagement.entries() == {"attention_bwd": {entry: 1}}
     want = attention_bwd_plain(x.float(), g.float(), *[t.float() for t in ops], **kw)
     for a, e in zip(got, want):
@@ -369,6 +369,79 @@ def test_training_kernels_are_deterministic(dev):
     kw = dict(heads=6, window_size=8, shift=4, drop_path=dp)
     for a, b in zip(attention_bwd(x, g, *ops, **kw), attention_bwd(x, g, *ops, **kw)):
         assert torch.equal(a, b)
+
+
+# B8 and B7 in f32 on the kernels written for the H100 (attn_bwd_mma_f32,
+# mlp_bwd_mma_f32: 3xTF32 products): SwinFIR's C 180 / 6 heads, MaxSR's 128 /
+# 4 and the fixtures' 32 / 2 at windows 8, 5 and 2 with and without the
+# shift and drop-path scales, batch 2; the MLP at hidden 360, 512, 64 and 37
+# (not a multiple of 4): every output against the plain version at the f32
+# rule, two launches the same bits, each launch through its entry.
+F32_ATTN_CASES = [(c, heads, ws, shift, drop) for c, heads in ((180, 6), (128, 4), (32, 2))
+                  for ws, shift, drop in ((8, 4, True), (8, 0, False), (5, 2, True), (2, 1, False))]
+F32_MLP_CASES = [(180, 360, 8192, 4096), (128, 512, 1000, 500), (32, 64, 768, 0), (20, 37, 300, 150)]
+
+
+@pytest.mark.parametrize("c,heads,ws,shift,drop", F32_ATTN_CASES)
+def test_attention_bwd_f32_kernel_matches_plain(dev, c, heads, ws, shift, drop):
+    gen = torch.Generator().manual_seed(c + ws + shift)
+    ops = [t.to(dev) for t in _block_operands(gen, c, heads, 2 * c, ws=ws)[:7]]
+    x = _randn(gen, 2, 2 * ws, 3 * ws, c).to(dev)
+    g = _randn(gen, 2, 2 * ws, 3 * ws, c, scale=1e-3).to(dev)
+    kw = dict(heads=heads, window_size=ws, shift=shift,
+              drop_path=torch.tensor([0.0, 1.25], device=dev) if drop else None)
+    engagement.reset()
+    grads = attention_bwd(x, g, *ops, **kw)
+    again = attention_bwd(x, g, *ops, **kw)
+    assert engagement.entries() == {"attention_bwd": {"attn_bwd_mma_f32": 2}}
+    for a, e in zip(grads, attention_bwd_plain(x, g, *ops, **kw)):
+        assert a.shape == e.shape
+        _assert_close(a, e, torch.float32)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))  # no atomics: bitwise repeatable
+    if drop:
+        assert torch.equal(grads[0][0], g[0])  # a dropped sample: dx = g
+
+
+@pytest.mark.parametrize("c,hidden,rows,rows_per_sample", F32_MLP_CASES)
+def test_mlp_bwd_f32_kernel_matches_plain(dev, c, hidden, rows, rows_per_sample):
+    gen = torch.Generator().manual_seed(c + hidden)
+    ops = [t.to(dev) for t in _block_operands(gen, c, 2, hidden)[7:12]]
+    x = _randn(gen, rows, c).to(dev)
+    g = _randn(gen, rows, c, scale=1e-3).to(dev)
+    dp = torch.tensor([1.25, 0.0], device=dev) if rows_per_sample else None
+    kw = dict(drop_path=dp, rows_per_sample=rows_per_sample)
+    engagement.reset()
+    got = mlp_bwd(x, g, *ops, **kw)
+    again = mlp_bwd(x, g, *ops, **kw)
+    assert engagement.entries() == {"mlp_bwd": {"mlp_bwd_mma_f32": 2}}
+    for a, e in zip(got, mlp_bwd_plain(x, g, *ops, **kw)):
+        _assert_close(a, e, torch.float32)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if dp is not None:
+        assert torch.equal(got[0][rows_per_sample:], g[rows_per_sample:])
+
+
+def test_f32_backward_entries_refuse_geometries_they_do_not_take(dev):
+    """The f32 entries answer -1 for a packed layout they do not take and
+    refuse a launch at such a geometry before they read an operand (a
+    wrapper raises on a status that is not 0)."""
+    from studiosr_tpu_torch.ops.cuda import _build
+    from studiosr_tpu_torch.ops.cuda import attn_bwd as ab, mlp_bwd as mb
+    from studiosr_tpu_torch.ops.cuda._launch import STREAM, call
+
+    alib = _build.load("attn_bwd_f32", ab._SIGNATURES_F32, ab._RESTYPES_F32)
+    mlib = _build.load("mlp_bwd_f32", mb._SIGNATURES_F32, mb._RESTYPES_F32)
+    assert call(dev, alib.attn_bwd_mma_f32_pack_elems, 180, 6) == ab._f32_pack_index(180, 6).size
+    assert call(dev, mlib.mlp_bwd_mma_f32_pack_elems, 180, 360) == mb._f32_pack_index(180, 360).size
+    assert call(dev, alib.attn_bwd_mma_f32_pack_elems, 90, 6) == -1  # C not a multiple of 4
+    assert call(dev, alib.attn_bwd_mma_f32_pack_elems, 96, 2) == -1  # head dim 48
+    assert call(dev, mlib.mlp_bwd_mma_f32_pack_elems, 260, 520) == -1  # C above 256
+    nulls = [None] * 8
+    for ws, c, heads in ((9, 180, 6), (8, 90, 6), (8, 96, 2)):  # window 9, C 90, head dim 48
+        assert call(dev, alib.attn_bwd_mma_f32, None, None, None, 2, 8 * ws, 8 * ws, c, heads, ws, 0, *nulls, 0,
+                    *nulls[:6], None, 0, STREAM) != 0
+    assert call(dev, mlib.mlp_bwd_mma_f32, None, None, None, 64, 90, 180, *nulls[:6], 0, None, 0, *nulls[:5], None,
+                0, STREAM) != 0
 
 
 def test_wrappers_raise_on_operands_the_kernels_do_not_take(dev):
@@ -882,8 +955,10 @@ def _check_window_kernels(dev, ws, dtype, c, heads):
     grads = attention_bwd(x, g, *ops, **kw)
     again = attention_bwd(x, g, *ops, **kw)
     kind = "_mma_bf16" if mma else ("_bf16" if dtype == torch.bfloat16 else "_f32")
+    # f32 at windows 2-8 (head dims up to 32): the backward's f32 kernel written for the H100
+    bkind = "_mma_f32" if dtype == torch.float32 and f32_mma_takes(c, heads, ws) else kind
     assert engagement.entries() == {"fused_window_attention_block" + suffix: {f"window_attention{fam}{kind}": 1},
-                                    "attention_bwd" + suffix: {f"attn_bwd{fam}{kind}": 2}}
+                                    "attention_bwd" + suffix: {f"attn_bwd{fam}{bkind}": 2}}
     _assert_close(y, window_attention_plain(x.float(), *[t.float() for t in ops], **kw), dtype)
     assert torch.equal(y[0], x[0])  # a dropped sample passes through exactly
     want = attention_bwd_plain(x.float(), g.float(), *[t.float() for t in ops], **kw)

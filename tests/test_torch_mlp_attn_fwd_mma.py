@@ -24,6 +24,7 @@ from studiosr_tpu.ops.windows import calculate_mask
 from studiosr_tpu_torch.ops.attn_vjp import attention_map_vjp
 from studiosr_tpu_torch.ops.cuda import engagement
 from studiosr_tpu_torch.ops.cuda.mlp_block import mlp_block_plain
+from studiosr_tpu_torch.ops.cuda.mlp_bwd import _f32_pack_index as mlp_f32_pack_index
 from studiosr_tpu_torch.ops.cuda.mlp_bwd import _pack_index as mlp_pack_index
 from studiosr_tpu_torch.ops.cuda.mlp_bwd import mlp_bwd, pack_mlp_bwd_weights
 from studiosr_tpu_torch.ops.cuda.mlp_bwd import mma_takes as mlp_mma_takes
@@ -376,6 +377,9 @@ class _FakeLibrary:
     def mlp_bwd_mma_pack_elems(self, c, hidden):
         return mlp_pack_index(c, hidden).size
 
+    def mlp_bwd_mma_f32_pack_elems(self, c, hidden):
+        return mlp_f32_pack_index(c, hidden).size
+
     def __getattr__(self, name):
         def entry(*args):
             self.calls.append((name, args))
@@ -467,12 +471,14 @@ def test_window_attention_routes_by_dtype_window_and_head_dim(monkeypatch, dtype
     (torch.bfloat16, 128, 512, "mlp_bwd_mma_bf16"),  # MaxSR's feed-forward
     (torch.bfloat16, 90, 180, "mlp_bwd_bf16"),  # C not a multiple of 4: the older kernel, by rule
     (torch.bfloat16, 64, 576, "mlp_bwd_bf16"),  # hidden above 512
-    (torch.float32, 180, 360, "mlp_bwd_f32"),
+    (torch.float32, 180, 360, "mlp_bwd_mma_f32"),  # f32: csrc/mlp_bwd_f32.cu
+    (torch.float32, 90, 180, "mlp_bwd_f32"),  # f32 with C not a multiple of 4: the older kernel, by rule
 ])
 def test_mlp_bwd_routes_by_dtype_and_width(monkeypatch, dtype, c, hidden, entry):
     """bf16 with C a multiple of 4 up to 184 and hidden up to 512 goes to the
-    kernel written for the H100, other bf16 widths and f32 to the older
-    kernel; each launch counts under ``mlp_bwd`` and its C entry."""
+    kernel written for the H100, f32 with C a multiple of 4 up to 256 to the
+    f32 one, other widths to the older kernel; each launch counts under
+    ``mlp_bwd`` and its C entry."""
     import studiosr_tpu_torch.ops.cuda.mlp_bwd as module
 
     lib = _fake(monkeypatch, module)
