@@ -105,7 +105,8 @@ Phases, in order; any failure exits non-zero before the final line:
 6. training kernels vs plain, batch 4 and the path's batch 32 of 64x64
    maps, f32 and bf16: B5 and B8 (shift 0 and 4), B6 (also on a ragged row
    count), B7, with drop-path scales that include a 0, each launch through
-   its dtype's C entry, B6 launched twice for the same bits;
+   its dtype's C entry, B6 (and in f32 B5) launched twice for the same
+   bits;
 7. training gradients end to end, batch 4: loss and every parameter's
    gradient of the fused-train module, in f32 and in bf16 (bf16 copies of
    the weights, as the train step runs), against an f64 witness (plain
@@ -121,15 +122,17 @@ Phases, in order; any failure exits non-zero before the final line:
 10. HAT serving kernels vs plain at the path's shapes (256x256 map, C
     180), f32 and bf16: B11 (on the convs serving packs at load time), B5
     at window 16 (shift 0 and 8), B6 with ``extra`` / ``extra_scale``, B11
-    and B6 twice for the same bits, B10 (its border windows' keys reach
+    and B6 twice for the same bits (in f32 B6 too, through
+    ``mlp_block_extra_mma_f32``), B10 (its border windows' keys reach
     outside the image);
 11. HAT serving end to end: the fused forward against the plain port
-    forward in f32 and bf16, then three seeded 256x256 uint8 requests
-    through ``inference`` (bf16, fused) with launch counts checked per
-    forward;
+    forward in f32 (its B6 launches through ``mlp_block_extra_mma_f32``)
+    and bf16, then three seeded 256x256 uint8 requests through
+    ``inference`` (bf16, fused) with launch counts checked per forward;
 12. HAT serving timing: the forward (ms, LR MP/s), each HAT kernel's ms,
     plain ms and bound, B11 beside the same function as a sequence of bf16
-    PyTorch calls, and B2 and B3 at HAT's shapes;
+    PyTorch calls, B6's join in f32 (the ``fused_mlp_block_extra_f32`` row,
+    bound at 3xTF32), and B2 and B3 at HAT's shapes;
 13. HAT training kernels vs plain at batch 4 and the path's batch 32 of
     64x64 maps, f32 and bf16: B5 at window 16 with drop-path and B9 (shift
     0 and 8, drop-path scales that include a 0), B12 and B13 on the OCAB's
@@ -167,13 +170,14 @@ Phases, in order; any failure exits non-zero before the final line:
 21. SwinFIR training: the fused-train module's loss and gradients in f32
     against an f64 witness and against plain autograd in f32 (batch 4, the
     SFBs' LeakyReLU kinks pinned too); ``Trainer.run`` for 3 steps at the
-    recipe (batch 32, f32) with launch counts (B5-B8 36 a step; every B7
-    and B8 launch through its f32 kernel written for the H100,
-    ``mlp_bwd_mma_f32`` / ``attn_bwd_mma_f32``) and a falling loss; B8
-    (shift 4) and B7 in f32 at the step's shapes on the trained weights
-    against their plain versions, timed beside the plain versions, the
-    bound at 3xTF32 and an f32 PyTorch sequence (the ``*_f32`` rows of the
-    kernels line); step ms, images/s and peak memory over 7 steps of one
+    recipe (batch 32, f32) with launch counts (B5-B8 36 a step; every B5,
+    B6, B7 and B8 launch through its f32 kernel written for the H100,
+    ``window_attention_mma_f32`` / ``mlp_block_mma_f32`` /
+    ``mlp_bwd_mma_f32`` / ``attn_bwd_mma_f32``) and a falling loss; B5 and
+    B8 (shift 4), B6 and B7 in f32 at the step's shapes on the trained
+    weights against their plain versions, timed beside the plain versions,
+    the bound at 3xTF32 and an f32 PyTorch sequence (the ``*_f32`` rows of
+    the kernels line); step ms, images/s and peak memory over 7 steps of one
     batch (the last 5 timed);
 22. B15 vs plain, f32 and bf16: MaxSR adaptive (256 windows of 256 tokens,
     4 heads, d 32, no bias), static (1024 windows of 64 tokens, a table
@@ -514,12 +518,18 @@ RESBLOCK_SHAPES = ((1, LR + MAIN["window_size"], LR + MAIN["window_size"], MAIN[
 RESBLOCK_VARIANTS = (("lrelu0.2", 1.0), ("relu", 0.1), ("relu", 1.0), ("lrelu0.2", 0.1))
 SWINFIR_TRAIN_STEPS = 3
 SWINFIR_TRAIN_DIR = ROOT / "build" / "chip_smoke_swinfir_train"
-# SwinFIR's f32 step runs B7 and B8 through their f32 kernels written for the
+# SwinFIR's f32 step runs B5-B8 through their f32 kernels written for the
 # H100 (3xTF32 products): their rows in the kernels line, bound at three TF32
-# products a product (494.7 TFLOP/s dense TF32, the FMA pipes' 66.9 logged)
+# products a product (494.7 TFLOP/s dense TF32, the FMA pipes' 66.9 logged);
+# B6's f32 join (HAT's CAB, the f32 HAT forward) beside them
 KERNELS.update({
     "attention_bwd_f32": ("studiosr_tpu_torch/csrc/attn_bwd_f32.cu", "studiosr_tpu/ops/pallas/attn_bwd.py:209"),
     "mlp_bwd_f32": ("studiosr_tpu_torch/csrc/mlp_bwd_f32.cu", "studiosr_tpu/ops/pallas/mlp_vjp.py:148"),
+    "fused_window_attention_block_f32": ("studiosr_tpu_torch/csrc/window_attention_f32.cu",
+                                         "studiosr_tpu/ops/pallas/swin_block.py:549"),
+    "fused_mlp_block_f32": ("studiosr_tpu_torch/csrc/mlp_block_f32.cu", "studiosr_tpu/ops/pallas/swin_block.py:904"),
+    "fused_mlp_block_extra_f32": ("studiosr_tpu_torch/csrc/mlp_block_f32.cu",
+                                  "studiosr_tpu/ops/pallas/swin_block.py:904"),
 })
 PEAK_TF32X3_FLOPS, PEAK_FMA_FLOPS = 494.7e12 / 3, 66.9e12
 SWINFIR_GRAD_RUNS = (("plain", torch.float64), ("plain", torch.float32), ("fused", torch.float32))
@@ -564,12 +574,15 @@ H100_KERNELS = {"fused_swin_block": ("swin_block_mma", "swin_block_mma_kernel"),
                 "fused_ocab_block": ("ocab_mma", "_kernel"), "oca_core_fwd_large": ("oca_fwd_mma", "of_|lf_fwd"),
                 "oca_core_bwd_large": ("oca_bwd_mma", "lb_"),
                 "attention_bwd_f32": ("attn_bwd_f32", "ab32_|tfw?_gemm"),
-                "mlp_bwd_f32": ("mlp_bwd_f32", "mb32_|tfw?_gemm")}
+                "mlp_bwd_f32": ("mlp_bwd_f32", "mb32_|tfw?_gemm"),
+                "fused_window_attention_block_f32": ("window_attention_f32", "wa32_|tfw_gemm"),
+                "fused_mlp_block_f32": ("mlp_block_f32", "mf32_|tfw_gemm"),
+                "fused_mlp_block_extra_f32": ("mlp_block_f32", "mf32_|tfw_gemm")}
 # The C entry every launch of B5-B9, B12 and B13 must take in a run of each
 # dtype: bf16 the kernels written for the H100 (their geometry rules hold at
-# every width the paths train); f32 B7 and B8 (windows 2-8) the f32 kernels
-# written for the H100 (3xTF32 on the tensor cores: SwinFIR's recipe trains
-# in f32), the others the older kernels.
+# every width the paths train); f32 B5 and B8 (windows 2-8), B6 (and its CAB
+# join) and B7 the f32 kernels written for the H100 (3xTF32 on the tensor
+# cores: SwinFIR's recipe trains in f32), the others the older kernels.
 TRAIN_ENTRIES = {
     torch.bfloat16: {"attention_bwd": "attn_bwd_mma_bf16", "attention_bwd_ws16": "attn_bwd16_mma_bf16",
                      "attention_bwd_large": "attn_bwd_large_mma_bf16",
@@ -582,10 +595,11 @@ TRAIN_ENTRIES = {
                      "oca_core_fwd_large": "oca_core_fwd_large_mma_bf16"},
     torch.float32: {"attention_bwd": "attn_bwd_mma_f32", "attention_bwd_ws16": "attn_bwd16_f32",
                     "attention_bwd_large": "attn_bwd_large_f32",
-                    "fused_window_attention_block": "window_attention_f32",
+                    "fused_window_attention_block": "window_attention_mma_f32",
                     "fused_window_attention_block_ws16": "window_attention16_f32",
                     "fused_window_attention_block_large": "window_attention_large_f32", "mlp_bwd": "mlp_bwd_mma_f32",
-                    "fused_mlp_block": "mlp_block_f32", "oca_core_bwd": "oca_core_bwd_f32",
+                    "fused_mlp_block": "mlp_block_mma_f32", "fused_mlp_block_extra": "mlp_block_extra_mma_f32",
+                    "oca_core_bwd": "oca_core_bwd_f32",
                     "oca_core_fwd": "oca_core_fwd_f32", "oca_core_bwd_large": "oca_core_bwd_f32",
                     "oca_core_fwd_large": "oca_core_fwd_f32"},
 }
@@ -593,6 +607,9 @@ TRAIN_ENTRIES = {
 # launch (no atomic sums) at the path's batch (phases 6, 10 and 13).
 BITWISE = ("fused_mlp_block", "fused_mlp_block_extra", "oca_core_bwd", "fused_cab_body", "oca_core_fwd",
            "fused_ocab_block", "fused_window_attention_block_large", "oca_core_fwd_large")
+# The f32 kernels redesigned last, held to the same bits from launch to
+# launch in f32 (phases 6, 10 and 13)
+BITWISE_F32 = ("fused_window_attention_block", "fused_mlp_block", "fused_mlp_block_extra")
 # B1 in bf16 beyond the main path's shape, as the card tests take it: (C,
 # heads, map, shift): C 32 with 2 heads of 16 (the trained fixtures), C 180
 # at H != W and an odd window count (a half-empty last window pair), d 8,
@@ -1305,9 +1322,9 @@ def phase_train_kernels(model, dev: torch.device, cases=None) -> dict:
     one to each block of B8's per-window pass) and at the path's batch 32
     (2048 windows, eight to each block, which sums their bias-gradient
     partials), each launch through its dtype's entry (``TRAIN_ENTRIES``)
-    and, in bf16 at batch 32, the kernels of ``BITWISE`` launched twice for
-    the same bits. Returns the bf16 max abs error of each kernel's first
-    output at batch 32."""
+    and, at batch 32, the kernels of ``BITWISE`` (bf16) and ``BITWISE_F32``
+    (f32) launched twice for the same bits. Returns the bf16 max abs error
+    of each kernel's first output at batch 32."""
     errors: dict = {}
     failed = []
     for batch in (CHECK_BATCH, TRAIN_BATCH):
@@ -1317,10 +1334,11 @@ def phase_train_kernels(model, dev: torch.device, cases=None) -> dict:
                 got = _flat(kernel(*ops))
                 torch.cuda.synchronize()
                 failed += train_entry_failures(f"{name} [{label}] batch {batch}", engagement.counters(), dtype)
-                if dtype == torch.bfloat16 and batch == TRAIN_BATCH and name in BITWISE:
+                if batch == TRAIN_BATCH and name in (BITWISE if dtype == torch.bfloat16 else BITWISE_F32):
                     again = _flat(kernel(*ops))
                     same = all(torch.equal(a, b) for a, b in zip(got, again))
-                    log(f"check {name} [{label}] batch {batch} bf16: two launches give the same bits: {same}")
+                    log(f"check {name} [{label}] batch {batch} {str(dtype)[6:]}: two launches give the same bits: "
+                        f"{same}")
                     if not same:
                         failed.append(f"{name} [{label}] batch {batch}: two launches differ")
                     del again
@@ -1802,17 +1820,24 @@ def dense_ocab(ops, dense) -> tuple:
 
 def phase_hat_kernels(model: HAT, dev: torch.device) -> dict:
     """The HAT kernels against their plain versions, f32 then bf16, every
-    output held to the serving kernels' rule. Returns the bf16 max abs
-    error of each kernel's first output."""
+    output held to the serving kernels' rule; the f32 launches of B5 at
+    window 16 and of B6's join through the entries ``TRAIN_ENTRIES`` names,
+    and the kernels of ``BITWISE`` (bf16) and ``BITWISE_F32`` (f32) launched
+    twice for the same bits. Returns the bf16 max abs error of each
+    kernel's first output, and f32 B6's join's as
+    ``fused_mlp_block_extra_f32``."""
     errors: dict = {}
     failed = []
     for dtype in (torch.float32, torch.bfloat16):
         for name, label, kernel, plain, ops in hat_kernel_cases(model, dev, dtype):
+            engagement.reset()
             got = _flat(kernel(*ops))
             torch.cuda.synchronize()
-            if dtype == torch.bfloat16 and name in BITWISE:
+            if dtype == torch.float32:
+                failed += train_entry_failures(f"{name} [{label}] f32", engagement.counters(), dtype)
+            if name in (BITWISE if dtype == torch.bfloat16 else BITWISE_F32):
                 same = all(torch.equal(a, b) for a, b in zip(got, _flat(kernel(*ops))))
-                log(f"check {name} [{label}] bf16: two launches give the same bits: {same}")
+                log(f"check {name} [{label}] {str(dtype)[6:]}: two launches give the same bits: {same}")
                 if not same:
                     failed.append(f"{name} [{label}]: two launches differ")
             want = _flat(plain(*[None if t is None else t.float() for t in ops]))
@@ -1821,6 +1846,8 @@ def phase_hat_kernels(model: HAT, dev: torch.device) -> dict:
                 err = kernel_check(f"{name} [{label}] output {i}", k, p, dtype, failed)
                 if dtype == torch.bfloat16 and i == 0:
                     errors[name] = max(errors.get(name, 0.0), err)
+                elif name == "fused_mlp_block_extra" and i == 0:
+                    errors["fused_mlp_block_extra_f32"] = err
             del got, want
     if failed:
         raise AssertionError("HAT kernels disagree with their plain versions: " + "; ".join(failed))
@@ -1828,21 +1855,28 @@ def phase_hat_kernels(model: HAT, dev: torch.device) -> dict:
 
 
 def phase_hat_end_to_end(model: HAT, dev: torch.device) -> dict:
-    """Fused vs plain HAT forward (f32, then bf16 against f32 plain), then
-    the served requests with their launch counts."""
+    """Fused vs plain HAT forward (f32, its launches of B5 at window 16 and
+    B6's join through the f32 entries ``TRAIN_ENTRIES`` names; then bf16
+    against f32 plain), then the served requests with their launch counts.
+    Returns the served launches and, as ``fused_mlp_block_extra_f32``, the
+    f32 forward's launches of B6's join."""
     images = requests()
     x = torch.from_numpy(images[0]).to(dev).float()[None] / 255.0
     plain = model.enable_fused(False)(x)
+    engagement.reset()
     fused = model.enable_fused(True)(x)
     torch.cuda.synchronize()
+    launches32 = engagement.counters()
+    failed = train_entry_failures("hat e2e f32", launches32, torch.float32)
     rel32 = rel_l2(fused, plain)
-    log(f"hat e2e f32 fused vs plain: rel_l2 {rel32:.3e} limit {E2E_F32_REL_L2:.0e}")
+    log(f"hat e2e f32 fused vs plain: rel_l2 {rel32:.3e} limit {E2E_F32_REL_L2:.0e}; launches {launches32}")
     model.half()
     fused16 = model(x)
     torch.cuda.synchronize()
     rel16 = rel_l2(fused16, plain)
     log(f"hat e2e bf16 fused vs f32 plain: rel_l2 {rel16:.3e} limit {E2E_BF16_REL_L2:.0e}")
-    failed = []
+    if launches32.get("fused_mlp_block_extra", 0) != HAT_PER_FORWARD["fused_mlp_block_extra"]:
+        failed.append(f"the f32 HAT forward launched B6's join {launches32.get('fused_mlp_block_extra', 0)} times")
     if not rel32 <= E2E_F32_REL_L2:
         failed.append("f32 fused HAT forward disagrees with the plain forward")
     if not rel16 <= E2E_BF16_REL_L2:
@@ -1867,7 +1901,7 @@ def phase_hat_end_to_end(model: HAT, dev: torch.device) -> dict:
     failed += entry_failures("hat serving", launches)
     if failed:
         raise AssertionError("; ".join(failed))
-    return launches
+    return {**launches, "fused_mlp_block_extra_f32": launches32.get("fused_mlp_block_extra", 0)}
 
 
 def hat_bounds(name: str, ops) -> tuple:
@@ -1968,6 +2002,21 @@ def phase_hat_timing(model: HAT, dev: torch.device, errors: dict, launches: dict
             cab_yardstick(ops, ms, bms)
         elif name == "fused_ocab_block":
             ocab_yardstick(ops, ms, bms)
+    # B6's join in f32 (the f32 HAT forward's), bound at 3xTF32
+    name, row = "fused_mlp_block_extra", "fused_mlp_block_extra_f32"
+    _, label, kernel, plain, ops = next(c for c in hat_kernel_cases(model, dev, torch.float32) if c[0] == name)
+    ms = time_ms(lambda: kernel(*ops), iters=10)
+    plain_ms = time_ms(lambda: plain(*ops), iters=3, warmup=1)
+    flops, moved = hat_bounds(name, ops)
+    t_ops, t_bytes = flops / PEAK_TF32X3_FLOPS, moved / PEAK_BYTES
+    bms, by = 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    source, replaces = KERNELS[row]
+    rows.append(dict(name=row, route="cuda", source=source, replaces=replaces, launches=launches.get(row, 0),
+                     max_abs_err=errors[row], ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None))
+    log(f"time {row} [{label}] f32: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}, 3xTF32; the FMA "
+        f"pipes {1e3 * flops / PEAK_FMA_FLOPS:.4f} ms), {flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB; launches "
+        f"{launches.get(row, 0)} in the f32 forward; {100 * bms / ms:.1f} % of the bound; {ptxas_report(row)}")
+    del ops
     # B2 and B3 at HAT's shapes (their rows in the JSON line are SwinIR's)
     prep = model.serving_prep()
     gen = torch.Generator(device="cpu").manual_seed(SEED + 6)
@@ -2474,18 +2523,22 @@ def phase_swinfir_grads(dev: torch.device) -> None:
 
 
 def swinfir_f32_rows(model, dev: torch.device, launches: dict, failed: list) -> list:
-    """B8 (shift 4) and B7 in f32 at SwinFIR's step shapes, with ``model``'s
-    weights, on their f32 kernels written for the H100: every output against
-    the plain version (the f32 rule), the time, the plain version's, the
-    bound at 3xTF32 (the FMA pipes' beside it in the log), the same function
-    as a sequence of f32 PyTorch calls (TF32 off; timed here, never on the
-    path), the ptxas line; ``launches`` the trainer run's."""
+    """B5 and B8 (shift 4), B6 and B7 in f32 at SwinFIR's step shapes, with
+    ``model``'s weights, on their f32 kernels written for the H100: every
+    output against the plain version (the f32 rule), the time, the plain
+    version's, the bound at 3xTF32 (the FMA pipes' beside it in the log),
+    the same function as a sequence of f32 PyTorch calls (TF32 off; timed
+    here, never on the path), the ptxas line; ``launches`` the trainer
+    run's."""
     sys.path.insert(0, str(ROOT / "scripts"))
-    from torch_time_attn_kernels import attention_half_sequence, mlp_half_backward_sequence
+    from torch_time_attn_kernels import (
+        attention_half_forward_sequence, attention_half_sequence, mlp_half_backward_sequence,
+        mlp_half_forward_sequence,
+    )
 
     rows = []
     for name, label, kernel, plain, ops in train_kernel_cases(model, dev, torch.float32, TRAIN_BATCH):
-        if name not in ("attention_bwd", "mlp_bwd") or label == "shift 0":
+        if label in ("shift 0", "ragged rows"):
             continue
         row = f"{name}_f32"
         engagement.reset()
@@ -2501,10 +2554,16 @@ def swinfir_f32_rows(model, dev: torch.device, launches: dict, failed: list) -> 
         flops, moved = train_bounds(name, ops)
         t_ops, t_bytes = flops / PEAK_TF32X3_FLOPS, moved / PEAK_BYTES
         bms, by = 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
-        kw = kw_of(label if name == "attention_bwd" else "shift 0", MAIN["window_size"], TRAIN_BATCH, dev)
+        kw = kw_of(label if label.startswith("shift") else "shift 0", MAIN["window_size"], TRAIN_BATCH, dev)
         if name == "attention_bwd":
             sequence = attention_half_sequence(ops[0], ops[1], ops[2:], kw["heads"], kw["window_size"], kw["shift"],
                                                kw["drop_path"], dtype=torch.float32)
+        elif name == "fused_window_attention_block":
+            sequence = attention_half_forward_sequence(ops[0], ops[1:], kw["heads"], kw["window_size"], kw["shift"],
+                                                       kw["drop_path"], dtype=torch.float32)
+        elif name == "fused_mlp_block":
+            sequence = mlp_half_forward_sequence(ops[0], ops[1:7], kw["drop_path"], TRAIN_CROP * TRAIN_CROP,
+                                                 dtype=torch.float32)
         else:
             sequence = mlp_half_backward_sequence(*ops[:2], ops[2:], kw["drop_path"], TRAIN_CROP * TRAIN_CROP,
                                                   dtype=torch.float32)
@@ -2527,7 +2586,7 @@ def phase_swinfir_train(dev: torch.device) -> list:
     fused_train by default on the card), then 7 steps of one batch timed
     (the last 5): launch counts, finite losses that fall over the trainer's
     steps, moved weights, step ms, images/s, peak memory. Returns the rows
-    of B7 and B8 in f32 (``swinfir_f32_rows``)."""
+    of B5-B8 in f32 (``swinfir_f32_rows``)."""
     shutil.rmtree(SWINFIR_TRAIN_DIR, ignore_errors=True)
     model = SwinFIR.build(**TRAIN_MODEL, seed=SEED, device=dev)
     recipe = model.get_training_config()

@@ -90,7 +90,9 @@ and then a table of the four.
 
 ``--f32`` times only B5, B6, B7 and B8 in f32 at SwinFIR's training step
 (batch 32 of 64 x 64 maps, C 180, 6 heads, window 8 shift 4, hidden 360,
-drop-path scales), each with its per-pass split, its plain version's time,
+drop-path scales), and B5 and B6 at MaxSR's f32 geometry (C 128, 4 heads
+of 32, hidden 512, unshifted, no drop-path; rows ending " maxsr"), each
+with its per-pass split, its plain version's time,
 its bounds ("bounds": GFLOP and MB of a launch, ms at 3xTF32 (164.9
 TFLOP/s), on the FMA pipes (66.9) and at 3.35 TB/s) and its library
 yardstick: the same function as a sequence of f32 PyTorch calls, TF32 off.
@@ -116,9 +118,11 @@ entry at 576 | 1296 and 100 | 700 (d 12) with either bias, B10 at window 24. Wit
 FILE.change from this checkout's on one card, names every output as the
 same bits or not, and exits 1 if any bf16 output differs. The f32 outputs
 ("(f32)" in their names: B5-B8 at C 64 and at SwinFIR's C 180 (window 8
-and 16, batch 2), B6 and B7 on two samples' rows at C 180) are listed as
-the same bits or with their largest difference relative to their largest
-value: the f32 B7 and B8 change with their kernels.
+and 16, batch 2), B6 (with drop-path and with HAT's CAB join) and B7 on
+two samples' rows at C 180) are listed as the same bits or with their
+largest difference relative to their largest value: an f32 kernel's
+outputs change with it (B5 and B6 at windows 2 to 8 since their f32
+kernels written for the H100; B7 and B8 before), and no other's.
 """
 
 from __future__ import annotations
@@ -580,12 +584,12 @@ TF32X3_TFLOPS, FMA_TFLOPS, HBM_TBS = 494.7 / 3, 66.9, 3.35
 N_TOK = 64  # a window's tokens at window 8
 
 
-def f32_bounds(name: str, tokens: int, nbytes: int) -> dict:
-    """GFLOP of one launch of B5-B8 at C 180, 6 heads, window 8, hidden 360
+def f32_bounds(name: str, tokens: int, nbytes: int, c: int = C, hidden: int = 2 * C) -> dict:
+    """GFLOP of one launch of B5-B8 at width ``c``, window 8 and ``hidden``
     (PERF.md's count), its bytes (each input read once, each output
     written once), and the least ms at 3xTF32, on the FMA pipes and at the
     HBM rate."""
-    t, c, hid, n = tokens, C, 2 * C, N_TOK
+    t, hid, n = tokens, hidden, N_TOK
     flops = {"fused_window_attention_block": 2 * t * c * 4 * c + 4 * t * n * c,
              "fused_mlp_block": 4 * t * c * hid,
              "mlp_bwd": 10 * t * c * hid,
@@ -597,7 +601,9 @@ def f32_bounds(name: str, tokens: int, nbytes: int) -> dict:
 def measure_f32() -> dict:
     """``--f32``: B5-B8 in f32 at SwinFIR's step shapes (batch 32 of 64 x 64
     maps, C 180, 6 heads, window 8 shift 4, hidden 360, drop-path scales
-    (0, 1/0.9, ...)), each with its per-pass split, its bound and its
+    (0, 1/0.9, ...)), then B5 and B6 at MaxSR's f32 geometry (the same maps,
+    C 128, 4 heads of 32, window 8 unshifted, hidden 512, no drop-path: the
+    rows ending " maxsr"), each with its per-pass split, its bound and its
     library yardstick: the same function as a sequence of f32 PyTorch calls
     (cuBLAS with TF32 off, as ``resolve_device`` sets it)."""
     import torch
@@ -615,47 +621,63 @@ def measure_f32() -> dict:
     dev = resolve_device("cuda")
     _build.build()
     gen = torch.Generator().manual_seed(0)
-    f32, ws, shift = torch.float32, 8, 4
+    f32, ws = torch.float32, 8
 
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).to(dev)
 
-    x, g = randn(BATCH, CROP, CROP, C), randn(BATCH, CROP, CROP, C, scale=1e-3)
-    dp = torch.full((BATCH,), 1 / 0.9, device=dev)
-    dp[0] = 0.0
-    attn_ops = (1 + randn(C, scale=0.1), randn(C, scale=0.1), randn(C, 3 * C, scale=C**-0.5), randn(3 * C, scale=0.1),
-                randn(C, C, scale=C**-0.5), randn(C, scale=0.1), randn(HEADS, ws * ws, ws * ws, scale=0.5))
-    rows, rps = BATCH * CROP * CROP, CROP * CROP
-    xr, gr = x.reshape(rows, C), g.reshape(rows, C)
-    mlp_ops = (1 + randn(C, scale=0.1), randn(C, scale=0.1), randn(C, 2 * C, scale=C**-0.5), randn(2 * C, scale=0.1),
-               randn(2 * C, C, scale=(2 * C)**-0.5))
-    b2 = randn(C, scale=0.1)
-    akw = dict(heads=HEADS, window_size=ws, shift=shift, drop_path=dp)
-    mkw = dict(drop_path=dp, rows_per_sample=rps)
-    weights = sum(t.numel() * 4 for t in attn_ops)
-    cases = (
-        ("fused_window_attention_block", lambda: fused_window_attention_block(x, *attn_ops, **akw),
-         lambda: window_attention_plain(x, *attn_ops, **akw),
-         attention_half_forward_sequence(x, attn_ops, HEADS, ws, shift, dp, dtype=f32), 2 * x.numel() * 4 + weights),
-        ("fused_mlp_block", lambda: fused_mlp_block(xr, *mlp_ops, b2, **mkw),
-         lambda: mlp_block_plain(xr, *mlp_ops, b2, **mkw),
-         mlp_half_forward_sequence(xr, (*mlp_ops, b2), dp, rps, dtype=f32), 2 * xr.numel() * 4),
-        ("mlp_bwd", lambda: mlp_bwd(xr, gr, *mlp_ops, **mkw), lambda: mlp_bwd_plain(xr, gr, *mlp_ops, **mkw),
-         mlp_half_backward_sequence(xr, gr, mlp_ops, dp, rps, dtype=f32), 3 * xr.numel() * 4),
-        ("attention_bwd", lambda: attention_bwd(x, g, *attn_ops, **akw),
-         lambda: attention_bwd_plain(x, g, *attn_ops, **akw),
-         attention_half_sequence(x, g, attn_ops, HEADS, ws, shift, dp, dtype=f32), 3 * x.numel() * 4 + weights),
-    )
     ms, passes, entries, bounds = {}, {}, {}, {}
-    for name, kernel, plain, sequence, moved in cases:
-        label = f"{name} f32"
-        engagement.reset()
-        ms[label] = time_ms(kernel)
-        entries[label] = engagement.entries().get(name)
-        passes[label] = pass_split(kernel)
-        ms[f"{label} plain"] = time_ms(plain, iters=3, warmup=1)
-        ms[f"{label} library (f32 PyTorch sequence)"] = time_ms(sequence, iters=5, warmup=2)
-        bounds[label] = f32_bounds(name, rows, moved)
+    rows, rps = BATCH * CROP * CROP, CROP * CROP
+    # (suffix, C, heads, hidden, shift, drop-path, the kernels timed)
+    for suffix, c, heads, hidden, shift, drop, names in (
+            ("", C, HEADS, 2 * C, 4, True, ("fused_window_attention_block", "fused_mlp_block", "mlp_bwd",
+                                            "attention_bwd")),
+            (" maxsr", 128, 4, 512, 0, False, ("fused_window_attention_block", "fused_mlp_block"))):
+        x, g = randn(BATCH, CROP, CROP, c), randn(BATCH, CROP, CROP, c, scale=1e-3)
+        dp = None
+        if drop:
+            dp = torch.full((BATCH,), 1 / 0.9, device=dev)
+            dp[0] = 0.0
+        attn_ops = (1 + randn(c, scale=0.1), randn(c, scale=0.1), randn(c, 3 * c, scale=c**-0.5),
+                    randn(3 * c, scale=0.1), randn(c, c, scale=c**-0.5), randn(c, scale=0.1),
+                    randn(heads, ws * ws, ws * ws, scale=0.5))
+        xr, gr = x.reshape(rows, c), g.reshape(rows, c)
+        mlp_ops = (1 + randn(c, scale=0.1), randn(c, scale=0.1), randn(c, hidden, scale=c**-0.5),
+                   randn(hidden, scale=0.1), randn(hidden, c, scale=hidden**-0.5))
+        b2 = randn(c, scale=0.1)
+        akw = dict(heads=heads, window_size=ws, shift=shift, drop_path=dp)
+        mkw = dict(drop_path=dp, rows_per_sample=rps if drop else 0)
+        weights = sum(t.numel() * 4 for t in attn_ops)
+        cases = {
+            "fused_window_attention_block": (
+                lambda: fused_window_attention_block(x, *attn_ops, **akw),
+                lambda: window_attention_plain(x, *attn_ops, **akw),
+                lambda: attention_half_forward_sequence(x, attn_ops, heads, ws, shift, dp, dtype=f32),
+                2 * x.numel() * 4 + weights),
+            "fused_mlp_block": (lambda: fused_mlp_block(xr, *mlp_ops, b2, **mkw),
+                                lambda: mlp_block_plain(xr, *mlp_ops, b2, **mkw),
+                                lambda: mlp_half_forward_sequence(xr, (*mlp_ops, b2), dp, mkw["rows_per_sample"],
+                                                                  dtype=f32),
+                                2 * xr.numel() * 4),
+            "mlp_bwd": (lambda: mlp_bwd(xr, gr, *mlp_ops, **mkw), lambda: mlp_bwd_plain(xr, gr, *mlp_ops, **mkw),
+                        lambda: mlp_half_backward_sequence(xr, gr, mlp_ops, dp, rps, dtype=f32), 3 * xr.numel() * 4),
+            "attention_bwd": (lambda: attention_bwd(x, g, *attn_ops, **akw),
+                              lambda: attention_bwd_plain(x, g, *attn_ops, **akw),
+                              lambda: attention_half_sequence(x, g, attn_ops, heads, ws, shift, dp, dtype=f32),
+                              3 * x.numel() * 4 + weights),
+        }
+        for name in names:
+            kernel, plain, sequence, moved = cases[name]
+            label = f"{name} f32{suffix}"
+            engagement.reset()
+            ms[label] = time_ms(kernel)
+            entries[label] = engagement.entries().get(name)
+            passes[label] = pass_split(kernel)
+            ms[f"{label} plain"] = time_ms(plain, iters=3, warmup=1)
+            ms[f"{label} library (f32 PyTorch sequence)"] = time_ms(sequence(), iters=5, warmup=2)
+            bounds[label] = f32_bounds(name, rows, moved, c, hidden)
+            torch.cuda.empty_cache()
+        del cases, x, g, xr, gr
         torch.cuda.empty_cache()
     return {"package": studiosr_tpu_torch.__file__, "card": card_line(), "ms": ms, "passes": passes,
             "entries": entries, "bounds": bounds}
@@ -798,8 +820,10 @@ def kernel_bits() -> dict:
     from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block, pack_ocab_block
 
     dev = resolve_device("cuda")
-    _build.build(("mlp_block_mma", "mlp_bwd_mma", "ocab_mma", "window_attention_mma", "attn_bwd_mma",
-                  "window_attention", "window_attention16", "attn_bwd", "attn_bwd16", "oca_fwd_mma", "oca_bwd_mma"))
+    _build.build(n for n in ("mlp_block_mma", "mlp_bwd_mma", "ocab_mma", "window_attention_mma", "attn_bwd_mma",
+                             "window_attention", "window_attention16", "attn_bwd", "attn_bwd16", "oca_fwd_mma",
+                             "oca_bwd_mma", "window_attention_f32", "mlp_block_f32", "attn_bwd_f32", "mlp_bwd_f32")
+                 if n in _build.SOURCES)  # a checkout of its own era builds what it has
     gen = torch.Generator().manual_seed(0)
     bf, hidden = torch.bfloat16, 2 * C
 
@@ -819,6 +843,7 @@ def kernel_bits() -> dict:
     mlp32 = [t.float() for t in mlp]
     x32, g32 = x[:f32_rows].float(), g[:f32_rows].float()
     out["(f32) B6 rows"] = fused_mlp_block(x32, *mlp32, drop_path=dp[:2], rows_per_sample=rps)
+    out["(f32) B6 extra rows"] = fused_mlp_block(x32, *mlp32, extra=g32 * 1e3, extra_scale=mlp32[5])
     for i, t in enumerate(mlp_bwd(x32, g32, *mlp32[:5], drop_path=dp[:2], rows_per_sample=rps)):
         out[f"(f32) B7 rows output {i}"] = t
     xe, extra, escale = randn(65536, C, dtype=bf), randn(65536, C, dtype=bf), randn(C, scale=0.01)

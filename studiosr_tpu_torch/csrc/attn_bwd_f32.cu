@@ -28,9 +28,9 @@
 // cores (tf32x3.cuh), tokens in tile order (a window a 64-row tile):
 // 0. ab32_ln_kernel, a warp a token row: LN (its f32 statistics kept) and
 //    g_b, gathered through the shift, zero rows for padding tokens;
-// 1. q|k|v = LN Wqkv + bqkv (q scaled) and dattn = g_b Wproj^T, row
-//    products on wgmma (tfw_gemm_kernel), each head padded to DP = pad16(d)
-//    columns (zero past d);
+// 1. q|k|v = LN Wqkv + bqkv (q scaled; tf32x3.cuh TfQkv) and dattn = g_b
+//    Wproj^T, row products on wgmma (tfw_gemm_kernel), each head padded to
+//    DP = pad16(d) columns (zero past d);
 // 2. ab32_attn_kernel, a block of four warps owning (head, group of
 //    windows), a window at a time: q, k, v and dattn by cp.async into
 //    shared memory, the next window's in flight; each warp's 16 queries:
@@ -87,25 +87,6 @@ __global__ void __launch_bounds__(256) ab32_ln_kernel(const Ab32Args a, const Am
     tf_ln_row(a.x + off, a.g + off, dd, G.C, a.ln_w, a.ln_b, a.stats + 2 * row, a.ln + row * G.C, a.gb + row * G.C);
   }
 }
-
-// Pass 1's epilogue of q|k|v: column p HD + h DP + j holds part p (q, k, v)
-// of head h's column j plus its bias, q scaled by 1/sqrt(d); zero for j >= d.
-struct Ab32Qkv {
-  static constexpr bool AUX = false;
-  float* qkv;
-  const float* bqkv;
-  long long rows;
-  int K3, HD, DP, C, d;
-  float scale;
-  __device__ __forceinline__ void operator()(int, long long r, int c, float v0, float v1, float2) const {
-    if (r >= rows || c >= K3) return;
-    const int p = c / HD, h = (c - p * HD) / DP, j = c - p * HD - h * DP;  // c even, DP a multiple of 16
-    const float sc = p == 0 ? scale : 1.f;
-    const float* b = bqkv + p * C + h * d + j;
-    *reinterpret_cast<float2*>(qkv + r * K3 + c) =
-        make_float2(j < d ? (v0 + __ldg(b)) * sc : 0.f, j + 1 < d ? (v1 + __ldg(b + 1)) * sc : 0.f);
-  }
-};
 
 // Pass 2: a block of four warps owns (head h, window group gi) and walks the
 // group's windows; warp w takes queries 16 w .. 16 w + 15 of the window, then
@@ -347,11 +328,6 @@ __global__ void __launch_bounds__(256) ab32_lnb_kernel(const Ab32Args a, const A
   tf_lnb_sums(cs, C, sums, a.lnst + (long long)blockIdx.x * 2 * C);
 }
 
-static bool ab32_geometry_ok(int C, int heads, int ws) {
-  return ws >= 2 && ws * ws <= AM_TOK && heads >= 1 && C >= 4 && C <= TF_MAX_C && C % 4 == 0 && C % heads == 0 &&
-         C / heads <= 32;
-}
-
 // The packed weights: Wqkv (C x K3), Wproj^T (C x HD), Wqkv^T (K3 x C).
 // The row products' weights (tfw_pack's images): Wqkv (C x K3), Wproj^T (C x
 // HD), Wqkv^T (K3 x C); their hi values (the lo ones as many).
@@ -406,7 +382,7 @@ static Ab32Scratch ab32_scratch(int B, int H, int W, int C, int heads, int ws, i
 // Elements of the packed weights (ops/cuda/attn_bwd.py checks its own count
 // against it), or -1 for a geometry the kernels do not take.
 extern "C" long long attn_bwd_mma_f32_pack_elems(int C, int heads) {
-  return ab32_geometry_ok(C, heads, 8) ? ab32_pack_elems(AmGeom(C, heads, 8)) : -1;
+  return tf_window_ok(C, heads, 8) ? ab32_pack_elems(AmGeom(C, heads, 8)) : -1;
 }
 
 extern "C" int attn_bwd_mma_f32_scratch(int B, int H, int W, int C, int heads, int ws, long long* f_elems) {
@@ -434,7 +410,7 @@ extern "C" int attn_bwd_mma_f32(const void* x, const void* g, void* dx, int B, i
                                 const void* dp, const void* wqkv, const void* wproj, const void* pack_index,
                                 long long pack_elems, void* ds_db, void* dwqkv, void* dbqkv, void* dwproj,
                                 void* dbproj, void* dbias, void* fscratch, long long f_elems, void* stream) {
-  if (!ab32_geometry_ok(C, heads, ws) || B < 1 || H < ws || W < ws || H % ws || W % ws || shift < 0 || shift >= ws)
+  if (!tf_window_ok(C, heads, ws) || B < 1 || H < ws || W < ws || H % ws || W % ws || shift < 0 || shift >= ws)
     return (int)cudaErrorInvalidValue;
   const AmGeom G(C, heads, ws);
   int sms = 0;
@@ -469,7 +445,7 @@ extern "C" int attn_bwd_mma_f32(const void* x, const void* g, void* dx, int B, i
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // q|k|v = LN Wqkv + bqkv (q scaled); dattn = g_b Wproj^T
-  err = tfw_gemm(TfwGemm{a.ln, wq, C, rows, C, G.K3}, Ab32Qkv{a.qkv, a.bqkv, rows, G.K3, G.HD, G.DP, C, G.d, a.scale},
+  err = tfw_gemm(TfwGemm{a.ln, wq, C, rows, C, G.K3}, TfQkv{a.qkv, a.bqkv, rows, G.K3, G.HD, G.DP, C, G.d, a.scale},
                  st);
   if (err != cudaSuccess) return (int)err;
   err = tfw_gemm(TfwGemm{a.gb, wpt, C, rows, C, G.HD}, TfStore{a.dattn, rows, G.HD, G.HD}, st);

@@ -10,9 +10,12 @@
 // the residual the f32 x', not a re-rounded one.
 //
 // Replaces studiosr_tpu/ops/pallas/swin_block.py::fused_mlp_block
-// (_mlp_kernel). Rounding points follow the TPU kernel: LN output and GELU
-// output rounded to the storage type T; sums and LayerNorm statistics f32;
-// d scales the f32 delta.
+// (_mlp_kernel) at the widths the kernels written for the H100 do not take
+// (mlp_block_mma.cu in bf16, mlp_block_f32.cu in f32: C not a multiple of
+// 4 or above 184 / 256, hidden above 512), and in B10's f32 tail. Rounding
+// points follow the TPU kernel: LN output and GELU output rounded to the
+// storage type T; sums and LayerNorm statistics f32; d scales the f32
+// delta.
 //
 // Design: B1's MLP phase on a 64-row tile per block of 256 threads: x, the
 // LN output and the 64 x hidden activation in shared memory, fc1 and fc2

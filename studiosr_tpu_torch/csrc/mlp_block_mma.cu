@@ -8,9 +8,10 @@
 // the residual the f32 x', not a re-rounded one.
 //
 // Replaces studiosr_tpu/ops/pallas/swin_block.py::fused_mlp_block (:904,
-// _mlp_kernel at :882) in bf16, both variants; f32, the checks' dtype, keeps
-// mlp_block.cuh, and so does B10's MLP tail in f32 (ocab.cu; in bf16 B10
-// runs this kernel, ocab_mma.cu). Rounding points as
+// _mlp_kernel at :882) in bf16, both variants; f32 (SwinFIR's training
+// recipe, which trains in f32, and the f32 checks) runs mlp_block_f32.cu,
+// other widths keep mlp_block.cuh, and so does B10's MLP tail in f32
+// (ocab.cu; in bf16 B10 runs this kernel, ocab_mma.cu). Rounding points as
 // there: the LN output and the GELU output rounded to bf16; products
 // accumulate in f32; LN statistics f32; b2, d and the residual added in f32.
 // GELU is h Phi(h), Phi from am_gauss (am_common.cuh): the exact erf GELU to

@@ -1,8 +1,10 @@
-// The shared pieces of the f32 kernels written for the H100 (attn_bwd_f32.cu:
-// B8 in f32; mlp_bwd_f32.cu: B7 in f32), the backward of SwinFIR's training
-// recipe, which trains in f32 (studiosr_tpu/models/swinfir.py
-// _TRAINING_CONFIG): every product in 3xTF32 on the tensor cores, the f32
-// row passes a warp a row, and the pack that splits the weights.
+// The shared pieces of the f32 kernels written for the H100, SwinFIR's
+// training recipe, which trains in f32 (studiosr_tpu/models/swinfir.py
+// _TRAINING_CONFIG): its forward (window_attention_f32.cu: B5 in f32;
+// mlp_block_f32.cu: B6 in f32) and its backward (attn_bwd_f32.cu: B8 in f32;
+// mlp_bwd_f32.cu: B7 in f32). Every product in 3xTF32 on the tensor cores,
+// the f32 row passes a warp a row, the epilogues they share, and the pack
+// that splits the weights.
 //
 // 3xTF32. The card has no f32 tensor-core rate; its FMA pipes peak at 66.9
 // TFLOP/s. An f32 operand a splits into a_hi = tf32(a) (cvt.rna: 10 mantissa
@@ -20,7 +22,8 @@
 // token-major, which wgmma's tf32 form cannot read (it wants both K-major),
 // and the attention core, which reads one tile as A of one product and as
 // B^T of another, on mma.sync.m16n8k8.tf32 from registers (tf_gemm_kernel,
-// ab32_attn_kernel), each fragment split once where it is loaded.
+// ab32_attn_kernel, wa32_attn_kernel), each fragment split once where it is
+// loaded.
 // tf_gemm_kernel: dW (M x N) = A^T B, a 32-row K tile a stage through four
 // cp.async stages (16-byte pieces, zero-filled past M, N and K), a block of
 // eight warps (2 x 4) a 32 MT x 32 NT tile, each warp 16 MT x 8 NT outputs;
@@ -44,6 +47,14 @@ constexpr int TF_WGRAD_MT = 3;  // dW tiles of 96 rows, one block an SM: more wo
 constexpr int TF_MAX_C = 256;  // the row passes: C a multiple of 4 up to 256 (64 four-column pieces a row)
 
 __host__ __device__ inline int tf_pad4(int v) { return (v + 3) & ~3; }
+
+// The windows the f32 window-attention kernels take (B5's and B8's):
+// windows 2..8 (one 64-token tile), C a multiple of 4 up to TF_MAX_C, head
+// dims up to 32.
+__host__ inline bool tf_window_ok(int C, int heads, int ws) {
+  return ws >= 2 && ws * ws <= AM_TOK && heads >= 1 && C >= 4 && C <= TF_MAX_C && C % 4 == 0 && C % heads == 0 &&
+         C / heads <= 32;
+}
 
 
 __device__ __forceinline__ uint32_t tf_round(float v) {
@@ -290,6 +301,46 @@ struct TfStorePart {
   __device__ __forceinline__ void operator()(int s, long long r, int c, float v0, float v1) const {
     if (r >= M || c >= N) return;
     tf_store2(part + ((long long)s * M + r) * N + c, v0, v1, c + 1 < N);
+  }
+};
+
+// The q|k|v epilogue of a window-attention half (B5's pass 1 and B8's):
+// column p HD + h DP + j holds part p (q, k, v) of head h's column j plus
+// its bias, q scaled by 1/sqrt(d); zero for j >= d.
+struct TfQkv {
+  static constexpr bool AUX = false;
+  float* qkv;
+  const float* bqkv;
+  long long rows;
+  int K3, HD, DP, C, d;
+  float scale;
+  __device__ __forceinline__ void operator()(int, long long r, int c, float v0, float v1, float2) const {
+    if (r >= rows || c >= K3) return;
+    const int p = c / HD, h = (c - p * HD) / DP, j = c - p * HD - h * DP;  // c even, DP a multiple of 16
+    const float sc = p == 0 ? scale : 1.f;
+    const float* b = bqkv + p * C + h * d + j;
+    *reinterpret_cast<float2*>(qkv + r * K3 + c) =
+        make_float2(j < d ? (v0 + __ldg(b)) * sc : 0.f, j + 1 < d ? (v1 + __ldg(b + 1)) * sc : 0.f);
+  }
+};
+
+// The residual epilogue that ends a forward half (B5's projection, B6's
+// fc2): y = x + d_r (acc + bias) to row r of out (C a row, C a multiple of
+// 4), d_r = dp[r / rps] (1 without dp); x (aux, C a row, 16-byte aligned)
+// comes in through shared memory ahead of the epilogue.
+struct TfResid {
+  static constexpr bool AUX = true;
+  const float* aux;  // x, or B6's joined x'
+  long long ld;
+  float* out;
+  const float *bias, *dp;
+  long long rows, rps;
+  int C;
+  __device__ __forceinline__ void operator()(int, long long r, int c, float v0, float v1, float2 x) const {
+    if (r >= rows || c >= C) return;
+    const float dd = dp ? __ldg(dp + r / rps) : 1.f;
+    *reinterpret_cast<float2*>(out + r * C + c) =
+        make_float2(x.x + dd * (v0 + __ldg(bias + c)), x.y + dd * (v1 + __ldg(bias + c + 1)));
   }
 };
 
@@ -541,25 +592,26 @@ static cudaError_t tf_wgrad(const float* A, long long lda, const float* B, long 
 
 // -- the row passes, a warp a row ----------------------------------------------------
 
-// LN of one row (eps 1e-5, f32 statistics: mean, then the mean of the squared
-// deviations) to lnr, g_b = dd g to gbr, and (mean, rstd) to stats. Lane l
-// takes the four-column pieces l and l + 32 (C a multiple of 4, at most
-// TF_MAX_C).
-__device__ __forceinline__ void tf_ln_row(const float* xr, const float* gr, float dd, int C, const float* ln_w,
-                                          const float* ln_b, float* stats, float* lnr, float* gbr) {
+// The lane's four-column pieces l and l + 32 of an f32 row (zero past C).
+__device__ __forceinline__ void tf_load_row(const float* xr, int C, float4 (&v)[2]) {
   const int lane = threadIdx.x & 31;
-  float4 v[2], gv[2];
-  float s = 0.f;
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     const int c = 4 * (lane + 32 * j);
-    v[j] = gv[j] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (c < C) {
-      v[j] = *reinterpret_cast<const float4*>(xr + c);
-      gv[j] = *reinterpret_cast<const float4*>(gr + c);
-    }
-    s += (v[j].x + v[j].y) + (v[j].z + v[j].w);
+    v[j] = c < C ? *reinterpret_cast<const float4*>(xr + c) : make_float4(0.f, 0.f, 0.f, 0.f);
   }
+}
+
+// LN of one row held as the lane's pieces (tf_load_row; eps 1e-5, f32
+// statistics: the mean, then the mean of the squared deviations) to lnr,
+// and (mean, rstd) to stats when it is set. C a multiple of 4, at most
+// TF_MAX_C.
+__device__ __forceinline__ void tf_ln_fwd(const float4 (&v)[2], int C, const float* ln_w, const float* ln_b,
+                                          float* lnr, float* stats = nullptr) {
+  const int lane = threadIdx.x & 31;
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) s += (v[j].x + v[j].y) + (v[j].z + v[j].w);
   const float mean = warp_sum(s) / C;
   float qs = 0.f;
 #pragma unroll
@@ -569,7 +621,7 @@ __device__ __forceinline__ void tf_ln_row(const float* xr, const float* gr, floa
       qs += (a * a + b * b) + (c * c + d * d);
     }
   const float rstd = rsqrtf(warp_sum(qs) / C + 1e-5f);
-  if (lane == 0) stats[0] = mean, stats[1] = rstd;
+  if (stats && lane == 0) stats[0] = mean, stats[1] = rstd;
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     const int c = 4 * (lane + 32 * j);
@@ -578,7 +630,22 @@ __device__ __forceinline__ void tf_ln_row(const float* xr, const float* gr, floa
     *reinterpret_cast<float4*>(lnr + c) =
         make_float4((v[j].x - mean) * rstd * w.x + b.x, (v[j].y - mean) * rstd * w.y + b.y,
                     (v[j].z - mean) * rstd * w.z + b.z, (v[j].w - mean) * rstd * w.w + b.w);
-    *reinterpret_cast<float4*>(gbr + c) = make_float4(dd * gv[j].x, dd * gv[j].y, dd * gv[j].z, dd * gv[j].w);
+  }
+}
+
+// The backward's LN row: LN and its (mean, rstd) as tf_ln_fwd, and g_b = dd
+// g to gbr.
+__device__ __forceinline__ void tf_ln_row(const float* xr, const float* gr, float dd, int C, const float* ln_w,
+                                          const float* ln_b, float* stats, float* lnr, float* gbr) {
+  float4 v[2], gv[2];
+  tf_load_row(xr, C, v);
+  tf_load_row(gr, C, gv);
+  tf_ln_fwd(v, C, ln_w, ln_b, lnr, stats);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int c = 4 * (threadIdx.x & 31) + 128 * j;
+    if (c < C)
+      *reinterpret_cast<float4*>(gbr + c) = make_float4(dd * gv[j].x, dd * gv[j].y, dd * gv[j].z, dd * gv[j].w);
   }
 }
 

@@ -7,7 +7,10 @@
 // score -inf and whose outputs are never stored.
 //
 // Replaces studiosr_tpu/ops/pallas/swin_block.py::fused_window_attention_block
-// (its window-pair kernel with drop_path). As B1 (swin_block.cu) it folds
+// (its window-pair kernel with drop_path) where the kernels written for the
+// H100 do not take the geometry: head dims above 32 in bf16 and f32, C not a
+// multiple of 4 (bf16 runs window_attention_mma.cu, f32 window_attention_f32.cu
+// elsewhere). As B1 (swin_block.cu) it folds
 // the shift into its reads and writes: token (h, w) of the rolled map is
 // read from ((h + s) mod H, (w + s) mod W) and its output is written back
 // there, which is roll(+s) . block . roll(-s), the map-level function of

@@ -8,8 +8,10 @@
 // serving).
 //
 // Replaces studiosr_tpu/ops/pallas/swin_block.py::fused_window_attention_block
-// (:549) in bf16 at every window; f32, the checks' dtype, keeps
-// window_attention.cu / window_attention16.cu, and so do head dims above 32.
+// (:549) in bf16 at every window; f32 (SwinFIR's training recipe, which
+// trains in f32, and the f32 checks) runs window_attention_f32.cu at windows
+// 2..8 and keeps window_attention.cu / window_attention16.cu elsewhere, and
+// so do head dims above 32.
 // A window of N = ws^2 tokens is padded to NCH = ceil(N / 64) whole tiles
 // (am_window.cuh): windows 2..8 take one tile (the entry
 // window_attention_mma_bf16), 9..16 two to four (window_attention16_mma_bf16),

@@ -41,22 +41,26 @@ def attention_core(
     v: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
     mask: Optional[torch.Tensor] = None,
+    mm=torch.matmul,
 ) -> torch.Tensor:
     """softmax(q @ k^T + bias + mask) @ v; ``q`` already carries 1/sqrt(d).
-    Scores and softmax in f32, or f64 for f64 operands."""
-    if _BACKEND == "pallas":
+    Scores and softmax in f32, or f64 for f64 operands. ``mm`` takes both
+    products of the plain version (``ops/cuda/tf32x3.py`` ``matmul`` repeats
+    the f32 kernels' 3xTF32 arithmetic); another ``mm`` than the default
+    always takes the plain version."""
+    if _BACKEND == "pallas" and mm is torch.matmul:
         from studiosr_tpu_torch.ops.cuda import window_attn
 
         if window_attn.takes(q.shape[2], k.shape[2], q.shape[3]):
             return window_attn.window_attention(q, k, v, bias=bias, mask=mask)
         window_attn.decline(q.shape[2], k.shape[2], q.shape[3])
-    return attention_plain(q, k, v, bias, mask)
+    return attention_plain(q, k, v, bias, mask, mm)
 
 
-def attention_plain(q, k, v, bias=None, mask=None) -> torch.Tensor:
+def attention_plain(q, k, v, bias=None, mask=None, mm=torch.matmul) -> torch.Tensor:
     """The plain version of :func:`attention_core` (and of B15)."""
     acc = torch.promote_types(q.dtype, torch.float32)
-    attn = torch.matmul(q, k.transpose(-2, -1)).to(acc)
+    attn = mm(q, k.transpose(-2, -1)).to(acc)
     if bias is not None:
         attn = attn + bias[None].to(acc)
     if mask is not None:
@@ -65,4 +69,4 @@ def attention_plain(q, k, v, bias=None, mask=None) -> torch.Tensor:
         attn = attn.reshape(b, nw, *attn.shape[1:]) + mask[None, :, None].to(acc)
         attn = attn.reshape(-1, *attn.shape[2:])
     attn = torch.softmax(attn, dim=-1)
-    return torch.matmul(attn.to(v.dtype), v)
+    return mm(attn.to(v.dtype), v)

@@ -54,7 +54,8 @@ import torch
 from studiosr_tpu_torch.ops.cuda import _build, large_bwd, tf32x3
 from studiosr_tpu_torch.ops.cuda._launch import P, I, aligned, check, finish, operand, STREAM, call
 from studiosr_tpu_torch.ops.cuda.window_attention import (
-    _NP_WIDTHS, FAMILY_STEM, _image, _pad16, check_window_map, large_window, mma_takes, window_family,
+    _NP_WIDTHS, FAMILY_STEM, _image, _pad16, check_window_map, f32_mma_takes, f32_wqkv_index, large_window, mma_takes,
+    window_family,
 )
 from studiosr_tpu_torch.ops.windows import calculate_mask, window_partition, window_reverse
 
@@ -95,16 +96,7 @@ _SIGNATURES_F32 = {
     "attn_bwd_mma_f32_pack_elems": (I, I),
 }
 _RESTYPES_F32 = {"attn_bwd_mma_f32_pack_elems": _LL}
-F32_MAX_C = 256  # csrc/tf32x3.cuh TF_MAX_C
 _KROWS, _KSTAGE = 96, 64  # K rows of a projection stage and of a dln stage (AM_KROWS, AM_KSTAGE)
-
-
-def f32_mma_takes(c: int, heads: int, window_size: int) -> bool:
-    """Whether the f32 kernel written for the H100 takes this geometry:
-    windows 2 to 8 (one 64-token tile), C a multiple of 4 up to 256, a head
-    dim up to 32."""
-    return (2 <= window_size <= 8 and c % 4 == 0 and 4 <= c <= F32_MAX_C and c % heads == 0
-            and c // heads <= 32)
 
 
 def _f32_products(c: int, heads: int) -> list:
@@ -127,11 +119,8 @@ def _f32_pack_index(c: int, heads: int) -> np.ndarray:
     ``tfw_pack``'s image order (``tf32x3.tfw_image_index``)."""
     d, dp = c // heads, _pad16(c // heads)
     hd, zero = heads * dp, 4 * c * c
-    col = np.arange(3 * hd)
-    p, h, j = col // hd, (col % hd) // dp, col % dp
-    src = np.where(j < d, p * c + h * d + j, -1)  # wqkv's column of each padded column
     r = np.arange(c)[:, None]
-    wq = np.where(src[None] >= 0, r * 3 * c + src[None], zero)
+    wq = f32_wqkv_index(c, heads)  # the forward's Wqkv (B5 f32's)
     pcol = np.arange(hd)
     ph, pj = pcol // dp, pcol % dp
     wpt = np.where((pj < d)[None], 3 * c * c + (ph * d + pj)[None] * c + r, zero)

@@ -1,5 +1,5 @@
 """B6: the MLP half of a Swin block over token rows (CUDA kernels ``csrc/mlp_block_mma.cu`` in bf16,
-``csrc/mlp_block.cu`` in f32 and at other widths).
+``csrc/mlp_block_f32.cu`` in f32, ``csrc/mlp_block.cu`` at other widths).
 
 Replaces ``studiosr_tpu/ops/pallas/swin_block.py::fused_mlp_block``:
 y = x + d * fc2(gelu(fc1(LN x))) on x (rows, C), with ``drop_path`` (B,)
@@ -7,8 +7,8 @@ per-sample scales (already divided by keep) applied to row r as
 ``drop_path[r // rows_per_sample]``; None means 1. ``w1`` (C, hidden) and
 ``w2`` (hidden, C) in (in, out) layout are cast to the rows' dtype;
 LayerNorm weights, biases and scales go to the kernel in f32. GELU is the
-exact (erf) one; the bf16 H100 kernel evaluates its Phi without branches
-(within 2.3e-7 of erff's in f32, as B7 does).
+exact (erf) one; the H100 kernels (bf16 and f32) evaluate its Phi without
+branches (within 2.3e-7 of erff's in f32, as B7 does).
 
 ``extra`` (rows, C) with ``extra_scale`` (C,) is HAT's CAB join, folded in
 before the LayerNorm: x' = x + extra * extra_scale in f32, then
@@ -24,9 +24,14 @@ the kernel written for the H100, ``csrc/mlp_block_mma.cu`` (C entries
 which reads the weights packed: dense weights are gathered on every call by
 :func:`_mma_pack_index`'s rule (the entry gathers them on the card), and
 HAT serving packs them once, at load time (:func:`pack_mlp_block`: the blob
-takes ``w1``'s place and ``w2`` is None). Other bf16 geometries and f32
-launch ``csrc/mlp_block.cu`` (``mlp_block_bf16`` / ``_f32`` and the
-``extra`` entries). Each launch is counted under its C entry
+takes ``w1``'s place and ``w2`` is None). f32 with C a multiple of 4 up to
+256 and a hidden width up to 512 (:func:`f32_mma_takes`: SwinFIR's recipe,
+and every model's MLP half in f32) launches ``csrc/mlp_block_f32.cu`` (C
+entries ``mlp_block_mma_f32`` and ``mlp_block_extra_mma_f32``: both
+products in 3xTF32 on the tensor cores, dense weights packed and split per
+call by :func:`_f32_pack_index`'s rule). Other geometries launch
+``csrc/mlp_block.cu`` (``mlp_block_bf16`` / ``_f32`` and the ``extra``
+entries). Each launch is counted under its C entry
 (``engagement.entries()``).
 """
 
@@ -39,11 +44,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from studiosr_tpu_torch.ops.cuda import _build
-from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, check, finish, operand, STREAM, call
+from studiosr_tpu_torch.ops.cuda import _build, tf32x3
+from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, aligned, check, finish, operand, STREAM, call
 from studiosr_tpu_torch.ops.cuda.window_attention import _image, _pad16
 
-__all__ = ["fused_mlp_block", "mlp_block_plain", "row_scales", "mma_takes", "pack_mlp_block", "unpack_mlp_block"]
+__all__ = ["fused_mlp_block", "mlp_block_plain", "row_scales", "mma_takes", "f32_mma_takes", "pack_mlp_block",
+           "unpack_mlp_block", "pack_mlp_block_f32_weights"]
 
 _ARGS = (P, P, I, I, I) + (P,) * 7 + (I, P, ctypes.c_longlong, P)
 _EXTRA_ARGS = (P, P, I, I, I) + (P,) * 8 + (P, ctypes.c_longlong, P)
@@ -58,7 +64,13 @@ _EXTRA_ARGS_MMA = (P, P, I, I, I) + (P,) * 8 + (P, P, _LL, P, P)
 _SIGNATURES_MMA = {"mlp_block_mma_bf16": _ARGS_MMA, "mlp_block_extra_mma_bf16": _EXTRA_ARGS_MMA,
                    "mlp_block_mma_pack_elems": (I, I)}
 _RESTYPES_MMA = {"mlp_block_mma_pack_elems": _LL}
+_ARGS_F32 = (P, P, I, I, I) + (P,) * 7 + (I, P, _LL, P, _LL, P)
+_EXTRA_ARGS_F32 = (P, P, I, I, I) + (P,) * 9 + (_LL, P, _LL, P)
+_SIGNATURES_F32 = {"mlp_block_mma_f32": _ARGS_F32, "mlp_block_extra_mma_f32": _EXTRA_ARGS_F32,
+                   "mlp_block_mma_f32_pack_elems": (I, I), "mlp_block_mma_f32_scratch": (I, I, I, I)}
+_RESTYPES_F32 = {"mlp_block_mma_f32_pack_elems": _LL, "mlp_block_mma_f32_scratch": _LL}
 MMA_MAX_C, MMA_MAX_HIDDEN = 184, 512
+F32_MAX_C, F32_MAX_HIDDEN = 256, 512  # csrc/tf32x3.cuh TF_MAX_C, csrc/mlp_block_f32.cu MF32_MAX_HIDDEN
 _CHUNK = 64  # hidden units a chunk (MF_CHUNK)
 _FC2_WIDTHS = (32, 64, 96, 128, 184)  # csrc/mlp_block_mma.cu mf_np: fc2's product widths
 
@@ -67,6 +79,45 @@ def mma_takes(c: int, hidden: int) -> bool:
     """Whether the bf16 kernel written for the H100 takes this geometry: C a
     multiple of 4 up to 184 and a hidden width up to 512."""
     return c % 4 == 0 and 4 <= c <= MMA_MAX_C and 1 <= hidden <= MMA_MAX_HIDDEN
+
+
+def f32_mma_takes(c: int, hidden: int) -> bool:
+    """Whether the f32 kernel written for the H100 takes this geometry: C a
+    multiple of 4 up to 256 and a hidden width up to 512."""
+    return c % 4 == 0 and 4 <= c <= F32_MAX_C and 1 <= hidden <= F32_MAX_HIDDEN
+
+
+def _f32_products(c: int, hidden: int) -> list:
+    """(K, N) of B6 f32's row products: g = gelu(LN W1) (C x HP) and g W2 (HP
+    x C), with HP the hidden width padded to 4."""
+    hp = -(-hidden // 4) * 4
+    return [(c, hp), (hp, c)]
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_pack_index(c: int, hidden: int) -> np.ndarray:
+    """For each hi value of B6 f32's packed weights, its flat index into
+    ``cat(w1.flatten(), w2.flatten())`` (w1 (C, hidden), w2 (hidden, C)), or
+    2 C hidden for a zero: W1 (C x HP, [r, j] = w1[r, j]) and W2 (HP x C,
+    [j, n] = w2[j, n]), zero at j >= hidden, each in ``tfw_pack``'s image
+    order (``tf32x3.tfw_image_index``)."""
+    hp = -(-hidden // 4) * 4
+    zero = 2 * c * hidden
+    r, j = np.meshgrid(np.arange(c), np.arange(hp), indexing="ij")
+    w1 = np.where(j < hidden, r * hidden + j, zero)
+    w2 = np.where(j.T < hidden, c * hidden + j.T * c + r.T, zero)
+    return np.concatenate([tf32x3.tfw_image_index(m, zero) for m in (w1, w2)])
+
+
+def pack_mlp_block_f32_weights(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """B6 f32's packed weights (f32): the values :func:`_f32_pack_index`
+    gathers, each stage block as its hi then its lo image
+    (``tf32x3.pack_images``); the entry packs the same on the card on every
+    call, this is its plain version."""
+    c, hidden = w1.shape
+    src = torch.cat([w1.reshape(-1), w2.to(w1.dtype).reshape(-1), w1.new_zeros(1)]).float()
+    return tf32x3.pack_images(src[torch.from_numpy(_f32_pack_index(c, hidden)).to(src.device)],
+                              _f32_products(c, hidden))
 
 
 @functools.lru_cache(maxsize=None)
@@ -94,9 +145,11 @@ def _mma_pack_index(c: int, hidden: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _device_pack_index(c: int, hidden: int, dev: torch.device) -> torch.Tensor:
-    """:func:`_mma_pack_index` as an int32 tensor on ``dev``, for the entry's gather."""
-    return torch.from_numpy(_mma_pack_index(c, hidden).astype(np.int32)).to(dev)
+def _device_pack_index(c: int, hidden: int, dev: torch.device, f32: bool = False) -> torch.Tensor:
+    """:func:`_mma_pack_index` (``f32``: :func:`_f32_pack_index`) as an int32
+    tensor on ``dev``, for the entry's gather."""
+    index = _f32_pack_index(c, hidden) if f32 else _mma_pack_index(c, hidden)
+    return torch.from_numpy(index.astype(np.int32)).to(dev)
 
 
 def pack_mlp_block(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
@@ -141,16 +194,18 @@ def row_scales(drop_path, rows: int, rows_per_sample: int):
 
 
 def mlp_block_plain(
-    x, ln_w, ln_b, w1, b1, w2, b2, *, drop_path=None, rows_per_sample: int = 0, extra=None, extra_scale=None
+    x, ln_w, ln_b, w1, b1, w2, b2, *, drop_path=None, rows_per_sample: int = 0, extra=None, extra_scale=None,
+    mm=torch.matmul,
 ):
     """Plain PyTorch version, computed in f32 and returned in ``x.dtype``;
-    ``w2`` None means ``w1`` is :func:`pack_mlp_block`'s blob."""
+    ``w2`` None means ``w1`` is :func:`pack_mlp_block`'s blob. ``mm`` takes
+    each product (``tf32x3.matmul`` repeats the f32 kernel's arithmetic)."""
     w1, w2 = _dense(x, w1, w2, b1)
     xf = x.float()
     if extra is not None:
         xf = xf + extra.float() * extra_scale.float()
-    h = F.gelu(F.layer_norm(xf, (x.shape[-1],), ln_w.float(), ln_b.float(), 1e-5) @ w1.float() + b1.float())
-    delta = h @ w2.float() + b2.float()
+    h = F.gelu(mm(F.layer_norm(xf, (x.shape[-1],), ln_w.float(), ln_b.float(), 1e-5), w1.float()) + b1.float())
+    delta = mm(h, w2.float()) + b2.float()
     d = row_scales(drop_path, x.shape[0], rows_per_sample)
     if d is not None:
         delta = delta * d
@@ -181,6 +236,8 @@ def fused_mlp_block(
                          f"hidden {hidden}")
     if mma:
         return _fused_mma(x, ln_w, ln_b, w1, b1, w2, b2, drop_path, rows_per_sample, extra, extra_scale)
+    if dt == f32 and f32_mma_takes(c, hidden):
+        return _fused_f32(x, ln_w, ln_b, w1, b1, w2, b2, drop_path, rows_per_sample, extra, extra_scale)
     # the kernel reads every operand during the launch; keep each converted copy alive until then
     ops = [
         operand(ln_w, "ln_w", (c,), f32, dev), operand(ln_b, "ln_b", (c,), f32, dev),
@@ -248,4 +305,41 @@ def _fused_mma(x, ln_w, ln_b, w1, b1, w2, b2, drop_path, rows_per_sample, extra,
         status = call(dev, lib.mlp_block_extra_mma_bf16, px, out.data_ptr(), rows, c, hidden, *weights, pe,
                       es.data_ptr(), *tail)
         finish("fused_mlp_block_extra", status, "mlp_block_extra_mma_bf16")
+    return out
+
+
+def _fused_f32(x, ln_w, ln_b, w1, b1, w2, b2, drop_path, rows_per_sample, extra, extra_scale):
+    """The f32 launch of ``csrc/mlp_block_f32.cu`` on dense weights, packed
+    and split by the entry."""
+    rows, c = x.shape
+    hidden = b1.numel()
+    dev, f32 = x.device, torch.float32
+    lib = _build.load("mlp_block_f32", _SIGNATURES_F32, _RESTYPES_F32)
+    index = _device_pack_index(c, hidden, dev, True)
+    if call(dev, lib.mlp_block_mma_f32_pack_elems, c, hidden) != index.numel():
+        raise RuntimeError(f"fused_mlp_block: the f32 packed weights of C {c}, hidden {hidden} disagree with the "
+                           "kernel's layout")
+    # the entry reads x, ln_w, ln_b, extra and its scale four values at a time: 16-byte aligned copies
+    weights = [aligned(operand(ln_w, "ln_w", (c,), f32, dev)), aligned(operand(ln_b, "ln_b", (c,), f32, dev)),
+               operand(w1, "w1", (c, hidden), f32, dev), operand(b1, "b1", (hidden,), f32, dev),
+               operand(w2, "w2", (hidden, c), f32, dev), operand(b2, "b2", (c,), f32, dev)]
+    check(x, "x", (rows, c), f32, dev)
+    xa = aligned(x)
+    f_elems = call(dev, lib.mlp_block_mma_f32_scratch, rows, c, hidden, int(extra is not None))
+    fscratch = torch.empty(f_elems, dtype=f32, device=dev)
+    out = torch.empty_like(xa)
+    ptrs = [t.data_ptr() for t in weights]
+    tail = [index.data_ptr(), index.numel(), fscratch.data_ptr(), f_elems, STREAM]
+    if extra is None:
+        dp = None if drop_path is None else operand(drop_path, "drop_path", (drop_path.numel(),), f32, dev)
+        status = call(dev, lib.mlp_block_mma_f32, xa.data_ptr(), out.data_ptr(), rows, c, hidden, *ptrs,
+                      None if dp is None else dp.data_ptr(), rows_per_sample, *tail)
+        finish("fused_mlp_block", status, "mlp_block_mma_f32")
+    else:
+        check(extra, "extra", (rows, c), f32, dev)
+        ea = aligned(extra)
+        es = aligned(operand(extra_scale, "extra_scale", (c,), f32, dev))
+        status = call(dev, lib.mlp_block_extra_mma_f32, xa.data_ptr(), out.data_ptr(), rows, c, hidden, *ptrs,
+                      ea.data_ptr(), es.data_ptr(), *tail)
+        finish("fused_mlp_block_extra", status, "mlp_block_extra_mma_f32")
     return out

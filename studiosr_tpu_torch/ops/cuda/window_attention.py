@@ -1,6 +1,7 @@
 """B5: the attention half of a Swin block (CUDA kernels ``csrc/window_attention_mma.cu``
-in bf16 at every window; ``csrc/window_attention.cu`` and ``csrc/window_attention16.cu``
-in f32 and at wider heads).
+in bf16 at every window; ``csrc/window_attention_f32.cu`` in f32 at windows 2 to 8;
+``csrc/window_attention.cu`` and ``csrc/window_attention16.cu`` at wider heads and in
+f32 from window 9).
 
 Replaces ``studiosr_tpu/ops/pallas/swin_block.py::fused_window_attention_block``
 with ``drop_path``: y = x + d_b * proj(WA(LN x)) on (B, H, W, C) maps, where
@@ -39,14 +40,20 @@ to 32 and C a multiple of 4 up to 184 (:func:`mma_takes`) at any window
 launches the kernels written for the H100, ``csrc/window_attention_mma.cu``
 (C entries ``window_attention_mma_bf16`` for windows 2 to 8,
 ``window_attention16_mma_bf16`` for 9 to 16, ``window_attention_large_mma_bf16``
-from 17); other bf16 geometries and f32 launch ``window_attention_bf16`` /
-``window_attention16_bf16`` / ``window_attention_large_bf16`` and the
-``_f32`` entries, by the same split. Each launch is counted under its C entry
-(``engagement.entries()``). The H100 kernels read the weights packed: dense
-weights are gathered on every call by :func:`_fwd_pack_index`'s rule (the
-entry gathers them on the card) and a bf16 bias is read as it is, any other
-in f32; serving packs once, at load time (:func:`pack_window_attention`:
-the blob takes ``wqkv``'s place, ``wproj`` and ``bias`` are None).
+from 17); f32 at windows 2 to 8 with a head dim up to 32 and C a multiple
+of 4 up to 256 (:func:`f32_mma_takes`: SwinFIR's recipe, and every f32
+window-8 width the paths train) launches ``csrc/window_attention_f32.cu``
+(``window_attention_mma_f32``: every product in 3xTF32 on the tensor cores,
+the row products on wgmma, the weights packed and split per call by
+:func:`_f32_fwd_pack_index`'s rule); other bf16 geometries and f32 launch
+``window_attention_bf16`` / ``window_attention16_bf16`` /
+``window_attention_large_bf16`` and the ``_f32`` entries, by the same split.
+Each launch is counted under its C entry (``engagement.entries()``). The
+bf16 H100 kernels read the weights packed: dense weights are gathered on
+every call by :func:`_fwd_pack_index`'s rule (the entry gathers them on the
+card) and a bf16 bias is read as it is, any other in f32; serving packs
+once, at load time (:func:`pack_window_attention`: the blob takes
+``wqkv``'s place, ``wproj`` and ``bias`` are None).
 """
 
 from __future__ import annotations
@@ -60,14 +67,15 @@ import torch
 import torch.nn.functional as F
 
 from studiosr_tpu_torch.ops.attention import attention_core
-from studiosr_tpu_torch.ops.cuda import _build
-from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, check, finish, operand, STREAM, call
+from studiosr_tpu_torch.ops.cuda import _build, tf32x3
+from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, aligned, check, finish, operand, STREAM, call
 from studiosr_tpu_torch.ops.windows import calculate_mask, window_partition, window_reverse
 
 __all__ = [
     "fused_window_attention_block", "window_attention_plain", "check_window_map", "mma_takes", "pack_window_attention",
-    "unpack_window_attention", "large_window", "window_family", "padded_tokens", "KERNEL_WINDOW", "KERNEL_WINDOW16",
-    "KERNEL_WINDOW_MAX", "KERNEL_WINDOWS", "MAX_HEAD_DIM", "FAMILY_STEM",
+    "unpack_window_attention", "large_window", "window_family", "padded_tokens", "f32_mma_takes",
+    "pack_window_attention_f32_weights", "KERNEL_WINDOW", "KERNEL_WINDOW16", "KERNEL_WINDOW_MAX", "KERNEL_WINDOWS",
+    "MAX_HEAD_DIM", "FAMILY_STEM",
 ]
 
 KERNEL_WINDOW = 8  # csrc/swin_common.cuh SB_WS: one 64-token tile a window, the largest of the small family
@@ -104,7 +112,15 @@ _SIGNATURES_MMA = {
     "window_attention_mma_scratch": (I,) * 6 + (ctypes.POINTER(_LL),),
 }
 _RESTYPES_MMA = {"window_attention_mma_pack_elems": _LL}
+_ARGS_F32 = (P, P) + (I,) * 7 + (P,) * 9 + (_LL, P, _LL, P)
+_SIGNATURES_F32 = {
+    "window_attention_mma_f32": _ARGS_F32,
+    "window_attention_mma_f32_scratch": (I,) * 6 + (ctypes.POINTER(_LL),),
+    "window_attention_mma_f32_pack_elems": (I, I),
+}
+_RESTYPES_F32 = {"window_attention_mma_f32_pack_elems": _LL}
 MMA_MAX_C, MMA_MAX_HEAD_DIM = 184, 32
+F32_MAX_C = 256  # csrc/tf32x3.cuh TF_MAX_C
 _NP_WIDTHS = (16, 32, 48, 64, 96, 128, 184)  # csrc/am_common.cuh am_np: the products' widths
 _KROWS, _KSTAGE, _TOK = 96, 64, 64  # K rows of a q|k|v stage and of a Wproj stage (AM_KROWS, AM_KSTAGE); a tile
 
@@ -136,8 +152,63 @@ def mma_takes(c: int, heads: int) -> bool:
     return heads >= 1 and c % heads == 0 and c // heads <= MMA_MAX_HEAD_DIM and c % 4 == 0 and 4 <= c <= MMA_MAX_C
 
 
+def f32_mma_takes(c: int, heads: int, window_size: int) -> bool:
+    """Whether the f32 kernels written for the H100 (B5 in f32 and its
+    backward B8) take this geometry: windows 2 to 8 (one 64-token tile), C
+    a multiple of 4 up to 256, a head dim up to 32 (``tf_window_ok`` in
+    csrc/tf32x3.cuh)."""
+    return (2 <= window_size <= 8 and c % 4 == 0 and 4 <= c <= F32_MAX_C and heads >= 1 and c % heads == 0
+            and c // heads <= 32)
+
+
 def _pad16(v: int) -> int:
     return (v + 15) // 16 * 16
+
+
+def f32_wqkv_index(c: int, heads: int) -> np.ndarray:
+    """Wqkv of the f32 kernels' q|k|v product (C x 3 HD, each head padded
+    from d = C / heads to DP = pad16(d) columns, HD = heads DP): element [r,
+    p HD + h DP + j] is the flat index of wqkv[r, p C + h d + j] into
+    ``cat(wqkv.flatten(), wproj.flatten())``, or 4 C^2 (a zero) for j >= d."""
+    d, dp = c // heads, _pad16(c // heads)
+    hd = heads * dp
+    col = np.arange(3 * hd)
+    p, h, j = col // hd, (col % hd) // dp, col % dp
+    src = np.where(j < d, p * c + h * d + j, -1)  # wqkv's column of each padded column
+    return np.where(src[None] >= 0, np.arange(c)[:, None] * 3 * c + src[None], 4 * c * c)
+
+
+def _f32_products(c: int, heads: int) -> list:
+    """(K, N) of B5 f32's row products: q|k|v = LN Wqkv (C x 3 HD) and y =
+    attn Wproj (HD x C), HD = heads pad16(d)."""
+    hd = heads * _pad16(c // heads)
+    return [(c, 3 * hd), (hd, c)]
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_fwd_pack_index(c: int, heads: int) -> np.ndarray:
+    """For each hi value of B5 f32's packed weights, its flat index into
+    ``cat(wqkv.flatten(), wproj.flatten())`` (wqkv (C, 3C), wproj (C, C)), or
+    4 C^2 for a zero: :func:`f32_wqkv_index`'s Wqkv, then Wproj (HD x C, [h
+    DP + j, n] = wproj[h d + j, n], zero for j >= d), each in ``tfw_pack``'s
+    image order (``tf32x3.tfw_image_index``)."""
+    d, dp = c // heads, _pad16(c // heads)
+    zero = 4 * c * c
+    row = np.arange(heads * dp)
+    h, j = row // dp, row % dp
+    wp = np.where((j < d)[:, None], 3 * c * c + (h * d + j)[:, None] * c + np.arange(c)[None], zero)
+    return np.concatenate([tf32x3.tfw_image_index(m, zero) for m in (f32_wqkv_index(c, heads), wp)])
+
+
+def pack_window_attention_f32_weights(wqkv: torch.Tensor, wproj: torch.Tensor, heads: int) -> torch.Tensor:
+    """B5 f32's packed weights (f32): the values :func:`_f32_fwd_pack_index`
+    gathers, each stage block as its hi then its lo image
+    (``tf32x3.pack_images``); the entry packs the same on the card on every
+    call, this is its plain version."""
+    c = wqkv.shape[0]
+    src = torch.cat([wqkv.reshape(-1), wproj.to(wqkv.dtype).reshape(-1), wqkv.new_zeros(1)]).float()
+    return tf32x3.pack_images(src[torch.from_numpy(_f32_fwd_pack_index(c, heads)).to(src.device)],
+                              _f32_products(c, heads))
 
 
 def _k_major(k, n, rows: int):
@@ -240,17 +311,21 @@ def unpack_window_attention(blob: torch.Tensor, c: int, heads: int, window_size:
 
 
 @functools.lru_cache(maxsize=None)
-def _device_pack_index(c: int, heads: int, dev: torch.device) -> torch.Tensor:
-    """:func:`_fwd_pack_index` as an int32 tensor on ``dev``, for the entry's gather."""
-    return torch.from_numpy(_fwd_pack_index(c, heads).astype(np.int32)).to(dev)
+def _device_pack_index(c: int, heads: int, dev: torch.device, f32: bool = False) -> torch.Tensor:
+    """:func:`_fwd_pack_index` (``f32``: :func:`_f32_fwd_pack_index`) as an
+    int32 tensor on ``dev``, for the entry's gather."""
+    index = _f32_fwd_pack_index(c, heads) if f32 else _fwd_pack_index(c, heads)
+    return torch.from_numpy(index.astype(np.int32)).to(dev)
 
 
 def window_attention_plain(
-    x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, *, heads: int, window_size: int, shift: int = 0, drop_path=None
+    x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, *, heads: int, window_size: int, shift: int = 0, drop_path=None,
+    mm=torch.matmul,
 ):
     """Plain PyTorch version, computed in f32 and returned in ``x.dtype``;
     the weights dense, or packed (``wqkv`` the blob, ``wproj`` and ``bias``
-    None)."""
+    None). ``mm`` takes each product (``tf32x3.matmul`` repeats the f32
+    kernel's arithmetic)."""
     b, h, w, c = x.shape
     if wproj is None:
         wqkv, wproj, bias = unpack_window_attention(wqkv, c, heads, window_size)
@@ -260,11 +335,11 @@ def window_attention_plain(
     xf = x.float()
     z = torch.roll(xf, (-shift, -shift), dims=(1, 2)) if shift else xf
     ln = F.layer_norm(z, (c,), ln_w.float(), ln_b.float(), 1e-5)
-    qkv = window_partition(ln, ws).reshape(-1, n, c) @ wqkv.float() + bqkv.float()
+    qkv = mm(window_partition(ln, ws).reshape(-1, n, c), wqkv.float()) + bqkv.float()
     qkv = qkv.reshape(-1, n, 3, heads, d).permute(2, 0, 3, 1, 4)
     mask = torch.from_numpy(calculate_mask((h, w), ws, shift)).to(x.device) if shift else None
-    attn = attention_core(qkv[0] * d**-0.5, qkv[1], qkv[2], bias=bias.float(), mask=mask)
-    attn = attn.transpose(1, 2).reshape(-1, n, c) @ wproj.float() + bproj.float()
+    attn = attention_core(qkv[0] * d**-0.5, qkv[1], qkv[2], bias=bias.float(), mask=mask, mm=mm)
+    attn = mm(attn.transpose(1, 2).reshape(-1, n, c), wproj.float()) + bproj.float()
     delta = window_reverse(attn.reshape(-1, ws, ws, c), ws, h, w)
     if shift:
         delta = torch.roll(delta, (shift, shift), dims=(1, 2))
@@ -314,6 +389,9 @@ def fused_window_attention_block(
                                      drop_path, name)
     if wproj is None:
         raise ValueError(f"{name}: packed weights need bf16 and a geometry mma_takes, not {dt}, C {c}, {heads} heads")
+    if dt == torch.float32 and f32_mma_takes(c, heads, window_size):
+        return _window_attention_f32(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, heads, window_size, shift,
+                                     drop_path, name)
     # the kernel reads every operand during the launch; keep each converted copy alive until then
     ops = [
         operand(ln_w, "ln_w", (c,), torch.float32, dev), operand(ln_b, "ln_b", (c,), torch.float32, dev),
@@ -381,4 +459,35 @@ def _window_attention_mma(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, heads, 
     status = call(dev, getattr(lib, entry), px, out.data_ptr(), bsz, h, w, c, heads, window_size, shift, bias16, *ptrs,
                   blob, index.numel(), tscratch.data_ptr(), t_elems.value, STREAM)
     finish(name, status, entry)
+    return out
+
+
+def _window_attention_f32(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, heads, window_size, shift, drop_path,
+                          name):
+    """The launch of ``csrc/window_attention_f32.cu`` (f32,
+    :func:`f32_mma_takes`) on dense weights, packed and split by the entry."""
+    bsz, h, w, c = x.shape
+    n, dev, f32 = window_size * window_size, x.device, torch.float32
+    lib = _build.load("window_attention_f32", _SIGNATURES_F32, _RESTYPES_F32)
+    index = _device_pack_index(c, heads, dev, True)
+    if call(dev, lib.window_attention_mma_f32_pack_elems, c, heads) != index.numel():
+        raise RuntimeError(f"{name}: the f32 packed weights of C {c}, {heads} heads disagree with the kernel's layout")
+    # the entry reads ln_w and ln_b four values at a time: 16-byte aligned copies
+    ops = [aligned(operand(ln_w, "ln_w", (c,), f32, dev)), aligned(operand(ln_b, "ln_b", (c,), f32, dev)),
+           operand(bqkv, "bqkv", (3 * c,), f32, dev), operand(bproj, "bproj", (c,), f32, dev),
+           operand(bias, "bias", (heads, n, n), f32, dev),
+           None if drop_path is None else operand(drop_path, "drop_path", (bsz,), f32, dev),
+           operand(wqkv, "wqkv", (c, 3 * c), f32, dev), operand(wproj, "wproj", (c, c), f32, dev), index]
+    check(x, "x", (bsz, h, w, c), f32, dev)
+    xa = aligned(x)
+    f_elems = _LL()
+    status = call(dev, lib.window_attention_mma_f32_scratch, bsz, h, w, c, heads, window_size, ctypes.byref(f_elems))
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA error {status} while sizing the scratch")
+    fscratch = torch.empty(f_elems.value, dtype=f32, device=dev)
+    out = torch.empty_like(xa)
+    status = call(dev, lib.window_attention_mma_f32, xa.data_ptr(), out.data_ptr(), bsz, h, w, c, heads, window_size,
+                  shift, *[None if t is None else t.data_ptr() for t in ops], index.numel(), fscratch.data_ptr(),
+                  f_elems.value, STREAM)
+    finish(name, status, "window_attention_mma_f32")
     return out

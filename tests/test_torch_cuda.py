@@ -444,6 +444,80 @@ def test_f32_backward_entries_refuse_geometries_they_do_not_take(dev):
                 0, STREAM) != 0
 
 
+# B5 and B6 in f32 on the kernels written for the H100 (window_attention_mma_f32,
+# mlp_block_mma_f32, mlp_block_extra_mma_f32: 3xTF32 products): SwinFIR's C
+# 180 / 6 heads, MaxSR's 128 / 4 and the fixtures' 32 / 2 at windows 8, 5 and
+# 2 with and without the shift and drop-path scales, batch 2; the MLP at
+# hidden 360, 512, 64 and 37, C 256, ragged row counts, with drop-path and
+# with HAT's CAB join: the output against the plain version at the f32
+# rule, two launches the same bits, each launch through its entry.
+F32_FWD_MLP_CASES = [(180, 360, 8192, 4096, "drop_path"), (128, 512, 1000, 500, "drop_path"), (32, 64, 767, 0, None),
+                     (20, 37, 300, 150, "drop_path"), (256, 512, 640, 0, None), (180, 360, 777, 0, "extra"),
+                     (128, 512, 4096, 0, "extra")]
+
+
+@pytest.mark.parametrize("c,heads,ws,shift,drop", F32_ATTN_CASES)
+def test_window_attention_f32_kernel_matches_plain(dev, c, heads, ws, shift, drop):
+    gen = torch.Generator().manual_seed(c + ws + shift + 7)
+    ops = [t.to(dev) for t in _block_operands(gen, c, heads, 2 * c, ws=ws)[:7]]
+    x = _randn(gen, 2, 2 * ws, 3 * ws, c).to(dev)
+    kw = dict(heads=heads, window_size=ws, shift=shift,
+              drop_path=torch.tensor([0.0, 1.25], device=dev) if drop else None)
+    engagement.reset()
+    got = fused_window_attention_block(x, *ops, **kw)
+    again = fused_window_attention_block(x, *ops, **kw)
+    assert engagement.entries() == {"fused_window_attention_block": {"window_attention_mma_f32": 2}}
+    _assert_close(got, window_attention_plain(x, *ops, **kw), torch.float32)
+    assert torch.equal(got, again)  # no atomics: bitwise repeatable
+    if drop:
+        assert torch.equal(got[0], x[0])  # a dropped sample passes through exactly
+
+
+@pytest.mark.parametrize("c,hidden,rows,rows_per_sample,mode", F32_FWD_MLP_CASES)
+def test_mlp_block_f32_kernel_matches_plain(dev, c, hidden, rows, rows_per_sample, mode):
+    gen = torch.Generator().manual_seed(c + hidden + rows)
+    ops = [t.to(dev) for t in _block_operands(gen, c, 2, hidden)[7:]]
+    x = _randn(gen, rows, c).to(dev)
+    kw, name, entry = {}, "fused_mlp_block", "mlp_block_mma_f32"
+    if mode == "drop_path":
+        kw = dict(drop_path=torch.tensor([1.25, 0.0], device=dev), rows_per_sample=rows_per_sample)
+    elif mode == "extra":
+        kw = dict(extra=_randn(gen, rows, c).to(dev), extra_scale=_randn(gen, c, scale=0.5).to(dev))
+        name, entry = "fused_mlp_block_extra", "mlp_block_extra_mma_f32"
+    engagement.reset()
+    got = fused_mlp_block(x, *ops, **kw)
+    again = fused_mlp_block(x, *ops, **kw)
+    assert engagement.entries() == {name: {entry: 2}}
+    _assert_close(got, mlp_block_plain(x, *ops, **kw), torch.float32)
+    assert torch.equal(got, again)
+    if mode == "drop_path":
+        assert torch.equal(got[rows_per_sample:], x[rows_per_sample:])
+
+
+def test_f32_forward_entries_refuse_geometries_they_do_not_take(dev):
+    """The f32 forward entries answer -1 for a packed layout they do not take
+    and refuse a launch at such a geometry before they read an operand (a
+    wrapper raises on a status that is not 0)."""
+    from studiosr_tpu_torch.ops.cuda import _build
+    from studiosr_tpu_torch.ops.cuda import mlp_block as mbk, window_attention as wa
+    from studiosr_tpu_torch.ops.cuda._launch import STREAM, call
+
+    alib = _build.load("window_attention_f32", wa._SIGNATURES_F32, wa._RESTYPES_F32)
+    mlib = _build.load("mlp_block_f32", mbk._SIGNATURES_F32, mbk._RESTYPES_F32)
+    assert call(dev, alib.window_attention_mma_f32_pack_elems, 180, 6) == wa._f32_fwd_pack_index(180, 6).size
+    assert call(dev, mlib.mlp_block_mma_f32_pack_elems, 180, 360) == mbk._f32_pack_index(180, 360).size
+    assert call(dev, alib.window_attention_mma_f32_pack_elems, 90, 6) == -1  # C not a multiple of 4
+    assert call(dev, alib.window_attention_mma_f32_pack_elems, 96, 2) == -1  # head dim 48
+    assert call(dev, mlib.mlp_block_mma_f32_pack_elems, 260, 520) == -1  # C above 256
+    assert call(dev, mlib.mlp_block_mma_f32_pack_elems, 64, 576) == -1  # hidden above 512
+    nulls = [None] * 9
+    for ws, c, heads in ((9, 180, 6), (8, 90, 6), (8, 96, 2)):  # window 9, C 90, head dim 48
+        assert call(dev, alib.window_attention_mma_f32, None, None, 2, 8 * ws, 8 * ws, c, heads, ws, 0, *nulls, 0,
+                    None, 0, STREAM) != 0
+    assert call(dev, mlib.mlp_block_mma_f32, None, None, 64, 90, 180, *nulls[:7], 0, None, 0, None, 0, STREAM) != 0
+    assert call(dev, mlib.mlp_block_extra_mma_f32, None, None, 64, 64, 576, *nulls, 0, None, 0, STREAM) != 0
+
+
 def test_wrappers_raise_on_operands_the_kernels_do_not_take(dev):
     x = torch.zeros(1, 8, 8, 4, device=dev)
     w, b = torch.zeros(3, 3, 4, 4, device=dev), torch.zeros(4, device=dev)
@@ -813,8 +887,9 @@ def test_window_attention_h100_kernels_match_plain(dev, c, heads, shape, shift, 
 # B5, B8 and B9 at every square window from 2 to 16: windows 2-8 take one
 # 64-row tile a window (the small family, counted under the window-8 keys),
 # 9-16 two to four (the large family, ``_ws16``), a window of N = ws^2
-# tokens padded to whole tiles. bf16 at MaxSR's head dim 32 (the kernels
-# written for the H100), f32 and bf16 at head dim 48 (the older kernels), on
+# tokens padded to whole tiles. bf16 at head dim 32 (the kernels written for
+# the H100), f32 at head dim 16 (the f32 kernels written for the H100 at
+# windows 2-8, the older ones above), bf16 at head dim 48 (the older), on
 # maps of 2 x 3 windows with the shift ws // 2 and a 0 drop-path scale:
 # against the plain versions, the serving blob giving the dense weights'
 # bits, the backward's bits repeatable, and the entry each launch took.
@@ -955,10 +1030,11 @@ def _check_window_kernels(dev, ws, dtype, c, heads):
     grads = attention_bwd(x, g, *ops, **kw)
     again = attention_bwd(x, g, *ops, **kw)
     kind = "_mma_bf16" if mma else ("_bf16" if dtype == torch.bfloat16 else "_f32")
-    # f32 at windows 2-8 (head dims up to 32): the backward's f32 kernel written for the H100
-    bkind = "_mma_f32" if dtype == torch.float32 and f32_mma_takes(c, heads, ws) else kind
+    # f32 at windows 2-8 (head dims up to 32): the f32 kernels written for the H100, both directions
+    if dtype == torch.float32 and f32_mma_takes(c, heads, ws):
+        kind = "_mma_f32"
     assert engagement.entries() == {"fused_window_attention_block" + suffix: {f"window_attention{fam}{kind}": 1},
-                                    "attention_bwd" + suffix: {f"attn_bwd{fam}{bkind}": 2}}
+                                    "attention_bwd" + suffix: {f"attn_bwd{fam}{kind}": 2}}
     _assert_close(y, window_attention_plain(x.float(), *[t.float() for t in ops], **kw), dtype)
     assert torch.equal(y[0], x[0])  # a dropped sample passes through exactly
     want = attention_bwd_plain(x.float(), g.float(), *[t.float() for t in ops], **kw)

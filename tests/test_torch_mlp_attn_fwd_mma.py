@@ -29,7 +29,7 @@ from studiosr_tpu_torch.ops.cuda.mlp_bwd import _pack_index as mlp_pack_index
 from studiosr_tpu_torch.ops.cuda.mlp_bwd import mlp_bwd, pack_mlp_bwd_weights
 from studiosr_tpu_torch.ops.cuda.mlp_bwd import mma_takes as mlp_mma_takes
 from studiosr_tpu_torch.ops.cuda.window_attention import (
-    _bias_order, _fwd_pack_index, fused_window_attention_block, mma_takes, pack_window_attention,
+    _bias_order, _f32_fwd_pack_index, _fwd_pack_index, fused_window_attention_block, mma_takes, pack_window_attention,
     unpack_window_attention, window_attention_plain,
 )
 from studiosr_tpu_torch.ops.mlp_vjp import mlp_block_dp_vjp
@@ -374,6 +374,9 @@ class _FakeLibrary:
     def window_attention_mma_pack_elems(self, c, heads):
         return _fwd_pack_index(c, heads).size
 
+    def window_attention_mma_f32_pack_elems(self, c, heads):
+        return _f32_fwd_pack_index(c, heads).size
+
     def mlp_bwd_mma_pack_elems(self, c, hidden):
         return mlp_pack_index(c, hidden).size
 
@@ -410,7 +413,8 @@ def _launches(lib):
     (torch.bfloat16, 8, 32, 2, True, "window_attention_mma_bf16"),  # the fixtures' geometry
     (torch.bfloat16, 16, 96, 2, False, "window_attention16_bf16"),  # head dim 48: the older kernel, by rule
     (torch.bfloat16, 8, 90, 6, False, "window_attention_bf16"),  # C not a multiple of 4
-    (torch.float32, 8, 180, 6, False, "window_attention_f32"),
+    (torch.float32, 8, 180, 6, False, "window_attention_mma_f32"),  # f32 at windows 2-8: window_attention_f32.cu
+    (torch.float32, 8, 96, 2, False, "window_attention_f32"),  # f32 at head dim 48: the older kernel, by rule
     (torch.float32, 16, 180, 6, False, "window_attention16_f32"),
     # the other windows, by family: 2-8 count as fused_window_attention_block, 9-16 as _ws16
     (torch.bfloat16, 3, 128, 4, False, "window_attention_mma_bf16"),
@@ -421,7 +425,7 @@ def _launches(lib):
     (torch.bfloat16, 15, 128, 4, False, "window_attention16_mma_bf16"),
     (torch.bfloat16, 5, 96, 2, False, "window_attention_bf16"),
     (torch.bfloat16, 12, 96, 2, False, "window_attention16_bf16"),
-    (torch.float32, 6, 180, 6, False, "window_attention_f32"),
+    (torch.float32, 6, 180, 6, False, "window_attention_mma_f32"),
     (torch.float32, 12, 180, 6, False, "window_attention16_f32"),
     # from 17 the streaming family, counted as _large
     (torch.bfloat16, 17, 128, 4, False, "window_attention_large_mma_bf16"),  # MaxSR at a 289 x 289 crop
@@ -432,8 +436,9 @@ def _launches(lib):
 ])
 def test_window_attention_routes_by_dtype_window_and_head_dim(monkeypatch, dtype, ws, c, heads, packed, entry):
     """bf16 with a head dim up to 32 and C a multiple of 4 up to 184 goes to
-    the kernels written for the H100 (dense weights or the serving blob),
-    other bf16 geometries and f32 to the older kernels; windows 2-8 to the
+    the kernels written for the H100 (dense weights or the serving blob), f32
+    at windows 2-8 with a head dim up to 32 to the f32 kernel written for the
+    H100, other geometries to the older kernels; windows 2-8 to the
     small family's entries, counted under ``fused_window_attention_block``,
     windows 9-16 to the large family's, under ``_ws16``, windows from 17 to
     the streaming family's, under ``_large``; each launch counts under its
@@ -459,7 +464,7 @@ def test_window_attention_routes_by_dtype_window_and_head_dim(monkeypatch, dtype
     assert engagement.entries() == {name: {entry: 1}}
     args = dict(lib.calls)[entry]
     assert args[5:8] == (c, heads, ws)  # (x, out, B, H, W, C, heads, ws, shift, ...)
-    if "mma" in entry:  # dense weights are gathered by the entry; the blob is handed over as it is
+    if entry.endswith("_mma_bf16"):  # dense weights are gathered by the entry; the blob is handed over as it is
         assert (args[16] is None) == packed and (args[19] is None) == (not packed)
     engagement.reset()
 

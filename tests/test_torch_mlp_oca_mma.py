@@ -22,7 +22,7 @@ from studiosr_tpu.ops.pallas.oca_core import oca_core_bwd as jax_oca_core_bwd
 from studiosr_tpu.ops.pallas.swin_block import fused_mlp_block as jax_fused_mlp_block
 from studiosr_tpu_torch.ops.cuda import engagement
 from studiosr_tpu_torch.ops.cuda.mlp_block import (
-    _mma_pack_index, fused_mlp_block, mlp_block_plain, mma_takes, pack_mlp_block, unpack_mlp_block,
+    _f32_pack_index, _mma_pack_index, fused_mlp_block, mlp_block_plain, mma_takes, pack_mlp_block, unpack_mlp_block,
 )
 from studiosr_tpu_torch.ops.cuda.oca_core import (
     counter, main_partition, oca_core_bwd, oca_core_bwd_plain, oca_core_plain, pack_images,
@@ -237,6 +237,12 @@ class _FakeLibrary:
     def mlp_block_mma_pack_elems(self, c, hidden):
         return _mma_pack_index(c, hidden).size
 
+    def mlp_block_mma_f32_pack_elems(self, c, hidden):
+        return _f32_pack_index(c, hidden).size
+
+    def mlp_block_mma_f32_scratch(self, rows, c, hidden, extra):
+        return 1
+
     def mlp_block_pack_elems(self, c, hidden):
         return 1
 
@@ -273,14 +279,17 @@ def _launches(lib):
     (torch.bfloat16, 90, 180, None, "mlp_block_bf16"),  # C not a multiple of 4: the older kernel, by rule
     (torch.bfloat16, 128, 512, None, "mlp_block_mma_bf16"),  # MaxSR's feed-forward
     (torch.bfloat16, 64, 576, "extra", "mlp_block_extra_bf16"),  # hidden above 512
-    (torch.float32, 180, 360, "drop_path", "mlp_block_f32"),
-    (torch.float32, 180, 360, "extra", "mlp_block_extra_f32"),
+    (torch.float32, 180, 360, "drop_path", "mlp_block_mma_f32"),  # f32: csrc/mlp_block_f32.cu
+    (torch.float32, 180, 360, "extra", "mlp_block_extra_mma_f32"),
+    (torch.float32, 90, 180, None, "mlp_block_f32"),  # f32, C not a multiple of 4: the older kernel, by rule
+    (torch.float32, 64, 576, "extra", "mlp_block_extra_f32"),  # f32, hidden above 512
 ])
 def test_fused_mlp_block_routes_by_dtype_and_width(monkeypatch, dtype, c, hidden, mode, entry):
     """bf16 with C a multiple of 4 up to 184 and hidden up to 512 goes to the
     kernel written for the H100 (dense weights, gathered by the entry, or
-    the serving blob), other bf16 widths and f32 to the older kernel; each
-    launch counts under its kernel and its C entry."""
+    the serving blob), f32 with C a multiple of 4 up to 256 and hidden up to
+    512 to the f32 kernel written for the H100, other widths to the older
+    kernel; each launch counts under its kernel and its C entry."""
     import studiosr_tpu_torch.ops.cuda.mlp_block as module
 
     lib = _fake(monkeypatch, module)
@@ -299,10 +308,10 @@ def test_fused_mlp_block_routes_by_dtype_and_width(monkeypatch, dtype, c, hidden
     out = fused_mlp_block(meta(rows, c), *ops, **kw)
     assert out.shape == (rows, c) and out.dtype == dtype
     assert _launches(lib) == [entry]
-    assert (dtype == torch.bfloat16 and mma_takes(c, hidden)) == ("mma" in entry)
+    assert (dtype == torch.bfloat16 and mma_takes(c, hidden)) == ("mma_bf16" in entry)
     name = "fused_mlp_block_extra" if mode == "extra" else "fused_mlp_block"
     assert engagement.entries() == {name: {entry: 1}}
-    if "mma" in entry:  # dense weights are gathered by the entry; the blob is handed over as it is
+    if "mma_bf16" in entry:  # dense weights are gathered by the entry; the blob is handed over as it is
         args = dict(lib.calls)[entry]
         assert (args[7] is None) == (mode == "packed") and (args[-4] is None) == (mode != "packed")
     engagement.reset()
