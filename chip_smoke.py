@@ -82,18 +82,25 @@ Phases, in order; any failure exits non-zero before the final line:
    then the host library ``studiosr_tpu_torch/native/`` (g++; a failed
    build fails the run);
 3. serving kernels vs plain at the main path's shapes, f32 and bf16: B1
-   (shift 0 and 4), B2 (plain, extra, lrelu0.01, residual), B3; then B1 in
-   bf16 at the card tests' odd geometries (C 32 / d 16, C 180 at H != W and
-   an odd window count, d 8, 10, 12), and bit for bit: B1 on the blob packed
+   (shift 0 and 4), B2 (plain, extra, lrelu0.01, residual), B3, every f32
+   launch through its 3xTF32 entry written for the H100 (``F32_ENTRIES``,
+   here and in every f32 check of B1, B2, B3, B4 and B14); the plain side
+   on the modules' own weights; then B1 in bf16 and f32 at the card tests'
+   odd geometries (C 32 / d 16, C 180 at H != W and an odd window count, d
+   8, 10, 12), f32 B1 where it keeps the first design by rule (C 184, d 48,
+   C 90: ``swin_block_f32``), and bit for bit: B1 on the blob packed
    at load time against B1 on dense weights, B14 on packed weights against
    B14 on HWIO; B3 at HAT's 256 x 256 x 64 and a ragged (2, 37, 53, 64),
-   f32 and bf16, each launch through its entry; bit for bit, B3 and B4 x2 /
-   x3 on the weights packed at load time against HWIO;
+   f32 and bf16, each launch through its entry, and a narrow f32 tail (Cin
+   4) through ``upsample_x4_f32``; bit for bit, B3 and B4 x2 / x3 on the
+   weights packed at load time against HWIO;
 4. serving end to end: three seeded 256x256 uint8 requests through
    ``inference`` (bf16, fused) with launch counts checked per forward (and
    every B1, B2 and B3 launch through the bf16 kernel written for the H100,
    here and in every served path that runs B1, B2, B3, B4, B14 or B15), and
-   the fused forward against the plain port forward in f32 and bf16;
+   the fused forward against the plain port forward in f32 (its 36 B1, 7
+   B2 and 1 B3 launches through the 3xTF32 entries; its time fused and
+   plain) and bf16;
 5. serving timing with CUDA events: the forward, each kernel, its plain
    version, B2's library call, and each kernel's bound from its shapes; for
    B1 the same block as a sequence of bf16 PyTorch calls (no one call
@@ -101,7 +108,10 @@ Phases, in order; any failure exits non-zero before the final line:
    calls (three channels-last ``F.conv2d``, two ``F.pixel_shuffle``); for
    B1, B2, B3 (B14 in phase 20, B15 in phase 22) kernel / library, the
    share of the bound and ``-Xptxas -v``'s registers, static shared memory
-   and spills;
+   and spills; then the same three in f32 on the 3xTF32 kernels (bound at
+   164.9 TFLOP/s), B2 beside cuDNN's f32 ``F.conv2d`` + add and B1 beside
+   B5 f32 + B6 f32 on the same map and weights and the f32 sequence (the
+   ``*_f32`` rows);
 6. training kernels vs plain, batch 4 and the path's batch 32 of 64x64
    maps, f32 and bf16: B5 and B8 (shift 0 and 4), B6 (also on a ragged row
    count), B7, with drop-path scales that include a 0, each launch through
@@ -162,11 +172,13 @@ Phases, in order; any failure exits non-zero before the final line:
 19. B14 vs plain, f32 and bf16, at SwinFIR's (1, 264, 264, 180) with
     LeakyReLU 0.2 and res_scale 1 (the path) and ReLU and 0.1, and at a
     ragged odd height (1, 37, 53, 48) with both activations and both scales;
-20. SwinFIR x4 serving at full width: fused vs plain forward (f32, bf16),
-    uint8 fused vs plain in f32 within 1 LSB, three requests with launch
-    counts (B1 36, B14 7, B3 1 a forward, B2 none; every B1 and B14 launch
-    through its bf16 entry), the forward's time and B14's ms, plain ms,
-    bound and library (cuDNN) ms;
+20. SwinFIR x4 serving at full width: fused vs plain forward (f32, bf16;
+    the f32 forward's B1 36, B14 7 and B3 1 launches through their 3xTF32
+    entries), uint8 fused vs plain in f32 within 1 LSB, three requests with
+    launch counts (B1 36, B14 7, B3 1 a forward, B2 none; every B1 and B14
+    launch through its bf16 entry), the forward's time (bf16; f32 fused
+    and plain) and B14's ms, plain ms, bound and library (cuDNN) ms in bf16
+    and in f32 (the ``fused_resblock_f32`` row);
 21. SwinFIR training: the fused-train module's loss and gradients in f32
     against an f64 witness and against plain autograd in f32 (batch 4, the
     SFBs' LeakyReLU kinks pinned too); ``Trainer.run`` for 3 steps at the
@@ -373,7 +385,7 @@ from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd, attention_bwd_pl
 from studiosr_tpu_torch.ops.attention import attention_plain
 from studiosr_tpu_torch.ops.cuda.conv3x3 import (
     cab_body_plain, conv3x3_plain, fused_cab_body, fused_conv3x3, fused_resblock, resblock_plain, unpack_cab_weights,
-    unpack_conv3x3_weights,
+    unpack_conv3x3_f32_weights, unpack_conv3x3_weights,
 )
 from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mlp_block_plain, unpack_mlp_block
 from studiosr_tpu_torch.ops.cuda.mlp_bwd import mlp_bwd, mlp_bwd_plain
@@ -381,7 +393,7 @@ from studiosr_tpu_torch.ops.cuda.oca_core import counter, oca_core_bwd, oca_core
 from studiosr_tpu_torch.ops.cuda.ocab import (
     fused_ocab_block, ocab_plain, overlap_window, pack_ocab_block, unpack_ocab_block,
 )
-from studiosr_tpu_torch.ops.cuda.swin_block import fused_swin_block, swin_block_plain
+from studiosr_tpu_torch.ops.cuda.swin_block import f32_mma_takes as b1_f32_takes, fused_swin_block, swin_block_plain
 from studiosr_tpu_torch.ops.cuda.upsampler import (
     fused_upsample_s, fused_upsample_x4, pack_tail, unpack_conv_last_weights, unpack_shuffle_conv_weights,
     upsample_s_plain, upsample_x4_plain,
@@ -395,7 +407,7 @@ from studiosr_tpu_torch.ops.resize import bicubic_resize
 from studiosr_tpu_torch.ops.windows import calculate_mask, gather_rel_bias, relative_position_index
 from studiosr_tpu_torch.parallel import build_optimizer, make_train_step, prepare_state
 from studiosr_tpu_torch.serving.hat_fast import prepare_hat_serving
-from studiosr_tpu_torch.serving.swinir_fast import prepare_serving
+from studiosr_tpu_torch.serving.swinir_fast import _b5_b6_operands, _conv_operands, prepare_serving
 from studiosr_tpu_torch.utils import compute_psnr, get_loss, imread, imwrite, l1_loss
 from studiosr_tpu_torch.utils.png import decode_png, encode_png, write_png
 
@@ -456,6 +468,7 @@ GRAD_RUNS = (("plain", torch.float64), ("plain", torch.float32), ("fused", torch
              ("plain", torch.bfloat16), ("fused", torch.bfloat16))
 GRAD_F32_REL_L2, GRAD_BF16_REL_L2, GRAD_BF16_CONTROL = 1e-5, 5e-2, 2.0
 GRAD_ENTRIES: dict = {}  # {(path, dtype): engagement.entries()} of train_grads' last runs
+F32_SERVING: dict = {}  # phase 4's f32 forward launches, for phase 5's f32 rows
 
 # HAT x4 serving: XPixelGroup/HAT options/test/HAT_SRx4.yml (the JAX
 # package's defaults, models/hat.py:388-403), depth not cut.
@@ -558,6 +571,22 @@ H100_ENTRIES = {"fused_swin_block": "swin_block_mma_bf16", "fused_conv3x3": "con
                 "fused_window_attention_block_large": "window_attention_large_mma_bf16",
                 "fused_mlp_block": "mlp_block_mma_bf16", "fused_mlp_block_extra": "mlp_block_extra_mma_bf16",
                 "fused_cab_body": "cab_body_mma_bf16", "fused_ocab_block": "ocab_mma_bf16"}
+# f32 serving (SwinFIR's dtype and every fused f32 check): the C entry every
+# f32 launch of B1, B2, B3, B4 and B14 in the serving phases must take, the
+# 3xTF32 kernels written for the H100 (their geometry rules hold at every
+# width those phases serve; conv_last, Cout <= 16, runs inside the tails'
+# entries on the FMA kernel).
+F32_ENTRIES = {"fused_swin_block": "swin_block_mma_f32", "fused_conv3x3": "conv3x3_mma_f32",
+               "fused_upsample_x4": "upsample_x4_mma_f32", "fused_upsample_s": "upsample_s_mma_f32",
+               "fused_resblock": "resblock_mma_f32"}
+KERNELS.update({
+    "fused_swin_block_f32": ("studiosr_tpu_torch/csrc/swin_block_f32.cu", "studiosr_tpu/ops/pallas/swin_block.py:691"),
+    "fused_conv3x3_f32": ("studiosr_tpu_torch/csrc/conv3x3_f32.cuh", "studiosr_tpu/ops/pallas/conv3x3.py:212"),
+    "fused_upsample_x4_f32": ("studiosr_tpu_torch/csrc/upsampler.cu", "studiosr_tpu/ops/pallas/upsampler.py:274"),
+    "fused_resblock_f32": ("studiosr_tpu_torch/csrc/resblock.cu", "studiosr_tpu/ops/pallas/conv3x3.py:266"),
+})
+# 3xTF32: three TF32 tensor-core products (494.7 TFLOP/s dense) a product
+PEAK_TF32X3_FLOPS = 494.7e12 / 3
 H100_KERNELS = {"fused_swin_block": ("swin_block_mma", "swin_block_mma_kernel"),
                 "fused_conv3x3": ("conv3x3", "conv3x3_mma_kernel"),
                 "fused_resblock": ("resblock", "conv3x3_mma_kernel"),
@@ -577,7 +606,11 @@ H100_KERNELS = {"fused_swin_block": ("swin_block_mma", "swin_block_mma_kernel"),
                 "mlp_bwd_f32": ("mlp_bwd_f32", "mb32_|tfw?_gemm"),
                 "fused_window_attention_block_f32": ("window_attention_f32", "wa32_|tfw_gemm"),
                 "fused_mlp_block_f32": ("mlp_block_f32", "mf32_|tfw_gemm"),
-                "fused_mlp_block_extra_f32": ("mlp_block_f32", "mf32_|tfw_gemm")}
+                "fused_mlp_block_extra_f32": ("mlp_block_f32", "mf32_|tfw_gemm"),
+                "fused_swin_block_f32": ("swin_block_f32", "sb32_kernel"),
+                "fused_conv3x3_f32": ("conv3x3", "ct_conv_kernel"),
+                "fused_upsample_x4_f32": ("upsampler", "ct_conv_kernel"),
+                "fused_resblock_f32": ("resblock", "ct_conv_kernel")}
 # The C entry every launch of B5-B9, B12 and B13 must take in a run of each
 # dtype: bf16 the kernels written for the H100 (their geometry rules hold at
 # every width the paths train); f32 B5 and B8 (windows 2-8), B6 (and its CAB
@@ -616,6 +649,10 @@ BITWISE_F32 = ("fused_window_attention_block", "fused_mlp_block", "fused_mlp_blo
 # d 12 with an odd count of 8-column output tiles, d 10.
 B1_ODD_CASES = ((32, 2, (2, 16, 24), 0), (32, 2, (2, 16, 24), 4), (180, 6, (1, 24, 16), 4),
                 (180, 6, (1, 24, 24), 4), (16, 2, (1, 8, 24), 4), (24, 2, (2, 24, 8), 4), (60, 6, (1, 16, 16), 4))
+# f32 B1 at geometries the 3xTF32 kernel declines, which keep swin_block.cu's
+# first design by rule: C above 180 (184, 8 heads of 23), head dim above 32
+# (96, 2 heads of 48), C not a multiple of 4 (90, 6 heads of 15).
+B1_F32_FIRST_DESIGN_CASES = ((184, 8, (1, 24, 16), 4), (96, 2, (2, 16, 24), 0), (90, 6, (1, 16, 24), 4))
 WINDOW_ATTN_CASES = (
     ("adaptive", 256, 4, 256, 32, False, 0), ("static", 1024, 4, 64, 32, True, 0),
     ("mask over 2 images", 128, 4, 64, 32, True, 64), ("N 1024", 4, 4, 1024, 32, True, 0),
@@ -809,9 +846,10 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(flops: float, nbytes: float):
-    """(least time in ms, what bounds it) at the bf16 tensor-core and HBM peaks."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
+    """(least time in ms, what bounds it) at the bf16 tensor-core (or
+    ``peak``) and HBM peaks."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -846,6 +884,20 @@ def entry_failures(label: str, launches: dict) -> list:
     the same reset), else the failures."""
     entries, failed = engagement.entries(), []
     for name, entry in H100_ENTRIES.items():
+        n = launches.get(name, 0)
+        if n:
+            log(f"{label}: {name} entries {entries.get(name)}")
+            if entries.get(name) != {entry: n}:
+                failed.append(f"{label}: {name} took {entries.get(name)}, expected all {n} launches through {entry}")
+    return failed
+
+
+def f32_entry_failures(label: str, launches: dict) -> list:
+    """[] when every f32 B1, B2, B3, B4 and B14 launch of ``launches`` went
+    through the 3xTF32 entry written for the H100 (``F32_ENTRIES``,
+    ``engagement.entries()`` since the same reset), else the failures."""
+    entries, failed = engagement.entries(), []
+    for name, entry in F32_ENTRIES.items():
         n = launches.get(name, 0)
         if n:
             log(f"{label}: {name} entries {entries.get(name)}")
@@ -926,8 +978,11 @@ def phase_build() -> None:
 
 
 def kernel_cases(model: SwinIR, dev: torch.device, dtype: torch.dtype):
-    """(name, label, kernel fn, plain fn, operands) at the main path's shapes,
-    with this model's weights laid out for ``dtype``."""
+    """(name, label, kernel fn, plain fn, operands, plain operands) at the
+    main path's shapes: the operands with this model's weights as serving
+    lays them out for ``dtype``, the plain operands with the same weights
+    taken from the modules (dense, HWIO, in ``dtype``), so that no layout
+    of the program's own stands on the reference's side."""
     gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
     hp = LR + MAIN["window_size"]  # the flip-padded map
     c = MAIN["embed_dim"]
@@ -944,12 +999,15 @@ def kernel_cases(model: SwinIR, dev: torch.device, dtype: torch.dtype):
     cases = []
     for shift in (0, ws // 2):
         ops = dict(prep["blocks"][0][1 if shift else 0])
+        dense = [t.to(dtype) if i in (2, 4, 9, 11) else t for i, t in enumerate(
+            dense_b1_operands(model.module.layers[0].residual_group.blocks[1 if shift else 0]))]
         kw = dict(heads=heads, window_size=ws, shift=shift)
         cases.append(
             ("fused_swin_block", f"shift {shift}", lambda *a, kw=kw: fused_swin_block(*a, **kw),
-             lambda *a, kw=kw: swin_block_plain(*a, **kw), (x, *ops.values()))
+             lambda *a, kw=kw: swin_block_plain(*a, **kw), (x, *ops.values()), (x, *dense))
         )
     w, b = prep["convs"][0]
+    hwio = _conv_operands(model.module.layers[0].conv, dtype)[0]
     for label, kw, extra in (
         ("plain", {}, None),
         ("extra", {}, skip),
@@ -958,37 +1016,55 @@ def kernel_cases(model: SwinIR, dev: torch.device, dtype: torch.dtype):
     ):
         cases.append(
             ("fused_conv3x3", label, lambda x_, w_, b_, e_, kw=kw: fused_conv3x3(x_, w_, b_, extra=e_, **kw),
-             lambda x_, w_, b_, e_, kw=kw: conv3x3_plain(x_, w_, b_, extra=e_, **kw), (x, w, b, extra))
+             lambda x_, w_, b_, e_, kw=kw: conv3x3_plain(x_, w_, b_, extra=e_, **kw), (x, w, b, extra),
+             (x, hwio, b, extra))
         )
-    cases.append(("fused_upsample_x4", "x4", fused_upsample_x4, upsample_x4_plain, (x64, *prep["tail"])))
+    up = model.module.upsample._modules
+    tail = [t for conv in (up["0"], up["2"], model.module.conv_last) for t in _conv_operands(conv, dtype)]
+    cases.append(("fused_upsample_x4", "x4", fused_upsample_x4, upsample_x4_plain, (x64, *prep["tail"]), (x64, *tail)))
     return cases
 
 
 def phase_kernels(model: SwinIR, dev: torch.device) -> dict:
-    """Every kernel against its plain version, f32 then bf16. Returns the
-    bf16 max abs error per kernel (the main path's dtype)."""
+    """Every kernel against its plain version, f32 then bf16, each f32
+    launch through its 3xTF32 entry (``F32_ENTRIES``). Returns the max abs
+    error per kernel: bf16 (the main path's dtype) under its name, f32 under
+    the name + "_f32"."""
     errors, failed = {}, []
     for dtype in (torch.float32, torch.bfloat16):
-        for name, label, kernel, plain, ops in kernel_cases(model, dev, dtype):
+        for name, label, kernel, plain, ops, plain_ops in kernel_cases(model, dev, dtype):
+            engagement.reset()
             got = kernel(*ops)
             torch.cuda.synchronize()
-            want = plain(ops[0].float(), *ops[1:])  # f32 inside; weights as the kernel got them
+            if dtype == torch.float32:
+                failed += f32_entry_failures(f"{name} [{label}] f32", engagement.counters())
+            want = plain(plain_ops[0].float(), *plain_ops[1:])  # f32 inside; the modules' weights
             torch.cuda.synchronize()
             err = kernel_check(f"{name} [{label}]", got, want, dtype, failed)
-            if dtype == torch.bfloat16:
-                errors[name] = max(errors.get(name, 0.0), err)
+            key = name if dtype == torch.bfloat16 else f"{name}_f32"
+            errors[key] = max(errors.get(key, 0.0), err)
     if failed:
         raise AssertionError("serving kernels disagree with their plain versions: " + "; ".join(failed))
     return errors
 
 
-def b1_operands(gen, c: int, heads: int, dev: torch.device):
-    """Seeded dense B1 operands at C ``c`` (hidden 2 C): weights bf16, the
-    rest f32, in ``fused_swin_block``'s order after x."""
+def dense_b1_operands(blk) -> list:
+    """A Swin block's B1 operands, dense and f32, in ``fused_swin_block``'s
+    order after x (serving holds them packed in either dtype)."""
+    heads = blk.attn.num_heads
+    ops = _b5_b6_operands(blk, heads, relative_position_index(blk.window_size), torch.float32)
+    a, m = ops["attn"], ops["mlp"]
+    return [a["ln_w"], a["ln_b"], a["wqkv"], a["bqkv"], a["wproj"], a["bproj"], a["bias"], m["ln_w"], m["ln_b"],
+            m["w1"], m["b1"], m["w2"], m["b2"]]
+
+
+def b1_operands(gen, c: int, heads: int, dev: torch.device, wdtype: torch.dtype = torch.bfloat16):
+    """Seeded dense B1 operands at C ``c`` (hidden 2 C): weights in
+    ``wdtype``, the rest f32, in ``fused_swin_block``'s order after x."""
     def randn(*shape, scale=1.0, dtype=torch.float32):
         return (torch.randn(*shape, generator=gen) * scale).to(dev, dtype)
 
-    bf, hidden = torch.bfloat16, 2 * c
+    bf, hidden = wdtype, 2 * c
     return [randn(c, scale=0.1) + 1, randn(c, scale=0.1), randn(c, 3 * c, scale=c**-0.5, dtype=bf),
             randn(3 * c, scale=0.1), randn(c, c, scale=c**-0.5, dtype=bf), randn(c, scale=0.1),
             randn(heads, 64, 64, scale=0.5), randn(c, scale=0.1) + 1, randn(c, scale=0.1),
@@ -997,9 +1073,11 @@ def b1_operands(gen, c: int, heads: int, dev: torch.device):
 
 
 def phase_b1_b14_checks(model: SwinIR, dev: torch.device) -> None:
-    """The bf16 kernels written for the H100 beyond the main path's variant:
-    B1 at the card tests' odd geometries against its plain version, every
-    launch through ``swin_block_mma_bf16``; B1 on the blob serving packed at
+    """The kernels written for the H100 beyond the main path's variant: B1
+    at the card tests' odd geometries against its plain version, bf16 then
+    f32, every bf16 launch through ``swin_block_mma_bf16`` and every f32
+    one through ``swin_block_mma_f32``; f32 B1 at the geometries that keep
+    the first design (``swin_block_f32``) the same way; B1 on the blob serving packed at
     load time equals B1 on the dense weights (packed per call) bit for bit
     at the main path's shape; B14 on packed weights equals B14 on HWIO bit
     for bit."""
@@ -1007,20 +1085,25 @@ def phase_b1_b14_checks(model: SwinIR, dev: torch.device) -> None:
 
     failed = []
     gen = torch.Generator(device="cpu").manual_seed(SEED + 30)
-    for c, heads, shape, shift in B1_ODD_CASES:
-        ops = b1_operands(gen, c, heads, dev)
-        x = torch.randn(*shape, c, generator=gen).to(dev, torch.bfloat16)
-        kw = dict(heads=heads, window_size=8, shift=shift)
-        engagement.reset()
-        got = fused_swin_block(x, *ops, **kw)
-        failed += entry_failures(f"B1 C {c}", engagement.counters())
-        want = swin_block_plain(x.float(), *ops, **kw)
-        kernel_check(f"fused_swin_block [C {c}, {heads} heads, {'x'.join(map(str, shape))}, shift {shift}]", got,
-                     want, torch.bfloat16, failed)
+    for dtype, cases in ((torch.bfloat16, B1_ODD_CASES), (torch.float32, B1_ODD_CASES + B1_F32_FIRST_DESIGN_CASES)):
+        for c, heads, shape, shift in cases:
+            ops = b1_operands(gen, c, heads, dev, dtype)
+            x = torch.randn(*shape, c, generator=gen).to(dev, dtype)
+            kw = dict(heads=heads, window_size=8, shift=shift)
+            engagement.reset()
+            got = fused_swin_block(x, *ops, **kw)
+            if dtype == torch.bfloat16:
+                failed += entry_failures(f"B1 C {c}", engagement.counters())
+            else:
+                entry = "swin_block_mma_f32" if b1_f32_takes(c, heads, 2 * c) else "swin_block_f32"
+                if engagement.entries() != {"fused_swin_block": {entry: 1}}:
+                    failed.append(f"B1 f32 C {c}, {heads} heads took {engagement.entries()}, expected {entry}")
+            want = swin_block_plain(x.float(), *[t.float() for t in ops], **kw)
+            kernel_check(f"fused_swin_block [{str(dtype)[6:]}, C {c}, {heads} heads, {'x'.join(map(str, shape))}, "
+                         f"shift {shift}]", got, want, dtype, failed)
     blk = model.module.layers[0].residual_group.blocks[1]
     prep = prepare_serving(model.module, model.config, torch.bfloat16)["blocks"][0][1]
-    dense = list(prepare_serving(model.module, model.config, torch.float32)["blocks"][0][1].values())
-    dense = [t.to(torch.bfloat16) if i in (2, 4, 9, 11) else t for i, t in enumerate(dense)]
+    dense = [t.to(torch.bfloat16) if i in (2, 4, 9, 11) else t for i, t in enumerate(dense_b1_operands(blk))]
     hp = LR + MAIN["window_size"]
     x = torch.randn(1, hp, hp, MAIN["embed_dim"], generator=gen).to(dev, torch.bfloat16)
     kw = dict(heads=blk.attn.num_heads, window_size=8, shift=4)
@@ -1055,13 +1138,14 @@ def phase_tail_checks(dev: torch.device) -> None:
     """B3 beyond the main path's shape: HAT's 256 x 256 x 64 and a ragged
     (2, 37, 53, 64) map (no tile divides it, batch 2), f32 and bf16, against
     its plain version, each launch through its entry (bf16: the kernels
-    written for the H100); and in bf16 at the main path's 264 x 264 x 64,
+    written for the H100); a narrow f32 tail (Cin 4: 4 Cin <= 16) through
+    ``upsample_x4_f32``, the FMA kernel it keeps by rule; and in bf16 at the main path's 264 x 264 x 64,
     B3 and B4 x2 / x3 on the weights packed at load time equal the same
     tails on HWIO weights (packed per call) bit for bit."""
     failed = []
     gen = torch.Generator(device="cpu").manual_seed(SEED + 31)
     for dtype in (torch.float32, torch.bfloat16):
-        entry = "upsample_x4_mma_bf16" if dtype == torch.bfloat16 else "upsample_x4_f32"
+        entry = "upsample_x4_mma_bf16" if dtype == torch.bfloat16 else "upsample_x4_mma_f32"
         for shape in ((1, LR, LR, 64), (2, 37, 53, 64)):
             x = torch.randn(*shape, generator=gen).to(dev, dtype)
             ops = tail_ops(gen, dev, dtype, 64, 2, 2)
@@ -1072,6 +1156,13 @@ def phase_tail_checks(dev: torch.device) -> None:
             want = upsample_x4_plain(x.float(), *ops)
             kernel_check(f"fused_upsample_x4 [{'x'.join(map(str, shape))}]", got, want, dtype, failed)
             del got, want
+    x = torch.randn(2, 37, 53, 4, generator=gen).to(dev)
+    ops = tail_ops(gen, dev, torch.float32, 4, 2, 2)
+    engagement.reset()
+    got = fused_upsample_x4(x, *ops)
+    if engagement.entries() != {"fused_upsample_x4": {"upsample_x4_f32": 1}}:
+        failed.append(f"B3 f32 Cin 4 took {engagement.entries()}")
+    kernel_check("fused_upsample_x4 [2x37x53x4]", got, upsample_x4_plain(x, *ops), torch.float32, failed)
     hp = LR + MAIN["window_size"]
     x = torch.randn(1, hp, hp, 64, generator=gen).to(dev, torch.bfloat16)
     same = {}
@@ -1091,9 +1182,11 @@ def phase_tail_checks(dev: torch.device) -> None:
 
 
 def hwio_tail(tail, cin: int, scale: int) -> list:
-    """The tail's weights back in HWIO, whichever layout they came in."""
+    """The tail's weights back in HWIO, whichever layout they came in (f32's
+    packed images as hi + lo)."""
     s, n_colors = 2 if scale == 4 else scale, tail[-1].shape[0]
-    out = [unpack_shuffle_conv_weights(t, cin, s) if t.dim() == 6 else t for t in tail[:-2]]
+    out = [unpack_shuffle_conv_weights(t, cin, s) if t.dim() == 6 else
+           unpack_conv3x3_f32_weights(t, cin, s * s * cin) if t.dim() == 5 else t for t in tail[:-2]]
     return out + [unpack_conv_last_weights(tail[-2], n_colors) if tail[-2].dim() == 5 else tail[-2], tail[-1]]
 
 
@@ -1153,12 +1246,26 @@ def phase_end_to_end(model: SwinIR, dev: torch.device) -> dict:
     images = requests()
     x = torch.from_numpy(images[0]).to(dev).float()[None] / 255.0
     plain = model.enable_fused(False)(x)
-    fused = model.enable_fused(True)(x)
+    model.enable_fused(True).serving_prep()  # the f32 load-time layout, outside the counted forward
+    engagement.reset()
+    fused = model(x)
     torch.cuda.synchronize()
+    F32_SERVING["swinir launches"] = launches32 = engagement.counters()
+    failed32 = f32_entry_failures("swinir f32 forward", launches32)
+    failed32 += [f"swinir f32 forward: {name} {launches32.get(name, 0)} launches, expected {per}"
+                 for name, per in PER_FORWARD.items() if launches32.get(name, 0) != per]
     rel32 = rel_l2(fused, plain)
     log(f"e2e f32 fused vs plain: rel_l2 {rel32:.3e} limit {E2E_F32_REL_L2:.0e}")
     if not rel32 <= E2E_F32_REL_L2:
         raise AssertionError("f32 fused forward disagrees with the plain forward")
+    if failed32:
+        raise AssertionError("; ".join(failed32))
+    del fused
+    fwd32 = time_ms(lambda: model(x), iters=3)
+    model.enable_fused(False)
+    plain32 = time_ms(lambda: model(x), iters=2, warmup=1)
+    model.enable_fused(True)
+    log(f"forward f32 batch 1 {LR}x{LR} (TF32 off): fused {fwd32:.3f} ms, plain {plain32:.3f} ms")
 
     model.half()
     fused16 = model(x)
@@ -1195,7 +1302,7 @@ def phase_timing(model: SwinIR, dev: torch.device, errors: dict, launches: dict)
     log(f"forward bf16 batch 1 {LR}x{LR}: {fwd:.3f} ms, {LR * LR / 1e6 / (fwd / 1e3):.3f} LR MP/s")
 
     rows = []
-    for name, label, kernel, plain, ops in kernel_cases(model, dev, torch.bfloat16):
+    for name, label, kernel, plain, ops, _ in kernel_cases(model, dev, torch.bfloat16):
         if label not in ("shift 4", "extra", "x4"):  # the variant each kernel runs most on the path
             continue
         ms = time_ms(lambda: kernel(*ops), iters=10)
@@ -1209,7 +1316,7 @@ def phase_timing(model: SwinIR, dev: torch.device, errors: dict, launches: dict)
             moved = 2 * nbytes(x_) + nbytes(*ops[1:])  # the packed blob (weights and bias) read once
             heads = MAIN["num_heads"][0]
             plain_ops = (x_, *[t.to(x_.dtype) if i in (2, 4, 9, 11) else t for i, t in enumerate(
-                prepare_serving(model.module, model.config, torch.float32)["blocks"][0][1].values())])  # dense
+                dense_b1_operands(model.module.layers[0].residual_group.blocks[1]))])
             wmask = torch.from_numpy(calculate_mask(tuple(x_.shape[1:3]), 8, 4)).to(dev, x_.dtype)
             seq_err = rel_l2(b1_torch_sequence(x_, plain_ops[1:], heads, 4, wmask), plain(x_.float(), *ops[1:]))
             seq_ms = time_ms(lambda: b1_torch_sequence(x_, plain_ops[1:], heads, 4, wmask), iters=10)
@@ -1250,6 +1357,67 @@ def phase_timing(model: SwinIR, dev: torch.device, errors: dict, launches: dict)
         if name in H100_KERNELS:
             ratio = "none (no one call)" if library_ms is None else f"{ms / library_ms:.2f}"
             log(f"  {name}: kernel / library {ratio}, {100 * bms / ms:.1f} % of the bound; {ptxas_report(name)}")
+    return rows + f32_serving_rows(model, dev, errors)
+
+
+def f32_serving_rows(model: SwinIR, dev: torch.device, errors: dict) -> list:
+    """The f32 rows of B1, B2 and B3 (the 3xTF32 kernels written for the
+    H100) at the main path's shapes, on the weights serving lays out in f32:
+    time, plain time, bound at 3xTF32 (the FMA pipes' floor logged), and the
+    yardsticks: B2 beside cuDNN's f32 ``F.conv2d`` + add (TF32 off), B1
+    beside B5 f32 + B6 f32 on the same map and weights and the block as a
+    sequence of f32 PyTorch calls, B3 beside the tail as f32 PyTorch calls.
+    Launches are the f32 forward's of phase 4."""
+    rows, launches = [], F32_SERVING["swinir launches"]
+    for name, label, kernel, plain, ops, dense in kernel_cases(model, dev, torch.float32):
+        if label not in ("shift 4", "extra", "x4"):
+            continue
+        ms = time_ms(lambda: kernel(*ops), iters=10)
+        plain_ms = time_ms(lambda: plain(*ops), iters=3, warmup=1)
+        x_, library_ms = ops[0], None
+        pix, c = x_.numel() // x_.shape[-1], x_.shape[-1]
+        if name == "fused_swin_block":
+            heads, hidden = MAIN["num_heads"][0], ops[11].shape[-1]
+            flops = 2 * pix * c * (3 * c + c + 2 * hidden) + 4 * pix * 64 * c
+            moved = 2 * nbytes(x_) + nbytes(*[t for t in ops[1:] if t is not None])
+            dense = dense[1:]  # ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, bias, ln2_w, ln2_b, w1, b1, w2, b2
+            ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, bias, ln2_w, ln2_b, w1, b1, w2, b2 = dense
+
+            def b5_b6():
+                y = fused_window_attention_block(x_, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, bias, heads=heads,
+                                                 window_size=8, shift=4)
+                return fused_mlp_block(y.reshape(-1, c), ln2_w, ln2_b, w1, b1, w2, b2).reshape(x_.shape)
+
+            pair_ms = time_ms(b5_b6, iters=10)
+            wmask = torch.from_numpy(calculate_mask(tuple(x_.shape[1:3]), 8, 4)).to(dev)
+            seq_ms = time_ms(lambda: b1_torch_sequence(x_, dense, heads, 4, wmask), iters=5)
+            log(f"time fused_swin_block f32 yardsticks: B5 f32 + B6 f32 on the same map and weights {pair_ms:.3f} ms "
+                f"(rel_l2 {rel_l2(b5_b6(), kernel(*ops)):.2e} against B1); the block as a sequence of f32 PyTorch "
+                f"calls (TF32 off) {seq_ms:.3f} ms")
+        elif name == "fused_conv3x3":
+            w, b, extra = dense[1:]  # HWIO
+            flops = 2 * pix * 9 * w.shape[2] * w.shape[3]
+            moved = nbytes(x_, w, b, extra) + pix * w.shape[3] * x_.element_size()
+            w_oihw = w.permute(3, 2, 0, 1).contiguous()
+            library_ms = time_ms(
+                lambda: F.conv2d(x_.permute(0, 3, 1, 2), w_oihw, b, padding=1).permute(0, 2, 3, 1) + extra, iters=10)
+        else:
+            n_colors = ops[6].shape[0]
+            flops = 2 * 9 * c * (pix * 4 * c + 4 * pix * 4 * c + 16 * pix * n_colors)
+            moved = nbytes(*dense) + 16 * pix * n_colors * x_.element_size()
+            seq = sequence_weights(dense[1:], c, 4, torch.float32)
+            seq_ms = time_ms(lambda: tail_sequence(x_, seq, 4), iters=10)
+            log(f"time fused_upsample_x4 f32 yardstick (the tail as f32 PyTorch calls, TF32 off): {seq_ms:.3f} ms")
+        bms, by = bound_ms(flops, moved, PEAK_TF32X3_FLOPS)
+        row = f"{name}_f32"
+        source, replaces = KERNELS[row]
+        rows.append(dict(name=row, route="cuda", source=source, replaces=replaces, launches=launches.get(name, 0),
+                         max_abs_err=errors[row], ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         library_ms=library_ms))
+        log(f"time {row} [{label}]: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.4f} ms at 3xTF32 ({by}; "
+            f"the FMA pipes {flops / 66.9e9:.4f} ms), library {library_ms if library_ms is None else round(library_ms, 4)}"
+            f" ms, {flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB, {100 * bms / ms:.1f} % of the bound; "
+            f"{ptxas_report(row)}")
     return rows
 
 
@@ -2252,7 +2420,7 @@ def phase_b4_kernels(dev: torch.device) -> dict:
     errors, failed = {}, []
     for s in SCALES_S:
         for dtype in (torch.float32, torch.bfloat16):
-            entry = "upsample_s_mma_bf16" if dtype == torch.bfloat16 else "upsample_s_f32"
+            entry = "upsample_s_mma_bf16" if dtype == torch.bfloat16 else "upsample_s_mma_f32"
             for label, ops in b4_cases(dev, dtype, s):
                 engagement.reset()
                 got = fused_upsample_s(*ops, s)
@@ -2383,45 +2551,64 @@ def resblock_ops(dev: torch.device, dtype: torch.dtype, shape, seed: int):
             (torch.randn(c, generator=gen) * 0.1).to(dev))
 
 
-def phase_resblock_kernels(dev: torch.device) -> float:
+def phase_resblock_kernels(dev: torch.device) -> dict:
     """B14 against its plain version, f32 then bf16, at SwinFIR's map (the
     path's LeakyReLU 0.2 / res_scale 1, and ReLU / 0.1) and at a ragged odd
-    height (every activation and scale). Returns the bf16 max abs error at
-    the path's variant."""
-    failed, error = [], None
+    height (every activation and scale), each f32 launch through its 3xTF32
+    entry. Returns {dtype: max abs error at the path's variant}."""
+    failed, errors = [], {}
     for dtype in (torch.float32, torch.bfloat16):
         for si, shape in enumerate(RESBLOCK_SHAPES):
             for activation, res_scale in RESBLOCK_VARIANTS[: 2 if si == 0 else 4]:
                 ops = resblock_ops(dev, dtype, shape, SEED + 20 + si)
+                engagement.reset()
                 got = fused_resblock(*ops, res_scale=res_scale, activation=activation)
                 torch.cuda.synchronize()
+                if dtype == torch.float32:
+                    failed += f32_entry_failures(f"B14 f32 {shape}", engagement.counters())
                 want = resblock_plain(*[t.float() for t in ops], res_scale=res_scale, activation=activation)
                 part = f"fused_resblock [{'x'.join(map(str, shape))} {activation} res_scale {res_scale}]"
                 err = kernel_check(part, got, want, dtype, failed)
-                if dtype == torch.bfloat16 and si == 0 and res_scale == 1.0:
-                    error = err
+                if si == 0 and res_scale == 1.0:
+                    errors[dtype] = err
                 del got, want
     if failed:
         raise AssertionError("B14 disagrees with its plain version: " + "; ".join(failed))
-    return error
+    return errors
 
 
-def phase_swinfir_serving(dev: torch.device, error: float) -> tuple:
+def phase_swinfir_serving(dev: torch.device, errors: dict) -> list:
     """SwinFIR x4 at full width: fused vs plain (f32, bf16 against f32
-    plain), uint8 fused vs plain in f32, three bf16 requests with their
-    launch counts, the forward's time and B14's time at the path's shapes.
-    Returns (B14's JSON row, forward ms)."""
+    plain; the f32 forward's B1, B14 and B3 launches through their 3xTF32
+    entries), uint8 fused vs plain in f32, three bf16 requests with their
+    launch counts, the forwards' times (bf16 fused; f32 fused and plain) and
+    B14's time at the path's shapes in bf16 and in f32. Returns B14's JSON
+    rows (bf16, f32)."""
     model = SwinFIR.build(**MAIN, seed=SEED, device=dev)
     log(f"\nmodel: SwinFIR x4 embed {MAIN['embed_dim']} depths {MAIN['depths']}, {model.count_parameters()} parameters")
     images = requests()
     x = torch.from_numpy(images[0]).to(dev).float()[None] / 255.0
     plain = model.enable_fused(False)(x)
     plain8 = model.inference(images[0])
-    fused = model.enable_fused(True)(x)
+    prep32 = model.enable_fused(True).serving_prep()  # the f32 load-time layout, outside the counted forward
+    engagement.reset()
+    fused = model(x)
+    torch.cuda.synchronize()
+    launches32 = engagement.counters()
+    failed = f32_entry_failures("swinfir f32 forward", launches32)
+    failed += [f"swinfir f32 forward: {name} {launches32.get(name, 0)} launches, expected {per}"
+               for name, per in SWINFIR_PER_FORWARD.items() if launches32.get(name, 0) != per]
     fused8 = model.inference(images[0])
     torch.cuda.synchronize()
     rel32 = rel_l2(fused, plain)
     diff = np.abs(fused8.astype(int) - plain8.astype(int))
+    fwd32 = time_ms(lambda: model(x), iters=3)
+    model.enable_fused(False)
+    plain32 = time_ms(lambda: model(x), iters=2, warmup=1)
+    model.enable_fused(True)
+    log(f"swinfir forward f32 batch 1 {LR}x{LR} (TF32 off): fused {fwd32:.3f} ms, plain {plain32:.3f} ms")
+    row32 = resblock_f32_row(prep32["convs"][0], launches32.get("fused_resblock", 0), errors[torch.float32], dev,
+                             fwd32)
     model.half()
     fused16 = model(x)
     torch.cuda.synchronize()
@@ -2429,7 +2616,6 @@ def phase_swinfir_serving(dev: torch.device, error: float) -> tuple:
     log(f"swinfir e2e fused vs plain: f32 rel_l2 {rel32:.3e} limit {E2E_F32_REL_L2:.0e}; uint8 f32 max diff "
         f"{diff.max()} LSB on {100 * (diff > 0).mean():.4f} % of values; bf16 vs f32 plain rel_l2 {rel16:.3e} limit "
         f"{E2E_BF16_REL_L2:.0e}")
-    failed = []
     if not rel32 <= E2E_F32_REL_L2:
         failed.append("f32 fused SwinFIR forward disagrees with the plain forward")
     if not (diff.max() <= 1 and (diff > 0).mean() < 0.01):
@@ -2487,11 +2673,43 @@ def phase_swinfir_serving(dev: torch.device, error: float) -> tuple:
         f"{ptxas_report('fused_resblock')}")
     source, replaces = KERNELS["fused_resblock"]
     row = dict(name="fused_resblock", route="cuda", source=source, replaces=replaces,
-               launches=launches.get("fused_resblock", 0), max_abs_err=error, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-               bound_by=by, library_ms=library_ms)
+               launches=launches.get("fused_resblock", 0), max_abs_err=errors[torch.bfloat16], ms=ms,
+               plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
     del model
     torch.cuda.empty_cache()
-    return row, fwd
+    return [row, row32]
+
+
+def resblock_f32_row(pair: dict, launches: int, error: float, dev: torch.device, fwd: float) -> dict:
+    """B14 in f32 (both passes on the 3xTF32 conv written for the H100) at
+    SwinFIR's map, on the weights serving lays out in f32: time, plain time,
+    bound at 3xTF32 (the FMA pipes' floor logged) and cuDNN's two f32 convs
+    + leaky_relu + add (TF32 off)."""
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 22)
+    xb = torch.randn(*RESBLOCK_SHAPES[0], generator=gen).to(dev)
+    c = xb.shape[-1]
+    ops = (xb, pair["s0"], pair["b0"], pair["s2"], pair["b2"])
+    ms = time_ms(lambda: fused_resblock(*ops, activation="lrelu0.2"), iters=10)
+    plain_ms = time_ms(lambda: resblock_plain(*ops, activation="lrelu0.2"), iters=5)
+    w1o, w2o = (unpack_conv3x3_f32_weights(w, c, c).permute(3, 2, 0, 1).contiguous() for w in (pair["s0"], pair["s2"]))
+
+    def library():
+        xc = xb.permute(0, 3, 1, 2)
+        h1 = F.leaky_relu(F.conv2d(xc, w1o, pair["b0"], padding=1), 0.2)
+        return xb + F.conv2d(h1, w2o, pair["b2"], padding=1).permute(0, 2, 3, 1)
+
+    library_ms = time_ms(library, iters=10)
+    flops = 2 * 2 * (xb.numel() // c) * 9 * c * c
+    moved = 2 * nbytes(xb) + nbytes(w1o, pair["b0"], w2o, pair["b2"])
+    bms, by = bound_ms(flops, moved, PEAK_TF32X3_FLOPS)
+    per = SWINFIR_PER_FORWARD["fused_resblock"]
+    log(f"time fused_resblock_f32 [lrelu0.2] at {'x'.join(map(str, xb.shape))}: {ms:.3f} ms ({100 * per * ms / fwd:.1f} "
+        f"% of the f32 forward at {per} a forward), plain {plain_ms:.3f} ms, bound {bms:.4f} ms at 3xTF32 ({by}; the "
+        f"FMA pipes {flops / 66.9e9:.4f} ms), library (cuDNN f32 F.conv2d x2 + leaky_relu + add, TF32 off) "
+        f"{library_ms:.4f} ms, {100 * bms / ms:.1f} % of the bound; {ptxas_report('fused_resblock_f32')}")
+    source, replaces = KERNELS["fused_resblock_f32"]
+    return dict(name="fused_resblock_f32", route="cuda", source=source, replaces=replaces, launches=launches,
+                max_abs_err=error, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
 
 
 def phase_swinfir_grads(dev: torch.device) -> None:
@@ -4651,9 +4869,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     b4_errors = phase_b4_kernels(dev)
     rows += phase_x2_x3(dev, b4_errors)
-    resblock_error = phase_resblock_kernels(dev)
-    swinfir_row, _ = phase_swinfir_serving(dev, resblock_error)
-    rows.append(swinfir_row)
+    resblock_errors = phase_resblock_kernels(dev)
+    rows += phase_swinfir_serving(dev, resblock_errors)
     rows += phase_windows_serving(dev)
     phase_swinfir_grads(dev)
     rows += phase_swinfir_train(dev)

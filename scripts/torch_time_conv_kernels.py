@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's convolution kernels and B1 on one NVIDIA GPU.
 
-    python3 scripts/torch_time_conv_kernels.py [--checkout DIR]
+    python3 scripts/torch_time_conv_kernels.py [--checkout DIR] [--bits FILE]
 
 Times, in bf16 with seeded operands, by CUDA events over 20 launches after 3
 warm-up launches: B2 (``fused_conv3x3`` with the skip map, SwinIR serving's
@@ -36,6 +36,14 @@ package is whichever ``studiosr_tpu_torch`` is first on the path. With
 ``--checkout DIR`` the script instead runs itself four times, with
 ``PYTHONPATH`` set to DIR, this checkout, this checkout and DIR (A, B, B,
 A on one card), prints each line and then a table of the four.
+
+``--bits FILE`` writes the outputs of B1, B2, B3, B4, B11 and B14 on seeded
+operands (bf16 at the serving geometries and ragged maps; f32, named
+"(f32) ...", at the same and narrower ones; dense or HWIO weights, which
+each checkout lays out its own way) to FILE (``torch.save``); with
+``--checkout DIR`` it does so on DIR and on this tree, lists each output as
+the same bits or by how far it moved, and exits 1 if any bf16 output
+differs (f32 outputs that move are listed, not failed).
 """
 
 from __future__ import annotations
@@ -209,6 +217,94 @@ def measure() -> dict:
     return {"package": studiosr_tpu_torch.__file__, "card": card, "ms": ms, "passes": passes}
 
 
+def kernel_bits() -> dict:
+    """The ``--bits`` outputs, on the host."""
+    import torch
+
+    if "PYTHONPATH" not in os.environ:
+        sys.path.insert(0, str(ROOT))
+    from studiosr_tpu_torch import resolve_device
+    from studiosr_tpu_torch.ops.cuda import _build
+    from studiosr_tpu_torch.ops.cuda.conv3x3 import fused_cab_body, fused_conv3x3, fused_resblock
+    from studiosr_tpu_torch.ops.cuda.swin_block import fused_swin_block
+    from studiosr_tpu_torch.ops.cuda.upsampler import fused_upsample_s, fused_upsample_x4
+
+    dev = resolve_device("cuda")
+    _build.build(n for n in ("conv3x3", "swin_block", "swin_block_mma", "swin_block_f32", "upsampler", "resblock",
+                             "cab_body", "cab_mma") if n in _build.SOURCES)  # a checkout builds what it has
+    gen = torch.Generator().manual_seed(0)
+    out = {}
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen) * scale
+
+    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "(f32)")):
+        def w_(*shape, scale=1.0):
+            return randn(*shape, scale=scale).to(dev, dt)
+
+        def f_(*shape, scale=1.0):
+            return randn(*shape, scale=scale).to(dev)
+
+        for c, heads, shape, shift in ((180, 6, (1, 40, 56), 4), (180, 6, (1, 24, 24), 0), (32, 2, (2, 16, 24), 4)):
+            hidden = 2 * c
+            ops = [1 + f_(c, scale=0.1), f_(c, scale=0.1), w_(c, 3 * c, scale=c**-0.5), f_(3 * c, scale=0.1),
+                   w_(c, c, scale=c**-0.5), f_(c, scale=0.1), f_(heads, 64, 64, scale=0.5), 1 + f_(c, scale=0.1),
+                   f_(c, scale=0.1), w_(c, hidden, scale=c**-0.5), f_(hidden, scale=0.1),
+                   w_(hidden, c, scale=hidden**-0.5), f_(c, scale=0.1)]
+            out[f"{tag} B1 C {c} {shape} shift {shift}"] = fused_swin_block(
+                w_(*shape, c), *ops, heads=heads, window_size=8, shift=shift)
+        for cin, cout, act, residual, shape in ((180, 180, None, False, (1, 40, 56)), (180, 180, "lrelu0.2", True,
+                                                                                      (1, 19, 37)),
+                                                (20, 70, "relu", False, (2, 13, 21)), (64, 3, None, False, (1, 13, 27))):
+            x = w_(*shape, cin)
+            out[f"{tag} B2 {cin} -> {cout} {act} residual {residual} {shape}"] = fused_conv3x3(
+                x, w_(3, 3, cin, cout, scale=(9 * cin) ** -0.5), f_(cout, scale=0.1), act, residual,
+                w_(*shape, cout))
+        for shape in ((1, 37, 53, 64), (1, 64, 64, 64)):
+            tail = [w_(3, 3, 64, 256, scale=(9 * 64) ** -0.5), f_(256, scale=0.1),
+                    w_(3, 3, 64, 256, scale=(9 * 64) ** -0.5), f_(256, scale=0.1),
+                    w_(3, 3, 64, 3, scale=(9 * 64) ** -0.5), f_(3, scale=0.1)]
+            out[f"{tag} B3 {shape}"] = fused_upsample_x4(w_(*shape), *tail)
+            for s in (2, 3):
+                tail_s = [w_(3, 3, 64, s * s * 64, scale=(9 * 64) ** -0.5), f_(s * s * 64, scale=0.1),
+                          w_(3, 3, 64, 3, scale=(9 * 64) ** -0.5), f_(3, scale=0.1)]
+                out[f"{tag} B4 x{s} {shape}"] = fused_upsample_s(w_(*shape), *tail_s, s)
+        cab = [1 + f_(180, scale=0.1), f_(180, scale=0.1), w_(3, 3, 180, 60, scale=(9 * 180) ** -0.5),
+               f_(60, scale=0.1), w_(3, 3, 60, 180, scale=(9 * 60) ** -0.5), f_(180, scale=0.1)]
+        y2, sums = fused_cab_body(w_(1, 64, 64, 180), *cab)
+        out[f"{tag} B11 output"], out[f"{tag} B11 sums"] = y2, sums
+        for shape, act, res_scale in (((1, 37, 53, 48), "lrelu0.2", 1.0), ((1, 40, 40, 180), "relu", 0.1)):
+            c = shape[-1]
+            out[f"{tag} B14 {shape} {act} {res_scale}"] = fused_resblock(
+                w_(*shape), w_(3, 3, c, c, scale=(9 * c) ** -0.5), f_(c, scale=0.5),
+                w_(3, 3, c, c, scale=(9 * c) ** -0.5), f_(c, scale=0.1), res_scale, act)
+    torch.cuda.synchronize()
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def ab_bits(checkout: Path, path: Path) -> int:
+    """``--bits`` on ``checkout`` and on this tree; 1 if any bf16 output differs."""
+    import torch
+
+    files = []
+    for label, tree in (("parent", checkout), ("change", ROOT)):
+        files.append(path.with_name(f"{path.name}.{label}"))
+        env = dict(os.environ, PYTHONPATH=str(tree))
+        subprocess.run([sys.executable, str(Path(__file__).resolve()), "--bits", str(files[-1])], env=env, cwd=tree,
+                       check=True, timeout=1800)
+    a, b = (torch.load(f, weights_only=True) for f in files)
+    differ = sorted(k for k in a.keys() | b.keys() if k not in a or k not in b or not torch.equal(a[k], b[k]))
+    for k in sorted(a):
+        note = "the same bits"
+        if k in differ and k in b and a[k].shape == b[k].shape:
+            rel = float((a[k].double() - b[k].double()).abs().max() / a[k].double().abs().max().clamp_min(1e-30))
+            note = f"differs (max |change - parent| / max |parent| {rel:.3e})"
+        elif k in differ:
+            note = "differs"
+        print(f"{k}: {tuple(a[k].shape)} {a[k].dtype} {note}")
+    return 1 if any("(f32)" not in k for k in differ) else 0
+
+
 def ab(checkout: Path) -> None:
     """Run this script on ``checkout``, this tree, this tree, ``checkout``."""
     runs = []
@@ -228,15 +324,24 @@ def ab(checkout: Path) -> None:
                 f"{k} {'n/a' if t is None else f'{t:.4f}'}" for k, t in line["passes"][name]))
 
 
-def main() -> None:
+def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--checkout", type=Path, help="a second checkout to compare with: parent, this, this, parent")
+    parser.add_argument("--bits", type=Path, metavar="FILE",
+                        help="write B1, B2, B3, B4, B11 and B14's outputs on seeded operands (with --checkout: compare)")
     args = parser.parse_args()
-    if args.checkout:
+    if args.bits and args.checkout:
+        return ab_bits(args.checkout.resolve(), args.bits.resolve())
+    if args.bits:
+        import torch
+
+        torch.save(kernel_bits(), args.bits)
+    elif args.checkout:
         ab(args.checkout.resolve())
     else:
         print(json.dumps(measure()))
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

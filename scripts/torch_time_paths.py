@@ -9,6 +9,7 @@ x4 (adaptive and static, the JAX package's ``build`` defaults), SwinIR
 x2 and x3 and HAT x2 and x3 forward, and SwinIR x4 at window 24 (its 256 x 256
 image padded to 264 x 264)
 (bf16, batch 1, a 256 x 256 uint8 image, fused serving) over 5 forwards,
+the SwinIR x4 and SwinFIR x4 forward in f32, fused and plain (TF32 off),
 and the SwinIR x4 and HAT x4 train step (``make_train_step``, bf16 over f32 masters, batch
 32 of 64 x 64 crops, fused_train; HAT also at window 24, the crops padded
 to 72 x 72: 288 windows a step), the MaxSR x4 adaptive train step (the
@@ -69,7 +70,11 @@ def build(name: str, dev: torch.device, **kw):
 
 
 def forward_ms(name: str, dev: torch.device) -> float:
-    model = build(name, dev).half().enable_fused(True)
+    """bf16 fused; "<model> f32" fused in f32, "<model> f32 plain" the plain
+    port forward in f32 (TF32 off)."""
+    f32, plain = " f32" in name, name.endswith(" plain")
+    model = build(name.split(" f32")[0], dev)
+    model = (model if f32 else model.half()).enable_fused(not plain)
     image = np.random.default_rng(0).integers(0, 256, (256, 256, 3), dtype=np.uint8)
     x = torch.from_numpy(image).to(dev).float()[None] / 255.0
     with torch.inference_mode():
@@ -101,7 +106,8 @@ PEAK: dict = {}
 PATHS = ("swinir forward", "swinir ws24 forward", "swinir train step", "hat forward", "hat train step", "hat ws24 train step",
          "swinfir forward", "swinfir train step", "maxsr adaptive train step",
          "maxsr adaptive forward", "maxsr static forward", "swinir x2 forward", "swinir x3 forward",
-         "hat x2 forward", "hat x3 forward")
+         "hat x2 forward", "hat x3 forward", "swinir f32 forward", "swinir f32 plain forward",
+         "swinfir f32 forward", "swinfir f32 plain forward")
 
 
 def main() -> None:

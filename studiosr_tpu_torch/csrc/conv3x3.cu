@@ -1,11 +1,14 @@
 // B2: fused 3x3 convolution, y = act(conv3x3(x) + b) [+ x] [+ extra].
 //
 // Replaces studiosr_tpu/ops/pallas/conv3x3.py::fused_conv3x3 (:212). bf16
-// runs conv3x3_mma.cuh's kernel (its bound and design are there); f32, the
-// checks' dtype, runs conv3x3.cuh's FMA kernel. The Pallas kernel's 128-lane
-// tap stacking and row-band halo operands were Mosaic layout workarounds;
-// here the halo is part of the staged patch.
+// runs conv3x3_mma.cuh's kernel (its bound and design are there); f32 with
+// Cout > 16 conv3x3_f32.cuh's 3xTF32 kernel on weights packed at load time
+// (conv3x3_mma_f32), f32 with Cout <= 16 conv3x3.cuh's FMA kernel
+// (conv3x3_f32). The Pallas kernel's 128-lane tap stacking and row-band
+// halo operands were Mosaic layout workarounds; here the halo is part of
+// the staged patch.
 #include "conv3x3.cuh"
+#include "conv3x3_f32.cuh"
 #include "conv3x3_mma.cuh"
 
 extern "C" int conv3x3_f32(const void* x, const void* w, const void* bias, const void* extra, void* out, int B, int H,
@@ -13,6 +16,16 @@ extern "C" int conv3x3_f32(const void* x, const void* w, const void* bias, const
   return (int)launch_conv3x3<float>((const float*)x, (const float*)w, (const float*)bias, (const float*)extra,
                                     (float*)out, B, H, W, Cin, Cout, act, slope, residual, 0, (cudaStream_t)stream);
 }
+
+// w: the packed weights of ops/cuda/conv3x3.py pack_conv3x3_f32_weights; Cout > 16.
+extern "C" int conv3x3_mma_f32(const void* x, const void* w, const void* bias, const void* extra, void* out, int B,
+                               int H, int W, int Cin, int Cout, int act, float slope, int residual, void* stream) {
+  return (int)launch_conv3x3_f32((const float*)x, (const float*)w, (const float*)bias, (const float*)extra,
+                                 (float*)out, B, H, W, Cin, Cout, act, slope, residual, 0, (cudaStream_t)stream);
+}
+
+// Floats of the packed f32 weights (ops/cuda/conv3x3.py checks its own count against it).
+extern "C" long long conv3x3_mma_f32_elements(int Cin, int Cout) { return ct_packed_elems(Cin, Cout); }
 
 // w: the packed weights of ops/cuda/conv3x3.py pack_conv3x3_weights.
 extern "C" int conv3x3_mma_bf16(const void* x, const void* w, const void* bias, const void* extra, void* out, int B,

@@ -16,8 +16,11 @@
 // bf16 (resblock_mma_bf16) runs both passes on conv3x3_mma.cuh, B2's kernel
 // written for the H100 (its design is there), on weights packed at load time
 // by ops/cuda/conv3x3.py pack_conv3x3_weights; pass 2 takes x as its extra
-// map and res_scale in the epilogue. f32, the checks' dtype
-// (resblock_f32), keeps two passes of conv3x3.cuh on HWIO weights.
+// map and res_scale in the epilogue. f32 with C > 16 (resblock_mma_f32,
+// SwinFIR's f32 serving) runs both passes on conv3x3_f32.cuh's 3xTF32
+// kernel (its design is there) on weights packed at load time by
+// ops/cuda/conv3x3.py pack_conv3x3_f32_weights; f32 with C <= 16
+// (resblock_f32) keeps two passes of conv3x3.cuh's FMA kernel on HWIO.
 //
 // Bound on the card at SwinFIR's serving shapes (264 x 264, C 180): 2 x 2 T
 // 9 C^2 = 81.3 GFLOP against about 50 MB (x read, y written, h1's round trip
@@ -29,6 +32,7 @@
 // (sm_90a): the bf16 passes run B2's conv3x3_mma_kernel, 128 registers, 28
 // B spilled.
 #include "conv3x3.cuh"
+#include "conv3x3_f32.cuh"
 #include "conv3x3_mma.cuh"
 
 extern "C" int resblock_f32(const void* x, const void* w1, const void* b1, const void* w2, const void* b2, void* h1,
@@ -40,6 +44,18 @@ extern "C" int resblock_f32(const void* x, const void* w1, const void* b1, const
   if (err != cudaSuccess) return (int)err;
   return (int)launch_conv3x3<float>((const float*)h1, (const float*)w2, (const float*)b2, (const float*)x,
                                     (float*)out, B, H, W, C, C, ACT_NONE, 0.f, 0, 0, s, nullptr, res_scale);
+}
+
+// w1, w2: the packed weights of ops/cuda/conv3x3.py pack_conv3x3_f32_weights; C > 16.
+extern "C" int resblock_mma_f32(const void* x, const void* w1, const void* b1, const void* w2, const void* b2, void* h1,
+                                void* out, int B, int H, int W, int C, int act, float slope, float res_scale,
+                                void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = launch_conv3x3_f32((const float*)x, (const float*)w1, (const float*)b1, nullptr, (float*)h1, B, H,
+                                      W, C, C, act, slope, 0, 0, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_conv3x3_f32((const float*)h1, (const float*)w2, (const float*)b2, (const float*)x, (float*)out,
+                                 B, H, W, C, C, ACT_NONE, 0.f, 0, 0, s, res_scale);
 }
 
 // w1, w2: the packed weights of ops/cuda/conv3x3.py pack_conv3x3_weights.

@@ -16,8 +16,12 @@
 // output, B4 21.5 (x2) / 48.4 (x3): bound by operations, 0.108 / 0.022 /
 // 0.049 ms at the bf16 tensor-core rate.
 //
-// f32 (the checks' dtype) keeps the simple version: one launch of
-// conv3x3.cuh's conv kernel a conv, the shuffle folded into the store index.
+// f32 runs one launch a conv, the shuffle folded into the store index: the
+// wide convs (s^2 Cin > 16) on conv3x3_f32.cuh's 3xTF32 kernel on weights
+// packed at load time (upsample_x4_mma_f32, upsample_s_mma_f32; its design
+// is there), conv_last (n_colors <= 16) on conv3x3.cuh's FMA kernel on
+// HWIO; narrower tails keep conv3x3.cuh's kernel for every conv
+// (upsample_x4_f32, upsample_s_f32).
 // Its bf16 wmma kernel (three launches a B3 call: 2.6 ms, 25x the bound)
 // was bound by issuing loads: 2-byte staging loads between two barriers a
 // 16-channel chunk. bf16 runs the kernels written for the H100:
@@ -58,6 +62,7 @@
 #include <initializer_list>
 
 #include "conv3x3.cuh"
+#include "conv3x3_f32.cuh"
 #include "hopper_mma.cuh"
 #include "wgmma.cuh"
 
@@ -388,4 +393,33 @@ extern "C" int upsample_s_f32(const void* x, const void* w0, const void* b0, con
   return (int)upsample_s_f32_passes((const float*)x, (const float*)w0, (const float*)b0, (const float*)w2,
                                     (const float*)b2, (float*)c0, (float*)out, B, H, W, Cin, n_colors, scale,
                                     (cudaStream_t)stream);
+}
+
+// w0 (and w1) packed by ops/cuda/conv3x3.py pack_conv3x3_f32_weights (4 Cin
+// > 16), w2 HWIO.
+extern "C" int upsample_x4_mma_f32(const void* x, const void* w0, const void* b0, const void* w1, const void* b1,
+                                   const void* w2, const void* b2, void* t1, void* t2, void* out, int B, int H, int W,
+                                   int Cin, int n_colors, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = launch_conv3x3_f32((const float*)x, (const float*)w0, (const float*)b0, nullptr, (float*)t1, B, H,
+                                      W, Cin, 4 * Cin, ACT_NONE, 0.f, 0, 2, s);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_conv3x3_f32((const float*)t1, (const float*)w1, (const float*)b1, nullptr, (float*)t2, B, 2 * H, 2 * W,
+                           Cin, 4 * Cin, ACT_NONE, 0.f, 0, 2, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_conv3x3<float>((const float*)t2, (const float*)w2, (const float*)b2, nullptr, (float*)out, B,
+                                    4 * H, 4 * W, Cin, n_colors, ACT_NONE, 0.f, 0, 0, s);
+}
+
+// w0 packed by pack_conv3x3_f32_weights (s^2 Cin > 16), w2 HWIO.
+extern "C" int upsample_s_mma_f32(const void* x, const void* w0, const void* b0, const void* w2, const void* b2,
+                                  void* c0, void* out, int B, int H, int W, int Cin, int n_colors, int scale,
+                                  void* stream) {
+  if (scale != 2 && scale != 3) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = launch_conv3x3_f32((const float*)x, (const float*)w0, (const float*)b0, nullptr, (float*)c0, B, H,
+                                      W, Cin, scale * scale * Cin, ACT_NONE, 0.f, 0, scale, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_conv3x3<float>((const float*)c0, (const float*)w2, (const float*)b2, nullptr, (float*)out, B,
+                                    scale * H, scale * W, Cin, n_colors, ACT_NONE, 0.f, 0, 0, s);
 }

@@ -5,14 +5,16 @@ y = act(conv3x3(x) + b) [+ x] [+ extra] on NHWC maps with zero SAME padding
 and f32 accumulation, in one pass over the map. ``activation`` is None,
 ``"relu"`` or ``"lrelu{slope}"`` (slope 0.01 when omitted). Any Cout.
 
-Weights are HWIO (3, 3, Cin, Cout) in the map's dtype, or in bf16 the
-packed layout of :func:`pack_conv3x3_weights` (what serving prepares once at
-load time, :func:`prepare_fused_conv3x3_weights`); the bias is f32. bf16
-launches the kernel written for the H100 (``csrc/conv3x3_mma.cuh``, C entry
-``conv3x3_mma_bf16``), which reads packed weights (HWIO weights are packed
-first, on every call); f32 the FMA kernel of ``csrc/conv3x3.cuh``
-(``conv3x3_f32``) on HWIO weights. ``engagement.entries()`` tells the two
-apart.
+Weights are HWIO (3, 3, Cin, Cout) in the map's dtype, or packed: in bf16
+the layout of :func:`pack_conv3x3_weights`, in f32 with Cout > 16 that of
+:func:`pack_conv3x3_f32_weights` (what serving prepares once at load time,
+:func:`prepare_fused_conv3x3_weights`); the bias is f32. bf16 launches the
+kernel written for the H100 (``csrc/conv3x3_mma.cuh``, C entry
+``conv3x3_mma_bf16``), f32 with Cout > 16 the 3xTF32 kernel written for it
+(``csrc/conv3x3_f32.cuh``, ``conv3x3_mma_f32``), both on packed weights
+(HWIO weights are packed first, on every call); f32 with Cout <= 16 the FMA
+kernel of ``csrc/conv3x3.cuh`` (``conv3x3_f32``) on HWIO weights
+(:func:`f32_mma_takes`). ``engagement.entries()`` tells them apart.
 
 Also B11, ``fused_cab_body``: HAT's CAB trunk y2 = res_scale
 conv2(gelu(conv1(LN x))) with the per-image f32 channel sums of y2 that
@@ -28,11 +30,18 @@ y = x + res_scale (conv2(act(conv1(x) + b1)) + b2), SwinFIR's SFB spatial
 branch, at any height (the JAX wrapper declines odd ones to two convs). In
 bf16 both of its passes run B2's kernel written for the H100 on packed
 weights (C entry ``resblock_mma_bf16``; serving packs them at load time,
-HWIO weights are packed per call); f32 runs ``resblock_f32`` on HWIO.
+HWIO weights are packed per call); f32 with C > 16 both on B2's f32 kernel
+written for it (``resblock_mma_f32``, packed the same way), f32 with C <= 16
+``resblock_f32`` on HWIO.
+
+The f32 packed weights carry hi and lo TF32 images (``cvt.rna``), so the
+plain version on them multiplies by hi + lo, which is within 2^-22 |w| of
+the weights they were packed from.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -40,16 +49,20 @@ import torch.nn.functional as F
 
 from studiosr_tpu_torch.ops.cuda import _build
 from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, F as CF, check, finish, STREAM, call
+from studiosr_tpu_torch.ops.cuda.tf32x3 import split
 
 __all__ = [
     "fused_conv3x3", "conv3x3_plain", "prepare_conv3x3_weights", "pack_conv3x3_weights", "unpack_conv3x3_weights",
     "prepare_fused_conv3x3_weights", "parse_activation", "fused_cab_body", "cab_body_plain", "fused_resblock",
     "resblock_plain", "cab_mma_takes", "pack_cab_weights", "pack_cab_convs", "unpack_cab_weights", "packed_cab_shape",
-    "cab_partition",
+    "cab_partition", "f32_mma_takes", "pack_conv3x3_f32_weights", "unpack_conv3x3_f32_weights",
+    "packed_conv3x3_f32_shape",
 ]
 
 _ARGS = (P, P, P, P, P, I, I, I, I, I, I, CF, I, P)
-_SIGNATURES = {"conv3x3_f32": _ARGS, "conv3x3_mma_bf16": _ARGS}
+_SIGNATURES = {"conv3x3_f32": _ARGS, "conv3x3_mma_bf16": _ARGS, "conv3x3_mma_f32": _ARGS,
+               "conv3x3_mma_f32_elements": (I, I)}
+_RESTYPES = {"conv3x3_mma_f32_elements": ctypes.c_longlong}
 _CAB_ARGS = (P,) * 12 + (I,) * 5 + (CF, P)
 _CAB_SIGNATURES = {"cab_body_f32": _CAB_ARGS, "cab_body_bf16": _CAB_ARGS, "cab_body_partials": (I, I, I)}
 _CAB_MMA_SIGNATURES = {"cab_body_mma_bf16": _CAB_ARGS, "cab_body_mma_tiles": (I, I)}
@@ -57,9 +70,11 @@ _CAB_MMA_SIGNATURES = {"cab_body_mma_bf16": _CAB_ARGS, "cab_body_mma_tiles": (I,
 # slot (K chunk), the pixel tile, the widest C and Cm
 _CAB_N1, _CAB_N2, _CAB_KC, _CAB_TILE, _CAB_MAX_C, _CAB_MAX_CM = 64, 96, 64, (16, 8), 192, 64
 _RES_ARGS = (P,) * 7 + (I,) * 5 + (CF, CF, P)
-_RES_SIGNATURES = {"resblock_f32": _RES_ARGS, "resblock_mma_bf16": _RES_ARGS}
+_RES_SIGNATURES = {"resblock_f32": _RES_ARGS, "resblock_mma_bf16": _RES_ARGS, "resblock_mma_f32": _RES_ARGS}
 _ACT_CODES = {None: 0, "relu": 1, "lrelu": 2}  # shared with csrc/conv3x3.cuh
 _MMA_KC, _MMA_BLOCK = 16, 192  # csrc/conv3x3_mma.cuh: input channels a stage, output channels a block
+# csrc/conv3x3_f32.cuh: output channels a block (CT_BN), input channels a chunk (CT_KC); Cout up to _F32_NARROW keeps conv3x3.cuh
+_F32_BN, _F32_KC, _F32_NARROW = 96, 32, 16
 
 
 def packed_conv3x3_shape(cin: int, cout: int) -> Tuple[int, ...]:
@@ -104,38 +119,108 @@ def unpack_conv3x3_weights(packed: torch.Tensor, cin: int, cout: int) -> torch.T
     return taps[:, :cin, :cout].reshape(3, 3, cin, cout)
 
 
+def f32_mma_takes(cout: int) -> bool:
+    """Whether an f32 conv runs the 3xTF32 kernel written for the H100
+    (``csrc/conv3x3_f32.cuh``, packed weights): Cout > 16. Narrower ones
+    (conv_last) keep ``csrc/conv3x3.cuh``'s FMA kernel on HWIO, where one
+    96-column tile would be mostly padding."""
+    return cout > _F32_NARROW
+
+
+def packed_conv3x3_f32_shape(cin: int, cout: int) -> Tuple[int, ...]:
+    """(N tiles of 96 output channels, chunks of 32 input channels, 9 taps,
+    hi | lo, a 32 x 96 image of 3072 values)."""
+    return (-(-cout // _F32_BN), -(-cin // _F32_KC), 9, 2, _F32_BN * _F32_KC)
+
+
+def pack_conv3x3_f32_weights(w: torch.Tensor) -> torch.Tensor:
+    """HWIO (3, 3, Cin, Cout) f32 -> the f32 kernel's packed weights: for
+    each tile of 96 output channels, chunk of 32 input channels and tap, the
+    hi image tf32(w) then the lo image tf32(w - hi) of the 32 x 96 block
+    (zero past Cin and Cout), element (k, n) at (n / 8) 256 + (k / 4) 32 +
+    (n % 8) 4 + k % 4 (``tfw_image``: wgmma's K-major core matrices of 8 n x
+    4 k), the image of a ring slot."""
+    _, _, cin, cout = w.shape
+    nt, nch, _, _, _ = packed_conv3x3_f32_shape(cin, cout)
+    taps = F.pad(w.detach().float().reshape(9, cin, cout), (0, nt * _F32_BN - cout, 0, nch * _F32_KC - cin))
+    blocks = taps.reshape(9, nch, _F32_KC, nt, _F32_BN).permute(3, 1, 0, 2, 4)  # (nt, nch, 9, k, n)
+    img = blocks.reshape(nt, nch, 9, _F32_KC // 4, 4, _F32_BN // 8, 8).permute(0, 1, 2, 5, 3, 6, 4)
+    hi, lo = split(img.reshape(nt, nch, 9, _F32_BN * _F32_KC).contiguous())
+    return torch.stack([hi, lo], 3)
+
+
+def unpack_conv3x3_f32_weights(packed: torch.Tensor, cin: int, cout: int) -> torch.Tensor:
+    """HWIO (3, 3, Cin, Cout) from :func:`pack_conv3x3_f32_weights`'s
+    images: hi + lo, within 2^-22 |w| of the packed weights."""
+    shape = packed_conv3x3_f32_shape(cin, cout)
+    if tuple(packed.shape) != shape or packed.dtype != torch.float32:
+        raise ValueError(f"packed f32 weights {tuple(packed.shape)} do not fit Cin {cin}, Cout {cout}: expected {shape}")
+    nt, nch = shape[:2]
+    img = (packed[:, :, :, 0] + packed[:, :, :, 1]).reshape(nt, nch, 9, _F32_BN // 8, _F32_KC // 4, 8, 4)
+    blocks = img.permute(0, 1, 2, 4, 6, 3, 5).reshape(nt, nch, 9, _F32_KC, _F32_BN)
+    taps = blocks.permute(2, 1, 3, 0, 4).reshape(9, nch * _F32_KC, nt * _F32_BN)
+    return taps[:, :cin, :cout].reshape(3, 3, cin, cout)
+
+
 def prepare_fused_conv3x3_weights(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """torch OIHW 3x3 conv weight -> B2's (and B14's) weight operand, laid
-    out once at load time: packed for bf16 (the kernel's own layout), HWIO
-    otherwise. B11 packs its own (:func:`pack_cab_weights`); B3 and B4 pack
-    theirs with ``upsampler.pack_tail``."""
+    out once at load time: packed for bf16 (the kernel's own layout) and for
+    f32 with Cout > 16 (the f32 kernel's hi / lo images), HWIO otherwise. B11
+    packs its own (:func:`pack_cab_weights`); B3 and B4 pack theirs with
+    ``upsampler.pack_tail``."""
     hwio = prepare_conv3x3_weights(weight, dtype)
-    return pack_conv3x3_weights(hwio) if dtype == torch.bfloat16 else hwio
+    if dtype == torch.bfloat16:
+        return pack_conv3x3_weights(hwio)
+    return pack_conv3x3_f32_weights(hwio) if f32_mma_takes(hwio.shape[3]) else hwio
 
 
 def _hwio(w: torch.Tensor, cin: int, cout: int) -> torch.Tensor:
-    return unpack_conv3x3_weights(w, cin, cout) if w.dim() == 5 else w
+    if w.dim() != 5:
+        return w
+    return unpack_conv3x3_weights(w, cin, cout) if w.dtype == torch.bfloat16 else unpack_conv3x3_f32_weights(
+        w, cin, cout)
 
 
 def _b2_weights(w: torch.Tensor, name: str, cin: int, cout: int, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
-    """B2's weight operand as the kernel of ``dtype`` reads it: in bf16 the
-    packed layout (HWIO packed on the way), in f32 HWIO; raises otherwise."""
+    """B2's weight operand as the kernel of ``dtype`` reads it: in bf16, and
+    in f32 with Cout > 16, the packed layout (HWIO packed on the way), in
+    f32 with Cout <= 16 HWIO; raises otherwise."""
     if dtype == torch.bfloat16:
         if w.dim() == 4:
             check(w, name, (3, 3, cin, cout), dtype, dev)
             w = pack_conv3x3_weights(w)
         check(w, name, packed_conv3x3_shape(cin, cout), dtype, dev)
+    elif f32_mma_takes(cout):
+        if w.dim() == 4:
+            check(w, name, (3, 3, cin, cout), dtype, dev)
+            w = pack_conv3x3_f32_weights(w)
+        check(w, name, packed_conv3x3_f32_shape(cin, cout), dtype, dev)
     else:
         check(w, name, (3, 3, cin, cout), dtype, dev)
     return w
 
 
-def conv3x3_plain(x, w, b, activation: Optional[str] = None, residual: bool = False, extra=None):
+def _entry(kind: str, dtype: torch.dtype, cout: int) -> str:
+    """The C entry of B2 (``kind`` "conv3x3") or B14 ("resblock") for
+    ``dtype`` and ``cout``."""
+    if dtype == torch.bfloat16:
+        return f"{kind}_mma_bf16"
+    return f"{kind}_mma_f32" if f32_mma_takes(cout) else f"{kind}_f32"
+
+
+def conv3x3_plain(x, w, b, activation: Optional[str] = None, residual: bool = False, extra=None, mm=None):
     """Plain PyTorch version, computed in f32 and returned in ``x.dtype``;
-    ``w`` HWIO or packed."""
+    ``w`` HWIO or packed. With ``mm`` (``tf32x3.matmul``: the f32 kernel's
+    products) the conv is an im2col product through it."""
     w = _hwio(w, x.shape[-1], b.shape[0])
     xf = x.float()
-    y = F.conv2d(xf.permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1), b.float(), padding=1).permute(0, 2, 3, 1)
+    if mm is None:
+        y = F.conv2d(xf.permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1), b.float(), padding=1).permute(0, 2, 3, 1)
+    else:
+        bsz, h, wd, cin = xf.shape
+        xp = F.pad(xf, (0, 0, 1, 1, 1, 1))
+        cols = torch.stack([xp[:, dy:dy + h, dx:dx + wd] for dy in range(3) for dx in range(3)], 3)
+        y = mm(cols.reshape(-1, 9 * cin), w.float().reshape(9 * cin, -1)).reshape(bsz, h, wd, -1) + b.float()
     kind, slope = parse_activation(activation)
     if kind == "relu":
         y = torch.relu(y)
@@ -149,7 +234,8 @@ def conv3x3_plain(x, w, b, activation: Optional[str] = None, residual: bool = Fa
 
 
 def fused_conv3x3(x, w, b, activation: Optional[str] = None, residual: bool = False, extra=None):
-    """(B, H, W, Cin) -> (B, H, W, Cout); ``w`` HWIO, or packed in bf16. CPU
+    """(B, H, W, Cin) -> (B, H, W, Cout); ``w`` HWIO, or packed (bf16; f32
+    with Cout > 16). CPU
     tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
     if x.device.type == "cpu":
@@ -168,8 +254,8 @@ def fused_conv3x3(x, w, b, activation: Optional[str] = None, residual: bool = Fa
     pb = check(b, "b", (cout,), torch.float32, dev)
     pe = None if extra is None else check(extra, "extra", (bsz, h, wd, cout), x.dtype, dev)
     out = torch.empty((bsz, h, wd, cout), dtype=x.dtype, device=dev)
-    lib = _build.load("conv3x3", _SIGNATURES)
-    entry = "conv3x3_mma_bf16" if x.dtype == torch.bfloat16 else "conv3x3_f32"
+    lib = _build.load("conv3x3", _SIGNATURES, _RESTYPES)
+    entry = _entry("conv3x3", x.dtype, cout)
     status = call(dev, getattr(lib, entry), px, pw, pb, pe, out.data_ptr(), bsz, h, wd, cin, cout, _ACT_CODES[kind],
                   slope, int(residual), STREAM)
     finish("fused_conv3x3", status, entry)
@@ -309,8 +395,8 @@ def resblock_plain(x, w1, b1, w2, b2, res_scale: float = 1.0, activation: Option
 
 def fused_resblock(x, w1, b1, w2, b2, res_scale: float = 1.0, activation: Optional[str] = "relu"):
     """B14: (B, H, W, C) -> x + res_scale (conv2(act(conv1(x) + b1)) + b2).
-    ``w1``, ``w2`` HWIO (3, 3, C, C) in the map's dtype, or packed in bf16;
-    biases f32; ``activation`` "relu", "lrelu[slope]" or None. CPU tensors
+    ``w1``, ``w2`` HWIO (3, 3, C, C) in the map's dtype, or packed (bf16; f32
+    with C > 16); biases f32; ``activation`` "relu", "lrelu[slope]" or None. CPU tensors
     take the plain version; CUDA tensors launch the kernels or raise."""
     if x.device.type == "cpu":
         return resblock_plain(x, w1, b1, w2, b2, res_scale, activation)
@@ -327,7 +413,7 @@ def fused_resblock(x, w1, b1, w2, b2, res_scale: float = 1.0, activation: Option
     h1 = torch.empty_like(x)
     out = torch.empty_like(x)
     lib = _build.load("resblock", _RES_SIGNATURES)
-    entry = "resblock_mma_bf16" if dt == torch.bfloat16 else "resblock_f32"
+    entry = _entry("resblock", dt, c)
     status = call(dev, getattr(lib, entry), *ptrs, h1.data_ptr(), out.data_ptr(), bsz, h, wd, c, _ACT_CODES[kind],
                   slope, float(res_scale), STREAM)
     finish("fused_resblock", status, entry)

@@ -14,30 +14,39 @@ q | k | v column blocks, unscaled: the kernel applies 1/sqrt(d) to q);
 ``bias`` the gathered (heads, N, N) f32 rel-pos bias. In bf16 the weights
 may instead come packed (:func:`pack_swin_weights`, what serving prepares
 once at load time): the packed blob takes the place of ``wqkv`` and
-``wproj``, ``bias``, ``w1``, ``w2`` are None. bf16 launches the kernel
-written for the H100 (C entry ``swin_block_mma_bf16``), which reads packed
-weights (dense ones are packed first, on every call); f32 the older kernel
+``wproj``, ``bias``, ``w1``, ``w2`` are None; so may they in f32
+(:func:`pack_swin_f32`, the f32 kernel's blob of hi / lo TF32 images, where
+:func:`f32_mma_takes` the geometry). bf16 launches the kernel written for
+the H100 (C entry ``swin_block_mma_bf16``), f32 where :func:`f32_mma_takes`
+the 3xTF32 kernel written for it (``csrc/swin_block_f32.cu``,
+``swin_block_mma_f32``), both on packed weights (dense ones are packed
+first, on every call); other f32 geometries the older kernel
 (``swin_block_f32``), which packs its dense weights into a scratch on every
-call. The HAT/training operands of the TPU kernel (``extra``,
-``extra_scale``, ``drop_path``) are not part of this port.
+call. The plain version on an f32 blob multiplies by hi + lo, within 2^-22
+|w| of the weights packed. The HAT/training operands of the TPU kernel
+(``extra``, ``extra_scale``, ``drop_path``) are not part of this port.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Tuple
+import functools
+from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from studiosr_tpu_torch.ops.attention import attention_core
 from studiosr_tpu_torch.ops.cuda import _build
 from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, check, finish, STREAM, call
+from studiosr_tpu_torch.ops.cuda.tf32x3 import split
 from studiosr_tpu_torch.ops.windows import calculate_mask, window_partition, window_reverse
 
 __all__ = [
     "fused_swin_block", "swin_block_plain", "packed_elements", "pack_swin_weights", "unpack_swin_weights",
-    "swin_pack_stages", "mma_geometry_error", "KERNEL_WINDOW",
+    "swin_pack_stages", "mma_geometry_error", "KERNEL_WINDOW", "f32_mma_takes", "swin_f32_stages", "pack_swin_f32",
+    "unpack_swin_f32", "pack_swin_block",
 ]
 
 KERNEL_WINDOW = 8  # one 64-token window per thread block (f32), per four warps (bf16)
@@ -46,6 +55,12 @@ _SIGNATURES = {"swin_block_f32": _ARGS}
 _MMA_ARGS = (P,) * 11 + (I,) * 7 + (ctypes.c_longlong, P)
 _MMA_SIGNATURES = {"swin_block_mma_bf16": _MMA_ARGS, "swin_block_mma_elements": (I, I, I)}
 _MMA_RESTYPES = {"swin_block_mma_elements": ctypes.c_longlong}
+_F32_SIGNATURES = {"swin_block_mma_f32": (P,) * 11 + (I,) * 7 + (ctypes.c_longlong, P),
+                   "swin_block_mma_f32_elements": (I, I, I)}
+_F32_RESTYPES = {"swin_block_mma_f32_elements": ctypes.c_longlong}
+# csrc/swin_block_f32.cu: columns a stage (an N tile), K rows a stage, a head's padded dims, the widest C
+_F32_BN, _F32_BK, _F32_DP, _F32_MAX_C = 96, 32, 32, 180
+_PERM8 = np.array([0, 2, 4, 6, 1, 3, 5, 7])  # packed row i of an 8-row group holds unit _PERM8[i]
 # csrc/swin_block_mma.cu: bytes a ring slot, hidden units a chunk, widest C
 _SLOT_BYTES, _CHUNK, _MMA_MAX_C = 28672, 64, 184
 _TOK = KERNEL_WINDOW * KERNEL_WINDOW
@@ -208,19 +223,137 @@ def unpack_swin_weights(packed: torch.Tensor, c: int, heads: int, hidden: int):
     return wqkv, wproj.reshape(c, c), perm.reshape(heads, _TOK, _TOK), w1[:c, :hidden], w2[:hidden]
 
 
+def f32_mma_takes(c: int, heads: int, hidden: int) -> bool:
+    """Whether f32 B1 at window 8 runs the 3xTF32 kernel written for the
+    H100 (``csrc/swin_block_f32.cu``): C a multiple of 4 up to 180, head dims
+    up to 32, any hidden. Other geometries keep ``swin_block.cu``."""
+    return heads >= 1 and c % heads == 0 and c % 4 == 0 and 4 <= c <= _F32_MAX_C and c // heads <= _F32_DP \
+        and hidden >= 1
+
+
+def swin_f32_stages(c: int, heads: int, hidden: int) -> List[Tuple[str, int, int, int]]:
+    """The f32 blob's stages in the order the kernel consumes them (the loop
+    of ``sb32_kernel`` in ``csrc/swin_block_f32.cu``; its ``Sb32Geom::
+    stages`` counts them): (kind, head or hidden chunk, K stage, output
+    tile), each 32 K rows x 96 columns. Per head: "qkv" for each 32 LN
+    channels (its q, k, v columns, 32 a part), then "proj" for each
+    96-column output tile (its 32 padded dims as rows); per chunk of 96
+    hidden units: "fc1" for each 32 LN channels, then "fc2" for each 32
+    units and output tile."""
+    ks, nt, chunks = -(-c // _F32_BK), -(-c // _F32_BN), -(-hidden // _F32_BN)
+    out = []
+    for h in range(heads):
+        out += [("qkv", h, k, 0) for k in range(ks)] + [("proj", h, 0, t) for t in range(nt)]
+    for ch in range(chunks):
+        out += [("fc1", ch, k, 0) for k in range(ks)] + [("fc2", ch, k, t) for k in range(3) for t in range(nt)]
+    return out
+
+
+@functools.lru_cache(maxsize=16)
+def _f32_pack_index(c: int, heads: int, hidden: int) -> np.ndarray:
+    """For each value of the blob's hi images, in order, its flat index in
+    wqkv, wproj, w1 and w2 laid end to end ((in, out) layouts), or the index
+    one past them (a zero): stage by stage (:func:`swin_f32_stages`), element
+    (k, n) of a stage at (n / 8) 256 + (k / 4) 32 + (n % 8) 4 + k % 4
+    (``tfw_image``). proj's and fc2's K rows are permuted inside each 8-row
+    group (row i holds unit ``_PERM8[i]``)."""
+    d = c // heads
+    off_proj, off_w1 = 3 * c * c, 4 * c * c
+    off_w2, zero = off_w1 + c * hidden, off_w1 + 2 * c * hidden
+    k = np.arange(_F32_BK)[:, None]
+    n = np.arange(_F32_BN)[None, :]
+    kp = (k // 8) * 8 + _PERM8[k % 8]
+    stages = []
+    for kind, i, ks, t in swin_f32_stages(c, heads, hidden):
+        if kind == "qkv":
+            ch, part, j = _F32_BK * ks + k, n // _F32_DP, n % _F32_DP
+            ok, src = (ch < c) & (j < d), ch * 3 * c + part * c + i * d + j
+        elif kind == "proj":
+            col = _F32_BN * t + n
+            ok, src = (kp < d) & (col < c), off_proj + (i * d + kp) * c + col
+        elif kind == "fc1":
+            ch, u = _F32_BK * ks + k, _F32_BN * i + n
+            ok, src = (ch < c) & (u < hidden), off_w1 + ch * hidden + u
+        else:
+            u, col = _F32_BN * i + _F32_BK * ks + kp, _F32_BN * t + n
+            ok, src = (u < hidden) & (col < c), off_w2 + u * c + col
+        stages.append(np.where(ok, src, zero))
+    full = np.stack(stages)  # (stages, 32, 96)
+    pos = ((n // 8) * 256 + (k // 4) * 32 + (n % 8) * 4 + k % 4).ravel()
+    out = np.empty((len(stages), _F32_BK * _F32_BN), dtype=np.int64)
+    out[:, pos] = full.reshape(len(stages), -1)
+    return out.reshape(-1)
+
+
+def pack_swin_f32(wqkv, wproj, bias, w1, w2, heads: int) -> torch.Tensor:
+    """Dense f32 B1 weights -> the blob ``csrc/swin_block_f32.cu`` streams:
+    the stages of :func:`swin_f32_stages` back to back, each the hi image
+    tf32(w) then the lo image tf32(w - hi) of its 32 x 96 block (the gather
+    of :func:`_f32_pack_index`, zero outside the source matrices), then each
+    head's (64, 64) f32 bias in score-fragment order (for row tile wr, key
+    tile nt and lane 4 g + t: (16 wr + g, 8 nt + 2 t), its right neighbour,
+    and the same 8 rows down)."""
+    c, hidden = wqkv.shape[0], w1.shape[1]
+    idx = torch.from_numpy(_f32_pack_index(c, heads, hidden)).to(wqkv.device)
+    flat = torch.cat([t.detach().float().reshape(-1) for t in (wqkv, wproj, w1, w2)] +
+                     [torch.zeros(1, device=wqkv.device)])
+    hi, lo = split(flat[idx].reshape(-1, _F32_BK * _F32_BN))
+    frags = [_bias_fragments(bias[h].detach().float()) for h in range(heads)]
+    return torch.cat([torch.stack([hi, lo], 1).reshape(-1), *frags])
+
+
+def pack_swin_block(wqkv, wproj, bias, w1, w2, heads: int) -> Optional[torch.Tensor]:
+    """Dense B1 weights (in, out) and gathered rel-pos bias -> the blob of
+    the kernel of ``wqkv``'s dtype, where that kernel takes the geometry:
+    bf16 where :func:`mma_geometry_error` is '' (:func:`pack_swin_weights`),
+    f32 where :func:`f32_mma_takes` (:func:`pack_swin_f32`); None otherwise
+    (the first-design f32 kernel reads dense weights)."""
+    c, hidden = wqkv.shape[0], w1.shape[1]
+    if wqkv.dtype == torch.bfloat16 and not mma_geometry_error(c, heads):
+        return pack_swin_weights(wqkv, wproj, bias, w1, w2, heads)
+    if wqkv.dtype == torch.float32 and f32_mma_takes(c, heads, hidden):
+        return pack_swin_f32(wqkv, wproj, bias, w1, w2, heads)
+    return None
+
+
+def _f32_elements(c: int, heads: int, hidden: int) -> int:
+    return len(swin_f32_stages(c, heads, hidden)) * 2 * _F32_BK * _F32_BN + heads * _TOK * _TOK
+
+
+def unpack_swin_f32(packed: torch.Tensor, c: int, heads: int, hidden: int):
+    """Inverse of :func:`pack_swin_f32`: (wqkv, wproj, bias, w1, w2) in f32,
+    each weight hi + lo (within 2^-22 |w| of the weight packed), the bias as
+    it was."""
+    if packed.dim() != 1 or packed.dtype != torch.float32 or packed.numel() != _f32_elements(c, heads, hidden):
+        raise ValueError(f"packed f32 B1 weights {tuple(packed.shape)} {packed.dtype} do not fit C {c}, {heads} heads, "
+                         f"hidden {hidden}")
+    idx = torch.from_numpy(_f32_pack_index(c, heads, hidden)).to(packed.device)
+    nw = idx.numel()
+    images = packed[:2 * nw].reshape(-1, 2, _F32_BK * _F32_BN)
+    flat = torch.zeros(4 * c * c + 2 * c * hidden + 1, device=packed.device)
+    flat[idx] = (images[:, 0] + images[:, 1]).reshape(-1)
+    wqkv, wproj = flat[:3 * c * c].reshape(c, 3 * c), flat[3 * c * c:4 * c * c].reshape(c, c)
+    w1 = flat[4 * c * c:4 * c * c + c * hidden].reshape(c, hidden)
+    w2 = flat[4 * c * c + c * hidden:-1].reshape(hidden, c)
+    perm = packed[2 * nw:].reshape(heads, 4, 8, 8, 4, 2, 2).permute(0, 1, 5, 3, 2, 4, 6)
+    return wqkv, wproj, perm.reshape(heads, _TOK, _TOK), w1, w2
+
+
 def _dense(x, wqkv, wproj, bias, w1, w2, heads: int, hidden: int):
-    """The dense weights, unpacked where ``wqkv`` is the packed blob."""
+    """The dense weights, unpacked where ``wqkv`` is a packed blob."""
     if wqkv.dim() == 1:
-        return unpack_swin_weights(wqkv, x.shape[-1], heads, hidden)
+        unpack = unpack_swin_weights if wqkv.dtype == torch.bfloat16 else unpack_swin_f32
+        return unpack(wqkv, x.shape[-1], heads, hidden)
     return wqkv, wproj, bias, w1, w2
 
 
 def swin_block_plain(
     x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, bias, ln2_w, ln2_b, w1, b1, w2, b2,
-    *, heads: int, window_size: int, shift: int = 0,
+    *, heads: int, window_size: int, shift: int = 0, mm=torch.matmul,
 ):
     """Plain PyTorch version, computed in f32 and returned in ``x.dtype``;
-    weights dense or packed."""
+    weights dense or packed. ``mm`` takes every product (``tf32x3.matmul``:
+    the f32 kernel's arithmetic)."""
     wqkv, wproj, bias, w1, w2 = _dense(x, wqkv, wproj, bias, w1, w2, heads, b1.shape[0])
     b, h, w, c = x.shape
     ws = window_size
@@ -230,14 +363,14 @@ def swin_block_plain(
     if shift:
         xf = torch.roll(xf, (-shift, -shift), dims=(1, 2))
     ln = F.layer_norm(xf, (c,), ln1_w.float(), ln1_b.float(), 1e-5)
-    qkv = window_partition(ln, ws).reshape(-1, n, c) @ wqkv.float() + bqkv.float()
+    qkv = mm(window_partition(ln, ws).reshape(-1, n, c), wqkv.float()) + bqkv.float()
     qkv = qkv.reshape(-1, n, 3, heads, d).permute(2, 0, 3, 1, 4)
     mask = torch.from_numpy(calculate_mask((h, w), ws, shift)).to(x.device) if shift else None
-    attn = attention_core(qkv[0] * d**-0.5, qkv[1], qkv[2], bias=bias.float(), mask=mask)
-    attn = attn.transpose(1, 2).reshape(-1, n, c) @ wproj.float() + bproj.float()
+    attn = attention_core(qkv[0] * d**-0.5, qkv[1], qkv[2], bias=bias.float(), mask=mask, mm=mm)
+    attn = mm(attn.transpose(1, 2).reshape(-1, n, c), wproj.float()) + bproj.float()
     z = xf + window_reverse(attn.reshape(-1, ws, ws, c), ws, h, w)
-    hidden = F.gelu(F.layer_norm(z, (c,), ln2_w.float(), ln2_b.float(), 1e-5) @ w1.float() + b1.float())
-    y = z + (hidden @ w2.float() + b2.float())
+    hidden = F.gelu(mm(F.layer_norm(z, (c,), ln2_w.float(), ln2_b.float(), 1e-5), w1.float()) + b1.float())
+    y = z + (mm(hidden, w2.float()) + b2.float())
     if shift:
         y = torch.roll(y, (shift, shift), dims=(1, 2))
     return y.to(x.dtype)
@@ -247,7 +380,8 @@ def fused_swin_block(
     x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, bias, ln2_w, ln2_b, w1, b1, w2, b2,
     *, heads: int, window_size: int, shift: int = 0,
 ):
-    """(B, H, W, C) -> (B, H, W, C); weights dense, or packed in bf16. CPU
+    """(B, H, W, C) -> (B, H, W, C); weights dense, or packed (bf16; f32
+    where :func:`f32_mma_takes`). CPU
     tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
     args = (x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, bias, ln2_w, ln2_b, w1, b1, w2, b2)
@@ -288,7 +422,29 @@ def fused_swin_block(
         entry = "swin_block_mma_bf16"
         status = call(dev, lib.swin_block_mma_bf16, px, out.data_ptr(), pw, *ptrs, bsz, h, w, c, heads, hidden, shift,
                       pack, STREAM)
+    elif f32_mma_takes(c, heads, hidden):
+        if wqkv.dim() != 1:
+            check(wqkv, "wqkv", (c, 3 * c), dt, dev), check(wproj, "wproj", (c, c), dt, dev)
+            check(bias, "bias", (heads, _TOK, _TOK), f32, dev)
+            check(w1, "w1", (c, hidden), dt, dev), check(w2, "w2", (hidden, c), dt, dev)
+            wqkv = pack_swin_f32(wqkv, wproj, bias, w1, w2, heads)  # kept alive until the launch is enqueued
+        elif any(t is not None for t in (wproj, bias, w1, w2)):
+            raise ValueError("fused_swin_block: with packed weights wproj, bias, w1 and w2 are None")
+        lib = _build.load("swin_block_f32", _F32_SIGNATURES, _F32_RESTYPES)
+        pack = call(dev, lib.swin_block_mma_f32_elements, c, heads, hidden)
+        pw = check(wqkv, "packed weights", (pack,), dt, dev)
+        ptrs = [
+            check(ln1_w, "ln1_w", (c,), f32, dev), check(ln1_b, "ln1_b", (c,), f32, dev),
+            check(bqkv, "bqkv", (3 * c,), f32, dev), check(bproj, "bproj", (c,), f32, dev),
+            check(ln2_w, "ln2_w", (c,), f32, dev), check(ln2_b, "ln2_b", (c,), f32, dev),
+            check(b1, "b1", (hidden,), f32, dev), check(b2, "b2", (c,), f32, dev),
+        ]
+        entry = "swin_block_mma_f32"
+        status = call(dev, lib.swin_block_mma_f32, px, out.data_ptr(), pw, *ptrs, bsz, h, w, c, heads, hidden, shift,
+                      pack, STREAM)
     else:
+        if wqkv.dim() == 1:
+            raise ValueError("fused_swin_block: packed f32 weights at a geometry the f32 kernel does not take")
         n = ws * ws
         ptrs = [
             check(ln1_w, "ln1_w", (c,), f32, dev), check(ln1_b, "ln1_b", (c,), f32, dev),

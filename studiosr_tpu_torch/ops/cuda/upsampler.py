@@ -12,15 +12,21 @@ two conv passes; c0 is allocated here at sH x sW and rounded to the map's
 dtype, and conv_last zero-pads at that resolution.
 
 Weights are HWIO in the map's dtype: ``w0`` (and at x4 ``w1``) (3, 3, Cin,
-s^2 Cin), ``w2`` (3, 3, Cin, n_colors); biases f32. In bf16 they may also
-come packed in the kernels' layouts (:func:`pack_tail`, what serving
-prepares once at load time): ``w0`` and ``w1`` by
+s^2 Cin), ``w2`` (3, 3, Cin, n_colors); biases f32. They may also come
+packed in the kernels' layouts (:func:`pack_tail`, what serving prepares
+once at load time): in bf16 ``w0`` and ``w1`` by
 :func:`pack_shuffle_conv_weights`, ``w2`` by :func:`pack_conv_last_weights`;
+in f32 ``w0`` and ``w1`` by ``conv3x3.pack_conv3x3_f32_weights``;
 HWIO weights are packed on every call. bf16 launches the kernels written
 for the H100 (C entries ``upsample_x4_mma_bf16``, ``upsample_s_mma_bf16``:
-Cin a multiple of 16 up to 64, n_colors up to 8; other geometries raise),
-f32 the simple version on HWIO weights (``upsample_x4_f32``,
-``upsample_s_f32``). ``engagement.entries()`` tells them apart.
+Cin a multiple of 16 up to 64, n_colors up to 8; other geometries raise).
+f32 with s^2 Cin > 16 (:func:`f32_mma_takes`) launches ``upsample_x4_mma_f32``
+/ ``upsample_s_mma_f32``: the wide convs on B2's 3xTF32 kernel written for
+the H100 (``csrc/conv3x3_f32.cuh``) on weights packed by
+``conv3x3.pack_conv3x3_f32_weights`` (``pack_tail`` packs them at load time,
+HWIO is packed per call), conv_last on HWIO; narrower f32 tails run the
+simple version on HWIO weights (``upsample_x4_f32``, ``upsample_s_f32``).
+``engagement.entries()`` tells them apart.
 """
 
 from __future__ import annotations
@@ -32,20 +38,21 @@ import torch.nn.functional as F
 
 from studiosr_tpu_torch.ops.cuda import _build
 from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, check, finish, STREAM, call
+from studiosr_tpu_torch.ops.cuda import conv3x3 as _conv
 from studiosr_tpu_torch.ops.cuda.conv3x3 import conv3x3_plain
 from studiosr_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 
 __all__ = [
     "fused_upsample_x4", "upsample_x4_plain", "fused_upsample_s", "upsample_s_plain", "SCALES_S",
     "pack_shuffle_conv_weights", "unpack_shuffle_conv_weights", "pack_conv_last_weights", "unpack_conv_last_weights",
-    "pack_tail", "mma_geometry_error",
+    "pack_tail", "mma_geometry_error", "f32_mma_takes",
 ]
 
 SCALES_S = (2, 3)
 _ARGS = (P,) * 10 + (I,) * 5 + (P,)
 _ARGS_S = (P,) * 7 + (I,) * 6 + (P,)
-_SIGNATURES = {"upsample_x4_f32": _ARGS, "upsample_x4_mma_bf16": _ARGS, "upsample_s_f32": _ARGS_S,
-               "upsample_s_mma_bf16": _ARGS_S}
+_SIGNATURES = {"upsample_x4_f32": _ARGS, "upsample_x4_mma_bf16": _ARGS, "upsample_x4_mma_f32": _ARGS,
+               "upsample_s_f32": _ARGS_S, "upsample_s_mma_bf16": _ARGS_S, "upsample_s_mma_f32": _ARGS_S}
 _CHUNK = {2: 128, 3: 96}  # csrc/upsampler.cu UpChunk: columns a ring slot
 _K, _MAX_COLORS = 64, 8  # csrc/upsampler.cu UP_K (the most Cin), UL_MAX_COLORS
 
@@ -118,18 +125,37 @@ def unpack_conv_last_weights(packed: torch.Tensor, n_colors: int) -> torch.Tenso
     return wt.reshape(3, 3, cin, _MAX_COLORS)[..., :n_colors]
 
 
+def f32_mma_takes(cin: int, s: int) -> bool:
+    """Whether an f32 tail of ``cin`` channels at shuffle ``s`` runs its
+    wide convs on the 3xTF32 kernel written for the H100: s^2 Cin > 16."""
+    return _conv.f32_mma_takes(s * s * cin)
+
+
 def pack_tail(tail: Sequence[torch.Tensor], scale: int) -> tuple:
     """The tail's operands (w0, b0, [w1, b1,] w2, b2), HWIO, with the
-    weights packed for the bf16 kernels (biases as they are); ``scale`` 4
-    for B3, 2 or 3 for B4."""
+    weights packed as the kernels of their dtype read them (biases as they
+    are): bf16 every conv where the bf16 kernels take the geometry
+    (:func:`mma_geometry_error`); f32 the wide convs by
+    ``conv3x3.pack_conv3x3_f32_weights`` where :func:`f32_mma_takes` the
+    tail (conv_last stays HWIO). Any other tail comes back as it is.
+    ``scale`` 4 for B3, 2 or 3 for B4."""
     s = 2 if scale == 4 else scale
     *convs, w2, b2 = tail
+    cin = convs[0].shape[2]
+    if convs[0].dtype == torch.float32:
+        if not f32_mma_takes(cin, s):
+            return tuple(tail)
+        return (*[_conv.pack_conv3x3_f32_weights(t) if i % 2 == 0 else t for i, t in enumerate(convs)], w2, b2)
+    if mma_geometry_error(cin, b2.shape[0]):
+        return tuple(tail)
     packed = [pack_shuffle_conv_weights(t, s) if i % 2 == 0 else t for i, t in enumerate(convs)]
     return (*packed, pack_conv_last_weights(w2), b2)
 
 
 def _hwio_shuffle(w: torch.Tensor, cin: int, s: int) -> torch.Tensor:
-    return unpack_shuffle_conv_weights(w, cin, s) if w.dim() == 6 else w
+    if w.dim() == 6:
+        return unpack_shuffle_conv_weights(w, cin, s)
+    return _conv.unpack_conv3x3_f32_weights(w, cin, s * s * cin) if w.dim() == 5 else w
 
 
 def _hwio_last(w: torch.Tensor, n_colors: int) -> torch.Tensor:
@@ -143,6 +169,16 @@ def _mma_weights(w, name: str, cin: int, s: int, dev: torch.device) -> torch.Ten
         check(w, name, (3, 3, cin, s * s * cin), torch.bfloat16, dev)
         w = pack_shuffle_conv_weights(w, s)
     check(w, name, packed_shuffle_conv_shape(cin, s), torch.bfloat16, dev)
+    return w
+
+
+def _f32_weights(w, name: str, cin: int, s: int, dev: torch.device) -> torch.Tensor:
+    """A wide f32 conv's weights as the 3xTF32 kernel reads them, HWIO
+    packed on the way; raises on anything else."""
+    if w.dim() == 4:
+        check(w, name, (3, 3, cin, s * s * cin), torch.float32, dev)
+        w = _conv.pack_conv3x3_f32_weights(w)
+    check(w, name, _conv.packed_conv3x3_f32_shape(cin, s * s * cin), torch.float32, dev)
     return w
 
 
@@ -185,10 +221,14 @@ def fused_upsample_x4(x, w0, b0, w1, b1, w2, b2):
         return upsample_x4_plain(x, w0, b0, w1, b1, w2, b2)
     bsz, h, w, cin, n_colors = _geometry(x, b2, "fused_upsample_x4")
     dev, dt, f32 = x.device, x.dtype, torch.float32
+    tc32 = dt == torch.float32 and f32_mma_takes(cin, 2)
     if dt == torch.bfloat16:  # kept alive until the launch is enqueued
         w0, w1 = _mma_weights(w0, "w0", cin, 2, dev), _mma_weights(w1, "w1", cin, 2, dev)
         w2 = _mma_last_weights(w2, "w2", cin, n_colors, dev)
         pw = [w0.data_ptr(), w1.data_ptr(), w2.data_ptr()]
+    elif tc32:
+        w0, w1 = _f32_weights(w0, "w0", cin, 2, dev), _f32_weights(w1, "w1", cin, 2, dev)
+        pw = [w0.data_ptr(), w1.data_ptr(), check(w2, "w2", (3, 3, cin, n_colors), dt, dev)]
     else:
         pw = [check(w0, "w0", (3, 3, cin, 4 * cin), dt, dev), check(w1, "w1", (3, 3, cin, 4 * cin), dt, dev),
               check(w2, "w2", (3, 3, cin, n_colors), dt, dev)]
@@ -198,7 +238,7 @@ def fused_upsample_x4(x, w0, b0, w1, b1, w2, b2):
     t2 = torch.empty((bsz, 4 * h, 4 * w, cin), dtype=dt, device=dev)
     out = torch.empty((bsz, 4 * h, 4 * w, n_colors), dtype=dt, device=dev)
     lib = _build.load("upsampler", _SIGNATURES)
-    entry = "upsample_x4_mma_bf16" if dt == torch.bfloat16 else "upsample_x4_f32"
+    entry = "upsample_x4_mma_bf16" if dt == torch.bfloat16 else "upsample_x4_mma_f32" if tc32 else "upsample_x4_f32"
     status = call(dev, getattr(lib, entry), *ptrs, t1.data_ptr(), t2.data_ptr(), out.data_ptr(), bsz, h, w, cin,
                   n_colors, STREAM)
     finish("fused_upsample_x4", status, entry)
@@ -221,9 +261,13 @@ def fused_upsample_s(x, w0, b0, w2, b2, s: int):
         return upsample_s_plain(x, w0, b0, w2, b2, s)
     bsz, h, w, cin, n_colors = _geometry(x, b2, "fused_upsample_s")
     dev, dt, f32 = x.device, x.dtype, torch.float32
+    tc32 = dt == torch.float32 and f32_mma_takes(cin, s)
     if dt == torch.bfloat16:  # kept alive until the launch is enqueued
         w0, w2 = _mma_weights(w0, "w0", cin, s, dev), _mma_last_weights(w2, "w2", cin, n_colors, dev)
         pw = [w0.data_ptr(), w2.data_ptr()]
+    elif tc32:
+        w0 = _f32_weights(w0, "w0", cin, s, dev)
+        pw = [w0.data_ptr(), check(w2, "w2", (3, 3, cin, n_colors), dt, dev)]
     else:
         pw = [check(w0, "w0", (3, 3, cin, s * s * cin), dt, dev), check(w2, "w2", (3, 3, cin, n_colors), dt, dev)]
     ptrs = [check(x, "x", (bsz, h, w, cin), dt, dev), pw[0], check(b0, "b0", (s * s * cin,), f32, dev),
@@ -231,7 +275,7 @@ def fused_upsample_s(x, w0, b0, w2, b2, s: int):
     c0 = torch.empty((bsz, s * h, s * w, cin), dtype=dt, device=dev)
     out = torch.empty((bsz, s * h, s * w, n_colors), dtype=dt, device=dev)
     lib = _build.load("upsampler", _SIGNATURES)
-    entry = "upsample_s_mma_bf16" if dt == torch.bfloat16 else "upsample_s_f32"
+    entry = "upsample_s_mma_bf16" if dt == torch.bfloat16 else "upsample_s_mma_f32" if tc32 else "upsample_s_f32"
     status = call(dev, getattr(lib, entry), *ptrs, c0.data_ptr(), out.data_ptr(), bsz, h, w, cin, n_colors, s, STREAM)
     finish("fused_upsample_s", status, entry)
     return out

@@ -37,10 +37,10 @@ from studiosr_tpu_torch.ops.cuda.conv3x3 import (
 )
 from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mma_takes as mlp_mma_takes, pack_mlp_block
 from studiosr_tpu_torch.ops.cuda.swin_block import (
-    KERNEL_WINDOW, fused_swin_block, mma_geometry_error, pack_swin_weights,
+    KERNEL_WINDOW, fused_swin_block, pack_swin_block,
 )
 from studiosr_tpu_torch.ops.cuda.upsampler import (
-    SCALES_S, fused_upsample_s, fused_upsample_x4, mma_geometry_error as tail_geometry_error, pack_tail,
+    SCALES_S, fused_upsample_s, fused_upsample_x4, pack_tail,
 )
 from studiosr_tpu_torch.ops.cuda.window_attention import (
     fused_window_attention_block, mma_takes as attn_mma_takes, pack_window_attention,
@@ -69,15 +69,17 @@ def _conv_operands(conv: nn.Conv2d, dtype):
 
 
 def _b2_operands(conv: nn.Conv2d, dtype):
-    """B2's (and B14's) operands: in bf16 the weights packed in the kernel's
-    layout, HWIO in f32."""
+    """B2's (and B14's) operands: the weights packed in the layout of the
+    kernel of ``dtype`` (in f32 where Cout > 16), HWIO otherwise."""
     return prepare_fused_conv3x3_weights(conv.weight, dtype), _f32(conv.bias)
 
 
 def _b1_operands(blk: nn.Module, heads: int, rpi, dtype) -> Dict[str, Any]:
-    """B1's operands for one Swin block, by keyword: in bf16 the weights and
-    the gathered rel-pos bias packed once into the kernel's blob (``wqkv``;
-    ``wproj``, ``bias``, ``w1``, ``w2`` None), dense (in, out) otherwise."""
+    """B1's operands for one Swin block, by keyword: the weights and the
+    gathered rel-pos bias packed once into the blob of the kernel of
+    ``dtype`` (``wqkv``; ``wproj``, ``bias``, ``w1``, ``w2`` None) where it
+    takes the geometry (in f32 the 3xTF32 kernel's hi / lo images), dense
+    (in, out) otherwise."""
     a = blk.attn
     ops = dict(
         ln1_w=_f32(blk.norm1.weight), ln1_b=_f32(blk.norm1.bias),
@@ -88,9 +90,9 @@ def _b1_operands(blk: nn.Module, heads: int, rpi, dtype) -> Dict[str, Any]:
         w1=_dense(blk.mlp.fc1, dtype), b1=_f32(blk.mlp.fc1.bias),
         w2=_dense(blk.mlp.fc2, dtype), b2=_f32(blk.mlp.fc2.bias),
     )
-    if dtype == torch.bfloat16 and not mma_geometry_error(ops["ln1_w"].shape[0], heads):
-        ops["wqkv"] = pack_swin_weights(ops["wqkv"], ops["wproj"], ops["bias"], ops["w1"], ops["w2"], heads)
-        ops.update(wproj=None, bias=None, w1=None, w2=None)
+    packed = pack_swin_block(ops["wqkv"], ops["wproj"], ops["bias"], ops["w1"], ops["w2"], heads)
+    if packed is not None:
+        ops.update(wqkv=packed, wproj=None, bias=None, w1=None, w2=None)
     return ops
 
 
@@ -145,11 +147,12 @@ def _residual_conv(block: nn.Module, x: torch.Tensor, operands, extra: torch.Ten
 def prepare_serving(module: nn.Module, config: Dict[str, Any], dtype) -> Dict[str, Any]:
     """Lay every kernel's weights out once, at load time.
 
-    Dense weights go to (in, out) and conv weights to HWIO in ``dtype``; in
-    bf16 B1's weights and rel-pos bias are packed into its kernel's blob, and
-    B2's and B14's conv weights into theirs (an SFB's two spatial-branch convs
-    as a ``{s0, b0, s2, b2}`` pair); otherwise the rel-pos bias is gathered to
-    (heads, N, N). LayerNorm weights and biases become f32. Window 8 lays out
+    Dense weights go to (in, out) and conv weights to HWIO in ``dtype``; B1's
+    weights and rel-pos bias are packed into its kernel's blob (bf16, and f32
+    at the geometries of the 3xTF32 kernel), and B2's and B14's conv weights
+    into theirs (bf16, and f32 where Cout > 16; an SFB's two spatial-branch
+    convs as a ``{s0, b0, s2, b2}`` pair); otherwise the rel-pos bias is
+    gathered to (heads, N, N). LayerNorm weights and biases become f32. Window 8 lays out
     B1's operands; the other windows B5's and B6's (:func:`_b5_b6_operands`).
     Consumed by :func:`swinir_fast_forward`."""
     ws = int(config["window_size"])
@@ -171,16 +174,14 @@ def prepare_serving(module: nn.Module, config: Dict[str, Any], dtype) -> Dict[st
 def tail_operands(module: nn.Module, scale: int, dtype):
     """The fused tail's weights: B3's (``upsample.0``, ``upsample.2``,
     ``conv_last``) at x4, B4's (``upsample.0``, ``conv_last``) at x2 / x3,
-    None where no kernel serves the scale. In bf16 the weights are packed
-    once in the kernels' layouts (``pack_tail``), HWIO otherwise."""
+    None where no kernel serves the scale. The weights are packed once in
+    the kernels' layouts (``pack_tail``) in bf16, and in f32 where the wide
+    convs run the 3xTF32 kernel (conv_last HWIO), HWIO otherwise."""
     convs = {4: ("0", "2"), **{s: ("0",) for s in SCALES_S}}.get(scale)
     if convs is None:
         return None
     ops = [t for name in convs for t in _conv_operands(module.upsample._modules[name], dtype)]
-    ops = (*ops, *_conv_operands(module.conv_last, dtype))
-    if dtype == torch.bfloat16 and not tail_geometry_error(ops[0].shape[2], ops[-1].shape[0]):
-        ops = pack_tail(ops, scale)
-    return ops
+    return pack_tail((*ops, *_conv_operands(module.conv_last, dtype)), scale)
 
 
 def fused_tail(module: nn.Module, x: torch.Tensor, scale: int, tail) -> torch.Tensor:

@@ -19,7 +19,7 @@ from studiosr_tpu_torch import HAT, SwinIR, resolve_device
 from studiosr_tpu_torch.ops.cuda import engagement
 from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd, attention_bwd_plain, f32_mma_takes
 from studiosr_tpu_torch.ops.cuda.conv3x3 import (
-    cab_body_plain, conv3x3_plain, fused_cab_body, fused_conv3x3, pack_conv3x3_weights,
+    cab_body_plain, conv3x3_plain, fused_cab_body, fused_conv3x3, pack_conv3x3_f32_weights, pack_conv3x3_weights,
 )
 from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mlp_block_plain, pack_mlp_block
 from studiosr_tpu_torch.ops.cuda.mlp_bwd import mlp_bwd, mlp_bwd_plain
@@ -73,7 +73,7 @@ def _block_operands(gen, c, heads, hidden, ws=8):
     ]
 
 
-# B1 (bf16: ``csrc/swin_block_mma.cu``, f32: ``swin_block.cu``): C 180 with
+# B1 (bf16: ``csrc/swin_block_mma.cu``, f32: ``csrc/swin_block_f32.cu``): C 180 with
 # 6 heads of 30 (the main path's width), C 32 with 2 of 16 (the trained
 # fixtures), d 8 (C 16), d 12 with an odd count of 8-column output tiles (C
 # 24), d 10 (C 60); batch 2, H != W, shift 0 and 4, odd window counts (the
@@ -94,10 +94,32 @@ def test_swin_block_kernel_matches_plain(dev, dtype, c, heads, shape, shift):
     ops = [t.to(dev, dtype if i in (2, 4, 9, 11) else torch.float32) for i, t in enumerate(ops)]
     engagement.reset()
     got = fused_swin_block(x, *ops, heads=heads, window_size=8, shift=shift)
-    entry = "swin_block_mma_bf16" if dtype == torch.bfloat16 else "swin_block_f32"
+    entry = "swin_block_mma_bf16" if dtype == torch.bfloat16 else "swin_block_mma_f32"  # f32: every case C <= 180
     assert engagement.entries() == {"fused_swin_block": {entry: 1}}
     want = swin_block_plain(x.float(), *[t.float() for t in ops], heads=heads, window_size=8, shift=shift)
     _assert_close(got, want, dtype)
+
+
+# f32 B1 at geometries the 3xTF32 kernel declines keeps ``swin_block.cu``'s
+# first design, by rule (``f32_mma_takes``): C above 180 (184, 8 heads of 23;
+# 192, 6 of 32), head dim above 32 (96, 2 of 48), C not a multiple of 4 (90,
+# 6 of 15); H != W, batch 2, shift 0 and 4.
+SWIN_BLOCK_F32_FIRST_DESIGN_CASES = [
+    (184, 8, (1, 16, 24), 0), (184, 8, (1, 24, 16), 4), (192, 6, (1, 16, 8), 4), (96, 2, (2, 16, 24), 4),
+    (96, 2, (1, 24, 16), 0), (90, 6, (1, 16, 24), 4),
+]
+
+
+@pytest.mark.parametrize("c,heads,shape,shift", SWIN_BLOCK_F32_FIRST_DESIGN_CASES)
+def test_swin_block_f32_first_design_matches_plain(dev, c, heads, shape, shift):
+    gen = torch.Generator().manual_seed(c + shift)
+    ops = [t.to(dev) for t in _block_operands(gen, c, heads, 2 * c)]
+    x = _randn(gen, *shape, c).to(dev)
+    engagement.reset()
+    got = fused_swin_block(x, *ops, heads=heads, window_size=8, shift=shift)
+    assert engagement.entries() == {"fused_swin_block": {"swin_block_f32": 1}}
+    want = swin_block_plain(x, *ops, heads=heads, window_size=8, shift=shift)
+    _assert_close(got, want, torch.float32)
 
 
 @pytest.mark.parametrize("c,heads,shape,shift", [(180, 6, (1, 24, 16), 4), (32, 2, (2, 16, 24), 0)])
@@ -134,9 +156,62 @@ def test_swin_block_bf16_raises_on_geometries_it_does_not_take(dev, c, heads, wh
     assert engagement.counters() == {}
 
 
-# B2 (bf16: ``csrc/conv3x3_mma.cuh``, f32: ``conv3x3.cuh``): Cin 180, 20 (a
-# partial 16-channel stage) and 3; Cout 3, 12, 48, 70, 180 and 200 (two
-# blocks of 192); maps that are not tile multiples, odd widths; each
+@pytest.mark.parametrize("c,heads,shape,shift", [(180, 6, (1, 24, 16), 4), (180, 6, (1, 24, 24), 0),
+                                                  (32, 2, (2, 16, 24), 4), (32, 2, (2, 16, 24), 0)])
+def test_swin_block_f32_packed_weights_match_dense_bitwise(dev, c, heads, shape, shift):
+    """f32 B1 on the blob packed once (what serving holds) gives the bits of
+    dense weights packed per call, through ``swin_block_mma_f32``, and the C
+    library counts the blob's elements as the Python packer lays them out."""
+    from studiosr_tpu_torch.ops.cuda import _build
+    from studiosr_tpu_torch.ops.cuda.swin_block import _F32_RESTYPES, _F32_SIGNATURES, pack_swin_f32
+
+    gen = torch.Generator().manual_seed(c + shift)
+    ops = [t.to(dev) for t in _block_operands(gen, c, heads, 2 * c)]
+    x = _randn(gen, *shape, c).to(dev)
+    packed = pack_swin_f32(ops[2], ops[4], ops[6], ops[9], ops[11], heads)
+    lib = _build.load("swin_block_f32", _F32_SIGNATURES, _F32_RESTYPES)
+    assert lib.swin_block_mma_f32_elements(c, heads, 2 * c) == packed.numel()
+    dense = fused_swin_block(x, *ops, heads=heads, window_size=8, shift=shift)
+    ops[2], ops[4], ops[6], ops[9], ops[11] = packed, None, None, None, None
+    engagement.reset()
+    got = fused_swin_block(x, *ops, heads=heads, window_size=8, shift=shift)
+    assert engagement.entries() == {"fused_swin_block": {"swin_block_mma_f32": 1}}
+    assert torch.equal(got, dense)
+    assert torch.equal(fused_swin_block(x, *ops, heads=heads, window_size=8, shift=shift), got)  # launch to launch
+
+
+def test_f32_h100_entries_refuse_geometries_they_do_not_take(dev):
+    """The 3xTF32 entries refuse what their routing rules send elsewhere:
+    B1 at C above 180 or a head dim above 32 (no blob size), a window
+    geometry off 8; the f32 conv at Cout <= 16, a residual with Cin != Cout
+    and weights off 16 bytes; the wrappers never hand them such launches."""
+    from studiosr_tpu_torch.ops.cuda import _build
+    from studiosr_tpu_torch.ops.cuda.conv3x3 import _RESTYPES, _SIGNATURES
+    from studiosr_tpu_torch.ops.cuda.swin_block import _F32_RESTYPES, _F32_SIGNATURES
+
+    b1 = _build.load("swin_block_f32", _F32_SIGNATURES, _F32_RESTYPES)
+    assert b1.swin_block_mma_f32_elements(184, 8, 368) == -1
+    assert b1.swin_block_mma_f32_elements(96, 2, 192) == -1
+    assert b1.swin_block_mma_f32_elements(90, 6, 180) == -1
+    buf = torch.zeros(1 << 20, device=dev)
+    p = buf.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    elements = b1.swin_block_mma_f32_elements(32, 2, 64)
+    for h, w, shift in ((12, 16, 0), (16, 16, 8)):  # H not a multiple of 8; shift 8
+        assert b1.swin_block_mma_f32(p, p, p, *[p] * 8, 1, h, w, 32, 2, 64, shift, elements, stream) != 0
+    assert b1.swin_block_mma_f32(p, p, p, *[p] * 8, 1, 16, 16, 32, 2, 64, 0, elements - 1, stream) != 0
+    conv = _build.load("conv3x3", _SIGNATURES, _RESTYPES)
+    assert conv.conv3x3_mma_f32_elements(180, 180) == 2 * 6 * 9 * 2 * 3072
+    assert conv.conv3x3_mma_f32(p, p, p, None, p, 1, 8, 8, 32, 16, 0, 0.0, 0, stream) != 0  # Cout 16
+    assert conv.conv3x3_mma_f32(p, p, p, None, p, 1, 8, 8, 32, 48, 0, 0.0, 1, stream) != 0  # residual, Cin != Cout
+    assert conv.conv3x3_mma_f32(p, p + 4, p, None, p, 1, 8, 8, 32, 48, 0, 0.0, 0, stream) != 0  # weights off 16 B
+    torch.cuda.synchronize()
+
+
+# B2 (bf16: ``csrc/conv3x3_mma.cuh``; f32: ``conv3x3_f32.cuh`` at Cout > 16,
+# ``conv3x3.cuh`` below): Cin 180, 20 (a partial 16-channel stage) and 3;
+# Cout 3, 12, 48, 70, 180 and 200 (two blocks of 192); maps that are not
+# tile multiples, odd widths; each
 # activation with the residual and the extra map; ``offset`` 1 starts x and
 # extra one element into their storage, so no pixel row is 4-byte aligned.
 CONV_CASES = [
@@ -166,12 +241,14 @@ def test_conv3x3_kernel_matches_plain(dev, dtype, cin, cout, activation, residua
     extra = mapped(cout) if with_extra else None
     engagement.reset()
     got = fused_conv3x3(x, w, b, activation, residual, extra)
-    entry = "conv3x3_mma_bf16" if dtype == torch.bfloat16 else "conv3x3_f32"
+    entry = "conv3x3_mma_bf16" if dtype == torch.bfloat16 else "conv3x3_mma_f32" if cout > 16 else "conv3x3_f32"
     assert engagement.entries() == {"fused_conv3x3": {entry: 1}}
     want = conv3x3_plain(x.float(), w.float(), b, activation, residual, None if extra is None else extra.float())
     _assert_close(got, want, dtype)
     if dtype == torch.bfloat16:  # the serving layout: packed once, the same bits
         assert torch.equal(fused_conv3x3(x, pack_conv3x3_weights(w), b, activation, residual, extra), got)
+    elif cout > 16:
+        assert torch.equal(fused_conv3x3(x, pack_conv3x3_f32_weights(w), b, activation, residual, extra), got)
 
 
 # B3 and B4 (bf16: the kernels of ``csrc/upsampler.cu`` written for the H100,
@@ -203,13 +280,12 @@ def test_upsample_x4_kernel_matches_plain(dev, dtype, shape):
     ops = _tail_operands(gen, cin, 4 * cin, dev, dtype, convs=2)
     engagement.reset()
     got = fused_upsample_x4(x, *ops)
-    entry = "upsample_x4_mma_bf16" if dtype == torch.bfloat16 else "upsample_x4_f32"
+    entry = "upsample_x4_mma_bf16" if dtype == torch.bfloat16 else "upsample_x4_mma_f32"  # f32: 4 Cin > 16
     assert engagement.entries() == {"fused_upsample_x4": {entry: 1}}
     assert tuple(got.shape) == (shape[0], 4 * shape[1], 4 * shape[2], 3)
     want = upsample_x4_plain(x.float(), *[t.float() for t in ops])
     _assert_close(got, want, dtype)
-    if dtype == torch.bfloat16:
-        assert torch.equal(fused_upsample_x4(x, *pack_tail(ops, 4)), got)
+    assert torch.equal(fused_upsample_x4(x, *pack_tail(ops, 4)), got)  # the serving layout: the same bits
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -223,13 +299,31 @@ def test_upsample_s_kernel_matches_plain(dev, dtype, s, shape):
     engagement.reset()
     got = fused_upsample_s(x, *ops, s)
     assert engagement.counters() == {"fused_upsample_s": 1}
-    entry = "upsample_s_mma_bf16" if dtype == torch.bfloat16 else "upsample_s_f32"
+    entry = "upsample_s_mma_bf16" if dtype == torch.bfloat16 else "upsample_s_mma_f32"  # f32: s^2 Cin > 16
     assert engagement.entries() == {"fused_upsample_s": {entry: 1}}
     assert tuple(got.shape) == (shape[0], s * shape[1], s * shape[2], 3)
     want = upsample_s_plain(x.float(), *[t.float() for t in ops], s)
     _assert_close(got, want, dtype)
-    if dtype == torch.bfloat16:
-        assert torch.equal(fused_upsample_s(x, *pack_tail(ops, s), s), got)
+    assert torch.equal(fused_upsample_s(x, *pack_tail(ops, s), s), got)  # the serving layout: the same bits
+
+
+@pytest.mark.parametrize("scale,shape", [(4, (1, 12, 10, 4)), (2, (2, 9, 20, 4)), (3, (1, 20, 9, 1))])
+def test_upsample_f32_narrow_tails_keep_the_fma_kernel(dev, scale, shape):
+    """f32 tails with s^2 Cin <= 16 run every pass on conv3x3.cuh's FMA
+    kernel (``upsample_x4_f32``, ``upsample_s_f32``), by rule; ``pack_tail``
+    leaves their weights HWIO."""
+    gen = torch.Generator().manual_seed(scale * shape[-1] + shape[1])
+    cin, s = shape[-1], 2 if scale == 4 else scale
+    x = _randn(gen, *shape).to(dev)
+    ops = _tail_operands(gen, cin, s * s * cin, dev, torch.float32, convs=2 if scale == 4 else 1)
+    assert all(a is b for a, b in zip(pack_tail(ops, scale), ops))
+    engagement.reset()
+    got = fused_upsample_x4(x, *ops) if scale == 4 else fused_upsample_s(x, *ops, scale)
+    name = "fused_upsample_x4" if scale == 4 else "fused_upsample_s"
+    assert engagement.entries() == {name: {name[6:] + "_f32": 1}}
+    assert tuple(got.shape) == (shape[0], scale * shape[1], scale * shape[2], 3)
+    want = upsample_x4_plain(x, *ops) if scale == 4 else upsample_s_plain(x, *ops, scale)
+    _assert_close(got, want, torch.float32)
 
 
 def test_upsample_bf16_raises_on_geometries_it_does_not_take(dev):
@@ -1401,7 +1495,7 @@ def test_resblock_kernel_matches_plain(dev, dtype, shape, activation, res_scale)
     ops = [t.to(dev, dtype if t.dim() == 4 else torch.float32) for t in ops]
     engagement.reset()
     got = fused_resblock(x, *ops, res_scale=res_scale, activation=activation)
-    entry = "resblock_mma_bf16" if dtype == torch.bfloat16 else "resblock_f32"
+    entry = "resblock_mma_bf16" if dtype == torch.bfloat16 else "resblock_mma_f32" if c > 16 else "resblock_f32"
     assert engagement.counters() == {"fused_resblock": 1}
     assert engagement.entries() == {"fused_resblock": {entry: 1}}
     want = resblock_plain(x.float(), *[t.float() for t in ops], res_scale=res_scale, activation=activation)

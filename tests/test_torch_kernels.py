@@ -18,11 +18,12 @@ from studiosr_tpu.ops.pallas.upsampler import fused_upsample_x4 as jax_fused_ups
 from studiosr_tpu.ops.windows import calculate_mask
 from studiosr_tpu_torch.ops.cuda import engagement
 from studiosr_tpu_torch.ops.cuda.conv3x3 import (
-    fused_conv3x3, fused_resblock, pack_conv3x3_weights, packed_conv3x3_shape, parse_activation,
-    prepare_fused_conv3x3_weights, resblock_plain, unpack_conv3x3_weights,
+    fused_conv3x3, fused_resblock, pack_conv3x3_f32_weights, pack_conv3x3_weights, packed_conv3x3_shape,
+    parse_activation, prepare_fused_conv3x3_weights, resblock_plain, unpack_conv3x3_weights,
 )
 from studiosr_tpu_torch.ops.cuda.swin_block import (
-    fused_swin_block, mma_geometry_error, pack_swin_weights, swin_block_plain, swin_pack_stages, unpack_swin_weights,
+    fused_swin_block, mma_geometry_error, pack_swin_f32, pack_swin_weights, swin_block_plain, swin_pack_stages,
+    unpack_swin_weights,
 )
 from studiosr_tpu_torch.ops.cuda.upsampler import fused_upsample_x4
 from studiosr_tpu_torch.ops.cuda._launch import STREAM
@@ -135,7 +136,8 @@ def test_packed_conv3x3_plain_matches_hwio_and_pallas(activation, residual):
     extra = rng.standard_normal((2, 9, 13, cout), dtype=np.float32)
     prepared = prepare_fused_conv3x3_weights(w.permute(3, 2, 0, 1), torch.bfloat16)
     assert torch.equal(prepared, pack_conv3x3_weights(w))
-    assert torch.equal(prepare_fused_conv3x3_weights(w.permute(3, 2, 0, 1), torch.float32), w)  # f32 keeps HWIO
+    assert torch.equal(prepare_fused_conv3x3_weights(w.permute(3, 2, 0, 1), torch.float32),
+                       pack_conv3x3_f32_weights(w))  # f32 at Cout 20 > 16: the 3xTF32 kernel's images
     got = fused_conv3x3(_t(x), prepared, _t(b), activation, residual, _t(extra))
     hwio = fused_conv3x3(_t(x), w, _t(b), activation, residual, _t(extra))
     assert torch.equal(got, hwio)
@@ -195,17 +197,18 @@ def _fake_launches(monkeypatch, module):
     from studiosr_tpu_torch.ops.cuda import _build
 
     lib = _FakeLibrary()
-    monkeypatch.setattr(_build, "load", lambda name, signatures: lib)
+    monkeypatch.setattr(_build, "load", lambda name, signatures, restypes=None: lib)
     monkeypatch.setattr(module, "call", _meta_call)
     engagement.reset()
     return lib
 
 
-@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "conv3x3_mma_bf16"), (torch.float32, "conv3x3_f32")])
+@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "conv3x3_mma_bf16"), (torch.float32, "conv3x3_mma_f32")])
 def test_conv3x3_launch_takes_the_entry_of_its_dtype(monkeypatch, dtype, entry):
-    """bf16 goes to the kernel written for the H100 (HWIO weights packed on
-    the way, packed ones as they are), f32 to the FMA kernel; each launch
-    counts under ``fused_conv3x3`` and under its entry."""
+    """bf16 goes to the kernel written for the H100, f32 (Cout 180 > 16) to
+    the 3xTF32 kernel written for it (HWIO weights packed on the way, packed
+    ones as they are); each launch counts under ``fused_conv3x3`` and under
+    its entry."""
     import studiosr_tpu_torch.ops.cuda.conv3x3 as module
 
     lib = _fake_launches(monkeypatch, module)
@@ -224,7 +227,9 @@ def test_conv3x3_launch_takes_the_entry_of_its_dtype(monkeypatch, dtype, entry):
         with pytest.raises(ValueError, match="shape"):  # packed for another Cin
             fused_conv3x3(x, pack_conv3x3_weights(w[:, :, :64]), b)
     else:
-        with pytest.raises(ValueError, match="shape"):  # f32 takes HWIO only
+        fused_conv3x3(x, pack_conv3x3_f32_weights(w), b, "lrelu0.2", True, torch.empty_like(x))
+        assert engagement.entries() == {"fused_conv3x3": {entry: 2}}
+        with pytest.raises(ValueError, match="shape"):  # the bf16 layout's shape, in f32
             fused_conv3x3(x, torch.empty(1, 12, 9, 16, 200, dtype=dtype, device="meta"), b)
     engagement.reset()
     assert engagement.entries() == {}
@@ -404,21 +409,27 @@ def test_swin_block_bf16_geometry_errors_name_the_geometry(c, heads, why):
 
 
 class _CountingLibrary(_FakeLibrary):
-    """A fake kernel library whose ``swin_block_mma_elements`` answers with
-    the packer's element count, as the built library does."""
+    """A fake kernel library whose ``swin_block_mma_elements`` and
+    ``swin_block_mma_f32_elements`` answer with the packers' element counts,
+    as the built libraries do."""
 
     def swin_block_mma_elements(self, c, heads, hidden):
         self.calls.append(("swin_block_mma_elements", (c, heads, hidden)))
         stages = swin_pack_stages(c, heads, hidden)
         return sum(nrows * ncols + (8192 if kind == "pb" else 0) for kind, _, _, nrows, ncols in stages)
 
+    def swin_block_mma_f32_elements(self, c, heads, hidden):
+        self.calls.append(("swin_block_mma_f32_elements", (c, heads, hidden)))
+        return 614400 if (c, heads, hidden) == (180, 6, 360) else -1
 
-@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "swin_block_mma_bf16"), (torch.float32, "swin_block_f32")])
+
+@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "swin_block_mma_bf16"), (torch.float32, "swin_block_mma_f32")])
 def test_swin_block_launch_takes_the_entry_of_its_dtype(monkeypatch, dtype, entry):
-    """bf16 goes to the kernel written for the H100 (dense weights packed on
-    the way, the packed blob as it is), f32 to the older kernel; each launch
-    counts under ``fused_swin_block`` and under its entry; a geometry the
-    bf16 kernel does not take raises before any launch."""
+    """bf16 goes to the kernel written for the H100, f32 (C 180, head dim
+    30) to the 3xTF32 kernel written for it (dense weights packed on the
+    way, the packed blob as it is); each launch counts under
+    ``fused_swin_block`` and under its entry; a geometry the bf16 kernel
+    does not take raises before any launch."""
     import studiosr_tpu_torch.ops.cuda.swin_block as module
     from studiosr_tpu_torch.ops.cuda import _build
 
@@ -436,7 +447,7 @@ def test_swin_block_launch_takes_the_entry_of_its_dtype(monkeypatch, dtype, entr
     x = meta(2, 24, 16, c)
     out = fused_swin_block(x, **ops, heads=heads, window_size=8, shift=4)
     assert out.shape == x.shape and out.dtype == dtype and out.device.type == "meta"
-    launches = [(name, args) for name, args in lib.calls if name != "swin_block_mma_elements"]
+    launches = [(name, args) for name, args in lib.calls if not name.endswith("_elements")]
     assert [name for name, _ in launches] == [entry]
     if dtype == torch.bfloat16:
         assert launches[0][1][11:19] == (2, 24, 16, c, heads, hidden, 4, 333440)  # B, H, W, C, heads, hidden, shift, elements
@@ -449,16 +460,20 @@ def test_swin_block_launch_takes_the_entry_of_its_dtype(monkeypatch, dtype, entr
         with pytest.raises(NotImplementedError, match="head dim 60"):
             fused_swin_block(x, **ops, heads=3, window_size=8)
     else:
-        assert launches[0][1][2:9] == (2, 24, 16, c, heads, hidden, 4)
-        assert engagement.entries() == {"fused_swin_block": {entry: 1}}
+        assert launches[0][1][11:19] == (2, 24, 16, c, heads, hidden, 4, 614400)  # ..., shift, elements
+        packed = pack_swin_f32(ops["wqkv"], ops["wproj"], ops["bias"], ops["w1"], ops["w2"], heads)
+        fused_swin_block(x, **dict(ops, wqkv=packed, wproj=None, bias=None, w1=None, w2=None), heads=heads,
+                         window_size=8)
+        assert engagement.entries() == {"fused_swin_block": {entry: 2}}
     assert engagement.counters() == {"fused_swin_block": len([n for n, _ in lib.calls if n == entry])}
 
 
-@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "resblock_mma_bf16"), (torch.float32, "resblock_f32")])
+@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "resblock_mma_bf16"), (torch.float32, "resblock_mma_f32")])
 def test_resblock_launch_takes_the_entry_of_its_dtype(monkeypatch, dtype, entry):
-    """bf16 B14 runs both passes on B2's kernel written for the H100, on
-    packed weights (HWIO packed on the way); f32 on HWIO. The activation,
-    its slope and res_scale reach the entry."""
+    """bf16 B14 runs both passes on B2's kernel written for the H100, f32 (C
+    180 > 16) on B2's 3xTF32 kernel written for it, both on packed weights
+    (HWIO packed on the way). The activation, its slope and res_scale reach
+    the entry."""
     import studiosr_tpu_torch.ops.cuda.conv3x3 as module
 
     lib = _fake_launches(monkeypatch, module)
@@ -474,5 +489,7 @@ def test_resblock_launch_takes_the_entry_of_its_dtype(monkeypatch, dtype, entry)
         fused_resblock(x, pack_conv3x3_weights(w), b, pack_conv3x3_weights(w), b)
         assert engagement.entries() == {"fused_resblock": {entry: 2}}
     else:
-        with pytest.raises(ValueError, match="shape"):  # f32 takes HWIO only
+        fused_resblock(x, pack_conv3x3_f32_weights(w), b, pack_conv3x3_f32_weights(w), b)
+        assert engagement.entries() == {"fused_resblock": {entry: 2}}
+        with pytest.raises(ValueError, match="shape"):  # the bf16 layout's shape, in f32
             fused_resblock(x, pack_conv3x3_weights(w).float(), b, w, b)

@@ -202,8 +202,9 @@ def _bf16_pair(**kw):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_prepare_serving_packs_the_sfb_convs_for_bf16_only(dtype):
     """bf16 serving holds each SFB's two spatial-branch convs packed for
-    B14 (and B1's weights in its blob); f32 keeps HWIO and dense weights."""
-    from studiosr_tpu_torch.ops.cuda.conv3x3 import unpack_conv3x3_weights
+    B14 (and B1's weights in its blob); so does f32, in the 3xTF32 kernels'
+    layouts (C 32 > 16)."""
+    from studiosr_tpu_torch.ops.cuda.conv3x3 import unpack_conv3x3_f32_weights, unpack_conv3x3_weights
     from studiosr_tpu_torch.serving import prepare_serving
 
     _, model = _bf16_pair(scale=4, **SMALL)
@@ -214,12 +215,12 @@ def test_prepare_serving_packs_the_sfb_convs_for_bf16_only(dtype):
         if dtype == torch.bfloat16:
             assert sfb["s0"].dim() == 5 and sfb["s2"].dtype == torch.bfloat16
         else:
-            assert sfb["s0"].shape == (3, 3, c, c) and sfb["s2"].dtype == torch.float32
+            assert sfb["s0"].dim() == 5 and sfb["s2"].dtype == torch.float32
     conv = model.module.conv_after_body.S.body._modules["0"]
     got = prep["after_body"]["s0"]
-    hwio = unpack_conv3x3_weights(got, c, c) if got.dim() == 5 else got
-    assert torch.equal(hwio.float(), conv.weight.permute(2, 3, 1, 0))
-    assert (prep["blocks"][0][0]["wqkv"].dim() == 1) == (dtype == torch.bfloat16)
+    unpack = unpack_conv3x3_weights if dtype == torch.bfloat16 else unpack_conv3x3_f32_weights
+    assert torch.equal(unpack(got, c, c).float(), conv.weight.permute(2, 3, 1, 0))  # bf16-exact weights: hi + lo is w
+    assert prep["blocks"][0][0]["wqkv"].dim() == 1
 
 
 def test_fast_forward_on_bf16_prepared_weights_matches_jax():

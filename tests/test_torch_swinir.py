@@ -188,11 +188,13 @@ def test_fused_scale8_records_structural_decline():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_prepare_serving_packs_b1_and_b2_for_bf16_only(dtype):
     """bf16 serving holds B1's weights and rel-pos bias in its kernel's blob
-    and B2's conv weights packed; f32 keeps dense (in, out) weights, the
-    gathered bias and HWIO convs. B3's tail is packed in bf16 (the two
-    pixel-shuffle convs in the wgmma ring's layout, conv_last in mma
-    fragment order) and HWIO in f32."""
-    from studiosr_tpu_torch.ops.cuda.swin_block import unpack_swin_weights
+    and B2's conv weights packed; so does f32 at window 8, in the 3xTF32
+    kernels' blob and images (hi + lo of each weight). B3's tail is packed
+    in bf16 (the two pixel-shuffle convs in the wgmma ring's layout,
+    conv_last in mma fragment order); in f32 its two pixel-shuffle convs are
+    packed for the f32 conv and conv_last (3 colours) stays HWIO."""
+    from studiosr_tpu_torch.ops.cuda import tf32x3
+    from studiosr_tpu_torch.ops.cuda.swin_block import unpack_swin_f32, unpack_swin_weights
 
     _, model = _bf16_pair(scale=4, **SMALL)
     prep = prepare_serving(model.module, model.config, dtype)
@@ -208,9 +210,16 @@ def test_prepare_serving_packs_b1_and_b2_for_bf16_only(dtype):
         assert bias.shape == (2, 64, 64) and w1.shape == (c, hidden) and w2.shape == (hidden, c)
         assert w.dim() == 5 and w.dtype == torch.bfloat16
     else:
-        assert blk["wqkv"].shape == (c, 3 * c) and blk["bias"].shape == (2, 64, 64) and blk["w1"].shape == (c, hidden)
-        assert w.shape == (3, 3, c, c) and w.dtype == torch.float32
-    dims = (6, 6, 5) if dtype == torch.bfloat16 else (4, 4, 4)
+        assert blk["wqkv"].dim() == 1 and blk["wqkv"].dtype == torch.float32
+        assert all(blk[k] is None for k in ("wproj", "bias", "w1", "w2"))
+        wqkv, wproj, bias, w1, w2 = unpack_swin_f32(blk["wqkv"], c, 2, hidden)
+        attn = model.module.layers[0].residual_group.blocks[1].attn
+        for got, dense in ((wqkv, attn.qkv.weight.t()), (wproj, attn.proj.weight.t())):
+            hi, lo = tf32x3.split(dense.detach().contiguous())
+            assert torch.equal(got, hi + lo)
+        assert bias.shape == (2, 64, 64) and w1.shape == (c, hidden) and w2.shape == (hidden, c)
+        assert w.dim() == (5 if c > 16 else 4) and w.dtype == torch.float32  # the f32 conv packs Cout > 16
+    dims = (6, 6, 5) if dtype == torch.bfloat16 else (5, 5, 4)
     assert tuple(t.dim() for t in prep["tail"][::2]) == dims
     assert all(t.dtype == torch.float32 for t in prep["tail"][1::2])
 

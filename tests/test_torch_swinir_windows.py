@@ -94,7 +94,8 @@ def test_fast_forward_on_bf16_prepared_operands_matches_jax(ws):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("ws", (4, 8, 12, 16))
 def test_prepare_serving_lays_out_b1_at_8_and_b5_b6_elsewhere(ws, dtype):
-    """Window 8 keeps B1's operands (its blob in bf16); the other windows
+    """Window 8 keeps B1's operands (its blob in bf16, and in f32 the 3xTF32
+    kernel's blob); the other windows
     get B5's (packed with the bias in bf16, dense with the gathered (heads,
     N, N) bias in f32) and B6's (packed in bf16, dense in f32)."""
     _, model = _pair(JaxSwinIR, SwinIR, bf16=True, **_small(ws))
@@ -104,7 +105,7 @@ def test_prepare_serving_lays_out_b1_at_8_and_b5_b6_elsewhere(ws, dtype):
     if ws == 8:
         assert set(blk) == {"ln1_w", "ln1_b", "wqkv", "bqkv", "wproj", "bproj", "bias", "ln2_w", "ln2_b", "w1", "b1",
                             "w2", "b2"}
-        assert (blk["wqkv"].dim() == 1) == (dtype == torch.bfloat16)
+        assert blk["wqkv"].dim() == 1 and blk["wqkv"].dtype == dtype
         return
     assert set(blk) == {"attn", "mlp"}
     attn, mlp = blk["attn"], blk["mlp"]

@@ -7,7 +7,8 @@ B fragments in lane order) are built here index by index from the rule the
 kernels read them by, and unpacked back to HWIO. The wrappers on CPU
 tensors given packed weights are held against the JAX package's Pallas
 tails in interpret mode on the same (bf16-representable) weights, and
-``tail_operands`` packs in bf16 and leaves f32 as HWIO.
+``tail_operands`` packs in bf16 and, for the f32 conv written for the H100,
+the pixel-shuffle convs in f32 (conv_last stays HWIO).
 """
 
 import itertools
@@ -21,7 +22,7 @@ from studiosr_tpu.ops.pallas.upsampler import fused_upsample_s as jax_fused_upsa
 from studiosr_tpu.ops.pallas.upsampler import fused_upsample_x4 as jax_fused_upsample_x4
 from studiosr_tpu_torch import HAT, SwinIR
 from studiosr_tpu_torch.ops.cuda import engagement
-from studiosr_tpu_torch.ops.cuda.conv3x3 import prepare_conv3x3_weights
+from studiosr_tpu_torch.ops.cuda.conv3x3 import pack_conv3x3_f32_weights, prepare_conv3x3_weights
 from studiosr_tpu_torch.ops.cuda.upsampler import (
     fused_upsample_s, fused_upsample_x4, mma_geometry_error, pack_conv_last_weights, pack_shuffle_conv_weights,
     pack_tail, unpack_conv_last_weights, unpack_shuffle_conv_weights, upsample_s_plain, upsample_x4_plain,
@@ -176,8 +177,8 @@ def test_tail_operands_pack_for_bf16_and_leave_f32_hwio(name, scale, dtype):
         assert torch.equal(b, conv.bias.detach().float())
         if dtype == torch.bfloat16:
             assert w.dim() == 6 and torch.equal(w, pack_shuffle_conv_weights(hwio, s))
-        else:
-            assert w.dim() == 4 and torch.equal(w, hwio)
+        else:  # f32: the 3xTF32 conv's images (s^2 64 > 16); conv_last stays HWIO
+            assert w.dim() == 5 and torch.equal(w, pack_conv3x3_f32_weights(hwio))
     last = prepare_conv3x3_weights(module.conv_last.weight, dtype)
     want_last = pack_conv_last_weights(last) if dtype == torch.bfloat16 else last
     assert torch.equal(tail[-2], want_last) and tail[-2].dtype == dtype
