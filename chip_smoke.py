@@ -21,6 +21,8 @@ against its plain PyTorch version:
   recipe (``models/hat.py`` ``_TRAINING_CONFIG``), batch 32 of 64x64 LR
   crops, bf16 over f32 master weights, drop_path_rate 0.1, ``fused_train``
   on (B5 at window 16, B9, B6, B7: 36 launches each a step; B12, B13: 6);
+  and the same in f32, the JAX Trainer's ``bfloat16=False`` (B13 through
+  its 3xTF32 kernel);
 * x2 / x3 serving of both, the x2 / x3 tail through B4: SwinIR at
   JingyunLiang/SwinIR ``001_classicalSR_DF2K_s64w8_SwinIR-M_x2`` / ``_x3``
   and HAT at ``options/test/HAT_SRx2.yml`` / ``HAT_SRx3.yml``, bf16, batch 1,
@@ -32,8 +34,8 @@ against its plain PyTorch version:
   L1; B5-B8 for the Swin blocks, the SFBs in plain autograd);
 * MaxSR x4 at the JAX package's ``build`` defaults (adaptive, dim 128, 4
   heads of 32, depth [4]x4) and in its static mode at the same widths:
-  serving bf16, batch 1, 256x256 LR input, the 32 attention cores of a
-  forward through B15;
+  serving bf16 and f32, batch 1, 256x256 LR input, the 32 attention cores
+  of a forward through B15;
 * MaxSR x4 training at the same widths: ``Trainer.run`` at the JAX
   package's recipe, batch 32 of 64x64 LR crops, bf16 over f32 masters,
   ``fused_train`` by default (B5-B8 at C 128, 4 heads of 32, window 8, B6 /
@@ -149,7 +151,8 @@ Phases, in order; any failure exits non-zero before the final line:
     transposed views at its geometry (256 queries, 576 keys, d 30), on 37
     windows and at the trained fixtures' (64, 144, d 16), with logits large
     enough that the row max matters (the path's bias in the run's dtype, as
-    the bf16 step gathers it), B12 and B13 launched twice for the same bits;
+    the bf16 step gathers it), B12 and B13 launched twice for the same bits
+    (B13 in f32 too, through ``oca_core_bwd_mma_f32``);
 14. HAT gradients end to end, batch 4, as phase 7: the fused-train HAT's
     loss and every gradient in f32 and bf16 against an f64 witness (plain
     autograd of the port's HAT in f64), every ReLU (the squeeze-excite
@@ -162,6 +165,13 @@ Phases, in order; any failure exits non-zero before the final line:
     after 2 warm-up steps; B5 at window 16, B9, B12 and B13 at batch 32:
     ms, plain ms, bound, and for B12 / B13 the library call's ms
     (``F.scaled_dot_product_attention`` with the bias as its mask);
+16b. HAT x4 f32 training (``phase_hat_train_f32``, the JAX Trainer's
+    ``bfloat16=False``): ``Trainer.run`` for 3 steps at batch 32, the
+    launches a step (B13 6 through ``oca_core_bwd_mma_f32``, every f32
+    launch through its entry), finite losses, moved weights; step ms and
+    peak memory; B13 at the step's shapes in f32 against its plain version,
+    twice for the same bits, timed beside SDPA's f32 backward (the
+    ``oca_core_bwd_f32`` row, bound at 3xTF32);
 17. B4 vs plain at s = 2 and 3, f32 and bf16, at SwinIR's (1, 264, 264,
     64), HAT's (1, 256, 256, 64) and a ragged (2, 37, 53, 64), each launch
     through its entry;
@@ -194,11 +204,13 @@ Phases, in order; any failure exits non-zero before the final line:
 22. B15 vs plain, f32 and bf16: MaxSR adaptive (256 windows of 256 tokens,
     4 heads, d 32, no bias), static (1024 windows of 64 tokens, a table
     bias), a mask over the windows of 2 images, N = M = 1024, N 36 at d 16,
-    d 12; N 1089 raises; ms, plain ms, bound and SDPA ms at the two MaxSR
-    shapes;
+    d 12, each launch through its dtype's entry (f32 ``window_attn_flash_f32``);
+    N 1089 raises; ms, plain ms, bound and SDPA ms at the two MaxSR shapes in
+    bf16 and in f32 (the ``window_attention_pallas_f32`` row, bound at 3xTF32);
 23. MaxSR x4 serving at full width, adaptive and static: fused vs plain
-    forward (f32, bf16), three requests with 32 B15 launches a forward and
-    nothing else, the forward's time;
+    forward (f32, its 32 B15 launches through ``window_attn_flash_f32``;
+    bf16), three requests with 32 B15 launches a forward and nothing else,
+    the forward's time in bf16 and in f32;
 24. MaxSR training kernels vs plain at its geometry, batch 4 and 32 of
     64x64 maps (C 128, 4 heads of 32, window 8, zero qkv / proj biases, no
     drop-path), f32 and bf16: B5 and B8 with the static mode's table bias
@@ -571,14 +583,17 @@ H100_ENTRIES = {"fused_swin_block": "swin_block_mma_bf16", "fused_conv3x3": "con
                 "fused_window_attention_block_large": "window_attention_large_mma_bf16",
                 "fused_mlp_block": "mlp_block_mma_bf16", "fused_mlp_block_extra": "mlp_block_extra_mma_bf16",
                 "fused_cab_body": "cab_body_mma_bf16", "fused_ocab_block": "ocab_mma_bf16"}
-# f32 serving (SwinFIR's dtype and every fused f32 check): the C entry every
-# f32 launch of B1, B2, B3, B4 and B14 in the serving phases must take, the
-# 3xTF32 kernels written for the H100 (their geometry rules hold at every
-# width those phases serve; conv_last, Cout <= 16, runs inside the tails'
-# entries on the FMA kernel).
+# f32 serving (SwinFIR's dtype and every fused f32 check) and the f32 paths
+# of B13 and B15 (HAT's f32 step, MaxSR's f32 forward): the C entry every
+# f32 launch of B1, B2, B3, B4, B14, B15 and B13 in those phases must take,
+# the 3xTF32 kernels written for the H100 (their geometry rules hold at
+# every width those phases run; conv_last, Cout <= 16, runs inside the
+# tails' entries on the FMA kernel; B13 above HAT's window 16 counts under
+# ``oca_core_bwd_large``).
 F32_ENTRIES = {"fused_swin_block": "swin_block_mma_f32", "fused_conv3x3": "conv3x3_mma_f32",
                "fused_upsample_x4": "upsample_x4_mma_f32", "fused_upsample_s": "upsample_s_mma_f32",
-               "fused_resblock": "resblock_mma_f32"}
+               "fused_resblock": "resblock_mma_f32", "window_attention_pallas": "window_attn_flash_f32",
+               "oca_core_bwd": "oca_core_bwd_mma_f32"}
 KERNELS.update({
     "fused_swin_block_f32": ("studiosr_tpu_torch/csrc/swin_block_f32.cu", "studiosr_tpu/ops/pallas/swin_block.py:691"),
     "fused_conv3x3_f32": ("studiosr_tpu_torch/csrc/conv3x3_f32.cuh", "studiosr_tpu/ops/pallas/conv3x3.py:212"),
@@ -610,12 +625,26 @@ H100_KERNELS = {"fused_swin_block": ("swin_block_mma", "swin_block_mma_kernel"),
                 "fused_swin_block_f32": ("swin_block_f32", "sb32_kernel"),
                 "fused_conv3x3_f32": ("conv3x3", "ct_conv_kernel"),
                 "fused_upsample_x4_f32": ("upsampler", "ct_conv_kernel"),
-                "fused_resblock_f32": ("resblock", "ct_conv_kernel")}
+                "fused_resblock_f32": ("resblock", "ct_conv_kernel"),
+                "oca_core_bwd_f32": ("oca_bwd_f32", "o32_"),
+                "window_attention_pallas_f32": ("window_attn", "wf32_kernel")}
+# B13 at HAT's f32 step and B15 at MaxSR's f32 forward (3xTF32 on the
+# tensor cores): their rows in the kernels line, bound at 3xTF32
+KERNELS.update({
+    "oca_core_bwd_f32": ("studiosr_tpu_torch/csrc/oca_bwd_f32.cu", "studiosr_tpu/ops/pallas/oca_core.py:157"),
+    "window_attention_pallas_f32": ("studiosr_tpu_torch/csrc/window_attn.cu",
+                                    "studiosr_tpu/ops/pallas/window_attn.py:115"),
+})
+# HAT x4's f32 training (the JAX Trainer's ``bfloat16=False``) at the
+# recipe's batch 32 of 64x64 crops, HAT_TRAIN_MODEL's widths
+HAT_F32_TRAIN_STEPS = 3
+HAT_F32_TRAIN_DIR = ROOT / "build" / "chip_smoke_hat_f32_train"
 # The C entry every launch of B5-B9, B12 and B13 must take in a run of each
 # dtype: bf16 the kernels written for the H100 (their geometry rules hold at
 # every width the paths train); f32 B5 and B8 (windows 2-8), B6 (and its CAB
-# join) and B7 the f32 kernels written for the H100 (3xTF32 on the tensor
-# cores: SwinFIR's recipe trains in f32), the others the older kernels.
+# join), B7 and B13 up to HAT's window 16 the f32 kernels written for the
+# H100 (3xTF32 on the tensor cores: SwinFIR's recipe and HAT's f32 step
+# train in f32), the others the older kernels.
 TRAIN_ENTRIES = {
     torch.bfloat16: {"attention_bwd": "attn_bwd_mma_bf16", "attention_bwd_ws16": "attn_bwd16_mma_bf16",
                      "attention_bwd_large": "attn_bwd_large_mma_bf16",
@@ -632,7 +661,7 @@ TRAIN_ENTRIES = {
                     "fused_window_attention_block_ws16": "window_attention16_f32",
                     "fused_window_attention_block_large": "window_attention_large_f32", "mlp_bwd": "mlp_bwd_mma_f32",
                     "fused_mlp_block": "mlp_block_mma_f32", "fused_mlp_block_extra": "mlp_block_extra_mma_f32",
-                    "oca_core_bwd": "oca_core_bwd_f32",
+                    "oca_core_bwd": "oca_core_bwd_mma_f32",
                     "oca_core_fwd": "oca_core_fwd_f32", "oca_core_bwd_large": "oca_core_bwd_f32",
                     "oca_core_fwd_large": "oca_core_fwd_f32"},
 }
@@ -642,7 +671,7 @@ BITWISE = ("fused_mlp_block", "fused_mlp_block_extra", "oca_core_bwd", "fused_ca
            "fused_ocab_block", "fused_window_attention_block_large", "oca_core_fwd_large")
 # The f32 kernels redesigned last, held to the same bits from launch to
 # launch in f32 (phases 6, 10 and 13)
-BITWISE_F32 = ("fused_window_attention_block", "fused_mlp_block", "fused_mlp_block_extra")
+BITWISE_F32 = ("fused_window_attention_block", "fused_mlp_block", "fused_mlp_block_extra", "oca_core_bwd")
 # B1 in bf16 beyond the main path's shape, as the card tests take it: (C,
 # heads, map, shift): C 32 with 2 heads of 16 (the trained fixtures), C 180
 # at H != W and an odd window count (a half-empty last window pair), d 8,
@@ -2395,6 +2424,114 @@ def phase_hat_train_timing(model: HAT, dev: torch.device, errors: dict, launches
     return rows
 
 
+def phase_hat_train_f32(dev: torch.device) -> list:
+    """HAT x4's f32 training, the JAX Trainer's ``bfloat16=False``:
+    ``Trainer.run`` for HAT_F32_TRAIN_STEPS steps at batch 32 of 64x64
+    crops, fused_train on: the launches a step (HAT_PER_STEP), every f32
+    launch through its entry (TRAIN_ENTRIES; B13 through the 3xTF32
+    ``oca_core_bwd_mma_f32``, F32_ENTRIES), finite losses, moved weights;
+    step ms, images/s and peak memory over 3 steps after a warm-up. Then B13
+    at the step's shapes (512 windows, 6 heads, 256 | 576, d 30, the OCAB's
+    views, an f32 bias) against its plain version, twice for the same bits,
+    timed beside its plain version, its bound at 3xTF32 and SDPA's f32
+    backward: the ``oca_core_bwd_f32`` row."""
+    shutil.rmtree(HAT_F32_TRAIN_DIR, ignore_errors=True)
+    model = HAT.build(**HAT_TRAIN_MODEL, seed=SEED, device=dev)
+    losses: list = []
+
+    def criterion(pred, target):
+        loss = l1_loss(pred, target)
+        losses.append(loss.detach())
+        return loss
+
+    steps = HAT_F32_TRAIN_STEPS
+    trainer = Trainer(model, MemoryPairs(SEED), batch_size=TRAIN_BATCH, bfloat16=False, num_workers=4,
+                      max_iters=steps, eval_interval=steps + 1, ckpt_path=str(HAT_F32_TRAIN_DIR), seed=SEED,
+                      log_interval=100, loss_function=criterion)
+    before = {k: p.detach().clone() for k, p in model.module.named_parameters()}
+    engagement.reset()
+    t0 = time.perf_counter()
+    trainer.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, entries = engagement.counters(), engagement.entries()
+    values = [float(v) for v in losses]
+    log(f"\nhat trained {steps} steps in f32 in {seconds:.3f} s (host clock, first steps included); bf16 "
+        f"{trainer.bfloat16}, fused_train {trainer.fused_train}; launches {launches}; losses "
+        f"{[round(v, 6) for v in values]}")
+    failed = []
+    if trainer.bfloat16 or not trainer.fused_train:
+        failed.append("the f32 HAT trainer did not run f32 with fused_train on the card")
+    for name in set(launches) | set(HAT_PER_STEP):
+        if launches.get(name, 0) != HAT_PER_STEP.get(name, 0) * steps:
+            failed.append(f"hat f32 {name}: {launches.get(name, 0)} launches in {steps} steps, expected "
+                          f"{HAT_PER_STEP.get(name, 0)} a step")
+    failed += train_entry_failures("hat f32 trainer", launches, torch.float32, entries)
+    failed += f32_entry_failures("hat f32 trainer", launches)
+    if len(values) != steps or not all(np.isfinite(values)):
+        failed.append(f"hat f32 losses {values}")
+    moved = sum(not torch.equal(p.detach(), before[k]) for k, p in model.module.named_parameters())
+    if moved != len(before):
+        failed.append(f"only {moved} of {len(before)} HAT parameters changed in f32")
+    shutil.rmtree(HAT_F32_TRAIN_DIR, ignore_errors=True)
+    del before, trainer
+
+    module = model.module
+    module.fused_train = True
+    tx = build_optimizer()
+    state = prepare_state(module, tx)
+    step = make_train_step(module, tx, l1_loss, bfloat16=False)
+    lq, gt = _unit_batch(dev, TRAIN_BATCH, SEED + 4)
+    gen = torch.Generator().manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(lambda: step(state, lq, gt, gen), iters=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    module.fused_train = False
+    del state, tx, step
+    torch.cuda.empty_cache()
+    log(f"hat train step f32 batch {TRAIN_BATCH} {TRAIN_CROP}x{TRAIN_CROP}: {step_ms:.3f} ms, "
+        f"{TRAIN_BATCH / (step_ms / 1e3):.1f} images/s, peak memory {peak:.2f} GiB")
+
+    ops = next(o for name, label, _, _, o in hat_train_kernel_cases(model, dev, torch.float32, TRAIN_BATCH)
+               if name == "oca_core_bwd" and label == "path")
+    del model
+    engagement.reset()
+    got = oca_core_bwd(*ops)
+    again = oca_core_bwd(*ops)
+    torch.cuda.synchronize()
+    if engagement.entries() != {"oca_core_bwd": {"oca_core_bwd_mma_f32": 2}}:
+        failed.append(f"oca_core_bwd f32 at the step's shapes: entries {engagement.entries()}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        failed.append("oca_core_bwd f32 at the step's shapes: two launches differ")
+    want = oca_core_bwd_plain(*ops)
+    errs = [kernel_check(f"oca_core_bwd [hat f32 step, {TRAIN_BATCH * 16} windows] output {i}", a, e,
+                         torch.float32, failed) for i, (a, e) in enumerate(zip(got, want))]
+    del got, again, want
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: oca_core_bwd(*ops), iters=5)
+    plain_ms = time_ms(lambda: oca_core_bwd_plain(*ops), iters=2, warmup=1)
+    library_ms = sdpa_ms("oca_core_bwd", ops)
+    flops, moved_bytes = oca_bounds("oca_core_bwd", ops)
+    bms, by = bound_ms(flops, moved_bytes, PEAK_TF32X3_FLOPS)
+    per = HAT_PER_STEP["oca_core_bwd"]
+    log(f"time oca_core_bwd f32 [hat f32 step, {TRAIN_BATCH * 16} windows]: {ms:.3f} ms ({100 * per * ms / step_ms:.1f} "
+        f"% of the f32 step at {per} a step), plain {plain_ms:.3f} ms, bound {bms:.4f} ms at 3xTF32 ({by}; the FMA "
+        f"pipes {1e3 * flops / PEAK_FMA_FLOPS:.4f}), library (SDPA f32 backward with the mask's gradient) "
+        f"{library_ms if library_ms is None else round(library_ms, 4)} ms, {flops / 1e9:.2f} GFLOP, "
+        f"{moved_bytes / 1e6:.1f} MB; kernel / library "
+        f"{'none' if library_ms is None else round(ms / library_ms, 3)}, {100 * bms / ms:.1f} % of the bound; "
+        f"{ptxas_report('oca_core_bwd_f32')}")
+    del ops
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
+    source, replaces = KERNELS["oca_core_bwd_f32"]
+    return [dict(name="oca_core_bwd_f32", route="cuda", source=source, replaces=replaces,
+                 launches=launches.get("oca_core_bwd", 0), max_abs_err=errs[0], ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                 bound_by=by, library_ms=library_ms)]
+
+
 # -- x2 / x3 serving phases (B4) ------------------------------------------------
 
 
@@ -2910,23 +3047,28 @@ def window_attn_bounds(q, k, v, bias, mask) -> tuple:
 
 
 def phase_window_attn_kernels(dev: torch.device) -> tuple:
-    """B15 against its plain version, f32 then bf16, over WINDOW_ATTN_CASES;
-    N 1089 must raise. Then ms, plain ms, bound and SDPA ms at the two MaxSR
-    shapes. Returns ({label: timing}, bf16 max abs error at the adaptive
-    shape)."""
-    failed, error = [], None
+    """B15 against its plain version, f32 then bf16, over WINDOW_ATTN_CASES,
+    each launch through its dtype's entry (``window_attn_flash_f32`` /
+    ``_bf16``); N 1089 must raise. Then ms, plain ms, bound and SDPA ms at the
+    two MaxSR shapes, bf16 and f32 (bound at 3xTF32). Returns ({(label,
+    dtype): timing}, {dtype: max abs error at the adaptive shape})."""
+    failed, error = [], {}
     for dtype in (torch.float32, torch.bfloat16):
+        entry = "window_attn_flash_f32" if dtype == torch.float32 else H100_ENTRIES["window_attention_pallas"]
         for i, case in enumerate(WINDOW_ATTN_CASES):
             q, k, v, bias, mask = window_attn_ops(dev, dtype, case, SEED + 30 + i)
+            engagement.reset()
             got = window_attention(q, k, v, bias=bias, mask=mask)
             torch.cuda.synchronize()
+            if engagement.entries() != {"window_attention_pallas": {entry: 1}}:
+                failed.append(f"window_attention [{case[0]}] {dtype}: entries {engagement.entries()}")
             want = attention_plain(q.float(), k.float(), v.float(), bias, mask)
             _, bw, heads, n, d, _, nw = case
             part = f"window_attention [{case[0]}: {bw} windows, {heads} heads, N {n}, d {d}" + (
                 f", mask of {nw} windows]" if nw else "]")
             err = kernel_check(part, got, want, dtype, failed)
-            if dtype == torch.bfloat16 and case[0] == "adaptive":
-                error = err
+            if case[0] == "adaptive":
+                error[dtype] = err
             del got, want, q, k, v
     try:
         z = torch.zeros(1, 1, 1089, 16, device=dev, dtype=torch.bfloat16)
@@ -2938,28 +3080,34 @@ def phase_window_attn_kernels(dev: torch.device) -> tuple:
         raise AssertionError("B15 disagrees with its plain version: " + "; ".join(failed))
 
     timing = {}
-    for i, case in enumerate(WINDOW_ATTN_CASES[:2]):
-        q, k, v, bias, mask = ops = window_attn_ops(dev, torch.bfloat16, case, SEED + 30 + i)
-        ms = time_ms(lambda: window_attention(q, k, v, bias=bias), iters=10)
-        plain_ms = time_ms(lambda: attention_plain(q, k, v, bias), iters=5)
-        attn_mask = None if bias is None else bias.to(q.dtype)
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask, scale=1.0), iters=10)
-        flops, moved = window_attn_bounds(*ops)
-        bms, by = bound_ms(flops, moved)
-        timing[case[0]] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
-        log(f"time window_attention [{case[0]}] bf16 ({case[1]} windows, N {case[3]}): {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), library (F.scaled_dot_product_attention"
-            f"{'' if bias is None else ', bias as mask'}) {library_ms:.4f} ms, {flops / 1e9:.2f} GFLOP, "
-            f"{moved / 1e6:.1f} MB; kernel / library {ms / library_ms:.2f}, {100 * bms / ms:.1f} % of the bound")
-        del q, k, v, ops
+    for dtype in (torch.bfloat16, torch.float32):
+        for i, case in enumerate(WINDOW_ATTN_CASES[:2]):
+            q, k, v, bias, mask = ops = window_attn_ops(dev, dtype, case, SEED + 30 + i)
+            ms = time_ms(lambda: window_attention(q, k, v, bias=bias), iters=10)
+            plain_ms = time_ms(lambda: attention_plain(q, k, v, bias), iters=5)
+            attn_mask = None if bias is None else bias.to(q.dtype)
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask, scale=1.0),
+                                 iters=10)
+            flops, moved = window_attn_bounds(*ops)
+            bms, by = bound_ms(flops, moved, PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_TF32X3_FLOPS)
+            timing[(case[0], dtype)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
+            log(f"time window_attention [{case[0]}] {str(dtype)[6:]} ({case[1]} windows, N {case[3]}): {ms:.3f} ms, "
+                f"plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}{'' if dtype == torch.bfloat16 else ', 3xTF32'}), "
+                f"library (F.scaled_dot_product_attention{'' if bias is None else ', bias as mask'}) "
+                f"{library_ms:.4f} ms, {flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB; kernel / library "
+                f"{ms / library_ms:.2f}, {100 * bms / ms:.1f} % of the bound")
+            del q, k, v, ops
     log(f"  window_attention_pallas: {ptxas_report('window_attention_pallas')}")
+    log(f"  window_attention_pallas f32: {ptxas_report('window_attention_pallas_f32')}")
     return timing, error
 
 
 def phase_maxsr_serving(dev: torch.device, adaptive: bool) -> tuple:
     """MaxSR x4 at full width in one mode: fused vs plain (f32, bf16 against
-    f32 plain), three bf16 requests with 32 B15 launches a forward and
-    nothing else, the forward's time. Returns (launches, forward ms)."""
+    f32 plain; the f32 forward's 32 B15 launches through
+    ``window_attn_flash_f32``), three bf16 requests with 32 B15 launches a
+    forward and nothing else, the forward's time in bf16 and in f32. Returns
+    (launches, forward ms, the f32 forward's B15 launches, its ms)."""
     mode = "adaptive" if adaptive else "static"
     model = MaxSR.build(**{**MAXSR_MAIN, "adaptive": adaptive}, seed=SEED, device=dev)
     log(f"\nmodel: MaxSR x4 {mode} dim {MAXSR_MAIN['dim']} depth {MAXSR_MAIN['depth']}, "
@@ -2967,16 +3115,22 @@ def phase_maxsr_serving(dev: torch.device, adaptive: bool) -> tuple:
     images = requests()
     x = torch.from_numpy(images[0]).to(dev).float()[None] / 255.0
     plain = model.enable_fused(False)(x)
+    engagement.reset()
     fused = model.enable_fused(True)(x)
     torch.cuda.synchronize()
+    launches32 = engagement.counters()
     rel32 = rel_l2(fused, plain)
+    failed = f32_entry_failures(f"maxsr {mode} f32 forward", launches32)
+    if launches32 != MAXSR_PER_FORWARD:
+        failed.append(f"maxsr {mode} f32 forward: launches {launches32}, expected {MAXSR_PER_FORWARD}")
+    fwd32 = time_ms(lambda: model(x), iters=3, warmup=1)
+    log(f"maxsr {mode} forward f32 fused batch 1 {LR}x{LR}: {fwd32:.3f} ms; launches {launches32}")
     model.half()
     fused16 = model(x)
     torch.cuda.synchronize()
     rel16 = rel_l2(fused16, plain)
     log(f"maxsr {mode} e2e fused vs plain: f32 rel_l2 {rel32:.3e} limit {E2E_F32_REL_L2:.0e}; bf16 vs f32 plain "
         f"rel_l2 {rel16:.3e} limit {E2E_BF16_REL_L2:.0e}")
-    failed = []
     if not rel32 <= E2E_F32_REL_L2:
         failed.append(f"maxsr {mode}: f32 fused forward disagrees with the plain forward")
     if not rel16 <= E2E_BF16_REL_L2:
@@ -3002,24 +3156,34 @@ def phase_maxsr_serving(dev: torch.device, adaptive: bool) -> tuple:
     log(f"maxsr {mode} forward bf16 batch 1 {LR}x{LR}: {fwd:.3f} ms, {LR * LR / 1e6 / (fwd / 1e3):.3f} LR MP/s")
     del model
     torch.cuda.empty_cache()
-    return launches, fwd
+    return launches, fwd, launches32.get("window_attention_pallas", 0), fwd32
 
 
-def phase_maxsr(dev: torch.device) -> dict:
-    """Phases 22-23; B15's JSON row (timed at the adaptive shape, the
-    default mode), its launches those of both modes' requests."""
+def phase_maxsr(dev: torch.device) -> list:
+    """Phases 22-23; B15's JSON rows, bf16 and f32 (timed at the adaptive
+    shape, the default mode), their launches those of both modes' requests
+    (bf16) and of both modes' fused f32 forwards (f32)."""
     timing, error = phase_window_attn_kernels(dev)
-    launches, fwds = 0, {}
+    launches, launches32, fwds = 0, 0, {}
     for adaptive in (True, False):
-        counts, fwds[adaptive] = phase_maxsr_serving(dev, adaptive)
+        counts, fwd, count32, fwd32 = phase_maxsr_serving(dev, adaptive)
         launches += counts.get("window_attention_pallas", 0)
+        launches32 += count32
+        fwds[(adaptive, torch.bfloat16)], fwds[(adaptive, torch.float32)] = fwd, fwd32
     per = MAXSR_PER_FORWARD["window_attention_pallas"]
-    for label, adaptive in (("adaptive", True), ("static", False)):
-        log(f"maxsr {label}: B15 {per} x {timing[label]['ms']:.3f} ms = "
-            f"{100 * per * timing[label]['ms'] / fwds[adaptive]:.1f} % of the forward")
-    source, replaces = KERNELS["window_attention_pallas"]
-    return dict(name="window_attention_pallas", route="cuda", source=source, replaces=replaces, launches=launches,
-                max_abs_err=error, **timing["adaptive"])
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, adaptive in (("adaptive", True), ("static", False)):
+            ms = timing[(label, dtype)]["ms"]
+            log(f"maxsr {label} {str(dtype)[6:]}: B15 {per} x {ms:.3f} ms = "
+                f"{100 * per * ms / fwds[(adaptive, dtype)]:.1f} % of the forward")
+    log(f"  window_attention_pallas_f32 static: {timing[('static', torch.float32)]}")
+    rows = []
+    for name, dtype, count in (("window_attention_pallas", torch.bfloat16, launches),
+                               ("window_attention_pallas_f32", torch.float32, launches32)):
+        source, replaces = KERNELS[name]
+        rows.append(dict(name=name, route="cuda", source=source, replaces=replaces, launches=count,
+                         max_abs_err=error[dtype], **timing[("adaptive", dtype)]))
+    return rows
 
 
 
@@ -4867,6 +5031,8 @@ def main() -> int:
                                    swinir_train_rows)
     del hat_trained
     torch.cuda.empty_cache()
+    rows += phase_hat_train_f32(dev)
+    torch.cuda.empty_cache()
     b4_errors = phase_b4_kernels(dev)
     rows += phase_x2_x3(dev, b4_errors)
     resblock_errors = phase_resblock_kernels(dev)
@@ -4874,7 +5040,7 @@ def main() -> int:
     rows += phase_windows_serving(dev)
     phase_swinfir_grads(dev)
     rows += phase_swinfir_train(dev)
-    rows.append(phase_maxsr(dev))
+    rows += phase_maxsr(dev)
     models = maxsr_models(dev)
     maxsr_errors = phase_train_kernels(models, dev, maxsr_train_kernel_cases)
     phase_train_grads(dev, "maxsr")

@@ -327,8 +327,8 @@ def oca_backward_sequence(q, k, v, bias, g):
     return backward
 
 
-def ocab_forward_sequence(x, ops, heads: int, ws: int, overlap_ratio: float):
-    """B10's function as bf16 PyTorch calls: ``F.layer_norm``, ``F.linear``
+def ocab_forward_sequence(x, ops, heads: int, ws: int, overlap_ratio: float, dtype=None):
+    """B10's function as bf16 (or ``dtype``) PyTorch calls: ``F.layer_norm``, ``F.linear``
     (cuBLAS) to q | k | v once a pixel, q's windows, the zero-padded k | v
     map unfolded into the owin x owin windows around them, SDPA with the
     rel-pos bias as its mask (zero keys outside the image keep their
@@ -342,7 +342,7 @@ def ocab_forward_sequence(x, ops, heads: int, ws: int, overlap_ratio: float):
     bsz, h, w, c = x.shape
     owin = int(ws * overlap_ratio) + ws
     pad, nq, nk, d = (owin - ws) // 2, ws * ws, owin * owin, c // heads
-    bf = torch.bfloat16
+    bf = dtype or torch.bfloat16
     ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, bias, ln2_w, ln2_b, w1, b1, w2, b2 = [t.detach().to(bf) for t in ops]
     wq, wp, wa, wb = (t.t().contiguous() for t in (wqkv, wproj, w1, w2))
     xx = x.to(bf)

@@ -2,7 +2,7 @@
 """Time the port's kernels in f32 on one NVIDIA GPU: the f32 serving path
 (B1, B2, B3, B4, B14) and the f32 kernels of the other paths.
 
-    python3 scripts/torch_time_f32_serving.py [--checkout DIR] [--serving-only]
+    python3 scripts/torch_time_f32_serving.py [--checkout DIR] [--serving-only | --attn-only]
 
 f32 with TF32 off (``resolve_device`` turns it off for cuBLAS and cuDNN),
 seeded operands, CUDA events over 20 launches after 3 warm-up launches.
@@ -23,13 +23,15 @@ LeakyReLU 0.2) beside its plain version and cuDNN's two convs +
 and its bound: operations at 3xTF32 (164.9 TFLOP/s) and on the FMA pipes
 (66.9), bytes at 3.35 TB/s.
 
-The other first-design f32 kernels at their paths' shapes (skipped with
+The other f32 kernels at their paths' shapes (skipped with
 ``--serving-only``): B11 (``fused_cab_body``), B5 at window 16 and B10
 (``fused_ocab_block``) at HAT x4's f32 forward (one 256 x 256 map), B9
 (``attention_bwd`` at window 16) and B12 / B13 (``oca_core_fwd`` /
 ``oca_core_bwd``) at HAT's f32 gradient check (batch 4 of 64 x 64 crops),
-B15 (``window_attention``) at MaxSR's adaptive and static shapes; B12, B13
-and B15 beside SDPA in f32, the others beside f32 PyTorch sequences.
+B13 at HAT's f32 training step (batch 32: 512 windows), B15
+(``window_attention``) at MaxSR's adaptive and static shapes; B12, B13 and
+B15 beside SDPA in f32, the others beside f32 PyTorch sequences. With
+``--attn-only`` only B13 (64 and 512 windows) and B15 are timed.
 
 Prints one JSON line: {"package": path, "card": nvidia-smi's name and power
 limit, "ms": {name: ms}, "passes": {name: [[kernel, ms], ...]}, "entries":
@@ -245,15 +247,12 @@ def measure_serving(dev, gen, ms: dict, passes: dict, entries: dict, bnd: dict) 
 
 def measure_others(dev, gen, ms: dict, passes: dict, entries: dict, bnd: dict) -> None:
     import torch
-    import torch.nn.functional as F
 
     from studiosr_tpu_torch.ops.cuda import engagement
     from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd
     from studiosr_tpu_torch.ops.cuda.conv3x3 import fused_cab_body
-    from studiosr_tpu_torch.ops.cuda.oca_core import oca_core_bwd, oca_core_fwd
     from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block
     from studiosr_tpu_torch.ops.cuda.window_attention import fused_window_attention_block
-    from studiosr_tpu_torch.ops.cuda.window_attn import window_attention
     from torch_time_attn_kernels import (
         attention_half_forward_sequence, attention_half_sequence, ocab_forward_sequence, pass_split, time_ms,
     )
@@ -294,8 +293,8 @@ def measure_others(dev, gen, ms: dict, passes: dict, entries: dict, bnd: dict) -
                 randn(2 * C, C, scale=(2 * C)**-0.5), randn(C, scale=0.1))
     okw = dict(heads=HEADS, window_size=16, overlap_ratio=0.5)
     timed("fused_ocab_block f32", "fused_ocab_block", lambda: fused_ocab_block(xs, *ocab_ops, **okw))
-    seq = ocab_forward_sequence(xs, ocab_ops, HEADS, 16, 0.5)  # a bf16 sequence: its dtype is fixed
-    ms["fused_ocab_block f32 library (bf16 PyTorch sequence)"] = time_ms(seq, iters=10)
+    seq = ocab_forward_sequence(xs, ocab_ops, HEADS, 16, 0.5, dtype=torch.float32)
+    ms["fused_ocab_block f32 library (f32 PyTorch sequence)"] = time_ms(seq, iters=10)
     t = 65536
     bnd["fused_ocab_block f32"] = bounds(2 * t * C * 3 * C + 4 * t * 576 * C + 2 * t * C * C + 4 * t * C * 2 * C,
                                         2 * xs.numel() * 4)
@@ -314,28 +313,56 @@ def measure_others(dev, gen, ms: dict, passes: dict, entries: dict, bnd: dict) -
     bnd["attention_bwd_ws16 f32"] = bounds(3 * 2 * t * C * 3 * C + 2 * 2 * t * C * C + 12 * t * 256 * C,
                                           3 * x.numel() * 4)
 
-    def view(n, scale):  # (64, 6, n, 30) over (64, n, 6, 30) storage, as the OCAB's views
-        return randn(64, n, HEADS, 30, scale=scale).transpose(1, 2)
+    measure_attn(dev, gen, ms, passes, entries, bnd, fwd=True)
 
-    q, k, v, go = view(256, 2 * 30**-0.5), view(576, 1.0), view(576, 1.0), view(256, 1.0)
-    bias = randn(HEADS, 256, 576, scale=2.0)
-    timed("oca_core_fwd f32", "oca_core_fwd", lambda: oca_core_fwd(q, k, v, bias))
-    timed("oca_core_bwd f32", "oca_core_bwd", lambda: oca_core_bwd(q, k, v, bias, go))
-    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=1.0), iters=10)
-    ms["oca_core_fwd f32 library (SDPA)"] = sdpa_fwd
-    leaves = [t_.detach().requires_grad_() for t_ in (q, k, v, bias)]
 
-    def sdpa_both():
-        out = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=1.0)
-        torch.autograd.grad(out, leaves, go)
+def measure_attn(dev, gen, ms: dict, passes: dict, entries: dict, bnd: dict, fwd: bool = False) -> None:
+    """B13 (and with ``fwd`` B12) at HAT's f32 gradient check (64 windows)
+    and B13 at its f32 training step (512 windows), each beside SDPA's f32
+    backward; B15 at MaxSR x4's f32 shapes beside SDPA f32."""
+    import torch
+    import torch.nn.functional as F
 
-    ms["oca_core_bwd f32 library (SDPA backward)"] = time_ms(sdpa_both, iters=5, warmup=2) - sdpa_fwd
-    nqk = 64 * HEADS * 256 * 576 * 30
-    qkvb = (q.numel() + k.numel() + v.numel() + bias.numel()) * 4
-    bnd["oca_core_fwd f32"] = bounds(4 * nqk, qkvb + q.numel() * 4)
-    bnd["oca_core_bwd f32"] = bounds(10 * nqk, qkvb + (q.numel() * 3 + k.numel() + v.numel() + bias.numel()) * 4)
-    del q, k, v, go, leaves
-    torch.cuda.empty_cache()
+    from studiosr_tpu_torch.ops.cuda import engagement
+    from studiosr_tpu_torch.ops.cuda.oca_core import oca_core_bwd, oca_core_fwd
+    from studiosr_tpu_torch.ops.cuda.window_attn import window_attention
+    from torch_time_attn_kernels import pass_split, time_ms
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    def timed(name, key, kernel, iters=10):
+        engagement.reset()
+        ms[name] = time_ms(kernel, iters=iters)
+        entries[name] = engagement.entries().get(key)
+        passes[name] = pass_split(kernel, calls=3)
+
+    for bw, tag in ((64, ""), (512, " bw512")):
+        def view(n, scale):  # (bw, 6, n, 30) over (bw, n, 6, 30) storage, as the OCAB's views
+            return randn(bw, n, HEADS, 30, scale=scale).transpose(1, 2)
+
+        q, k, v, go = view(256, 2 * 30**-0.5), view(576, 1.0), view(576, 1.0), view(256, 1.0)
+        bias = randn(HEADS, 256, 576, scale=2.0)
+        nqk = bw * HEADS * 256 * 576 * 30
+        qkvb = (q.numel() + k.numel() + v.numel() + bias.numel()) * 4
+        if fwd and not tag:
+            timed("oca_core_fwd f32", "oca_core_fwd", lambda: oca_core_fwd(q, k, v, bias))
+            bnd["oca_core_fwd f32"] = bounds(4 * nqk, qkvb + q.numel() * 4)
+        timed(f"oca_core_bwd f32{tag}", "oca_core_bwd", lambda: oca_core_bwd(q, k, v, bias, go), iters=10 if not tag else 5)
+        sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=1.0), iters=5)
+        if fwd and not tag:
+            ms["oca_core_fwd f32 library (SDPA)"] = sdpa_fwd
+        leaves = [t_.detach().requires_grad_() for t_ in (q, k, v, bias)]
+
+        def sdpa_both():
+            out = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=1.0)
+            torch.autograd.grad(out, leaves, go)
+
+        ms[f"oca_core_bwd f32{tag} library (SDPA backward)"] = time_ms(sdpa_both, iters=3, warmup=1) - sdpa_fwd
+        bnd[f"oca_core_bwd f32{tag}"] = bounds(10 * nqk, qkvb + (q.numel() * 3 + k.numel() + v.numel() +
+                                                                 bias.numel()) * 4)
+        del q, k, v, go, leaves, bias
+        torch.cuda.empty_cache()
 
     # B15 at MaxSR x4's f32 forward: adaptive (256 windows of 256) and static (1024 of 64, with a bias)
     for mode, windows, n, with_bias in (("adaptive", 256, 256, False), ("static", 1024, 64, True)):
@@ -349,7 +376,7 @@ def measure_others(dev, gen, ms: dict, passes: dict, entries: dict, bnd: dict) -
         bnd[name] = bounds(4 * windows * 4 * n * n * 32, 4 * q.numel() * 4)
 
 
-def measure(serving_only: bool) -> dict:
+def measure(serving_only: bool, attn_only: bool = False) -> dict:
     import torch
 
     if "PYTHONPATH" not in os.environ:
@@ -363,11 +390,14 @@ def measure(serving_only: bool) -> dict:
     _build.build()
     gen = torch.Generator().manual_seed(0)
     ms, passes, entries, bnd = {}, {}, {}, {}
-    with torch.no_grad():
-        measure_serving(dev, gen, ms, passes, entries, bnd)
-    torch.cuda.empty_cache()
-    if not serving_only:
-        measure_others(dev, gen, ms, passes, entries, bnd)
+    if attn_only:
+        measure_attn(dev, gen, ms, passes, entries, bnd)
+    else:
+        with torch.no_grad():
+            measure_serving(dev, gen, ms, passes, entries, bnd)
+        torch.cuda.empty_cache()
+        if not serving_only:
+            measure_others(dev, gen, ms, passes, entries, bnd)
     return {"package": studiosr_tpu_torch.__file__, "card": card_line(), "ms": ms, "passes": passes,
             "entries": {k: str(v) for k, v in entries.items()}, "bounds": bnd}
 
@@ -390,12 +420,14 @@ def ab(checkout: Path, extra: list) -> None:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--checkout", type=Path, help="a second checkout to compare with: parent, this, this, parent")
-    parser.add_argument("--serving-only", action="store_true", help="time only B1, B2, B3, B4 and B14")
+    only = parser.add_mutually_exclusive_group()
+    only.add_argument("--serving-only", action="store_true", help="time only B1, B2, B3, B4 and B14")
+    only.add_argument("--attn-only", action="store_true", help="time only B13 and B15")
     args = parser.parse_args()
     if args.checkout:
-        ab(args.checkout.resolve(), ["--serving-only"] if args.serving_only else [])
+        ab(args.checkout.resolve(), ["--serving-only"] if args.serving_only else ["--attn-only"] if args.attn_only else [])
     else:
-        print(json.dumps(measure(args.serving_only)))
+        print(json.dumps(measure(args.serving_only, args.attn_only)))
 
 
 if __name__ == "__main__":

@@ -9,11 +9,12 @@ x4 (adaptive and static, the JAX package's ``build`` defaults), SwinIR
 x2 and x3 and HAT x2 and x3 forward, and SwinIR x4 at window 24 (its 256 x 256
 image padded to 264 x 264)
 (bf16, batch 1, a 256 x 256 uint8 image, fused serving) over 5 forwards,
-the SwinIR x4 and SwinFIR x4 forward in f32, fused and plain (TF32 off),
-and the SwinIR x4 and HAT x4 train step (``make_train_step``, bf16 over f32 masters, batch
+the SwinIR x4, SwinFIR x4 and MaxSR x4 (both modes) forward in f32, fused
+(and for SwinIR and SwinFIR plain; TF32 off), and the SwinIR x4 and HAT x4 train step (``make_train_step``, bf16 over f32 masters, batch
 32 of 64 x 64 crops, fused_train; HAT also at window 24, the crops padded
-to 72 x 72: 288 windows a step), the MaxSR x4 adaptive train step (the
-same bf16 recipe) and the SwinFIR x4 train step at its f32 recipe
+to 72 x 72: 288 windows a step; HAT also in f32, ``bfloat16=False``), the
+MaxSR x4 adaptive train step (the same bf16 recipe) and the SwinFIR x4 train
+step at its f32 recipe
 (``bfloat16=False``, fused_train) over 5 steps (``--only`` names a subset), and prints one JSON line:
 {"package": path, "card": nvidia-smi's name and power limit, "ms": {path:
 ms}, "peak_gib": {train step: peak memory over its timed steps}}. A checkout whose HAT has no fused training path reads null there. The
@@ -82,13 +83,16 @@ def forward_ms(name: str, dev: torch.device) -> float:
 
 
 def step_ms(name: str, dev: torch.device):
+    """"<model>" at its recipe's dtype; "<model> f32" in f32 (``bfloat16=False``)."""
+    f32 = name.endswith(" f32")
+    base = name[:-len(" f32")] if f32 else name
     try:
-        module = build(name, dev, fused_train=True).module
+        module = build(base, dev, fused_train=True).module
     except NotImplementedError:
         return None
     tx = build_optimizer()
     state = prepare_state(module, tx)
-    step = make_train_step(module, tx, l1_loss, bfloat16=name != "swinfir")  # SwinFIR's recipe trains in f32
+    step = make_train_step(module, tx, l1_loss, bfloat16=not f32 and base != "swinfir")  # SwinFIR's recipe trains in f32
     rng = np.random.default_rng(4)
     lq = torch.from_numpy(rng.integers(0, 256, (32, 64, 64, 3), dtype=np.uint8)).to(dev)
     gt = torch.from_numpy(rng.integers(0, 256, (32, 256, 256, 3), dtype=np.uint8)).to(dev)
@@ -107,7 +111,8 @@ PATHS = ("swinir forward", "swinir ws24 forward", "swinir train step", "hat forw
          "swinfir forward", "swinfir train step", "maxsr adaptive train step",
          "maxsr adaptive forward", "maxsr static forward", "swinir x2 forward", "swinir x3 forward",
          "hat x2 forward", "hat x3 forward", "swinir f32 forward", "swinir f32 plain forward",
-         "swinfir f32 forward", "swinfir f32 plain forward")
+         "swinfir f32 forward", "swinfir f32 plain forward", "hat f32 train step", "maxsr adaptive f32 forward",
+         "maxsr static f32 forward")
 
 
 def main() -> None:

@@ -6,8 +6,9 @@
 // dv in bf16 and d bias summed over the bw windows in f32.
 //
 // Replaces studiosr_tpu/ops/pallas/oca_core.py::oca_core_bwd (:157, kernel
-// _bwd_kernel at :73) in bf16; f32, the checks' dtype, keeps oca_core.cu on
-// attn_core.cuh, and so do head dims above 32. Two entries: up to 256
+// _bwd_kernel at :73) in bf16; f32 runs oca_bwd_f32.cu (head dims above 32
+// and more than 256 queries or 576 keys keep oca_core.cu on attn_core.cuh,
+// as bf16 head dims above 32 do). Two entries: up to 256
 // queries and 576 keys (HAT's windows up to 16) oca_core_bwd_mma_bf16 runs
 // the five passes below; above (HAT's windows from 17) oca_core_bwd_large_mma_bf16
 // runs pass 0 and lb_core.cuh's two-formation core, each score tile formed

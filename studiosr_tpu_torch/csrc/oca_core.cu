@@ -20,6 +20,10 @@
 // dk, dv as transposed views of (bw, tokens, heads, d) tensors, the layout
 // the block reads them back in.
 //
+// Routes: bf16 B12 / B13 at head dims up to 32 run oca_fwd_mma.cu /
+// oca_bwd_mma.cu, f32 B13 at head dims up to 32 with at most 256 queries
+// and 576 keys oca_bwd_f32.cu; the rest runs here.
+//
 // Design: B12 is attn_core.cuh's row pass in forward mode, one block per
 // (window, head, 64 queries). B13 is its row pass (row statistics, then dq)
 // and its column pass (dk, dv for 64 keys of every window of a group, and

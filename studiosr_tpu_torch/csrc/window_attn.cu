@@ -47,9 +47,24 @@
 //   and stored in whole rows (16 bytes a piece at d 32) into the transposed
 //   (B', N, heads, d) layout.
 //
-// f32 (the checks' dtype) keeps attn_core.cuh's shared-memory row pass.
-#include "attn_core.cuh"
-#include "hopper_mma.cuh"
+// f32, every shape (wf32_kernel, MaxSR's forward unless halved): the same
+// plan in f32 on mma.sync.m16n8k8.tf32 in 3xTF32 (tf32x3.cuh: each operand
+// split hi / lo with cvt.rna once, where its fragment is loaded; the small
+// terms first; a fresh accumulator for each 32-row stage of the K
+// dimension, added to the running f32 sum). The bound at MaxSR's adaptive
+// shapes in f32: 8.6 GFLOP at 164.9 TFLOP/s, 0.052 ms (134 MB, 0.040 ms);
+// attn_core.cuh's row pass on the FMA pipes took 1.13 ms there.
+// * K and V chunks are f32 rows DP + 4 apart (DP = pad16(d)): the scores
+//   read k as B fragments (key g, d t: banks 4 g + t), P V reads v with the
+//   keys of each 8-key step permuted (key 2t + e is A column t + 4 e, banks
+//   8 t + g), so p is the A fragment of P V straight from the score
+//   fragments and stays f32: no rounding below f32.
+// * A warp's q fragments are split once a tile and kept in registers over
+//   the key chunks; the online softmax is the bf16 kernel's (base 2,
+//   max-subtracted, ex2.approx).
+// * Copies are 16, 8 or 4 bytes as the operands' alignment allows (16 at
+//   MaxSR's d 32 and d 12).
+#include "tf32x3.cuh"
 
 // Strides, in elements, of q, k, v, out: (window, head, token) each.
 enum { WA_Q, WA_K, WA_V, WA_O, WA_N };
@@ -59,73 +74,6 @@ constexpr int WA_MAX_TOKENS = 1024;  // window_attn.py's limit on N and M
 static bool wa_shape_ok(long long bw, int heads, int nq, int nk, int d, int nw) {
   return bw > 0 && heads > 0 && nq > 0 && nq <= WA_MAX_TOKENS && nk > 0 && nk <= WA_MAX_TOKENS && d > 0 &&
          pad16(d) <= 64 && nw > 0 && bw % nw == 0;
-}
-
-// -- f32: attn_core.cuh's forward row pass ---------------------------------------
-
-struct WinGeomF32 {
-  const float *qp, *kp, *vp;
-  float* op;
-  long long st[WA_N][3];
-  const float* relbias;  // (heads, nq, nk) or null
-  const float* mask;     // (nw, nq, nk) or null
-  long long units;
-  int heads, nq, nk, d, nw;
-  float dq_scale;
-  static constexpr bool PADDED = false;
-
-  __host__ __device__ bool mma_rows() const { return false; }
-
-  struct Unit {
-    const float *q0, *k0, *v0;
-    float* o0;
-    long long sq, sk, sv, so, id;
-    const float *b, *m;
-    int nq, nk;
-    __device__ const float* q(int r) const { return r < nq ? q0 + r * sq : nullptr; }
-    __device__ const float* g(int) const { return nullptr; }
-    __device__ const float* k(int t) const { return t < nk ? k0 + t * sk : nullptr; }
-    __device__ const float* v(int t) const { return t < nk ? v0 + t * sv : nullptr; }
-    __device__ float bias(int r, int t) const {
-      const size_t i = (size_t)r * nk + t;
-      return (b ? b[i] : 0.f) + (m ? m[i] : 0.f);
-    }
-    __device__ void put_o(int r, int j, float x) const { o0[r * so + j] = x; }
-    // The row pass's backward modes are not instantiated for this geometry.
-    __device__ void put_dq(int, int, float) const {}
-    __device__ void put_dk(int, int, float) const {}
-    __device__ void put_dv(int, int, float) const {}
-  };
-  __device__ Unit unit(long long u) const {
-    const long long w = u / heads, h = u % heads;
-    auto at = [&](int which) { return w * st[which][0] + h * st[which][1]; };
-    return Unit{qp + at(WA_Q), kp + at(WA_K), vp + at(WA_V), op + at(WA_O), st[WA_Q][2], st[WA_K][2], st[WA_V][2],
-                st[WA_O][2], u, relbias ? relbias + (size_t)h * nq * nk : nullptr,
-                mask ? mask + (size_t)(w % nw) * nq * nk : nullptr, nq, nk};
-  }
-};
-
-extern "C" int window_attn_f32(const void* q, const void* k, const void* v, const void* relbias, const void* mask,
-                               void* out, const long long* strides, long long bw, int heads, int nq, int nk, int d,
-                               int nw, void* stream) {
-  if (!wa_shape_ok(bw, heads, nq, nk, d, nw)) return (int)cudaErrorInvalidValue;
-  WinGeomF32 G;
-  G.qp = (const float*)q;
-  G.kp = (const float*)k;
-  G.vp = (const float*)v;
-  G.op = (float*)out;
-  for (int i = 0; i < WA_N; ++i)
-    for (int j = 0; j < 3; ++j) G.st[i][j] = strides[3 * i + j];
-  G.relbias = (const float*)relbias;
-  G.mask = (const float*)mask;
-  G.units = bw * heads;
-  G.heads = heads;
-  G.nq = nq;
-  G.nk = nk;
-  G.d = d;
-  G.nw = nw;
-  G.dq_scale = 1.f;
-  return (int)ac_forward<float>(G, (cudaStream_t)stream);
 }
 
 // -- bf16: wf_kernel ----------------------------------------------------------------
@@ -392,7 +340,7 @@ __global__ void __launch_bounds__(WF_THREADS, KS <= 2 ? 4 : 2) wf_kernel(const W
           float mx = -INFINITY;
 #pragma unroll
           for (int nt = 0; nt < 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * hh], s[nt][2 * hh + 1]));
-          const float mn = fmaxf(m[hh], quad_max(mx));
+          const float mn = fmaxf(m[hh], am_quad_max(mx));
           mb[hh] = mn == -INFINITY ? 0.f : mn * WF_LOG2E;  // a row with no finite score yet keeps p = 0
           corr[hh] = wf_exp2(m[hh] * WF_LOG2E - mb[hh]);   // 0 at the first chunk (m = -inf)
           m[hh] = mn;
@@ -435,7 +383,7 @@ __global__ void __launch_bounds__(WF_THREADS, KS <= 2 ? 4 : 2) wf_kernel(const W
       }
       if (!mine) continue;
       // normalise, stage through the tile, store whole rows
-      const float il0 = 1.f / quad_sum(l[0]), il1 = 1.f / quad_sum(l[1]);
+      const float il0 = 1.f / am_quad_sum(l[0]), il1 = 1.f / am_quad_sum(l[1]);
 #pragma unroll
       for (int dn = 0; dn < DT; ++dn) {
         T* t0 = tile + gq * LQ + dn * 8 + 2 * tq;
@@ -450,26 +398,34 @@ __global__ void __launch_bounds__(WF_THREADS, KS <= 2 ? 4 : 2) wf_kernel(const W
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-template <int KS, int BIAS>
-static cudaError_t wf_launch(WfArgs a, cudaStream_t stream) {
-  const int DP = 16 * KS, nkc = (a.nk + WF_CHUNK - 1) / WF_CHUNK;
-  const size_t fixed = wf_tiles_bytes(DP) + (BIAS == WF_BIAS_SMEM ? wf_bias_bytes(a.nq, a.nk) : 0);
-  const size_t chunk = wf_chunk_bytes(DP);
+// Launches `kernel` (wf_kernel or wf32_kernel) on a: `fixed` bytes of
+// shared memory beside the K / V chunks of `chunk` bytes each, all of a
+// unit's chunks when they fit WF_SMEM_MAX, else a ring of as many as fit
+// (a.slots); the grid fills the card once (occupancy x SMs blocks).
+template <typename Args, typename Kernel>
+static cudaError_t wf_run(Kernel kernel, Args a, size_t fixed, size_t chunk, cudaStream_t stream) {
+  const int nkc = (a.nk + WF_CHUNK - 1) / WF_CHUNK;
   a.slots = fixed + nkc * chunk <= WF_SMEM_MAX ? 0 : (int)((WF_SMEM_MAX - fixed) / chunk);
   const size_t bytes = fixed + (a.slots ? a.slots : nkc) * chunk;
-  cudaError_t err = cudaFuncSetAttribute(wf_kernel<KS, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 132, per_sm = 1;
   if (cudaGetDevice(&dev) == cudaSuccess) cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wf_kernel<KS, BIAS>, WF_THREADS, bytes);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, WF_THREADS, bytes);
   if (err != cudaSuccess) return err;
   const int classes = a.heads * a.nwm, per_class = a.bw / a.nwm;
   const long long target = (long long)(per_sm < 1 ? 1 : per_sm) * sms;
   long long groups = (target + classes - 1) / classes;
   if (groups > per_class) groups = per_class;
   a.groups = (int)groups;
-  wf_kernel<KS, BIAS><<<(unsigned)(classes * groups), WF_THREADS, bytes, stream>>>(a);
+  kernel<<<(unsigned)(classes * groups), WF_THREADS, bytes, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int KS, int BIAS>
+static cudaError_t wf_launch(const WfArgs& a, cudaStream_t stream) {
+  const size_t fixed = wf_tiles_bytes(16 * KS) + (BIAS == WF_BIAS_SMEM ? wf_bias_bytes(a.nq, a.nk) : 0);
+  return wf_run(wf_kernel<KS, BIAS>, a, fixed, wf_chunk_bytes(16 * KS), stream);
 }
 
 template <int KS>
@@ -510,5 +466,356 @@ extern "C" int window_attn_flash_bf16(const void* q, const void* k, const void* 
     case 2: return (int)wf_dispatch_bias<2>(a, s);
     case 3: return (int)wf_dispatch_bias<3>(a, s);
     default: return (int)wf_dispatch_bias<4>(a, s);
+  }
+}
+
+// -- f32: wf32_kernel ---------------------------------------------------------------
+
+struct Wf32Args {
+  const float *q, *k, *v;
+  float* o;
+  long long st[WA_N][3];     // (window, head, token) strides in elements
+  const float *bias, *mask;  // (heads, nq, nk), (nw, nq, nk) or null
+  int bw, heads, nq, nk, d, nw;
+  int nwm;                   // mask windows the blocks split over: nw with a mask, else 1
+  int groups;                // blocks per (head, mask window)
+  int width[WA_N];           // copy widths in bytes: 16, 8 or 4
+  int slots;                 // 0: a unit's chunks all resident; else a ring of this many
+};
+
+// Shared memory (floats): the K / V chunks (each 64 x LD of K, then of V),
+// the warps' q / out tiles (16 x LD each), the bias tile (pad16(nq) x LB).
+__host__ __device__ inline int wf32_ld(int DP) { return DP + 4; }
+__host__ __device__ inline size_t wf32_chunk_bytes(int DP) { return (size_t)2 * WF_CHUNK * wf32_ld(DP) * 4; }
+__host__ __device__ inline size_t wf32_tiles_bytes(int DP) { return (size_t)WF_WARPS * 16 * wf32_ld(DP) * 4; }
+
+// rows x DP f32 tile at dst (stride LD) <- rows of src (stride rs elements):
+// row r < valid, columns < d; zeros elsewhere, by cp.async in pieces of
+// `width` bytes (the caller commits).
+template <int DP, int LD>
+__device__ __forceinline__ void wf32_stage_rows(float* dst, const float* src, long long rs, int rows, int valid, int d,
+                                                int width, int t, int nthr) {
+  auto run = [&](auto bytes_c) {
+    constexpr int BYTES = decltype(bytes_c)::value, E = BYTES / 4, PER = DP / E;
+    for (int i = t; i < rows * PER; i += nthr) {
+      const int r = i / PER, c = (i - r * PER) * E;
+      const bool ok = r < valid && c < d;
+      hm_cp_async<BYTES>(dst + r * LD + c, ok ? src + r * rs + c : src, ok);
+    }
+  };
+  switch (width) {
+    case 16: run(std::integral_constant<int, 16>{}); break;
+    case 8: run(std::integral_constant<int, 8>{}); break;
+    default: run(std::integral_constant<int, 4>{}); break;
+  }
+}
+
+// A warp's 16 q rows into its tile (stride LD), or (store) its tile's rows
+// to dst (stride rs): rows < valid, columns < d, in pieces of `width`
+// bytes; loading writes zeros elsewhere.
+template <int DP, int LD, bool STORE>
+__device__ __forceinline__ void wf32_rows(float* tile, typename std::conditional<STORE, float*, const float*>::type g,
+                                          long long rs, int valid, int d, int width) {
+  const int lane = threadIdx.x & 31;
+  auto run = [&](auto bytes_c) {
+    constexpr int BYTES = decltype(bytes_c)::value, E = BYTES / 4, PER = DP / E;
+    using V = typename std::conditional<BYTES == 16, float4,
+              typename std::conditional<BYTES == 8, float2, float>::type>::type;
+    for (int i = lane; i < 16 * PER; i += 32) {
+      const int r = i / PER, c = (i - r * PER) * E;
+      const bool ok = r < valid && c < d;
+      if constexpr (STORE) {
+        if (ok) *reinterpret_cast<V*>(g + r * rs + c) = *reinterpret_cast<const V*>(tile + r * LD + c);
+      } else {
+        V x{};
+        if (ok) x = __ldg(reinterpret_cast<const V*>(g + r * rs + c));
+        *reinterpret_cast<V*>(tile + r * LD + c) = x;
+      }
+    }
+  };
+  switch (width) {
+    case 16: run(std::integral_constant<int, 16>{}); break;
+    case 8: run(std::integral_constant<int, 8>{}); break;
+    default: run(std::integral_constant<int, 4>{}); break;
+  }
+}
+
+template <int DP, int BIAS>
+__global__ void __launch_bounds__(WF_THREADS, DP <= 32 ? 3 : 2) wf32_kernel(const Wf32Args a) {
+  constexpr int LD = DP + 4, KS = DP / 8, DT = DP / 8, CH = WF_CHUNK * LD;  // CH: floats of K (or V) a chunk
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int nq = a.nq, nk = a.nk, d = a.d;
+  const int nkc = (nk + WF_CHUNK - 1) / WF_CHUNK, ntq = (nq + 15) / 16, passes = (ntq + WF_WARPS - 1) / WF_WARPS;
+  const int mine_passes = ntq > warp ? (ntq - warp + WF_WARPS - 1) / WF_WARPS : 0;
+  const int classes = a.heads * a.nwm, cls = blockIdx.x % classes, grp = blockIdx.x / classes;
+  const int h = cls / a.nwm, mw = cls % a.nwm;
+  const int per_class = a.bw / a.nwm;
+  const int units = grp < per_class ? (per_class - grp + a.groups - 1) / a.groups : 0;
+  const bool ring = a.slots > 0;
+  const int chunks = ring ? a.slots : nkc;
+  float* kv = (float*)smem;
+  float* tile = kv + (size_t)chunks * 2 * CH + warp * 16 * LD;  // this warp's q / out tile
+  float* btile = kv + (size_t)chunks * 2 * CH + WF_WARPS * 16 * LD;
+  const int LB = wf_lb(nk);
+
+  auto window = [&](int i) { return (long long)mw + (long long)a.nwm * (grp + (long long)a.groups * i); };
+  auto base = [&](int which, int i) { return window(i) * a.st[which][0] + (long long)h * a.st[which][1]; };
+  // K and V rows of chunk kc of unit i into chunk slot c, one cp.async group
+  // (empty past the block's units).
+  auto stage = [&](int i, int kc, int c) {
+    if (i < units) {
+      const int k0 = kc * WF_CHUNK;
+      float* ks = kv + (size_t)c * 2 * CH;
+      wf32_stage_rows<DP, LD>(ks, a.k + base(WA_K, i) + k0 * a.st[WA_K][2], a.st[WA_K][2], WF_CHUNK, nk - k0, d,
+                              a.width[WA_K], tid, WF_THREADS);
+      wf32_stage_rows<DP, LD>(ks + CH, a.v + base(WA_V, i) + k0 * a.st[WA_V][2], a.st[WA_V][2], WF_CHUNK, nk - k0,
+                              d, a.width[WA_V], tid, WF_THREADS);
+    }
+    hm_cp_commit();
+  };
+
+  if constexpr (BIAS == WF_BIAS_SMEM) {  // visible after the first chunk's barrier
+    const float* bh = a.bias ? a.bias + (size_t)h * nq * nk : nullptr;
+    const float* mh = a.mask ? a.mask + (size_t)mw * nq * nk : nullptr;
+    const int cols = pad64(nk);
+    for (int i = tid; i < pad16(nq) * cols; i += WF_THREADS) {
+      const int r = i / cols, c = i - r * cols;
+      float x = 0.f;
+      if (r < nq && c < nk) x = (bh ? bh[(size_t)r * nk + c] : 0.f) + (mh ? mh[(size_t)r * nk + c] : 0.f);
+      btile[r * LB + c] = x;
+    }
+  }
+  const float* gbias = BIAS == WF_BIAS_GLOBAL && a.bias ? a.bias + (size_t)h * nq * nk : nullptr;
+  const float* gmask = BIAS == WF_BIAS_GLOBAL && a.mask ? a.mask + (size_t)mw * nq * nk : nullptr;
+
+  const int uses_per_unit = passes * nkc;
+  if (ring)
+    for (int j = 0; j < a.slots - 1; ++j) stage(j / uses_per_unit, j % nkc, j);
+  int use = 0;  // the ring's chunk uses so far
+  for (int i = 0; i < units; ++i) {
+    if (!ring) {
+      __syncthreads();  // every warp is done with unit i - 1
+      for (int kc = 0; kc < nkc; ++kc) stage(i, kc, kc);
+    }
+    float* const obase = a.o + base(WA_O, i);
+    for (int p = 0; p < passes; ++p) {
+      const bool mine = p < mine_passes;
+      const int q0 = (p * WF_WARPS + warp) * 16;
+      uint32_t qh[KS][4], ql[KS][4];  // q's A fragments, split once a tile
+      if (mine) {
+        wf32_rows<DP, LD, false>(tile, a.q + base(WA_Q, i) + q0 * a.st[WA_Q][2], a.st[WA_Q][2], nq - q0, d,
+                                 a.width[WA_Q]);
+        __syncwarp();
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          const float* r = tile + g * LD + 8 * ks + t;
+          const float v4[4] = {r[0], r[8 * LD], r[4], r[8 * LD + 4]};
+          tf_split4(v4, qh[ks], ql[ks]);
+        }
+      }
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+      float o[DT][4];
+#pragma unroll
+      for (int dn = 0; dn < DT; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
+      for (int kc = 0; kc < nkc; ++kc) {
+        int c = kc;
+        if (!ring) {
+          if (p == 0) {  // chunk kc of this unit is in; later passes find every chunk in place
+            hm_cp_wait_upto(nkc - 1 - kc);
+            __syncthreads();
+          }
+        } else {
+          c = use % a.slots;
+          hm_cp_wait_upto(a.slots - 2);
+          __syncthreads();  // use `use` is in; every warp is done with the slot refilled next
+          const int nxt = use + a.slots - 1;
+          stage(nxt / uses_per_unit, nxt % nkc, nxt % a.slots);
+          ++use;
+        }
+        if (!mine) continue;
+        const float* ks_ = kv + (size_t)c * 2 * CH;
+        const float* vs = ks_ + CH;
+        const int k0 = kc * WF_CHUNK;
+        // s = q k^T (16 queries x 64 keys): each 32 d-rows a fresh accumulator
+        auto scores = [&](float (&acc)[8][4], auto st_c) {  // d rows 8 st .. 8 st + 31 into a fresh accumulator
+          constexpr int st = decltype(st_c)::value;
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+#pragma unroll
+          for (int ks = st; ks < st + 4 && ks < KS; ++ks)
+#pragma unroll
+            for (int nt = 0; nt < 8; nt += 2) {
+              const float* kr = ks_ + (8 * nt + g) * LD + 8 * ks + t;
+              uint32_t b0h[2], b0l[2], b1h[2], b1l[2];
+              tf_split2(kr[0], kr[4], b0h, b0l);
+              tf_split2(kr[8 * LD], kr[8 * LD + 4], b1h, b1l);
+              tf_mma3x2(acc[nt], qh[ks], ql[ks], b0h, b0l, acc[nt + 1], qh[ks], ql[ks], b1h, b1l);
+            }
+        };
+        float s[8][4];
+        scores(s, std::integral_constant<int, 0>{});
+        if constexpr (KS > 4) {
+          float part[8][4];
+          scores(part, std::integral_constant<int, 4>{});
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[nt][e] += part[nt][e];
+        }
+        if constexpr (BIAS == WF_BIAS_SMEM) {
+          const float* br = btile + (q0 + g) * LB + k0 + 2 * t;
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            const float2 x0 = *reinterpret_cast<const float2*>(br + nt * 8);
+            const float2 x1 = *reinterpret_cast<const float2*>(br + 8 * LB + nt * 8);
+            s[nt][0] += x0.x, s[nt][1] += x0.y, s[nt][2] += x1.x, s[nt][3] += x1.y;
+          }
+        } else if constexpr (BIAS == WF_BIAS_GLOBAL) {
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = q0 + g + 8 * (e >> 1), col = k0 + nt * 8 + 2 * t + (e & 1);
+              if (r < nq && col < nk) {
+                const size_t at = (size_t)r * nk + col;
+                s[nt][e] += (gbias ? gbias[at] : 0.f) + (gmask ? gmask[at] : 0.f);
+              }
+            }
+        }
+        if (k0 + WF_CHUNK > nk)  // the last chunk: keys past M take no weight
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (k0 + nt * 8 + 2 * t + (e & 1) >= nk) s[nt][e] = -INFINITY;
+        // online softmax in base 2: p = 2^(s log2e - m log2e), kept in f32
+        float mb[2], corr[2];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * hh], s[nt][2 * hh + 1]));
+          const float mn = fmaxf(m[hh], am_quad_max(mx));
+          mb[hh] = mn == -INFINITY ? 0.f : mn * WF_LOG2E;  // a row with no finite score yet keeps p = 0
+          corr[hh] = wf_exp2(m[hh] * WF_LOG2E - mb[hh]);   // 0 at the first chunk (m = -inf)
+          m[hh] = mn;
+          l[hh] *= corr[hh];
+        }
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float pe = wf_exp2(fmaf(s[nt][e], WF_LOG2E, -mb[e >> 1]));
+            l[e >> 1] += pe;
+            s[nt][e] = pe;
+          }
+#pragma unroll
+        for (int dn = 0; dn < DT; ++dn) {
+          o[dn][0] *= corr[0];
+          o[dn][1] *= corr[0];
+          o[dn][2] *= corr[1];
+          o[dn][3] *= corr[1];
+        }
+        // o += p v: key 8 kb + 2t + e of the score fragment is A column t + 4 e
+        // of step kb, and v's rows are read in that order; each 32 keys a
+        // fresh accumulator
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float part[DT][4];
+#pragma unroll
+          for (int dn = 0; dn < DT; ++dn) part[dn][0] = part[dn][1] = part[dn][2] = part[dn][3] = 0.f;
+#pragma unroll
+          for (int kb = 4 * half; kb < 4 * half + 4; ++kb) {
+            uint32_t ph[4], pl[4];
+            const float pv[4] = {s[kb][0], s[kb][2], s[kb][1], s[kb][3]};
+            tf_split4(pv, ph, pl);
+#pragma unroll
+            for (int dn = 0; dn < DT; dn += 2) {
+              const float* vr = vs + (8 * kb + 2 * t) * LD + 8 * dn + g;
+              uint32_t b0h[2], b0l[2], b1h[2], b1l[2];
+              tf_split2(vr[0], vr[LD], b0h, b0l);
+              tf_split2(vr[8], vr[LD + 8], b1h, b1l);
+              tf_mma3x2(part[dn], ph, pl, b0h, b0l, part[dn + 1], ph, pl, b1h, b1l);
+            }
+          }
+#pragma unroll
+          for (int dn = 0; dn < DT; ++dn)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) o[dn][e] += part[dn][e];
+        }
+      }
+      if (!mine) continue;
+      // normalise, stage through the tile, store whole rows
+      const float il0 = 1.f / am_quad_sum(l[0]), il1 = 1.f / am_quad_sum(l[1]);
+#pragma unroll
+      for (int dn = 0; dn < DT; ++dn) {
+        float* t0 = tile + g * LD + dn * 8 + 2 * t;
+        *reinterpret_cast<float2*>(t0) = make_float2(o[dn][0] * il0, o[dn][1] * il0);
+        *reinterpret_cast<float2*>(t0 + 8 * LD) = make_float2(o[dn][2] * il1, o[dn][3] * il1);
+      }
+      __syncwarp();
+      wf32_rows<DP, LD, true>(tile, obase + q0 * a.st[WA_O][2], a.st[WA_O][2], nq - q0, d, a.width[WA_O]);
+      __syncwarp();  // the tile takes the next q
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+template <int DP, int BIAS>
+static cudaError_t wf32_launch(const Wf32Args& a, cudaStream_t stream) {
+  const size_t fixed = wf32_tiles_bytes(DP) + (BIAS == WF_BIAS_SMEM ? wf_bias_bytes(a.nq, a.nk) : 0);
+  return wf_run(wf32_kernel<DP, BIAS>, a, fixed, wf32_chunk_bytes(DP), stream);
+}
+
+template <int DP>
+static cudaError_t wf32_dispatch_bias(const Wf32Args& a, cudaStream_t stream) {
+  if (!a.bias && !a.mask) return wf32_launch<DP, WF_BIAS_NONE>(a, stream);
+  if (wf_bias_bytes(a.nq, a.nk) <= WF_BIAS_SMEM_MAX) return wf32_launch<DP, WF_BIAS_SMEM>(a, stream);
+  return wf32_launch<DP, WF_BIAS_GLOBAL>(a, stream);
+}
+
+// The widest copy (16, 8 or 4 bytes) that keeps every piece of a row of f32
+// tensor `base` aligned: the row's bytes, each stride's and the base address.
+static int wf32_copy_width(const void* base, int d, const long long* strides) {
+  for (int w = 16; w > 4; w /= 2) {
+    bool ok = (uintptr_t)base % w == 0 && (d * 4) % w == 0;
+    for (int i = 0; i < 3; ++i) ok = ok && (strides[i] * 4) % w == 0;
+    if (ok) return w;
+  }
+  return 4;
+}
+
+extern "C" int window_attn_flash_f32(const void* q, const void* k, const void* v, const void* relbias,
+                                     const void* mask, void* out, const long long* strides, long long bw, int heads,
+                                     int nq, int nk, int d, int nw, void* stream) {
+  if (!wa_shape_ok(bw, heads, nq, nk, d, nw) || bw > INT32_MAX) return (int)cudaErrorInvalidValue;
+  Wf32Args a;
+  a.q = (const float*)q;
+  a.k = (const float*)k;
+  a.v = (const float*)v;
+  a.o = (float*)out;
+  const void* ptrs[WA_N] = {q, k, v, out};
+  for (int i = 0; i < WA_N; ++i) {
+    for (int j = 0; j < 3; ++j) a.st[i][j] = strides[3 * i + j];
+    a.width[i] = wf32_copy_width(ptrs[i], d, a.st[i]);
+  }
+  a.bias = (const float*)relbias;
+  a.mask = (const float*)mask;
+  a.bw = (int)bw;
+  a.heads = heads;
+  a.nq = nq;
+  a.nk = nk;
+  a.d = d;
+  a.nw = nw;
+  a.nwm = mask ? nw : 1;
+  a.groups = 1;
+  a.slots = 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (pad16(d) / 16) {
+    case 1: return (int)wf32_dispatch_bias<16>(a, s);
+    case 2: return (int)wf32_dispatch_bias<32>(a, s);
+    case 3: return (int)wf32_dispatch_bias<48>(a, s);
+    default: return (int)wf32_dispatch_bias<64>(a, s);
   }
 }

@@ -32,7 +32,7 @@ SOURCES = (
     "conv3x3", "swin_block", "upsampler", "window_attention", "mlp_block", "mlp_bwd", "attn_bwd", "cab_body",
     "window_attention16", "ocab", "attn_bwd16", "oca_core", "resblock", "window_attn", "swin_block_mma", "attn_bwd_mma",
     "window_attention_mma", "mlp_bwd_mma", "mlp_block_mma", "oca_bwd_mma", "cab_mma", "oca_fwd_mma", "ocab_mma",
-    "attn_bwd_f32", "mlp_bwd_f32", "window_attention_f32", "mlp_block_f32", "swin_block_f32",
+    "attn_bwd_f32", "mlp_bwd_f32", "window_attention_f32", "mlp_block_f32", "swin_block_f32", "oca_bwd_f32",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

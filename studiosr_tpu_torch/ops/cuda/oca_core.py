@@ -38,8 +38,15 @@ through a ring) and ``oca_core_bwd_large_mma_bf16`` (the same images, then
 the row statistics, then p, dscores, d bias, dq's partials, dk and dv per
 (group of windows, head, key chunk), then the sums in a fixed order; each
 score tile formed twice; :func:`large_partition` mirrors its blocks and
-:func:`large_scratch` its scratch). Other bf16 geometries and f32 launch ``oca_core_fwd_bf16`` /
-``_f32`` and ``oca_core_bwd_bf16`` / ``_f32``. A launch at more than 256
+:func:`large_scratch` its scratch). f32 B13 in :func:`mma_takes`'s geometry
+(HAT's f32 training step and checks at windows up to 16) launches
+``csrc/oca_bwd_f32.cu`` (C entry ``oca_core_bwd_mma_f32``): 3xTF32 on the
+tensor cores, a pass that packs q, g, k and v into padded f32 rows, the row
+statistics per (window, head, slab of 128 queries), then p, dscores and the
+sums per (head, key chunk, group of windows), each score tile formed twice
+(:func:`f32_partition` mirrors the blocks). Other bf16 geometries and f32
+B12, f32 B13 at head dims above 32 or above 256 queries or 576 keys launch
+``oca_core_fwd_bf16`` / ``_f32`` and ``oca_core_bwd_bf16`` / ``_f32``. A launch at more than 256
 queries or 576 keys is counted under ``oca_core_fwd_large`` /
 ``oca_core_bwd_large``, the others under ``oca_core_fwd`` /
 ``oca_core_bwd``, and each under its C entry (``engagement.entries()``).
@@ -58,6 +65,7 @@ from studiosr_tpu_torch.ops.cuda.window_attention import MAX_HEAD_DIM
 __all__ = [
     "oca_core_fwd", "oca_core_bwd", "oca_core_plain", "oca_core_bwd_plain", "mma_takes", "pack_images",
     "main_partition", "pack_fwd_images", "fwd_from_images", "counter", "large_partition", "large_scratch",
+    "f32_partition", "F32_SLAB",
 ]
 
 _LL = ctypes.c_longlong
@@ -86,6 +94,11 @@ _SIGNATURES_MMA = {
     "oca_core_bwd_large_mma_bf16": (P,) * 9 + (_STRIDES, I) + _BWD_MMA[10:],  # and the bias's dtype
     "oca_core_bwd_large_mma_scratch": (I,) * 5 + (ctypes.POINTER(_LL), ctypes.POINTER(_LL)),
 }
+_SIGNATURES_F32 = {
+    "oca_core_bwd_mma_f32": _BWD,
+    "oca_core_bwd_mma_f32_scratch": (I,) * 5 + (ctypes.POINTER(_LL),),
+}
+F32_SLAB = 128  # csrc/oca_bwd_f32.cu O32_SLAB: query rows a slab of the f32 backward
 MMA_MAX_QUERIES, MMA_MAX_KEYS, MMA_MAX_HEAD_DIM = 256, 576, 32  # csrc/oca_*_mma.cu O*_MAX_NQ, O*_MAX_NK
 _TOK = 64  # tokens a tile (AM_TOK)
 # csrc/oca_fwd_mma.cu of_perm: the key a chunk's image position p = 8 nt + 2 tq + e holds (16 tq + 2 nt + e)
@@ -216,6 +229,22 @@ def main_partition(bw: int, heads: int, nq: int, nk: int, sms: int = 132):
     for b in range(groups * heads * kt):
         c, h, grp = b % kt, (b // kt) % heads, b // (kt * heads)
         blocks.append([(w, h, i, c) for w in range(grp, bw, groups) for wg in range(2) for i in range(wg, qt, 2)])
+    return blocks
+
+
+def f32_partition(bw: int, heads: int, nq: int, nk: int, sms: int = 132):
+    """The f32 backward's main pass as its blocks take it (``csrc/oca_bwd_f32.cu``
+    ``o32_main_kernel``): for each block (in launch order) its (window, head,
+    slab, key chunk) units of work, in order: block b is (group b // (heads
+    KT), head (b // KT) % heads, key chunk b % KT) and walks the windows g, g
+    + groups, ..., each a slab of 128 queries at a time. Each (window, head,
+    slab, chunk) must appear exactly once; the groups are :func:`main_partition`'s."""
+    slabs, kt = -(-nq // F32_SLAB), _tiles(nk)
+    groups = _groups(bw, heads, kt, sms)
+    blocks = []
+    for b in range(groups * heads * kt):
+        c, h, grp = b % kt, (b // kt) % heads, b // (kt * heads)
+        blocks.append([(w, h, s, c) for w in range(grp, bw, groups) for s in range(slabs)])
     return blocks
 
 
@@ -350,7 +379,17 @@ def oca_core_bwd(q, k, v, bias, g):
     dbias = torch.empty(heads, nq, nk, dtype=torch.float32, device=dev)
     strides = _strides(q, k, v, g, None, dq, dk, dv)
     ptrs = [t.data_ptr() for t in (q, k, v, b32, g, dq, dk, dv, dbias)]
-    if q.dtype == torch.bfloat16 and d <= MMA_MAX_HEAD_DIM:
+    if q.dtype == torch.float32 and mma_takes(heads, nq, nk, d):
+        lib = _build.load("oca_bwd_f32", _SIGNATURES_F32)
+        entry = "oca_core_bwd_mma_f32"
+        f_elems = _LL()
+        status = call(dev, lib.oca_core_bwd_mma_f32_scratch, bw, heads, nq, nk, d, ctypes.byref(f_elems))
+        if status != 0:
+            raise RuntimeError(f"oca_core_bwd: CUDA error {status} while sizing the scratch")
+        fscratch = torch.empty(f_elems.value, dtype=torch.float32, device=dev)
+        status = call(dev, lib.oca_core_bwd_mma_f32, *ptrs, strides, bw, heads, nq, nk, d, fscratch.data_ptr(),
+                      f_elems.value, STREAM)
+    elif q.dtype == torch.bfloat16 and d <= MMA_MAX_HEAD_DIM:
         lib = _build.load("oca_bwd_mma", _SIGNATURES_MMA)
         entry = "oca_core_bwd_large_mma_bf16" if large else "oca_core_bwd_mma_bf16"
         t_elems, f_elems = _LL(), _LL()

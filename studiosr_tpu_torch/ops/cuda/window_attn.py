@@ -10,7 +10,7 @@ d), with ``attention_core``'s contract (``ops/attention.py``): ``bias``
 materialised), ``mask`` (nW, N, M) or None, broadcast over B' = images x nW
 windows in row-major order (not only the Pallas wrapper's batch 1). The
 softmax is max-subtracted in f32 and the probabilities are rounded to v's
-dtype before the product with v.
+dtype before the product with v (in f32 they stay f32).
 
 q, k, v are f32 or bf16, one dtype, any strided view whose last dimension is
 contiguous (the q / k / v slices of a fused qkv projection reach the kernel
@@ -23,11 +23,11 @@ attention, ``attention_core``'s "pallas" backend) ask ``takes`` first and,
 where it says no, record the structural decline (``decline``, as the JAX
 wrapper's ``engagement.fallback``) and take the plain route.
 
-bf16 launches the kernel written for the H100 (C entry
-``window_attn_flash_bf16``), every shape; f32, the checks' dtype, the
-shared-memory row pass of ``csrc/attn_core.cuh`` (``window_attn_f32``).
-Both count under ``window_attention_pallas``; ``engagement.entries()``
-tells them apart.
+Both dtypes launch a kernel written for the H100, every shape: bf16 C
+entry ``window_attn_flash_bf16``; f32 (MaxSR's forward unless halved)
+``window_attn_flash_f32``, the same plan in 3xTF32 on the tensor cores with
+the probabilities kept in f32. Both count under
+``window_attention_pallas``; ``engagement.entries()`` tells them apart.
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ __all__ = ["window_attention", "takes", "decline", "MAX_TOKENS"]
 MAX_TOKENS = 1024  # csrc/window_attn.cu WA_MAX_TOKENS
 _LL = ctypes.c_longlong
 _ARGS = (P, P, P, P, P, P, ctypes.POINTER(_LL), _LL, I, I, I, I, I, P)
-_SIGNATURES = {"window_attn_f32": _ARGS, "window_attn_flash_bf16": _ARGS}
+_SIGNATURES = {"window_attn_flash_f32": _ARGS, "window_attn_flash_bf16": _ARGS}
 
 
 def takes(n: int, m: int, d: int) -> bool:
@@ -100,7 +100,7 @@ def window_attention(q, k, v, bias=None, mask=None):
     flat = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     strides = (_LL * len(flat))(*flat)
     lib = _build.load("window_attn", _SIGNATURES)
-    entry = "window_attn_flash_bf16" if q.dtype == torch.bfloat16 else "window_attn_f32"
+    entry = "window_attn_flash_bf16" if q.dtype == torch.bfloat16 else "window_attn_flash_f32"
     status = call(dev, getattr(lib, entry), q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   None if b32 is None else b32.data_ptr(), None if m32 is None else m32.data_ptr(), out.data_ptr(),
                   strides, bw, heads, n, m, d, nw, STREAM)

@@ -1332,6 +1332,40 @@ def test_oca_core_bwd_h100_kernel_matches_plain(dev, bw, heads, nq, nk, d):
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomic sums: bitwise repeatable
 
 
+# B13 in f32 on the kernel written for the H100 (``csrc/oca_bwd_f32.cu``):
+# HAT's windows 8, 12 and 16 (64 | 144, 144 | 324, 256 | 576 at d 30) on the
+# OCAB's transposed views, HAT's f32 step (512 windows), 37 windows (not a
+# whole number of the main pass's groups), the trained fixtures' d 16, an odd
+# d and a ragged geometry; above window 16 (576 | 1296) the first design.
+H100_OCA_F32_CASES = [(6, 6, 64, 144, 30), (6, 6, 144, 324, 30), (6, 6, 256, 576, 30), (512, 6, 256, 576, 30),
+                      (37, 6, 256, 576, 30), (16, 2, 64, 144, 16), (3, 2, 100, 70, 7), (5, 3, 200, 300, 24),
+                      (2, 2, 576, 1296, 30)]
+
+
+@pytest.mark.parametrize("bw,heads,nq,nk,d", H100_OCA_F32_CASES)
+def test_oca_core_bwd_f32_h100_kernel_matches_plain(dev, bw, heads, nq, nk, d):
+    """Against the plain version at the f32 rule; d bias (and every output)
+    the same bits over two launches; up to 256 queries and 576 keys through
+    ``oca_core_bwd_mma_f32``, above them ``oca_core_bwd_f32`` under
+    ``oca_core_bwd_large``."""
+    from studiosr_tpu_torch.ops.cuda.oca_core import counter, oca_core_bwd, oca_core_bwd_plain
+
+    gen = torch.Generator().manual_seed(bw + nq + nk + d)
+    q, k, v, bias, g = _oca_case(gen, bw, heads, nq, nk, d, dev, torch.float32)
+    engagement.reset()
+    got = oca_core_bwd(q, k, v, bias, g)
+    again = oca_core_bwd(q, k, v, bias, g)
+    name = counter("oca_core_bwd", nq, nk)
+    entry = "oca_core_bwd_f32" if name.endswith("_large") else "oca_core_bwd_mma_f32"
+    assert engagement.entries() == {name: {entry: 2}}
+    want = oca_core_bwd_plain(q, k, v, bias, g)
+    for a, e in zip(got, want):
+        assert a.shape == e.shape
+        _assert_close(a, e, torch.float32)
+    assert got[0].transpose(1, 2).is_contiguous() and got[1].transpose(1, 2).is_contiguous()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomic sums: bitwise repeatable
+
+
 # B6 and B6 ``extra`` in bf16 on the kernel written for the H100
 # (``csrc/mlp_block_mma.cu``): C 180 / hidden 360 at the training step's
 # rows (batch 32 of 64 x 64) and at HAT serving's 65,536 with the join, ragged
@@ -1479,6 +1513,7 @@ WINDOW_ATTN_CASES = [
     (1, 2, 1024, 300, 32, "none", 1, 0), (2, 1, 100, 1024, 16, "bias", 1, 0), (2, 2, 64, 1024, 64, "none", 1, 0),
     (3, 2, 49, 49, 32, "both", 3, 1), (3, 2, 64, 80, 32, "bias", 1, 2), (2, 3, 40, 72, 24, "none", 1, 4),
     (2048, 2, 64, 64, 32, "bias", 1, 0), (600, 1, 256, 256, 32, "none", 1, 0), (8, 2, 36, 36, 48, "mask", 4, 0),
+    (256, 4, 256, 256, 32, "none", 1, 0), (1024, 4, 64, 64, 32, "bias", 1, 0), (130, 4, 64, 64, 32, "mask", 65, 0),
 ]
 
 
@@ -1544,7 +1579,7 @@ def test_window_attn_core_kernel_matches_plain(dev, dtype, bw, heads, n, m, d, k
         mask = torch.where(torch.rand(nw, n, m, generator=gen) > 0.7, -100.0, 0.0).to(dev)
     engagement.reset()
     got = window_attention(q, k, v, bias=bias, mask=mask)
-    entry = "window_attn_flash_bf16" if dtype == torch.bfloat16 else "window_attn_f32"
+    entry = "window_attn_flash_bf16" if dtype == torch.bfloat16 else "window_attn_flash_f32"
     assert engagement.counters() == {"window_attention_pallas": 1}
     assert engagement.entries() == {"window_attention_pallas": {entry: 1}}
     want = attention_plain(q.float(), k.float(), v.float(), bias, mask)
@@ -1963,15 +1998,17 @@ def test_oca_core_at_every_hat_window(dev, dtype, bw, heads, ws, d):
     nq, nk = ws * ws, owin * owin
     gen = torch.Generator().manual_seed(bw + ws + d)
     q, k, v, bias, g = _oca_case(gen, bw, heads, nq, nk, d, dev, dtype)
-    kind = "f32"
+    kind = bwd_kind = "f32"
     if dtype == torch.bfloat16:
-        kind = "large_mma_bf16" if counter("", nq, nk) == "_large" else "mma_bf16"  # every case has d <= 32
+        kind = bwd_kind = "large_mma_bf16" if counter("", nq, nk) == "_large" else "mma_bf16"  # every case has d <= 32
+    elif counter("", nq, nk) != "_large":
+        bwd_kind = "mma_f32"  # f32 B13 up to window 16 on its 3xTF32 entry
     engagement.reset()
     out = oca_core_fwd(q, k, v, bias)
     grads = oca_core_bwd(q, k, v, bias, g)
     again = oca_core_bwd(q, k, v, bias, g)
     assert engagement.entries() == {counter("oca_core_fwd", nq, nk): {f"oca_core_fwd_{kind}": 1},
-                                    counter("oca_core_bwd", nq, nk): {f"oca_core_bwd_{kind}": 2}}
+                                    counter("oca_core_bwd", nq, nk): {f"oca_core_bwd_{bwd_kind}": 2}}
     assert (ws > 16) == ("_large" in counter("oca_core_fwd", nq, nk))
     _assert_close(out, oca_core_plain(q.float(), k.float(), v.float(), bias), dtype)
     want = oca_core_bwd_plain(q.float(), k.float(), v.float(), bias, g.float())

@@ -223,7 +223,8 @@ def test_every_even_margin_window_reaches_a_kernel(monkeypatch, ws, dtype):
     """HAT x4 serving's widths (C 180, 6 heads, hidden 360) for B10 and the
     OCA core on 2 x 3 windows: bf16 B10 on the kernels written for the H100,
     f32 on ocab.cu; B12 / B13 in bf16 on the H100 entries (the large ones
-    above 256 queries or 576 keys), in f32 on oca_core.cu; nothing raises."""
+    above 256 queries or 576 keys), in f32 on oca_core.cu but B13 up to
+    256 queries and 576 keys on its 3xTF32 entry; nothing raises."""
     import studiosr_tpu_torch.ops.cuda.oca_core as oca_module
     import studiosr_tpu_torch.ops.cuda.ocab as ocab_module
     from studiosr_tpu_torch.ops.cuda import _build
@@ -246,8 +247,10 @@ def test_every_even_margin_window_reaches_a_kernel(monkeypatch, ws, dtype):
     oca_core_bwd(q, k, k, meta(heads, nq, nk, dt=f32), q)
     bf16 = dtype == torch.bfloat16
     assert ocab_mma_takes(c, heads, ws, 0.5, hidden)
-    kind = ("large_mma_bf16" if nq > 256 or nk > 576 else "mma_bf16") if bf16 else "f32"
+    large = nq > 256 or nk > 576
+    kind = ("large_mma_bf16" if large else "mma_bf16") if bf16 else "f32"
+    bwd_kind = "f32" if large else "mma_f32"  # f32 B13 up to window 16 on its 3xTF32 entry
     assert engagement.entries() == {"fused_ocab_block": {"ocab_mma_bf16" if bf16 else "ocab_f32": 1},
                                     counter("oca_core_fwd", nq, nk): {f"oca_core_fwd_{kind}": 1},
-                                    counter("oca_core_bwd", nq, nk): {f"oca_core_bwd_{kind}": 1}}
+                                    counter("oca_core_bwd", nq, nk): {f"oca_core_bwd_{kind if bf16 else bwd_kind}": 1}}
     engagement.reset()

@@ -235,7 +235,8 @@ def test_conv3x3_launch_takes_the_entry_of_its_dtype(monkeypatch, dtype, entry):
     assert engagement.entries() == {}
 
 
-@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "window_attn_flash_bf16"), (torch.float32, "window_attn_f32")])
+@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "window_attn_flash_bf16"),
+                                         (torch.float32, "window_attn_flash_f32")])
 def test_window_attention_launch_reads_slices_in_place(monkeypatch, dtype, entry):
     """q, k, v reach the kernel as the strided slices of one projection (N
     64 queries, M 36 keys), the output as a transposed view; a mask over

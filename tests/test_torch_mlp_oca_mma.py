@@ -336,12 +336,13 @@ def test_fused_mlp_block_packed_weights_outside_the_h100_rule_raise(monkeypatch)
     (torch.bfloat16, 3, 200, 300, 24, "oca_core_bwd_mma_bf16"),  # ragged tiles
     (torch.bfloat16, 2, 64, 144, 48, "oca_core_bwd_bf16"),  # head dim above 32: the older kernel, by rule
     (torch.bfloat16, 2, 64, 640, 16, "oca_core_bwd_large_mma_bf16"),  # more than 576 keys: the large entry
-    (torch.float32, 6, 256, 576, 30, "oca_core_bwd_f32"),
+    (torch.float32, 6, 256, 576, 30, "oca_core_bwd_mma_f32"),
 ])
 def test_oca_core_bwd_routes_by_dtype_and_geometry(monkeypatch, dtype, heads, nq, nk, d, entry):
     """bf16 with a head dim up to 32 goes to the backward written for the
     H100 (its large entry above 256 queries or 576 keys), other bf16
-    geometries and f32 to the older kernel; the outputs are the OCAB's
+    geometries to the older kernel, f32 in the same geometry to its 3xTF32
+    entry; the outputs are the OCAB's
     transposed views; each launch counts under ``oca_core_bwd`` (above 256
     queries or 576 keys ``oca_core_bwd_large``) and its C entry."""
     import studiosr_tpu_torch.ops.cuda.oca_core as module
