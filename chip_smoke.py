@@ -21,8 +21,8 @@ against its plain PyTorch version:
   recipe (``models/hat.py`` ``_TRAINING_CONFIG``), batch 32 of 64x64 LR
   crops, bf16 over f32 master weights, drop_path_rate 0.1, ``fused_train``
   on (B5 at window 16, B9, B6, B7: 36 launches each a step; B12, B13: 6);
-  and the same in f32, the JAX Trainer's ``bfloat16=False`` (B13 through
-  its 3xTF32 kernel);
+  and the same in f32, the JAX Trainer's ``bfloat16=False`` (B5, B9 and
+  B13 through their 3xTF32 kernels);
 * x2 / x3 serving of both, the x2 / x3 tail through B4: SwinIR at
   JingyunLiang/SwinIR ``001_classicalSR_DF2K_s64w8_SwinIR-M_x2`` / ``_x3``
   and HAT at ``options/test/HAT_SRx2.yml`` / ``HAT_SRx3.yml``, bf16, batch 1,
@@ -134,12 +134,13 @@ Phases, in order; any failure exits non-zero before the final line:
 10. HAT serving kernels vs plain at the path's shapes (256x256 map, C
     180), f32 and bf16: B11 (on the convs serving packs at load time), B5
     at window 16 (shift 0 and 8), B6 with ``extra`` / ``extra_scale``, B11
-    and B6 twice for the same bits (in f32 B6 too, through
-    ``mlp_block_extra_mma_f32``), B10 (its border windows' keys reach
-    outside the image);
+    and B6 twice for the same bits (in f32 B6 and B5 too, through
+    ``mlp_block_extra_mma_f32`` and ``window_attention16_mma_f32``), B10
+    (its border windows' keys reach outside the image);
 11. HAT serving end to end: the fused forward against the plain port
-    forward in f32 (its B6 launches through ``mlp_block_extra_mma_f32``)
-    and bf16, then three seeded 256x256 uint8 requests through
+    forward in f32 (its 36 B5 launches through ``window_attention16_mma_f32``
+    and its B6 launches through ``mlp_block_extra_mma_f32``; both forwards
+    timed) and bf16, then three seeded 256x256 uint8 requests through
     ``inference`` (bf16, fused) with launch counts checked per forward;
 12. HAT serving timing: the forward (ms, LR MP/s), each HAT kernel's ms,
     plain ms and bound, B11 beside the same function as a sequence of bf16
@@ -152,7 +153,8 @@ Phases, in order; any failure exits non-zero before the final line:
     windows and at the trained fixtures' (64, 144, d 16), with logits large
     enough that the row max matters (the path's bias in the run's dtype, as
     the bf16 step gathers it), B12 and B13 launched twice for the same bits
-    (B13 in f32 too, through ``oca_core_bwd_mma_f32``);
+    (in f32 B13, B5 and B9 too, through ``oca_core_bwd_mma_f32``,
+    ``window_attention16_mma_f32`` and ``attn_bwd16_mma_f32``);
 14. HAT gradients end to end, batch 4, as phase 7: the fused-train HAT's
     loss and every gradient in f32 and bf16 against an f64 witness (plain
     autograd of the port's HAT in f64), every ReLU (the squeeze-excite
@@ -167,11 +169,23 @@ Phases, in order; any failure exits non-zero before the final line:
     (``F.scaled_dot_product_attention`` with the bias as its mask);
 16b. HAT x4 f32 training (``phase_hat_train_f32``, the JAX Trainer's
     ``bfloat16=False``): ``Trainer.run`` for 3 steps at batch 32, the
-    launches a step (B13 6 through ``oca_core_bwd_mma_f32``, every f32
+    launches a step (B5 and B9 36 through ``window_attention16_mma_f32`` and
+    ``attn_bwd16_mma_f32``, B13 6 through ``oca_core_bwd_mma_f32``, every f32
     launch through its entry), finite losses, moved weights; step ms and
-    peak memory; B13 at the step's shapes in f32 against its plain version,
-    twice for the same bits, timed beside SDPA's f32 backward (the
-    ``oca_core_bwd_f32`` row, bound at 3xTF32);
+    peak memory; B13, B5 and B9 at the step's shapes in f32 against their
+    plain versions, each twice for the same bits, timed beside their plain
+    versions, B13 beside SDPA's f32 backward, B5 and B9 beside the same
+    functions as sequences of f32 PyTorch calls (the ``oca_core_bwd_f32``,
+    ``fused_window_attention_block_ws16_f32`` and ``attention_bwd_ws16_f32``
+    rows, bound at 3xTF32);
+16c. f32 B5 and its backward at windows 9, 12 and 16 where the 3xTF32
+    kernels decline the geometry (``phase_ws16_f32_first_design``): C 128 /
+    2 heads and C 192 / 3 (head dim 64) and C 90 / 6 (not a multiple of 4),
+    shift 0 and ws / 2, with and without drop-path, against their plain
+    versions at the f32 limit, every launch through
+    ``window_attention16_f32`` / ``attn_bwd16_f32``, the backward its bits
+    again; C 264 / 12 heads, which no kernel takes in f32, raises
+    NotImplementedError in both wrappers with no launch;
 17. B4 vs plain at s = 2 and 3, f32 and bf16, at SwinIR's (1, 264, 264,
     64), HAT's (1, 256, 256, 64) and a ragged (2, 37, 53, 64), each launch
     through its entry;
@@ -411,8 +425,8 @@ from studiosr_tpu_torch.ops.cuda.upsampler import (
     upsample_s_plain, upsample_x4_plain,
 )
 from studiosr_tpu_torch.ops.cuda.window_attention import (
-    fused_window_attention_block, pack_window_attention, unpack_window_attention, window_attention_plain,
-    window_family,
+    FAMILY_STEM, f32_mma_takes, fused_window_attention_block, pack_window_attention, unpack_window_attention,
+    window_attention_plain, window_family,
 )
 from studiosr_tpu_torch.ops.cuda.window_attn import window_attention
 from studiosr_tpu_torch.ops.resize import bicubic_resize
@@ -627,24 +641,39 @@ H100_KERNELS = {"fused_swin_block": ("swin_block_mma", "swin_block_mma_kernel"),
                 "fused_upsample_x4_f32": ("upsampler", "ct_conv_kernel"),
                 "fused_resblock_f32": ("resblock", "ct_conv_kernel"),
                 "oca_core_bwd_f32": ("oca_bwd_f32", "o32_"),
-                "window_attention_pallas_f32": ("window_attn", "wf32_kernel")}
+                "window_attention_pallas_f32": ("window_attn", "wf32_kernel"),
+                "fused_window_attention_block_ws16_f32": ("window_attention_f32", "tw_rows"),
+                "attention_bwd_ws16_f32": ("attn_bwd_f32", "tw_rows|ab16_")}
 # B13 at HAT's f32 step and B15 at MaxSR's f32 forward (3xTF32 on the
 # tensor cores): their rows in the kernels line, bound at 3xTF32
 KERNELS.update({
     "oca_core_bwd_f32": ("studiosr_tpu_torch/csrc/oca_bwd_f32.cu", "studiosr_tpu/ops/pallas/oca_core.py:157"),
     "window_attention_pallas_f32": ("studiosr_tpu_torch/csrc/window_attn.cu",
                                     "studiosr_tpu/ops/pallas/window_attn.py:115"),
+    # B5 and B9 at HAT's f32 step (window 16: the second family of the f32
+    # kernels, its attention pass csrc/tf_window16.cuh)
+    "fused_window_attention_block_ws16_f32": ("studiosr_tpu_torch/csrc/window_attention_f32.cu",
+                                              "studiosr_tpu/ops/pallas/swin_block.py:549"),
+    "attention_bwd_ws16_f32": ("studiosr_tpu_torch/csrc/attn_bwd_f32.cu", "studiosr_tpu/ops/pallas/attn_bwd.py:508"),
 })
 # HAT x4's f32 training (the JAX Trainer's ``bfloat16=False``) at the
 # recipe's batch 32 of 64x64 crops, HAT_TRAIN_MODEL's widths
 HAT_F32_TRAIN_STEPS = 3
 HAT_F32_TRAIN_DIR = ROOT / "build" / "chip_smoke_hat_f32_train"
+# f32 B5 and B9 at windows 9-16 where the 3xTF32 kernels decline the
+# geometry and the first design (window_attention16_f32, attn_bwd16_f32)
+# keeps it by rule: head dim 64 (C 128, 2 heads; C 192, 3 heads, the first
+# design's largest f32 C) and C not a multiple of 4 (C 90, 6 heads of 15);
+# C 264 (12 heads of 22) no kernel takes in f32, and the wrappers raise
+WS16_F32_FIRST_DESIGN_WINDOWS = (9, 12, 16)
+WS16_F32_FIRST_DESIGN_GEOMETRIES = ((torch.float32, 128, 2), (torch.float32, 192, 3), (torch.float32, 90, 6))
+WS16_F32_DECLINED = (264, 12)
 # The C entry every launch of B5-B9, B12 and B13 must take in a run of each
 # dtype: bf16 the kernels written for the H100 (their geometry rules hold at
-# every width the paths train); f32 B5 and B8 (windows 2-8), B6 (and its CAB
-# join), B7 and B13 up to HAT's window 16 the f32 kernels written for the
-# H100 (3xTF32 on the tensor cores: SwinFIR's recipe and HAT's f32 step
-# train in f32), the others the older kernels.
+# every width the paths train); f32 B5 and B8 / B9 (windows 2-16), B6 (and
+# its CAB join), B7 and B13 up to HAT's window 16 the f32 kernels written
+# for the H100 (3xTF32 on the tensor cores: SwinFIR's recipe and HAT's f32
+# step train in f32), the others the older kernels.
 TRAIN_ENTRIES = {
     torch.bfloat16: {"attention_bwd": "attn_bwd_mma_bf16", "attention_bwd_ws16": "attn_bwd16_mma_bf16",
                      "attention_bwd_large": "attn_bwd_large_mma_bf16",
@@ -655,10 +684,10 @@ TRAIN_ENTRIES = {
                      "fused_mlp_block": "mlp_block_mma_bf16", "oca_core_bwd": "oca_core_bwd_mma_bf16",
                      "oca_core_fwd": "oca_core_fwd_mma_bf16", "oca_core_bwd_large": "oca_core_bwd_large_mma_bf16",
                      "oca_core_fwd_large": "oca_core_fwd_large_mma_bf16"},
-    torch.float32: {"attention_bwd": "attn_bwd_mma_f32", "attention_bwd_ws16": "attn_bwd16_f32",
+    torch.float32: {"attention_bwd": "attn_bwd_mma_f32", "attention_bwd_ws16": "attn_bwd16_mma_f32",
                     "attention_bwd_large": "attn_bwd_large_f32",
                     "fused_window_attention_block": "window_attention_mma_f32",
-                    "fused_window_attention_block_ws16": "window_attention16_f32",
+                    "fused_window_attention_block_ws16": "window_attention16_mma_f32",
                     "fused_window_attention_block_large": "window_attention_large_f32", "mlp_bwd": "mlp_bwd_mma_f32",
                     "fused_mlp_block": "mlp_block_mma_f32", "fused_mlp_block_extra": "mlp_block_extra_mma_f32",
                     "oca_core_bwd": "oca_core_bwd_mma_f32",
@@ -671,7 +700,8 @@ BITWISE = ("fused_mlp_block", "fused_mlp_block_extra", "oca_core_bwd", "fused_ca
            "fused_ocab_block", "fused_window_attention_block_large", "oca_core_fwd_large")
 # The f32 kernels redesigned last, held to the same bits from launch to
 # launch in f32 (phases 6, 10 and 13)
-BITWISE_F32 = ("fused_window_attention_block", "fused_mlp_block", "fused_mlp_block_extra", "oca_core_bwd")
+BITWISE_F32 = ("fused_window_attention_block", "fused_mlp_block", "fused_mlp_block_extra", "oca_core_bwd",
+               "fused_window_attention_block_ws16", "attention_bwd_ws16")
 # B1 in bf16 beyond the main path's shape, as the card tests take it: (C,
 # heads, map, shift): C 32 with 2 heads of 16 (the trained fixtures), C 180
 # at H != W and an odd window count (a half-empty last window pair), d 8,
@@ -2067,6 +2097,16 @@ def phase_hat_end_to_end(model: HAT, dev: torch.device) -> dict:
     failed = train_entry_failures("hat e2e f32", launches32, torch.float32)
     rel32 = rel_l2(fused, plain)
     log(f"hat e2e f32 fused vs plain: rel_l2 {rel32:.3e} limit {E2E_F32_REL_L2:.0e}; launches {launches32}")
+    with torch.inference_mode():
+        fwd32 = time_ms(lambda: model(x), iters=3, warmup=1)
+        model.enable_fused(False)
+        plain32 = time_ms(lambda: model(x), iters=2, warmup=1)
+        model.enable_fused(True)
+    b5 = launches32.get("fused_window_attention_block_ws16", 0)
+    log(f"time hat x4 f32 forward {LR}x{LR}: fused {fwd32:.3f} ms (B5 at window 16 {b5} launches through its 3xTF32 "
+        f"entry), plain {plain32:.3f} ms")
+    if b5 != HAT_PER_FORWARD["fused_window_attention_block_ws16"]:
+        failed.append(f"the f32 HAT forward launched B5 at window 16 {b5} times")
     model.half()
     fused16 = model(x)
     torch.cuda.synchronize()
@@ -2428,13 +2468,19 @@ def phase_hat_train_f32(dev: torch.device) -> list:
     """HAT x4's f32 training, the JAX Trainer's ``bfloat16=False``:
     ``Trainer.run`` for HAT_F32_TRAIN_STEPS steps at batch 32 of 64x64
     crops, fused_train on: the launches a step (HAT_PER_STEP), every f32
-    launch through its entry (TRAIN_ENTRIES; B13 through the 3xTF32
-    ``oca_core_bwd_mma_f32``, F32_ENTRIES), finite losses, moved weights;
-    step ms, images/s and peak memory over 3 steps after a warm-up. Then B13
-    at the step's shapes (512 windows, 6 heads, 256 | 576, d 30, the OCAB's
-    views, an f32 bias) against its plain version, twice for the same bits,
-    timed beside its plain version, its bound at 3xTF32 and SDPA's f32
-    backward: the ``oca_core_bwd_f32`` row."""
+    launch through its entry (TRAIN_ENTRIES: B5 and B9 at window 16 through
+    the 3xTF32 ``window_attention16_mma_f32`` and ``attn_bwd16_mma_f32``;
+    B13 through ``oca_core_bwd_mma_f32``, F32_ENTRIES), finite losses, moved
+    weights; step ms, images/s and peak memory over 3 steps after a warm-up.
+    Then B13 at the step's shapes (512 windows, 6 heads, 256 | 576, d 30, the
+    OCAB's views, an f32 bias), and B5 and B9 at window 16 (batch 32 of 64 x
+    64 maps, block 1's weights, shift 8, drop-path scales, an f32 bias),
+    each against its plain version, twice for the same bits, timed beside
+    its plain version and its bound at 3xTF32, B13 beside SDPA's f32
+    backward and B5 / B9 beside the same function as a sequence of f32
+    PyTorch calls: the ``oca_core_bwd_f32``,
+    ``fused_window_attention_block_ws16_f32`` and ``attention_bwd_ws16_f32``
+    rows."""
     shutil.rmtree(HAT_F32_TRAIN_DIR, ignore_errors=True)
     model = HAT.build(**HAT_TRAIN_MODEL, seed=SEED, device=dev)
     losses: list = []
@@ -2493,9 +2539,12 @@ def phase_hat_train_f32(dev: torch.device) -> list:
     log(f"hat train step f32 batch {TRAIN_BATCH} {TRAIN_CROP}x{TRAIN_CROP}: {step_ms:.3f} ms, "
         f"{TRAIN_BATCH / (step_ms / 1e3):.1f} images/s, peak memory {peak:.2f} GiB")
 
-    ops = next(o for name, label, _, _, o in hat_train_kernel_cases(model, dev, torch.float32, TRAIN_BATCH)
-               if name == "oca_core_bwd" and label == "path")
-    del model
+    cases = {(name, label): (kernel, plain, o) for name, label, kernel, plain, o in
+             hat_train_kernel_cases(model, dev, torch.float32, TRAIN_BATCH)}
+    ops = cases[("oca_core_bwd", "path")][2]
+    shifted = f"shift {HAT_MAIN['window_size'] // 2}"
+    ws16 = {name: cases[(name, shifted)] for name in ("fused_window_attention_block_ws16", "attention_bwd_ws16")}
+    del model, cases
     engagement.reset()
     got = oca_core_bwd(*ops)
     again = oca_core_bwd(*ops)
@@ -2524,12 +2573,106 @@ def phase_hat_train_f32(dev: torch.device) -> list:
         f"{ptxas_report('oca_core_bwd_f32')}")
     del ops
     torch.cuda.empty_cache()
-    if failed:
-        raise AssertionError("; ".join(failed))
     source, replaces = KERNELS["oca_core_bwd_f32"]
-    return [dict(name="oca_core_bwd_f32", route="cuda", source=source, replaces=replaces,
+    rows = [dict(name="oca_core_bwd_f32", route="cuda", source=source, replaces=replaces,
                  launches=launches.get("oca_core_bwd", 0), max_abs_err=errs[0], ms=ms, plain_ms=plain_ms, bound_ms=bms,
                  bound_by=by, library_ms=library_ms)]
+    rows += hat_f32_ws16_rows(ws16, launches, step_ms, shifted, dev, failed)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return rows
+
+
+def phase_ws16_f32_first_design(dev: torch.device) -> None:
+    """f32 B5 and its backward at windows 9-16 on the geometries the 3xTF32
+    kernels decline (``WS16_F32_FIRST_DESIGN_*``): against their plain
+    versions at the f32 limit, shift 0 and ws / 2, with and without a
+    drop-path scale, every launch through ``window_attention16_f32`` /
+    ``attn_bwd16_f32`` (``large_window_checks`` on the ``_ws16`` family);
+    first, at ``WS16_F32_DECLINED``, which no kernel takes in f32, both
+    wrappers raise NotImplementedError and launch nothing."""
+    failed = []
+    start = time.perf_counter()
+    c, heads = WS16_F32_DECLINED
+    ws = WS16_F32_FIRST_DESIGN_WINDOWS[1]
+    x, g, ops = large_window_ops(dev, torch.float32, c, heads, ws, (1, ws, ws), SEED + c)
+    kw = dict(heads=heads, window_size=ws, shift=ws // 2)
+    engagement.reset()
+    for name, fn in (("fused_window_attention_block", lambda: fused_window_attention_block(x, *ops, **kw)),
+                     ("attention_bwd", lambda: attention_bwd(x, g, *ops, **kw))):
+        try:
+            fn()
+            failed.append(f"{name} f32 at window {ws}, C {c}: no error")
+        except NotImplementedError as err:
+            log(f"check {name} f32 at window {ws}, C {c} / {heads} heads declines: {err}")
+    if engagement.counters():
+        failed.append(f"the declined f32 geometry launched {engagement.counters()}")
+    del x, g, ops
+    large_window_checks(dev, failed, WS16_F32_FIRST_DESIGN_WINDOWS, WS16_F32_FIRST_DESIGN_GEOMETRIES, "_ws16")
+    log(f"ws16 f32 first design: kernel checks in {time.perf_counter() - start:.1f} s")
+    if failed:
+        raise AssertionError("ws16 f32 first design: " + "; ".join(failed))
+
+
+def hat_f32_ws16_rows(ws16: dict, launches: dict, step_ms: float, label: str, dev: torch.device,
+                      failed: list) -> list:
+    """B5 and B9 in f32 at HAT's f32 step (``ws16``: {name: (kernel, plain,
+    operands)} at ``label``'s shift) against their plain versions, each
+    launched twice through its 3xTF32 entry for the same bits, then timed
+    beside its plain version, its bound at 3xTF32 (the FMA pipes' beside
+    it) and the same function as a sequence of f32 PyTorch calls
+    (scripts/torch_time_attn_kernels.py: cuBLAS with TF32 off, SDPA with the
+    bias and shift mask as its mask, LayerNorm; the backward by
+    ``torch.autograd.grad``), timed here and never on the path. No one
+    PyTorch call computes either function, so their rows' library time is
+    null. Returns the ``*_ws16_f32`` rows."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from torch_time_attn_kernels import attention_half_forward_sequence, attention_half_sequence
+
+    ws, heads = HAT_MAIN["window_size"], HAT_MAIN["num_heads"][0]
+    kw = kw_of(label, ws, TRAIN_BATCH, dev)
+    rows = []
+    for name, (kernel, plain, ops) in ws16.items():
+        entry = TRAIN_ENTRIES[torch.float32][name]
+        engagement.reset()
+        got = _flat(kernel(*ops))
+        again = _flat(kernel(*ops))
+        torch.cuda.synchronize()
+        if engagement.entries() != {name: {entry: 2}}:
+            failed.append(f"{name} f32 at the step's shapes: entries {engagement.entries()}, expected {entry}")
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"check {name} [hat f32 step, {label}] f32: two launches give the same bits: {same}")
+        if not same:
+            failed.append(f"{name} f32 at the step's shapes: two launches differ")
+        want = _flat(plain(*ops))
+        errs = [kernel_check(f"{name} [hat f32 step, {label}] output {i}", a, e, torch.float32, failed)
+                for i, (a, e) in enumerate(zip(got, want))]
+        del got, again, want
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda: kernel(*ops), iters=5)
+        plain_ms = time_ms(lambda: plain(*ops), iters=2, warmup=1)
+        if name == "attention_bwd_ws16":
+            sequence = attention_half_sequence(ops[0], ops[1], ops[2:], heads, ws, kw["shift"], kw["drop_path"],
+                                               dtype=torch.float32)
+        else:
+            sequence = attention_half_forward_sequence(ops[0], ops[1:], heads, ws, kw["shift"], kw["drop_path"],
+                                                       dtype=torch.float32)
+        seq_ms = time_ms(sequence, iters=3, warmup=1)
+        del sequence
+        torch.cuda.empty_cache()
+        flops, moved = train_bounds(name, ops)
+        bms, by = bound_ms(flops, moved, PEAK_TF32X3_FLOPS)
+        per = HAT_PER_STEP[name]
+        log(f"time {name} f32 [hat f32 step, {label}]: {ms:.3f} ms ({100 * per * ms / step_ms:.1f} % of the f32 step "
+            f"at {per} a step), plain {plain_ms:.3f} ms, bound {bms:.4f} ms at 3xTF32 ({by}; the FMA pipes "
+            f"{1e3 * flops / PEAK_FMA_FLOPS:.4f}), yardstick (f32 PyTorch sequence) {seq_ms:.3f} ms, "
+            f"{flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB; kernel / yardstick {ms / seq_ms:.3f}, "
+            f"{100 * bms / ms:.1f} % of the bound; {ptxas_report(name + '_f32')}")
+        source, replaces = KERNELS[name + "_f32"]
+        rows.append(dict(name=name + "_f32", route="cuda", source=source, replaces=replaces,
+                         launches=launches.get(name, 0), max_abs_err=errs[0], ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                         bound_by=by, library_ms=None))
+    return rows
 
 
 # -- x2 / x3 serving phases (B4) ------------------------------------------------
@@ -3631,23 +3774,26 @@ def large_window_ops(dev: torch.device, dtype: torch.dtype, c: int, heads: int, 
     return r(*shape, c).to(dev, dtype), r(*shape, c).to(dev, dtype), ops
 
 
-def large_window_checks(dev: torch.device, failed: list) -> dict:
+def large_window_checks(dev: torch.device, failed: list, windows=LARGE_WINDOWS, geometries=LARGE_GEOMETRIES,
+                        family: str = "_large") -> dict:
     """B5 and its backward against their plain versions at every window of
-    ``LARGE_WINDOWS`` and geometry of ``LARGE_GEOMETRIES`` (2 x 3 windows,
-    batch 2; shift 0 and ws / 2, with and without drop-path), each launch
-    through the streaming family's entry of its route; the serving blob
-    gives the dense weights' bits, the backward (and, on the H100 core, the
-    forward) repeats its bits, and a dropped sample passes through (dx = g).
-    One line a window and geometry.
+    ``windows`` (by default the streaming family's, ``LARGE_WINDOWS``) and
+    geometry of ``geometries`` (2 x 3 windows, batch 2; shift 0 and ws / 2,
+    with and without drop-path), each launch through ``family``'s entry of
+    its route; the serving blob gives the dense weights' bits, the backward
+    (and, on the H100 core, the forward) repeats its bits, and a dropped
+    sample passes through (dx = g). One line a window and geometry.
     Returns the launches at window 32 in the geometry that is timed."""
     timed = {}
-    for ws in LARGE_WINDOWS:
-        for dtype, c, heads in LARGE_GEOMETRIES:
+    for ws in windows:
+        for dtype, c, heads in geometries:
             x, g, ops = large_window_ops(dev, dtype, c, heads, ws, (2, 2 * ws, 3 * ws), SEED + ws + c + heads)
             xf, gf, opsf = x.float(), g.float(), [t.float() for t in ops]
-            kind = "_mma_bf16" if dtype == torch.bfloat16 and mma_takes(c, heads) else (
-                "_bf16" if dtype == torch.bfloat16 else "_f32")
-            label = f"large window {ws} {str(dtype)[6:]} C {c} / {heads} heads"
+            if dtype == torch.bfloat16:
+                kind = "_mma_bf16" if mma_takes(c, heads) else "_bf16"
+            else:
+                kind = "_mma_f32" if f32_mma_takes(c, heads, ws) else "_f32"
+            label = f"{family[1:]} window {ws} {str(dtype)[6:]} C {c} / {heads} heads"
             worst, n = 0.0, 0
             engagement.reset()
             for shift in (0, ws // 2):
@@ -3655,7 +3801,7 @@ def large_window_checks(dev: torch.device, failed: list) -> dict:
                     kw = dict(heads=heads, window_size=ws, shift=shift, drop_path=dp)
                     case = f"{label} shift {shift}" + (" drop-path" if dp is not None else "")
                     y = fused_window_attention_block(x, *ops, **kw)
-                    if kind == "_mma_bf16" and "fused_window_attention_block_large" in BITWISE and not torch.equal(
+                    if kind == "_mma_bf16" and "fused_window_attention_block" + family in BITWISE and not torch.equal(
                             y, fused_window_attention_block(x, *ops, **kw)):
                         failed.append(f"{case}: the forward's bits differ from launch to launch")
                     grads = attention_bwd(x, g, *ops, **kw)
@@ -3685,11 +3831,13 @@ def large_window_checks(dev: torch.device, failed: list) -> dict:
                     del y, grads, pairs
             torch.cuda.synchronize()
             entries, launches = engagement.entries(), engagement.counters()
-            want = {"fused_window_attention_block_large": {f"window_attention_large{kind}": 4 + 5 * (kind == "_mma_bf16")},
-                    "attention_bwd_large": {f"attn_bwd_large{kind}": 8}}
+            stem = FAMILY_STEM[family]
+            forwards = 4 + (kind == "_mma_bf16") * (1 + 4 * ("fused_window_attention_block" + family in BITWISE))
+            want = {"fused_window_attention_block" + family: {f"window_attention{stem}{kind}": forwards},
+                    "attention_bwd" + family: {f"attn_bwd{stem}{kind}": 8}}
             if entries != want:
                 failed.append(f"{label}: entries {entries}, expected {want}")
-            if (ws, c, heads, dtype) == (*LARGE_TIMED[:3], torch.bfloat16):
+            if (ws, c, heads, dtype, family) == (*LARGE_TIMED[:3], torch.bfloat16, "_large"):
                 timed = launches
             rule = "max abs error vs 1e-4 max|p| + 1e-5" if dtype == torch.float32 else "rel_l2 vs 1e-2"
             log(f"check {label}: {n} outputs over shift 0 / {ws // 2} with and without drop-path, worst "
@@ -5033,6 +5181,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows += phase_hat_train_f32(dev)
     torch.cuda.empty_cache()
+    phase_ws16_f32_first_design(dev)
     b4_errors = phase_b4_kernels(dev)
     rows += phase_x2_x3(dev, b4_errors)
     resblock_errors = phase_resblock_kernels(dev)

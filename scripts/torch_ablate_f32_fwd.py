@@ -92,14 +92,19 @@ def _ptxas(log: str) -> tuple:
     return regs, spills
 
 
-def build_all(only) -> dict:
-    """{variant: ({source: library}, registers, spills)}, every variant compiled at once."""
-    shutil.rmtree(OUT, ignore_errors=True)
+def build_all(only, variants=VARIANTS, sources=SOURCES, out=OUT, kernels=None) -> dict:
+    """{variant: ({source: library}, registers, spills)}, every variant of
+    ``variants`` compiled at once into ``out``: each of ``sources`` ((C
+    source, its wrapper module), whose ``_SIGNATURES_F32`` bind it) built
+    from a copy of the checkout's csrc with the variant's substitutions;
+    ptxas's figures of the kernels whose names contain one of ``kernels``
+    (all by default)."""
+    shutil.rmtree(out, ignore_errors=True)
     jobs = []
-    for i, (name, subs) in enumerate(VARIANTS):
+    for i, (name, subs) in enumerate(variants):
         if only and name not in only:
             continue
-        d = OUT / f"v{i}"
+        d = out / f"v{i}"
         d.mkdir(parents=True)
         for p in _build.CSRC.glob("*.cu*"):
             shutil.copy(p, d / p.name)
@@ -108,7 +113,7 @@ def build_all(only) -> dict:
             if old not in text:
                 raise SystemExit(f"{name}: {old!r} is not in {target}")
             (d / target).write_text(text.replace(old, new))
-        for src, _ in SOURCES:
+        for src, _ in sources:
             cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / f"{src}.so"), str(d / f"{src}.cu")]
             jobs.append((name, d, src, subprocess.Popen(cmd, stdout=open(d / f"{src}.log", "w"),
                                                         stderr=subprocess.STDOUT)))
@@ -116,20 +121,21 @@ def build_all(only) -> dict:
         if proc.wait() != 0:
             raise SystemExit(f"{name}: nvcc failed on {src}\n{(d / f'{src}.log').read_text()[-3000:]}")
     libs = {}
-    for i, (name, _) in enumerate(VARIANTS):
-        d = OUT / f"v{i}"
+    keep = (lambda k: True) if kernels is None else (lambda k: any(n in k for n in kernels))  # noqa: E731
+    for i, (name, _) in enumerate(variants):
+        d = out / f"v{i}"
         if not d.exists():
             continue
         built, regs, spills = {}, {}, {}
-        for src, module in SOURCES:
+        for src, module in sources:
             lib = ctypes.CDLL(str(d / f"{src}.so"))
             for fn, args in module._SIGNATURES_F32.items():
                 getattr(lib, fn).argtypes = list(args)
                 getattr(lib, fn).restype = module._RESTYPES_F32.get(fn, ctypes.c_int)
             built[src] = lib
             r, s = _ptxas((d / f"{src}.log").read_text())
-            regs.update({f"{src}: {k}": v for k, v in r.items()})
-            spills.update({f"{src}: {k}": v for k, v in s.items()})
+            regs.update({f"{src}: {k}": v for k, v in r.items() if keep(k)})
+            spills.update({f"{src}: {k}": v for k, v in s.items() if keep(k)})
         libs[name] = (built, regs, spills)
     return libs
 

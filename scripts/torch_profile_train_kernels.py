@@ -2,7 +2,7 @@
 """Device time of each CUDA kernel inside the port's training kernels, and
 of a whole training step.
 
-    python3 scripts/torch_profile_train_kernels.py [--model swinir|hat|maxsr|swinfir]
+    python3 scripts/torch_profile_train_kernels.py [--model swinir|hat|maxsr|swinfir] [--f32]
 
 1. One launch of each wrapper runs at the training step's shapes (C 180, 6
    heads, batch 32 of 64x64 maps, bf16, one drop-path scale 0) under
@@ -21,6 +21,8 @@ of a whole training step.
    stream) and so its idle share, the device kernels a step, and the
    kernels that take the most device time.
 
+``--f32`` runs both in f32: the wrappers' operands and the step
+(``bfloat16=False``, the JAX Trainer's f32 recipe; SwinFIR's always is).
 Prints the card's name and power limit first. Needs a CUDA card.
 """
 
@@ -47,14 +49,14 @@ from studiosr_tpu_torch.parallel import build_optimizer, make_train_step, prepar
 from studiosr_tpu_torch.utils import l1_loss  # noqa: E402
 
 B, S, C, HEADS, CALLS, STEPS = 32, 64, 180, 6, 5, 3
-TOP = {"swinfir": 40}  # the step's kernels listed (SwinFIR: its SFBs' convs and FFTs beside B5-B8)
+TOP = {"swinfir": 40}  # the step's kernels listed (SwinFIR: its SFBs' convs and FFTs beside B5-B8; f32 30)
 
 
 def _device_kernels(prof):
     return [e for e in prof.key_averages() if e.device_type.name == "CUDA" and e.device_time_total > 0]
 
 
-def profile_step(dev: torch.device, name: str) -> None:
+def profile_step(dev: torch.device, name: str, f32: bool) -> None:
     if name == "swinir":
         model = SwinIR.build(scale=4, embed_dim=C, depths=[6] * 6, num_heads=[HEADS] * 6, window_size=8,
                              mlp_ratio=2.0, drop_path_rate=0.1, device=dev)
@@ -71,7 +73,7 @@ def profile_step(dev: torch.device, name: str) -> None:
     module.fused_train = True
     tx = build_optimizer()
     state = prepare_state(module, tx)
-    step = make_train_step(module, tx, l1_loss, bfloat16=name != "swinfir")  # SwinFIR's recipe trains in f32
+    step = make_train_step(module, tx, l1_loss, bfloat16=not f32)
     rng = torch.Generator().manual_seed(1)
     lq = torch.randint(0, 256, (B, S, S, 3), generator=rng, dtype=torch.uint8).to(dev)
     gt = torch.randint(0, 256, (B, 4 * S, 4 * S, 3), generator=rng, dtype=torch.uint8).to(dev)
@@ -88,16 +90,18 @@ def profile_step(dev: torch.device, name: str) -> None:
     kernels = _device_kernels(prof)
     busy = sum(e.device_time_total for e in kernels) / STEPS / 1e3
     launches = sum(e.count for e in kernels) / STEPS
-    print(f"{name} train step (profiled): host {wall:.1f} ms a step, device busy {busy:.1f} ms "
+    print(f"{name}{' f32' if f32 else ''} train step (profiled): host {wall:.1f} ms a step, device busy {busy:.1f} ms "
           f"({100 * (1 - busy / wall):.1f} % idle), {launches:.0f} device kernels a step")
-    for e in sorted(kernels, key=lambda e: -e.device_time_total)[:TOP.get(name, 15)]:
+    for e in sorted(kernels, key=lambda e: -e.device_time_total)[:TOP.get(name, 30 if f32 else 15)]:
         print(f"  {e.device_time_total / STEPS / 1e3:8.3f} ms  x{e.count // STEPS:<5} {e.key[:100]}")
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--model", choices=("swinir", "hat", "maxsr", "swinfir"), default="swinir")
+    parser.add_argument("--f32", action="store_true", help="the wrappers and the step in f32 (SwinFIR's always are)")
     args = parser.parse_args()
+    f32_step = args.f32 or args.model == "swinfir"  # SwinFIR's recipe trains in f32
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     dev = resolve_device("cuda")
@@ -106,7 +110,7 @@ def main() -> int:
     print(card)
     gen = torch.Generator().manual_seed(0)
     f32 = torch.float32
-    bf = f32 if args.model == "swinfir" else torch.bfloat16  # the kernels' operands in the step's dtype
+    bf = f32 if f32_step else torch.bfloat16  # the kernels' operands in the step's dtype
 
     def randn(*shape, scale=1.0, dtype=bf):
         return (torch.randn(*shape, generator=gen) * scale).to(dev, dtype)
@@ -157,7 +161,7 @@ def main() -> int:
         print(f"{name}: {total:.3f} ms device time a call")
         for e in sorted(rows_, key=lambda e: -e.device_time_total):
             print(f"  {e.device_time_total / CALLS / 1e3:8.3f} ms  x{e.count // CALLS:<3} {e.key[:110]}")
-    profile_step(dev, args.model)
+    profile_step(dev, args.model, f32_step)
     return 0
 
 

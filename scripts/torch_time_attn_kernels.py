@@ -90,8 +90,12 @@ and then a table of the four.
 
 ``--f32`` times only B5, B6, B7 and B8 in f32 at SwinFIR's training step
 (batch 32 of 64 x 64 maps, C 180, 6 heads, window 8 shift 4, hidden 360,
-drop-path scales), and B5 and B6 at MaxSR's f32 geometry (C 128, 4 heads
-of 32, hidden 512, unshifted, no drop-path; rows ending " maxsr"), each
+drop-path scales), B5 and B6 at MaxSR's f32 geometry (C 128, 4 heads
+of 32, hidden 512, unshifted, no drop-path; rows ending " maxsr"), and B5
+and B9 at window 16 (the ``_ws16`` rows): at HAT x4's f32 step (the same
+maps, shift 8, drop-path scales, an f32 bias; " hat step"), B9 at its f32
+gradient check's batch 4 (" hat check") and B5 on HAT x4 f32 serving's 256
+x 256 map (" hat serving"), each
 with its per-pass split, its plain version's time,
 its bounds ("bounds": GFLOP and MB of a launch, ms at 3xTF32 (164.9
 TFLOP/s), on the FMA pipes (66.9) and at 3.35 TB/s) and its library
@@ -121,8 +125,10 @@ same bits or not, and exits 1 if any bf16 output differs. The f32 outputs
 and 16, batch 2), B6 (with drop-path and with HAT's CAB join) and B7 on
 two samples' rows at C 180) are listed as the same bits or with their
 largest difference relative to their largest value: an f32 kernel's
-outputs change with it (B5 and B6 at windows 2 to 8 since their f32
-kernels written for the H100; B7 and B8 before), and no other's.
+outputs change with it (B5 and B9 at window 16 since their f32 kernels
+written for the H100; B5 and B6 at windows 2 to 8, B7 and B8 before), and no
+other's. B13's f32 outputs at windows 8 and 16 ("(f32) B13 ...") show
+whether a change kept its bits.
 """
 
 from __future__ import annotations
@@ -584,12 +590,12 @@ TF32X3_TFLOPS, FMA_TFLOPS, HBM_TBS = 494.7 / 3, 66.9, 3.35
 N_TOK = 64  # a window's tokens at window 8
 
 
-def f32_bounds(name: str, tokens: int, nbytes: int, c: int = C, hidden: int = 2 * C) -> dict:
-    """GFLOP of one launch of B5-B8 at width ``c``, window 8 and ``hidden``
-    (PERF.md's count), its bytes (each input read once, each output
-    written once), and the least ms at 3xTF32, on the FMA pipes and at the
-    HBM rate."""
-    t, hid, n = tokens, hidden, N_TOK
+def f32_bounds(name: str, tokens: int, nbytes: int, c: int = C, hidden: int = 2 * C, n: int = N_TOK) -> dict:
+    """GFLOP of one launch of B5-B9 at width ``c``, ``n`` tokens a window
+    (64 at window 8) and ``hidden`` (PERF.md's count), its bytes (each
+    input read once, each output written once), and the least ms at
+    3xTF32, on the FMA pipes and at the HBM rate."""
+    t, hid, name = tokens, hidden, name.replace("_ws16", "")
     flops = {"fused_window_attention_block": 2 * t * c * 4 * c + 4 * t * n * c,
              "fused_mlp_block": 4 * t * c * hid,
              "mlp_bwd": 10 * t * c * hid,
@@ -603,7 +609,8 @@ def measure_f32() -> dict:
     maps, C 180, 6 heads, window 8 shift 4, hidden 360, drop-path scales
     (0, 1/0.9, ...)), then B5 and B6 at MaxSR's f32 geometry (the same maps,
     C 128, 4 heads of 32, window 8 unshifted, hidden 512, no drop-path: the
-    rows ending " maxsr"), each with its per-pass split, its bound and its
+    rows ending " maxsr"), then B5 and B9 at window 16 at HAT's f32 step,
+    check and serving shapes, each with its per-pass split, its bound and its
     library yardstick: the same function as a sequence of f32 PyTorch calls
     (cuBLAS with TF32 off, as ``resolve_device`` sets it)."""
     import torch
@@ -678,6 +685,49 @@ def measure_f32() -> dict:
             bounds[label] = f32_bounds(name, rows, moved, c, hidden)
             torch.cuda.empty_cache()
         del cases, x, g, xr, gr
+        torch.cuda.empty_cache()
+    # B5 and B9 at windows 9-16: HAT x4's f32 step (batch 32 of 64 x 64 maps,
+    # window 16, shift 8, drop-path scales, an f32 bias), its f32 gradient
+    # check's batch 4 (B9) and its f32 serving's 256 x 256 map (batch 1, B5)
+    ws16, n16 = 16, 256
+    for suffix, batch, side, names in ((" hat step", BATCH, CROP, ("fused_window_attention_block_ws16",
+                                                                    "attention_bwd_ws16")),
+                                       (" hat check", 4, CROP, ("attention_bwd_ws16",)),
+                                       (" hat serving", 1, 256, ("fused_window_attention_block_ws16",))):
+        x, g = randn(batch, side, side, C), randn(batch, side, side, C, scale=1e-3)
+        dp = None
+        if batch > 1:
+            dp = torch.full((batch,), 1 / 0.9, device=dev)
+            dp[0] = 0.0
+        attn_ops = (1 + randn(C, scale=0.1), randn(C, scale=0.1), randn(C, 3 * C, scale=C**-0.5),
+                    randn(3 * C, scale=0.1), randn(C, C, scale=C**-0.5), randn(C, scale=0.1),
+                    randn(HEADS, n16, n16, scale=0.5))
+        akw = dict(heads=HEADS, window_size=ws16, shift=ws16 // 2, drop_path=dp)
+        weights = sum(t.numel() * 4 for t in attn_ops)
+        cases = {
+            "fused_window_attention_block_ws16": (
+                lambda: fused_window_attention_block(x, *attn_ops, **akw),
+                lambda: window_attention_plain(x, *attn_ops, **akw),
+                lambda: attention_half_forward_sequence(x, attn_ops, HEADS, ws16, ws16 // 2, dp, dtype=f32),
+                2 * x.numel() * 4 + weights),
+            "attention_bwd_ws16": (lambda: attention_bwd(x, g, *attn_ops, **akw),
+                                   lambda: attention_bwd_plain(x, g, *attn_ops, **akw),
+                                   lambda: attention_half_sequence(x, g, attn_ops, HEADS, ws16, ws16 // 2, dp,
+                                                                   dtype=f32),
+                                   3 * x.numel() * 4 + 2 * weights),
+        }
+        for name in names:
+            kernel, plain, sequence, moved = cases[name]
+            label = f"{name} f32{suffix}"
+            engagement.reset()
+            ms[label] = time_ms(kernel, iters=10)
+            entries[label] = engagement.entries().get(name)
+            passes[label] = pass_split(kernel, calls=3)
+            ms[f"{label} plain"] = time_ms(plain, iters=2, warmup=1)
+            ms[f"{label} library (f32 PyTorch sequence)"] = time_ms(sequence(), iters=3, warmup=1)
+            bounds[label] = f32_bounds(name, x.numel() // C, moved, n=n16)
+            torch.cuda.empty_cache()
+        del cases, x, g
         torch.cuda.empty_cache()
     return {"package": studiosr_tpu_torch.__file__, "card": card_line(), "ms": ms, "passes": passes,
             "entries": entries, "bounds": bounds}
@@ -873,6 +923,8 @@ def kernel_bits() -> dict:
         out[f"B12 window {ws} bf16 bias"] = oca_core_fwd(q, k, v, bias.to(bf))
         for i, t in enumerate(oca_core_bwd(q, k, v, bias, go)):
             out[f"B13 window {ws} output {i}"] = t
+        for i, t in enumerate(oca_core_bwd(q.float(), k.float(), v.float(), bias, go.float())):
+            out[f"(f32) B13 window {ws} output {i}"] = t
     from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd
     from studiosr_tpu_torch.ops.cuda.window_attention import fused_window_attention_block
 

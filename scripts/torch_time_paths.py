@@ -9,8 +9,8 @@ x4 (adaptive and static, the JAX package's ``build`` defaults), SwinIR
 x2 and x3 and HAT x2 and x3 forward, and SwinIR x4 at window 24 (its 256 x 256
 image padded to 264 x 264)
 (bf16, batch 1, a 256 x 256 uint8 image, fused serving) over 5 forwards,
-the SwinIR x4, SwinFIR x4 and MaxSR x4 (both modes) forward in f32, fused
-(and for SwinIR and SwinFIR plain; TF32 off), and the SwinIR x4 and HAT x4 train step (``make_train_step``, bf16 over f32 masters, batch
+the SwinIR x4, SwinFIR x4, HAT x4 and MaxSR x4 (both modes) forward in f32, fused
+(and for SwinIR, SwinFIR and HAT plain; TF32 off), and the SwinIR x4 and HAT x4 train step (``make_train_step``, bf16 over f32 masters, batch
 32 of 64 x 64 crops, fused_train; HAT also at window 24, the crops padded
 to 72 x 72: 288 windows a step; HAT also in f32, ``bfloat16=False``), the
 MaxSR x4 adaptive train step (the same bf16 recipe) and the SwinFIR x4 train
@@ -111,8 +111,8 @@ PATHS = ("swinir forward", "swinir ws24 forward", "swinir train step", "hat forw
          "swinfir forward", "swinfir train step", "maxsr adaptive train step",
          "maxsr adaptive forward", "maxsr static forward", "swinir x2 forward", "swinir x3 forward",
          "hat x2 forward", "hat x3 forward", "swinir f32 forward", "swinir f32 plain forward",
-         "swinfir f32 forward", "swinfir f32 plain forward", "hat f32 train step", "maxsr adaptive f32 forward",
-         "maxsr static f32 forward")
+         "swinfir f32 forward", "swinfir f32 plain forward", "hat f32 train step", "hat f32 forward",
+         "hat f32 plain forward", "maxsr adaptive f32 forward", "maxsr static f32 forward")
 
 
 def main() -> None:

@@ -138,68 +138,6 @@ __device__ __forceinline__ float4 o32_bias4(const O32Args& a, int h, int r, int 
   return make_float4(v[0], v[1], v[2], v[3]);
 }
 
-// hi and lo (TF32 bit patterns) of rows x DP f32 values at src (rows LD
-// apart), to the same places of hi and lo; src may be hi (split in place).
-// Each value is split once here, and every fragment that reads it later
-// loads its two halves.
-template <int DP, int LD>
-__device__ __forceinline__ void o32_split_rows(const float* src, uint32_t* hi, uint32_t* lo, int rows) {
-  for (int i = threadIdx.x; i < rows * (DP / 4); i += O32_THREADS) {
-    const int at = (i / (DP / 4)) * LD + 4 * (i % (DP / 4));
-    const float4 x = *reinterpret_cast<const float4*>(src + at);
-    uint4 h, l;
-    tf_split(x.x, h.x, l.x);
-    tf_split(x.y, h.y, l.y);
-    tf_split(x.z, h.z, l.z);
-    tf_split(x.w, h.w, l.w);
-    *reinterpret_cast<uint4*>(hi + at) = h;
-    *reinterpret_cast<uint4*>(lo + at) = l;
-  }
-}
-
-// The A fragment of rows r, r + 8 (LD apart), columns 8 ks + t, + 4, split.
-__device__ __forceinline__ void o32_afrag(const float* rows, int LD, int ks, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const float* r = rows + g * LD + 8 * ks + t;
-  const float v[4] = {r[0], r[8 * LD], r[4], r[8 * LD + 4]};
-  tf_split4(v, hi, lo);
-}
-
-// The same fragment from split images.
-__device__ __forceinline__ void o32_afrag_split(const uint32_t* hrows, const uint32_t* lrows, int LD, int ks,
-                                                uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-  const int lane = threadIdx.x & 31, at = (lane >> 2) * LD + 8 * ks + (lane & 3);
-  hi[0] = hrows[at], hi[1] = hrows[at + 8 * LD], hi[2] = hrows[at + 4], hi[3] = hrows[at + 8 * LD + 4];
-  lo[0] = lrows[at], lo[1] = lrows[at + 8 * LD], lo[2] = lrows[at + 4], lo[3] = lrows[at + 8 * LD + 4];
-}
-
-// The scores s = q k^T and dprobs dp = g v^T of a warp's 16 rows against a
-// 64-key chunk (split images of k and v, 64 rows LD apart), q and g split
-// in (qh, ql), (gh, gl) for each 8-column step ks. DP <= 32: the K dimension
-// is one 32-row stage, one accumulator.
-template <int KS, int LD, typename QF>
-__device__ __forceinline__ void o32_scores(float (&s)[8][4], float (&dp)[8][4], QF qfrag, const uint32_t* Kh,
-                                           const uint32_t* Kl, const uint32_t* Vh, const uint32_t* Vl) {
-  static_assert(KS <= 4, "one 32-row stage");
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f, dp[nt][e] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    uint32_t qh[4], ql[4], gh[4], gl[4];
-    qfrag(ks, qh, ql, gh, gl);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int at = (8 * nt + g) * LD + 8 * ks + t;
-      const uint32_t kh[2] = {Kh[at], Kh[at + 4]}, kl[2] = {Kl[at], Kl[at + 4]};
-      const uint32_t vh[2] = {Vh[at], Vh[at + 4]}, vl[2] = {Vl[at], Vl[at + 4]};
-      tf_mma3x2(s[nt], qh, ql, kh, kl, dp[nt], gh, gl, vh, vl);
-    }
-  }
-}
-
 // -- pass 1: the row statistics ----------------------------------------------------------
 
 // A block of eight warps a (unit, slab): warp w the slab's rows 16 w ..
@@ -227,8 +165,8 @@ __global__ void __launch_bounds__(O32_THREADS, 1) o32_stats_kernel(const O32Args
   uint32_t qh[KS][4], ql[KS][4], gh[KS][4], gl[KS][4];
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks) {
-    o32_afrag(img + (size_t)r0 * DP, DP, ks, qh[ks], ql[ks]);
-    o32_afrag(img + (size_t)(a.QR + r0) * DP, DP, ks, gh[ks], gl[ks]);
+    tf_afrag(img + (size_t)r0 * DP, DP, ks, qh[ks], ql[ks]);
+    tf_afrag(img + (size_t)(a.QR + r0) * DP, DP, ks, gh[ks], gl[ks]);
   }
   const float* kimg = img + (size_t)2 * a.QR * DP;
   const float* vimg = kimg + (size_t)KT * O32_TOK * DP;
@@ -248,8 +186,8 @@ __global__ void __launch_bounds__(O32_THREADS, 1) o32_stats_kernel(const O32Args
   auto split_chunk = [&](int c) {
     const float* stage = o32_sm + (c % O32_STAGES) * 2 * CH;
     uint32_t* set = splits + (c & 1) * 4 * CH;
-    o32_split_rows<DP, LD>(stage, set, set + CH, O32_TOK);
-    o32_split_rows<DP, LD>(stage + CH, set + 2 * CH, set + 3 * CH, O32_TOK);
+    tf_split_rows<DP, LD, O32_THREADS>(stage, set, set + CH, O32_TOK);
+    tf_split_rows<DP, LD, O32_THREADS>(stage + CH, set + 2 * CH, set + 3 * CH, O32_TOK);
   };
   static_assert(O32_STAGES >= 3, "chunk c + 1 in flight while chunk c is formed");
 #pragma unroll
@@ -269,7 +207,7 @@ __global__ void __launch_bounds__(O32_THREADS, 1) o32_stats_kernel(const O32Args
     if (c + 1 < KT) split_chunk(c + 1);  // into the set chunk c - 1 used
     const uint32_t* split = splits + (c & 1) * 4 * CH;
     float s[8][4], dp[8][4];
-    o32_scores<KS, LD>(
+    tf_scores<KS, LD>(
         s, dp,
         [&](int ks, uint32_t (&a0)[4], uint32_t (&a1)[4], uint32_t (&b0)[4], uint32_t (&b1)[4]) {
 #pragma unroll
@@ -431,11 +369,11 @@ __global__ void __launch_bounds__(O32_THREADS, 1) o32_main_kernel(const O32Args 
     const long long u = (long long)w * a.heads + h;
     hm_cp_wait_upto(0);
     __syncthreads();  // step it's rows are in; step it - 1's products are done
-    o32_split_rows<DP, LD>(stage, qg, qg + SLAB_F, O32_SLAB);
-    o32_split_rows<DP, LD>(stage + SLAB_F, qg + 2 * SLAB_F, qg + 3 * SLAB_F, O32_SLAB);
+    tf_split_rows<DP, LD, O32_THREADS>(stage, qg, qg + SLAB_F, O32_SLAB);
+    tf_split_rows<DP, LD, O32_THREADS>(stage + SLAB_F, qg + 2 * SLAB_F, qg + 3 * SLAB_F, O32_SLAB);
     if (sl == 0) {
-      o32_split_rows<DP, LD>(reinterpret_cast<const float*>(kv), kv, kv + CH, O32_TOK);
-      o32_split_rows<DP, LD>(reinterpret_cast<const float*>(kv + 2 * CH), kv + 2 * CH, kv + 3 * CH, O32_TOK);
+      tf_split_rows<DP, LD, O32_THREADS>(reinterpret_cast<const float*>(kv), kv, kv + CH, O32_TOK);
+      tf_split_rows<DP, LD, O32_THREADS>(reinterpret_cast<const float*>(kv + 2 * CH), kv + 2 * CH, kv + 3 * CH, O32_TOK);
     }
     __syncthreads();  // the split images are in; the stage is free
     if (it + 1 < steps) load_qg(gi + a.groups * ((it + 1) / SL), (it + 1) % SL);
@@ -448,11 +386,11 @@ __global__ void __launch_bounds__(O32_THREADS, 1) o32_main_kernel(const O32Args 
       // the scores and dprobs of the warp's 16 rows, again
       float s[8][4], dp[8][4];
       const uint32_t* qrow = qg + 16 * warp * LD;
-      o32_scores<KS, LD>(
+      tf_scores<KS, LD>(
           s, dp,
           [&](int ks, uint32_t (&a0)[4], uint32_t (&a1)[4], uint32_t (&b0)[4], uint32_t (&b1)[4]) {
-            o32_afrag_split(qrow, qrow + SLAB_F, LD, ks, a0, a1);
-            o32_afrag_split(qrow + 2 * SLAB_F, qrow + 3 * SLAB_F, LD, ks, b0, b1);
+            tf_afrag_split(qrow, qrow + SLAB_F, LD, ks, a0, a1);
+            tf_afrag_split(qrow + 2 * SLAB_F, qrow + 3 * SLAB_F, LD, ks, b0, b1);
           },
           kv, kv + CH, kv + 2 * CH, kv + 3 * CH);
       // p and dscores from the statistics; d bias
@@ -549,7 +487,7 @@ __global__ void __launch_bounds__(O32_THREADS, 1) o32_main_kernel(const O32Args 
 #pragma unroll
         for (int qb = 4 * st; qb < 4 * st + 4; ++qb) {
           uint32_t ah[4], al[4];
-          o32_afrag(A, LDP, qb, ah, al);
+          tf_afrag(A, LDP, qb, ah, al);
 #pragma unroll
           for (int nd = 0; nd < NDT; nd += 2) {
             const int at = (8 * qb + 2 * t) * LD + 8 * nd + g;
@@ -639,26 +577,13 @@ struct O32Scratch {
   int QR, SL, KT, DP, groups;
 };
 
-// The window groups: the count, up to 64 and to bw, that makes the main
-// pass's waves (one block an SM) take the fewest window steps.
-static int o32_groups(int bw, int heads, int KT, int sms) {
-  int best = 1;
-  long long best_cost = -1;
-  for (int G = 1; G <= bw && G <= 64; ++G) {
-    const long long blocks = (long long)G * heads * KT, waves = (blocks + sms - 1) / sms;
-    const long long cost = waves * ((bw + G - 1) / G);
-    if (best_cost < 0 || cost < best_cost) best = G, best_cost = cost;
-  }
-  return best;
-}
-
 static O32Scratch o32_scratch(int bw, int heads, int nq, int nk, int d, int sms) {
   O32Scratch S;
   S.SL = (nq + O32_SLAB - 1) / O32_SLAB;
   S.QR = S.SL * O32_SLAB;
   S.KT = (nk + O32_TOK - 1) / O32_TOK;
   S.DP = d <= 16 ? 16 : 32;
-  S.groups = o32_groups(bw, heads, S.KT, sms);
+  S.groups = tf_groups(bw, heads * S.KT, sms);
   S.units = (long long)bw * heads;
   S.unit_elems = (long long)(2 * S.QR + 2 * S.KT * O32_TOK) * S.DP;
   S.stats = S.units * S.unit_elems;

@@ -404,12 +404,15 @@ static cudaError_t pack_segments(const std::vector<PackSeg>& segs, T* dst, size_
 }
 
 // Opt a kernel in to `bytes` of dynamic shared memory, preferring shared
-// memory over L1.
+// memory over L1. A refusal is returned and cleared from the runtime's last
+// error, so that the next launch's cudaGetLastError does not report it.
 template <typename K>
 static cudaError_t allow_smem(K kernel, size_t bytes) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) (void)cudaGetLastError();
+  return err;
 }
 
 // -- window attention pieces shared by B5 and B8 -------------------------------

@@ -1,8 +1,10 @@
 // The shared pieces of the f32 kernels written for the H100, SwinFIR's
 // training recipe, which trains in f32 (studiosr_tpu/models/swinfir.py
 // _TRAINING_CONFIG): its forward (window_attention_f32.cu: B5 in f32;
-// mlp_block_f32.cu: B6 in f32) and its backward (attn_bwd_f32.cu: B8 in f32;
-// mlp_bwd_f32.cu: B7 in f32). Every product in 3xTF32 on the tensor cores,
+// mlp_block_f32.cu: B6 in f32) and its backward (attn_bwd_f32.cu: B8 in f32,
+// and B9 at HAT's windows 9-16 with tf_window16.cuh; mlp_bwd_f32.cu: B7 in
+// f32), and the other f32 kernels on mma.sync (oca_bwd_f32.cu: B13;
+// window_attn.cu: B15). Every product in 3xTF32 on the tensor cores,
 // the f32 row passes a warp a row, the epilogues they share, and the pack
 // that splits the weights.
 //
@@ -23,7 +25,9 @@
 // and the attention core, which reads one tile as A of one product and as
 // B^T of another, on mma.sync.m16n8k8.tf32 from registers (tf_gemm_kernel,
 // ab32_attn_kernel, wa32_attn_kernel), each fragment split once where it is
-// loaded.
+// loaded, or from hi / lo images in shared memory where several warps read
+// one operand (tw_rows_kernel, ab16_main_kernel, o32_*: the attention cores
+// below).
 // tf_gemm_kernel: dW (M x N) = A^T B, a 32-row K tile a stage through four
 // cp.async stages (16-byte pieces, zero-filled past M, N and K), a block of
 // eight warps (2 x 4) a 32 MT x 32 NT tile, each warp 16 MT x 8 NT outputs;
@@ -54,6 +58,13 @@ __host__ __device__ inline int tf_pad4(int v) { return (v + 3) & ~3; }
 __host__ inline bool tf_window_ok(int C, int heads, int ws) {
   return ws >= 2 && ws * ws <= AM_TOK && heads >= 1 && C >= 4 && C <= TF_MAX_C && C % 4 == 0 && C % heads == 0 &&
          C / heads <= 32;
+}
+
+// The windows the f32 kernels' second family takes (B5's and B9's at windows
+// 9..16: two to four 64-token tiles a window, tf_window16.cuh), at the same
+// C and head dims.
+__host__ inline bool tf_window16_ok(int C, int heads, int ws) {
+  return ws >= 9 && ws <= 16 && tf_window_ok(C, heads, 8);
 }
 
 
@@ -105,6 +116,90 @@ __device__ __forceinline__ void tf_split4(const float (&v)[4], uint32_t (&hi)[4]
 __device__ __forceinline__ void tf_split2(float v0, float v1, uint32_t (&hi)[2], uint32_t (&lo)[2]) {
   tf_split(v0, hi[0], lo[0]);
   tf_split(v1, hi[1], lo[1]);
+}
+
+// -- the attention cores on mma.sync ---------------------------------------------------
+//
+// The attention cores (oca_bwd_f32.cu: B13 in f32; tf_window16.cuh and
+// attn_bwd_f32.cu: B5 and B9 in f32 at windows 9-16) read an operand that
+// several warps share (k and v, and q and g of a slab) from hi and lo images
+// in shared memory, each value split once, and split only the values formed
+// in registers (p, dscores) where their fragments are loaded.
+
+// hi and lo (TF32 bit patterns) of rows x DP f32 values at src (rows LD
+// apart), to the same places of hi and lo, by the block's THREADS threads;
+// src may be hi (split in place).
+template <int DP, int LD, int THREADS>
+__device__ __forceinline__ void tf_split_rows(const float* src, uint32_t* hi, uint32_t* lo, int rows) {
+  for (int i = threadIdx.x; i < rows * (DP / 4); i += THREADS) {
+    const int at = (i / (DP / 4)) * LD + 4 * (i % (DP / 4));
+    const float4 x = *reinterpret_cast<const float4*>(src + at);
+    uint4 h, l;
+    tf_split(x.x, h.x, l.x);
+    tf_split(x.y, h.y, l.y);
+    tf_split(x.z, h.z, l.z);
+    tf_split(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + at) = h;
+    *reinterpret_cast<uint4*>(lo + at) = l;
+  }
+}
+
+// The A fragment of rows r, r + 8 (LD apart), columns 8 ks + t, + 4, split.
+__device__ __forceinline__ void tf_afrag(const float* rows, int LD, int ks, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* r = rows + g * LD + 8 * ks + t;
+  const float v[4] = {r[0], r[8 * LD], r[4], r[8 * LD + 4]};
+  tf_split4(v, hi, lo);
+}
+
+// The same fragment from split images.
+__device__ __forceinline__ void tf_afrag_split(const uint32_t* hrows, const uint32_t* lrows, int LD, int ks,
+                                               uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const int lane = threadIdx.x & 31, at = (lane >> 2) * LD + 8 * ks + (lane & 3);
+  hi[0] = hrows[at], hi[1] = hrows[at + 8 * LD], hi[2] = hrows[at + 4], hi[3] = hrows[at + 8 * LD + 4];
+  lo[0] = lrows[at], lo[1] = lrows[at + 8 * LD], lo[2] = lrows[at + 4], lo[3] = lrows[at + 8 * LD + 4];
+}
+
+// The scores s = q k^T and dprobs dp = g v^T of a warp's 16 rows against a
+// 64-key chunk (split images of k and v, 64 rows LD apart), q and g split
+// in (qh, ql), (gh, gl) for each 8-column step ks. DP <= 32: the K dimension
+// is one 32-row stage, one accumulator.
+template <int KS, int LD, typename QF>
+__device__ __forceinline__ void tf_scores(float (&s)[8][4], float (&dp)[8][4], QF qfrag, const uint32_t* Kh,
+                                          const uint32_t* Kl, const uint32_t* Vh, const uint32_t* Vl) {
+  static_assert(KS <= 4, "one 32-row stage");
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f, dp[nt][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    uint32_t qh[4], ql[4], gh[4], gl[4];
+    qfrag(ks, qh, ql, gh, gl);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int at = (8 * nt + g) * LD + 8 * ks + t;
+      const uint32_t kh[2] = {Kh[at], Kh[at + 4]}, kl[2] = {Kl[at], Kl[at + 4]};
+      const uint32_t vh[2] = {Vh[at], Vh[at + 4]}, vl[2] = {Vl[at], Vl[at + 4]};
+      tf_mma3x2(s[nt], qh, ql, kh, kl, dp[nt], gh, gl, vh, vl);
+    }
+  }
+}
+
+// The window groups of a pass whose blocks each own (group, `per_group`
+// units of a window) and walk the group's windows, one block an SM: the
+// count, up to 64 and to `windows`, that makes its waves take the fewest
+// window steps.
+__host__ inline int tf_groups(long long windows, int per_group, int sms) {
+  int best = 1;
+  long long best_cost = -1;
+  for (int G = 1; G <= windows && G <= 64; ++G) {
+    const long long blocks = (long long)G * per_group, waves = (blocks + sms - 1) / sms;
+    const long long cost = waves * ((windows + G - 1) / G);
+    if (best_cost < 0 || cost < best_cost) best = G, best_cost = cost;
+  }
+  return best;
 }
 
 // -- the product --------------------------------------------------------------------

@@ -1,15 +1,18 @@
 // B5 in f32, written for the H100: the attention half of a Swin block,
 //   y = x + d_b * proj(WA(LN x))  on (B, H, W, C) maps,
-// window attention over ws x ws windows, ws 2..8, with the gathered rel-pos
+// window attention over ws x ws windows, ws 2..8 (window_attention_mma_f32)
+// and 9..16 (window_attention16_mma_f32: below), with the gathered rel-pos
 // bias (heads, N, N) and, for shifted blocks, the -100 region mask of
 // calculate_mask; the shift folded into reads and writes, the output aligned
 // with the input; d_b the per-sample drop-path scale.
 //
 // Replaces studiosr_tpu/ops/pallas/swin_block.py::fused_window_attention_block
-// (:549) in f32, the dtype SwinFIR's recipe trains in (every SwinFIR step
-// runs it 36 times; SwinIR's, HAT's and MaxSR's f32 steps and checks take it
-// too); bf16 runs window_attention_mma.cu, head dims above 32 and windows
-// from 9 window_attention.cu / window_attention16.cu. The contract is the
+// (:549; at windows 9..16 its per-head kernel _attn_block_kernel :474) in
+// f32, the dtype SwinFIR's recipe and HAT's f32 step train in (every
+// SwinFIR step runs it 36 times, every HAT f32 step and f32 forward 36 at
+// window 16; SwinIR's and MaxSR's f32 steps and checks take it too); bf16
+// runs window_attention_mma.cu, head dims above 32 and windows from 17
+// window_attention.cu / window_attention16.cu. The contract is the
 // TPU kernel's with T = f32: q = (LN Wq + bq) / sqrt(d) with wqkv unscaled;
 // products accumulate in f32; LN and softmax statistics in f32, the softmax
 // max-subtracted; d_b scales the f32 delta. A window of N = ws^2 tokens is
@@ -54,12 +57,17 @@
 // gather by the index table of ops/cuda/window_attention.py
 // _f32_fwd_pack_index and the split into hi and lo images: Wqkv with each
 // head's q, k, v columns padded to DP, Wproj with its head rows padded).
-// Takes f32, windows 2..8, head dims up to 32, C a multiple of 4 up to 256,
-// H and W multiples of the window; the wrapper routes anything else.
+// Windows 9..16 (bound on HAT x4 f32 serving's 256 x 256 map 0.176 ms, at
+// its f32 step 0.353 at 3xTF32): a window fills NCH = ceil(ws^2 / 64)
+// tiles, so passes 0, 1 and 3 run as above over NCH tiles a window; pass 2
+// is the bias put in fragment order (am_bias_kernel) and tf_window16.cuh's
+// tw_rows_kernel (one block of eight warps an SM, a window's keys split once
+// and kept in shared memory, the online softmax over its 64-key chunks).
+// Takes f32, windows 2..16, head dims up to 32, C a multiple of 4 up to
+// 256, H and W multiples of the window; the wrapper routes anything else.
 #include <cmath>
 
-#include "am_window.cuh"
-#include "tf32x3.cuh"
+#include "tf_window16.cuh"
 
 // Attention blocks an SM (55.6 KB of shared memory each at DP 32): three, at
 // up to 168 registers a thread; four spill at 128 (scripts/torch_ablate_f32_fwd.py)
@@ -228,7 +236,7 @@ static long long wa32_pack_elems(const AmGeom& G) { return tfw_elems(G.C, G.K3) 
 // The f32 scratch, each region 16-byte aligned: the packed weights; LN rows
 // (C) and q|k|v rows (K3) in tile order; attn rows (HD) in pixel order.
 struct Wa32Scratch {
-  long long pack, ln, qkv, att, f_elems;
+  long long pack, ln, qkv, att, bfrag, f_elems;
   long long windows, rows, pixels;
   int groups;
 };
@@ -242,15 +250,20 @@ static Wa32Scratch wa32_scratch(int B, int H, int W, int C, int heads, int ws, i
     return r;
   };
   S.windows = (long long)B * (H / ws) * (W / ws);
-  S.rows = S.windows * AM_TOK;
+  S.rows = S.windows * G.N;
   S.pixels = (long long)B * H * W;
-  const long long groups = ((long long)WA32_BLOCKS * sms + heads - 1) / heads;  // about WA32_BLOCKS an SM
-  S.groups = (int)(groups > S.windows ? S.windows : groups);
+  if (G.NCH > 1) {
+    S.groups = tw_rows_groups(S.windows, heads, sms);
+  } else {
+    const long long groups = ((long long)WA32_BLOCKS * sms + heads - 1) / heads;  // about WA32_BLOCKS an SM
+    S.groups = (int)(groups > S.windows ? S.windows : groups);
+  }
   long long o = 0;
   S.pack = at(o, 2 * wa32_pack_elems(G));
   S.ln = at(o, S.rows * C);
   S.qkv = at(o, S.rows * G.K3);
   S.att = at(o, S.pixels * G.HD);
+  S.bfrag = at(o, G.NCH > 1 ? (long long)heads * G.N * G.N : 0);
   S.f_elems = o;
   return S;
 }
@@ -280,13 +293,11 @@ static cudaError_t wa32_launch_attn(const Wa32Args& a, const AmGeom& G, cudaStre
 
 // relbias is the gathered bias (heads, ws^2, ws^2) in f32; wqkv (C x 3C)
 // and wproj (C x C), (in, out) layout, are gathered by pack_index.
-extern "C" int window_attention_mma_f32(const void* x, void* out, int B, int H, int W, int C, int heads, int ws,
-                                        int shift, const void* ln_w, const void* ln_b, const void* bqkv,
-                                        const void* bproj, const void* relbias, const void* dp, const void* wqkv,
-                                        const void* wproj, const void* pack_index, long long pack_elems,
-                                        void* fscratch, long long f_elems, void* stream) {
-  if (!tf_window_ok(C, heads, ws) || B < 1 || H < ws || W < ws || H % ws || W % ws || shift < 0 || shift >= ws)
-    return (int)cudaErrorInvalidValue;
+static int wa32_run(const void* x, void* out, int B, int H, int W, int C, int heads, int ws, int shift,
+                    const void* ln_w, const void* ln_b, const void* bqkv, const void* bproj, const void* relbias,
+                    const void* dp, const void* wqkv, const void* wproj, const void* pack_index, long long pack_elems,
+                    void* fscratch, long long f_elems, void* stream) {
+  if (B < 1 || H < ws || W < ws || H % ws || W % ws || shift < 0 || shift >= ws) return (int)cudaErrorInvalidValue;
   const AmGeom G(C, heads, ws);
   int sms = 0;
   cudaError_t err = am_sms(&sms);
@@ -320,7 +331,14 @@ extern "C" int window_attention_mma_f32(const void* x, void* out, int B, int H, 
   err = tfw_gemm(TfwGemm{a.ln, wq, C, S.rows, C, G.K3},
                  TfQkv{a.qkv, (const float*)bqkv, S.rows, G.K3, G.HD, G.DP, C, G.d, scale}, st);
   if (err != cudaSuccess) return (int)err;
-  err = G.DP == 32 ? wa32_launch_attn<32>(a, G, st) : wa32_launch_attn<16>(a, G, st);
+  if (G.NCH > 1) {  // windows 9..16: the bias in fragment order, then tf_window16.cuh's pass
+    float* bf = f + S.bfrag;
+    err = tw_bias_order(a.relbias, G, bf, st);
+    const TwRows r{a.geo, a.qkv, nullptr, reinterpret_cast<const float4*>(bf), a.att, nullptr, a.windows, a.groups, 0};
+    if (err == cudaSuccess) err = G.DP == 32 ? tw_rows_launch<32, false>(r, G, st) : tw_rows_launch<16, false>(r, G, st);
+  } else {
+    err = G.DP == 32 ? wa32_launch_attn<32>(a, G, st) : wa32_launch_attn<16>(a, G, st);
+  }
   if (err != cudaSuccess) return (int)err;
   // y = x + d_b (attn Wproj + bproj), the pixels in order
   return (int)tfw_gemm(TfwGemm{a.att, wp, G.HD, S.pixels, G.HD, C},
@@ -328,3 +346,18 @@ extern "C" int window_attention_mma_f32(const void* x, void* out, int B, int H, 
                                (long long)H * W, C},
                        st);
 }
+
+// Two entries, one a family: windows 2..8 (one tile a window) and 9..16 (two
+// to four tiles), each with its own geometry rule.
+#define WINDOW_ATTENTION_F32_ENTRY(NAME, OK)                                                                      \
+  extern "C" int NAME(const void* x, void* out, int B, int H, int W, int C, int heads, int ws, int shift,         \
+                      const void* ln_w, const void* ln_b, const void* bqkv, const void* bproj, const void* relbias, \
+                      const void* dp, const void* wqkv, const void* wproj, const void* pack_index,                \
+                      long long pack_elems, void* fscratch, long long f_elems, void* stream) {                    \
+    if (!OK(C, heads, ws)) return (int)cudaErrorInvalidValue;                                                     \
+    return wa32_run(x, out, B, H, W, C, heads, ws, shift, ln_w, ln_b, bqkv, bproj, relbias, dp, wqkv, wproj,      \
+                    pack_index, pack_elems, fscratch, f_elems, stream);                                           \
+  }
+
+WINDOW_ATTENTION_F32_ENTRY(window_attention_mma_f32, tf_window_ok)
+WINDOW_ATTENTION_F32_ENTRY(window_attention16_mma_f32, tf_window16_ok)

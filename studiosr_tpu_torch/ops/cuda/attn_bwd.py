@@ -1,7 +1,7 @@
 """B8 and B9: the backward of B5 with the forward recomputed (CUDA kernels
 ``csrc/attn_bwd_mma.cu`` in bf16 at every window; ``csrc/attn_bwd_f32.cu``
-in f32 at windows 2 to 8; ``csrc/attn_bwd.cu`` at windows 2 to 8 and
-``csrc/attn_bwd16.cu`` from 9 at wider heads, and the latter in f32 from 9).
+in f32 at windows 2 to 16; ``csrc/attn_bwd.cu`` at windows 2 to 8 and
+``csrc/attn_bwd16.cu`` from 9 at wider heads, and the latter in f32 from 17).
 
 Replaces ``studiosr_tpu/ops/pallas/attn_bwd.py::pairs_attention_bwd`` (B8,
 windows with 2 ws^2 <= 128: 2 to 8) and ``::v5_attention_bwd`` (B9, the
@@ -28,12 +28,14 @@ Routing, by dtype and geometry, never by a failure: bf16 with a head dim up
 to 32 and C a multiple of 4 up to 184 (:func:`mma_takes`) launches the
 kernels written for the H100, ``csrc/attn_bwd_mma.cu`` (C entries
 ``attn_bwd_mma_bf16`` at windows 2 to 8, ``attn_bwd16_mma_bf16`` at 9 to 16,
-``attn_bwd_large_mma_bf16`` from 17); f32 at windows 2 to 8 with a head dim
-up to 32 and C a multiple of 4 up to 256 (:func:`f32_mma_takes`: SwinFIR's
-recipe, and every f32 window-8 width the paths train) launches
-``csrc/attn_bwd_f32.cu`` (``attn_bwd_mma_f32``: every product in 3xTF32 on
-the tensor cores, the row products on wgmma, the weights packed and split by
-:func:`_f32_pack_index`'s rule);
+``attn_bwd_large_mma_bf16`` from 17); f32 at windows 2 to 16 with a head
+dim up to 32 and C a multiple of 4 up to 256 (:func:`f32_mma_takes`:
+SwinFIR's recipe, HAT's f32 step at window 16, and every f32 width the paths
+train) launches ``csrc/attn_bwd_f32.cu`` (``attn_bwd_mma_f32`` at windows 2
+to 8, ``attn_bwd16_mma_f32`` at 9 to 16, its attention core in two sweeps,
+``csrc/tf_window16.cuh``'s ``tw_rows_kernel`` then ``ab16_main_kernel``:
+every product in 3xTF32 on the tensor cores, the row products on wgmma, the
+weights packed and split by :func:`_f32_pack_index`'s rule);
 other geometries launch ``attn_bwd_bf16`` / ``attn_bwd16_bf16`` /
 ``attn_bwd_large_bf16`` and the ``_f32`` entries, by the same split. Each
 launch is counted under its C entry (``engagement.entries()``). The H100
@@ -92,6 +94,7 @@ _RESTYPES_MMA = {"attn_bwd_mma_pack_elems": _LL}
 _ARGS_F32 = (P, P, P) + (I,) * 7 + (P,) * 8 + (_LL,) + (P,) * 6 + (P, _LL, P)
 _SIGNATURES_F32 = {
     "attn_bwd_mma_f32": _ARGS_F32,
+    "attn_bwd16_mma_f32": _ARGS_F32,
     "attn_bwd_mma_f32_scratch": (I, I, I, I, I, I, ctypes.POINTER(_LL)),
     "attn_bwd_mma_f32_pack_elems": (I, I),
 }
@@ -381,9 +384,10 @@ def _attention_bwd_mma(px, pg, dx, shape, heads, window_size, shift, ops, ds_db,
 
 
 def _attention_bwd_f32(x, g, dx, heads, window_size, shift, ops, ds_db, dbproj, dbias, name):
-    """The launch of ``csrc/attn_bwd_f32.cu`` (f32, :func:`f32_mma_takes`):
-    the weight gradients come back with each head padded to pad16(d) and are
-    cut here."""
+    """The launch of ``csrc/attn_bwd_f32.cu`` (f32, :func:`f32_mma_takes`;
+    ``attn_bwd_mma_f32`` at windows 2 to 8, ``attn_bwd16_mma_f32`` at 9 to
+    16): the weight gradients come back with each head padded to pad16(d)
+    and are cut here."""
     bsz, h, w, c = x.shape
     d, dp = c // heads, _pad16(c // heads)
     hd, dev, f32 = heads * dp, dx.device, torch.float32
@@ -401,12 +405,13 @@ def _attention_bwd_f32(x, g, dx, heads, window_size, shift, ops, ds_db, dbproj, 
     dbqkv = torch.empty(3 * hd, dtype=f32, device=dev)
     dwproj = torch.empty(hd, c, dtype=f32, device=dev)
     xa, ga, wa, ba = aligned(x), aligned(g), aligned(ln_w), aligned(ln_b)
-    status = call(dev, lib.attn_bwd_mma_f32, xa.data_ptr(), ga.data_ptr(), dx.data_ptr(), bsz, h, w, c, heads,
+    entry = "attn_bwd" + FAMILY_STEM[window_family(window_size)] + "_mma_f32"
+    status = call(dev, getattr(lib, entry), xa.data_ptr(), ga.data_ptr(), dx.data_ptr(), bsz, h, w, c, heads,
                   window_size, shift, wa.data_ptr(), ba.data_ptr(), bqkv.data_ptr(), bias.data_ptr(),
                   None if drop is None else drop.data_ptr(), wqkv.data_ptr(), wproj.data_ptr(), index.data_ptr(),
                   index.numel(), ds_db.data_ptr(), dwqkv.data_ptr(), dbqkv.data_ptr(), dwproj.data_ptr(),
                   dbproj.data_ptr(), dbias.data_ptr(), fscratch.data_ptr(), f_elems.value, STREAM)
-    finish(name, status, "attn_bwd_mma_f32")
+    finish(name, status, entry)
     dwqkv = dwqkv.view(c, 3, heads, dp)[..., :d].reshape(c, 3 * c)
     dbqkv = dbqkv.view(3, heads, dp)[..., :d].reshape(3 * c)
     dwproj = dwproj.view(heads, dp, c)[:, :d].reshape(c, c)

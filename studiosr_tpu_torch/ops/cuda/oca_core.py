@@ -58,7 +58,7 @@ import ctypes
 
 import torch
 
-from studiosr_tpu_torch.ops.cuda import _build, large_bwd
+from studiosr_tpu_torch.ops.cuda import _build, large_bwd, tf32x3
 from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, finish, operand, STREAM, call
 from studiosr_tpu_torch.ops.cuda.window_attention import MAX_HEAD_DIM
 
@@ -203,28 +203,16 @@ def fwd_from_images(img, bias, bw: int, heads: int, nq: int, nk: int, d: int):
     return oca_core_plain(q, k, v, bias)[..., :d]
 
 
-def _groups(bw: int, heads: int, kt: int, sms: int) -> int:
-    """The main pass's count of window groups (``ob_groups``): the count, up
-    to 64 and to bw, whose waves of heads x kt blocks (one an SM) take the
-    fewest window steps, the smallest on a tie."""
-    best, best_cost = 1, None
-    for groups in range(1, min(bw, 64) + 1):
-        waves = -(-(groups * heads * kt) // sms)
-        cost = waves * -(-bw // groups)
-        if best_cost is None or cost < best_cost:
-            best, best_cost = groups, cost
-    return best
-
-
 def main_partition(bw: int, heads: int, nq: int, nk: int, sms: int = 132):
     """The H100 backward's main pass as its blocks take it: for each block
     (in launch order) the (window, head, query tile, key chunk) units of work
     it computes, in order: block b is (group b // (heads KT), head (b // KT) %
     heads, key chunk b % KT), its warpgroup w takes query tiles w, w + 2, and
     it walks the windows g, g + groups, .... Each (window, head, tile, chunk)
-    must appear exactly once."""
+    must appear exactly once. Its groups (``ob_groups``) follow the f32
+    passes' rule, ``tf32x3.groups``."""
     qt, kt = _tiles(nq), _tiles(nk)
-    groups = _groups(bw, heads, kt, sms)
+    groups = tf32x3.groups(bw, heads * kt, sms)
     blocks = []
     for b in range(groups * heads * kt):
         c, h, grp = b % kt, (b // kt) % heads, b // (kt * heads)
@@ -240,7 +228,7 @@ def f32_partition(bw: int, heads: int, nq: int, nk: int, sms: int = 132):
     + groups, ..., each a slab of 128 queries at a time. Each (window, head,
     slab, chunk) must appear exactly once; the groups are :func:`main_partition`'s."""
     slabs, kt = -(-nq // F32_SLAB), _tiles(nk)
-    groups = _groups(bw, heads, kt, sms)
+    groups = tf32x3.groups(bw, heads * kt, sms)
     blocks = []
     for b in range(groups * heads * kt):
         c, h, grp = b % kt, (b // kt) % heads, b // (kt * heads)

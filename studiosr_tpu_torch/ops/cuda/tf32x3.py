@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["tf32_round", "split", "matmul", "tfw_bn", "tfw_image_index", "pack_images"]
+__all__ = ["tf32_round", "split", "matmul", "tfw_bn", "tfw_image_index", "pack_images", "groups"]
 TF_BK = 32  # K rows of a stage (csrc/tf32x3.cuh)
 
 
@@ -82,3 +82,16 @@ def pack_images(values: torch.Tensor, shapes) -> torch.Tensor:
         out.append(torch.stack([hi, lo], 1).reshape(-1))
         start += count
     return torch.cat(out)
+
+
+def groups(windows: int, per_group: int, sms: int) -> int:
+    """The window groups of an f32 attention pass whose blocks each own
+    (group, ``per_group`` units of a window), one block an SM (``tf_groups``
+    in csrc/tf32x3.cuh): the count, up to 64 and to ``windows``, whose waves
+    take the fewest window steps, the smallest on a tie."""
+    best, best_cost = 1, None
+    for g in range(1, min(windows, 64) + 1):
+        cost = -(-(g * per_group) // sms) * -(-windows // g)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = g, cost
+    return best

@@ -1,7 +1,7 @@
 """B5: the attention half of a Swin block (CUDA kernels ``csrc/window_attention_mma.cu``
-in bf16 at every window; ``csrc/window_attention_f32.cu`` in f32 at windows 2 to 8;
+in bf16 at every window; ``csrc/window_attention_f32.cu`` in f32 at windows 2 to 16;
 ``csrc/window_attention.cu`` and ``csrc/window_attention16.cu`` at wider heads and in
-f32 from window 9).
+f32 from window 17).
 
 Replaces ``studiosr_tpu/ops/pallas/swin_block.py::fused_window_attention_block``
 with ``drop_path``: y = x + d_b * proj(WA(LN x)) on (B, H, W, C) maps, where
@@ -40,11 +40,13 @@ to 32 and C a multiple of 4 up to 184 (:func:`mma_takes`) at any window
 launches the kernels written for the H100, ``csrc/window_attention_mma.cu``
 (C entries ``window_attention_mma_bf16`` for windows 2 to 8,
 ``window_attention16_mma_bf16`` for 9 to 16, ``window_attention_large_mma_bf16``
-from 17); f32 at windows 2 to 8 with a head dim up to 32 and C a multiple
-of 4 up to 256 (:func:`f32_mma_takes`: SwinFIR's recipe, and every f32
-window-8 width the paths train) launches ``csrc/window_attention_f32.cu``
-(``window_attention_mma_f32``: every product in 3xTF32 on the tensor cores,
-the row products on wgmma, the weights packed and split per call by
+from 17); f32 at windows 2 to 16 with a head dim up to 32 and C a multiple
+of 4 up to 256 (:func:`f32_mma_takes`: SwinFIR's recipe, HAT's f32 step and
+forward at window 16, and every f32 width the paths train) launches
+``csrc/window_attention_f32.cu`` (``window_attention_mma_f32`` at windows 2
+to 8, ``window_attention16_mma_f32`` at 9 to 16 with the attention pass of
+``csrc/tf_window16.cuh``: every product in 3xTF32 on the tensor cores, the
+row products on wgmma, the weights packed and split per call by
 :func:`_f32_fwd_pack_index`'s rule); other bf16 geometries and f32 launch
 ``window_attention_bf16`` / ``window_attention16_bf16`` /
 ``window_attention_large_bf16`` and the ``_f32`` entries, by the same split.
@@ -75,7 +77,7 @@ __all__ = [
     "fused_window_attention_block", "window_attention_plain", "check_window_map", "mma_takes", "pack_window_attention",
     "unpack_window_attention", "large_window", "window_family", "padded_tokens", "f32_mma_takes",
     "pack_window_attention_f32_weights", "KERNEL_WINDOW", "KERNEL_WINDOW16", "KERNEL_WINDOW_MAX", "KERNEL_WINDOWS",
-    "MAX_HEAD_DIM", "FAMILY_STEM",
+    "MAX_HEAD_DIM", "F32_FIRST_MAX_C", "FAMILY_STEM",
 ]
 
 KERNEL_WINDOW = 8  # csrc/swin_common.cuh SB_WS: one 64-token tile a window, the largest of the small family
@@ -85,6 +87,11 @@ KERNEL_WINDOWS = range(2, KERNEL_WINDOW_MAX + 1)  # the square windows the kerne
 # a family's C entries: window_attention{stem}_..., attn_bwd{stem}_...
 FAMILY_STEM = {"": "", "_ws16": "16", "_large": "_large"}
 MAX_HEAD_DIM = 64  # csrc/qkv_attention.cuh: one head's q|k|v columns, padded to 16, fit a 64-wide tile
+# csrc/qkv_attention.cuh ln_qkv_kernel<float>, the LN + q|k|v pass of the
+# older kernels from window 9 (B5 and B9): 64 rows of x and of LN x and two
+# weight stages, 210,944 B of shared memory at C 192 and 237,824 B from 193
+# (pad32(C) 224), above the card's 227 KB
+F32_FIRST_MAX_C = 192
 _ARGS = (P, P, I, I, I, I, I, I, I) + (P,) * 8 + (P, ctypes.c_longlong, P)
 _SIGNATURES = {
     "window_attention_f32": _ARGS,
@@ -115,6 +122,7 @@ _RESTYPES_MMA = {"window_attention_mma_pack_elems": _LL}
 _ARGS_F32 = (P, P) + (I,) * 7 + (P,) * 9 + (_LL, P, _LL, P)
 _SIGNATURES_F32 = {
     "window_attention_mma_f32": _ARGS_F32,
+    "window_attention16_mma_f32": _ARGS_F32,
     "window_attention_mma_f32_scratch": (I,) * 6 + (ctypes.POINTER(_LL),),
     "window_attention_mma_f32_pack_elems": (I, I),
 }
@@ -154,11 +162,12 @@ def mma_takes(c: int, heads: int) -> bool:
 
 def f32_mma_takes(c: int, heads: int, window_size: int) -> bool:
     """Whether the f32 kernels written for the H100 (B5 in f32 and its
-    backward B8) take this geometry: windows 2 to 8 (one 64-token tile), C
-    a multiple of 4 up to 256, a head dim up to 32 (``tf_window_ok`` in
-    csrc/tf32x3.cuh)."""
-    return (2 <= window_size <= 8 and c % 4 == 0 and 4 <= c <= F32_MAX_C and heads >= 1 and c % heads == 0
-            and c // heads <= 32)
+    backward B8 / B9) take this geometry: windows 2 to 16 (one to four
+    64-token tiles; the entries ``_mma_f32`` at 2 to 8 and ``16_mma_f32`` at
+    9 to 16), C a multiple of 4 up to 256, a head dim up to 32
+    (``tf_window_ok`` and ``tf_window16_ok`` in csrc/tf32x3.cuh)."""
+    return (2 <= window_size <= KERNEL_WINDOW16 and c % 4 == 0 and 4 <= c <= F32_MAX_C and heads >= 1
+            and c % heads == 0 and c // heads <= 32)
 
 
 def _pad16(v: int) -> int:
@@ -352,7 +361,8 @@ def check_window_map(name: str, x: torch.Tensor, heads: int, window_size: int, s
     """Raise unless the window kernels (B5, B8 / B9) take this map: a square
     window of 2 to :data:`KERNEL_WINDOW_MAX` (above it the gathered f32 bias
     alone outgrows the card's memory), and above window 8 a head dim up to
-    64."""
+    64 and, in f32 where the 3xTF32 kernels decline, C up to
+    :data:`F32_FIRST_MAX_C`."""
     if x.dtype not in KERNEL_DTYPES:
         raise TypeError(f"{name}: unsupported dtype {x.dtype}")
     if window_size not in KERNEL_WINDOWS:
@@ -364,6 +374,12 @@ def check_window_map(name: str, x: torch.Tensor, heads: int, window_size: int, s
         raise ValueError(f"{name}: shape {tuple(x.shape)}, heads {heads}, shift {shift} do not fit")
     if large_window(window_size) and c // heads > MAX_HEAD_DIM:
         raise NotImplementedError(f"{name}: head dim {c // heads} > {MAX_HEAD_DIM}")
+    if (x.dtype == torch.float32 and large_window(window_size) and not f32_mma_takes(c, heads, window_size)
+            and c > F32_FIRST_MAX_C):
+        raise NotImplementedError(
+            f"{name}: f32 at window {window_size}, C {c}, {heads} heads: the 3xTF32 kernels take head dims up to 32 "
+            f"at C up to {F32_MAX_C} and windows up to {KERNEL_WINDOW16}, the older kernels C up to "
+            f"{F32_FIRST_MAX_C} in f32 (the shared memory of their LN + q|k|v pass)")
 
 
 def fused_window_attention_block(
@@ -465,7 +481,9 @@ def _window_attention_mma(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, heads, 
 def _window_attention_f32(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, heads, window_size, shift, drop_path,
                           name):
     """The launch of ``csrc/window_attention_f32.cu`` (f32,
-    :func:`f32_mma_takes`) on dense weights, packed and split by the entry."""
+    :func:`f32_mma_takes`; ``window_attention_mma_f32`` at windows 2 to 8,
+    ``window_attention16_mma_f32`` at 9 to 16) on dense weights, packed and
+    split by the entry."""
     bsz, h, w, c = x.shape
     n, dev, f32 = window_size * window_size, x.device, torch.float32
     lib = _build.load("window_attention_f32", _SIGNATURES_F32, _RESTYPES_F32)
@@ -486,8 +504,9 @@ def _window_attention_f32(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, heads, 
         raise RuntimeError(f"{name}: CUDA error {status} while sizing the scratch")
     fscratch = torch.empty(f_elems.value, dtype=f32, device=dev)
     out = torch.empty_like(xa)
-    status = call(dev, lib.window_attention_mma_f32, xa.data_ptr(), out.data_ptr(), bsz, h, w, c, heads, window_size,
-                  shift, *[None if t is None else t.data_ptr() for t in ops], index.numel(), fscratch.data_ptr(),
+    entry = "window_attention" + FAMILY_STEM[window_family(window_size)] + "_mma_f32"
+    status = call(dev, getattr(lib, entry), xa.data_ptr(), out.data_ptr(), bsz, h, w, c, heads, window_size, shift,
+                  *[None if t is None else t.data_ptr() for t in ops], index.numel(), fscratch.data_ptr(),
                   f_elems.value, STREAM)
-    finish(name, status, "window_attention_mma_f32")
+    finish(name, status, entry)
     return out

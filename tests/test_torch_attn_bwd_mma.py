@@ -195,7 +195,7 @@ class _FakeLibrary:
     (torch.bfloat16, 16, 96, 2, "attn_bwd16_bf16"),  # head dim 48: the older bf16 kernel, by rule
     (torch.bfloat16, 8, 90, 6, "attn_bwd_bf16"),  # C not a multiple of 4
     (torch.float32, 8, 180, 6, "attn_bwd_mma_f32"),  # f32 at windows 2-8: csrc/attn_bwd_f32.cu
-    (torch.float32, 16, 180, 6, "attn_bwd16_f32"),
+    (torch.float32, 16, 180, 6, "attn_bwd16_mma_f32"),  # and at 9-16, its second family
     # the other windows, by family: 2-8 count as attention_bwd, 9-16 as _ws16
     (torch.bfloat16, 2, 128, 4, "attn_bwd_mma_bf16"),
     (torch.bfloat16, 4, 128, 4, "attn_bwd_mma_bf16"),
@@ -207,7 +207,8 @@ class _FakeLibrary:
     (torch.bfloat16, 12, 96, 2, "attn_bwd16_bf16"),
     (torch.float32, 6, 180, 6, "attn_bwd_mma_f32"),
     (torch.float32, 6, 96, 2, "attn_bwd_f32"),  # f32 at head dim 48: the older kernel, by rule
-    (torch.float32, 12, 180, 6, "attn_bwd16_f32"),
+    (torch.float32, 12, 180, 6, "attn_bwd16_mma_f32"),
+    (torch.float32, 12, 96, 2, "attn_bwd16_f32"),  # f32 at head dim 48 from 9: the older kernel, by rule
     # from 17 the streaming family, counted as _large
     (torch.bfloat16, 17, 128, 4, "attn_bwd_large_mma_bf16"),  # MaxSR at a 289 x 289 crop
     (torch.bfloat16, 24, 180, 6, "attn_bwd_large_mma_bf16"),
@@ -217,7 +218,7 @@ class _FakeLibrary:
 ])
 def test_attention_bwd_routes_by_dtype_window_and_head_dim(monkeypatch, dtype, ws, c, heads, entry):
     """bf16 with a head dim up to 32 and C a multiple of 4 up to 184 goes to
-    the kernels written for the H100, and f32 at windows 2-8 with a head dim
+    the kernels written for the H100, and f32 at windows 2-16 with a head dim
     up to 32 to the f32 one; other geometries to the older kernels;
     windows 2-8 to the small family's entries, counted under
     ``attention_bwd``, windows 9-16 to the large family's, counted under

@@ -887,9 +887,9 @@ def test_attention_bwd_ws16_kernel_matches_plain(dev, dtype, c, heads, shape, sh
     kw = dict(heads=heads, window_size=16, shift=shift, drop_path=dp)
     engagement.reset()
     got = attention_bwd(x, g, *ops, **kw)
-    # bf16 head dims above 32 take the older bf16 kernel, by the wrapper's rule
-    entry = "attn_bwd16_f32" if dtype == torch.float32 else (
-        "attn_bwd16_mma_bf16" if c // heads <= 32 else "attn_bwd16_bf16")
+    # head dims above 32 take the older kernels, by the wrapper's rule
+    entry = ("attn_bwd16_mma_f32" if dtype == torch.float32 else "attn_bwd16_mma_bf16") if c // heads <= 32 else (
+        "attn_bwd16_f32" if dtype == torch.float32 else "attn_bwd16_bf16")
     assert engagement.entries() == {"attention_bwd_ws16": {entry: 1}}
     want = attention_bwd_plain(x.float(), g.float(), *[t.float() for t in ops], **kw)
     for a, e in zip(got, want):
@@ -982,8 +982,8 @@ def test_window_attention_h100_kernels_match_plain(dev, c, heads, shape, shift, 
 # 64-row tile a window (the small family, counted under the window-8 keys),
 # 9-16 two to four (the large family, ``_ws16``), a window of N = ws^2
 # tokens padded to whole tiles. bf16 at head dim 32 (the kernels written for
-# the H100), f32 at head dim 16 (the f32 kernels written for the H100 at
-# windows 2-8, the older ones above), bf16 at head dim 48 (the older), on
+# the H100), f32 at head dim 16 (the f32 kernels written for the H100, their
+# second family at 9-16), bf16 at head dim 48 (the older), on
 # maps of 2 x 3 windows with the shift ws // 2 and a 0 drop-path scale:
 # against the plain versions, the serving blob giving the dense weights'
 # bits, the backward's bits repeatable, and the entry each launch took.
@@ -994,6 +994,77 @@ ANY_WINDOW_CASES = [(ws, torch.bfloat16, 64, 2) for ws in range(2, 17)] + [
 @pytest.mark.parametrize("ws,dtype,c,heads", ANY_WINDOW_CASES)
 def test_window_kernels_take_every_window_from_2_to_16(dev, ws, dtype, c, heads):
     _check_window_kernels(dev, ws, dtype, c, heads)
+
+
+# B5 and B9 in f32 at windows 9-16 on the 3xTF32 kernels written for the H100
+# (window_attention16_mma_f32, attn_bwd16_mma_f32): HAT's C 180 / 6 heads at
+# window 16 on a map of 2 x 3 windows and at 12, MaxSR's C 128 / 4 heads at
+# 10, C 32 / 2 heads at 9 (47 padding tokens a window), batch 3 with a 0
+# drop-path scale, shift ws // 2 and 0; every output against the plain
+# version, two launches of each the same bits; head dim 64 (up to C 192)
+# and C not a multiple of 4 keep the first design (window_attention16_f32,
+# attn_bwd16_f32).
+F32_WS16_CASES = [(16, 180, 6, 8), (16, 180, 6, 0), (12, 180, 6, 6), (10, 128, 4, 5), (9, 32, 2, 4), (9, 32, 2, 0),
+                  (16, 128, 2, 8), (12, 192, 3, 6), (9, 90, 6, 4)]
+
+
+@pytest.mark.parametrize("ws,c,heads,shift", F32_WS16_CASES)
+def test_f32_ws16_kernels_match_plain_and_repeat(dev, ws, c, heads, shift):
+    gen = torch.Generator().manual_seed(ws + c + shift + 16)
+    ops = [t.to(dev) for t in _block_operands(gen, c, heads, 2 * c, ws=ws)[:7]]
+    shape = (3, 2 * ws, 3 * ws)
+    x = _randn(gen, *shape, c).to(dev)
+    g = _randn(gen, *shape, c).to(dev)
+    dp = torch.tensor([0.0, 1.25, 1 / 0.9], device=dev)
+    kw = dict(heads=heads, window_size=ws, shift=shift, drop_path=dp)
+    engagement.reset()
+    y = fused_window_attention_block(x, *ops, **kw)
+    y2 = fused_window_attention_block(x, *ops, **kw)
+    grads = attention_bwd(x, g, *ops, **kw)
+    again = attention_bwd(x, g, *ops, **kw)
+    stem = "16_mma_f32" if f32_mma_takes(c, heads, ws) else "16_f32"
+    assert engagement.entries() == {"fused_window_attention_block_ws16": {f"window_attention{stem}": 2},
+                                    "attention_bwd_ws16": {f"attn_bwd{stem}": 2}}
+    _assert_close(y, window_attention_plain(x, *ops, **kw), torch.float32)
+    assert torch.equal(y, y2) and torch.equal(y[0], x[0])
+    for a, e in zip(grads, attention_bwd_plain(x, g, *ops, **kw)):
+        _assert_close(a, e, torch.float32)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))  # no atomics: bitwise repeatable
+    assert torch.equal(grads[0][0], g[0])  # a dropped sample: dx = g
+
+
+def test_f32_geometry_no_kernel_takes_raises_and_a_refusal_leaves_no_error(dev, monkeypatch):
+    """C11: f32 at window 12, C 264 (12 heads) is declined by the 3xTF32
+    kernels (C above 256) and needs more shared memory than the card has in
+    the first design's LN + q|k|v pass (above C 192): the wrapper raises
+    NotImplementedError before any launch. Let through, the card refuses
+    the launch (CUDA error 1), and the next launch of the same library (C
+    128, 2 heads) still runs and matches its plain version."""
+    from studiosr_tpu_torch.ops.cuda import window_attention as wa
+
+    gen = torch.Generator().manual_seed(264)
+    ws = 12
+
+    def case(c, heads):
+        ops = [t.to(dev) for t in _block_operands(gen, c, heads, 2 * c, ws=ws)[:7]]
+        return _randn(gen, 2, 2 * ws, 2 * ws, c).to(dev), ops, dict(heads=heads, window_size=ws, shift=ws // 2)
+
+    x, ops, kw = case(264, 12)
+    engagement.reset()
+    with pytest.raises(NotImplementedError):
+        fused_window_attention_block(x, *ops, **kw)
+    with pytest.raises(NotImplementedError):
+        attention_bwd(x, x, *ops, **kw)
+    assert engagement.counters() == {}
+    monkeypatch.setattr(wa, "F32_FIRST_MAX_C", 1 << 20)
+    with pytest.raises(RuntimeError, match="error 1"):
+        fused_window_attention_block(x, *ops, **kw)
+    monkeypatch.undo()
+    x, ops, kw = case(128, 2)
+    engagement.reset()
+    y = fused_window_attention_block(x, *ops, **kw)
+    assert engagement.entries() == {"fused_window_attention_block_ws16": {"window_attention16_f32": 1}}
+    _assert_close(y, window_attention_plain(x, *ops, **kw), torch.float32)
 
 
 # Above 16 (N > 256, five 64-token chunks and more: the streaming family,
@@ -1124,7 +1195,7 @@ def _check_window_kernels(dev, ws, dtype, c, heads):
     grads = attention_bwd(x, g, *ops, **kw)
     again = attention_bwd(x, g, *ops, **kw)
     kind = "_mma_bf16" if mma else ("_bf16" if dtype == torch.bfloat16 else "_f32")
-    # f32 at windows 2-8 (head dims up to 32): the f32 kernels written for the H100, both directions
+    # f32 at windows 2-16 (head dims up to 32): the f32 kernels written for the H100, both directions
     if dtype == torch.float32 and f32_mma_takes(c, heads, ws):
         kind = "_mma_f32"
     assert engagement.entries() == {"fused_window_attention_block" + suffix: {f"window_attention{fam}{kind}": 1},

@@ -249,14 +249,15 @@ def _fake(monkeypatch, module):
     (torch.float32, 8, 96, 2, "attn_bwd_f32"),  # head dim 48: the older kernel, by rule
     (torch.float32, 8, 90, 6, "attn_bwd_f32"),  # C not a multiple of 4
     (torch.float32, 8, 264, 6, "attn_bwd_f32"),  # C above 256
-    (torch.float32, 12, 180, 6, "attn_bwd16_f32"),  # windows from 9: the older families
-    (torch.float32, 17, 128, 4, "attn_bwd_large_f32"),
+    (torch.float32, 12, 180, 6, "attn_bwd16_mma_f32"),  # windows 9-16: the second family
+    (torch.float32, 17, 128, 4, "attn_bwd_large_f32"),  # from 17: the older family
     (torch.bfloat16, 8, 180, 6, "attn_bwd_mma_bf16"),  # bf16 keeps its route
 ])
 def test_attention_bwd_f32_routes_by_window_and_width(monkeypatch, dtype, ws, c, heads, entry):
     """f32 at windows 2-8 with a head dim up to 32 and C a multiple of 4 up
-    to 256 launches ``attn_bwd_mma_f32``, counted under ``attention_bwd``;
-    the f32 entry is handed the window and the packed weights' index table,
+    to 256 launches ``attn_bwd_mma_f32``, counted under ``attention_bwd``
+    (9-16: ``attn_bwd16_mma_f32``, under ``attention_bwd_ws16``); the f32
+    entry is handed the window and the packed weights' index table,
     and the head-padded weight gradients come back at their parameters'
     shapes."""
     import studiosr_tpu_torch.ops.cuda.attn_bwd as module
@@ -274,11 +275,11 @@ def test_attention_bwd_f32_routes_by_window_and_width(monkeypatch, dtype, ws, c,
     launches = [(name, args) for name, args in lib.calls if not name.endswith(("_scratch", "_elems"))]
     assert [name for name, _ in launches] == [entry]
     assert launches[0][1][6:9] == (c, heads, ws)  # (x, g, dx, B, H, W, C, heads, ws, ...)
-    if entry == "attn_bwd_mma_f32":  # (..., shift, ln_w, ln_b, bqkv, bias, dp, wqkv, wproj, index, elems, ...)
+    if entry.endswith("_mma_f32"):  # (..., shift, ln_w, ln_b, bqkv, bias, dp, wqkv, wproj, index, elems, ...)
         assert launches[0][1][9] == ws // 2 and launches[0][1][18] == attn_f32_pack_index(c, heads).size
         assert len(launches[0][1]) == len(module._SIGNATURES_F32[entry])  # ctypes types every argument
     if dtype == torch.float32:
-        assert attn_f32_takes(c, heads, ws) == (entry == "attn_bwd_mma_f32")
+        assert attn_f32_takes(c, heads, ws) == entry.endswith("_mma_f32")
     name = "attention_bwd" + ("_large" if ws > 16 else "_ws16" if ws > 8 else "")
     assert engagement.counters() == {name: 1}
     assert engagement.entries() == {name: {entry: 1}}

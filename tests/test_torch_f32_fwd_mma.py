@@ -267,14 +267,15 @@ def _launches(lib):
     (torch.float32, 8, 96, 2, "window_attention_f32"),  # head dim 48: the older kernel, by rule
     (torch.float32, 8, 90, 6, "window_attention_f32"),  # C not a multiple of 4
     (torch.float32, 8, 288, 9, "window_attention_f32"),  # C above 256
-    (torch.float32, 16, 180, 6, "window_attention16_f32"),  # windows from 9: the older families
-    (torch.float32, 17, 128, 4, "window_attention_large_f32"),
+    (torch.float32, 16, 180, 6, "window_attention16_mma_f32"),  # windows 9-16: the second family
+    (torch.float32, 17, 128, 4, "window_attention_large_f32"),  # from 17: the older family
     (torch.bfloat16, 8, 180, 6, "window_attention_mma_bf16"),  # bf16 keeps its route
 ])
 def test_window_attention_f32_routes_by_window_and_width(monkeypatch, dtype, ws, c, heads, entry):
     """f32 at windows 2-8 with a head dim up to 32 and C a multiple of 4 up
     to 256 launches ``window_attention_mma_f32``, counted under
-    ``fused_window_attention_block``; the f32 entry is handed the window,
+    ``fused_window_attention_block`` (9-16: ``window_attention16_mma_f32``,
+    under ``fused_window_attention_block_ws16``); the f32 entry is handed the window,
     the shift and the packed weights' index table."""
     import studiosr_tpu_torch.ops.cuda.window_attention as module
 
@@ -289,11 +290,11 @@ def test_window_attention_f32_routes_by_window_and_width(monkeypatch, dtype, ws,
     launches = _launches(lib)
     assert [name for name, _ in launches] == [entry]
     assert launches[0][1][5:8] == (c, heads, ws)  # (x, out, B, H, W, C, heads, ws, ...)
-    if entry == "window_attention_mma_f32":  # (..., shift, ln_w, ln_b, bqkv, bproj, bias, dp, wqkv, wproj, index, elems)
+    if entry.endswith("_mma_f32"):  # (..., shift, ln_w, ln_b, bqkv, bproj, bias, dp, wqkv, wproj, index, elems)
         assert launches[0][1][8] == ws // 2 and launches[0][1][18] == attn_f32_pack_index(c, heads).size
         assert len(launches[0][1]) == len(module._SIGNATURES_F32[entry])  # ctypes types every argument
     if dtype == torch.float32:
-        assert attn_f32_takes(c, heads, ws) == (entry == "window_attention_mma_f32")
+        assert attn_f32_takes(c, heads, ws) == entry.endswith("_mma_f32")
     name = "fused_window_attention_block" + ("_large" if ws > 16 else "_ws16" if ws > 8 else "")
     assert engagement.counters() == {name: 1}
     assert engagement.entries() == {name: {entry: 1}}

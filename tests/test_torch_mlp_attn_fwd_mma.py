@@ -415,7 +415,7 @@ def _launches(lib):
     (torch.bfloat16, 8, 90, 6, False, "window_attention_bf16"),  # C not a multiple of 4
     (torch.float32, 8, 180, 6, False, "window_attention_mma_f32"),  # f32 at windows 2-8: window_attention_f32.cu
     (torch.float32, 8, 96, 2, False, "window_attention_f32"),  # f32 at head dim 48: the older kernel, by rule
-    (torch.float32, 16, 180, 6, False, "window_attention16_f32"),
+    (torch.float32, 16, 180, 6, False, "window_attention16_mma_f32"),  # and at 9-16, its second family
     # the other windows, by family: 2-8 count as fused_window_attention_block, 9-16 as _ws16
     (torch.bfloat16, 3, 128, 4, False, "window_attention_mma_bf16"),
     (torch.bfloat16, 7, 128, 4, False, "window_attention_mma_bf16"),  # MaxSR at a 48 x 48 crop
@@ -426,7 +426,8 @@ def _launches(lib):
     (torch.bfloat16, 5, 96, 2, False, "window_attention_bf16"),
     (torch.bfloat16, 12, 96, 2, False, "window_attention16_bf16"),
     (torch.float32, 6, 180, 6, False, "window_attention_mma_f32"),
-    (torch.float32, 12, 180, 6, False, "window_attention16_f32"),
+    (torch.float32, 12, 180, 6, False, "window_attention16_mma_f32"),
+    (torch.float32, 12, 96, 2, False, "window_attention16_f32"),  # f32 at head dim 48 from 9: the older kernel
     # from 17 the streaming family, counted as _large
     (torch.bfloat16, 17, 128, 4, False, "window_attention_large_mma_bf16"),  # MaxSR at a 289 x 289 crop
     (torch.bfloat16, 24, 180, 6, True, "window_attention_large_mma_bf16"),  # SwinIR served at window 24
@@ -437,7 +438,7 @@ def _launches(lib):
 def test_window_attention_routes_by_dtype_window_and_head_dim(monkeypatch, dtype, ws, c, heads, packed, entry):
     """bf16 with a head dim up to 32 and C a multiple of 4 up to 184 goes to
     the kernels written for the H100 (dense weights or the serving blob), f32
-    at windows 2-8 with a head dim up to 32 to the f32 kernel written for the
+    at windows 2-16 with a head dim up to 32 to the f32 kernel written for the
     H100, other geometries to the older kernels; windows 2-8 to the
     small family's entries, counted under ``fused_window_attention_block``,
     windows 9-16 to the large family's, under ``_ws16``, windows from 17 to
