@@ -417,7 +417,7 @@ from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mlp_block_pla
 from studiosr_tpu_torch.ops.cuda.mlp_bwd import mlp_bwd, mlp_bwd_plain
 from studiosr_tpu_torch.ops.cuda.oca_core import counter, oca_core_bwd, oca_core_bwd_plain, oca_core_fwd, oca_core_plain
 from studiosr_tpu_torch.ops.cuda.ocab import (
-    fused_ocab_block, ocab_plain, overlap_window, pack_ocab_block, unpack_ocab_block,
+    fused_ocab_block, ocab_f32_mma_takes, ocab_plain, overlap_window, pack_ocab_block, unpack_ocab_block,
 )
 from studiosr_tpu_torch.ops.cuda.swin_block import f32_mma_takes as b1_f32_takes, fused_swin_block, swin_block_plain
 from studiosr_tpu_torch.ops.cuda.upsampler import (
@@ -569,7 +569,13 @@ KERNELS.update({
     "fused_mlp_block_f32": ("studiosr_tpu_torch/csrc/mlp_block_f32.cu", "studiosr_tpu/ops/pallas/swin_block.py:904"),
     "fused_mlp_block_extra_f32": ("studiosr_tpu_torch/csrc/mlp_block_f32.cu",
                                   "studiosr_tpu/ops/pallas/swin_block.py:904"),
+    # B11 and B10 of the f32 HAT forward (3xTF32 on the tensor cores)
+    "fused_cab_body_f32": ("studiosr_tpu_torch/csrc/cab_mma.cu", "studiosr_tpu/ops/pallas/conv3x3.py:393"),
+    "fused_ocab_block_f32": ("studiosr_tpu_torch/csrc/ocab_f32.cu", "studiosr_tpu/ops/pallas/ocab.py:173"),
 })
+# the f32 HAT forward's rows in the kernels line: row -> the wrapper it times
+HAT_F32_ROWS = {"fused_mlp_block_extra_f32": "fused_mlp_block_extra", "fused_cab_body_f32": "fused_cab_body",
+                "fused_ocab_block_f32": "fused_ocab_block"}
 PEAK_TF32X3_FLOPS, PEAK_FMA_FLOPS = 494.7e12 / 3, 66.9e12
 SWINFIR_GRAD_RUNS = (("plain", torch.float64), ("plain", torch.float32), ("fused", torch.float32))
 # the pre-activations of the SFBs' LeakyReLU(0.2)s: kinks pinned to the witness's side
@@ -636,6 +642,8 @@ H100_KERNELS = {"fused_swin_block": ("swin_block_mma", "swin_block_mma_kernel"),
                 "fused_window_attention_block_f32": ("window_attention_f32", "wa32_|tfw_gemm"),
                 "fused_mlp_block_f32": ("mlp_block_f32", "mf32_|tfw_gemm"),
                 "fused_mlp_block_extra_f32": ("mlp_block_f32", "mf32_|tfw_gemm"),
+                "fused_cab_body_f32": ("cab_mma", "ct_conv_kernel|cb32_"),
+                "fused_ocab_block_f32": ("ocab_f32", "oc32_|mf32_|tfw_gemm"),
                 "fused_swin_block_f32": ("swin_block_f32", "sb32_kernel"),
                 "fused_conv3x3_f32": ("conv3x3", "ct_conv_kernel"),
                 "fused_upsample_x4_f32": ("upsampler", "ct_conv_kernel"),
@@ -662,12 +670,21 @@ HAT_F32_TRAIN_STEPS = 3
 HAT_F32_TRAIN_DIR = ROOT / "build" / "chip_smoke_hat_f32_train"
 # f32 B5 and B9 at windows 9-16 where the 3xTF32 kernels decline the
 # geometry and the first design (window_attention16_f32, attn_bwd16_f32)
-# keeps it by rule: head dim 64 (C 128, 2 heads; C 192, 3 heads, the first
-# design's largest f32 C) and C not a multiple of 4 (C 90, 6 heads of 15);
-# C 264 (12 heads of 22) no kernel takes in f32, and the wrappers raise
+# keeps it by rule: head dim 64 (C 128, 2 heads; C 192, 3 heads) and C not
+# a multiple of 4 (C 90, 6 heads of 15); C11's geometries, above the 3xTF32
+# kernels' C or head dim, at their windows (C 264 / 12 heads at 12, C 256 /
+# 4 heads at 16), which the first design takes since its LN + q|k|v and dln
+# passes were restaged; C 448 (8 heads of 56), above the first design's
+# widest f32 C (F32_FIRST_MAX_C, 416), no kernel takes, and the wrappers raise
 WS16_F32_FIRST_DESIGN_WINDOWS = (9, 12, 16)
 WS16_F32_FIRST_DESIGN_GEOMETRIES = ((torch.float32, 128, 2), (torch.float32, 192, 3), (torch.float32, 90, 6))
-WS16_F32_DECLINED = (264, 12)
+WS16_F32_C11 = ((12, (torch.float32, 264, 12)), (16, (torch.float32, 256, 4)))
+WS16_F32_DECLINED = (448, 8)
+# f32 B11 and B10 where their 3xTF32 kernels decline the geometry and the
+# first designs (cab_body_f32, ocab_f32) keep it: B11 (C, Cm) at Cm 72 and
+# C 30; B10 (C, heads, hidden) at head dim 48 and C 30
+HAT_F32_FIRST_DESIGN_CAB = ((180, 72), (30, 10))
+HAT_F32_FIRST_DESIGN_OCAB = ((96, 2, 192), (30, 2, 60))
 # The C entry every launch of B5-B9, B12 and B13 must take in a run of each
 # dtype: bf16 the kernels written for the H100 (their geometry rules hold at
 # every width the paths train); f32 B5 and B8 / B9 (windows 2-16), B6 (and
@@ -690,6 +707,7 @@ TRAIN_ENTRIES = {
                     "fused_window_attention_block_ws16": "window_attention16_mma_f32",
                     "fused_window_attention_block_large": "window_attention_large_f32", "mlp_bwd": "mlp_bwd_mma_f32",
                     "fused_mlp_block": "mlp_block_mma_f32", "fused_mlp_block_extra": "mlp_block_extra_mma_f32",
+                    "fused_cab_body": "cab_body_mma_f32", "fused_ocab_block": "ocab_mma_f32",
                     "oca_core_bwd": "oca_core_bwd_mma_f32",
                     "oca_core_fwd": "oca_core_fwd_f32", "oca_core_bwd_large": "oca_core_bwd_f32",
                     "oca_core_fwd_large": "oca_core_fwd_f32"},
@@ -701,7 +719,7 @@ BITWISE = ("fused_mlp_block", "fused_mlp_block_extra", "oca_core_bwd", "fused_ca
 # The f32 kernels redesigned last, held to the same bits from launch to
 # launch in f32 (phases 6, 10 and 13)
 BITWISE_F32 = ("fused_window_attention_block", "fused_mlp_block", "fused_mlp_block_extra", "oca_core_bwd",
-               "fused_window_attention_block_ws16", "attention_bwd_ws16")
+               "fused_window_attention_block_ws16", "attention_bwd_ws16", "fused_cab_body", "fused_ocab_block")
 # B1 in bf16 beyond the main path's shape, as the card tests take it: (C,
 # heads, map, shift): C 32 with 2 heads of 16 (the trained fixtures), C 180
 # at H != W and an odd window count (a half-empty last window pair), d 8,
@@ -2051,8 +2069,8 @@ def phase_hat_kernels(model: HAT, dev: torch.device) -> dict:
     window 16 and of B6's join through the entries ``TRAIN_ENTRIES`` names,
     and the kernels of ``BITWISE`` (bf16) and ``BITWISE_F32`` (f32) launched
     twice for the same bits. Returns the bf16 max abs error of each
-    kernel's first output, and f32 B6's join's as
-    ``fused_mlp_block_extra_f32``."""
+    kernel's first output, and the f32 one of B6's join, B11 and B10 under
+    their ``HAT_F32_ROWS`` names."""
     errors: dict = {}
     failed = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -2073,8 +2091,8 @@ def phase_hat_kernels(model: HAT, dev: torch.device) -> dict:
                 err = kernel_check(f"{name} [{label}] output {i}", k, p, dtype, failed)
                 if dtype == torch.bfloat16 and i == 0:
                     errors[name] = max(errors.get(name, 0.0), err)
-                elif name == "fused_mlp_block_extra" and i == 0:
-                    errors["fused_mlp_block_extra_f32"] = err
+                elif name + "_f32" in HAT_F32_ROWS and i == 0:
+                    errors[name + "_f32"] = max(errors.get(name + "_f32", 0.0), err)
             del got, want
     if failed:
         raise AssertionError("HAT kernels disagree with their plain versions: " + "; ".join(failed))
@@ -2082,11 +2100,12 @@ def phase_hat_kernels(model: HAT, dev: torch.device) -> dict:
 
 
 def phase_hat_end_to_end(model: HAT, dev: torch.device) -> dict:
-    """Fused vs plain HAT forward (f32, its launches of B5 at window 16 and
-    B6's join through the f32 entries ``TRAIN_ENTRIES`` names; then bf16
-    against f32 plain), then the served requests with their launch counts.
-    Returns the served launches and, as ``fused_mlp_block_extra_f32``, the
-    f32 forward's launches of B6's join."""
+    """Fused vs plain HAT forward (f32, its launches of B11, B5 at window
+    16, B6's join and B10, ``HAT_PER_FORWARD`` of each, through the f32
+    entries ``TRAIN_ENTRIES`` names; then bf16 against f32 plain), then the
+    served requests with their launch counts. Returns the served launches
+    and, under ``HAT_F32_ROWS``' names, the f32 forward's launches of B6's
+    join, B11 and B10."""
     images = requests()
     x = torch.from_numpy(images[0]).to(dev).float()[None] / 255.0
     plain = model.enable_fused(False)(x)
@@ -2105,8 +2124,10 @@ def phase_hat_end_to_end(model: HAT, dev: torch.device) -> dict:
     b5 = launches32.get("fused_window_attention_block_ws16", 0)
     log(f"time hat x4 f32 forward {LR}x{LR}: fused {fwd32:.3f} ms (B5 at window 16 {b5} launches through its 3xTF32 "
         f"entry), plain {plain32:.3f} ms")
-    if b5 != HAT_PER_FORWARD["fused_window_attention_block_ws16"]:
-        failed.append(f"the f32 HAT forward launched B5 at window 16 {b5} times")
+    for name in ("fused_window_attention_block_ws16", "fused_cab_body", "fused_ocab_block"):
+        if launches32.get(name, 0) != HAT_PER_FORWARD[name]:
+            failed.append(f"the f32 HAT forward launched {name} {launches32.get(name, 0)} times, expected "
+                          f"{HAT_PER_FORWARD[name]}")
     model.half()
     fused16 = model(x)
     torch.cuda.synchronize()
@@ -2138,7 +2159,7 @@ def phase_hat_end_to_end(model: HAT, dev: torch.device) -> dict:
     failed += entry_failures("hat serving", launches)
     if failed:
         raise AssertionError("; ".join(failed))
-    return {**launches, "fused_mlp_block_extra_f32": launches32.get("fused_mlp_block_extra", 0)}
+    return {**launches, **{row: launches32.get(name, 0) for row, name in HAT_F32_ROWS.items()}}
 
 
 def hat_bounds(name: str, ops) -> tuple:
@@ -2164,27 +2185,29 @@ def hat_bounds(name: str, ops) -> tuple:
     return flops, moved
 
 
-def cab_yardstick(ops, ms: float, bms: float) -> None:
+def cab_yardstick(ops, ms: float, bms: float, row: str = "fused_cab_body") -> None:
     """B11's share of its bound, its ptxas line and its yardstick: the same
-    function as a sequence of bf16 PyTorch calls (``F.layer_norm``,
-    channels-last cuDNN ``F.conv2d``, the exact ``F.gelu``, ``F.conv2d``, the
-    sum; scripts/torch_time_conv_kernels.py), timed here and never on the
-    path, on the weights serving packed."""
+    function as a sequence of PyTorch calls in the map's dtype
+    (``F.layer_norm``, channels-last cuDNN ``F.conv2d``, TF32 off in f32,
+    the exact ``F.gelu``, ``F.conv2d``, the sum;
+    scripts/torch_time_conv_kernels.py), timed here and never on the path,
+    on the weights serving packed."""
     sys.path.insert(0, str(ROOT / "scripts"))
     from torch_time_conv_kernels import cab_sequence
 
     x, ln_w, ln_b, w1, b1, w2, b2 = ops
     c, cm = x.shape[-1], b1.numel()
-    oihw = [unpack_cab_weights(w, *io, n) if w.dim() == 7 else w for w, io, n in ((w1, (c, cm), 64), (w2, (cm, c), 96))]
+    oihw = [unpack_cab_weights(w, *io, n) if w.dim() == 7 else unpack_conv3x3_f32_weights(w, *io, n) if w.dim() == 5
+            else w for w, io, n in ((w1, (c, cm), 64), (w2, (cm, c), 96))]
     oihw = [w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last) for w in oihw]
     yard = time_ms(lambda: cab_sequence(x, ln_w, ln_b, oihw[0], b1.to(x.dtype), oihw[1], b2.to(x.dtype)), iters=10)
-    log(f"  fused_cab_body: {100 * bms / ms:.1f} % of the bound; yardstick (bf16 PyTorch sequence) {yard:.3f} ms, "
-        f"kernel / yardstick {ms / yard:.3f}; {ptxas_report('fused_cab_body')}")
+    log(f"  {row}: {100 * bms / ms:.1f} % of the bound; yardstick ({str(x.dtype)[6:]} PyTorch sequence) "
+        f"{yard:.3f} ms, kernel / yardstick {ms / yard:.3f}; {ptxas_report(row)}")
 
 
-def ocab_yardstick(ops, ms: float, bms: float, ws: int = HAT_MAIN["window_size"]) -> float:
+def ocab_yardstick(ops, ms: float, bms: float, ws: int = HAT_MAIN["window_size"], row: str = "fused_ocab_block") -> float:
     """B10's share of its bound, its ptxas line and its yardstick: the same
-    block as a sequence of bf16 PyTorch calls (``F.layer_norm``,
+    block as a sequence of PyTorch calls in the map's dtype (``F.layer_norm``,
     ``F.linear``, the unfold of the zero-padded k | v map, SDPA with the
     bias as its mask, the projection and the residual, the MLP half;
     scripts/torch_time_attn_kernels.py), timed here and never on the path,
@@ -2196,12 +2219,12 @@ def ocab_yardstick(ops, ms: float, bms: float, ws: int = HAT_MAIN["window_size"]
     c, heads = ops[0].shape[-1], HAT_MAIN["num_heads"][0]
     if ops[5] is None:  # the blob's weights
         ops = dense_ocab(ops, unpack_ocab_block(ops[3], c, heads, ops[11].numel()))
-    sequence = ocab_forward_sequence(ops[0], ops[1:], heads, ws, HAT_MAIN["overlap_ratio"])
+    sequence = ocab_forward_sequence(ops[0], ops[1:], heads, ws, HAT_MAIN["overlap_ratio"], dtype=ops[0].dtype)
     yard = time_ms(sequence, iters=5, warmup=1)
     del sequence
     torch.cuda.empty_cache()
-    log(f"  fused_ocab_block: {100 * bms / ms:.1f} % of the bound; yardstick (bf16 PyTorch sequence) {yard:.3f} ms, "
-        f"kernel / yardstick {ms / yard:.3f}; {ptxas_report('fused_ocab_block')}")
+    log(f"  {row}: {100 * bms / ms:.1f} % of the bound; yardstick ({str(ops[0].dtype)[6:]} PyTorch sequence) "
+        f"{yard:.3f} ms, kernel / yardstick {ms / yard:.3f}; {ptxas_report(row)}")
     return yard
 
 
@@ -2239,21 +2262,29 @@ def phase_hat_timing(model: HAT, dev: torch.device, errors: dict, launches: dict
             cab_yardstick(ops, ms, bms)
         elif name == "fused_ocab_block":
             ocab_yardstick(ops, ms, bms)
-    # B6's join in f32 (the f32 HAT forward's), bound at 3xTF32
-    name, row = "fused_mlp_block_extra", "fused_mlp_block_extra_f32"
-    _, label, kernel, plain, ops = next(c for c in hat_kernel_cases(model, dev, torch.float32) if c[0] == name)
-    ms = time_ms(lambda: kernel(*ops), iters=10)
-    plain_ms = time_ms(lambda: plain(*ops), iters=3, warmup=1)
-    flops, moved = hat_bounds(name, ops)
-    t_ops, t_bytes = flops / PEAK_TF32X3_FLOPS, moved / PEAK_BYTES
-    bms, by = 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
-    source, replaces = KERNELS[row]
-    rows.append(dict(name=row, route="cuda", source=source, replaces=replaces, launches=launches.get(row, 0),
-                     max_abs_err=errors[row], ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None))
-    log(f"time {row} [{label}] f32: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}, 3xTF32; the FMA "
-        f"pipes {1e3 * flops / PEAK_FMA_FLOPS:.4f} ms), {flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB; launches "
-        f"{launches.get(row, 0)} in the f32 forward; {100 * bms / ms:.1f} % of the bound; {ptxas_report(row)}")
-    del ops
+    # B6's join, B11 and B10 in f32 (the f32 HAT forward's), bound at 3xTF32;
+    # B11 and B10 beside the same function as a sequence of f32 PyTorch calls
+    f32_cases = {c[0]: c for c in hat_kernel_cases(model, dev, torch.float32)}
+    for row, name in HAT_F32_ROWS.items():
+        _, label, kernel, plain, ops = f32_cases[name]
+        ms = time_ms(lambda: kernel(*ops), iters=10)
+        plain_ms = time_ms(lambda: plain(*ops), iters=3, warmup=1)
+        flops, moved = hat_bounds(name, ops)
+        t_ops, t_bytes = flops / PEAK_TF32X3_FLOPS, moved / PEAK_BYTES
+        bms, by = 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+        source, replaces = KERNELS[row]
+        rows.append(dict(name=row, route="cuda", source=source, replaces=replaces, launches=launches.get(row, 0),
+                         max_abs_err=errors[row], ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         library_ms=None))
+        log(f"time {row} [{label}] f32: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}, 3xTF32; the "
+            f"FMA pipes {1e3 * flops / PEAK_FMA_FLOPS:.4f} ms), {flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB; "
+            f"launches {launches.get(row, 0)} in the f32 forward; {100 * bms / ms:.1f} % of the bound; "
+            f"{ptxas_report(row)}")
+        if name == "fused_cab_body":
+            cab_yardstick(ops, ms, bms, row)
+        elif name == "fused_ocab_block":
+            ocab_yardstick(ops, ms, bms, row=row)
+    del f32_cases, ops
     # B2 and B3 at HAT's shapes (their rows in the JSON line are SwinIR's)
     prep = model.serving_prep()
     gen = torch.Generator(device="cpu").manual_seed(SEED + 6)
@@ -2585,12 +2616,16 @@ def phase_hat_train_f32(dev: torch.device) -> list:
 
 def phase_ws16_f32_first_design(dev: torch.device) -> None:
     """f32 B5 and its backward at windows 9-16 on the geometries the 3xTF32
-    kernels decline (``WS16_F32_FIRST_DESIGN_*``): against their plain
-    versions at the f32 limit, shift 0 and ws / 2, with and without a
-    drop-path scale, every launch through ``window_attention16_f32`` /
-    ``attn_bwd16_f32`` (``large_window_checks`` on the ``_ws16`` family);
-    first, at ``WS16_F32_DECLINED``, which no kernel takes in f32, both
-    wrappers raise NotImplementedError and launch nothing."""
+    kernels decline (``WS16_F32_FIRST_DESIGN_*``, and C11's
+    ``WS16_F32_C11`` at their windows): against their plain versions at the
+    f32 limit, shift 0 and ws / 2, with and without a drop-path scale, every
+    launch through ``window_attention16_f32`` / ``attn_bwd16_f32``
+    (``large_window_checks`` on the ``_ws16`` family); first, at
+    ``WS16_F32_DECLINED``, above the first design's widest f32 C, both
+    wrappers raise NotImplementedError and launch nothing. Then the first
+    designs of f32 B11 and B10 (``cab_body_f32``, ``ocab_f32``) at the
+    geometries their 3xTF32 kernels decline (``HAT_F32_FIRST_DESIGN_*``)
+    against their plain versions."""
     failed = []
     start = time.perf_counter()
     c, heads = WS16_F32_DECLINED
@@ -2609,9 +2644,45 @@ def phase_ws16_f32_first_design(dev: torch.device) -> None:
         failed.append(f"the declined f32 geometry launched {engagement.counters()}")
     del x, g, ops
     large_window_checks(dev, failed, WS16_F32_FIRST_DESIGN_WINDOWS, WS16_F32_FIRST_DESIGN_GEOMETRIES, "_ws16")
+    for ws, geometry in WS16_F32_C11:
+        large_window_checks(dev, failed, (ws,), (geometry,), "_ws16")
+    hat_f32_first_design_checks(dev, failed)
     log(f"ws16 f32 first design: kernel checks in {time.perf_counter() - start:.1f} s")
     if failed:
         raise AssertionError("ws16 f32 first design: " + "; ".join(failed))
+
+
+def hat_f32_first_design_checks(dev: torch.device, failed: list) -> None:
+    """f32 B11 and B10 on their first designs (``cab_body_f32``,
+    ``ocab_f32``) at the geometries their 3xTF32 kernels decline
+    (``HAT_F32_FIRST_DESIGN_CAB`` / ``_OCAB``, a 24 x 40 map and HAT's
+    window 16 on a 32 x 48 one) against their plain versions at the f32
+    limit, each launch through its first-design entry."""
+    gen = torch.Generator().manual_seed(SEED + 48)
+    r = lambda *size, k=1.0: (torch.randn(*size, generator=gen) * k).to(dev)  # noqa: E731
+    engagement.reset()
+    for c, cm in HAT_F32_FIRST_DESIGN_CAB:
+        x = r(1, 24, 40, c)
+        ops = [1 + r(c, k=0.1), r(c, k=0.1), r(3, 3, c, cm, k=(9 * c) ** -0.5), r(cm, k=0.1),
+               r(3, 3, cm, c, k=(9 * cm) ** -0.5), r(c, k=0.1)]
+        for i, (a, e) in enumerate(zip(fused_cab_body(x, *ops), cab_body_plain(x, *ops))):
+            kernel_check(f"fused_cab_body f32 first design [C {c}, Cm {cm}] output {i}", a, e, torch.float32, failed)
+    ws, overlap = HAT_MAIN["window_size"], HAT_MAIN["overlap_ratio"]
+    owin, _ = overlap_window(ws, overlap)
+    for c, heads, hidden in HAT_F32_FIRST_DESIGN_OCAB:
+        x = r(1, 2 * ws, 3 * ws, c)
+        ops = [1 + r(c, k=0.1), r(c, k=0.1), r(c, 3 * c, k=c**-0.5), r(3 * c, k=0.1), r(c, c, k=c**-0.5),
+               r(c, k=0.1), r(heads, ws * ws, owin * owin, k=0.5), 1 + r(c, k=0.1), r(c, k=0.1),
+               r(c, hidden, k=c**-0.5), r(hidden, k=0.1), r(hidden, c, k=hidden**-0.5), r(c, k=0.1)]
+        kw = dict(heads=heads, window_size=ws, overlap_ratio=overlap)
+        kernel_check(f"fused_ocab_block f32 first design [C {c}, {heads} heads, hidden {hidden}]",
+                     fused_ocab_block(x, *ops, **kw), ocab_plain(x, *ops, **kw), torch.float32, failed)
+    torch.cuda.synchronize()
+    want = {"fused_cab_body": {"cab_body_f32": len(HAT_F32_FIRST_DESIGN_CAB)},
+            "fused_ocab_block": {"ocab_f32": len(HAT_F32_FIRST_DESIGN_OCAB)}}
+    log(f"check f32 B11 / B10 first designs: entries {engagement.entries()}")
+    if engagement.entries() != want:
+        failed.append(f"the f32 first designs of B11 / B10 took {engagement.entries()}, expected {want}")
 
 
 def hat_f32_ws16_rows(ws16: dict, launches: dict, step_ms: float, label: str, dev: torch.device,
@@ -4069,7 +4140,9 @@ def hat_window_checks(dev: torch.device, failed: list) -> None:
                 same = torch.equal(got, fused_ocab_block(x, *served, **kw)) and torch.equal(
                     got, fused_ocab_block(x, *ops, **kw))
             torch.cuda.synchronize()
-            entry = "ocab_mma_bf16" if dtype == torch.bfloat16 else "ocab_f32"
+            hidden = ops[11].shape[0]
+            entry = ("ocab_mma_bf16" if dtype == torch.bfloat16 else "ocab_mma_f32" if ocab_f32_mma_takes(
+                c, heads, ws, HAT_MAIN["overlap_ratio"], hidden) else "ocab_f32")
             n = 3 if dtype == torch.bfloat16 else 1
             if engagement.entries() != {"fused_ocab_block": {entry: n}}:
                 failed.append(f"{label} B10: entries {engagement.entries()}, expected {n} through {entry}")

@@ -114,7 +114,8 @@ of 6 heads, 64 | 144 and 256 | 576 queries | keys, the OCAB's views). Then B5
 and its backward (B8 at window 8, B9 at window 16) at both windows with the
 shift and drop-path scales: in bf16 at C 180 (the kernels written for the
 H100, batch 8 of 64 x 64 maps; MaxSR's C 128 with a bf16 bias too), at
-head dim 48 (the older bf16 kernels) and in f32 (batch 2, C 64 and 180). Then the forward
+head dim 48 (the older bf16 kernels) and in f32 (batch 2, C 64 and 180, and
+C 96 at head dim 48: the older f32 kernels). Then the forward
 above window 16 ("large forward ..."): B5 at window 24 (shift 12, drop-path,
 a bf16 bias; and on the serving blob) and 17 (C 128, 4 heads), B12's large
 entry at 576 | 1296 and 100 | 700 (d 12) with either bias, B10 at window 24. With
@@ -929,7 +930,7 @@ def kernel_bits() -> dict:
     from studiosr_tpu_torch.ops.cuda.window_attention import fused_window_attention_block
 
     for dt, c, heads, batch in ((bf, C, HEADS, 8), (bf, 128, 4, 8), (bf, 96, 2, 2), (torch.float32, 64, 2, 2),
-                                (torch.float32, C, HEADS, 2)):
+                                (torch.float32, C, HEADS, 2), (torch.float32, 96, 2, 2)):
         for ws in (8, 16):
             label = f"{'bf16' if dt == bf else '(f32)'} C {c} window {ws}"
             ops = [1 + randn(c, scale=0.1), randn(c, scale=0.1), randn(c, 3 * c, scale=c**-0.5, dtype=dt),

@@ -24,14 +24,20 @@ and its bound: operations at 3xTF32 (164.9 TFLOP/s) and on the FMA pipes
 (66.9), bytes at 3.35 TB/s.
 
 The other f32 kernels at their paths' shapes (skipped with
-``--serving-only``): B11 (``fused_cab_body``), B5 at window 16 and B10
-(``fused_ocab_block``) at HAT x4's f32 forward (one 256 x 256 map), B9
-(``attention_bwd`` at window 16) and B12 / B13 (``oca_core_fwd`` /
-``oca_core_bwd``) at HAT's f32 gradient check (batch 4 of 64 x 64 crops),
-B13 at HAT's f32 training step (batch 32: 512 windows), B15
-(``window_attention``) at MaxSR's adaptive and static shapes; B12, B13 and
-B15 beside SDPA in f32, the others beside f32 PyTorch sequences. With
-``--attn-only`` only B13 (64 and 512 windows) and B15 are timed.
+``--serving-only``): B11 (``fused_cab_body``; on the weights as the
+checkout's ``prepare_hat_serving`` holds them, and on HWIO weights), B5 at
+window 16 and B10 (``fused_ocab_block``) at HAT x4's f32 forward (one 256 x
+256 map), B11 and B10 beside their plain versions, B9 (``attention_bwd`` at
+window 16) and B12 / B13 (``oca_core_fwd`` / ``oca_core_bwd``) at HAT's f32
+gradient check (batch 4 of 64 x 64 crops), B12 and B13 at HAT's f32
+training step (batch 32: 512 windows), B15 (``window_attention``) at
+MaxSR's adaptive and static shapes; B12, B13 and B15 beside SDPA in f32,
+the others beside f32 PyTorch sequences; then B5 and B9 on the first design
+at the f32 geometries no kernel took before it was restaged (C 264 / 12
+heads at window 12 on batch 4 of 72 x 72 maps, C 256 / 4 heads at window 16
+on batch 4 of 64 x 64; a checkout that raises on them records nothing).
+With ``--attn-only`` only B13 (64 and 512 windows), B12 at 512 and B15 are
+timed.
 
 Prints one JSON line: {"package": path, "card": nvidia-smi's name and power
 limit, "ms": {name: ms}, "passes": {name: [[kernel, ms], ...]}, "entries":
@@ -250,8 +256,8 @@ def measure_others(dev, gen, ms: dict, passes: dict, entries: dict, bnd: dict) -
 
     from studiosr_tpu_torch.ops.cuda import engagement
     from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd
-    from studiosr_tpu_torch.ops.cuda.conv3x3 import fused_cab_body
-    from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block
+    from studiosr_tpu_torch.ops.cuda.conv3x3 import cab_body_plain, fused_cab_body
+    from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block, ocab_plain
     from studiosr_tpu_torch.ops.cuda.window_attention import fused_window_attention_block
     from torch_time_attn_kernels import (
         attention_half_forward_sequence, attention_half_sequence, ocab_forward_sequence, pass_split, time_ms,
@@ -272,8 +278,20 @@ def measure_others(dev, gen, ms: dict, passes: dict, entries: dict, bnd: dict) -
     cab = [1 + randn(C, scale=0.1), randn(C, scale=0.1), randn(3, 3, C, 60, scale=(9 * C) ** -0.5),
            randn(60, scale=0.1), randn(3, 3, 60, C, scale=(9 * 60) ** -0.5), randn(C, scale=0.1)]
     cab_seq = cab[:2] + [t.permute(3, 2, 0, 1).contiguous() if t.dim() == 4 else t for t in cab[2:]]
-    timed("fused_cab_body f32", "fused_cab_body", lambda: fused_cab_body(xs, *cab))
+    served = list(cab)  # as serving holds them: a checkout with B11's f32 kernel packs its convs at load time
+    try:
+        from studiosr_tpu_torch.ops.cuda.conv3x3 import cab_f32_mma_takes, pack_cab_f32_convs
+
+        if cab_f32_mma_takes(C, 60):
+            served[2], served[4] = pack_cab_f32_convs(cab[2], cab[4])
+    except ImportError:
+        pass
+    timed("fused_cab_body f32", "fused_cab_body", lambda: fused_cab_body(xs, *served))
+    timed("fused_cab_body f32 HWIO", "fused_cab_body", lambda: fused_cab_body(xs, *cab))
+    ms["fused_cab_body f32 plain"] = time_ms(lambda: cab_body_plain(xs, *cab), iters=5, warmup=1)
     ms["fused_cab_body f32 library (f32 PyTorch sequence)"] = time_ms(lambda: cab_sequence(xs, *cab_seq), iters=10)
+    ms["fused_cab_body f32 max_abs_err"] = float((fused_cab_body(xs, *served)[0] - cab_body_plain(xs, *cab)[0]).abs(
+    ).max())
     bnd["fused_cab_body f32"] = bounds(2 * 2 * 65536 * 9 * C * 60, 2 * xs.numel() * 4)
 
     ws = 16
@@ -293,6 +311,9 @@ def measure_others(dev, gen, ms: dict, passes: dict, entries: dict, bnd: dict) -
                 randn(2 * C, C, scale=(2 * C)**-0.5), randn(C, scale=0.1))
     okw = dict(heads=HEADS, window_size=16, overlap_ratio=0.5)
     timed("fused_ocab_block f32", "fused_ocab_block", lambda: fused_ocab_block(xs, *ocab_ops, **okw))
+    ms["fused_ocab_block f32 plain"] = time_ms(lambda: ocab_plain(xs, *ocab_ops, **okw), iters=3, warmup=1)
+    ms["fused_ocab_block f32 max_abs_err"] = float(
+        (fused_ocab_block(xs, *ocab_ops, **okw) - ocab_plain(xs, *ocab_ops, **okw)).abs().max())
     seq = ocab_forward_sequence(xs, ocab_ops, HEADS, 16, 0.5, dtype=torch.float32)
     ms["fused_ocab_block f32 library (f32 PyTorch sequence)"] = time_ms(seq, iters=10)
     t = 65536
@@ -314,6 +335,46 @@ def measure_others(dev, gen, ms: dict, passes: dict, entries: dict, bnd: dict) -
                                           3 * x.numel() * 4)
 
     measure_attn(dev, gen, ms, passes, entries, bnd, fwd=True)
+    measure_first_design(dev, gen, ms, passes, entries, bnd)
+
+
+def measure_first_design(dev, gen, ms: dict, passes: dict, entries: dict, bnd: dict) -> None:
+    """B5 and B9 in f32 on the first design (``window_attention16_f32``,
+    ``attn_bwd16_f32``) at C 264 / 12 heads, window 12, and C 256 / 4
+    heads, window 16; nothing where the checkout raises on them."""
+    import torch
+
+    from studiosr_tpu_torch.ops.cuda import engagement
+    from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd
+    from studiosr_tpu_torch.ops.cuda.window_attention import fused_window_attention_block
+    from torch_time_attn_kernels import pass_split, time_ms
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    for c, heads, ws, side in ((264, 12, 12, 72), (256, 4, 16, 64)):
+        x, g = randn(4, side, side, c), randn(4, side, side, c, scale=1e-3)
+        ops = (1 + randn(c, scale=0.1), randn(c, scale=0.1), randn(c, 3 * c, scale=c**-0.5), randn(3 * c, scale=0.1),
+               randn(c, c, scale=c**-0.5), randn(c, scale=0.1), randn(heads, ws * ws, ws * ws, scale=0.5))
+        kw = dict(heads=heads, window_size=ws, shift=ws // 2)
+        t, n = 4 * side * side, ws * ws
+        for name, key, kernel, flops in (
+                (f"fused_window_attention_block_ws16 f32 C {c} window {ws}", "fused_window_attention_block_ws16",
+                 lambda: fused_window_attention_block(x, *ops, **kw), 2 * t * c * 4 * c + 4 * t * n * c),
+                (f"attention_bwd_ws16 f32 C {c} window {ws}", "attention_bwd_ws16",
+                 lambda: attention_bwd(x, g, *ops, **kw),
+                 3 * 2 * t * c * 3 * c + 2 * 2 * t * c * c + 12 * t * n * c)):
+            try:
+                kernel()
+            except NotImplementedError:
+                continue
+            engagement.reset()
+            ms[name] = time_ms(kernel, iters=5)
+            entries[name] = engagement.entries().get(key)
+            passes[name] = pass_split(kernel, calls=2)
+            bnd[name] = bounds(flops, 2 * x.numel() * 4)
+        del x, g
+        torch.cuda.empty_cache()
 
 
 def measure_attn(dev, gen, ms: dict, passes: dict, entries: dict, bnd: dict, fwd: bool = False) -> None:
@@ -345,13 +406,13 @@ def measure_attn(dev, gen, ms: dict, passes: dict, entries: dict, bnd: dict, fwd
         bias = randn(HEADS, 256, 576, scale=2.0)
         nqk = bw * HEADS * 256 * 576 * 30
         qkvb = (q.numel() + k.numel() + v.numel() + bias.numel()) * 4
-        if fwd and not tag:
-            timed("oca_core_fwd f32", "oca_core_fwd", lambda: oca_core_fwd(q, k, v, bias))
-            bnd["oca_core_fwd f32"] = bounds(4 * nqk, qkvb + q.numel() * 4)
+        if fwd or tag:  # B12 at the gradient check (with fwd) and at the f32 step's 512 windows
+            timed(f"oca_core_fwd f32{tag}", "oca_core_fwd", lambda: oca_core_fwd(q, k, v, bias))
+            bnd[f"oca_core_fwd f32{tag}"] = bounds(4 * nqk, qkvb + q.numel() * 4)
         timed(f"oca_core_bwd f32{tag}", "oca_core_bwd", lambda: oca_core_bwd(q, k, v, bias, go), iters=10 if not tag else 5)
         sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=1.0), iters=5)
-        if fwd and not tag:
-            ms["oca_core_fwd f32 library (SDPA)"] = sdpa_fwd
+        if fwd or tag:
+            ms[f"oca_core_fwd f32{tag} library (SDPA)"] = sdpa_fwd
         leaves = [t_.detach().requires_grad_() for t_ in (q, k, v, bias)]
 
         def sdpa_both():
@@ -413,7 +474,7 @@ def ab(checkout: Path, extra: list) -> None:
         print(json.dumps({"run": label, **line}), flush=True)
         runs.append((label, line))
     print("ms, " + " / ".join(label for label, _ in runs))
-    for name in runs[0][1]["ms"]:
+    for name in dict.fromkeys(k for _, line in runs for k in line["ms"]):  # a name only one tree times too
         print(f"  {name}: " + " / ".join(f"{line['ms'].get(name, float('nan')):.4f}" for _, line in runs))
 
 

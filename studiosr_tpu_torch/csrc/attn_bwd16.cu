@@ -32,8 +32,10 @@
 //    and dq; then its column pass, one block per (head, 64 keys, window
 //    group): dk and dv, and the group's d bias tile in shared memory; in
 //    bf16 both on mma.sync with the tiles in registers;
-// 4. per 64 pixel rows (ab16_ln_kernel): dln = dqkv Wqkv^T, the LN backward
-//    and dx, and the block's sums of dln xhat and dln;
+// 4. per 64 pixel rows (ab16_ln_kernel): dln = dqkv Wqkv^T (dqkv's rows
+//    streamed 32 columns a round beside the weights' chunks, swin_common.cuh
+//    gemm64_ga), the LN backward and dx, and the block's sums of dln xhat
+//    and dln;
 // 5. d Wqkv = LN^T dqkv, d Wproj = attn^T g_b and the bias gradients over
 //    all pixel rows (wgrad.cuh), every partial summed in a fixed order: no
 //    atomics, the same bits from run to run.
@@ -200,23 +202,24 @@ __host__ inline size_t ab16_gb_smem(int C, size_t tsz) {
   return align32((size_t)SB_TOK * (pad32(C) + SB_SKEW) * tsz) + 2 * SB_KC * SB_BL * tsz;
 }
 
+// dqkv's rows stream through the dln product 32 columns a round
+// (gemm64_ga), so the shared memory holds no whole 3C rows: dln (f32), the
+// rows' statistics and the two operands' stages.
 struct Ab16LnSmem {
-  size_t dq, dln, mean, rstd, bst, total;
-  int ld_q;
+  size_t dln, mean, rstd, ast, bst, total;
 };
 
 __host__ __device__ inline Ab16LnSmem ab16_ln_smem_layout(int C, size_t tsz) {
   Ab16LnSmem L;
-  L.ld_q = pad32(3 * C) + SB_SKEW;
   size_t o = 0;
-  L.dq = o;
-  o = align32(o + SB_TOK * L.ld_q * tsz);
   L.dln = o;
   o = align32(o + SB_TOK * C * sizeof(float));
   L.mean = o;
   o = align32(o + SB_TOK * sizeof(float));
   L.rstd = o;
   o = align32(o + SB_TOK * sizeof(float));
+  L.ast = o;
+  o = align32(o + 2 * SB_TOK * SB_AL * tsz);
   L.bst = o;
   L.total = o + 2 * SB_KC * SB_BL * tsz;
   return L;
@@ -233,24 +236,19 @@ __global__ void __launch_bounds__(SB_THREADS) ab16_ln_kernel(const T* __restrict
                                                             float* __restrict__ stats) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Ab16LnSmem L = ab16_ln_smem_layout(C, sizeof(T));
-  T* dq = (T*)(smem + L.dq);
   float* dln = (float*)(smem + L.dln);
   float* mean = (float*)(smem + L.mean);
   float* rstd = (float*)(smem + L.rstd);
+  T* ast = (T*)(smem + L.ast);
   T* bst = (T*)(smem + L.bst);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int LQ = L.ld_q, C3 = 3 * C;
+  const int C3 = 3 * C;
   const long long row0 = (long long)blockIdx.x * SB_TOK;
   const int nr = rows - row0 < SB_TOK ? (int)(rows - row0) : SB_TOK;
 
-  for (int i = tid; i < SB_TOK * C3; i += SB_THREADS) {
-    const int r = i / C3, c = i - r * C3;
-    dq[r * LQ + c] = r < nr ? dqkv[(row0 + r) * S3 + c] : from_f32<T>(0.f);
-  }
-  zero_columns(dq, LQ, C3, pad32(C3));
   const FragMap map = frag_map_for<T>((float*)bst);
-  __syncthreads();
-  gemm64<T>(dq, LQ, pad32(C3), C, wqt, nc, bst, map, [&](int r, int n, float acc) { dln[r * C + n] = acc; });
+  gemm64_ga<T>(dqkv + row0 * S3, S3, nr, C3, pad32(C3), C, wqt, nc, ast, bst, map,
+               [&](int r, int n, float acc) { dln[r * C + n] = acc; });
 
   for (int r = warp; r < nr; r += SB_THREADS / 32) {
     const long long row = row0 + r;

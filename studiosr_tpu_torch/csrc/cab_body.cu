@@ -11,9 +11,9 @@
 // their re-zeroed border rows were its way to keep the chain in VMEM; here
 // the zero padding is the conv kernel's own.
 //
-// f32 (the checks' dtype) and the bf16 geometries csrc/cab_mma.cu does not
-// take (C odd or above 192, Cm above 64) run this file; bf16 otherwise runs
-// the kernel written for the H100 there.
+// The geometries csrc/cab_mma.cu's kernels written for the H100 do not take
+// run this file (bf16: C odd or above 192, Cm above 64; f32: C not a
+// multiple of 4 or above 256, Cm above 64).
 //
 // Design (simple version, four launches through device memory): a
 // LayerNorm pass (one warp per pixel), conv1 with the GELU in its epilogue

@@ -1,4 +1,4 @@
-// B11 in bf16, written for the H100: HAT's CAB trunk with the
+// B11 in bf16 and f32, written for the H100: HAT's CAB trunk with the
 // squeeze-excite channel sums,
 //   y2 = res_scale (conv2(gelu(conv1(LN x) + b1)) + b2),
 //   sums[b, c] = sum over H, W of y2[b, :, :, c] in f32, before y2 is rounded,
@@ -6,8 +6,10 @@
 // its own input (the LayerNorm output and h1 are zero outside the image).
 //
 // Replaces studiosr_tpu/ops/pallas/conv3x3.py::fused_cab_body (:393, kernel
-// _cab_kernel at :319) in bf16; f32, the checks' dtype, keeps cab_body.cu on
-// conv3x3.cuh, and so do C above 192 or odd, and Cm above 64. Rounding as
+// _cab_kernel at :319) in bf16 and, below, in f32 (HAT served in f32, the
+// checks' dtype); cab_body.cu keeps the geometries these decline (bf16: C
+// above 192 or odd, Cm above 64; f32: C above 256 or not a multiple of 4,
+// Cm above 64). Rounding as
 // the TPU kernel: the LN output, h1 (after the exact erf GELU) and y2 are
 // rounded to bf16; products accumulate in f32.
 //
@@ -55,6 +57,39 @@
 // NVIDIA H100 80GB HBM3, 700.00 W): 0.141 ms a call (LN 0.021, conv1 0.055,
 // conv2 0.052, the sum 0.004), against 0.51 for the same function as a
 // sequence of bf16 PyTorch calls with cuDNN's convs.
+//
+// f32 (cab_body_mma_f32, below), written for the H100 too: the same four
+// passes in 3xTF32 on conv3x3_f32.cuh's implicit-GEMM kernel (wgmma's tf32
+// form, a 12 x 16 pixel tile of three warpgroups, the patch staged once a
+// 32-channel chunk for its nine taps, the weights' hi / lo images through a
+// three-slot ring), its CAB instantiation:
+// 1. cb32_ln_kernel, a warp a pixel: the LN rows (eps 1e-5, f32
+//    statistics) at a stride of KP = pad32(C) channels, zero past C, so
+//    conv1's patch copies are whole 16-byte pieces with no channel mask.
+// 2. conv1, ct_conv_kernel<16, 64, true>: N = Cm padded to 64 (tfw_rs<64>;
+//    96 would waste a third of every product). The epilogue adds b1, takes
+//    the exact erf GELU and stores h1 at pad32(Cm) channels, zero past Cm.
+// 3. conv2, ct_conv_kernel<16, 96, true>: C in 96-column tiles. The
+//    epilogue adds b2, scales by res_scale, stores y2 and takes each
+//    column's f32 sum over the tile's pixels (a thread's two pixels, the
+//    warp's by shuffles, then the twelve warps in order) into part[b, tile,
+//    c].
+// 4. cb_sum_kernel (above): sums[b, c] in a fixed order. No atomics: two
+//    launches give the same bits.
+// The weights are the hi / lo images of conv3x3_f32.cuh's packed layout,
+// conv1 in 64-column tiles and conv2 in 96 (ops/cuda/conv3x3.py
+// pack_cab_f32_convs; HAT's f32 serving packs them at load time, HWIO
+// weights are packed per call). A block holds 124,800 bytes of shared
+// memory in conv1 and 150,912 in conv2 (two patch buffers of 14 x 18
+// pixels x 36 floats, three ring slots, the twelve warps' column sums), up
+// to 168 registers a thread at 384 threads: one block an SM. Takes C a
+// multiple of 4 up to 256 and Cm up to 64 (conv3x3.py cab_f32_mma_takes);
+// other f32 geometries keep cab_body.cu.
+// Bound at HAT serving's shapes (B 1, 256 x 256, C 180, Cm 60): 25.5 GFLOP,
+// 0.1545 ms at 3xTF32 (164.9 TFLOP/s), 0.381 on the FMA pipes; cab_body.cu
+// ran both convs on conv3x3.cuh's FMA kernel, 1.599 ms (NVIDIA H100 80GB
+// HBM3, 700 W).
+#include "conv3x3_f32.cuh"
 #include "hopper_mma.cuh"
 #include "wgmma.cuh"
 
@@ -316,5 +351,61 @@ extern "C" int cab_body_mma_bf16(const void* x, const void* ln_w, const void* ln
   if (err != cudaSuccess) return (int)err;
   cb_sum_kernel<<<dim3((C + 31) / 32, B), 256, 0, s>>>((const float*)part, (float*)sums, cab_body_mma_tiles(H, W),
                                                        C);
+  return (int)cudaGetLastError();
+}
+
+// -- f32 -------------------------------------------------------------------------
+
+constexpr int CB32_MAX_CM = 64, CB32_N1 = 64, CB32_N2 = 96;
+
+// LN of each pixel row in f32 (a warp a row: tf32x3.cuh's row pass), KP
+// channels a row, zero past C (C a multiple of 4 up to TF_MAX_C).
+__global__ void __launch_bounds__(256) cb32_ln_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                                                      const float* __restrict__ bt, float* __restrict__ ln,
+                                                      long long rows, int C, int KP) {
+  const long long r = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (r >= rows) return;
+  float4 v[2];
+  tf_load_row(x + r * C, C, v);
+  tf_ln_fwd(v, C, g, bt, ln + r * KP);
+  for (int c = C + 4 * (threadIdx.x & 31); c < KP; c += 128)
+    *reinterpret_cast<float4*>(ln + r * KP + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// The geometry the f32 kernel takes: C a multiple of 4 up to 256, Cm up to 64.
+static bool cb32_shape_ok(int B, int H, int W, int C, int Cm) {
+  return B >= 1 && H >= 1 && W >= 1 && C >= 4 && C <= TF_MAX_C && C % 4 == 0 && Cm >= 1 && Cm <= CB32_MAX_CM;
+}
+
+// Tiles of an image in the f32 kernel: the partials' middle dimension.
+extern "C" int cab_body_mma_f32_tiles(int H, int W) { return ct_pixel_tiles(H, W); }
+
+// x (B, H, W, C) f32; w1, w2 packed by ops/cuda/conv3x3.py pack_cab_f32_convs
+// (conv3x3_f32.cuh's images, conv1 in 64-column tiles, conv2 in 96); ln_w,
+// ln_b, b1, b2 f32. Scratch: ln (B, H, W, pad32(C)) and h1 (B, H, W,
+// pad32(Cm)) f32, part (B, tiles, C) f32.
+extern "C" int cab_body_mma_f32(const void* x, const void* ln_w, const void* ln_b, const void* w1, const void* b1,
+                                const void* w2, const void* b2, void* ln, void* h1, void* part, void* out,
+                                void* sums, int B, int H, int W, int C, int Cm, float res_scale, void* stream) {
+  if (!cb32_shape_ok(B, H, W, C, Cm)) return (int)cudaErrorInvalidValue;
+  const void* const wide[] = {x, ln_w, ln_b, ln, h1, w1, w2};  // read in 16-byte pieces
+  for (const void* p : wide)
+    if ((uintptr_t)p % 16) return (int)cudaErrorMisalignedAddress;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int KP = (C + CT_KC - 1) / CT_KC * CT_KC, CMP = (Cm + CT_KC - 1) / CT_KC * CT_KC;
+  const long long rows = (long long)B * H * W;
+  cb32_ln_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, s>>>((const float*)x, (const float*)ln_w, (const float*)ln_b,
+                                                           (float*)ln, rows, C, KP);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const CtArgs a1{(const float*)ln, (const float*)w1, (const float*)b1, nullptr, (float*)h1, H, W, KP, Cm,
+                  ACT_GELU, 0.f, 1.f, 0, 0, nullptr, CMP};
+  err = ct_launch<16, CB32_N1, true>(a1, B, s);
+  if (err != cudaSuccess) return (int)err;
+  const CtArgs a2{(const float*)h1, (const float*)w2, (const float*)b2, nullptr, (float*)out, H, W, CMP, C,
+                  ACT_NONE, 0.f, res_scale, 0, 0, (float*)part, C};
+  err = ct_launch<16, CB32_N2, true>(a2, B, s);
+  if (err != cudaSuccess) return (int)err;
+  cb_sum_kernel<<<dim3((C + 31) / 32, B), 256, 0, s>>>((const float*)part, (float*)sums, ct_pixel_tiles(H, W), C);
   return (int)cudaGetLastError();
 }

@@ -5,8 +5,8 @@
 //   out = y + fc2(gelu(fc1(LN2 y))).
 //
 // Replaces studiosr_tpu/ops/pallas/ocab.py::fused_ocab_block (_ocab_kernel)
-// in f32, the checks' dtype, and at the bf16 geometries the kernels written
-// for the H100 (ocab_mma.cu) do not take.
+// at the geometries the kernels written for the H100 do not take (bf16
+// ocab_mma.cu, f32 ocab_f32.cu).
 // Keys and values outside the image are zero after the projection, as in
 // the TPU kernel (and the reference's zero-padded unfold): those logits are
 // the bias alone and take softmax mass; they are not masked. Rounding points

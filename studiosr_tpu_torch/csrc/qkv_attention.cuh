@@ -1,12 +1,15 @@
-// Window attention in two passes through device memory, shared by B5 at
-// windows 9-16 (window_attention16.cu) and B10 (ocab.cu), each in f32 and at
-// the geometries the bf16 kernels written for the H100 do not take (in bf16
-// B5 runs window_attention_mma.cu, B10 ocab_mma.cu); B9 (attn_bwd16.cu)
-// shares pass 1.
+// Window attention in two passes through device memory, shared by B5 from
+// window 9 (window_attention16.cu) and B10 (ocab.cu) at the geometries the
+// kernels written for the H100 do not take (B5: window_attention_mma.cu,
+// window_attention_f32.cu; B10: ocab_mma.cu, ocab_f32.cu); B9
+// (attn_bwd16.cu) shares pass 1. Neither pass holds anything whole-K of the
+// weights or C-wide but the 64 LN / attention rows, so f32 takes C up to
+// 416 at head dims up to 64 (ops/cuda/window_attention.py
+// first_design_max_c).
 //
 // Pass 1, ln_qkv_kernel: LayerNorm and the q|k|v projection of 64 pixel
-// rows a block (gemm64_ktile below: each 64-column tile of the packed
-// weights staged whole, one barrier a tile), written to a scratch in a
+// rows a block (swin_common.cuh's gemm64: the packed weights staged 32 K
+// rows at a time, the LayerNorm read straight from x), written to a scratch in a
 // per-pixel, per-head layout, qkv[pixel][head][q|k|v][DP] (DP = d padded to
 // 16, zero past d; q already carries 1/sqrt(d)), rounded to T as the TPU
 // kernels round q, k and v. B9 (attn_bwd16.cu) runs this pass too and
@@ -80,76 +83,23 @@ static void qkv_pack_segments(std::vector<PackSeg>& segs, const T* wqkv, const T
   segs.push_back(PackSeg{wproj, off + P.proj, P.nc, C, C, C, 1});
 }
 
-// acc(r, n) = sum_k A[r * lda + k] * B[k * ldb + n] over the 64 rows and
-// n < N, handed to epi(r, n, acc), as swin_common.cuh's gemm64 (same packed
-// B, same operand rules) but staging each 64-column tile of B whole (all KP
-// rows) into one of two buffers of bst, the next tile in flight: one
-// barrier a tile instead of one a 32-row chunk. bst: 2 x KP x SB_BL
-// elements. Ends with a barrier.
-template <typename T, typename EP>
-__device__ void gemm64_ktile(const T* A, int lda, int KP, int N, const T* B, int ldb, T* bst, const FragMap& map,
-                             EP epi) {
-  using namespace nvcuda;
-  constexpr bool tc = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int PIECES = 64 * (int)sizeof(T) / 16, PER = 16 / (int)sizeof(T);
-  const int warp = threadIdx.x >> 5, mf = warp & 3, nf = (warp >> 2) * 2;
-  const int tiles = (N + 63) / 64;
-  const size_t buf = (size_t)KP * SB_BL;
-  auto stage = [&](int t) {
-    T* dst = bst + (t & 1) * buf;
-    for (int i = threadIdx.x; i < KP * PIECES; i += SB_THREADS) {
-      const int r = i / PIECES, c = (i % PIECES) * PER;
-      cp_async16(dst + r * SB_BL + c, B + (size_t)r * ldb + t * 64 + c);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-  stage(0);
-  for (int t = 0; t < tiles; ++t) {
-    cp_async_wait_all();
-    __syncthreads();  // tile t is in; every thread is done with tile t - 1's buffer
-    if (t + 1 < tiles) stage(t + 1);
-    const T* b = bst + (t & 1) * buf;
-    if constexpr (tc) {
-      AccFrag frag[2];
-      wmma::fill_fragment(frag[0], 0.f);
-      wmma::fill_fragment(frag[1], 0.f);
-      for (int ks = 0; ks < KP / 16; ++ks) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af;
-        wmma::load_matrix_sync(af, A + mf * 16 * lda + ks * 16, lda);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf;
-          wmma::load_matrix_sync(bf, b + ks * 16 * SB_BL + (nf + j) * 16, SB_BL);
-          wmma::mma_sync(frag[j], af, bf, frag[j]);
-        }
-      }
-      tc_epilogue(frag, map, t * 64, N, epi);
-    } else {
-      float acc[4][4] = {};
-      fma_steps(acc, [&](int r, int k) { return A[r * lda + k]; }, KP, [&](int k, int n) { return b[k * SB_BL + n]; });
-      fma_epilogue(acc, t * 64, N, epi);
-    }
-  }
-  __syncthreads();
-}
-
+// Shared memory of pass 1: the 64 LN rows (pad32(C) columns, zero past C)
+// and gemm64's two staged K chunks of the packed weights. Nothing whole-K
+// of the weights and no raw input rows (the LayerNorm reads x from device
+// memory), so C reaches 800 in f32 (ops/cuda/window_attention.py
+// first_design_max_c takes the largest C every first-design pass fits).
 struct LnQkvSmem {
-  size_t xs, lnb, bst, total;
+  size_t lnb, bst, total;
   int ld_c;
 };
 
 template <typename T>
 __host__ __device__ inline LnQkvSmem ln_qkv_smem_layout(int C) {
-  const size_t tsz = sizeof(T);
   LnQkvSmem L;
   L.ld_c = pad32(C) + SB_SKEW;
-  size_t o = 0;
-  L.xs = o;
-  o = align32(o + SB_TOK * C * tsz);
-  L.lnb = o;
-  o = align32(o + SB_TOK * L.ld_c * tsz);
-  L.bst = o;
-  L.total = o + 2 * (size_t)pad32(C) * SB_BL * tsz;  // gemm64_ktile's two tiles of the packed weights
+  L.lnb = 0;
+  L.bst = align32((size_t)SB_TOK * L.ld_c * sizeof(T));
+  L.total = L.bst + staging_bytes<T>();
   return L;
 }
 
@@ -161,24 +111,21 @@ __global__ void __launch_bounds__(SB_THREADS, 2) ln_qkv_kernel(
   extern __shared__ __align__(128) unsigned char smem[];
   const LnQkvSmem L = ln_qkv_smem_layout<T>(C);
   const QkvPack P = qkv_pack_layout(C, heads);
-  T* xs = (T*)(smem + L.xs);
   T* lnb = (T*)(smem + L.lnb);
   T* bst = (T*)(smem + L.bst);
   const long long r0 = (long long)blockIdx.x * SB_TOK;
   const int nrows = rows - r0 < SB_TOK ? (int)(rows - r0) : SB_TOK;
   const float qscale = rsqrtf((float)P.d);
 
-  for (int i = threadIdx.x; i < SB_TOK * C; i += SB_THREADS) xs[i] = i / C < nrows ? x[r0 * C + i] : from_f32<T>(0.f);
   zero_columns(lnb, L.ld_c, C, P.kc);
   const FragMap map = frag_map_for<T>((float*)bst);  // bst is free until the first staged chunk
-  __syncthreads();
-  layernorm_rows<T>(xs, C, ln_w, ln_b, lnb, L.ld_c);
+  layernorm_rows<T>(x + r0 * C, C, ln_w, ln_b, lnb, L.ld_c, nrows);
   if (ln_out) {  // B9 keeps the LayerNorm rows for d Wqkv
     __syncthreads();
     for (int i = threadIdx.x; i < nrows * C; i += SB_THREADS)
       ln_out[(r0 + i / C) * ld_ln + i % C] = lnb[(i / C) * L.ld_c + i % C];
   }
-  gemm64_ktile<T>(lnb, L.ld_c, P.kc, P.N, packed, P.nq, bst, map, [&](int r, int n, float acc) {
+  gemm64<T>(lnb, L.ld_c, P.kc, P.N, packed, P.nq, bst, map, [&](int r, int n, float acc) {
     if (r >= nrows) return;
     const int hp = n / P.DP, j = n - hp * P.DP, h = hp / 3, part = hp - 3 * h;
     float v = 0.f;
@@ -236,8 +183,8 @@ __host__ __device__ inline QaSmem qa_smem_layout(int C, int heads) {
   o = align32(o + QA_CHUNK * sizeof(int));
   L.attn = o;
   o = align32(o + QA_CHUNK * L.ld_c * tsz);
-  L.bst = o;
-  L.total = o + 2 * SB_KC * SB_BL * tsz;
+  L.bst = 0;  // proj's staging, over q, k and v once every head is done
+  L.total = o > staging_bytes<T>() ? o : staging_bytes<T>();
   return L;
 }
 

@@ -147,6 +147,48 @@ __device__ __forceinline__ void tc_epilogue(const AccFrag (&acc)[2], const FragM
     }
 }
 
+// One round of gemm64 and gemm64_ga: the products of A's 64 x SB_KC chunk
+// (a, rows lda apart) and B's staged SB_KC x 64 chunk b, added to acc (f32,
+// the FMA pipes) or frag (bf16, the tensor cores).
+template <typename T>
+__device__ __forceinline__ void gemm64_round(const T* a, int lda, const T* b, float (&acc)[4][4], AccFrag (&frag)[2]) {
+  using namespace nvcuda;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const int warp = threadIdx.x >> 5, mf = warp & 3, nf = (warp >> 2) * 2;
+#pragma unroll
+    for (int ks = 0; ks < SB_KC / 16; ++ks) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af;
+      wmma::load_matrix_sync(af, a + mf * 16 * lda + ks * 16, lda);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf;
+        wmma::load_matrix_sync(bf, b + ks * 16 * SB_BL + (nf + j) * 16, SB_BL);
+        wmma::mma_sync(frag[j], af, bf, frag[j]);
+      }
+    }
+  } else {
+    fma_steps(acc, [&](int r, int k) { return a[r * lda + k]; }, SB_KC,
+              [&](int kk, int n) { return b[kk * SB_BL + n]; });
+  }
+}
+
+// A complete n-tile of gemm64 / gemm64_ga: its sums handed to epi, then zeroed.
+template <typename T, typename EP>
+__device__ __forceinline__ void gemm64_tile_done(float (&acc)[4][4], AccFrag (&frag)[2], const FragMap& map, int n0,
+                                                 int N, EP epi) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    tc_epilogue(frag, map, n0, N, epi);
+    nvcuda::wmma::fill_fragment(frag[0], 0.f);
+    nvcuda::wmma::fill_fragment(frag[1], 0.f);
+  } else {
+    fma_epilogue(acc, n0, N, epi);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  }
+}
+
 // acc(r, n) = sum_k A[r * lda + k] * B[k * ldb + n] over the 64 token rows
 // and n < N, handed to epi(r, n, acc). B is packed: KP rows (a multiple of
 // SB_KC) by pad64(N) columns, zero outside the product. The (n-tile,
@@ -156,53 +198,69 @@ __device__ __forceinline__ void tc_epilogue(const AccFrag (&acc)[2], const FragM
 // past the true K zero up to KP. Ends with a barrier.
 template <typename T, typename EP>
 __device__ void gemm64(const T* A, int lda, int KP, int N, const T* B, int ldb, T* bst, const FragMap& map, EP epi) {
-  using namespace nvcuda;
-  constexpr bool tc = std::is_same<T, __nv_bfloat16>::value;
   constexpr int BUF = SB_KC * SB_BL;
-  const int warp = threadIdx.x >> 5, mf = warp & 3, nf = (warp >> 2) * 2;
   const int nk = KP / SB_KC, rounds = (N + 63) / 64 * nk;
   float acc[4][4] = {};
   AccFrag frag[2];
-  if constexpr (tc) {
-    wmma::fill_fragment(frag[0], 0.f);
-    wmma::fill_fragment(frag[1], 0.f);
-  }
+  nvcuda::wmma::fill_fragment(frag[0], 0.f);
+  nvcuda::wmma::fill_fragment(frag[1], 0.f);
   stage_chunk(bst, B, ldb, 0, 0);
   for (int t = 0; t < rounds; ++t) {
-    const int kc = t % nk, n0 = t / nk * 64, k0 = kc * SB_KC;
+    const int kc = t % nk;
     cp_async_wait_all();
     __syncthreads();  // chunk t is in; every thread is done with chunk t - 1's buffer
     if (t + 1 < rounds) stage_chunk(bst + ((t + 1) & 1) * BUF, B, ldb, (t + 1) % nk * SB_KC, (t + 1) / nk * 64);
-    const T* b = bst + (t & 1) * BUF;
-    if constexpr (tc) {
-#pragma unroll
-      for (int ks = 0; ks < SB_KC / 16; ++ks) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af;
-        wmma::load_matrix_sync(af, A + mf * 16 * lda + k0 + ks * 16, lda);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf;
-          wmma::load_matrix_sync(bf, b + ks * 16 * SB_BL + (nf + j) * 16, SB_BL);
-          wmma::mma_sync(frag[j], af, bf, frag[j]);
-        }
-      }
-    } else {
-      fma_steps(acc, [&](int r, int k) { return A[r * lda + k0 + k]; }, SB_KC,
-                [&](int kk, int n) { return b[kk * SB_BL + n]; });
-    }
-    if (kc == nk - 1) {  // the n-tile is complete
-      if constexpr (tc) {
-        tc_epilogue(frag, map, n0, N, epi);
-        wmma::fill_fragment(frag[0], 0.f);
-        wmma::fill_fragment(frag[1], 0.f);
+    gemm64_round(A + kc * SB_KC, lda, bst + (t & 1) * BUF, acc, frag);
+    if (kc == nk - 1) gemm64_tile_done<T>(acc, frag, map, t / nk * 64, N, epi);
+  }
+  __syncthreads();
+}
+
+// gemm64's product with A in device memory as well: rows r < nrows of A
+// (A + r lda, lda and A 16-byte aligned in pieces), columns below K, zero
+// elsewhere, are staged 32 columns a round beside B's chunk, into the two
+// buffers of ast (64 x SB_AL each), so a block holds no whole A rows. The
+// rounds, and each sum's order, are gemm64's: the same bits as gemm64 on
+// the same A staged whole. Ends with a barrier.
+constexpr int SB_AL = SB_KC + SB_SKEW;  // stride of a staged A chunk
+
+template <typename T, typename EP>
+__device__ void gemm64_ga(const T* A, long long lda, int nrows, int K, int KP, int N, const T* B, int ldb, T* ast,
+                          T* bst, const FragMap& map, EP epi) {
+  constexpr int BUF = SB_KC * SB_BL, ABUF = SB_TOK * SB_AL, PER = 16 / (int)sizeof(T), PIECES = SB_KC / PER;
+  const int nk = KP / SB_KC, rounds = (N + 63) / 64 * nk;
+  // round t's A chunk (columns (t % nk) SB_KC ..) into ast's buffer t & 1, in
+  // the cp.async group of B's chunk
+  auto stage_a = [&](int t) {
+    T* dst = ast + (t & 1) * ABUF;
+    const int k0 = (t % nk) * SB_KC;
+    for (int i = threadIdx.x; i < SB_TOK * PIECES; i += SB_THREADS) {
+      const int r = i / PIECES, c = k0 + (i % PIECES) * PER;
+      T* d = dst + r * SB_AL + c - k0;
+      const T* src = A + r * lda + c;
+      if (r < nrows && c + PER <= K) {
+        cp_async16(d, src);
       } else {
-        fma_epilogue(acc, n0, N, epi);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+        for (int e = 0; e < PER; ++e) d[e] = r < nrows && c + e < K ? src[e] : from_f32<T>(0.f);
       }
     }
+  };
+  float acc[4][4] = {};
+  AccFrag frag[2];
+  nvcuda::wmma::fill_fragment(frag[0], 0.f);
+  nvcuda::wmma::fill_fragment(frag[1], 0.f);
+  stage_a(0);
+  stage_chunk(bst, B, ldb, 0, 0);
+  for (int t = 0; t < rounds; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // round t is in; every thread is done with round t - 1's buffers
+    if (t + 1 < rounds) {
+      stage_a(t + 1);
+      stage_chunk(bst + ((t + 1) & 1) * BUF, B, ldb, (t + 1) % nk * SB_KC, (t + 1) / nk * 64);
+    }
+    gemm64_round(ast + (t & 1) * ABUF, SB_AL, bst + (t & 1) * BUF, acc, frag);
+    if (t % nk == nk - 1) gemm64_tile_done<T>(acc, frag, map, t / nk * 64, N, epi);
   }
   __syncthreads();
 }
@@ -245,12 +303,18 @@ __device__ void gemm64_smem(const T* A, int lda, const T* B, int ldb, int K, int
   __syncthreads();
 }
 
-// LayerNorm (eps 1e-5) of the 64 rows of xs (stride C) into out (stride
-// ldo); one warp per row.
+// LayerNorm (eps 1e-5) of the 64 rows of xs (stride C; shared or device
+// memory) into out (stride ldo); one warp per row. Rows from nrows are
+// zeros in out and are not read.
 template <typename T>
-__device__ void layernorm_rows(const T* xs, int C, const float* g, const float* b, T* out, int ldo) {
+__device__ void layernorm_rows(const T* xs, int C, const float* g, const float* b, T* out, int ldo,
+                               int nrows = SB_TOK) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = warp; r < SB_TOK; r += SB_THREADS / 32) {
+    if (r >= nrows) {
+      for (int c = lane; c < C; c += 32) out[r * ldo + c] = from_f32<T>(0.f);
+      continue;
+    }
     const T* row = xs + r * C;
     float s = 0.f;
     for (int c = lane; c < C; c += 32) s += to_f32(row[c]);

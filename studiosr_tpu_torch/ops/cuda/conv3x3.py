@@ -21,9 +21,12 @@ conv2(gelu(conv1(LN x))) with the per-image f32 channel sums of y2 that
 feed the squeeze-excite gate. bf16 with C even up to 192 and Cm up to 64
 (:func:`cab_mma_takes`) launches the kernel written for the H100
 (``csrc/cab_mma.cu``, C entry ``cab_body_mma_bf16``) on weights packed by
-:func:`pack_cab_weights` (serving packs them at load time, HWIO weights are
-packed per call); f32 and other bf16 geometries run ``csrc/cab_body.cu``
-(``cab_body_f32`` / ``cab_body_bf16``) on HWIO weights. And B14,
+:func:`pack_cab_weights`; f32 with C a multiple of 4 up to 256 and Cm up to
+64 (:func:`cab_f32_mma_takes`) the 3xTF32 one there (``cab_body_mma_f32``,
+on B2's f32 kernel) on weights packed by :func:`pack_cab_f32_convs` (serving
+packs both at load time, HWIO weights are packed per call); other
+geometries run ``csrc/cab_body.cu`` (``cab_body_f32`` / ``cab_body_bf16``)
+on HWIO weights. And B14,
 ``fused_resblock`` (CUDA kernels ``csrc/resblock.cu``, replacing
 ``conv3x3.py::fused_resblock``):
 y = x + res_scale (conv2(act(conv1(x) + b1)) + b2), SwinFIR's SFB spatial
@@ -48,7 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from studiosr_tpu_torch.ops.cuda import _build
-from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, F as CF, check, finish, STREAM, call
+from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, F as CF, aligned, check, finish, operand, STREAM, call
 from studiosr_tpu_torch.ops.cuda.tf32x3 import split
 
 __all__ = [
@@ -56,7 +59,7 @@ __all__ = [
     "prepare_fused_conv3x3_weights", "parse_activation", "fused_cab_body", "cab_body_plain", "fused_resblock",
     "resblock_plain", "cab_mma_takes", "pack_cab_weights", "pack_cab_convs", "unpack_cab_weights", "packed_cab_shape",
     "cab_partition", "f32_mma_takes", "pack_conv3x3_f32_weights", "unpack_conv3x3_f32_weights",
-    "packed_conv3x3_f32_shape",
+    "packed_conv3x3_f32_shape", "cab_f32_mma_takes", "pack_cab_f32_convs", "cab_f32_partition",
 ]
 
 _ARGS = (P, P, P, P, P, I, I, I, I, I, I, CF, I, P)
@@ -65,7 +68,8 @@ _SIGNATURES = {"conv3x3_f32": _ARGS, "conv3x3_mma_bf16": _ARGS, "conv3x3_mma_f32
 _RESTYPES = {"conv3x3_mma_f32_elements": ctypes.c_longlong}
 _CAB_ARGS = (P,) * 12 + (I,) * 5 + (CF, P)
 _CAB_SIGNATURES = {"cab_body_f32": _CAB_ARGS, "cab_body_bf16": _CAB_ARGS, "cab_body_partials": (I, I, I)}
-_CAB_MMA_SIGNATURES = {"cab_body_mma_bf16": _CAB_ARGS, "cab_body_mma_tiles": (I, I)}
+_CAB_MMA_SIGNATURES = {"cab_body_mma_bf16": _CAB_ARGS, "cab_body_mma_tiles": (I, I), "cab_body_mma_f32": _CAB_ARGS,
+                       "cab_body_mma_f32_tiles": (I, I)}
 # csrc/cab_mma.cu: conv1's and conv2's columns a ring slot, input channels a
 # slot (K chunk), the pixel tile, the widest C and Cm
 _CAB_N1, _CAB_N2, _CAB_KC, _CAB_TILE, _CAB_MAX_C, _CAB_MAX_CM = 64, 96, 64, (16, 8), 192, 64
@@ -75,6 +79,8 @@ _ACT_CODES = {None: 0, "relu": 1, "lrelu": 2}  # shared with csrc/conv3x3.cuh
 _MMA_KC, _MMA_BLOCK = 16, 192  # csrc/conv3x3_mma.cuh: input channels a stage, output channels a block
 # csrc/conv3x3_f32.cuh: output channels a block (CT_BN), input channels a chunk (CT_KC); Cout up to _F32_NARROW keeps conv3x3.cuh
 _F32_BN, _F32_KC, _F32_NARROW = 96, 32, 16
+# csrc/cab_mma.cu's f32 entry: the widest C (TF_MAX_C) and Cm; the pixel tile (CT_TH, CT_TW)
+_CAB_F32_MAX_C, _CAB_F32_TILE = 256, (12, 16)
 
 
 def packed_conv3x3_shape(cin: int, cout: int) -> Tuple[int, ...]:
@@ -127,38 +133,38 @@ def f32_mma_takes(cout: int) -> bool:
     return cout > _F32_NARROW
 
 
-def packed_conv3x3_f32_shape(cin: int, cout: int) -> Tuple[int, ...]:
-    """(N tiles of 96 output channels, chunks of 32 input channels, 9 taps,
-    hi | lo, a 32 x 96 image of 3072 values)."""
-    return (-(-cout // _F32_BN), -(-cin // _F32_KC), 9, 2, _F32_BN * _F32_KC)
+def packed_conv3x3_f32_shape(cin: int, cout: int, bn: int = _F32_BN) -> Tuple[int, ...]:
+    """(N tiles of ``bn`` output channels (96; B11's conv1 64), chunks of 32
+    input channels, 9 taps, hi | lo, a 32 x bn image)."""
+    return (-(-cout // bn), -(-cin // _F32_KC), 9, 2, bn * _F32_KC)
 
 
-def pack_conv3x3_f32_weights(w: torch.Tensor) -> torch.Tensor:
+def pack_conv3x3_f32_weights(w: torch.Tensor, bn: int = _F32_BN) -> torch.Tensor:
     """HWIO (3, 3, Cin, Cout) f32 -> the f32 kernel's packed weights: for
-    each tile of 96 output channels, chunk of 32 input channels and tap, the
-    hi image tf32(w) then the lo image tf32(w - hi) of the 32 x 96 block
+    each tile of ``bn`` output channels, chunk of 32 input channels and tap,
+    the hi image tf32(w) then the lo image tf32(w - hi) of the 32 x bn block
     (zero past Cin and Cout), element (k, n) at (n / 8) 256 + (k / 4) 32 +
     (n % 8) 4 + k % 4 (``tfw_image``: wgmma's K-major core matrices of 8 n x
     4 k), the image of a ring slot."""
     _, _, cin, cout = w.shape
-    nt, nch, _, _, _ = packed_conv3x3_f32_shape(cin, cout)
-    taps = F.pad(w.detach().float().reshape(9, cin, cout), (0, nt * _F32_BN - cout, 0, nch * _F32_KC - cin))
-    blocks = taps.reshape(9, nch, _F32_KC, nt, _F32_BN).permute(3, 1, 0, 2, 4)  # (nt, nch, 9, k, n)
-    img = blocks.reshape(nt, nch, 9, _F32_KC // 4, 4, _F32_BN // 8, 8).permute(0, 1, 2, 5, 3, 6, 4)
-    hi, lo = split(img.reshape(nt, nch, 9, _F32_BN * _F32_KC).contiguous())
+    nt, nch, _, _, _ = packed_conv3x3_f32_shape(cin, cout, bn)
+    taps = F.pad(w.detach().float().reshape(9, cin, cout), (0, nt * bn - cout, 0, nch * _F32_KC - cin))
+    blocks = taps.reshape(9, nch, _F32_KC, nt, bn).permute(3, 1, 0, 2, 4)  # (nt, nch, 9, k, n)
+    img = blocks.reshape(nt, nch, 9, _F32_KC // 4, 4, bn // 8, 8).permute(0, 1, 2, 5, 3, 6, 4)
+    hi, lo = split(img.reshape(nt, nch, 9, bn * _F32_KC).contiguous())
     return torch.stack([hi, lo], 3)
 
 
-def unpack_conv3x3_f32_weights(packed: torch.Tensor, cin: int, cout: int) -> torch.Tensor:
+def unpack_conv3x3_f32_weights(packed: torch.Tensor, cin: int, cout: int, bn: int = _F32_BN) -> torch.Tensor:
     """HWIO (3, 3, Cin, Cout) from :func:`pack_conv3x3_f32_weights`'s
     images: hi + lo, within 2^-22 |w| of the packed weights."""
-    shape = packed_conv3x3_f32_shape(cin, cout)
+    shape = packed_conv3x3_f32_shape(cin, cout, bn)
     if tuple(packed.shape) != shape or packed.dtype != torch.float32:
         raise ValueError(f"packed f32 weights {tuple(packed.shape)} do not fit Cin {cin}, Cout {cout}: expected {shape}")
     nt, nch = shape[:2]
-    img = (packed[:, :, :, 0] + packed[:, :, :, 1]).reshape(nt, nch, 9, _F32_BN // 8, _F32_KC // 4, 8, 4)
-    blocks = img.permute(0, 1, 2, 4, 6, 3, 5).reshape(nt, nch, 9, _F32_KC, _F32_BN)
-    taps = blocks.permute(2, 1, 3, 0, 4).reshape(9, nch * _F32_KC, nt * _F32_BN)
+    img = (packed[:, :, :, 0] + packed[:, :, :, 1]).reshape(nt, nch, 9, bn // 8, _F32_KC // 4, 8, 4)
+    blocks = img.permute(0, 1, 2, 4, 6, 3, 5).reshape(nt, nch, 9, _F32_KC, bn)
+    taps = blocks.permute(2, 1, 3, 0, 4).reshape(9, nch * _F32_KC, nt * bn)
     return taps[:, :cin, :cout].reshape(3, 3, cin, cout)
 
 
@@ -269,6 +275,32 @@ def cab_mma_takes(c: int, cm: int) -> bool:
     return 2 <= c <= _CAB_MAX_C and c % 2 == 0 and 1 <= cm <= _CAB_MAX_CM
 
 
+def cab_f32_mma_takes(c: int, cm: int) -> bool:
+    """Whether B11's f32 kernel written for the H100 (``cab_body_mma_f32``)
+    takes this geometry: C a multiple of 4 up to 256 (its LN row pass, four
+    channels a piece; conv2's N tiles of 96), Cm up to 64 (conv1's one N
+    tile of 64)."""
+    return 4 <= c <= _CAB_F32_MAX_C and c % 4 == 0 and 1 <= cm <= _CAB_MAX_CM
+
+
+def pack_cab_f32_convs(w1: torch.Tensor, w2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B11's two HWIO f32 convs packed as its f32 kernel reads them
+    (:func:`pack_conv3x3_f32_weights`' hi / lo images): conv1 in 64-column
+    tiles, conv2 in 96."""
+    return pack_conv3x3_f32_weights(w1, _CAB_N1), pack_conv3x3_f32_weights(w2, _CAB_N2)
+
+
+def cab_f32_partition(h: int, w: int):
+    """B11's pixel tiles as the f32 kernel's conv2 blocks take them: tile i
+    (the partials' middle index) is the 12 x 16 pixels from (y0, x0) = (12
+    (i // ceil(W / 16)), 16 (i % ceil(W / 16))), clipped to the map. Returns
+    [(y0, y1, x0, x1)] in tile order."""
+    th, tw = _CAB_F32_TILE
+    tiles_w = -(-w // tw)
+    return [(th * (i // tiles_w), min(th * (i // tiles_w) + th, h), tw * (i % tiles_w), min(tw * (i % tiles_w) + tw, w))
+            for i in range(-(-h // th) * tiles_w)]
+
+
 def packed_cab_shape(cin: int, cout: int, nc: int) -> Tuple[int, ...]:
     """(column chunks of nc, 9 taps, K chunks of 64 input channels, 8 groups
     of 8 input channels, nc / 8 groups of 8 columns, 8 columns, 8 input
@@ -317,18 +349,22 @@ def cab_partition(h: int, w: int):
 
 
 def _cab_hwio(w: torch.Tensor, cin: int, cout: int, nc: int) -> torch.Tensor:
-    return unpack_cab_weights(w, cin, cout, nc) if w.dim() == 7 else w
+    """HWIO from B11's bf16 (7 dims) or f32 (5 dims, ``nc``-column tiles) packed weights."""
+    if w.dim() == 7:
+        return unpack_cab_weights(w, cin, cout, nc)
+    return unpack_conv3x3_f32_weights(w, cin, cout, nc) if w.dim() == 5 else w
 
 
-def cab_body_plain(x, ln_w, ln_b, w1, b1, w2, b2, res_scale: float = 1.0):
+def cab_body_plain(x, ln_w, ln_b, w1, b1, w2, b2, res_scale: float = 1.0, mm=None):
     """Plain PyTorch version of B11, computed in f32: returns (y2 in
     ``x.dtype``, f32 (B, C) sums of y2 over H and W), y2 = res_scale (conv2
     + b2). The convs zero-pad the LayerNorm output and h1, as HAT's CAB does;
-    weights HWIO or packed."""
+    weights HWIO or packed. ``mm`` (``tf32x3.matmul``: the f32 kernel's
+    products) takes both convs as im2col products."""
     c, cm = x.shape[-1], b1.shape[0]
     ln = F.layer_norm(x.float(), (c,), ln_w.float(), ln_b.float(), 1e-5)
-    h1 = F.gelu(conv3x3_plain(ln, _cab_hwio(w1, c, cm, _CAB_N1), b1))
-    y2 = res_scale * conv3x3_plain(h1, _cab_hwio(w2, cm, c, _CAB_N2), b2)
+    h1 = F.gelu(conv3x3_plain(ln, _cab_hwio(w1, c, cm, _CAB_N1), b1, mm=mm))
+    y2 = res_scale * conv3x3_plain(h1, _cab_hwio(w2, cm, c, _CAB_N2), b2, mm=mm)
     return y2.to(x.dtype), y2.sum(dim=(1, 2))
 
 
@@ -341,13 +377,22 @@ def _cab_weights(w: torch.Tensor, name: str, cin: int, cout: int, nc: int, dev: 
     return w
 
 
+def _cab_f32_weights(w: torch.Tensor, name: str, cin: int, cout: int, nc: int, dev: torch.device) -> torch.Tensor:
+    """A conv's weights as B11's f32 kernel reads them (HWIO packed on the way)."""
+    if w.dim() == 4:
+        check(w, name, (3, 3, cin, cout), torch.float32, dev)
+        w = pack_conv3x3_f32_weights(w, nc)
+    check(w, name, packed_conv3x3_f32_shape(cin, cout, nc), torch.float32, dev)
+    return w
+
+
 def fused_cab_body(x, ln_w, ln_b, w1, b1, w2, b2, res_scale: float = 1.0):
     """B11: (B, H, W, C) block input -> (y2 (B, H, W, C), channel sums (B, C)
     f32). ``w1`` (3, 3, C, Cm) and ``w2`` (3, 3, Cm, C) HWIO in the map's
-    dtype, or in bf16 packed by :func:`pack_cab_weights` (conv1 in chunks of
-    64 columns, conv2 of 96); LayerNorm weights and conv biases f32. CPU
-    tensors take the plain version; CUDA tensors launch the kernels or
-    raise."""
+    dtype, or packed: in bf16 by :func:`pack_cab_weights` (conv1 in chunks of
+    64 columns, conv2 of 96), in f32 by :func:`pack_cab_f32_convs`;
+    LayerNorm weights and conv biases f32. CPU tensors take the plain
+    version; CUDA tensors launch the kernels or raise."""
     if x.device.type == "cpu":
         return cab_body_plain(x, ln_w, ln_b, w1, b1, w2, b2, res_scale)
     if x.dtype not in KERNEL_DTYPES:
@@ -355,6 +400,10 @@ def fused_cab_body(x, ln_w, ln_b, w1, b1, w2, b2, res_scale: float = 1.0):
     bsz, h, wd, c = x.shape
     cm = b1.shape[0]
     dev, dt, f32 = x.device, x.dtype, torch.float32
+    if dt == f32 and cab_f32_mma_takes(c, cm):
+        return _cab_body_f32(x, ln_w, ln_b, w1, b1, w2, b2, res_scale)
+    if w1.dim() == 5 or w2.dim() == 5:
+        raise ValueError(f"fused_cab_body: f32 packed weights need a geometry cab_f32_mma_takes, not C {c}, Cm {cm}")
     mma = dt == torch.bfloat16 and cab_mma_takes(c, cm)
     if mma:  # kept alive until the launch is enqueued
         w1, w2 = _cab_weights(w1, "w1", c, cm, _CAB_N1, dev), _cab_weights(w2, "w2", cm, c, _CAB_N2, dev)
@@ -382,6 +431,33 @@ def fused_cab_body(x, ln_w, ln_b, w1, b1, w2, b2, res_scale: float = 1.0):
     status = call(dev, getattr(lib, entry), *ptrs, ln.data_ptr(), h1.data_ptr(), partials.data_ptr(), out.data_ptr(),
                   sums.data_ptr(), bsz, h, wd, c, cm, float(res_scale), STREAM)
     finish("fused_cab_body", status, entry)
+    return out, sums
+
+
+def _cab_body_f32(x, ln_w, ln_b, w1, b1, w2, b2, res_scale):
+    """The launch of ``csrc/cab_mma.cu``'s f32 entry (:func:`cab_f32_mma_takes`)
+    on weights packed by :func:`pack_cab_f32_convs` (HWIO packed here)."""
+    bsz, h, wd, c = x.shape
+    cm = b1.shape[0]
+    dev, f32 = x.device, torch.float32
+    pad32 = lambda v: -(-v // _F32_KC) * _F32_KC  # noqa: E731
+    # kept alive until the launch is enqueued; the kernel reads x, ln_w and ln_b four values at a time
+    w1, w2 = _cab_f32_weights(w1, "w1", c, cm, _CAB_N1, dev), _cab_f32_weights(w2, "w2", cm, c, _CAB_N2, dev)
+    check(x, "x", (bsz, h, wd, c), f32, dev)
+    lnw = aligned(operand(ln_w, "ln_w", (c,), f32, dev))
+    lnb = aligned(operand(ln_b, "ln_b", (c,), f32, dev))
+    xa = aligned(x)
+    ptrs = [xa.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), w1.data_ptr(), check(b1, "b1", (cm,), f32, dev),
+            w2.data_ptr(), check(b2, "b2", (c,), f32, dev)]
+    lib = _build.load("cab_mma", _CAB_MMA_SIGNATURES)
+    ln = torch.empty((bsz, h, wd, pad32(c)), dtype=f32, device=dev)
+    h1 = torch.empty((bsz, h, wd, pad32(cm)), dtype=f32, device=dev)
+    partials = torch.empty((bsz, call(dev, lib.cab_body_mma_f32_tiles, h, wd), c), dtype=f32, device=dev)
+    out = torch.empty_like(xa)
+    sums = torch.empty((bsz, c), dtype=f32, device=dev)
+    status = call(dev, lib.cab_body_mma_f32, *ptrs, ln.data_ptr(), h1.data_ptr(), partials.data_ptr(), out.data_ptr(),
+                  sums.data_ptr(), bsz, h, wd, c, cm, float(res_scale), STREAM)
+    finish("fused_cab_body", status, "cab_body_mma_f32")
     return out, sums
 
 

@@ -1,5 +1,5 @@
 """B10: HAT's overlapping cross-attention block (CUDA kernels ``csrc/ocab_mma.cu`` in bf16,
-``csrc/ocab.cu`` in f32 and at other geometries).
+``csrc/ocab_f32.cu`` in f32, ``csrc/ocab.cu`` at other geometries).
 
 Replaces ``studiosr_tpu/ops/pallas/ocab.py::fused_ocab_block``. On (B, H, W,
 C) maps:
@@ -33,7 +33,12 @@ above 576 keys a window its attention pass streams the keys). They read q|k|v, p
 blob (:func:`pack_ocab_block`: HAT serving packs it once, at load time, and
 the blob takes ``wqkv``'s place, ``wproj``, ``w1`` and ``w2`` None; dense
 weights are packed on every call) and the bias in bf16, rounded as the JAX
-package's kernel rounds it to the map's dtype. Other bf16 geometries and f32
+package's kernel rounds it to the map's dtype. f32 where
+:func:`ocab_f32_mma_takes` the geometry (a head dim up to 32, C a multiple
+of 4 up to 256, up to 256 queries and 576 keys a window, a hidden width up
+to 512: HAT's windows up to 16) launches the 3xTF32 kernels written for the
+H100, ``csrc/ocab_f32.cu`` (C entry ``ocab_mma_f32``), on dense weights the
+entry packs per call and the bias in f32. Other bf16 and f32 geometries
 launch ``ocab_bf16`` / ``ocab_f32`` (``csrc/ocab.cu``) on dense weights with
 the bias in f32. Each launch is counted under its C entry
 (``engagement.entries()``).
@@ -48,17 +53,20 @@ import torch.nn.functional as F
 
 from studiosr_tpu_torch.ops.attention import attention_core
 from studiosr_tpu_torch.ops.cuda import _build
-from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, check, finish, operand, STREAM, call
+from studiosr_tpu_torch.ops.cuda._launch import KERNEL_DTYPES, P, I, aligned, check, finish, operand, STREAM, call
 from studiosr_tpu_torch.ops.cuda.mlp_block import (
-    _mma_pack_index, mma_takes as mlp_mma_takes, pack_mlp_block, unpack_mlp_block,
+    _device_pack_index as _mlp_device_pack_index, _mma_pack_index, f32_mma_takes as mlp_f32_mma_takes,
+    mma_takes as mlp_mma_takes, pack_mlp_block, unpack_mlp_block,
 )
 from studiosr_tpu_torch.ops.cuda.oca_core import _kmajor_tiles
-from studiosr_tpu_torch.ops.cuda.window_attention import MAX_HEAD_DIM, _fwd_pack_index, mma_takes
+from studiosr_tpu_torch.ops.cuda.window_attention import (
+    MAX_HEAD_DIM, _device_pack_index as _attn_device_pack_index, _fwd_pack_index, mma_takes,
+)
 from studiosr_tpu_torch.ops.windows import window_partition, window_reverse
 
 __all__ = [
     "fused_ocab_block", "ocab_plain", "overlap_window", "ocab_mma_takes", "pack_ocab_block", "unpack_ocab_block",
-    "packed_ocab_elems", "pack_key_images",
+    "packed_ocab_elems", "pack_key_images", "ocab_f32_mma_takes", "ocab_f32_partition",
 ]
 
 _LL = ctypes.c_longlong
@@ -76,6 +84,14 @@ _SIGNATURES_MMA = {
     "ocab_mma_scratch": (I,) * 8 + (ctypes.POINTER(_LL),),
 }
 _RESTYPES_MMA = {"ocab_mma_pack_elems": _LL}
+_SIGNATURES_F32 = {
+    "ocab_mma_f32": (P, P) + (I,) * 8 + (P,) * 13 + (P, _LL, P, _LL, P, _LL, P),
+    "ocab_mma_f32_pack_elems": (I,) * 5,
+    "ocab_mma_f32_scratch": (I,) * 8,
+}
+_RESTYPES_F32 = {"ocab_mma_f32_pack_elems": _LL, "ocab_mma_f32_scratch": _LL}
+# csrc/ocab_f32.cu: queries a slab (a block), keys a chunk, the most queries and keys a window
+_F32_SLAB, _F32_TOK, _F32_MAX_NQ, _F32_MAX_NK = 128, 64, 256, 576
 
 
 def overlap_window(window_size: int, overlap_ratio: float):
@@ -92,6 +108,31 @@ def ocab_mma_takes(c: int, heads: int, window_size: int, overlap_ratio: float, h
     owin, pad = overlap_window(window_size, overlap_ratio)
     return (window_size >= 2 and owin == window_size + 2 * pad and mma_takes(c, heads)
             and mlp_mma_takes(c, hidden))
+
+
+def ocab_f32_mma_takes(c: int, heads: int, window_size: int, overlap_ratio: float, hidden: int) -> bool:
+    """Whether the f32 kernels written for the H100 (``ocab_mma_f32``) take
+    this geometry: a window from 2 with an even key margin, up to 256
+    queries and 576 keys (HAT's windows up to 16 at overlap 0.5), a head dim
+    up to 32 and C a multiple of 4 up to 256 (the attention pass's DP 16 or
+    32, the row passes), a hidden width up to 512 (B6 f32's MLP)."""
+    owin, pad = overlap_window(window_size, overlap_ratio)
+    return (window_size >= 2 and owin == window_size + 2 * pad and window_size ** 2 <= _F32_MAX_NQ
+            and owin ** 2 <= _F32_MAX_NK and heads >= 1 and c % heads == 0 and c // heads <= 32
+            and mlp_f32_mma_takes(c, hidden))
+
+
+def ocab_f32_partition(windows: int, heads: int, window_size: int, overlap_ratio: float):
+    """The f32 attention pass's blocks in launch order: block i owns (window
+    i // (heads SL), head i // SL % heads, queries 128 s .. 128 s + 127 of
+    the window, s = i % SL), SL = ceil(ws^2 / 128), and walks the owin^2
+    keys in ceil(owin^2 / 64) chunks. Returns [(window, head, q0, q1,
+    chunks)], q1 clipped to ws^2."""
+    owin, _ = overlap_window(window_size, overlap_ratio)
+    nq, nk = window_size ** 2, owin ** 2
+    sl, kt = -(-nq // _F32_SLAB), -(-nk // _F32_TOK)
+    return [(i // (heads * sl), i // sl % heads, i % sl * _F32_SLAB, min(i % sl * _F32_SLAB + _F32_SLAB, nq), kt)
+            for i in range(windows * heads * sl)]
 
 
 def packed_ocab_elems(c: int, heads: int, hidden: int) -> int:
@@ -153,11 +194,12 @@ def pack_key_images(k, v, window_size: int, overlap_ratio: float) -> torch.Tenso
 
 def ocab_plain(
     x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, bias, ln2_w, ln2_b, w1, b1, w2, b2,
-    *, heads: int, window_size: int, overlap_ratio: float,
+    *, heads: int, window_size: int, overlap_ratio: float, mm=torch.matmul,
 ):
     """Plain PyTorch version, computed in f32 and returned in ``x.dtype``;
     the weights dense, or packed (``wqkv`` the blob, ``wproj``, ``w1`` and
-    ``w2`` None)."""
+    ``w2`` None). ``mm`` takes each product (``tf32x3.matmul`` repeats the
+    f32 kernels' 3xTF32 arithmetic)."""
     b, h, w, c = x.shape
     if wproj is None:
         wqkv, wproj, w1, w2 = unpack_ocab_block(wqkv, c, heads, b1.numel())
@@ -165,16 +207,16 @@ def ocab_plain(
     owin, pad = overlap_window(ws, overlap_ratio)
     d = c // heads
     xf = x.float()
-    qkv = F.layer_norm(xf, (c,), ln1_w.float(), ln1_b.float(), 1e-5) @ wqkv.float() + bqkv.float()
+    qkv = mm(F.layer_norm(xf, (c,), ln1_w.float(), ln1_b.float(), 1e-5), wqkv.float()) + bqkv.float()
     q, kv = qkv[..., :c], qkv[..., c:]
     q = window_partition(q, ws).reshape(-1, ws * ws, heads, d).transpose(1, 2) * d**-0.5
     kv = F.pad(kv, (0, 0, pad, pad, pad, pad)).unfold(1, owin, ws).unfold(2, owin, ws)
     kv = kv.permute(0, 1, 2, 4, 5, 3).reshape(-1, owin * owin, 2, heads, d)
     k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
-    out = attention_core(q, k, v, bias=bias.float()).transpose(1, 2).reshape(-1, ws, ws, c)
-    y = xf + window_reverse(out, ws, h, w) @ wproj.float() + bproj.float()
-    hid = F.gelu(F.layer_norm(y, (c,), ln2_w.float(), ln2_b.float(), 1e-5) @ w1.float() + b1.float())
-    return (y + hid @ w2.float() + b2.float()).to(x.dtype)
+    out = attention_core(q, k, v, bias=bias.float(), mm=mm).transpose(1, 2).reshape(-1, ws, ws, c)
+    y = xf + mm(window_reverse(out, ws, h, w), wproj.float()) + bproj.float()
+    hid = F.gelu(mm(F.layer_norm(y, (c,), ln2_w.float(), ln2_b.float(), 1e-5), w1.float()) + b1.float())
+    return (y + mm(hid, w2.float()) + b2.float()).to(x.dtype)
 
 
 def fused_ocab_block(
@@ -201,6 +243,8 @@ def fused_ocab_block(
     if wproj is None:
         raise ValueError(f"fused_ocab_block: packed weights need bf16 and a geometry ocab_mma_takes, not {x.dtype}, "
                          f"C {c}, {heads} heads, window {ws}, key window {owin}, hidden {hidden}")
+    if x.dtype == torch.float32 and ocab_f32_mma_takes(c, heads, ws, overlap_ratio, hidden):
+        return _ocab_f32(x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, bias, ln2_w, ln2_b, w1, b1, w2, b2, heads, ws, pad)
     if c // heads > MAX_HEAD_DIM:
         raise NotImplementedError(f"fused_ocab_block: head dim {c // heads} > {MAX_HEAD_DIM}")
     dev, dt, f32 = x.device, x.dtype, torch.float32
@@ -264,4 +308,37 @@ def _ocab_mma(x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, bias, ln2_w, ln2_b, w1,
     status = call(dev, lib.ocab_mma_bf16, px, out.data_ptr(), bsz, h, w, c, heads, ws, pad, hidden,
                   *[t.data_ptr() for t in ops], pblob, pack, tscratch.data_ptr(), t_elems.value, STREAM)
     finish("fused_ocab_block", status, "ocab_mma_bf16")
+    return out
+
+
+def _ocab_f32(x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, bias, ln2_w, ln2_b, w1, b1, w2, b2, heads, ws, pad):
+    """The launch of ``csrc/ocab_f32.cu`` (f32, :func:`ocab_f32_mma_takes`) on
+    dense weights, packed and split by the entry (B5 f32's and B6 f32's
+    index tables)."""
+    bsz, h, w, c = x.shape
+    hidden = b1.numel()
+    owin = ws + 2 * pad
+    dev, f32 = x.device, torch.float32
+    lib = _build.load("ocab_f32", _SIGNATURES_F32, _RESTYPES_F32)
+    attn_index = _attn_device_pack_index(c, heads, dev, True)
+    mlp_index = _mlp_device_pack_index(c, hidden, dev, True)
+    if call(dev, lib.ocab_mma_f32_pack_elems, c, heads, ws, pad, hidden) != attn_index.numel():
+        raise RuntimeError(f"fused_ocab_block: the f32 packed weights of C {c}, {heads} heads disagree with the "
+                           "kernel's layout")
+    # the kernels read x and the LayerNorm weights four values at a time: 16-byte aligned copies
+    vec = lambda t, name, n: aligned(operand(t, name, (n,), f32, dev))  # noqa: E731
+    ops = [vec(ln1_w, "ln1_w", c), vec(ln1_b, "ln1_b", c), vec(bqkv, "bqkv", 3 * c), vec(bproj, "bproj", c),
+           aligned(operand(bias, "bias", (heads, ws * ws, owin * owin), f32, dev)),
+           vec(ln2_w, "ln2_w", c), vec(ln2_b, "ln2_b", c), vec(b1, "b1", hidden), vec(b2, "b2", c),
+           operand(wqkv, "wqkv", (c, 3 * c), f32, dev), operand(wproj, "wproj", (c, c), f32, dev),
+           operand(w1, "w1", (c, hidden), f32, dev), operand(w2, "w2", (hidden, c), f32, dev)]
+    check(x, "x", (bsz, h, w, c), f32, dev)
+    xa = aligned(x)
+    f_elems = call(dev, lib.ocab_mma_f32_scratch, bsz, h, w, c, heads, ws, pad, hidden)
+    fscratch = torch.empty(f_elems, dtype=f32, device=dev)
+    out = torch.empty_like(xa)
+    status = call(dev, lib.ocab_mma_f32, xa.data_ptr(), out.data_ptr(), bsz, h, w, c, heads, ws, pad, hidden,
+                  *[t.data_ptr() for t in ops], attn_index.data_ptr(), attn_index.numel(), mlp_index.data_ptr(),
+                  mlp_index.numel(), fscratch.data_ptr(), f_elems, STREAM)
+    finish("fused_ocab_block", status, "ocab_mma_f32")
     return out

@@ -77,7 +77,7 @@ __all__ = [
     "fused_window_attention_block", "window_attention_plain", "check_window_map", "mma_takes", "pack_window_attention",
     "unpack_window_attention", "large_window", "window_family", "padded_tokens", "f32_mma_takes",
     "pack_window_attention_f32_weights", "KERNEL_WINDOW", "KERNEL_WINDOW16", "KERNEL_WINDOW_MAX", "KERNEL_WINDOWS",
-    "MAX_HEAD_DIM", "F32_FIRST_MAX_C", "FAMILY_STEM",
+    "MAX_HEAD_DIM", "F32_FIRST_MAX_C", "FIRST_MAX_C", "FAMILY_STEM", "first_design_max_c",
 ]
 
 KERNEL_WINDOW = 8  # csrc/swin_common.cuh SB_WS: one 64-token tile a window, the largest of the small family
@@ -87,11 +87,39 @@ KERNEL_WINDOWS = range(2, KERNEL_WINDOW_MAX + 1)  # the square windows the kerne
 # a family's C entries: window_attention{stem}_..., attn_bwd{stem}_...
 FAMILY_STEM = {"": "", "_ws16": "16", "_large": "_large"}
 MAX_HEAD_DIM = 64  # csrc/qkv_attention.cuh: one head's q|k|v columns, padded to 16, fit a 64-wide tile
-# csrc/qkv_attention.cuh ln_qkv_kernel<float>, the LN + q|k|v pass of the
-# older kernels from window 9 (B5 and B9): 64 rows of x and of LN x and two
-# weight stages, 210,944 B of shared memory at C 192 and 237,824 B from 193
-# (pad32(C) 224), above the card's 227 KB
-F32_FIRST_MAX_C = 192
+SMEM_LIMIT = 232_448  # bytes of shared memory a block may hold on the H100 (227 KB)
+
+
+def _first_design_smem(c: int, dp: int, dtype: torch.dtype) -> int:
+    """Bytes of shared memory of the largest pass of the older kernels from
+    window 9 (B5: ``window_attention16.cu``, B9: ``attn_bwd16.cu``) at C
+    ``c`` and heads padded to ``dp`` columns, mirroring their layout
+    functions: ``ln_qkv_smem_layout``, ``qa_smem_layout`` (f32) /
+    ``qa_mma_smem_layout`` (bf16) in csrc/qkv_attention.cuh,
+    ``ab16_gb_smem`` and ``ab16_ln_smem_layout`` in csrc/attn_bwd16.cu."""
+    tsz = 4 if dtype == torch.float32 else 2
+    a32 = lambda v: (v + 31) // 32 * 32  # noqa: E731
+    tok, ldc, staging = 64, (c + 31) // 32 * 32 + 8, 2 * 32 * 72 * tsz  # SB_TOK, pad32(C) + SB_SKEW, staging_bytes
+    rows = a32(tok * ldc * tsz) + staging  # ln_qkv and ab16_gb: 64 rows of C and the weights' two stages
+    if dtype == torch.float32:
+        lq, o = dp + 16 // tsz, 0
+        for n in (tok * lq * tsz, 2 * tok * lq * tsz, 2 * tok * lq * tsz, tok * 68 * 4, tok * (dp + 4) * 4,
+                  tok * 4, tok * 4, tok * 4, tok * 4, tok * ldc * tsz):  # q, k, v, scores, o, m, l, cr, rid, attn
+            o = a32(o + n)
+        attn = max(o, staging)  # proj's staging lies over q, k and v
+    else:
+        o = a32(8 * tok * (dp + 8) * 2)  # k and v: two buffers x two head groups
+        attn = a32(a32(o + tok * 4) + tok * ldc * 2) + staging
+    ln_bwd = a32(a32(a32(a32(tok * c * 4) + tok * 4) + tok * 4) + 2 * tok * 40 * tsz) + staging  # dln, mean, rstd, A
+    return max(rows, attn, ln_bwd)
+
+
+def first_design_max_c(dtype: torch.dtype) -> int:
+    """The widest C whose every first-design pass at windows from 9 fits a
+    block's shared memory at every head dim up to :data:`MAX_HEAD_DIM`."""
+    return max(c for c in range(4, 4096, 4) if _first_design_smem(c, _pad16(MAX_HEAD_DIM), dtype) <= SMEM_LIMIT)
+
+
 _ARGS = (P, P, I, I, I, I, I, I, I) + (P,) * 8 + (P, ctypes.c_longlong, P)
 _SIGNATURES = {
     "window_attention_f32": _ARGS,
@@ -172,6 +200,13 @@ def f32_mma_takes(c: int, heads: int, window_size: int) -> bool:
 
 def _pad16(v: int) -> int:
     return (v + 15) // 16 * 16
+
+
+# the first design's widest C at windows from 9, a dtype: 416 in f32, where
+# the attention pass's 64 attn rows and one head's q, k, v, scores and output
+# (at head dim 64) bound it
+FIRST_MAX_C = {dt: first_design_max_c(dt) for dt in KERNEL_DTYPES}
+F32_FIRST_MAX_C = FIRST_MAX_C[torch.float32]
 
 
 def f32_wqkv_index(c: int, heads: int) -> np.ndarray:
@@ -361,8 +396,8 @@ def check_window_map(name: str, x: torch.Tensor, heads: int, window_size: int, s
     """Raise unless the window kernels (B5, B8 / B9) take this map: a square
     window of 2 to :data:`KERNEL_WINDOW_MAX` (above it the gathered f32 bias
     alone outgrows the card's memory), and above window 8 a head dim up to
-    64 and, in f32 where the 3xTF32 kernels decline, C up to
-    :data:`F32_FIRST_MAX_C`."""
+    64 and, where the kernels written for the H100 decline, C up to
+    :data:`FIRST_MAX_C` of the dtype (:func:`first_design_max_c`)."""
     if x.dtype not in KERNEL_DTYPES:
         raise TypeError(f"{name}: unsupported dtype {x.dtype}")
     if window_size not in KERNEL_WINDOWS:
@@ -374,12 +409,15 @@ def check_window_map(name: str, x: torch.Tensor, heads: int, window_size: int, s
         raise ValueError(f"{name}: shape {tuple(x.shape)}, heads {heads}, shift {shift} do not fit")
     if large_window(window_size) and c // heads > MAX_HEAD_DIM:
         raise NotImplementedError(f"{name}: head dim {c // heads} > {MAX_HEAD_DIM}")
-    if (x.dtype == torch.float32 and large_window(window_size) and not f32_mma_takes(c, heads, window_size)
-            and c > F32_FIRST_MAX_C):
+    takes = mma_takes(c, heads) if x.dtype == torch.bfloat16 else f32_mma_takes(c, heads, window_size)
+    limit = F32_FIRST_MAX_C if x.dtype == torch.float32 else FIRST_MAX_C[x.dtype]
+    if large_window(window_size) and not takes and c > limit:
+        kernels = (f"the bf16 kernels take head dims up to {MMA_MAX_HEAD_DIM} at C up to {MMA_MAX_C}" if x.dtype == torch.bfloat16 else
+                   f"the 3xTF32 kernels take head dims up to 32 at C up to {F32_MAX_C} and windows up to "
+                   f"{KERNEL_WINDOW16}")
         raise NotImplementedError(
-            f"{name}: f32 at window {window_size}, C {c}, {heads} heads: the 3xTF32 kernels take head dims up to 32 "
-            f"at C up to {F32_MAX_C} and windows up to {KERNEL_WINDOW16}, the older kernels C up to "
-            f"{F32_FIRST_MAX_C} in f32 (the shared memory of their LN + q|k|v pass)")
+            f"{name}: {str(x.dtype)[6:]} at window {window_size}, C {c}, {heads} heads: {kernels}, the older kernels "
+            f"C up to {limit} (the shared memory of their passes, first_design_max_c)")
 
 
 def fused_window_attention_block(

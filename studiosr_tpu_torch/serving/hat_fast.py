@@ -6,9 +6,10 @@ Port of ``studiosr_tpu/serving/hat_fast.py``: the exact HAT eval computation
 * B11 (``ops/cuda/conv3x3.py::fused_cab_body``) runs the CAB trunk on the
   block input, y2 = conv2(gelu(conv1(LN1 x))), with the per-image channel
   sums of y2; the squeeze-excite gate g = sigmoid(conv(relu(conv(mean))))
-  runs in plain ops, mean = sums / (H W) of the padded map; in bf16 its two
-  convs are packed once, at load time, for the kernel written for the H100
-  (``pack_cab_convs``, where ``cab_mma_takes`` the geometry);
+  runs in plain ops, mean = sums / (H W) of the padded map; its two convs
+  are packed once, at load time, for the kernels written for the H100
+  (in bf16 ``pack_cab_convs``, where ``cab_mma_takes`` the geometry; in f32
+  ``pack_cab_f32_convs``, where ``cab_f32_mma_takes`` it);
 * B5 at the model's window (``ops/cuda/window_attention.py``; HAT's 16, or
   any window from 2) computes y = x + attn(LN1 x), the shift folded in and
   the output aligned, so the
@@ -46,7 +47,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from studiosr_tpu_torch.models.blocks import DEFAULT_RGB_MEAN
-from studiosr_tpu_torch.ops.cuda.conv3x3 import cab_mma_takes, fused_cab_body, fused_conv3x3, pack_cab_convs
+from studiosr_tpu_torch.ops.cuda.conv3x3 import (
+    cab_f32_mma_takes, cab_mma_takes, fused_cab_body, fused_conv3x3, pack_cab_convs, pack_cab_f32_convs,
+)
 from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mma_takes as mlp_mma_takes, pack_mlp_block
 from studiosr_tpu_torch.ops.cuda.ocab import fused_ocab_block, ocab_mma_takes, pack_ocab_block
 from studiosr_tpu_torch.ops.cuda.window_attention import fused_window_attention_block, mma_takes, pack_window_attention
@@ -65,8 +68,8 @@ __all__ = ["hat_fast_forward", "prepare_hat_serving"]
 
 def prepare_hat_serving(module: nn.Module, config: Dict[str, Any], dtype) -> Dict[str, Any]:
     """Lay every kernel's weights out once, at load time: dense weights to
-    (in, out) and conv weights to HWIO in ``dtype`` (B2's and B11's packed in
-    bf16, and B5's q|k|v, proj and rel-pos bias in one blob, B6's fc1 and fc2
+    (in, out) and conv weights to HWIO in ``dtype`` (B2's and B11's packed,
+    and in bf16 B5's q|k|v, proj and rel-pos bias in one blob, B6's fc1 and fc2
     in another, B10's q|k|v, proj, fc1 and fc2 in a third), the rel-pos
     biases gathered to (heads, ws², ws²) and (heads, ws², owin²) ((heads,
     256, 256) and (heads, 256, 576) at window 16; the latter in ``dtype``),
@@ -84,6 +87,8 @@ def prepare_hat_serving(module: nn.Module, config: Dict[str, Any], dtype) -> Dic
             w2, b2 = _conv_operands(cab["2"], dtype)
             if dtype == torch.bfloat16 and cab_mma_takes(w1.shape[2], w1.shape[3]):
                 w1, w2 = pack_cab_convs(w1, w2)
+            elif dtype == torch.float32 and cab_f32_mma_takes(w1.shape[2], w1.shape[3]):
+                w1, w2 = pack_cab_f32_convs(w1, w2)
             attn = dict(**_ln(blk.norm1), wqkv=_dense(a.qkv, dtype), bqkv=_f32(a.qkv.bias),
                         wproj=_dense(a.proj, dtype), bproj=_f32(a.proj.bias),
                         bias=gather_rel_bias(_f32(a.relative_position_bias_table), rpi, heads).contiguous())

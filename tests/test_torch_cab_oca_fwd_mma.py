@@ -25,8 +25,8 @@ from studiosr_tpu.ops.pallas.oca_core import oca_core_fwd as jax_oca_core_fwd
 from studiosr_tpu_torch import HAT
 from studiosr_tpu_torch.ops.cuda import engagement
 from studiosr_tpu_torch.ops.cuda.conv3x3 import (
-    cab_body_plain, cab_mma_takes, cab_partition, fused_cab_body, pack_cab_convs, pack_cab_weights,
-    packed_cab_shape, unpack_cab_weights,
+    cab_body_plain, cab_f32_mma_takes, cab_mma_takes, cab_partition, fused_cab_body, pack_cab_convs,
+    pack_cab_weights, packed_cab_shape, unpack_cab_weights,
 )
 from studiosr_tpu_torch.ops.cuda.oca_core import (
     counter, fwd_from_images, mma_takes, oca_core_fwd, pack_fwd_images,
@@ -173,7 +173,8 @@ def test_b11_plain_on_packed_and_hwio_weights_matches_pallas(shape, cm, res_scal
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_prepare_hat_serving_packs_b11_in_bf16_only(dtype):
     """bf16 serving packs each CAB's two convs at load time for the H100
-    kernel; f32 keeps HWIO, the layout of cab_body.cu."""
+    kernel; f32 at this C (30, not a multiple of 4: cab_body.cu's route)
+    keeps HWIO, the layout of cab_body.cu."""
     model = HAT.build(scale=4, embed_dim=30, depths=[1], num_heads=[2], window_size=8, compress_ratio=3,
                       device="cpu")
     prep = prepare_hat_serving(model.module, model.config, dtype)
@@ -187,6 +188,7 @@ def test_prepare_hat_serving_packs_b11_in_bf16_only(dtype):
         assert tuple(cab["w2"].shape) == packed_cab_shape(cm, c, 96)
         assert torch.equal(unpack_cab_weights(cab["w1"], c, cm, 64), hwio1)
     else:
+        assert not cab_f32_mma_takes(c, cm)
         assert tuple(cab["w1"].shape) == (3, 3, c, cm) and tuple(cab["w2"].shape) == (3, 3, cm, c)
         assert torch.equal(cab["w1"], hwio1)
 
@@ -306,12 +308,13 @@ def _launches(lib):
     (torch.bfloat16, 24, 8, False, "cab_body_mma_bf16"),  # the trained fixtures' width
     (torch.bfloat16, 200, 60, False, "cab_body_bf16"),  # C above 192: the older kernel, by rule
     (torch.bfloat16, 180, 72, False, "cab_body_bf16"),  # Cm above 64
-    (torch.float32, 180, 60, False, "cab_body_f32"),
+    (torch.float32, 180, 60, False, "cab_body_mma_f32"),  # HAT's f32 serving: the 3xTF32 kernel
 ])
 def test_fused_cab_body_routes_by_dtype_and_geometry(monkeypatch, dtype, c, cm, packed, entry):
-    """bf16 with C even up to 192 and Cm up to 64 goes to the kernel written
-    for the H100, with ``res_scale`` handed on; each launch counts under
-    ``fused_cab_body`` and its C entry."""
+    """bf16 with C even up to 192 and Cm up to 64, and f32 with C a multiple
+    of 4 up to 256 and Cm up to 64, go to the kernels written for the H100,
+    with ``res_scale`` handed on; each launch counts under ``fused_cab_body``
+    and its C entry."""
     import studiosr_tpu_torch.ops.cuda.conv3x3 as module
 
     lib = _fake(monkeypatch, module)
@@ -325,7 +328,7 @@ def test_fused_cab_body_routes_by_dtype_and_geometry(monkeypatch, dtype, c, cm, 
     assert y2.shape == (2, 9, 11, c) and y2.dtype == dtype and sums.shape == (2, c) and sums.dtype == f32
     assert _launches(lib) == [entry]
     assert lib.calls[-1][1][-2:] == (0.25, 0)  # res_scale, the stream
-    assert (dtype == torch.bfloat16 and cab_mma_takes(c, cm)) == ("mma" in entry)
+    assert (cab_mma_takes(c, cm) if dtype == torch.bfloat16 else cab_f32_mma_takes(c, cm)) == ("mma" in entry)
     assert engagement.entries() == {"fused_cab_body": {entry: 1}}
     engagement.reset()
 

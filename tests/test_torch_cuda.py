@@ -19,12 +19,13 @@ from studiosr_tpu_torch import HAT, SwinIR, resolve_device
 from studiosr_tpu_torch.ops.cuda import engagement
 from studiosr_tpu_torch.ops.cuda.attn_bwd import attention_bwd, attention_bwd_plain, f32_mma_takes
 from studiosr_tpu_torch.ops.cuda.conv3x3 import (
-    cab_body_plain, conv3x3_plain, fused_cab_body, fused_conv3x3, pack_conv3x3_f32_weights, pack_conv3x3_weights,
+    cab_body_plain, conv3x3_plain, fused_cab_body, fused_conv3x3, pack_cab_f32_convs, pack_conv3x3_f32_weights,
+    pack_conv3x3_weights,
 )
 from studiosr_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mlp_block_plain, pack_mlp_block
 from studiosr_tpu_torch.ops.cuda.mlp_bwd import mlp_bwd, mlp_bwd_plain
 from studiosr_tpu_torch.ops.cuda.ocab import (
-    fused_ocab_block, ocab_mma_takes, ocab_plain, overlap_window, pack_ocab_block,
+    fused_ocab_block, ocab_f32_mma_takes, ocab_mma_takes, ocab_plain, overlap_window, pack_ocab_block,
 )
 from studiosr_tpu_torch.ops.cuda.swin_block import fused_swin_block, swin_block_plain
 from studiosr_tpu_torch.ops.cuda.upsampler import (
@@ -700,19 +701,50 @@ def test_cab_body_h100_kernel_matches_plain(dev, shape, cm, res_scale):
 
 
 def test_cab_body_routes_by_dtype_and_geometry(dev):
-    """f32, and bf16 outside the H100 kernel's geometry (C 200, Cm 72, odd
-    C), take cab_body.cu; res_scale reaches both routes."""
+    """f32 and bf16 outside the H100 kernels' geometries (f32: Cm 72, C 30;
+    bf16: C 200, Cm 72, odd C) take cab_body.cu, f32 inside it
+    cab_body_mma_f32; res_scale reaches every route."""
     gen = torch.Generator().manual_seed(5)
     engagement.reset()
-    for dtype, c, cm in ((torch.float32, 32, 10), (torch.bfloat16, 200, 20), (torch.bfloat16, 32, 72),
-                         (torch.bfloat16, 33, 10)):
+    for dtype, c, cm in ((torch.float32, 32, 10), (torch.float32, 32, 72), (torch.float32, 30, 10),
+                         (torch.bfloat16, 200, 20), (torch.bfloat16, 32, 72), (torch.bfloat16, 33, 10)):
         x = _randn(gen, 1, 9, 11, c).to(dev, dtype)
         ops = _cab_operands(gen, c, cm, dev, dtype)
         got = fused_cab_body(x, *ops, res_scale=0.25)
         want = cab_body_plain(x.float(), *[t.float() for t in ops], res_scale=0.25)
         for a, e in zip(got, want):
             _assert_close(a, e, dtype)
-    assert engagement.entries() == {"fused_cab_body": {"cab_body_f32": 1, "cab_body_bf16": 3}}
+    assert engagement.entries() == {"fused_cab_body": {"cab_body_mma_f32": 1, "cab_body_f32": 2,
+                                                       "cab_body_bf16": 3}}
+
+
+# B11 in f32 on the kernel written for the H100 (``csrc/cab_mma.cu``
+# cab_body_mma_f32 on ``csrc/conv3x3_f32.cuh``): H100_CAB_CASES, C 180 with
+# Cm 32 (h1 at one 32-channel chunk) and C 256 (the widest).
+H100_CAB_F32_CASES = H100_CAB_CASES + [((1, 24, 40, 180), 32, 1.0), ((1, 12, 16, 256), 64, 1.0)]
+
+
+@pytest.mark.parametrize("shape,cm,res_scale", H100_CAB_F32_CASES)
+def test_cab_body_f32_h100_kernel_matches_plain(dev, shape, cm, res_scale):
+    """Against the plain version in f32 on the same packed weights (hi +
+    lo) at the f32 limit; HWIO weights give the bits of weights packed at
+    load time; two launches the same bits (no atomic sums)."""
+    c = shape[-1]
+    gen = torch.Generator().manual_seed(sum(shape) + cm + 32)
+    x = _randn(gen, *shape).to(dev)
+    ops = _cab_operands(gen, c, cm, dev, torch.float32)
+    w1, w2 = pack_cab_f32_convs(ops[2], ops[4])
+    packed = [ops[0], ops[1], w1, ops[3], w2, ops[5]]
+    engagement.reset()
+    got = fused_cab_body(x, *packed, res_scale=res_scale)
+    again = fused_cab_body(x, *packed, res_scale=res_scale)
+    hwio = fused_cab_body(x, *ops, res_scale=res_scale)
+    assert engagement.entries() == {"fused_cab_body": {"cab_body_mma_f32": 3}}
+    want = cab_body_plain(x, *packed, res_scale=res_scale)
+    for a, e in zip(got, want):
+        assert a.shape == e.shape
+        _assert_close(a, e, torch.float32)
+    assert all(torch.equal(a, b) and torch.equal(a, h) for a, b, h in zip(got, again, hwio))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -808,22 +840,71 @@ def test_ocab_h100_kernel_matches_plain(dev, c, heads, shape, ws, overlap):
 
 
 def test_ocab_routes_by_dtype_and_geometry(dev):
-    """f32, and bf16 outside the H100 kernels' geometry (head dim 48), take
-    ``csrc/ocab.cu``; bf16 inside it ``csrc/ocab_mma.cu``; packed weights
-    outside it raise."""
+    """bf16 and f32 outside the H100 kernels' geometries (head dim 48) take
+    ``csrc/ocab.cu``; bf16 inside it ``csrc/ocab_mma.cu``, f32
+    ``csrc/ocab_f32.cu``; packed weights outside it raise."""
     gen = torch.Generator().manual_seed(4)
     engagement.reset()
-    for dtype, c, heads in ((torch.float32, 32, 2), (torch.bfloat16, 96, 2), (torch.bfloat16, 32, 2)):
+    for dtype, c, heads in ((torch.float32, 32, 2), (torch.float32, 96, 2), (torch.bfloat16, 96, 2),
+                            (torch.bfloat16, 32, 2)):
         blk = _block_operands(gen, c, heads, 2 * c, ws=8)
         ops = blk[:6] + [_randn(gen, heads, 64, 256, scale=0.5)] + blk[7:]
         ops = [t.to(dev, dtype if i in (2, 4, 9, 11) else torch.float32) for i, t in enumerate(ops)]
         x = _randn(gen, 1, 16, 24, c).to(dev, dtype)
         kw = dict(heads=heads, window_size=8, overlap_ratio=1.0)
         _assert_close(fused_ocab_block(x, *ops, **kw), ocab_plain(x.float(), *[t.float() for t in ops], **kw), dtype)
-    assert engagement.entries() == {"fused_ocab_block": {"ocab_f32": 1, "ocab_bf16": 1, "ocab_mma_bf16": 1}}
+    assert engagement.entries() == {"fused_ocab_block": {"ocab_mma_f32": 1, "ocab_f32": 1, "ocab_bf16": 1,
+                                                         "ocab_mma_bf16": 1}}
     blob = pack_ocab_block(ops[2], ops[4], ops[9], ops[11], 2)
     with pytest.raises(ValueError, match="packed weights"):
         fused_ocab_block(x.float(), *ops[:2], blob, ops[3], None, *ops[5:9], None, ops[10], None, ops[12], **kw)
+
+
+# B10 in f32 on the kernels written for the H100 (``csrc/ocab_f32.cu``):
+# H100_OCAB_CASES (HAT's window 16 with 576 keys, window 8 with 144 and 256
+# keys, HAT x4 serving's map) and window 12 (144 queries: a ragged second
+# slab; 324 keys).
+H100_OCAB_F32_CASES = H100_OCAB_CASES + [(180, 6, (1, 24, 36), 12, 0.5)]
+
+
+@pytest.mark.parametrize("c,heads,shape,ws,overlap", H100_OCAB_F32_CASES)
+def test_ocab_f32_h100_kernel_matches_plain(dev, c, heads, shape, ws, overlap):
+    """Against the plain version in f32 at the f32 limit; two launches the
+    same bits."""
+    gen = torch.Generator().manual_seed(c + ws + shape[0] + 32)
+    owin, _ = overlap_window(ws, overlap)
+    blk = _block_operands(gen, c, heads, 2 * c, ws=ws)
+    ops = [t.to(dev) for t in blk[:6] + [_randn(gen, heads, ws * ws, owin * owin, scale=0.5)] + blk[7:]]
+    x = _randn(gen, *shape, c).to(dev)
+    kw = dict(heads=heads, window_size=ws, overlap_ratio=overlap)
+    assert ocab_f32_mma_takes(c, heads, ws, overlap, 2 * c)
+    engagement.reset()
+    got = fused_ocab_block(x, *ops, **kw)
+    again = fused_ocab_block(x, *ops, **kw)
+    assert engagement.entries() == {"fused_ocab_block": {"ocab_mma_f32": 2}}
+    _assert_close(got, ocab_plain(x, *ops, **kw), torch.float32)
+    assert torch.equal(got, again)
+
+
+def test_first_designs_at_declined_f32_geometries_match_plain(dev):
+    """The first designs keep the f32 geometries the 3xTF32 kernels decline:
+    B11 at Cm 72 and at C 30 (cab_body_f32), B10 at head dim 48 and at C
+    30 (ocab_f32), each against its plain version."""
+    gen = torch.Generator().manual_seed(48)
+    engagement.reset()
+    for c, cm in ((180, 72), (30, 10)):
+        x = _randn(gen, 1, 24, 40, c).to(dev)
+        ops = _cab_operands(gen, c, cm, dev, torch.float32)
+        for a, e in zip(fused_cab_body(x, *ops), cab_body_plain(x, *ops)):
+            _assert_close(a, e, torch.float32)
+    for c, heads, hidden in ((96, 2, 192), (30, 2, 60)):
+        blk = _block_operands(gen, c, heads, hidden, ws=16)
+        ops = [t.to(dev) for t in blk[:6] + [_randn(gen, heads, 256, 576, scale=0.5)] + blk[7:]]
+        x = _randn(gen, 1, 32, 48, c).to(dev)
+        kw = dict(heads=heads, window_size=16, overlap_ratio=0.5)
+        assert not ocab_f32_mma_takes(c, heads, 16, 0.5, hidden)
+        _assert_close(fused_ocab_block(x, *ops, **kw), ocab_plain(x, *ops, **kw), torch.float32)
+    assert engagement.entries() == {"fused_cab_body": {"cab_body_f32": 2}, "fused_ocab_block": {"ocab_f32": 2}}
 
 
 def test_small_hat_fused_matches_plain_on_the_card(dev):
@@ -1003,9 +1084,11 @@ def test_window_kernels_take_every_window_from_2_to_16(dev, ws, dtype, c, heads)
 # drop-path scale, shift ws // 2 and 0; every output against the plain
 # version, two launches of each the same bits; head dim 64 (up to C 192)
 # and C not a multiple of 4 keep the first design (window_attention16_f32,
-# attn_bwd16_f32).
+# attn_bwd16_f32), and so do C11's geometries above the 3xTF32 kernels' C
+# or head dim (C 264 / 12 heads at window 12, C 256 / 4 heads at 16), which
+# the first design takes since its LN + q|k|v and dln passes were restaged.
 F32_WS16_CASES = [(16, 180, 6, 8), (16, 180, 6, 0), (12, 180, 6, 6), (10, 128, 4, 5), (9, 32, 2, 4), (9, 32, 2, 0),
-                  (16, 128, 2, 8), (12, 192, 3, 6), (9, 90, 6, 4)]
+                  (16, 128, 2, 8), (12, 192, 3, 6), (9, 90, 6, 4), (12, 264, 12, 6), (16, 256, 4, 8)]
 
 
 @pytest.mark.parametrize("ws,c,heads,shift", F32_WS16_CASES)
@@ -1034,12 +1117,13 @@ def test_f32_ws16_kernels_match_plain_and_repeat(dev, ws, c, heads, shift):
 
 
 def test_f32_geometry_no_kernel_takes_raises_and_a_refusal_leaves_no_error(dev, monkeypatch):
-    """C11: f32 at window 12, C 264 (12 heads) is declined by the 3xTF32
-    kernels (C above 256) and needs more shared memory than the card has in
-    the first design's LN + q|k|v pass (above C 192): the wrapper raises
-    NotImplementedError before any launch. Let through, the card refuses
-    the launch (CUDA error 1), and the next launch of the same library (C
-    128, 2 heads) still runs and matches its plain version."""
+    """f32 at window 12, C 448 (8 heads of 56) is declined by the 3xTF32
+    kernels (C above 256, head dim above 32) and needs more shared memory
+    than the card has in the first design's attention pass (above C 416,
+    F32_FIRST_MAX_C): the wrapper raises NotImplementedError before any
+    launch. Let through, the card refuses the launch (CUDA error 1), and the
+    next launch of the same library (C 128, 2 heads) still runs and matches
+    its plain version."""
     from studiosr_tpu_torch.ops.cuda import window_attention as wa
 
     gen = torch.Generator().manual_seed(264)
@@ -1049,7 +1133,7 @@ def test_f32_geometry_no_kernel_takes_raises_and_a_refusal_leaves_no_error(dev, 
         ops = [t.to(dev) for t in _block_operands(gen, c, heads, 2 * c, ws=ws)[:7]]
         return _randn(gen, 2, 2 * ws, 2 * ws, c).to(dev), ops, dict(heads=heads, window_size=ws, shift=ws // 2)
 
-    x, ops, kw = case(264, 12)
+    x, ops, kw = case(448, 8)
     engagement.reset()
     with pytest.raises(NotImplementedError):
         fused_window_attention_block(x, *ops, **kw)
@@ -2097,8 +2181,9 @@ def test_oca_core_at_every_hat_window(dev, dtype, bw, heads, ws, d):
 # 8 and 16, 24 and 32 (more than 576 keys: the attention pass streams
 # them), at overlap 0.5 and 1.0, HAT's 180 / 6 at window 12; bf16 on the
 # kernels written for the H100 (the blob and dense weights give the same
-# bits, two launches the same bits), f32 and bf16 at head dim 48 on ocab.cu
-# (its last 64-query chunk of a window partial at 12).
+# bits, two launches the same bits), f32 up to 256 queries and 576 keys at
+# head dims up to 32 on its 3xTF32 kernels, f32 above and bf16 at head dim
+# 48 on ocab.cu (its last 64-query chunk of a window partial at 12).
 HAT_OCAB_WINDOWS = [(48, 2, (1, 8, 12), 4, 0.5), (32, 2, (1, 10, 15), 5, 0.5), (32, 2, (2, 16, 24), 8, 0.5),
                     (180, 6, (1, 24, 36), 12, 0.5), (24, 3, (1, 24, 24), 12, 1.0), (32, 2, (1, 32, 48), 16, 0.5),
                     (32, 2, (1, 40, 40), 20, 0.5), (48, 2, (1, 48, 72), 24, 0.5), (48, 2, (1, 64, 64), 32, 0.5),
@@ -2120,9 +2205,12 @@ def test_ocab_at_every_hat_window(dev, dtype, c, heads, shape, ws, overlap):
     engagement.reset()
     got = fused_ocab_block(x, *ops, **kw)
     mma = dtype == torch.bfloat16 and ocab_mma_takes(c, heads, ws, overlap, 2 * c)
-    entry = "ocab_mma_bf16" if mma else ("ocab_bf16" if dtype == torch.bfloat16 else "ocab_f32")
+    f32_mma = dtype == torch.float32 and ocab_f32_mma_takes(c, heads, ws, overlap, 2 * c)
+    entry = "ocab_mma_bf16" if mma else "ocab_mma_f32" if f32_mma else (
+        "ocab_bf16" if dtype == torch.bfloat16 else "ocab_f32")
     assert engagement.entries() == {"fused_ocab_block": {entry: 1}}
     assert mma == (dtype == torch.bfloat16 and c // heads <= 32)
+    assert f32_mma == (dtype == torch.float32 and c // heads <= 32 and ws <= 16)
     _assert_close(got, ocab_plain(x.float(), *[t.float() for t in ops], **kw), dtype)
     if mma:
         served = list(ops)

@@ -418,14 +418,17 @@ def test_fused_tails_route_f32_wide_passes(monkeypatch, scale, cin, entry):
 
 
 def test_b11_f32_keeps_its_cab_kernel(monkeypatch):
-    """B11's CAB trunk (GELU and the channel partials) keeps ``cab_body_f32``
-    in f32: the f32 conv written for the H100 is not its route."""
+    """B11's CAB trunk (GELU and the channel partials) runs its own entry in
+    f32, ``cab_body_mma_f32`` (B2's f32 kernel in its CAB instantiation),
+    not B2's conv entry; Cm above 64 keeps ``cab_body_f32``."""
     import studiosr_tpu_torch.ops.cuda.conv3x3 as module
 
     lib = _fake(monkeypatch, module)
-    c, cm = 180, 60
-    fused_cab_body(_meta(1, 8, 8, c), _meta(c), _meta(c), _meta(3, 3, c, cm), _meta(cm), _meta(3, 3, cm, c), _meta(c))
-    assert [n for n, _ in lib.calls] == ["cab_body_f32"]
+    for c, cm, entry in ((180, 60, "cab_body_mma_f32"), (180, 72, "cab_body_f32")):
+        lib.calls.clear()
+        fused_cab_body(_meta(1, 8, 8, c), _meta(c), _meta(c), _meta(3, 3, c, cm), _meta(cm), _meta(3, 3, cm, c),
+                       _meta(c))
+        assert [n for n, _ in lib.calls if not n.endswith(("_tiles", "_partials"))] == [entry]
     engagement.reset()
 
 

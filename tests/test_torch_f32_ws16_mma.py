@@ -100,19 +100,27 @@ def _launches(lib):
 
 # (dtype, window, C, heads, stem): f32 at windows 9, 12 and 16 with head dims
 # up to 32 (HAT's 6 of 30, MaxSR's 4 of 32, 2 of 16) takes the 3xTF32
-# entries "16_mma_f32"; head dim 64 (up to C 192) and C not a multiple of 4
-# keep the first design "16_f32"; window 17 the streaming family
-# "_large_f32"; bf16 keeps its routes
+# entries "16_mma_f32"; head dim 64, C not a multiple of 4 and C above 256
+# keep the first design "16_f32" (up to C 416, F32_FIRST_MAX_C); window 17
+# the streaming family "_large_f32"; bf16 keeps its routes. The C11
+# geometries (C 264 and 256 above the 3xTF32 kernels' C or head dim) have
+# had the first design since its passes were restaged.
 ROUTES = [
     (torch.float32, 9, 32, 2, "16_mma_f32"),
     (torch.float32, 10, 128, 4, "16_mma_f32"),
     (torch.float32, 12, 180, 6, "16_mma_f32"),
     (torch.float32, 16, 180, 6, "16_mma_f32"),
     (torch.float32, 16, 128, 2, "16_f32"),  # head dim 64
-    (torch.float32, 12, 192, 3, "16_f32"),  # head dim 64 at the first design's largest f32 C
+    (torch.float32, 12, 192, 3, "16_f32"),  # head dim 64
     (torch.float32, 12, 90, 6, "16_f32"),  # C not a multiple of 4
     (torch.float32, 17, 128, 4, "_large_f32"),
     (torch.bfloat16, 16, 180, 6, "16_mma_bf16"),
+    (torch.float32, 12, 264, 6, "16_f32"),  # C11: C above 256
+    (torch.float32, 12, 264, 12, "16_f32"),
+    (torch.float32, 16, 256, 4, "16_f32"),  # C11: head dim 64 at C 256
+    (torch.float32, 9, 224, 4, "16_f32"),
+    (torch.float32, 17, 224, 4, "_large_f32"),
+    (torch.float32, 12, 416, 8, "16_f32"),  # the first design's widest f32 C
 ]
 
 
@@ -174,18 +182,18 @@ def test_b9_ws16_routes_by_dtype_window_and_width(monkeypatch, dtype, ws, c, hea
 
 # f32 geometries no kernel takes from window 9: the 3xTF32 kernels decline
 # them (head dim above 32, C above 256, window above 16) and the first
-# design's LN + q|k|v pass needs more than the card's 227 KB of shared
-# memory above C 192 (F32_FIRST_MAX_C). Fault C11: they reached the first
-# design, which refused them with CUDA error 1 and left that error for the
-# next launch of its library.
-DECLINED = [(12, 264, 6), (12, 264, 12), (16, 256, 4), (9, 224, 4), (17, 224, 4)]
+# design's passes need more than the card's 227 KB of shared memory above C
+# 416 (F32_FIRST_MAX_C, computed by window_attention.first_design_max_c from
+# the layout functions; the attention pass at head dim 64 bounds it).
+DECLINED = [(12, 448, 8), (12, 420, 7), (16, 512, 8), (9, 480, 8), (17, 448, 8)]
 
 
 @pytest.mark.parametrize("ws,c,heads", DECLINED)
 def test_f32_geometries_no_kernel_takes_raise_before_any_launch(monkeypatch, ws, c, heads):
     """B5 and B9 raise NotImplementedError on such a CUDA-bound f32 map
     (here on meta tensors) before they call any C entry or count a launch;
-    C 192 at the same window and heads still launches its kernel."""
+    C 416 at the same window and heads still launches its kernel."""
+    assert fwd_module.F32_FIRST_MAX_C == fwd_module.first_design_max_c(torch.float32) == 416
     assert not f32_mma_takes(c, heads, ws) and c > fwd_module.F32_FIRST_MAX_C
     n, f32 = ws * ws, torch.float32
     for module in (fwd_module, bwd_module):

@@ -43,7 +43,7 @@ from studiosr_tpu_torch import HAT
 from studiosr_tpu_torch.ops.cuda import engagement
 from studiosr_tpu_torch.ops.cuda.oca_core import counter, oca_core_bwd, oca_core_fwd
 from studiosr_tpu_torch.ops.cuda.ocab import (
-    fused_ocab_block, ocab_mma_takes, overlap_window, pack_key_images, pack_ocab_block,
+    fused_ocab_block, ocab_f32_mma_takes, ocab_mma_takes, overlap_window, pack_key_images, pack_ocab_block,
 )
 from studiosr_tpu_torch.ops.windows import gather_rel_bias, relative_position_index_oca
 from studiosr_tpu_torch.serving.hat_fast import hat_fast_forward
@@ -222,7 +222,8 @@ def test_fused_train_hat_matches_jax_at_window_24():
 def test_every_even_margin_window_reaches_a_kernel(monkeypatch, ws, dtype):
     """HAT x4 serving's widths (C 180, 6 heads, hidden 360) for B10 and the
     OCA core on 2 x 3 windows: bf16 B10 on the kernels written for the H100,
-    f32 on ocab.cu; B12 / B13 in bf16 on the H100 entries (the large ones
+    f32 on its 3xTF32 kernels up to 256 queries and 576 keys and on ocab.cu
+    above; B12 / B13 in bf16 on the H100 entries (the large ones
     above 256 queries or 576 keys), in f32 on oca_core.cu but B13 up to
     256 queries and 576 keys on its 3xTF32 entry; nothing raises."""
     import studiosr_tpu_torch.ops.cuda.oca_core as oca_module
@@ -250,7 +251,8 @@ def test_every_even_margin_window_reaches_a_kernel(monkeypatch, ws, dtype):
     large = nq > 256 or nk > 576
     kind = ("large_mma_bf16" if large else "mma_bf16") if bf16 else "f32"
     bwd_kind = "f32" if large else "mma_f32"  # f32 B13 up to window 16 on its 3xTF32 entry
-    assert engagement.entries() == {"fused_ocab_block": {"ocab_mma_bf16" if bf16 else "ocab_f32": 1},
+    f32_entry = "ocab_mma_f32" if ocab_f32_mma_takes(c, heads, ws, 0.5, hidden) else "ocab_f32"
+    assert engagement.entries() == {"fused_ocab_block": {"ocab_mma_bf16" if bf16 else f32_entry: 1},
                                     counter("oca_core_fwd", nq, nk): {f"oca_core_fwd_{kind}": 1},
                                     counter("oca_core_bwd", nq, nk): {f"oca_core_bwd_{kind if bf16 else bwd_kind}": 1}}
     engagement.reset()

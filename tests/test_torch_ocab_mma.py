@@ -30,8 +30,8 @@ from studiosr_tpu_torch.ops.cuda import engagement
 from studiosr_tpu_torch.ops.cuda.mlp_block import pack_mlp_block
 from studiosr_tpu_torch.ops.cuda.oca_core import _kmajor_tiles, fwd_from_images
 from studiosr_tpu_torch.ops.cuda.ocab import (
-    fused_ocab_block, ocab_mma_takes, overlap_window, pack_key_images, pack_ocab_block, packed_ocab_elems,
-    unpack_ocab_block,
+    fused_ocab_block, ocab_f32_mma_takes, ocab_mma_takes, overlap_window, pack_key_images, pack_ocab_block,
+    packed_ocab_elems, unpack_ocab_block,
 )
 from studiosr_tpu_torch.ops.cuda.window_attention import pack_window_attention
 from studiosr_tpu_torch.ops.windows import gather_rel_bias, relative_position_index_oca, window_partition, window_reverse
@@ -344,6 +344,11 @@ class _FakeLibrary:
     def ocab_mma_pack_elems(self, c, heads, hidden):
         return packed_ocab_elems(c, heads, hidden)
 
+    def ocab_mma_f32_pack_elems(self, c, heads, ws, pad, hidden):
+        from studiosr_tpu_torch.ops.cuda.window_attention import _f32_fwd_pack_index
+
+        return _f32_fwd_pack_index(c, heads).size
+
     def __getattr__(self, name):
         def entry(*args):
             self.calls.append((name, args))
@@ -361,14 +366,15 @@ class _FakeLibrary:
     (torch.bfloat16, 30, 2, 16, 0.5, 60, False, "ocab_bf16"),  # C not a multiple of 4
     (torch.bfloat16, 180, 6, 16, 0.5, 720, False, "ocab_bf16"),  # hidden above 384
     (torch.bfloat16, 32, 2, 16, 1.0, 64, False, "ocab_mma_bf16"),  # 32 x 32 keys: the streaming attention pass
-    (torch.float32, 180, 6, 16, 0.5, 360, False, "ocab_f32"),
+    (torch.float32, 180, 6, 16, 0.5, 360, False, "ocab_mma_f32"),  # HAT's f32 serving: the 3xTF32 kernels
 ])
 def test_fused_ocab_block_routes_by_dtype_and_geometry(monkeypatch, dtype, c, heads, ws, overlap, hidden, packed,
                                                        entry):
-    """bf16 where ``ocab_mma_takes`` the geometry goes to the kernels written
-    for the H100 with the map's geometry and the bias's margin handed on;
-    other bf16 geometries and f32 take ocab.cu; each launch counts under
-    ``fused_ocab_block`` and its C entry."""
+    """bf16 where ``ocab_mma_takes`` the geometry, and f32 where
+    ``ocab_f32_mma_takes`` it, go to the kernels written for the H100 with
+    the map's geometry and the bias's margin handed on; other bf16
+    geometries take ocab.cu; each launch counts under ``fused_ocab_block``
+    and its C entry."""
     import studiosr_tpu_torch.ops.cuda.ocab as module
     from studiosr_tpu_torch.ops.cuda import _build
 
@@ -391,7 +397,8 @@ def test_fused_ocab_block_routes_by_dtype_and_geometry(monkeypatch, dtype, c, he
     launches = [(name, args) for name, args in lib.calls if not name.endswith(("_scratch", "_elems"))]
     assert [name for name, _ in launches] == [entry]
     assert launches[0][1][2:10] == (*shape[:3], c, heads, ws, pad, hidden)
-    assert (dtype == torch.bfloat16 and ocab_mma_takes(c, heads, ws, overlap, hidden)) == ("mma" in entry)
+    takes = ocab_mma_takes if dtype == torch.bfloat16 else ocab_f32_mma_takes
+    assert takes(c, heads, ws, overlap, hidden) == ("mma" in entry)
     assert engagement.entries() == {"fused_ocab_block": {entry: 1}}
     engagement.reset()
 
